@@ -1,0 +1,622 @@
+// The Cessna 172 systems as per-aircraft __device__ functions: mechanical
+// actuation, aerodynamics, one landing-gear leg (strut and contact), the
+// IO-360 engine with its propeller, fuel, payload and the mass-property sum.
+// They are the fine parts of the systems clusters of flightjax/parallel/
+// clusterstep.py (k_actaero, k_ldg0..2, k_pwp; k_fin_act, k_fin_ldg0..2,
+// k_fin_rest), composed by systems.cu and finish_sys.cu.
+//
+// Every formula mirrors the plain PyTorch port (flightjax_torch/models/c172/
+// common.py, flightjax_torch/physics/{landinggear,piston,propellers,
+// control}.py) operation by operation and in the same association order,
+// in Strict<F> like the rest of flight_math.cuh. Model parameters and
+// tables are not compiled in: they arrive in one parameter buffer built by
+// flightjax_torch/parallel/kernels.py::system_params from the Python model
+// objects, laid out by the enums below (the parity tests check the two
+// agree). Formula literals stay literals, as in the Python.
+#pragma once
+
+#include "flight_math.cuh"
+
+namespace fj {
+
+constexpr double PI = 3.141592653589793;
+
+// ------------------------------------------------------------- parameters
+
+// Aero (models/c172/common.py::Aero): geometry, filter, control ranges as
+// (lower end, slope) of the _scale map, stall hysteresis, AERO_CONST
+enum AeroP : int {
+  AE_S, AE_b, AE_c, AE_tau, AE_V_min, AE_e_lo, AE_e_sc, AE_a_lo, AE_a_sc,
+  AE_r_lo, AE_r_sc, AE_f_lo, AE_f_sc, AE_stall_lo, AE_stall_hi,
+  AE_CD_zero, AE_CY_dr, AE_CY_da, AE_CL_de, AE_CL_q, AE_CL_adot, AE_Cl_da,
+  AE_Cl_dr, AE_Cl_beta, AE_Cl_p, AE_Cm_zero, AE_Cm_de, AE_Cm_alpha, AE_Cm_q,
+  AE_Cm_adot, AE_Cn_dr, AE_Cn_da, AE_Cn_beta, AE_Cn_p, AE_Cn_r, AE_N
+};
+
+// one gear leg (physics/landinggear.py::LandingGearUnit), friction PI last
+enum LegP : int {
+  LG_r_bs_x, LG_r_bs_y, LG_r_bs_z, LG_l_0, LG_k_s, LG_k_d_ext, LG_k_d_cmp,
+  LG_psi_max, LG_eta_br, LG_frc_k_p, LG_frc_k_i, LG_frc_k_l, LG_frc_beta_p,
+  LG_frc_lo, LG_frc_hi, LG_N
+};
+
+// engine (physics/piston.py::PistonEngine) and the thruster's gear ratio;
+// J_sum = J + gear_ratio^2 J_xx of the propeller, tau_fr_sc the friction
+// torque scale 0.01 P_rated / omega_rated, both formed in Python
+enum EngP : int {
+  EN_omega_idle, EN_omega_rated, EN_omega_stall, EN_tau_start, EN_P_rated,
+  EN_tau_fr_sc, EN_J_sum, EN_gear_ratio, EN_idle_k_p, EN_idle_k_i,
+  EN_idle_k_l, EN_idle_beta_p, EN_idle_lo, EN_idle_hi, EN_frc_k_p,
+  EN_frc_k_i, EN_frc_k_l, EN_frc_beta_p, EN_frc_lo, EN_frc_hi, EN_N
+};
+
+// propeller (physics/propellers.py::Propeller); d/2, d^4, d^5 formed in
+// Python as its output() forms them
+enum PropP : int {
+  PR_d, PR_d_half, PR_d4, PR_d5, PR_J_xx, PR_sense, PR_dbeta, PR_r_bp_x,
+  PR_r_bp_y, PR_r_bp_z, PR_N
+};
+
+// airframe mass properties, unusable and usable fuel mass (M_RES and
+// M_FULL - M_RES, formed in Python), tanks and payload slots (in the order
+// Systems.payload_mp_b sums them)
+enum MassP : int {
+  MS_m, MS_J00, MS_J01, MS_J02, MS_J10, MS_J11, MS_J12, MS_J20, MS_J21,
+  MS_J22, MS_r_OG_x, MS_r_OG_y, MS_r_OG_z, MS_M_RES, MS_M_USABLE, MS_tank0_x,
+  MS_tank0_y, MS_tank0_z, MS_tank1_x, MS_tank1_y, MS_tank1_z, MS_pilot_x,
+  MS_pilot_y, MS_pilot_z, MS_copilot_x, MS_copilot_y, MS_copilot_z,
+  MS_lpass_x, MS_lpass_y, MS_lpass_z, MS_rpass_x, MS_rpass_y, MS_rpass_z,
+  MS_baggage_x, MS_baggage_y, MS_baggage_z, MS_N
+};
+
+// tables: the buffer holds each one's offset at P_TB + index
+enum TableP : int {
+  TB_CD_df, TB_CD_ge, TB_CD_alpha_df, TB_CY_beta_df, TB_CY_p, TB_CY_r,
+  TB_CL_ge, TB_CL_alpha, TB_CL_df, TB_Cl_r, TB_Cm_df, TB_delta_wot,
+  TB_mu_wot, TB_pi_std, TB_pi_wot, TB_pi_ratio, TB_sfc_ratio, TB_sfc_pow,
+  TB_prop, TB_N
+};
+
+constexpr int N_LEGS = 3;
+constexpr int P_AE = 0;
+constexpr int P_LG = P_AE + AE_N;
+constexpr int P_EN = P_LG + N_LEGS * LG_N;
+constexpr int P_PR = P_EN + EN_N;
+constexpr int P_MS = P_PR + PR_N;
+constexpr int P_TB = P_MS + MS_N;
+constexpr int P_HEAD = P_TB + TB_N;
+
+// ------------------------------------------------------------- row maps
+
+// x_sys: aero alpha_filt, beta_filt; fuel; ldg frc[3][2]; engine frc, idle,
+// omega
+constexpr int XS_ALPHA = 0, XS_BETA = 1, XS_FUEL = 2, XS_FRC = 3,
+              XS_EFRC = 9, XS_IDLE = 10, XS_OMEGA = 11, N_XSYS = 12;
+// u_sys: act (11, sorted names), engine mixture, mixture_ctl, start, stop,
+// throttle; payload pilot, copilot, lpass, rpass, baggage
+constexpr int US_AIL = 0, US_AIL_OFF = 1, US_BRK_L = 2, US_BRK_R = 3,
+              US_ELV = 4, US_ELV_OFF = 5, US_FLAPS = 6, US_MIX = 7,
+              US_RUD = 8, US_RUD_OFF = 9, US_THR = 10, US_E_MIX = 11,
+              US_E_MIXCTL = 12, US_E_START = 13, US_E_STOP = 14,
+              US_E_THR = 15, US_PLD = 16, N_USYS = 21;
+// s_sys: aero stall, crashed, engine state (all as 0/1/2 in T)
+constexpr int SS_STALL = 0, SS_CRASHED = 1, SS_STATE = 2, N_SSYS = 3;
+// terrain: elevation, normal[3], surface code
+constexpr int TR_ELEV = 0, TR_NORMAL = 1, TR_SURF = 4, N_TRN = 5;
+// mass properties m, J[3][3], r_OG[3]; wrench F[3], tau[3]; rotor momentum
+constexpr int N_MP = 13, N_WR = 6, N_HR = 3;
+
+// systems: in  = x_sys, k_sys, u_sys, s_sys, trn, KinData, AirData, term
+//          out = x_sys derivative, mp_b, wr_b, hr_b
+constexpr int SYS_N_IN =
+    2 * N_XSYS + N_USYS + N_SSYS + N_TRN + N_KIN + N_AIR + 1;        // 116
+constexpr int SYS_N_OUT = N_XSYS + N_MP + N_WR + N_HR;               // 34
+// finish_sys: in  = x_sys, ksum_sys, u_sys, s_sys, trn, KinData, AirData
+//             out = x_sys, s_sys
+constexpr int FSYS_N_IN =
+    2 * N_XSYS + N_USYS + N_SSYS + N_TRN + N_KIN + N_AIR;            // 115
+constexpr int FSYS_N_OUT = N_XSYS + N_SSYS;                          // 15
+
+// ------------------------------------------------------------- helpers
+
+template <typename T>
+__device__ __forceinline__ const T* table(const T* P, int k) {
+  return P + int(P[P_TB + k].v);
+}
+
+template <typename T>
+__device__ __forceinline__ T lookup1(const T* P, int k, T x0) {
+  const T x[1] = {x0};
+  T out[1];
+  lookup(table(P, k), x, out);
+  return out[0];
+}
+
+template <typename T>
+__device__ __forceinline__ T lookup2(const T* P, int k, T x0, T x1) {
+  const T x[2] = {x0, x1};
+  T out[1];
+  lookup(table(P, k), x, out);
+  return out[0];
+}
+
+template <typename T>
+struct PIParams {
+  T k_p, k_i, k_l, beta_p, lo, hi;
+};
+
+template <typename T>
+__device__ __forceinline__ PIParams<T> pi_params(const T* p) {
+  return {p[0], p[1], p[2], p[3], p[4], p[5]};
+}
+
+// continuous PI with anti-windup, sat_ext = 0 (physics/control.py::pi_ode):
+// returns the integrator derivative, sets the clamped output
+template <typename T>
+__device__ __forceinline__ T pi_ode(const PIParams<T>& p, T x_i, T inp,
+                                    T& output) {
+  const T u_p = p.beta_p * inp;
+  const T out_free = p.k_p * u_p + x_i;
+  output = clamp(out_free, p.lo, p.hi);
+  const int sat = int(out_free >= p.hi) - int(out_free <= p.lo);
+  const bool halted = inp * T(double(sat)) > T(0);
+  return p.k_i * inp * (T(1.0) - T(halted ? 1.0 : 0.0)) - p.k_l * x_i;
+}
+
+// ------------------------------------------------------------- actuation
+// models/c172/c172s.py::MechanicalActuation
+
+template <typename T>
+struct Act {
+  T e, a, r, f, steering, brake_left, brake_right, throttle, mixture;
+};
+
+template <typename T>
+__device__ __forceinline__ Act<T> actuation(const Col<T>& c, int r) {
+  const T one = T(1.0), zero = T(0.0);
+  const T ail = clamp(c(r + US_AIL_OFF) + c(r + US_AIL), -one, one);
+  const T elv = clamp(c(r + US_ELV_OFF) + c(r + US_ELV), -one, one);
+  const T rud = clamp(c(r + US_RUD_OFF) + c(r + US_RUD), -one, one);
+  return {-elv, ail, -rud, clamp(c(r + US_FLAPS), zero, one), rud,
+          clamp(c(r + US_BRK_L), zero, one), clamp(c(r + US_BRK_R), zero, one),
+          clamp(c(r + US_THR), zero, one), clamp(c(r + US_MIX), zero, one)};
+}
+
+// ------------------------------------------------------------- aero
+// models/c172/common.py::Aero
+
+// airflow angles with the low-TAS guard, and the guarded velocity
+template <typename T>
+__device__ __forceinline__ void alpha_gated(const Air<T>& air, T& alpha,
+                                            T& beta, V3<T>& v_safe) {
+  const bool small = air.TAS <= T(0.1);
+  v_safe = small ? V3<T>{T(1.0), T(0), T(0)} : air.v_wb_b;
+  T a, b;
+  airflow_angles(v_safe, a, b);
+  alpha = small ? T(0) : a;
+  beta = small ? T(0) : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T scale_u(T u, double lo_u, double hi_u, T lo,
+                                     T sc) {
+  return lo + sc * (clamp(u, T(lo_u), T(hi_u)) - T(lo_u));
+}
+
+// derivative of the alpha/beta filters and the aero wrench in body axes
+template <typename T>
+__device__ void aero(const T* P, T alpha_filt, T beta_filt, const Act<T>& u,
+                     bool stall, const Kin<T>& kin, const Air<T>& air,
+                     T elevation, T& alpha_filt_dot, T& beta_filt_dot,
+                     V3<T>& F, V3<T>& tau) {
+  const T* A = P + P_AE;
+  T alpha, beta;
+  V3<T> v_safe;
+  alpha_gated(air, alpha, beta, v_safe);
+  const T V = clamp_min(air.TAS, A[AE_V_min]);
+  alpha_filt_dot = (alpha - alpha_filt) / A[AE_tau];
+  beta_filt_dot = (beta - beta_filt) / A[AE_tau];
+  const T V2 = T(2.0) * V;
+  const T p_nd = kin.omega_wb_b.x * A[AE_b] / V2;
+  const T q_nd = kin.omega_wb_b.y * A[AE_c] / V2;
+  const T r_nd = kin.omega_wb_b.z * A[AE_b] / V2;
+  T alpha_dot_nd = alpha_filt_dot * A[AE_c] / V2;
+  const T de = scale_u(u.e, -1.0, 1.0, A[AE_e_lo], A[AE_e_sc]);
+  const T da = scale_u(u.a, -1.0, 1.0, A[AE_a_lo], A[AE_a_sc]);
+  const T dr = scale_u(u.r, -1.0, 1.0, A[AE_r_lo], A[AE_r_sc]);
+  const T df = scale_u(u.f, 0.0, 1.0, A[AE_f_lo], A[AE_f_sc]);
+  const T dh_nd = (kin.h_o - elevation) / A[AE_b];
+
+  // coefficient assembly (get_aero_coeffs)
+  alpha = clamp(alpha, T(-0.1), T(0.36));
+  beta = clamp(beta, T(-0.2), T(0.2));
+  alpha_dot_nd = clamp(alpha_dot_nd, T(-0.04), T(0.04));
+  const T stall_f = T(stall ? 1.0 : 0.0);
+  const T cd_beta = T(0.17) * Abs(beta);
+  const T cd_de = T(0.06) * Abs(de);
+  const T cd_df = lookup1(P, TB_CD_df, df);
+  const T cd_ge = lookup1(P, TB_CD_ge, dh_nd);
+  const T cd_adf = lookup2(P, TB_CD_alpha_df, alpha, df);
+  const T cy_bdf = lookup2(P, TB_CY_beta_df, beta, df);
+  const T cy_p = lookup2(P, TB_CY_p, alpha, df);
+  const T cy_r = lookup2(P, TB_CY_r, alpha, df);
+  const T cl_ge = lookup1(P, TB_CL_ge, dh_nd);
+  const T cl_a = lookup2(P, TB_CL_alpha, alpha, stall_f);
+  const T cl_df = lookup1(P, TB_CL_df, df);
+  const T cl_r = lookup2(P, TB_Cl_r, alpha, df);
+  const T cm_df = lookup1(P, TB_Cm_df, df);
+
+  const T C_D = A[AE_CD_zero] + cd_ge * (cd_adf + cd_df) + cd_de + cd_beta;
+  const T C_Y = A[AE_CY_dr] * dr + A[AE_CY_da] * da + cy_bdf + cy_p * p_nd +
+                cy_r * r_nd;
+  const T C_L = cl_ge * (cl_a + cl_df) + A[AE_CL_de] * de + A[AE_CL_q] * q_nd +
+                A[AE_CL_adot] * alpha_dot_nd;
+  const T C_l = A[AE_Cl_da] * da + A[AE_Cl_dr] * dr + A[AE_Cl_beta] * beta +
+                A[AE_Cl_p] * p_nd + cl_r * r_nd;
+  const T C_m = A[AE_Cm_zero] + A[AE_Cm_de] * de + cm_df +
+                A[AE_Cm_alpha] * alpha + A[AE_Cm_q] * q_nd +
+                A[AE_Cm_adot] * alpha_dot_nd;
+  const T C_n = A[AE_Cn_dr] * dr + A[AE_Cn_da] * da + A[AE_Cn_beta] * beta +
+                A[AE_Cn_p] * p_nd + A[AE_Cn_r] * r_nd;
+
+  // stability -> airframe rotation from the algebraic cos/sin alpha
+  const T vx = v_safe.x, vz = v_safe.z;
+  const T m2 = vx * vx + vz * vz;
+  const T minv = Rsqrt(clamp_min(m2, T(1e-30)));
+  const bool okm = m2 > T(0);
+  const T ca = okm ? vx * minv : T(1.0);
+  const T sa = okm ? vz * minv : T(0.0);
+  const T qS = air.q * A[AE_S];
+  F = rot2_y(ca, -sa, V3<T>{qS * -C_D, qS * C_Y, qS * -C_L});
+  tau = {qS * (C_l * A[AE_b]), qS * (C_m * A[AE_c]), qS * (C_n * A[AE_b])};
+}
+
+// ------------------------------------------------------------- gear leg
+// physics/landinggear.py::LandingGearUnit
+
+constexpr double PSI_SKID = 10.0 * (PI / 180.0);
+constexpr double ALPHA_TS_MAX = 60.0 * (PI / 180.0);
+constexpr double XI_DOT_MAX = 10.0;
+
+// strut quantities, masked to the weight-off-wheels defaults
+template <typename T>
+struct Strut {
+  bool wow;
+  T xi_dot, F_dmp_zs, alpha_ts;
+  V3<T> r_bc_b;
+  Q4<T> q_sc, q_bc;
+  T vx, vy;
+};
+
+template <typename T>
+__device__ Strut<T> strut_y(const T* L, T steering, const Kin<T>& kin,
+                            T elevation, V3<T> normal) {
+  const T l_0 = L[LG_l_0];
+  const Q4<T> q_bs = {T(1.0), T(0.0), T(0.0), T(0.0)};
+  const V3<T> r_bs_b = {L[LG_r_bs_x], L[LG_r_bs_y], L[LG_r_bs_z]};
+  const V3<T> E1 = {T(1.0), T(0.0), T(0.0)}, E3 = {T(0.0), T(0.0), T(1.0)};
+
+  const Q4<T> q_es = qmul(kin.q_eb, q_bs);
+  const V3<T> ks_e = qrot(q_es, E3);
+  const V3<T> r_bs_e = qrot(kin.q_eb, r_bs_b);
+  const V3<T> n_up_e = kin.n_e;
+  const V3<T> d_e = add(r_bs_e, scale(l_0, ks_e));
+  const T h_e_w0 = kin.h_e + dot(d_e, n_up_e);
+  const T h_e_trn = elevation + (kin.h_e - kin.h_o);
+  const T delta_h = h_e_w0 - h_e_trn;
+  const bool wow = delta_h <= T(0);
+  const V3<T> r_st_e = sub(scale(l_0, ks_e), scale(delta_h, n_up_e));
+
+  const V3<T> ut_n = normal;
+  const V3<T> ut_e = qrot(kin.q_en, ut_n);
+  const T ut_ks = dot(ut_e, ks_e);
+  const T ut_ks_safe = Abs(ut_ks) < T(1e-6)
+                           ? (ut_ks < T(0) ? T(-1e-6) : T(1e-6))
+                           : ut_ks;
+  const T l = dot(ut_e, r_st_e) / ut_ks_safe;
+  const T alpha_ts = Acos(clamp(ut_ks, T(-1.0), T(1.0)));
+  const T xi = clamp_max(l - l_0, T(0.0));
+
+  const T ls = l_0 + xi;
+  const V3<T> r_sc_b = qrot(q_bs, V3<T>{E3.x * ls, E3.y * ls, E3.z * ls});
+  const V3<T> r_bc_b = add(r_sc_b, r_bs_b);
+  const V3<T> v_ec_b_body = add(kin.v_eb_b, cross(kin.omega_eb_b, r_bc_b));
+  const T psi_sw = clamp(steering, T(-1.0), T(1.0)) * L[LG_psi_max];
+
+  const Q4<T> q_sw = rot_z(psi_sw);
+  const Q4<T> q_ns = qmul(kin.q_nb, q_bs);
+  const Q4<T> q_nw = qmul(q_ns, q_sw);
+  const V3<T> kc_n = ut_n;
+  const V3<T> iw_n = qrot(q_nw, E1);
+  const V3<T> iw_n_trn = sub(iw_n, scale(dot(iw_n, kc_n), kc_n));
+  const T nrm = Sqrt(iw_n_trn.x * iw_n_trn.x + iw_n_trn.y * iw_n_trn.y +
+                     iw_n_trn.z * iw_n_trn.z + T(1e-12));
+  const V3<T> ic_n = {iw_n_trn.x / nrm, iw_n_trn.y / nrm, iw_n_trn.z / nrm};
+  const V3<T> jc_n = cross(kc_n, ic_n);
+  const Q4<T> q_nc = matrix_to_quat(ic_n, jc_n, kc_n);
+  const Q4<T> q_sc = qmul(qconj(q_ns), q_nc);
+  const Q4<T> q_bc = qmul(q_bs, q_sc);
+
+  const V3<T> v_ec_c_body = qrot_inv(q_bc, v_ec_b_body);
+  const V3<T> ks_c = qrot_inv(q_sc, E3);
+  const T ks_c3 = Abs(ks_c.z) < T(1e-6) ? T(1e-6) : ks_c.z;
+  const T xi_dot = -v_ec_c_body.z / ks_c3;
+  const T k_d = xi_dot > T(0) ? L[LG_k_d_ext] : L[LG_k_d_cmp];
+  const T F_dmp_zs = -(L[LG_k_s] * xi + k_d * xi_dot);
+  const V3<T> v_ec_c = add(v_ec_c_body, scale(xi_dot, ks_c));
+
+  const T z = T(0.0);
+  const Q4<T> q1 = {T(1.0), z, z, z};
+  Strut<T> s;
+  s.wow = wow;
+  s.xi_dot = wow ? xi_dot : z;
+  s.F_dmp_zs = wow ? F_dmp_zs : z;
+  s.alpha_ts = wow ? alpha_ts : z;
+  s.r_bc_b = wow ? r_bc_b : V3<T>{z, z, z};
+  s.q_sc = wow ? q_sc : q1;
+  s.q_bc = wow ? q_bc : q1;
+  s.vx = wow ? v_ec_c.x : z;
+  s.vy = wow ? v_ec_c.y : z;
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ T mu_blend(T mu_s, T mu_d, double v_s, double v_d,
+                                      T v) {
+  const T k_sd = clamp((v - T(v_s)) / T(v_d - v_s), T(0.0), T(1.0));
+  return k_sd * mu_d + (T(1.0) - k_sd) * mu_s;
+}
+
+// contact wrench in body axes, zero off the ground; out_x/out_y are the
+// friction regulator's outputs
+template <typename T>
+__device__ void contact_wrench(const T* L, T braking, const Strut<T>& s,
+                               int surface, T out_x, T out_y, V3<T>& F,
+                               V3<T>& tau) {
+  const T norm_v = Sqrt(s.vx * s.vx + s.vy * s.vy + T(1e-12));
+  const T m_roll = mu_blend(T(0.03), T(0.02), 0.005, 0.01, norm_v);
+  const double mu_s = surface == 0 ? 0.75 : (surface == 1 ? 0.25 : 0.075);
+  const double mu_d = surface == 0 ? 0.25 : (surface == 1 ? 0.15 : 0.025);
+  const T m_skid = mu_blend(T(mu_s), T(mu_d), 0.005, 0.01, norm_v);
+  const T kappa_br = clamp(braking, T(0.0), T(1.0)) * L[LG_eta_br];
+  const T mu_x = m_roll + (m_skid - m_roll) * kappa_br;
+
+  const bool small_v = norm_v < T(1e-3);
+  const T psi_cv = small_v ? T(PI / 2) : Atan2(s.vy, s.vx);
+  const T psi_skid = T(PSI_SKID);
+  const T psi_abs = Abs(psi_cv);
+  const T mu_y =
+      psi_abs < psi_skid
+          ? m_skid * psi_abs / psi_skid
+          : (psi_abs > T(PI - PSI_SKID)
+                 ? m_skid * (T(1.0) - (psi_skid + psi_abs - T(PI)) / psi_skid)
+                 : m_skid);
+
+  const T sc = clamp_max(m_skid / Sqrt(mu_x * mu_x + mu_y * mu_y + T(1e-12)),
+                         T(1.0));
+  const V3<T> f_c = {out_x * (mu_x * sc), out_y * (mu_y * sc), T(-1.0)};
+  const V3<T> f_s = qrot(s.q_sc, f_c);
+  const T f_s3 = Abs(f_s.z) < T(1e-6) ? T(-1e-6) : f_s.z;
+  const T N = clamp_min(-s.F_dmp_zs / f_s3, T(0.0));
+  const V3<T> F_c = {f_c.x * N, f_c.y * N, f_c.z * N};
+  const V3<T> F_b = qrot(s.q_bc, F_c);
+  const V3<T> tau_b = add(qrot(s.q_bc, V3<T>{T(0.0), T(0.0), T(0.0)}),
+                          cross(s.r_bc_b, F_b));
+  const V3<T> z = {T(0.0), T(0.0), T(0.0)};
+  F = s.wow ? F_b : z;
+  tau = s.wow ? tau_b : z;
+}
+
+// gear leg `leg`: friction-regulator derivative and contact wrench
+template <typename T>
+__device__ void gear_leg(const T* P, int leg, T frc_x, T frc_y, T steering,
+                         T braking, const Kin<T>& kin, T elevation,
+                         V3<T> normal, int surface, T& frc_dot_x,
+                         T& frc_dot_y, V3<T>& F, V3<T>& tau) {
+  const T* L = P + P_LG + leg * LG_N;
+  const Strut<T> s = strut_y(L, steering, kin, elevation, normal);
+  const PIParams<T> pi = pi_params(L + LG_frc_k_p);
+  T out_x, out_y;
+  frc_dot_x = pi_ode(pi, frc_x, -s.vx, out_x);
+  frc_dot_y = pi_ode(pi, frc_y, -s.vy, out_y);
+  contact_wrench(L, braking, s, surface, out_x, out_y, F, tau);
+}
+
+// ------------------------------------------------------------- powerplant
+// physics/propellers.py::Propeller.output, physics/piston.py
+
+template <typename T>
+struct PropOut {
+  V3<T> F_b, tau_b, hr_b;
+  T tau_px;  // shaft torque component of the propeller-frame wrench
+};
+
+template <typename T>
+__device__ PropOut<T> propeller(const T* P, const Kin<T>& kin,
+                                const Air<T>& air, T omega) {
+  const T* R = P + P_PR;
+  const Q4<T> q_bp = {T(1.0), T(0.0), T(0.0), T(0.0)};
+  const V3<T> r_bp = {R[PR_r_bp_x], R[PR_r_bp_y], R[PR_r_bp_z]};
+  const V3<T> v_b = add(air.v_wb_b, cross(kin.omega_eb_b, r_bp));
+  const V3<T> v_p = qrot_inv(q_bp, v_b);
+  const T v_J = Sqrt(v_p.x * v_p.x + v_p.y * v_p.y + v_p.z * v_p.z + T(1e-12));
+  const T omega_J = clamp_min(Abs(omega), T(1.0));
+  const T J = T(2.0 * PI) * v_J / (omega_J * R[PR_d]);
+  const T Mt = Abs(omega) * R[PR_d_half] / air.a;
+  const T x[3] = {J, Mt, R[PR_dbeta]};
+  T C[6];
+  lookup(table(P, TB_prop), x, C);
+  T alpha_p, beta_p;
+  airflow_angles(v_p, alpha_p, beta_p);
+  const T sense = R[PR_sense];
+  const V3<T> C_F = {C[0], C[2] * beta_p, C[2] * alpha_p};
+  const V3<T> C_M = {sense * C[1], sense * (C[3] * beta_p),
+                     sense * (C[3] * alpha_p)};
+  const T f = omega / T(2.0 * PI);
+  const T f2 = f * f;
+  const V3<T> F_p = scale(air.rho * f2 * R[PR_d4], C_F);
+  const V3<T> tau_p = scale(air.rho * f2 * R[PR_d5], C_M);
+  PropOut<T> o;
+  o.F_b = qrot(q_bp, F_p);
+  o.tau_b = add(qrot(q_bp, tau_p), cross(r_bp, o.F_b));
+  o.tau_px = tau_p.x;
+  o.hr_b = qrot(q_bp, V3<T>{R[PR_J_xx] * omega, T(0.0), T(0.0)});
+  return o;
+}
+
+constexpr double BETA_TROPO = -6.5e-3;
+constexpr double F_LEAN = 0.0625, F_RICH = 0.0950;
+
+template <typename T>
+__device__ __forceinline__ T T_ISA(T p) {
+  return T(T_STD) * Pow(p / T(P_STD), T(-BETA_TROPO * R_GAS / G_STD));
+}
+
+// engine derivative (omega, idle, frc) and fuel flow; `state` is 0 off,
+// 1 starting, 2 running
+template <typename T>
+__device__ void engine(const T* P, T omega, T idle, T frc, T throttle_u,
+                       T mixture_u, T mixture_ctl, int state,
+                       const Air<T>& air, T tau_load, T& omega_dot,
+                       T& idle_dot, T& frc_dot, T& mdot) {
+  const T* E = P + P_EN;
+  const T throttle = clamp(throttle_u, T(0.0), T(1.0));
+  const T mixture = clamp(mixture_u, T(0.0), T(1.0));
+  T frc_out, idle_out;
+  frc_dot = pi_ode(pi_params(E + EN_frc_k_p), frc, -omega, frc_out);
+  idle_dot = pi_ode(pi_params(E + EN_idle_k_p), idle,
+                    T(1.0) - omega / E[EN_omega_idle], idle_out);
+  const T mu_ratio_idle = T(0.5) + idle_out;
+  const T n = omega / E[EN_omega_rated];
+  const T delta = air.p / T(P_STD) * Rsqrt(T_ISA(air.p) / T(T_STD));
+
+  const T k_f = T(1.0) / Sqrt(air.rho / T(RHO_STD));
+  const T f_target = T(F_LEAN) + mixture * T(F_RICH - F_LEAN);
+  const T mixture_pos = mixture_ctl == T(0.0)
+                            ? T(0.5) * (mixture + T(1.0))
+                            : f_target / (k_f * T(F_RICH));
+  const T f_run = k_f * T(F_RICH) * mixture_pos;
+
+  const T mu_wot = lookup2(P, TB_mu_wot, n, delta);
+  const T pi_ratio_f = lookup1(P, TB_pi_ratio, f_run);
+  const T sfc_ratio_f = lookup1(P, TB_sfc_ratio, f_run);
+  const T mu = mu_wot * (mu_ratio_idle + throttle * (T(1.0) - mu_ratio_idle));
+  const T delta_wot = lookup2(P, TB_delta_wot, n, mu);
+  const T pi_std = lookup2(P, TB_pi_std, n, mu);
+  const T pi_wot = lookup2(P, TB_pi_wot, n, delta_wot);
+  const T denom = delta_wot - T(1.0);
+  const bool degenerate = Abs(denom) < T(5e-3);
+  const T denom_safe = degenerate ? T(1.0) : denom;
+  const T pi_interp = pi_std + (pi_wot - pi_std) / denom_safe * (delta - T(1.0));
+  const T pi_isa = clamp_min(degenerate ? pi_std : pi_interp, T(0.0));
+
+  const T pi_pow = pi_isa * Sqrt(T_ISA(air.p) / air.Tk);
+  const T pi_actual = pi_pow * pi_ratio_f;
+  const T P_run = E[EN_P_rated] * pi_actual;
+  const T omega_safe = omega > T(1e-3) ? omega : T(1.0);
+  const T tau_run = omega > T(0) ? P_run / omega_safe : T(0.0);
+  const T SFC_run = lookup2(P, TB_sfc_pow, n, pi_actual) * sfc_ratio_f;
+  const T mdot_run = SFC_run * P_run;
+  const T tau_fr = frc_out * E[EN_tau_fr_sc];
+
+  const T tau_shaft =
+      state == 0 ? tau_fr : (state == 1 ? E[EN_tau_start] : tau_run);
+  mdot = state == 2 ? mdot_run : T(0.0);
+  omega_dot = (tau_shaft + tau_load) / E[EN_J_sum];
+}
+
+// engine state machine (PistonEngine.f_step)
+template <typename T>
+__device__ __forceinline__ int engine_step(const T* P, int state, T omega,
+                                           bool start, bool stop,
+                                           bool fuel_available) {
+  const T* E = P + P_EN;
+  const int next_off = start ? 1 : 0;
+  const int next_starting = (omega > E[EN_omega_idle] && fuel_available)
+                                ? 2
+                                : (!start ? 0 : 1);
+  const bool dies = stop || omega < E[EN_omega_stall] || !fuel_available;
+  const int next_running = dies ? 0 : 2;
+  return state == 0 ? next_off : (state == 1 ? next_starting : next_running);
+}
+
+// ------------------------------------------------------------- mass
+
+template <typename T>
+struct MP {
+  T m;
+  M33<T> J;
+  V3<T> r;
+};
+
+template <typename T>
+__device__ __forceinline__ MP<T> mp_zero() {
+  const T z = T(0.0);
+  return {z, {{{z, z, z}, {z, z, z}, {z, z, z}}}, {z, z, z}};
+}
+
+// MassProps.__add__
+template <typename T>
+__device__ __forceinline__ MP<T> mp_add(const MP<T>& a, const MP<T>& b) {
+  MP<T> o;
+  o.m = a.m + b.m;
+  const T safe_m = o.m > T(0) ? o.m : T(1.0);
+  o.r = {(a.m * a.r.x + b.m * b.r.x) / safe_m,
+         (a.m * a.r.y + b.m * b.r.y) / safe_m,
+         (a.m * a.r.z + b.m * b.r.z) / safe_m};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) o.J.m[i][j] = a.J.m[i][j] + b.J.m[i][j];
+  return o;
+}
+
+// point mass m at r (mass_props_point)
+template <typename T>
+__device__ __forceinline__ MP<T> mp_point(T m, V3<T> r) {
+  const M33<T> SS = mm(skew(r), skew(r));
+  MP<T> o;
+  o.m = m;
+  o.r = r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) o.J.m[i][j] = -(m * SS.m[i][j]);
+  return o;
+}
+
+template <typename T>
+__device__ __forceinline__ V3<T> pvec(const T* p) {
+  return {p[0], p[1], p[2]};
+}
+
+template <typename T>
+__device__ __forceinline__ T fuel_m_total(const T* M, T x_fuel) {
+  return M[MS_M_RES] + x_fuel * M[MS_M_USABLE];
+}
+
+// airframe + payload + fuel (Systems.pwp_mass); `pld` are the five slot
+// masses in summation order
+template <typename T>
+__device__ MP<T> mass_sum(const T* P, const T (&pld)[5], T x_fuel) {
+  const T* M = P + P_MS;
+  MP<T> af;
+  af.m = M[MS_m];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) af.J.m[i][j] = M[MS_J00 + 3 * i + j];
+  af.r = pvec(M + MS_r_OG_x);
+  MP<T> pay = mp_zero<T>();
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    pay = mp_add(pay, mp_point(clamp(pld[k], T(0.0), T(100.0)),
+                               pvec(M + MS_pilot_x + 3 * k)));
+  const T m_f = clamp_min(fuel_m_total(M, x_fuel), T(0.0));
+  MP<T> fuel = mp_zero<T>();
+  fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank0_x)));
+  fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank1_x)));
+  return mp_add(mp_add(af, pay), fuel);
+}
+
+}  // namespace fj

@@ -1,0 +1,511 @@
+"""The five clusters of the fleet step, each as a CUDA kernel with its
+plain PyTorch version beside it:
+
+- `kinair`     <- `k_kinair`,     lane fn `k1_lane` (`clusterstep.py:250-262`)
+- `systems`    <- `k_systems`,    lane fn `k2_lane` (`clusterstep.py:274-287`),
+                  the fine parts `k_actaero`, `k_ldg0..2`, `k_pwp`
+- `dynamics`   <- `k_dynamics`,   lane fn `k3_lane` (`clusterstep.py:403-414`)
+- `finish_kin` <- `k_finish_kin`, lane fn `k4_lane` (`clusterstep.py:433-448`)
+- `finish_sys` <- `k_finish_sys`, lane fn `k5_lane` (`clusterstep.py:452-465`),
+                  the fine parts `k_fin_act`, `k_fin_ldg0..2`, `k_fin_rest`
+
+Each wrapper runs its plain version for CPU tensors and launches its kernel
+for CUDA tensors (or raises); there is no fallback between the two.
+`LAUNCHES[name]` counts kernel launches, nothing else.
+
+The kernels read and write batch-minor `[n_fields, B]` buffers; the column
+maps below are the Python half of the layouts declared in
+`csrc/flight_math.cuh` and `csrc/c172_systems.cuh` (the library reports its
+row counts, and `launch` checks them). A map entry is (name or key path,
+per-lane shape, an int for a vector). The two systems kernels also read the
+C172's parameters and tables from one buffer, `system_params`.
+"""
+
+import math
+import weakref
+
+import torch
+
+from flightjax_torch.core.modeling import bscale, tree_map
+from flightjax_torch.core.sim import comp_add
+from flightjax_torch.models.c172.common import AERO_CONST, M_FULL, M_RES
+from flightjax_torch.parallel import launch as L
+from flightjax_torch.physics.atmosphere import AirData, SimpleAtmosphere, air_data
+from flightjax_torch.physics.dynamics import DynamicsU, MassProps, VehicleDynamics, Wrench
+from flightjax_torch.physics.kinematics import WA, KinData
+
+LAUNCHES = {name: 0 for name in L.KERNELS}
+
+_WA = WA()
+_ATM = SimpleAtmosphere()
+_DYN = VehicleDynamics()
+
+# ------------------------------------------------------------ column maps
+
+X_KIN = (("q_wb", 4), ("q_ew", 4), ("h_e", 1))
+X_DYN = (("omega_eb_b", 3), ("v_eb_b", 3))
+U_ATM = (("T_sl", 1), ("p_sl", 1), ("wind", 3))
+KIN_DATA = (("e_nb", 3), ("q_nb", 4), ("q_eb", 4), ("q_en", 4), ("lat", 1),
+            ("lon", 1), ("n_e", 3), ("h_e", 1), ("h_o", 1), ("r_eb_e", 3),
+            ("omega_wb_b", 3), ("omega_eb_b", 3), ("v_eb_b", 3),
+            ("v_eb_n", 3), ("v_gnd", 1), ("chi_gnd", 1), ("gamma_gnd", 1))
+AIR_DATA = (("v_ew_n", 3), ("v_ew_b", 3), ("v_wb_b", 3), ("T", 1), ("p", 1),
+            ("rho", 1), ("a", 1), ("mu", 1), ("M", 1), ("Tt", 1), ("pt", 1),
+            ("Dp", 1), ("q", 1), ("TAS", 1), ("EAS", 1), ("CAS", 1))
+COMP = (("q_ew", 4), ("h_e", 1))
+
+X_SYS = ((("aero", "alpha_filt"), 1), (("aero", "beta_filt"), 1),
+         ("fuel", 1), (("ldg", "frc"), (3, 2)),
+         (("pwp", "engine", "frc"), 1), (("pwp", "engine", "idle"), 1),
+         (("pwp", "engine", "omega"), 1))
+ACT_KEYS = ("aileron", "aileron_offset", "brake_left", "brake_right",
+            "elevator", "elevator_offset", "flaps", "mixture", "rudder",
+            "rudder_offset", "throttle")
+PAYLOAD_KEYS = ("pilot", "copilot", "lpass", "rpass", "baggage")
+U_SYS = (tuple((("act", k), 1) for k in ACT_KEYS)
+         + tuple((("pwp", "engine", k), 1) for k in (
+             "mixture", "mixture_ctl", "start", "stop", "throttle"))
+         + tuple((("pld", k), 1) for k in PAYLOAD_KEYS))
+S_SYS = ((("aero", "stall"), 1), ("crashed", 1),
+         (("pwp", "engine", "state"), 1))
+TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
+MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
+WR = (("F", 3), ("tau", 3))
+
+
+def _shape(w):
+    return () if w == 1 else ((w,) if isinstance(w, int) else tuple(w))
+
+
+def _width(spec):
+    return sum(math.prod(_shape(w)) for _, w in spec)
+
+
+KINAIR_IN = (X_KIN, X_DYN, X_KIN, X_DYN, (("geoid_N", 1),), U_ATM,
+             (("term", 1),))
+KINAIR_OUT = (X_KIN, KIN_DATA, AIR_DATA, X_DYN)
+DYN_IN = (X_DYN, (("m", 1), ("J", 9), ("r_OG", 3)), (("F", 3), ("tau", 3)),
+          (("hr_b", 3), ("q_eb", 4), ("r_eb_e", 3), ("term", 1)))
+DYN_OUT = (X_DYN,)
+FIN_IN = (X_KIN, X_DYN, X_KIN, X_DYN, (("geoid_N", 1),), U_ATM, COMP)
+FIN_OUT = (X_KIN, X_DYN, KIN_DATA, AIR_DATA, COMP)
+SYS_IN = (X_SYS, X_SYS, U_SYS, S_SYS, TRN, KIN_DATA, AIR_DATA,
+          (("term", 1),))
+SYS_OUT = (X_SYS, MP, WR, (("hr_b", 3),))
+FSYS_IN = (X_SYS, X_SYS, U_SYS, S_SYS, TRN, KIN_DATA, AIR_DATA)
+FSYS_OUT = (X_SYS, S_SYS)
+
+
+def rows(groups):
+    return sum(_width(g) for g in groups)
+
+
+def _get(obj, key):
+    for k in (key if isinstance(key, tuple) else (key,)):
+        obj = obj[k] if isinstance(obj, dict) else getattr(obj, k)
+    return obj
+
+
+def pack(groups, objs, B, dtype=None):
+    """Concatenate the named fields of `objs` (one per spec group) into a
+    contiguous batch-minor `[rows, B]` tensor of `dtype` (default: the
+    first field's); bool and integer fields become 0/1/... in it."""
+    cols = []
+    for spec, obj in zip(groups, objs):
+        cols += [_get(obj, k).reshape(B, -1) for k, _ in spec]
+    dtype = cols[0].dtype if dtype is None else dtype
+    return torch.cat([c.to(dtype) for c in cols], dim=1).t().contiguous()
+
+
+def _unpack(spec, buf, o):
+    out = {}
+    for key, w in spec:
+        shape = _shape(w)
+        n = math.prod(shape)
+        v = buf[o] if shape == () else buf[o:o + n].t()
+        if len(shape) > 1:
+            v = v.reshape((buf.shape[1],) + shape)
+        node = out
+        path = key if isinstance(key, tuple) else (key,)
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+        o += n
+    return out, o
+
+
+def unpack(groups, buf):
+    """Views of a `[rows, B]` buffer as one (nested) dict per spec group."""
+    out, o = [], 0
+    for spec in groups:
+        d, o = _unpack(spec, buf, o)
+        out.append(d)
+    return out
+
+
+# ------------------------------------------------------------ parameters
+# The C172 systems' parameter buffer; the names and order are the enums of
+# csrc/c172_systems.cuh without their prefixes.
+
+PI_P = ("k_p", "k_i", "k_l", "beta_p", "lo", "hi")
+AERO_P = ("S", "b", "c", "tau", "V_min", "e_lo", "e_sc", "a_lo", "a_sc",
+          "r_lo", "r_sc", "f_lo", "f_sc", "stall_lo", "stall_hi",
+          *AERO_CONST)
+LEG_P = ("r_bs_x", "r_bs_y", "r_bs_z", "l_0", "k_s", "k_d_ext", "k_d_cmp",
+         "psi_max", "eta_br", *("frc_" + k for k in PI_P))
+ENG_P = ("omega_idle", "omega_rated", "omega_stall", "tau_start", "P_rated",
+         "tau_fr_sc", "J_sum", "gear_ratio", *("idle_" + k for k in PI_P),
+         *("frc_" + k for k in PI_P))
+PROP_P = ("d", "d_half", "d4", "d5", "J_xx", "sense", "dbeta", "r_bp_x",
+          "r_bp_y", "r_bp_z")
+MASS_P = ("m", *(f"J{i}{j}" for i in range(3) for j in range(3)), "r_OG_x",
+          "r_OG_y", "r_OG_z", "M_RES", "M_USABLE",
+          *(f"{n}_{a}" for n in ("tank0", "tank1", *PAYLOAD_KEYS)
+            for a in "xyz"))
+TABLES = ("CD_df", "CD_ge", "CD_alpha_df", "CY_beta_df", "CY_p", "CY_r",
+          "CL_ge", "CL_alpha", "CL_df", "Cl_r", "Cm_df", "delta_wot",
+          "mu_wot", "pi_std", "pi_wot", "pi_ratio", "sfc_ratio", "sfc_pow",
+          "prop")
+
+
+def _pi(p):
+    return [p.k_p, p.k_i, p.k_l, p.beta_p, p.bound_lo, p.bound_hi]
+
+
+def _scale_map(rng, lo_u, hi_u):
+    """(lower end, slope) of `Aero._scale`, formed as it forms them."""
+    return [rng[0], (rng[1] - rng[0]) / (hi_u - lo_u)]
+
+
+def param_scalars(vehicle):
+    """The scalar head of the parameter buffer, in float64: {group: values}
+    in the order of the *_P names above."""
+    sys_ = vehicle.systems
+    a, th = sys_.aero, sys_.pwp
+    e, pr = th.engine, th.propeller
+    legs = []
+    for leg in sys_.ldg.legs:
+        d = leg.damper
+        legs += [*leg.r_bs.tolist(), leg.l_0, d.k_s, d.k_d_ext, d.k_d_cmp,
+                 leg.psi_max, leg.eta_br, *_pi(leg.frc)]
+    mp = sys_.airframe_mp
+    return {
+        "aero": [a.S, a.b, a.c, a.tau, a.V_min,
+                 *_scale_map(a.de_range, -1.0, 1.0),
+                 *_scale_map(a.da_range, -1.0, 1.0),
+                 *_scale_map(a.dr_range, -1.0, 1.0),
+                 *_scale_map(a.df_range, 0.0, 1.0), *a.alpha_stall,
+                 *AERO_CONST.values()],
+        "legs": legs,
+        "engine": [e.omega_idle, e.omega_rated, e.omega_stall, e.tau_start,
+                   e.P_rated, 0.01 * e.P_rated / e.omega_rated,
+                   e.J + th.gear_ratio ** 2 * pr.J_xx, th.gear_ratio,
+                   *_pi(e.idle), *_pi(e.frc)],
+        "prop": [pr.d, pr.d / 2, pr.d ** 4, pr.d * pr.d ** 4, pr.J_xx,
+                 pr.sense, pr.dbeta, *pr.r_bp.tolist()],
+        "mass": [float(mp.m), *mp.J.reshape(-1).tolist(), *mp.r_OG.tolist(),
+                 M_RES, M_FULL - M_RES,
+                 *(v for r in sys_.tank_r for v in r.tolist()),
+                 *(v for k in PAYLOAD_KEYS for v in sys_.payload_r[k].tolist())],
+    }
+
+
+def param_tables(vehicle):
+    """{name: Lookup} of the tables the systems kernels read."""
+    sys_ = vehicle.systems
+    tables = dict(sys_.aero.tables, **sys_.pwp.engine.tables,
+                  prop=sys_.pwp.propeller.lookup)
+    return {k: tables[k] for k in TABLES}
+
+
+def encode_table(lk):
+    """A `Lookup` as the flat float64 list `csrc/flight_math.cuh::lookup`
+    reads: n_axes, outputs per knot, per axis (n, line?, uniform?, x0, dx),
+    the knots, the values in C order."""
+    d = len(lk.axes)
+    out = [float(d), float(math.prod(lk.values.shape[d:]))]
+    for ax, mode, uni in zip(lk.axes, lk.extrap, lk._uni):
+        out += [float(ax.shape[0]), float(mode == "line"),
+                float(uni is not None),
+                float(uni[0]) if uni is not None else 0.0,
+                float(uni[1]) if uni is not None else 0.0]
+    for ax in lk.axes:
+        out += ax.double().tolist()
+    return out + lk.values.double().reshape(-1).tolist()
+
+
+_PARAMS = weakref.WeakKeyDictionary()
+
+
+def system_params(vehicle):
+    """The parameter buffer of the systems kernels for this vehicle, on its
+    device and in its dtype (built once): the scalars of `param_scalars`,
+    one offset per table, then the tables (`encode_table`)."""
+    sys_ = vehicle.systems
+    buf = _PARAMS.get(sys_)
+    if buf is None:
+        head = [v for vs in param_scalars(vehicle).values() for v in vs]
+        tables = list(param_tables(vehicle).values())
+        offsets, body = [], []
+        base = len(head) + len(tables)
+        for lk in tables:
+            offsets.append(float(base + len(body)))
+            body += encode_table(lk)
+        like = sys_.airframe_mp.m
+        buf = torch.tensor(head + offsets + body, dtype=torch.float64).to(
+            device=like.device, dtype=like.dtype)
+        _PARAMS[sys_] = buf
+    return buf
+
+
+# ------------------------------------------------------------ plain versions
+
+def _fma(xt, kt, adt):
+    return tree_map(lambda a, b: a + adt * b, xt, kt)
+
+
+def _alive_scale(tree, term):
+    alive = 1.0 - term
+    return tree_map(lambda v: bscale(alive, v), tree)
+
+
+def kinair_plain(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
+    """Stage FMA on kinematics and dynamics, WA f_ode -> KinData, ISA
+    atmosphere with wind, air data, derivative x alive (`k1_lane`).
+    `adt` is the stage offset (Python float), `term` 0/1 per lane."""
+    xi_kin = _fma(x_kin, k_kin, adt)
+    xi_dyn = _fma(x_dyn, k_dyn, adt)
+    kin_dot, kin = _WA.f_ode(xi_kin, xi_dyn, geoid_N)
+    atm_d = _ATM.atmospheric_data(u_atm, kin.n_e, kin.h_o)
+    air = air_data(atm_d, kin)
+    return _alive_scale(kin_dot, term), kin, air, xi_dyn
+
+
+def dynamics_plain(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
+    """Newton-Euler at the CoM, x alive (`k3_lane`)."""
+    dyn_dot = _DYN.f_ode(xi_dyn, DynamicsU(mp_sum_b=mp_b, wr_sum_b=wr_b,
+                                           ho_sum_b=hr_b, q_eb=q_eb,
+                                           r_eb_e=r_eb_e))
+    return _alive_scale(dyn_dot, term)
+
+
+def finish_kin_plain(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
+                     c_kin=None):
+    """RK4 combine x + dt/6 ksum on kinematics (compensated on q_ew/h_e
+    when residuals `c_kin` are carried) and dynamics, WA renorm, fresh
+    KinData and AirData (`k4_lane` + `comp_add`). Returns (x_kin, x_dyn,
+    kin, air, c_kin)."""
+    c6 = dt / 6.0
+    incr = {k: c6 * v for k, v in ksum_kin.items()}
+    if c_kin is None:
+        x_kin2 = {k: x_kin[k] + incr[k] for k in x_kin}
+    else:
+        x_kin2, c_kin = comp_add(x_kin, incr, c_kin)
+    x_dyn2 = {k: x_dyn[k] + c6 * ksum_dyn[k] for k in x_dyn}
+    x_kin2 = _WA.f_step(x_kin2)
+    _, kin = _WA.f_ode(x_kin2, x_dyn2, geoid_N)
+    atm_d = _ATM.atmospheric_data(u_atm, kin.n_e, kin.h_o)
+    return x_kin2, x_dyn2, kin, air_data(atm_d, kin), c_kin
+
+
+def systems_plain(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
+                  term):
+    """Stage FMA on the systems state, actuation + aero, the three gear
+    legs, powerplant + fuel + mass, derivative x alive (`k2_lane`, composed
+    as the fine split composes `k_actaero`, `k_ldg0..2` and `k_pwp`).
+    Returns (x_sys derivative, mp_b, wr_b, hr_b)."""
+    sys_ = vehicle.systems
+    trn = vehicle.terrain.terrain_data(u_trn)
+    xi = _fma(x_sys, k_sys, adt)
+    aero_dot, gear_u, thr_mix, wr_aero = sys_.actaero(
+        xi["aero"], u_sys["act"], s_sys["aero"], kin, air, trn)
+    frc_dots, wr_ldg = [], None
+    for i in range(sys_.ldg.n):
+        d, w = sys_.ldg_leg(i, xi["ldg"]["frc"][:, i],
+                            gear_u["steering"][:, i],
+                            gear_u["braking"][:, i], kin, trn)
+        frc_dots.append(d)
+        wr_ldg = w if wr_ldg is None else wr_ldg + w
+    pwp_dot, fuel_dot, mp_b, wr_b, hr_b = sys_.pwp_mass(
+        xi["pwp"], xi["fuel"], u_sys["pwp"], s_sys["pwp"], thr_mix,
+        u_sys["pld"], kin, air, wr_aero, wr_ldg)
+    sys_dot = _alive_scale({"aero": aero_dot,
+                            "ldg": {"frc": torch.stack(frc_dots, dim=1)},
+                            "pwp": pwp_dot, "fuel": fuel_dot}, term)
+    return sys_dot, mp_b, wr_b, hr_b
+
+
+def finish_sys_plain(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin,
+                     air, dt):
+    """RK4 combine x + dt/6 ksum on the systems state, then actuation, the
+    three struts and stall / gear reset / crash / engine state machine at
+    the new kinematics (`k5_lane`, composed as the fine split composes
+    `k_fin_act`, `k_fin_ldg0..2` and `k_fin_rest`). Returns (x_sys,
+    s_sys)."""
+    sys_ = vehicle.systems
+    trn = vehicle.terrain.terrain_data(u_trn)
+    x = tree_map(lambda a, b: a + (dt / 6.0) * b, x_sys, ksum_sys)
+    gear_u = sys_.fin_act(u_sys["act"])
+    legs = [sys_.fin_ldg_leg(j, gear_u["steering"][:, j], kin, trn)
+            for j in range(sys_.ldg.n)]
+    wow, alpha_ts, xi_dot = (torch.stack([leg[j] for leg in legs], dim=1)
+                             for j in range(3))
+    return sys_.fin_rest(x, u_sys["pwp"], s_sys, air, wow, alpha_ts, xi_dot)
+
+
+# ------------------------------------------------------------ wrappers
+
+def _term(term, like):
+    return term.to(like.dtype) if term.dtype == torch.bool else term
+
+
+def pack_kinair(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
+    """(packed input, output rows, scalar arguments, parameter buffer) of
+    the kinair kernel; the other pack_* functions alike."""
+    buf = pack(KINAIR_IN, (x_kin, x_dyn, k_kin, k_dyn, {"geoid_N": geoid_N},
+                           u_atm, {"term": _term(term, geoid_N)}),
+               geoid_N.shape[0])
+    return buf, rows(KINAIR_OUT), (float(adt),), None
+
+
+def pack_dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
+    B = r_eb_e.shape[0]
+    mp = {"m": torch.broadcast_to(mp_b.m, (B,)),
+          "J": torch.broadcast_to(mp_b.J, (B, 3, 3)), "r_OG": mp_b.r_OG}
+    buf = pack(DYN_IN, (xi_dyn, mp, wr_b, {
+        "hr_b": hr_b, "q_eb": q_eb, "r_eb_e": r_eb_e,
+        "term": _term(term, r_eb_e)}), B)
+    return buf, rows(DYN_OUT), (), None
+
+
+def pack_finish_kin(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
+                    c_kin=None):
+    comp = c_kin is not None
+    if not comp:
+        c_kin = {"q_ew": torch.zeros_like(x_kin["q_ew"]),
+                 "h_e": torch.zeros_like(x_kin["h_e"])}
+    buf = pack(FIN_IN, (x_kin, x_dyn, ksum_kin, ksum_dyn,
+                        {"geoid_N": geoid_N}, u_atm, c_kin),
+               geoid_N.shape[0])
+    return buf, rows(FIN_OUT), (dt / 6.0, int(comp)), None
+
+
+def _trn(vehicle, u_trn, B):
+    trn = vehicle.terrain.terrain_data(u_trn)
+    return {"elevation": trn.elevation.expand(B),
+            "normal": trn.normal.expand(B, 3), "surface": trn.surface}
+
+
+def pack_systems(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
+                 term):
+    B, dt = kin.h_e.shape[0], kin.h_e.dtype
+    buf = pack(SYS_IN, (x_sys, k_sys, u_sys, s_sys, _trn(vehicle, u_trn, B),
+                        kin, air, {"term": _term(term, kin.h_e)}), B, dt)
+    return buf, rows(SYS_OUT), (float(adt),), system_params(vehicle)
+
+
+def pack_finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air,
+                    dt):
+    B = kin.h_e.shape[0]
+    buf = pack(FSYS_IN, (x_sys, ksum_sys, u_sys, s_sys,
+                         _trn(vehicle, u_trn, B), kin, air), B,
+               kin.h_e.dtype)
+    return buf, rows(FSYS_OUT), (dt / 6.0,), system_params(vehicle)
+
+
+PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
+        "finish_kin": pack_finish_kin, "systems": pack_systems,
+        "finish_sys": pack_finish_sys}
+
+
+def _launch(name, args):
+    buf, n_out, scalars, params = PACK[name](*args)
+    out = L.launch(name, buf, n_out, scalars, params=params)
+    LAUNCHES[name] += 1
+    return out
+
+
+def kinair(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
+    """`kinair_plain` on the CPU, the `kinair` CUDA kernel on the card."""
+    args = (x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term)
+    if geoid_N.device.type == "cpu":
+        return kinair_plain(*args[:-1], _term(term, geoid_N))
+    kin_dot, kin, air, xi_dyn = unpack(KINAIR_OUT, _launch("kinair", args))
+    return kin_dot, KinData(**kin), AirData(**air), xi_dyn
+
+
+def systems(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
+            term):
+    """`systems_plain` on the CPU, the `systems` CUDA kernel on the
+    card."""
+    args = (vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt, term)
+    if kin.h_e.device.type == "cpu":
+        return systems_plain(*args[:-1], _term(term, kin.h_e))
+    dot, mp, wr, hr = unpack(SYS_OUT, _launch("systems", args))
+    return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
+
+
+def dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
+    """`dynamics_plain` on the CPU, the `dynamics` CUDA kernel on the
+    card."""
+    args = (xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term)
+    if r_eb_e.device.type == "cpu":
+        return dynamics_plain(*args[:-1], _term(term, r_eb_e))
+    return unpack(DYN_OUT, _launch("dynamics", args))[0]
+
+
+def finish_kin(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
+               c_kin=None):
+    """`finish_kin_plain` on the CPU, the `finish_kin` CUDA kernel on the
+    card. `c_kin`: None or residuals for exactly {q_ew, h_e}."""
+    if c_kin is not None and set(c_kin) != {"q_ew", "h_e"}:
+        raise ValueError("finish_kin compensates exactly q_ew and h_e")
+    args = (x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt, c_kin)
+    if geoid_N.device.type == "cpu":
+        return finish_kin_plain(*args)
+    x_kin2, x_dyn2, kin, air, c2 = unpack(FIN_OUT, _launch("finish_kin",
+                                                           args))
+    return x_kin2, x_dyn2, KinData(**kin), AirData(**air), \
+        (c2 if c_kin is not None else None)
+
+
+def finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt):
+    """`finish_sys_plain` on the CPU, the `finish_sys` CUDA kernel on the
+    card."""
+    args = (vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt)
+    if kin.h_e.device.type == "cpu":
+        return finish_sys_plain(*args)
+    x2, s2 = unpack(FSYS_OUT, _launch("finish_sys", args))
+    s2["aero"]["stall"] = s2["aero"]["stall"] > 0.5
+    s2["crashed"] = s2["crashed"] > 0.5
+    eng = s2["pwp"]["engine"]
+    eng["state"] = eng["state"].to(torch.int32)
+    return x2, s2
+
+
+def operand_args(d, vehicle, device, dtype, adt=0.01, dt=0.02):
+    """Positional arguments of each kernel's wrapper from a numpy operand
+    dict (`flightjax_torch.testing.cluster_operands`), on `device`; the
+    systems clusters take KinData and AirData from `kinair_plain` at the
+    stage state."""
+    from flightjax_torch.bridge import tree_from_numpy
+    t = {k: tree_from_numpy(v, device, dtype) for k, v in d.items()}
+    args = {
+        "kinair": (t["x_kin"], t["x_dyn"], t["k_kin"], t["k_dyn"],
+                   t["geoid_N"], t["u_atm"], adt, t["term"]),
+        "dynamics": (t["x_dyn"], MassProps(**t["mp"]), Wrench(**t["wr"]),
+                     t["hr"], t["q_eb"], t["r_eb_e"], t["term"]),
+        "finish_kin": (t["x_kin"], t["x_dyn"], t["ksum_kin"], t["ksum_dyn"],
+                       t["geoid_N"], t["u_atm"], dt, t["c_kin"]),
+    }
+    _, kin, air, _ = kinair_plain(*args["kinair"])
+    args["systems"] = (vehicle, t["x_sys"], t["k_sys"], t["u_sys"],
+                       t["s_sys"], t["u_trn"], kin, air, adt, t["term"])
+    args["finish_sys"] = (vehicle, t["x_sys"], t["ksum_sys"], t["u_sys"],
+                          t["s_sys"], t["u_trn"], kin, air, dt)
+    return args
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

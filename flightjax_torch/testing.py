@@ -1,0 +1,136 @@
+"""Seeded numpy inputs shared by the parity tests and `chip_smoke.py`: the
+perturbed flagship fleet and the operands of the five kernel clusters. Both
+packages take these arrays, so the CPU parity tests and the card's checks
+see the same fleet."""
+
+import numpy as np
+import torch
+
+from flightjax_torch.bridge import tree_from_numpy
+from flightjax_torch.core.modeling import tree_map
+from flightjax_torch.core.sim import SimState
+from flightjax_torch.models.c172.c172s import flagship_sim, load_flagship_state
+
+
+def qmul_np(a, b):
+    """Hamilton product of numpy quaternion arrays."""
+    r1, v1, r2, v2 = a[..., 0], a[..., 1:], b[..., 0], b[..., 1:]
+    re = r1 * r2 - np.sum(v1 * v2, axis=-1)
+    im = r1[..., None] * v2 + r2[..., None] * v1 + np.cross(v1, v2)
+    return np.concatenate([re[..., None], im], axis=-1)
+
+
+def perturbed_flagship(batch, seed, i0=0, ground_lanes=(),
+                       terminated_lanes=()):
+    """numpy world-level (t, i, x, u, s) of `batch` trimmed flagships, each
+    perturbed from a numpy seed: attitude tilted 1-3 deg about a random
+    axis, body velocity +-3 m/s, wind ~N(0, 3 m/s), h_e +-30 m. The
+    `ground_lanes` are lowered until the main wheels touch the runway and
+    the `terminated_lanes` are latched terminated."""
+    rng = np.random.default_rng(seed)
+    x1, u1, s1, _, _ = load_flagship_state()
+    x, u, s = (tree_map(lambda l: np.broadcast_to(
+        l, (batch,) + np.shape(l)).copy(), t) for t in (x1, u1, s1))
+    kin, dyn = x["vehicle"]["kinematics"], x["vehicle"]["dynamics"]
+    axis = rng.normal(size=(batch, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    ang = np.deg2rad(rng.uniform(1.0, 3.0, batch)) * rng.choice([-1, 1],
+                                                                batch)
+    dq = np.concatenate([np.cos(ang / 2)[:, None],
+                         np.sin(ang / 2)[:, None] * axis], axis=-1)
+    kin["q_wb"] = qmul_np(kin["q_wb"], dq)
+    dyn["v_eb_b"] = dyn["v_eb_b"] + rng.uniform(-3.0, 3.0, (batch, 3))
+    u["vehicle"]["atm"]["wind"] = rng.normal(0.0, 3.0, (batch, 3))
+    kin["h_e"] = kin["h_e"] + rng.uniform(-30.0, 30.0, batch)
+    lanes = list(ground_lanes)
+    # wheels ~1.9 m below the body origin: 1.85 m puts the mains on the
+    # runway (terrain at orthometric 0, h_e - geoid_N = h_o)
+    kin["h_e"][lanes] = s["vehicle"]["geoid_N"][lanes] + 1.85
+    s["terminated"][list(terminated_lanes)] = True
+    return (np.full(batch, i0 * 0.02), np.full(batch, i0, np.int32), x, u,
+            s)
+
+
+def perturbed_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState) of `batch` perturbed flagships on `device`, with the
+    flagship's position compensation in sub-float64 dtypes."""
+    sim, _, _ = flagship_sim(device, dtype)
+    t, i, x, u, s = perturbed_flagship(batch, seed)
+    st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                  i=torch.tensor(i, device=device),
+                  x=tree_from_numpy(x, device, dtype),
+                  u=tree_from_numpy(u, device, dtype),
+                  s=tree_from_numpy(s, device, dtype))
+    return sim, sim.with_compensation(st)
+
+
+def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=()):
+    """numpy operands of the kernel clusters (`parallel/kernels.py`) at the
+    perturbed flagship: quaternion rates from body and transport rates,
+    derivative sums, mass properties, wrench and rotor momentum of a C172
+    in flight, small position residuals, and system states, derivatives,
+    inputs and flags spread so that lanes 0-7 take every branch of the
+    engine state machine, the stall latch, the mixture control and the
+    runway surfaces."""
+    rng = np.random.default_rng(seed + 1)
+    t, _, x, u, s = perturbed_flagship(batch, seed, 0, ground_lanes,
+                                       terminated_lanes)
+    xk, xd = x["vehicle"]["kinematics"], x["vehicle"]["dynamics"]
+    qdot = lambda q, w: 0.5 * qmul_np(q, np.concatenate(
+        [np.zeros((batch, 1)), w], axis=-1))
+    k_kin = {"q_wb": qdot(xk["q_wb"], rng.normal(0, 0.2, (batch, 3))),
+             "q_ew": qdot(xk["q_ew"], rng.normal(0, 1e-5, (batch, 3))),
+             "h_e": rng.normal(0, 3.0, batch)}
+    k_dyn = {"omega_eb_b": rng.normal(0, 0.1, (batch, 3)),
+             "v_eb_b": rng.normal(0, 2.0, (batch, 3))}
+    J = np.diag([1300.0, 1800.0, 2700.0]) + rng.normal(0, 20.0,
+                                                       (batch, 3, 3))
+    q = xk["q_ew"]
+    n_e = -np.stack([2 * q[:, 1] * q[:, 3] + 2 * q[:, 0] * q[:, 2],
+                     2 * q[:, 2] * q[:, 3] - 2 * q[:, 0] * q[:, 1],
+                     1 - 2 * (q[:, 1] ** 2 + q[:, 2] ** 2)], axis=-1)
+
+    xs = x["vehicle"]["systems"]
+    xs["ldg"]["frc"] = rng.normal(0, 0.3, (batch, 3, 2))
+    eng = xs["pwp"]["engine"]
+    eng["idle"] = rng.normal(0, 0.1, batch)
+    eng["frc"] = rng.normal(0, 0.1, batch)
+    k_sys = {"aero": {"alpha_filt": rng.normal(0, 0.5, batch),
+                      "beta_filt": rng.normal(0, 0.5, batch)},
+             "fuel": rng.normal(0, 1e-4, batch),
+             "ldg": {"frc": rng.normal(0, 0.5, (batch, 3, 2))},
+             "pwp": {"engine": {"omega": rng.normal(0, 20.0, batch),
+                                "idle": rng.normal(0, 0.1, batch),
+                                "frc": rng.normal(0, 0.1, batch)}}}
+    us, ss = u["vehicle"]["systems"], s["vehicle"]["systems"]
+    ue, se = us["pwp"]["engine"], ss["pwp"]["engine"]
+    # lane 0: off + start; 1: starting above idle; 2: starting below idle,
+    # start held; 3: running + stop, manual mixture; 4: stalled, wet
+    # runway; 5: starting below idle, start released; 7: icy runway,
+    # stalled
+    se["state"][[0, 1, 2, 5]] = [0, 1, 1, 1]
+    ue["start"][[0, 2]] = True
+    ue["stop"][3] = True
+    ue["mixture_ctl"][3] = 0
+    eng["omega"][[2, 5]] = 30.0
+    ss["aero"]["stall"][[4, 7]] = True
+    u["vehicle"]["trn"]["surface"][[4, 7]] = [1, 2]
+    return dict(
+        t=t, x_kin=xk, x_dyn=xd, k_kin=k_kin, k_dyn=k_dyn,
+        ksum_kin={k: 6.0 * v for k, v in k_kin.items()},
+        ksum_dyn={k: 6.0 * v for k, v in k_dyn.items()},
+        geoid_N=s["vehicle"]["geoid_N"], u_atm=u["vehicle"]["atm"],
+        term=s["terminated"].astype(np.float64),
+        mp={"m": 1000.0 + rng.uniform(0, 150.0, batch),
+            "J": 0.5 * (J + np.swapaxes(J, -1, -2)),
+            "r_OG": [0.05, 0.0, 0.55] + rng.normal(0, 0.02, (batch, 3))},
+        wr={"F": rng.normal(0, 400.0, (batch, 3)) + [0.0, 0.0, -1.0e4],
+            "tau": rng.normal(0, 300.0, (batch, 3))},
+        hr=[75.0, 0.0, 0.0] + rng.normal(0, 5.0, (batch, 3)),
+        q_eb=qmul_np(q, xk["q_wb"]),
+        r_eb_e=(6.378e6 + xk["h_e"])[:, None] * n_e,
+        c_kin={"q_ew": rng.normal(0, 1e-9, (batch, 4)),
+               "h_e": rng.normal(0, 1e-6, batch)},
+        x_sys=xs, k_sys=k_sys,
+        ksum_sys=tree_map(lambda v: 6.0 * v, k_sys),
+        u_sys=us, s_sys=ss, u_trn=u["vehicle"]["trn"])

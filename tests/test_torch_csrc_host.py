@@ -1,0 +1,175 @@
+"""The CUDA kernels of flightjax_torch compiled as host C++ and run lane by
+lane on the CPU, against their plain PyTorch versions in float64 (tolerance
+1e-12 relative to max(1, |plain|)).
+
+A stand-in `cuda_runtime.h` maps the CUDA qualifiers, the thread indices
+and the `_rn` intrinsics onto plain C++ (no FMA contraction); each kernel
+source is cut before its launch code, which only nvcc reads. So the
+kernels' arithmetic, row maps and parameter buffer are checked here, where
+there is no card; `tests/test_torch_cuda.py` checks the compiled kernels on
+one. Skips without a host C++ compiler."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from flightjax_torch.core.modeling import tree_leaves_with_path
+from flightjax_torch.models.c172.c172s import build_vehicle
+from flightjax_torch.parallel import kernels as K
+from flightjax_torch.physics.atmosphere import AirData
+from flightjax_torch.physics.dynamics import MassProps, Wrench
+from flightjax_torch.physics.kinematics import KinData
+from flightjax_torch.testing import cluster_operands
+
+B = 24
+TOL = 1e-12
+CSRC = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc")
+NAMES = ("kinair", "systems", "dynamics", "finish_kin", "finish_sys")
+LAUNCH_CODE = "template <typename T>\nstatic int launch"
+
+CUDA_RUNTIME_STANDIN = r"""
+#pragma once
+#include <math.h>
+#include <algorithm>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __restrict__ __restrict
+struct Dim { int x; };
+static Dim blockIdx, blockDim, threadIdx;
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
+static inline int cudaGetLastError() { return 0; }
+static inline float __fadd_rn(float a, float b) { return a + b; }
+static inline float __fsub_rn(float a, float b) { return a - b; }
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fdiv_rn(float a, float b) { return a / b; }
+static inline double __dadd_rn(double a, double b) { return a + b; }
+static inline double __dsub_rn(double a, double b) { return a - b; }
+static inline double __dmul_rn(double a, double b) { return a * b; }
+static inline double __ddiv_rn(double a, double b) { return a / b; }
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+static inline double rsqrt(double x) { return 1.0 / sqrt(x); }
+using std::min;
+using std::max;
+"""
+
+# one lane per call: block b of one thread
+LANE_LOOPS = r"""
+#define LANES(name, ...)                                             \
+  for (int b = 0; b < B; ++b) {                                      \
+    blockIdx.x = b; blockDim.x = 1; threadIdx.x = 0;                 \
+    k_##name::name##_kernel<SD>(__VA_ARGS__);                        \
+  }
+using fj::SD;
+extern "C" {
+void host_kinair(const double* in, const double* p, double* out, int B,
+                 double adt, int) {
+  LANES(kinair, (const SD*)in, (SD*)out, B, SD(adt))
+}
+void host_systems(const double* in, const double* p, double* out, int B,
+                  double adt, int) {
+  LANES(systems, (const SD*)in, (const SD*)p, (SD*)out, B, SD(adt))
+}
+void host_dynamics(const double* in, const double* p, double* out, int B,
+                   double, int) {
+  LANES(dynamics, (const SD*)in, (SD*)out, B)
+}
+void host_finish_kin(const double* in, const double* p, double* out, int B,
+                     double c6, int comp) {
+  LANES(finish_kin, (const SD*)in, (SD*)out, B, SD(c6), comp)
+}
+void host_finish_sys(const double* in, const double* p, double* out, int B,
+                     double c6, int) {
+  LANES(finish_sys, (const SD*)in, (const SD*)p, (SD*)out, B, SD(c6))
+}
+}
+"""
+
+
+def _compiler():
+    return shutil.which("g++") or shutil.which("c++") or shutil.which(
+        "clang++")
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = _compiler()
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    d = tmp_path_factory.mktemp("csrc_host")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
+    parts = ['#include "c172_systems.cuh"']
+    for name in NAMES:
+        with open(os.path.join(CSRC, f"{name}.cu")) as fh:
+            src = fh.read()
+        assert LAUNCH_CODE in src, name
+        src = src[:src.index(LAUNCH_CODE)].replace("using namespace fj;", "")
+        parts.append(f"namespace k_{name} {{\nusing namespace fj;\n{src}\n}}")
+    (d / "kernels.cpp").write_text("\n".join(parts) + LANE_LOOPS)
+    so = d / "kernels.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-I", str(d), "-I", CSRC, str(d / "kernels.cpp"), "-o", str(so)],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def operands():
+    veh = build_vehicle(device="cpu", dtype=torch.float64)
+    d = cluster_operands(B, 1016, (3, 17), (5,))
+    return K.operand_args(d, veh, "cpu", torch.float64)
+
+
+def _as_wrapper_returns(name, out):
+    """The kernel's packed output as its wrapper returns it."""
+    if name == "kinair":
+        kin_dot, kin, air, xi_dyn = K.unpack(K.KINAIR_OUT, out)
+        return kin_dot, KinData(**kin), AirData(**air), xi_dyn
+    if name == "systems":
+        dot, mp, wr, hr = K.unpack(K.SYS_OUT, out)
+        return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
+    if name == "dynamics":
+        return K.unpack(K.DYN_OUT, out)[0]
+    if name == "finish_kin":
+        x_kin, x_dyn, kin, air, c = K.unpack(K.FIN_OUT, out)
+        return x_kin, x_dyn, KinData(**kin), AirData(**air), c
+    x2, s2 = K.unpack(K.FSYS_OUT, out)
+    s2["aero"]["stall"] = s2["aero"]["stall"] > 0.5
+    s2["crashed"] = s2["crashed"] > 0.5
+    s2["pwp"]["engine"]["state"] = s2["pwp"]["engine"]["state"].to(
+        torch.int32)
+    return x2, s2
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_kernel_source_matches_plain(host_lib, operands, name):
+    args = operands[name]
+    buf, n_out, scalars, params = K.PACK[name](*args)
+    out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
+    scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
+    getattr(host_lib, f"host_{name}")(
+        ctypes.c_void_p(buf.data_ptr()),
+        ctypes.c_void_p(None if params is None else params.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(B),
+        ctypes.c_double(scalars[0]), ctypes.c_int(scalars[1]))
+    got = _as_wrapper_returns(name, out)
+    if name in ("kinair", "systems", "dynamics"):
+        args = args[:-1] + (args[-1].to(torch.float64),)
+    ref = getattr(K, name + "_plain")(*args)
+    if name == "finish_kin":  # the kernel carries residuals either way
+        got = got[:4] + (got[4] if args[-1] is not None else None,)
+    g, r = tree_leaves_with_path(got), tree_leaves_with_path(ref)
+    assert [p for p, _ in g] == [p for p, _ in r]
+    for (p, a), (_, b) in zip(g, r):
+        assert a.dtype == b.dtype and a.shape == b.shape, p
+        err = ((a.double() - b.double()).abs()
+               / b.double().abs().clamp_min(1.0)).max()
+        assert float(err) <= TOL, (p, float(err))

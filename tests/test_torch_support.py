@@ -1,0 +1,234 @@
+"""Shared inputs and comparisons for the flightjax_torch parity tests, and
+the tests of the numpy bridge and the kernel buffer layouts.
+
+Every parity test draws its inputs with numpy from a seed and hands the same
+arrays to `flightjax` (JAX, float64, CPU) and to `flightjax_torch` (float64,
+CPU), then compares leaf by leaf with max|a - b| <= tol * max(1, |b|).
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flightjax_torch.bridge import tree_from_numpy, tree_to_numpy
+from flightjax_torch.core.modeling import tree_leaves_with_path, tree_map
+from flightjax_torch.parallel import kernels as K
+from flightjax_torch.testing import perturbed_flagship
+
+B = 8
+SEED = 20261016
+CONTACT_LANES = (2, 5)
+TERMINATED_LANE = 6
+F64 = torch.float64
+
+
+def perturbed_fleet(i0=0):
+    """The perturbed flagship fleet of the parity tests (numpy)."""
+    return perturbed_flagship(B, SEED, i0, CONTACT_LANES, (TERMINATED_LANE,))
+
+
+def to_jax(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def to_torch(tree):
+    return tree_from_numpy(tree, "cpu", F64)
+
+
+def jax_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def assert_close(got, ref, tol, what=""):
+    """max|a - b| <= tol * max(1, |b|), elementwise, over matching leaves
+    (torch or numpy `got`, numpy `ref`); bool/int leaves must be equal."""
+    g = np.asarray(got.detach().cpu().numpy() if isinstance(got, torch.Tensor)
+                   else got)
+    r = np.asarray(ref)
+    assert g.shape == r.shape, (what, g.shape, r.shape)
+    if r.dtype.kind in "biu":
+        np.testing.assert_array_equal(g, r, err_msg=what)
+        return
+    err = np.abs(g.astype(np.float64) - r.astype(np.float64))
+    lim = tol * np.maximum(1.0, np.abs(r))
+    assert np.all(err <= lim), (what, float(np.max(err)),
+                                float(np.max(err / lim * tol)))
+
+
+def assert_tree_close(got, ref, tol, what=""):
+    """Compare a torch tree with a numpy/JAX tree of the same dict/tuple
+    structure, leaf by leaf in path order."""
+    g = tree_leaves_with_path(got)
+    r = tree_leaves_with_path(tree_map(
+        lambda v: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v),
+        ref))
+    assert [p for p, _ in g] == [p for p, _ in r], (what, [p for p, _ in g],
+                                                     [p for p, _ in r])
+    for (path, a), (_, b) in zip(g, r):
+        assert_close(a, b, tol, f"{what}{'/'.join(map(str, path))}")
+
+
+# --------------------------------------------------------------- tests
+
+def test_bridge_roundtrip_keeps_types():
+    t, i, x, u, s = perturbed_fleet()
+    tree = {"t": t, "i": i, "x": x, "u": u, "s": s}
+    back = tree_to_numpy(to_torch(tree))
+    for (p, a), (_, b) in zip(tree_leaves_with_path(back),
+                              tree_leaves_with_path(tree)):
+        assert a.dtype == (np.float64 if b.dtype.kind == "f" else b.dtype), p
+        np.testing.assert_array_equal(a, b)
+
+
+def _csrc(name):
+    path = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc", name)
+    with open(path) as fh:
+        return fh.read()
+
+
+def _constexprs(src, env):
+    for decl in re.findall(r"constexpr int ([^;]+);", src):
+        for item in decl.split(","):
+            name, expr = item.split("=")
+            env[name.strip()] = eval(expr.strip(), {}, dict(env))
+    return env
+
+
+def _enums(src):
+    """{enum name: [members]} of the `enum X : int { ... };` blocks."""
+    return {name: [m.strip() for m in body.split(",") if m.strip()]
+            for name, body in re.findall(r"enum (\w+) : int \{([^}]*)\}",
+                                         src)}
+
+
+def test_kernel_layouts_match_csrc():
+    """The Python column maps and the row counts the CUDA sources declare
+    agree (the library also reports them at load time on the card)."""
+    env = _constexprs(_csrc("flight_math.cuh"), {})
+    for name, groups in (("KINAIR_N_IN", K.KINAIR_IN),
+                         ("KINAIR_N_OUT", K.KINAIR_OUT),
+                         ("DYN_N_IN", K.DYN_IN), ("DYN_N_OUT", K.DYN_OUT),
+                         ("FIN_N_IN", K.FIN_IN), ("FIN_N_OUT", K.FIN_OUT)):
+        assert env[name] == K.rows(groups), name
+
+
+def test_system_layouts_match_csrc():
+    """The systems kernels' row maps and parameter enums
+    (`csrc/c172_systems.cuh`) against `parallel/kernels.py`: row counts,
+    the parameter names in order, and the buffer head."""
+    src = _csrc("c172_systems.cuh")
+    enums = _enums(src)
+    env = _constexprs(_csrc("flight_math.cuh"), {})
+    for members in enums.values():
+        env.update({m: i for i, m in enumerate(members)})
+    env = _constexprs(src, env)
+    for name, groups in (("SYS_N_IN", K.SYS_IN), ("SYS_N_OUT", K.SYS_OUT),
+                         ("FSYS_N_IN", K.FSYS_IN),
+                         ("FSYS_N_OUT", K.FSYS_OUT)):
+        assert env[name] == K.rows(groups), name
+    assert env["N_XSYS"] == K.rows((K.X_SYS,))
+    assert env["N_USYS"] == K.rows((K.U_SYS,))
+    for enum, prefix, names in (("AeroP", "AE_", K.AERO_P),
+                                ("LegP", "LG_", K.LEG_P),
+                                ("EngP", "EN_", K.ENG_P),
+                                ("PropP", "PR_", K.PROP_P),
+                                ("MassP", "MS_", K.MASS_P),
+                                ("TableP", "TB_", K.TABLES)):
+        members = enums[enum]
+        assert members[-1] == prefix + "N", enum
+        assert [m[len(prefix):] for m in members[:-1]] == list(names), enum
+    from flightjax_torch.models.c172.c172s import build_vehicle
+    veh = build_vehicle(device="cpu", dtype=F64)
+    scal = K.param_scalars(veh)
+    assert [len(v) for v in scal.values()] == [
+        len(K.AERO_P), env["N_LEGS"] * len(K.LEG_P), len(K.ENG_P),
+        len(K.PROP_P), len(K.MASS_P)]
+    buf = K.system_params(veh)
+    assert env["P_HEAD"] == sum(map(len, scal.values())) + len(K.TABLES)
+    assert buf.dtype == F64 and buf.shape[0] > env["P_HEAD"]
+
+
+def _decode_lookup(t, x):
+    """numpy version of `csrc/flight_math.cuh::lookup` over an encoded
+    table `t` at one coordinate tuple `x`."""
+    d, nout = int(t[0]), int(t[1])
+    heads = [t[2 + 5 * a:7 + 5 * a] for a in range(d)]
+    n = [int(h[0]) for h in heads]
+    kn = 2 + 5 * d
+    vals = np.asarray(t[kn + sum(n):]).reshape(tuple(n) + (nout,))
+    idx, w = [], []
+    for a, h in enumerate(heads):
+        knots = np.asarray(t[kn:kn + n[a]])
+        kn += n[a]
+        if n[a] == 1:
+            idx.append(0)
+            w.append(None)
+            continue
+        if h[2]:
+            i = int(min(max(np.floor((x[a] - h[3]) / h[4]), 0), n[a] - 2))
+            wa = (x[a] - h[3]) / h[4] - i
+        else:
+            i = min(max(int(np.sum(knots <= x[a])) - 1, 0), n[a] - 2)
+            wa = (x[a] - knots[i]) / (knots[i + 1] - knots[i])
+        idx.append(i)
+        w.append(wa if h[1] else min(max(wa, 0.0), 1.0))
+    out = 0.0
+    for c in range(1 << d):
+        hi = [(c >> a) & 1 for a in range(d)]
+        if any(h and n[a] == 1 for a, h in enumerate(hi)):
+            continue
+        wt = np.prod([(w[a] if h else 1.0 - w[a]) for a, h in enumerate(hi)
+                      if n[a] > 1])
+        out = out + vals[tuple(idx[a] + h for a, h in enumerate(hi))] * wt
+    return out
+
+
+def test_encoded_tables_decode_to_the_lookups():
+    """Each table of the parameter buffer, read back the way the kernels
+    read it, gives its `Lookup`'s values, inside and outside the grid."""
+    from flightjax_torch.models.c172.c172s import build_vehicle
+    rng = np.random.default_rng(3)
+    veh = build_vehicle(device="cpu", dtype=F64)
+    for name, lk in K.param_tables(veh).items():
+        t = K.encode_table(lk)
+        lo = np.array([float(a[0]) for a in lk.axes])
+        hi = np.array([float(a[-1]) for a in lk.axes])
+        span = np.maximum(hi - lo, 1.0)
+        pts = rng.uniform(lo - 0.2 * span, hi + 0.2 * span, (16, len(lo)))
+        ref = lk(*[torch.as_tensor(pts[:, a]) for a in range(len(lo))])
+        got = np.stack([_decode_lookup(t, p) for p in pts])
+        np.testing.assert_allclose(got.reshape(ref.shape), ref.numpy(),
+                                   rtol=1e-13, atol=1e-13, err_msg=name)
+
+
+@pytest.mark.parametrize("groups", ["FIN_OUT", "SYS_IN", "FSYS_OUT"])
+def test_pack_unpack_roundtrip(groups):
+    rng = np.random.default_rng(0)
+    groups = getattr(K, groups)
+    n = K.rows(groups)
+    buf = torch.as_tensor(rng.normal(size=(n, 5)))
+    objs = K.unpack(groups, buf)
+    again = K.pack(groups, objs, 5)
+    assert torch.equal(again, buf)
+
+
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "contiguous"])
+def test_launch_rejects_bad_operands(bad):
+    from flightjax_torch.parallel.launch import check_operand
+    t = torch.zeros((4, 3), dtype=F64)
+    kw = dict(n_rows=4, B=3, dtype=F64, device=t.device)
+    if bad == "device":
+        kw["device"] = torch.device("meta")
+    elif bad == "dtype":
+        kw["dtype"] = torch.float32
+    elif bad == "shape":
+        kw["B"] = 4
+    else:
+        t = torch.zeros((3, 4), dtype=F64).t()
+    with pytest.raises(ValueError):
+        check_operand(t, **kw)
