@@ -1,32 +1,48 @@
 #!/usr/bin/env python3
-"""Build flightjax_torch's CUDA kernels and drive its flagship fleet step on
-one NVIDIA card; exit non-zero if any phase fails.
+"""Build flightjax_torch's CUDA kernels and drive its three flagship step
+paths on one NVIDIA card; exit non-zero if any phase fails.
 
     python3 chip_smoke.py
+
+The paths, each an entry point a user calls:
+- `subsystems`: `Simulation.fleet_step` through `parallel/fleet.py::
+  fleet_rollout`, five cluster kernels per step (kinair, systems, dynamics
+  x 4 stages; finish_kin, finish_sys) and the `geoid` kernel on every 128th
+  step, Kahan-compensated position in float32;
+- `vehicle`: `make_cluster_step(split="vehicle")`, rk4_stage x 4 and
+  rk4_finish per step and `geoid` on every 128th step, uncompensated as the
+  JAX vehicle path is;
+- `megakernel`: `make_megakernel_step`, the whole `Simulation.step` (geoid
+  refreshed every step, compensated) in one launch on a state resident on
+  the card.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a;
-3. per kernel (kinair, systems, dynamics, finish_kin, finish_sys) at
-   B = 4096: the kernel against its plain PyTorch version on the same card
-   tensors, float64 to 1e-12 and float32 to 1e-5 (relative to
-   max(1, |plain|));
-4. the slice: the trimmed C172S flagship at 4096 perturbed aircraft, 500
-   steps (10 s) of `fleet_rollout` in float32 through the kernels; every
+3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
+   version, float64 to 1e-12 and float32 to 1e-5 (relative to
+   max(1, |plain|)): the eight lane kernels on the cluster operands (lanes
+   on each runway surface, a terminated lane, stalled lanes, every engine
+   state), and one megakernel step on the same fleet, with and without
+   residuals;
+4. the paths: the trimmed C172S flagship at 4096 perturbed aircraft in
+   float32, each path from its launch counts set to 0 to their reading
+   just after: `subsystems` 100 steps (from step 28, so the refresh at step
+   128 is among them), `vehicle` and `megakernel` 500 steps (10 s). Every
    leaf finite, no lane terminated, altitude and EAS in a physical band,
-   launch counts 4*500 for the stage kernels and 500 for the finish
-   kernels; the same 500 steps with the plain versions agree within the
-   10 s float32 envelope of BENCHMARKS.md; 20 steps in float64, kernels
-   against plain, agree to 1e-9;
-5. timings: warm median time per kernel against its plain version, and
-   vehicle-steps/s of the fleet step with kernels and with plain versions
-   (median and aggregate over several windows, interleaved).
+   launch counts as the path prescribes; the same steps through the plain
+   versions agree within the 10 s float32 envelope of BENCHMARKS.md; 20
+   steps of each path in float64 agree with plain to 1e-9;
+5. timings: per kernel the warm median of the bare launch, of the wrapper
+   and of the plain version, and the bound (bytes over 3.35 TB/s or
+   operations over 67 TFLOP/s, the larger); vehicle-steps/s of the three
+   paths and the plain one, interleaved windows, median and aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+the kernels with their launch counts, errors, times and bounds.
 """
 
-import contextlib
+import collections
 import json
 import statistics
 import subprocess
@@ -37,28 +53,41 @@ import torch
 
 B = 4096
 STEPS = 500
+SUB_STEPS, SUB_I0 = 100, 28
+F64_STEPS = 20
 SEED = 1016
 DEVICE = "cuda"
-# steps per throughput window (the plain path is ~100x slower)
-WINDOW = {"kernels": 200, "plain": 20}
+# steps per throughput window (the plain path is ~40x slower)
+WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20}
+# the H100 SXM's published peaks (on-chip-measurement guide)
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 # the 10 s float32 envelope (BENCHMARKS.md:34): position, velocity,
 # attitude, EAS
 ENV_POS_M, ENV_VEL, ENV_ATT_RAD, ENV_EAS = 0.73, 5e-5, 7e-7, 5e-5
 
-# kernel: (source, the TPU kernel's lane function, launches per step)
+# kernel: (source, the TPU kernel it replaces, the path that launches it)
 KERNELS = {
     "kinair": ("flightjax_torch/csrc/kinair.cu",
-               "flightjax/parallel/clusterstep.py:250", 4),
+               "flightjax/parallel/clusterstep.py:250", "subsystems"),
     "systems": ("flightjax_torch/csrc/systems.cu",
-                "flightjax/parallel/clusterstep.py:274", 4),
+                "flightjax/parallel/clusterstep.py:274", "subsystems"),
     "dynamics": ("flightjax_torch/csrc/dynamics.cu",
-                 "flightjax/parallel/clusterstep.py:403", 4),
+                 "flightjax/parallel/clusterstep.py:403", "subsystems"),
     "finish_kin": ("flightjax_torch/csrc/finish_kin.cu",
-                   "flightjax/parallel/clusterstep.py:433", 1),
+                   "flightjax/parallel/clusterstep.py:433", "subsystems"),
     "finish_sys": ("flightjax_torch/csrc/finish_sys.cu",
-                   "flightjax/parallel/clusterstep.py:452", 1),
+                   "flightjax/parallel/clusterstep.py:452", "subsystems"),
+    "rk4_stage": ("flightjax_torch/csrc/rk4_stage.cu",
+                  "flightjax/parallel/clusterstep.py:81", "vehicle"),
+    "rk4_finish": ("flightjax_torch/csrc/rk4_finish.cu",
+                   "flightjax/parallel/clusterstep.py:97", "vehicle"),
+    "geoid": ("flightjax_torch/csrc/geoid.cu",
+              "flightjax/parallel/megakernel.py:144", "vehicle"),
+    "megakernel": ("flightjax_torch/csrc/megakernel.cu",
+                   "flightjax/parallel/megakernel.py:43", "megakernel"),
 }
+LANE_KERNELS = tuple(k for k in KERNELS if k != "megakernel")
 
 
 def log(msg):
@@ -83,6 +112,11 @@ def leaves(tree):
     return tree_leaves_with_path(tree)
 
 
+def float_pairs(got, ref):
+    return [(p, a, b) for (p, a), (_, b) in zip(leaves(got), leaves(ref))
+            if a.dtype.is_floating_point]
+
+
 def cuda_ms(fn, reps=7, calls=20):
     """Warm median milliseconds per call, CUDA events around `calls`
     back-to-back calls."""
@@ -102,40 +136,165 @@ def cuda_ms(fn, reps=7, calls=20):
     return statistics.median(out)
 
 
+def count_ops(fn):
+    """Arithmetic operations of `fn` as PyTorch runs them: the elements of
+    the output of every pointwise op and of the input of every reduction
+    (copies, views, concatenations, gathers and fills are not counted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    reductions = {"sum", "amax", "amin", "any", "all", "argmax", "argmin",
+                  "prod", "mean", "norm", "linalg_vector_norm"}
+    skip = {"copy_", "clone", "fill_", "_to_copy", "lift_fresh"}
+    total = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__.split(".")[0]
+            if name in skip:
+                return out
+            if name in reductions and isinstance(args[0], torch.Tensor):
+                total["ops"] += args[0].numel()
+            elif torch.Tag.pointwise in func.tags:
+                o = out[0] if isinstance(out, (tuple, list)) else out
+                if isinstance(o, torch.Tensor):
+                    total["ops"] += o.numel()
+            return out
+
+    with Count():
+        fn()
+    return total["ops"]
+
+
+def geoid_cells(geo, q_ew):
+    """The EGM96 grid values the bilinear lookups under `q_ew` read (the
+    four corners of each lane's cell, shared corners once)."""
+    from flightjax_torch.core.modeling import divc
+    from flightjax_torch.ops.geodesy import latlon_from_nvector, \
+        nvector_from_qew
+    lk = geo.lookup
+    lat, lon = latlon_from_nvector(nvector_from_qew(q_ew))
+    lon = torch.remainder(lon + 2 * torch.pi, 2 * torch.pi)
+    i0 = torch.clamp(torch.floor(divc(lat - lk.x0, lk.d0)).long(), 0,
+                     lk.n0 - 2)
+    t1 = torch.clamp(divc(lon - lk.y0, lk.d1), 0.0, lk.n1 - 1.0)
+    i1 = torch.clamp(torch.floor(t1).long(), 0, lk.n1 - 2)
+    corners = torch.cat([(i0 + a) * lk.n1 + i1 + b
+                         for a in (0, 1) for b in (0, 1)])
+    return int(torch.unique(corners).numel())
+
+
+def bound(nbytes, ops):
+    """(bound ms, what bounds it) on the H100's published peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 # ------------------------------------------------------------ inputs
 
+def kernel_operands(batch=B):
+    from flightjax_torch.testing import cluster_operands
+    return cluster_operands(batch, SEED, ground_lanes=(3, 77),
+                            terminated_lanes=(5,))
+
+
 def kernel_inputs(dtype):
-    """numpy-seeded operands of the kernels at B lanes (as the CPU parity
-    tests draw them, two lanes on the runway, one terminated, lanes in
-    every engine state), on the card."""
+    """numpy-seeded operands of the lane kernels at B lanes (as the CPU
+    parity tests draw them, two lanes on the runway, one terminated, lanes
+    in every engine state), on the card."""
     from flightjax_torch.models.c172.c172s import build_vehicle
     from flightjax_torch.parallel.kernels import operand_args
-    from flightjax_torch.testing import cluster_operands
-    d = cluster_operands(B, SEED, ground_lanes=(3, 77), terminated_lanes=(5,))
-    return operand_args(d, build_vehicle(device=DEVICE, dtype=dtype), DEVICE,
-                        dtype, adt=0.01, dt=0.02)
+    return operand_args(kernel_operands(), build_vehicle(device=DEVICE,
+                                                         dtype=dtype),
+                        DEVICE, dtype, adt=0.01, dt=0.02)
 
 
-# ------------------------------------------------------------ phases
+def mega_inputs(dtype, comp):
+    """(sim, SimState) of the cluster operands' fleet at step 126, with
+    zero residuals when `comp`."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.models.c172.c172s import flagship_sim
+    from flightjax_torch.testing import operand_state
+    sim, _, _ = flagship_sim(DEVICE, dtype)
+    st = operand_state(kernel_operands(), DEVICE, dtype, i0=126)
+    return sim, st._replace(c=comp_residuals(st.x, force=True) if comp
+                            else None)
 
-@contextlib.contextmanager
-def plain_clusters():
-    """Test-only switch for this script: route the fleet step's kernel
-    clusters to their plain PyTorch versions."""
-    from flightjax_torch.parallel import kernels as K
-    saved = {name: getattr(K, name) for name in KERNELS}
-    for name in KERNELS:
-        setattr(K, name, getattr(K, name + "_plain"))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(K, name, fn)
 
+# ------------------------------------------------------------ paths
 
 def fleet(dtype, seed=SEED):
     from flightjax_torch.testing import perturbed_fleet_sim
     return perturbed_fleet_sim(B, seed, DEVICE, dtype)
+
+
+def at_step(sim, st, i0):
+    """`st` moved to step counter i0 (t to match)."""
+    return st._replace(i=torch.full_like(st.i, i0),
+                       t=torch.full_like(st.t, sim.t_start + i0 * sim.dt))
+
+
+def plain_rollout(sim, st, n, geoid_every=None):
+    """`n` steps of the plain cluster step (no kernel), from the state's
+    step counter."""
+    from flightjax_torch.parallel.clusterstep import cluster_step
+    i = int(st.i[0])
+    for k in range(n):
+        st = cluster_step(sim, st, i + k, plain=True, geoid_every=geoid_every)
+    return st
+
+
+class Paths:
+    """The three kernel paths and their plain references on one fleet:
+    `run(label, n)` steps a path from its start state and returns the
+    final SimState."""
+
+    def __init__(self, sim, st0):
+        from flightjax_torch.parallel.clusterstep import make_cluster_step
+        from flightjax_torch.parallel.megakernel import make_megakernel_step
+        self.sim = sim
+        self.st = {"subsystems": at_step(sim, st0, SUB_I0),
+                   "vehicle": st0._replace(c=None), "megakernel": st0}
+        self.vehicle = make_cluster_step(sim, self.st["vehicle"],
+                                         split="vehicle")
+        self.bufs, self.step_packed, self.unpack = make_megakernel_step(
+            sim, st0)
+
+    def run(self, label, n):
+        from flightjax_torch.parallel.fleet import fleet_rollout
+        if label == "subsystems":
+            return fleet_rollout(self.sim, self.st[label], n)
+        if label == "vehicle":
+            st = self.st[label]
+            i0 = int(st.i[0])
+            for k in range(n):
+                st = self.vehicle(st, i=i0 + k)
+            return st
+        bufs = self.bufs
+        for _ in range(n):
+            bufs = self.step_packed(bufs)
+        return self.unpack(bufs)
+
+    def run_plain(self, label, n):
+        st = self.st[label]
+        if label == "megakernel":
+            return plain_rollout(self.sim, st, n, geoid_every=1)
+        return plain_rollout(self.sim, st, n)
+
+
+def expected_launches(label, n, i0=0):
+    """The launch counts of `n` steps of a path from step i0."""
+    from flightjax_torch.parallel import kernels as K
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    geoid = sum((i0 + k + 1) % 128 == 0 for k in range(n))
+    if label == "subsystems":
+        want.update(kinair=4 * n, systems=4 * n, dynamics=4 * n,
+                    finish_kin=n, finish_sys=n, geoid=geoid)
+    elif label == "vehicle":
+        want.update(rk4_stage=4 * n, rk4_finish=n, geoid=geoid)
+    else:
+        want.update(megakernel=n)
+    return want
 
 
 def eas(state):
@@ -166,13 +325,34 @@ def compare_runs(a, b):
     return pos, vel, att, de
 
 
+def check_flight(sim, label, out):
+    """Every leaf finite, no lane terminated, height and EAS in band."""
+    for p, v in leaves({"x": out.x, "s": out.s, "c": out.c, "t": out.t}):
+        if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: non-finite leaf {p}")
+    if bool(out.s["terminated"].any()):
+        raise AssertionError(f"{label}: a lane terminated")
+    h = sim.system.aircraft.vehicle.h_agl(out.x["vehicle"], out.u["vehicle"],
+                                          out.s["vehicle"])
+    e = eas(out)
+    log(f"{label}: height above terrain {float(h.min()):.1f}.."
+        f"{float(h.max()):.1f} m, EAS {float(e.min()):.2f}.."
+        f"{float(e.max()):.2f} m/s, t = {float(out.t[0]):.2f} s")
+    if not (800.0 < float(h.min()) and float(h.max()) < 1300.0):
+        raise AssertionError(f"{label}: height left the 800..1300 m band")
+    if not (35.0 < float(e.min()) and float(e.max()) < 70.0):
+        raise AssertionError(f"{label}: EAS left the 35..70 m/s band")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from flightjax_torch.parallel import fleet as F
+    t_start = time.time()
     from flightjax_torch.parallel import kernels as K
     from flightjax_torch.parallel import launch as L
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
 
     # 1. device and toolchain
     card = card_line()
@@ -196,120 +376,161 @@ def main():
 
     # 3. per-kernel checks (f64 at 1e-12, f32 at 1e-5)
     errs = {}
+
+    def check(name, dtype, tol, pairs, what=""):
+        worst = 0.0
+        for p, a, b in pairs:
+            e = rel_err(a, b)
+            worst = max(worst, e)
+            if not e <= tol:
+                raise AssertionError(f"{name}{what} {dtype} {p}: {e} > {tol}")
+        log(f"check {name}{what} {str(dtype)[6:]}: max rel err {worst:.3e} "
+            f"(tol {tol})")
+        if dtype == torch.float32:
+            errs[name] = max(errs.get(name, 0.0), *(
+                float((a.double() - b.double()).abs().max())
+                for _, a, b in pairs))
+
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         args = kernel_inputs(dtype)
-        for name in KERNELS:
+        for name in LANE_KERNELS:
             kern, plain = getattr(K, name), getattr(K, name + "_plain")
             got, ref = kern(*args[name]), plain(*args[name])
             torch.cuda.synchronize()
-            worst = 0.0
-            for (p, a), (_, b) in zip(leaves(got), leaves(ref)):
-                e = rel_err(a, b)
-                worst = max(worst, e)
-                if not e <= tol:
-                    raise AssertionError(f"{name} {dtype} {p}: {e} > {tol}")
-            log(f"check {name} {str(dtype)[6:]}: max rel err {worst:.3e} "
-                f"(tol {tol})")
-            if dtype == torch.float32:
-                errs[name] = max(float((a.double() - b.double()).abs().max())
-                                 for (_, a), (_, b) in zip(leaves(got),
-                                                           leaves(ref)))
+            check(name, dtype, tol, float_pairs(got, ref))
+        for comp in (False, True):
+            sim, st = mega_inputs(dtype, comp)
+            bufs, step_packed, unpack = make_megakernel_step(sim, st)
+            got, ref = unpack(step_packed(bufs)), megakernel_step_plain(sim,
+                                                                       st)
+            torch.cuda.synchronize()
+            if not torch.equal(got.i, ref.i):
+                raise AssertionError("megakernel: step counter")
+            check("megakernel", dtype, tol, float_pairs(
+                (got.t, got.x, got.s, got.c), (ref.t, ref.x, ref.s, ref.c)),
+                f" (comp {comp})")
 
-    # 4. the slice: 500 steps, kernels
+    # 4. the paths in f32: kernels, each from counts 0, against plain
     sim, st0 = fleet(torch.float32)
-    K.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = F.fleet_rollout(sim, st0, STEPS)
-    torch.cuda.synchronize()
-    t_kernel_run = time.time() - t0
-    launches = dict(K.LAUNCHES)
-    log(f"slice: {STEPS} steps x {B} aircraft in {t_kernel_run:.2f} s "
-        f"(first run, includes warm-up); launches {launches}")
-    want = {name: per_step * STEPS
-            for name, (_, _, per_step) in KERNELS.items()}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    for p, v in leaves({"x": out.x, "s": out.s, "c": out.c, "t": out.t}):
-        if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite leaf {p}")
-    if bool(out.s["terminated"].any()):
-        raise AssertionError("a lane terminated")
-    h = sim.system.aircraft.vehicle.h_agl(out.x["vehicle"], out.u["vehicle"],
-                                          out.s["vehicle"])
-    e = eas(out)
-    log(f"slice: height above terrain {float(h.min()):.1f}.."
-        f"{float(h.max()):.1f} m, EAS {float(e.min()):.2f}.."
-        f"{float(e.max()):.2f} m/s, t = {float(out.t[0]):.2f} s")
-    if not (800.0 < float(h.min()) and float(h.max()) < 1300.0):
-        raise AssertionError("height left the 800..1300 m band")
-    if not (35.0 < float(e.min()) and float(e.max()) < 70.0):
-        raise AssertionError("EAS left the 35..70 m/s band")
-
-    # plain versions on the card, same 500 steps
-    with plain_clusters():
+    paths = Paths(sim, st0)
+    launches = {}
+    for label, n in (("subsystems", SUB_STEPS), ("vehicle", STEPS),
+                     ("megakernel", STEPS)):
+        i0 = int(paths.st[label].i[0])
+        torch.cuda.synchronize()
         K.reset_launches()
-        ref = F.fleet_rollout(sim, st0, STEPS)
+        t0 = time.time()
+        out = paths.run(label, n)
+        torch.cuda.synchronize()
+        dt_run = time.time() - t0
+        got = dict(K.LAUNCHES)
+        log(f"{label}: {n} steps x {B} aircraft from step {i0} in "
+            f"{dt_run:.2f} s (first run, includes warm-up); launches {got}")
+        want = expected_launches(label, n, i0)
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        for name, (_, _, path) in KERNELS.items():
+            if path == label:
+                launches[name] = got[name]
+        check_flight(sim, label, out)
+        K.reset_launches()
+        ref = paths.run_plain(label, n)
         torch.cuda.synchronize()
         if any(K.LAUNCHES.values()):
-            raise AssertionError("plain run launched a kernel")
-    pos, vel, att, de = compare_runs(out, ref)
-    log(f"slice kernel vs plain after {STEPS} steps (f32): position "
-        f"{pos:.3e} m (env {ENV_POS_M}), velocity {vel:.3e} m/s "
-        f"(env {ENV_VEL}), attitude {att:.3e} rad (env {ENV_ATT_RAD}), "
-        f"EAS {de:.3e} m/s (env {ENV_EAS})")
-    if not (pos <= ENV_POS_M and vel <= ENV_VEL and att <= ENV_ATT_RAD
-            and de <= ENV_EAS):
-        raise AssertionError("kernel and plain runs disagree")
+            raise AssertionError(f"{label}: plain run launched a kernel")
+        pos, vel, att, de = compare_runs(out, ref)
+        log(f"{label} kernels vs plain after {n} steps (f32): position "
+            f"{pos:.3e} m (env {ENV_POS_M}), velocity {vel:.3e} m/s "
+            f"(env {ENV_VEL}), attitude {att:.3e} rad (env {ENV_ATT_RAD}), "
+            f"EAS {de:.3e} m/s (env {ENV_EAS})")
+        if not (pos <= ENV_POS_M and vel <= ENV_VEL and att <= ENV_ATT_RAD
+                and de <= ENV_EAS):
+            raise AssertionError(f"{label}: kernel and plain runs disagree")
 
-    # 20 steps in f64, kernels against plain, 1e-9
+    # 20 steps of each path in f64, kernels against plain, 1e-9
     sim64, st64 = fleet(torch.float64)
-    a = F.fleet_rollout(sim64, st64, 20)
-    with plain_clusters():
-        b = F.fleet_rollout(sim64, st64, 20)
-    torch.cuda.synchronize()
-    worst = max(rel_err(va, vb) for (_, va), (_, vb) in zip(
-        leaves({"x": a.x, "s": a.s}), leaves({"x": b.x, "s": b.s}))
-        if va.dtype.is_floating_point)
-    log(f"slice f64 20 steps kernel vs plain: max rel err {worst:.3e} "
-        f"(tol 1e-9)")
-    if not worst <= 1e-9:
-        raise AssertionError("f64 slice disagrees")
+    paths64 = Paths(sim64, st64)
+    for label in ("subsystems", "vehicle", "megakernel"):
+        a = paths64.run(label, F64_STEPS)
+        b = paths64.run_plain(label, F64_STEPS)
+        torch.cuda.synchronize()
+        worst = max(rel_err(va, vb) for _, va, vb in float_pairs(
+            {"x": a.x, "s": a.s}, {"x": b.x, "s": b.s}))
+        log(f"{label} f64 {F64_STEPS} steps kernels vs plain: max rel err "
+            f"{worst:.3e} (tol 1e-9)")
+        if not worst <= 1e-9:
+            raise AssertionError(f"{label}: f64 run disagrees")
 
-    # 5. timings (f32, B = 4096)
+    # 5. timings and bounds (f32, B = 4096)
     args = kernel_inputs(torch.float32)
     rows = []
-    for name, (src, replaces, _) in KERNELS.items():
-        buf, n_out, scal, prm = K.PACK[name](*args[name])
-        ms = cuda_ms(lambda: L.launch(name, buf, n_out, scal, params=prm))
+    for name in LANE_KERNELS:
+        src, replaces, _ = KERNELS[name]
+        buf, n_out, scal, ops = K.PACK[name](*args[name])
+        ms = cuda_ms(lambda: L.launch(name, buf, n_out, scal, **ops))
         kern, plain = getattr(K, name), getattr(K, name + "_plain")
         wrapper_ms = cuda_ms(lambda: kern(*args[name]))
         plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, calls=4)
         blocks = {bs: cuda_ms(lambda: L.launch(name, buf, n_out, scal,
-                                               block=bs, params=prm))
-                  for bs in (32, 64, 128, 256)}
-        log(f"time {name}: kernel {ms:.4f} ms, wrapper (pack+launch+unpack) "
-            f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; by block size "
-            + ", ".join(f"{k}: {v:.4f}" for k, v in blocks.items())
+                                               block=bs, **ops))
+                  for bs in (32, 64, 128)}
+        n_elems = buf.numel() + n_out * buf.shape[1] + sum(
+            v.numel() for k, v in ops.items() if k != "grid")
+        if name == "geoid":
+            n_elems += geoid_cells(args["geoid"][0], args["geoid"][1])
+        n_ops = count_ops(lambda: plain(*args[name]))
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=launches[name],
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         nbytes=4 * n_elems, ops=n_ops, library_ms=None,
+                         wrapper_ms=wrapper_ms, block_ms=blocks))
+
+    sim, st = mega_inputs(torch.float32, True)
+    vehicle = sim.system.aircraft.vehicle
+    bufs, step_packed, unpack = make_megakernel_step(sim, st)
+    params, grid = K.system_params(vehicle), K.geoid_grid(vehicle.geoid)
+    mk = lambda block=None: L.launch_megakernel(
+        bufs[0], bufs[1], params, grid, sim.dt, sim.t_start, True, block)
+    ms = cuda_ms(mk)
+    blocks = {bs: cuda_ms(lambda: mk(bs)) for bs in (32, 64, 128)}
+    wrapper_ms = cuda_ms(lambda: step_packed(bufs))
+    plain_ms = cuda_ms(lambda: megakernel_step_plain(sim, st), reps=3,
+                       calls=2)
+    q_new = unpack(step_packed(bufs)).x["vehicle"]["kinematics"]["q_ew"]
+    n_elems = 2 * (bufs[0].numel() + bufs[1].numel()) + params.numel() \
+        + geoid_cells(vehicle.geoid, q_new)
+    rows.append(dict(name="megakernel", route="cuda",
+                     source=KERNELS["megakernel"][0],
+                     replaces=KERNELS["megakernel"][1],
+                     launches=launches["megakernel"],
+                     max_abs_err=errs["megakernel"], ms=ms,
+                     plain_ms=plain_ms, nbytes=4 * n_elems,
+                     ops=count_ops(lambda: megakernel_step_plain(sim, st)),
+                     library_ms=None, wrapper_ms=wrapper_ms,
+                     block_ms=blocks))
+
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({r['nbytes']} B, "
+            f"{r['ops']} ops; {r['bound_ms'] / r['ms']:.4f} of it reached), "
+            f"by block size " + ", ".join(
+                f"{k}: {v:.4f}" for k, v in r["block_ms"].items())
             + f" ms [{card}]")
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
-                     "block_ms": blocks})
 
     # throughput: interleaved warm windows of WINDOW[label] steps each
-    windows = {}
-    for label in ("kernels", "plain") * 3 + ("kernels", "kernels"):
-        ctx = plain_clusters() if label == "plain" else \
-            contextlib.nullcontext()
-        with ctx:
-            F.fleet_rollout(sim, st0, 2)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            F.fleet_rollout(sim, st0, WINDOW[label])
-            torch.cuda.synchronize()
-            windows.setdefault(label, []).append(time.time() - t0)
+    windows = collections.defaultdict(list)
+    labels = ("subsystems", "vehicle", "megakernel")
+    for label in (labels + ("plain",)) * 3 + labels * 2:
+        run = (lambda n: paths.run_plain("subsystems", n)) \
+            if label == "plain" else (lambda n: paths.run(label, n))
+        run(2)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run(WINDOW[label])
+        torch.cuda.synchronize()
+        windows[label].append(time.time() - t0)
     for label, ts in windows.items():
         rates = [B * WINDOW[label] / t for t in ts]
         log(f"fleet step {label}: median {statistics.median(rates):.0f}, "
@@ -318,8 +539,12 @@ def main():
             f"steps (runs {[round(r) for r in rates]}, B = {B}, f32) "
             f"[{card}]")
 
+    log(f"total: {time.time() - t_start:.1f} s")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "wrapper_ms", "block_ms", "nbytes", "ops")
     print(card)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,8 +19,6 @@
 
 namespace fj {
 
-constexpr double PI = 3.141592653589793;
-
 // ------------------------------------------------------------- parameters
 
 // Aero (models/c172/common.py::Aero): geometry, filter, control ranges as
@@ -117,6 +115,27 @@ constexpr int FSYS_N_IN =
     2 * N_XSYS + N_USYS + N_SSYS + N_TRN + N_KIN + N_AIR;            // 115
 constexpr int FSYS_N_OUT = N_XSYS + N_SSYS;                          // 15
 
+// the whole vehicle (rk4_stage, rk4_finish, megakernel):
+// X   = x_kin, x_dyn, x_sys                          (N_X rows)
+// CTX = u_sys, u_atm, trn, s_sys, geoid_N, term      (N_CTX rows)
+// C   = the residuals of q_ew[4] and h_e             (N_C rows)
+constexpr int N_X = N_XKIN + N_XDYN + N_XSYS;                        // 27
+constexpr int X_DYN = N_XKIN, X_SYS = N_XKIN + N_XDYN;
+constexpr int CX_USYS = 0, CX_UATM = N_USYS, CX_TRN = N_USYS + N_UATM,
+              CX_SSYS = CX_TRN + N_TRN, CX_GEOID = CX_SSYS + N_SSYS,
+              CX_TERM = CX_GEOID + 1, N_CTX = CX_TERM + 1;           // 36
+constexpr int N_C = 5;
+// rk4_stage: in = X, CTX ; k = X ; out = X derivative
+constexpr int STAGE_N_IN = N_X + N_CTX;                              // 63
+constexpr int STAGE_N_OUT = N_X;                                     // 27
+// rk4_finish: in = X, CTX, C ; ksum = X ; out = X, s_sys, term, C
+constexpr int RKFIN_N_IN = N_X + N_CTX + N_C;                        // 68
+constexpr int RKFIN_N_OUT = N_X + N_SSYS + 1 + N_C;                  // 36
+// megakernel: one [MEGA_N_ROWS, B] state buffer t, X, CTX, C, and the
+// int32 step counter i beside it
+constexpr int MG_T = 0, MG_X = 1, MG_CTX = MG_X + N_X, MG_C = MG_CTX + N_CTX,
+              MEGA_N_ROWS = MG_C + N_C;                              // 69
+
 // ------------------------------------------------------------- helpers
 
 template <typename T>
@@ -172,14 +191,14 @@ struct Act {
 };
 
 template <typename T>
-__device__ __forceinline__ Act<T> actuation(const Col<T>& c, int r) {
+__device__ __forceinline__ Act<T> actuation(const T (&u)[N_USYS]) {
   const T one = T(1.0), zero = T(0.0);
-  const T ail = clamp(c(r + US_AIL_OFF) + c(r + US_AIL), -one, one);
-  const T elv = clamp(c(r + US_ELV_OFF) + c(r + US_ELV), -one, one);
-  const T rud = clamp(c(r + US_RUD_OFF) + c(r + US_RUD), -one, one);
-  return {-elv, ail, -rud, clamp(c(r + US_FLAPS), zero, one), rud,
-          clamp(c(r + US_BRK_L), zero, one), clamp(c(r + US_BRK_R), zero, one),
-          clamp(c(r + US_THR), zero, one), clamp(c(r + US_MIX), zero, one)};
+  const T ail = clamp(u[US_AIL_OFF] + u[US_AIL], -one, one);
+  const T elv = clamp(u[US_ELV_OFF] + u[US_ELV], -one, one);
+  const T rud = clamp(u[US_RUD_OFF] + u[US_RUD], -one, one);
+  return {-elv, ail, -rud, clamp(u[US_FLAPS], zero, one), rud,
+          clamp(u[US_BRK_L], zero, one), clamp(u[US_BRK_R], zero, one),
+          clamp(u[US_THR], zero, one), clamp(u[US_MIX], zero, one)};
 }
 
 // ------------------------------------------------------------- aero
@@ -543,13 +562,6 @@ __device__ __forceinline__ int engine_step(const T* P, int state, T omega,
 // ------------------------------------------------------------- mass
 
 template <typename T>
-struct MP {
-  T m;
-  M33<T> J;
-  V3<T> r;
-};
-
-template <typename T>
 __device__ __forceinline__ MP<T> mp_zero() {
   const T z = T(0.0);
   return {z, {{{z, z, z}, {z, z, z}, {z, z, z}}}, {z, z, z}};
@@ -617,6 +629,240 @@ __device__ MP<T> mass_sum(const T* P, const T (&pld)[5], T x_fuel) {
   fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank0_x)));
   fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank1_x)));
   return mp_add(mp_add(af, pay), fuel);
+}
+
+// ------------------------------------------------------------- lanes
+
+// s_sys and the terrain under a lane
+struct SSys {
+  bool stall, crashed;
+  int state;
+};
+
+template <typename T>
+struct Trn {
+  T elevation;
+  V3<T> normal;
+  int surface;
+};
+
+// k2_lane at the stage state xi: actuation + aero, the three gear legs,
+// powerplant + fuel + mass (k_actaero, k_ldg0..2, k_pwp in order); the
+// derivative x alive, the summed mass properties, wrench and rotor momentum
+template <typename T>
+__device__ __forceinline__ void systems_lane(
+    const T* P, const T (&xi)[N_XSYS], const T (&u)[N_USYS], const SSys& s,
+    const Trn<T>& trn, const Kin<T>& kin, const Air<T>& air, T alive,
+    T (&dot)[N_XSYS], MP<T>& mp, V3<T>& F_b, V3<T>& tau_b, V3<T>& hr_b) {
+  // actuation + aero (k_actaero)
+  const Act<T> act = actuation(u);
+  V3<T> F_aero, tau_aero;
+  aero(P, xi[XS_ALPHA], xi[XS_BETA], act, s.stall, kin, air, trn.elevation,
+       dot[XS_ALPHA], dot[XS_BETA], F_aero, tau_aero);
+
+  // gear legs left, right, nose (k_ldg0..2); steering on the nose leg,
+  // brakes on the mains
+  const T zero = T(0.0);
+  const T steer[N_LEGS] = {zero, zero, act.steering};
+  const T brake[N_LEGS] = {act.brake_left, act.brake_right, zero};
+  V3<T> F_ldg, tau_ldg;
+#pragma unroll
+  for (int leg = 0; leg < N_LEGS; ++leg) {
+    V3<T> F, tau;
+    gear_leg(P, leg, xi[XS_FRC + 2 * leg], xi[XS_FRC + 2 * leg + 1],
+             steer[leg], brake[leg], kin, trn.elevation, trn.normal,
+             trn.surface, dot[XS_FRC + 2 * leg], dot[XS_FRC + 2 * leg + 1], F,
+             tau);
+    F_ldg = leg == 0 ? F : add(F_ldg, F);
+    tau_ldg = leg == 0 ? tau : add(tau_ldg, tau);
+  }
+
+  // powerplant, fuel and mass (k_pwp); the engine takes throttle and
+  // mixture from the actuation
+  const T gr = P[P_EN + EN_gear_ratio];
+  const PropOut<T> prop = propeller(P, kin, air, gr * xi[XS_OMEGA]);
+  T mdot;
+  engine(P, xi[XS_OMEGA], xi[XS_IDLE], xi[XS_EFRC], act.throttle,
+         act.mixture, u[US_E_MIXCTL], s.state, air, gr * prop.tau_px,
+         dot[XS_OMEGA], dot[XS_IDLE], dot[XS_EFRC], mdot);
+  dot[XS_FUEL] = -mdot / P[P_MS + MS_M_USABLE];
+  T pld[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) pld[k] = u[US_PLD + k];
+  mp = mass_sum(P, pld, xi[XS_FUEL]);
+  F_b = add(add(F_aero, prop.F_b), F_ldg);
+  tau_b = add(add(tau_aero, prop.tau_b), tau_ldg);
+  hr_b = prop.hr_b;
+#pragma unroll
+  for (int r = 0; r < N_XSYS; ++r) dot[r] = alive * dot[r];
+}
+
+// k5_lane after the RK4 combine (x holds x + dt/6 ksum): actuation, the
+// three struts, stall hysteresis, friction regulator reset off the ground,
+// crash latch and the engine state machine (k_fin_act, k_fin_ldg0..2,
+// k_fin_rest) at the new kinematics; updates x and s in place
+template <typename T>
+__device__ __forceinline__ void finish_sys_lane(const T* P, T (&x)[N_XSYS],
+                                                const T (&u)[N_USYS], SSys& s,
+                                                const Trn<T>& trn,
+                                                const Kin<T>& kin,
+                                                const Air<T>& air) {
+  // actuation (k_fin_act): only the nose leg steers
+  const Act<T> act = actuation(u);
+  const T zero = T(0.0);
+  const T steer[N_LEGS] = {zero, zero, act.steering};
+
+  // struts (k_fin_ldg0..2), stall, gear reset, crash latch (k_fin_rest)
+  bool crashed = s.crashed;
+#pragma unroll
+  for (int leg = 0; leg < N_LEGS; ++leg) {
+    const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steer[leg], kin,
+                                trn.elevation, trn.normal);
+    if (!st.wow) {
+      x[XS_FRC + 2 * leg] = zero;
+      x[XS_FRC + 2 * leg + 1] = zero;
+    }
+    crashed = crashed || (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
+              -st.xi_dot > T(XI_DOT_MAX);
+  }
+  T alpha, beta;
+  V3<T> v_safe;
+  alpha_gated(air, alpha, beta, v_safe);
+  const bool stall = alpha > P[P_AE + AE_stall_hi] ||
+                     (s.stall && alpha >= P[P_AE + AE_stall_lo]);
+
+  // engine state machine
+  const T* M = P + P_MS;
+  const bool fuel_available =
+      fuel_m_total(M, x[XS_FUEL]) - M[MS_M_RES] > T(0);
+  s.state = engine_step(P, s.state, x[XS_OMEGA], u[US_E_START].v != 0,
+                        u[US_E_STOP].v != 0, fuel_available);
+  s.stall = stall;
+  s.crashed = crashed;
+}
+
+// x_sys (N_XSYS rows), s_sys (N_SSYS rows) and the terrain (N_TRN rows)
+template <typename T>
+__device__ __forceinline__ SSys load_ssys(const Col<T>& c, int r) {
+  return {c(r + SS_STALL).v != 0, c(r + SS_CRASHED).v != 0,
+          int(c(r + SS_STATE).v)};
+}
+template <typename T>
+__device__ __forceinline__ void store_ssys(const Out<T>& o, int r,
+                                           const SSys& s) {
+  o.s(r + SS_STALL, T(s.stall ? 1.0 : 0.0));
+  o.s(r + SS_CRASHED, T(s.crashed ? 1.0 : 0.0));
+  o.s(r + SS_STATE, T(double(s.state)));
+}
+template <typename T>
+__device__ __forceinline__ Trn<T> load_trn(const Col<T>& c, int r) {
+  return {c(r + TR_ELEV), c.v3(r + TR_NORMAL), int(c(r + TR_SURF).v)};
+}
+
+// ------------------------------------------------------------- the vehicle
+// World.f_ode and World.f_step of the flagship (WA kinematics, ISA
+// atmosphere, C172 systems, flat terrain) on one lane, composed from the
+// lanes above with the KinData and AirData in registers
+
+template <typename T>
+struct XVeh {
+  XKin<T> kin;
+  XDyn<T> dyn;
+  T sys[N_XSYS];
+};
+
+template <typename T>
+struct Ctx {
+  T u[N_USYS];
+  AtmU<T> atm;
+  Trn<T> trn;
+  SSys s;
+  T geoid_N, term;
+};
+
+template <typename T>
+__device__ __forceinline__ XVeh<T> load_x(const Col<T>& c, int r) {
+  XVeh<T> x;
+  x.kin = load_xkin(c, r);
+  x.dyn = load_xdyn(c, r + X_DYN);
+#pragma unroll
+  for (int k = 0; k < N_XSYS; ++k) x.sys[k] = c(r + X_SYS + k);
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_x(const Out<T>& o, int r,
+                                        const XVeh<T>& x) {
+  store_xkin(o, r, x.kin);
+  store_xdyn(o, r + X_DYN, x.dyn);
+#pragma unroll
+  for (int k = 0; k < N_XSYS; ++k) o.s(r + X_SYS + k, x.sys[k]);
+}
+
+template <typename T>
+__device__ __forceinline__ Ctx<T> load_ctx(const Col<T>& c, int r) {
+  Ctx<T> x;
+#pragma unroll
+  for (int k = 0; k < N_USYS; ++k) x.u[k] = c(r + CX_USYS + k);
+  x.atm = load_atm(c, r + CX_UATM);
+  x.trn = load_trn(c, r + CX_TRN);
+  x.s = load_ssys(c, r + CX_SSYS);
+  x.geoid_N = c(r + CX_GEOID);
+  x.term = c(r + CX_TERM);
+  return x;
+}
+
+// x + a k on every state
+template <typename T>
+__device__ __forceinline__ XVeh<T> axpy(const XVeh<T>& x, T a,
+                                        const XVeh<T>& k) {
+  XVeh<T> o;
+  o.kin = axpy(x.kin, a, k.kin);
+  o.dyn = axpy(x.dyn, a, k.dyn);
+#pragma unroll
+  for (int r = 0; r < N_XSYS; ++r) o.sys[r] = x.sys[r] + a * k.sys[r];
+  return o;
+}
+
+// stage_lane of flightjax/parallel/clusterstep.py:81-85 at the stage state
+// xi: kinematics -> atmosphere and air data -> systems -> dynamics, every
+// derivative zeroed on a terminated lane
+template <typename T>
+__device__ __forceinline__ XVeh<T> vehicle_f_ode(const T* P, const XVeh<T>& xi,
+                                                 const Ctx<T>& ctx) {
+  const T alive = T(1.0) - ctx.term;
+  XVeh<T> d;
+  Kin<T> kin;
+  Air<T> air;
+  kinair_lane(xi.kin, xi.dyn, ctx.geoid_N, ctx.atm, alive, d.kin, kin, air);
+  MP<T> mp;
+  V3<T> F_b, tau_b, hr_b;
+  systems_lane(P, xi.sys, ctx.u, ctx.s, ctx.trn, kin, air, alive, d.sys, mp,
+               F_b, tau_b, hr_b);
+  d.dyn = dynamics_lane(xi.dyn, mp, F_b, tau_b, hr_b, kin.q_eb, kin.r_eb_e,
+                        alive);
+  return d;
+}
+
+// finish_lane of clusterstep.py:97-103 with the compensated add of
+// flightjax/core/sim.py:315-320 when `comp`: the RK4 combine x + c6 ksum,
+// the kinematics renorm, the systems' discrete step and the terminated
+// latch. Updates ctx.s and ctx.term; returns the new state and its KinData
+template <typename T>
+__device__ __forceinline__ XVeh<T> vehicle_finish(const T* P, const XVeh<T>& x,
+                                                  const XVeh<T>& ksum, T c6,
+                                                  bool comp, Q4<T>& r_q,
+                                                  T& r_h, Ctx<T>& ctx,
+                                                  Kin<T>& kin) {
+  XVeh<T> o;
+  Air<T> air;
+  finish_kin_lane(x.kin, x.dyn, ksum.kin, ksum.dyn, c6, comp, r_q, r_h,
+                  ctx.geoid_N, ctx.atm, o.kin, o.dyn, kin, air);
+#pragma unroll
+  for (int r = 0; r < N_XSYS; ++r) o.sys[r] = x.sys[r] + c6 * ksum.sys[r];
+  finish_sys_lane(P, o.sys, ctx.u, ctx.s, ctx.trn, kin, air);
+  ctx.term = T(ctx.term.v != 0 || ctx.s.crashed ? 1.0 : 0.0);
+  return o;
 }
 
 }  // namespace fj

@@ -21,15 +21,6 @@
 
 using namespace fj;
 
-// Neumaier two-sum: x + incr with the residual c carried across steps
-template <typename T>
-__device__ __forceinline__ T comp_add(T x, T incr, T& c) {
-  const T y = incr + c;
-  const T s = x + y;
-  c = Abs(x) >= Abs(y) ? (x - s) + y : (y - s) + x;
-  return s;
-}
-
 template <typename T>
 __global__ void finish_kin_kernel(const T* __restrict__ in,
                                   T* __restrict__ out, int B, T c6,
@@ -39,42 +30,21 @@ __global__ void finish_kin_kernel(const T* __restrict__ in,
   const Col<T> c{in, B, b};
   const Out<T> o{out, B, b};
 
-  const Q4<T> q_wb = c.q4(0), q_ew = c.q4(4), kq_wb = c.q4(15),
-              kq_ew = c.q4(19);
-  Q4<T> nq_wb = {q_wb.w + c6 * kq_wb.w, q_wb.x + c6 * kq_wb.x,
-                 q_wb.y + c6 * kq_wb.y, q_wb.z + c6 * kq_wb.z};
-  Q4<T> nq_ew;
-  T nh_e;
   Q4<T> r_q = {T(0), T(0), T(0), T(0)};
   T r_h = T(0);
   if (comp) {
     r_q = c.q4(36);
     r_h = c(40);
-    nq_ew = {comp_add(q_ew.w, c6 * kq_ew.w, r_q.w),
-             comp_add(q_ew.x, c6 * kq_ew.x, r_q.x),
-             comp_add(q_ew.y, c6 * kq_ew.y, r_q.y),
-             comp_add(q_ew.z, c6 * kq_ew.z, r_q.z)};
-    nh_e = comp_add(c(8), c6 * c(23), r_h);
-  } else {
-    nq_ew = {q_ew.w + c6 * kq_ew.w, q_ew.x + c6 * kq_ew.x,
-             q_ew.y + c6 * kq_ew.y, q_ew.z + c6 * kq_ew.z};
-    nh_e = c(8) + c6 * c(23);
   }
-  const V3<T> w = add(c.v3(9), scale(c6, c.v3(24)));
-  const V3<T> v = add(c.v3(12), scale(c6, c.v3(27)));
-  nq_wb = normalize_block(nq_wb);
-  nq_ew = normalize_block(nq_ew);
-
-  KinDot<T> xd;
+  XKin<T> x;
+  XDyn<T> x_dyn;
   Kin<T> k;
-  wa_f_ode(nq_wb, nq_ew, nh_e, w, v, c(30), xd, k);
-  const Air<T> air = atm_air(k, c(31), c(32), c.v3(33));
-
-  o.q4(0, nq_wb);
-  o.q4(4, nq_ew);
-  o.s(8, nh_e);
-  o.v3(9, w);
-  o.v3(12, v);
+  Air<T> air;
+  finish_kin_lane(load_xkin(c, 0), load_xdyn(c, 9), load_xkin(c, 15),
+                  load_xdyn(c, 24), c6, comp != 0, r_q, r_h, c(30),
+                  load_atm(c, 31), x, x_dyn, k, air);
+  store_xkin(o, 0, x);
+  store_xdyn(o, N_XKIN, x_dyn);
   store_kin(o, N_XKIN + N_XDYN, k);
   store_air(o, N_XKIN + N_XDYN + N_KIN, air);
   o.q4(N_XKIN + N_XDYN + N_KIN + N_AIR, r_q);

@@ -41,50 +41,16 @@ __global__ void finish_sys_kernel(const T* __restrict__ in,
   T x[N_XSYS];
 #pragma unroll
   for (int r = 0; r < N_XSYS; ++r) x[r] = c(FI_X + r) + c6 * c(FI_K + r);
-  const Kin<T> kin = load_kin(c, FI_KIN);
-  const Air<T> air = load_air(c, FI_AIR);
-  const T elevation = c(FI_TRN + TR_ELEV);
-  const V3<T> normal = c.v3(FI_TRN + TR_NORMAL);
-
-  // actuation (k_fin_act): only the nose leg steers
-  const Act<T> act = actuation(c, FI_U);
-  const T zero = T(0.0);
-  const T steer[N_LEGS] = {zero, zero, act.steering};
-
-  // struts (k_fin_ldg0..2), stall, gear reset, crash latch (k_fin_rest)
-  bool crashed = c(FI_S + SS_CRASHED).v != 0;
+  T u[N_USYS];
 #pragma unroll
-  for (int leg = 0; leg < N_LEGS; ++leg) {
-    const Strut<T> s = strut_y(P + P_LG + leg * LG_N, steer[leg], kin,
-                               elevation, normal);
-    if (!s.wow) {
-      x[XS_FRC + 2 * leg] = zero;
-      x[XS_FRC + 2 * leg + 1] = zero;
-    }
-    crashed = crashed || (s.wow && s.alpha_ts > T(ALPHA_TS_MAX)) ||
-              -s.xi_dot > T(XI_DOT_MAX);
-  }
-  T alpha, beta;
-  V3<T> v_safe;
-  alpha_gated(air, alpha, beta, v_safe);
-  const bool stall_in = c(FI_S + SS_STALL).v != 0;
-  const bool stall = alpha > P[P_AE + AE_stall_hi] ||
-                     (stall_in && alpha >= P[P_AE + AE_stall_lo]);
-
-  // engine state machine
-  const T* M = P + P_MS;
-  const bool fuel_available =
-      fuel_m_total(M, x[XS_FUEL]) - M[MS_M_RES] > T(0);
-  const int state = engine_step(
-      P, int(c(FI_S + SS_STATE).v), x[XS_OMEGA],
-      c(FI_U + US_E_START).v != 0, c(FI_U + US_E_STOP).v != 0,
-      fuel_available);
+  for (int r = 0; r < N_USYS; ++r) u[r] = c(FI_U + r);
+  SSys s = load_ssys(c, FI_S);
+  finish_sys_lane(P, x, u, s, load_trn(c, FI_TRN), load_kin(c, FI_KIN),
+                  load_air(c, FI_AIR));
 
 #pragma unroll
   for (int r = 0; r < N_XSYS; ++r) o.s(FO_X + r, x[r]);
-  o.s(FO_S + SS_STALL, T(stall ? 1.0 : 0.0));
-  o.s(FO_S + SS_CRASHED, T(crashed ? 1.0 : 0.0));
-  o.s(FO_S + SS_STATE, T(double(state)));
+  store_ssys(o, FO_S, s);
 }
 
 template <typename T>

@@ -49,6 +49,7 @@ constexpr double G_STD = 9.80665;
 constexpr double T_SL_MIN = T_STD - 50.0, T_SL_MAX = T_STD + 50.0;
 constexpr double P_SL_MIN = P_STD - 10000.0, P_SL_MAX = P_STD + 10000.0;
 constexpr double V_MIN_CHI_GAMMA = 0.1;
+constexpr double PI = 3.141592653589793;
 
 // ------------------------------------------------------------- row maps
 
@@ -75,6 +76,10 @@ constexpr int DYN_N_OUT = N_XDYN;                                     // 6
 //             out = x_kin, x_dyn, KinData, AirData, c_q_ew[4], c_h_e
 constexpr int FIN_N_IN = 2 * (N_XKIN + N_XDYN) + 1 + N_UATM + 5;      // 41
 constexpr int FIN_N_OUT = N_XKIN + N_XDYN + N_KIN + N_AIR + 5;        // 82
+// geoid: in = q_ew[4] ; out = geoid_N. The grid buffer is [n_lat + 1, n_lon]:
+// row 0 starts with the GEO_HEAD values n_lat, n_lon, lat0, dlat, lon0,
+// dlon, rows 1.. hold the undulations
+constexpr int GEOID_N_IN = 4, GEOID_N_OUT = 1, GEO_HEAD = 6;
 
 // ------------------------------------------------------------- math
 
@@ -132,6 +137,8 @@ __device__ __forceinline__ SF Sin(SF x) { return SF::of(sinf(x.v)); }
 __device__ __forceinline__ SD Sin(SD x) { return SD::of(sin(x.v)); }
 __device__ __forceinline__ SF Floor(SF x) { return SF::of(floorf(x.v)); }
 __device__ __forceinline__ SD Floor(SD x) { return SD::of(floor(x.v)); }
+__device__ __forceinline__ SF Fmod(SF x, SF y) { return SF::of(fmodf(x.v, y.v)); }
+__device__ __forceinline__ SD Fmod(SD x, SD y) { return SD::of(fmod(x.v, y.v)); }
 
 // torch.clamp semantics (NaN propagates)
 template <typename T>
@@ -537,8 +544,9 @@ struct Kin {
   T v_gnd, chi, gamma;
 };
 
+// the kinematic state (and its derivative) of the WA mechanization
 template <typename T>
-struct KinDot {
+struct XKin {
   Q4<T> q_wb, q_ew;
   T h_e;
 };
@@ -547,7 +555,7 @@ struct KinDot {
 template <typename T>
 __device__ __forceinline__ void wa_f_ode(Q4<T> q_wb, Q4<T> q_ew, T h_e,
                                          V3<T> omega_eb_b, V3<T> v_eb_b,
-                                         T geoid_N, KinDot<T>& xd, Kin<T>& k) {
+                                         T geoid_N, XKin<T>& xd, Kin<T>& k) {
   T A_, B_;
   get_psi_nw_ab(q_ew, A_, B_);
   const T n2 = A_ * A_ + B_ * B_;
@@ -640,6 +648,216 @@ __device__ __forceinline__ Air<T> atm_air(const Kin<T>& k, T T_sl, T p_sl,
   o.CAS = Sqrt(T(2.0 * GAMMA / (GAMMA - 1.0) * P_STD / RHO_STD) *
                (Pow(T(1) + o.Dp / T(P_STD), T((GAMMA - 1.0) / GAMMA)) - T(1)));
   return o;
+}
+
+// ------------------------------------------------------------- lanes
+// The per-aircraft bodies of the cluster kernels, on register structs. The
+// cluster kernels load a lane's rows, call one of these and store; the
+// whole-step kernels (rk4_stage, rk4_finish, megakernel) chain them with
+// the KinData and AirData kept in registers.
+
+template <typename T>
+struct XDyn {
+  V3<T> omega_eb_b, v_eb_b;
+};
+
+template <typename T>
+struct AtmU {
+  T T_sl, p_sl;
+  V3<T> wind;
+};
+
+// mass properties: m, J about the body origin, CoM position r
+template <typename T>
+struct MP {
+  T m;
+  M33<T> J;
+  V3<T> r;
+};
+
+// x + a k, leaf by leaf, as the plain stage FMA and RK4 combine form it
+template <typename T>
+__device__ __forceinline__ Q4<T> axpy(Q4<T> x, T a, Q4<T> k) {
+  return {x.w + a * k.w, x.x + a * k.x, x.y + a * k.y, x.z + a * k.z};
+}
+template <typename T>
+__device__ __forceinline__ XKin<T> axpy(const XKin<T>& x, T a,
+                                        const XKin<T>& k) {
+  return {axpy(x.q_wb, a, k.q_wb), axpy(x.q_ew, a, k.q_ew), x.h_e + a * k.h_e};
+}
+template <typename T>
+__device__ __forceinline__ XDyn<T> axpy(const XDyn<T>& x, T a,
+                                        const XDyn<T>& k) {
+  return {add(x.omega_eb_b, scale(a, k.omega_eb_b)),
+          add(x.v_eb_b, scale(a, k.v_eb_b))};
+}
+template <typename T>
+__device__ __forceinline__ Q4<T> scale(T a, Q4<T> q) {
+  return {a * q.w, a * q.x, a * q.y, a * q.z};
+}
+template <typename T>
+__device__ __forceinline__ XKin<T> scale(T a, const XKin<T>& x) {
+  return {scale(a, x.q_wb), scale(a, x.q_ew), a * x.h_e};
+}
+template <typename T>
+__device__ __forceinline__ XDyn<T> scale(T a, const XDyn<T>& x) {
+  return {scale(a, x.omega_eb_b), scale(a, x.v_eb_b)};
+}
+
+// k1_lane at the stage state: WA f_ode (derivative x alive, KinData), the
+// ISA atmosphere with wind and the air data
+template <typename T>
+__device__ __forceinline__ void kinair_lane(const XKin<T>& xi,
+                                            const XDyn<T>& xi_dyn, T geoid_N,
+                                            const AtmU<T>& u, T alive,
+                                            XKin<T>& kin_dot, Kin<T>& k,
+                                            Air<T>& air) {
+  XKin<T> d;
+  wa_f_ode(xi.q_wb, xi.q_ew, xi.h_e, xi_dyn.omega_eb_b, xi_dyn.v_eb_b, geoid_N,
+           d, k);
+  air = atm_air(k, u.T_sl, u.p_sl, u.wind);
+  kin_dot = scale(alive, d);
+}
+
+// closed-form adjugate solve (flightjax/physics/dynamics.py:148-169)
+template <typename T>
+__device__ __forceinline__ V3<T> solve3(const M33<T>& M, V3<T> b) {
+  const T a00 = M.m[0][0], a01 = M.m[0][1], a02 = M.m[0][2];
+  const T a10 = M.m[1][0], a11 = M.m[1][1], a12 = M.m[1][2];
+  const T a20 = M.m[2][0], a21 = M.m[2][1], a22 = M.m[2][2];
+  const T c00 = a11 * a22 - a12 * a21;
+  const T c01 = a12 * a20 - a10 * a22;
+  const T c02 = a10 * a21 - a11 * a20;
+  const T det = a00 * c00 + a01 * c01 + a02 * c02;
+  const T c10 = a02 * a21 - a01 * a22;
+  const T c11 = a00 * a22 - a02 * a20;
+  const T c12 = a01 * a20 - a00 * a21;
+  const T c20 = a01 * a12 - a02 * a11;
+  const T c21 = a02 * a10 - a00 * a12;
+  const T c22 = a00 * a11 - a01 * a10;
+  return {(c00 * b.x + c10 * b.y + c20 * b.z) / det,
+          (c01 * b.x + c11 * b.y + c21 * b.z) / det,
+          (c02 * b.x + c12 * b.y + c22 * b.z) / det};
+}
+
+// k3_lane: Newton-Euler at the CoM from the summed mass properties, wrench
+// and rotor momentum ho; derivative x alive
+template <typename T>
+__device__ __forceinline__ XDyn<T> dynamics_lane(const XDyn<T>& xi,
+                                                 const MP<T>& mp, V3<T> F_b,
+                                                 V3<T> tau_b, V3<T> ho,
+                                                 Q4<T> q_eb, V3<T> r_eb_e,
+                                                 T alive) {
+  const V3<T> omega_eb_b = xi.omega_eb_b, v_eb_b = xi.v_eb_b;
+  const T m = mp.m;
+  const M33<T>& J = mp.J;
+  const V3<T> r_OG = mp.r;
+
+  const V3<T> omega_ie_b = qrot_inv(q_eb, V3<T>{T(0), T(0), T(OMEGA_IE)});
+
+  // mass properties and wrench at the CoM: t_cb = (-r_OG, identity)
+  const V3<T> r_bc_b = r_OG;
+  const M33<T> SSc = mm(skew(r_OG), skew(r_OG));
+  const V3<T> r_bG_b = add(neg(r_bc_b), r_OG);
+  const M33<T> SSb = mm(skew(r_bG_b), skew(r_bG_b));
+  M33<T> J_c;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      J_c.m[i][j] = (J.m[i][j] + m * SSc.m[i][j]) - m * SSb.m[i][j];
+  const V3<T> F_c = F_b;
+  const V3<T> tau_c = add(tau_b, cross(neg(r_bc_b), F_c));
+
+  const V3<T> omega_ec_c = omega_eb_b;
+  const V3<T> v_ec_c = add(v_eb_b, cross(omega_ec_c, r_bc_b));
+  const V3<T> omega_ie_c = omega_ie_b;
+  const V3<T> omega_ic_c = add(omega_ie_c, omega_ec_c);
+
+  // geodetic position of the CoM and gravity there
+  const V3<T> r_ec_e = add(r_eb_e, qrot(q_eb, r_bc_b));
+  V3<T> n_c;
+  T h_c;
+  geographic_from_cartesian(r_ec_e, n_c, h_c);
+  const T g_mag = gravity(n_c, h_c);
+  const V3<T> g_c_c = scale(g_mag, qrot_inv(q_eb, neg(n_c)));
+
+  const V3<T> hc = add(mv(J_c, omega_ic_c), ho);
+  const V3<T> rhs = sub(sub(tau_c, mv(J_c, cross(omega_ie_c, omega_ec_c))),
+                        cross(omega_ic_c, hc));
+  const V3<T> omega_dot = solve3(J_c, rhs);
+  const V3<T> F_m = {F_c.x / m, F_c.y / m, F_c.z / m};
+  const V3<T> v_dot_ec_c =
+      sub(add(F_m, g_c_c),
+          cross(add(omega_ec_c, scale(T(2), omega_ie_c)), v_ec_c));
+  const V3<T> v_dot_eb_b = sub(v_dot_ec_c, cross(omega_dot, r_bc_b));
+  return {scale(alive, omega_dot), scale(alive, v_dot_eb_b)};
+}
+
+// Neumaier two-sum: x + incr with the residual c carried across steps
+// (flightjax/core/sim.py:158-180)
+template <typename T>
+__device__ __forceinline__ T comp_add(T x, T incr, T& c) {
+  const T y = incr + c;
+  const T s = x + y;
+  c = Abs(x) >= Abs(y) ? (x - s) + y : (y - s) + x;
+  return s;
+}
+
+// k4_lane + comp_add: the RK4 combine x + c6 ksum (compensated on q_ew and
+// h_e with the residuals r_q, r_h when `comp`), the WA renormalisation, and
+// KinData and AirData at the new state
+template <typename T>
+__device__ __forceinline__ void finish_kin_lane(
+    const XKin<T>& x, const XDyn<T>& x_dyn, const XKin<T>& ks,
+    const XDyn<T>& ks_dyn, T c6, bool comp, Q4<T>& r_q, T& r_h, T geoid_N,
+    const AtmU<T>& u, XKin<T>& xo, XDyn<T>& xo_dyn, Kin<T>& k, Air<T>& air) {
+  const Q4<T> nq_wb = axpy(x.q_wb, c6, ks.q_wb);
+  Q4<T> nq_ew;
+  T nh_e;
+  if (comp) {
+    nq_ew = {comp_add(x.q_ew.w, c6 * ks.q_ew.w, r_q.w),
+             comp_add(x.q_ew.x, c6 * ks.q_ew.x, r_q.x),
+             comp_add(x.q_ew.y, c6 * ks.q_ew.y, r_q.y),
+             comp_add(x.q_ew.z, c6 * ks.q_ew.z, r_q.z)};
+    nh_e = comp_add(x.h_e, c6 * ks.h_e, r_h);
+  } else {
+    nq_ew = axpy(x.q_ew, c6, ks.q_ew);
+    nh_e = x.h_e + c6 * ks.h_e;
+  }
+  xo_dyn = axpy(x_dyn, c6, ks_dyn);
+  xo = {normalize_block(nq_wb), normalize_block(nq_ew), nh_e};
+  XKin<T> d;
+  wa_f_ode(xo.q_wb, xo.q_ew, xo.h_e, xo_dyn.omega_eb_b, xo_dyn.v_eb_b,
+           geoid_N, d, k);
+  air = atm_air(k, u.T_sl, u.p_sl, u.wind);
+}
+
+// EGM96 undulation at the n-vector n_e (ops/geodesy.py::Geoid.height over
+// ops/interp.py::RowLookup): lat/lon of n_e, lon wrapped into [0, 2 pi) as
+// torch.remainder wraps it, then bilinear on the uniform grid G (the
+// [n_lat + 1, n_lon] buffer above) with the cell index and weights formed as
+// RowLookup forms them, flat at the edges
+template <typename T>
+__device__ __forceinline__ T geoid_height(const T* G, V3<T> n_e) {
+  const T lat = Atan2(n_e.z, Sqrt(n_e.x * n_e.x + n_e.y * n_e.y));
+  const T two_pi = T(2.0 * PI);
+  T lon = Fmod(Atan2(n_e.y, n_e.x) + two_pi, two_pi);
+  if (lon < T(0)) lon = lon + two_pi;
+  const int n0 = int(G[0].v), n1 = int(G[1].v);
+  const T x0 = G[2], d0 = G[3], y0 = G[4], d1 = G[5];
+  const T* V = G + n1;
+  const T f0 = (lat - x0) / d0;
+  const int i0 = min(max(int(Floor(f0).v), 0), n0 - 2);
+  const T w0 = clamp(f0 - T(double(i0)), T(0.0), T(1.0));
+  const T t1 = clamp((lon - y0) / d1, T(0.0), T(n1 - 1.0));
+  const int i1 = min(max(int(Floor(t1).v), 0), n1 - 2);
+  const T w1 = t1 - T(double(i1));
+  const T* ra = V + i0 * n1 + i1;
+  const T* rb = ra + n1;
+  const T row_a = ra[0] * (T(1.0) - w0) + rb[0] * w0;
+  const T row_b = ra[1] * (T(1.0) - w0) + rb[1] * w0;
+  return row_a * (T(1.0) - w1) + row_b * w1;
 }
 
 // ------------------------------------------------------------- buffers
@@ -757,6 +975,33 @@ __device__ __forceinline__ Air<T> load_air(const Col<T>& c, int r) {
   a.EAS = c(r + 20);
   a.CAS = c(r + 21);
   return a;
+}
+
+// x_kin (N_XKIN rows), x_dyn (N_XDYN rows), u_atm (N_UATM rows) at row r
+template <typename T>
+__device__ __forceinline__ XKin<T> load_xkin(const Col<T>& c, int r) {
+  return {c.q4(r), c.q4(r + 4), c(r + 8)};
+}
+template <typename T>
+__device__ __forceinline__ XDyn<T> load_xdyn(const Col<T>& c, int r) {
+  return {c.v3(r), c.v3(r + 3)};
+}
+template <typename T>
+__device__ __forceinline__ AtmU<T> load_atm(const Col<T>& c, int r) {
+  return {c(r), c(r + 1), c.v3(r + 2)};
+}
+template <typename T>
+__device__ __forceinline__ void store_xkin(const Out<T>& o, int r,
+                                           const XKin<T>& x) {
+  o.q4(r, x.q_wb);
+  o.q4(r + 4, x.q_ew);
+  o.s(r + 8, x.h_e);
+}
+template <typename T>
+__device__ __forceinline__ void store_xdyn(const Out<T>& o, int r,
+                                           const XDyn<T>& x) {
+  o.v3(r, x.omega_eb_b);
+  o.v3(r + 3, x.v_eb_b);
 }
 
 }  // namespace fj

@@ -27,32 +27,17 @@ __global__ void kinair_kernel(const T* __restrict__ in, T* __restrict__ out,
   const Out<T> o{out, B, b};
 
   // stage state x + adt * k
-  const Q4<T> q_wb = c.q4(0), q_ew = c.q4(4), kq_wb = c.q4(15),
-              kq_ew = c.q4(19);
-  const V3<T> w = c.v3(9), v = c.v3(12), kw = c.v3(24), kv = c.v3(27);
-  const Q4<T> xq_wb = {q_wb.w + adt * kq_wb.w, q_wb.x + adt * kq_wb.x,
-                       q_wb.y + adt * kq_wb.y, q_wb.z + adt * kq_wb.z};
-  const Q4<T> xq_ew = {q_ew.w + adt * kq_ew.w, q_ew.x + adt * kq_ew.x,
-                       q_ew.y + adt * kq_ew.y, q_ew.z + adt * kq_ew.z};
-  const T xh_e = c(8) + adt * c(23);
-  const V3<T> xw = add(w, scale(adt, kw));
-  const V3<T> xv = add(v, scale(adt, kv));
-
-  KinDot<T> xd;
+  const XKin<T> xi = axpy(load_xkin(c, 0), adt, load_xkin(c, 15));
+  const XDyn<T> xi_dyn = axpy(load_xdyn(c, 9), adt, load_xdyn(c, 24));
+  XKin<T> kin_dot;
   Kin<T> k;
-  wa_f_ode(xq_wb, xq_ew, xh_e, xw, xv, c(30), xd, k);
-  const Air<T> air = atm_air(k, c(31), c(32), c.v3(33));
-
-  const T alive = T(1.0) - c(36);
-  o.q4(0, {alive * xd.q_wb.w, alive * xd.q_wb.x, alive * xd.q_wb.y,
-           alive * xd.q_wb.z});
-  o.q4(4, {alive * xd.q_ew.w, alive * xd.q_ew.x, alive * xd.q_ew.y,
-           alive * xd.q_ew.z});
-  o.s(8, alive * xd.h_e);
+  Air<T> air;
+  kinair_lane(xi, xi_dyn, c(30), load_atm(c, 31), T(1.0) - c(36), kin_dot, k,
+              air);
+  store_xkin(o, 0, kin_dot);
   store_kin(o, N_XKIN, k);
   store_air(o, N_XKIN + N_KIN, air);
-  o.v3(N_XKIN + N_KIN + N_AIR, xw);
-  o.v3(N_XKIN + N_KIN + N_AIR + 3, xv);
+  store_xdyn(o, N_XKIN + N_KIN + N_AIR, xi_dyn);
 }
 
 template <typename T>

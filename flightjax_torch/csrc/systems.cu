@@ -47,54 +47,18 @@ __global__ void systems_kernel(const T* __restrict__ in,
   T xi[N_XSYS];
 #pragma unroll
   for (int r = 0; r < N_XSYS; ++r) xi[r] = c(SI_X + r) + adt * c(SI_K + r);
-  const Kin<T> kin = load_kin(c, SI_KIN);
-  const Air<T> air = load_air(c, SI_AIR);
-  const T elevation = c(SI_TRN + TR_ELEV);
-  const V3<T> normal = c.v3(SI_TRN + TR_NORMAL);
-  const int surface = int(c(SI_TRN + TR_SURF).v);
-
-  // actuation + aero (k_actaero)
-  const Act<T> act = actuation(c, SI_U);
+  T u[N_USYS];
+#pragma unroll
+  for (int r = 0; r < N_USYS; ++r) u[r] = c(SI_U + r);
   T dot[N_XSYS];
-  V3<T> F_aero, tau_aero;
-  aero(P, xi[XS_ALPHA], xi[XS_BETA], act, c(SI_S + SS_STALL).v != 0, kin,
-       air, elevation, dot[XS_ALPHA], dot[XS_BETA], F_aero, tau_aero);
+  MP<T> mp;
+  V3<T> F_b, tau_b, hr_b;
+  systems_lane(P, xi, u, load_ssys(c, SI_S), load_trn(c, SI_TRN),
+               load_kin(c, SI_KIN), load_air(c, SI_AIR), T(1.0) - c(SI_TERM),
+               dot, mp, F_b, tau_b, hr_b);
 
-  // gear legs left, right, nose (k_ldg0..2); steering on the nose leg,
-  // brakes on the mains
-  const T zero = T(0.0);
-  const T steer[N_LEGS] = {zero, zero, act.steering};
-  const T brake[N_LEGS] = {act.brake_left, act.brake_right, zero};
-  V3<T> F_ldg, tau_ldg;
 #pragma unroll
-  for (int leg = 0; leg < N_LEGS; ++leg) {
-    V3<T> F, tau;
-    gear_leg(P, leg, xi[XS_FRC + 2 * leg], xi[XS_FRC + 2 * leg + 1],
-             steer[leg], brake[leg], kin, elevation, normal, surface,
-             dot[XS_FRC + 2 * leg], dot[XS_FRC + 2 * leg + 1], F, tau);
-    F_ldg = leg == 0 ? F : add(F_ldg, F);
-    tau_ldg = leg == 0 ? tau : add(tau_ldg, tau);
-  }
-
-  // powerplant, fuel and mass (k_pwp); the engine takes throttle and
-  // mixture from the actuation
-  const T gr = P[P_EN + EN_gear_ratio];
-  const PropOut<T> prop = propeller(P, kin, air, gr * xi[XS_OMEGA]);
-  T mdot;
-  engine(P, xi[XS_OMEGA], xi[XS_IDLE], xi[XS_EFRC], act.throttle,
-         act.mixture, c(SI_U + US_E_MIXCTL), int(c(SI_S + SS_STATE).v), air,
-         gr * prop.tau_px, dot[XS_OMEGA], dot[XS_IDLE], dot[XS_EFRC], mdot);
-  dot[XS_FUEL] = -mdot / P[P_MS + MS_M_USABLE];
-  T pld[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) pld[k] = c(SI_U + US_PLD + k);
-  const MP<T> mp = mass_sum(P, pld, xi[XS_FUEL]);
-  const V3<T> F_b = add(add(F_aero, prop.F_b), F_ldg);
-  const V3<T> tau_b = add(add(tau_aero, prop.tau_b), tau_ldg);
-
-  const T alive = T(1.0) - c(SI_TERM);
-#pragma unroll
-  for (int r = 0; r < N_XSYS; ++r) o.s(SO_DOT + r, alive * dot[r]);
+  for (int r = 0; r < N_XSYS; ++r) o.s(SO_DOT + r, dot[r]);
   o.s(SO_MP, mp.m);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -103,7 +67,7 @@ __global__ void systems_kernel(const T* __restrict__ in,
   o.v3(SO_MP + 10, mp.r);
   o.v3(SO_WR, F_b);
   o.v3(SO_WR + 3, tau_b);
-  o.v3(SO_HR, prop.hr_b);
+  o.v3(SO_HR, hr_b);
 }
 
 template <typename T>

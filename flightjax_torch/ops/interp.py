@@ -11,6 +11,8 @@ ported; they agree with this path to rounding.
 import numpy as np
 import torch
 
+from flightjax_torch.core.modeling import divc
+
 
 def _is_uniform(a):
     a = np.asarray(a, dtype=np.float64)
@@ -106,7 +108,8 @@ class RowLookup:
     """Bilinear lookup on a 2-D uniform grid with flat extrapolation — the
     per-lane counterpart of `Lookup._call_rowgather` (`interp.py:330-359`):
     the same cell index and weights, reading the four cell corners instead
-    of two whole grid rows."""
+    of two whole grid rows. The cell coordinates are true quotients
+    (`divc`), as the `geoid` kernel forms them."""
 
     def __init__(self, axes, values, *, device, dtype):
         a0, a1 = (np.asarray(a, dtype=np.float64) for a in axes)
@@ -123,10 +126,10 @@ class RowLookup:
         self.d1 = float((ta1[-1] - ta1[0]) / (self.n1 - 1))
 
     def __call__(self, x, y):
-        i0 = torch.clamp(torch.floor((x - self.x0) / self.d0).long(), 0,
-                         self.n0 - 2)
-        w0 = torch.clamp((x - self.x0) / self.d0 - i0, 0.0, 1.0)
-        t1 = torch.clamp((y - self.y0) / self.d1, 0.0, self.n1 - 1.0)
+        f0 = divc(x - self.x0, self.d0)
+        i0 = torch.clamp(torch.floor(f0).long(), 0, self.n0 - 2)
+        w0 = torch.clamp(f0 - i0, 0.0, 1.0)
+        t1 = torch.clamp(divc(y - self.y0, self.d1), 0.0, self.n1 - 1.0)
         i1 = torch.clamp(torch.floor(t1).long(), 0, self.n1 - 2)
         w1 = t1 - i1
         V = self.values

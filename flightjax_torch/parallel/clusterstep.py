@@ -1,19 +1,27 @@
-"""One fleet step as clusters (port of the orchestration of
-`flightjax/parallel/clusterstep.py::_make_cluster_step_split`,
-`clusterstep.py:183-611`).
+"""One fleet step as kernels (port of `flightjax/parallel/clusterstep.py::
+make_cluster_step`, `clusterstep.py:34-611`).
 
-Per RK4 stage: kinair -> systems (act + aero -> three gear legs ->
-powerplant + mass) -> dynamics. After the stages: finish_kin -> finish_sys
-(act -> three gear struts -> stall/gear/engine/crash), then the geoid
-refresh on every `geoid_every`-th step and the terminated latch. Each
-cluster is a CUDA kernel of `parallel/kernels.py` on the card and its plain
-PyTorch version on the CPU. The systems run as one kernel per stage and
-one per step, the JAX package's `k_systems` / `k_finish_sys`; its finer
-per-part split exists only for the TPU's compile helper, and its parts are
-the kernels' `__device__` functions here, called in the same order.
+`split="subsystems"` (`cluster_step`, the orchestration of
+`_make_cluster_step_split`, `clusterstep.py:183-611`): per RK4 stage kinair
+-> systems (act + aero -> three gear legs -> powerplant + mass) ->
+dynamics; after the stages finish_kin -> finish_sys (act -> three gear
+struts -> stall/gear/engine/crash), then the geoid refresh on every
+`geoid_every`-th step and the terminated latch. The systems run as one
+kernel per stage and one per step, the JAX package's `k_systems` /
+`k_finish_sys`; its finer per-part split exists only for the TPU's compile
+helper, and its parts are the kernels' `__device__` functions here, called
+in the same order. This is `Simulation.fleet_step`, and it carries the
+Kahan residuals of `SimState.c` through `finish_kin`.
 
-Stage offsets, weights and the k-sum association ((k1 + 2k2) + 2k3) + k4
-follow `clusterstep.py:543-560` and `sim.py:53-68`, so float64 parity with
+`split="vehicle"` (`vehicle_step`, `clusterstep.py:116-171`): four
+`rk4_stage` launches and one `rk4_finish` on the state packed once per
+step, then the `geoid` kernel on every `geoid_every`-th step. Like the JAX
+path it is uncompensated: `SimState.c` passes through untouched
+(`clusterstep.py:170`).
+
+Each kernel is its plain PyTorch version on the CPU. Stage offsets, weights
+and the k-sum association ((k1 + 2k2) + 2k3) + k4 follow
+`clusterstep.py:124-136` and `sim.py:53-68`, so float64 parity with
 `flightjax` holds to rounding.
 """
 
@@ -23,23 +31,28 @@ from flightjax_torch.core.modeling import tree_map
 from flightjax_torch.core.sim import SimState
 from flightjax_torch.parallel import kernels as K
 
-
-def f_ode_stage(vehicle, xv, kv, uv, sv, term, adt):
-    """World derivative at the RK4 stage state xv + adt kv."""
-    kin_dot, kin, air, xi_dyn = K.kinair(
-        xv["kinematics"], xv["dynamics"], kv["kinematics"], kv["dynamics"],
-        sv["geoid_N"], uv["atm"], adt, term)
-    sys_dot, mp_b, wr_b, hr_b = K.systems(
-        vehicle, xv["systems"], kv["systems"], uv["systems"], sv["systems"],
-        uv["trn"], kin, air, adt, term)
-    dyn_dot = K.dynamics(xi_dyn, mp_b, wr_b, hr_b, kin.q_eb, kin.r_eb_e,
-                         term)
-    return {"kinematics": kin_dot, "dynamics": dyn_dot, "systems": sys_dot}
+# (stage offset as a multiple of dt, k-sum weight)
+STAGES = ((0.0, 1.0), (0.5, 2.0), (0.5, 2.0), (1.0, 1.0))
 
 
-def cluster_step(sim, state: SimState, i: int) -> SimState:
-    """Advance a batch-leading world SimState whose step counter is `i`."""
+def _comp_kin(state):
+    """The kinematics residuals of `state.c`, or None."""
+    if state.c is None:
+        return None
+    if set(state.c) != {"vehicle"} or set(state.c["vehicle"]) != {
+            "kinematics"}:
+        raise ValueError("only kinematics position states are compensated")
+    return state.c["vehicle"]["kinematics"]
+
+
+def cluster_step(sim, state: SimState, i: int, *, plain=False,
+                 geoid_every=None) -> SimState:
+    """Advance a batch-leading world SimState whose step counter is `i`
+    through the five cluster kernels, or with `plain` through their plain
+    versions on any device. The geoid is refreshed when (i + 1) is a
+    multiple of `geoid_every` (default `sim.geoid_every`)."""
     vehicle = sim.system.aircraft.vehicle
+    C = K.PLAIN if plain else K.WRAPPERS
     dt = sim.dt
     t, x, u, s = state.t, state.x, state.u, state.s
     xv, uv, sv = x["vehicle"], u["vehicle"], s["vehicle"]
@@ -47,35 +60,70 @@ def cluster_step(sim, state: SimState, i: int) -> SimState:
 
     kprev = tree_map(torch.zeros_like, xv)
     acc = kprev
-    for c, w in ((0.0, 1.0), (0.5 * dt, 2.0), (0.5 * dt, 2.0), (dt, 1.0)):
-        kcur = f_ode_stage(vehicle, xv, kprev, uv, sv, term, c)
+    for c, w in STAGES:
+        kcur = K.stage_clusters(C, vehicle, xv, kprev, uv, sv, term, c * dt)
         acc = tree_map(lambda a, b: a + w * b, acc, kcur)
         kprev = kcur
 
     i_new = state.i + 1
     t_new = sim.t_start + i_new.to(t.dtype) * dt
-
-    c_kin = None
-    if state.c is not None:
-        if set(state.c) != {"vehicle"} or set(state.c["vehicle"]) != {
-                "kinematics"}:
-            raise ValueError("only kinematics position states are "
-                             "compensated")
-        c_kin = state.c["vehicle"]["kinematics"]
-    x_kin2, x_dyn2, kin2, air2, c_kin2 = K.finish_kin(
-        xv["kinematics"], xv["dynamics"], acc["kinematics"],
-        acc["dynamics"], sv["geoid_N"], uv["atm"], dt, c_kin)
-
-    x_sys2, s_sys2 = K.finish_sys(vehicle, xv["systems"], acc["systems"],
-                                  uv["systems"], sv["systems"], uv["trn"],
-                                  kin2, air2, dt)
-
-    xv2 = {"kinematics": x_kin2, "dynamics": x_dyn2, "systems": x_sys2}
+    xv2, s_sys2, term2, c_kin2 = K.finish_clusters(
+        C, vehicle, xv, acc, uv, sv, s["terminated"], dt, _comp_kin(state))
     sv2 = dict(sv, systems=s_sys2)
-    if (i + 1) % sim.geoid_every == 0:
-        sv2 = vehicle.refresh_geoid(xv2, sv2)
-    s2 = dict(s, vehicle=sv2,
-              terminated=s["terminated"] | s_sys2["crashed"])
+    if (i + 1) % (sim.geoid_every if geoid_every is None
+                  else geoid_every) == 0:
+        sv2 = vehicle.refresh_geoid(xv2, sv2, plain=plain)
+    s2 = dict(s, vehicle=sv2, terminated=term2)
     c2 = None if c_kin2 is None else {"vehicle": {"kinematics": c_kin2}}
     return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u, s=s2,
                     c=c2)
+
+
+def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
+    """Advance a batch-leading world SimState whose step counter is `i`
+    through `rk4_stage` x 4 and `rk4_finish` (their plain versions on the
+    CPU), uncompensated; `state.c` passes through."""
+    vehicle = sim.system.aircraft.vehicle
+    dt = sim.dt
+    t, x, u, s = state.t, state.x, state.u, state.s
+    xv, uv, sv = x["vehicle"], u["vehicle"], s["vehicle"]
+
+    buf = K.pack_vehicle(vehicle, xv, uv, sv, s["terminated"])
+    stage_in = buf[:K.rows(K.STAGE_IN)]
+    k = torch.zeros((K.rows(K.STAGE_OUT), buf.shape[1]), dtype=buf.dtype,
+                    device=buf.device)
+    acc = k
+    for c, w in STAGES:
+        k = K.rk4_stage_packed(vehicle, stage_in, k, c * dt, block)
+        acc = acc + w * k
+    out = K.rk4_finish_packed(vehicle, buf, acc, dt, False, block)
+
+    i_new = state.i + 1
+    t_new = sim.t_start + i_new.to(t.dtype) * dt
+    xv2, s_sys2, term2, _ = K.unpack_finish(out, False)
+    sv2 = dict(sv, systems=s_sys2)
+    if (i + 1) % sim.geoid_every == 0:
+        q_rows = out[K.rows_of(K.X_GROUPS, "q_ew")]
+        sv2["geoid_N"] = K.geoid_packed(vehicle.geoid, q_rows, block)[0]
+    s2 = dict(s, vehicle=sv2, terminated=term2)
+    return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u, s=s2,
+                    c=state.c)
+
+
+def make_cluster_step(sim, state, ctx=(), block=128, split="vehicle"):
+    """`step(state, *, i)` advancing a batch-leading SimState like `state`
+    by one step, `i` being its (host) step counter: `split="vehicle"` the
+    whole-vehicle kernels, `"subsystems"` the five cluster kernels
+    (`Simulation.fleet_step`). `block` is the vehicle kernels' threads per
+    block (at most 128); the cluster kernels run at `launch.BLOCK`."""
+    if ctx != ():
+        raise NotImplementedError("avionics (f_periodic) are not ported")
+    vehicle = sim.system.aircraft.vehicle
+    if state.t.device.type != "cpu":  # build the kernels' operands once
+        K.system_params(vehicle)
+        K.geoid_grid(vehicle.geoid)
+    if split == "vehicle":
+        return lambda st, *, i: vehicle_step(sim, st, int(i), block)
+    if split == "subsystems":
+        return lambda st, *, i: cluster_step(sim, st, int(i))
+    raise ValueError(f"split must be 'vehicle' or 'subsystems', not {split!r}")

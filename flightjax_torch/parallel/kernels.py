@@ -1,5 +1,7 @@
-"""The five clusters of the fleet step, each as a CUDA kernel with its
-plain PyTorch version beside it:
+"""The kernels of the fleet step, each a CUDA kernel with its plain PyTorch
+version beside it.
+
+The five clusters of the `subsystems` split:
 
 - `kinair`     <- `k_kinair`,     lane fn `k1_lane` (`clusterstep.py:250-262`)
 - `systems`    <- `k_systems`,    lane fn `k2_lane` (`clusterstep.py:274-287`),
@@ -9,16 +11,27 @@ plain PyTorch version beside it:
 - `finish_sys` <- `k_finish_sys`, lane fn `k5_lane` (`clusterstep.py:452-465`),
                   the fine parts `k_fin_act`, `k_fin_ldg0..2`, `k_fin_rest`
 
+The whole vehicle (the `vehicle` split and the megakernel):
+
+- `rk4_stage`  <- `rk4_stage`,  lane fn `stage_lane` (`clusterstep.py:81-93`)
+- `rk4_finish` <- `rk4_finish`, lane fn `finish_lane` (`clusterstep.py:97-108`)
+- `geoid`      <- the EGM96 refresh (`geodesy.geoid_height`), which the TPU
+                  paths run outside their kernels
+- `megakernel` <- `megakernel.py::make_megakernel_step` (its wrapper is
+                  `launch_megakernel`; the step is `parallel/megakernel.py`)
+
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); there is no fallback between the two.
-`LAUNCHES[name]` counts kernel launches, nothing else.
+`LAUNCHES[name]` counts kernel launches, nothing else: every launch goes
+through `launch_kernel` or `launch_megakernel`.
 
 The kernels read and write batch-minor `[n_fields, B]` buffers; the column
 maps below are the Python half of the layouts declared in
 `csrc/flight_math.cuh` and `csrc/c172_systems.cuh` (the library reports its
 row counts, and `launch` checks them). A map entry is (name or key path,
-per-lane shape, an int for a vector). The two systems kernels also read the
-C172's parameters and tables from one buffer, `system_params`.
+per-lane shape, an int for a vector). The kernels of the C172 systems also
+read its parameters and tables from one buffer, `system_params`, and the
+geoid kernels the EGM96 grid from `geoid_grid`.
 """
 
 import math
@@ -29,6 +42,7 @@ import torch
 from flightjax_torch.core.modeling import bscale, tree_map
 from flightjax_torch.core.sim import comp_add
 from flightjax_torch.models.c172.common import AERO_CONST, M_FULL, M_RES
+from flightjax_torch.ops.geodesy import nvector_from_qew
 from flightjax_torch.parallel import launch as L
 from flightjax_torch.physics.atmosphere import AirData, SimpleAtmosphere, air_data
 from flightjax_torch.physics.dynamics import DynamicsU, MassProps, VehicleDynamics, Wrench
@@ -95,6 +109,26 @@ SYS_OUT = (X_SYS, MP, WR, (("hr_b", 3),))
 FSYS_IN = (X_SYS, X_SYS, U_SYS, S_SYS, TRN, KIN_DATA, AIR_DATA)
 FSYS_OUT = (X_SYS, S_SYS)
 
+# the whole vehicle: state X, context CTX (inputs, discrete state, carried
+# undulation, the terminated latch) and the position residuals C
+X_GROUPS = (X_KIN, X_DYN, X_SYS)
+CTX_GROUPS = (U_SYS, U_ATM, TRN, S_SYS, (("geoid_N", 1),),
+              (("terminated", 1),))
+STAGE_IN = X_GROUPS + CTX_GROUPS
+STAGE_OUT = X_GROUPS
+RKFIN_IN = STAGE_IN + (COMP,)
+RKFIN_OUT = X_GROUPS + (S_SYS, (("terminated", 1),), COMP)
+GEOID_IN = ((("q_ew", 4),),)
+GEOID_OUT = ((("geoid_N", 1),),)
+
+# the leaves that are not floating point; buffers hold them as 0/1/2
+LEAF_DTYPES = {(("pwp", "engine", "mixture_ctl")): torch.int32,
+               ("pwp", "engine", "start"): torch.bool,
+               ("pwp", "engine", "stop"): torch.bool,
+               ("pwp", "engine", "state"): torch.int32,
+               ("aero", "stall"): torch.bool, "crashed": torch.bool,
+               "surface": torch.int32, "terminated": torch.bool}
+
 
 def rows(groups):
     return sum(_width(g) for g in groups)
@@ -117,7 +151,7 @@ def pack(groups, objs, B, dtype=None):
     return torch.cat([c.to(dtype) for c in cols], dim=1).t().contiguous()
 
 
-def _unpack(spec, buf, o):
+def _unpack(spec, buf, o, typed):
     out = {}
     for key, w in spec:
         shape = _shape(w)
@@ -125,6 +159,11 @@ def _unpack(spec, buf, o):
         v = buf[o] if shape == () else buf[o:o + n].t()
         if len(shape) > 1:
             v = v.reshape((buf.shape[1],) + shape)
+        dtype = LEAF_DTYPES.get(key) if typed else None
+        if dtype == torch.bool:
+            v = v > 0.5
+        elif dtype is not None:
+            v = v.to(dtype)
         node = out
         path = key if isinstance(key, tuple) else (key,)
         for k in path[:-1]:
@@ -134,13 +173,27 @@ def _unpack(spec, buf, o):
     return out, o
 
 
-def unpack(groups, buf):
-    """Views of a `[rows, B]` buffer as one (nested) dict per spec group."""
+def unpack(groups, buf, typed=False):
+    """Views of a `[rows, B]` buffer as one (nested) dict per spec group;
+    with `typed`, the leaves of LEAF_DTYPES are converted back to their
+    bool or integer type."""
     out, o = [], 0
     for spec in groups:
-        d, o = _unpack(spec, buf, o)
+        d, o = _unpack(spec, buf, o, typed)
         out.append(d)
     return out
+
+
+def rows_of(groups, key):
+    """The row slice of field `key` in a buffer of `groups`."""
+    o = 0
+    for spec in groups:
+        for k, w in spec:
+            n = math.prod(_shape(w))
+            if k == key:
+                return slice(o, o + n)
+            o += n
+    raise KeyError(key)
 
 
 # ------------------------------------------------------------ parameters
@@ -258,6 +311,26 @@ def system_params(vehicle):
     return buf
 
 
+_GRIDS = weakref.WeakKeyDictionary()
+
+
+def geoid_grid(geo):
+    """The EGM96 grid of an `ops.geodesy.Geoid` as the geoid kernels read
+    it (built once): `[n_lat + 1, n_lon]` on its device in its dtype, row 0
+    starting with n_lat, n_lon and the (first knot, spacing) of both axes as
+    `RowLookup` holds them, rows 1.. the undulations."""
+    buf = _GRIDS.get(geo)
+    if buf is None:
+        lk = geo.lookup
+        head = torch.zeros(lk.n1, dtype=torch.float64)
+        head[:L.GEO_HEAD] = torch.tensor([lk.n0, lk.n1, lk.x0, lk.d0, lk.y0,
+                                          lk.d1], dtype=torch.float64)
+        buf = torch.cat([head.to(device=lk.values.device,
+                                 dtype=lk.values.dtype)[None], lk.values])
+        _GRIDS[geo] = buf
+    return buf
+
+
 # ------------------------------------------------------------ plain versions
 
 def _fma(xt, kt, adt):
@@ -353,6 +426,55 @@ def finish_sys_plain(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin,
     return sys_.fin_rest(x, u_sys["pwp"], s_sys, air, wow, alpha_ts, xi_dot)
 
 
+def geoid_plain(geo, q_ew):
+    """EGM96 undulation under the WA position quaternion (`Geoid.height` at
+    `nvector_from_qew`)."""
+    return geo.height(nvector_from_qew(q_ew))
+
+
+def stage_clusters(C, vehicle, xv, kv, uv, sv, term, adt):
+    """World derivative at the RK4 stage state xv + adt kv through the
+    cluster functions `C` (`WRAPPERS` or `PLAIN`): kinair -> systems ->
+    dynamics, `stage_lane` of `clusterstep.py:81-85`. `term` is 0/1."""
+    kin_dot, kin, air, xi_dyn = C["kinair"](
+        xv["kinematics"], xv["dynamics"], kv["kinematics"], kv["dynamics"],
+        sv["geoid_N"], uv["atm"], adt, term)
+    sys_dot, mp_b, wr_b, hr_b = C["systems"](
+        vehicle, xv["systems"], kv["systems"], uv["systems"], sv["systems"],
+        uv["trn"], kin, air, adt, term)
+    dyn_dot = C["dynamics"](xi_dyn, mp_b, wr_b, hr_b, kin.q_eb, kin.r_eb_e,
+                            term)
+    return {"kinematics": kin_dot, "dynamics": dyn_dot, "systems": sys_dot}
+
+
+def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin):
+    """The RK4 combine x + dt/6 ksum (compensated on q_ew / h_e with the
+    residuals `c_kin`, or None) and World.f_step through the cluster
+    functions `C`: finish_kin -> finish_sys -> the terminated latch,
+    `finish_lane` of `clusterstep.py:97-103`. Returns (xv, s_sys,
+    terminated, c_kin)."""
+    x_kin2, x_dyn2, kin2, air2, c_kin2 = C["finish_kin"](
+        xv["kinematics"], xv["dynamics"], ksum["kinematics"],
+        ksum["dynamics"], sv["geoid_N"], uv["atm"], dt, c_kin)
+    x_sys2, s_sys2 = C["finish_sys"](vehicle, xv["systems"], ksum["systems"],
+                                     uv["systems"], sv["systems"], uv["trn"],
+                                     kin2, air2, dt)
+    xv2 = {"kinematics": x_kin2, "dynamics": x_dyn2, "systems": x_sys2}
+    return xv2, s_sys2, terminated | s_sys2["crashed"], c_kin2
+
+
+def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
+    """The plain clusters composed as `stage_lane`."""
+    return stage_clusters(PLAIN, vehicle, xv, kv, uv, sv, term, adt)
+
+
+def rk4_finish_plain(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+    """The plain clusters composed as `finish_lane`, with `comp_add` when
+    residuals are carried."""
+    return finish_clusters(PLAIN, vehicle, xv, ksum, uv, sv, terminated, dt,
+                           c_kin)
+
+
 # ------------------------------------------------------------ wrappers
 
 def _term(term, like):
@@ -360,12 +482,12 @@ def _term(term, like):
 
 
 def pack_kinair(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
-    """(packed input, output rows, scalar arguments, parameter buffer) of
+    """(packed input, output rows, scalar arguments, other operands) of
     the kinair kernel; the other pack_* functions alike."""
     buf = pack(KINAIR_IN, (x_kin, x_dyn, k_kin, k_dyn, {"geoid_N": geoid_N},
                            u_atm, {"term": _term(term, geoid_N)}),
                geoid_N.shape[0])
-    return buf, rows(KINAIR_OUT), (float(adt),), None
+    return buf, rows(KINAIR_OUT), (float(adt),), {}
 
 
 def pack_dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
@@ -375,7 +497,7 @@ def pack_dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
     buf = pack(DYN_IN, (xi_dyn, mp, wr_b, {
         "hr_b": hr_b, "q_eb": q_eb, "r_eb_e": r_eb_e,
         "term": _term(term, r_eb_e)}), B)
-    return buf, rows(DYN_OUT), (), None
+    return buf, rows(DYN_OUT), (), {}
 
 
 def pack_finish_kin(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
@@ -387,7 +509,7 @@ def pack_finish_kin(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
     buf = pack(FIN_IN, (x_kin, x_dyn, ksum_kin, ksum_dyn,
                         {"geoid_N": geoid_N}, u_atm, c_kin),
                geoid_N.shape[0])
-    return buf, rows(FIN_OUT), (dt / 6.0, int(comp)), None
+    return buf, rows(FIN_OUT), (dt / 6.0, int(comp)), {}
 
 
 def _trn(vehicle, u_trn, B):
@@ -401,7 +523,8 @@ def pack_systems(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
     B, dt = kin.h_e.shape[0], kin.h_e.dtype
     buf = pack(SYS_IN, (x_sys, k_sys, u_sys, s_sys, _trn(vehicle, u_trn, B),
                         kin, air, {"term": _term(term, kin.h_e)}), B, dt)
-    return buf, rows(SYS_OUT), (float(adt),), system_params(vehicle)
+    return buf, rows(SYS_OUT), (float(adt),), {
+        "params": system_params(vehicle)}
 
 
 def pack_finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air,
@@ -410,19 +533,87 @@ def pack_finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air,
     buf = pack(FSYS_IN, (x_sys, ksum_sys, u_sys, s_sys,
                          _trn(vehicle, u_trn, B), kin, air), B,
                kin.h_e.dtype)
-    return buf, rows(FSYS_OUT), (dt / 6.0,), system_params(vehicle)
+    return buf, rows(FSYS_OUT), (dt / 6.0,), {
+        "params": system_params(vehicle)}
+
+
+def _x(xv):
+    return xv["kinematics"], xv["dynamics"], xv["systems"]
+
+
+def _x_tree(views):
+    return {"kinematics": views[0], "dynamics": views[1],
+            "systems": views[2]}
+
+
+def pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin=None):
+    """The whole vehicle as one `[X; CTX; C]` buffer (`RKFIN_IN`) in the
+    state's dtype, C zero without residuals. `rk4_stage` reads its first
+    `rows(STAGE_IN)` rows, `rk4_finish` all of them."""
+    like = xv["kinematics"]["h_e"]
+    if c_kin is None:
+        c_kin = {"q_ew": torch.zeros_like(xv["kinematics"]["q_ew"]),
+                 "h_e": torch.zeros_like(like)}
+    B = like.shape[0]
+    return pack(RKFIN_IN, (*_x(xv), uv["systems"], uv["atm"],
+                           _trn(vehicle, uv["trn"], B), sv["systems"],
+                           {"geoid_N": sv["geoid_N"]},
+                           {"terminated": terminated}, c_kin), B, like.dtype)
+
+
+def unpack_vehicle(buf):
+    """(xv, uv, sv, terminated, c_kin) from a `pack_vehicle` buffer, or
+    from its first `rows(STAGE_IN)` rows (c_kin None then); bool and int
+    leaves typed again, terrain constants dropped."""
+    v = unpack(RKFIN_IN if buf.shape[0] == rows(RKFIN_IN) else STAGE_IN,
+               buf, typed=True)
+    uv = {"systems": v[3], "atm": v[4], "trn": {"surface": v[5]["surface"]}}
+    sv = {"systems": v[6], "geoid_N": v[7]["geoid_N"]}
+    return (_x_tree(v), uv, sv, v[8]["terminated"],
+            v[9] if len(v) > 9 else None)
+
+
+def unpack_finish(out, comp):
+    """(xv, s_sys, terminated, c_kin or None) from rk4_finish's output."""
+    v = unpack(RKFIN_OUT, out, typed=True)
+    return _x_tree(v), v[3], v[4]["terminated"], (v[5] if comp else None)
+
+
+def pack_rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
+    buf = pack_vehicle(vehicle, xv, uv, sv, term)[:rows(STAGE_IN)]
+    k = pack(X_GROUPS, _x(kv), buf.shape[1], buf.dtype)
+    return buf, rows(STAGE_OUT), (float(adt),), {
+        "k": k, "params": system_params(vehicle)}
+
+
+def pack_rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+    buf = pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin)
+    k = pack(X_GROUPS, _x(ksum), buf.shape[1], buf.dtype)
+    return buf, rows(RKFIN_OUT), (dt / 6.0, int(c_kin is not None)), {
+        "k": k, "params": system_params(vehicle)}
+
+
+def pack_geoid(geo, q_ew):
+    buf = pack(GEOID_IN, ({"q_ew": q_ew},), q_ew.shape[0])
+    return buf, rows(GEOID_OUT), (), {"grid": geoid_grid(geo)}
 
 
 PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
         "finish_kin": pack_finish_kin, "systems": pack_systems,
-        "finish_sys": pack_finish_sys}
+        "finish_sys": pack_finish_sys, "rk4_stage": pack_rk4_stage,
+        "rk4_finish": pack_rk4_finish, "geoid": pack_geoid}
+
+
+def launch_kernel(name, buf, n_out, scalars, operands, block=None):
+    """Launch kernel `name` on packed operands (the form `PACK[name]`
+    returns) and count the launch."""
+    out = L.launch(name, buf, n_out, scalars, block=block, **operands)
+    LAUNCHES[name] += 1
+    return out
 
 
 def _launch(name, args):
-    buf, n_out, scalars, params = PACK[name](*args)
-    out = L.launch(name, buf, n_out, scalars, params=params)
-    LAUNCHES[name] += 1
-    return out
+    return launch_kernel(name, *PACK[name](*args))
 
 
 def kinair(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
@@ -454,12 +645,16 @@ def dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
     return unpack(DYN_OUT, _launch("dynamics", args))[0]
 
 
+def _check_comp(c_kin):
+    if c_kin is not None and set(c_kin) != {"q_ew", "h_e"}:
+        raise ValueError("the finish compensates exactly q_ew and h_e")
+
+
 def finish_kin(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
                c_kin=None):
     """`finish_kin_plain` on the CPU, the `finish_kin` CUDA kernel on the
     card. `c_kin`: None or residuals for exactly {q_ew, h_e}."""
-    if c_kin is not None and set(c_kin) != {"q_ew", "h_e"}:
-        raise ValueError("finish_kin compensates exactly q_ew and h_e")
+    _check_comp(c_kin)
     args = (x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt, c_kin)
     if geoid_N.device.type == "cpu":
         return finish_kin_plain(*args)
@@ -475,19 +670,103 @@ def finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt):
     args = (vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt)
     if kin.h_e.device.type == "cpu":
         return finish_sys_plain(*args)
-    x2, s2 = unpack(FSYS_OUT, _launch("finish_sys", args))
-    s2["aero"]["stall"] = s2["aero"]["stall"] > 0.5
-    s2["crashed"] = s2["crashed"] > 0.5
-    eng = s2["pwp"]["engine"]
-    eng["state"] = eng["state"].to(torch.int32)
-    return x2, s2
+    return unpack(FSYS_OUT, _launch("finish_sys", args), typed=True)
+
+
+def geoid(geo, q_ew):
+    """`geoid_plain` on the CPU, the `geoid` CUDA kernel on the card."""
+    if q_ew.device.type == "cpu":
+        return geoid_plain(geo, q_ew)
+    return _launch("geoid", (geo, q_ew))[0]
+
+
+def rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
+    """`rk4_stage_plain` on the CPU, the `rk4_stage` CUDA kernel on the
+    card: the derivative of the whole vehicle at xv + adt kv."""
+    like = xv["kinematics"]["h_e"]
+    args = (vehicle, xv, kv, uv, sv, term, adt)
+    if like.device.type == "cpu":
+        return rk4_stage_plain(*args[:-2], _term(term, like), adt)
+    return _x_tree(unpack(STAGE_OUT, _launch("rk4_stage", args)))
+
+
+def rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+    """`rk4_finish_plain` on the CPU, the `rk4_finish` CUDA kernel on the
+    card. Returns (xv, s_sys, terminated, c_kin)."""
+    _check_comp(c_kin)
+    args = (vehicle, xv, ksum, uv, sv, terminated, dt, c_kin)
+    if xv["kinematics"]["h_e"].device.type == "cpu":
+        return rk4_finish_plain(*args)
+    return unpack_finish(_launch("rk4_finish", args), c_kin is not None)
+
+
+def rk4_stage_packed(vehicle, buf, k, adt, block=None):
+    """One RK4 stage on packed buffers: `buf` holds X; CTX
+    (`rows(STAGE_IN)` rows), `k` the previous stage's derivative; returns
+    the stage derivative (`rows(STAGE_OUT)` rows). The kernel on the card,
+    the plain stage between unpack and pack on the CPU."""
+    if buf.device.type != "cpu":
+        return launch_kernel("rk4_stage", buf, rows(STAGE_OUT),
+                             (float(adt),),
+                             {"k": k, "params": system_params(vehicle)},
+                             block)
+    xv, uv, sv, terminated, _ = unpack_vehicle(buf)
+    d = rk4_stage_plain(vehicle, xv, _x_tree(unpack(X_GROUPS, k)), uv, sv,
+                        terminated.to(buf.dtype), adt)
+    return pack(STAGE_OUT, _x(d), buf.shape[1], buf.dtype)
+
+
+def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None):
+    """The RK4 combine and World.f_step on packed buffers: `buf` from
+    `pack_vehicle`, `ksum` the k-sum; returns X; s_sys; terminated; C
+    (`rows(RKFIN_OUT)` rows, C zero unless `comp`). The kernel on the
+    card, the plain finish between unpack and pack on the CPU."""
+    if buf.device.type != "cpu":
+        return launch_kernel("rk4_finish", buf, rows(RKFIN_OUT),
+                             (dt / 6.0, int(bool(comp))),
+                             {"k": ksum, "params": system_params(vehicle)},
+                             block)
+    xv, uv, sv, terminated, c_kin = unpack_vehicle(buf)
+    xv2, s2, term2, c2 = rk4_finish_plain(
+        vehicle, xv, _x_tree(unpack(X_GROUPS, ksum)), uv, sv, terminated, dt,
+        c_kin if comp else None)
+    if c2 is None:
+        c2 = tree_map(torch.zeros_like, c_kin)
+    return pack(RKFIN_OUT, (*_x(xv2), s2, {"terminated": term2}, c2),
+                buf.shape[1], buf.dtype)
+
+
+def geoid_packed(geo, q_rows, block=None):
+    """The undulation `[1, B]` under the q_ew rows `[4, B]`: the kernel on
+    the card, `geoid_plain` on the CPU."""
+    if q_rows.device.type != "cpu":
+        return launch_kernel("geoid", q_rows, rows(GEOID_OUT), (),
+                             {"grid": geoid_grid(geo)}, block)
+    return geoid_plain(geo, q_rows.t()).reshape(1, -1)
+
+
+def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None):
+    """One launch of the whole-step kernel on the resident (state, i)
+    buffers of `parallel/megakernel.py`; returns the new buffers."""
+    out = L.launch_megakernel(bufs[0], bufs[1], system_params(vehicle),
+                              geoid_grid(vehicle.geoid), dt, t_start, comp,
+                              block)
+    LAUNCHES["megakernel"] += 1
+    return out
+
+
+WRAPPERS = {"kinair": kinair, "systems": systems, "dynamics": dynamics,
+            "finish_kin": finish_kin, "finish_sys": finish_sys}
+PLAIN = {"kinair": kinair_plain, "systems": systems_plain,
+         "dynamics": dynamics_plain, "finish_kin": finish_kin_plain,
+         "finish_sys": finish_sys_plain}
 
 
 def operand_args(d, vehicle, device, dtype, adt=0.01, dt=0.02):
-    """Positional arguments of each kernel's wrapper from a numpy operand
-    dict (`flightjax_torch.testing.cluster_operands`), on `device`; the
-    systems clusters take KinData and AirData from `kinair_plain` at the
-    stage state."""
+    """Positional arguments of each kernel's wrapper (the megakernel's
+    aside) from a numpy operand dict (`flightjax_torch.testing.
+    cluster_operands`), on `device`; the systems clusters take KinData and
+    AirData from `kinair_plain` at the stage state."""
     from flightjax_torch.bridge import tree_from_numpy
     t = {k: tree_from_numpy(v, device, dtype) for k, v in d.items()}
     args = {
@@ -503,6 +782,18 @@ def operand_args(d, vehicle, device, dtype, adt=0.01, dt=0.02):
                        t["s_sys"], t["u_trn"], kin, air, adt, t["term"])
     args["finish_sys"] = (vehicle, t["x_sys"], t["ksum_sys"], t["u_sys"],
                           t["s_sys"], t["u_trn"], kin, air, dt)
+    xv = {"kinematics": t["x_kin"], "dynamics": t["x_dyn"],
+          "systems": t["x_sys"]}
+    uv = {"systems": t["u_sys"], "atm": t["u_atm"], "trn": t["u_trn"]}
+    sv = {"systems": t["s_sys"], "geoid_N": t["geoid_N"]}
+    k = {"kinematics": t["k_kin"], "dynamics": t["k_dyn"],
+         "systems": t["k_sys"]}
+    ksum = {"kinematics": t["ksum_kin"], "dynamics": t["ksum_dyn"],
+            "systems": t["ksum_sys"]}
+    args["rk4_stage"] = (vehicle, xv, k, uv, sv, t["term"], adt)
+    args["rk4_finish"] = (vehicle, xv, ksum, uv, sv, t["term"] > 0.5, dt,
+                          t["c_kin"])
+    args["geoid"] = (vehicle.geoid, t["q_globe"])
     return args
 
 

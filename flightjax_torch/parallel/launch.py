@@ -28,13 +28,24 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # kernels' own arithmetic avoids FMA contraction through Strict<F> (see
 # csrc/flight_math.cuh), the library calls stay those PyTorch's ops make
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 # threads per block; 4096 aircraft in 128-thread blocks occupy 32 of the
 # H100's 132 SMs (see csrc/*.cu headers and PERF.md)
 BLOCK = 128
 
-KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys")
+# values at the head of the geoid grid buffer (csrc/flight_math.cuh)
+GEO_HEAD = 6
+
+KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
+           "rk4_stage", "rk4_finish", "geoid", "megakernel")
+# kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
+# systems' parameter buffer, the geoid grid
+WITH_K = ("rk4_stage", "rk4_finish")
+WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
+               "megakernel")
+WITH_GRID = ("geoid", "megakernel")
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -58,9 +69,17 @@ def _sources():
     return [os.path.join(CSRC, n) for n in names]
 
 
+def _compile(src, obj):
+    """Start nvcc on one source; returns (command, process)."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
 def build():
     """Compile the kernels if the library for the current sources is not
-    built yet; returns its path. Raises with nvcc's output on failure."""
+    built yet; returns its path. Every source compiles in its own nvcc, all
+    at once, then one link. Raises with nvcc's output on failure."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs:
@@ -71,15 +90,32 @@ def build():
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in srcs if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{key}.{os.getpid()}"
+    jobs = [_compile(p, os.path.join(
+        BUILD_DIR, f"{os.path.basename(p)[:-3]}_{tag}.o"))
+        for p in srcs if p.endswith(".cu")]
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    objs = [cmd[-2] for cmd, _ in jobs]
+    if not failed:
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}"
+                          f"{proc.stderr}")
     with open(so[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        fh.write("\n".join(log))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 
@@ -96,19 +132,22 @@ def library():
                 f = getattr(lib, f"{name}_layout")
                 f.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
                 f.restype = None
-            for suffix in ("f32", "f64"):
-                f = getattr(lib, f"kinair_{suffix}")
-                f.argtypes = [P, P, I, D, I, P]
-                f.restype = I
-                f = getattr(lib, f"dynamics_{suffix}")
-                f.argtypes = [P, P, I, I, P]
-                f.restype = I
-                f = getattr(lib, f"finish_kin_{suffix}")
-                f.argtypes = [P, P, I, D, I, I, P]
-                f.restype = I
-                for name in ("systems", "finish_sys"):
+            f = lib.vehicle_layout
+            f.argtypes = [ctypes.POINTER(I)] * 4
+            f.restype = None
+            sig = {"kinair": [P, P, I, D, I, P],
+                   "dynamics": [P, P, I, I, P],
+                   "finish_kin": [P, P, I, D, I, I, P],
+                   "systems": [P, P, P, I, D, I, P],
+                   "finish_sys": [P, P, P, I, D, I, P],
+                   "rk4_stage": [P, P, P, P, I, D, I, P],
+                   "rk4_finish": [P, P, P, P, I, D, I, I, P],
+                   "geoid": [P, P, P, I, I, P],
+                   "megakernel": [P, P, P, P, P, P, I, D, D, I, I, P]}
+            for name, argtypes in sig.items():
+                for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
-                    f.argtypes = [P, P, P, I, D, I, P]
+                    f.argtypes = argtypes
                     f.restype = I
             BUILD_INFO["so"] = so
             BUILD_INFO["log"] = so[:-3] + ".log"
@@ -116,12 +155,28 @@ def library():
         return _LIB
 
 
+_LAYOUTS = {}
+
+
 def layout(name):
     """(n_in, n_out) rows as the compiled kernel declares them."""
-    n_in, n_out = ctypes.c_int(), ctypes.c_int()
-    getattr(library(), f"{name}_layout")(ctypes.byref(n_in),
-                                         ctypes.byref(n_out))
-    return n_in.value, n_out.value
+    if name not in _LAYOUTS:
+        n_in, n_out = ctypes.c_int(), ctypes.c_int()
+        getattr(library(), f"{name}_layout")(ctypes.byref(n_in),
+                                             ctypes.byref(n_out))
+        _LAYOUTS[name] = n_in.value, n_out.value
+    return _LAYOUTS[name]
+
+
+def vehicle_layout():
+    """{x, ctx, c, mega}: rows of the whole-vehicle groups X, CTX, C and of
+    the megakernel's state buffer, as the compiled kernels declare them."""
+    if "vehicle" not in _LAYOUTS:
+        v = [ctypes.c_int() for _ in range(4)]
+        library().vehicle_layout(*map(ctypes.byref, v))
+        _LAYOUTS["vehicle"] = dict(zip(("x", "ctx", "c", "mega"),
+                                       (i.value for i in v)))
+    return _LAYOUTS["vehicle"]
 
 
 def check_operand(t, n_rows, B, dtype, device):
@@ -153,32 +208,86 @@ def check_params(params, dtype, device):
         raise ValueError("kernel parameters must be contiguous")
 
 
-def launch(name, packed_in, n_out, scalars, block=None, params=None):
-    """Run kernel `name` on a packed `[n_in, B]` CUDA tensor (and, for the
-    systems kernels, their parameter buffer); returns the packed
-    `[n_out, B]` output. Does not synchronise."""
-    dtype, device = packed_in.dtype, packed_in.device
+def check_grid(grid, dtype, device):
+    """The EGM96 grid buffer (`kernels.geoid_grid`): a contiguous
+    `[n_lat + 1, n_lon]` tensor, its head in row 0."""
+    if not isinstance(grid, torch.Tensor):
+        raise TypeError("geoid grid must be a tensor")
+    if grid.device != device or grid.dtype != dtype:
+        raise ValueError(f"geoid grid on {grid.device}/{grid.dtype}, "
+                         f"expected {device}/{dtype}")
+    if grid.dim() != 2 or grid.shape[0] < 3 or grid.shape[1] < GEO_HEAD:
+        raise ValueError(f"geoid grid of shape {tuple(grid.shape)}, "
+                         f"expected [n_lat + 1, n_lon]")
+    if not grid.is_contiguous():
+        raise ValueError("geoid grid must be contiguous")
+
+
+def _fn(name, dtype, device):
     if device.type != "cuda":
         raise ValueError("launch needs a CUDA tensor")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dtype}")
-    lib = library()
+    return getattr(library(),
+                   f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
+def _run(name, fn, args, block):
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, BLOCK if block is None else int(block), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
+           grid=None):
+    """Run kernel `name` on a packed `[n_in, B]` CUDA tensor, with its
+    other operands: `k` (k_prev or the k-sum, `[n_x, B]`) for the two RK4
+    kernels, the parameter buffer for the kernels of the C172 systems, the
+    geoid grid for `geoid`. Returns the packed `[n_out, B]` output. Does
+    not synchronise."""
+    dtype, device = packed_in.dtype, packed_in.device
+    fn = _fn(name, dtype, device)
     n_in, n_out_k = layout(name)
     B = packed_in.shape[1]
     check_operand(packed_in, n_in, B, dtype, device)
     if n_out != n_out_k:
         raise ValueError(f"{name}: {n_out} output rows, kernel has {n_out_k}")
     ptrs = [packed_in.data_ptr()]
-    if name in ("systems", "finish_sys"):
+    for key, val, kernels in (("k", k, WITH_K), ("params", params,
+                                                 WITH_PARAMS),
+                              ("grid", grid, WITH_GRID)):
+        if (name in kernels) != (val is not None):
+            raise ValueError(f"{name}: operand {key} "
+                             + ("missing" if val is None else "not taken"))
+    if k is not None:
+        check_operand(k, vehicle_layout()["x"], B, dtype, device)
+        ptrs.append(k.data_ptr())
+    if params is not None:
         check_params(params, dtype, device)
         ptrs.append(params.data_ptr())
-    elif params is not None:
-        raise ValueError(f"{name} takes no parameter buffer")
+    if grid is not None:
+        check_grid(grid, dtype, device)
+        ptrs.append(grid.data_ptr())
     out = torch.empty((n_out, B), dtype=dtype, device=device)
-    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*ptrs, out.data_ptr(), B, *scalars,
-             BLOCK if block is None else int(block), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _run(name, fn, (*ptrs, out.data_ptr(), B, *scalars), block)
     return out
+
+
+def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None):
+    """One whole step on the megakernel's resident state: `state` is the
+    `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
+    new (state, i) in fresh buffers. Does not synchronise."""
+    dtype, device = state.dtype, state.device
+    fn = _fn("megakernel", dtype, device)
+    B = state.shape[1]
+    check_operand(state, vehicle_layout()["mega"], B, dtype, device)
+    check_operand(i, 1, B, torch.int32, device)
+    check_params(params, dtype, device)
+    check_grid(grid, dtype, device)
+    out, i_out = torch.empty_like(state), torch.empty_like(i)
+    _run("megakernel", fn, (state.data_ptr(), i.data_ptr(),
+                            params.data_ptr(), grid.data_ptr(),
+                            out.data_ptr(), i_out.data_ptr(), B, float(dt),
+                            float(t_start), int(bool(comp))), block)
+    return out, i_out

@@ -5,8 +5,8 @@ The update order kinematics -> air data -> systems -> dynamics of
 `Vehicle.f_ode`, and the renorm -> systems step of `Vehicle.f_step`, are
 carried out cluster by cluster in `parallel/clusterstep.py`. The carried
 geoid undulation `s['geoid_N']` is refreshed by the fleet step on its
-cadence (`refresh_geoid`), the deferred-geoid semantics of the JAX fleet
-step.
+cadence (`refresh_geoid`, the `geoid` kernel on the card), the
+deferred-geoid semantics of the JAX fleet step.
 """
 
 from flightjax_torch.ops import geodesy as geo
@@ -29,12 +29,13 @@ class Vehicle:
         self.terrain = terrain
         self.geoid = geo.geoid(device, dtype)
 
-    def geoid_N_from_kin(self, xk):
-        """EGM96 undulation under the WA position states."""
-        return self.geoid.height(geo.nvector_from_qew(xk["q_ew"]))
-
-    def refresh_geoid(self, x, s):
-        return dict(s, geoid_N=self.geoid_N_from_kin(x["kinematics"]))
+    def refresh_geoid(self, x, s, plain=False):
+        """The carried undulation refreshed under the WA position states:
+        the `geoid` kernel on the card, `Geoid.height` on the CPU or with
+        `plain`."""
+        from flightjax_torch.parallel import kernels as K
+        fn = K.geoid_plain if plain else K.geoid
+        return dict(s, geoid_N=fn(self.geoid, x["kinematics"]["q_ew"]))
 
     def h_agl(self, x, u, s):
         """Ellipsoidal height of the body origin above the terrain."""

@@ -65,13 +65,13 @@ def perturbed_fleet_sim(batch, seed, device, dtype):
 
 
 def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=()):
-    """numpy operands of the kernel clusters (`parallel/kernels.py`) at the
+    """numpy operands of the kernels (`parallel/kernels.py`) at the
     perturbed flagship: quaternion rates from body and transport rates,
     derivative sums, mass properties, wrench and rotor momentum of a C172
     in flight, small position residuals, and system states, derivatives,
     inputs and flags spread so that lanes 0-7 take every branch of the
     engine state machine, the stall latch, the mixture control and the
-    runway surfaces."""
+    runway surfaces; and positions all over the globe for the geoid."""
     rng = np.random.default_rng(seed + 1)
     t, _, x, u, s = perturbed_flagship(batch, seed, 0, ground_lanes,
                                        terminated_lanes)
@@ -115,8 +115,11 @@ def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=()):
     eng["omega"][[2, 5]] = 30.0
     ss["aero"]["stall"][[4, 7]] = True
     u["vehicle"]["trn"]["surface"][[4, 7]] = [1, 2]
+    # position quaternions spread over the globe, for the geoid
+    q_globe = np.random.default_rng(seed + 2).normal(size=(batch, 4))
+    q_globe /= np.linalg.norm(q_globe, axis=-1, keepdims=True)
     return dict(
-        t=t, x_kin=xk, x_dyn=xd, k_kin=k_kin, k_dyn=k_dyn,
+        t=t, x_kin=xk, x_dyn=xd, k_kin=k_kin, k_dyn=k_dyn, q_globe=q_globe,
         ksum_kin={k: 6.0 * v for k, v in k_kin.items()},
         ksum_dyn={k: 6.0 * v for k, v in k_dyn.items()},
         geoid_N=s["vehicle"]["geoid_N"], u_atm=u["vehicle"]["atm"],
@@ -134,3 +137,21 @@ def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=()):
         x_sys=xs, k_sys=k_sys,
         ksum_sys=tree_map(lambda v: 6.0 * v, k_sys),
         u_sys=us, s_sys=ss, u_trn=u["vehicle"]["trn"])
+
+
+def operand_state(d, device, dtype, i0=0):
+    """The world SimState (uncompensated) whose vehicle state, inputs and
+    discrete state are those of the operand dict `d` of `cluster_operands`:
+    the whole-step kernels see the same branches as the clusters."""
+    B = d["geoid_N"].shape[0]
+    x = {"vehicle": {"kinematics": d["x_kin"], "dynamics": d["x_dyn"],
+                     "systems": d["x_sys"]}}
+    u = {"vehicle": {"systems": d["u_sys"], "atm": d["u_atm"],
+                     "trn": d["u_trn"]}}
+    s = {"vehicle": {"systems": d["s_sys"], "geoid_N": d["geoid_N"]},
+         "terminated": d["term"] > 0.5}
+    return SimState(t=torch.full((B,), i0 * 0.02, dtype=dtype, device=device),
+                    i=torch.full((B,), i0, dtype=torch.int32, device=device),
+                    x=tree_from_numpy(x, device, dtype),
+                    u=tree_from_numpy(u, device, dtype),
+                    s=tree_from_numpy(s, device, dtype))

@@ -29,6 +29,7 @@ B = 24
 TOL = 1e-12
 CSRC = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc")
 NAMES = ("kinair", "systems", "dynamics", "finish_kin", "finish_sys")
+VEHICLE_NAMES = ("rk4_stage", "rk4_finish", "geoid")
 LAUNCH_CODE = "template <typename T>\nstatic int launch"
 
 CUDA_RUNTIME_STANDIN = r"""
@@ -40,6 +41,7 @@ CUDA_RUNTIME_STANDIN = r"""
 #define __global__
 #define __forceinline__ inline
 #define __restrict__ __restrict
+#define __launch_bounds__(...)
 struct Dim { int x; };
 static Dim blockIdx, blockDim, threadIdx;
 typedef void* cudaStream_t;
@@ -88,6 +90,26 @@ void host_finish_sys(const double* in, const double* p, double* out, int B,
                      double c6, int) {
   LANES(finish_sys, (const SD*)in, (const SD*)p, (SD*)out, B, SD(c6))
 }
+void host_rk4_stage(const double* in, const double* k, const double* p,
+                    double* out, int B, double adt, int) {
+  LANES(rk4_stage, (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B,
+        SD(adt))
+}
+void host_rk4_finish(const double* in, const double* k, const double* p,
+                     double* out, int B, double c6, int comp) {
+  LANES(rk4_finish, (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B,
+        SD(c6), comp)
+}
+void host_geoid(const double* in, const double*, const double* grid,
+                double* out, int B, double, int) {
+  LANES(geoid, (const SD*)in, (const SD*)grid, (SD*)out, B)
+}
+void host_megakernel(const double* in, const int* i_in, const double* p,
+                     const double* grid, double* out, int* i_out, int B,
+                     double dt, double t_start, int comp) {
+  LANES(megakernel, (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+        (SD*)out, i_out, B, dt, t_start, comp)
+}
 }
 """
 
@@ -105,7 +127,7 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
     parts = ['#include "c172_systems.cuh"']
-    for name in NAMES:
+    for name in NAMES + VEHICLE_NAMES + ("megakernel",):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh:
             src = fh.read()
         assert LAUNCH_CODE in src, name
@@ -152,9 +174,10 @@ def _as_wrapper_returns(name, out):
 @pytest.mark.parametrize("name", NAMES)
 def test_kernel_source_matches_plain(host_lib, operands, name):
     args = operands[name]
-    buf, n_out, scalars, params = K.PACK[name](*args)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
     out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
     scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
+    params = ops.get("params")
     getattr(host_lib, f"host_{name}")(
         ctypes.c_void_p(buf.data_ptr()),
         ctypes.c_void_p(None if params is None else params.data_ptr()),
@@ -173,3 +196,73 @@ def test_kernel_source_matches_plain(host_lib, operands, name):
         err = ((a.double() - b.double()).abs()
                / b.double().abs().clamp_min(1.0)).max()
         assert float(err) <= TOL, (p, float(err))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _assert_trees_close(got, ref):
+    g, r = tree_leaves_with_path(got), tree_leaves_with_path(ref)
+    assert [p for p, _ in g] == [p for p, _ in r]
+    for (p, a), (_, b) in zip(g, r):
+        assert a.dtype == b.dtype and a.shape == b.shape, p
+        err = ((a.double() - b.double()).abs()
+               / b.double().abs().clamp_min(1.0)).max()
+        assert float(err) <= TOL, (p, float(err))
+
+
+@pytest.mark.parametrize("name,comp", [("rk4_stage", False),
+                                       ("rk4_finish", False),
+                                       ("rk4_finish", True),
+                                       ("geoid", False)],
+                         ids=["rk4_stage", "rk4_finish", "rk4_finish-comp",
+                              "geoid"])
+def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
+                                             comp):
+    args = operands[name]
+    if name == "rk4_finish" and not comp:
+        args = args[:-1] + (None,)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
+    scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
+    getattr(host_lib, f"host_{name}")(
+        _ptr(buf), _ptr(ops.get("k")),
+        _ptr(ops.get("params", ops.get("grid"))), _ptr(out),
+        ctypes.c_int(B), ctypes.c_double(scalars[0]),
+        ctypes.c_int(scalars[1]))
+    if name == "rk4_stage":
+        got = K._x_tree(K.unpack(K.STAGE_OUT, out))
+    elif name == "rk4_finish":
+        got = K.unpack_finish(out, comp)
+    else:
+        got = out[0]
+    _assert_trees_close(got, getattr(K, name + "_plain")(*args))
+
+
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+def test_megakernel_source_matches_plain(host_lib, comp):
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.models.c172.c172s import flagship_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import operand_state
+    sim, _, _ = flagship_sim("cpu", torch.float64)
+    st = operand_state(cluster_operands(B, 1016, (3, 17), (5,)), "cpu",
+                       torch.float64, i0=126)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, _, unpack = make_megakernel_step(sim, st)
+    vehicle = sim.system.aircraft.vehicle
+    out = torch.full_like(bufs[0], float("nan"))
+    i_out = torch.full_like(bufs[1], -1)
+    host_lib.host_megakernel(
+        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(K.system_params(vehicle)),
+        _ptr(K.geoid_grid(vehicle.geoid)), _ptr(out), _ptr(i_out),
+        ctypes.c_int(B), ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
+        ctypes.c_int(int(comp)))
+    got, ref = unpack((out, i_out)), megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})

@@ -1,7 +1,8 @@
-"""The five CUDA kernels of flightjax_torch against their plain PyTorch
-versions on the same card tensors, at the fleet width B = 4096: float64 to
-1e-12 and float32 to 1e-5 (relative to max(1, |plain|); a few ulp of the
-long transcendental chains). Needs a CUDA device and nvcc; skips without a
+"""The CUDA kernels of flightjax_torch against their plain PyTorch versions
+on the same card tensors, at the fleet width B = 4096: float64 to 1e-12 and
+float32 to 1e-5 (relative to max(1, |plain|); a few ulp of the long
+transcendental chains); and the two whole-step entry points, a few steps
+against their plain paths. Needs a CUDA device and nvcc; skips without a
 device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -13,17 +14,26 @@ import torch
 from flightjax_torch.core.modeling import tree_leaves_with_path
 from flightjax_torch.models.c172.c172s import build_vehicle
 from flightjax_torch.parallel import kernels as K
-from flightjax_torch.testing import cluster_operands
+from flightjax_torch.testing import cluster_operands, perturbed_fleet_sim
 
 B = 4096
+TOLS = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
+
+
+def _worst(got, ref):
+    """max |got - ref| / max(1, |ref|) over the floating leaves."""
+    return max(float(((a.double() - b.double()).abs()
+                      / b.double().abs().clamp_min(1.0)).max())
+               for (_, a), (_, b) in zip(tree_leaves_with_path(got),
+                                         tree_leaves_with_path(ref))
+               if a.dtype.is_floating_point)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["kinair", "systems", "dynamics",
-                                  "finish_kin", "finish_sys"])
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)],
-                         ids=["f64", "f32"])
+                                  "finish_kin", "finish_sys", "rk4_stage",
+                                  "rk4_finish", "geoid"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
 def test_kernel_matches_plain_on_card(name, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -40,3 +50,50 @@ def test_kernel_matches_plain_on_card(name, dtype, tol):
         err = ((a.double() - b.double()).abs()
                / b.double().abs().clamp_min(1.0)).max()
         assert float(err) <= tol, (p, float(err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_megakernel_matches_plain_on_card(comp, dtype, tol):
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = perturbed_fleet_sim(B, 1016, "cuda", dtype)
+    st = st._replace(c=comp_residuals(st.x, force=True) if comp else None)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st)
+    before = K.LAUNCHES["megakernel"]
+    ref = st
+    for _ in range(3):
+        bufs = step_packed(bufs)
+        ref = megakernel_step_plain(sim, ref)
+    got = unpack(bufs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["megakernel"] == before + 3
+    assert torch.equal(got.i, ref.i)
+    assert _worst((got.t, got.x, got.s, got.c), (ref.t, ref.x, ref.s,
+                                                 ref.c)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_vehicle_step_matches_plain_on_card(dtype, tol):
+    from flightjax_torch.parallel.clusterstep import (cluster_step,
+                                                      make_cluster_step)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = perturbed_fleet_sim(B, 1016, "cuda", dtype)
+    st = st._replace(c=None)
+    step = make_cluster_step(sim, st, split="vehicle")
+    K.reset_launches()
+    got = ref = st
+    for i in range(126, 129):  # the geoid refresh fires at step 128
+        got = step(got, i=i)
+        ref = cluster_step(sim, ref, i, plain=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "rk4_stage": 12, "rk4_finish": 3, "geoid": 1}
+    assert _worst((got.t, got.x, got.s), (ref.t, ref.x, ref.s)) <= tol

@@ -109,17 +109,26 @@ def test_fleet_rollout_keeps_the_step_counter():
 
 
 def test_port_never_imports_jax():
-    """Building the flagship and stepping it leaves JAX out of the
-    process."""
+    """Building the flagship and stepping it through all three entry points
+    (`fleet_step`, the `vehicle` split, the megakernel) leaves JAX out of
+    the process."""
     code = (
         "import sys, torch\n"
         "import flightjax_torch\n"
         "from flightjax_torch.models.c172.c172s import flagship_sim\n"
         "from flightjax_torch.parallel.fleet import broadcast_state, "
         "fleet_rollout\n"
+        "from flightjax_torch.parallel.clusterstep import make_cluster_step\n"
+        "from flightjax_torch.parallel.megakernel import "
+        "make_megakernel_step\n"
         "sim, st, _ = flagship_sim('cpu', torch.float32)\n"
-        "st = fleet_rollout(sim, broadcast_state(st, 4), 1)\n"
-        "assert bool(torch.isfinite(st.x['vehicle']['kinematics']['h_e'])"
+        "st = broadcast_state(st, 4)\n"
+        "a = fleet_rollout(sim, st, 1)\n"
+        "b = make_cluster_step(sim, st, split='vehicle')(st, i=0)\n"
+        "bufs, step, unpack = make_megakernel_step(sim, st)\n"
+        "c = unpack(step(bufs))\n"
+        "for r in (a, b, c):\n"
+        "    assert bool(torch.isfinite(r.x['vehicle']['kinematics']['h_e'])"
         ".all())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'flightjax.')) or m == 'flightjax')\n"

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Profile flightjax_torch's flagship fleet step on one CUDA card: where the
+"""Profile flightjax_torch's flagship step paths on one CUDA card: where the
 device time goes, by kernel, and how much of the step the device is idle.
 
-    python3 tools/profile_torch_step.py [--batch 4096] [--steps 50]
+    python3 tools/profile_torch_step.py [--paths subsystems,vehicle,megakernel]
+                                        [--batch 4096] [--steps 50]
 
-A warm window of `--steps` steps of `fleet_rollout` runs under
-`torch.profiler` (CPU and CUDA activities). Printed: the card's name and
-power limit, the host-clock ms per step of the same window run without the
-profiler, the device time per step summed over every kernel and copy, the
-idle share 1 - device / host, and the device time per step of the costliest
-kernels. The last line is the same as
-one JSON object. Fails without a card.
+The paths are `subsystems` (`fleet_rollout` over `Simulation.fleet_step`,
+the five cluster kernels), `vehicle` (`make_cluster_step(split="vehicle")`,
+rk4_stage x 4 + rk4_finish) and `megakernel` (`make_megakernel_step`, one
+launch per step). For each, a warm window of `--steps` steps runs under
+`torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
+ms per step of the same window run without the profiler, the device time per
+step summed over every kernel and copy, the idle share 1 - device / host,
+the device launches per step, and the device time per step of the costliest
+kernels; then the card's name and power limit, and as the last line all of
+it as one JSON object. Fails without a card.
 """
 
 import argparse
@@ -25,6 +29,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
+PATHS = ("subsystems", "vehicle", "megakernel")
+
 
 def device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -34,37 +40,48 @@ def device_us(evt):
     return 0.0
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--seed", type=int, default=1016)
-    ap.add_argument("--top", type=int, default=12)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_step: no CUDA device", file=sys.stderr)
-        return 2
+def stepper(path, sim, st):
+    """`run(n)`: n more steps of `path` from where the last call ended."""
+    from flightjax_torch.parallel.clusterstep import make_cluster_step
     from flightjax_torch.parallel.fleet import fleet_rollout
-    from flightjax_torch.testing import perturbed_fleet_sim
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    box = {"st": st, "i": int(st.i[0])}
+    if path == "subsystems":
+        def run(n):
+            box["st"] = fleet_rollout(sim, box["st"], n)
+    elif path == "vehicle":
+        box["st"] = st._replace(c=None)  # the vehicle path is uncompensated
+        step = make_cluster_step(sim, box["st"], split="vehicle")
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    sim, st = perturbed_fleet_sim(args.batch, args.seed, "cuda",
-                                  torch.float32)
-    st = fleet_rollout(sim, st, 10)  # build, warm up
+        def run(n):
+            for _ in range(n):
+                box["st"] = step(box["st"], i=box["i"])
+                box["i"] += 1
+    elif path == "megakernel":
+        box["bufs"], step_packed, _ = make_megakernel_step(sim, st)
+
+        def run(n):
+            for _ in range(n):
+                box["bufs"] = step_packed(box["bufs"])
+    else:
+        raise ValueError(f"unknown path {path!r}")
+    return run
+
+
+def profile(path, sim, st, steps, top):
+    run = stepper(path, sim, st)
+    run(10)  # build, warm up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fleet_rollout(sim, st, args.steps)
+    run(steps)
     torch.cuda.synchronize()
-    bare_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    bare_ms = 1e3 * (time.perf_counter() - t0) / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fleet_rollout(sim, st, args.steps)
+        run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies), so no time counts twice
@@ -74,23 +91,52 @@ def main():
     if not rows:
         raise RuntimeError("the profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
-    host_ms = 1e3 * wall / args.steps
-    dev_ms = sum(r[1] for r in rows) / 1e3 / args.steps
-    print(f"card: {card}")
-    print(f"B = {args.batch}, {args.steps} steps, f32: host {bare_ms:.4f} "
-          f"ms/step ({host_ms:.4f} under the profiler), device {dev_ms:.4f} "
-          f"ms/step, idle share {1.0 - dev_ms / bare_ms:.4f}")
-    for key, us, count in rows[:args.top]:
-        print(f"  {us / 1e3 / args.steps:9.4f} ms/step  "
-              f"{count / args.steps:6.1f}/step  {key[:90]}")
-    print(json.dumps({
-        "card": card, "batch": args.batch, "steps": args.steps,
-        "host_ms_per_step": bare_ms, "profiled_host_ms_per_step": host_ms,
+    dev_ms = sum(r[1] for r in rows) / 1e3 / steps
+    return {
+        "path": path, "host_ms_per_step": bare_ms,
+        "profiled_host_ms_per_step": 1e3 * wall / steps,
         "device_ms_per_step": dev_ms, "idle_share": 1.0 - dev_ms / bare_ms,
-        "launches_per_step": sum(r[2] for r in rows) / args.steps,
-        "top": [{"name": k, "ms_per_step": us / 1e3 / args.steps,
-                 "per_step": c / args.steps} for k, us, c in rows[:args.top]],
-    }))
+        "launches_per_step": sum(r[2] for r in rows) / steps,
+        "top": [{"name": k, "ms_per_step": us / 1e3 / steps,
+                 "per_step": c / steps} for k, us, c in rows[:top]],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=1016)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 2
+    from flightjax_torch.testing import perturbed_fleet_sim
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    sim, st = perturbed_fleet_sim(args.batch, args.seed, "cuda",
+                                  torch.float32)
+    out = []
+    for path in args.paths.split(","):
+        r = profile(path, sim, st, args.steps, args.top)
+        out.append(r)
+        print(f"{path}: B = {args.batch}, {args.steps} steps, f32: host "
+              f"{r['host_ms_per_step']:.4f} ms/step "
+              f"({r['profiled_host_ms_per_step']:.4f} under the profiler), "
+              f"device {r['device_ms_per_step']:.4f} ms/step, idle share "
+              f"{r['idle_share']:.4f}, {r['launches_per_step']:.1f} "
+              f"launches/step", flush=True)
+        for t in r["top"]:
+            print(f"  {t['ms_per_step']:9.4f} ms/step  {t['per_step']:6.1f}"
+                  f"/step  {t['name'][:90]}", flush=True)
+    print(f"card: {card}")
+    print(json.dumps({"card": card, "batch": args.batch,
+                      "steps": args.steps, "paths": out}))
     return 0
 
 
