@@ -59,7 +59,7 @@ SEED = 1016
 DEVICE = "cuda"
 # steps per throughput window (the plain path is ~40x slower)
 WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20}
-# the H100 SXM's published peaks (on-chip-measurement guide)
+# the H100 SXM's published peaks: HBM3 bandwidth and dense float32 rate
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 # the 10 s float32 envelope (BENCHMARKS.md:34): position, velocity,
