@@ -35,8 +35,20 @@ Phases:
    steps of each path in float64 agree with plain to 1e-9;
 5. timings: per kernel the warm median of the bare launch, of the wrapper
    and of the plain version, and the bound (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s, the larger); vehicle-steps/s of the three
-   paths and the plain one, interleaved windows, median and aggregate.
+   operations over 67 TFLOP/s, the larger). A kernel's time (`ms`) is taken
+   inside a captured CUDA graph of 20 launches, so it is the card's time
+   and not the host's launch rate; the time by CUDA events around 20
+   launches from Python stands beside it (`event_ms`). The two role
+   kernels (rk4_stage, megakernel: several threads per aircraft) also by
+   aircraft per block (32, 64), on the airborne flight fleet
+   (`airborne_ms`) and on the kernel-check operands with lanes on the
+   runway (`runway_ms`), beside an empty kernel launched the same way, and
+   the megakernel at B = 16384 and 65536 too. Every number of a kernel's
+   row but those two is taken on one set of operands: the kernel-check
+   operands for the lane kernels and rk4_stage, the flight fleet (the
+   state its path steps) for the megakernel. Then vehicle-steps/s of the
+   three paths and the plain one, interleaved windows, median and
+   aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -44,6 +56,8 @@ the kernels with their launch counts, errors, times and bounds.
 
 import collections
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +115,21 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def code_bytes(nvcc, so):
+    """(kernel, bytes of machine code) of the float32 kernels in the built
+    library, from the section table `cuobjdump -elf` prints; a long kernel
+    that runs once per launch pays for fetching its code. Empty where the
+    toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return []
+    out = subprocess.run([tool, "-elf", so], capture_output=True, text=True,
+                         timeout=120).stdout
+    found = re.findall(r"^\s*\w+\s+\w+\s+(\w+)\s.*PROGBITS.*\.text\._Z\d+"
+                       r"(\w+?)_kernelIN2fj6StrictIfE", out, re.M)
+    return sorted((name, int(size, 16)) for size, name in found)
+
+
 def rel_err(got, ref):
     """max |got - ref| / max(1, |ref|) over all elements."""
     g, r = got.double(), ref.double()
@@ -130,6 +159,31 @@ def cuda_ms(fn, reps=7, calls=20):
         a.record()
         for _ in range(calls):
             fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / calls)
+    return statistics.median(out)
+
+
+def graph_ms(fn, reps=7, calls=20):
+    """Warm median milliseconds per call of `calls` calls replayed from one
+    captured CUDA graph: the device's time, free of the host's launch
+    rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b) / calls)
@@ -349,6 +403,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.time()
+    from flightjax_torch.core.modeling import tree_map
     from flightjax_torch.parallel import kernels as K
     from flightjax_torch.parallel import launch as L
     from flightjax_torch.parallel.megakernel import (make_megakernel_step,
@@ -373,6 +428,8 @@ def main():
         for line in fh:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas: " + line.strip())
+    sizes = dict(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
+    log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
 
     # 3. per-kernel checks (f64 at 1e-12, f32 at 1e-5)
     errs = {}
@@ -463,17 +520,47 @@ def main():
 
     # 5. timings and bounds (f32, B = 4096)
     args = kernel_inputs(torch.float32)
+    vehicle = sim.system.aircraft.vehicle
+    params, grid = K.system_params(vehicle), K.geoid_grid(vehicle.geoid)
+    fx = st0.x["vehicle"]
+    tree_zeros = lambda t: tree_map(torch.zeros_like, t)
+
+    def role_times(name, air, runway, batch, n_params):
+        """A role kernel's graph times: on the airborne flight fleet (at 32
+        and 64 aircraft per block) and on the kernel-check operands with
+        lanes on the runway, and an empty kernel launched the same way."""
+        shape = L.role_launch_shape(name, batch, L.LANES, n_params, 4)
+        lanes = {n: graph_ms(lambda: air(n)) for n in (32, 64)}
+        rlanes = {n: graph_ms(lambda: runway(n)) for n in (32, 64)}
+        return dict(airborne_ms=lanes[L.LANES], runway_ms=rlanes[L.LANES],
+                    lanes_ms=lanes, runway_lanes_ms=rlanes,
+                    empty_ms=graph_ms(lambda: L.launch_empty(*shape)),
+                    empty_event_ms=cuda_ms(lambda: L.launch_empty(*shape)),
+                    launch_shape=shape)
+
     rows = []
     for name in LANE_KERNELS:
         src, replaces, _ = KERNELS[name]
         buf, n_out, scal, ops = K.PACK[name](*args[name])
-        ms = cuda_ms(lambda: L.launch(name, buf, n_out, scal, **ops))
+        bare = lambda bs=None: L.launch(name, buf, n_out, scal, block=bs,
+                                        **ops)
+        ms, event_ms = graph_ms(bare), cuda_ms(bare)
         kern, plain = getattr(K, name), getattr(K, name + "_plain")
         wrapper_ms = cuda_ms(lambda: kern(*args[name]))
         plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, calls=4)
-        blocks = {bs: cuda_ms(lambda: L.launch(name, buf, n_out, scal,
-                                               block=bs, **ops))
-                  for bs in (32, 64, 128)}
+        extra = {}
+        if name == "rk4_stage":
+            # the same stage on the airborne flight fleet, k = its k1
+            fbuf, _, _, fops = K.pack_rk4_stage(
+                vehicle, fx, tree_zeros(fx), st0.u["vehicle"],
+                st0.s["vehicle"], st0.s["terminated"], 0.0)
+            fops["k"] = L.launch(name, fbuf, n_out, (0.0,), **fops)
+            air = lambda bs=None: L.launch(name, fbuf, n_out, scal, block=bs,
+                                           **fops)
+            extra = role_times(name, air, bare, B, params.numel())
+            blocks = extra["runway_lanes_ms"]
+        else:
+            blocks = {bs: graph_ms(lambda: bare(bs)) for bs in (32, 64, 128)}
         n_elems = buf.numel() + n_out * buf.shape[1] + sum(
             v.numel() for k, v in ops.items() if k != "grid")
         if name == "geoid":
@@ -483,18 +570,34 @@ def main():
                          replaces=replaces, launches=launches[name],
                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                          nbytes=4 * n_elems, ops=n_ops, library_ms=None,
-                         wrapper_ms=wrapper_ms, block_ms=blocks))
+                         event_ms=event_ms, wrapper_ms=wrapper_ms,
+                         block_ms=blocks, **extra))
 
-    sim, st = mega_inputs(torch.float32, True)
-    vehicle = sim.system.aircraft.vehicle
-    bufs, step_packed, unpack = make_megakernel_step(sim, st)
-    params, grid = K.system_params(vehicle), K.geoid_grid(vehicle.geoid)
-    mk = lambda block=None: L.launch_megakernel(
-        bufs[0], bufs[1], params, grid, sim.dt, sim.t_start, True, block)
-    ms = cuda_ms(mk)
-    blocks = {bs: cuda_ms(lambda: mk(bs)) for bs in (32, 64, 128)}
+    # the megakernel: on the airborne flight fleet (the main path's data,
+    # `ms`) and on the kernel-check fleet with lanes on the runway
+    msim, mst = mega_inputs(torch.float32, True)
+    rbufs, _, _ = make_megakernel_step(msim, mst)
+    bufs, step_packed, unpack = paths.bufs, paths.step_packed, paths.unpack
+
+    def mega(b, lanes=None):
+        return L.launch_megakernel(b[0], b[1], params, grid, sim.dt,
+                                   sim.t_start, True, lanes)
+
+    extra = role_times("megakernel", lambda n=None: mega(bufs, n),
+                       lambda n=None: mega(rbufs, n), B, params.numel())
+    by_batch = {}
+    for mult in (4, 16):  # the same fleets, tiled to B = 16384 and 65536
+        big, rbig = (tuple(t.repeat(1, mult) for t in b)
+                     for b in (bufs, rbufs))
+        by_batch[B * mult] = dict(
+            airborne_ms=graph_ms(lambda: mega(big)),
+            runway_ms=graph_ms(lambda: mega(rbig)),
+            airborne_64_ms=graph_ms(lambda: mega(big, 64)),
+            empty_ms=graph_ms(lambda: L.launch_empty(*L.role_launch_shape(
+                "megakernel", B * mult, L.LANES, params.numel(), 4))))
+        del big, rbig
     wrapper_ms = cuda_ms(lambda: step_packed(bufs))
-    plain_ms = cuda_ms(lambda: megakernel_step_plain(sim, st), reps=3,
+    plain_ms = cuda_ms(lambda: megakernel_step_plain(sim, st0), reps=3,
                        calls=2)
     q_new = unpack(step_packed(bufs)).x["vehicle"]["kinematics"]["q_ew"]
     n_elems = 2 * (bufs[0].numel() + bufs[1].numel()) + params.numel() \
@@ -503,21 +606,44 @@ def main():
                      source=KERNELS["megakernel"][0],
                      replaces=KERNELS["megakernel"][1],
                      launches=launches["megakernel"],
-                     max_abs_err=errs["megakernel"], ms=ms,
+                     max_abs_err=errs["megakernel"], ms=extra["airborne_ms"],
                      plain_ms=plain_ms, nbytes=4 * n_elems,
-                     ops=count_ops(lambda: megakernel_step_plain(sim, st)),
-                     library_ms=None, wrapper_ms=wrapper_ms,
-                     block_ms=blocks))
+                     ops=count_ops(lambda: megakernel_step_plain(sim, st0)),
+                     library_ms=None,
+                     event_ms=cuda_ms(lambda: mega(bufs)),
+                     wrapper_ms=wrapper_ms, block_ms=extra["lanes_ms"],
+                     by_batch_ms=by_batch, **extra))
 
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
+        r["code_bytes"] = sizes.get(r["name"])
         log(f"time {r['name']}: kernel {r['ms']:.4f} ms, wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({r['nbytes']} B, "
             f"{r['ops']} ops; {r['bound_ms'] / r['ms']:.4f} of it reached), "
-            f"by block size " + ", ".join(
-                f"{k}: {v:.4f}" for k, v in r["block_ms"].items())
+            f"by events from Python {r['event_ms']:.4f} ms, by "
+            + ("aircraft per block " if "lanes_ms" in r else "block size ")
+            + ", ".join(f"{k}: {v:.4f}" for k, v in r["block_ms"].items())
             + f" ms [{card}]")
+        if "lanes_ms" in r:
+            log(f"time {r['name']} (role kernel, graph times): airborne "
+                f"flight fleet {r['airborne_ms']:.4f} ms (by aircraft per "
+                f"block " + ", ".join(
+                    f"{k}: {v:.4f}" for k, v in r["lanes_ms"].items())
+                + f"), kernel-check operands with lanes on the runway "
+                f"{r['runway_ms']:.4f} ms (by aircraft per block "
+                + ", ".join(
+                    f"{k}: {v:.4f}" for k, v in r["runway_lanes_ms"].items())
+                + f"), an empty kernel launched the same way (grid, block, "
+                f"shared bytes {r['launch_shape']}) {r['empty_ms']:.4f} ms "
+                f"({r['empty_event_ms']:.4f} by events) [{card}]")
+        for batch, t in r.get("by_batch_ms", {}).items():
+            log(f"time {r['name']} at B = {batch}: airborne "
+                f"{t['airborne_ms']:.4f} ms ({t['airborne_64_ms']:.4f} at 64 "
+                f"aircraft per block), on the runway {t['runway_ms']:.4f} "
+                f"ms, empty {t['empty_ms']:.4f} ms; "
+                f"{batch / t['airborne_ms'] / 1e3:.2f}M vehicle-steps/s of "
+                f"kernel time [{card}]")
 
     # throughput: interleaved warm windows of WINDOW[label] steps each
     windows = collections.defaultdict(list)
@@ -542,9 +668,12 @@ def main():
     log(f"total: {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "wrapper_ms", "block_ms", "nbytes", "ops")
+            "event_ms", "wrapper_ms", "block_ms", "nbytes", "ops",
+            "code_bytes", "airborne_ms", "runway_ms", "lanes_ms",
+            "runway_lanes_ms", "empty_ms", "by_batch_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

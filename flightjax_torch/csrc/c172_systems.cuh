@@ -145,18 +145,12 @@ __device__ __forceinline__ const T* table(const T* P, int k) {
 
 template <typename T>
 __device__ __forceinline__ T lookup1(const T* P, int k, T x0) {
-  const T x[1] = {x0};
-  T out[1];
-  lookup(table(P, k), x, out);
-  return out[0];
+  return lookup<T, 1, 1>(table(P, k), x0, T(0), T(0)).v[0];
 }
 
 template <typename T>
 __device__ __forceinline__ T lookup2(const T* P, int k, T x0, T x1) {
-  const T x[2] = {x0, x1};
-  T out[1];
-  lookup(table(P, k), x, out);
-  return out[0];
+  return lookup<T, 2, 1>(table(P, k), x0, x1, T(0)).v[0];
 }
 
 template <typename T>
@@ -222,72 +216,117 @@ __device__ __forceinline__ T scale_u(T u, double lo_u, double hi_u, T lo,
   return lo + sc * (clamp(u, T(lo_u), T(hi_u)) - T(lo_u));
 }
 
+// which of the aero coefficients a call works out: all, or one of two
+// halves that need not wait for each other
+constexpr int AERO_ALL = 0, AERO_DRAG_SIDE = 1, AERO_LIFT_MOMENTS = 2;
+
+// the derivative of the alpha/beta filters, the aero force in stability
+// axes with the cos/sin of alpha that turn it into body axes, and the
+// torque. AERO_DRAG_SIDE fills f_s.x and f_s.y only, AERO_LIFT_MOMENTS the
+// rest
+template <typename T>
+struct AeroOut {
+  T alpha_filt_dot, beta_filt_dot;
+  V3<T> f_s;
+  T ca, sa;
+  V3<T> tau;
+};
+
+template <int PART, typename T>
+__device__ __forceinline__ void aero_parts(const T* P, T alpha_filt,
+                                           T beta_filt, const Act<T>& u,
+                                           bool stall, const Kin<T>& kin,
+                                           const Air<T>& air, T elevation,
+                                           AeroOut<T>& o) {
+  constexpr bool drag_side = PART != AERO_LIFT_MOMENTS;
+  constexpr bool lift_moments = PART != AERO_DRAG_SIDE;
+  const T* A = P + P_AE;
+  T alpha, beta;
+  V3<T> v_safe;
+  alpha_gated(air, alpha, beta, v_safe);
+  const T V = clamp_min(air.TAS, A[AE_V_min]);
+  o.alpha_filt_dot = (alpha - alpha_filt) / A[AE_tau];
+  o.beta_filt_dot = (beta - beta_filt) / A[AE_tau];
+  const T V2 = T(2.0) * V;
+  const T p_nd = kin.omega_wb_b.x * A[AE_b] / V2;
+  const T q_nd = kin.omega_wb_b.y * A[AE_c] / V2;
+  const T r_nd = kin.omega_wb_b.z * A[AE_b] / V2;
+  T alpha_dot_nd = o.alpha_filt_dot * A[AE_c] / V2;
+  const T de = scale_u(u.e, -1.0, 1.0, A[AE_e_lo], A[AE_e_sc]);
+  const T da = scale_u(u.a, -1.0, 1.0, A[AE_a_lo], A[AE_a_sc]);
+  const T dr = scale_u(u.r, -1.0, 1.0, A[AE_r_lo], A[AE_r_sc]);
+  const T df = scale_u(u.f, 0.0, 1.0, A[AE_f_lo], A[AE_f_sc]);
+  const T dh_nd = (kin.h_o - elevation) / A[AE_b];
+  const T qS = air.q * A[AE_S];
+
+  // coefficient assembly (get_aero_coeffs)
+  alpha = clamp(alpha, T(-0.1), T(0.36));
+  beta = clamp(beta, T(-0.2), T(0.2));
+  alpha_dot_nd = clamp(alpha_dot_nd, T(-0.04), T(0.04));
+  if (drag_side) {
+    const T cd_beta = T(0.17) * Abs(beta);
+    const T cd_de = T(0.06) * Abs(de);
+    const T cd_df = lookup1(P, TB_CD_df, df);
+    const T cd_ge = lookup1(P, TB_CD_ge, dh_nd);
+    const T cd_adf = lookup2(P, TB_CD_alpha_df, alpha, df);
+    const T cy_bdf = lookup2(P, TB_CY_beta_df, beta, df);
+    const T cy_p = lookup2(P, TB_CY_p, alpha, df);
+    const T cy_r = lookup2(P, TB_CY_r, alpha, df);
+    const T C_D = A[AE_CD_zero] + cd_ge * (cd_adf + cd_df) + cd_de + cd_beta;
+    const T C_Y = A[AE_CY_dr] * dr + A[AE_CY_da] * da + cy_bdf +
+                  cy_p * p_nd + cy_r * r_nd;
+    o.f_s.x = qS * -C_D;
+    o.f_s.y = qS * C_Y;
+  }
+  if (lift_moments) {
+    const T stall_f = T(stall ? 1.0 : 0.0);
+    const T cl_ge = lookup1(P, TB_CL_ge, dh_nd);
+    const T cl_a = lookup2(P, TB_CL_alpha, alpha, stall_f);
+    const T cl_df = lookup1(P, TB_CL_df, df);
+    const T cl_r = lookup2(P, TB_Cl_r, alpha, df);
+    const T cm_df = lookup1(P, TB_Cm_df, df);
+    const T C_L = cl_ge * (cl_a + cl_df) + A[AE_CL_de] * de +
+                  A[AE_CL_q] * q_nd + A[AE_CL_adot] * alpha_dot_nd;
+    const T C_l = A[AE_Cl_da] * da + A[AE_Cl_dr] * dr + A[AE_Cl_beta] * beta +
+                  A[AE_Cl_p] * p_nd + cl_r * r_nd;
+    const T C_m = A[AE_Cm_zero] + A[AE_Cm_de] * de + cm_df +
+                  A[AE_Cm_alpha] * alpha + A[AE_Cm_q] * q_nd +
+                  A[AE_Cm_adot] * alpha_dot_nd;
+    const T C_n = A[AE_Cn_dr] * dr + A[AE_Cn_da] * da + A[AE_Cn_beta] * beta +
+                  A[AE_Cn_p] * p_nd + A[AE_Cn_r] * r_nd;
+    o.f_s.z = qS * -C_L;
+    o.tau = {qS * (C_l * A[AE_b]), qS * (C_m * A[AE_c]),
+             qS * (C_n * A[AE_b])};
+
+    // stability -> airframe rotation from the algebraic cos/sin alpha
+    const T vx = v_safe.x, vz = v_safe.z;
+    const T m2 = vx * vx + vz * vz;
+    const T minv = Rsqrt(clamp_min(m2, T(1e-30)));
+    const bool okm = m2 > T(0);
+    o.ca = okm ? vx * minv : T(1.0);
+    o.sa = okm ? vz * minv : T(0.0);
+  }
+}
+
+// the aero force in body axes from its stability-axes components
+template <typename T>
+__device__ __forceinline__ V3<T> aero_force(T ca, T sa, V3<T> f_s) {
+  return rot2_y(ca, -sa, f_s);
+}
+
 // derivative of the alpha/beta filters and the aero wrench in body axes
 template <typename T>
 __device__ void aero(const T* P, T alpha_filt, T beta_filt, const Act<T>& u,
                      bool stall, const Kin<T>& kin, const Air<T>& air,
                      T elevation, T& alpha_filt_dot, T& beta_filt_dot,
                      V3<T>& F, V3<T>& tau) {
-  const T* A = P + P_AE;
-  T alpha, beta;
-  V3<T> v_safe;
-  alpha_gated(air, alpha, beta, v_safe);
-  const T V = clamp_min(air.TAS, A[AE_V_min]);
-  alpha_filt_dot = (alpha - alpha_filt) / A[AE_tau];
-  beta_filt_dot = (beta - beta_filt) / A[AE_tau];
-  const T V2 = T(2.0) * V;
-  const T p_nd = kin.omega_wb_b.x * A[AE_b] / V2;
-  const T q_nd = kin.omega_wb_b.y * A[AE_c] / V2;
-  const T r_nd = kin.omega_wb_b.z * A[AE_b] / V2;
-  T alpha_dot_nd = alpha_filt_dot * A[AE_c] / V2;
-  const T de = scale_u(u.e, -1.0, 1.0, A[AE_e_lo], A[AE_e_sc]);
-  const T da = scale_u(u.a, -1.0, 1.0, A[AE_a_lo], A[AE_a_sc]);
-  const T dr = scale_u(u.r, -1.0, 1.0, A[AE_r_lo], A[AE_r_sc]);
-  const T df = scale_u(u.f, 0.0, 1.0, A[AE_f_lo], A[AE_f_sc]);
-  const T dh_nd = (kin.h_o - elevation) / A[AE_b];
-
-  // coefficient assembly (get_aero_coeffs)
-  alpha = clamp(alpha, T(-0.1), T(0.36));
-  beta = clamp(beta, T(-0.2), T(0.2));
-  alpha_dot_nd = clamp(alpha_dot_nd, T(-0.04), T(0.04));
-  const T stall_f = T(stall ? 1.0 : 0.0);
-  const T cd_beta = T(0.17) * Abs(beta);
-  const T cd_de = T(0.06) * Abs(de);
-  const T cd_df = lookup1(P, TB_CD_df, df);
-  const T cd_ge = lookup1(P, TB_CD_ge, dh_nd);
-  const T cd_adf = lookup2(P, TB_CD_alpha_df, alpha, df);
-  const T cy_bdf = lookup2(P, TB_CY_beta_df, beta, df);
-  const T cy_p = lookup2(P, TB_CY_p, alpha, df);
-  const T cy_r = lookup2(P, TB_CY_r, alpha, df);
-  const T cl_ge = lookup1(P, TB_CL_ge, dh_nd);
-  const T cl_a = lookup2(P, TB_CL_alpha, alpha, stall_f);
-  const T cl_df = lookup1(P, TB_CL_df, df);
-  const T cl_r = lookup2(P, TB_Cl_r, alpha, df);
-  const T cm_df = lookup1(P, TB_Cm_df, df);
-
-  const T C_D = A[AE_CD_zero] + cd_ge * (cd_adf + cd_df) + cd_de + cd_beta;
-  const T C_Y = A[AE_CY_dr] * dr + A[AE_CY_da] * da + cy_bdf + cy_p * p_nd +
-                cy_r * r_nd;
-  const T C_L = cl_ge * (cl_a + cl_df) + A[AE_CL_de] * de + A[AE_CL_q] * q_nd +
-                A[AE_CL_adot] * alpha_dot_nd;
-  const T C_l = A[AE_Cl_da] * da + A[AE_Cl_dr] * dr + A[AE_Cl_beta] * beta +
-                A[AE_Cl_p] * p_nd + cl_r * r_nd;
-  const T C_m = A[AE_Cm_zero] + A[AE_Cm_de] * de + cm_df +
-                A[AE_Cm_alpha] * alpha + A[AE_Cm_q] * q_nd +
-                A[AE_Cm_adot] * alpha_dot_nd;
-  const T C_n = A[AE_Cn_dr] * dr + A[AE_Cn_da] * da + A[AE_Cn_beta] * beta +
-                A[AE_Cn_p] * p_nd + A[AE_Cn_r] * r_nd;
-
-  // stability -> airframe rotation from the algebraic cos/sin alpha
-  const T vx = v_safe.x, vz = v_safe.z;
-  const T m2 = vx * vx + vz * vz;
-  const T minv = Rsqrt(clamp_min(m2, T(1e-30)));
-  const bool okm = m2 > T(0);
-  const T ca = okm ? vx * minv : T(1.0);
-  const T sa = okm ? vz * minv : T(0.0);
-  const T qS = air.q * A[AE_S];
-  F = rot2_y(ca, -sa, V3<T>{qS * -C_D, qS * C_Y, qS * -C_L});
-  tau = {qS * (C_l * A[AE_b]), qS * (C_m * A[AE_c]), qS * (C_n * A[AE_b])};
+  AeroOut<T> o;
+  aero_parts<AERO_ALL>(P, alpha_filt, beta_filt, u, stall, kin, air,
+                       elevation, o);
+  alpha_filt_dot = o.alpha_filt_dot;
+  beta_filt_dot = o.beta_filt_dot;
+  F = aero_force(o.ca, o.sa, o.f_s);
+  tau = o.tau;
 }
 
 // ------------------------------------------------------------- gear leg
@@ -297,23 +336,33 @@ constexpr double PSI_SKID = 10.0 * (PI / 180.0);
 constexpr double ALPHA_TS_MAX = 60.0 * (PI / 180.0);
 constexpr double XI_DOT_MAX = 10.0;
 
-// strut quantities, masked to the weight-off-wheels defaults
+// strut quantities, masked to the weight-off-wheels defaults; `live` is
+// false where the strut's body was skipped (strut_y)
 template <typename T>
 struct Strut {
-  bool wow;
+  bool wow, live;
   T xi_dot, F_dmp_zs, alpha_ts;
   V3<T> r_bc_b;
   Q4<T> q_sc, q_bc;
   T vx, vy;
 };
 
+// the head of the strut: is the wheel at or below the terrain?
 template <typename T>
-__device__ Strut<T> strut_y(const T* L, T steering, const Kin<T>& kin,
-                            T elevation, V3<T> normal) {
+struct StrutHead {
+  bool wow;
+  T delta_h;
+  V3<T> ks_e, n_up_e;
+};
+
+template <typename T>
+__device__ __forceinline__ StrutHead<T> strut_head(const T* L,
+                                                   const Kin<T>& kin,
+                                                   T elevation) {
   const T l_0 = L[LG_l_0];
   const Q4<T> q_bs = {T(1.0), T(0.0), T(0.0), T(0.0)};
   const V3<T> r_bs_b = {L[LG_r_bs_x], L[LG_r_bs_y], L[LG_r_bs_z]};
-  const V3<T> E1 = {T(1.0), T(0.0), T(0.0)}, E3 = {T(0.0), T(0.0), T(1.0)};
+  const V3<T> E3 = {T(0.0), T(0.0), T(1.0)};
 
   const Q4<T> q_es = qmul(kin.q_eb, q_bs);
   const V3<T> ks_e = qrot(q_es, E3);
@@ -323,8 +372,21 @@ __device__ Strut<T> strut_y(const T* L, T steering, const Kin<T>& kin,
   const T h_e_w0 = kin.h_e + dot(d_e, n_up_e);
   const T h_e_trn = elevation + (kin.h_e - kin.h_o);
   const T delta_h = h_e_w0 - h_e_trn;
-  const bool wow = delta_h <= T(0);
-  const V3<T> r_st_e = sub(scale(l_0, ks_e), scale(delta_h, n_up_e));
+  return {delta_h <= T(0), delta_h, ks_e, n_up_e};
+}
+
+// the strut from its head on: compression, contact frame and contact-point
+// velocity, masked to the defaults where the wheel is off the ground
+template <typename T>
+__device__ Strut<T> strut_body(const T* L, T steering, const Kin<T>& kin,
+                               V3<T> normal, const StrutHead<T>& hd) {
+  const T l_0 = L[LG_l_0];
+  const Q4<T> q_bs = {T(1.0), T(0.0), T(0.0), T(0.0)};
+  const V3<T> r_bs_b = {L[LG_r_bs_x], L[LG_r_bs_y], L[LG_r_bs_z]};
+  const V3<T> E1 = {T(1.0), T(0.0), T(0.0)}, E3 = {T(0.0), T(0.0), T(1.0)};
+  const bool wow = hd.wow;
+  const V3<T> ks_e = hd.ks_e;
+  const V3<T> r_st_e = sub(scale(l_0, ks_e), scale(hd.delta_h, hd.n_up_e));
 
   const V3<T> ut_n = normal;
   const V3<T> ut_e = qrot(kin.q_en, ut_n);
@@ -368,6 +430,7 @@ __device__ Strut<T> strut_y(const T* L, T steering, const Kin<T>& kin,
   const Q4<T> q1 = {T(1.0), z, z, z};
   Strut<T> s;
   s.wow = wow;
+  s.live = true;
   s.xi_dot = wow ? xi_dot : z;
   s.F_dmp_zs = wow ? F_dmp_zs : z;
   s.alpha_ts = wow ? alpha_ts : z;
@@ -377,6 +440,25 @@ __device__ Strut<T> strut_y(const T* L, T steering, const Kin<T>& kin,
   s.vx = wow ? v_ec_c.x : z;
   s.vy = wow ? v_ec_c.y : z;
   return s;
+}
+
+// Strut quantities of one leg. Off the ground strut_body masks everything
+// to fixed values, so where no thread of the warp that runs this with ours
+// has its wheel on the ground, the body is skipped and those values are
+// returned: per warp what the reference's fleet gear gate does
+// (flightjax/physics/landinggear.py:59), and exact for the same reason,
+// whichever threads the vote happens to see. On an airborne fleet it takes
+// 5% off rk4_stage and 7-10% off the megakernel (PERF.md).
+template <typename T>
+__device__ __forceinline__ Strut<T> strut_y(const T* L, T steering,
+                                            const Kin<T>& kin, T elevation,
+                                            V3<T> normal) {
+  const StrutHead<T> hd = strut_head(L, kin, elevation);
+  if (__any_sync(__activemask(), hd.wow))
+    return strut_body(L, steering, kin, normal, hd);
+  const T z = T(0.0);
+  const Q4<T> q1 = {T(1.0), z, z, z};
+  return {false, false, z, z, z, {z, z, z}, q1, q1, z, z};
 }
 
 template <typename T>
@@ -426,7 +508,8 @@ __device__ void contact_wrench(const T* L, T braking, const Strut<T>& s,
   tau = s.wow ? tau_b : z;
 }
 
-// gear leg `leg`: friction-regulator derivative and contact wrench
+// gear leg `leg`: friction-regulator derivative and contact wrench (zero
+// off the ground, so not worked out where the strut's body was skipped)
 template <typename T>
 __device__ void gear_leg(const T* P, int leg, T frc_x, T frc_y, T steering,
                          T braking, const Kin<T>& kin, T elevation,
@@ -438,7 +521,8 @@ __device__ void gear_leg(const T* P, int leg, T frc_x, T frc_y, T steering,
   T out_x, out_y;
   frc_dot_x = pi_ode(pi, frc_x, -s.vx, out_x);
   frc_dot_y = pi_ode(pi, frc_y, -s.vy, out_y);
-  contact_wrench(L, braking, s, surface, out_x, out_y, F, tau);
+  F = tau = {T(0.0), T(0.0), T(0.0)};
+  if (s.live) contact_wrench(L, braking, s, surface, out_x, out_y, F, tau);
 }
 
 // ------------------------------------------------------------- powerplant
@@ -462,9 +546,9 @@ __device__ PropOut<T> propeller(const T* P, const Kin<T>& kin,
   const T omega_J = clamp_min(Abs(omega), T(1.0));
   const T J = T(2.0 * PI) * v_J / (omega_J * R[PR_d]);
   const T Mt = Abs(omega) * R[PR_d_half] / air.a;
-  const T x[3] = {J, Mt, R[PR_dbeta]};
-  T C[6];
-  lookup(table(P, TB_prop), x, C);
+  const LookupOut<T, 6> prop_c =
+      lookup<T, 3, 6>(table(P, TB_prop), J, Mt, R[PR_dbeta]);
+  const T(&C)[6] = prop_c.v;
   T alpha_p, beta_p;
   airflow_angles(v_p, alpha_p, beta_p);
   const T sense = R[PR_sense];
@@ -491,13 +575,15 @@ __device__ __forceinline__ T T_ISA(T p) {
   return T(T_STD) * Pow(p / T(P_STD), T(-BETA_TROPO * R_GAS / G_STD));
 }
 
-// engine derivative (omega, idle, frc) and fuel flow; `state` is 0 off,
-// 1 starting, 2 running
+// engine: its shaft torque, the derivatives of the idle and friction
+// regulators and the fuel flow; `state` is 0 off, 1 starting, 2 running.
+// The propeller's load joins the shaft torque in engine_omega_dot, so the
+// two can be worked out side by side
 template <typename T>
 __device__ void engine(const T* P, T omega, T idle, T frc, T throttle_u,
                        T mixture_u, T mixture_ctl, int state,
-                       const Air<T>& air, T tau_load, T& omega_dot,
-                       T& idle_dot, T& frc_dot, T& mdot) {
+                       const Air<T>& air, T& tau_shaft, T& idle_dot,
+                       T& frc_dot, T& mdot) {
   const T* E = P + P_EN;
   const T throttle = clamp(throttle_u, T(0.0), T(1.0));
   const T mixture = clamp(mixture_u, T(0.0), T(1.0));
@@ -538,10 +624,15 @@ __device__ void engine(const T* P, T omega, T idle, T frc, T throttle_u,
   const T mdot_run = SFC_run * P_run;
   const T tau_fr = frc_out * E[EN_tau_fr_sc];
 
-  const T tau_shaft =
-      state == 0 ? tau_fr : (state == 1 ? E[EN_tau_start] : tau_run);
+  tau_shaft = state == 0 ? tau_fr : (state == 1 ? E[EN_tau_start] : tau_run);
   mdot = state == 2 ? mdot_run : T(0.0);
-  omega_dot = (tau_shaft + tau_load) / E[EN_J_sum];
+}
+
+// shaft acceleration under the engine's torque and the propeller's load
+template <typename T>
+__device__ __forceinline__ T engine_omega_dot(const T* P, T tau_shaft,
+                                              T tau_load) {
+  return (tau_shaft + tau_load) / P[P_EN + EN_J_sum];
 }
 
 // engine state machine (PistonEngine.f_step)
@@ -619,15 +710,20 @@ __device__ MP<T> mass_sum(const T* P, const T (&pld)[5], T x_fuel) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) af.J.m[i][j] = M[MS_J00 + 3 * i + j];
   af.r = pvec(M + MS_r_OG_x);
+  // the loops stay rolled: one copy of mp_point and mp_add each, not seven
   MP<T> pay = mp_zero<T>();
-#pragma unroll
-  for (int k = 0; k < 5; ++k)
-    pay = mp_add(pay, mp_point(clamp(pld[k], T(0.0), T(100.0)),
+#pragma unroll 1
+  for (int k = 0; k < 5; ++k) {
+    const T m01 = k == 0 ? pld[0] : pld[1];
+    const T m = k < 2 ? m01 : (k == 2 ? pld[2] : (k == 3 ? pld[3] : pld[4]));
+    pay = mp_add(pay, mp_point(clamp(m, T(0.0), T(100.0)),
                                pvec(M + MS_pilot_x + 3 * k)));
+  }
   const T m_f = clamp_min(fuel_m_total(M, x_fuel), T(0.0));
   MP<T> fuel = mp_zero<T>();
-  fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank0_x)));
-  fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank1_x)));
+#pragma unroll 1
+  for (int k = 0; k < 2; ++k)
+    fuel = mp_add(fuel, mp_point(T(0.5) * m_f, pvec(M + MS_tank0_x + 3 * k)));
   return mp_add(mp_add(af, pay), fuel);
 }
 
@@ -681,10 +777,11 @@ __device__ __forceinline__ void systems_lane(
   // mixture from the actuation
   const T gr = P[P_EN + EN_gear_ratio];
   const PropOut<T> prop = propeller(P, kin, air, gr * xi[XS_OMEGA]);
-  T mdot;
+  T mdot, tau_shaft;
   engine(P, xi[XS_OMEGA], xi[XS_IDLE], xi[XS_EFRC], act.throttle,
-         act.mixture, u[US_E_MIXCTL], s.state, air, gr * prop.tau_px,
-         dot[XS_OMEGA], dot[XS_IDLE], dot[XS_EFRC], mdot);
+         act.mixture, u[US_E_MIXCTL], s.state, air, tau_shaft, dot[XS_IDLE],
+         dot[XS_EFRC], mdot);
+  dot[XS_OMEGA] = engine_omega_dot(P, tau_shaft, gr * prop.tau_px);
   dot[XS_FUEL] = -mdot / P[P_MS + MS_M_USABLE];
   T pld[5];
 #pragma unroll
@@ -812,38 +909,6 @@ __device__ __forceinline__ Ctx<T> load_ctx(const Col<T>& c, int r) {
   return x;
 }
 
-// x + a k on every state
-template <typename T>
-__device__ __forceinline__ XVeh<T> axpy(const XVeh<T>& x, T a,
-                                        const XVeh<T>& k) {
-  XVeh<T> o;
-  o.kin = axpy(x.kin, a, k.kin);
-  o.dyn = axpy(x.dyn, a, k.dyn);
-#pragma unroll
-  for (int r = 0; r < N_XSYS; ++r) o.sys[r] = x.sys[r] + a * k.sys[r];
-  return o;
-}
-
-// stage_lane of flightjax/parallel/clusterstep.py:81-85 at the stage state
-// xi: kinematics -> atmosphere and air data -> systems -> dynamics, every
-// derivative zeroed on a terminated lane
-template <typename T>
-__device__ __forceinline__ XVeh<T> vehicle_f_ode(const T* P, const XVeh<T>& xi,
-                                                 const Ctx<T>& ctx) {
-  const T alive = T(1.0) - ctx.term;
-  XVeh<T> d;
-  Kin<T> kin;
-  Air<T> air;
-  kinair_lane(xi.kin, xi.dyn, ctx.geoid_N, ctx.atm, alive, d.kin, kin, air);
-  MP<T> mp;
-  V3<T> F_b, tau_b, hr_b;
-  systems_lane(P, xi.sys, ctx.u, ctx.s, ctx.trn, kin, air, alive, d.sys, mp,
-               F_b, tau_b, hr_b);
-  d.dyn = dynamics_lane(xi.dyn, mp, F_b, tau_b, hr_b, kin.q_eb, kin.r_eb_e,
-                        alive);
-  return d;
-}
-
 // finish_lane of clusterstep.py:97-103 with the compensated add of
 // flightjax/core/sim.py:315-320 when `comp`: the RK4 combine x + c6 ksum,
 // the kinematics renorm, the systems' discrete step and the terminated
@@ -863,6 +928,461 @@ __device__ __forceinline__ XVeh<T> vehicle_finish(const T* P, const XVeh<T>& x,
   finish_sys_lane(P, o.sys, ctx.u, ctx.s, ctx.trn, kin, air);
   ctx.term = T(ctx.term.v != 0 || ctx.s.crashed ? 1.0 : 0.0);
   return o;
+}
+
+// ------------------------------------------------------------- roles
+// The vehicle with several threads per aircraft (rk4_stage, megakernel). A
+// block carries L neighbouring aircraft (lanes) in N_ROLES groups of L
+// threads, L a multiple of the warp, so every warp runs one role for 32
+// neighbouring aircraft: thread = role * L + lane. The subsystems read only
+// the kinematics, the air data, the inputs and their own states, and meet
+// again in the wrench and mass sums, so they run side by side:
+//
+//   ROLE_KIN    kinematics, air data; the sums and the dynamics
+//   ROLE_AERO   aerodynamics: the alpha/beta filters, lift and the moments
+//   ROLE_DRAG   aerodynamics: drag and side force (it owns no state)
+//   ROLE_ENG    engine and fuel
+//   ROLE_PROP   propeller and the mass sum (it owns no state)
+//   ROLE_LEG0+j gear leg j (left, right, nose)
+//
+// The roles that work longest come first, so that with 32 lanes each has a
+// warp scheduler of its SM to itself (warp w issues from scheduler w % 4)
+// and shares it only with a short role. Measured on the card, the engine
+// with the propeller behind it was the longest chain and aero the second,
+// and aero the longest once those two were apart. The engine needs the
+// propeller only for the load on its shaft, so the two are roles of their
+// own and the load joins after the second barrier; aero's table lookups
+// fall into two halves that meet only in the rotation of the force into
+// body axes, which role KIN does with the sums.
+//
+// A role owns the rows of X it integrates (role_row) and holds them in
+// slots 0.. of a T[N_SLOTS] array; what crosses roles goes through the
+// block's scratch in shared memory, [SH_N, L] values laid out like the
+// global buffers, and two barriers per derivative.
+
+constexpr int N_ROLES = 8, MAX_LANES = 64;
+constexpr int ROLE_KIN = 0, ROLE_AERO = 1, ROLE_DRAG = 2, ROLE_ENG = 3,
+              ROLE_PROP = 4, ROLE_LEG0 = 5;
+constexpr int N_SLOTS = N_XKIN + N_XDYN;  // the most rows one role owns
+// slots of ROLE_ENG
+constexpr int PW_FUEL = 0, PW_EFRC = 1, PW_IDLE = 2, PW_OMEGA = 3;
+
+// scratch rows: the KinData and AirData fields the systems read, then each
+// role's wrench (aero's force in stability axes, with the cos/sin of alpha
+// after the other rows), the rotor momentum, the mass properties, the legs'
+// crash flags, and what the engine and the propeller tell each other: the
+// stage's fuel and shaft speed, the propeller's shaft torque
+constexpr int SH_Q_NB = 0, SH_Q_EB = 4, SH_Q_EN = 8, SH_N_E = 12, SH_H_E = 15,
+              SH_H_O = 16, SH_OM_WB = 17, SH_OM_EB = 20, SH_V_EB = 23,
+              SH_V_WB = 26, SH_TK = 29, SH_P = 30, SH_RHO = 31, SH_A = 32,
+              SH_Q = 33, SH_TAS = 34, SH_AERO = 35, SH_LEG = SH_AERO + N_WR,
+              SH_PWP = SH_LEG + N_LEGS * N_WR, SH_HR = SH_PWP + N_WR,
+              SH_MP = SH_HR + N_HR, SH_CRASH = SH_MP + N_MP,
+              SH_XFUEL = SH_CRASH + N_LEGS, SH_XOMEGA = SH_XFUEL + 1,
+              SH_TAU_PX = SH_XOMEGA + 1, SH_CA = SH_TAU_PX + 1,
+              SH_SA = SH_CA + 1, SH_N = SH_SA + 1;                   // 89
+// the megakernel also keeps the step's start state and the k-sum there, each
+// thread the rows of its role: they are touched once per stage, and in
+// registers they would sit beside every role's body for the whole step
+constexpr int SH_X = SH_N, SH_KSUM = SH_X + N_X,
+              SH_MEGA_N = SH_KSUM + N_X;                             // 143
+
+// the block's dynamic shared memory: the parameter buffer (n_params
+// values), then the scratch
+template <typename T>
+__device__ __forceinline__ T* block_shared() {
+  extern __shared__ __align__(16) unsigned char fj_shared[];
+  return reinterpret_cast<T*>(fj_shared);
+}
+
+// grid, threads per block and dynamic shared bytes of a launch of B
+// aircraft at `lanes` per block, for elements of elem_size bytes and a
+// scratch of sh_rows rows
+struct RoleLaunch {
+  int grid, block, shared;
+};
+inline RoleLaunch role_launch(int B, int lanes, int n_params, int elem_size,
+                              int sh_rows) {
+  return {(B + lanes - 1) / lanes, N_ROLES * lanes,
+          (n_params + sh_rows * lanes) * elem_size};
+}
+
+// row of X in slot k of a role, -1 past its rows
+__device__ __forceinline__ int role_row(int role, int k) {
+  if (role == ROLE_KIN) return k;
+  if (role == ROLE_AERO) return k < 2 ? X_SYS + XS_ALPHA + k : -1;
+  if (role == ROLE_ENG)
+    return k == PW_FUEL ? X_SYS + XS_FUEL
+                        : (k <= PW_OMEGA ? X_SYS + XS_EFRC + k - 1 : -1);
+  if (role >= ROLE_LEG0)
+    return k < 2 ? X_SYS + XS_FRC + 2 * (role - ROLE_LEG0) + k : -1;
+  return -1;  // ROLE_DRAG, ROLE_PROP
+}
+
+// a thread of the role layout: its lane and role, the aircraft it carries
+// (the last one again past a ragged edge, so every thread reaches every
+// barrier; `valid` masks the stores)
+struct RoleThread {
+  int L, lane, role, b;
+  bool valid;
+};
+
+__device__ __forceinline__ RoleThread role_thread(int B) {
+  RoleThread t;
+  t.L = blockDim.x / N_ROLES;
+  t.lane = threadIdx.x % t.L;
+  t.role = threadIdx.x / t.L;
+  const int b = blockIdx.x * t.L + t.lane;
+  t.valid = b < B;
+  t.b = t.valid ? b : B - 1;
+  return t;
+}
+
+// copy the parameter buffer into shared memory, all threads of the block,
+// 16 bytes a thread and turn (P is a tensor's first element and sP the
+// start of the block's shared memory, both 16-byte aligned), then the tail;
+// the next barrier publishes it
+struct alignas(16) Bytes16 {
+  unsigned int w[4];
+};
+template <typename T>
+__device__ __forceinline__ void share_params(const T* __restrict__ P,
+                                             int n_params, T* sP) {
+  const int per = int(sizeof(Bytes16) / sizeof(T));
+  const int n16 = n_params / per;
+  const Bytes16* src = reinterpret_cast<const Bytes16*>(P);
+  Bytes16* dst = reinterpret_cast<Bytes16*>(sP);
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = src[i];
+  for (int i = n16 * per + threadIdx.x; i < n_params; i += blockDim.x)
+    sP[i] = P[i];
+}
+
+// a role's slots of rows r.. of column c, 0 in the slots it does not own
+template <typename T>
+__device__ __forceinline__ void load_slots(const Col<T>& c, int r, int role,
+                                           T (&x)[N_SLOTS]) {
+#pragma unroll
+  for (int k = 0; k < N_SLOTS; ++k) {
+    const int row = role_row(role, k);
+    x[k] = T(0);
+    if (row >= 0) x[k] = c(r + row);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_slots(const Out<T>& o, int r, int role,
+                                            const T (&x)[N_SLOTS]) {
+#pragma unroll
+  for (int k = 0; k < N_SLOTS; ++k) {
+    const int row = role_row(role, k);
+    if (row >= 0) o.s(r + row, x[k]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void share_kin_air(const Out<T>& o,
+                                              const Kin<T>& k,
+                                              const Air<T>& a) {
+  o.q4(SH_Q_NB, k.q_nb);
+  o.q4(SH_Q_EB, k.q_eb);
+  o.q4(SH_Q_EN, k.q_en);
+  o.v3(SH_N_E, k.n_e);
+  o.s(SH_H_E, k.h_e);
+  o.s(SH_H_O, k.h_o);
+  o.v3(SH_OM_WB, k.omega_wb_b);
+  o.v3(SH_OM_EB, k.omega_eb_b);
+  o.v3(SH_V_EB, k.v_eb_b);
+  o.v3(SH_V_WB, a.v_wb_b);
+  o.s(SH_TK, a.Tk);
+  o.s(SH_P, a.p);
+  o.s(SH_RHO, a.rho);
+  o.s(SH_A, a.a);
+  o.s(SH_Q, a.q);
+  o.s(SH_TAS, a.TAS);
+}
+
+// the shared fields; every other field NaN, so that a system which came to
+// read one would show it
+template <typename T>
+__device__ __forceinline__ void shared_kin_air(const Col<T>& c, Kin<T>& k,
+                                               Air<T>& a) {
+  const T nan = T(double(NAN));
+  const V3<T> nan3 = {nan, nan, nan};
+  k.e_nb = k.r_eb_e = k.v_eb_n = nan3;
+  k.lat = k.lon = k.v_gnd = k.chi = k.gamma = nan;
+  k.q_nb = c.q4(SH_Q_NB);
+  k.q_eb = c.q4(SH_Q_EB);
+  k.q_en = c.q4(SH_Q_EN);
+  k.n_e = c.v3(SH_N_E);
+  k.h_e = c(SH_H_E);
+  k.h_o = c(SH_H_O);
+  k.omega_wb_b = c.v3(SH_OM_WB);
+  k.omega_eb_b = c.v3(SH_OM_EB);
+  k.v_eb_b = c.v3(SH_V_EB);
+  a.v_ew_n = a.v_ew_b = nan3;
+  a.mu = a.M = a.Tt = a.pt = a.Dp = a.EAS = a.CAS = nan;
+  a.v_wb_b = c.v3(SH_V_WB);
+  a.Tk = c(SH_TK);
+  a.p = c(SH_P);
+  a.rho = c(SH_RHO);
+  a.a = c(SH_A);
+  a.q = c(SH_Q);
+  a.TAS = c(SH_TAS);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_usys(const Col<T>& c, int r,
+                                          T (&u)[N_USYS]) {
+#pragma unroll
+  for (int k = 0; k < N_USYS; ++k) u[k] = c(r + k);
+}
+
+// stage_lane of flightjax/parallel/clusterstep.py:81-85 by roles: the
+// derivative at the stage state xi, every role its own slots of d, zeroed on
+// a terminated lane. P is the parameter buffer (in shared memory), sh the
+// scratch, c the lane's column of the buffer that holds CTX at row r_ctx.
+// Role KIN shares KinData and AirData, role ENG the stage's fuel and shaft
+// speed; barrier; the systems share their wrenches, rotor momentum and mass
+// properties; barrier; role KIN sums them as systems_lane does, (aero +
+// propeller) + ((leg 0 + leg 1) + leg 2), and runs the dynamics, and role
+// ENG puts the propeller's load on its shaft. All threads of the block must
+// call it.
+template <typename T>
+__device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
+                                            const RoleThread& t,
+                                            const T (&xi)[N_SLOTS],
+                                            const Col<T>& c, int r_ctx,
+                                            T (&d)[N_SLOTS]) {
+  const Col<T> si{sh, t.L, t.lane};
+  const Out<T> so{sh, t.L, t.lane};
+  const int role = t.role;
+  const T alive = T(1.0) - c(r_ctx + CX_TERM);
+  // role KIN keeps these from the kinematics to the dynamics
+  XDyn<T> xi_dyn;
+  Q4<T> q_eb;
+  V3<T> r_eb_e;
+  T tau_shaft;  // role ENG keeps it until the propeller's load is known
+  if (role == ROLE_ENG) {
+    so.s(SH_XFUEL, xi[PW_FUEL]);
+    so.s(SH_XOMEGA, xi[PW_OMEGA]);
+  }
+  if (role == ROLE_KIN) {
+    const XKin<T> xi_kin = {{xi[0], xi[1], xi[2], xi[3]},
+                            {xi[4], xi[5], xi[6], xi[7]}, xi[8]};
+    xi_dyn = {{xi[9], xi[10], xi[11]}, {xi[12], xi[13], xi[14]}};
+    XKin<T> kd;
+    Kin<T> kin;
+    Air<T> air;
+    kinair_lane(xi_kin, xi_dyn, c(r_ctx + CX_GEOID),
+                load_atm(c, r_ctx + CX_UATM), alive, kd, kin, air);
+    share_kin_air(so, kin, air);
+    q_eb = kin.q_eb;
+    r_eb_e = kin.r_eb_e;
+    d[0] = kd.q_wb.w, d[1] = kd.q_wb.x, d[2] = kd.q_wb.y, d[3] = kd.q_wb.z;
+    d[4] = kd.q_ew.w, d[5] = kd.q_ew.x, d[6] = kd.q_ew.y, d[7] = kd.q_ew.z;
+    d[8] = kd.h_e;
+  }
+  __syncthreads();
+  if (role != ROLE_KIN) {
+    Kin<T> kin;
+    Air<T> air;
+    shared_kin_air(si, kin, air);
+    T u[N_USYS];
+    load_usys(c, r_ctx + CX_USYS, u);
+    const Act<T> act = actuation(u);
+    if (role == ROLE_AERO) {
+      AeroOut<T> a;
+      aero_parts<AERO_LIFT_MOMENTS>(
+          P, xi[0], xi[1], act, c(r_ctx + CX_SSYS + SS_STALL).v != 0, kin,
+          air, c(r_ctx + CX_TRN + TR_ELEV), a);
+      d[0] = alive * a.alpha_filt_dot;
+      d[1] = alive * a.beta_filt_dot;
+      so.s(SH_AERO + 2, a.f_s.z);
+      so.v3(SH_AERO + 3, a.tau);
+      so.s(SH_CA, a.ca);
+      so.s(SH_SA, a.sa);
+    } else if (role == ROLE_DRAG) {
+      AeroOut<T> a;
+      aero_parts<AERO_DRAG_SIDE>(P, T(0.0), T(0.0), act, false, kin, air,
+                                 c(r_ctx + CX_TRN + TR_ELEV), a);
+      so.s(SH_AERO, a.f_s.x);
+      so.s(SH_AERO + 1, a.f_s.y);
+    } else if (role == ROLE_ENG) {
+      T mdot;
+      engine(P, xi[PW_OMEGA], xi[PW_IDLE], xi[PW_EFRC], act.throttle,
+             act.mixture, u[US_E_MIXCTL],
+             int(c(r_ctx + CX_SSYS + SS_STATE).v), air, tau_shaft,
+             d[PW_IDLE], d[PW_EFRC], mdot);
+      d[PW_FUEL] = alive * (-mdot / P[P_MS + MS_M_USABLE]);
+      d[PW_IDLE] = alive * d[PW_IDLE];
+      d[PW_EFRC] = alive * d[PW_EFRC];
+    } else if (role == ROLE_PROP) {
+      const T gr = P[P_EN + EN_gear_ratio];
+      const PropOut<T> prop = propeller(P, kin, air, gr * si(SH_XOMEGA));
+      T pld[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k) pld[k] = u[US_PLD + k];
+      const MP<T> mp = mass_sum(P, pld, si(SH_XFUEL));
+      so.v3(SH_PWP, prop.F_b);
+      so.v3(SH_PWP + 3, prop.tau_b);
+      so.v3(SH_HR, prop.hr_b);
+      so.s(SH_TAU_PX, prop.tau_px);
+      so.s(SH_MP, mp.m);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) so.s(SH_MP + 1 + 3 * i + j, mp.J.m[i][j]);
+      so.v3(SH_MP + 10, mp.r);
+    } else {
+      // steering on the nose leg, brakes on the mains
+      const int leg = role - ROLE_LEG0;
+      const T zero = T(0.0);
+      const T steering = leg == 2 ? act.steering : zero;
+      const T braking =
+          leg == 0 ? act.brake_left : (leg == 1 ? act.brake_right : zero);
+      const Trn<T> trn = load_trn(c, r_ctx + CX_TRN);
+      V3<T> F, tau;
+      gear_leg(P, leg, xi[0], xi[1], steering, braking, kin, trn.elevation,
+               trn.normal, trn.surface, d[0], d[1], F, tau);
+      d[0] = alive * d[0];
+      d[1] = alive * d[1];
+      so.v3(SH_LEG + N_WR * leg, F);
+      so.v3(SH_LEG + N_WR * leg + 3, tau);
+    }
+  }
+  __syncthreads();
+  if (role == ROLE_KIN) {
+    const V3<T> F_ldg = add(add(si.v3(SH_LEG), si.v3(SH_LEG + N_WR)),
+                            si.v3(SH_LEG + 2 * N_WR));
+    const V3<T> tau_ldg =
+        add(add(si.v3(SH_LEG + 3), si.v3(SH_LEG + N_WR + 3)),
+            si.v3(SH_LEG + 2 * N_WR + 3));
+    const V3<T> F_aero = aero_force(si(SH_CA), si(SH_SA), si.v3(SH_AERO));
+    const V3<T> F_b = add(add(F_aero, si.v3(SH_PWP)), F_ldg);
+    const V3<T> tau_b =
+        add(add(si.v3(SH_AERO + 3), si.v3(SH_PWP + 3)), tau_ldg);
+    MP<T> mp;
+    mp.m = si(SH_MP);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) mp.J.m[i][j] = si(SH_MP + 1 + 3 * i + j);
+    mp.r = si.v3(SH_MP + 10);
+    const XDyn<T> dd = dynamics_lane(xi_dyn, mp, F_b, tau_b, si.v3(SH_HR),
+                                     q_eb, r_eb_e, alive);
+    d[9] = dd.omega_eb_b.x, d[10] = dd.omega_eb_b.y, d[11] = dd.omega_eb_b.z;
+    d[12] = dd.v_eb_b.x, d[13] = dd.v_eb_b.y, d[14] = dd.v_eb_b.z;
+  } else if (role == ROLE_ENG) {
+    d[PW_OMEGA] = alive * engine_omega_dot(
+        P, tau_shaft, P[P_EN + EN_gear_ratio] * si(SH_TAU_PX));
+  }
+}
+
+// what finish_roles leaves with each role: role KIN the residuals, the
+// crash and terminated latches and the undulation, role AERO the stall
+// flag, role ENG the engine state
+template <typename T>
+struct FinishOut {
+  Q4<T> r_q;
+  T r_h, geoid_N, term;
+  SSys s;
+};
+
+// finish_lane of clusterstep.py:97-103 by roles, with the compensated add
+// when `comp` (vehicle_finish above, split as f_ode_roles splits the stage):
+// role KIN combines and renormalises the kinematics and shares the new
+// KinData and AirData, the other roles combine their own slots; barrier; the
+// legs run their struts (regulator reset off the ground, crash flag), role
+// AERO the stall hysteresis, role ENG the engine state machine, and role KIN
+// meanwhile the undulation under the new position from the grid G;
+// barrier; role KIN latches crashed and terminated. x and ksum are the
+// role's slots, c the lane's column of the buffer holding CTX at r_ctx and
+// the residuals at r_c. All threads of the block must call it.
+template <typename T>
+__device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
+                                             const RoleThread& t,
+                                             const T (&x)[N_SLOTS],
+                                             const T (&ksum)[N_SLOTS], T c6,
+                                             bool comp, const Col<T>& c,
+                                             int r_ctx, int r_c,
+                                             T (&xn)[N_SLOTS],
+                                             FinishOut<T>& o) {
+  const Col<T> si{sh, t.L, t.lane};
+  const Out<T> so{sh, t.L, t.lane};
+  const int role = t.role;
+  V3<T> n_e;  // role KIN keeps the new position for the undulation
+  if (role == ROLE_KIN) {
+    const XKin<T> xk = {{x[0], x[1], x[2], x[3]}, {x[4], x[5], x[6], x[7]},
+                        x[8]};
+    const XDyn<T> xd = {{x[9], x[10], x[11]}, {x[12], x[13], x[14]}};
+    const XKin<T> kk = {{ksum[0], ksum[1], ksum[2], ksum[3]},
+                        {ksum[4], ksum[5], ksum[6], ksum[7]}, ksum[8]};
+    const XDyn<T> kd = {{ksum[9], ksum[10], ksum[11]},
+                        {ksum[12], ksum[13], ksum[14]}};
+    o.r_q = c.q4(r_c);
+    o.r_h = c(r_c + 4);
+    XKin<T> yk;
+    XDyn<T> yd;
+    Kin<T> kin;
+    Air<T> air;
+    finish_kin_lane(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h,
+                    c(r_ctx + CX_GEOID), load_atm(c, r_ctx + CX_UATM), yk, yd,
+                    kin, air);
+    share_kin_air(so, kin, air);
+    xn[0] = yk.q_wb.w, xn[1] = yk.q_wb.x, xn[2] = yk.q_wb.y, xn[3] = yk.q_wb.z;
+    xn[4] = yk.q_ew.w, xn[5] = yk.q_ew.x, xn[6] = yk.q_ew.y, xn[7] = yk.q_ew.z;
+    xn[8] = yk.h_e;
+    xn[9] = yd.omega_eb_b.x, xn[10] = yd.omega_eb_b.y;
+    xn[11] = yd.omega_eb_b.z;
+    xn[12] = yd.v_eb_b.x, xn[13] = yd.v_eb_b.y, xn[14] = yd.v_eb_b.z;
+    n_e = kin.n_e;
+  } else {
+#pragma unroll
+    for (int k = 0; k <= PW_OMEGA; ++k) xn[k] = x[k] + c6 * ksum[k];
+  }
+  __syncthreads();
+  if (role == ROLE_KIN) {
+    o.geoid_N = geoid_height(G, n_e);
+  } else {
+    Kin<T> kin;
+    Air<T> air;
+    shared_kin_air(si, kin, air);
+    if (role == ROLE_AERO) {
+      T alpha, beta;
+      V3<T> v_safe;
+      alpha_gated(air, alpha, beta, v_safe);
+      o.s.stall = alpha > P[P_AE + AE_stall_hi] ||
+                  (c(r_ctx + CX_SSYS + SS_STALL).v != 0 &&
+                   alpha >= P[P_AE + AE_stall_lo]);
+    } else if (role == ROLE_ENG) {
+      const T* M = P + P_MS;
+      const bool fuel_available =
+          fuel_m_total(M, xn[PW_FUEL]) - M[MS_M_RES] > T(0);
+      o.s.state = engine_step(
+          P, int(c(r_ctx + CX_SSYS + SS_STATE).v), xn[PW_OMEGA],
+          c(r_ctx + CX_USYS + US_E_START).v != 0,
+          c(r_ctx + CX_USYS + US_E_STOP).v != 0, fuel_available);
+    } else if (role >= ROLE_LEG0) {
+      const int leg = role - ROLE_LEG0;
+      T u[N_USYS];
+      load_usys(c, r_ctx + CX_USYS, u);
+      const T steering = leg == 2 ? actuation(u).steering : T(0.0);
+      const Trn<T> trn = load_trn(c, r_ctx + CX_TRN);
+      const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steering, kin,
+                                  trn.elevation, trn.normal);
+      if (!st.wow) xn[0] = xn[1] = T(0.0);
+      const bool crash = (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
+                         -st.xi_dot > T(XI_DOT_MAX);
+      so.s(SH_CRASH + leg, T(crash ? 1.0 : 0.0));
+    }
+  }
+  __syncthreads();
+  if (role == ROLE_KIN) {
+    o.s.crashed = c(r_ctx + CX_SSYS + SS_CRASHED).v != 0 ||
+                  si(SH_CRASH).v != 0 || si(SH_CRASH + 1).v != 0 ||
+                  si(SH_CRASH + 2).v != 0;
+    o.term = T(c(r_ctx + CX_TERM).v != 0 || o.s.crashed ? 1.0 : 0.0);
+  }
 }
 
 }  // namespace fj

@@ -12,6 +12,15 @@
 // functions, built with the same default flags, that PyTorch's CUDA ops
 // call. Kernel and plain then agree to a few ulp.
 //
+// Code size is a cost of its own in the kernels whose warps run different
+// code (rk4_stage, megakernel: one warp per subsystem): measured on the
+// H100, they are slower with the table lookup inlined at its twenty call
+// sites than with one copy of it (PERF.md). So what is long and called many
+// times is one real function (`__noinline__`): the table lookup and the math
+// library wrappers. The short vector and quaternion helpers stay inline, and
+// so do the functions that take KinData or AirData, which would travel
+// through the stack and measured slower.
+//
 // The kernels read and write batch-minor buffers: field row r of lane b
 // lives at buf[r * B + b]. The row maps below are the C++ half of the
 // column maps in flightjax_torch/parallel/kernels.py.
@@ -119,22 +128,22 @@ __device__ __forceinline__ SF Sqrt(SF x) { return SF::of(sqrtf(x.v)); }
 __device__ __forceinline__ SD Sqrt(SD x) { return SD::of(sqrt(x.v)); }
 __device__ __forceinline__ SF Rsqrt(SF x) { return SF::of(rsqrtf(x.v)); }
 __device__ __forceinline__ SD Rsqrt(SD x) { return SD::of(rsqrt(x.v)); }
-__device__ __forceinline__ SF Atan2(SF y, SF x) { return SF::of(atan2f(y.v, x.v)); }
-__device__ __forceinline__ SD Atan2(SD y, SD x) { return SD::of(atan2(y.v, x.v)); }
-__device__ __forceinline__ SF Asin(SF x) { return SF::of(asinf(x.v)); }
-__device__ __forceinline__ SD Asin(SD x) { return SD::of(asin(x.v)); }
-__device__ __forceinline__ SF Pow(SF x, SF y) { return SF::of(powf(x.v, y.v)); }
-__device__ __forceinline__ SD Pow(SD x, SD y) { return SD::of(pow(x.v, y.v)); }
-__device__ __forceinline__ SF Exp(SF x) { return SF::of(expf(x.v)); }
-__device__ __forceinline__ SD Exp(SD x) { return SD::of(exp(x.v)); }
+static __device__ __noinline__ SF Atan2(SF y, SF x) { return SF::of(atan2f(y.v, x.v)); }
+static __device__ __noinline__ SD Atan2(SD y, SD x) { return SD::of(atan2(y.v, x.v)); }
+static __device__ __noinline__ SF Asin(SF x) { return SF::of(asinf(x.v)); }
+static __device__ __noinline__ SD Asin(SD x) { return SD::of(asin(x.v)); }
+static __device__ __noinline__ SF Pow(SF x, SF y) { return SF::of(powf(x.v, y.v)); }
+static __device__ __noinline__ SD Pow(SD x, SD y) { return SD::of(pow(x.v, y.v)); }
+static __device__ __noinline__ SF Exp(SF x) { return SF::of(expf(x.v)); }
+static __device__ __noinline__ SD Exp(SD x) { return SD::of(exp(x.v)); }
 __device__ __forceinline__ SF Abs(SF x) { return SF::of(fabsf(x.v)); }
 __device__ __forceinline__ SD Abs(SD x) { return SD::of(fabs(x.v)); }
-__device__ __forceinline__ SF Acos(SF x) { return SF::of(acosf(x.v)); }
-__device__ __forceinline__ SD Acos(SD x) { return SD::of(acos(x.v)); }
-__device__ __forceinline__ SF Cos(SF x) { return SF::of(cosf(x.v)); }
-__device__ __forceinline__ SD Cos(SD x) { return SD::of(cos(x.v)); }
-__device__ __forceinline__ SF Sin(SF x) { return SF::of(sinf(x.v)); }
-__device__ __forceinline__ SD Sin(SD x) { return SD::of(sin(x.v)); }
+static __device__ __noinline__ SF Acos(SF x) { return SF::of(acosf(x.v)); }
+static __device__ __noinline__ SD Acos(SD x) { return SD::of(acos(x.v)); }
+static __device__ __noinline__ SF Cos(SF x) { return SF::of(cosf(x.v)); }
+static __device__ __noinline__ SD Cos(SD x) { return SD::of(cos(x.v)); }
+static __device__ __noinline__ SF Sin(SF x) { return SF::of(sinf(x.v)); }
+static __device__ __noinline__ SD Sin(SD x) { return SD::of(sin(x.v)); }
 __device__ __forceinline__ SF Floor(SF x) { return SF::of(floorf(x.v)); }
 __device__ __forceinline__ SD Floor(SD x) { return SD::of(floor(x.v)); }
 __device__ __forceinline__ SF Fmod(SF x, SF y) { return SF::of(fmodf(x.v, y.v)); }
@@ -320,9 +329,13 @@ __device__ __forceinline__ Q4<T> matrix_to_quat(V3<T> c0_, V3<T> c1_,
   const T c[4] = {T(1) + tr, T(1) + T(2) * R00 - tr, T(1) + T(2) * R11 - tr,
                   T(1) + T(2) * R22 - tr};
   int im = 0;
+  T cm = c[0];  // the largest so far, so that no index is a run-time one
 #pragma unroll
   for (int k = 1; k < 4; ++k)
-    if (c[k] > c[im]) im = k;
+    if (c[k] > cm) {
+      cm = c[k];
+      im = k;
+    }
   Q4<T> v;
   if (im == 0)
     v = {c[0], R21 - R12, R02 - R20, R10 - R01};
@@ -349,27 +362,53 @@ __device__ __forceinline__ void airflow_angles(V3<T> v, T& alpha, T& beta) {
 
 // Multilinear lookup on a rectilinear grid (the corner-gather path of
 // ops/interp.py::Lookup) over a table encoded by parallel/kernels.py::
-// encode_table: t[0] = number of axes (<= 3), t[1] = outputs per knot, then
-// per axis (n, line extrapolation?, uniform?, x0, dx), then each axis's
-// knots, then the values in C order (axis 0 slowest, outputs fastest).
-// Axes of one knot are ignored; 'flat' axes clamp the cell weight to
-// [0, 1], 'line' axes let it run past the edge cells.
+// encode_table: t[0] = number of axes, t[1] = outputs per knot, then per
+// axis (n, line extrapolation?, uniform?, x0, dx), then each axis's knots,
+// then the values in C order (axis 0 slowest, outputs fastest). Axes of one
+// knot are ignored; 'flat' axes clamp the cell weight to [0, 1], 'line'
+// axes let it run past the edge cells.
+//
+// The number of axes D is known at compile time (it must equal t[0];
+// kernels.py::TABLE_RANKS states it per table; the query is x0..x2, of which
+// the first D count),
+// so every loop over axes and corners unrolls, the per-axis sizes, cell
+// indices, strides and weights stay in registers, and the header reads do
+// not depend on the query. The axis kind (uniform or searched, flat or
+// line) is data and is read from the header. Cell, weights and the order
+// of the corner sum (corner c takes the upper knot of axis a where bit a
+// of c is set; c ascending) are those of the plain Lookup. One function per
+// rank, not inlined: a stage calls it about twenty times. Query and result
+// travel by value, in registers and not through the stack.
 template <typename T, int NOUT>
-__device__ __forceinline__ void lookup(const T* t, const T* x, T (&out)[NOUT]) {
-  const int d = int(t[0].v);
-  int n[3], idx[3], stride[3];
-  T w[3];
+struct LookupOut {
+  T v[NOUT];
+};
+
+template <typename T, int D, int NOUT>
+__device__ __noinline__ LookupOut<T, NOUT> lookup(const T* t, T x0, T x1,
+                                                  T x2) {
+  const T x[3] = {x0, x1, x2};
+  LookupOut<T, NOUT> out;
+  int n[D], idx[D], stride[D], first_knot[D];
+  T w[D];
   int s = NOUT, n_knots = 0;
-  for (int a = d - 1; a >= 0; --a) {
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
     n[a] = int(t[2 + 5 * a].v);
-    stride[a] = s;
-    s *= n[a];
+    first_knot[a] = n_knots;
     n_knots += n[a];
   }
-  const T* kn = t + 2 + 5 * d;
-  const T* vals = kn + n_knots;
-  for (int a = 0; a < d; ++a) {
+#pragma unroll
+  for (int a = D - 1; a >= 0; --a) {
+    stride[a] = s;
+    s *= n[a];
+  }
+  const T* knots = t + 2 + 5 * D;
+  const T* vals = knots + n_knots;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
     const T* h = t + 2 + 5 * a;
+    const T* kn = knots + first_knot[a];
     const int na = n[a];
     idx[a] = 0;
     w[a] = T(0);
@@ -380,9 +419,15 @@ __device__ __forceinline__ void lookup(const T* t, const T* x, T (&out)[NOUT]) {
         const T f = Floor((x[a] - h[3]) / h[4]);
         i = f >= T(double(na - 2)) ? na - 2 : (f >= T(0) ? int(f.v) : 0);
         wa = (x[a] - h[3]) / h[4] - T(double(i));
-      } else {  // searchsorted(right=True) - 1
-        int cnt = 0;
-        for (int j = 0; j < na; ++j) cnt += kn[j] <= x[a] ? 1 : 0;
+      } else {  // searchsorted(right=True) - 1: the knots ascend, bisect
+        int cnt = 0, hi = na;  // cnt: how many knots are <= x
+        while (cnt < hi) {
+          const int mid = (cnt + hi) >> 1;
+          if (kn[mid] <= x[a])
+            cnt = mid + 1;
+          else
+            hi = mid;
+        }
         i = min(max(cnt - 1, 0), na - 2);
         wa = (x[a] - kn[i]) / (kn[i + 1] - kn[i]);
       }
@@ -390,33 +435,30 @@ __device__ __forceinline__ void lookup(const T* t, const T* x, T (&out)[NOUT]) {
       idx[a] = i;
       w[a] = wa;
     }
-    kn += na;
   }
-  bool first = true;
-  for (int c = 0; c < (1 << d); ++c) {
+#pragma unroll
+  for (int c = 0; c < (1 << D); ++c) {
     T wt = T(1.0);
     int off = 0;
     bool skip = false;
-    for (int a = 0; a < d; ++a) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
       const int hi = (c >> a) & 1;
       if (n[a] == 1) {
-        if (hi) {
-          skip = true;
-          break;
-        }
-        continue;
+        skip = skip || hi;
+      } else {
+        off += (idx[a] + hi) * stride[a];
+        wt = wt * (hi ? w[a] : T(1.0) - w[a]);
       }
-      off += (idx[a] + hi) * stride[a];
-      wt = wt * (hi ? w[a] : T(1.0) - w[a]);
     }
-    if (skip) continue;
+    if (skip) continue;  // never corner 0, which so starts every sum
 #pragma unroll
     for (int j = 0; j < NOUT; ++j) {
       const T v = vals[off + j] * wt;
-      out[j] = first ? v : out[j] + v;
+      out.v[j] = c == 0 ? v : out.v[j] + v;
     }
-    first = false;
   }
+  return out;
 }
 
 // ------------------------------------------------------------- geodesy

@@ -6,53 +6,86 @@
 // Replaces the TPU kernel `rk4_stage` of flightjax/parallel/clusterstep.py
 // (lane function `stage_lane`, clusterstep.py:81-93, built through
 // pallas_block), the stage kernel of the split="vehicle" path. One launch
-// does what kinair -> systems -> dynamics do in three, with the KinData,
-// AirData, mass properties and wrench kept in registers instead of
-// round-tripping through global memory. Plain PyTorch version:
-// flightjax_torch/parallel/kernels.py::rk4_stage_plain.
+// does what kinair -> systems -> dynamics do in three. Plain PyTorch
+// version: flightjax_torch/parallel/kernels.py::rk4_stage_plain.
 //
-// What bounds it on the H100: one thread per aircraft; 63 input rows, 27
-// k_prev rows and 27 output rows per lane (1.9 MB in float32 at B = 4096),
-// so HBM takes ~0.6 us. The systems body (~20 table lookups, three gear
-// legs) holds 100+ registers, and 4096 threads in 128-thread blocks fill 32
-// of the 132 SMs: it is bound by latency and occupancy, not by bandwidth or
-// FLOPs. PERF.md records ptxas's registers and the times on the card.
+// What bounds it on the H100: neither bytes (63 input, 27 k_prev and 27
+// output rows per lane, 1.9 MB in float32 at B = 4096, ~0.6 us of HBM) nor
+// operations (~4,800 per lane). With one thread per aircraft the time was
+// that of one warp walking the whole chain kinematics -> air data -> aero ->
+// three legs -> propeller -> engine -> mass -> dynamics, whatever the block
+// size: IEEE divisions, square roots, library calls and about twenty table
+// lookups that indexed their per-axis arrays through local memory.
+//
+// What the design does about it: several threads carry one aircraft, one
+// warp per subsystem (the roles of c172_systems.cuh). A block of `lanes`
+// aircraft runs N_ROLES x lanes threads; the chain is kinematics + air data
+// -> the longest subsystem -> dynamics instead of all of them in a row, and
+// eight times as many warps are resident. KinData, AirData, the wrenches and
+// the mass properties cross roles through shared memory, two barriers per
+// launch; the sums are formed in the one-thread order, so the result is
+// bit-identical to it. The parameter buffer with its tables is copied into
+// shared memory once per block; the table lookup knows its rank at compile
+// time and is one function, not twenty inlined copies: the warps of a block
+// run different code here, and code size showed in the time
+// (flight_math.cuh::lookup). A gear leg skips its strut where no lane of its
+// warp has a wheel on the ground (c172_systems.cuh::strut_y). A ragged last
+// block masks its stores; no thread leaves before the barriers. PERF.md records ptxas's registers and the
+// times on the card.
 #include "c172_systems.cuh"
 
 using namespace fj;
 
 template <typename T>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     rk4_stage_kernel(const T* __restrict__ in, const T* __restrict__ k,
                      const T* __restrict__ P, T* __restrict__ out, int B,
-                     T adt) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Col<T> c{in, B, b};
-  const Ctx<T> ctx = load_ctx(c, N_X);
-  const XVeh<T> xi = axpy(load_x(c, 0), adt, load_x(Col<T>{k, B, b}, 0));
-  store_x(Out<T>{out, B, b}, 0, vehicle_f_ode(P, xi, ctx));
+                     int n_params, T adt) {
+  T* sP = block_shared<T>();
+  share_params(P, n_params, sP);  // published by the stage's first barrier
+  const RoleThread t = role_thread(B);
+  const Col<T> c{in, B, t.b};
+  T x[N_SLOTS], kp[N_SLOTS], xi[N_SLOTS], d[N_SLOTS];
+  load_slots(c, 0, t.role, x);
+  load_slots(Col<T>{k, B, t.b}, 0, t.role, kp);
+#pragma unroll
+  for (int s = 0; s < N_SLOTS; ++s) {
+    xi[s] = x[s] + adt * kp[s];
+    d[s] = T(0);
+  }
+  f_ode_roles(sP, sP + n_params, t, xi, c, N_X, d);
+  if (t.valid) store_slots(Out<T>{out, B, t.b}, 0, t.role, d);
 }
 
 template <typename T>
 static int launch(const void* in, const void* k, const void* params,
-                  void* out, int B, double adt, int block, void* stream) {
+                  void* out, int B, int n_params, double adt, int lanes,
+                  void* stream) {
   if (B <= 0) return 0;
-  if (block <= 0 || block > 128) return (int)cudaErrorInvalidValue;
-  const int grid = (B + block - 1) / block;
-  rk4_stage_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (const T*)k, (const T*)params, (T*)out, B, T(adt));
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, n_params, (int)sizeof(T), SH_N);
+  // the attribute belongs to the device in use, so every launch sets it
+  const cudaError_t err = cudaFuncSetAttribute(
+      rk4_stage_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      l.shared);
+  if (err != cudaSuccess) return (int)err;
+  rk4_stage_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
+      (const T*)in, (const T*)k, (const T*)params, (T*)out, B, n_params,
+      T(adt));
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 int rk4_stage_f32(const void* in, const void* k, const void* params,
-                  void* out, int B, double adt, int block, void* stream) {
-  return launch<SF>(in, k, params, out, B, adt, block, stream);
+                  void* out, int B, int n_params, double adt, int lanes,
+                  void* stream) {
+  return launch<SF>(in, k, params, out, B, n_params, adt, lanes, stream);
 }
 int rk4_stage_f64(const void* in, const void* k, const void* params,
-                  void* out, int B, double adt, int block, void* stream) {
-  return launch<SD>(in, k, params, out, B, adt, block, stream);
+                  void* out, int B, int n_params, double adt, int lanes,
+                  void* stream) {
+  return launch<SD>(in, k, params, out, B, n_params, adt, lanes, stream);
 }
 void rk4_stage_layout(int* n_in, int* n_out) {
   *n_in = STAGE_N_IN;
@@ -64,5 +97,15 @@ void vehicle_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_ctx = N_CTX;
   *n_c = N_C;
   *n_mega = MEGA_N_ROWS;
+}
+// the launch of a role kernel (rk4_stage, or with `mega` the megakernel)
+// for B aircraft
+void role_launch_shape(int B, int lanes, int n_params, int elem_size,
+                       int mega, int* grid, int* block, int* shared) {
+  const RoleLaunch l = role_launch(B, lanes, n_params, elem_size,
+                                   mega ? SH_MEGA_N : SH_N);
+  *grid = l.grid;
+  *block = l.block;
+  *shared = l.shared;
 }
 }

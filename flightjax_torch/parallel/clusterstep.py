@@ -110,12 +110,15 @@ def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
                     c=state.c)
 
 
-def make_cluster_step(sim, state, ctx=(), block=128, split="vehicle"):
+def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
     """`step(state, *, i)` advancing a batch-leading SimState like `state`
     by one step, `i` being its (host) step counter: `split="vehicle"` the
     whole-vehicle kernels, `"subsystems"` the five cluster kernels
-    (`Simulation.fleet_step`). `block` is the vehicle kernels' threads per
-    block (at most 128); the cluster kernels run at `launch.BLOCK`."""
+    (`Simulation.fleet_step`). `block` sizes the vehicle kernels' blocks
+    (default: each kernel's own, `launch.LANES` and `launch.BLOCK`): for
+    `rk4_stage`, which carries each aircraft in several threads, it is the
+    aircraft per block, 32 or 64; for `rk4_finish` and `geoid` the threads
+    per block, at most 128. The cluster kernels run at `launch.BLOCK`."""
     if ctx != ():
         raise NotImplementedError("avionics (f_periodic) are not ported")
     vehicle = sim.system.aircraft.vehicle

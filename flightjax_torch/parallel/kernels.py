@@ -219,6 +219,11 @@ TABLES = ("CD_df", "CD_ge", "CD_alpha_df", "CY_beta_df", "CY_p", "CY_r",
           "CL_ge", "CL_alpha", "CL_df", "Cl_r", "Cm_df", "delta_wot",
           "mu_wot", "pi_std", "pi_wot", "pi_ratio", "sfc_ratio", "sfc_pow",
           "prop")
+# the axes of each table, which the kernels' lookups know at compile time
+# (the length of each query in csrc/c172_systems.cuh); `system_params`
+# holds the model's tables to it
+TABLE_RANKS = dict(zip(TABLES, (1, 1, 2, 2, 2, 2, 1, 2, 1, 2, 1, 2, 2, 2, 2,
+                                1, 1, 2, 3)))
 
 
 def _pi(p):
@@ -299,6 +304,10 @@ def system_params(vehicle):
     if buf is None:
         head = [v for vs in param_scalars(vehicle).values() for v in vs]
         tables = list(param_tables(vehicle).values())
+        for name, lk in zip(TABLES, tables):
+            if len(lk.axes) != TABLE_RANKS[name]:
+                raise ValueError(f"table {name} has {len(lk.axes)} axes, "
+                                 f"the kernels read {TABLE_RANKS[name]}")
         offsets, body = [], []
         base = len(head) + len(tables)
         for lk in tables:
@@ -703,8 +712,9 @@ def rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
 def rk4_stage_packed(vehicle, buf, k, adt, block=None):
     """One RK4 stage on packed buffers: `buf` holds X; CTX
     (`rows(STAGE_IN)` rows), `k` the previous stage's derivative; returns
-    the stage derivative (`rows(STAGE_OUT)` rows). The kernel on the card,
-    the plain stage between unpack and pack on the CPU."""
+    the stage derivative (`rows(STAGE_OUT)` rows). The kernel on the card
+    (`block`: aircraft per block, 32 or 64), the plain stage between unpack
+    and pack on the CPU."""
     if buf.device.type != "cpu":
         return launch_kernel("rk4_stage", buf, rows(STAGE_OUT),
                              (float(adt),),
@@ -747,7 +757,8 @@ def geoid_packed(geo, q_rows, block=None):
 
 def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None):
     """One launch of the whole-step kernel on the resident (state, i)
-    buffers of `parallel/megakernel.py`; returns the new buffers."""
+    buffers of `parallel/megakernel.py`; returns the new buffers. `block`
+    is the aircraft per block, 32 or 64."""
     out = L.launch_megakernel(bufs[0], bufs[1], system_params(vehicle),
                               geoid_grid(vehicle.geoid), dt, t_start, comp,
                               block)

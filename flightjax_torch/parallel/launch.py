@@ -31,9 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
-# threads per block; 4096 aircraft in 128-thread blocks occupy 32 of the
-# H100's 132 SMs (see csrc/*.cu headers and PERF.md)
+# threads per block of the kernels that carry one aircraft per thread; 4096
+# aircraft in 128-thread blocks occupy 32 of the H100's 132 SMs
 BLOCK = 128
+# aircraft (lanes) per block of the role kernels, which carry one aircraft
+# in several threads, one warp per subsystem (csrc/c172_systems.cuh): a
+# multiple of 32 up to 64. At 32, 4096 aircraft are 128 blocks of eight warps,
+# one block on each of 128 SMs (see csrc/rk4_stage.cu and PERF.md)
+LANES = 32
+ROLE_KERNELS = ("rk4_stage", "megakernel")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -140,15 +146,19 @@ def library():
                    "finish_kin": [P, P, I, D, I, I, P],
                    "systems": [P, P, P, I, D, I, P],
                    "finish_sys": [P, P, P, I, D, I, P],
-                   "rk4_stage": [P, P, P, P, I, D, I, P],
+                   "rk4_stage": [P, P, P, P, I, I, D, I, P],
                    "rk4_finish": [P, P, P, P, I, D, I, I, P],
                    "geoid": [P, P, P, I, I, P],
-                   "megakernel": [P, P, P, P, P, P, I, D, D, I, I, P]}
+                   "megakernel": [P, P, P, P, P, P, I, I, D, D, I, I, P]}
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
                     f.argtypes = argtypes
                     f.restype = I
+            lib.role_launch_shape.argtypes = [I] * 5 + [ctypes.POINTER(I)] * 3
+            lib.role_launch_shape.restype = None
+            lib.empty_launch.argtypes = [I, I, I, P]
+            lib.empty_launch.restype = I
             BUILD_INFO["so"] = so
             BUILD_INFO["log"] = so[:-3] + ".log"
             _LIB = lib
@@ -206,6 +216,8 @@ def check_params(params, dtype, device):
                          f", the head alone has {n_head}")
     if not params.is_contiguous():
         raise ValueError("kernel parameters must be contiguous")
+    if params.data_ptr() % 16:  # the role kernels copy them 16 bytes a turn
+        raise ValueError("kernel parameters must be 16-byte aligned")
 
 
 def check_grid(grid, dtype, device):
@@ -233,10 +245,32 @@ def _fn(name, dtype, device):
 
 
 def _run(name, fn, args, block):
+    """`block`: threads per block, or for the ROLE_KERNELS aircraft per
+    block; None takes BLOCK or LANES."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, BLOCK if block is None else int(block), stream)
+    if block is None:
+        block = LANES if name in ROLE_KERNELS else BLOCK
+    err = fn(*args, int(block), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def role_launch_shape(name, B, lanes, n_params, elem_size):
+    """(grid, threads per block, dynamic shared bytes) of the launch of
+    role kernel `name` for B aircraft at `lanes` per block."""
+    v = [ctypes.c_int() for _ in range(3)]
+    library().role_launch_shape(B, lanes, n_params, elem_size,
+                                int(name == "megakernel"),
+                                *map(ctypes.byref, v))
+    return tuple(i.value for i in v)
+
+
+def launch_empty(grid, block, shared):
+    """Launch the kernel that does nothing, on the current stream."""
+    err = library().empty_launch(grid, block, shared,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
@@ -270,6 +304,8 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
         check_grid(grid, dtype, device)
         ptrs.append(grid.data_ptr())
     out = torch.empty((n_out, B), dtype=dtype, device=device)
+    if name in ROLE_KERNELS:  # they copy the parameters into shared memory
+        scalars = (params.numel(), *scalars)
     _run(name, fn, (*ptrs, out.data_ptr(), B, *scalars), block)
     return out
 
@@ -277,7 +313,8 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
 def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
-    new (state, i) in fresh buffers. Does not synchronise."""
+    new (state, i) in fresh buffers. `block` is the aircraft per block.
+    Does not synchronise."""
     dtype, device = state.dtype, state.device
     fn = _fn("megakernel", dtype, device)
     B = state.shape[1]
@@ -288,6 +325,7 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None):
     out, i_out = torch.empty_like(state), torch.empty_like(i)
     _run("megakernel", fn, (state.data_ptr(), i.data_ptr(),
                             params.data_ptr(), grid.data_ptr(),
-                            out.data_ptr(), i_out.data_ptr(), B, float(dt),
+                            out.data_ptr(), i_out.data_ptr(), B,
+                            params.numel(), float(dt),
                             float(t_start), int(bool(comp))), block)
     return out, i_out

@@ -33,13 +33,15 @@ def megakernel_step_plain(sim, state: SimState) -> SimState:
     return cluster_step(sim, state, 0, plain=True, geoid_every=1)
 
 
-def make_megakernel_step(sim, state, ctx=(), block=128):
+def make_megakernel_step(sim, state, ctx=(), block=None):
     """`(bufs0, step_packed, unpack)` for a batch-leading SimState like
     `state`: `bufs0` its resident buffers (state, i), `step_packed(bufs)`
     one step (one kernel launch on the card; unpack -> plain -> pack on the
     CPU) returning new buffers, `unpack(bufs)` the SimState. `block` is the
-    threads per block, at most 128. The step compensates iff `state.c` is
-    set, as `Simulation.step` does."""
+    aircraft per block, 32 or 64 (default `launch.LANES`): the kernel
+    carries each aircraft in several threads, one warp per subsystem, so a
+    block has eight times as many threads. The step compensates iff
+    `state.c` is set, as `Simulation.step` does."""
     if ctx != ():
         raise NotImplementedError("avionics (f_periodic) are not ported")
     vehicle = sim.system.aircraft.vehicle

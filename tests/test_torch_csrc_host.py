@@ -1,13 +1,20 @@
-"""The CUDA kernels of flightjax_torch compiled as host C++ and run lane by
-lane on the CPU, against their plain PyTorch versions in float64 (tolerance
-1e-12 relative to max(1, |plain|)).
+"""The CUDA kernels of flightjax_torch compiled as host C++ and run on the
+CPU, against their plain PyTorch versions in float64 (tolerance 1e-12
+relative to max(1, |plain|)).
 
 A stand-in `cuda_runtime.h` maps the CUDA qualifiers, the thread indices
 and the `_rn` intrinsics onto plain C++ (no FMA contraction); each kernel
-source is cut before its launch code, which only nvcc reads. So the
-kernels' arithmetic, row maps and parameter buffer are checked here, where
-there is no card; `tests/test_torch_cuda.py` checks the compiled kernels on
-one. Skips without a host C++ compiler."""
+source is cut before its launch code, which only nvcc reads. The kernels
+that carry one aircraft per thread run lane by lane, as blocks of one
+thread. The role kernels (rk4_stage, megakernel), which carry one aircraft
+in several threads that meet at barriers, run block by block with one host
+thread per CUDA thread: `__syncthreads()` is a pthread barrier and the
+block's shared memory one static buffer. A warp vote sees a warp of one
+lane, so a gear leg skips its strut exactly on the airborne lanes; whole
+warps vote in `tests/test_torch_cuda.py`. So the
+kernels' arithmetic, row maps, parameter buffer, role layout and barriers
+are checked here, where there is no card; `tests/test_torch_cuda.py` checks
+the compiled kernels on one. Skips without a host C++ compiler."""
 
 import ctypes
 import os
@@ -40,10 +47,24 @@ CUDA_RUNTIME_STANDIN = r"""
 #define __host__
 #define __global__
 #define __forceinline__ inline
+#define __noinline__
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
+#define __shared__
+#define __align__(n) __attribute__((aligned(n)))
+#include <pthread.h>
+#include <thread>
+#include <vector>
 struct Dim { int x; };
-static Dim blockIdx, blockDim, threadIdx;
+static Dim blockIdx, blockDim;
+static thread_local Dim threadIdx;
+static pthread_barrier_t block_barrier;
+static inline void __syncthreads() { pthread_barrier_wait(&block_barrier); }
+// a vote among the threads of a warp sees a warp of one lane
+static inline unsigned __activemask() { return 1u; }
+static inline int __any_sync(unsigned, bool p) { return p; }
+// the dynamic shared memory of the block that is running
+namespace fj { alignas(16) unsigned char fj_shared[1 << 18]; }
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 static inline int cudaGetLastError() { return 0; }
@@ -68,6 +89,18 @@ LANE_LOOPS = r"""
     blockIdx.x = b; blockDim.x = 1; threadIdx.x = 0;                 \
     k_##name::name##_kernel<SD>(__VA_ARGS__);                        \
   }
+// one block after the other, a host thread for each of its threads
+#define BLOCKS(lanes, call)                                          \
+  blockDim.x = fj::N_ROLES * (lanes);                                \
+  pthread_barrier_init(&block_barrier, nullptr, blockDim.x);         \
+  for (int g = 0; g < (B + (lanes) - 1) / (lanes); ++g) {            \
+    blockIdx.x = g;                                                  \
+    std::vector<std::thread> threads;                                \
+    for (int i = 0; i < blockDim.x; ++i)                             \
+      threads.emplace_back([=] { threadIdx.x = i; call; });          \
+    for (auto& th : threads) th.join();                              \
+  }                                                                  \
+  pthread_barrier_destroy(&block_barrier);
 using fj::SD;
 extern "C" {
 void host_kinair(const double* in, const double* p, double* out, int B,
@@ -90,10 +123,14 @@ void host_finish_sys(const double* in, const double* p, double* out, int B,
                      double c6, int) {
   LANES(finish_sys, (const SD*)in, (const SD*)p, (SD*)out, B, SD(c6))
 }
+int host_role_row(int role, int k) { return fj::role_row(role, k); }
+int host_n_roles() { return fj::N_ROLES; }
+int host_n_slots() { return fj::N_SLOTS; }
 void host_rk4_stage(const double* in, const double* k, const double* p,
-                    double* out, int B, double adt, int) {
-  LANES(rk4_stage, (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B,
-        SD(adt))
+                    double* out, int B, int n_params, double adt, int lanes) {
+  BLOCKS(lanes, k_rk4_stage::rk4_stage_kernel<SD>(
+      (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, n_params,
+      SD(adt)))
 }
 void host_rk4_finish(const double* in, const double* k, const double* p,
                      double* out, int B, double c6, int comp) {
@@ -106,9 +143,11 @@ void host_geoid(const double* in, const double*, const double* grid,
 }
 void host_megakernel(const double* in, const int* i_in, const double* p,
                      const double* grid, double* out, int* i_out, int B,
-                     double dt, double t_start, int comp) {
-  LANES(megakernel, (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
-        (SD*)out, i_out, B, dt, t_start, comp)
+                     int n_params, double dt, double t_start, int comp,
+                     int lanes) {
+  BLOCKS(lanes, k_megakernel::megakernel_kernel<SD>(
+      (const SD*)in, i_in, (const SD*)p, (const SD*)grid, (SD*)out, i_out, B,
+      n_params, dt, t_start, comp))
 }
 }
 """
@@ -137,17 +176,22 @@ def host_lib(tmp_path_factory):
     so = d / "kernels.so"
     proc = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread",
          "-I", str(d), "-I", CSRC, str(d / "kernels.cpp"), "-o", str(so)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return ctypes.CDLL(str(so))
 
 
+def _operands(batch):
+    veh = build_vehicle(device="cpu", dtype=torch.float64)
+    d = cluster_operands(batch, 1016, (3, 17), (5,))
+    return K.operand_args(d, veh, "cpu", torch.float64)
+
+
 @pytest.fixture(scope="module")
 def operands():
-    veh = build_vehicle(device="cpu", dtype=torch.float64)
-    d = cluster_operands(B, 1016, (3, 17), (5,))
-    return K.operand_args(d, veh, "cpu", torch.float64)
+    return _operands(B)
 
 
 def _as_wrapper_returns(name, out):
@@ -212,6 +256,18 @@ def _assert_trees_close(got, ref):
         assert float(err) <= TOL, (p, float(err))
 
 
+def _run_rk4_stage(host_lib, args, lanes):
+    """rk4_stage's source on the wrapper's arguments, block by block."""
+    buf, n_out, scalars, ops = K.PACK["rk4_stage"](*args)
+    batch = buf.shape[1]
+    out = torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+    host_lib.host_rk4_stage(
+        _ptr(buf), _ptr(ops["k"]), _ptr(ops["params"]), _ptr(out),
+        ctypes.c_int(batch), ctypes.c_int(ops["params"].numel()),
+        ctypes.c_double(scalars[0]), ctypes.c_int(lanes))
+    return K._x_tree(K.unpack(K.STAGE_OUT, out))
+
+
 @pytest.mark.parametrize("name,comp", [("rk4_stage", False),
                                        ("rk4_finish", False),
                                        ("rk4_finish", True),
@@ -223,6 +279,10 @@ def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
     args = operands[name]
     if name == "rk4_finish" and not comp:
         args = args[:-1] + (None,)
+    if name == "rk4_stage":
+        got = _run_rk4_stage(host_lib, args, 32)
+        _assert_trees_close(got, K.rk4_stage_plain(*args))
+        return
     buf, n_out, scalars, ops = K.PACK[name](*args)
     out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
     scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
@@ -231,38 +291,73 @@ def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
         _ptr(ops.get("params", ops.get("grid"))), _ptr(out),
         ctypes.c_int(B), ctypes.c_double(scalars[0]),
         ctypes.c_int(scalars[1]))
-    if name == "rk4_stage":
-        got = K._x_tree(K.unpack(K.STAGE_OUT, out))
-    elif name == "rk4_finish":
+    if name == "rk4_finish":
         got = K.unpack_finish(out, comp)
     else:
         got = out[0]
     _assert_trees_close(got, getattr(K, name + "_plain")(*args))
 
 
-@pytest.mark.parametrize("comp", [False, True],
-                         ids=["uncompensated", "compensated"])
-def test_megakernel_source_matches_plain(host_lib, comp):
+def test_roles_partition_the_state(host_lib):
+    """Every row of X is integrated by exactly one role of the role
+    kernels (`role_row` of csrc/c172_systems.cuh)."""
+    rows = [host_lib.host_role_row(role, k)
+            for role in range(host_lib.host_n_roles())
+            for k in range(host_lib.host_n_slots())]
+    owned = sorted(r for r in rows if r >= 0)
+    assert owned == list(range(K.rows(K.X_GROUPS)))
+
+
+# batches that are no multiple of the aircraft per block: a ragged only
+# block, a full block and a ragged one, and the same at 64 per block
+RAGGED = [(37, 32), (24, 64), (70, 64)]
+
+
+@pytest.mark.parametrize("batch,lanes", RAGGED,
+                         ids=[f"B{b}-L{n}" for b, n in RAGGED])
+def test_rk4_stage_source_ragged_batch(host_lib, batch, lanes):
+    args = _operands(batch)["rk4_stage"]
+    _assert_trees_close(_run_rk4_stage(host_lib, args, lanes),
+                        K.rk4_stage_plain(*args))
+
+
+def _check_megakernel(host_lib, batch, lanes, comp):
     from flightjax_torch.core.sim import comp_residuals
     from flightjax_torch.models.c172.c172s import flagship_sim
     from flightjax_torch.parallel.megakernel import (make_megakernel_step,
                                                      megakernel_step_plain)
     from flightjax_torch.testing import operand_state
     sim, _, _ = flagship_sim("cpu", torch.float64)
-    st = operand_state(cluster_operands(B, 1016, (3, 17), (5,)), "cpu",
+    st = operand_state(cluster_operands(batch, 1016, (3, 17), (5,)), "cpu",
                        torch.float64, i0=126)
     if comp:
         st = st._replace(c=comp_residuals(st.x, force=True))
     bufs, _, unpack = make_megakernel_step(sim, st)
     vehicle = sim.system.aircraft.vehicle
+    params = K.system_params(vehicle)
     out = torch.full_like(bufs[0], float("nan"))
     i_out = torch.full_like(bufs[1], -1)
     host_lib.host_megakernel(
-        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(K.system_params(vehicle)),
+        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(vehicle.geoid)), _ptr(out), _ptr(i_out),
-        ctypes.c_int(B), ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
-        ctypes.c_int(int(comp)))
+        ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
+        ctypes.c_int(int(comp)), ctypes.c_int(lanes))
     got, ref = unpack((out, i_out)), megakernel_step_plain(sim, st)
     for name in ("t", "i", "x", "u", "s", "c"):
         _assert_trees_close({name: getattr(got, name)},
                             {name: getattr(ref, name)})
+
+
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+def test_megakernel_source_matches_plain(host_lib, comp):
+    _check_megakernel(host_lib, B, 32, comp)
+
+
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+@pytest.mark.parametrize("batch,lanes", RAGGED,
+                         ids=[f"B{b}-L{n}" for b, n in RAGGED])
+def test_megakernel_source_ragged_batch(host_lib, batch, lanes, comp):
+    _check_megakernel(host_lib, batch, lanes, comp)

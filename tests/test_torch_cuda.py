@@ -1,9 +1,10 @@
 """The CUDA kernels of flightjax_torch against their plain PyTorch versions
 on the same card tensors, at the fleet width B = 4096: float64 to 1e-12 and
 float32 to 1e-5 (relative to max(1, |plain|); a few ulp of the long
-transcendental chains); and the two whole-step entry points, a few steps
-against their plain paths. Needs a CUDA device and nvcc; skips without a
-device. This file imports no JAX, so on a machine without it run
+transcendental chains); the two role kernels (rk4_stage, megakernel) at 32
+and 64 aircraft per block and on batches that are no multiple of either;
+and the two whole-step entry points, a few steps against their plain paths.
+Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -97,3 +98,48 @@ def test_vehicle_step_matches_plain_on_card(dtype, tol):
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
         "rk4_stage": 12, "rk4_finish": 3, "geoid": 1}
     assert _worst((got.t, got.x, got.s), (ref.t, ref.x, ref.s)) <= tol
+
+
+# (batch, aircraft per block): the fleet width at both block sizes, and
+# batches that end in a ragged block
+ROLE_SHAPES = [(B, 32), (B, 64), (37, 32), (70, 64)]
+ROLE_IDS = [f"B{b}-L{n}" for b, n in ROLE_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_rk4_stage_lanes_per_block_on_card(batch, lanes, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    vehicle = build_vehicle(device="cuda", dtype=dtype)
+    args = K.operand_args(cluster_operands(batch, 1016, (3, 17), (5,)),
+                          vehicle, "cuda", dtype)["rk4_stage"]
+    buf, n_out, scalars, ops = K.pack_rk4_stage(*args)
+    got = K.rk4_stage_packed(vehicle, buf, ops["k"], scalars[0], block=lanes)
+    ref = K.rk4_stage_plain(*args)
+    torch.cuda.synchronize()
+    assert _worst(K._x_tree(K.unpack(K.STAGE_OUT, got)), ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_megakernel_lanes_per_block_on_card(batch, lanes, dtype, tol):
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.models.c172.c172s import flagship_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import operand_state
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, _, _ = flagship_sim("cuda", dtype)
+    st = operand_state(cluster_operands(batch, 1016, (3, 17), (5,)), "cuda",
+                       dtype, i0=126)
+    st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    got, ref = unpack(step_packed(bufs)), megakernel_step_plain(sim, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got.i, ref.i)
+    assert _worst((got.t, got.x, got.s, got.c), (ref.t, ref.x, ref.s,
+                                                 ref.c)) <= tol

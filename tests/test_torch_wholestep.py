@@ -250,3 +250,15 @@ def test_vehicle_layouts_match_csrc():
                       ("CX_GEOID", "geoid_N"), ("CX_TERM", "terminated")):
         assert env[name] == K.rows_of(ctx, key).start, name
     assert env["MG_X"] == 1 and env["MG_CTX"] == 1 + env["N_X"]
+
+
+def test_system_params_holds_tables_to_the_kernels_ranks(monkeypatch):
+    """The kernels' lookups know each table's number of axes at compile
+    time; `system_params` refuses a model whose table has another."""
+    from flightjax_torch.models.c172.c172s import build_vehicle
+    vehicle = build_vehicle(device="cpu", dtype=torch.float64)
+    tables = K.param_tables(vehicle)
+    assert {k: len(lk.axes) for k, lk in tables.items()} == K.TABLE_RANKS
+    monkeypatch.setitem(K.TABLE_RANKS, "CL_alpha", 1)
+    with pytest.raises(ValueError, match="CL_alpha"):
+        K.system_params(build_vehicle(device="cpu", dtype=torch.float64))
