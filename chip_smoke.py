@@ -21,7 +21,7 @@ Phases:
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a;
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
-   max(1, |plain|)): the eight lane kernels on the cluster operands (lanes
+   max(1, |plain|)): the eight other kernels on the cluster operands (lanes
    on each runway surface, a terminated lane, stalled lanes, every engine
    state), and one megakernel step on the same fleet, with and without
    residuals;
@@ -38,17 +38,16 @@ Phases:
    operations over 67 TFLOP/s, the larger). A kernel's time (`ms`) is taken
    inside a captured CUDA graph of 20 launches, so it is the card's time
    and not the host's launch rate; the time by CUDA events around 20
-   launches from Python stands beside it (`event_ms`). The two role
-   kernels (rk4_stage, megakernel: several threads per aircraft) also by
-   aircraft per block (32, 64), on the airborne flight fleet
-   (`airborne_ms`) and on the kernel-check operands with lanes on the
-   runway (`runway_ms`), beside an empty kernel launched the same way, and
-   the megakernel at B = 16384 and 65536 too. Every number of a kernel's
-   row but those two is taken on one set of operands: the kernel-check
-   operands for the lane kernels and rk4_stage, the flight fleet (the
-   state its path steps) for the megakernel. Then vehicle-steps/s of the
-   three paths and the plain one, interleaved windows, median and
-   aggregate.
+   launches from Python stands beside it (`event_ms`). The role kernels
+   (systems, rk4_stage, rk4_finish, megakernel: several threads per
+   aircraft) also by aircraft per block (32, 64), on the airborne flight
+   fleet (`airborne_ms`) and on the kernel-check operands with lanes on
+   the runway (`runway_ms`), beside an empty kernel launched the same way,
+   and the megakernel at B = 16384 and 65536 too. Every number of a
+   kernel's row but those two is taken on one set of operands: the
+   flight fleet (the state its path steps) for the megakernel, the
+   kernel-check operands for the others. Then vehicle-steps/s of the three
+   paths and the plain one, interleaved windows, median and aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -101,6 +100,7 @@ KERNELS = {
     "megakernel": ("flightjax_torch/csrc/megakernel.cu",
                    "flightjax/parallel/megakernel.py:43", "megakernel"),
 }
+# the kernels that run on the cluster operands (the megakernel steps a state)
 LANE_KERNELS = tuple(k for k in KERNELS if k != "megakernel")
 
 
@@ -253,7 +253,7 @@ def kernel_operands(batch=B):
 
 
 def kernel_inputs(dtype):
-    """numpy-seeded operands of the lane kernels at B lanes (as the CPU
+    """numpy-seeded operands of LANE_KERNELS at B lanes (as the CPU
     parity tests draw them, two lanes on the runway, one terminated, lanes
     in every engine state), on the card."""
     from flightjax_torch.models.c172.c172s import build_vehicle
@@ -273,6 +273,31 @@ def mega_inputs(dtype, comp):
     st = operand_state(kernel_operands(), DEVICE, dtype, i0=126)
     return sim, st._replace(c=comp_residuals(st.x, force=True) if comp
                             else None)
+
+
+def flight_operands(sim, st, adt=0.01):
+    """The packed operands (as `K.PACK` gives them) of systems, rk4_stage
+    and rk4_finish on the airborne flight fleet `st`: the two stage kernels
+    at x + adt k1, k1 the fleet's derivative, rk4_finish with the k-sum
+    6 k1, uncompensated as the vehicle path runs it."""
+    from flightjax_torch.core.modeling import tree_map
+    from flightjax_torch.parallel import kernels as K
+    vehicle = sim.system.aircraft.vehicle
+    xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
+    term = st.s["terminated"].to(xv["kinematics"]["h_e"].dtype)
+    k1 = K.rk4_stage_plain(vehicle, xv, tree_map(torch.zeros_like, xv), uv,
+                           sv, term, 0.0)
+    _, kin, air, _ = K.kinair_plain(
+        xv["kinematics"], xv["dynamics"], k1["kinematics"], k1["dynamics"],
+        sv["geoid_N"], uv["atm"], adt, term)
+    return {"systems": K.pack_systems(vehicle, xv["systems"], k1["systems"],
+                                      uv["systems"], sv["systems"],
+                                      uv["trn"], kin, air, adt, term),
+            "rk4_stage": K.pack_rk4_stage(vehicle, xv, k1, uv, sv, term,
+                                          adt),
+            "rk4_finish": K.pack_rk4_finish(
+                vehicle, xv, tree_map(lambda k: 6.0 * k, k1), uv, sv,
+                st.s["terminated"], sim.dt)}
 
 
 # ------------------------------------------------------------ paths
@@ -403,7 +428,6 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.time()
-    from flightjax_torch.core.modeling import tree_map
     from flightjax_torch.parallel import kernels as K
     from flightjax_torch.parallel import launch as L
     from flightjax_torch.parallel.megakernel import (make_megakernel_step,
@@ -522,8 +546,7 @@ def main():
     args = kernel_inputs(torch.float32)
     vehicle = sim.system.aircraft.vehicle
     params, grid = K.system_params(vehicle), K.geoid_grid(vehicle.geoid)
-    fx = st0.x["vehicle"]
-    tree_zeros = lambda t: tree_map(torch.zeros_like, t)
+    flight = flight_operands(sim, st0)
 
     def role_times(name, air, runway, batch, n_params):
         """A role kernel's graph times: on the airborne flight fleet (at 32
@@ -549,14 +572,10 @@ def main():
         wrapper_ms = cuda_ms(lambda: kern(*args[name]))
         plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, calls=4)
         extra = {}
-        if name == "rk4_stage":
-            # the same stage on the airborne flight fleet, k = its k1
-            fbuf, _, _, fops = K.pack_rk4_stage(
-                vehicle, fx, tree_zeros(fx), st0.u["vehicle"],
-                st0.s["vehicle"], st0.s["terminated"], 0.0)
-            fops["k"] = L.launch(name, fbuf, n_out, (0.0,), **fops)
-            air = lambda bs=None: L.launch(name, fbuf, n_out, scal, block=bs,
-                                           **fops)
+        if name in L.ROLE_KERNELS:
+            fbuf, _, fscal, fops = flight[name]
+            air = lambda bs=None: L.launch(name, fbuf, n_out, fscal,
+                                           block=bs, **fops)
             extra = role_times(name, air, bare, B, params.numel())
             blocks = extra["runway_lanes_ms"]
         else:

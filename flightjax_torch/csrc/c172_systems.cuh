@@ -3,7 +3,9 @@
 // IO-360 engine with its propeller, fuel, payload and the mass-property sum.
 // They are the fine parts of the systems clusters of flightjax/parallel/
 // clusterstep.py (k_actaero, k_ldg0..2, k_pwp; k_fin_act, k_fin_ldg0..2,
-// k_fin_rest), composed by systems.cu and finish_sys.cu.
+// k_fin_rest), composed by finish_sys.cu one aircraft per thread and by
+// the role kernels (systems, rk4_stage, rk4_finish, megakernel) one warp
+// per subsystem (the roles section below).
 //
 // Every formula mirrors the plain PyTorch port (flightjax_torch/models/c172/
 // common.py, flightjax_torch/physics/{landinggear,piston,propellers,
@@ -216,9 +218,9 @@ __device__ __forceinline__ T scale_u(T u, double lo_u, double hi_u, T lo,
   return lo + sc * (clamp(u, T(lo_u), T(hi_u)) - T(lo_u));
 }
 
-// which of the aero coefficients a call works out: all, or one of two
-// halves that need not wait for each other
-constexpr int AERO_ALL = 0, AERO_DRAG_SIDE = 1, AERO_LIFT_MOMENTS = 2;
+// which half of the aero coefficients a call works out; the two need not
+// wait for each other
+constexpr int AERO_DRAG_SIDE = 1, AERO_LIFT_MOMENTS = 2;
 
 // the derivative of the alpha/beta filters, the aero force in stability
 // axes with the cos/sin of alpha that turn it into body axes, and the
@@ -238,8 +240,8 @@ __device__ __forceinline__ void aero_parts(const T* P, T alpha_filt,
                                            bool stall, const Kin<T>& kin,
                                            const Air<T>& air, T elevation,
                                            AeroOut<T>& o) {
-  constexpr bool drag_side = PART != AERO_LIFT_MOMENTS;
-  constexpr bool lift_moments = PART != AERO_DRAG_SIDE;
+  constexpr bool drag_side = PART == AERO_DRAG_SIDE;
+  constexpr bool lift_moments = PART == AERO_LIFT_MOMENTS;
   const T* A = P + P_AE;
   T alpha, beta;
   V3<T> v_safe;
@@ -312,21 +314,6 @@ __device__ __forceinline__ void aero_parts(const T* P, T alpha_filt,
 template <typename T>
 __device__ __forceinline__ V3<T> aero_force(T ca, T sa, V3<T> f_s) {
   return rot2_y(ca, -sa, f_s);
-}
-
-// derivative of the alpha/beta filters and the aero wrench in body axes
-template <typename T>
-__device__ void aero(const T* P, T alpha_filt, T beta_filt, const Act<T>& u,
-                     bool stall, const Kin<T>& kin, const Air<T>& air,
-                     T elevation, T& alpha_filt_dot, T& beta_filt_dot,
-                     V3<T>& F, V3<T>& tau) {
-  AeroOut<T> o;
-  aero_parts<AERO_ALL>(P, alpha_filt, beta_filt, u, stall, kin, air,
-                       elevation, o);
-  alpha_filt_dot = o.alpha_filt_dot;
-  beta_filt_dot = o.beta_filt_dot;
-  F = aero_force(o.ca, o.sa, o.f_s);
-  tau = o.tau;
 }
 
 // ------------------------------------------------------------- gear leg
@@ -742,58 +729,6 @@ struct Trn {
   int surface;
 };
 
-// k2_lane at the stage state xi: actuation + aero, the three gear legs,
-// powerplant + fuel + mass (k_actaero, k_ldg0..2, k_pwp in order); the
-// derivative x alive, the summed mass properties, wrench and rotor momentum
-template <typename T>
-__device__ __forceinline__ void systems_lane(
-    const T* P, const T (&xi)[N_XSYS], const T (&u)[N_USYS], const SSys& s,
-    const Trn<T>& trn, const Kin<T>& kin, const Air<T>& air, T alive,
-    T (&dot)[N_XSYS], MP<T>& mp, V3<T>& F_b, V3<T>& tau_b, V3<T>& hr_b) {
-  // actuation + aero (k_actaero)
-  const Act<T> act = actuation(u);
-  V3<T> F_aero, tau_aero;
-  aero(P, xi[XS_ALPHA], xi[XS_BETA], act, s.stall, kin, air, trn.elevation,
-       dot[XS_ALPHA], dot[XS_BETA], F_aero, tau_aero);
-
-  // gear legs left, right, nose (k_ldg0..2); steering on the nose leg,
-  // brakes on the mains
-  const T zero = T(0.0);
-  const T steer[N_LEGS] = {zero, zero, act.steering};
-  const T brake[N_LEGS] = {act.brake_left, act.brake_right, zero};
-  V3<T> F_ldg, tau_ldg;
-#pragma unroll
-  for (int leg = 0; leg < N_LEGS; ++leg) {
-    V3<T> F, tau;
-    gear_leg(P, leg, xi[XS_FRC + 2 * leg], xi[XS_FRC + 2 * leg + 1],
-             steer[leg], brake[leg], kin, trn.elevation, trn.normal,
-             trn.surface, dot[XS_FRC + 2 * leg], dot[XS_FRC + 2 * leg + 1], F,
-             tau);
-    F_ldg = leg == 0 ? F : add(F_ldg, F);
-    tau_ldg = leg == 0 ? tau : add(tau_ldg, tau);
-  }
-
-  // powerplant, fuel and mass (k_pwp); the engine takes throttle and
-  // mixture from the actuation
-  const T gr = P[P_EN + EN_gear_ratio];
-  const PropOut<T> prop = propeller(P, kin, air, gr * xi[XS_OMEGA]);
-  T mdot, tau_shaft;
-  engine(P, xi[XS_OMEGA], xi[XS_IDLE], xi[XS_EFRC], act.throttle,
-         act.mixture, u[US_E_MIXCTL], s.state, air, tau_shaft, dot[XS_IDLE],
-         dot[XS_EFRC], mdot);
-  dot[XS_OMEGA] = engine_omega_dot(P, tau_shaft, gr * prop.tau_px);
-  dot[XS_FUEL] = -mdot / P[P_MS + MS_M_USABLE];
-  T pld[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) pld[k] = u[US_PLD + k];
-  mp = mass_sum(P, pld, xi[XS_FUEL]);
-  F_b = add(add(F_aero, prop.F_b), F_ldg);
-  tau_b = add(add(tau_aero, prop.tau_b), tau_ldg);
-  hr_b = prop.hr_b;
-#pragma unroll
-  for (int r = 0; r < N_XSYS; ++r) dot[r] = alive * dot[r];
-}
-
 // k5_lane after the RK4 combine (x holds x + dt/6 ksum): actuation, the
 // three struts, stall hysteresis, friction regulator reset off the ground,
 // crash latch and the engine state machine (k_fin_act, k_fin_ldg0..2,
@@ -856,89 +791,17 @@ __device__ __forceinline__ Trn<T> load_trn(const Col<T>& c, int r) {
   return {c(r + TR_ELEV), c.v3(r + TR_NORMAL), int(c(r + TR_SURF).v)};
 }
 
-// ------------------------------------------------------------- the vehicle
-// World.f_ode and World.f_step of the flagship (WA kinematics, ISA
-// atmosphere, C172 systems, flat terrain) on one lane, composed from the
-// lanes above with the KinData and AirData in registers
-
-template <typename T>
-struct XVeh {
-  XKin<T> kin;
-  XDyn<T> dyn;
-  T sys[N_XSYS];
-};
-
-template <typename T>
-struct Ctx {
-  T u[N_USYS];
-  AtmU<T> atm;
-  Trn<T> trn;
-  SSys s;
-  T geoid_N, term;
-};
-
-template <typename T>
-__device__ __forceinline__ XVeh<T> load_x(const Col<T>& c, int r) {
-  XVeh<T> x;
-  x.kin = load_xkin(c, r);
-  x.dyn = load_xdyn(c, r + X_DYN);
-#pragma unroll
-  for (int k = 0; k < N_XSYS; ++k) x.sys[k] = c(r + X_SYS + k);
-  return x;
-}
-
-template <typename T>
-__device__ __forceinline__ void store_x(const Out<T>& o, int r,
-                                        const XVeh<T>& x) {
-  store_xkin(o, r, x.kin);
-  store_xdyn(o, r + X_DYN, x.dyn);
-#pragma unroll
-  for (int k = 0; k < N_XSYS; ++k) o.s(r + X_SYS + k, x.sys[k]);
-}
-
-template <typename T>
-__device__ __forceinline__ Ctx<T> load_ctx(const Col<T>& c, int r) {
-  Ctx<T> x;
-#pragma unroll
-  for (int k = 0; k < N_USYS; ++k) x.u[k] = c(r + CX_USYS + k);
-  x.atm = load_atm(c, r + CX_UATM);
-  x.trn = load_trn(c, r + CX_TRN);
-  x.s = load_ssys(c, r + CX_SSYS);
-  x.geoid_N = c(r + CX_GEOID);
-  x.term = c(r + CX_TERM);
-  return x;
-}
-
-// finish_lane of clusterstep.py:97-103 with the compensated add of
-// flightjax/core/sim.py:315-320 when `comp`: the RK4 combine x + c6 ksum,
-// the kinematics renorm, the systems' discrete step and the terminated
-// latch. Updates ctx.s and ctx.term; returns the new state and its KinData
-template <typename T>
-__device__ __forceinline__ XVeh<T> vehicle_finish(const T* P, const XVeh<T>& x,
-                                                  const XVeh<T>& ksum, T c6,
-                                                  bool comp, Q4<T>& r_q,
-                                                  T& r_h, Ctx<T>& ctx,
-                                                  Kin<T>& kin) {
-  XVeh<T> o;
-  Air<T> air;
-  finish_kin_lane(x.kin, x.dyn, ksum.kin, ksum.dyn, c6, comp, r_q, r_h,
-                  ctx.geoid_N, ctx.atm, o.kin, o.dyn, kin, air);
-#pragma unroll
-  for (int r = 0; r < N_XSYS; ++r) o.sys[r] = x.sys[r] + c6 * ksum.sys[r];
-  finish_sys_lane(P, o.sys, ctx.u, ctx.s, ctx.trn, kin, air);
-  ctx.term = T(ctx.term.v != 0 || ctx.s.crashed ? 1.0 : 0.0);
-  return o;
-}
-
 // ------------------------------------------------------------- roles
-// The vehicle with several threads per aircraft (rk4_stage, megakernel). A
-// block carries L neighbouring aircraft (lanes) in N_ROLES groups of L
-// threads, L a multiple of the warp, so every warp runs one role for 32
-// neighbouring aircraft: thread = role * L + lane. The subsystems read only
-// the kinematics, the air data, the inputs and their own states, and meet
-// again in the wrench and mass sums, so they run side by side:
+// The C172 with several threads per aircraft (systems, rk4_stage,
+// rk4_finish, megakernel). A block carries L neighbouring aircraft (lanes)
+// in N_ROLES groups of L threads, L a multiple of the warp, so every warp
+// runs one role for 32 neighbouring aircraft: thread = role * L + lane.
+// The subsystems read only the kinematics, the air data, the inputs and
+// their own states, and meet again in the wrench and mass sums, so they
+// run side by side:
 //
-//   ROLE_KIN    kinematics, air data; the sums and the dynamics
+//   ROLE_KIN    kinematics, air data; the sums and the dynamics (in
+//               systems: it shares the KinData and AirData it is given)
 //   ROLE_AERO   aerodynamics: the alpha/beta filters, lift and the moments
 //   ROLE_DRAG   aerodynamics: drag and side force (it owns no state)
 //   ROLE_ENG    engine and fuel
@@ -1079,7 +942,11 @@ __device__ __forceinline__ void store_slots(const Out<T>& o, int r, int role,
   }
 }
 
-template <typename T>
+// the KinData and AirData fields the systems read, into the scratch. With
+// ATMOSPHERE false the air's state (Tk, p, rho, a, q) is left out, NaN in
+// its rows: the finish reads only the airflow, and unread, the pressure
+// chain of isa_data (a library power per layer) is never worked out
+template <bool ATMOSPHERE = true, typename T>
 __device__ __forceinline__ void share_kin_air(const Out<T>& o,
                                               const Kin<T>& k,
                                               const Air<T>& a) {
@@ -1093,11 +960,12 @@ __device__ __forceinline__ void share_kin_air(const Out<T>& o,
   o.v3(SH_OM_EB, k.omega_eb_b);
   o.v3(SH_V_EB, k.v_eb_b);
   o.v3(SH_V_WB, a.v_wb_b);
-  o.s(SH_TK, a.Tk);
-  o.s(SH_P, a.p);
-  o.s(SH_RHO, a.rho);
-  o.s(SH_A, a.a);
-  o.s(SH_Q, a.q);
+  const T nan = T(double(NAN));
+  o.s(SH_TK, ATMOSPHERE ? a.Tk : nan);
+  o.s(SH_P, ATMOSPHERE ? a.p : nan);
+  o.s(SH_RHO, ATMOSPHERE ? a.rho : nan);
+  o.s(SH_A, ATMOSPHERE ? a.a : nan);
+  o.s(SH_Q, ATMOSPHERE ? a.q : nan);
   o.s(SH_TAS, a.TAS);
 }
 
@@ -1130,23 +998,176 @@ __device__ __forceinline__ void shared_kin_air(const Col<T>& c, Kin<T>& k,
   a.TAS = c(SH_TAS);
 }
 
+// What a subsystem role reads of its lane's column besides the kinematics,
+// the air data and its own states: u_sys, s_sys and the terrain. The roles
+// of the finish load it before the first barrier, so that its loads overlap
+// role KIN's work (a load after a barrier cannot start before it); those of
+// a derivative after it, where loading it before held more registers across
+// the barrier and made rk4_stage 2% slower (PERF.md).
 template <typename T>
-__device__ __forceinline__ void load_usys(const Col<T>& c, int r,
-                                          T (&u)[N_USYS]) {
+struct SysIn {
+  T u[N_USYS];
+  SSys s;
+  Trn<T> trn;
+};
+
+template <typename T>
+__device__ __forceinline__ SysIn<T> load_sys_in(const Col<T>& c, int r_u,
+                                                int r_s, int r_trn) {
+  SysIn<T> in;
 #pragma unroll
-  for (int k = 0; k < N_USYS; ++k) u[k] = c(r + k);
+  for (int k = 0; k < N_USYS; ++k) in.u[k] = c(r_u + k);
+  in.s = load_ssys(c, r_s);
+  in.trn = load_trn(c, r_trn);
+  return in;
+}
+
+// the wrench role KIN sums from the subsystems' shares as the one-thread
+// systems summed it, (aero + propeller) + ((leg 0 + leg 1) + leg 2), with
+// aero's force turned into body axes
+template <typename T>
+__device__ __forceinline__ void role_wrench(const Col<T>& si, V3<T>& F_b,
+                                            V3<T>& tau_b) {
+  const V3<T> F_ldg = add(add(si.v3(SH_LEG), si.v3(SH_LEG + N_WR)),
+                          si.v3(SH_LEG + 2 * N_WR));
+  const V3<T> tau_ldg = add(add(si.v3(SH_LEG + 3), si.v3(SH_LEG + N_WR + 3)),
+                            si.v3(SH_LEG + 2 * N_WR + 3));
+  const V3<T> F_aero = aero_force(si(SH_CA), si(SH_SA), si.v3(SH_AERO));
+  F_b = add(add(F_aero, si.v3(SH_PWP)), F_ldg);
+  tau_b = add(add(si.v3(SH_AERO + 3), si.v3(SH_PWP + 3)), tau_ldg);
+}
+
+// the mass properties role PROP shares
+template <typename T>
+__device__ __forceinline__ MP<T> role_mp(const Col<T>& si) {
+  MP<T> mp;
+  mp.m = si(SH_MP);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) mp.J.m[i][j] = si(SH_MP + 1 + 3 * i + j);
+  mp.r = si.v3(SH_MP + 10);
+  return mp;
+}
+
+// The subsystem roles of one derivative, every role but KIN, as systems,
+// rk4_stage and the megakernel run them, in three parts around the two
+// barriers of a derivative; role KIN does its own part beside each:
+//   subsystem_roles_share, before the first barrier: role ENG shares the
+//     stage's fuel and shaft speed (role KIN shares KinData and AirData);
+//   subsystem_roles, between the barriers: each role loads its SysIn from
+//     rows r_u, r_s and r_trn of its lane's column c and works out its slots
+//     of the derivative d, zeroed on a terminated lane (alive 0), from the
+//     shared KinData and AirData, and shares its wrench; role PROP the rotor
+//     momentum and the mass properties too; role ENG keeps its shaft torque
+//     in tau_shaft;
+//   subsystem_roles_shaft, after the second barrier: role ENG puts the
+//     propeller's load on its shaft (role KIN sums the wrench, role_wrench).
+// P is the parameter buffer, sh the scratch, xi the role's slots of the
+// stage state.
+template <typename T>
+__device__ __forceinline__ void subsystem_roles_share(T* sh,
+                                                      const RoleThread& t,
+                                                      const T (&xi)[N_SLOTS]) {
+  if (t.role == ROLE_ENG) {
+    const Out<T> so{sh, t.L, t.lane};
+    so.s(SH_XFUEL, xi[PW_FUEL]);
+    so.s(SH_XOMEGA, xi[PW_OMEGA]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
+                                                const RoleThread& t,
+                                                const T (&xi)[N_SLOTS],
+                                                const Col<T>& c, int r_u,
+                                                int r_s, int r_trn, T alive,
+                                                T& tau_shaft,
+                                                T (&d)[N_SLOTS]) {
+  const Col<T> si{sh, t.L, t.lane};
+  const Out<T> so{sh, t.L, t.lane};
+  const int role = t.role;
+  const SysIn<T> in = load_sys_in(c, r_u, r_s, r_trn);
+  Kin<T> kin;
+  Air<T> air;
+  shared_kin_air(si, kin, air);
+  const Act<T> act = actuation(in.u);
+  if (role == ROLE_AERO) {
+    AeroOut<T> a;
+    aero_parts<AERO_LIFT_MOMENTS>(P, xi[0], xi[1], act, in.s.stall, kin, air,
+                                  in.trn.elevation, a);
+    d[0] = alive * a.alpha_filt_dot;
+    d[1] = alive * a.beta_filt_dot;
+    so.s(SH_AERO + 2, a.f_s.z);
+    so.v3(SH_AERO + 3, a.tau);
+    so.s(SH_CA, a.ca);
+    so.s(SH_SA, a.sa);
+  } else if (role == ROLE_DRAG) {
+    AeroOut<T> a;
+    aero_parts<AERO_DRAG_SIDE>(P, T(0.0), T(0.0), act, false, kin, air,
+                               in.trn.elevation, a);
+    so.s(SH_AERO, a.f_s.x);
+    so.s(SH_AERO + 1, a.f_s.y);
+  } else if (role == ROLE_ENG) {
+    T mdot;
+    engine(P, xi[PW_OMEGA], xi[PW_IDLE], xi[PW_EFRC], act.throttle,
+           act.mixture, in.u[US_E_MIXCTL], in.s.state, air, tau_shaft,
+           d[PW_IDLE], d[PW_EFRC], mdot);
+    d[PW_FUEL] = alive * (-mdot / P[P_MS + MS_M_USABLE]);
+    d[PW_IDLE] = alive * d[PW_IDLE];
+    d[PW_EFRC] = alive * d[PW_EFRC];
+  } else if (role == ROLE_PROP) {
+    const T gr = P[P_EN + EN_gear_ratio];
+    const PropOut<T> prop = propeller(P, kin, air, gr * si(SH_XOMEGA));
+    T pld[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) pld[k] = in.u[US_PLD + k];
+    const MP<T> mp = mass_sum(P, pld, si(SH_XFUEL));
+    so.v3(SH_PWP, prop.F_b);
+    so.v3(SH_PWP + 3, prop.tau_b);
+    so.v3(SH_HR, prop.hr_b);
+    so.s(SH_TAU_PX, prop.tau_px);
+    so.s(SH_MP, mp.m);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) so.s(SH_MP + 1 + 3 * i + j, mp.J.m[i][j]);
+    so.v3(SH_MP + 10, mp.r);
+  } else {
+    // steering on the nose leg, brakes on the mains
+    const int leg = role - ROLE_LEG0;
+    const T zero = T(0.0);
+    const T steering = leg == 2 ? act.steering : zero;
+    const T braking =
+        leg == 0 ? act.brake_left : (leg == 1 ? act.brake_right : zero);
+    V3<T> F, tau;
+    gear_leg(P, leg, xi[0], xi[1], steering, braking, kin, in.trn.elevation,
+             in.trn.normal, in.trn.surface, d[0], d[1], F, tau);
+    d[0] = alive * d[0];
+    d[1] = alive * d[1];
+    so.v3(SH_LEG + N_WR * leg, F);
+    so.v3(SH_LEG + N_WR * leg + 3, tau);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void subsystem_roles_shaft(const T* P, T* sh,
+                                                      const RoleThread& t,
+                                                      T alive, T tau_shaft,
+                                                      T (&d)[N_SLOTS]) {
+  if (t.role == ROLE_ENG)
+    d[PW_OMEGA] = alive * engine_omega_dot(
+        P, tau_shaft,
+        P[P_EN + EN_gear_ratio] * Col<T>{sh, t.L, t.lane}(SH_TAU_PX));
 }
 
 // stage_lane of flightjax/parallel/clusterstep.py:81-85 by roles: the
 // derivative at the stage state xi, every role its own slots of d, zeroed on
 // a terminated lane. P is the parameter buffer (in shared memory), sh the
 // scratch, c the lane's column of the buffer that holds CTX at row r_ctx.
-// Role KIN shares KinData and AirData, role ENG the stage's fuel and shaft
-// speed; barrier; the systems share their wrenches, rotor momentum and mass
-// properties; barrier; role KIN sums them as systems_lane does, (aero +
-// propeller) + ((leg 0 + leg 1) + leg 2), and runs the dynamics, and role
-// ENG puts the propeller's load on its shaft. All threads of the block must
-// call it.
+// Role KIN works out and shares KinData and AirData, the subsystem roles run
+// beside it, and after the second barrier role KIN sums the wrench and runs
+// the dynamics. All threads of the block must call it.
 template <typename T>
 __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
                                             const RoleThread& t,
@@ -1154,19 +1175,14 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
                                             const Col<T>& c, int r_ctx,
                                             T (&d)[N_SLOTS]) {
   const Col<T> si{sh, t.L, t.lane};
-  const Out<T> so{sh, t.L, t.lane};
-  const int role = t.role;
   const T alive = T(1.0) - c(r_ctx + CX_TERM);
   // role KIN keeps these from the kinematics to the dynamics
   XDyn<T> xi_dyn;
   Q4<T> q_eb;
   V3<T> r_eb_e;
   T tau_shaft;  // role ENG keeps it until the propeller's load is known
-  if (role == ROLE_ENG) {
-    so.s(SH_XFUEL, xi[PW_FUEL]);
-    so.s(SH_XOMEGA, xi[PW_OMEGA]);
-  }
-  if (role == ROLE_KIN) {
+  subsystem_roles_share(sh, t, xi);
+  if (t.role == ROLE_KIN) {
     const XKin<T> xi_kin = {{xi[0], xi[1], xi[2], xi[3]},
                             {xi[4], xi[5], xi[6], xi[7]}, xi[8]};
     xi_dyn = {{xi[9], xi[10], xi[11]}, {xi[12], xi[13], xi[14]}};
@@ -1175,7 +1191,7 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     Air<T> air;
     kinair_lane(xi_kin, xi_dyn, c(r_ctx + CX_GEOID),
                 load_atm(c, r_ctx + CX_UATM), alive, kd, kin, air);
-    share_kin_air(so, kin, air);
+    share_kin_air(Out<T>{sh, t.L, t.lane}, kin, air);
     q_eb = kin.q_eb;
     r_eb_e = kin.r_eb_e;
     d[0] = kd.q_wb.w, d[1] = kd.q_wb.x, d[2] = kd.q_wb.y, d[3] = kd.q_wb.z;
@@ -1183,98 +1199,19 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     d[8] = kd.h_e;
   }
   __syncthreads();
-  if (role != ROLE_KIN) {
-    Kin<T> kin;
-    Air<T> air;
-    shared_kin_air(si, kin, air);
-    T u[N_USYS];
-    load_usys(c, r_ctx + CX_USYS, u);
-    const Act<T> act = actuation(u);
-    if (role == ROLE_AERO) {
-      AeroOut<T> a;
-      aero_parts<AERO_LIFT_MOMENTS>(
-          P, xi[0], xi[1], act, c(r_ctx + CX_SSYS + SS_STALL).v != 0, kin,
-          air, c(r_ctx + CX_TRN + TR_ELEV), a);
-      d[0] = alive * a.alpha_filt_dot;
-      d[1] = alive * a.beta_filt_dot;
-      so.s(SH_AERO + 2, a.f_s.z);
-      so.v3(SH_AERO + 3, a.tau);
-      so.s(SH_CA, a.ca);
-      so.s(SH_SA, a.sa);
-    } else if (role == ROLE_DRAG) {
-      AeroOut<T> a;
-      aero_parts<AERO_DRAG_SIDE>(P, T(0.0), T(0.0), act, false, kin, air,
-                                 c(r_ctx + CX_TRN + TR_ELEV), a);
-      so.s(SH_AERO, a.f_s.x);
-      so.s(SH_AERO + 1, a.f_s.y);
-    } else if (role == ROLE_ENG) {
-      T mdot;
-      engine(P, xi[PW_OMEGA], xi[PW_IDLE], xi[PW_EFRC], act.throttle,
-             act.mixture, u[US_E_MIXCTL],
-             int(c(r_ctx + CX_SSYS + SS_STATE).v), air, tau_shaft,
-             d[PW_IDLE], d[PW_EFRC], mdot);
-      d[PW_FUEL] = alive * (-mdot / P[P_MS + MS_M_USABLE]);
-      d[PW_IDLE] = alive * d[PW_IDLE];
-      d[PW_EFRC] = alive * d[PW_EFRC];
-    } else if (role == ROLE_PROP) {
-      const T gr = P[P_EN + EN_gear_ratio];
-      const PropOut<T> prop = propeller(P, kin, air, gr * si(SH_XOMEGA));
-      T pld[5];
-#pragma unroll
-      for (int k = 0; k < 5; ++k) pld[k] = u[US_PLD + k];
-      const MP<T> mp = mass_sum(P, pld, si(SH_XFUEL));
-      so.v3(SH_PWP, prop.F_b);
-      so.v3(SH_PWP + 3, prop.tau_b);
-      so.v3(SH_HR, prop.hr_b);
-      so.s(SH_TAU_PX, prop.tau_px);
-      so.s(SH_MP, mp.m);
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) so.s(SH_MP + 1 + 3 * i + j, mp.J.m[i][j]);
-      so.v3(SH_MP + 10, mp.r);
-    } else {
-      // steering on the nose leg, brakes on the mains
-      const int leg = role - ROLE_LEG0;
-      const T zero = T(0.0);
-      const T steering = leg == 2 ? act.steering : zero;
-      const T braking =
-          leg == 0 ? act.brake_left : (leg == 1 ? act.brake_right : zero);
-      const Trn<T> trn = load_trn(c, r_ctx + CX_TRN);
-      V3<T> F, tau;
-      gear_leg(P, leg, xi[0], xi[1], steering, braking, kin, trn.elevation,
-               trn.normal, trn.surface, d[0], d[1], F, tau);
-      d[0] = alive * d[0];
-      d[1] = alive * d[1];
-      so.v3(SH_LEG + N_WR * leg, F);
-      so.v3(SH_LEG + N_WR * leg + 3, tau);
-    }
-  }
+  if (t.role != ROLE_KIN)
+    subsystem_roles(P, sh, t, xi, c, r_ctx + CX_USYS, r_ctx + CX_SSYS,
+                    r_ctx + CX_TRN, alive, tau_shaft, d);
   __syncthreads();
-  if (role == ROLE_KIN) {
-    const V3<T> F_ldg = add(add(si.v3(SH_LEG), si.v3(SH_LEG + N_WR)),
-                            si.v3(SH_LEG + 2 * N_WR));
-    const V3<T> tau_ldg =
-        add(add(si.v3(SH_LEG + 3), si.v3(SH_LEG + N_WR + 3)),
-            si.v3(SH_LEG + 2 * N_WR + 3));
-    const V3<T> F_aero = aero_force(si(SH_CA), si(SH_SA), si.v3(SH_AERO));
-    const V3<T> F_b = add(add(F_aero, si.v3(SH_PWP)), F_ldg);
-    const V3<T> tau_b =
-        add(add(si.v3(SH_AERO + 3), si.v3(SH_PWP + 3)), tau_ldg);
-    MP<T> mp;
-    mp.m = si(SH_MP);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) mp.J.m[i][j] = si(SH_MP + 1 + 3 * i + j);
-    mp.r = si.v3(SH_MP + 10);
-    const XDyn<T> dd = dynamics_lane(xi_dyn, mp, F_b, tau_b, si.v3(SH_HR),
-                                     q_eb, r_eb_e, alive);
+  if (t.role == ROLE_KIN) {
+    V3<T> F_b, tau_b;
+    role_wrench(si, F_b, tau_b);
+    const XDyn<T> dd = dynamics_lane(xi_dyn, role_mp(si), F_b, tau_b,
+                                     si.v3(SH_HR), q_eb, r_eb_e, alive);
     d[9] = dd.omega_eb_b.x, d[10] = dd.omega_eb_b.y, d[11] = dd.omega_eb_b.z;
     d[12] = dd.v_eb_b.x, d[13] = dd.v_eb_b.y, d[14] = dd.v_eb_b.z;
-  } else if (role == ROLE_ENG) {
-    d[PW_OMEGA] = alive * engine_omega_dot(
-        P, tau_shaft, P[P_EN + EN_gear_ratio] * si(SH_TAU_PX));
+  } else {
+    subsystem_roles_shaft(P, sh, t, alive, tau_shaft, d);
   }
 }
 
@@ -1289,16 +1226,19 @@ struct FinishOut {
 };
 
 // finish_lane of clusterstep.py:97-103 by roles, with the compensated add
-// when `comp` (vehicle_finish above, split as f_ode_roles splits the stage):
-// role KIN combines and renormalises the kinematics and shares the new
-// KinData and AirData, the other roles combine their own slots; barrier; the
+// of flightjax/core/sim.py:315-320 when `comp` (finish_kin_lane and
+// finish_sys_lane, split as f_ode_roles splits the stage): role KIN
+// combines and renormalises the kinematics and shares the new KinData and
+// AirData (without the atmosphere, which no role of the finish reads), the
+// other roles combine their own slots and load their inputs; barrier; the
 // legs run their struts (regulator reset off the ground, crash flag), role
 // AERO the stall hysteresis, role ENG the engine state machine, and role KIN
-// meanwhile the undulation under the new position from the grid G;
-// barrier; role KIN latches crashed and terminated. x and ksum are the
-// role's slots, c the lane's column of the buffer holding CTX at r_ctx and
-// the residuals at r_c. All threads of the block must call it.
-template <typename T>
+// meanwhile, with REFRESH_GEOID, the undulation under the new position from
+// the grid G (without, the undulation of CTX passes through and G is not
+// read); barrier; role KIN latches crashed and terminated. x and ksum are
+// the role's slots, c the lane's column of the buffer holding CTX at r_ctx
+// and the residuals at r_c. All threads of the block must call it.
+template <bool REFRESH_GEOID, typename T>
 __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
                                              const RoleThread& t,
                                              const T (&x)[N_SLOTS],
@@ -1311,7 +1251,11 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
   const Out<T> so{sh, t.L, t.lane};
   const int role = t.role;
   V3<T> n_e;  // role KIN keeps the new position for the undulation
+  bool crashed, term;  // and the latches it had
+  SysIn<T> in;         // the other roles' inputs
   if (role == ROLE_KIN) {
+    crashed = c(r_ctx + CX_SSYS + SS_CRASHED).v != 0;
+    term = c(r_ctx + CX_TERM).v != 0;
     const XKin<T> xk = {{x[0], x[1], x[2], x[3]}, {x[4], x[5], x[6], x[7]},
                         x[8]};
     const XDyn<T> xd = {{x[9], x[10], x[11]}, {x[12], x[13], x[14]}};
@@ -1328,7 +1272,7 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     finish_kin_lane(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h,
                     c(r_ctx + CX_GEOID), load_atm(c, r_ctx + CX_UATM), yk, yd,
                     kin, air);
-    share_kin_air(so, kin, air);
+    share_kin_air<false>(so, kin, air);
     xn[0] = yk.q_wb.w, xn[1] = yk.q_wb.x, xn[2] = yk.q_wb.y, xn[3] = yk.q_wb.z;
     xn[4] = yk.q_ew.w, xn[5] = yk.q_ew.x, xn[6] = yk.q_ew.y, xn[7] = yk.q_ew.z;
     xn[8] = yk.h_e;
@@ -1339,10 +1283,11 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
   } else {
 #pragma unroll
     for (int k = 0; k <= PW_OMEGA; ++k) xn[k] = x[k] + c6 * ksum[k];
+    in = load_sys_in(c, r_ctx + CX_USYS, r_ctx + CX_SSYS, r_ctx + CX_TRN);
   }
   __syncthreads();
   if (role == ROLE_KIN) {
-    o.geoid_N = geoid_height(G, n_e);
+    o.geoid_N = REFRESH_GEOID ? geoid_height(G, n_e) : c(r_ctx + CX_GEOID);
   } else {
     Kin<T> kin;
     Air<T> air;
@@ -1352,24 +1297,19 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
       V3<T> v_safe;
       alpha_gated(air, alpha, beta, v_safe);
       o.s.stall = alpha > P[P_AE + AE_stall_hi] ||
-                  (c(r_ctx + CX_SSYS + SS_STALL).v != 0 &&
-                   alpha >= P[P_AE + AE_stall_lo]);
+                  (in.s.stall && alpha >= P[P_AE + AE_stall_lo]);
     } else if (role == ROLE_ENG) {
       const T* M = P + P_MS;
       const bool fuel_available =
           fuel_m_total(M, xn[PW_FUEL]) - M[MS_M_RES] > T(0);
-      o.s.state = engine_step(
-          P, int(c(r_ctx + CX_SSYS + SS_STATE).v), xn[PW_OMEGA],
-          c(r_ctx + CX_USYS + US_E_START).v != 0,
-          c(r_ctx + CX_USYS + US_E_STOP).v != 0, fuel_available);
+      o.s.state = engine_step(P, in.s.state, xn[PW_OMEGA],
+                              in.u[US_E_START].v != 0,
+                              in.u[US_E_STOP].v != 0, fuel_available);
     } else if (role >= ROLE_LEG0) {
       const int leg = role - ROLE_LEG0;
-      T u[N_USYS];
-      load_usys(c, r_ctx + CX_USYS, u);
-      const T steering = leg == 2 ? actuation(u).steering : T(0.0);
-      const Trn<T> trn = load_trn(c, r_ctx + CX_TRN);
+      const T steering = leg == 2 ? actuation(in.u).steering : T(0.0);
       const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steering, kin,
-                                  trn.elevation, trn.normal);
+                                  in.trn.elevation, in.trn.normal);
       if (!st.wow) xn[0] = xn[1] = T(0.0);
       const bool crash = (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
                          -st.xi_dot > T(XI_DOT_MAX);
@@ -1378,10 +1318,9 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
   }
   __syncthreads();
   if (role == ROLE_KIN) {
-    o.s.crashed = c(r_ctx + CX_SSYS + SS_CRASHED).v != 0 ||
-                  si(SH_CRASH).v != 0 || si(SH_CRASH + 1).v != 0 ||
+    o.s.crashed = crashed || si(SH_CRASH).v != 0 || si(SH_CRASH + 1).v != 0 ||
                   si(SH_CRASH + 2).v != 0;
-    o.term = T(c(r_ctx + CX_TERM).v != 0 || o.s.crashed ? 1.0 : 0.0);
+    o.term = T(term || o.s.crashed ? 1.0 : 0.0);
   }
 }
 

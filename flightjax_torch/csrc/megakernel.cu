@@ -88,8 +88,8 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   FinishOut<T> f;
   load_slots(sx, 0, t.role, x);
   load_slots(ss, 0, t.role, acc);
-  finish_roles(sP, G, sh, t, x, acc, T(dt / 6.0), comp != 0, c, MG_CTX, MG_C,
-               xn, f);
+  finish_roles<true>(sP, G, sh, t, x, acc, T(dt / 6.0), comp != 0, c, MG_CTX,
+                     MG_C, xn, f);
   if (!t.valid) return;  // past the last barrier
 
   store_slots(o, MG_X, t.role, xn);

@@ -10,17 +10,31 @@
 // `k_ldg0..2` (make_leg_lane, :327-341) and `k_pwp` (k2c_lane, :359-374).
 // The TPU split the cluster only because the Mosaic compile helper ran out
 // of memory on it (clusterstep.py:322-324); nvcc builds it whole, and the
-// fine parts are the __device__ functions of c172_systems.cuh, called in
-// the fine split's order. Plain PyTorch version:
+// fine parts run side by side as roles of one block (below). Plain PyTorch
+// version:
 // flightjax_torch/parallel/kernels.py::systems_plain.
 //
-// What bounds it on the H100: one thread per aircraft, 116 inputs and 34
-// outputs per lane (2.4 MB in float32 at B = 4096), ~20 table lookups and
-// three gear legs of quaternion algebra, a few thousand flops per lane. It
-// is bound by launch latency and occupancy at this width, not by bandwidth
-// or FLOPs; the tables (~25 KB) stay in L1/L2. 4096 threads in 128-thread
-// blocks occupy 32 of the 132 SMs; PERF.md records the block sizes measured
-// on the card.
+// What bounds it on the H100: neither bytes (116 input and 34 output rows
+// per lane, 2.4 MB in float32 at B = 4096, ~0.7 us of HBM) nor operations
+// (a few thousand per lane), but the chain of one aircraft's systems:
+// actuation, aero with about twenty table lookups, three gear legs of
+// quaternion algebra, the engine, the propeller and the mass sum. With one
+// thread per aircraft that chain ran in a row, in 32 of the 132 SMs.
+//
+// What the design does about it: several threads carry one aircraft, one
+// warp per subsystem (the roles of c172_systems.cuh, the same source
+// rk4_stage and the megakernel run: subsystem_roles). A block of `lanes`
+// aircraft runs N_ROLES x lanes threads; the chain is the longest
+// subsystem instead of all of them, and eight times as many warps are
+// resident. Each role forms the stage state x + adt k of its own rows and
+// stores its own rows of the derivative. Role KIN, which owns no rows here,
+// shares the KinData and AirData rows the systems read and, after the
+// second barrier, sums the wrench in the one-thread order, so the result is
+// bit-identical to it; role PROP stores the mass properties and the rotor
+// momentum. The parameter buffer with its tables is copied into shared
+// memory once per block. A ragged last block masks its stores; no thread
+// leaves before the barriers. PERF.md records ptxas's registers and the
+// times on the card.
 #include "c172_systems.cuh"
 
 using namespace fj;
@@ -35,60 +49,87 @@ constexpr int SO_DOT = 0, SO_MP = N_XSYS, SO_WR = SO_MP + N_MP,
               SO_HR = SO_WR + N_WR;
 
 template <typename T>
-__global__ void systems_kernel(const T* __restrict__ in,
-                               const T* __restrict__ P, T* __restrict__ out,
-                               int B, T adt) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Col<T> c{in, B, b};
-  const Out<T> o{out, B, b};
+__global__ void __launch_bounds__(N_ROLES * MAX_LANES)
+    systems_kernel(const T* __restrict__ in, const T* __restrict__ P,
+                   T* __restrict__ out, int B, int n_params, T adt) {
+  T* sP = block_shared<T>();
+  T* sh = sP + n_params;
+  share_params(P, n_params, sP);  // published by the first barrier
+  const RoleThread t = role_thread(B);
+  const Col<T> c{in, B, t.b};
+  const T alive = T(1.0) - c(SI_TERM);
+  // the stage state of the role's rows; a role's slots hold rows of X, the
+  // systems' rows from X_SYS on (role KIN owns none of them)
+  T xi[N_SLOTS], d[N_SLOTS];
+#pragma unroll
+  for (int k = 0; k < N_SLOTS; ++k) xi[k] = d[k] = T(0);
+  T tau_shaft;
+  if (t.role == ROLE_KIN) {
+    share_kin_air(Out<T>{sh, t.L, t.lane}, load_kin(c, SI_KIN),
+                  load_air(c, SI_AIR));
+  } else {
+    T x[N_SLOTS], kp[N_SLOTS];
+    load_slots(c, SI_X - X_SYS, t.role, x);
+    load_slots(c, SI_K - X_SYS, t.role, kp);
+#pragma unroll
+    for (int k = 0; k < N_SLOTS; ++k) xi[k] = x[k] + adt * kp[k];
+    subsystem_roles_share(sh, t, xi);
+  }
+  __syncthreads();
+  if (t.role != ROLE_KIN)
+    subsystem_roles(sP, sh, t, xi, c, SI_U, SI_S, SI_TRN, alive, tau_shaft,
+                    d);
+  __syncthreads();
+  subsystem_roles_shaft(sP, sh, t, alive, tau_shaft, d);
+  if (!t.valid) return;  // past the last barrier
 
-  // stage state x + adt k
-  T xi[N_XSYS];
+  const Col<T> si{sh, t.L, t.lane};
+  const Out<T> o{out, B, t.b};
+  if (t.role == ROLE_KIN) {
+    V3<T> F_b, tau_b;
+    role_wrench(si, F_b, tau_b);
+    o.v3(SO_WR, F_b);
+    o.v3(SO_WR + 3, tau_b);
+    return;
+  }
+  store_slots(o, SO_DOT - X_SYS, t.role, d);
+  if (t.role == ROLE_PROP) {
+    const MP<T> mp = role_mp(si);
+    o.s(SO_MP, mp.m);
 #pragma unroll
-  for (int r = 0; r < N_XSYS; ++r) xi[r] = c(SI_X + r) + adt * c(SI_K + r);
-  T u[N_USYS];
+    for (int i = 0; i < 3; ++i)
 #pragma unroll
-  for (int r = 0; r < N_USYS; ++r) u[r] = c(SI_U + r);
-  T dot[N_XSYS];
-  MP<T> mp;
-  V3<T> F_b, tau_b, hr_b;
-  systems_lane(P, xi, u, load_ssys(c, SI_S), load_trn(c, SI_TRN),
-               load_kin(c, SI_KIN), load_air(c, SI_AIR), T(1.0) - c(SI_TERM),
-               dot, mp, F_b, tau_b, hr_b);
-
-#pragma unroll
-  for (int r = 0; r < N_XSYS; ++r) o.s(SO_DOT + r, dot[r]);
-  o.s(SO_MP, mp.m);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) o.s(SO_MP + 1 + 3 * i + j, mp.J.m[i][j]);
-  o.v3(SO_MP + 10, mp.r);
-  o.v3(SO_WR, F_b);
-  o.v3(SO_WR + 3, tau_b);
-  o.v3(SO_HR, hr_b);
+      for (int j = 0; j < 3; ++j) o.s(SO_MP + 1 + 3 * i + j, mp.J.m[i][j]);
+    o.v3(SO_MP + 10, mp.r);
+    o.v3(SO_HR, si.v3(SH_HR));
+  }
 }
 
 template <typename T>
 static int launch(const void* in, const void* params, void* out, int B,
-                  double adt, int block, void* stream) {
+                  int n_params, double adt, int lanes, void* stream) {
   if (B <= 0) return 0;
-  if (block <= 0 || block > 1024) return (int)cudaErrorInvalidValue;
-  const int grid = (B + block - 1) / block;
-  systems_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (const T*)params, (T*)out, B, T(adt));
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, n_params, (int)sizeof(T), SH_N);
+  // the attribute belongs to the device in use, so every launch sets it
+  const cudaError_t err = cudaFuncSetAttribute(
+      systems_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      l.shared);
+  if (err != cudaSuccess) return (int)err;
+  systems_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
+      (const T*)in, (const T*)params, (T*)out, B, n_params, T(adt));
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 int systems_f32(const void* in, const void* params, void* out, int B,
-                double adt, int block, void* stream) {
-  return launch<SF>(in, params, out, B, adt, block, stream);
+                int n_params, double adt, int lanes, void* stream) {
+  return launch<SF>(in, params, out, B, n_params, adt, lanes, stream);
 }
 int systems_f64(const void* in, const void* params, void* out, int B,
-                double adt, int block, void* stream) {
-  return launch<SD>(in, params, out, B, adt, block, stream);
+                int n_params, double adt, int lanes, void* stream) {
+  return launch<SD>(in, params, out, B, n_params, adt, lanes, stream);
 }
 void systems_layout(int* n_in, int* n_out) {
   *n_in = SYS_N_IN;

@@ -116,9 +116,10 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
     whole-vehicle kernels, `"subsystems"` the five cluster kernels
     (`Simulation.fleet_step`). `block` sizes the vehicle kernels' blocks
     (default: each kernel's own, `launch.LANES` and `launch.BLOCK`): for
-    `rk4_stage`, which carries each aircraft in several threads, it is the
-    aircraft per block, 32 or 64; for `rk4_finish` and `geoid` the threads
-    per block, at most 128. The cluster kernels run at `launch.BLOCK`."""
+    `rk4_stage` and `rk4_finish`, which carry each aircraft in several
+    threads, it is the aircraft per block, 32 or 64; for `geoid` the
+    threads per block, at most 128. The cluster kernels run at their
+    defaults."""
     if ctx != ():
         raise NotImplementedError("avionics (f_periodic) are not ported")
     vehicle = sim.system.aircraft.vehicle

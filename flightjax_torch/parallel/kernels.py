@@ -730,7 +730,8 @@ def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None):
     """The RK4 combine and World.f_step on packed buffers: `buf` from
     `pack_vehicle`, `ksum` the k-sum; returns X; s_sys; terminated; C
     (`rows(RKFIN_OUT)` rows, C zero unless `comp`). The kernel on the
-    card, the plain finish between unpack and pack on the CPU."""
+    card (`block`: aircraft per block, 32 or 64), the plain finish between
+    unpack and pack on the CPU."""
     if buf.device.type != "cpu":
         return launch_kernel("rk4_finish", buf, rows(RKFIN_OUT),
                              (dt / 6.0, int(bool(comp))),

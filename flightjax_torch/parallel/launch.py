@@ -39,7 +39,11 @@ BLOCK = 128
 # multiple of 32 up to 64. At 32, 4096 aircraft are 128 blocks of eight warps,
 # one block on each of 128 SMs (see csrc/rk4_stage.cu and PERF.md)
 LANES = 32
-ROLE_KERNELS = ("rk4_stage", "megakernel")
+ROLE_KERNELS = ("systems", "rk4_stage", "rk4_finish", "megakernel")
+# the role kernels that copy the parameter buffer into shared memory and so
+# take its length; rk4_finish reads its few scalars through the read-only
+# cache (csrc/rk4_finish.cu)
+COPY_PARAMS = ("systems", "rk4_stage", "megakernel")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -144,7 +148,7 @@ def library():
             sig = {"kinair": [P, P, I, D, I, P],
                    "dynamics": [P, P, I, I, P],
                    "finish_kin": [P, P, I, D, I, I, P],
-                   "systems": [P, P, P, I, D, I, P],
+                   "systems": [P, P, P, I, I, D, I, P],
                    "finish_sys": [P, P, P, I, D, I, P],
                    "rk4_stage": [P, P, P, P, I, I, D, I, P],
                    "rk4_finish": [P, P, P, P, I, D, I, I, P],
@@ -259,8 +263,9 @@ def role_launch_shape(name, B, lanes, n_params, elem_size):
     """(grid, threads per block, dynamic shared bytes) of the launch of
     role kernel `name` for B aircraft at `lanes` per block."""
     v = [ctypes.c_int() for _ in range(3)]
-    library().role_launch_shape(B, lanes, n_params, elem_size,
-                                int(name == "megakernel"),
+    library().role_launch_shape(B, lanes,
+                                n_params if name in COPY_PARAMS else 0,
+                                elem_size, int(name == "megakernel"),
                                 *map(ctypes.byref, v))
     return tuple(i.value for i in v)
 
@@ -304,7 +309,7 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
         check_grid(grid, dtype, device)
         ptrs.append(grid.data_ptr())
     out = torch.empty((n_out, B), dtype=dtype, device=device)
-    if name in ROLE_KERNELS:  # they copy the parameters into shared memory
+    if name in COPY_PARAMS:
         scalars = (params.numel(), *scalars)
     _run(name, fn, (*ptrs, out.data_ptr(), B, *scalars), block)
     return out

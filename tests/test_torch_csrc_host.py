@@ -6,12 +6,12 @@ A stand-in `cuda_runtime.h` maps the CUDA qualifiers, the thread indices
 and the `_rn` intrinsics onto plain C++ (no FMA contraction); each kernel
 source is cut before its launch code, which only nvcc reads. The kernels
 that carry one aircraft per thread run lane by lane, as blocks of one
-thread. The role kernels (rk4_stage, megakernel), which carry one aircraft
-in several threads that meet at barriers, run block by block with one host
-thread per CUDA thread: `__syncthreads()` is a pthread barrier and the
-block's shared memory one static buffer. A warp vote sees a warp of one
-lane, so a gear leg skips its strut exactly on the airborne lanes; whole
-warps vote in `tests/test_torch_cuda.py`. So the
+thread. The role kernels (systems, rk4_stage, rk4_finish, megakernel),
+which carry one aircraft in several threads that meet at barriers, run
+block by block with one host thread per CUDA thread: `__syncthreads()` is
+a pthread barrier and the block's shared memory one static buffer. A warp
+vote sees a warp of one lane, so a gear leg skips its strut exactly on the
+airborne lanes; whole warps vote in `tests/test_torch_cuda.py`. So the
 kernels' arithmetic, row maps, parameter buffer, role layout and barriers
 are checked here, where there is no card; `tests/test_torch_cuda.py` checks
 the compiled kernels on one. Skips without a host C++ compiler."""
@@ -107,10 +107,6 @@ void host_kinair(const double* in, const double* p, double* out, int B,
                  double adt, int) {
   LANES(kinair, (const SD*)in, (SD*)out, B, SD(adt))
 }
-void host_systems(const double* in, const double* p, double* out, int B,
-                  double adt, int) {
-  LANES(systems, (const SD*)in, (const SD*)p, (SD*)out, B, SD(adt))
-}
 void host_dynamics(const double* in, const double* p, double* out, int B,
                    double, int) {
   LANES(dynamics, (const SD*)in, (SD*)out, B)
@@ -126,16 +122,26 @@ void host_finish_sys(const double* in, const double* p, double* out, int B,
 int host_role_row(int role, int k) { return fj::role_row(role, k); }
 int host_n_roles() { return fj::N_ROLES; }
 int host_n_slots() { return fj::N_SLOTS; }
+// the role kernels but the megakernel, on one signature: k_prev or the
+// k-sum (none for systems), the step's scalar and flag (comp of rk4_finish)
+void host_systems(const double* in, const double*, const double* p,
+                  double* out, int B, int n_params, double adt, int,
+                  int lanes) {
+  BLOCKS(lanes, k_systems::systems_kernel<SD>(
+      (const SD*)in, (const SD*)p, (SD*)out, B, n_params, SD(adt)))
+}
 void host_rk4_stage(const double* in, const double* k, const double* p,
-                    double* out, int B, int n_params, double adt, int lanes) {
+                    double* out, int B, int n_params, double adt, int,
+                    int lanes) {
   BLOCKS(lanes, k_rk4_stage::rk4_stage_kernel<SD>(
       (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, n_params,
       SD(adt)))
 }
 void host_rk4_finish(const double* in, const double* k, const double* p,
-                     double* out, int B, double c6, int comp) {
-  LANES(rk4_finish, (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B,
-        SD(c6), comp)
+                     double* out, int B, int, double c6, int comp,
+                     int lanes) {
+  BLOCKS(lanes, k_rk4_finish::rk4_finish_kernel<SD>(
+      (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, SD(c6), comp))
 }
 void host_geoid(const double* in, const double*, const double* grid,
                 double* out, int B, double, int) {
@@ -215,33 +221,6 @@ def _as_wrapper_returns(name, out):
     return x2, s2
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_kernel_source_matches_plain(host_lib, operands, name):
-    args = operands[name]
-    buf, n_out, scalars, ops = K.PACK[name](*args)
-    out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
-    scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
-    params = ops.get("params")
-    getattr(host_lib, f"host_{name}")(
-        ctypes.c_void_p(buf.data_ptr()),
-        ctypes.c_void_p(None if params is None else params.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(B),
-        ctypes.c_double(scalars[0]), ctypes.c_int(scalars[1]))
-    got = _as_wrapper_returns(name, out)
-    if name in ("kinair", "systems", "dynamics"):
-        args = args[:-1] + (args[-1].to(torch.float64),)
-    ref = getattr(K, name + "_plain")(*args)
-    if name == "finish_kin":  # the kernel carries residuals either way
-        got = got[:4] + (got[4] if args[-1] is not None else None,)
-    g, r = tree_leaves_with_path(got), tree_leaves_with_path(ref)
-    assert [p for p, _ in g] == [p for p, _ in r]
-    for (p, a), (_, b) in zip(g, r):
-        assert a.dtype == b.dtype and a.shape == b.shape, p
-        err = ((a.double() - b.double()).abs()
-               / b.double().abs().clamp_min(1.0)).max()
-        assert float(err) <= TOL, (p, float(err))
-
-
 def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -256,44 +235,86 @@ def _assert_trees_close(got, ref):
         assert float(err) <= TOL, (p, float(err))
 
 
-def _run_rk4_stage(host_lib, args, lanes):
-    """rk4_stage's source on the wrapper's arguments, block by block."""
-    buf, n_out, scalars, ops = K.PACK["rk4_stage"](*args)
-    batch = buf.shape[1]
+def _run_role(host_lib, name, args, lanes):
+    """The source of role kernel `name` (systems, rk4_stage, rk4_finish) on
+    the wrapper's arguments, block by block at `lanes` aircraft per block;
+    returns its packed output."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    batch, params = buf.shape[1], ops["params"]
     out = torch.full((n_out, batch), float("nan"), dtype=torch.float64)
-    host_lib.host_rk4_stage(
-        _ptr(buf), _ptr(ops["k"]), _ptr(ops["params"]), _ptr(out),
-        ctypes.c_int(batch), ctypes.c_int(ops["params"].numel()),
-        ctypes.c_double(scalars[0]), ctypes.c_int(lanes))
-    return K._x_tree(K.unpack(K.STAGE_OUT, out))
+    getattr(host_lib, f"host_{name}")(
+        _ptr(buf), _ptr(ops.get("k")), _ptr(params), _ptr(out),
+        ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(scalars[0]),
+        ctypes.c_int(scalars[1] if len(scalars) > 1 else 0),
+        ctypes.c_int(lanes))
+    return out
 
 
-@pytest.mark.parametrize("name,comp", [("rk4_stage", False),
-                                       ("rk4_finish", False),
-                                       ("rk4_finish", True),
-                                       ("geoid", False)],
-                         ids=["rk4_stage", "rk4_finish", "rk4_finish-comp",
-                              "geoid"])
+def _run_rk4_stage(host_lib, args, lanes):
+    return K._x_tree(K.unpack(K.STAGE_OUT,
+                              _run_role(host_lib, "rk4_stage", args, lanes)))
+
+
+# batches that are no multiple of the aircraft per block: a ragged only
+# block, a full block and a ragged one, and the same at 64 per block
+RAGGED = [(37, 32), (24, 64), (70, 64)]
+RAGGED_IDS = [f"B{b}-L{n}" for b, n in RAGGED]
+
+
+# the kernels at B, systems (a role kernel, 32 aircraft per block) also on
+# the ragged batches
+@pytest.mark.parametrize(
+    "name,batch,lanes",
+    [(n, B, 32) for n in NAMES] + [("systems", b, n) for b, n in RAGGED],
+    ids=[*NAMES, *(f"systems-{i}" for i in RAGGED_IDS)])
+def test_kernel_source_matches_plain(host_lib, operands, name, batch,
+                                     lanes):
+    args = (operands if batch == B else _operands(batch))[name]
+    if name == "systems":
+        out = _run_role(host_lib, name, args, lanes)
+    else:
+        buf, n_out, scalars, ops = K.PACK[name](*args)
+        out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
+        scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
+        getattr(host_lib, f"host_{name}")(
+            _ptr(buf), _ptr(ops.get("params")), _ptr(out), ctypes.c_int(B),
+            ctypes.c_double(scalars[0]), ctypes.c_int(scalars[1]))
+    got = _as_wrapper_returns(name, out)
+    if name in ("kinair", "systems", "dynamics"):
+        args = args[:-1] + (args[-1].to(torch.float64),)
+    ref = getattr(K, name + "_plain")(*args)
+    if name == "finish_kin":  # the kernel carries residuals either way
+        got = got[:4] + (got[4] if args[-1] is not None else None,)
+    _assert_trees_close(got, ref)
+
+
+# the whole-vehicle kernels at B, rk4_finish also on the ragged batches
+# with and without residuals
+@pytest.mark.parametrize(
+    "name,comp,batch,lanes",
+    [("rk4_stage", False, B, 32), ("rk4_finish", False, B, 32),
+     ("rk4_finish", True, B, 32), ("geoid", False, B, 32)]
+    + [("rk4_finish", comp, b, n) for b, n in RAGGED
+       for comp in (False, True)],
+    ids=["rk4_stage", "rk4_finish", "rk4_finish-comp", "geoid"]
+    + [f"rk4_finish{'-comp' if comp else ''}-{i}" for i in RAGGED_IDS
+       for comp in (False, True)])
 def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
-                                             comp):
-    args = operands[name]
+                                             comp, batch, lanes):
+    args = (operands if batch == B else _operands(batch))[name]
     if name == "rk4_finish" and not comp:
         args = args[:-1] + (None,)
     if name == "rk4_stage":
-        got = _run_rk4_stage(host_lib, args, 32)
-        _assert_trees_close(got, K.rk4_stage_plain(*args))
-        return
-    buf, n_out, scalars, ops = K.PACK[name](*args)
-    out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
-    scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
-    getattr(host_lib, f"host_{name}")(
-        _ptr(buf), _ptr(ops.get("k")),
-        _ptr(ops.get("params", ops.get("grid"))), _ptr(out),
-        ctypes.c_int(B), ctypes.c_double(scalars[0]),
-        ctypes.c_int(scalars[1]))
-    if name == "rk4_finish":
-        got = K.unpack_finish(out, comp)
+        got = _run_rk4_stage(host_lib, args, lanes)
+    elif name == "rk4_finish":
+        got = K.unpack_finish(_run_role(host_lib, name, args, lanes), comp)
     else:
+        buf, n_out, _, ops = K.PACK[name](*args)
+        out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
+        host_lib.host_geoid(_ptr(buf), _ptr(None), _ptr(ops["grid"]),
+                            _ptr(out), ctypes.c_int(B), ctypes.c_double(0.0),
+                            ctypes.c_int(0))
         got = out[0]
     _assert_trees_close(got, getattr(K, name + "_plain")(*args))
 
@@ -308,13 +329,7 @@ def test_roles_partition_the_state(host_lib):
     assert owned == list(range(K.rows(K.X_GROUPS)))
 
 
-# batches that are no multiple of the aircraft per block: a ragged only
-# block, a full block and a ragged one, and the same at 64 per block
-RAGGED = [(37, 32), (24, 64), (70, 64)]
-
-
-@pytest.mark.parametrize("batch,lanes", RAGGED,
-                         ids=[f"B{b}-L{n}" for b, n in RAGGED])
+@pytest.mark.parametrize("batch,lanes", RAGGED, ids=RAGGED_IDS)
 def test_rk4_stage_source_ragged_batch(host_lib, batch, lanes):
     args = _operands(batch)["rk4_stage"]
     _assert_trees_close(_run_rk4_stage(host_lib, args, lanes),
@@ -357,7 +372,6 @@ def test_megakernel_source_matches_plain(host_lib, comp):
 
 @pytest.mark.parametrize("comp", [False, True],
                          ids=["uncompensated", "compensated"])
-@pytest.mark.parametrize("batch,lanes", RAGGED,
-                         ids=[f"B{b}-L{n}" for b, n in RAGGED])
+@pytest.mark.parametrize("batch,lanes", RAGGED, ids=RAGGED_IDS)
 def test_megakernel_source_ragged_batch(host_lib, batch, lanes, comp):
     _check_megakernel(host_lib, batch, lanes, comp)

@@ -1,8 +1,9 @@
 """The CUDA kernels of flightjax_torch against their plain PyTorch versions
 on the same card tensors, at the fleet width B = 4096: float64 to 1e-12 and
 float32 to 1e-5 (relative to max(1, |plain|); a few ulp of the long
-transcendental chains); the two role kernels (rk4_stage, megakernel) at 32
-and 64 aircraft per block and on batches that are no multiple of either;
+transcendental chains); the role kernels (systems, rk4_stage, rk4_finish,
+megakernel) at 32 and 64 aircraft per block and on batches that are no
+multiple of either;
 and the two whole-step entry points, a few steps against their plain paths.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
@@ -15,6 +16,7 @@ import torch
 from flightjax_torch.core.modeling import tree_leaves_with_path
 from flightjax_torch.models.c172.c172s import build_vehicle
 from flightjax_torch.parallel import kernels as K
+from flightjax_torch.physics.dynamics import MassProps, Wrench
 from flightjax_torch.testing import cluster_operands, perturbed_fleet_sim
 
 B = 4096
@@ -106,20 +108,39 @@ ROLE_SHAPES = [(B, 32), (B, 64), (37, 32), (70, 64)]
 ROLE_IDS = [f"B{b}-L{n}" for b, n in ROLE_SHAPES]
 
 
+# the role kernels the wrappers launch, rk4_finish with and without
+# residuals
+ROLE_NAMES = [("systems", False), ("rk4_stage", False), ("rk4_finish", False),
+              ("rk4_finish", True)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,comp", ROLE_NAMES,
+                         ids=["systems", "rk4_stage", "rk4_finish",
+                              "rk4_finish-comp"])
 @pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
 @pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
-def test_rk4_stage_lanes_per_block_on_card(batch, lanes, dtype, tol):
+def test_role_kernel_lanes_per_block_on_card(name, comp, batch, lanes, dtype,
+                                             tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     vehicle = build_vehicle(device="cuda", dtype=dtype)
     args = K.operand_args(cluster_operands(batch, 1016, (3, 17), (5,)),
-                          vehicle, "cuda", dtype)["rk4_stage"]
-    buf, n_out, scalars, ops = K.pack_rk4_stage(*args)
-    got = K.rk4_stage_packed(vehicle, buf, ops["k"], scalars[0], block=lanes)
-    ref = K.rk4_stage_plain(*args)
+                          vehicle, "cuda", dtype)[name]
+    if name == "rk4_finish" and not comp:
+        args = args[:-1] + (None,)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    out = K.launch_kernel(name, buf, n_out, scalars, ops, block=lanes)
+    ref = getattr(K, name + "_plain")(*args)
     torch.cuda.synchronize()
-    assert _worst(K._x_tree(K.unpack(K.STAGE_OUT, got)), ref) <= tol
+    if name == "systems":
+        dot, mp, wr, hr = K.unpack(K.SYS_OUT, out)
+        got = dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
+    elif name == "rk4_stage":
+        got = K._x_tree(K.unpack(K.STAGE_OUT, out))
+    else:
+        got = K.unpack_finish(out, comp)
+    assert _worst(got, ref) <= tol
 
 
 @pytest.mark.cuda
