@@ -23,8 +23,10 @@ Phases:
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
    max(1, |plain|)): the eight other kernels on the cluster operands (lanes
    on each runway surface, a terminated lane, stalled lanes, every engine
-   state), and one megakernel step on the same fleet, with and without
-   residuals;
+   state), kinair and dynamics also on the ISA-layer operands (heights in
+   every ISA layer and on the first layer's ceiling, NaN sea-level
+   temperatures: NaN where plain is NaN), and one megakernel step on the
+   same fleet, with and without residuals;
 4. the paths: the trimmed C172S flagship at 4096 perturbed aircraft in
    float32, each path from its launch counts set to 0 to their reading
    just after: `subsystems` 100 steps (from step 28, so the refresh at step
@@ -39,7 +41,7 @@ Phases:
    inside a captured CUDA graph of 20 launches, so it is the card's time
    and not the host's launch rate; the time by CUDA events around 20
    launches from Python stands beside it (`event_ms`). The role kernels
-   (systems, rk4_stage, rk4_finish, megakernel: several threads per
+   (kinair, systems, rk4_stage, rk4_finish, megakernel: several threads per
    aircraft) also by aircraft per block (32, 64), on the airborne flight
    fleet (`airborne_ms`) and on the kernel-check operands with lanes on
    the runway (`runway_ms`), beside an empty kernel launched the same way,
@@ -130,9 +132,15 @@ def code_bytes(nvcc, so):
     return sorted((name, int(size, 16)) for size, name in found)
 
 
-def rel_err(got, ref):
-    """max |got - ref| / max(1, |ref|) over all elements."""
+def rel_err(got, ref, equal_nan=False):
+    """max |got - ref| / max(1, |ref|) over all elements; with `equal_nan`,
+    NaN where `ref` is NaN counts as equal, NaN anywhere else as infinitely
+    far."""
     g, r = got.double(), ref.double()
+    if equal_nan:
+        if not torch.equal(g.isnan(), r.isnan()):
+            return float("inf")
+        g, r = g[~r.isnan()], r[~r.isnan()]
     return float(((g - r).abs() / r.abs().clamp_min(1.0)).max())
 
 
@@ -263,6 +271,26 @@ def kernel_inputs(dtype):
                         DEVICE, dtype, adt=0.01, dt=0.02)
 
 
+def isa_inputs(dtype):
+    """The operands of kinair and dynamics on the ISA-layer fleet
+    (`testing.isa_layer_operands`) at B lanes, on the card."""
+    from flightjax_torch.models.c172.c172s import build_vehicle
+    from flightjax_torch.parallel.kernels import operand_args
+    from flightjax_torch.testing import isa_layer_operands
+    return operand_args(isa_layer_operands(B, SEED),
+                        build_vehicle(device=DEVICE, dtype=dtype), DEVICE,
+                        dtype, adt=0.01, dt=0.02)
+
+
+def unpacked(name, ref):
+    """The plain result of kinair or dynamics in the form `K.unpack` gives
+    the kernel's output: a list of dicts of its row groups."""
+    if name == "dynamics":
+        return [ref]
+    kin_dot, kin, air, xi_dyn = ref
+    return [kin_dot, kin._asdict(), air._asdict(), xi_dyn]
+
+
 def mega_inputs(dtype, comp):
     """(sim, SimState) of the cluster operands' fleet at step 126, with
     zero residuals when `comp`."""
@@ -276,10 +304,11 @@ def mega_inputs(dtype, comp):
 
 
 def flight_operands(sim, st, adt=0.01):
-    """The packed operands (as `K.PACK` gives them) of systems, rk4_stage
-    and rk4_finish on the airborne flight fleet `st`: the two stage kernels
-    at x + adt k1, k1 the fleet's derivative, rk4_finish with the k-sum
-    6 k1, uncompensated as the vehicle path runs it."""
+    """The packed operands (as `K.PACK` gives them) of kinair, systems,
+    dynamics, rk4_stage and rk4_finish on the airborne flight fleet `st`:
+    the stage kernels at x + adt k1, k1 the fleet's derivative (dynamics on
+    the mass properties and wrench the systems give there), rk4_finish
+    with the k-sum 6 k1, uncompensated as the vehicle path runs it."""
     from flightjax_torch.core.modeling import tree_map
     from flightjax_torch.parallel import kernels as K
     vehicle = sim.system.aircraft.vehicle
@@ -287,12 +316,16 @@ def flight_operands(sim, st, adt=0.01):
     term = st.s["terminated"].to(xv["kinematics"]["h_e"].dtype)
     k1 = K.rk4_stage_plain(vehicle, xv, tree_map(torch.zeros_like, xv), uv,
                            sv, term, 0.0)
-    _, kin, air, _ = K.kinair_plain(
-        xv["kinematics"], xv["dynamics"], k1["kinematics"], k1["dynamics"],
-        sv["geoid_N"], uv["atm"], adt, term)
-    return {"systems": K.pack_systems(vehicle, xv["systems"], k1["systems"],
-                                      uv["systems"], sv["systems"],
-                                      uv["trn"], kin, air, adt, term),
+    kin_args = (xv["kinematics"], xv["dynamics"], k1["kinematics"],
+                k1["dynamics"], sv["geoid_N"], uv["atm"], adt, term)
+    _, kin, air, xi_dyn = K.kinair_plain(*kin_args)
+    sys_args = (vehicle, xv["systems"], k1["systems"], uv["systems"],
+                sv["systems"], uv["trn"], kin, air, adt, term)
+    _, mp, wr, hr = K.systems_plain(*sys_args)
+    return {"kinair": K.pack_kinair(*kin_args),
+            "systems": K.pack_systems(*sys_args),
+            "dynamics": K.pack_dynamics(xi_dyn, mp, wr, hr, kin.q_eb,
+                                        kin.r_eb_e, term),
             "rk4_stage": K.pack_rk4_stage(vehicle, xv, k1, uv, sv, term,
                                           adt),
             "rk4_finish": K.pack_rk4_finish(
@@ -458,10 +491,10 @@ def main():
     # 3. per-kernel checks (f64 at 1e-12, f32 at 1e-5)
     errs = {}
 
-    def check(name, dtype, tol, pairs, what=""):
+    def check(name, dtype, tol, pairs, what="", equal_nan=False):
         worst = 0.0
         for p, a, b in pairs:
-            e = rel_err(a, b)
+            e = rel_err(a, b, equal_nan)
             worst = max(worst, e)
             if not e <= tol:
                 raise AssertionError(f"{name}{what} {dtype} {p}: {e} > {tol}")
@@ -469,7 +502,7 @@ def main():
             f"(tol {tol})")
         if dtype == torch.float32:
             errs[name] = max(errs.get(name, 0.0), *(
-                float((a.double() - b.double()).abs().max())
+                float((a.double() - b.double())[~b.isnan()].abs().max())
                 for _, a, b in pairs))
 
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
@@ -479,6 +512,20 @@ def main():
             got, ref = kern(*args[name]), plain(*args[name])
             torch.cuda.synchronize()
             check(name, dtype, tol, float_pairs(got, ref))
+        # kinair and dynamics on the ISA-layer operands at both block sizes
+        # (aircraft per block for kinair, threads for dynamics)
+        isa = isa_inputs(dtype)
+        for name in ("kinair", "dynamics"):
+            ref = getattr(K, name + "_plain")(*isa[name])
+            for lanes in (32, 64):
+                buf, n_out, scal, ops = K.PACK[name](*isa[name])
+                out = L.launch(name, buf, n_out, scal, block=lanes, **ops)
+                got = K.unpack(K.KINAIR_OUT if name == "kinair"
+                               else K.DYN_OUT, out)
+                torch.cuda.synchronize()
+                check(name, dtype, tol, float_pairs(
+                    got, unpacked(name, ref)),
+                    f" (ISA layers, block {lanes})", equal_nan=True)
         for comp in (False, True):
             sim, st = mega_inputs(dtype, comp)
             bufs, step_packed, unpack = make_megakernel_step(sim, st)

@@ -793,12 +793,10 @@ __device__ __forceinline__ Trn<T> load_trn(const Col<T>& c, int r) {
 
 // ------------------------------------------------------------- roles
 // The C172 with several threads per aircraft (systems, rk4_stage,
-// rk4_finish, megakernel). A block carries L neighbouring aircraft (lanes)
-// in N_ROLES groups of L threads, L a multiple of the warp, so every warp
-// runs one role for 32 neighbouring aircraft: thread = role * L + lane.
-// The subsystems read only the kinematics, the air data, the inputs and
-// their own states, and meet again in the wrench and mass sums, so they
-// run side by side:
+// rk4_finish, megakernel), in the role layout of flight_math.cuh with
+// N_ROLES roles. The subsystems read only the kinematics, the air data,
+// the inputs and their own states, and meet again in the wrench and mass
+// sums, so they run side by side:
 //
 //   ROLE_KIN    kinematics, air data; the sums and the dynamics (in
 //               systems: it shares the KinData and AirData it is given)
@@ -823,7 +821,7 @@ __device__ __forceinline__ Trn<T> load_trn(const Col<T>& c, int r) {
 // block's scratch in shared memory, [SH_N, L] values laid out like the
 // global buffers, and two barriers per derivative.
 
-constexpr int N_ROLES = 8, MAX_LANES = 64;
+constexpr int N_ROLES = 8;
 constexpr int ROLE_KIN = 0, ROLE_AERO = 1, ROLE_DRAG = 2, ROLE_ENG = 3,
               ROLE_PROP = 4, ROLE_LEG0 = 5;
 constexpr int N_SLOTS = N_XKIN + N_XDYN;  // the most rows one role owns
@@ -858,16 +856,13 @@ __device__ __forceinline__ T* block_shared() {
   return reinterpret_cast<T*>(fj_shared);
 }
 
-// grid, threads per block and dynamic shared bytes of a launch of B
-// aircraft at `lanes` per block, for elements of elem_size bytes and a
-// scratch of sh_rows rows
-struct RoleLaunch {
-  int grid, block, shared;
-};
+// the launch of B aircraft at `lanes` per block, for elements of elem_size
+// bytes: the block's dynamic shared memory holds the parameter buffer
+// (n_params values), then a scratch of sh_rows rows
 inline RoleLaunch role_launch(int B, int lanes, int n_params, int elem_size,
                               int sh_rows) {
-  return {(B + lanes - 1) / lanes, N_ROLES * lanes,
-          (n_params + sh_rows * lanes) * elem_size};
+  return role_launch(B, lanes, N_ROLES,
+                     (n_params + sh_rows * lanes) * elem_size);
 }
 
 // row of X in slot k of a role, -1 past its rows
@@ -882,23 +877,9 @@ __device__ __forceinline__ int role_row(int role, int k) {
   return -1;  // ROLE_DRAG, ROLE_PROP
 }
 
-// a thread of the role layout: its lane and role, the aircraft it carries
-// (the last one again past a ragged edge, so every thread reaches every
-// barrier; `valid` masks the stores)
-struct RoleThread {
-  int L, lane, role, b;
-  bool valid;
-};
-
+// a thread of the C172 role layout
 __device__ __forceinline__ RoleThread role_thread(int B) {
-  RoleThread t;
-  t.L = blockDim.x / N_ROLES;
-  t.lane = threadIdx.x % t.L;
-  t.role = threadIdx.x / t.L;
-  const int b = blockIdx.x * t.L + t.lane;
-  t.valid = b < B;
-  t.b = t.valid ? b : B - 1;
-  return t;
+  return role_thread(B, N_ROLES);
 }
 
 // copy the parameter buffer into shared memory, all threads of the block,

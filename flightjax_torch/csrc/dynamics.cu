@@ -14,7 +14,10 @@
 // inputs and 6 outputs per lane: at B = 4096 a call moves 0.7 MB in
 // float32, so it is bound by launch latency and occupancy, not by
 // bandwidth or FLOPs. 4096 threads in 128-thread blocks occupy only 32 of
-// the 132 SMs; PERF.md records the block sizes measured on the card.
+// the 132 SMs; PERF.md records the block sizes measured on the card. Two
+// warps per 32 aircraft (the geodetic inverse and gravity beside the solve,
+// omega_dot crossing at one barrier) measured no faster on the H100
+// (PERF.md, tools/ablate_torch_roles.py `dynamics_roles`).
 #include "flight_math.cuh"
 
 using namespace fj;

@@ -69,6 +69,13 @@ constexpr int N_UATM = 5;
 // KinData: e_nb 3, q_nb 4, q_eb 4, q_en 4, lat, lon, n_e 3, h_e, h_o,
 // r_eb_e 3, omega_wb_b 3, omega_eb_b 3, v_eb_b 3, v_eb_n 3, v_gnd, chi, gamma
 constexpr int N_KIN = 40;
+// the first row of each KinData field
+enum KinRow : int {
+  KR_E_NB = 0, KR_Q_NB = 3, KR_Q_EB = 7, KR_Q_EN = 11, KR_LAT = 15,
+  KR_LON = 16, KR_N_E = 17, KR_H_E = 20, KR_H_O = 21, KR_R_EB_E = 22,
+  KR_OM_WB = 25, KR_OM_EB = 28, KR_V_EB_B = 31, KR_V_EB_N = 34,
+  KR_V_GND = 37, KR_CHI = 38, KR_GAMMA = 39
+};
 // AirData: v_ew_n 3, v_ew_b 3, v_wb_b 3, T p rho a mu M Tt pt Dp q TAS EAS CAS
 constexpr int N_AIR = 22;
 
@@ -546,7 +553,16 @@ __device__ __forceinline__ T gravity(V3<T> n_e, T h) {
 // ------------------------------------------------------------- atmosphere
 // flightjax/physics/atmosphere.py
 
-template <typename T>
+// With SKIP_ABOVE, a layer above the first is skipped where its dh is 0,
+// that is in every layer above the aircraft: its library call then changes
+// nothing, bit for bit. Tk there is finite and positive or NaN (T_sl is
+// clamped to 238.15-338.15 K, so the layers keep it above 160 K), and if it
+// is NaN the first layer has already made p NaN. So beta / Tk * 0 is +-0,
+// 1 + (+-0) = 1, pow(1, y) = 1 and exp(+-0) = 1 exactly, p * 1 = p and
+// Tk + beta * 0 = Tk. A NaN height gives a NaN dh, which is not 0, so the
+// layer runs. The first layer always runs: at dh = 0 it is what carries a
+// NaN T_sl into p.
+template <bool SKIP_ABOVE = false, typename T>
 __device__ __forceinline__ void isa_data(T h, T T_sl, T p_sl, T& Tk, T& p) {
   // (lapse rate [K/m], ceiling geopotential altitude [m]) per layer
   constexpr double isa_beta[7] = {-6.5e-3, 0.0, 1e-3, 2.8e-3, 0.0, -2.8e-3,
@@ -561,12 +577,14 @@ __device__ __forceinline__ void isa_data(T h, T T_sl, T p_sl, T& Tk, T& p) {
     const double beta = isa_beta[i], h_ceil = isa_ceil[i];
     const T dh = (i == 0) ? clamp_max(h, T(h_ceil)) - T(h_base)
                           : clamp(h, T(h_base), T(h_ceil)) - T(h_base);
-    if (beta != 0.0) {
-      const T T_new = Tk + T(beta) * dh;
-      p = p * Pow(T(1) + T(beta) / Tk * dh, T(-G_STD / (beta * R_GAS)));
-      Tk = T_new;
-    } else {
-      p = p * Exp(T(-G_STD) / (T(R_GAS) * Tk) * dh);
+    if (!(SKIP_ABOVE && i > 0 && dh == T(0))) {
+      if (beta != 0.0) {
+        const T T_new = Tk + T(beta) * dh;
+        p = p * Pow(T(1) + T(beta) / Tk * dh, T(-G_STD / (beta * R_GAS)));
+        Tk = T_new;
+      } else {
+        p = p * Exp(T(-G_STD) / (T(R_GAS) * Tk) * dh);
+      }
     }
     h_base = h_ceil;
   }
@@ -665,15 +683,16 @@ struct Air {
   T Tk, p, rho, a, mu, M, Tt, pt, Dp, q, TAS, EAS, CAS;
 };
 
-// SimpleAtmosphere.atmospheric_data + air_data (no gust field)
-template <typename T>
+// SimpleAtmosphere.atmospheric_data + air_data (no gust field); it reads
+// h_o, q_nb and v_eb_b of k. SKIP_ABOVE: that of isa_data
+template <bool SKIP_ABOVE = false, typename T>
 __device__ __forceinline__ Air<T> atm_air(const Kin<T>& k, T T_sl, T p_sl,
                                           V3<T> wind) {
   Air<T> o;
   T_sl = clamp(T_sl, T(T_SL_MIN), T(T_SL_MAX));
   p_sl = clamp(p_sl, T(P_SL_MIN), T(P_SL_MAX));
   const T h_geop = k.h_o * T(A) / (T(A) + k.h_o);
-  isa_data(h_geop, T_sl, p_sl, o.Tk, o.p);
+  isa_data<SKIP_ABOVE>(h_geop, T_sl, p_sl, o.Tk, o.p);
   o.rho = o.p / (T(R_GAS) * o.Tk);
   o.a = Sqrt(T(GAMMA * R_GAS) * o.Tk);
   o.mu = (T(BETA_S) * Pow(o.Tk, T(1.5))) / (o.Tk + T(S_SUTH));
@@ -933,23 +952,23 @@ struct Out {
 // KinData rows starting at r (N_KIN rows)
 template <typename T>
 __device__ __forceinline__ void store_kin(const Out<T>& o, int r, const Kin<T>& k) {
-  o.v3(r + 0, k.e_nb);
-  o.q4(r + 3, k.q_nb);
-  o.q4(r + 7, k.q_eb);
-  o.q4(r + 11, k.q_en);
-  o.s(r + 15, k.lat);
-  o.s(r + 16, k.lon);
-  o.v3(r + 17, k.n_e);
-  o.s(r + 20, k.h_e);
-  o.s(r + 21, k.h_o);
-  o.v3(r + 22, k.r_eb_e);
-  o.v3(r + 25, k.omega_wb_b);
-  o.v3(r + 28, k.omega_eb_b);
-  o.v3(r + 31, k.v_eb_b);
-  o.v3(r + 34, k.v_eb_n);
-  o.s(r + 37, k.v_gnd);
-  o.s(r + 38, k.chi);
-  o.s(r + 39, k.gamma);
+  o.v3(r + KR_E_NB, k.e_nb);
+  o.q4(r + KR_Q_NB, k.q_nb);
+  o.q4(r + KR_Q_EB, k.q_eb);
+  o.q4(r + KR_Q_EN, k.q_en);
+  o.s(r + KR_LAT, k.lat);
+  o.s(r + KR_LON, k.lon);
+  o.v3(r + KR_N_E, k.n_e);
+  o.s(r + KR_H_E, k.h_e);
+  o.s(r + KR_H_O, k.h_o);
+  o.v3(r + KR_R_EB_E, k.r_eb_e);
+  o.v3(r + KR_OM_WB, k.omega_wb_b);
+  o.v3(r + KR_OM_EB, k.omega_eb_b);
+  o.v3(r + KR_V_EB_B, k.v_eb_b);
+  o.v3(r + KR_V_EB_N, k.v_eb_n);
+  o.s(r + KR_V_GND, k.v_gnd);
+  o.s(r + KR_CHI, k.chi);
+  o.s(r + KR_GAMMA, k.gamma);
 }
 
 // AirData rows starting at r (N_AIR rows)
@@ -977,23 +996,23 @@ __device__ __forceinline__ void store_air(const Out<T>& o, int r, const Air<T>& 
 template <typename T>
 __device__ __forceinline__ Kin<T> load_kin(const Col<T>& c, int r) {
   Kin<T> k;
-  k.e_nb = c.v3(r + 0);
-  k.q_nb = c.q4(r + 3);
-  k.q_eb = c.q4(r + 7);
-  k.q_en = c.q4(r + 11);
-  k.lat = c(r + 15);
-  k.lon = c(r + 16);
-  k.n_e = c.v3(r + 17);
-  k.h_e = c(r + 20);
-  k.h_o = c(r + 21);
-  k.r_eb_e = c.v3(r + 22);
-  k.omega_wb_b = c.v3(r + 25);
-  k.omega_eb_b = c.v3(r + 28);
-  k.v_eb_b = c.v3(r + 31);
-  k.v_eb_n = c.v3(r + 34);
-  k.v_gnd = c(r + 37);
-  k.chi = c(r + 38);
-  k.gamma = c(r + 39);
+  k.e_nb = c.v3(r + KR_E_NB);
+  k.q_nb = c.q4(r + KR_Q_NB);
+  k.q_eb = c.q4(r + KR_Q_EB);
+  k.q_en = c.q4(r + KR_Q_EN);
+  k.lat = c(r + KR_LAT);
+  k.lon = c(r + KR_LON);
+  k.n_e = c.v3(r + KR_N_E);
+  k.h_e = c(r + KR_H_E);
+  k.h_o = c(r + KR_H_O);
+  k.r_eb_e = c.v3(r + KR_R_EB_E);
+  k.omega_wb_b = c.v3(r + KR_OM_WB);
+  k.omega_eb_b = c.v3(r + KR_OM_EB);
+  k.v_eb_b = c.v3(r + KR_V_EB_B);
+  k.v_eb_n = c.v3(r + KR_V_EB_N);
+  k.v_gnd = c(r + KR_V_GND);
+  k.chi = c(r + KR_CHI);
+  k.gamma = c(r + KR_GAMMA);
   return k;
 }
 
@@ -1044,6 +1063,131 @@ __device__ __forceinline__ void store_xdyn(const Out<T>& o, int r,
                                            const XDyn<T>& x) {
   o.v3(r, x.omega_eb_b);
   o.v3(r + 3, x.v_eb_b);
+}
+
+// ------------------------------------------------------------- roles
+// A kernel may carry one aircraft in several threads: a block of L
+// neighbouring aircraft (lanes) runs n_roles groups of L threads, L a
+// multiple of the warp, so that every warp runs one role for 32
+// neighbouring aircraft: thread = role * L + lane. kinair does so with the
+// roles below, the C172 kernels with the subsystem roles of
+// c172_systems.cuh.
+
+constexpr int MAX_LANES = 64;  // aircraft per block, at most
+
+// a thread of the role layout: its lane and role, the aircraft it carries
+// (the last one again past a ragged edge, so every thread reaches every
+// barrier; `valid` masks the stores)
+struct RoleThread {
+  int L, lane, role, b;
+  bool valid;
+};
+
+__device__ __forceinline__ RoleThread role_thread(int B, int n_roles) {
+  RoleThread t;
+  t.L = blockDim.x / n_roles;
+  t.lane = threadIdx.x % t.L;
+  t.role = threadIdx.x / t.L;
+  const int b = blockIdx.x * t.L + t.lane;
+  t.valid = b < B;
+  t.b = t.valid ? b : B - 1;
+  return t;
+}
+
+// grid, threads per block and dynamic shared bytes of a launch of B
+// aircraft at `lanes` per block
+struct RoleLaunch {
+  int grid, block, shared;
+};
+inline RoleLaunch role_launch(int B, int lanes, int n_roles, int shared) {
+  return {(B + lanes - 1) / lanes, n_roles * lanes, shared};
+}
+inline void put_launch(const RoleLaunch& l, int* grid, int* block,
+                       int* shared) {
+  *grid = l.grid;
+  *block = l.block;
+  *shared = l.shared;
+}
+
+// ------------------------------------------------------------- kinair roles
+// kinair carries each aircraft in several threads. Every role owns a fixed
+// set of the kernel's output rows and computes only the chain those rows
+// need, from the kernel's inputs, with the operations of kinair_lane in
+// their order: so each row is bit-identical to what the one-thread form
+// stores, and no role waits for another. The roles call wa_f_ode and
+// atm_air whole and store their own rows; the compiler drops what a role
+// does not store, the math-library calls included (they read and write no
+// memory). The one-thread form made 17 library calls in a row; now a warp
+// makes at most four (AIR below 11 km, ANG).
+
+// rows of kinair's output (kin_dot, KinData, AirData, xi_dyn)
+constexpr int KO_DOT = 0, KO_KIN = N_XKIN, KO_AIR = KO_KIN + N_KIN,
+              KO_XDYN = KO_AIR + N_AIR;
+// kinair's roles and the warp of each 32 aircraft that runs it:
+//   KA_KD   the stage state, the WA derivative (x alive), xi_dyn and the
+//           KinData rows that take no library call
+//   KA_ANG  lat, lon, chi and gamma: four atan2
+//   KA_EUL  e_nb: two atan2 and an asin
+//   KA_AIR  the ISA atmosphere (the layers above the aircraft skipped) and
+//           every AirData row
+// EUL runs in KD's warp: three warps measured faster than four, and EUL in
+// ANG's warp no faster and in AIR's slower (PERF.md, measured with
+// tools/ablate_torch_roles.py)
+constexpr int KA_KD = 0, KA_ANG = 1, KA_EUL = 0, KA_AIR = 2, KA_ROLES = 3;
+
+// the stage state of kinair's column c and wa_f_ode there (`k1_lane`)
+template <typename T>
+__device__ __forceinline__ void kinair_stage(const Col<T>& c, T adt,
+                                             XDyn<T>& xi_dyn, XKin<T>& d,
+                                             Kin<T>& k) {
+  const XKin<T> xi = axpy(load_xkin(c, 0), adt, load_xkin(c, 15));
+  xi_dyn = axpy(load_xdyn(c, 9), adt, load_xdyn(c, 24));
+  wa_f_ode(xi.q_wb, xi.q_ew, xi.h_e, xi_dyn.omega_eb_b, xi_dyn.v_eb_b, c(30),
+           d, k);
+}
+
+// role `role` of kinair for the aircraft of column c: each branch works out
+// the stage for itself, so that what it does not store is dead in it; the
+// roles that share a warp (KD, EUL) run their branches one after the other
+template <typename T>
+__device__ __forceinline__ void kinair_role(int role, const Col<T>& c, T adt,
+                                            const Out<T>& o) {
+  XDyn<T> xi_dyn;
+  XKin<T> d;
+  Kin<T> k;
+  if (role == KA_KD) {
+    kinair_stage(c, adt, xi_dyn, d, k);
+    store_xkin(o, KO_DOT, scale(T(1.0) - c(36), d));
+    o.q4(KO_KIN + KR_Q_NB, k.q_nb);
+    o.q4(KO_KIN + KR_Q_EB, k.q_eb);
+    o.q4(KO_KIN + KR_Q_EN, k.q_en);
+    o.v3(KO_KIN + KR_N_E, k.n_e);
+    o.s(KO_KIN + KR_H_E, k.h_e);
+    o.s(KO_KIN + KR_H_O, k.h_o);
+    o.v3(KO_KIN + KR_R_EB_E, k.r_eb_e);
+    o.v3(KO_KIN + KR_OM_WB, k.omega_wb_b);
+    o.v3(KO_KIN + KR_OM_EB, k.omega_eb_b);
+    o.v3(KO_KIN + KR_V_EB_B, k.v_eb_b);
+    o.v3(KO_KIN + KR_V_EB_N, k.v_eb_n);
+    o.s(KO_KIN + KR_V_GND, k.v_gnd);
+    store_xdyn(o, KO_XDYN, xi_dyn);
+  }
+  if (role == KA_ANG) {
+    kinair_stage(c, adt, xi_dyn, d, k);
+    o.s(KO_KIN + KR_LAT, k.lat);
+    o.s(KO_KIN + KR_LON, k.lon);
+    o.s(KO_KIN + KR_CHI, k.chi);
+    o.s(KO_KIN + KR_GAMMA, k.gamma);
+  }
+  if (role == KA_EUL) {
+    kinair_stage(c, adt, xi_dyn, d, k);
+    o.v3(KO_KIN + KR_E_NB, k.e_nb);
+  }
+  if (role == KA_AIR) {
+    kinair_stage(c, adt, xi_dyn, d, k);
+    const AtmU<T> u = load_atm(c, 31);
+    store_air(o, KO_AIR, atm_air<true>(k, u.T_sl, u.p_sl, u.wind));
+  }
 }
 
 }  // namespace fj

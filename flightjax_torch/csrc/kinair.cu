@@ -7,61 +7,66 @@
 // pallas_block / pallas_block_minor. Plain PyTorch version:
 // flightjax_torch/parallel/kernels.py::kinair_plain.
 //
-// What bounds it on the H100: one thread per aircraft, ~400 flops and a
-// dozen transcendentals per lane, 37 inputs and 77 outputs per lane. At
-// B = 4096 a call moves 1.8 MB in float32 (3.7 MB in float64), a
-// microsecond of HBM time, so it is bound by launch latency and by
-// occupancy, not by bandwidth or FLOPs. 4096 threads in 128-thread blocks
-// occupy only 32 of the 132 SMs; the block size is a launch argument and
-// PERF.md records 32/64/128/256 measured on the card.
+// What bounds it on the H100: neither bytes (37 input and 77 output rows per
+// lane, 1.8 MB in float32 at B = 4096, about half a microsecond of HBM) nor
+// operations (~400 per lane), but the latency of one aircraft's chain. With
+// one thread per aircraft it made 17 math-library calls in a row (the
+// wrappers are real functions for the role kernels' sake): four atan2 in the
+// kinematics, two atan2 and an asin for the Euler angles, a power or an
+// exponential for each of the seven ISA layers, and three more powers in the
+// air data; and 4096 threads in 128-thread blocks filled 32 of the 132 SMs.
+//
+// What the design does about it: three threads carry one aircraft, one warp
+// each (flight_math.cuh, "kinair roles"): KD the derivative, the KinData
+// rows that take no library call and the Euler angles, ANG the four atan2
+// of lat, lon, chi and gamma, AIR the atmosphere and air data. Each role
+// owns its output rows and works out, from the inputs, only the chain those
+// rows need, so the roles need no barrier and each row is bit-identical to
+// the one-thread form. AIR skips the ISA layers above the aircraft, whose
+// calls change nothing (isa_data<true>): 6 of 7 calls below 11 km. A warp
+// makes at most four library calls, and 4096 aircraft at 32 per block are
+// 128 blocks of three warps, one on each of 128 SMs. PERF.md records the
+// times on the card, and the layouts measured against this one.
 #include "flight_math.cuh"
 
 using namespace fj;
 
 template <typename T>
-__global__ void kinair_kernel(const T* __restrict__ in, T* __restrict__ out,
-                              int B, T adt) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Col<T> c{in, B, b};
-  const Out<T> o{out, B, b};
-
-  // stage state x + adt * k
-  const XKin<T> xi = axpy(load_xkin(c, 0), adt, load_xkin(c, 15));
-  const XDyn<T> xi_dyn = axpy(load_xdyn(c, 9), adt, load_xdyn(c, 24));
-  XKin<T> kin_dot;
-  Kin<T> k;
-  Air<T> air;
-  kinair_lane(xi, xi_dyn, c(30), load_atm(c, 31), T(1.0) - c(36), kin_dot, k,
-              air);
-  store_xkin(o, 0, kin_dot);
-  store_kin(o, N_XKIN, k);
-  store_air(o, N_XKIN + N_KIN, air);
-  store_xdyn(o, N_XKIN + N_KIN + N_AIR, xi_dyn);
+__global__ void __launch_bounds__(KA_ROLES * MAX_LANES)
+    kinair_kernel(const T* __restrict__ in, T* __restrict__ out, int B,
+                  T adt) {
+  const RoleThread t = role_thread(B, KA_ROLES);
+  if (!t.valid) return;  // no barrier
+  kinair_role(t.role, Col<T>{in, B, t.b}, adt, Out<T>{out, B, t.b});
 }
 
 template <typename T>
-static int launch(const void* in, void* out, int B, double adt, int block,
+static int launch(const void* in, void* out, int B, double adt, int lanes,
                   void* stream) {
   if (B <= 0) return 0;
-  if (block <= 0 || block > 1024) return (int)cudaErrorInvalidValue;
-  const int grid = (B + block - 1) / block;
-  kinair_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, KA_ROLES, 0);
+  kinair_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
       (const T*)in, (T*)out, B, T(adt));
   return (int)cudaGetLastError();
 }
 
 extern "C" {
-int kinair_f32(const void* in, void* out, int B, double adt, int block,
+int kinair_f32(const void* in, void* out, int B, double adt, int lanes,
                void* stream) {
-  return launch<SF>(in, out, B, adt, block, stream);
+  return launch<SF>(in, out, B, adt, lanes, stream);
 }
-int kinair_f64(const void* in, void* out, int B, double adt, int block,
+int kinair_f64(const void* in, void* out, int B, double adt, int lanes,
                void* stream) {
-  return launch<SD>(in, out, B, adt, block, stream);
+  return launch<SD>(in, out, B, adt, lanes, stream);
 }
 void kinair_layout(int* n_in, int* n_out) {
   *n_in = KINAIR_N_IN;
   *n_out = KINAIR_N_OUT;
+}
+void kinair_launch_shape(int B, int lanes, int, int, int* grid, int* block,
+                         int* shared) {
+  put_launch(role_launch(B, lanes, KA_ROLES, 0), grid, block, shared);
 }
 }

@@ -153,4 +153,9 @@ void megakernel_layout(int* n_in, int* n_out) {
   *n_in = MEGA_N_ROWS;
   *n_out = MEGA_N_ROWS;
 }
+void megakernel_launch_shape(int B, int lanes, int n_params, int elem_size,
+                             int* grid, int* block, int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_MEGA_N), grid,
+             block, shared);
+}
 }

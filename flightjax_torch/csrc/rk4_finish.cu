@@ -105,4 +105,9 @@ void rk4_finish_layout(int* n_in, int* n_out) {
   *n_in = RKFIN_N_IN;
   *n_out = RKFIN_N_OUT;
 }
+// its parameters stay in device memory, so n_params is not read
+void rk4_finish_launch_shape(int B, int lanes, int n_params, int elem_size,
+                             int* grid, int* block, int* shared) {
+  put_launch(role_launch(B, lanes, 0, elem_size, SH_N), grid, block, shared);
+}
 }

@@ -98,15 +98,9 @@ void vehicle_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_c = N_C;
   *n_mega = MEGA_N_ROWS;
 }
-// the launch of a role kernel for B aircraft with n_params values of the
-// parameter buffer in shared memory: systems, rk4_stage and rk4_finish (no
-// parameters) share one scratch layout, the megakernel (`mega`) a larger one
-void role_launch_shape(int B, int lanes, int n_params, int elem_size,
-                       int mega, int* grid, int* block, int* shared) {
-  const RoleLaunch l = role_launch(B, lanes, n_params, elem_size,
-                                   mega ? SH_MEGA_N : SH_N);
-  *grid = l.grid;
-  *block = l.block;
-  *shared = l.shared;
+void rk4_stage_launch_shape(int B, int lanes, int n_params, int elem_size,
+                            int* grid, int* block, int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_N), grid,
+             block, shared);
 }
 }

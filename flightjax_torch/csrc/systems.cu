@@ -135,6 +135,11 @@ void systems_layout(int* n_in, int* n_out) {
   *n_in = SYS_N_IN;
   *n_out = SYS_N_OUT;
 }
+void systems_launch_shape(int B, int lanes, int n_params, int elem_size,
+                          int* grid, int* block, int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_N), grid,
+             block, shared);
+}
 // the parameter buffer's fixed head: scalars, then one offset per table
 void systems_params_layout(int* n_head, int* n_tables) {
   *n_head = P_HEAD;

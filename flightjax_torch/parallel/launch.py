@@ -35,11 +35,12 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 # aircraft in 128-thread blocks occupy 32 of the H100's 132 SMs
 BLOCK = 128
 # aircraft (lanes) per block of the role kernels, which carry one aircraft
-# in several threads, one warp per subsystem (csrc/c172_systems.cuh): a
-# multiple of 32 up to 64. At 32, 4096 aircraft are 128 blocks of eight warps,
-# one block on each of 128 SMs (see csrc/rk4_stage.cu and PERF.md)
+# in several threads, one warp per role (kinair's roles in
+# csrc/flight_math.cuh, the subsystem roles of the others in
+# csrc/c172_systems.cuh): a multiple of 32 up to 64. At 32, 4096 aircraft
+# are 128 blocks, one block on each of 128 SMs (see PERF.md)
 LANES = 32
-ROLE_KERNELS = ("systems", "rk4_stage", "rk4_finish", "megakernel")
+ROLE_KERNELS = ("kinair", "systems", "rk4_stage", "rk4_finish", "megakernel")
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; rk4_finish reads its few scalars through the read-only
 # cache (csrc/rk4_finish.cu)
@@ -159,8 +160,10 @@ def library():
                     f = getattr(lib, f"{name}_{suffix}")
                     f.argtypes = argtypes
                     f.restype = I
-            lib.role_launch_shape.argtypes = [I] * 5 + [ctypes.POINTER(I)] * 3
-            lib.role_launch_shape.restype = None
+            for name in ROLE_KERNELS:
+                f = getattr(lib, f"{name}_launch_shape")
+                f.argtypes = [I] * 4 + [ctypes.POINTER(I)] * 3
+                f.restype = None
             lib.empty_launch.argtypes = [I, I, I, P]
             lib.empty_launch.restype = I
             BUILD_INFO["so"] = so
@@ -261,12 +264,11 @@ def _run(name, fn, args, block):
 
 def role_launch_shape(name, B, lanes, n_params, elem_size):
     """(grid, threads per block, dynamic shared bytes) of the launch of
-    role kernel `name` for B aircraft at `lanes` per block."""
+    role kernel `name` for B aircraft at `lanes` per block, with a
+    parameter buffer of n_params values of elem_size bytes."""
     v = [ctypes.c_int() for _ in range(3)]
-    library().role_launch_shape(B, lanes,
-                                n_params if name in COPY_PARAMS else 0,
-                                elem_size, int(name == "megakernel"),
-                                *map(ctypes.byref, v))
+    getattr(library(), f"{name}_launch_shape")(B, lanes, n_params, elem_size,
+                                               *map(ctypes.byref, v))
     return tuple(i.value for i in v)
 
 

@@ -139,6 +139,38 @@ def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=()):
         u_sys=us, s_sys=ss, u_trn=u["vehicle"]["trn"])
 
 
+# orthometric heights h_o (m) whose geopotential height h_o A / (A + h_o)
+# falls in each ISA layer, and on the first layer's ceiling: 0, 5 km, the
+# float h_o whose float geopotential height is exactly 11 000 m and the two
+# double h_o on either side of it (no double lands on it), 15, 25, 40, 49,
+# 60, 80 and 90 km
+_A = 6378137.0
+ISA_HEIGHTS = (0.0, 5000.0 * _A / (_A - 5000.0), 11019.00390625,
+               11019.003831706463, 11019.003831706465,
+               *(g * _A / (_A - g) for g in (15e3, 25e3, 40e3, 49e3, 60e3,
+                                             80e3, 90e3)))
+# lanes whose sea-level temperature is NaN: at 0 m and at 5 km
+ISA_NAN_LANES = (len(ISA_HEIGHTS), len(ISA_HEIGHTS) + 1)
+
+
+def isa_layer_operands(batch, seed):
+    """`cluster_operands` with lane b at orthometric height
+    ISA_HEIGHTS[b % len(ISA_HEIGHTS)], its geoid undulation and height rate
+    0 (so the stage's h_o is that height exactly) and its r_eb_e there, and
+    a NaN sea-level temperature on ISA_NAN_LANES: every ISA layer, the
+    ceiling of the first, and NaN through the atmosphere."""
+    d = cluster_operands(batch, seed)
+    h = np.resize(np.array(ISA_HEIGHTS), batch)
+    n_e = d["r_eb_e"] / (6.378e6 + d["x_kin"]["h_e"])[:, None]
+    d["x_kin"]["h_e"] = h
+    d["k_kin"]["h_e"] = np.zeros(batch)
+    d["ksum_kin"]["h_e"] = np.zeros(batch)
+    d["geoid_N"] = np.zeros(batch)
+    d["r_eb_e"] = (6.378e6 + h)[:, None] * n_e
+    d["u_atm"]["T_sl"][[b for b in ISA_NAN_LANES if b < batch]] = np.nan
+    return d
+
+
 def operand_state(d, device, dtype, i0=0):
     """The world SimState (uncompensated) whose vehicle state, inputs and
     discrete state are those of the operand dict `d` of `cluster_operands`:

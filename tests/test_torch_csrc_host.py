@@ -6,12 +6,13 @@ A stand-in `cuda_runtime.h` maps the CUDA qualifiers, the thread indices
 and the `_rn` intrinsics onto plain C++ (no FMA contraction); each kernel
 source is cut before its launch code, which only nvcc reads. The kernels
 that carry one aircraft per thread run lane by lane, as blocks of one
-thread. The role kernels (systems, rk4_stage, rk4_finish, megakernel),
-which carry one aircraft in several threads that meet at barriers, run
-block by block with one host thread per CUDA thread: `__syncthreads()` is
-a pthread barrier and the block's shared memory one static buffer. A warp
-vote sees a warp of one lane, so a gear leg skips its strut exactly on the
-airborne lanes; whole warps vote in `tests/test_torch_cuda.py`. So the
+thread. The role kernels (kinair, systems, rk4_stage, rk4_finish,
+megakernel), which carry one aircraft in several threads that may meet at
+barriers, and dynamics run block by block with one host thread per CUDA
+thread: `__syncthreads()` is a pthread barrier and the block's shared
+memory one static buffer. A warp vote sees a warp of one lane, so a gear
+leg skips its strut exactly on the airborne lanes; whole warps vote in
+`tests/test_torch_cuda.py`. So the
 kernels' arithmetic, row maps, parameter buffer, role layout and barriers
 are checked here, where there is no card; `tests/test_torch_cuda.py` checks
 the compiled kernels on one. Skips without a host C++ compiler."""
@@ -30,12 +31,16 @@ from flightjax_torch.parallel import kernels as K
 from flightjax_torch.physics.atmosphere import AirData
 from flightjax_torch.physics.dynamics import MassProps, Wrench
 from flightjax_torch.physics.kinematics import KinData
-from flightjax_torch.testing import cluster_operands
+from flightjax_torch.testing import (ISA_NAN_LANES, cluster_operands,
+                                     isa_layer_operands)
 
 B = 24
 TOL = 1e-12
 CSRC = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc")
 NAMES = ("kinair", "systems", "dynamics", "finish_kin", "finish_sys")
+# the kernels run block by block with their own number of threads per
+# aircraft (kinair's roles, dynamics' one) and no parameters
+OWN_ROLES = ("kinair", "dynamics")
 VEHICLE_NAMES = ("rk4_stage", "rk4_finish", "geoid")
 LAUNCH_CODE = "template <typename T>\nstatic int launch"
 
@@ -89,9 +94,9 @@ LANE_LOOPS = r"""
     blockIdx.x = b; blockDim.x = 1; threadIdx.x = 0;                 \
     k_##name::name##_kernel<SD>(__VA_ARGS__);                        \
   }
-// one block after the other, a host thread for each of its threads
-#define BLOCKS(lanes, call)                                          \
-  blockDim.x = fj::N_ROLES * (lanes);                                \
+// one block after the other, a host thread i for each of its threads
+#define BLOCKS(roles, lanes, call)                                   \
+  blockDim.x = (roles) * (lanes);                                    \
   pthread_barrier_init(&block_barrier, nullptr, blockDim.x);         \
   for (int g = 0; g < (B + (lanes) - 1) / (lanes); ++g) {            \
     blockIdx.x = g;                                                  \
@@ -103,14 +108,20 @@ LANE_LOOPS = r"""
   pthread_barrier_destroy(&block_barrier);
 using fj::SD;
 extern "C" {
-void host_kinair(const double* in, const double* p, double* out, int B,
-                 double adt, int) {
-  LANES(kinair, (const SD*)in, (SD*)out, B, SD(adt))
+// kinair (lanes aircraft per block) and dynamics (lanes threads per block),
+// role r writing into outs[r]
+void host_kinair(const double* in, double* const* outs, int B, double adt,
+                 int lanes) {
+  BLOCKS(fj::KA_ROLES, lanes, k_kinair::kinair_kernel<SD>(
+      (const SD*)in, (SD*)outs[i / (lanes)], B, SD(adt)))
 }
-void host_dynamics(const double* in, const double* p, double* out, int B,
-                   double, int) {
-  LANES(dynamics, (const SD*)in, (SD*)out, B)
+void host_dynamics(const double* in, double* const* outs, int B, double,
+                   int lanes) {
+  BLOCKS(1, lanes, k_dynamics::dynamics_kernel<SD>(
+      (const SD*)in, (SD*)outs[0], B))
 }
+int host_roles_kinair() { return fj::KA_ROLES; }
+int host_roles_dynamics() { return 1; }
 void host_finish_kin(const double* in, const double* p, double* out, int B,
                      double c6, int comp) {
   LANES(finish_kin, (const SD*)in, (SD*)out, B, SD(c6), comp)
@@ -127,20 +138,20 @@ int host_n_slots() { return fj::N_SLOTS; }
 void host_systems(const double* in, const double*, const double* p,
                   double* out, int B, int n_params, double adt, int,
                   int lanes) {
-  BLOCKS(lanes, k_systems::systems_kernel<SD>(
+  BLOCKS(fj::N_ROLES, lanes, k_systems::systems_kernel<SD>(
       (const SD*)in, (const SD*)p, (SD*)out, B, n_params, SD(adt)))
 }
 void host_rk4_stage(const double* in, const double* k, const double* p,
                     double* out, int B, int n_params, double adt, int,
                     int lanes) {
-  BLOCKS(lanes, k_rk4_stage::rk4_stage_kernel<SD>(
+  BLOCKS(fj::N_ROLES, lanes, k_rk4_stage::rk4_stage_kernel<SD>(
       (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, n_params,
       SD(adt)))
 }
 void host_rk4_finish(const double* in, const double* k, const double* p,
                      double* out, int B, int, double c6, int comp,
                      int lanes) {
-  BLOCKS(lanes, k_rk4_finish::rk4_finish_kernel<SD>(
+  BLOCKS(fj::N_ROLES, lanes, k_rk4_finish::rk4_finish_kernel<SD>(
       (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, SD(c6), comp))
 }
 void host_geoid(const double* in, const double*, const double* grid,
@@ -151,7 +162,7 @@ void host_megakernel(const double* in, const int* i_in, const double* p,
                      const double* grid, double* out, int* i_out, int B,
                      int n_params, double dt, double t_start, int comp,
                      int lanes) {
-  BLOCKS(lanes, k_megakernel::megakernel_kernel<SD>(
+  BLOCKS(fj::N_ROLES, lanes, k_megakernel::megakernel_kernel<SD>(
       (const SD*)in, i_in, (const SD*)p, (const SD*)grid, (SD*)out, i_out, B,
       n_params, dt, t_start, comp))
 }
@@ -225,11 +236,16 @@ def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _assert_trees_close(got, ref):
+def _assert_trees_close(got, ref, equal_nan=False):
+    """Within TOL everywhere; with `equal_nan`, NaN where the reference is
+    NaN and only there."""
     g, r = tree_leaves_with_path(got), tree_leaves_with_path(ref)
     assert [p for p, _ in g] == [p for p, _ in r]
     for (p, a), (_, b) in zip(g, r):
         assert a.dtype == b.dtype and a.shape == b.shape, p
+        if equal_nan and a.dtype.is_floating_point:
+            assert torch.equal(a.isnan(), b.isnan()), p
+            a, b = a[~b.isnan()], b[~b.isnan()]
         err = ((a.double() - b.double()).abs()
                / b.double().abs().clamp_min(1.0)).max()
         assert float(err) <= TOL, (p, float(err))
@@ -251,6 +267,24 @@ def _run_role(host_lib, name, args, lanes):
     return out
 
 
+def _run_own_roles(host_lib, name, args, lanes, split=False):
+    """The source of kinair (`lanes` aircraft per block) or dynamics
+    (`lanes` threads per block) on the wrapper's arguments, block by block;
+    returns its packed output, or with `split` one output per role that
+    holds the rows the role wrote and NaN elsewhere."""
+    buf, n_out, scalars, _ = K.PACK[name](*args)
+    batch = buf.shape[1]
+    n_roles = getattr(host_lib, f"host_roles_{name}")()
+    outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+            for _ in range(n_roles if split else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if split else 0].data_ptr() for r in range(n_roles)))
+    getattr(host_lib, f"host_{name}")(
+        _ptr(buf), ptrs, ctypes.c_int(batch),
+        ctypes.c_double(scalars[0] if scalars else 0.0), ctypes.c_int(lanes))
+    return outs if split else outs[0]
+
+
 def _run_rk4_stage(host_lib, args, lanes):
     return K._x_tree(K.unpack(K.STAGE_OUT,
                               _run_role(host_lib, "rk4_stage", args, lanes)))
@@ -262,17 +296,23 @@ RAGGED = [(37, 32), (24, 64), (70, 64)]
 RAGGED_IDS = [f"B{b}-L{n}" for b, n in RAGGED]
 
 
-# the kernels at B, systems (a role kernel, 32 aircraft per block) also on
-# the ragged batches
+# the kernels at B (the role kernels at 32 aircraft per block), the role
+# kernels kinair, systems and dynamics also on the ragged batches
+RAGGED_NAMES = ("kinair", "systems", "dynamics")
+
+
 @pytest.mark.parametrize(
     "name,batch,lanes",
-    [(n, B, 32) for n in NAMES] + [("systems", b, n) for b, n in RAGGED],
-    ids=[*NAMES, *(f"systems-{i}" for i in RAGGED_IDS)])
+    [(n, B, 32) for n in NAMES]
+    + [(n, b, lanes) for n in RAGGED_NAMES for b, lanes in RAGGED],
+    ids=[*NAMES, *(f"{n}-{i}" for n in RAGGED_NAMES for i in RAGGED_IDS)])
 def test_kernel_source_matches_plain(host_lib, operands, name, batch,
                                      lanes):
     args = (operands if batch == B else _operands(batch))[name]
     if name == "systems":
         out = _run_role(host_lib, name, args, lanes)
+    elif name in OWN_ROLES:
+        out = _run_own_roles(host_lib, name, args, lanes)
     else:
         buf, n_out, scalars, ops = K.PACK[name](*args)
         out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
@@ -317,6 +357,38 @@ def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
                             ctypes.c_int(0))
         got = out[0]
     _assert_trees_close(got, getattr(K, name + "_plain")(*args))
+
+
+@pytest.mark.parametrize("name", OWN_ROLES)
+def test_kinair_dynamics_source_on_isa_layers(host_lib, name):
+    """kinair and dynamics on the ISA-layer operands (`testing.
+    isa_layer_operands`): heights in every ISA layer and on either side of
+    the first layer's ceiling, where kinair skips the layers above the
+    aircraft, and NaN sea-level temperatures, which stay NaN through the
+    atmosphere as in the plain version."""
+    vehicle = build_vehicle(device="cpu", dtype=torch.float64)
+    args = K.operand_args(isa_layer_operands(B, 1016), vehicle, "cpu",
+                          torch.float64)[name]
+    got = _as_wrapper_returns(name, _run_own_roles(host_lib, name, args, 32))
+    ref = getattr(K, name + "_plain")(*args[:-1],
+                                      args[-1].to(torch.float64))
+    if name == "kinair":
+        assert bool(ref[2].p[list(ISA_NAN_LANES)].isnan().all())
+    _assert_trees_close(got, ref, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", OWN_ROLES)
+def test_kinair_dynamics_roles_partition_the_output(host_lib, operands,
+                                                   name):
+    """Every output row of kinair and dynamics is written by exactly one of
+    its roles (dynamics has one), for every aircraft, and by no other role
+    anywhere."""
+    outs = _run_own_roles(host_lib, name, operands[name], 32, split=True)
+    n_rows = outs[0].shape[0]
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * n_rows
+    assert touched.tolist() == [1] * n_rows
 
 
 def test_roles_partition_the_state(host_lib):

@@ -1,9 +1,10 @@
 """The CUDA kernels of flightjax_torch against their plain PyTorch versions
 on the same card tensors, at the fleet width B = 4096: float64 to 1e-12 and
 float32 to 1e-5 (relative to max(1, |plain|); a few ulp of the long
-transcendental chains); the role kernels (systems, rk4_stage, rk4_finish,
-megakernel) at 32 and 64 aircraft per block and on batches that are no
-multiple of either;
+transcendental chains); the role kernels (kinair, systems, rk4_stage,
+rk4_finish, megakernel) at 32 and 64 aircraft per block and on batches that
+are no multiple of either, dynamics alike at 32 and 64 threads per block,
+kinair and dynamics also on the ISA-layer operands;
 and the two whole-step entry points, a few steps against their plain paths.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
@@ -16,20 +17,32 @@ import torch
 from flightjax_torch.core.modeling import tree_leaves_with_path
 from flightjax_torch.models.c172.c172s import build_vehicle
 from flightjax_torch.parallel import kernels as K
+from flightjax_torch.physics.atmosphere import AirData
 from flightjax_torch.physics.dynamics import MassProps, Wrench
-from flightjax_torch.testing import cluster_operands, perturbed_fleet_sim
+from flightjax_torch.physics.kinematics import KinData
+from flightjax_torch.testing import (cluster_operands, isa_layer_operands,
+                                     perturbed_fleet_sim)
 
 B = 4096
 TOLS = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
 
 
-def _worst(got, ref):
-    """max |got - ref| / max(1, |ref|) over the floating leaves."""
-    return max(float(((a.double() - b.double()).abs()
-                      / b.double().abs().clamp_min(1.0)).max())
-               for (_, a), (_, b) in zip(tree_leaves_with_path(got),
-                                         tree_leaves_with_path(ref))
-               if a.dtype.is_floating_point)
+def _worst(got, ref, equal_nan=False):
+    """max |got - ref| / max(1, |ref|) over the floating leaves; with
+    `equal_nan`, NaN where the reference is NaN counts as equal, NaN
+    anywhere else as infinitely far."""
+    worst = 0.0
+    for (_, a), (_, b) in zip(tree_leaves_with_path(got),
+                              tree_leaves_with_path(ref)):
+        if not a.dtype.is_floating_point:
+            continue
+        if equal_nan:
+            if not torch.equal(a.isnan(), b.isnan()):
+                return float("inf")
+            a, b = a[~b.isnan()], b[~b.isnan()]
+        worst = max(worst, float(((a.double() - b.double()).abs()
+                                  / b.double().abs().clamp_min(1.0)).max()))
+    return worst
 
 
 @pytest.mark.cuda
@@ -114,6 +127,25 @@ ROLE_NAMES = [("systems", False), ("rk4_stage", False), ("rk4_finish", False),
               ("rk4_finish", True)]
 
 
+def _launch_role(name, args, lanes, comp=False):
+    """Kernel `name` on the wrapper's arguments at `lanes` aircraft per
+    block (threads per block for dynamics), its output as the wrapper
+    returns it."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    out = K.launch_kernel(name, buf, n_out, scalars, ops, block=lanes)
+    if name == "kinair":
+        kin_dot, kin, air, xi_dyn = K.unpack(K.KINAIR_OUT, out)
+        return kin_dot, KinData(**kin), AirData(**air), xi_dyn
+    if name == "dynamics":
+        return K.unpack(K.DYN_OUT, out)[0]
+    if name == "systems":
+        dot, mp, wr, hr = K.unpack(K.SYS_OUT, out)
+        return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
+    if name == "rk4_stage":
+        return K._x_tree(K.unpack(K.STAGE_OUT, out))
+    return K.unpack_finish(out, comp)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,comp", ROLE_NAMES,
                          ids=["systems", "rk4_stage", "rk4_finish",
@@ -129,18 +161,35 @@ def test_role_kernel_lanes_per_block_on_card(name, comp, batch, lanes, dtype,
                           vehicle, "cuda", dtype)[name]
     if name == "rk4_finish" and not comp:
         args = args[:-1] + (None,)
-    buf, n_out, scalars, ops = K.PACK[name](*args)
-    out = K.launch_kernel(name, buf, n_out, scalars, ops, block=lanes)
+    got = _launch_role(name, args, lanes, comp)
     ref = getattr(K, name + "_plain")(*args)
     torch.cuda.synchronize()
-    if name == "systems":
-        dot, mp, wr, hr = K.unpack(K.SYS_OUT, out)
-        got = dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
-    elif name == "rk4_stage":
-        got = K._x_tree(K.unpack(K.STAGE_OUT, out))
-    else:
-        got = K.unpack_finish(out, comp)
     assert _worst(got, ref) <= tol
+
+
+# kinair and dynamics: the cluster operands at each shape of ROLE_SHAPES,
+# and the ISA-layer operands (every ISA layer, the first layer's ceiling,
+# NaN sea-level temperatures: NaN where plain is NaN) at 32 and 64 per block
+KD_CASES = [("cluster", b, n) for b, n in ROLE_SHAPES] + [
+    ("isa", B, 32), ("isa", B, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kinair", "dynamics"])
+@pytest.mark.parametrize("ops,batch,lanes", KD_CASES,
+                         ids=ROLE_IDS + ["isa-L32", "isa-L64"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_kinair_dynamics_on_card(name, ops, batch, lanes, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    vehicle = build_vehicle(device="cuda", dtype=dtype)
+    d = (isa_layer_operands(batch, 1016) if ops == "isa"
+         else cluster_operands(batch, 1016, (3, 17), (5,)))
+    args = K.operand_args(d, vehicle, "cuda", dtype)[name]
+    got = _launch_role(name, args, lanes)
+    ref = getattr(K, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert _worst(got, ref, equal_nan=ops == "isa") <= tol
 
 
 @pytest.mark.cuda

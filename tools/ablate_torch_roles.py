@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Which roles of flightjax_torch's role kernels is their time made of, and
-which of two layouts is faster? Time the role kernels (systems, rk4_stage,
-rk4_finish, megakernel) built from patched copies of their sources, on one
-CUDA card.
+which of two layouts is faster? Time the role kernels (kinair, dynamics,
+systems, rk4_stage, rk4_finish, megakernel) built from patched copies of
+their sources, on one CUDA card.
 
     python3 tools/ablate_torch_roles.py [--batch 4096]
                                         [--variants none,aero,aero+engine]
@@ -20,15 +20,29 @@ kinds of patch:
   sums the wrench); `finish_whole` has rk4_finish copy the whole parameter
   buffer into shared memory and `finish_head` only its scalar head, where
   the tree reads them through the read-only cache; `finish_atm` has the
-  finish share the atmosphere (Tk, p, rho, a, q) as the stage does.
+  finish share the atmosphere (Tk, p, rho, a, q) as the stage does;
+  `kinair_thread` is kinair's one-thread form, one aircraft per thread as
+  before it became a role kernel (timed at 128 threads per block too, as
+  dynamics, which carries one aircraft per thread), `dynamics_roles` runs
+  dynamics in two warps per 32 aircraft, `thread_skip` gives the
+  one-thread kinair the ISA layer skip and `inline` makes the math-library
+  wrappers of flight_math.cuh inline functions and `inline_pow` only the
+  power (only kinair's time is read off such builds); `noskip` takes the ISA layer skip out of kinair's
+  role AIR, and `kinair_abcd` (four digits) runs kinair's roles KD, ANG,
+  EUL and AIR in warps a, b, c and d of each 32 aircraft: `kinair_0123`
+  is one warp each, `kinair_0112` three with EUL in ANG's warp (the tree
+  is `kinair_0102`).
 
 Times are warm medians of 20 launches replayed from a captured CUDA graph,
-float32, at 32 and 64 aircraft per block: on the perturbed airborne
+float32, at 32 and 64 aircraft per block (threads per block for a
+one-thread form): on the perturbed airborne
 flagship fleet (as `chip_smoke.py` times them) and on the kernel-check
 operands with lanes on the runway. The sources of the package are not
 touched. `--variants` names the patches, `+` between patches of one variant
 and `none` for the kernels as they are; the default is each role alone, aero
-and engine, all four, and each layout. Prints one line per variant, then the
+and engine, all four, and each layout. A variant may come more than once,
+so that parent and tree forms can take turns (parent, tree, tree, parent)
+and their spread shows. Prints one line per variant, then the
 card's name and power limit, and as the last line all of it as one JSON
 object. Fails without a card, and if a patch no longer finds its text.
 """
@@ -36,6 +50,7 @@ object. Fails without a card, and if a patch no longer finds its text.
 import argparse
 import json
 import os
+import re
 import shutil
 import sys
 
@@ -61,8 +76,206 @@ def finish_copies(n):
              f"role_launch(B, lanes, {n}, (int)sizeof(T)")]
 
 
+# the one-thread form of kinair (one aircraft per thread, `block` threads per
+# block) with the interface of its role form, and the two-warp form of
+# dynamics (`block` aircraft per block): the geodetic inverse and gravity
+# (DY_GEO) beside the mass properties and the solve (DY_ROT), omega_dot
+# crossing in shared memory at one barrier
+KINAIR_THREAD = """\
+#include "flight_math.cuh"
+
+using namespace fj;
+
+template <typename T>
+__global__ void kinair_kernel(const T* __restrict__ in, T* __restrict__ out,
+                              int B, T adt) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Col<T> c{in, B, b};
+  const Out<T> o{out, B, b};
+  const XKin<T> xi = axpy(load_xkin(c, 0), adt, load_xkin(c, 15));
+  const XDyn<T> xi_dyn = axpy(load_xdyn(c, 9), adt, load_xdyn(c, 24));
+  XKin<T> kin_dot;
+  Kin<T> k;
+  Air<T> air;
+  kinair_lane(xi, xi_dyn, c(30), load_atm(c, 31), T(1.0) - c(36), kin_dot, k,
+              air);
+  store_xkin(o, 0, kin_dot);
+  store_kin(o, N_XKIN, k);
+  store_air(o, N_XKIN + N_KIN, air);
+  store_xdyn(o, N_XKIN + N_KIN + N_AIR, xi_dyn);
+}
+
+template <typename T>
+static int launch(const void* in, void* out, int B, double adt, int block,
+                  void* stream) {
+  if (B <= 0) return 0;
+  if (block <= 0 || block > 1024) return (int)cudaErrorInvalidValue;
+  kinair_kernel<T><<<(B + block - 1) / block, block, 0,
+                     (cudaStream_t)stream>>>((const T*)in, (T*)out, B,
+                                             T(adt));
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+int kinair_f32(const void* in, void* out, int B, double adt, int block,
+               void* stream) {
+  return launch<SF>(in, out, B, adt, block, stream);
+}
+int kinair_f64(const void* in, void* out, int B, double adt, int block,
+               void* stream) {
+  return launch<SD>(in, out, B, adt, block, stream);
+}
+void kinair_layout(int* n_in, int* n_out) {
+  *n_in = KINAIR_N_IN;
+  *n_out = KINAIR_N_OUT;
+}
+void kinair_launch_shape(int B, int block, int, int, int* grid, int* threads,
+                         int* shared) {
+  put_launch(role_launch(B, block, 1, 0), grid, threads, shared);
+}
+}
+"""
+DYNAMICS_ROLES = """\
+#include "c172_systems.cuh"
+
+using namespace fj;
+
+// dynamics' roles, one warp each per 32 aircraft:
+//   DY_ROT  the mass properties and the wrench at the CoM, hc, the
+//           right-hand side and the adjugate solve: the omega_dot rows
+//   DY_GEO  the CoM's geodetic position, gravity and the translational
+//           terms; after the barrier, with omega_dot, the v_dot_eb_b rows
+// omega_dot crosses in the block's shared memory, [3, L] values
+constexpr int DY_ROT = 0, DY_GEO = 1, DY_ROLES = 2;
+
+// DY_ROT: omega_dot, before the x alive (dynamics_lane's operations)
+template <typename T>
+__device__ __forceinline__ V3<T> dynamics_rot(const XDyn<T>& xi,
+                                              const MP<T>& mp, V3<T> F_b,
+                                              V3<T> tau_b, V3<T> ho,
+                                              Q4<T> q_eb) {
+  const V3<T> omega_eb_b = xi.omega_eb_b;
+  const T m = mp.m;
+  const M33<T>& J = mp.J;
+  const V3<T> r_OG = mp.r;
+  const V3<T> omega_ie_b = qrot_inv(q_eb, V3<T>{T(0), T(0), T(OMEGA_IE)});
+  const V3<T> r_bc_b = r_OG;
+  const M33<T> SSc = mm(skew(r_OG), skew(r_OG));
+  const V3<T> r_bG_b = add(neg(r_bc_b), r_OG);
+  const M33<T> SSb = mm(skew(r_bG_b), skew(r_bG_b));
+  M33<T> J_c;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      J_c.m[i][j] = (J.m[i][j] + m * SSc.m[i][j]) - m * SSb.m[i][j];
+  const V3<T> F_c = F_b;
+  const V3<T> tau_c = add(tau_b, cross(neg(r_bc_b), F_c));
+  const V3<T> omega_ec_c = omega_eb_b;
+  const V3<T> omega_ie_c = omega_ie_b;
+  const V3<T> omega_ic_c = add(omega_ie_c, omega_ec_c);
+  const V3<T> hc = add(mv(J_c, omega_ic_c), ho);
+  const V3<T> rhs = sub(sub(tau_c, mv(J_c, cross(omega_ie_c, omega_ec_c))),
+                        cross(omega_ic_c, hc));
+  return solve3(J_c, rhs);
+}
+
+// DY_GEO: v_dot_ec_c, the CoM's acceleration but the omega_dot term
+// (dynamics_lane's operations)
+template <typename T>
+__device__ __forceinline__ V3<T> dynamics_geo(const XDyn<T>& xi, T m,
+                                              V3<T> r_OG, V3<T> F_b,
+                                              Q4<T> q_eb, V3<T> r_eb_e) {
+  const V3<T> omega_eb_b = xi.omega_eb_b, v_eb_b = xi.v_eb_b;
+  const V3<T> omega_ie_b = qrot_inv(q_eb, V3<T>{T(0), T(0), T(OMEGA_IE)});
+  const V3<T> r_bc_b = r_OG;
+  const V3<T> F_c = F_b;
+  const V3<T> omega_ec_c = omega_eb_b;
+  const V3<T> v_ec_c = add(v_eb_b, cross(omega_ec_c, r_bc_b));
+  const V3<T> omega_ie_c = omega_ie_b;
+  const V3<T> r_ec_e = add(r_eb_e, qrot(q_eb, r_bc_b));
+  V3<T> n_c;
+  T h_c;
+  geographic_from_cartesian(r_ec_e, n_c, h_c);
+  const T g_mag = gravity(n_c, h_c);
+  const V3<T> g_c_c = scale(g_mag, qrot_inv(q_eb, neg(n_c)));
+  const V3<T> F_m = {F_c.x / m, F_c.y / m, F_c.z / m};
+  return sub(add(F_m, g_c_c),
+             cross(add(omega_ec_c, scale(T(2), omega_ie_c)), v_ec_c));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DY_ROLES * MAX_LANES)
+    dynamics_kernel(const T* __restrict__ in, T* __restrict__ out, int B) {
+  const RoleThread t = role_thread(B, DY_ROLES);
+  const Col<T> c{in, B, t.b};
+  const Out<T> o{out, B, t.b};
+  T* sh = block_shared<T>();  // omega_dot, [3, L]
+  const XDyn<T> xi = load_xdyn(c, 0);
+  const T alive = T(1.0) - c(35);
+  const V3<T> r_OG = c.v3(16);
+  V3<T> v_dot_ec_c;
+  if (t.role == DY_ROT) {
+    MP<T> mp;
+    mp.m = c(6);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) mp.J.m[i][j] = c(7 + 3 * i + j);
+    mp.r = r_OG;
+    const V3<T> omega_dot = dynamics_rot(xi, mp, c.v3(19), c.v3(22),
+                                         c.v3(25), c.q4(28));
+    Out<T>{sh, t.L, t.lane}.v3(0, omega_dot);
+    if (t.valid) o.v3(0, scale(alive, omega_dot));
+  } else {
+    v_dot_ec_c = dynamics_geo(xi, c(6), r_OG, c.v3(19), c.q4(28), c.v3(32));
+  }
+  __syncthreads();
+  if (t.role == DY_GEO && t.valid) {
+    const V3<T> omega_dot = Col<T>{sh, t.L, t.lane}.v3(0);
+    o.v3(3, scale(alive, sub(v_dot_ec_c, cross(omega_dot, r_OG))));
+  }
+}
+
+template <typename T>
+static int launch(const void* in, void* out, int B, int lanes, void* stream) {
+  if (B <= 0) return 0;
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, DY_ROLES,
+                                   3 * lanes * (int)sizeof(T));
+  dynamics_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
+      (const T*)in, (T*)out, B);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+int dynamics_f32(const void* in, void* out, int B, int lanes, void* stream) {
+  return launch<SF>(in, out, B, lanes, stream);
+}
+int dynamics_f64(const void* in, void* out, int B, int lanes, void* stream) {
+  return launch<SD>(in, out, B, lanes, stream);
+}
+void dynamics_layout(int* n_in, int* n_out) {
+  *n_in = DYN_N_IN;
+  *n_out = DYN_N_OUT;
+}
+}
+"""
+
+
+def one_thread(name, patches):
+    """Whether kernel `name` carries one aircraft per thread in a build
+    with these patches (and so is timed at 128 threads per block too)."""
+    return {"kinair": "kinair_thread" in patches,
+            "dynamics": "dynamics_roles" not in patches}.get(name, False)
+
+
 AERO_ZERO = f"    a = {{T(0.0), T(0.0), {Z3}, T(0.0), T(0.0), {Z3}}};\n"
-# patch: [(source file, text the copy must hold once, what replaces it)]
+# patch: [(source file, text the copy must hold once, what replaces it)];
+# None for the text replaces the whole file, and a fourth element True
+# replaces every occurrence (at least one) of the text
 PATCHES = {
     "aero": [
         ("c172_systems.cuh", """\
@@ -122,11 +335,53 @@ PATCHES = {
     "finish_atm": [
         ("c172_systems.cuh", "    share_kin_air<false>(so, kin, air);\n",
          "    share_kin_air(so, kin, air);\n")],
+    "kinair_thread": [("kinair.cu", None, KINAIR_THREAD)],
+    "dynamics_roles": [("dynamics.cu", None, DYNAMICS_ROLES)],
+    "thread_skip": [
+        ("kinair.cu", """\
+  kinair_lane(xi, xi_dyn, c(30), load_atm(c, 31), T(1.0) - c(36), kin_dot, k,
+              air);
+""", """\
+  XKin<T> d;
+  wa_f_ode(xi.q_wb, xi.q_ew, xi.h_e, xi_dyn.omega_eb_b, xi_dyn.v_eb_b, c(30),
+           d, k);
+  const AtmU<T> u = load_atm(c, 31);
+  air = atm_air<true>(k, u.T_sl, u.p_sl, u.wind);
+  kin_dot = scale(T(1.0) - c(36), d);
+""")],
+    "inline": [("flight_math.cuh", "static __device__ __noinline__ ",
+                "static __device__ __forceinline__ ", True)],
+    "inline_pow": [("flight_math.cuh", f"static __device__ __noinline__ {t} "
+                    f"Pow", f"static __device__ __forceinline__ {t} Pow")
+                   for t in ("SF", "SD")],
+    "noskip": [("flight_math.cuh", "atm_air<true>(k, u.T_sl",
+                "atm_air<false>(k, u.T_sl")],
 }
+KINAIR_ROLES = "KA_KD = 0, KA_ANG = 1, KA_EUL = 0, KA_AIR = 2, KA_ROLES = 3;"
+
+
+def patch(name):
+    """The edits of patch `name`: PATCHES[name], or a layout of kinair's
+    roles `kinair_abcd`; None for an unknown name."""
+    if name in PATCHES:
+        return PATCHES[name]
+    m = re.fullmatch(r"kinair_(\d)(\d)(\d)(\d)", name)
+    if m is None:
+        return None
+    w = [int(g) for g in m.groups()]
+    if sorted(set(w)) != list(range(max(w) + 1)):
+        return None
+    return [("flight_math.cuh", KINAIR_ROLES,
+             "KA_KD = {}, KA_ANG = {}, KA_EUL = {}, KA_AIR = {}, "
+             "KA_ROLES = {};".format(*w, max(w) + 1))]
 VARIANTS = ((), ("aero",), ("legs",), ("engine",), ("propeller",),
             ("aero", "engine"), ("aero", "legs", "engine", "propeller"),
-            ("sys7",), ("finish_head",), ("finish_whole",), ("finish_atm",))
-TIMED = ("systems", "rk4_stage", "rk4_finish", "megakernel")
+            ("sys7",), ("finish_head",), ("finish_whole",), ("finish_atm",),
+            ("kinair_thread",), ("kinair_thread", "thread_skip"),
+            ("kinair_thread", "inline"), ("noskip",), ("kinair_0123",),
+            ("kinair_0112",), ("dynamics_roles",))
+TIMED = ("kinair", "dynamics", "systems", "rk4_stage", "rk4_finish",
+         "megakernel")
 
 
 def patched_sources(csrc, build_dir, patches, n_params):
@@ -136,16 +391,21 @@ def patched_sources(csrc, build_dir, patches, n_params):
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst)
     for name in patches:
-        for fname, old, new in PATCHES[name]:
+        for fname, old, new, *every in patch(name):
             path = os.path.join(dst, fname)
             with open(path) as fh:
                 text = fh.read()
-            if text.count(old) != 1:
+            new = new.replace(N_PARAMS, str(n_params))
+            if old is None:
+                text = new
+            elif (text.count(old) >= 1) if every else (text.count(old) == 1):
+                text = text.replace(old, new)
+            else:
                 raise SystemExit(f"ablate: patch {name!r} does not find its "
-                                 f"text once in {fname}:\n{old}")
+                                 f"text {'' if every else 'once '}in "
+                                 f"{fname}:\n{old}")
             with open(path, "w") as fh:
-                fh.write(text.replace(old, new.replace(N_PARAMS,
-                                                       str(n_params))))
+                fh.write(text)
     return dst
 
 
@@ -158,8 +418,9 @@ def main():
     variants = [() if v == "none" else tuple(v.split("+"))
                 for v in args.variants.split(",")]
     for v in variants:
-        if set(v) - set(PATCHES):
-            ap.error(f"unknown patch in {v}; the patches are {list(PATCHES)}")
+        if any(patch(p) is None for p in v):
+            ap.error(f"unknown patch in {v}; the patches are {list(PATCHES)}"
+                     " and kinair_abcd")
     if not torch.cuda.is_available():
         print("ablate_torch_roles: no CUDA device", file=sys.stderr)
         return 2
@@ -178,7 +439,7 @@ def main():
     # with lanes on the runway (at B = 4096, as chip_smoke.py draws them)
     ops = {"airborne": S.flight_operands(sim, st)}
     check = S.kernel_inputs(torch.float32)
-    ops["runway"] = {n: K.PACK[n](*check[n]) for n in TIMED[:3]}
+    ops["runway"] = {n: K.PACK[n](*check[n]) for n in TIMED[:-1]}
     msim, mst = S.mega_inputs(torch.float32, True)
     mega = {"airborne": make_megakernel_step(sim, st)[0],
             "runway": make_megakernel_step(msim, mst)[0]}
@@ -200,7 +461,8 @@ def main():
         row = {"patches": list(patches)}
         for name in TIMED:
             for where in ("airborne", "runway"):
-                for lanes in (32, 64):
+                for lanes in ((32, 64, 128) if one_thread(name, patches)
+                              else (32, 64)):
                     row[f"{name}_{where}_{lanes}_ms"] = S.graph_ms(
                         launcher(name, where, lanes))
         results.append(row)
