@@ -21,12 +21,15 @@ Phases:
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a;
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
-   max(1, |plain|)): the eight other kernels on the cluster operands (lanes
-   on each runway surface, a terminated lane, stalled lanes, every engine
-   state), kinair and dynamics also on the ISA-layer operands (heights in
-   every ISA layer and on the first layer's ceiling, NaN sea-level
-   temperatures: NaN where plain is NaN), and one megakernel step on the
-   same fleet, with and without residuals;
+   max(1, |plain|); flags and states exactly): the eight other kernels on
+   the cluster operands (lanes on each runway surface, a terminated lane, a
+   lane that crashes during the step, stalled lanes, every engine state),
+   kinair, dynamics and finish_kin also on the ISA-layer operands (heights
+   in every ISA layer and on the first layer's ceiling, NaN sea-level
+   temperatures: NaN where plain is NaN) at 32 and 64 aircraft (threads for
+   dynamics) per block, finish_kin and finish_sys also at 64 per block and
+   on the airborne flight fleet, and one megakernel step on the cluster
+   operands' fleet, with and without residuals;
 4. the paths: the trimmed C172S flagship at 4096 perturbed aircraft in
    float32, each path from its launch counts set to 0 to their reading
    just after: `subsystems` 100 steps (from step 28, so the refresh at step
@@ -41,10 +44,11 @@ Phases:
    inside a captured CUDA graph of 20 launches, so it is the card's time
    and not the host's launch rate; the time by CUDA events around 20
    launches from Python stands beside it (`event_ms`). The role kernels
-   (kinair, systems, rk4_stage, rk4_finish, megakernel: several threads per
-   aircraft) also by aircraft per block (32, 64), on the airborne flight
-   fleet (`airborne_ms`) and on the kernel-check operands with lanes on
-   the runway (`runway_ms`), beside an empty kernel launched the same way,
+   (several threads per aircraft: kinair, finish_kin, systems, finish_sys, rk4_stage,
+   rk4_finish, megakernel) also by aircraft per block (32, 64), on the
+   airborne flight fleet (`airborne_ms`) and on the kernel-check operands
+   with lanes on the runway (`runway_ms`), beside an empty kernel launched
+   the same way,
    and the megakernel at B = 16384 and 65536 too. Every number of a
    kernel's row but those two is taken on one set of operands: the
    flight fleet (the state its path steps) for the megakernel, the
@@ -104,6 +108,9 @@ KERNELS = {
 }
 # the kernels that run on the cluster operands (the megakernel steps a state)
 LANE_KERNELS = tuple(k for k in KERNELS if k != "megakernel")
+# the kernel-check operands' lanes: on the runway, terminated, and crashing
+# during the step (on the runway, sinking past what the gear takes)
+GROUND_LANES, TERMINATED_LANES, CRASH_LANE = (3, 77), (5,), 78
 
 
 def log(msg):
@@ -149,9 +156,12 @@ def leaves(tree):
     return tree_leaves_with_path(tree)
 
 
-def float_pairs(got, ref):
-    return [(p, a, b) for (p, a), (_, b) in zip(leaves(got), leaves(ref))
-            if a.dtype.is_floating_point]
+def leaf_pairs(got, ref):
+    """(path, got leaf, ref leaf) of two trees of one structure; flags and
+    integer states as float64, so that they must agree exactly."""
+    return [(p, a, b) if a.dtype.is_floating_point else (p, a.double(),
+                                                         b.double())
+            for (p, a), (_, b) in zip(leaves(got), leaves(ref))]
 
 
 def cuda_ms(fn, reps=7, calls=20):
@@ -256,14 +266,14 @@ def bound(nbytes, ops):
 
 def kernel_operands(batch=B):
     from flightjax_torch.testing import cluster_operands
-    return cluster_operands(batch, SEED, ground_lanes=(3, 77),
-                            terminated_lanes=(5,))
+    return cluster_operands(batch, SEED, GROUND_LANES, TERMINATED_LANES,
+                            (CRASH_LANE,))
 
 
 def kernel_inputs(dtype):
     """numpy-seeded operands of LANE_KERNELS at B lanes (as the CPU
-    parity tests draw them, two lanes on the runway, one terminated, lanes
-    in every engine state), on the card."""
+    parity tests draw them, two lanes on the runway, one terminated, one
+    crashing in the step, lanes in every engine state), on the card."""
     from flightjax_torch.models.c172.c172s import build_vehicle
     from flightjax_torch.parallel.kernels import operand_args
     return operand_args(kernel_operands(), build_vehicle(device=DEVICE,
@@ -272,8 +282,8 @@ def kernel_inputs(dtype):
 
 
 def isa_inputs(dtype):
-    """The operands of kinair and dynamics on the ISA-layer fleet
-    (`testing.isa_layer_operands`) at B lanes, on the card."""
+    """The operands of kinair, dynamics and finish_kin on the ISA-layer
+    fleet (`testing.isa_layer_operands`) at B lanes, on the card."""
     from flightjax_torch.models.c172.c172s import build_vehicle
     from flightjax_torch.parallel.kernels import operand_args
     from flightjax_torch.testing import isa_layer_operands
@@ -283,12 +293,29 @@ def isa_inputs(dtype):
 
 
 def unpacked(name, ref):
-    """The plain result of kinair or dynamics in the form `K.unpack` gives
-    the kernel's output: a list of dicts of its row groups."""
+    """The plain result of kinair, dynamics, finish_kin or finish_sys in
+    the form `kernel_rows` gives the kernel's output: a list of dicts of
+    its row groups (finish_kin's residuals left out where plain carries
+    none)."""
     if name == "dynamics":
         return [ref]
+    if name == "finish_sys":
+        return list(ref)
+    if name == "finish_kin":
+        x_kin, x_dyn, kin, air, c = ref
+        return [x_kin, x_dyn, kin._asdict(), air._asdict()] + (
+            [c] if c is not None else [])
     kin_dot, kin, air, xi_dyn = ref
     return [kin_dot, kin._asdict(), air._asdict(), xi_dyn]
+
+
+def kernel_rows(name, out, n_ref):
+    """The packed output of kinair, dynamics, finish_kin or finish_sys as
+    a list of dicts of its row groups, the first n_ref of them."""
+    from flightjax_torch.parallel import kernels as K
+    layout = {"kinair": K.KINAIR_OUT, "dynamics": K.DYN_OUT,
+              "finish_kin": K.FIN_OUT, "finish_sys": K.FSYS_OUT}[name]
+    return K.unpack(layout, out, typed=True)[:n_ref]
 
 
 def mega_inputs(dtype, comp):
@@ -303,34 +330,17 @@ def mega_inputs(dtype, comp):
                             else None)
 
 
-def flight_operands(sim, st, adt=0.01):
-    """The packed operands (as `K.PACK` gives them) of kinair, systems,
-    dynamics, rk4_stage and rk4_finish on the airborne flight fleet `st`:
-    the stage kernels at x + adt k1, k1 the fleet's derivative (dynamics on
-    the mass properties and wrench the systems give there), rk4_finish
-    with the k-sum 6 k1, uncompensated as the vehicle path runs it."""
-    from flightjax_torch.core.modeling import tree_map
+def flight_operands(sim, st):
+    """The packed operands (as `K.PACK` gives them) of the kernels but the
+    geoid and the megakernel on the airborne flight fleet `st`
+    (`testing.flight_operand_args`: the stage kernels at x + adt k1, the
+    finish kernels with the k-sum 6 k1, finish_kin compensated as
+    `Simulation.fleet_step` runs it, rk4_finish uncompensated as the
+    vehicle path runs it)."""
     from flightjax_torch.parallel import kernels as K
-    vehicle = sim.system.aircraft.vehicle
-    xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
-    term = st.s["terminated"].to(xv["kinematics"]["h_e"].dtype)
-    k1 = K.rk4_stage_plain(vehicle, xv, tree_map(torch.zeros_like, xv), uv,
-                           sv, term, 0.0)
-    kin_args = (xv["kinematics"], xv["dynamics"], k1["kinematics"],
-                k1["dynamics"], sv["geoid_N"], uv["atm"], adt, term)
-    _, kin, air, xi_dyn = K.kinair_plain(*kin_args)
-    sys_args = (vehicle, xv["systems"], k1["systems"], uv["systems"],
-                sv["systems"], uv["trn"], kin, air, adt, term)
-    _, mp, wr, hr = K.systems_plain(*sys_args)
-    return {"kinair": K.pack_kinair(*kin_args),
-            "systems": K.pack_systems(*sys_args),
-            "dynamics": K.pack_dynamics(xi_dyn, mp, wr, hr, kin.q_eb,
-                                        kin.r_eb_e, term),
-            "rk4_stage": K.pack_rk4_stage(vehicle, xv, k1, uv, sv, term,
-                                          adt),
-            "rk4_finish": K.pack_rk4_finish(
-                vehicle, xv, tree_map(lambda k: 6.0 * k, k1), uv, sv,
-                st.s["terminated"], sim.dt)}
+    from flightjax_torch.testing import flight_operand_args
+    return {name: K.PACK[name](*args)
+            for name, args in flight_operand_args(sim, st).items()}
 
 
 # ------------------------------------------------------------ paths
@@ -465,6 +475,7 @@ def main():
     from flightjax_torch.parallel import launch as L
     from flightjax_torch.parallel.megakernel import (make_megakernel_step,
                                                      megakernel_step_plain)
+    from flightjax_torch.testing import flight_operand_args
 
     # 1. device and toolchain
     card = card_line()
@@ -505,27 +516,46 @@ def main():
                 float((a.double() - b.double())[~b.isnan()].abs().max())
                 for _, a, b in pairs))
 
+    def check_blocks(name, dtype, tol, args, what, equal_nan=False):
+        """Kernel `name` launched at 32 and 64 aircraft (threads for
+        dynamics) per block on the wrapper's arguments, against plain."""
+        ref = unpacked(name, getattr(K, name + "_plain")(*args))
+        for lanes in (32, 64):
+            buf, n_out, scal, ops = K.PACK[name](*args)
+            out = L.launch(name, buf, n_out, scal, block=lanes, **ops)
+            got = kernel_rows(name, out, len(ref))
+            torch.cuda.synchronize()
+            check(name, dtype, tol, leaf_pairs(got, ref),
+                  f" ({what}, block {lanes})", equal_nan=equal_nan)
+
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         args = kernel_inputs(dtype)
         for name in LANE_KERNELS:
             kern, plain = getattr(K, name), getattr(K, name + "_plain")
             got, ref = kern(*args[name]), plain(*args[name])
             torch.cuda.synchronize()
-            check(name, dtype, tol, float_pairs(got, ref))
-        # kinair and dynamics on the ISA-layer operands at both block sizes
-        # (aircraft per block for kinair, threads for dynamics)
+            check(name, dtype, tol, leaf_pairs(got, ref))
+            if name == "finish_sys" and not (
+                    bool(got[1]["crashed"][CRASH_LANE])
+                    and not bool(args[name][4]["crashed"][CRASH_LANE])):
+                raise AssertionError("finish_sys: the crash lane did not "
+                                     "latch crashed")
+        # the finish kernels at both block sizes, on the kernel-check
+        # operands and on the airborne flight fleet
+        fsim, fst = fleet(dtype)
+        flight = flight_operand_args(fsim, fst)
+        for name in ("finish_kin", "finish_sys"):
+            check_blocks(name, dtype, tol, args[name], "kernel-check operands")
+            check_blocks(name, dtype, tol, flight[name], "flight fleet")
+        del fsim, fst, flight
+        # kinair, dynamics and finish_kin (with and without residuals) on
+        # the ISA-layer operands at both block sizes
         isa = isa_inputs(dtype)
-        for name in ("kinair", "dynamics"):
-            ref = getattr(K, name + "_plain")(*isa[name])
-            for lanes in (32, 64):
-                buf, n_out, scal, ops = K.PACK[name](*isa[name])
-                out = L.launch(name, buf, n_out, scal, block=lanes, **ops)
-                got = K.unpack(K.KINAIR_OUT if name == "kinair"
-                               else K.DYN_OUT, out)
-                torch.cuda.synchronize()
-                check(name, dtype, tol, float_pairs(
-                    got, unpacked(name, ref)),
-                    f" (ISA layers, block {lanes})", equal_nan=True)
+        for name in ("kinair", "dynamics", "finish_kin"):
+            check_blocks(name, dtype, tol, isa[name], "ISA layers",
+                         equal_nan=True)
+        check_blocks("finish_kin", dtype, tol, isa["finish_kin"][:-1]
+                     + (None,), "ISA layers, uncompensated", equal_nan=True)
         for comp in (False, True):
             sim, st = mega_inputs(dtype, comp)
             bufs, step_packed, unpack = make_megakernel_step(sim, st)
@@ -534,7 +564,7 @@ def main():
             torch.cuda.synchronize()
             if not torch.equal(got.i, ref.i):
                 raise AssertionError("megakernel: step counter")
-            check("megakernel", dtype, tol, float_pairs(
+            check("megakernel", dtype, tol, leaf_pairs(
                 (got.t, got.x, got.s, got.c), (ref.t, ref.x, ref.s, ref.c)),
                 f" (comp {comp})")
 
@@ -582,7 +612,7 @@ def main():
         a = paths64.run(label, F64_STEPS)
         b = paths64.run_plain(label, F64_STEPS)
         torch.cuda.synchronize()
-        worst = max(rel_err(va, vb) for _, va, vb in float_pairs(
+        worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
             {"x": a.x, "s": a.s}, {"x": b.x, "s": b.s}))
         log(f"{label} f64 {F64_STEPS} steps kernels vs plain: max rel err "
             f"{worst:.3e} (tol 1e-9)")

@@ -729,48 +729,50 @@ struct Trn {
   int surface;
 };
 
-// k5_lane after the RK4 combine (x holds x + dt/6 ksum): actuation, the
-// three struts, stall hysteresis, friction regulator reset off the ground,
-// crash latch and the engine state machine (k_fin_act, k_fin_ldg0..2,
-// k_fin_rest) at the new kinematics; updates x and s in place
-template <typename T>
-__device__ __forceinline__ void finish_sys_lane(const T* P, T (&x)[N_XSYS],
-                                                const T (&u)[N_USYS], SSys& s,
-                                                const Trn<T>& trn,
-                                                const Kin<T>& kin,
-                                                const Air<T>& air) {
-  // actuation (k_fin_act): only the nose leg steers
-  const Act<T> act = actuation(u);
-  const T zero = T(0.0);
-  const T steer[N_LEGS] = {zero, zero, act.steering};
+// k5_lane after the RK4 combine, in its parts (k_fin_act, k_fin_ldg0..2,
+// k_fin_rest), at the new kinematics: finish_sys runs them in warps of its
+// own, finish_roles in the subsystem warps.
 
-  // struts (k_fin_ldg0..2), stall, gear reset, crash latch (k_fin_rest)
-  bool crashed = s.crashed;
-#pragma unroll
-  for (int leg = 0; leg < N_LEGS; ++leg) {
-    const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steer[leg], kin,
-                                trn.elevation, trn.normal);
-    if (!st.wow) {
-      x[XS_FRC + 2 * leg] = zero;
-      x[XS_FRC + 2 * leg + 1] = zero;
-    }
-    crashed = crashed || (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
-              -st.xi_dot > T(XI_DOT_MAX);
-  }
+// gear leg `leg` (k_fin_ldg<leg>, with the steering of k_fin_act: only the
+// nose leg steers): its strut, and its friction regulator's states frc_x,
+// frc_y (after the combine) reset off the ground; returns whether the leg
+// crashes, its strut tilted past ALPHA_TS_MAX on the ground or compressing
+// faster than XI_DOT_MAX
+template <typename T>
+__device__ __forceinline__ bool finish_leg(const T* P, int leg,
+                                           const T (&u)[N_USYS],
+                                           const Kin<T>& kin,
+                                           const Trn<T>& trn, T& frc_x,
+                                           T& frc_y) {
+  const T steering = leg == 2 ? actuation(u).steering : T(0.0);
+  const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steering, kin,
+                              trn.elevation, trn.normal);
+  if (!st.wow) frc_x = frc_y = T(0.0);
+  return (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
+         -st.xi_dot > T(XI_DOT_MAX);
+}
+
+// the stall hysteresis at the new airflow (k_fin_rest)
+template <typename T>
+__device__ __forceinline__ bool finish_stall(const T* P, const Air<T>& air,
+                                             bool stall) {
   T alpha, beta;
   V3<T> v_safe;
   alpha_gated(air, alpha, beta, v_safe);
-  const bool stall = alpha > P[P_AE + AE_stall_hi] ||
-                     (s.stall && alpha >= P[P_AE + AE_stall_lo]);
+  return alpha > P[P_AE + AE_stall_hi] ||
+         (stall && alpha >= P[P_AE + AE_stall_lo]);
+}
 
-  // engine state machine
+// the engine state machine at the new fuel state and shaft speed
+// (k_fin_rest)
+template <typename T>
+__device__ __forceinline__ int finish_engine(const T* P, int state, T x_fuel,
+                                             T x_omega,
+                                             const T (&u)[N_USYS]) {
   const T* M = P + P_MS;
-  const bool fuel_available =
-      fuel_m_total(M, x[XS_FUEL]) - M[MS_M_RES] > T(0);
-  s.state = engine_step(P, s.state, x[XS_OMEGA], u[US_E_START].v != 0,
-                        u[US_E_STOP].v != 0, fuel_available);
-  s.stall = stall;
-  s.crashed = crashed;
+  const bool fuel_available = fuel_m_total(M, x_fuel) - M[MS_M_RES] > T(0);
+  return engine_step(P, state, x_omega, u[US_E_START].v != 0,
+                     u[US_E_STOP].v != 0, fuel_available);
 }
 
 // x_sys (N_XSYS rows), s_sys (N_SSYS rows) and the terrain (N_TRN rows)
@@ -1274,26 +1276,13 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     Air<T> air;
     shared_kin_air(si, kin, air);
     if (role == ROLE_AERO) {
-      T alpha, beta;
-      V3<T> v_safe;
-      alpha_gated(air, alpha, beta, v_safe);
-      o.s.stall = alpha > P[P_AE + AE_stall_hi] ||
-                  (in.s.stall && alpha >= P[P_AE + AE_stall_lo]);
+      o.s.stall = finish_stall(P, air, in.s.stall);
     } else if (role == ROLE_ENG) {
-      const T* M = P + P_MS;
-      const bool fuel_available =
-          fuel_m_total(M, xn[PW_FUEL]) - M[MS_M_RES] > T(0);
-      o.s.state = engine_step(P, in.s.state, xn[PW_OMEGA],
-                              in.u[US_E_START].v != 0,
-                              in.u[US_E_STOP].v != 0, fuel_available);
+      o.s.state = finish_engine(P, in.s.state, xn[PW_FUEL], xn[PW_OMEGA],
+                                in.u);
     } else if (role >= ROLE_LEG0) {
       const int leg = role - ROLE_LEG0;
-      const T steering = leg == 2 ? actuation(in.u).steering : T(0.0);
-      const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steering, kin,
-                                  in.trn.elevation, in.trn.normal);
-      if (!st.wow) xn[0] = xn[1] = T(0.0);
-      const bool crash = (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
-                         -st.xi_dot > T(XI_DOT_MAX);
+      const bool crash = finish_leg(P, leg, in.u, kin, in.trn, xn[0], xn[1]);
       so.s(SH_CRASH + leg, T(crash ? 1.0 : 0.0));
     }
   }

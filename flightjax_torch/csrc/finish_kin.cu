@@ -11,68 +11,71 @@
 // (clusterstep.py:170, :608). Plain PyTorch version:
 // flightjax_torch/parallel/kernels.py::finish_kin_plain.
 //
-// What bounds it on the H100: one thread per aircraft, ~350 flops and a
-// dozen transcendentals, 41 inputs and 82 outputs per lane: at B = 4096 a
-// call moves 2.0 MB in float32, so it is bound by launch latency and
-// occupancy, not by bandwidth or FLOPs. 4096 threads in 128-thread blocks
-// occupy only 32 of the 132 SMs; PERF.md records the block sizes measured
-// on the card.
+// What bounds it on the H100: neither bytes (41 input and 82 output rows per
+// lane, 2.0 MB in float32 at B = 4096, about 0.6 us of HBM) nor operations
+// (~350 per lane), but the latency of one aircraft's chain. With one thread
+// per aircraft it ran the combine (five Neumaier adds when compensated), two
+// renormalisations (a square root and a divide each) and then kinair's
+// chain at the new state: 17 math-library calls in a row (the wrappers are
+// real functions), four atan2 in the kinematics, two atan2 and an asin for
+// the Euler angles, a power or an exponential for each of the seven ISA
+// layers and three more powers in the air data; and 4096 threads in
+// 128-thread blocks filled 32 of the 132 SMs.
+//
+// What the design does about it: kinair's cut (flight_math.cuh, "finish_kin
+// roles"): three threads carry one aircraft, one warp each, KD (with EUL)
+// the new state, the KinData rows that take no library call, the residuals
+// and the Euler angles, ANG the four atan2, AIR the atmosphere and air data.
+// Every role runs the combine and the renormalisation itself and stores only
+// its own rows, so the roles need no barrier and each row is bit-identical to
+// the one-thread form; the renormalisation's square roots and divisions are
+// one called function, not a copy in every role, which measured 0.4-0.5 us
+// faster. AIR skips the ISA layers above the aircraft, whose calls change
+// nothing (atm_air<true>). A warp makes at most four library calls, and
+// 4096 aircraft at 32 per block are 128 blocks of three warps.
+// PERF.md records the times on the card, beside the one-thread form's
+// (tools/ablate_torch_roles.py, `finish_kin_thread`).
 #include "flight_math.cuh"
 
 using namespace fj;
 
 template <typename T>
-__global__ void finish_kin_kernel(const T* __restrict__ in,
-                                  T* __restrict__ out, int B, T c6,
-                                  int comp) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Col<T> c{in, B, b};
-  const Out<T> o{out, B, b};
-
-  Q4<T> r_q = {T(0), T(0), T(0), T(0)};
-  T r_h = T(0);
-  if (comp) {
-    r_q = c.q4(36);
-    r_h = c(40);
-  }
-  XKin<T> x;
-  XDyn<T> x_dyn;
-  Kin<T> k;
-  Air<T> air;
-  finish_kin_lane(load_xkin(c, 0), load_xdyn(c, 9), load_xkin(c, 15),
-                  load_xdyn(c, 24), c6, comp != 0, r_q, r_h, c(30),
-                  load_atm(c, 31), x, x_dyn, k, air);
-  store_xkin(o, 0, x);
-  store_xdyn(o, N_XKIN, x_dyn);
-  store_kin(o, N_XKIN + N_XDYN, k);
-  store_air(o, N_XKIN + N_XDYN + N_KIN, air);
-  o.q4(N_XKIN + N_XDYN + N_KIN + N_AIR, r_q);
-  o.s(N_XKIN + N_XDYN + N_KIN + N_AIR + 4, r_h);
+__global__ void __launch_bounds__(KA_ROLES * MAX_LANES)
+    finish_kin_kernel(const T* __restrict__ in, T* __restrict__ out, int B,
+                      T c6, int comp) {
+  const RoleThread t = role_thread(B, KA_ROLES);
+  if (!t.valid) return;  // no barrier
+  finish_kin_role(t.role, Col<T>{in, B, t.b}, c6, comp != 0,
+                  Out<T>{out, B, t.b});
 }
 
 template <typename T>
 static int launch(const void* in, void* out, int B, double c6, int comp,
-                  int block, void* stream) {
+                  int lanes, void* stream) {
   if (B <= 0) return 0;
-  if (block <= 0 || block > 1024) return (int)cudaErrorInvalidValue;
-  const int grid = (B + block - 1) / block;
-  finish_kin_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, KA_ROLES, 0);
+  finish_kin_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
       (const T*)in, (T*)out, B, T(c6), comp);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 int finish_kin_f32(const void* in, void* out, int B, double c6, int comp,
-                   int block, void* stream) {
-  return launch<SF>(in, out, B, c6, comp, block, stream);
+                   int lanes, void* stream) {
+  return launch<SF>(in, out, B, c6, comp, lanes, stream);
 }
 int finish_kin_f64(const void* in, void* out, int B, double c6, int comp,
-                   int block, void* stream) {
-  return launch<SD>(in, out, B, c6, comp, block, stream);
+                   int lanes, void* stream) {
+  return launch<SD>(in, out, B, c6, comp, lanes, stream);
 }
 void finish_kin_layout(int* n_in, int* n_out) {
   *n_in = FIN_N_IN;
   *n_out = FIN_N_OUT;
+}
+void finish_kin_launch_shape(int B, int lanes, int, int, int* grid,
+                             int* block, int* shared) {
+  put_launch(role_launch(B, lanes, KA_ROLES, 0), grid, block, shared);
 }
 }

@@ -865,14 +865,23 @@ __device__ __forceinline__ T comp_add(T x, T incr, T& c) {
   return s;
 }
 
-// k4_lane + comp_add: the RK4 combine x + c6 ksum (compensated on q_ew and
-// h_e with the residuals r_q, r_h when `comp`), the WA renormalisation, and
-// KinData and AirData at the new state
+// normalize_block as one real function, for a kernel whose warps each
+// renormalise (finish_kin): inlined in every warp's code (49,792 code bytes
+// against 41,472), the square roots and divisions made it 0.4-0.5 us slower
+// (PERF.md)
 template <typename T>
-__device__ __forceinline__ void finish_kin_lane(
+static __device__ __noinline__ Q4<T> normalize_block_call(Q4<T> q) {
+  return normalize_block(q);
+}
+
+// the RK4 combine x + c6 ksum of k4_lane (compensated on q_ew and h_e with
+// the residuals r_q, r_h when `comp`) and the WA renormalisation, with
+// RENORM_CALL through normalize_block_call
+template <bool RENORM_CALL = false, typename T>
+__device__ __forceinline__ void finish_kin_combine(
     const XKin<T>& x, const XDyn<T>& x_dyn, const XKin<T>& ks,
-    const XDyn<T>& ks_dyn, T c6, bool comp, Q4<T>& r_q, T& r_h, T geoid_N,
-    const AtmU<T>& u, XKin<T>& xo, XDyn<T>& xo_dyn, Kin<T>& k, Air<T>& air) {
+    const XDyn<T>& ks_dyn, T c6, bool comp, Q4<T>& r_q, T& r_h, XKin<T>& xo,
+    XDyn<T>& xo_dyn) {
   const Q4<T> nq_wb = axpy(x.q_wb, c6, ks.q_wb);
   Q4<T> nq_ew;
   T nh_e;
@@ -887,7 +896,20 @@ __device__ __forceinline__ void finish_kin_lane(
     nh_e = x.h_e + c6 * ks.h_e;
   }
   xo_dyn = axpy(x_dyn, c6, ks_dyn);
-  xo = {normalize_block(nq_wb), normalize_block(nq_ew), nh_e};
+  if (RENORM_CALL)
+    xo = {normalize_block_call(nq_wb), normalize_block_call(nq_ew), nh_e};
+  else
+    xo = {normalize_block(nq_wb), normalize_block(nq_ew), nh_e};
+}
+
+// k4_lane + comp_add: finish_kin_combine, then KinData and AirData at the
+// new state
+template <typename T>
+__device__ __forceinline__ void finish_kin_lane(
+    const XKin<T>& x, const XDyn<T>& x_dyn, const XKin<T>& ks,
+    const XDyn<T>& ks_dyn, T c6, bool comp, Q4<T>& r_q, T& r_h, T geoid_N,
+    const AtmU<T>& u, XKin<T>& xo, XDyn<T>& xo_dyn, Kin<T>& k, Air<T>& air) {
+  finish_kin_combine(x, x_dyn, ks, ks_dyn, c6, comp, r_q, r_h, xo, xo_dyn);
   XKin<T> d;
   wa_f_ode(xo.q_wb, xo.q_ew, xo.h_e, xo_dyn.omega_eb_b, xo_dyn.v_eb_b,
            geoid_N, d, k);
@@ -967,6 +989,36 @@ __device__ __forceinline__ void store_kin(const Out<T>& o, int r, const Kin<T>& 
   o.v3(r + KR_V_EB_B, k.v_eb_b);
   o.v3(r + KR_V_EB_N, k.v_eb_n);
   o.s(r + KR_V_GND, k.v_gnd);
+  o.s(r + KR_CHI, k.chi);
+  o.s(r + KR_GAMMA, k.gamma);
+}
+
+// the KinData rows that take no library call, starting at r (role KD of
+// kinair and finish_kin)
+template <typename T>
+__device__ __forceinline__ void store_kin_direct(const Out<T>& o, int r,
+                                                 const Kin<T>& k) {
+  o.q4(r + KR_Q_NB, k.q_nb);
+  o.q4(r + KR_Q_EB, k.q_eb);
+  o.q4(r + KR_Q_EN, k.q_en);
+  o.v3(r + KR_N_E, k.n_e);
+  o.s(r + KR_H_E, k.h_e);
+  o.s(r + KR_H_O, k.h_o);
+  o.v3(r + KR_R_EB_E, k.r_eb_e);
+  o.v3(r + KR_OM_WB, k.omega_wb_b);
+  o.v3(r + KR_OM_EB, k.omega_eb_b);
+  o.v3(r + KR_V_EB_B, k.v_eb_b);
+  o.v3(r + KR_V_EB_N, k.v_eb_n);
+  o.s(r + KR_V_GND, k.v_gnd);
+}
+
+// the KinData angles lat, lon, chi and gamma (four atan2), KinData rows
+// starting at r (role ANG)
+template <typename T>
+__device__ __forceinline__ void store_kin_angles(const Out<T>& o, int r,
+                                                 const Kin<T>& k) {
+  o.s(r + KR_LAT, k.lat);
+  o.s(r + KR_LON, k.lon);
   o.s(r + KR_CHI, k.chi);
   o.s(r + KR_GAMMA, k.gamma);
 }
@@ -1158,26 +1210,12 @@ __device__ __forceinline__ void kinair_role(int role, const Col<T>& c, T adt,
   if (role == KA_KD) {
     kinair_stage(c, adt, xi_dyn, d, k);
     store_xkin(o, KO_DOT, scale(T(1.0) - c(36), d));
-    o.q4(KO_KIN + KR_Q_NB, k.q_nb);
-    o.q4(KO_KIN + KR_Q_EB, k.q_eb);
-    o.q4(KO_KIN + KR_Q_EN, k.q_en);
-    o.v3(KO_KIN + KR_N_E, k.n_e);
-    o.s(KO_KIN + KR_H_E, k.h_e);
-    o.s(KO_KIN + KR_H_O, k.h_o);
-    o.v3(KO_KIN + KR_R_EB_E, k.r_eb_e);
-    o.v3(KO_KIN + KR_OM_WB, k.omega_wb_b);
-    o.v3(KO_KIN + KR_OM_EB, k.omega_eb_b);
-    o.v3(KO_KIN + KR_V_EB_B, k.v_eb_b);
-    o.v3(KO_KIN + KR_V_EB_N, k.v_eb_n);
-    o.s(KO_KIN + KR_V_GND, k.v_gnd);
+    store_kin_direct(o, KO_KIN, k);
     store_xdyn(o, KO_XDYN, xi_dyn);
   }
   if (role == KA_ANG) {
     kinair_stage(c, adt, xi_dyn, d, k);
-    o.s(KO_KIN + KR_LAT, k.lat);
-    o.s(KO_KIN + KR_LON, k.lon);
-    o.s(KO_KIN + KR_CHI, k.chi);
-    o.s(KO_KIN + KR_GAMMA, k.gamma);
+    store_kin_angles(o, KO_KIN, k);
   }
   if (role == KA_EUL) {
     kinair_stage(c, adt, xi_dyn, d, k);
@@ -1187,6 +1225,76 @@ __device__ __forceinline__ void kinair_role(int role, const Col<T>& c, T adt,
     kinair_stage(c, adt, xi_dyn, d, k);
     const AtmU<T> u = load_atm(c, 31);
     store_air(o, KO_AIR, atm_air<true>(k, u.T_sl, u.p_sl, u.wind));
+  }
+}
+
+// ------------------------------------------------------------- finish_kin roles
+// finish_kin carries each aircraft in kinair's warps, with kinair's roles
+// (KA_KD and KA_EUL in one warp, KA_ANG, KA_AIR) and the same rule: each
+// role owns a fixed set of output rows and works out, from the inputs, the
+// chain those rows need. The prefix every role runs is the finish's: the
+// RK4 combine (with the compensated add when the residuals are carried) and
+// the renormalisation (one called copy, normalize_block_call), then
+// wa_f_ode at the new state. Role KD stores the
+// new x_kin and x_dyn, the KinData rows that take no library call and the
+// residuals; ANG the four angles, EUL e_nb, AIR the AirData (the ISA layers
+// above the aircraft skipped, as in kinair). No barrier.
+
+// rows of finish_kin's output (x_kin, x_dyn, KinData, AirData, residuals)
+constexpr int FK_XKIN = 0, FK_XDYN = N_XKIN, FK_KIN = FK_XDYN + N_XDYN,
+              FK_AIR = FK_KIN + N_KIN, FK_C = FK_AIR + N_AIR;
+
+// the new state of finish_kin's column c (`k4_lane` + `comp_add`, the
+// residuals 0 unless `comp`) and wa_f_ode there
+template <typename T>
+__device__ __forceinline__ void finish_kin_state(const Col<T>& c, T c6,
+                                                 bool comp, XKin<T>& x,
+                                                 XDyn<T>& x_dyn, Q4<T>& r_q,
+                                                 T& r_h, Kin<T>& k) {
+  r_q = {T(0), T(0), T(0), T(0)};
+  r_h = T(0);
+  if (comp) {
+    r_q = c.q4(36);
+    r_h = c(40);
+  }
+  finish_kin_combine<true>(load_xkin(c, 0), load_xdyn(c, 9),
+                           load_xkin(c, 15), load_xdyn(c, 24), c6, comp, r_q,
+                           r_h, x, x_dyn);
+  XKin<T> d;
+  wa_f_ode(x.q_wb, x.q_ew, x.h_e, x_dyn.omega_eb_b, x_dyn.v_eb_b, c(30), d,
+           k);
+}
+
+// role `role` of finish_kin for the aircraft of column c, as kinair_role
+template <typename T>
+__device__ __forceinline__ void finish_kin_role(int role, const Col<T>& c,
+                                                T c6, bool comp,
+                                                const Out<T>& o) {
+  XKin<T> x;
+  XDyn<T> x_dyn;
+  Q4<T> r_q;
+  T r_h;
+  Kin<T> k;
+  if (role == KA_KD) {
+    finish_kin_state(c, c6, comp, x, x_dyn, r_q, r_h, k);
+    store_xkin(o, FK_XKIN, x);
+    store_xdyn(o, FK_XDYN, x_dyn);
+    store_kin_direct(o, FK_KIN, k);
+    o.q4(FK_C, r_q);
+    o.s(FK_C + 4, r_h);
+  }
+  if (role == KA_ANG) {
+    finish_kin_state(c, c6, comp, x, x_dyn, r_q, r_h, k);
+    store_kin_angles(o, FK_KIN, k);
+  }
+  if (role == KA_EUL) {
+    finish_kin_state(c, c6, comp, x, x_dyn, r_q, r_h, k);
+    o.v3(FK_KIN + KR_E_NB, k.e_nb);
+  }
+  if (role == KA_AIR) {
+    finish_kin_state(c, c6, comp, x, x_dyn, r_q, r_h, k);
+    const AtmU<T> u = load_atm(c, 31);
+    store_air(o, FK_AIR, atm_air<true>(k, u.T_sl, u.p_sl, u.wind));
   }
 }
 

@@ -31,19 +31,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
-# threads per block of the kernels that carry one aircraft per thread; 4096
-# aircraft in 128-thread blocks occupy 32 of the H100's 132 SMs
+# threads per block of the kernels that carry one aircraft per thread
+# (dynamics, geoid); 4096 aircraft in 128-thread blocks occupy 32 of the
+# H100's 132 SMs
 BLOCK = 128
 # aircraft (lanes) per block of the role kernels, which carry one aircraft
 # in several threads, one warp per role (kinair's roles in
-# csrc/flight_math.cuh, the subsystem roles of the others in
+# csrc/flight_math.cuh, which finish_kin runs too; finish_sys's legs and
+# rest in csrc/finish_sys.cu; the subsystem roles of the others in
 # csrc/c172_systems.cuh): a multiple of 32 up to 64. At 32, 4096 aircraft
 # are 128 blocks, one block on each of 128 SMs (see PERF.md)
 LANES = 32
-ROLE_KERNELS = ("kinair", "systems", "rk4_stage", "rk4_finish", "megakernel")
+ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
+                "rk4_finish", "megakernel")
 # the role kernels that copy the parameter buffer into shared memory and so
-# take its length; rk4_finish reads its few scalars through the read-only
-# cache (csrc/rk4_finish.cu)
+# take its length; finish_sys and rk4_finish read their few scalars through
+# the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)

@@ -12,6 +12,12 @@ from flightjax_torch.core.sim import SimState
 from flightjax_torch.models.c172.c172s import flagship_sim, load_flagship_state
 
 
+# a crash lane's wheels below the runway (m) and its added sink rate along
+# the body's z axis (m/s; the flagship flies near level, so about as much
+# down): the strut compresses at about CRASH_SINK, well above XI_DOT_MAX
+CRASH_DEPTH, CRASH_SINK = 0.15, 20.0
+
+
 def qmul_np(a, b):
     """Hamilton product of numpy quaternion arrays."""
     r1, v1, r2, v2 = a[..., 0], a[..., 1:], b[..., 0], b[..., 1:]
@@ -21,12 +27,16 @@ def qmul_np(a, b):
 
 
 def perturbed_flagship(batch, seed, i0=0, ground_lanes=(),
-                       terminated_lanes=()):
+                       terminated_lanes=(), crash_lanes=()):
     """numpy world-level (t, i, x, u, s) of `batch` trimmed flagships, each
     perturbed from a numpy seed: attitude tilted 1-3 deg about a random
     axis, body velocity +-3 m/s, wind ~N(0, 3 m/s), h_e +-30 m. The
     `ground_lanes` are lowered until the main wheels touch the runway and
-    the `terminated_lanes` are latched terminated."""
+    the `terminated_lanes` are latched terminated. The `crash_lanes` have
+    their wheels CRASH_DEPTH into the runway and sink at CRASH_SINK: their
+    struts compress faster than the gear takes (XI_DOT_MAX, 10 m/s), so
+    the step latches them crashed. The other lanes' draws do not depend on
+    the lane lists."""
     rng = np.random.default_rng(seed)
     x1, u1, s1, _, _ = load_flagship_state()
     x, u, s = (tree_map(lambda l: np.broadcast_to(
@@ -46,6 +56,9 @@ def perturbed_flagship(batch, seed, i0=0, ground_lanes=(),
     # wheels ~1.9 m below the body origin: 1.85 m puts the mains on the
     # runway (terrain at orthometric 0, h_e - geoid_N = h_o)
     kin["h_e"][lanes] = s["vehicle"]["geoid_N"][lanes] + 1.85
+    crash = list(crash_lanes)
+    kin["h_e"][crash] = s["vehicle"]["geoid_N"][crash] + 1.85 - CRASH_DEPTH
+    dyn["v_eb_b"][crash, 2] += CRASH_SINK
     s["terminated"][list(terminated_lanes)] = True
     return (np.full(batch, i0 * 0.02), np.full(batch, i0, np.int32), x, u,
             s)
@@ -64,23 +77,67 @@ def perturbed_fleet_sim(batch, seed, device, dtype):
     return sim, sim.with_compensation(st)
 
 
-def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=()):
+def flight_operand_args(sim, st, adt=0.01):
+    """Positional arguments of the kernel wrappers (as `kernels.
+    operand_args` gives them; the geoid and the megakernel aside) on the
+    airborne flight fleet `st` of `perturbed_fleet_sim`: the stage kernels
+    at x + adt k1, k1 the fleet's derivative (dynamics on the mass
+    properties and wrench the systems give there); the finish kernels with
+    the k-sum 6 k1, finish_kin with the state's residuals (when it carries
+    them) as `Simulation.fleet_step` runs it, finish_sys at finish_kin's new
+    KinData and AirData, rk4_finish uncompensated as the vehicle path runs
+    it."""
+    from flightjax_torch.parallel import kernels as K
+    vehicle = sim.system.aircraft.vehicle
+    xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
+    term = st.s["terminated"].to(xv["kinematics"]["h_e"].dtype)
+    k1 = K.rk4_stage_plain(vehicle, xv, tree_map(torch.zeros_like, xv), uv,
+                           sv, term, 0.0)
+    ksum = tree_map(lambda k: 6.0 * k, k1)
+    args = {"kinair": (xv["kinematics"], xv["dynamics"], k1["kinematics"],
+                       k1["dynamics"], sv["geoid_N"], uv["atm"], adt, term)}
+    _, kin, air, xi_dyn = K.kinair_plain(*args["kinair"])
+    args["systems"] = (vehicle, xv["systems"], k1["systems"], uv["systems"],
+                       sv["systems"], uv["trn"], kin, air, adt, term)
+    _, mp, wr, hr = K.systems_plain(*args["systems"])
+    args["dynamics"] = (xi_dyn, mp, wr, hr, kin.q_eb, kin.r_eb_e, term)
+    args["finish_kin"] = (xv["kinematics"], xv["dynamics"],
+                          ksum["kinematics"], ksum["dynamics"], sv["geoid_N"],
+                          uv["atm"], sim.dt,
+                          None if st.c is None else st.c["vehicle"][
+                              "kinematics"])
+    _, _, kin2, air2, _ = K.finish_kin_plain(*args["finish_kin"])
+    args["finish_sys"] = (vehicle, xv["systems"], ksum["systems"],
+                          uv["systems"], sv["systems"], uv["trn"], kin2, air2,
+                          sim.dt)
+    args["rk4_stage"] = (vehicle, xv, k1, uv, sv, term, adt)
+    args["rk4_finish"] = (vehicle, xv, ksum, uv, sv, st.s["terminated"],
+                          sim.dt)
+    return args
+
+
+def cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=(),
+                     crash_lanes=()):
     """numpy operands of the kernels (`parallel/kernels.py`) at the
     perturbed flagship: quaternion rates from body and transport rates,
     derivative sums, mass properties, wrench and rotor momentum of a C172
     in flight, small position residuals, and system states, derivatives,
     inputs and flags spread so that lanes 0-7 take every branch of the
     engine state machine, the stall latch, the mixture control and the
-    runway surfaces; and positions all over the globe for the geoid."""
+    runway surfaces; and positions all over the globe for the geoid. The
+    lane lists are those of `perturbed_flagship`; a crash lane's height
+    rate is its sink, so that the stage and the finish find it deeper in
+    the runway, and it is not terminated on entry."""
     rng = np.random.default_rng(seed + 1)
     t, _, x, u, s = perturbed_flagship(batch, seed, 0, ground_lanes,
-                                       terminated_lanes)
+                                       terminated_lanes, crash_lanes)
     xk, xd = x["vehicle"]["kinematics"], x["vehicle"]["dynamics"]
     qdot = lambda q, w: 0.5 * qmul_np(q, np.concatenate(
         [np.zeros((batch, 1)), w], axis=-1))
     k_kin = {"q_wb": qdot(xk["q_wb"], rng.normal(0, 0.2, (batch, 3))),
              "q_ew": qdot(xk["q_ew"], rng.normal(0, 1e-5, (batch, 3))),
              "h_e": rng.normal(0, 3.0, batch)}
+    k_kin["h_e"][list(crash_lanes)] = -CRASH_SINK
     k_dyn = {"omega_eb_b": rng.normal(0, 0.1, (batch, 3)),
              "v_eb_b": rng.normal(0, 2.0, (batch, 3))}
     J = np.diag([1300.0, 1800.0, 2700.0]) + rng.normal(0, 20.0,

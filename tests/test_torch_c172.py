@@ -8,7 +8,9 @@ assignment. float64 on the CPU, tolerance 1e-12 relative to
 max(1, |reference|). The inputs (`flightjax_torch.testing.
 cluster_operands`) put lanes through every engine state, the stall latch,
 manual mixture, all three runway surfaces, ground contact and a
-terminated lane."""
+terminated lane; the finish is also held to `k5_lane` on the same fleet
+with CRASH_LANE sinking onto the runway, so that the crash latch switches
+on during the step."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,8 @@ from test_torch_support import (B, CONTACT_LANES, F64, SEED,
                                 assert_tree_close, to_torch)
 
 TOL = 1e-12
+# the lane of the crash case (icy runway, stalled) that crashes in the step
+CRASH_LANE = 7
 
 
 @pytest.fixture(scope="module")
@@ -97,14 +101,21 @@ def case(jax_vehicle):
                     finish_sys=step_parts(x2, us, ss, t, kin, air,
                                           trn_fn)[2])
 
-    ref = jax.tree.map(np.asarray, jax.jit(jax.vmap(parts))(
-        jax.tree.map(jnp.asarray, d)))
-    T = to_torch({k: d[k] for k in ("x_sys", "k_sys", "ksum_sys", "u_sys",
-                                    "s_sys", "u_trn", "term")})
-    kin = KinData(*to_torch(tuple(ref["kin"])))
-    air = AirData(*to_torch(tuple(ref["air"])))
+    jparts = jax.jit(jax.vmap(parts))
     veh = Tc.build_vehicle(device="cpu", dtype=F64)
-    return dict(ref=ref, T=T, kin=kin, air=air, veh=veh)
+
+    def inputs(d):
+        ref = jax.tree.map(np.asarray, jparts(jax.tree.map(jnp.asarray, d)))
+        T = to_torch({k: d[k] for k in ("x_sys", "k_sys", "ksum_sys",
+                                        "u_sys", "s_sys", "u_trn", "term")})
+        kin = KinData(*to_torch(tuple(ref["kin"])))
+        air = AirData(*to_torch(tuple(ref["air"])))
+        return dict(ref=ref, T=T, kin=kin, air=air, veh=veh, d=d)
+
+    # the crash fleet has the same shapes, so the same executable serves it
+    crash = cluster_operands(B, SEED, CONTACT_LANES, (TERMINATED_LANE,),
+                             (CRASH_LANE,))
+    return dict(inputs(d), crash=inputs(crash))
 
 
 def _sys(case):
@@ -192,7 +203,10 @@ def test_systems_plain_matches_k2_lane(case):
     assert float(got[0]["pwp"]["engine"]["omega"][TERMINATED_LANE]) == 0.0
 
 
-def test_finish_sys_plain_matches_k5_lane(case):
+@pytest.mark.parametrize("fleet", ["contact", "crash"])
+def test_finish_sys_plain_matches_k5_lane(case, fleet):
+    if fleet == "crash":
+        case = case["crash"]
     T = case["T"]
     x2, s2 = K.finish_sys_plain(case["veh"], T["x_sys"], T["ksum_sys"],
                                 T["u_sys"], T["s_sys"], T["u_trn"],
@@ -204,6 +218,22 @@ def test_finish_sys_plain_matches_k5_lane(case):
     # running, starting held, running -> off (stop), starting -> off
     state = s2["pwp"]["engine"]["state"]
     assert state[[0, 1, 2, 3, 5]].tolist() == [1, 2, 1, 0, 0]
+    crashed = s2["crashed"]
+    if fleet == "contact":  # no lane crashes
+        assert not bool(crashed.any())
+        return
+    # the crash lane, not crashed on entry, latches crashed (as in JAX) and
+    # no other lane does; the whole finish latches it terminated too
+    assert not bool(T["s_sys"]["crashed"].any())
+    assert crashed.nonzero().flatten().tolist() == [CRASH_LANE]
+    args = K.operand_args(case["d"], case["veh"], "cpu", F64)["rk4_finish"]
+    terminated = args[5]
+    assert not bool(terminated[CRASH_LANE])
+    _, s3, term3, _ = K.finish_clusters(K.PLAIN, *args)
+    assert bool(s3["crashed"][CRASH_LANE])
+    assert term3.tolist() == (terminated | s3["crashed"]).tolist()
+    assert term3.nonzero().flatten().tolist() == [TERMINATED_LANE,
+                                                  CRASH_LANE]
 
 
 def test_flagship_npz_is_the_jax_trim_assignment(jax_vehicle):

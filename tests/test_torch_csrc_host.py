@@ -6,11 +6,11 @@ A stand-in `cuda_runtime.h` maps the CUDA qualifiers, the thread indices
 and the `_rn` intrinsics onto plain C++ (no FMA contraction); each kernel
 source is cut before its launch code, which only nvcc reads. The kernels
 that carry one aircraft per thread run lane by lane, as blocks of one
-thread. The role kernels (kinair, systems, rk4_stage, rk4_finish,
-megakernel), which carry one aircraft in several threads that may meet at
-barriers, and dynamics run block by block with one host thread per CUDA
-thread: `__syncthreads()` is a pthread barrier and the block's shared
-memory one static buffer. A warp vote sees a warp of one lane, so a gear
+thread. The role kernels (kinair, finish_kin, systems, finish_sys,
+rk4_stage, rk4_finish, megakernel), which carry one aircraft in several
+threads that may meet at barriers, and dynamics run block by block with one
+host thread per CUDA thread: `__syncthreads()` is a pthread barrier and the
+block's shared memory one static buffer. A warp vote sees a warp of one lane, so a gear
 leg skips its strut exactly on the airborne lanes; whole warps vote in
 `tests/test_torch_cuda.py`. So the
 kernels' arithmetic, row maps, parameter buffer, role layout and barriers
@@ -39,8 +39,11 @@ TOL = 1e-12
 CSRC = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc")
 NAMES = ("kinair", "systems", "dynamics", "finish_kin", "finish_sys")
 # the kernels run block by block with their own number of threads per
-# aircraft (kinair's roles, dynamics' one) and no parameters
-OWN_ROLES = ("kinair", "dynamics")
+# aircraft (kinair's roles, which finish_kin runs too, finish_sys's legs and
+# rest, dynamics' one thread)
+OWN_ROLES = ("kinair", "dynamics", "finish_kin", "finish_sys")
+# the lane that crashes during the step (`testing.cluster_operands`)
+CRASH_LANE = 11
 VEHICLE_NAMES = ("rk4_stage", "rk4_finish", "geoid")
 LAUNCH_CODE = "template <typename T>\nstatic int launch"
 
@@ -108,28 +111,34 @@ LANE_LOOPS = r"""
   pthread_barrier_destroy(&block_barrier);
 using fj::SD;
 extern "C" {
-// kinair (lanes aircraft per block) and dynamics (lanes threads per block),
-// role r writing into outs[r]
-void host_kinair(const double* in, double* const* outs, int B, double adt,
-                 int lanes) {
+// kinair, finish_kin, finish_sys (lanes aircraft per block) and dynamics
+// (lanes threads per block) on one signature: the parameter buffer
+// (finish_sys), the scalar and the flag (comp of finish_kin); role r
+// writing into outs[r]
+void host_kinair(const double* in, const double*, double* const* outs, int B,
+                 double adt, int, int lanes) {
   BLOCKS(fj::KA_ROLES, lanes, k_kinair::kinair_kernel<SD>(
       (const SD*)in, (SD*)outs[i / (lanes)], B, SD(adt)))
 }
-void host_dynamics(const double* in, double* const* outs, int B, double,
-                   int lanes) {
+void host_dynamics(const double* in, const double*, double* const* outs,
+                   int B, double, int, int lanes) {
   BLOCKS(1, lanes, k_dynamics::dynamics_kernel<SD>(
       (const SD*)in, (SD*)outs[0], B))
 }
+void host_finish_kin(const double* in, const double*, double* const* outs,
+                     int B, double c6, int comp, int lanes) {
+  BLOCKS(fj::KA_ROLES, lanes, k_finish_kin::finish_kin_kernel<SD>(
+      (const SD*)in, (SD*)outs[i / (lanes)], B, SD(c6), comp))
+}
+void host_finish_sys(const double* in, const double* p, double* const* outs,
+                     int B, double c6, int, int lanes) {
+  BLOCKS(k_finish_sys::FS_ROLES, lanes, k_finish_sys::finish_sys_kernel<SD>(
+      (const SD*)in, (const SD*)p, (SD*)outs[i / (lanes)], B, SD(c6)))
+}
 int host_roles_kinair() { return fj::KA_ROLES; }
 int host_roles_dynamics() { return 1; }
-void host_finish_kin(const double* in, const double* p, double* out, int B,
-                     double c6, int comp) {
-  LANES(finish_kin, (const SD*)in, (SD*)out, B, SD(c6), comp)
-}
-void host_finish_sys(const double* in, const double* p, double* out, int B,
-                     double c6, int) {
-  LANES(finish_sys, (const SD*)in, (const SD*)p, (SD*)out, B, SD(c6))
-}
+int host_roles_finish_kin() { return fj::KA_ROLES; }
+int host_roles_finish_sys() { return k_finish_sys::FS_ROLES; }
 int host_role_row(int role, int k) { return fj::role_row(role, k); }
 int host_n_roles() { return fj::N_ROLES; }
 int host_n_slots() { return fj::N_SLOTS; }
@@ -200,10 +209,15 @@ def host_lib(tmp_path_factory):
     return ctypes.CDLL(str(so))
 
 
+def _cluster(batch):
+    """The cluster operands of these tests: lanes 3 and 17 on the runway,
+    lane 5 terminated, CRASH_LANE crashing during the step."""
+    return cluster_operands(batch, 1016, (3, 17), (5,), (CRASH_LANE,))
+
+
 def _operands(batch):
     veh = build_vehicle(device="cpu", dtype=torch.float64)
-    d = cluster_operands(batch, 1016, (3, 17), (5,))
-    return K.operand_args(d, veh, "cpu", torch.float64)
+    return K.operand_args(_cluster(batch), veh, "cpu", torch.float64)
 
 
 @pytest.fixture(scope="module")
@@ -268,11 +282,13 @@ def _run_role(host_lib, name, args, lanes):
 
 
 def _run_own_roles(host_lib, name, args, lanes, split=False):
-    """The source of kinair (`lanes` aircraft per block) or dynamics
-    (`lanes` threads per block) on the wrapper's arguments, block by block;
-    returns its packed output, or with `split` one output per role that
-    holds the rows the role wrote and NaN elsewhere."""
-    buf, n_out, scalars, _ = K.PACK[name](*args)
+    """The source of kinair, finish_kin, finish_sys (`lanes` aircraft per
+    block) or dynamics (`lanes` threads per block) on the wrapper's
+    arguments, block by block; returns its packed output, or with `split`
+    one output per role that holds the rows the role wrote and NaN
+    elsewhere."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
     batch = buf.shape[1]
     n_roles = getattr(host_lib, f"host_roles_{name}")()
     outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
@@ -280,8 +296,9 @@ def _run_own_roles(host_lib, name, args, lanes, split=False):
     ptrs = (ctypes.c_void_p * n_roles)(
         *(outs[r if split else 0].data_ptr() for r in range(n_roles)))
     getattr(host_lib, f"host_{name}")(
-        _ptr(buf), ptrs, ctypes.c_int(batch),
-        ctypes.c_double(scalars[0] if scalars else 0.0), ctypes.c_int(lanes))
+        _ptr(buf), _ptr(ops.get("params")), ptrs, ctypes.c_int(batch),
+        ctypes.c_double(scalars[0]), ctypes.c_int(scalars[1]),
+        ctypes.c_int(lanes))
     return outs if split else outs[0]
 
 
@@ -296,9 +313,9 @@ RAGGED = [(37, 32), (24, 64), (70, 64)]
 RAGGED_IDS = [f"B{b}-L{n}" for b, n in RAGGED]
 
 
-# the kernels at B (the role kernels at 32 aircraft per block), the role
-# kernels kinair, systems and dynamics also on the ragged batches
-RAGGED_NAMES = ("kinair", "systems", "dynamics")
+# the kernels at B (the role kernels at 32 aircraft per block), and all of
+# them also on the ragged batches
+RAGGED_NAMES = ("kinair", "systems", "dynamics", "finish_kin", "finish_sys")
 
 
 @pytest.mark.parametrize(
@@ -311,21 +328,17 @@ def test_kernel_source_matches_plain(host_lib, operands, name, batch,
     args = (operands if batch == B else _operands(batch))[name]
     if name == "systems":
         out = _run_role(host_lib, name, args, lanes)
-    elif name in OWN_ROLES:
-        out = _run_own_roles(host_lib, name, args, lanes)
     else:
-        buf, n_out, scalars, ops = K.PACK[name](*args)
-        out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
-        scalars = tuple(scalars) + (0.0, 0)[len(scalars):]
-        getattr(host_lib, f"host_{name}")(
-            _ptr(buf), _ptr(ops.get("params")), _ptr(out), ctypes.c_int(B),
-            ctypes.c_double(scalars[0]), ctypes.c_int(scalars[1]))
+        out = _run_own_roles(host_lib, name, args, lanes)
     got = _as_wrapper_returns(name, out)
     if name in ("kinair", "systems", "dynamics"):
         args = args[:-1] + (args[-1].to(torch.float64),)
     ref = getattr(K, name + "_plain")(*args)
     if name == "finish_kin":  # the kernel carries residuals either way
         got = got[:4] + (got[4] if args[-1] is not None else None,)
+    if name == "finish_sys":  # the crash lane latches during the step
+        assert not bool(args[4]["crashed"][CRASH_LANE])
+        assert bool(got[1]["crashed"][CRASH_LANE])
     _assert_trees_close(got, ref)
 
 
@@ -359,30 +372,40 @@ def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
     _assert_trees_close(got, getattr(K, name + "_plain")(*args))
 
 
-@pytest.mark.parametrize("name", OWN_ROLES)
-def test_kinair_dynamics_source_on_isa_layers(host_lib, name):
-    """kinair and dynamics on the ISA-layer operands (`testing.
-    isa_layer_operands`): heights in every ISA layer and on either side of
-    the first layer's ceiling, where kinair skips the layers above the
-    aircraft, and NaN sea-level temperatures, which stay NaN through the
-    atmosphere as in the plain version."""
+@pytest.mark.parametrize(
+    "name,comp", [("kinair", None), ("dynamics", None), ("finish_kin", True),
+                  ("finish_kin", False)],
+    ids=["kinair", "dynamics", "finish_kin-comp", "finish_kin"])
+def test_kinair_dynamics_source_on_isa_layers(host_lib, name, comp):
+    """kinair, dynamics and finish_kin (with and without residuals) on the
+    ISA-layer operands (`testing.isa_layer_operands`): heights in every ISA
+    layer and on either side of the first layer's ceiling, where kinair and
+    finish_kin skip the layers above the aircraft, and NaN sea-level
+    temperatures, which stay NaN through the atmosphere as in the plain
+    version."""
     vehicle = build_vehicle(device="cpu", dtype=torch.float64)
     args = K.operand_args(isa_layer_operands(B, 1016), vehicle, "cpu",
                           torch.float64)[name]
+    if name == "finish_kin":
+        args = args[:-1] + (args[-1] if comp else None,)
+    else:
+        args = args[:-1] + (args[-1].to(torch.float64),)
     got = _as_wrapper_returns(name, _run_own_roles(host_lib, name, args, 32))
-    ref = getattr(K, name + "_plain")(*args[:-1],
-                                      args[-1].to(torch.float64))
-    if name == "kinair":
-        assert bool(ref[2].p[list(ISA_NAN_LANES)].isnan().all())
+    ref = getattr(K, name + "_plain")(*args)
+    if name == "finish_kin":
+        got = got[:4] + (got[4] if comp else None,)
+    if name != "dynamics":
+        assert bool(ref[-2 if name == "finish_kin" else 2].p[
+            list(ISA_NAN_LANES)].isnan().all())
     _assert_trees_close(got, ref, equal_nan=True)
 
 
 @pytest.mark.parametrize("name", OWN_ROLES)
 def test_kinair_dynamics_roles_partition_the_output(host_lib, operands,
                                                    name):
-    """Every output row of kinair and dynamics is written by exactly one of
-    its roles (dynamics has one), for every aircraft, and by no other role
-    anywhere."""
+    """Every output row of kinair, dynamics, finish_kin and finish_sys is
+    written by exactly one of its roles (dynamics has one), for every
+    aircraft, and by no other role anywhere."""
     outs = _run_own_roles(host_lib, name, operands[name], 32, split=True)
     n_rows = outs[0].shape[0]
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
@@ -415,8 +438,7 @@ def _check_megakernel(host_lib, batch, lanes, comp):
                                                      megakernel_step_plain)
     from flightjax_torch.testing import operand_state
     sim, _, _ = flagship_sim("cpu", torch.float64)
-    st = operand_state(cluster_operands(batch, 1016, (3, 17), (5,)), "cpu",
-                       torch.float64, i0=126)
+    st = operand_state(_cluster(batch), "cpu", torch.float64, i0=126)
     if comp:
         st = st._replace(c=comp_residuals(st.x, force=True))
     bufs, _, unpack = make_megakernel_step(sim, st)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Which roles of flightjax_torch's role kernels is their time made of, and
 which of two layouts is faster? Time the role kernels (kinair, dynamics,
-systems, rk4_stage, rk4_finish, megakernel) built from patched copies of
-their sources, on one CUDA card.
+finish_kin, systems, finish_sys, rk4_stage, rk4_finish, megakernel) built
+from patched copies of their sources, on one CUDA card.
 
     python3 tools/ablate_torch_roles.py [--batch 4096]
                                         [--variants none,aero,aero+engine]
@@ -27,11 +27,21 @@ kinds of patch:
   dynamics in two warps per 32 aircraft, `thread_skip` gives the
   one-thread kinair the ISA layer skip and `inline` makes the math-library
   wrappers of flight_math.cuh inline functions and `inline_pow` only the
-  power (only kinair's time is read off such builds); `noskip` takes the ISA layer skip out of kinair's
-  role AIR, and `kinair_abcd` (four digits) runs kinair's roles KD, ANG,
-  EUL and AIR in warps a, b, c and d of each 32 aircraft: `kinair_0123`
-  is one warp each, `kinair_0112` three with EUL in ANG's warp (the tree
-  is `kinair_0102`).
+  power (only kinair's time is read off such builds); `noskip` takes the ISA layer skip out of the
+  role AIR of kinair and finish_kin, and `kinair_abcd` (four digits) runs
+  kinair's roles KD, ANG, EUL and AIR in warps a, b, c and d of each 32
+  aircraft, and finish_kin's with them: `kinair_0123` is one warp each,
+  `kinair_0112` three with EUL in ANG's warp (the tree is `kinair_0102`);
+  `finish_kin_thread` and `finish_sys_thread` are the one-thread forms of
+  finish_kin and finish_sys (timed at 128 threads per block too),
+  `finish_kin_kdeul` has finish_kin's role KD store e_nb off its own
+  prefix instead of running EUL's after it in the same warp,
+  `finish_sys4` runs finish_sys's engine state machine in the REST warp
+  beside the stall instead of in a fifth warp of its own, and
+  `finish_kin_inline_renorm` inlines finish_kin's renormalisations in
+  every role instead of calling one copy, and `finish_kin_norenorm` and
+  `finish_kin_nocomp` compile them or its compensated add out (only
+  finish_kin's time is read off such builds).
 
 Times are warm medians of 20 launches replayed from a captured CUDA graph,
 float32, at 32 and 64 aircraft per block (threads per block for a
@@ -265,11 +275,153 @@ void dynamics_layout(int* n_in, int* n_out) {
 """
 
 
+# the one-thread forms of finish_kin and finish_sys (one aircraft per
+# thread, `block` threads per block) with the interface of their role forms:
+# finish_kin as it was before it became a role kernel, finish_sys with the
+# finish parts of c172_systems.cuh in the order of k5_lane
+FINISH_KIN_THREAD = """\
+#include "flight_math.cuh"
+
+using namespace fj;
+
+template <typename T>
+__global__ void finish_kin_kernel(const T* __restrict__ in,
+                                  T* __restrict__ out, int B, T c6,
+                                  int comp) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Col<T> c{in, B, b};
+  const Out<T> o{out, B, b};
+  Q4<T> r_q = {T(0), T(0), T(0), T(0)};
+  T r_h = T(0);
+  if (comp) {
+    r_q = c.q4(36);
+    r_h = c(40);
+  }
+  XKin<T> x;
+  XDyn<T> x_dyn;
+  Kin<T> k;
+  Air<T> air;
+  finish_kin_lane(load_xkin(c, 0), load_xdyn(c, 9), load_xkin(c, 15),
+                  load_xdyn(c, 24), c6, comp != 0, r_q, r_h, c(30),
+                  load_atm(c, 31), x, x_dyn, k, air);
+  store_xkin(o, FK_XKIN, x);
+  store_xdyn(o, FK_XDYN, x_dyn);
+  store_kin(o, FK_KIN, k);
+  store_air(o, FK_AIR, air);
+  o.q4(FK_C, r_q);
+  o.s(FK_C + 4, r_h);
+}
+
+template <typename T>
+static int launch(const void* in, void* out, int B, double c6, int comp,
+                  int block, void* stream) {
+  if (B <= 0) return 0;
+  if (block <= 0 || block > 1024) return (int)cudaErrorInvalidValue;
+  finish_kin_kernel<T><<<(B + block - 1) / block, block, 0,
+                         (cudaStream_t)stream>>>((const T*)in, (T*)out, B,
+                                                 T(c6), comp);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+int finish_kin_f32(const void* in, void* out, int B, double c6, int comp,
+                   int block, void* stream) {
+  return launch<SF>(in, out, B, c6, comp, block, stream);
+}
+int finish_kin_f64(const void* in, void* out, int B, double c6, int comp,
+                   int block, void* stream) {
+  return launch<SD>(in, out, B, c6, comp, block, stream);
+}
+void finish_kin_layout(int* n_in, int* n_out) {
+  *n_in = FIN_N_IN;
+  *n_out = FIN_N_OUT;
+}
+void finish_kin_launch_shape(int B, int block, int, int, int* grid,
+                             int* threads, int* shared) {
+  put_launch(role_launch(B, block, 1, 0), grid, threads, shared);
+}
+}
+"""
+FINISH_SYS_THREAD = """\
+#include "c172_systems.cuh"
+
+using namespace fj;
+
+constexpr int FI_X = 0, FI_K = FI_X + N_XSYS, FI_U = FI_K + N_XSYS,
+              FI_S = FI_U + N_USYS, FI_TRN = FI_S + N_SSYS,
+              FI_KIN = FI_TRN + N_TRN, FI_AIR = FI_KIN + N_KIN;
+constexpr int FO_X = 0, FO_S = N_XSYS;
+
+template <typename T>
+__global__ void finish_sys_kernel(const T* __restrict__ in,
+                                  const T* __restrict__ P,
+                                  T* __restrict__ out, int B, T c6) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Col<T> c{in, B, b};
+  const Out<T> o{out, B, b};
+  T x[N_XSYS];
+#pragma unroll
+  for (int r = 0; r < N_XSYS; ++r) x[r] = c(FI_X + r) + c6 * c(FI_K + r);
+  T u[N_USYS];
+#pragma unroll
+  for (int r = 0; r < N_USYS; ++r) u[r] = c(FI_U + r);
+  SSys s = load_ssys(c, FI_S);
+  const Kin<T> kin = load_kin(c, FI_KIN);
+  const Trn<T> trn = load_trn(c, FI_TRN);
+#pragma unroll
+  for (int leg = 0; leg < N_LEGS; ++leg) {
+    const bool crash = finish_leg(P, leg, u, kin, trn, x[XS_FRC + 2 * leg],
+                                  x[XS_FRC + 2 * leg + 1]);
+    s.crashed = s.crashed || crash;
+  }
+  s.stall = finish_stall(P, load_air(c, FI_AIR), s.stall);
+  s.state = finish_engine(P, s.state, x[XS_FUEL], x[XS_OMEGA], u);
+#pragma unroll
+  for (int r = 0; r < N_XSYS; ++r) o.s(FO_X + r, x[r]);
+  store_ssys(o, FO_S, s);
+}
+
+template <typename T>
+static int launch(const void* in, const void* params, void* out, int B,
+                  double c6, int block, void* stream) {
+  if (B <= 0) return 0;
+  if (block <= 0 || block > 1024) return (int)cudaErrorInvalidValue;
+  finish_sys_kernel<T><<<(B + block - 1) / block, block, 0,
+                         (cudaStream_t)stream>>>(
+      (const T*)in, (const T*)params, (T*)out, B, T(c6));
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+int finish_sys_f32(const void* in, const void* params, void* out, int B,
+                   double c6, int block, void* stream) {
+  return launch<SF>(in, params, out, B, c6, block, stream);
+}
+int finish_sys_f64(const void* in, const void* params, void* out, int B,
+                   double c6, int block, void* stream) {
+  return launch<SD>(in, params, out, B, c6, block, stream);
+}
+void finish_sys_layout(int* n_in, int* n_out) {
+  *n_in = FSYS_N_IN;
+  *n_out = FSYS_N_OUT;
+}
+void finish_sys_launch_shape(int B, int block, int, int, int* grid,
+                             int* threads, int* shared) {
+  put_launch(role_launch(B, block, 1, 0), grid, threads, shared);
+}
+}
+"""
+
+
 def one_thread(name, patches):
     """Whether kernel `name` carries one aircraft per thread in a build
     with these patches (and so is timed at 128 threads per block too)."""
     return {"kinair": "kinair_thread" in patches,
-            "dynamics": "dynamics_roles" not in patches}.get(name, False)
+            "dynamics": "dynamics_roles" not in patches,
+            "finish_kin": "finish_kin_thread" in patches,
+            "finish_sys": "finish_sys_thread" in patches}.get(name, False)
 
 
 AERO_ZERO = f"    a = {{T(0.0), T(0.0), {Z3}, T(0.0), T(0.0), {Z3}}};\n"
@@ -355,7 +507,41 @@ PATCHES = {
                     f"Pow", f"static __device__ __forceinline__ {t} Pow")
                    for t in ("SF", "SD")],
     "noskip": [("flight_math.cuh", "atm_air<true>(k, u.T_sl",
-                "atm_air<false>(k, u.T_sl")],
+                "atm_air<false>(k, u.T_sl", True)],
+    "finish_kin_thread": [("finish_kin.cu", None, FINISH_KIN_THREAD)],
+    "finish_sys_thread": [("finish_sys.cu", None, FINISH_SYS_THREAD)],
+    "finish_kin_kdeul": [
+        ("flight_math.cuh", """\
+    o.q4(FK_C, r_q);
+    o.s(FK_C + 4, r_h);
+  }""", """\
+    o.q4(FK_C, r_q);
+    o.s(FK_C + 4, r_h);
+    o.v3(FK_KIN + KR_E_NB, k.e_nb);
+  }"""),
+        ("flight_math.cuh", """\
+  if (role == KA_EUL) {
+    finish_kin_state(c, c6, comp, x, x_dyn, r_q, r_h, k);
+    o.v3(FK_KIN + KR_E_NB, k.e_nb);
+  }""", "")],
+    "finish_sys4": [("finish_sys.cu", """\
+constexpr int FS_LEG0 = 0, FS_REST = N_LEGS, FS_ENG = FS_REST + 1,
+              FS_ROLES = N_LEGS + 2;""", """\
+constexpr int FS_LEG0 = 0, FS_REST = N_LEGS, FS_ENG = FS_REST,
+              FS_ROLES = N_LEGS + 1;""")],
+    "finish_kin_norenorm": [
+        ("flight_math.cuh", """\
+  if (RENORM_CALL)
+    xo = {normalize_block_call(nq_wb), normalize_block_call(nq_ew), nh_e};
+  else
+    xo = {normalize_block(nq_wb), normalize_block(nq_ew), nh_e};""",
+         "  xo = {nq_wb, nq_ew, nh_e};")],
+    "finish_kin_inline_renorm": [
+        ("flight_math.cuh", "finish_kin_combine<true>(",
+         "finish_kin_combine<false>(")],
+    "finish_kin_nocomp": [
+        ("finish_kin.cu", "finish_kin_role(t.role, Col<T>{in, B, t.b}, c6, comp != 0,",
+         "finish_kin_role(t.role, Col<T>{in, B, t.b}, c6, false,")],
 }
 KINAIR_ROLES = "KA_KD = 0, KA_ANG = 1, KA_EUL = 0, KA_AIR = 2, KA_ROLES = 3;"
 
@@ -379,9 +565,12 @@ VARIANTS = ((), ("aero",), ("legs",), ("engine",), ("propeller",),
             ("sys7",), ("finish_head",), ("finish_whole",), ("finish_atm",),
             ("kinair_thread",), ("kinair_thread", "thread_skip"),
             ("kinair_thread", "inline"), ("noskip",), ("kinair_0123",),
-            ("kinair_0112",), ("dynamics_roles",))
-TIMED = ("kinair", "dynamics", "systems", "rk4_stage", "rk4_finish",
-         "megakernel")
+            ("kinair_0112",), ("dynamics_roles",), ("finish_kin_thread",),
+            ("finish_sys_thread",), ("finish_kin_kdeul",), ("finish_sys4",),
+            ("finish_kin_inline_renorm",), ("finish_kin_norenorm",),
+            ("finish_kin_nocomp",))
+TIMED = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
+         "rk4_stage", "rk4_finish", "megakernel")
 
 
 def patched_sources(csrc, build_dir, patches, n_params):
