@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build flightjax_torch's CUDA kernels and drive its three flagship step
-paths on one NVIDIA card; exit non-zero if any phase fails.
+"""Build flightjax_torch's CUDA kernels and drive its step paths on one
+NVIDIA card: the C172S flagship's three and the C172Xv1 autopilot's two;
+exit non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -14,14 +15,25 @@ The paths, each an entry point a user calls:
   JAX vehicle path is;
 - `megakernel`: `make_megakernel_step`, the whole `Simulation.step` (geoid
   refreshed every step, compensated) in one launch on a state resident on
-  the card.
+  the card;
+- `xv1_subsystems`, `xv1_vehicle`: the same two splits on the fly-by-wire
+  C172Xv1 flying the turning climb with its gain-scheduled control laws
+  (`LON_EAS_CLM` at EAS 45 m/s and 1.5 m/s climb, `LAT_CHI_BETA` onto
+  course pi / 2), through the fly-by-wire instances of the systems kernels
+  (`systems_fbw`, `finish_sys_fbw`; `rk4_stage_fbw`, `rk4_finish_fbw`) and
+  the periodic pass after every step (dt = periodic_dt = 0.02 s): the
+  control laws as PyTorch ops on what the finish kernels store.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a;
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
-   max(1, |plain|); flags and states exactly): the eight other kernels on
+   max(1, |plain|); flags and states exactly), the four fly-by-wire
+   instances exactly (error 0) in both, at 32 and 64 aircraft per block,
+   on the fly-by-wire cluster operands (the same lanes, servo states and
+   commands drawn past their ranges) and on the airborne C172Xv1 fleet:
+   the eight other kernels on
    the cluster operands (lanes on each runway surface, a terminated lane, a
    lane that crashes during the step, stalled lanes, every engine state),
    kinair, dynamics and finish_kin also on the ISA-layer operands (heights
@@ -30,14 +42,23 @@ Phases:
    dynamics) per block, finish_kin and finish_sys also at 64 per block and
    on the airborne flight fleet, and one megakernel step on the cluster
    operands' fleet, with and without residuals;
-4. the paths: the trimmed C172S flagship at 4096 perturbed aircraft in
-   float32, each path from its launch counts set to 0 to their reading
-   just after: `subsystems` 100 steps (from step 28, so the refresh at step
-   128 is among them), `vehicle` and `megakernel` 500 steps (10 s). Every
-   leaf finite, no lane terminated, altitude and EAS in a physical band,
-   launch counts as the path prescribes; the same steps through the plain
-   versions agree within the 10 s float32 envelope of BENCHMARKS.md; 20
-   steps of each path in float64 agree with plain to 1e-9;
+4. the paths: the trimmed C172S flagship and the trimmed C172Xv1 on the
+   turning climb, each at 4096 perturbed aircraft in float32, each path
+   from its launch counts set to 0 to their reading just after:
+   `subsystems` and `xv1_subsystems` 100 steps (from step 28, so the
+   refresh at step 128 is among them), `xv1_vehicle` 500 steps (10 s),
+   `vehicle` and `megakernel` 200 steps (cut from 500 for time: the plain
+   references take most of the run). Every leaf finite, no lane terminated,
+   no lane's stall flag set at any step, altitude and EAS in a physical
+   band (on the C172Xv1 above the stall speed in its 45 deg bank), launch
+   counts as the path prescribes; on the C172Xv1 also the servo commands
+   within their ranges and every lane's modes `LON_EAS_CLM` /
+   `LAT_CHI_BETA`; the same steps through the plain versions agree within
+   the 10 s float32 envelope of BENCHMARKS.md scaled to the steps flown
+   (n / 500 of it); 20 steps of each path in float64 agree with plain to
+   1e-9; host and device ms per step, launches per step and the device's
+   idle share of the two C172Xv1 paths under torch.profiler
+   (`tools/profile_torch_step.py`);
 5. timings: per kernel the warm median of the bare launch, of the wrapper
    and of the plain version, and the bound (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s, the larger). A kernel's time (`ms`) is taken
@@ -52,8 +73,10 @@ Phases:
    and the megakernel at B = 16384 and 65536 too. Every number of a
    kernel's row but those two is taken on one set of operands: the
    flight fleet (the state its path steps) for the megakernel, the
-   kernel-check operands for the others. Then vehicle-steps/s of the three
-   paths and the plain one, interleaved windows, median and aggregate.
+   kernel-check operands for the others (the C172Xv1 fleet for the
+   fly-by-wire instances' airborne times). Then vehicle-steps/s of the
+   five paths and the plain one, interleaved windows, median and
+   aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -73,11 +96,15 @@ import torch
 B = 4096
 STEPS = 500
 SUB_STEPS, SUB_I0 = 100, 28
+# the C172S paths but subsystems, cut for time (the plain references take
+# most of the run)
+MECH_STEPS = 200
 F64_STEPS = 20
 SEED = 1016
 DEVICE = "cuda"
 # steps per throughput window (the plain path is ~40x slower)
-WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20}
+WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20,
+          "xv1_subsystems": 100, "xv1_vehicle": 100}
 # the H100 SXM's published peaks: HBM3 bandwidth and dense float32 rate
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
@@ -105,9 +132,27 @@ KERNELS = {
               "flightjax/parallel/megakernel.py:144", "vehicle"),
     "megakernel": ("flightjax_torch/csrc/megakernel.cu",
                    "flightjax/parallel/megakernel.py:43", "megakernel"),
+    # the C172Xv1 instances of the kernels TPU's pallas_block builds by
+    # tracing the fly-by-wire model's lane functions
+    "systems_fbw": ("flightjax_torch/csrc/systems.cu",
+                    "flightjax/parallel/clusterstep.py:274",
+                    "xv1_subsystems"),
+    "finish_sys_fbw": ("flightjax_torch/csrc/finish_sys.cu",
+                       "flightjax/parallel/clusterstep.py:452",
+                       "xv1_subsystems"),
+    "rk4_stage_fbw": ("flightjax_torch/csrc/rk4_stage.cu",
+                      "flightjax/parallel/clusterstep.py:81", "xv1_vehicle"),
+    "rk4_finish_fbw": ("flightjax_torch/csrc/rk4_finish.cu",
+                       "flightjax/parallel/clusterstep.py:97",
+                       "xv1_vehicle"),
 }
-# the kernels that run on the cluster operands (the megakernel steps a state)
-LANE_KERNELS = tuple(k for k in KERNELS if k != "megakernel")
+FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
+             "rk4_finish_fbw")
+# the kernels that run on the cluster operands (the megakernel steps a
+# state), C172S first
+LANE_KERNELS = tuple(k for k in KERNELS
+                     if k != "megakernel" and k not in FBW_NAMES)
+XV1_PATHS = ("xv1_subsystems", "xv1_vehicle")
 # the kernel-check operands' lanes: on the runway, terminated, and crashing
 # during the step (on the runway, sinking past what the gear takes)
 GROUND_LANES, TERMINATED_LANES, CRASH_LANE = (3, 77), (5,), 78
@@ -135,8 +180,39 @@ def code_bytes(nvcc, so):
     out = subprocess.run([tool, "-elf", so], capture_output=True, text=True,
                          timeout=120).stdout
     found = re.findall(r"^\s*\w+\s+\w+\s+(\w+)\s.*PROGBITS.*\.text\._Z\d+"
-                       r"(\w+?)_kernelIN2fj6StrictIfE", out, re.M)
-    return sorted((name, int(size, 16)) for size, name in found)
+                       r"(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictIfE", out, re.M)
+    return sorted((name + ("_fbw" if act == "1" else ""), int(size, 16))
+                  for size, name, act in found)
+
+
+def registers(log_path):
+    """{kernel: {f32/f64: (registers, spill store bytes, spill load
+    bytes)}} from ptxas's report in the build log."""
+    out = collections.defaultdict(dict)
+    entry = mangled = props = None
+    spill = (0, 0)
+    with open(log_path) as fh:
+        for line in fh:
+            m = re.search(r"Compiling entry function '(_Z\d+(\w+?)_kernelI"
+                          r"(?:Li(\d)E)?N2fj6StrictI([fd])E\w*)'", line)
+            if m:
+                mangled, spill = m.group(1), (0, 0)
+                entry = (m.group(2) + ("_fbw" if m.group(3) == "1" else ""),
+                         "f32" if m.group(4) == "f" else "f64")
+                continue
+            m = re.search(r"Function properties for (\w+)", line)
+            if m:
+                props = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and entry and props == mangled:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                out[entry[0]][entry[1]] = (int(m.group(1)), *spill)
+                entry = None
+    return dict(out)
 
 
 def rel_err(got, ref, equal_nan=False):
@@ -292,6 +368,43 @@ def isa_inputs(dtype):
                         dtype, adt=0.01, dt=0.02)
 
 
+def fbw_operands(batch=B):
+    from flightjax_torch.testing import fbw_cluster_operands
+    return fbw_cluster_operands(batch, SEED, GROUND_LANES, TERMINATED_LANES,
+                                (CRASH_LANE,))
+
+
+def fbw_inputs(dtype):
+    """The wrapper arguments of the fly-by-wire instances (keyed by
+    instance) on the fly-by-wire cluster operands at B lanes, on the
+    card."""
+    from flightjax_torch.models.c172.c172x import build_vehicle
+    from flightjax_torch.parallel import kernels as K
+    args = K.operand_args(fbw_operands(), build_vehicle(device=DEVICE,
+                                                        dtype=dtype),
+                          DEVICE, dtype, adt=0.01, dt=0.02)
+    return {K.FBW.names[k]: args[k] for k in K.FBW.names}
+
+
+def fbw_flight_inputs(sim, st):
+    """The wrapper arguments of the fly-by-wire instances on the airborne
+    C172Xv1 fleet `st` (`testing.flight_operand_args`)."""
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.testing import flight_operand_args
+    args = flight_operand_args(sim, st)
+    return {K.FBW.names[k]: args[k] for k in K.FBW.names}
+
+
+def fbw_plain(name):
+    from flightjax_torch.parallel import kernels as K
+    return getattr(K, name[:-len("_fbw")] + "_plain")
+
+
+def fbw_wrapper(name):
+    from flightjax_torch.parallel import kernels as K
+    return getattr(K, name[:-len("_fbw")])
+
+
 def unpacked(name, ref):
     """The plain result of kinair, dynamics, finish_kin or finish_sys in
     the form `kernel_rows` gives the kernel's output: a list of dicts of
@@ -300,7 +413,7 @@ def unpacked(name, ref):
     if name == "dynamics":
         return [ref]
     if name == "finish_sys":
-        return list(ref)
+        return list(ref[:2])
     if name == "finish_kin":
         x_kin, x_dyn, kin, air, c = ref
         return [x_kin, x_dyn, kin._asdict(), air._asdict()] + (
@@ -350,6 +463,12 @@ def fleet(dtype, seed=SEED):
     return perturbed_fleet_sim(B, seed, DEVICE, dtype)
 
 
+def xv1_fleet(dtype, seed=SEED):
+    """The C172Xv1 on the turning climb, `B` perturbed aircraft."""
+    from flightjax_torch.testing import xv1_fleet_sim
+    return xv1_fleet_sim(B, seed, DEVICE, dtype)
+
+
 def at_step(sim, st, i0):
     """`st` moved to step counter i0 (t to match)."""
     return st._replace(i=torch.full_like(st.i, i0),
@@ -367,37 +486,53 @@ def plain_rollout(sim, st, n, geoid_every=None):
 
 
 class Paths:
-    """The three kernel paths and their plain references on one fleet:
-    `run(label, n)` steps a path from its start state and returns the
-    final SimState."""
+    """The kernel paths and their plain references on one fleet (the
+    C172S's three, or with `prefix` "xv1_" the C172Xv1's two, which has no
+    megakernel): `run(label, n)` steps a path from its start state and
+    returns the final SimState."""
 
-    def __init__(self, sim, st0):
+    def __init__(self, sim, st0, prefix=""):
         from flightjax_torch.parallel.clusterstep import make_cluster_step
         from flightjax_torch.parallel.megakernel import make_megakernel_step
-        self.sim = sim
+        self.sim, self.prefix = sim, prefix
         self.st = {"subsystems": at_step(sim, st0, SUB_I0),
                    "vehicle": st0._replace(c=None), "megakernel": st0}
         self.vehicle = make_cluster_step(sim, self.st["vehicle"],
                                          split="vehicle")
-        self.bufs, self.step_packed, self.unpack = make_megakernel_step(
-            sim, st0)
+        if not prefix:
+            self.bufs, self.step_packed, self.unpack = make_megakernel_step(
+                sim, st0)
 
-    def run(self, label, n):
+    def run(self, label, n, watch=None):
+        """`watch(state)`, if given, sees the state after every step (the
+        subsystems path then takes its steps one `fleet_rollout` each)."""
         from flightjax_torch.parallel.fleet import fleet_rollout
+        label = label[len(self.prefix):]
         if label == "subsystems":
-            return fleet_rollout(self.sim, self.st[label], n)
+            if watch is None:
+                return fleet_rollout(self.sim, self.st[label], n)
+            st = self.st[label]
+            for _ in range(n):
+                st = fleet_rollout(self.sim, st, 1)
+                watch(st)
+            return st
         if label == "vehicle":
             st = self.st[label]
             i0 = int(st.i[0])
             for k in range(n):
                 st = self.vehicle(st, i=i0 + k)
+                if watch is not None:
+                    watch(st)
             return st
         bufs = self.bufs
         for _ in range(n):
             bufs = self.step_packed(bufs)
+            if watch is not None:
+                watch(self.unpack(bufs))
         return self.unpack(bufs)
 
     def run_plain(self, label, n):
+        label = label[len(self.prefix):]
         st = self.st[label]
         if label == "megakernel":
             return plain_rollout(self.sim, st, n, geoid_every=1)
@@ -409,11 +544,15 @@ def expected_launches(label, n, i0=0):
     from flightjax_torch.parallel import kernels as K
     want = dict.fromkeys(K.LAUNCHES, 0)
     geoid = sum((i0 + k + 1) % 128 == 0 for k in range(n))
+    fbw = "_fbw" if label.startswith("xv1_") else ""
+    label = label[len("xv1_"):] if fbw else label
     if label == "subsystems":
-        want.update(kinair=4 * n, systems=4 * n, dynamics=4 * n,
-                    finish_kin=n, finish_sys=n, geoid=geoid)
+        want.update({"kinair": 4 * n, "systems" + fbw: 4 * n,
+                     "dynamics": 4 * n, "finish_kin": n,
+                     "finish_sys" + fbw: n, "geoid": geoid})
     elif label == "vehicle":
-        want.update(rk4_stage=4 * n, rk4_finish=n, geoid=geoid)
+        want.update({"rk4_stage" + fbw: 4 * n, "rk4_finish" + fbw: n,
+                     "geoid": geoid})
     else:
         want.update(megakernel=n)
     return want
@@ -447,13 +586,54 @@ def compare_runs(a, b):
     return pos, vel, att, de
 
 
-def check_flight(sim, label, out):
-    """Every leaf finite, no lane terminated, height and EAS in band."""
-    for p, v in leaves({"x": out.x, "s": out.s, "c": out.c, "t": out.t}):
+def check_autopilot(label, out):
+    """The C172Xv1's servo commands within their ranges, every lane in the
+    turning climb's modes, and the fleet's mean EAS within 3 m/s of the
+    45 m/s it is flown to."""
+    from flightjax_torch.models.c172 import c172x_ctl as CTL
+    from flightjax_torch.models.c172.c172x import ACT_RANGES
+    act = out.u["vehicle"]["systems"]["act"]
+    for ch in ("throttle", "aileron", "elevator", "rudder"):
+        lo, hi = ACT_RANGES[ch]
+        if not bool(((act[ch] >= lo) & (act[ch] <= hi)).all()):
+            raise AssertionError(f"{label}: {ch} command out of range")
+    lon = out.s["avionics"]["lon"]["mode_prev"]
+    lat = out.s["avionics"]["lat"]["mode_prev"]
+    if not (bool((lon == CTL.LON_EAS_CLM).all())
+            and bool((lat == CTL.LAT_CHI_BETA).all())):
+        raise AssertionError(f"{label}: a lane left the autopilot modes")
+    cmd = {ch: (float(act[ch].min()), float(act[ch].max()))
+           for ch in ("throttle", "aileron", "elevator", "rudder")}
+    mean = float(eas(out).double().mean())
+    log(f"{label}: commands {cmd}, every lane in LON_EAS_CLM / "
+        f"LAT_CHI_BETA, mean EAS {mean:.2f} m/s (flown to 45)")
+    if not abs(mean - 45.0) < 3.0:
+        raise AssertionError(f"{label}: the fleet's mean EAS is {mean}")
+
+
+# the EAS band of the C172S paths, trimmed at 50 m/s and flown open loop;
+# the C172Xv1 lanes that turn in a 45 deg bank while climbing at full
+# throttle bleed speed, so their floor is the C172's clean stall speed
+# (48 KIAS, 24.7 m/s) in that bank: 24.7 / sqrt(cos 45 deg) = 29.4 m/s
+EAS_BAND = {"c172s": (35.0, 70.0), "xv1": (29.4, 70.0)}
+
+
+def stall_of(state):
+    return state.s["vehicle"]["systems"]["aero"]["stall"]
+
+
+def check_flight(sim, label, out, stalled):
+    """Every leaf finite, no lane terminated, none stalled at any step
+    (`stalled`: each lane's stall flag or-ed over the run), height and EAS
+    in band."""
+    for p, v in leaves({"x": out.x, "s": out.s, "c": out.c, "t": out.t,
+                        "u": out.u}):
         if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{label}: non-finite leaf {p}")
     if bool(out.s["terminated"].any()):
         raise AssertionError(f"{label}: a lane terminated")
+    if bool(stalled.any()):
+        raise AssertionError(f"{label}: {int(stalled.sum())} lanes stalled")
     h = sim.system.aircraft.vehicle.h_agl(out.x["vehicle"], out.u["vehicle"],
                                           out.s["vehicle"])
     e = eas(out)
@@ -462,8 +642,9 @@ def check_flight(sim, label, out):
         f"{float(e.max()):.2f} m/s, t = {float(out.t[0]):.2f} s")
     if not (800.0 < float(h.min()) and float(h.max()) < 1300.0):
         raise AssertionError(f"{label}: height left the 800..1300 m band")
-    if not (35.0 < float(e.min()) and float(e.max()) < 70.0):
-        raise AssertionError(f"{label}: EAS left the 35..70 m/s band")
+    lo, hi = EAS_BAND["xv1" if label in XV1_PATHS else "c172s"]
+    if not (lo < float(e.min()) and float(e.max()) < hi):
+        raise AssertionError(f"{label}: EAS left the {lo}..{hi} m/s band")
 
 
 def main():
@@ -498,6 +679,11 @@ def main():
                 log("  ptxas: " + line.strip())
     sizes = dict(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
     log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
+    regs = registers(L.BUILD_INFO["log"])
+    for name in KERNELS:
+        log(f"  registers {name}: " + ", ".join(
+            f"{dt} {r} (spill stores {ss} B, loads {sl} B)"
+            for dt, (r, ss, sl) in sorted(regs.get(name, {}).items())))
 
     # 3. per-kernel checks (f64 at 1e-12, f32 at 1e-5)
     errs = {}
@@ -568,56 +754,129 @@ def main():
                 (got.t, got.x, got.s, got.c), (ref.t, ref.x, ref.s, ref.c)),
                 f" (comp {comp})")
 
+    # the fly-by-wire instances exactly, at 32 and 64 aircraft per block,
+    # on the fly-by-wire cluster operands and the airborne C172Xv1 fleet
+    for dtype in (torch.float64, torch.float32):
+        fargs = fbw_inputs(dtype)
+        xsim, xst = xv1_fleet(dtype)
+        xflight = fbw_flight_inputs(xsim, xst)
+        for name in FBW_NAMES:
+            cases = [("cluster operands", fargs[name], False),
+                     ("C172Xv1 fleet", xflight[name], False)]
+            if name == "rk4_finish_fbw":
+                cases.append(("cluster operands, compensated",
+                              fargs[name][:-1] + (fargs[name][-1],), True))
+                cases[0] = ("cluster operands", fargs[name][:-1] + (None,),
+                            False)
+            for what, a, comp in cases:
+                ref = fbw_plain(name)(*a)
+                got = fbw_wrapper(name)(*a)  # at the default block
+                torch.cuda.synchronize()
+                check(name, dtype, 0.0, leaf_pairs(got, ref),
+                      f" ({what}, wrapper)")
+                for lanes in (32, 64):
+                    buf, n_out, scal, ops = K.PACK[name](*a)
+                    out = L.launch(name, buf, n_out, scal, block=lanes, **ops)
+                    got = K.unpack_out(name, out, comp)
+                    torch.cuda.synchronize()
+                    check(name, dtype, 0.0, leaf_pairs(got, ref),
+                          f" ({what}, block {lanes})")
+                if name in ("finish_sys_fbw", "rk4_finish_fbw") and \
+                        what.startswith("cluster"):
+                    s_in = a[4]["systems"] if name == "rk4_finish_fbw" \
+                        else a[4]
+                    if not (bool(got[1]["crashed"][CRASH_LANE])
+                            and not bool(s_in["crashed"][CRASH_LANE])):
+                        raise AssertionError(f"{name}: the crash lane did "
+                                             "not latch crashed")
+        del fargs, xsim, xst, xflight
+
     # 4. the paths in f32: kernels, each from counts 0, against plain
     sim, st0 = fleet(torch.float32)
     paths = Paths(sim, st0)
+    xsim, xst0 = xv1_fleet(torch.float32)
+    xpaths = Paths(xsim, xst0, "xv1_")
     launches = {}
-    for label, n in (("subsystems", SUB_STEPS), ("vehicle", STEPS),
-                     ("megakernel", STEPS)):
-        i0 = int(paths.st[label].i[0])
+    for label, n in (("subsystems", SUB_STEPS), ("vehicle", MECH_STEPS),
+                     ("megakernel", MECH_STEPS),
+                     ("xv1_subsystems", SUB_STEPS), ("xv1_vehicle", STEPS)):
+        psim, paths_ = (xsim, xpaths) if label in XV1_PATHS else (sim, paths)
+        i0 = int(paths_.st[label[len(paths_.prefix):]].i[0])
         torch.cuda.synchronize()
         K.reset_launches()
+        stalled = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+
+        def watch(st):
+            stalled.logical_or_(stall_of(st))
+
         t0 = time.time()
-        out = paths.run(label, n)
+        out = paths_.run(label, n, watch)
         torch.cuda.synchronize()
         dt_run = time.time() - t0
         got = dict(K.LAUNCHES)
         log(f"{label}: {n} steps x {B} aircraft from step {i0} in "
-            f"{dt_run:.2f} s (first run, includes warm-up); launches {got}")
+            f"{dt_run:.2f} s (first run, stall flags read every step); "
+            f"launches {got}")
         want = expected_launches(label, n, i0)
         if got != want:
             raise AssertionError(f"{label}: launch counts {got} != {want}")
         for name, (_, _, path) in KERNELS.items():
             if path == label:
                 launches[name] = got[name]
-        check_flight(sim, label, out)
+        check_flight(psim, label, out, stalled)
+        if label in XV1_PATHS:
+            check_autopilot(label, out)
         K.reset_launches()
-        ref = paths.run_plain(label, n)
+        ref = paths_.run_plain(label, n)
         torch.cuda.synchronize()
         if any(K.LAUNCHES.values()):
             raise AssertionError(f"{label}: plain run launched a kernel")
         pos, vel, att, de = compare_runs(out, ref)
+        # the 10 s envelope scaled to the steps flown
+        env = [e * n / STEPS for e in (ENV_POS_M, ENV_VEL, ENV_ATT_RAD,
+                                       ENV_EAS)]
         log(f"{label} kernels vs plain after {n} steps (f32): position "
-            f"{pos:.3e} m (env {ENV_POS_M}), velocity {vel:.3e} m/s "
-            f"(env {ENV_VEL}), attitude {att:.3e} rad (env {ENV_ATT_RAD}), "
-            f"EAS {de:.3e} m/s (env {ENV_EAS})")
-        if not (pos <= ENV_POS_M and vel <= ENV_VEL and att <= ENV_ATT_RAD
-                and de <= ENV_EAS):
+            f"{pos:.3e} m (env {env[0]:.3g}), velocity {vel:.3e} m/s "
+            f"(env {env[1]:.3g}), attitude {att:.3e} rad (env {env[2]:.3g}), "
+            f"EAS {de:.3e} m/s (env {env[3]:.3g})")
+        if not all(v <= e for v, e in zip((pos, vel, att, de), env)):
             raise AssertionError(f"{label}: kernel and plain runs disagree")
 
     # 20 steps of each path in f64, kernels against plain, 1e-9
     sim64, st64 = fleet(torch.float64)
     paths64 = Paths(sim64, st64)
-    for label in ("subsystems", "vehicle", "megakernel"):
-        a = paths64.run(label, F64_STEPS)
-        b = paths64.run_plain(label, F64_STEPS)
+    xsim64, xst64 = xv1_fleet(torch.float64)
+    xpaths64 = Paths(xsim64, xst64, "xv1_")
+    for label in ("subsystems", "vehicle", "megakernel") + XV1_PATHS:
+        p64 = xpaths64 if label in XV1_PATHS else paths64
+        a = p64.run(label, F64_STEPS)
+        b = p64.run_plain(label, F64_STEPS)
         torch.cuda.synchronize()
         worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
-            {"x": a.x, "s": a.s}, {"x": b.x, "s": b.s}))
+            {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
         log(f"{label} f64 {F64_STEPS} steps kernels vs plain: max rel err "
             f"{worst:.3e} (tol 1e-9)")
         if not worst <= 1e-9:
             raise AssertionError(f"{label}: f64 run disagrees")
+    del sim64, st64, paths64, xsim64, xst64, xpaths64
+
+    # host and device ms per step, launches per step and idle share of the
+    # C172Xv1 paths (the control laws run as PyTorch ops between kernels)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    from profile_torch_step import profile
+    profiles = {}
+    for label in XV1_PATHS:
+        r = profile(label, xsim, xst0, 20, 8)
+        profiles[label] = r
+        log(f"profile {label}: B = {B}, 20 steps, f32: host "
+            f"{r['host_ms_per_step']:.4f} ms/step, device "
+            f"{r['device_ms_per_step']:.4f} ms/step, idle share "
+            f"{r['idle_share']:.4f}, {r['launches_per_step']:.1f} device "
+            f"launches/step [{card}]")
+        for t in r["top"]:
+            log(f"  {t['ms_per_step']:9.4f} ms/step {t['per_step']:6.1f}"
+                f"/step  {t['name'][:90]}")
 
     # 5. timings and bounds (f32, B = 4096)
     args = kernel_inputs(torch.float32)
@@ -710,9 +969,45 @@ def main():
                      wrapper_ms=wrapper_ms, block_ms=extra["lanes_ms"],
                      by_batch_ms=by_batch, **extra))
 
+    # the fly-by-wire instances: on their cluster operands (rk4_finish_fbw
+    # uncompensated, as the vehicle path runs it) and, airborne, on the
+    # C172Xv1 fleet the paths step
+    fargs = fbw_inputs(torch.float32)
+    xflight = {n: K.PACK[n](*a)
+               for n, a in fbw_flight_inputs(xsim, xst0).items()}
+    xparams = K.system_params(xsim.system.aircraft.vehicle)
+    for name in FBW_NAMES:
+        src, replaces, _ = KERNELS[name]
+        a = fargs[name]
+        if name == "rk4_finish_fbw":
+            a = a[:-1] + (None,)
+        buf, n_out, scal, ops = K.PACK[name](*a)
+        bare = lambda bs=None: L.launch(name, buf, n_out, scal, block=bs,
+                                        **ops)
+        ms, event_ms = graph_ms(bare), cuda_ms(bare)
+        wrapper_ms = cuda_ms(lambda: fbw_wrapper(name)(*a))
+        plain_ms = cuda_ms(lambda: fbw_plain(name)(*a), reps=5, calls=4)
+        fbuf, _, fscal, fops = xflight[name]
+        air = lambda bs=None: L.launch(name, fbuf, n_out, fscal, block=bs,
+                                       **fops)
+        extra = role_times(name, air, bare, B, xparams.numel())
+        n_elems = buf.numel() + n_out * buf.shape[1] + sum(
+            v.numel() for v in ops.values())
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=launches[name],
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         nbytes=4 * n_elems,
+                         ops=count_ops(lambda: fbw_plain(name)(*a)),
+                         library_ms=None, event_ms=event_ms,
+                         wrapper_ms=wrapper_ms,
+                         block_ms=extra["runway_lanes_ms"], **extra))
+    del fargs, xflight
+
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         r["code_bytes"] = sizes.get(r["name"])
+        r["registers"] = {dt: v[0] for dt, v in regs.get(r["name"],
+                                                         {}).items()}
         log(f"time {r['name']}: kernel {r['ms']:.4f} ms, wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({r['nbytes']} B, "
@@ -743,10 +1038,11 @@ def main():
 
     # throughput: interleaved warm windows of WINDOW[label] steps each
     windows = collections.defaultdict(list)
-    labels = ("subsystems", "vehicle", "megakernel")
+    labels = ("subsystems", "vehicle", "megakernel") + XV1_PATHS
     for label in (labels + ("plain",)) * 3 + labels * 2:
+        p = xpaths if label in XV1_PATHS else paths
         run = (lambda n: paths.run_plain("subsystems", n)) \
-            if label == "plain" else (lambda n: paths.run(label, n))
+            if label == "plain" else (lambda n: p.run(label, n))
         run(2)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -765,8 +1061,9 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms", "wrapper_ms", "block_ms", "nbytes", "ops",
-            "code_bytes", "airborne_ms", "runway_ms", "lanes_ms",
-            "runway_lanes_ms", "empty_ms", "by_batch_ms")
+            "code_bytes", "registers", "airborne_ms", "runway_ms",
+            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms")
+    log("profiles: " + json.dumps(profiles))
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -83,3 +83,21 @@ def bwhere(pred, a, b):
     nd = max(a.dim(), b.dim())
     pred = pred.reshape(pred.shape + (1,) * (nd - pred.dim()))
     return torch.where(pred, a, b)
+
+
+def tree_where(pred, true_tree, false_tree):
+    """Select between two identically-structured trees leafwise with
+    `bwhere` (`modeling.py:70-95`); a leaf that is the same object in both
+    passes through unselected, as in the JAX helper."""
+    def sel(t, f):
+        if t is f:
+            return t
+        return bwhere(pred, t, f)
+    return tree_map(sel, true_tree, false_tree)
+
+
+def canonical(tree):
+    """Every leaf a tensor: Python and numpy scalars become tensors (the
+    JAX helper strips weak types, which PyTorch does not have)."""
+    return tree_map(lambda l: l if isinstance(l, torch.Tensor)
+                    else torch.as_tensor(l), tree)

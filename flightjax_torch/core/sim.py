@@ -92,8 +92,8 @@ class Simulation:
             raise ValueError(
                 f"periodic_dt ({self.periodic_dt}) must be a positive integer "
                 f"multiple of dt ({self.dt})")
-        if getattr(system.aircraft, "avionics", None) is not None:
-            raise NotImplementedError("avionics (f_periodic) are not ported")
+        # the system's periodic interval, which the avionics read
+        system.periodic_dt = self.periodic_dt
         self.geoid_every = max(1, int(geoid_every))
         if compensate not in ("auto", False):
             raise ValueError("compensate must be 'auto' or False")
@@ -105,12 +105,17 @@ class Simulation:
         return state._replace(c=comp_residuals(state.x))
 
     def fleet_step(self, state: SimState, ctx=(), *, i) -> SimState:
-        """One step of a batch-leading fleet state. `ctx` is the periodic
-        context, () without avionics. `i` is the fleet's shared step
-        counter as a Python int (the value of every lane of `state.i`);
-        `fleet_rollout` keeps it on the host, so the geoid cadence costs no
-        device sync."""
+        """One step of a batch-leading fleet state, with the avionics'
+        periodic pass after it when it fires. `ctx` is the mission context
+        of the JAX package, () here (`core/mission.py` is not ported:
+        ROADMAP P9). `i` is the fleet's shared step counter as a Python
+        int (the value of every lane of `state.i`); `fleet_rollout` keeps
+        it on the host, so neither the geoid cadence nor the periodic pass
+        costs a device sync: every lane takes the same branch, as the
+        uniform mask of the JAX package's `tree_where` does."""
         from flightjax_torch.parallel.clusterstep import cluster_step
         if ctx != ():
-            raise NotImplementedError("avionics (f_periodic) are not ported")
+            raise NotImplementedError(
+                "mission contexts (core/mission.py) are not ported: "
+                "ROADMAP P9")
         return cluster_step(self, state, int(i))

@@ -1,6 +1,8 @@
-// The Cessna 172 systems as per-aircraft __device__ functions: mechanical
-// actuation, aerodynamics, one landing-gear leg (strut and contact), the
-// IO-360 engine with its propeller, fuel, payload and the mass-property sum.
+// The Cessna 172 systems as per-aircraft __device__ functions: the
+// actuation (the C172S's mechanical linkage or the C172X's fly-by-wire
+// servos, chosen at compile time by an ActKind), aerodynamics, one
+// landing-gear leg (strut and contact), the IO-360 engine with its
+// propeller, fuel, payload and the mass-property sum.
 // They are the fine parts of the systems clusters of flightjax/parallel/
 // clusterstep.py (k_actaero, k_ldg0..2, k_pwp; k_fin_act, k_fin_ldg0..2,
 // k_fin_rest), composed by finish_sys.cu one aircraft per thread and by
@@ -86,6 +88,11 @@ constexpr int P_MS = P_PR + PR_N;
 constexpr int P_TB = P_MS + MS_N;
 constexpr int P_HEAD = P_TB + TB_N;
 
+// one servo of the fly-by-wire actuation (models/c172/c172x.py::Actuator1):
+// its time constant and range. The buffer of the fly-by-wire instances
+// holds N_ACT of them after the table offsets, in channel order (below)
+enum ActP : int { AC_tau, AC_lo, AC_hi, AC_N };
+
 // ------------------------------------------------------------- row maps
 
 // x_sys: aero alpha_filt, beta_filt; fuel; ldg frc[3][2]; engine frc, idle,
@@ -117,6 +124,61 @@ constexpr int FSYS_N_IN =
     2 * N_XSYS + N_USYS + N_SSYS + N_TRN + N_KIN + N_AIR;            // 115
 constexpr int FSYS_N_OUT = N_XSYS + N_SSYS;                          // 15
 
+// The actuation a kernel instance carries: the mechanical linkage of the
+// C172S (ACT_MECH) or the fly-by-wire servos of the C172X (ACT_FBW: seven
+// first-order servos, their positions the last rows of x_sys, their
+// commands at the head of u_sys). An instance of each kernel that carries
+// the systems is compiled for each; the ACT_MECH ones are the code they
+// were before the C172X came.
+enum ActKind : int { ACT_MECH, ACT_FBW };
+
+// the fly-by-wire C172: the servo channels (sorted names, the order of
+// their x_sys rows and parameters); x_sys the mechanical rows, then the
+// servo positions; u_sys the seven commands and the mixture (sorted
+// names), then the engine and payload rows as in the mechanical layout
+constexpr int CH_AIL = 0, CH_BRK_L = 1, CH_BRK_R = 2, CH_ELV = 3,
+              CH_FLAPS = 4, CH_RUD = 5, CH_THR = 6, N_ACT = 7;
+constexpr int XS_ACT = N_XSYS, N_XSYS_FBW = XS_ACT + N_ACT;          // 19
+constexpr int UF_MIX = 5, UF_E_MIX = 8, UF_PLD = 13, N_USYS_FBW = 18;
+constexpr int P_ACT = P_HEAD, P_HEAD_FBW = P_ACT + N_ACT * AC_N;
+// what the finish kernels of the fly-by-wire C172 store for its avionics:
+// SYS_Y the gated airflow angles and each leg's weight on wheels at the new
+// state (finish_sys, rk4_finish), KIN_Y the KinData and AirData fields the
+// control laws read (rk4_finish; on the cluster path finish_kin stores
+// them all): omega_wb_b, e_nb, v_eb_n, chi_gnd, EAS
+constexpr int SY_ALPHA = 0, SY_BETA = 1, SY_WOW = 2, N_SYSY = 5;
+constexpr int KY_OM_WB = 0, KY_E_NB = 3, KY_V_EB_N = 6, KY_CHI = 9,
+              KY_EAS = 10, N_KINY = 11;
+constexpr int SYS_N_IN_FBW =
+    2 * N_XSYS_FBW + N_USYS_FBW + N_SSYS + N_TRN + N_KIN + N_AIR + 1;  // 139
+constexpr int SYS_N_OUT_FBW = N_XSYS_FBW + N_MP + N_WR + N_HR;       // 41
+constexpr int FSYS_N_IN_FBW =
+    2 * N_XSYS_FBW + N_USYS_FBW + N_SSYS + N_TRN + N_KIN + N_AIR;      // 138
+constexpr int FSYS_N_OUT_FBW = N_XSYS_FBW + N_SSYS + N_SYSY;         // 27
+
+// the systems rows of an actuation: x_sys and u_sys rows, where the engine
+// and payload inputs start in u_sys, and the whole vehicle's X and CTX
+// (below) built on them
+template <int ACT>
+struct SysL {
+  enum : int {
+    NX = ACT == ACT_FBW ? N_XSYS_FBW : N_XSYS,
+    NU = ACT == ACT_FBW ? N_USYS_FBW : N_USYS,
+    U_E = ACT == ACT_FBW ? UF_E_MIX : US_E_MIX,
+    U_E_MIXCTL = U_E + 1,
+    U_E_START = U_E + 2,
+    U_E_STOP = U_E + 3,
+    U_PLD = U_E + 5,
+    NXV = N_XKIN + N_XDYN + NX,
+    CX_UATM = NU,
+    CX_TRN = CX_UATM + N_UATM,
+    CX_SSYS = CX_TRN + N_TRN,
+    CX_GEOID = CX_SSYS + N_SSYS,
+    CX_TERM = CX_GEOID + 1,
+    NCTX = CX_TERM + 1
+  };
+};
+
 // the whole vehicle (rk4_stage, rk4_finish, megakernel):
 // X   = x_kin, x_dyn, x_sys                          (N_X rows)
 // CTX = u_sys, u_atm, trn, s_sys, geoid_N, term      (N_CTX rows)
@@ -137,6 +199,15 @@ constexpr int RKFIN_N_OUT = N_X + N_SSYS + 1 + N_C;                  // 36
 // int32 step counter i beside it
 constexpr int MG_T = 0, MG_X = 1, MG_CTX = MG_X + N_X, MG_C = MG_CTX + N_CTX,
               MEGA_N_ROWS = MG_C + N_C;                              // 69
+// the fly-by-wire vehicle (rk4_stage, rk4_finish; rk4_finish stores the
+// avionics' KIN_Y and SYS_Y after its mechanical outputs)
+constexpr int N_X_FBW = N_XKIN + N_XDYN + N_XSYS_FBW;                // 34
+constexpr int N_CTX_FBW = N_USYS_FBW + N_UATM + N_TRN + N_SSYS + 2;  // 33
+constexpr int STAGE_N_IN_FBW = N_X_FBW + N_CTX_FBW;                  // 67
+constexpr int STAGE_N_OUT_FBW = N_X_FBW;                             // 34
+constexpr int RKFIN_N_IN_FBW = N_X_FBW + N_CTX_FBW + N_C;            // 72
+constexpr int RKFIN_N_OUT_FBW =
+    N_X_FBW + N_SSYS + 1 + N_C + N_KINY + N_SYSY;                    // 59
 
 // ------------------------------------------------------------- helpers
 
@@ -195,6 +266,40 @@ __device__ __forceinline__ Act<T> actuation(const T (&u)[N_USYS]) {
   return {-elv, ail, -rud, clamp(u[US_FLAPS], zero, one), rud,
           clamp(u[US_BRK_L], zero, one), clamp(u[US_BRK_R], zero, one),
           clamp(u[US_THR], zero, one), clamp(u[US_MIX], zero, one)};
+}
+
+// models/c172/c172x.py::FlyByWireActuation, Actuator1: the position of
+// servo `ch` is its state clipped to its range; its derivative
+// (clip(cmd) - x) / tau, the true quotient
+template <typename T>
+__device__ __forceinline__ T servo_pos(const T* P, int ch, T x) {
+  const T* A = P + P_ACT + ch * AC_N;
+  return clamp(x, A[AC_lo], A[AC_hi]);
+}
+
+template <typename T>
+__device__ __forceinline__ T servo_dot(const T* P, int ch, T x, T cmd) {
+  const T* A = P + P_ACT + ch * AC_N;
+  return (clamp(cmd, A[AC_lo], A[AC_hi]) - x) / A[AC_tau];
+}
+
+// the u_sys row of channel ch's command (the mixture sits among them)
+__device__ __forceinline__ int fbw_cmd_row(int ch) {
+  return ch < UF_MIX ? ch : ch + 1;
+}
+
+// the assignments of the servo states x (channel order), with the C172S's
+// sign conventions; the mixture from its command
+template <typename T>
+__device__ __forceinline__ Act<T> fbw_actuation(const T* P,
+                                                const T (&x)[N_ACT],
+                                                T mixture) {
+  T p[N_ACT];
+#pragma unroll
+  for (int k = 0; k < N_ACT; ++k) p[k] = servo_pos(P, k, x[k]);
+  return {-p[CH_ELV], p[CH_AIL], -p[CH_RUD], p[CH_FLAPS], p[CH_RUD],
+          p[CH_BRK_L], p[CH_BRK_R], p[CH_THR],
+          clamp(mixture, T(0.0), T(1.0))};
 }
 
 // ------------------------------------------------------------- aero
@@ -737,17 +842,24 @@ struct Trn {
 // nose leg steers): its strut, and its friction regulator's states frc_x,
 // frc_y (after the combine) reset off the ground; returns whether the leg
 // crashes, its strut tilted past ALPHA_TS_MAX on the ground or compressing
-// faster than XI_DOT_MAX
-template <typename T>
+// faster than XI_DOT_MAX, and sets `wow`. The mechanical linkage steers
+// from the inputs u; the fly-by-wire nose leg from its servo's position
+// after the combine, `steer_fbw`
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ bool finish_leg(const T* P, int leg,
-                                           const T (&u)[N_USYS],
-                                           const Kin<T>& kin,
+                                           const T (&u)[SysL<ACT>::NU],
+                                           T steer_fbw, const Kin<T>& kin,
                                            const Trn<T>& trn, T& frc_x,
-                                           T& frc_y) {
-  const T steering = leg == 2 ? actuation(u).steering : T(0.0);
+                                           T& frc_y, bool& wow) {
+  T steering;
+  if constexpr (ACT == ACT_FBW)
+    steering = leg == 2 ? steer_fbw : T(0.0);
+  else
+    steering = leg == 2 ? actuation(u).steering : T(0.0);
   const Strut<T> st = strut_y(P + P_LG + leg * LG_N, steering, kin,
                               trn.elevation, trn.normal);
   if (!st.wow) frc_x = frc_y = T(0.0);
+  wow = st.wow;
   return (st.wow && st.alpha_ts > T(ALPHA_TS_MAX)) ||
          -st.xi_dot > T(XI_DOT_MAX);
 }
@@ -765,14 +877,14 @@ __device__ __forceinline__ bool finish_stall(const T* P, const Air<T>& air,
 
 // the engine state machine at the new fuel state and shaft speed
 // (k_fin_rest)
-template <typename T>
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ int finish_engine(const T* P, int state, T x_fuel,
                                              T x_omega,
-                                             const T (&u)[N_USYS]) {
+                                             const T (&u)[SysL<ACT>::NU]) {
   const T* M = P + P_MS;
   const bool fuel_available = fuel_m_total(M, x_fuel) - M[MS_M_RES] > T(0);
-  return engine_step(P, state, x_omega, u[US_E_START].v != 0,
-                     u[US_E_STOP].v != 0, fuel_available);
+  return engine_step(P, state, x_omega, u[SysL<ACT>::U_E_START].v != 0,
+                     u[SysL<ACT>::U_E_STOP].v != 0, fuel_available);
 }
 
 // x_sys (N_XSYS rows), s_sys (N_SSYS rows) and the terrain (N_TRN rows)
@@ -849,6 +961,16 @@ constexpr int SH_Q_NB = 0, SH_Q_EB = 4, SH_Q_EN = 8, SH_N_E = 12, SH_H_E = 15,
 // registers they would sit beside every role's body for the whole step
 constexpr int SH_X = SH_N, SH_KSUM = SH_X + N_X,
               SH_MEGA_N = SH_KSUM + N_X;                             // 143
+// the fly-by-wire instances also pass the servos' states at the stage point
+// (after the combine, in the finish) from role DRAG, which integrates them,
+// to the roles that read a servo's position
+constexpr int SH_ACT = SH_N, SH_N_FBW = SH_ACT + N_ACT;              // 96
+
+// scratch rows of an instance
+template <int ACT>
+__host__ __device__ __forceinline__ int sh_rows() {
+  return ACT == ACT_FBW ? SH_N_FBW : SH_N;
+}
 
 // the block's dynamic shared memory: the parameter buffer (n_params
 // values), then the scratch
@@ -867,7 +989,9 @@ inline RoleLaunch role_launch(int B, int lanes, int n_params, int elem_size,
                      (n_params + sh_rows * lanes) * elem_size);
 }
 
-// row of X in slot k of a role, -1 past its rows
+// row of X in slot k of a role, -1 past its rows; in the fly-by-wire
+// instances role DRAG integrates the servo states
+template <int ACT = ACT_MECH>
 __device__ __forceinline__ int role_row(int role, int k) {
   if (role == ROLE_KIN) return k;
   if (role == ROLE_AERO) return k < 2 ? X_SYS + XS_ALPHA + k : -1;
@@ -876,6 +1000,8 @@ __device__ __forceinline__ int role_row(int role, int k) {
                         : (k <= PW_OMEGA ? X_SYS + XS_EFRC + k - 1 : -1);
   if (role >= ROLE_LEG0)
     return k < 2 ? X_SYS + XS_FRC + 2 * (role - ROLE_LEG0) + k : -1;
+  if (ACT == ACT_FBW && role == ROLE_DRAG)
+    return k < N_ACT ? X_SYS + XS_ACT + k : -1;
   return -1;  // ROLE_DRAG, ROLE_PROP
 }
 
@@ -904,23 +1030,23 @@ __device__ __forceinline__ void share_params(const T* __restrict__ P,
 }
 
 // a role's slots of rows r.. of column c, 0 in the slots it does not own
-template <typename T>
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void load_slots(const Col<T>& c, int r, int role,
                                            T (&x)[N_SLOTS]) {
 #pragma unroll
   for (int k = 0; k < N_SLOTS; ++k) {
-    const int row = role_row(role, k);
+    const int row = role_row<ACT>(role, k);
     x[k] = T(0);
     if (row >= 0) x[k] = c(r + row);
   }
 }
 
-template <typename T>
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void store_slots(const Out<T>& o, int r, int role,
                                             const T (&x)[N_SLOTS]) {
 #pragma unroll
   for (int k = 0; k < N_SLOTS; ++k) {
-    const int row = role_row(role, k);
+    const int row = role_row<ACT>(role, k);
     if (row >= 0) o.s(r + row, x[k]);
   }
 }
@@ -987,22 +1113,38 @@ __device__ __forceinline__ void shared_kin_air(const Col<T>& c, Kin<T>& k,
 // role KIN's work (a load after a barrier cannot start before it); those of
 // a derivative after it, where loading it before held more registers across
 // the barrier and made rk4_stage 2% slower (PERF.md).
-template <typename T>
+template <typename T, int ACT = ACT_MECH>
 struct SysIn {
-  T u[N_USYS];
+  T u[SysL<ACT>::NU];
   SSys s;
   Trn<T> trn;
 };
 
-template <typename T>
-__device__ __forceinline__ SysIn<T> load_sys_in(const Col<T>& c, int r_u,
-                                                int r_s, int r_trn) {
-  SysIn<T> in;
+template <int ACT = ACT_MECH, typename T>
+__device__ __forceinline__ SysIn<T, ACT> load_sys_in(const Col<T>& c,
+                                                     int r_u, int r_s,
+                                                     int r_trn) {
+  SysIn<T, ACT> in;
 #pragma unroll
-  for (int k = 0; k < N_USYS; ++k) in.u[k] = c(r_u + k);
+  for (int k = 0; k < SysL<ACT>::NU; ++k) in.u[k] = c(r_u + k);
   in.s = load_ssys(c, r_s);
   in.trn = load_trn(c, r_trn);
   return in;
+}
+
+// the assignments a subsystem role reads: the mechanical linkage's from the
+// inputs, the fly-by-wire servos' from the states role DRAG shared
+template <int ACT, typename T>
+__device__ __forceinline__ Act<T> role_actuation(const T* P, const Col<T>& si,
+                                                 const SysIn<T, ACT>& in) {
+  if constexpr (ACT == ACT_FBW) {
+    T x[N_ACT];
+#pragma unroll
+    for (int k = 0; k < N_ACT; ++k) x[k] = si(SH_ACT + k);
+    return fbw_actuation(P, x, in.u[UF_MIX]);
+  } else {
+    return actuation(in.u);
+  }
 }
 
 // the wrench role KIN sums from the subsystems' shares as the one-thread
@@ -1048,7 +1190,7 @@ __device__ __forceinline__ MP<T> role_mp(const Col<T>& si) {
 //     propeller's load on its shaft (role KIN sums the wrench, role_wrench).
 // P is the parameter buffer, sh the scratch, xi the role's slots of the
 // stage state.
-template <typename T>
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void subsystem_roles_share(T* sh,
                                                       const RoleThread& t,
                                                       const T (&xi)[N_SLOTS]) {
@@ -1057,9 +1199,14 @@ __device__ __forceinline__ void subsystem_roles_share(T* sh,
     so.s(SH_XFUEL, xi[PW_FUEL]);
     so.s(SH_XOMEGA, xi[PW_OMEGA]);
   }
+  if (ACT == ACT_FBW && t.role == ROLE_DRAG) {
+    const Out<T> so{sh, t.L, t.lane};
+#pragma unroll
+    for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xi[k]);
+  }
 }
 
-template <typename T>
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
                                                 const RoleThread& t,
                                                 const T (&xi)[N_SLOTS],
@@ -1070,11 +1217,11 @@ __device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
   const Col<T> si{sh, t.L, t.lane};
   const Out<T> so{sh, t.L, t.lane};
   const int role = t.role;
-  const SysIn<T> in = load_sys_in(c, r_u, r_s, r_trn);
+  const SysIn<T, ACT> in = load_sys_in<ACT>(c, r_u, r_s, r_trn);
   Kin<T> kin;
   Air<T> air;
   shared_kin_air(si, kin, air);
-  const Act<T> act = actuation(in.u);
+  const Act<T> act = role_actuation<ACT>(P, si, in);
   if (role == ROLE_AERO) {
     AeroOut<T> a;
     aero_parts<AERO_LIFT_MOMENTS>(P, xi[0], xi[1], act, in.s.stall, kin, air,
@@ -1091,11 +1238,16 @@ __device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
                                in.trn.elevation, a);
     so.s(SH_AERO, a.f_s.x);
     so.s(SH_AERO + 1, a.f_s.y);
+    if constexpr (ACT == ACT_FBW) {  // the servos
+#pragma unroll
+      for (int k = 0; k < N_ACT; ++k)
+        d[k] = alive * servo_dot(P, k, xi[k], in.u[fbw_cmd_row(k)]);
+    }
   } else if (role == ROLE_ENG) {
     T mdot;
     engine(P, xi[PW_OMEGA], xi[PW_IDLE], xi[PW_EFRC], act.throttle,
-           act.mixture, in.u[US_E_MIXCTL], in.s.state, air, tau_shaft,
-           d[PW_IDLE], d[PW_EFRC], mdot);
+           act.mixture, in.u[SysL<ACT>::U_E_MIXCTL], in.s.state, air,
+           tau_shaft, d[PW_IDLE], d[PW_EFRC], mdot);
     d[PW_FUEL] = alive * (-mdot / P[P_MS + MS_M_USABLE]);
     d[PW_IDLE] = alive * d[PW_IDLE];
     d[PW_EFRC] = alive * d[PW_EFRC];
@@ -1104,7 +1256,7 @@ __device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
     const PropOut<T> prop = propeller(P, kin, air, gr * si(SH_XOMEGA));
     T pld[5];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) pld[k] = in.u[US_PLD + k];
+    for (int k = 0; k < 5; ++k) pld[k] = in.u[SysL<ACT>::U_PLD + k];
     const MP<T> mp = mass_sum(P, pld, si(SH_XFUEL));
     so.v3(SH_PWP, prop.F_b);
     so.v3(SH_PWP + 3, prop.tau_b);
@@ -1151,20 +1303,21 @@ __device__ __forceinline__ void subsystem_roles_shaft(const T* P, T* sh,
 // Role KIN works out and shares KinData and AirData, the subsystem roles run
 // beside it, and after the second barrier role KIN sums the wrench and runs
 // the dynamics. All threads of the block must call it.
-template <typename T>
+template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
                                             const RoleThread& t,
                                             const T (&xi)[N_SLOTS],
                                             const Col<T>& c, int r_ctx,
                                             T (&d)[N_SLOTS]) {
+  using L = SysL<ACT>;
   const Col<T> si{sh, t.L, t.lane};
-  const T alive = T(1.0) - c(r_ctx + CX_TERM);
+  const T alive = T(1.0) - c(r_ctx + L::CX_TERM);
   // role KIN keeps these from the kinematics to the dynamics
   XDyn<T> xi_dyn;
   Q4<T> q_eb;
   V3<T> r_eb_e;
   T tau_shaft;  // role ENG keeps it until the propeller's load is known
-  subsystem_roles_share(sh, t, xi);
+  subsystem_roles_share<ACT>(sh, t, xi);
   if (t.role == ROLE_KIN) {
     const XKin<T> xi_kin = {{xi[0], xi[1], xi[2], xi[3]},
                             {xi[4], xi[5], xi[6], xi[7]}, xi[8]};
@@ -1172,8 +1325,8 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     XKin<T> kd;
     Kin<T> kin;
     Air<T> air;
-    kinair_lane(xi_kin, xi_dyn, c(r_ctx + CX_GEOID),
-                load_atm(c, r_ctx + CX_UATM), alive, kd, kin, air);
+    kinair_lane(xi_kin, xi_dyn, c(r_ctx + L::CX_GEOID),
+                load_atm(c, r_ctx + L::CX_UATM), alive, kd, kin, air);
     share_kin_air(Out<T>{sh, t.L, t.lane}, kin, air);
     q_eb = kin.q_eb;
     r_eb_e = kin.r_eb_e;
@@ -1183,8 +1336,9 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
   }
   __syncthreads();
   if (t.role != ROLE_KIN)
-    subsystem_roles(P, sh, t, xi, c, r_ctx + CX_USYS, r_ctx + CX_SSYS,
-                    r_ctx + CX_TRN, alive, tau_shaft, d);
+    subsystem_roles<ACT>(P, sh, t, xi, c, r_ctx + CX_USYS,
+                         r_ctx + L::CX_SSYS, r_ctx + L::CX_TRN, alive,
+                         tau_shaft, d);
   __syncthreads();
   if (t.role == ROLE_KIN) {
     V3<T> F_b, tau_b;
@@ -1200,12 +1354,17 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
 
 // what finish_roles leaves with each role: role KIN the residuals, the
 // crash and terminated latches and the undulation, role AERO the stall
-// flag, role ENG the engine state
+// flag, role ENG the engine state; in the fly-by-wire instances also what
+// the avionics read: role KIN the KIN_Y fields, role AERO the airflow
+// angles, each leg its weight on wheels
 template <typename T>
 struct FinishOut {
   Q4<T> r_q;
   T r_h, geoid_N, term;
   SSys s;
+  V3<T> om_wb, e_nb, v_eb_n;
+  T chi, EAS, alpha, beta;
+  bool wow;
 };
 
 // finish_lane of clusterstep.py:97-103 by roles, with the compensated add
@@ -1220,8 +1379,10 @@ struct FinishOut {
 // the grid G (without, the undulation of CTX passes through and G is not
 // read); barrier; role KIN latches crashed and terminated. x and ksum are
 // the role's slots, c the lane's column of the buffer holding CTX at r_ctx
-// and the residuals at r_c. All threads of the block must call it.
-template <bool REFRESH_GEOID, typename T>
+// and the residuals at r_c. In the fly-by-wire instances role DRAG combines
+// the servo states and shares them before the first barrier, for the nose
+// leg's steering. All threads of the block must call it.
+template <bool REFRESH_GEOID, int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
                                              const RoleThread& t,
                                              const T (&x)[N_SLOTS],
@@ -1230,15 +1391,16 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
                                              int r_ctx, int r_c,
                                              T (&xn)[N_SLOTS],
                                              FinishOut<T>& o) {
+  using L = SysL<ACT>;
   const Col<T> si{sh, t.L, t.lane};
   const Out<T> so{sh, t.L, t.lane};
   const int role = t.role;
   V3<T> n_e;  // role KIN keeps the new position for the undulation
   bool crashed, term;  // and the latches it had
-  SysIn<T> in;         // the other roles' inputs
+  SysIn<T, ACT> in;    // the other roles' inputs
   if (role == ROLE_KIN) {
-    crashed = c(r_ctx + CX_SSYS + SS_CRASHED).v != 0;
-    term = c(r_ctx + CX_TERM).v != 0;
+    crashed = c(r_ctx + L::CX_SSYS + SS_CRASHED).v != 0;
+    term = c(r_ctx + L::CX_TERM).v != 0;
     const XKin<T> xk = {{x[0], x[1], x[2], x[3]}, {x[4], x[5], x[6], x[7]},
                         x[8]};
     const XDyn<T> xd = {{x[9], x[10], x[11]}, {x[12], x[13], x[14]}};
@@ -1253,9 +1415,16 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     Kin<T> kin;
     Air<T> air;
     finish_kin_lane(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h,
-                    c(r_ctx + CX_GEOID), load_atm(c, r_ctx + CX_UATM), yk, yd,
-                    kin, air);
+                    c(r_ctx + L::CX_GEOID), load_atm(c, r_ctx + L::CX_UATM),
+                    yk, yd, kin, air);
     share_kin_air<false>(so, kin, air);
+    if constexpr (ACT == ACT_FBW) {
+      o.om_wb = kin.omega_wb_b;
+      o.e_nb = kin.e_nb;
+      o.v_eb_n = kin.v_eb_n;
+      o.chi = kin.chi;
+      o.EAS = air.EAS;
+    }
     xn[0] = yk.q_wb.w, xn[1] = yk.q_wb.x, xn[2] = yk.q_wb.y, xn[3] = yk.q_wb.z;
     xn[4] = yk.q_ew.w, xn[5] = yk.q_ew.x, xn[6] = yk.q_ew.y, xn[7] = yk.q_ew.z;
     xn[8] = yk.h_e;
@@ -1264,25 +1433,41 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     xn[12] = yd.v_eb_b.x, xn[13] = yd.v_eb_b.y, xn[14] = yd.v_eb_b.z;
     n_e = kin.n_e;
   } else {
+    // the role's own rows: the engine's four at most, DRAG's servos
 #pragma unroll
-    for (int k = 0; k <= PW_OMEGA; ++k) xn[k] = x[k] + c6 * ksum[k];
-    in = load_sys_in(c, r_ctx + CX_USYS, r_ctx + CX_SSYS, r_ctx + CX_TRN);
+    for (int k = 0; k < (ACT == ACT_FBW ? N_ACT : PW_OMEGA + 1); ++k)
+      xn[k] = x[k] + c6 * ksum[k];
+    in = load_sys_in<ACT>(c, r_ctx + CX_USYS, r_ctx + L::CX_SSYS,
+                          r_ctx + L::CX_TRN);
+    if (ACT == ACT_FBW && role == ROLE_DRAG) {
+#pragma unroll
+      for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xn[k]);
+    }
   }
   __syncthreads();
   if (role == ROLE_KIN) {
-    o.geoid_N = REFRESH_GEOID ? geoid_height(G, n_e) : c(r_ctx + CX_GEOID);
+    o.geoid_N =
+        REFRESH_GEOID ? geoid_height(G, n_e) : c(r_ctx + L::CX_GEOID);
   } else {
     Kin<T> kin;
     Air<T> air;
     shared_kin_air(si, kin, air);
     if (role == ROLE_AERO) {
       o.s.stall = finish_stall(P, air, in.s.stall);
+      if constexpr (ACT == ACT_FBW) {
+        V3<T> v_safe;
+        alpha_gated(air, o.alpha, o.beta, v_safe);
+      }
     } else if (role == ROLE_ENG) {
-      o.s.state = finish_engine(P, in.s.state, xn[PW_FUEL], xn[PW_OMEGA],
-                                in.u);
+      o.s.state = finish_engine<ACT>(P, in.s.state, xn[PW_FUEL],
+                                     xn[PW_OMEGA], in.u);
     } else if (role >= ROLE_LEG0) {
       const int leg = role - ROLE_LEG0;
-      const bool crash = finish_leg(P, leg, in.u, kin, in.trn, xn[0], xn[1]);
+      T steer_fbw = T(0.0);
+      if constexpr (ACT == ACT_FBW)
+        steer_fbw = servo_pos(P, CH_RUD, si(SH_ACT + CH_RUD));
+      const bool crash = finish_leg<ACT>(P, leg, in.u, steer_fbw, kin,
+                                         in.trn, xn[0], xn[1], o.wow);
       so.s(SH_CRASH + leg, T(crash ? 1.0 : 0.0));
     }
   }

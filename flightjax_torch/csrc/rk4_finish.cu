@@ -32,59 +32,92 @@
 // copying the buffer into each block's shared memory measured 0.5 us
 // slower. A ragged last block masks its stores; no thread leaves before the
 // barriers. PERF.md records the times on the card.
+//
+// The fly-by-wire instance (rk4_finish_fbw, ACT_FBW) also combines the
+// C172X's seven servo states (role DRAG, which shares them for the nose
+// leg's steering) and stores what the C172X's avionics read of the new
+// state: role KIN the KIN_Y rows (the atmosphere is worked out for EAS),
+// role AERO the gated airflow angles, each leg its weight on wheels.
 #include "c172_systems.cuh"
 
 using namespace fj;
 
-// output rows
-constexpr int RO_X = 0, RO_S = N_X, RO_TERM = RO_S + N_SSYS,
-              RO_C = RO_TERM + 1;
+// output rows: X, s_sys, term, C (and KIN_Y, SYS_Y, fly-by-wire)
+template <int ACT>
+struct FinRows {
+  enum : int {
+    RO_X = 0,
+    RO_S = SysL<ACT>::NXV,
+    RO_TERM = RO_S + N_SSYS,
+    RO_C = RO_TERM + 1,
+    RO_KY = RO_C + N_C,
+    RO_SY = RO_KY + N_KINY
+  };
+};
 
-template <typename T>
+template <int ACT, typename T>
 __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     rk4_finish_kernel(const T* __restrict__ in, const T* __restrict__ ksum,
                       const T* __restrict__ P, T* __restrict__ out, int B,
                       T c6, int comp) {
+  using R = FinRows<ACT>;
+  using L = SysL<ACT>;
   const RoleThread t = role_thread(B);
   const Col<T> c{in, B, t.b};
   T x[N_SLOTS], ks[N_SLOTS], xn[N_SLOTS];
-  load_slots(c, 0, t.role, x);
-  load_slots(Col<T>{ksum, B, t.b}, 0, t.role, ks);
+  load_slots<ACT>(c, 0, t.role, x);
+  load_slots<ACT>(Col<T>{ksum, B, t.b}, 0, t.role, ks);
   FinishOut<T> f;
-  finish_roles<false>(P, (const T*)nullptr, block_shared<T>(), t, x, ks, c6,
-                      comp != 0, c, N_X, N_X + N_CTX, xn, f);
+  finish_roles<false, ACT>(P, (const T*)nullptr, block_shared<T>(), t, x, ks,
+                           c6, comp != 0, c, L::NXV, L::NXV + L::NCTX, xn,
+                           f);
   if (!t.valid) return;  // past the last barrier
 
   const Out<T> o{out, B, t.b};
-  store_slots(o, RO_X, t.role, xn);
+  store_slots<ACT>(o, R::RO_X, t.role, xn);
   if (t.role == ROLE_AERO) {
-    o.s(RO_S + SS_STALL, T(f.s.stall ? 1.0 : 0.0));
+    o.s(R::RO_S + SS_STALL, T(f.s.stall ? 1.0 : 0.0));
+    if constexpr (ACT == ACT_FBW) {
+      o.s(R::RO_SY + SY_ALPHA, f.alpha);
+      o.s(R::RO_SY + SY_BETA, f.beta);
+    }
   } else if (t.role == ROLE_ENG) {
-    o.s(RO_S + SS_STATE, T(double(f.s.state)));
+    o.s(R::RO_S + SS_STATE, T(double(f.s.state)));
   } else if (t.role == ROLE_KIN) {
     // the residuals stay 0 uncompensated, as the plain finish leaves them
     const T z = T(0.0);
-    o.s(RO_S + SS_CRASHED, T(f.s.crashed ? 1.0 : 0.0));
-    o.s(RO_TERM, f.term);
-    o.q4(RO_C, comp ? f.r_q : Q4<T>{z, z, z, z});
-    o.s(RO_C + 4, comp ? f.r_h : z);
+    o.s(R::RO_S + SS_CRASHED, T(f.s.crashed ? 1.0 : 0.0));
+    o.s(R::RO_TERM, f.term);
+    o.q4(R::RO_C, comp ? f.r_q : Q4<T>{z, z, z, z});
+    o.s(R::RO_C + 4, comp ? f.r_h : z);
+    if constexpr (ACT == ACT_FBW) {
+      o.v3(R::RO_KY + KY_OM_WB, f.om_wb);
+      o.v3(R::RO_KY + KY_E_NB, f.e_nb);
+      o.v3(R::RO_KY + KY_V_EB_N, f.v_eb_n);
+      o.s(R::RO_KY + KY_CHI, f.chi);
+      o.s(R::RO_KY + KY_EAS, f.EAS);
+    }
+  } else if (ACT == ACT_FBW && t.role >= ROLE_LEG0) {
+    o.s(R::RO_SY + SY_WOW + t.role - ROLE_LEG0, T(f.wow ? 1.0 : 0.0));
   }
 }
 
-template <typename T>
+template <int ACT, typename T>
 static int launch(const void* in, const void* ksum, const void* params,
                   void* out, int B, double c6, int comp, int lanes,
                   void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const RoleLaunch l = role_launch(B, lanes, 0, (int)sizeof(T), SH_N);
+  const RoleLaunch l =
+      role_launch(B, lanes, 0, (int)sizeof(T), sh_rows<ACT>());
   // the attribute belongs to the device in use, so every launch sets it
   const cudaError_t err = cudaFuncSetAttribute(
-      rk4_finish_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rk4_finish_kernel<ACT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l.shared);
   if (err != cudaSuccess) return (int)err;
-  rk4_finish_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
+  rk4_finish_kernel<ACT, T><<<l.grid, l.block, l.shared,
+                              (cudaStream_t)stream>>>(
       (const T*)in, (const T*)ksum, (const T*)params, (T*)out, B, T(c6),
       comp);
   return (int)cudaGetLastError();
@@ -94,20 +127,44 @@ extern "C" {
 int rk4_finish_f32(const void* in, const void* ksum, const void* params,
                    void* out, int B, double c6, int comp, int lanes,
                    void* stream) {
-  return launch<SF>(in, ksum, params, out, B, c6, comp, lanes, stream);
+  return launch<ACT_MECH, SF>(in, ksum, params, out, B, c6, comp, lanes,
+                              stream);
 }
 int rk4_finish_f64(const void* in, const void* ksum, const void* params,
                    void* out, int B, double c6, int comp, int lanes,
                    void* stream) {
-  return launch<SD>(in, ksum, params, out, B, c6, comp, lanes, stream);
+  return launch<ACT_MECH, SD>(in, ksum, params, out, B, c6, comp, lanes,
+                              stream);
+}
+int rk4_finish_fbw_f32(const void* in, const void* ksum, const void* params,
+                       void* out, int B, double c6, int comp, int lanes,
+                       void* stream) {
+  return launch<ACT_FBW, SF>(in, ksum, params, out, B, c6, comp, lanes,
+                             stream);
+}
+int rk4_finish_fbw_f64(const void* in, const void* ksum, const void* params,
+                       void* out, int B, double c6, int comp, int lanes,
+                       void* stream) {
+  return launch<ACT_FBW, SD>(in, ksum, params, out, B, c6, comp, lanes,
+                             stream);
 }
 void rk4_finish_layout(int* n_in, int* n_out) {
   *n_in = RKFIN_N_IN;
   *n_out = RKFIN_N_OUT;
 }
+void rk4_finish_fbw_layout(int* n_in, int* n_out) {
+  *n_in = RKFIN_N_IN_FBW;
+  *n_out = RKFIN_N_OUT_FBW;
+}
 // its parameters stay in device memory, so n_params is not read
 void rk4_finish_launch_shape(int B, int lanes, int n_params, int elem_size,
                              int* grid, int* block, int* shared) {
   put_launch(role_launch(B, lanes, 0, elem_size, SH_N), grid, block, shared);
+}
+void rk4_finish_fbw_launch_shape(int B, int lanes, int n_params,
+                                 int elem_size, int* grid, int* block,
+                                 int* shared) {
+  put_launch(role_launch(B, lanes, 0, elem_size, SH_N_FBW), grid, block,
+             shared);
 }
 }

@@ -32,11 +32,16 @@
 // warp has a wheel on the ground (c172_systems.cuh::strut_y). A ragged last
 // block masks its stores; no thread leaves before the barriers. PERF.md records ptxas's registers and the
 // times on the card.
+//
+// The fly-by-wire instance (rk4_stage_fbw, ACT_FBW) carries the C172X's
+// seven servo states in role DRAG's slots: it forms their stage point,
+// shares it before the first barrier for the roles that read a servo's
+// position, and stores their derivatives.
 #include "c172_systems.cuh"
 
 using namespace fj;
 
-template <typename T>
+template <int ACT, typename T>
 __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     rk4_stage_kernel(const T* __restrict__ in, const T* __restrict__ k,
                      const T* __restrict__ P, T* __restrict__ out, int B,
@@ -46,31 +51,33 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   const RoleThread t = role_thread(B);
   const Col<T> c{in, B, t.b};
   T x[N_SLOTS], kp[N_SLOTS], xi[N_SLOTS], d[N_SLOTS];
-  load_slots(c, 0, t.role, x);
-  load_slots(Col<T>{k, B, t.b}, 0, t.role, kp);
+  load_slots<ACT>(c, 0, t.role, x);
+  load_slots<ACT>(Col<T>{k, B, t.b}, 0, t.role, kp);
 #pragma unroll
   for (int s = 0; s < N_SLOTS; ++s) {
     xi[s] = x[s] + adt * kp[s];
     d[s] = T(0);
   }
-  f_ode_roles(sP, sP + n_params, t, xi, c, N_X, d);
-  if (t.valid) store_slots(Out<T>{out, B, t.b}, 0, t.role, d);
+  f_ode_roles<ACT>(sP, sP + n_params, t, xi, c, SysL<ACT>::NXV, d);
+  if (t.valid) store_slots<ACT>(Out<T>{out, B, t.b}, 0, t.role, d);
 }
 
-template <typename T>
+template <int ACT, typename T>
 static int launch(const void* in, const void* k, const void* params,
                   void* out, int B, int n_params, double adt, int lanes,
                   void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const RoleLaunch l = role_launch(B, lanes, n_params, (int)sizeof(T), SH_N);
+  const RoleLaunch l =
+      role_launch(B, lanes, n_params, (int)sizeof(T), sh_rows<ACT>());
   // the attribute belongs to the device in use, so every launch sets it
   const cudaError_t err = cudaFuncSetAttribute(
-      rk4_stage_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rk4_stage_kernel<ACT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l.shared);
   if (err != cudaSuccess) return (int)err;
-  rk4_stage_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
+  rk4_stage_kernel<ACT, T><<<l.grid, l.block, l.shared,
+                             (cudaStream_t)stream>>>(
       (const T*)in, (const T*)k, (const T*)params, (T*)out, B, n_params,
       T(adt));
   return (int)cudaGetLastError();
@@ -80,16 +87,34 @@ extern "C" {
 int rk4_stage_f32(const void* in, const void* k, const void* params,
                   void* out, int B, int n_params, double adt, int lanes,
                   void* stream) {
-  return launch<SF>(in, k, params, out, B, n_params, adt, lanes, stream);
+  return launch<ACT_MECH, SF>(in, k, params, out, B, n_params, adt, lanes,
+                              stream);
 }
 int rk4_stage_f64(const void* in, const void* k, const void* params,
                   void* out, int B, int n_params, double adt, int lanes,
                   void* stream) {
-  return launch<SD>(in, k, params, out, B, n_params, adt, lanes, stream);
+  return launch<ACT_MECH, SD>(in, k, params, out, B, n_params, adt, lanes,
+                              stream);
+}
+int rk4_stage_fbw_f32(const void* in, const void* k, const void* params,
+                      void* out, int B, int n_params, double adt, int lanes,
+                      void* stream) {
+  return launch<ACT_FBW, SF>(in, k, params, out, B, n_params, adt, lanes,
+                             stream);
+}
+int rk4_stage_fbw_f64(const void* in, const void* k, const void* params,
+                      void* out, int B, int n_params, double adt, int lanes,
+                      void* stream) {
+  return launch<ACT_FBW, SD>(in, k, params, out, B, n_params, adt, lanes,
+                             stream);
 }
 void rk4_stage_layout(int* n_in, int* n_out) {
   *n_in = STAGE_N_IN;
   *n_out = STAGE_N_OUT;
+}
+void rk4_stage_fbw_layout(int* n_in, int* n_out) {
+  *n_in = STAGE_N_IN_FBW;
+  *n_out = STAGE_N_OUT_FBW;
 }
 // the whole-vehicle row groups: X, CTX, C and the megakernel's state buffer
 void vehicle_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
@@ -98,9 +123,22 @@ void vehicle_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_c = N_C;
   *n_mega = MEGA_N_ROWS;
 }
+// those of the fly-by-wire C172, which has no megakernel (0)
+void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
+  *n_x = N_X_FBW;
+  *n_ctx = N_CTX_FBW;
+  *n_c = N_C;
+  *n_mega = 0;
+}
 void rk4_stage_launch_shape(int B, int lanes, int n_params, int elem_size,
                             int* grid, int* block, int* shared) {
   put_launch(role_launch(B, lanes, n_params, elem_size, SH_N), grid,
+             block, shared);
+}
+void rk4_stage_fbw_launch_shape(int B, int lanes, int n_params,
+                                int elem_size, int* grid, int* block,
+                                int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_N_FBW), grid,
              block, shared);
 }
 }

@@ -35,29 +35,46 @@
 // memory once per block. A ragged last block masks its stores; no thread
 // leaves before the barriers. PERF.md records ptxas's registers and the
 // times on the card.
+//
+// The fly-by-wire instance (systems_fbw, ACT_FBW) also carries the seven
+// servo states of the C172X: role DRAG forms their stage point, shares it
+// before the first barrier for the roles that read a servo's position, and
+// stores their derivatives (clip(cmd) - x) / tau.
 #include "c172_systems.cuh"
 
 using namespace fj;
 
-// input rows
-constexpr int SI_X = 0, SI_K = SI_X + N_XSYS, SI_U = SI_K + N_XSYS,
-              SI_S = SI_U + N_USYS, SI_TRN = SI_S + N_SSYS,
-              SI_KIN = SI_TRN + N_TRN, SI_AIR = SI_KIN + N_KIN,
-              SI_TERM = SI_AIR + N_AIR;
-// output rows
-constexpr int SO_DOT = 0, SO_MP = N_XSYS, SO_WR = SO_MP + N_MP,
-              SO_HR = SO_WR + N_WR;
+// input rows: x_sys, k_sys, u_sys, s_sys, terrain, KinData, AirData, term;
+// output rows: the x_sys derivative, mp_b, wr_b, hr_b
+template <int ACT>
+struct SysRows {
+  enum : int {
+    SI_X = 0,
+    SI_K = SI_X + SysL<ACT>::NX,
+    SI_U = SI_K + SysL<ACT>::NX,
+    SI_S = SI_U + SysL<ACT>::NU,
+    SI_TRN = SI_S + N_SSYS,
+    SI_KIN = SI_TRN + N_TRN,
+    SI_AIR = SI_KIN + N_KIN,
+    SI_TERM = SI_AIR + N_AIR,
+    SO_DOT = 0,
+    SO_MP = SysL<ACT>::NX,
+    SO_WR = SO_MP + N_MP,
+    SO_HR = SO_WR + N_WR
+  };
+};
 
-template <typename T>
+template <int ACT, typename T>
 __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     systems_kernel(const T* __restrict__ in, const T* __restrict__ P,
                    T* __restrict__ out, int B, int n_params, T adt) {
+  using R = SysRows<ACT>;
   T* sP = block_shared<T>();
   T* sh = sP + n_params;
   share_params(P, n_params, sP);  // published by the first barrier
   const RoleThread t = role_thread(B);
   const Col<T> c{in, B, t.b};
-  const T alive = T(1.0) - c(SI_TERM);
+  const T alive = T(1.0) - c(R::SI_TERM);
   // the stage state of the role's rows; a role's slots hold rows of X, the
   // systems' rows from X_SYS on (role KIN owns none of them)
   T xi[N_SLOTS], d[N_SLOTS];
@@ -65,20 +82,20 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   for (int k = 0; k < N_SLOTS; ++k) xi[k] = d[k] = T(0);
   T tau_shaft;
   if (t.role == ROLE_KIN) {
-    share_kin_air(Out<T>{sh, t.L, t.lane}, load_kin(c, SI_KIN),
-                  load_air(c, SI_AIR));
+    share_kin_air(Out<T>{sh, t.L, t.lane}, load_kin(c, R::SI_KIN),
+                  load_air(c, R::SI_AIR));
   } else {
     T x[N_SLOTS], kp[N_SLOTS];
-    load_slots(c, SI_X - X_SYS, t.role, x);
-    load_slots(c, SI_K - X_SYS, t.role, kp);
+    load_slots<ACT>(c, R::SI_X - X_SYS, t.role, x);
+    load_slots<ACT>(c, R::SI_K - X_SYS, t.role, kp);
 #pragma unroll
     for (int k = 0; k < N_SLOTS; ++k) xi[k] = x[k] + adt * kp[k];
-    subsystem_roles_share(sh, t, xi);
+    subsystem_roles_share<ACT>(sh, t, xi);
   }
   __syncthreads();
   if (t.role != ROLE_KIN)
-    subsystem_roles(sP, sh, t, xi, c, SI_U, SI_S, SI_TRN, alive, tau_shaft,
-                    d);
+    subsystem_roles<ACT>(sP, sh, t, xi, c, R::SI_U, R::SI_S, R::SI_TRN,
+                         alive, tau_shaft, d);
   __syncthreads();
   subsystem_roles_shaft(sP, sh, t, alive, tau_shaft, d);
   if (!t.valid) return;  // past the last barrier
@@ -88,36 +105,38 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   if (t.role == ROLE_KIN) {
     V3<T> F_b, tau_b;
     role_wrench(si, F_b, tau_b);
-    o.v3(SO_WR, F_b);
-    o.v3(SO_WR + 3, tau_b);
+    o.v3(R::SO_WR, F_b);
+    o.v3(R::SO_WR + 3, tau_b);
     return;
   }
-  store_slots(o, SO_DOT - X_SYS, t.role, d);
+  store_slots<ACT>(o, R::SO_DOT - X_SYS, t.role, d);
   if (t.role == ROLE_PROP) {
     const MP<T> mp = role_mp(si);
-    o.s(SO_MP, mp.m);
+    o.s(R::SO_MP, mp.m);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) o.s(SO_MP + 1 + 3 * i + j, mp.J.m[i][j]);
-    o.v3(SO_MP + 10, mp.r);
-    o.v3(SO_HR, si.v3(SH_HR));
+      for (int j = 0; j < 3; ++j) o.s(R::SO_MP + 1 + 3 * i + j, mp.J.m[i][j]);
+    o.v3(R::SO_MP + 10, mp.r);
+    o.v3(R::SO_HR, si.v3(SH_HR));
   }
 }
 
-template <typename T>
+template <int ACT, typename T>
 static int launch(const void* in, const void* params, void* out, int B,
                   int n_params, double adt, int lanes, void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const RoleLaunch l = role_launch(B, lanes, n_params, (int)sizeof(T), SH_N);
+  const RoleLaunch l =
+      role_launch(B, lanes, n_params, (int)sizeof(T), sh_rows<ACT>());
   // the attribute belongs to the device in use, so every launch sets it
   const cudaError_t err = cudaFuncSetAttribute(
-      systems_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      systems_kernel<ACT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       l.shared);
   if (err != cudaSuccess) return (int)err;
-  systems_kernel<T><<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
+  systems_kernel<ACT, T><<<l.grid, l.block, l.shared,
+                           (cudaStream_t)stream>>>(
       (const T*)in, (const T*)params, (T*)out, B, n_params, T(adt));
   return (int)cudaGetLastError();
 }
@@ -125,24 +144,50 @@ static int launch(const void* in, const void* params, void* out, int B,
 extern "C" {
 int systems_f32(const void* in, const void* params, void* out, int B,
                 int n_params, double adt, int lanes, void* stream) {
-  return launch<SF>(in, params, out, B, n_params, adt, lanes, stream);
+  return launch<ACT_MECH, SF>(in, params, out, B, n_params, adt, lanes,
+                              stream);
 }
 int systems_f64(const void* in, const void* params, void* out, int B,
                 int n_params, double adt, int lanes, void* stream) {
-  return launch<SD>(in, params, out, B, n_params, adt, lanes, stream);
+  return launch<ACT_MECH, SD>(in, params, out, B, n_params, adt, lanes,
+                              stream);
+}
+int systems_fbw_f32(const void* in, const void* params, void* out, int B,
+                    int n_params, double adt, int lanes, void* stream) {
+  return launch<ACT_FBW, SF>(in, params, out, B, n_params, adt, lanes,
+                             stream);
+}
+int systems_fbw_f64(const void* in, const void* params, void* out, int B,
+                    int n_params, double adt, int lanes, void* stream) {
+  return launch<ACT_FBW, SD>(in, params, out, B, n_params, adt, lanes,
+                             stream);
 }
 void systems_layout(int* n_in, int* n_out) {
   *n_in = SYS_N_IN;
   *n_out = SYS_N_OUT;
+}
+void systems_fbw_layout(int* n_in, int* n_out) {
+  *n_in = SYS_N_IN_FBW;
+  *n_out = SYS_N_OUT_FBW;
 }
 void systems_launch_shape(int B, int lanes, int n_params, int elem_size,
                           int* grid, int* block, int* shared) {
   put_launch(role_launch(B, lanes, n_params, elem_size, SH_N), grid,
              block, shared);
 }
+void systems_fbw_launch_shape(int B, int lanes, int n_params, int elem_size,
+                              int* grid, int* block, int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_N_FBW), grid,
+             block, shared);
+}
 // the parameter buffer's fixed head: scalars, then one offset per table
+// (the fly-by-wire instances read the servos after them)
 void systems_params_layout(int* n_head, int* n_tables) {
   *n_head = P_HEAD;
+  *n_tables = TB_N;
+}
+void systems_fbw_params_layout(int* n_head, int* n_tables) {
+  *n_head = P_HEAD_FBW;
   *n_tables = TB_N;
 }
 }

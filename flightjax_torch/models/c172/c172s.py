@@ -89,7 +89,7 @@ def load_flagship_state(path=FLAGSHIP_NPZ):
             flat["trim_state"], float(flat["trim_rnorm"]))
 
 
-def flagship_sim(device, dtype):
+def flagship_sim(device="cuda", dtype=torch.float32):
     """(sim, trimmed single-aircraft SimState, ctx) on the WA C172S: dt =
     0.02 s, geoid refresh every 128 steps, Kahan-compensated position in
     float32 (the JAX package's `flagship_sim`). Leaves are unbatched;

@@ -1,0 +1,205 @@
+"""Cessna 172X: the fly-by-wire variant and the C172Xv1 world with its
+gain-scheduled control laws (port of `flightjax/models/c172/c172x.py`).
+
+`FlyByWireActuation` carries seven servo states (`x['act']`) with their
+own ODEs; its commands arrive in `u['act']`, written by the control laws
+on every periodic pass. The trimmed C172Xv1 state is read from
+`data/c172xv1_trim.npz`, written by `tools/export_torch_c172x.py` from the
+JAX package's trim solver, and the avionics' bumpless start is worked out
+here by `ControlLaws.init_from_trim`, so this module needs no JAX.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from flightjax_torch.bridge import tree_from_numpy
+from flightjax_torch.core.modeling import divc, tree_map
+from flightjax_torch.core.sim import SimState, Simulation
+from flightjax_torch.models.c172 import common as C172
+from flightjax_torch.models.c172.c172s import power_plant, unflatten
+from flightjax_torch.physics.aircraftbase import Aircraft, SimpleWorld, Vehicle
+from flightjax_torch.physics.kinematics import WA
+from flightjax_torch.physics.terrain import HorizontalTerrain
+
+XV1_NPZ = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
+                       "data", "c172xv1_trim.npz")
+
+ACT_CHANNELS = ("throttle", "aileron", "elevator", "rudder", "flaps",
+                "brake_left", "brake_right")
+ACT_RANGES = {"throttle": (0.0, 1.0), "aileron": (-1.0, 1.0),
+              "elevator": (-1.0, 1.0), "rudder": (-1.0, 1.0),
+              "flaps": (0.0, 1.0), "brake_left": (0.0, 1.0),
+              "brake_right": (0.0, 1.0)}
+ACT_TAU = 0.05
+
+
+def _saturation(cmd, lo, hi):
+    """Saturation flag of the command (`c172x.py:41-47`): +1 at or above
+    the upper bound, -1 at or below the lower, 0 inside."""
+    return (cmd >= hi).to(torch.int32) - (cmd <= lo).to(torch.int32)
+
+
+class Actuator1:
+    """First-order servo 1/(1 + s tau) (`c172x.py:50-75`): x_dot =
+    (clip(cmd) - x) / tau, the true quotient; the reported position is
+    clipped to the range."""
+
+    order = 1
+
+    def __init__(self, tau=ACT_TAU, range=(-1.0, 1.0)):
+        self.tau = float(tau)
+        self.range = tuple(float(v) for v in range)
+
+    def f_ode(self, x, cmd):
+        lo, hi = self.range
+        c = torch.clamp(cmd, lo, hi)
+        y = {"cmd": c, "pos": torch.clamp(x, lo, hi),
+             "sat": _saturation(cmd, lo, hi)}
+        return y, divc(c - x, self.tau)
+
+
+class Actuator2:
+    """Second-order servo (`c172x.py:78-106`), underdamped by default; the
+    state is {p, v}, the output position clipped, saturation flagged on the
+    command. The plain path carries it; the kernels carry `Actuator1` only
+    (ROADMAP Queue 2)."""
+
+    order = 2
+
+    def __init__(self, omega_n=10.0 * np.pi, zeta=0.6, range=(-1.0, 1.0)):
+        self.omega_n = float(omega_n)
+        self.zeta = float(zeta)
+        self.range = tuple(float(v) for v in range)
+
+    def f_ode(self, x, cmd):
+        lo, hi = self.range
+        c = torch.clamp(cmd, lo, hi)
+        y = {"cmd": c, "pos": torch.clamp(x["p"], lo, hi), "vel": x["v"],
+             "sat": _saturation(cmd, lo, hi)}
+        x_dot = {"p": x["v"],
+                 "v": self.omega_n ** 2 * (c - x["p"])
+                 - 2.0 * self.zeta * self.omega_n * x["v"]}
+        return y, x_dot
+
+
+class FlyByWireActuation:
+    """Seven servo channels (`c172x.py:109-167`), `Actuator1(tau=0.05)` on
+    each unless `actuators` overrides a channel. `f_ode(x_act, u)` returns
+    (act_y, assignments, {'act': x_act derivative}): act_y is
+    {cmd, pos, sat[, vel]}[ch], the assignments those of the C172S sign
+    conventions from the servo positions."""
+
+    stateful = True
+
+    def __init__(self, actuators=None):
+        self.actuators = {ch: Actuator1(ACT_TAU, ACT_RANGES[ch])
+                          for ch in ACT_CHANNELS}
+        for ch, act in (actuators or {}).items():
+            if ch not in ACT_RANGES:
+                raise KeyError(f"unknown actuation channel {ch!r}")
+            act.range = ACT_RANGES[ch]
+            self.actuators[ch] = act
+
+    def f_ode(self, x_act, u):
+        pos, cmd, sat, vel, x_dot = {}, {}, {}, {}, {}
+        for ch in ACT_CHANNELS:
+            y, dx = self.actuators[ch].f_ode(x_act[ch], u[ch])
+            cmd[ch], pos[ch], sat[ch] = y["cmd"], y["pos"], y["sat"]
+            if "vel" in y:
+                vel[ch] = y["vel"]
+            x_dot[ch] = dx
+        asg = {"e": -pos["elevator"], "a": pos["aileron"],
+               "r": -pos["rudder"], "f": pos["flaps"],
+               "steering": pos["rudder"], "brake_left": pos["brake_left"],
+               "brake_right": pos["brake_right"],
+               "throttle": pos["throttle"],
+               "mixture": torch.clamp(u["mixture"], 0.0, 1.0)}
+        act_y = {"cmd": cmd, "pos": pos, "sat": sat}
+        if vel:
+            act_y["vel"] = vel
+        return act_y, asg, {"act": x_dot}
+
+
+def build_vehicle(*, device, dtype, actuators=None) -> Vehicle:
+    systems = C172.Systems(power_plant(device=device, dtype=dtype),
+                           FlyByWireActuation(actuators), device=device,
+                           dtype=dtype)
+    return Vehicle(systems, WA(), HorizontalTerrain(device=device,
+                                                    dtype=dtype),
+                   device=device, dtype=dtype)
+
+
+def build_aircraft(avionics=None, *, device, dtype, **kw) -> Aircraft:
+    return Aircraft(build_vehicle(device=device, dtype=dtype, **kw),
+                    avionics=avionics)
+
+
+def build_xv1(gains=None, *, device, dtype, **kw) -> Aircraft:
+    """Cessna172Xv1: fly-by-wire actuation and `ControlLaws`
+    (`c172x.py:365-370`)."""
+    from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+    return build_aircraft(ControlLaws(gains, device=device, dtype=dtype),
+                          device=device, dtype=dtype, **kw)
+
+
+def load_xv1_state(path=XV1_NPZ):
+    """(x, u, s) numpy trees of the trimmed C172Xv1 vehicle at world level
+    (without the avionics), the TrimState vector and the trim residual
+    norm."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    return (unflatten(flat, "x"), unflatten(flat, "u"), unflatten(flat, "s"),
+            flat["trim_state"], float(flat["trim_rnorm"]))
+
+
+def trimmed_xv1_state(periodic_dt, dtype, device):
+    """The world SimState of one trimmed aircraft with its avionics' inputs
+    and state from `init_from_trim` (the bumpless start of
+    `c172x.py::trim_world`). The start is worked out on the CPU in `dtype`
+    and then moved to `device`."""
+    x, u, s, _, _ = load_xv1_state()
+    cpu = build_xv1(device="cpu", dtype=dtype)
+    # the plain vehicle functions take a fleet: one aircraft
+    xv, uv, sv = (tree_from_numpy(tree_map(lambda l: np.asarray(l)[None],
+                                           t["vehicle"]), "cpu", dtype)
+                  for t in (x, u, s))
+    veh_y = cpu.vehicle.output(xv, uv, sv)
+    av_u, av_s = cpu.avionics.init_from_trim(veh_y, periodic_dt)
+    state = SimState(
+        t=torch.tensor([0.0], dtype=dtype),
+        i=torch.tensor([0], dtype=torch.int32),
+        x={"vehicle": xv}, u=dict(cpu.init_u(uv), avionics=av_u),
+        s=dict(cpu.init_s(sv), avionics=av_s,
+               terminated=torch.tensor([bool(s["terminated"])])))
+    return tree_map(lambda l: l[0].to(device), state)
+
+
+def c172xv1_sim(device="cuda", dtype=torch.float32):
+    """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv1 on WA
+    kinematics: dt = periodic_dt = 0.02 s, geoid refresh every 128 steps,
+    Kahan-compensated position in float32, the avionics started bumpless
+    from the trim (the JAX package's `trim_world`). Leaves are unbatched;
+    `parallel.fleet.broadcast_state` makes a fleet. The modes are those of
+    the trim start (`LON_DIRECT`, `LAT_DIRECT`); `turning_climb` engages
+    the autopilot."""
+    world = SimpleWorld(build_xv1(device=device, dtype=dtype))
+    sim = Simulation(world, dt=0.02, periodic_dt=0.02, geoid_every=128)
+    state = trimmed_xv1_state(sim.periodic_dt, dtype, device)
+    return sim, sim.with_compensation(state), ()
+
+
+def turning_climb(state, EAS_ref=45.0, clm_ref=1.5, chi_ref=np.pi / 2):
+    """`state` with the autopilot engaged on the turning climb of the f32
+    envelope study: `LON_EAS_CLM` at EAS 45 m/s and 1.5 m/s climb,
+    `LAT_CHI_BETA` onto course pi / 2 (`tools/exp_f32_comp.py:52-70`)."""
+    from flightjax_torch.models.c172 import c172x_ctl as CTL
+    av = state.u["avionics"]
+    set_ = lambda d, **kw: dict(d, **{k: torch.full_like(d[k], v)
+                                      for k, v in kw.items()})
+    lon = set_(av["lon"], mode_req=CTL.LON_EAS_CLM, EAS_ref=EAS_ref,
+               clm_ref=clm_ref)
+    lat = set_(av["lat"], mode_req=CTL.LAT_CHI_BETA, chi_ref=chi_ref)
+    return state._replace(u=dict(state.u, avionics=dict(av, lon=lon,
+                                                        lat=lat)))

@@ -7,6 +7,8 @@ split uses (`f_ode_parts`, `f_ode_gear_legs`, `f_step_parts`,
 `common.py:478-584`); `parallel/clusterstep.py` composes them.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -248,8 +250,13 @@ def fuel_m_total(x_fuel):
 
 
 class Systems:
-    """C172 systems (`common.py:408-613`): mechanical actuation, aero,
-    gear, powerplant, payload and fuel."""
+    """C172 systems (`common.py:408-613`): actuation, aero, gear,
+    powerplant, payload and fuel.
+
+    The actuation is mechanical (stateless: `act.f_ode(u)` gives the
+    assignments) or stateful (`act.stateful`, the fly-by-wire servos:
+    `act.f_ode(x['act'], u)` gives (act_y, assignments, {'act': x_dot}),
+    and the servo positions after the RK4 combine drive the finish)."""
 
     def __init__(self, pwp, act, *, device, dtype):
         self.aero = Aero(device=device, dtype=dtype)
@@ -292,11 +299,20 @@ class Systems:
             mp = mp + mass_props_point(0.5 * m, r)
         return mp
 
+    def actuate(self, x_act, u_act):
+        """(act_y, assignments, servo derivative): act_y and the derivative
+        None for a stateless actuation, which ignores `x_act`."""
+        if getattr(self.act, "stateful", False):
+            act_y, asg, x_dot = self.act.f_ode(x_act, u_act)
+            return act_y, asg, x_dot["act"]
+        return None, self.act.f_ode(u_act), None
+
     # ------------------------------------------------ f_ode parts (K3-K5)
 
-    def actaero(self, x_aero, u_act, s_aero, kin, air, trn):
-        """Actuation + aero: (aero_dot, gear_u, thr_mix, wr_aero)."""
-        asg = self.act.f_ode(u_act)
+    def actaero(self, x_aero, u_act, s_aero, kin, air, trn, x_act=None):
+        """Actuation + aero: (aero_dot, gear_u, thr_mix, wr_aero); `x_act`
+        the servo states of a stateful actuation."""
+        _, asg, _ = self.actuate(x_act, u_act)
         aero_u = {k: asg[k] for k in ("e", "a", "r", "f")}
         aero_dot, wr_aero = self.aero.f_ode(x_aero, aero_u, s_aero, kin, air,
                                             trn)
@@ -323,8 +339,10 @@ class Systems:
 
     # ------------------------------------------------ f_step parts (K7)
 
-    def fin_act(self, u_act):
-        return self.gear_inputs(self.act.f_ode(u_act))
+    def fin_act(self, u_act, x_act=None):
+        """Steering and braking at the servo states `x_act` after the
+        combine (a stateless actuation ignores them)."""
+        return self.gear_inputs(self.actuate(x_act, u_act)[1])
 
     def fin_ldg_leg(self, i, steering, kin, trn):
         """Leg i's (wow as 0/1, alpha_ts, xi_dot)."""
@@ -347,3 +365,53 @@ class Systems:
         x2 = dict(x, ldg=x_ldg, pwp=x_pwp)
         s2 = {"aero": {"stall": stall}, "pwp": s_pwp, "crashed": crashed}
         return x2, s2
+
+
+class AeroY(NamedTuple):
+    """The aero outputs the avionics read (`common.py:212-229`): the gated
+    airflow angles and the filter states."""
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    alpha_filt: torch.Tensor
+    beta_filt: torch.Tensor
+
+
+class EngineY(NamedTuple):
+    n: torch.Tensor  # shaft speed over the rated speed
+
+
+class ThrusterY(NamedTuple):
+    engine: EngineY
+
+
+class StrutWow(NamedTuple):
+    wow: torch.Tensor  # [..., 3] weight on each wheel (left, right, nose)
+
+
+class LdgY(NamedTuple):
+    strut: StrutWow
+
+
+class SystemsY(NamedTuple):
+    """The part of the JAX package's `SystemsY` (`common.py:399-406`) the
+    avionics read: act_y, the airflow angles and filters, the engine's
+    speed ratio and the weight on wheels."""
+    act: object
+    aero: AeroY
+    ldg: LdgY
+    pwp: ThrusterY
+
+
+def systems_y(sys_, x_sys, u_sys, alpha, beta, wow):
+    """SystemsY at the state `x_sys` from the airflow angles and weight on
+    wheels (the rest are the state's own functions)."""
+    act_y, _, _ = sys_.actuate(x_sys.get("act"), u_sys["act"])
+    eng = x_sys["pwp"]["engine"]
+    return SystemsY(
+        act=act_y,
+        aero=AeroY(alpha=alpha, beta=beta,
+                   alpha_filt=x_sys["aero"]["alpha_filt"],
+                   beta_filt=x_sys["aero"]["beta_filt"]),
+        ldg=LdgY(strut=StrutWow(wow=wow)),
+        pwp=ThrusterY(engine=EngineY(
+            n=divc(eng["omega"], sys_.pwp.engine.omega_rated))))

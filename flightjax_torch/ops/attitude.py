@@ -1,8 +1,11 @@
 """Attitude conversions on batched tensors (port of the parts of
 `flightjax/ops/attitude.py` the fleet step uses)."""
 
+import math
+
 import torch
 
+from flightjax_torch.core.modeling import divc
 from flightjax_torch.ops.quaternions import dot, qmul
 
 
@@ -102,6 +105,12 @@ def azimuth(v):
 def inclination(v):
     return torch.atan2(-v[..., 2], torch.sqrt(v[..., 0] * v[..., 0]
                                               + v[..., 1] * v[..., 1]))
+
+
+def wrap_to_pi(x):
+    """x shifted by a multiple of 2 pi into (-pi, pi] (`attitude.py:235`),
+    the quotient a true one."""
+    return x + 2 * math.pi * torch.floor(divc(math.pi - x, 2 * math.pi))
 
 
 def skew(v):

@@ -23,6 +23,18 @@ Each kernel is its plain PyTorch version on the CPU. Stage offsets, weights
 and the k-sum association ((k1 + 2k2) + 2k3) + k4 follow
 `clusterstep.py:124-136` and `sim.py:53-68`, so float64 parity with
 `flightjax` holds to rounding.
+
+A world whose aircraft has avionics (the C172Xv1's `ControlLaws`) runs its
+periodic pass after the step when it fires, `(i + 1) % steps_per_periodic
+== 0` (`clusterstep.py:591-607`): the avionics read the VehicleY at the new
+state, which the finish kernels of the fly-by-wire C172 store beside the
+state (finish_kin's KinData and AirData and finish_sys's airflow angles
+and weight on wheels; rk4_finish's KIN_Y and SYS_Y rows), and write the
+servo commands. The control laws are PyTorch ops over the fleet. The pass
+reads the state before the geoid refresh of the same step, as
+`Simulation.fleet_step` orders them (the JAX cluster kernels refresh
+first; the two differ on refresh steps by the undulation's change over
+128 steps, micrometres).
 """
 
 import torch
@@ -67,16 +79,31 @@ def cluster_step(sim, state: SimState, i: int, *, plain=False,
 
     i_new = state.i + 1
     t_new = sim.t_start + i_new.to(t.dtype) * dt
-    xv2, s_sys2, term2, c_kin2 = K.finish_clusters(
+    xv2, s_sys2, term2, c_kin2, kin_y, sys_y = K.finish_clusters(
         C, vehicle, xv, acc, uv, sv, s["terminated"], dt, _comp_kin(state))
     sv2 = dict(sv, systems=s_sys2)
     if (i + 1) % (sim.geoid_every if geoid_every is None
                   else geoid_every) == 0:
         sv2 = vehicle.refresh_geoid(xv2, sv2, plain=plain)
     s2 = dict(s, vehicle=sv2, terminated=term2)
+    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i)
     c2 = None if c_kin2 is None else {"vehicle": {"kinematics": c_kin2}}
-    return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u, s=s2,
+    return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u2, s=s2,
                     c=c2)
+
+
+def _periodic(sim, xv, u, s, kin_y, sys_y, i):
+    """The world's periodic pass after step `i` if it fires, when the
+    counter it makes, i + 1, is a multiple of `steps_per_periodic`
+    (`sim.py:327-328`; no ported avionics reads the firing index): the
+    avionics on the VehicleY at the new state xv (from the finish's kin_y
+    and sys_y) write the systems' inputs. Returns (u, s)."""
+    world = sim.system
+    if (world.aircraft.avionics is None
+            or (i + 1) % sim.steps_per_periodic != 0):
+        return u, s
+    vy = K.vehicle_y(world.aircraft.vehicle, xv, u["vehicle"], kin_y, sys_y)
+    return world.f_periodic(u, s, vy)
 
 
 def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
@@ -84,13 +111,14 @@ def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
     through `rk4_stage` x 4 and `rk4_finish` (their plain versions on the
     CPU), uncompensated; `state.c` passes through."""
     vehicle = sim.system.aircraft.vehicle
+    lay = K.layout_of(vehicle)
     dt = sim.dt
     t, x, u, s = state.t, state.x, state.u, state.s
     xv, uv, sv = x["vehicle"], u["vehicle"], s["vehicle"]
 
     buf = K.pack_vehicle(vehicle, xv, uv, sv, s["terminated"])
-    stage_in = buf[:K.rows(K.STAGE_IN)]
-    k = torch.zeros((K.rows(K.STAGE_OUT), buf.shape[1]), dtype=buf.dtype,
+    stage_in = buf[:K.rows(lay.stage_in)]
+    k = torch.zeros((K.rows(lay.stage_out), buf.shape[1]), dtype=buf.dtype,
                     device=buf.device)
     acc = k
     for c, w in STAGES:
@@ -100,20 +128,23 @@ def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
 
     i_new = state.i + 1
     t_new = sim.t_start + i_new.to(t.dtype) * dt
-    xv2, s_sys2, term2, _ = K.unpack_finish(out, False)
+    xv2, s_sys2, term2, _, kin_y, sys_y = K.unpack_out(
+        lay.names["rk4_finish"], out)
     sv2 = dict(sv, systems=s_sys2)
     if (i + 1) % sim.geoid_every == 0:
-        q_rows = out[K.rows_of(K.X_GROUPS, "q_ew")]
+        q_rows = out[K.rows_of(lay.x_groups, "q_ew")]
         sv2["geoid_N"] = K.geoid_packed(vehicle.geoid, q_rows, block)[0]
     s2 = dict(s, vehicle=sv2, terminated=term2)
-    return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u, s=s2,
+    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i)
+    return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u2, s=s2,
                     c=state.c)
 
 
 def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
     """`step(state, *, i)` advancing a batch-leading SimState like `state`
-    by one step, `i` being its (host) step counter: `split="vehicle"` the
-    whole-vehicle kernels, `"subsystems"` the five cluster kernels
+    by one step, `i` being its (host) step counter, with the avionics'
+    periodic pass when it fires: `split="vehicle"` the whole-vehicle
+    kernels, `"subsystems"` the five cluster kernels
     (`Simulation.fleet_step`). `block` sizes the vehicle kernels' blocks
     (default: each kernel's own, `launch.LANES` and `launch.BLOCK`): for
     `rk4_stage` and `rk4_finish`, which carry each aircraft in several
@@ -121,7 +152,8 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
     threads per block, at most 128. The cluster kernels run at their
     defaults."""
     if ctx != ():
-        raise NotImplementedError("avionics (f_periodic) are not ported")
+        raise NotImplementedError(
+            "mission contexts (core/mission.py) are not ported: ROADMAP P9")
     vehicle = sim.system.aircraft.vehicle
     if state.t.device.type != "cpu":  # build the kernels' operands once
         K.system_params(vehicle)

@@ -36,14 +36,17 @@ geoid kernels the EGM96 grid from `geoid_grid`.
 
 import math
 import weakref
+from typing import NamedTuple
 
 import torch
 
 from flightjax_torch.core.modeling import bscale, tree_map
 from flightjax_torch.core.sim import comp_add
-from flightjax_torch.models.c172.common import AERO_CONST, M_FULL, M_RES
+from flightjax_torch.models.c172.common import (AERO_CONST, M_FULL, M_RES,
+                                                _alpha_gated, systems_y)
 from flightjax_torch.ops.geodesy import nvector_from_qew
 from flightjax_torch.parallel import launch as L
+from flightjax_torch.physics.aircraftbase import VehicleY
 from flightjax_torch.physics.atmosphere import AirData, SimpleAtmosphere, air_data
 from flightjax_torch.physics.dynamics import DynamicsU, MassProps, VehicleDynamics, Wrench
 from flightjax_torch.physics.kinematics import WA, KinData
@@ -82,6 +85,24 @@ U_SYS = (tuple((("act", k), 1) for k in ACT_KEYS)
          + tuple((("pld", k), 1) for k in PAYLOAD_KEYS))
 S_SYS = ((("aero", "stall"), 1), ("crashed", 1),
          (("pwp", "engine", "state"), 1))
+# the fly-by-wire C172 (`FlyByWireActuation`): the mechanical x_sys rows and
+# the seven servo positions, in the channel order of the kernels (sorted
+# names); u_sys holds the seven commands and the mixture in place of the
+# mechanical linkage's inputs
+FBW_CHANNELS = ("aileron", "brake_left", "brake_right", "elevator", "flaps",
+                "rudder", "throttle")
+FBW_CMD_KEYS = ("aileron", "brake_left", "brake_right", "elevator", "flaps",
+                "mixture", "rudder", "throttle")
+X_SYS_FBW = X_SYS + tuple((("act", ch), 1) for ch in FBW_CHANNELS)
+U_SYS_FBW = (tuple((("act", k), 1) for k in FBW_CMD_KEYS) + U_SYS[
+    len(ACT_KEYS):])
+# what the finish kernels of the fly-by-wire C172 store for its avionics:
+# the gated airflow angles and each leg's weight on wheels at the new state
+# (finish_sys, rk4_finish), and the KinData and AirData fields the control
+# laws read (rk4_finish; on the cluster path finish_kin stores them all)
+SYS_Y = (("alpha", 1), ("beta", 1), ("wow", 3))
+KIN_Y = (("omega_wb_b", 3), ("e_nb", 3), ("v_eb_n", 3), ("chi_gnd", 1),
+         ("EAS", 1))
 TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
 MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
 WR = (("F", 3), ("tau", 3))
@@ -103,21 +124,6 @@ DYN_IN = (X_DYN, (("m", 1), ("J", 9), ("r_OG", 3)), (("F", 3), ("tau", 3)),
 DYN_OUT = (X_DYN,)
 FIN_IN = (X_KIN, X_DYN, X_KIN, X_DYN, (("geoid_N", 1),), U_ATM, COMP)
 FIN_OUT = (X_KIN, X_DYN, KIN_DATA, AIR_DATA, COMP)
-SYS_IN = (X_SYS, X_SYS, U_SYS, S_SYS, TRN, KIN_DATA, AIR_DATA,
-          (("term", 1),))
-SYS_OUT = (X_SYS, MP, WR, (("hr_b", 3),))
-FSYS_IN = (X_SYS, X_SYS, U_SYS, S_SYS, TRN, KIN_DATA, AIR_DATA)
-FSYS_OUT = (X_SYS, S_SYS)
-
-# the whole vehicle: state X, context CTX (inputs, discrete state, carried
-# undulation, the terminated latch) and the position residuals C
-X_GROUPS = (X_KIN, X_DYN, X_SYS)
-CTX_GROUPS = (U_SYS, U_ATM, TRN, S_SYS, (("geoid_N", 1),),
-              (("terminated", 1),))
-STAGE_IN = X_GROUPS + CTX_GROUPS
-STAGE_OUT = X_GROUPS
-RKFIN_IN = STAGE_IN + (COMP,)
-RKFIN_OUT = X_GROUPS + (S_SYS, (("terminated", 1),), COMP)
 GEOID_IN = ((("q_ew", 4),),)
 GEOID_OUT = ((("geoid_N", 1),),)
 
@@ -127,7 +133,73 @@ LEAF_DTYPES = {(("pwp", "engine", "mixture_ctl")): torch.int32,
                ("pwp", "engine", "stop"): torch.bool,
                ("pwp", "engine", "state"): torch.int32,
                ("aero", "stall"): torch.bool, "crashed": torch.bool,
-               "surface": torch.int32, "terminated": torch.bool}
+               "surface": torch.int32, "terminated": torch.bool,
+               "wow": torch.bool}
+
+
+class Layout(NamedTuple):
+    """The row groups of the systems kernels for one actuation, and the
+    name of each kernel's instance for it: systems and finish_sys, and the
+    whole vehicle (state X, context CTX: inputs, discrete state, carried
+    undulation, the terminated latch; the position residuals C)."""
+    fbw: bool
+    x_sys: tuple
+    u_sys: tuple
+    sys_in: tuple
+    sys_out: tuple
+    fsys_in: tuple
+    fsys_out: tuple
+    x_groups: tuple
+    ctx_groups: tuple
+    stage_in: tuple
+    stage_out: tuple
+    rkfin_in: tuple
+    rkfin_out: tuple
+    names: dict
+
+
+def _layout(fbw):
+    x_sys, u_sys = (X_SYS_FBW, U_SYS_FBW) if fbw else (X_SYS, U_SYS)
+    x_groups = (X_KIN, X_DYN, x_sys)
+    ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),))
+    y = ((SYS_Y,) if fbw else ())
+    return Layout(
+        fbw=fbw, x_sys=x_sys, u_sys=u_sys,
+        sys_in=(x_sys, x_sys, u_sys, S_SYS, TRN, KIN_DATA, AIR_DATA,
+                (("term", 1),)),
+        sys_out=(x_sys, MP, WR, (("hr_b", 3),)),
+        fsys_in=(x_sys, x_sys, u_sys, S_SYS, TRN, KIN_DATA, AIR_DATA),
+        fsys_out=(x_sys, S_SYS) + y,
+        x_groups=x_groups, ctx_groups=ctx, stage_in=x_groups + ctx,
+        stage_out=x_groups, rkfin_in=x_groups + ctx + (COMP,),
+        rkfin_out=x_groups + (S_SYS, (("terminated", 1),), COMP)
+        + ((KIN_Y,) + y if fbw else ()),
+        names={k: k + ("_fbw" if fbw else "") for k in (
+            "systems", "finish_sys", "rk4_stage", "rk4_finish")})
+
+
+MECH, FBW = _layout(False), _layout(True)
+# the mechanical C172's groups (the C172S and its megakernel)
+SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
+                                      MECH.fsys_in, MECH.fsys_out)
+X_GROUPS, CTX_GROUPS, STAGE_IN, STAGE_OUT, RKFIN_IN, RKFIN_OUT = (
+    MECH.x_groups, MECH.ctx_groups, MECH.stage_in, MECH.stage_out,
+    MECH.rkfin_in, MECH.rkfin_out)
+
+
+def layout_of(vehicle):
+    """The layout of the vehicle's actuation: FBW for the fly-by-wire
+    servos, whose kernel instances carry `Actuator1` on every channel; a
+    second-order servo has no kernel yet."""
+    act = vehicle.systems.act
+    if not getattr(act, "stateful", False):
+        return MECH
+    bad = [ch for ch, a in act.actuators.items() if a.order != 1]
+    if bad:
+        raise ValueError(
+            f"the kernels carry first-order servos only, not {bad}: "
+            "ROADMAP Queue 2, 'Actuator2 channels in the kernels'")
+    return FBW
 
 
 def rows(groups):
@@ -215,6 +287,9 @@ MASS_P = ("m", *(f"J{i}{j}" for i in range(3) for j in range(3)), "r_OG_x",
           "r_OG_y", "r_OG_z", "M_RES", "M_USABLE",
           *(f"{n}_{a}" for n in ("tank0", "tank1", *PAYLOAD_KEYS)
             for a in "xyz"))
+# one servo of the fly-by-wire actuation (the FBW buffer holds them after
+# the table offsets, in the order of FBW_CHANNELS)
+ACT_P = ("tau", "lo", "hi")
 TABLES = ("CD_df", "CD_ge", "CD_alpha_df", "CY_beta_df", "CY_p", "CY_r",
           "CL_ge", "CL_alpha", "CL_df", "Cl_r", "Cm_df", "delta_wot",
           "mu_wot", "pi_std", "pi_wot", "pi_ratio", "sfc_ratio", "sfc_pow",
@@ -268,6 +343,16 @@ def param_scalars(vehicle):
     }
 
 
+def param_act(vehicle):
+    """The servos' time constants and ranges, in float64, in the order of
+    FBW_CHANNELS and ACT_P; [] for a stateless actuation."""
+    if not layout_of(vehicle).fbw:
+        return []
+    acts = vehicle.systems.act.actuators
+    return [v for ch in FBW_CHANNELS
+            for v in (acts[ch].tau, *acts[ch].range)]
+
+
 def param_tables(vehicle):
     """{name: Lookup} of the tables the systems kernels read."""
     sys_ = vehicle.systems
@@ -298,24 +383,27 @@ _PARAMS = weakref.WeakKeyDictionary()
 def system_params(vehicle):
     """The parameter buffer of the systems kernels for this vehicle, on its
     device and in its dtype (built once): the scalars of `param_scalars`,
-    one offset per table, then the tables (`encode_table`)."""
+    one offset per table, the servos of `param_act` (fly-by-wire only),
+    then the tables (`encode_table`)."""
     sys_ = vehicle.systems
     buf = _PARAMS.get(sys_)
     if buf is None:
         head = [v for vs in param_scalars(vehicle).values() for v in vs]
+        act = param_act(vehicle)
         tables = list(param_tables(vehicle).values())
         for name, lk in zip(TABLES, tables):
             if len(lk.axes) != TABLE_RANKS[name]:
                 raise ValueError(f"table {name} has {len(lk.axes)} axes, "
                                  f"the kernels read {TABLE_RANKS[name]}")
         offsets, body = [], []
-        base = len(head) + len(tables)
+        base = len(head) + len(tables) + len(act)
         for lk in tables:
             offsets.append(float(base + len(body)))
             body += encode_table(lk)
         like = sys_.airframe_mp.m
-        buf = torch.tensor(head + offsets + body, dtype=torch.float64).to(
-            device=like.device, dtype=like.dtype)
+        buf = torch.tensor(head + offsets + act + body,
+                           dtype=torch.float64).to(device=like.device,
+                                                   dtype=like.dtype)
         _PARAMS[sys_] = buf
     return buf
 
@@ -400,7 +488,8 @@ def systems_plain(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
     trn = vehicle.terrain.terrain_data(u_trn)
     xi = _fma(x_sys, k_sys, adt)
     aero_dot, gear_u, thr_mix, wr_aero = sys_.actaero(
-        xi["aero"], u_sys["act"], s_sys["aero"], kin, air, trn)
+        xi["aero"], u_sys["act"], s_sys["aero"], kin, air, trn,
+        xi.get("act"))
     frc_dots, wr_ldg = [], None
     for i in range(sys_.ldg.n):
         d, w = sys_.ldg_leg(i, xi["ldg"]["frc"][:, i],
@@ -411,28 +500,37 @@ def systems_plain(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
     pwp_dot, fuel_dot, mp_b, wr_b, hr_b = sys_.pwp_mass(
         xi["pwp"], xi["fuel"], u_sys["pwp"], s_sys["pwp"], thr_mix,
         u_sys["pld"], kin, air, wr_aero, wr_ldg)
-    sys_dot = _alive_scale({"aero": aero_dot,
-                            "ldg": {"frc": torch.stack(frc_dots, dim=1)},
-                            "pwp": pwp_dot, "fuel": fuel_dot}, term)
-    return sys_dot, mp_b, wr_b, hr_b
+    sys_dot = {"aero": aero_dot, "ldg": {"frc": torch.stack(frc_dots, dim=1)},
+               "pwp": pwp_dot, "fuel": fuel_dot}
+    if "act" in xi:
+        sys_dot["act"] = sys_.actuate(xi["act"], u_sys["act"])[2]
+    return _alive_scale(sys_dot, term), mp_b, wr_b, hr_b
 
 
 def finish_sys_plain(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin,
                      air, dt):
-    """RK4 combine x + dt/6 ksum on the systems state, then actuation, the
-    three struts and stall / gear reset / crash / engine state machine at
-    the new kinematics (`k5_lane`, composed as the fine split composes
-    `k_fin_act`, `k_fin_ldg0..2` and `k_fin_rest`). Returns (x_sys,
-    s_sys)."""
+    """RK4 combine x + dt/6 ksum on the systems state, then actuation (at
+    the combined servo positions, fly-by-wire), the three struts and stall
+    / gear reset / crash / engine state machine at the new kinematics
+    (`k5_lane`, composed as the fine split composes `k_fin_act`,
+    `k_fin_ldg0..2` and `k_fin_rest`). Returns (x_sys, s_sys, sys_y):
+    sys_y is the SYS_Y the fly-by-wire C172's avionics read (the gated
+    airflow angles and each leg's weight on wheels), None for the
+    mechanical one."""
     sys_ = vehicle.systems
     trn = vehicle.terrain.terrain_data(u_trn)
     x = tree_map(lambda a, b: a + (dt / 6.0) * b, x_sys, ksum_sys)
-    gear_u = sys_.fin_act(u_sys["act"])
+    gear_u = sys_.fin_act(u_sys["act"], x.get("act"))
     legs = [sys_.fin_ldg_leg(j, gear_u["steering"][:, j], kin, trn)
             for j in range(sys_.ldg.n)]
     wow, alpha_ts, xi_dot = (torch.stack([leg[j] for leg in legs], dim=1)
                              for j in range(3))
-    return sys_.fin_rest(x, u_sys["pwp"], s_sys, air, wow, alpha_ts, xi_dot)
+    x2, s2 = sys_.fin_rest(x, u_sys["pwp"], s_sys, air, wow, alpha_ts,
+                           xi_dot)
+    if "act" not in x:
+        return x2, s2, None
+    alpha, beta, _ = _alpha_gated(air)
+    return x2, s2, {"alpha": alpha, "beta": beta, "wow": wow > 0.5}
 
 
 def geoid_plain(geo, q_ew):
@@ -461,15 +559,41 @@ def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin):
     residuals `c_kin`, or None) and World.f_step through the cluster
     functions `C`: finish_kin -> finish_sys -> the terminated latch,
     `finish_lane` of `clusterstep.py:97-103`. Returns (xv, s_sys,
-    terminated, c_kin)."""
+    terminated, c_kin, kin_y, sys_y): for the fly-by-wire C172 kin_y and
+    sys_y are what its avionics read of the new state (the KIN_Y and SYS_Y
+    fields, `vehicle_y` assembles the VehicleY), None for the mechanical
+    one."""
     x_kin2, x_dyn2, kin2, air2, c_kin2 = C["finish_kin"](
         xv["kinematics"], xv["dynamics"], ksum["kinematics"],
         ksum["dynamics"], sv["geoid_N"], uv["atm"], dt, c_kin)
-    x_sys2, s_sys2 = C["finish_sys"](vehicle, xv["systems"], ksum["systems"],
-                                     uv["systems"], sv["systems"], uv["trn"],
-                                     kin2, air2, dt)
+    x_sys2, s_sys2, sys_y = C["finish_sys"](
+        vehicle, xv["systems"], ksum["systems"], uv["systems"],
+        sv["systems"], uv["trn"], kin2, air2, dt)
     xv2 = {"kinematics": x_kin2, "dynamics": x_dyn2, "systems": x_sys2}
-    return xv2, s_sys2, terminated | s_sys2["crashed"], c_kin2
+    kin_y = None
+    if sys_y is not None:
+        kin_y = {k: (air2.EAS if k == "EAS" else getattr(kin2, k))
+                 for k, _ in KIN_Y}
+    return (xv2, s_sys2, terminated | s_sys2["crashed"], c_kin2, kin_y,
+            sys_y)
+
+
+def vehicle_y(vehicle, xv, uv, kin_y, sys_y):
+    """The VehicleY the avionics read at the new state `xv`, from what the
+    finish kernels store: `kin_y` the KIN_Y fields, `sys_y` the SYS_Y
+    ones. The servo commands and positions, the filters, the engine's
+    speed ratio, omega_eb_b and h_e are the state's and the inputs' own
+    (`common.systems_y`); the KinData and AirData fields no avionics reads
+    are None."""
+    kin = KinData(**dict(dict.fromkeys(KinData._fields),
+                         omega_eb_b=xv["dynamics"]["omega_eb_b"],
+                         h_e=xv["kinematics"]["h_e"],
+                         **{k: v for k, v in kin_y.items() if k != "EAS"}))
+    air = AirData(**dict(dict.fromkeys(AirData._fields), EAS=kin_y["EAS"]))
+    sys_ = systems_y(vehicle.systems, xv["systems"], uv["systems"],
+                     sys_y["alpha"], sys_y["beta"], sys_y["wow"])
+    return VehicleY(systems=sys_, kinematics=kin, dynamics=None,
+                    airflow=air)
 
 
 def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
@@ -479,7 +603,8 @@ def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
 
 def rk4_finish_plain(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
     """The plain clusters composed as `finish_lane`, with `comp_add` when
-    residuals are carried."""
+    residuals are carried: (xv, s_sys, terminated, c_kin, kin_y, sys_y),
+    kin_y and sys_y None for the mechanical C172."""
     return finish_clusters(PLAIN, vehicle, xv, ksum, uv, sv, terminated, dt,
                            c_kin)
 
@@ -529,20 +654,23 @@ def _trn(vehicle, u_trn, B):
 
 def pack_systems(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
                  term):
+    lay = layout_of(vehicle)
     B, dt = kin.h_e.shape[0], kin.h_e.dtype
-    buf = pack(SYS_IN, (x_sys, k_sys, u_sys, s_sys, _trn(vehicle, u_trn, B),
-                        kin, air, {"term": _term(term, kin.h_e)}), B, dt)
-    return buf, rows(SYS_OUT), (float(adt),), {
+    buf = pack(lay.sys_in, (x_sys, k_sys, u_sys, s_sys,
+                            _trn(vehicle, u_trn, B), kin, air,
+                            {"term": _term(term, kin.h_e)}), B, dt)
+    return buf, rows(lay.sys_out), (float(adt),), {
         "params": system_params(vehicle)}
 
 
 def pack_finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air,
                     dt):
+    lay = layout_of(vehicle)
     B = kin.h_e.shape[0]
-    buf = pack(FSYS_IN, (x_sys, ksum_sys, u_sys, s_sys,
-                         _trn(vehicle, u_trn, B), kin, air), B,
+    buf = pack(lay.fsys_in, (x_sys, ksum_sys, u_sys, s_sys,
+                             _trn(vehicle, u_trn, B), kin, air), B,
                kin.h_e.dtype)
-    return buf, rows(FSYS_OUT), (dt / 6.0,), {
+    return buf, rows(lay.fsys_out), (dt / 6.0,), {
         "params": system_params(vehicle)}
 
 
@@ -556,49 +684,47 @@ def _x_tree(views):
 
 
 def pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin=None):
-    """The whole vehicle as one `[X; CTX; C]` buffer (`RKFIN_IN`) in the
-    state's dtype, C zero without residuals. `rk4_stage` reads its first
-    `rows(STAGE_IN)` rows, `rk4_finish` all of them."""
+    """The whole vehicle as one `[X; CTX; C]` buffer (`rkfin_in` of its
+    layout) in the state's dtype, C zero without residuals. `rk4_stage`
+    reads its first `rows(stage_in)` rows, `rk4_finish` all of them."""
+    lay = layout_of(vehicle)
     like = xv["kinematics"]["h_e"]
     if c_kin is None:
         c_kin = {"q_ew": torch.zeros_like(xv["kinematics"]["q_ew"]),
                  "h_e": torch.zeros_like(like)}
     B = like.shape[0]
-    return pack(RKFIN_IN, (*_x(xv), uv["systems"], uv["atm"],
-                           _trn(vehicle, uv["trn"], B), sv["systems"],
-                           {"geoid_N": sv["geoid_N"]},
-                           {"terminated": terminated}, c_kin), B, like.dtype)
+    return pack(lay.rkfin_in, (*_x(xv), uv["systems"], uv["atm"],
+                               _trn(vehicle, uv["trn"], B), sv["systems"],
+                               {"geoid_N": sv["geoid_N"]},
+                               {"terminated": terminated}, c_kin), B,
+                like.dtype)
 
 
-def unpack_vehicle(buf):
-    """(xv, uv, sv, terminated, c_kin) from a `pack_vehicle` buffer, or
-    from its first `rows(STAGE_IN)` rows (c_kin None then); bool and int
-    leaves typed again, terrain constants dropped."""
-    v = unpack(RKFIN_IN if buf.shape[0] == rows(RKFIN_IN) else STAGE_IN,
-               buf, typed=True)
+def unpack_vehicle(buf, lay=MECH):
+    """(xv, uv, sv, terminated, c_kin) from a `pack_vehicle` buffer of
+    layout `lay`, or from its first `rows(stage_in)` rows (c_kin None
+    then); bool and int leaves typed again, terrain constants dropped."""
+    v = unpack(lay.rkfin_in if buf.shape[0] == rows(lay.rkfin_in)
+               else lay.stage_in, buf, typed=True)
     uv = {"systems": v[3], "atm": v[4], "trn": {"surface": v[5]["surface"]}}
     sv = {"systems": v[6], "geoid_N": v[7]["geoid_N"]}
     return (_x_tree(v), uv, sv, v[8]["terminated"],
             v[9] if len(v) > 9 else None)
 
 
-def unpack_finish(out, comp):
-    """(xv, s_sys, terminated, c_kin or None) from rk4_finish's output."""
-    v = unpack(RKFIN_OUT, out, typed=True)
-    return _x_tree(v), v[3], v[4]["terminated"], (v[5] if comp else None)
-
-
 def pack_rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
-    buf = pack_vehicle(vehicle, xv, uv, sv, term)[:rows(STAGE_IN)]
-    k = pack(X_GROUPS, _x(kv), buf.shape[1], buf.dtype)
-    return buf, rows(STAGE_OUT), (float(adt),), {
+    lay = layout_of(vehicle)
+    buf = pack_vehicle(vehicle, xv, uv, sv, term)[:rows(lay.stage_in)]
+    k = pack(lay.x_groups, _x(kv), buf.shape[1], buf.dtype)
+    return buf, rows(lay.stage_out), (float(adt),), {
         "k": k, "params": system_params(vehicle)}
 
 
 def pack_rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+    lay = layout_of(vehicle)
     buf = pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin)
-    k = pack(X_GROUPS, _x(ksum), buf.shape[1], buf.dtype)
-    return buf, rows(RKFIN_OUT), (dt / 6.0, int(c_kin is not None)), {
+    k = pack(lay.x_groups, _x(ksum), buf.shape[1], buf.dtype)
+    return buf, rows(lay.rkfin_out), (dt / 6.0, int(c_kin is not None)), {
         "k": k, "params": system_params(vehicle)}
 
 
@@ -611,6 +737,45 @@ PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
         "finish_kin": pack_finish_kin, "systems": pack_systems,
         "finish_sys": pack_finish_sys, "rk4_stage": pack_rk4_stage,
         "rk4_finish": pack_rk4_finish, "geoid": pack_geoid}
+# the fly-by-wire instances pack as their mechanical twins (by the
+# vehicle's layout)
+PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
+
+
+# instance name -> (kernel, layout)
+_INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
+              for k, n in lay.names.items()}
+
+
+def unpack_out(name, out, comp=False):
+    """The packed output `out` of kernel instance `name` as its wrapper
+    returns it (`comp`: finish_kin or rk4_finish carried residuals); bool
+    and int leaves typed again."""
+    base, lay = _INSTANCES.get(name, (name, MECH))
+    if base == "kinair":
+        kin_dot, kin, air, xi_dyn = unpack(KINAIR_OUT, out)
+        return kin_dot, KinData(**kin), AirData(**air), xi_dyn
+    if base == "dynamics":
+        return unpack(DYN_OUT, out)[0]
+    if base == "finish_kin":
+        x_kin, x_dyn, kin, air, c = unpack(FIN_OUT, out)
+        return x_kin, x_dyn, KinData(**kin), AirData(**air), \
+            (c if comp else None)
+    if base == "geoid":
+        return out[0]
+    if base == "systems":
+        dot, mp, wr, hr = unpack(lay.sys_out, out)
+        return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
+    if base == "finish_sys":
+        x2, s2, *y = unpack(lay.fsys_out, out, typed=True)
+        return x2, s2, (y[0] if y else None)
+    if base == "rk4_stage":
+        return _x_tree(unpack(lay.stage_out, out))
+    if base == "rk4_finish":
+        v = unpack(lay.rkfin_out, out, typed=True)
+        return (_x_tree(v), v[3], v[4]["terminated"], v[5] if comp else None,
+                *(v[6:8] if lay.fbw else (None, None)))
+    raise ValueError(f"no kernel {name}")
 
 
 def launch_kernel(name, buf, n_out, scalars, operands, block=None):
@@ -625,13 +790,17 @@ def _launch(name, args):
     return launch_kernel(name, *PACK[name](*args))
 
 
+def _instance(name, vehicle):
+    """The instance of kernel `name` for the vehicle's actuation."""
+    return layout_of(vehicle).names[name]
+
+
 def kinair(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
     """`kinair_plain` on the CPU, the `kinair` CUDA kernel on the card."""
     args = (x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term)
     if geoid_N.device.type == "cpu":
         return kinair_plain(*args[:-1], _term(term, geoid_N))
-    kin_dot, kin, air, xi_dyn = unpack(KINAIR_OUT, _launch("kinair", args))
-    return kin_dot, KinData(**kin), AirData(**air), xi_dyn
+    return unpack_out("kinair", _launch("kinair", args))
 
 
 def systems(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
@@ -641,8 +810,8 @@ def systems(vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt,
     args = (vehicle, x_sys, k_sys, u_sys, s_sys, u_trn, kin, air, adt, term)
     if kin.h_e.device.type == "cpu":
         return systems_plain(*args[:-1], _term(term, kin.h_e))
-    dot, mp, wr, hr = unpack(SYS_OUT, _launch("systems", args))
-    return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
+    name = _instance("systems", vehicle)
+    return unpack_out(name, _launch(name, args))
 
 
 def dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
@@ -651,7 +820,7 @@ def dynamics(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
     args = (xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term)
     if r_eb_e.device.type == "cpu":
         return dynamics_plain(*args[:-1], _term(term, r_eb_e))
-    return unpack(DYN_OUT, _launch("dynamics", args))[0]
+    return unpack_out("dynamics", _launch("dynamics", args))
 
 
 def _check_comp(c_kin):
@@ -667,10 +836,8 @@ def finish_kin(x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt,
     args = (x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt, c_kin)
     if geoid_N.device.type == "cpu":
         return finish_kin_plain(*args)
-    x_kin2, x_dyn2, kin, air, c2 = unpack(FIN_OUT, _launch("finish_kin",
-                                                           args))
-    return x_kin2, x_dyn2, KinData(**kin), AirData(**air), \
-        (c2 if c_kin is not None else None)
+    return unpack_out("finish_kin", _launch("finish_kin", args),
+                      c_kin is not None)
 
 
 def finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt):
@@ -679,14 +846,15 @@ def finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt):
     args = (vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air, dt)
     if kin.h_e.device.type == "cpu":
         return finish_sys_plain(*args)
-    return unpack(FSYS_OUT, _launch("finish_sys", args), typed=True)
+    name = _instance("finish_sys", vehicle)
+    return unpack_out(name, _launch(name, args))
 
 
 def geoid(geo, q_ew):
     """`geoid_plain` on the CPU, the `geoid` CUDA kernel on the card."""
     if q_ew.device.type == "cpu":
         return geoid_plain(geo, q_ew)
-    return _launch("geoid", (geo, q_ew))[0]
+    return unpack_out("geoid", _launch("geoid", (geo, q_ew)))
 
 
 def rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
@@ -696,17 +864,20 @@ def rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
     args = (vehicle, xv, kv, uv, sv, term, adt)
     if like.device.type == "cpu":
         return rk4_stage_plain(*args[:-2], _term(term, like), adt)
-    return _x_tree(unpack(STAGE_OUT, _launch("rk4_stage", args)))
+    name = _instance("rk4_stage", vehicle)
+    return unpack_out(name, _launch(name, args))
 
 
 def rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
     """`rk4_finish_plain` on the CPU, the `rk4_finish` CUDA kernel on the
-    card. Returns (xv, s_sys, terminated, c_kin)."""
+    card. Returns (xv, s_sys, terminated, c_kin, kin_y, sys_y), kin_y and
+    sys_y None for the mechanical C172."""
     _check_comp(c_kin)
     args = (vehicle, xv, ksum, uv, sv, terminated, dt, c_kin)
     if xv["kinematics"]["h_e"].device.type == "cpu":
         return rk4_finish_plain(*args)
-    return unpack_finish(_launch("rk4_finish", args), c_kin is not None)
+    name = _instance("rk4_finish", vehicle)
+    return unpack_out(name, _launch(name, args), c_kin is not None)
 
 
 def rk4_stage_packed(vehicle, buf, k, adt, block=None):
@@ -715,15 +886,16 @@ def rk4_stage_packed(vehicle, buf, k, adt, block=None):
     the stage derivative (`rows(STAGE_OUT)` rows). The kernel on the card
     (`block`: aircraft per block, 32 or 64), the plain stage between unpack
     and pack on the CPU."""
+    lay = layout_of(vehicle)
     if buf.device.type != "cpu":
-        return launch_kernel("rk4_stage", buf, rows(STAGE_OUT),
-                             (float(adt),),
+        return launch_kernel(lay.names["rk4_stage"], buf,
+                             rows(lay.stage_out), (float(adt),),
                              {"k": k, "params": system_params(vehicle)},
                              block)
-    xv, uv, sv, terminated, _ = unpack_vehicle(buf)
-    d = rk4_stage_plain(vehicle, xv, _x_tree(unpack(X_GROUPS, k)), uv, sv,
-                        terminated.to(buf.dtype), adt)
-    return pack(STAGE_OUT, _x(d), buf.shape[1], buf.dtype)
+    xv, uv, sv, terminated, _ = unpack_vehicle(buf, lay)
+    d = rk4_stage_plain(vehicle, xv, _x_tree(unpack(lay.x_groups, k)), uv,
+                        sv, terminated.to(buf.dtype), adt)
+    return pack(lay.stage_out, _x(d), buf.shape[1], buf.dtype)
 
 
 def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None):
@@ -732,19 +904,22 @@ def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None):
     (`rows(RKFIN_OUT)` rows, C zero unless `comp`). The kernel on the
     card (`block`: aircraft per block, 32 or 64), the plain finish between
     unpack and pack on the CPU."""
+    lay = layout_of(vehicle)
     if buf.device.type != "cpu":
-        return launch_kernel("rk4_finish", buf, rows(RKFIN_OUT),
+        return launch_kernel(lay.names["rk4_finish"], buf,
+                             rows(lay.rkfin_out),
                              (dt / 6.0, int(bool(comp))),
                              {"k": ksum, "params": system_params(vehicle)},
                              block)
-    xv, uv, sv, terminated, c_kin = unpack_vehicle(buf)
-    xv2, s2, term2, c2 = rk4_finish_plain(
-        vehicle, xv, _x_tree(unpack(X_GROUPS, ksum)), uv, sv, terminated, dt,
-        c_kin if comp else None)
+    xv, uv, sv, terminated, c_kin = unpack_vehicle(buf, lay)
+    xv2, s2, term2, c2, kin_y, sys_y = rk4_finish_plain(
+        vehicle, xv, _x_tree(unpack(lay.x_groups, ksum)), uv, sv, terminated,
+        dt, c_kin if comp else None)
     if c2 is None:
         c2 = tree_map(torch.zeros_like, c_kin)
-    return pack(RKFIN_OUT, (*_x(xv2), s2, {"terminated": term2}, c2),
-                buf.shape[1], buf.dtype)
+    y = (kin_y, sys_y) if lay.fbw else ()
+    return pack(lay.rkfin_out, (*_x(xv2), s2, {"terminated": term2}, c2,
+                                *y), buf.shape[1], buf.dtype)
 
 
 def geoid_packed(geo, q_rows, block=None):

@@ -42,23 +42,29 @@ BLOCK = 128
 # csrc/c172_systems.cuh): a multiple of 32 up to 64. At 32, 4096 aircraft
 # are 128 blocks, one block on each of 128 SMs (see PERF.md)
 LANES = 32
+# the instances of the systems kernels for the fly-by-wire C172 (its seven
+# servo states and their commands), built from the same sources as their
+# mechanical twins (csrc/c172_systems.cuh, `ActKind`)
+FBW_KERNELS = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
+               "rk4_finish_fbw")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
-                "rk4_finish", "megakernel")
+                "rk4_finish", "megakernel", *FBW_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
-COPY_PARAMS = ("systems", "rk4_stage", "megakernel")
+COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
+               "rk4_stage_fbw")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
-           "rk4_stage", "rk4_finish", "geoid", "megakernel")
+           "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid
-WITH_K = ("rk4_stage", "rk4_finish")
+WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
-               "megakernel")
+               "megakernel", *FBW_KERNELS)
 WITH_GRID = ("geoid", "megakernel")
 
 _LIB = None
@@ -142,13 +148,13 @@ def library():
             so = build()
             lib = ctypes.CDLL(so)
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            for name in (*KERNELS, "systems_params"):
+            for name in (*KERNELS, "systems_params", "systems_fbw_params"):
                 f = getattr(lib, f"{name}_layout")
                 f.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
                 f.restype = None
-            f = lib.vehicle_layout
-            f.argtypes = [ctypes.POINTER(I)] * 4
-            f.restype = None
+            for f in (lib.vehicle_layout, lib.vehicle_fbw_layout):
+                f.argtypes = [ctypes.POINTER(I)] * 4
+                f.restype = None
             sig = {"kinair": [P, P, I, D, I, P],
                    "dynamics": [P, P, I, I, P],
                    "finish_kin": [P, P, I, D, I, I, P],
@@ -158,6 +164,7 @@ def library():
                    "rk4_finish": [P, P, P, P, I, D, I, I, P],
                    "geoid": [P, P, P, I, I, P],
                    "megakernel": [P, P, P, P, P, P, I, I, D, D, I, I, P]}
+            sig.update({k: sig[k[:-len("_fbw")]] for k in FBW_KERNELS})
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -188,15 +195,18 @@ def layout(name):
     return _LAYOUTS[name]
 
 
-def vehicle_layout():
+def vehicle_layout(fbw=False):
     """{x, ctx, c, mega}: rows of the whole-vehicle groups X, CTX, C and of
-    the megakernel's state buffer, as the compiled kernels declare them."""
-    if "vehicle" not in _LAYOUTS:
+    the megakernel's state buffer, as the compiled kernels declare them,
+    for the mechanical C172 or with `fbw` the fly-by-wire one (no
+    megakernel: mega 0)."""
+    key = "vehicle_fbw" if fbw else "vehicle"
+    if key not in _LAYOUTS:
         v = [ctypes.c_int() for _ in range(4)]
-        library().vehicle_layout(*map(ctypes.byref, v))
-        _LAYOUTS["vehicle"] = dict(zip(("x", "ctx", "c", "mega"),
-                                       (i.value for i in v)))
-    return _LAYOUTS["vehicle"]
+        getattr(library(), f"{key}_layout")(*map(ctypes.byref, v))
+        _LAYOUTS[key] = dict(zip(("x", "ctx", "c", "mega"),
+                                 (i.value for i in v)))
+    return _LAYOUTS[key]
 
 
 def check_operand(t, n_rows, B, dtype, device):
@@ -212,15 +222,16 @@ def check_operand(t, n_rows, B, dtype, device):
         raise ValueError("kernel operand must be contiguous")
 
 
-def check_params(params, dtype, device):
+def check_params(params, dtype, device, fbw=False):
     """The C172 systems' parameter buffer (`kernels.system_params`): a
-    contiguous 1-D tensor at least as long as the head the kernels read."""
+    contiguous 1-D tensor at least as long as the head the kernels (the
+    fly-by-wire instances with `fbw`) read."""
     if not isinstance(params, torch.Tensor):
         raise TypeError("kernel parameters must be a tensor")
     if params.device != device or params.dtype != dtype:
         raise ValueError(f"kernel parameters on {params.device}/"
                          f"{params.dtype}, expected {device}/{dtype}")
-    n_head, _ = layout("systems_params")
+    n_head, _ = layout("systems_fbw_params" if fbw else "systems_params")
     if params.dim() != 1 or params.shape[0] < n_head:
         raise ValueError(f"kernel parameters of shape {tuple(params.shape)}"
                          f", the head alone has {n_head}")
@@ -304,11 +315,12 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
         if (name in kernels) != (val is not None):
             raise ValueError(f"{name}: operand {key} "
                              + ("missing" if val is None else "not taken"))
+    fbw = name in FBW_KERNELS
     if k is not None:
-        check_operand(k, vehicle_layout()["x"], B, dtype, device)
+        check_operand(k, vehicle_layout(fbw)["x"], B, dtype, device)
         ptrs.append(k.data_ptr())
     if params is not None:
-        check_params(params, dtype, device)
+        check_params(params, dtype, device, fbw)
         ptrs.append(params.data_ptr())
     if grid is not None:
         check_grid(grid, dtype, device)

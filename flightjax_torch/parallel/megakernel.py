@@ -43,8 +43,15 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     block has eight times as many threads. The step compensates iff
     `state.c` is set, as `Simulation.step` does."""
     if ctx != ():
-        raise NotImplementedError("avionics (f_periodic) are not ported")
+        raise NotImplementedError(
+            "mission contexts (core/mission.py) are not ported: ROADMAP P9")
     vehicle = sim.system.aircraft.vehicle
+    if (sim.system.aircraft.avionics is not None
+            or K.layout_of(vehicle).fbw):
+        raise NotImplementedError(
+            "the megakernel carries the mechanical C172 without avionics; "
+            "the fly-by-wire megakernel with the control laws inside it is "
+            "ROADMAP Queue 2, item 1")
     comp = state.c is not None
 
     def pack(st):

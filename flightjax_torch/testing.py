@@ -244,3 +244,82 @@ def operand_state(d, device, dtype, i0=0):
                     x=tree_from_numpy(x, device, dtype),
                     u=tree_from_numpy(u, device, dtype),
                     s=tree_from_numpy(s, device, dtype))
+
+
+# ------------------------------------------------------------ the C172Xv1
+
+def fbw_cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=(),
+                         crash_lanes=()):
+    """`cluster_operands` for the fly-by-wire C172: the same lanes, with
+    servo positions, their derivatives and the eight commands drawn from a
+    numpy seed, some past their channel's range (the clamps of both the
+    positions and the commands are taken), and the nose-wheel steering of
+    the runway lanes near full deflection."""
+    from flightjax_torch.parallel.kernels import FBW_CHANNELS
+    from flightjax_torch.models.c172.c172x import ACT_RANGES
+    d = cluster_operands(batch, seed, ground_lanes, terminated_lanes,
+                         crash_lanes)
+    rng = np.random.default_rng(seed + 3)
+    x_act, k_act, u_act = {}, {}, {}
+    for ch in FBW_CHANNELS:
+        lo, hi = ACT_RANGES[ch]
+        span = hi - lo
+        x_act[ch] = rng.uniform(lo - 0.1 * span, hi + 0.1 * span, batch)
+        k_act[ch] = rng.normal(0.0, 2.0, batch)
+        u_act[ch] = rng.uniform(lo - 0.2 * span, hi + 0.2 * span, batch)
+    x_act["rudder"][list(ground_lanes)] = 0.9
+    u_act["mixture"] = rng.uniform(-0.1, 1.1, batch)
+    d["x_sys"]["act"] = x_act
+    d["k_sys"]["act"] = k_act
+    d["ksum_sys"]["act"] = {k: 6.0 * v for k, v in k_act.items()}
+    d["u_sys"]["act"] = u_act
+    return d
+
+
+def perturbed_xv1(batch, seed, sas_lanes=(), ground_lanes=()):
+    """numpy world-level (t, i, x, u, s) of `batch` trimmed C172Xv1 with
+    the avionics started from the trim (`c172x.trimmed_xv1_state`, float64)
+    and engaged on the turning climb (`c172x.turning_climb`), but on the
+    `sas_lanes` in `LON_SAS` / `LAT_SAS`; each lane perturbed from a numpy
+    seed as `perturbed_flagship` perturbs the flagship (attitude 1-3 deg,
+    body velocity +-3 m/s, wind ~N(0, 3 m/s), h_e +-30 m), the
+    `ground_lanes` with their main wheels on the runway."""
+    from flightjax_torch.bridge import tree_to_numpy
+    from flightjax_torch.models.c172 import c172x, c172x_ctl as CTL
+    st = c172x.turning_climb(c172x.trimmed_xv1_state(0.02, torch.float64,
+                                                     "cpu"))
+    one = tree_to_numpy(st)
+    t, i, x, u, s = (tree_map(lambda l: np.broadcast_to(
+        l, (batch,) + np.shape(l)).copy(), tree) for tree in one[:5])
+    rng = np.random.default_rng(seed)
+    kin, dyn = x["vehicle"]["kinematics"], x["vehicle"]["dynamics"]
+    axis = rng.normal(size=(batch, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    ang = np.deg2rad(rng.uniform(1.0, 3.0, batch)) * rng.choice([-1, 1],
+                                                                batch)
+    dq = np.concatenate([np.cos(ang / 2)[:, None],
+                         np.sin(ang / 2)[:, None] * axis], axis=-1)
+    kin["q_wb"] = qmul_np(kin["q_wb"], dq)
+    dyn["v_eb_b"] = dyn["v_eb_b"] + rng.uniform(-3.0, 3.0, (batch, 3))
+    u["vehicle"]["atm"]["wind"] = rng.normal(0.0, 3.0, (batch, 3))
+    kin["h_e"] = kin["h_e"] + rng.uniform(-30.0, 30.0, batch)
+    lanes = list(ground_lanes)
+    kin["h_e"][lanes] = s["vehicle"]["geoid_N"][lanes] + 1.85
+    sas = list(sas_lanes)
+    u["avionics"]["lon"]["mode_req"][sas] = CTL.LON_SAS
+    u["avionics"]["lat"]["mode_req"][sas] = CTL.LAT_SAS
+    return t, i, x, u, s
+
+
+def xv1_fleet_sim(batch, seed, device, dtype, sas_lanes=(), ground_lanes=()):
+    """(sim, SimState) of `perturbed_xv1` on `device`, with the position
+    compensation `c172xv1_sim` gives in sub-float64 dtypes."""
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    sim, _, _ = c172xv1_sim(device, dtype)
+    t, i, x, u, s = perturbed_xv1(batch, seed, sas_lanes, ground_lanes)
+    st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                  i=torch.tensor(i, device=device),
+                  x=tree_from_numpy(x, device, dtype),
+                  u=tree_from_numpy(u, device, dtype),
+                  s=tree_from_numpy(s, device, dtype))
+    return sim, sim.with_compensation(st)

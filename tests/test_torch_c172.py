@@ -208,7 +208,7 @@ def test_finish_sys_plain_matches_k5_lane(case, fleet):
     if fleet == "crash":
         case = case["crash"]
     T = case["T"]
-    x2, s2 = K.finish_sys_plain(case["veh"], T["x_sys"], T["ksum_sys"],
+    x2, s2, _ = K.finish_sys_plain(case["veh"], T["x_sys"], T["ksum_sys"],
                                 T["u_sys"], T["s_sys"], T["u_trn"],
                                 case["kin"], case["air"], DT)
     rx, rs = case["ref"]["finish_sys"]
@@ -229,7 +229,7 @@ def test_finish_sys_plain_matches_k5_lane(case, fleet):
     args = K.operand_args(case["d"], case["veh"], "cpu", F64)["rk4_finish"]
     terminated = args[5]
     assert not bool(terminated[CRASH_LANE])
-    _, s3, term3, _ = K.finish_clusters(K.PLAIN, *args)
+    _, s3, term3, *_ = K.finish_clusters(K.PLAIN, *args)
     assert bool(s3["crashed"][CRASH_LANE])
     assert term3.tolist() == (terminated | s3["crashed"]).tolist()
     assert term3.nonzero().flatten().tolist() == [TERMINATED_LANE,

@@ -28,9 +28,6 @@ import torch
 from flightjax_torch.core.modeling import tree_leaves_with_path
 from flightjax_torch.models.c172.c172s import build_vehicle
 from flightjax_torch.parallel import kernels as K
-from flightjax_torch.physics.atmosphere import AirData
-from flightjax_torch.physics.dynamics import MassProps, Wrench
-from flightjax_torch.physics.kinematics import KinData
 from flightjax_torch.testing import (ISA_NAN_LANES, cluster_operands,
                                      isa_layer_operands)
 
@@ -45,7 +42,8 @@ OWN_ROLES = ("kinair", "dynamics", "finish_kin", "finish_sys")
 # the lane that crashes during the step (`testing.cluster_operands`)
 CRASH_LANE = 11
 VEHICLE_NAMES = ("rk4_stage", "rk4_finish", "geoid")
-LAUNCH_CODE = "template <typename T>\nstatic int launch"
+# each source is cut at the template of its launch code
+LAUNCH_CODE = "static int launch"
 
 CUDA_RUNTIME_STANDIN = r"""
 #pragma once
@@ -98,14 +96,14 @@ LANE_LOOPS = r"""
     k_##name::name##_kernel<SD>(__VA_ARGS__);                        \
   }
 // one block after the other, a host thread i for each of its threads
-#define BLOCKS(roles, lanes, call)                                   \
+#define BLOCKS(roles, lanes, ...)                                    \
   blockDim.x = (roles) * (lanes);                                    \
   pthread_barrier_init(&block_barrier, nullptr, blockDim.x);         \
   for (int g = 0; g < (B + (lanes) - 1) / (lanes); ++g) {            \
     blockIdx.x = g;                                                  \
     std::vector<std::thread> threads;                                \
     for (int i = 0; i < blockDim.x; ++i)                             \
-      threads.emplace_back([=] { threadIdx.x = i; call; });          \
+      threads.emplace_back([=] { threadIdx.x = i; __VA_ARGS__; });   \
     for (auto& th : threads) th.join();                              \
   }                                                                  \
   pthread_barrier_destroy(&block_barrier);
@@ -132,8 +130,9 @@ void host_finish_kin(const double* in, const double*, double* const* outs,
 }
 void host_finish_sys(const double* in, const double* p, double* const* outs,
                      int B, double c6, int, int lanes) {
-  BLOCKS(k_finish_sys::FS_ROLES, lanes, k_finish_sys::finish_sys_kernel<SD>(
-      (const SD*)in, (const SD*)p, (SD*)outs[i / (lanes)], B, SD(c6)))
+  BLOCKS(k_finish_sys::FS_ROLES, lanes,
+         k_finish_sys::finish_sys_kernel<fj::ACT_MECH, SD>(
+             (const SD*)in, (const SD*)p, (SD*)outs[i / (lanes)], B, SD(c6)))
 }
 int host_roles_kinair() { return fj::KA_ROLES; }
 int host_roles_dynamics() { return 1; }
@@ -147,21 +146,62 @@ int host_n_slots() { return fj::N_SLOTS; }
 void host_systems(const double* in, const double*, const double* p,
                   double* out, int B, int n_params, double adt, int,
                   int lanes) {
-  BLOCKS(fj::N_ROLES, lanes, k_systems::systems_kernel<SD>(
+  BLOCKS(fj::N_ROLES, lanes, k_systems::systems_kernel<fj::ACT_MECH, SD>(
       (const SD*)in, (const SD*)p, (SD*)out, B, n_params, SD(adt)))
 }
 void host_rk4_stage(const double* in, const double* k, const double* p,
                     double* out, int B, int n_params, double adt, int,
                     int lanes) {
-  BLOCKS(fj::N_ROLES, lanes, k_rk4_stage::rk4_stage_kernel<SD>(
+  BLOCKS(fj::N_ROLES, lanes, k_rk4_stage::rk4_stage_kernel<fj::ACT_MECH, SD>(
       (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, n_params,
       SD(adt)))
 }
 void host_rk4_finish(const double* in, const double* k, const double* p,
                      double* out, int B, int, double c6, int comp,
                      int lanes) {
-  BLOCKS(fj::N_ROLES, lanes, k_rk4_finish::rk4_finish_kernel<SD>(
-      (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, SD(c6), comp))
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_finish::rk4_finish_kernel<fj::ACT_MECH, SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p, (SD*)out, B, SD(c6),
+             comp))
+}
+// the fly-by-wire instances on one signature: k_prev or the k-sum (the RK4
+// kernels), the parameter buffer and its length, the step's scalar and flag
+// (comp of rk4_finish); role r writing into outs[r]
+void host_systems_fbw(const double* in, const double*, const double* p,
+                      double* const* outs, int B, int n_params, double adt,
+                      int, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes, k_systems::systems_kernel<fj::ACT_FBW, SD>(
+      (const SD*)in, (const SD*)p, (SD*)outs[i / (lanes)], B, n_params,
+      SD(adt)))
+}
+void host_finish_sys_fbw(const double* in, const double*, const double* p,
+                         double* const* outs, int B, int, double c6, int,
+                         int lanes) {
+  BLOCKS(k_finish_sys::FS_ROLES, lanes,
+         k_finish_sys::finish_sys_kernel<fj::ACT_FBW, SD>(
+             (const SD*)in, (const SD*)p, (SD*)outs[i / (lanes)], B, SD(c6)))
+}
+void host_rk4_stage_fbw(const double* in, const double* k, const double* p,
+                        double* const* outs, int B, int n_params, double adt,
+                        int, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes, k_rk4_stage::rk4_stage_kernel<fj::ACT_FBW, SD>(
+      (const SD*)in, (const SD*)k, (const SD*)p, (SD*)outs[i / (lanes)], B,
+      n_params, SD(adt)))
+}
+void host_rk4_finish_fbw(const double* in, const double* k, const double* p,
+                         double* const* outs, int B, int, double c6, int comp,
+                         int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_finish::rk4_finish_kernel<fj::ACT_FBW, SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p,
+             (SD*)outs[i / (lanes)], B, SD(c6), comp))
+}
+int host_roles_systems_fbw() { return fj::N_ROLES; }
+int host_roles_finish_sys_fbw() { return k_finish_sys::FS_ROLES; }
+int host_roles_rk4_stage_fbw() { return fj::N_ROLES; }
+int host_roles_rk4_finish_fbw() { return fj::N_ROLES; }
+int host_role_row_fbw(int role, int k) {
+  return fj::role_row<fj::ACT_FBW>(role, k);
 }
 void host_geoid(const double* in, const double*, const double* grid,
                 double* out, int B, double, int) {
@@ -196,7 +236,8 @@ def host_lib(tmp_path_factory):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh:
             src = fh.read()
         assert LAUNCH_CODE in src, name
-        src = src[:src.index(LAUNCH_CODE)].replace("using namespace fj;", "")
+        src = src[:src.rindex("template", 0, src.index(LAUNCH_CODE))]
+        src = src.replace("using namespace fj;", "")
         parts.append(f"namespace k_{name} {{\nusing namespace fj;\n{src}\n}}")
     (d / "kernels.cpp").write_text("\n".join(parts) + LANE_LOOPS)
     so = d / "kernels.so"
@@ -223,27 +264,6 @@ def _operands(batch):
 @pytest.fixture(scope="module")
 def operands():
     return _operands(B)
-
-
-def _as_wrapper_returns(name, out):
-    """The kernel's packed output as its wrapper returns it."""
-    if name == "kinair":
-        kin_dot, kin, air, xi_dyn = K.unpack(K.KINAIR_OUT, out)
-        return kin_dot, KinData(**kin), AirData(**air), xi_dyn
-    if name == "systems":
-        dot, mp, wr, hr = K.unpack(K.SYS_OUT, out)
-        return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
-    if name == "dynamics":
-        return K.unpack(K.DYN_OUT, out)[0]
-    if name == "finish_kin":
-        x_kin, x_dyn, kin, air, c = K.unpack(K.FIN_OUT, out)
-        return x_kin, x_dyn, KinData(**kin), AirData(**air), c
-    x2, s2 = K.unpack(K.FSYS_OUT, out)
-    s2["aero"]["stall"] = s2["aero"]["stall"] > 0.5
-    s2["crashed"] = s2["crashed"] > 0.5
-    s2["pwp"]["engine"]["state"] = s2["pwp"]["engine"]["state"].to(
-        torch.int32)
-    return x2, s2
 
 
 def _ptr(t):
@@ -330,12 +350,11 @@ def test_kernel_source_matches_plain(host_lib, operands, name, batch,
         out = _run_role(host_lib, name, args, lanes)
     else:
         out = _run_own_roles(host_lib, name, args, lanes)
-    got = _as_wrapper_returns(name, out)
+    got = K.unpack_out(name, out,
+                       name == "finish_kin" and args[-1] is not None)
     if name in ("kinair", "systems", "dynamics"):
         args = args[:-1] + (args[-1].to(torch.float64),)
     ref = getattr(K, name + "_plain")(*args)
-    if name == "finish_kin":  # the kernel carries residuals either way
-        got = got[:4] + (got[4] if args[-1] is not None else None,)
     if name == "finish_sys":  # the crash lane latches during the step
         assert not bool(args[4]["crashed"][CRASH_LANE])
         assert bool(got[1]["crashed"][CRASH_LANE])
@@ -361,7 +380,8 @@ def test_vehicle_kernel_source_matches_plain(host_lib, operands, name,
     if name == "rk4_stage":
         got = _run_rk4_stage(host_lib, args, lanes)
     elif name == "rk4_finish":
-        got = K.unpack_finish(_run_role(host_lib, name, args, lanes), comp)
+        got = K.unpack_out(name, _run_role(host_lib, name, args, lanes),
+                           comp)
     else:
         buf, n_out, _, ops = K.PACK[name](*args)
         out = torch.full((n_out, B), float("nan"), dtype=torch.float64)
@@ -390,10 +410,9 @@ def test_kinair_dynamics_source_on_isa_layers(host_lib, name, comp):
         args = args[:-1] + (args[-1] if comp else None,)
     else:
         args = args[:-1] + (args[-1].to(torch.float64),)
-    got = _as_wrapper_returns(name, _run_own_roles(host_lib, name, args, 32))
+    got = K.unpack_out(name, _run_own_roles(host_lib, name, args, 32),
+                       name == "finish_kin" and comp)
     ref = getattr(K, name + "_plain")(*args)
-    if name == "finish_kin":
-        got = got[:4] + (got[4] if comp else None,)
     if name != "dynamics":
         assert bool(ref[-2 if name == "finish_kin" else 2].p[
             list(ISA_NAN_LANES)].isnan().all())
@@ -469,3 +488,122 @@ def test_megakernel_source_matches_plain(host_lib, comp):
 @pytest.mark.parametrize("batch,lanes", RAGGED, ids=RAGGED_IDS)
 def test_megakernel_source_ragged_batch(host_lib, batch, lanes, comp):
     _check_megakernel(host_lib, batch, lanes, comp)
+
+
+# ------------------------------------------------------------ fly-by-wire
+
+FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
+             "rk4_finish_fbw")
+
+
+def _fbw_operands(batch):
+    """The wrapper arguments on the fly-by-wire C172 at the cluster operands
+    of these tests (`testing.fbw_cluster_operands`: lanes 3 and 17 on the
+    runway, lane 5 terminated, CRASH_LANE crashing in the step)."""
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
+    from flightjax_torch.testing import fbw_cluster_operands
+    veh = fbw_vehicle(device="cpu", dtype=torch.float64)
+    d = fbw_cluster_operands(batch, 1016, (3, 17), (5,), (CRASH_LANE,))
+    args = K.operand_args(d, veh, "cpu", torch.float64)
+    return {K.FBW.names[k]: args[k] for k in K.FBW.names}
+
+
+@pytest.fixture(scope="module")
+def fbw_operands():
+    return _fbw_operands(B)
+
+
+def _run_fbw(host_lib, name, args, lanes, split=False):
+    """The fly-by-wire instance `name` on the wrapper's arguments, block by
+    block at `lanes` aircraft per block; its packed output, or with `split`
+    one per role holding the rows the role wrote and NaN elsewhere."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    batch, params = buf.shape[1], ops["params"]
+    n_roles = getattr(host_lib, f"host_roles_{name}")()
+    outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+            for _ in range(n_roles if split else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if split else 0].data_ptr() for r in range(n_roles)))
+    getattr(host_lib, f"host_{name}")(
+        _ptr(buf), _ptr(ops.get("k")), _ptr(params), ptrs,
+        ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(scalars[0]),
+        ctypes.c_int(scalars[1] if len(scalars) > 1 else 0),
+        ctypes.c_int(lanes))
+    return outs if split else outs[0]
+
+
+_PLAIN_FBW = {"systems_fbw": K.systems_plain,
+              "finish_sys_fbw": K.finish_sys_plain,
+              "rk4_stage_fbw": K.rk4_stage_plain,
+              "rk4_finish_fbw": K.rk4_finish_plain}
+
+
+def _fbw_plain_args(name, args, comp):
+    if name in ("systems_fbw", "rk4_stage_fbw"):
+        return args[:-2] + (args[-2].to(torch.float64), args[-1]) \
+            if name == "rk4_stage_fbw" else \
+            args[:-1] + (args[-1].to(torch.float64),)
+    if name == "rk4_finish_fbw" and not comp:
+        return args[:-1] + (None,)
+    return args
+
+
+FBW_CASES = ([(n, False, B, 32) for n in FBW_NAMES]
+             + [("rk4_finish_fbw", True, B, 32)]
+             + [(n, c, b, lanes) for n, c in
+                (("systems_fbw", False), ("finish_sys_fbw", False),
+                 ("rk4_stage_fbw", False), ("rk4_finish_fbw", True))
+                for b, lanes in RAGGED])
+FBW_IDS = ([*FBW_NAMES, "rk4_finish_fbw-comp"]
+           + [f"{n}-{i}" for n in ("systems_fbw", "finish_sys_fbw",
+                                   "rk4_stage_fbw", "rk4_finish_fbw-comp")
+              for i in RAGGED_IDS])
+
+
+@pytest.mark.parametrize("name,comp,batch,lanes", FBW_CASES, ids=FBW_IDS)
+def test_fbw_kernel_source_matches_plain(host_lib, fbw_operands, name, comp,
+                                         batch, lanes):
+    """The fly-by-wire instances against their plain versions: the servo
+    states (stage point, derivative, combine), the rudder servo steering
+    the nose leg, and what the finishes store for the avionics."""
+    args = (fbw_operands if batch == B else _fbw_operands(batch))[name]
+    args = _fbw_plain_args(name, args, comp)
+    if name == "systems_fbw":
+        kargs = args[:-1] + (args[-1] > 0.5,)
+    elif name == "rk4_stage_fbw":
+        kargs = args[:-2] + (args[-2] > 0.5, args[-1])
+    else:
+        kargs = args
+    got = K.unpack_out(name, _run_fbw(host_lib, name, kargs, lanes), comp)
+    ref = _PLAIN_FBW[name](*args)
+    _assert_trees_close(got, ref)
+    if name in ("finish_sys_fbw", "rk4_finish_fbw"):
+        s_in = args[4]["systems"] if name == "rk4_finish_fbw" else args[4]
+        s_out = got[1]
+        assert not bool(s_in["crashed"][CRASH_LANE])
+        assert bool(s_out["crashed"][CRASH_LANE])
+
+
+@pytest.mark.parametrize("name", FBW_NAMES)
+def test_fbw_roles_partition_the_output(host_lib, fbw_operands, name):
+    """Every output row of each fly-by-wire instance, the servo rows and
+    the avionics' rows among them, is written by exactly one of its roles,
+    for every aircraft, and by no other role anywhere."""
+    args = fbw_operands[name]
+    outs = _run_fbw(host_lib, name, args, 32, split=True)
+    n_rows = outs[0].shape[0]
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * n_rows
+    assert touched.tolist() == [1] * n_rows
+
+
+def test_fbw_roles_partition_the_state(host_lib):
+    """Every row of the fly-by-wire X is integrated by exactly one role
+    (`role_row<ACT_FBW>`): role DRAG the seven servo states."""
+    rows = [host_lib.host_role_row_fbw(role, k)
+            for role in range(host_lib.host_n_roles())
+            for k in range(host_lib.host_n_slots())]
+    owned = sorted(r for r in rows if r >= 0)
+    assert owned == list(range(K.rows(K.FBW.x_groups)))

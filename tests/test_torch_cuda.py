@@ -8,6 +8,10 @@ batches that are no multiple of either, dynamics alike at 32 and 64 threads
 per block, kinair, dynamics and finish_kin also on the ISA-layer operands,
 the stage and finish kernels also on the airborne flight fleet;
 and the two whole-step entry points, a few steps against their plain paths.
+The fly-by-wire instances (systems_fbw, finish_sys_fbw, rk4_stage_fbw,
+rk4_finish_fbw) are held to their plain versions exactly at both block sizes
+and on ragged batches, and the C172Xv1's two paths, with the control laws'
+periodic pass, a few steps against the plain step.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -21,9 +25,6 @@ import torch
 from flightjax_torch.core.modeling import tree_leaves_with_path
 from flightjax_torch.models.c172.c172s import build_vehicle
 from flightjax_torch.parallel import kernels as K
-from flightjax_torch.physics.atmosphere import AirData
-from flightjax_torch.physics.dynamics import MassProps, Wrench
-from flightjax_torch.physics.kinematics import KinData
 from flightjax_torch.testing import (cluster_operands, flight_operand_args,
                                      isa_layer_operands, perturbed_fleet_sim)
 
@@ -157,23 +158,7 @@ def _launch_role(name, args, lanes, comp=False):
     returns it."""
     buf, n_out, scalars, ops = K.PACK[name](*args)
     out = K.launch_kernel(name, buf, n_out, scalars, ops, block=lanes)
-    if name == "kinair":
-        kin_dot, kin, air, xi_dyn = K.unpack(K.KINAIR_OUT, out)
-        return kin_dot, KinData(**kin), AirData(**air), xi_dyn
-    if name == "dynamics":
-        return K.unpack(K.DYN_OUT, out)[0]
-    if name == "systems":
-        dot, mp, wr, hr = K.unpack(K.SYS_OUT, out)
-        return dot, MassProps(**mp), Wrench(**wr), hr["hr_b"]
-    if name == "rk4_stage":
-        return K._x_tree(K.unpack(K.STAGE_OUT, out))
-    if name == "finish_kin":
-        x_kin, x_dyn, kin, air, c = K.unpack(K.FIN_OUT, out)
-        return x_kin, x_dyn, KinData(**kin), AirData(**air), \
-            (c if comp else None)
-    if name == "finish_sys":
-        return K.unpack(K.FSYS_OUT, out, typed=True)
-    return K.unpack_finish(out, comp)
+    return K.unpack_out(name, out, comp)
 
 
 @pytest.mark.cuda
@@ -288,3 +273,84 @@ def test_megakernel_lanes_per_block_on_card(batch, lanes, dtype, tol):
     assert torch.equal(got.i, ref.i)
     assert _worst((got.t, got.x, got.s, got.c), (ref.t, ref.x, ref.s,
                                                  ref.c)) <= tol
+
+
+# ------------------------------------------------------------ fly-by-wire
+
+FBW_CASES = [("systems_fbw", False), ("finish_sys_fbw", False),
+             ("rk4_stage_fbw", False), ("rk4_finish_fbw", False),
+             ("rk4_finish_fbw", True)]
+FBW_CASE_IDS = ["systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
+                "rk4_finish_fbw", "rk4_finish_fbw-comp"]
+
+
+def _fbw_args(name, batch, dtype, comp):
+    """The wrapper arguments of a fly-by-wire instance on the fly-by-wire
+    cluster operands (lanes 3 and 17 on the runway, lane 5 terminated,
+    SMALL_CRASH_LANE crashing), on the card."""
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw
+    from flightjax_torch.testing import fbw_cluster_operands
+    d = fbw_cluster_operands(batch, 1016, (3, 17), (5,), (SMALL_CRASH_LANE,))
+    base = name[:-len("_fbw")]
+    args = K.operand_args(d, fbw(device="cuda", dtype=dtype), "cuda",
+                          dtype)[base]
+    return base, _with_comp(base, args, comp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,comp", FBW_CASES, ids=FBW_CASE_IDS)
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fbw_instance_matches_plain_on_card(name, comp, batch, lanes, dtype):
+    """The fly-by-wire instances against their plain versions, exactly, at
+    both block sizes and on ragged batches; the wrapper launches the
+    instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base, args = _fbw_args(name, batch, dtype, comp)
+    ref = getattr(K, base + "_plain")(*args)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    got = K.unpack_out(name, K.launch_kernel(name, buf, n_out, scalars, ops,
+                                             block=lanes), comp)
+    before = K.LAUNCHES[name]
+    via = getattr(K, base)(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    assert _worst(got, ref) == 0.0
+    assert _worst(via, ref) == 0.0
+    if base in ("finish_sys", "rk4_finish"):
+        s_in = args[4]["systems"] if base == "rk4_finish" else args[4]
+        assert not bool(s_in["crashed"][SMALL_CRASH_LANE])
+        assert bool(got[1]["crashed"][SMALL_CRASH_LANE])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["subsystems", "vehicle"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_xv1_paths_match_plain_on_card(split, dtype, tol):
+    """The C172Xv1 on the turning climb, 3 steps from step 126 (the geoid
+    refresh fires) through each split against the plain cluster step, with
+    the periodic pass after every step; the launch counts of the split."""
+    from flightjax_torch.parallel.clusterstep import (cluster_step,
+                                                      make_cluster_step)
+    from flightjax_torch.testing import xv1_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = xv1_fleet_sim(B, 1016, "cuda", dtype)
+    if split == "vehicle":
+        st = st._replace(c=None)
+    step = make_cluster_step(sim, st, split=split)
+    K.reset_launches()
+    got = ref = st
+    for i in range(126, 129):
+        got = step(got, i=i)
+        ref = cluster_step(sim, ref, i, plain=True)
+    torch.cuda.synchronize()
+    want = ({"rk4_stage_fbw": 12, "rk4_finish_fbw": 3, "geoid": 1}
+            if split == "vehicle" else
+            {"kinair": 12, "systems_fbw": 12, "dynamics": 12,
+             "finish_kin": 3, "finish_sys_fbw": 3, "geoid": 1})
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+    assert _worst((got.t, got.x, got.u, got.s),
+                  (ref.t, ref.x, ref.u, ref.s)) <= tol

@@ -173,21 +173,32 @@ def test_finish_kin_plain_matches_k4_lane(case, comp):
 
 def test_wrappers_run_plain_on_cpu_without_launching(case):
     """On CPU tensors the wrappers are the plain versions and launch
-    nothing."""
+    nothing, on the mechanical C172 and on the fly-by-wire one (whose
+    instances the same wrappers launch on the card)."""
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
+    from flightjax_torch.parallel.launch import FBW_KERNELS
+    from flightjax_torch.testing import fbw_cluster_operands
     d, _ = case
     args = K.operand_args(d, build_vehicle(device="cpu", dtype=torch.float64),
                           "cpu", torch.float64, adt=ADT, dt=DT)
+    fbw = K.operand_args(fbw_cluster_operands(B, SEED, CONTACT_LANES,
+                                              (TERMINATED_LANE,)),
+                         fbw_vehicle(device="cpu", dtype=torch.float64),
+                         "cpu", torch.float64, adt=ADT, dt=DT)
     K.reset_launches()
     # every kernel but the megakernel, whose step has its own wrapper
-    assert set(args) == set(K.LAUNCHES) - {"megakernel"}
-    for name in args:
-        a = getattr(K, name)(*args[name])
-        b = getattr(K, name + "_plain")(*args[name])
-        for (pa, ta), (pb, tb) in zip(_leaves(a), _leaves(b)):
-            assert pa == pb and torch.equal(ta, tb), (name, pa)
+    assert set(args) == set(K.LAUNCHES) - {"megakernel", *FBW_KERNELS}
+    assert {K.FBW.names.get(k, k) for k in fbw} == (
+        set(K.LAUNCHES) - {"megakernel", *K.FBW.names})
+    for ops in (args, fbw):
+        for name in ops:
+            a = getattr(K, name)(*ops[name])
+            b = getattr(K, name + "_plain")(*ops[name])
+            for (pa, ta), (pb, tb) in zip(_leaves(a), _leaves(b)):
+                assert pa == pb and torch.equal(ta, tb), (name, pa)
     assert K.LAUNCHES == {name: 0 for name in (
         "kinair", "dynamics", "finish_kin", "systems", "finish_sys",
-        "rk4_stage", "rk4_finish", "geoid", "megakernel")}
+        "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS)}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

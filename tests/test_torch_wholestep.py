@@ -171,7 +171,7 @@ def test_rk4_finish_matches_jax_finish_lane(jax_ref):
     _, x, _, ksum, u, s = _lane_operands()
     vehicle = Tc.build_vehicle(device="cpu", dtype=F64)
     tv = lambda tree: to_torch(tree)["vehicle"]
-    xv, s_sys, term, c_kin = K.rk4_finish(
+    xv, s_sys, term, c_kin, *_ = K.rk4_finish(
         vehicle, tv(x), tv(ksum), tv(u), tv(s),
         torch.as_tensor(s["terminated"]), DT)
     x2, s2 = jax_ref["finish"](to_jax(x), to_jax(ksum), to_jax(u),

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Profile flightjax_torch's flagship step paths on one CUDA card: where the
-device time goes, by kernel, and how much of the step the device is idle.
+"""Profile flightjax_torch's step paths on one CUDA card: where the device
+time goes, by kernel, and how much of the step the device is idle.
 
-    python3 tools/profile_torch_step.py [--paths subsystems,vehicle,megakernel]
+    python3 tools/profile_torch_step.py [--paths subsystems,vehicle,megakernel,
+                                         xv1_subsystems,xv1_vehicle]
                                         [--batch 4096] [--steps 50]
 
-The paths are `subsystems` (`fleet_rollout` over `Simulation.fleet_step`,
-the five cluster kernels), `vehicle` (`make_cluster_step(split="vehicle")`,
-rk4_stage x 4 + rk4_finish) and `megakernel` (`make_megakernel_step`, one
-launch per step). For each, a warm window of `--steps` steps runs under
+The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
+`Simulation.fleet_step`, the five cluster kernels), `vehicle`
+(`make_cluster_step(split="vehicle")`, rk4_stage x 4 + rk4_finish) and
+`megakernel` (`make_megakernel_step`, one launch per step); and on the
+C172Xv1 flying the turning climb with its control laws
+(`testing.xv1_fleet_sim`), `xv1_subsystems` and `xv1_vehicle`, the same two
+splits with the fly-by-wire kernel instances and the periodic pass (the
+control laws as PyTorch ops) after every step. For each, a warm window of
+`--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
 ms per step of the same window run without the profiler, the device time per
 step summed over every kernel and copy, the idle share 1 - device / host,
@@ -29,7 +35,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
-PATHS = ("subsystems", "vehicle", "megakernel")
+PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
+         "xv1_vehicle")
 
 
 def device_us(evt):
@@ -46,6 +53,7 @@ def stepper(path, sim, st):
     from flightjax_torch.parallel.fleet import fleet_rollout
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     box = {"st": st, "i": int(st.i[0])}
+    path = path[len("xv1_"):] if path.startswith("xv1_") else path
     if path == "subsystems":
         def run(n):
             box["st"] = fleet_rollout(sim, box["st"], n)
@@ -113,17 +121,20 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
-    from flightjax_torch.testing import perturbed_fleet_sim
+    from flightjax_torch.testing import perturbed_fleet_sim, xv1_fleet_sim
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    sim, st = perturbed_fleet_sim(args.batch, args.seed, "cuda",
-                                  torch.float32)
+    fleets = {}
     out = []
     for path in args.paths.split(","):
-        r = profile(path, sim, st, args.steps, args.top)
+        kind = "xv1" if path.startswith("xv1_") else "c172s"
+        if kind not in fleets:
+            make = xv1_fleet_sim if kind == "xv1" else perturbed_fleet_sim
+            fleets[kind] = make(args.batch, args.seed, "cuda", torch.float32)
+        r = profile(path, *fleets[kind], args.steps, args.top)
         out.append(r)
         print(f"{path}: B = {args.batch}, {args.steps} steps, f32: host "
               f"{r['host_ms_per_step']:.4f} ms/step "
