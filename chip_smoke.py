@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build flightjax_torch's CUDA kernels and drive its step paths on one
-NVIDIA card: the C172S flagship's three and the C172Xv1 autopilot's two;
+NVIDIA card: the C172S flagship's three and the C172Xv1 autopilot's three;
 exit non-zero if any phase fails.
 
     python3 chip_smoke.py
@@ -16,17 +16,23 @@ The paths, each an entry point a user calls:
 - `megakernel`: `make_megakernel_step`, the whole `Simulation.step` (geoid
   refreshed every step, compensated) in one launch on a state resident on
   the card;
-- `xv1_subsystems`, `xv1_vehicle`: the same two splits on the fly-by-wire
-  C172Xv1 flying the turning climb with its gain-scheduled control laws
-  (`LON_EAS_CLM` at EAS 45 m/s and 1.5 m/s climb, `LAT_CHI_BETA` onto
-  course pi / 2), through the fly-by-wire instances of the systems kernels
-  (`systems_fbw`, `finish_sys_fbw`; `rk4_stage_fbw`, `rk4_finish_fbw`) and
-  the periodic pass after every step (dt = periodic_dt = 0.02 s): the
-  control laws as PyTorch ops on what the finish kernels store.
+- `xv1_subsystems`, `xv1_vehicle`, `xv1_megakernel`: the same three entry
+  points on the fly-by-wire C172Xv1 flying the turning climb with its
+  gain-scheduled control laws (`LON_EAS_CLM` at EAS 45 m/s and 1.5 m/s
+  climb, `LAT_CHI_BETA` onto course pi / 2), through the fly-by-wire
+  instances of the systems kernels (`systems_fbw`, `finish_sys_fbw`;
+  `rk4_stage_fbw`, `rk4_finish_fbw`) with the periodic pass after every
+  step (dt = periodic_dt = 0.02 s) as the `ctl_laws` kernel on what the
+  finish kernels store, and `megakernel_fbw`, the whole step with the pass
+  inside it.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
-2. build: the kernels of flightjax_torch/csrc compiled for sm_90a;
+2. build: the kernels of flightjax_torch/csrc compiled for sm_90a; the
+   machine code of every kernel instance that was there before the
+   C172Xv1 megakernel and the control laws came, held to its record
+   (`tools/sass_torch_kernels.py`, `tools/sass_record.json`; not compared
+   under another nvcc than the record's);
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
    max(1, |plain|); flags and states exactly), the four fly-by-wire
@@ -41,14 +47,23 @@ Phases:
    temperatures: NaN where plain is NaN) at 32 and 64 aircraft (threads for
    dynamics) per block, finish_kin and finish_sys also at 64 per block and
    on the airborne flight fleet, and one megakernel step on the cluster
-   operands' fleet, with and without residuals;
+   operands' fleet, with and without residuals; `ctl_laws` exactly, in both
+   layouts (lon and lat in two warps, or one thread per aircraft) at 32 and
+   64 aircraft per block, on the mode-rich operands (`testing.
+   ctl_laws_args`: every lon and lat mode, mode changes, lanes on the
+   ground, both sides of the altitude machine's switch points, saturation
+   flags of both signs) and on the pass of the C172Xv1 fleet;
+   `megakernel_fbw` exactly, one step at 32 and 64 aircraft per block, on
+   the C172Xv1 cluster state with the mode-rich avionics (with and without
+   residuals, and the pass firing on every other lane at twice the step)
+   and on the C172Xv1 fleet;
 4. the paths: the trimmed C172S flagship and the trimmed C172Xv1 on the
    turning climb, each at 4096 perturbed aircraft in float32, each path
    from its launch counts set to 0 to their reading just after:
    `subsystems` and `xv1_subsystems` 100 steps (from step 28, so the
-   refresh at step 128 is among them), `xv1_vehicle` 500 steps (10 s),
-   `vehicle` and `megakernel` 200 steps (cut from 500 for time: the plain
-   references take most of the run). Every leaf finite, no lane terminated,
+   refresh at step 128 is among them), `xv1_megakernel` 500 steps (10 s),
+   `vehicle` and `megakernel` 200 steps and `xv1_vehicle` 100 (cut from
+   500 for time: the plain references take most of the run). Every leaf finite, no lane terminated,
    no lane's stall flag set at any step, altitude and EAS in a physical
    band (on the C172Xv1 above the stall speed in its 45 deg bank), launch
    counts as the path prescribes; on the C172Xv1 also the servo commands
@@ -57,7 +72,7 @@ Phases:
    the 10 s float32 envelope of BENCHMARKS.md scaled to the steps flown
    (n / 500 of it); 20 steps of each path in float64 agree with plain to
    1e-9; host and device ms per step, launches per step and the device's
-   idle share of the two C172Xv1 paths under torch.profiler
+   idle share of the three C172Xv1 paths under torch.profiler
    (`tools/profile_torch_step.py`);
 5. timings: per kernel the warm median of the bare launch, of the wrapper
    and of the plain version, and the bound (bytes over 3.35 TB/s or
@@ -70,12 +85,13 @@ Phases:
    airborne flight fleet (`airborne_ms`) and on the kernel-check operands
    with lanes on the runway (`runway_ms`), beside an empty kernel launched
    the same way,
-   and the megakernel at B = 16384 and 65536 too. Every number of a
-   kernel's row but those two is taken on one set of operands: the
-   flight fleet (the state its path steps) for the megakernel, the
+   and the megakernel at B = 16384 and 65536 too; `ctl_laws` in both
+   layouts. Every number of a kernel's row but those is taken on one set
+   of operands: the flight fleet (the state its path steps) for the
+   megakernels and `ctl_laws` (the pass at the C172Xv1 fleet's state), the
    kernel-check operands for the others (the C172Xv1 fleet for the
    fly-by-wire instances' airborne times). Then vehicle-steps/s of the
-   five paths and the plain one, interleaved windows, median and
+   six paths and the plain one, interleaved windows, median and
    aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -96,15 +112,15 @@ import torch
 B = 4096
 STEPS = 500
 SUB_STEPS, SUB_I0 = 100, 28
-# the C172S paths but subsystems, cut for time (the plain references take
-# most of the run)
-MECH_STEPS = 200
+# the C172S paths but subsystems and the C172Xv1's vehicle split, cut for
+# time (the plain references take most of the run)
+MECH_STEPS, XV1_VEHICLE_STEPS = 200, 100
 F64_STEPS = 20
 SEED = 1016
 DEVICE = "cuda"
 # steps per throughput window (the plain path is ~40x slower)
 WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20,
-          "xv1_subsystems": 100, "xv1_vehicle": 100}
+          "xv1_subsystems": 100, "xv1_vehicle": 100, "xv1_megakernel": 500}
 # the H100 SXM's published peaks: HBM3 bandwidth and dense float32 rate
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
@@ -145,14 +161,30 @@ KERNELS = {
     "rk4_finish_fbw": ("flightjax_torch/csrc/rk4_finish.cu",
                        "flightjax/parallel/clusterstep.py:97",
                        "xv1_vehicle"),
+    # the megakernel's instance on the C172Xv1, with the masked periodic
+    # pass of the control laws inside it, and that pass as a kernel of its
+    # own, which the two C172Xv1 splits launch after each firing step
+    "megakernel_fbw": ("flightjax_torch/csrc/megakernel.cu",
+                       "flightjax/parallel/megakernel.py:43",
+                       "xv1_megakernel"),
+    "ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
+                 "flightjax/parallel/megakernel.py:43", "xv1_vehicle"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
-# the kernels that run on the cluster operands (the megakernel steps a
-# state), C172S first
-LANE_KERNELS = tuple(k for k in KERNELS
-                     if k != "megakernel" and k not in FBW_NAMES)
-XV1_PATHS = ("xv1_subsystems", "xv1_vehicle")
+# the kernels that run on the cluster operands (the megakernels step a
+# state, ctl_laws runs the control laws), C172S first
+LANE_KERNELS = tuple(k for k in KERNELS if k not in (
+    "megakernel", "megakernel_fbw", "ctl_laws") and k not in FBW_NAMES)
+XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
+# the gain tables each lon and lat mode of the control laws reads
+# (`models/c172/c172x_ctl.py`: the sub-controllers each mode enables)
+LON_TABLES = {0: (), 1: ("te2te",), 2: ("q2e", "te2te"),
+              3: ("q2e", "te2te"), 4: ("tv2te",),
+              5: ("v2t", "q2e", "te2te"), 6: ("v2t", "q2e", "te2te"),
+              7: ("v2t", "c2theta", "q2e", "te2te"), 8: ("vh2te",)}
+LAT_TABLES = {0: (), 1: ("ar2ar",), 2: ("p2phi", "phibeta2ar"),
+              3: ("phibeta2ar",), 4: ("chi2phi", "phibeta2ar")}
 # the kernel-check operands' lanes: on the runway, terminated, and crashing
 # during the step (on the runway, sinking past what the gear takes)
 GROUND_LANES, TERMINATED_LANES, CRASH_LANE = (3, 77), (5,), 78
@@ -456,6 +488,56 @@ def flight_operands(sim, st):
             for name, args in flight_operand_args(sim, st).items()}
 
 
+def ctl_flight_args(sim, st):
+    """The arguments of `ctl_laws` at the C172Xv1 fleet `st`: its pass on
+    the VehicleY there (the plain `Vehicle.output`) with its avionics."""
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                 st.s["vehicle"])
+    from flightjax_torch.parallel import kernels as K
+    return (aircraft.avionics, K.ctl_y(vy), st.u["avionics"],
+            st.s["avionics"], sim.periodic_dt)
+
+
+def xv1_mega_inputs(dtype, comp, spp=1):
+    """(sim, SimState) of the C172Xv1 cluster state with the mode-rich
+    avionics (`testing.xv1_operand_state`, the kernel-check lanes) at step
+    126, with zero residuals when `comp`; with `spp` 2 the pass fires
+    every other step and every other lane's counter is odd."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    from flightjax_torch.testing import xv1_operand_state
+    sim, _, _ = c172xv1_sim(DEVICE, dtype)
+    if spp != 1:
+        sim = Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                         geoid_every=sim.geoid_every)
+    st = xv1_operand_state(B, SEED, DEVICE, dtype, GROUND_LANES,
+                           TERMINATED_LANES, (CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(B, dtype=torch.int32,
+                                           device=DEVICE) % spp)
+    return sim, st._replace(c=comp_residuals(st.x, force=True) if comp
+                            else None)
+
+
+def gain_values(avionics, EAS, h, lon_mode, lat_mode):
+    """The gain values one pass reads: the corners of each lane's (EAS, h)
+    cell in each table its lon and lat modes enable, a value shared by
+    lanes once."""
+    from flightjax_torch.parallel import kernels as K
+    lk = avionics.gains["v2t"]["k_p"]  # every table shares this grid
+    cells = []
+    for x, ax, uni in zip((EAS, h), lk.axes, lk._uni):
+        i = torch.floor((x - uni[0]) / uni[1]).long()
+        cells.append(i.clamp(0, ax.numel() - 2).tolist())
+    width = {ch: (4 if ch in ("v2t", "c2theta", "q2e", "p2phi", "chi2phi")
+                  else 3 * K.CTL_NX[ch] + 12) for ch in K.CTL_TABLES}
+    seen = set()
+    for i0, i1, lon, lat in zip(*cells, lon_mode.tolist(), lat_mode.tolist()):
+        for ch in LON_TABLES[lon] + LAT_TABLES[lat]:
+            seen.update((ch, i0 + a, i1 + b) for a in (0, 1) for b in (0, 1))
+    return sum(width[ch] for ch, _, _ in seen)
+
+
 # ------------------------------------------------------------ paths
 
 def fleet(dtype, seed=SEED):
@@ -487,9 +569,9 @@ def plain_rollout(sim, st, n, geoid_every=None):
 
 class Paths:
     """The kernel paths and their plain references on one fleet (the
-    C172S's three, or with `prefix` "xv1_" the C172Xv1's two, which has no
-    megakernel): `run(label, n)` steps a path from its start state and
-    returns the final SimState."""
+    C172S's three, or with `prefix` "xv1_" the C172Xv1's three): `run(label,
+    n)` steps a path from its start state and returns the final
+    SimState."""
 
     def __init__(self, sim, st0, prefix=""):
         from flightjax_torch.parallel.clusterstep import make_cluster_step
@@ -499,9 +581,8 @@ class Paths:
                    "vehicle": st0._replace(c=None), "megakernel": st0}
         self.vehicle = make_cluster_step(sim, self.st["vehicle"],
                                          split="vehicle")
-        if not prefix:
-            self.bufs, self.step_packed, self.unpack = make_megakernel_step(
-                sim, st0)
+        self.bufs, self.step_packed, self.unpack = make_megakernel_step(
+            sim, st0)
 
     def run(self, label, n, watch=None):
         """`watch(state)`, if given, sees the state after every step (the
@@ -554,7 +635,9 @@ def expected_launches(label, n, i0=0):
         want.update({"rk4_stage" + fbw: 4 * n, "rk4_finish" + fbw: n,
                      "geoid": geoid})
     else:
-        want.update(megakernel=n)
+        want["megakernel" + fbw] = n
+    if fbw and label != "megakernel":  # the pass after every step
+        want["ctl_laws"] = n
     return want
 
 
@@ -679,6 +762,23 @@ def main():
                 log("  ptxas: " + line.strip())
     sizes = dict(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
     log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    from sass_torch_kernels import compare, nvcc_version
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tools", "sass_record.json")
+    with open(record) as fh:
+        rec_nvcc = json.load(fh)["nvcc"]
+    if rec_nvcc == nvcc_version(L._nvcc()):
+        same, changed, missing = compare(L.BUILD_INFO["so"], record,
+                                         L._nvcc())
+        log(f"SASS: the {len(same)} kernels recorded before the C172Xv1 "
+            f"megakernel and the control laws came are instruction for "
+            f"instruction as recorded ({', '.join(same)})")
+        if changed or missing:
+            raise AssertionError(f"SASS changed {changed}, missing {missing}")
+    else:
+        log(f"SASS: not compared, the record is of {rec_nvcc}")
     regs = registers(L.BUILD_INFO["log"])
     for name in KERNELS:
         log(f"  registers {name}: " + ", ".join(
@@ -791,6 +891,61 @@ def main():
                                              "not latch crashed")
         del fargs, xsim, xst, xflight
 
+    # the control laws' pass and the fly-by-wire megakernel exactly, at 32
+    # and 64 aircraft per block; ctl_laws in both layouts
+    from flightjax_torch.testing import ctl_laws_args
+    for dtype in (torch.float64, torch.float32):
+        xsim, xst = xv1_fleet(dtype)
+        cases = [("mode-rich operands", ctl_laws_args(B, SEED, DEVICE, dtype,
+                                                      GROUND_LANES)),
+                 ("C172Xv1 fleet", ctl_flight_args(xsim, xst))]
+        for what, a in cases:
+            ref = K.ctl_laws_plain(*a)
+            got = K.ctl_laws(*a)  # the wrapper, at its default layout
+            torch.cuda.synchronize()
+            check("ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                  f" ({what}, wrapper)")
+            for split in (1, 0):
+                for lanes in (32, 64):
+                    buf, n_out, scal, ops = K.PACK["ctl_laws"](*a)
+                    out = L.launch("ctl_laws", buf, n_out, (scal[0], split),
+                                   block=lanes, **ops)
+                    got = K.unpack_out("ctl_laws", out)
+                    torch.cuda.synchronize()
+                    check("ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                          f" ({what}, {'two warps' if split else 'one thread'}"
+                          f" per 32 aircraft, block {lanes})")
+            modes = (sorted(set(ref[0]["lon"]["mode_prev"].tolist())),
+                     sorted(set(ref[0]["lat"]["mode_prev"].tolist())))
+            log(f"ctl_laws ({what}): lon modes {modes[0]}, lat modes "
+                f"{modes[1]}")
+            if what.startswith("mode-rich") and modes != (list(range(9)),
+                                                           list(range(5))):
+                raise AssertionError("ctl_laws: the operands miss a mode")
+        mega_cases = [("cluster state", *xv1_mega_inputs(dtype, False)),
+                      ("cluster state, compensated",
+                       *xv1_mega_inputs(dtype, True)),
+                      ("cluster state, pass every 2nd step",
+                       *xv1_mega_inputs(dtype, True, spp=2)),
+                      ("C172Xv1 fleet", xsim, xst)]
+        for what, msim, mst in mega_cases:
+            ref = megakernel_step_plain(msim, mst)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    msim, mst, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                check("megakernel_fbw", dtype, 0.0,
+                      leaf_pairs(tuple(got), tuple(ref)),
+                      f" ({what}, block {lanes})")
+            if what.startswith("cluster") and not (
+                    bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+                    and not bool(mst.s["vehicle"]["systems"]["crashed"][
+                        CRASH_LANE])):
+                raise AssertionError("megakernel_fbw: the crash lane did not "
+                                     "latch crashed")
+        del xsim, xst, cases, mega_cases
+
     # 4. the paths in f32: kernels, each from counts 0, against plain
     sim, st0 = fleet(torch.float32)
     paths = Paths(sim, st0)
@@ -799,7 +954,9 @@ def main():
     launches = {}
     for label, n in (("subsystems", SUB_STEPS), ("vehicle", MECH_STEPS),
                      ("megakernel", MECH_STEPS),
-                     ("xv1_subsystems", SUB_STEPS), ("xv1_vehicle", STEPS)):
+                     ("xv1_subsystems", SUB_STEPS),
+                     ("xv1_vehicle", XV1_VEHICLE_STEPS),
+                     ("xv1_megakernel", STEPS)):
         psim, paths_ = (xsim, xpaths) if label in XV1_PATHS else (sim, paths)
         i0 = int(paths_.st[label[len(paths_.prefix):]].i[0])
         torch.cuda.synchronize()
@@ -861,9 +1018,7 @@ def main():
     del sim64, st64, paths64, xsim64, xst64, xpaths64
 
     # host and device ms per step, launches per step and idle share of the
-    # C172Xv1 paths (the control laws run as PyTorch ops between kernels)
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tools"))
+    # C172Xv1 paths
     from profile_torch_step import profile
     profiles = {}
     for label in XV1_PATHS:
@@ -1003,6 +1158,84 @@ def main():
                          block_ms=extra["runway_lanes_ms"], **extra))
     del fargs, xflight
 
+    # ctl_laws: on the pass of the C172Xv1 fleet the paths step (airborne)
+    # and on the mode-rich operands (lanes on the ground), in both layouts
+    from flightjax_torch.testing import ctl_laws_args
+    xavionics = xsim.system.aircraft.avionics
+    air_args = ctl_flight_args(xsim, xst0)
+    ctl_packed = {"air": K.PACK["ctl_laws"](*air_args),
+                  "rich": K.PACK["ctl_laws"](*ctl_laws_args(
+                      B, SEED, DEVICE, torch.float32, GROUND_LANES))}
+
+    def ctl(which, lanes=None, split=L.CTL_SPLIT):
+        buf, n_out, scal, ops = ctl_packed[which]
+        return L.launch("ctl_laws", buf, n_out, (scal[0], split),
+                        block=lanes, **ops)
+
+    extra = role_times("ctl_laws", lambda n=None: ctl("air", n),
+                       lambda n=None: ctl("rich", n), B, L.CTL_SPLIT)
+    layouts = {("two warps" if split else "one thread"): {
+        which: {n: graph_ms(lambda: ctl(which, n, split)) for n in (32, 64)}
+        for which in ("air", "rich")} for split in (1, 0)}
+    ref = K.ctl_laws_plain(*air_args)
+    buf, n_out, _, _ = ctl_packed["air"]
+    n_elems = buf.numel() + n_out * B + gain_values(
+        xavionics, air_args[1]["EAS"], air_args[1]["h_e"],
+        ref[0]["lon"]["mode_prev"], ref[0]["lat"]["mode_prev"])
+    rows.append(dict(name="ctl_laws", route="cuda",
+                     source=KERNELS["ctl_laws"][0],
+                     replaces=KERNELS["ctl_laws"][1],
+                     launches=launches["ctl_laws"],
+                     max_abs_err=errs["ctl_laws"], ms=extra["airborne_ms"],
+                     plain_ms=cuda_ms(lambda: K.ctl_laws_plain(*air_args),
+                                      reps=5, calls=4),
+                     nbytes=4 * n_elems,
+                     ops=count_ops(lambda: K.ctl_laws_plain(*air_args)),
+                     library_ms=None, event_ms=cuda_ms(lambda: ctl("air")),
+                     wrapper_ms=cuda_ms(lambda: K.ctl_laws(*air_args)),
+                     block_ms=extra["lanes_ms"], layouts_ms=layouts,
+                     **extra))
+    del ctl_packed
+
+    # megakernel_fbw: on the C172Xv1 fleet the path steps (airborne) and on
+    # the C172Xv1 cluster state with the mode-rich avionics (runway)
+    xgrid = K.geoid_grid(xsim.system.aircraft.vehicle.geoid)
+    xgains = K.ctl_gains(xavionics)
+    _, rst = xv1_mega_inputs(torch.float32, True)
+    rbufs, _, _ = make_megakernel_step(xsim, rst)
+    xbufs = xpaths.bufs
+
+    def mega_fbw(b, lanes=None):
+        return L.launch_megakernel(b[0], b[1], xparams, xgrid, xsim.dt,
+                                   xsim.t_start, True, lanes, xgains,
+                                   xsim.steps_per_periodic,
+                                   xsim.periodic_dt)
+
+    extra = role_times("megakernel_fbw", lambda n=None: mega_fbw(xbufs, n),
+                       lambda n=None: mega_fbw(rbufs, n), B, xparams.numel())
+    new = xpaths.unpack(xpaths.step_packed(xbufs))
+    n_elems = (2 * (xbufs[0].numel() + xbufs[1].numel()) + xparams.numel()
+               + geoid_cells(xsim.system.aircraft.vehicle.geoid,
+                             new.x["vehicle"]["kinematics"]["q_ew"])
+               + gain_values(xavionics, eas(new),
+                             new.x["vehicle"]["kinematics"]["h_e"],
+                             new.s["avionics"]["lon"]["mode_prev"],
+                             new.s["avionics"]["lat"]["mode_prev"]))
+    rows.append(dict(
+        name="megakernel_fbw", route="cuda",
+        source=KERNELS["megakernel_fbw"][0],
+        replaces=KERNELS["megakernel_fbw"][1],
+        launches=launches["megakernel_fbw"],
+        max_abs_err=errs["megakernel_fbw"], ms=extra["airborne_ms"],
+        plain_ms=cuda_ms(lambda: megakernel_step_plain(xsim, xst0), reps=3,
+                         calls=2),
+        nbytes=4 * n_elems,
+        ops=count_ops(lambda: megakernel_step_plain(xsim, xst0)),
+        library_ms=None, event_ms=cuda_ms(lambda: mega_fbw(xbufs)),
+        wrapper_ms=cuda_ms(lambda: xpaths.step_packed(xbufs)),
+        block_ms=extra["lanes_ms"], **extra))
+    del rbufs, rst, new
+
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         r["code_bytes"] = sizes.get(r["name"])
@@ -1028,6 +1261,13 @@ def main():
                 + f"), an empty kernel launched the same way (grid, block, "
                 f"shared bytes {r['launch_shape']}) {r['empty_ms']:.4f} ms "
                 f"({r['empty_event_ms']:.4f} by events) [{card}]")
+        for layout, t in r.get("layouts_ms", {}).items():
+            log(f"time {r['name']} with {layout} per 32 aircraft (graph "
+                f"times): airborne " + ", ".join(
+                    f"{k}: {v:.4f}" for k, v in t["air"].items())
+                + " ms by aircraft per block; mode-rich operands "
+                + ", ".join(f"{k}: {v:.4f}" for k, v in t["rich"].items())
+                + f" ms [{card}]")
         for batch, t in r.get("by_batch_ms", {}).items():
             log(f"time {r['name']} at B = {batch}: airborne "
                 f"{t['airborne_ms']:.4f} ms ({t['airborne_64_ms']:.4f} at 64 "
@@ -1062,7 +1302,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms", "wrapper_ms", "block_ms", "nbytes", "ops",
             "code_bytes", "registers", "airborne_ms", "runway_ms",
-            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms")
+            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms",
+            "layouts_ms")
     log("profiles: " + json.dumps(profiles))
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

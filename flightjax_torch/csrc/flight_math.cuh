@@ -151,6 +151,8 @@ static __device__ __noinline__ SF Cos(SF x) { return SF::of(cosf(x.v)); }
 static __device__ __noinline__ SD Cos(SD x) { return SD::of(cos(x.v)); }
 static __device__ __noinline__ SF Sin(SF x) { return SF::of(sinf(x.v)); }
 static __device__ __noinline__ SD Sin(SD x) { return SD::of(sin(x.v)); }
+static __device__ __noinline__ SF Tan(SF x) { return SF::of(tanf(x.v)); }
+static __device__ __noinline__ SD Tan(SD x) { return SD::of(tan(x.v)); }
 __device__ __forceinline__ SF Floor(SF x) { return SF::of(floorf(x.v)); }
 __device__ __forceinline__ SD Floor(SD x) { return SD::of(floor(x.v)); }
 __device__ __forceinline__ SF Fmod(SF x, SF y) { return SF::of(fmodf(x.v, y.v)); }

@@ -116,20 +116,6 @@ void rk4_stage_fbw_layout(int* n_in, int* n_out) {
   *n_in = STAGE_N_IN_FBW;
   *n_out = STAGE_N_OUT_FBW;
 }
-// the whole-vehicle row groups: X, CTX, C and the megakernel's state buffer
-void vehicle_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
-  *n_x = N_X;
-  *n_ctx = N_CTX;
-  *n_c = N_C;
-  *n_mega = MEGA_N_ROWS;
-}
-// those of the fly-by-wire C172, which has no megakernel (0)
-void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
-  *n_x = N_X_FBW;
-  *n_ctx = N_CTX_FBW;
-  *n_c = N_C;
-  *n_mega = 0;
-}
 void rk4_stage_launch_shape(int B, int lanes, int n_params, int elem_size,
                             int* grid, int* block, int* shared) {
   put_launch(role_launch(B, lanes, n_params, elem_size, SH_N), grid,

@@ -18,7 +18,16 @@ The whole vehicle (the `vehicle` split and the megakernel):
 - `geoid`      <- the EGM96 refresh (`geodesy.geoid_height`), which the TPU
                   paths run outside their kernels
 - `megakernel` <- `megakernel.py::make_megakernel_step` (its wrapper is
-                  `launch_megakernel`; the step is `parallel/megakernel.py`)
+                  `launch_megakernel`; the step is `parallel/megakernel.py`),
+                  and `megakernel_fbw`, its instance on the C172Xv1 with
+                  the control laws' periodic pass inside it
+
+The C172X's periodic pass:
+
+- `ctl_laws`   <- `ControlLaws.f_periodic` and `assign`, which the TPU
+                  megakernel runs inside the step on the C172Xv1
+                  (`core/sim.py:327-333`) and the TPU cluster paths as XLA
+                  glue (`clusterstep.py:591-607`)
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); there is no fallback between the two.
@@ -43,9 +52,13 @@ import torch
 from flightjax_torch.core.modeling import bscale, tree_map
 from flightjax_torch.core.sim import comp_add
 from flightjax_torch.models.c172.common import (AERO_CONST, M_FULL, M_RES,
+                                                AeroY, EngineY, LdgY,
+                                                StrutWow, SystemsY, ThrusterY,
                                                 _alpha_gated, systems_y)
 from flightjax_torch.ops.geodesy import nvector_from_qew
+from flightjax_torch.ops.interp import Lookup
 from flightjax_torch.parallel import launch as L
+from flightjax_torch.physics import control as CTL
 from flightjax_torch.physics.aircraftbase import VehicleY
 from flightjax_torch.physics.atmosphere import AirData, SimpleAtmosphere, air_data
 from flightjax_torch.physics.dynamics import DynamicsU, MassProps, VehicleDynamics, Wrench
@@ -103,6 +116,55 @@ U_SYS_FBW = (tuple((("act", k), 1) for k in FBW_CMD_KEYS) + U_SYS[
 SYS_Y = (("alpha", 1), ("beta", 1), ("wow", 3))
 KIN_Y = (("omega_wb_b", 3), ("e_nb", 3), ("v_eb_n", 3), ("chi_gnd", 1),
          ("EAS", 1))
+# the C172X control laws (`models/c172/c172x_ctl.py`; rows of
+# csrc/c172x_ctl.cuh): the avionics' inputs u and discrete state s, lon and
+# lat, with the primitives' states as NamedTuples of `physics/control.py`;
+# CTL_Y the VehicleY fields the laws read, the commands and servo positions
+# of the four channels they command (by name)
+CTL_CMD = ("aileron", "elevator", "rudder", "throttle")
+AV_U_LON = tuple((k, 1) for k in (
+    "mode_req", "throttle_axis", "throttle_offset", "elevator_axis",
+    "elevator_offset", "q_ref", "theta_ref", "EAS_ref", "clm_ref", "h_ref"))
+AV_U_LAT = tuple((k, 1) for k in (
+    "mode_req", "aileron_axis", "aileron_offset", "rudder_axis",
+    "rudder_offset", "p_ref", "beta_ref", "phi_ref", "chi_ref"))
+_AV_STATES = {"lqr": (CTL.LQRState, (2, 2)),
+              "int": (CTL.IntegratorState, (1, 1)),
+              "pid": (CTL.PIDState, (1, 1, 1))}
+# the primitive of each controller state, by its key
+AV_PRIMITIVES = {"te2te": "lqr", "tv2te": "lqr", "vh2te": "lqr",
+                 "q2e_int": "int", "q2e_pid": "pid", "c2theta_pid": "pid",
+                 "v2t_pid": "pid", "ar2ar": "lqr", "pb2ar": "lqr",
+                 "p2phi_int": "int", "p2phi_pid": "pid",
+                 "chi2phi_pid": "pid"}
+
+
+def _av_rows(*keys):
+    out = []
+    for k in keys:
+        if k in AV_PRIMITIVES:
+            cls, widths = _AV_STATES[AV_PRIMITIVES[k]]
+            out += [((k, f), w) for f, w in zip(cls._fields, widths)]
+        else:
+            out.append((k, 1))
+    return tuple(out)
+
+
+AV_S_LON = _av_rows("mode_prev", "h_state", "te2te", "tv2te", "vh2te",
+                    "q2e_int", "q2e_pid", "c2theta_pid", "v2t_pid",
+                    "prev_throttle_cmd", "prev_te_zref_ele") + (
+    (("out", "throttle_cmd"), 1), (("out", "elevator_cmd"), 1))
+AV_S_LAT = _av_rows("mode_prev", "ar2ar", "pb2ar", "p2phi_int", "p2phi_pid",
+                    "chi2phi_pid", "prev_pb_zref_phi") + (
+    (("out", "aileron_cmd"), 1), (("out", "rudder_cmd"), 1))
+AV_GROUPS = (AV_U_LON, AV_U_LAT, AV_S_LON, AV_S_LAT)
+CTL_Y = ((("omega_wb_b", 3), ("omega_eb_b", 3), ("e_nb", 3), ("v_eb_n", 3),
+          ("chi_gnd", 1), ("EAS", 1), ("h_e", 1), ("alpha", 1), ("beta", 1),
+          ("alpha_filt", 1), ("beta_filt", 1), ("n", 1))
+         + tuple((("cmd", ch), 1) for ch in CTL_CMD)
+         + tuple((("pos", ch), 1) for ch in CTL_CMD) + (("wow", 3),))
+CTL_IN = (CTL_Y,) + AV_GROUPS
+CTL_OUT = (AV_S_LON, AV_S_LAT, tuple((ch, 1) for ch in CTL_CMD))
 TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
 MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
 WR = (("F", 3), ("tau", 3))
@@ -134,14 +196,19 @@ LEAF_DTYPES = {(("pwp", "engine", "mixture_ctl")): torch.int32,
                ("pwp", "engine", "state"): torch.int32,
                ("aero", "stall"): torch.bool, "crashed": torch.bool,
                "surface": torch.int32, "terminated": torch.bool,
-               "wow": torch.bool}
+               "wow": torch.bool, "mode_req": torch.int32,
+               "mode_prev": torch.int32, "h_state": torch.int32}
+LEAF_DTYPES.update({(k, f): torch.int32 for k in AV_PRIMITIVES
+                    for f in ("out_sat_0", "sat_out_0")})
 
 
 class Layout(NamedTuple):
     """The row groups of the systems kernels for one actuation, and the
     name of each kernel's instance for it: systems and finish_sys, and the
     whole vehicle (state X, context CTX: inputs, discrete state, carried
-    undulation, the terminated latch; the position residuals C)."""
+    undulation, the terminated latch; the position residuals C); `mega` the
+    megakernel's state buffer: t, X, CTX, C and, fly-by-wire, the control
+    laws' avionics block."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -155,7 +222,9 @@ class Layout(NamedTuple):
     stage_out: tuple
     rkfin_in: tuple
     rkfin_out: tuple
+    mega: tuple
     names: dict
+    mega_name: str
 
 
 def _layout(fbw):
@@ -174,8 +243,11 @@ def _layout(fbw):
         stage_out=x_groups, rkfin_in=x_groups + ctx + (COMP,),
         rkfin_out=x_groups + (S_SYS, (("terminated", 1),), COMP)
         + ((KIN_Y,) + y if fbw else ()),
+        mega=((("t", 1),),) + x_groups + ctx + (COMP,)
+        + (AV_GROUPS if fbw else ()),
         names={k: k + ("_fbw" if fbw else "") for k in (
-            "systems", "finish_sys", "rk4_stage", "rk4_finish")})
+            "systems", "finish_sys", "rk4_stage", "rk4_finish")},
+        mega_name="megakernel_fbw" if fbw else "megakernel")
 
 
 MECH, FBW = _layout(False), _layout(True)
@@ -428,6 +500,53 @@ def geoid_grid(geo):
     return buf
 
 
+# the gain tables of the control laws, in the order of csrc/c172x_ctl.cuh
+# (GT_*): lon channels, then lat; each channel's gains stacked per knot
+CTL_TABLES = ("v2t", "c2theta", "q2e", "te2te", "tv2te", "vh2te", "p2phi",
+              "chi2phi", "ar2ar", "phibeta2ar")
+PID_GAINS = ("k_p", "k_i", "k_d", "tau_f")
+LQR_GAINS = ("K_fbk", "K_fwd", "K_int", "x_trim", "u_trim", "z_trim")
+# the number of states of each tracker's feature vector the kernels read
+CTL_NX = {"te2te": 8, "tv2te": 8, "vh2te": 9, "ar2ar": 8, "phibeta2ar": 8}
+
+_GAINS = weakref.WeakKeyDictionary()
+
+
+def ctl_gains(avionics):
+    """The control laws' gain buffer on their device in their dtype (built
+    once): the offsets of the CTL_TABLES, then each channel's schedule as
+    one table (`encode_table`) whose values are its gains stacked per knot
+    (PID_GAINS, or LQR_GAINS flattened), on the schedules' own (EAS, h) grid
+    and extrapolation."""
+    buf = _GAINS.get(avionics)
+    if buf is None:
+        body = []
+        offsets = []
+        for ch in CTL_TABLES:
+            g = avionics.gains[ch]
+            keys = PID_GAINS if ch in ("v2t", "c2theta", "q2e", "p2phi",
+                                       "chi2phi") else LQR_GAINS
+            first = g[keys[0]]
+            d = len(first.axes)
+            if ch in CTL_NX and tuple(first.values.shape[d:]) != (
+                    2, CTL_NX[ch]):
+                raise ValueError(f"gain table {ch}/K_fbk has the shape "
+                                 f"{tuple(first.values.shape)}, the kernels "
+                                 f"read (..., 2, {CTL_NX[ch]})")
+            values = torch.cat([g[k].values.reshape(
+                g[k].values.shape[:d] + (-1,)) for k in keys], dim=-1)
+            lk = Lookup([a.cpu().double().numpy() for a in first.axes],
+                        values.cpu().double().numpy(), first.extrap,
+                        device="cpu", dtype=first.values.dtype)
+            offsets.append(float(len(CTL_TABLES) + len(body)))
+            body += encode_table(lk)
+        like = avionics.gains["v2t"]["k_p"].values
+        buf = torch.tensor(offsets + body, dtype=torch.float64).to(
+            device=like.device, dtype=like.dtype)
+        _GAINS[avionics] = buf
+    return buf
+
+
 # ------------------------------------------------------------ plain versions
 
 def _fma(xt, kt, adt):
@@ -596,6 +715,46 @@ def vehicle_y(vehicle, xv, uv, kin_y, sys_y):
                     airflow=air)
 
 
+def ctl_y(vy):
+    """The CTL_Y fields of a VehicleY: what the control laws read."""
+    k, sy = vy.kinematics, vy.systems
+    aero = sy.aero
+    return {"omega_wb_b": k.omega_wb_b, "omega_eb_b": k.omega_eb_b,
+            "e_nb": k.e_nb, "v_eb_n": k.v_eb_n, "chi_gnd": k.chi_gnd,
+            "EAS": vy.airflow.EAS, "h_e": k.h_e, "alpha": aero.alpha,
+            "beta": aero.beta, "alpha_filt": aero.alpha_filt,
+            "beta_filt": aero.beta_filt, "n": sy.pwp.engine.n,
+            "cmd": {ch: sy.act["cmd"][ch] for ch in CTL_CMD},
+            "pos": {ch: sy.act["pos"][ch] for ch in CTL_CMD},
+            "wow": sy.ldg.strut.wow}
+
+
+def ctl_vehicle_y(y):
+    """The VehicleY that holds the CTL_Y fields `y` (the others None)."""
+    kin = KinData(**dict(dict.fromkeys(KinData._fields), **{
+        k: y[k] for k in ("omega_wb_b", "omega_eb_b", "e_nb", "v_eb_n",
+                          "chi_gnd", "h_e")}))
+    air = AirData(**dict(dict.fromkeys(AirData._fields), EAS=y["EAS"]))
+    sys_ = SystemsY(act={"cmd": y["cmd"], "pos": y["pos"]},
+                    aero=AeroY(y["alpha"], y["beta"], y["alpha_filt"],
+                               y["beta_filt"]),
+                    ldg=LdgY(strut=StrutWow(wow=y["wow"])),
+                    pwp=ThrusterY(engine=EngineY(n=y["n"])))
+    return VehicleY(systems=sys_, kinematics=kin, dynamics=None,
+                    airflow=air)
+
+
+def ctl_laws_plain(avionics, y, u_av, s_av, dt):
+    """The control laws' periodic pass on the CTL_Y fields `y`:
+    `ControlLaws.f_periodic` and the commands `assign` writes. Returns
+    (the new avionics state, {channel: command} of CTL_CMD)."""
+    s2, av_y = avionics.f_periodic(s_av, u_av, ctl_vehicle_y(y), dt)
+    return s2, {"aileron": av_y.lat.aileron_cmd,
+                "elevator": av_y.lon.elevator_cmd,
+                "rudder": av_y.lat.rudder_cmd,
+                "throttle": av_y.lon.throttle_cmd}
+
+
 def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
     """The plain clusters composed as `stage_lane`."""
     return stage_clusters(PLAIN, vehicle, xv, kv, uv, sv, term, adt)
@@ -728,6 +887,14 @@ def pack_rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
         "k": k, "params": system_params(vehicle)}
 
 
+def pack_ctl_laws(avionics, y, u_av, s_av, dt):
+    like = y["EAS"]
+    buf = pack(CTL_IN, (y, u_av["lon"], u_av["lat"], s_av["lon"],
+                        s_av["lat"]), like.shape[0], like.dtype)
+    return buf, rows(CTL_OUT), (float(dt), int(L.CTL_SPLIT)), {
+        "gains": ctl_gains(avionics)}
+
+
 def pack_geoid(geo, q_ew):
     buf = pack(GEOID_IN, ({"q_ew": q_ew},), q_ew.shape[0])
     return buf, rows(GEOID_OUT), (), {"grid": geoid_grid(geo)}
@@ -736,7 +903,8 @@ def pack_geoid(geo, q_ew):
 PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
         "finish_kin": pack_finish_kin, "systems": pack_systems,
         "finish_sys": pack_finish_sys, "rk4_stage": pack_rk4_stage,
-        "rk4_finish": pack_rk4_finish, "geoid": pack_geoid}
+        "rk4_finish": pack_rk4_finish, "geoid": pack_geoid,
+        "ctl_laws": pack_ctl_laws}
 # the fly-by-wire instances pack as their mechanical twins (by the
 # vehicle's layout)
 PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
@@ -744,14 +912,37 @@ PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
 
 # instance name -> (kernel, layout)
 _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
-              for k, n in lay.names.items()}
+              for k, n in dict(lay.names, megakernel=lay.mega_name).items()}
+
+
+def _av_tree(d):
+    """An unpacked lon or lat avionics group with its controller states as
+    the NamedTuples of `physics/control.py`."""
+    return {k: (_AV_STATES[AV_PRIMITIVES[k]][0](**v) if k in AV_PRIMITIVES
+                else v) for k, v in d.items()}
 
 
 def unpack_out(name, out, comp=False):
     """The packed output `out` of kernel instance `name` as its wrapper
     returns it (`comp`: finish_kin or rk4_finish carried residuals); bool
-    and int leaves typed again."""
+    and int leaves typed again. The megakernels' is their state buffer:
+    (t, xv, uv, sv, terminated, c_kin, u_av, s_av), c_kin None without
+    `comp`, the avionics' u and s None for the C172S."""
     base, lay = _INSTANCES.get(name, (name, MECH))
+    if base == "ctl_laws":
+        s_lon, s_lat, cmd = unpack(CTL_OUT, out, typed=True)
+        return {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}, cmd
+    if base == "megakernel":
+        n = 1 + rows(lay.rkfin_in)
+        xv, uv, sv, terminated, c_kin = unpack_vehicle(out[1:n], lay)
+        u_av = s_av = None
+        if lay.fbw:
+            u_lon, u_lat, s_lon, s_lat = unpack(AV_GROUPS, out[n:],
+                                                typed=True)
+            u_av = {"lon": u_lon, "lat": u_lat}
+            s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
+        return (out[0], xv, uv, sv, terminated, c_kin if comp else None,
+                u_av, s_av)
     if base == "kinair":
         kin_dot, kin, air, xi_dyn = unpack(KINAIR_OUT, out)
         return kin_dot, KinData(**kin), AirData(**air), xi_dyn
@@ -922,6 +1113,15 @@ def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None):
                                 *y), buf.shape[1], buf.dtype)
 
 
+def ctl_laws(avionics, y, u_av, s_av, dt):
+    """`ctl_laws_plain` on the CPU, the `ctl_laws` CUDA kernel on the
+    card."""
+    args = (avionics, y, u_av, s_av, dt)
+    if y["EAS"].device.type == "cpu":
+        return ctl_laws_plain(*args)
+    return unpack_out("ctl_laws", _launch("ctl_laws", args))
+
+
 def geoid_packed(geo, q_rows, block=None):
     """The undulation `[1, B]` under the q_ew rows `[4, B]`: the kernel on
     the card, `geoid_plain` on the CPU."""
@@ -931,14 +1131,19 @@ def geoid_packed(geo, q_rows, block=None):
     return geoid_plain(geo, q_rows.t()).reshape(1, -1)
 
 
-def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None):
+def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
+                      avionics=None, spp=1, periodic_dt=0.0):
     """One launch of the whole-step kernel on the resident (state, i)
     buffers of `parallel/megakernel.py`; returns the new buffers. `block`
-    is the aircraft per block, 32 or 64."""
-    out = L.launch_megakernel(bufs[0], bufs[1], system_params(vehicle),
-                              geoid_grid(vehicle.geoid), dt, t_start, comp,
-                              block)
-    LAUNCHES["megakernel"] += 1
+    is the aircraft per block, 32 or 64. With the fly-by-wire vehicle the
+    instance `megakernel_fbw`, which also runs the `avionics`' (the control
+    laws') periodic pass every `spp` steps at their `periodic_dt`."""
+    name = layout_of(vehicle).mega_name
+    out = L.launch_megakernel(
+        bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
+        dt, t_start, comp, block,
+        None if avionics is None else ctl_gains(avionics), spp, periodic_dt)
+    LAUNCHES[name] += 1
     return out
 
 

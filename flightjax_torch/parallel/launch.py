@@ -48,24 +48,33 @@ LANES = 32
 FBW_KERNELS = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
                "rk4_finish_fbw")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
-                "rk4_finish", "megakernel", *FBW_KERNELS)
+                "rk4_finish", "megakernel", *FBW_KERNELS, "megakernel_fbw",
+                "ctl_laws")
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
-               "rk4_stage_fbw")
+               "rk4_stage_fbw", "megakernel_fbw")
+# ctl_laws runs the lon and the lat pass in two warps per 32 aircraft (1),
+# or both in one thread per aircraft (0) (csrc/ctl_laws.cu)
+CTL_SPLIT = 1
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
+# the gain tables at the head of the control laws' buffer
+# (csrc/c172x_ctl.cuh)
+N_GAIN_TABLES = 10
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
-           "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS)
+           "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
+           "megakernel_fbw", "ctl_laws")
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid
 WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
                "megakernel", *FBW_KERNELS)
 WITH_GRID = ("geoid", "megakernel")
+WITH_GAINS = ("ctl_laws",)
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -163,7 +172,10 @@ def library():
                    "rk4_stage": [P, P, P, P, I, I, D, I, P],
                    "rk4_finish": [P, P, P, P, I, D, I, I, P],
                    "geoid": [P, P, P, I, I, P],
-                   "megakernel": [P, P, P, P, P, P, I, I, D, D, I, I, P]}
+                   "megakernel": [P, P, P, P, P, P, I, I, D, D, I, I, P],
+                   "megakernel_fbw": [P, P, P, P, P, P, P, I, I, D, D, I, I,
+                                      D, I, P],
+                   "ctl_laws": [P, P, P, I, D, I, I, P]}
             sig.update({k: sig[k[:-len("_fbw")]] for k in FBW_KERNELS})
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
@@ -198,8 +210,7 @@ def layout(name):
 def vehicle_layout(fbw=False):
     """{x, ctx, c, mega}: rows of the whole-vehicle groups X, CTX, C and of
     the megakernel's state buffer, as the compiled kernels declare them,
-    for the mechanical C172 or with `fbw` the fly-by-wire one (no
-    megakernel: mega 0)."""
+    for the mechanical C172 or with `fbw` the fly-by-wire one."""
     key = "vehicle_fbw" if fbw else "vehicle"
     if key not in _LAYOUTS:
         v = [ctypes.c_int() for _ in range(4)]
@@ -256,6 +267,20 @@ def check_grid(grid, dtype, device):
         raise ValueError("geoid grid must be contiguous")
 
 
+def check_gains(gains, dtype, device):
+    """The control laws' gain buffer (`kernels.ctl_gains`): a contiguous
+    1-D tensor that holds at least its table offsets."""
+    if not isinstance(gains, torch.Tensor):
+        raise TypeError("control-law gains must be a tensor")
+    if gains.device != device or gains.dtype != dtype:
+        raise ValueError(f"control-law gains on {gains.device}/"
+                         f"{gains.dtype}, expected {device}/{dtype}")
+    if gains.dim() != 1 or gains.shape[0] <= N_GAIN_TABLES:
+        raise ValueError(f"control-law gains of shape {tuple(gains.shape)}")
+    if not gains.is_contiguous():
+        raise ValueError("control-law gains must be contiguous")
+
+
 def _fn(name, dtype, device):
     if device.type != "cuda":
         raise ValueError("launch needs a CUDA tensor")
@@ -295,12 +320,12 @@ def launch_empty(grid, block, shared):
 
 
 def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
-           grid=None):
+           grid=None, gains=None):
     """Run kernel `name` on a packed `[n_in, B]` CUDA tensor, with its
     other operands: `k` (k_prev or the k-sum, `[n_x, B]`) for the two RK4
     kernels, the parameter buffer for the kernels of the C172 systems, the
-    geoid grid for `geoid`. Returns the packed `[n_out, B]` output. Does
-    not synchronise."""
+    geoid grid for `geoid`, the control laws' gains for `ctl_laws`.
+    Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn(name, dtype, device)
     n_in, n_out_k = layout(name)
@@ -311,7 +336,8 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     ptrs = [packed_in.data_ptr()]
     for key, val, kernels in (("k", k, WITH_K), ("params", params,
                                                  WITH_PARAMS),
-                              ("grid", grid, WITH_GRID)):
+                              ("grid", grid, WITH_GRID),
+                              ("gains", gains, WITH_GAINS)):
         if (name in kernels) != (val is not None):
             raise ValueError(f"{name}: operand {key} "
                              + ("missing" if val is None else "not taken"))
@@ -325,6 +351,9 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     if grid is not None:
         check_grid(grid, dtype, device)
         ptrs.append(grid.data_ptr())
+    if gains is not None:
+        check_gains(gains, dtype, device)
+        ptrs.append(gains.data_ptr())
     out = torch.empty((n_out, B), dtype=dtype, device=device)
     if name in COPY_PARAMS:
         scalars = (params.numel(), *scalars)
@@ -332,22 +361,34 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     return out
 
 
-def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None):
+def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
+                      gains=None, spp=1, periodic_dt=0.0):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
     new (state, i) in fresh buffers. `block` is the aircraft per block.
-    Does not synchronise."""
+    With the control laws' `gains` the fly-by-wire instance
+    `megakernel_fbw`, whose periodic pass fires every `spp` steps at
+    `periodic_dt`. Does not synchronise."""
+    fbw = gains is not None
+    name = "megakernel_fbw" if fbw else "megakernel"
     dtype, device = state.dtype, state.device
-    fn = _fn("megakernel", dtype, device)
+    fn = _fn(name, dtype, device)
     B = state.shape[1]
-    check_operand(state, vehicle_layout()["mega"], B, dtype, device)
+    check_operand(state, vehicle_layout(fbw)["mega"], B, dtype, device)
     check_operand(i, 1, B, torch.int32, device)
-    check_params(params, dtype, device)
+    check_params(params, dtype, device, fbw)
     check_grid(grid, dtype, device)
     out, i_out = torch.empty_like(state), torch.empty_like(i)
-    _run("megakernel", fn, (state.data_ptr(), i.data_ptr(),
-                            params.data_ptr(), grid.data_ptr(),
-                            out.data_ptr(), i_out.data_ptr(), B,
-                            params.numel(), float(dt),
-                            float(t_start), int(bool(comp))), block)
+    ptrs = [state.data_ptr(), i.data_ptr(), params.data_ptr(),
+            grid.data_ptr()]
+    tail = ()
+    if fbw:
+        check_gains(gains, dtype, device)
+        if int(spp) < 1:
+            raise ValueError(f"steps per periodic pass {spp} < 1")
+        ptrs.append(gains.data_ptr())
+        tail = (int(spp), float(periodic_dt))
+    _run(name, fn, (*ptrs, out.data_ptr(), i_out.data_ptr(), B,
+                    params.numel(), float(dt), float(t_start),
+                    int(bool(comp)), *tail), block)
     return out, i_out

@@ -247,7 +247,12 @@ class LQROutput(NamedTuple):
 
 
 def _mv(M, v):
-    return torch.sum(M * v[..., None, :], dim=-1)
+    """M v, each row summed left to right (the order the CUDA kernels sum
+    in; `torch.sum` takes its own)."""
+    out = M[..., 0] * v[..., None, 0]
+    for k in range(1, M.shape[-1]):
+        out = out + M[..., k] * v[..., None, k]
+    return out
 
 
 def lqr_step(p: LQRParams, s: LQRState, x, z, z_ref, dt, sat_ext=0):

@@ -323,3 +323,122 @@ def xv1_fleet_sim(batch, seed, device, dtype, sas_lanes=(), ground_lanes=()):
                   u=tree_from_numpy(u, device, dtype),
                   s=tree_from_numpy(s, device, dtype))
     return sim, sim.with_compensation(st)
+
+
+# ------------------------------------------------------------ control laws
+
+# the altitude errors the mode-rich operands put around the lanes' heights:
+# on both sides of the altitude machine's 9 m and 11 m switch points
+H_ERRORS = (-12.0, -10.5, -9.5, -5.0, 5.0, 9.5, 10.5, 12.0)
+
+
+def ctl_operands(batch, seed, h_e):
+    """numpy (u, s) of the C172X control laws on `batch` lanes at heights
+    `h_e`: lane k requests lon mode min(k % 10, 8) and lat mode k % 5,
+    about half of the lanes change mode in this pass (their previous mode
+    drawn), the altitude machine is in either state (acquiring on the lanes
+    k % 10 == 8, holding on k % 10 == 9, which request the altitude mode,
+    drawn elsewhere) with the altitude reference on both sides of its
+    switch points (H_ERRORS), every saturation flag is drawn from -1, 0, 1,
+    the controller states from N(0, 0.1), and the references, axes and
+    offsets spread past their ranges."""
+    from flightjax_torch.bridge import tree_to_numpy
+    from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+    ctl = ControlLaws(device="cpu", dtype=torch.float64)
+    u = tree_to_numpy(ctl.init_u((batch,)))
+    s = tree_to_numpy(ctl.init_s((batch,)))
+    rng = np.random.default_rng(seed)
+    lane = np.arange(batch)
+    for side, n_modes in (("lon", 9), ("lat", 5)):
+        req = (np.minimum(lane % 10, 8) if side == "lon"
+               else lane % n_modes).astype(np.int32)
+        u[side]["mode_req"] = req
+        s[side]["mode_prev"] = np.where(
+            rng.random(batch) < 0.5, req,
+            rng.integers(0, n_modes, batch)).astype(np.int32)
+        for k, v in s[side].items():
+            if hasattr(v, "_fields"):
+                s[side][k] = v._replace(**{
+                    f: (rng.integers(-1, 2, a.shape).astype(np.int32)
+                        if a.dtype.kind == "i"
+                        else rng.normal(0.0, 0.1, a.shape))
+                    for f, a in zip(v._fields, v)})
+        s[side]["out"] = {k: rng.uniform(-1.0, 1.0, batch)
+                          for k in s[side]["out"]}
+    lon, lat = u["lon"], u["lat"]
+    s["lon"]["h_state"] = np.where(
+        lane % 10 >= 8, lane % 2, rng.integers(0, 2, batch)).astype(np.int32)
+    lon["h_ref"] = np.asarray(h_e) + rng.choice(H_ERRORS, batch)
+    lon["EAS_ref"] = rng.uniform(35.0, 55.0, batch)
+    lon["clm_ref"] = rng.uniform(-1.0, 2.0, batch)
+    lon["theta_ref"] = rng.normal(0.05, 0.05, batch)
+    lon["q_ref"] = rng.normal(0.0, 0.05, batch)
+    for k in ("throttle", "elevator"):
+        lon[k + "_axis"] = rng.uniform(-1.2, 1.2, batch)
+        lon[k + "_offset"] = rng.uniform(-0.2, 0.2, batch)
+    for k in ("aileron", "rudder"):
+        lat[k + "_axis"] = rng.uniform(-1.2, 1.2, batch)
+        lat[k + "_offset"] = rng.uniform(-0.2, 0.2, batch)
+    lat["chi_ref"] = rng.uniform(-4.0, 4.0, batch)
+    lat["p_ref"] = rng.normal(0.0, 0.05, batch)
+    lat["beta_ref"] = rng.normal(0.0, 0.02, batch)
+    lat["phi_ref"] = rng.normal(0.0, 0.3, batch)
+    s["lon"]["prev_throttle_cmd"] = rng.uniform(0.0, 1.0, batch)
+    s["lon"]["prev_te_zref_ele"] = rng.uniform(-0.3, 0.3, batch)
+    s["lat"]["prev_pb_zref_phi"] = rng.normal(0.0, 0.2, batch)
+    return u, s
+
+
+def ctl_y_operands(batch, seed, ground_lanes=()):
+    """numpy CTL_Y fields (`parallel/kernels.py`) of `batch` lanes: rates,
+    attitudes (the bank past the laws' +-60 deg clip), courses all round,
+    EAS and heights past both ends of the gain schedules' grid, airflow
+    angles, speed ratios, commands and servo positions within their ranges;
+    the `ground_lanes` with a wheel on the ground."""
+    from flightjax_torch.models.c172.c172x import ACT_RANGES
+    from flightjax_torch.parallel.kernels import CTL_CMD
+    rng = np.random.default_rng(seed)
+    om = rng.normal(0.0, 0.1, (batch, 3))
+    alpha, beta = rng.normal(0.05, 0.05, batch), rng.normal(0.0, 0.05, batch)
+    wow = np.zeros((batch, 3), bool)
+    wow[list(ground_lanes), 1] = True
+    return {
+        "omega_wb_b": om, "omega_eb_b": om + rng.normal(0.0, 1e-4, om.shape),
+        "e_nb": np.stack([rng.uniform(-np.pi, np.pi, batch),
+                          rng.normal(0.05, 0.1, batch),
+                          rng.uniform(-1.4, 1.4, batch)], axis=-1),
+        "v_eb_n": rng.normal(0.0, 1.0, (batch, 3)) * [30.0, 30.0, 3.0],
+        "chi_gnd": rng.uniform(-np.pi, np.pi, batch),
+        "EAS": rng.uniform(20.0, 60.0, batch),
+        "h_e": rng.uniform(-200.0, 3300.0, batch),
+        "alpha": alpha, "beta": beta,
+        "alpha_filt": alpha + rng.normal(0.0, 0.01, batch),
+        "beta_filt": beta + rng.normal(0.0, 0.01, batch),
+        "n": rng.uniform(0.3, 1.1, batch),
+        "cmd": {ch: rng.uniform(*ACT_RANGES[ch], batch) for ch in CTL_CMD},
+        "pos": {ch: rng.uniform(*ACT_RANGES[ch], batch) for ch in CTL_CMD},
+        "wow": wow}
+
+
+def ctl_laws_args(batch, seed, device, dtype, ground_lanes=(), dt=0.02):
+    """The wrapper arguments of `ctl_laws` (avionics, y, u, s, dt) on the
+    mode-rich operands (`ctl_y_operands`, `ctl_operands`), on `device`."""
+    from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+    y = ctl_y_operands(batch, seed, ground_lanes)
+    u, s = ctl_operands(batch, seed + 1, y["h_e"])
+    return (ControlLaws(device=device, dtype=dtype),
+            *(tree_from_numpy(t, device, dtype) for t in (y, u, s)), dt)
+
+
+def xv1_operand_state(batch, seed, device, dtype, ground_lanes=(),
+                      terminated_lanes=(), crash_lanes=(), i0=0):
+    """The C172Xv1 world SimState (uncompensated) of the fly-by-wire cluster
+    operands (`fbw_cluster_operands`) with the mode-rich avionics of
+    `ctl_operands` at their heights, at step counter i0."""
+    d = fbw_cluster_operands(batch, seed, ground_lanes, terminated_lanes,
+                             crash_lanes)
+    st = operand_state(d, device, dtype, i0)
+    u_av, s_av = (tree_from_numpy(t, device, dtype) for t in ctl_operands(
+        batch, seed + 5, d["x_kin"]["h_e"]))
+    return st._replace(u=dict(st.u, avionics=u_av),
+                       s=dict(st.s, avionics=s_av))

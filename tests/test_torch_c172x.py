@@ -76,8 +76,8 @@ def jax_world():
     sim = JSimulation(world, dt=DT, periodic_dt=DT, geoid_every=128)
     vehicle = aircraft.vehicle
     f_ode = jax.jit(jax.vmap(lambda x, u, s: vehicle.f_ode(x, u, s, 0.0)[1]))
-    return {"aircraft": aircraft, "fleet_step": jax.jit(sim.fleet_step),
-            "f_ode": f_ode}
+    return {"aircraft": aircraft, "world": world,
+            "fleet_step": jax.jit(sim.fleet_step), "f_ode": f_ode}
 
 
 def _as_jax_avionics(av_np, template):
@@ -124,8 +124,8 @@ def test_port_sources_import_no_jax():
 
 
 def test_xv1_paths_never_import_jax():
-    """Building the C172Xv1 and stepping it through both splits with the
-    periodic pass leaves JAX out of the process."""
+    """Building the C172Xv1 and stepping it through both splits and the
+    megakernel with the periodic pass leaves JAX out of the process."""
     import subprocess
     import sys
     code = (
@@ -139,7 +139,11 @@ def test_xv1_paths_never_import_jax():
         "st = turning_climb(broadcast_state(st, 4))\n"
         "a = fleet_rollout(sim, st, 2)\n"
         "b = make_cluster_step(sim, st, split='vehicle')(st, i=0)\n"
-        "for r in (a, b):\n"
+        "from flightjax_torch.parallel.megakernel import "
+        "make_megakernel_step\n"
+        "bufs, step, unpack = make_megakernel_step(sim, st)\n"
+        "c = unpack(step(step(bufs)))\n"
+        "for r in (a, b, c):\n"
         "    assert bool(torch.isfinite(r.x['vehicle']['kinematics']['h_e'])"
         ".all())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -573,16 +577,31 @@ def test_fleet_rollout_fires_on_the_periodic_cadence(fleet):
 
 
 def test_entry_points_refuse_what_is_not_ported(fleet):
+    from flightjax_torch.core.sim import Simulation
     from flightjax_torch.parallel.megakernel import make_megakernel_step
-    from flightjax_torch.physics.aircraftbase import Aircraft
+    from flightjax_torch.physics.aircraftbase import Aircraft, SimpleWorld
     t, i, x, u, s = fleet
     sim, _, _ = Tx.c172xv1_sim("cpu", F64)
     st = SimState(t=torch.tensor(t), i=torch.tensor(i), x=to_torch(x),
                   u=to_torch(u), s=to_torch(s))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        make_megakernel_step(sim, st)
+    make_megakernel_step(sim, st)  # the C172Xv1 with its control laws
+    with pytest.raises(NotImplementedError, match="core/mission.py"):
+        make_megakernel_step(sim, st, ("mission",))
     with pytest.raises(NotImplementedError, match="core/mission.py"):
         sim.fleet_step(st, ("mission",), i=0)
+    # a second-order servo (ROADMAP Queue 2) and other avionics (the Xv2's
+    # guidance, P9) have no kernel
+    servo2 = Simulation(SimpleWorld(Tx.build_xv1(
+        device="cpu", dtype=F64, actuators={"elevator": Tx.Actuator2()})))
+    with pytest.raises(ValueError, match="Actuator2"):
+        make_megakernel_step(servo2, st)
+
+    class Guidance:
+        pass
+    other = Simulation(SimpleWorld(Aircraft(sim.system.aircraft.vehicle,
+                                            Guidance())))
+    with pytest.raises(NotImplementedError, match="P9"):
+        make_megakernel_step(other, st)
 
     class Nav:
         needs_terrain = True
@@ -592,6 +611,196 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
     with pytest.raises(NotImplementedError, match="fly-by-wire"):
         Aircraft(c172s(device="cpu", dtype=F64),
                  sim.system.aircraft.avionics)
+
+
+# ------------------------------------------------------------ megakernel
+
+MODE_LANE = 5  # requests the altitude mode 11.5 m below its reference
+
+
+def _mega_fleet():
+    """numpy (t, i, x, u, s) of the megakernel's tests: the step tests' 4
+    turning-climb lanes and SAS lane, and MODE_LANE, which requests
+    `LON_EAS_ALT` (and `LAT_PHI_BETA`) with the altitude 11.5 m below its
+    reference: it enters the altitude mode holding, its altitude machine
+    turns to acquire past the 11 m switch point, and on the next firing it
+    changes mode to `LON_THR_EAS`."""
+    t, i, x, u, s = perturbed_xv1(B + 1, SEED, sas_lanes=(SAS_LANE,))
+    lon, lat = u["avionics"]["lon"], u["avionics"]["lat"]
+    lon["mode_req"][MODE_LANE] = TCTL.LON_EAS_ALT
+    lon["h_ref"][MODE_LANE] = x["vehicle"]["kinematics"]["h_e"][
+        MODE_LANE] + 11.5
+    lat["mode_req"][MODE_LANE] = TCTL.LAT_PHI_BETA
+    return t, i, x, u, s
+
+
+@pytest.fixture(scope="module")
+def jax_mega_steps(jax_world):
+    """The JAX fleet step with the geoid refreshed after every step
+    (`fleet_step(geoid_every=1)`: the order of the JAX megakernel, whose
+    pass reads the undulation from before the refresh), STEPS times from
+    the megakernel's fleet; JAX's states after each step."""
+    sim = JSimulation(jax_world["world"], dt=DT, periodic_dt=DT,
+                      geoid_every=1)
+    step = jax.jit(sim.fleet_step)
+    st = _jax_state(*_mega_fleet(), jax_world["aircraft"])
+    out = []
+    for _ in range(STEPS):
+        st = step(st)
+        out.append(jax.tree.map(np.asarray, st))
+    return out
+
+
+def test_megakernel_step_matches_jax(jax_mega_steps):
+    """`make_megakernel_step` of the C172Xv1 (its plain version on CPU
+    tensors) against the JAX fleet step with the geoid refreshed every
+    step, every leaf (servos, commands and the avionics' u and s among
+    them) after each of STEPS steps to 1e-9; MODE_LANE changes mode."""
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    t, i, x, u, s = _mega_fleet()
+    sim, _, _ = Tx.c172xv1_sim("cpu", F64)
+    st = SimState(t=torch.tensor(t), i=torch.tensor(i), x=to_torch(x),
+                  u=to_torch(u), s=to_torch(s))
+    bufs, step, unpack = make_megakernel_step(sim, st)
+    K.reset_launches()
+    modes = []
+    for k in range(STEPS):
+        bufs = step(bufs)
+        got, ref = unpack(bufs), jax_mega_steps[k]
+        for name in ("t", "i", "x", "u", "s"):
+            assert_tree_close({name: getattr(got, name)},
+                              {name: getattr(ref, name)}, TOL,
+                              f"step {k}: ")
+        modes.append(int(got.s["avionics"]["lon"]["mode_prev"][MODE_LANE]))
+    assert not any(K.LAUNCHES.values())
+    assert modes[:2] == [TCTL.LON_EAS_ALT, TCTL.LON_THR_EAS], modes
+
+
+def _leaf_list(tree):
+    return [v for _, v in tree_leaves_with_path(tree)]
+
+
+def test_megakernel_fires_on_the_periodic_cadence():
+    """periodic_dt = 2 dt on the megakernel (port only): each lane's pass
+    fires where the counter its step makes is even, so on lanes whose
+    counter starts even the avionics and the commands stand still after
+    the first step and move after the second, and the lanes whose counter
+    starts odd do the opposite."""
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    t, i, x, u, s = _mega_fleet()
+    sim0, _, _ = Tx.c172xv1_sim("cpu", F64)
+    sim = Simulation(sim0.system, dt=DT, periodic_dt=2 * DT,
+                     geoid_every=128)
+    st = SimState(t=torch.tensor(t), i=torch.tensor(i) + torch.arange(
+        B + 1, dtype=torch.int32) % 2, x=to_torch(x), u=to_torch(u),
+                  s=to_torch(s))
+    bufs, step, unpack = make_megakernel_step(sim, st)
+    states = [st]
+    for _ in range(2):
+        bufs = step(bufs)
+        states.append(unpack(bufs))
+    odd = st.i % 2 == 1
+    for k in (1, 2):
+        still = ~odd if k == 1 else odd
+        a, b = states[k], states[k - 1]
+        for la, lb in zip(_leaf_list((a.s["avionics"], a.u)),
+                          _leaf_list((b.s["avionics"], b.u))):
+            assert torch.equal(la[still], lb[still])
+        moved = (a.s["avionics"]["lon"]["out"]["throttle_cmd"]
+                 != b.s["avionics"]["lon"]["out"]["throttle_cmd"])
+        assert bool(moved[~still].all())
+
+
+def test_megakernel_buffers_roundtrip_xv1():
+    """The fly-by-wire resident buffer (t, X, CTX, C and the avionics'
+    u and s) round-trips through pack / unpack exactly, with the modes,
+    the altitude machine's state and the saturation flags back as int32
+    and the controller states as their NamedTuples."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import xv1_operand_state
+    sim, _, _ = Tx.c172xv1_sim("cpu", F64)
+    st = xv1_operand_state(24, SEED, "cpu", F64, (3, 17), (5,), (11,))
+    st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, _, unpack = make_megakernel_step(sim, st)
+    assert bufs[0].shape == (K.rows(K.FBW.mega), 24)
+    back = unpack(bufs)
+    pa, pb = tree_leaves_with_path(tuple(back)), tree_leaves_with_path(
+        tuple(st))
+    assert [p for p, _ in pa] == [p for p, _ in pb]
+    for (p, a), (_, b) in zip(pa, pb):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+    lon = back.s["avionics"]["lon"]
+    assert lon["mode_prev"].dtype == lon["te2te"].out_sat_0.dtype \
+        == torch.int32
+    assert type(lon["te2te"]).__name__ == "LQRState"
+    again, _, _ = make_megakernel_step(sim, back)
+    assert torch.equal(again[0], bufs[0]) and torch.equal(again[1], bufs[1])
+
+
+def test_ctl_gains_decode_to_the_schedules():
+    """Each table of the control laws' gain buffer, read back the way the
+    kernels read it, gives the fused schedules' values for its channel,
+    inside the (EAS, h) grid and past both ends."""
+    from test_torch_support import _decode_lookup
+    ctl = TCTL.ControlLaws(device="cpu", dtype=F64)
+    buf = K.ctl_gains(ctl).numpy()
+    ends = [int(v) for v in buf[1:len(K.CTL_TABLES)]] + [len(buf)]
+    rng = np.random.default_rng(SEED)
+    for EAS, h in zip(rng.uniform(15.0, 65.0, 12), rng.uniform(-500.0,
+                                                               4000.0, 12)):
+        fused = dict(ctl.lon_gains(torch.tensor(EAS), torch.tensor(h)),
+                     **ctl.lat_gains(torch.tensor(EAS), torch.tensor(h)))
+        for k, ch in enumerate(K.CTL_TABLES):
+            got = _decode_lookup(buf[int(buf[k]):ends[k]], (EAS, h))
+            keys = K.PID_GAINS if "k_p" in fused[ch] else K.LQR_GAINS
+            want = np.concatenate([fused[ch][n].reshape(-1).numpy()
+                                   for n in keys])
+            np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)
+
+
+def test_ctl_layouts_match_csrc():
+    """The control laws' row maps and gain tables (`csrc/c172x_ctl.cuh`)
+    against `parallel/kernels.py` and `parallel/launch.py`."""
+    from flightjax_torch.parallel import launch as L
+    from test_torch_support import _constexprs, _csrc, _enums
+    env = _constexprs(_csrc("flight_math.cuh"), {})
+    sys_src = _csrc("c172_systems.cuh")
+    for members in _enums(sys_src).values():
+        env.update({m: i for i, m in enumerate(members)})
+    env = _constexprs(_csrc("c172x_ctl.cuh"), _constexprs(sys_src, env))
+    for name, groups in (("N_ULON", (K.AV_U_LON,)),
+                         ("N_ULAT", (K.AV_U_LAT,)),
+                         ("N_SLON", (K.AV_S_LON,)),
+                         ("N_SLAT", (K.AV_S_LAT,)), ("N_AV", K.AV_GROUPS),
+                         ("N_CTLY", (K.CTL_Y,)), ("CTL_N_IN", K.CTL_IN),
+                         ("CTL_N_OUT", K.CTL_OUT),
+                         ("MEGA_N_ROWS_FBW", K.FBW.mega)):
+        assert env[name] == K.rows(groups), name
+    assert env["MG_AV_FBW"] == K.rows(K.FBW.mega[:-4])
+    for prefix, group, keys in (
+            ("SL_", K.AV_S_LON, {"TE2TE": ("te2te", "int_out_0"),
+                                 "Q2E_INT": ("q2e_int", "x0"),
+                                 "V2T_PID": ("v2t_pid", "x_i0"),
+                                 "PREV_ELV": "prev_te_zref_ele",
+                                 "OUT_THR": ("out", "throttle_cmd")}),
+            ("SA_", K.AV_S_LAT, {"PB2AR": ("pb2ar", "int_out_0"),
+                                 "CHI2PHI_PID": ("chi2phi_pid", "x_i0"),
+                                 "OUT_RUD": ("out", "rudder_cmd")}),
+            ("UL_", K.AV_U_LON, {"EAS_REF": "EAS_ref", "H_REF": "h_ref"}),
+            ("UA_", K.AV_U_LAT, {"CHI_REF": "chi_ref"}),
+            ("CY_", K.CTL_Y, {"CHI": "chi_gnd", "N": "n",
+                              "CMD": ("cmd", "aileron"),
+                              "POS": ("pos", "aileron"), "WOW": "wow"})):
+        for name, key in keys.items():
+            assert env[prefix + name] == K.rows_of((group,), key).start, name
+    assert [env["CC_" + c] for c in ("AIL", "ELV", "RUD", "THR")] == list(
+        range(len(K.CTL_CMD)))
+    assert env["N_GAIN_TABLES"] == len(K.CTL_TABLES) == L.N_GAIN_TABLES
+    assert [env["GT_" + c] for c in ("V2T", "C2THETA", "Q2E", "TE2TE",
+                                     "TV2TE", "VH2TE", "P2PHI", "CHI2PHI",
+                                     "AR2AR", "PB2AR")] == list(range(10))
 
 
 def test_entry_points_default_to_the_card():

@@ -9,8 +9,10 @@ that carry one aircraft per thread run lane by lane, as blocks of one
 thread. The role kernels (kinair, finish_kin, systems, finish_sys,
 rk4_stage, rk4_finish, megakernel), which carry one aircraft in several
 threads that may meet at barriers, and dynamics run block by block with one
-host thread per CUDA thread: `__syncthreads()` is a pthread barrier and the
-block's shared memory one static buffer. A warp vote sees a warp of one lane, so a gear
+host thread per CUDA thread: `__syncthreads()` is a barrier (one that
+waits a minute, because a thread left before it, ends the process with a
+message instead of hanging the run) and the block's shared memory one
+static buffer. A warp vote sees a warp of one lane, so a gear
 leg skips its strut exactly on the airborne lanes; whole warps vote in
 `tests/test_torch_cuda.py`. So the
 kernels' arithmetic, row maps, parameter buffer, role layout and barriers
@@ -58,14 +60,41 @@ CUDA_RUNTIME_STANDIN = r"""
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
-#include <pthread.h>
+#include <chrono>
+#include <condition_variable>
+#include <cstdio>
+#include <cstdlib>
+#include <mutex>
 #include <thread>
 #include <vector>
 struct Dim { int x; };
 static Dim blockIdx, blockDim;
 static thread_local Dim threadIdx;
-static pthread_barrier_t block_barrier;
-static inline void __syncthreads() { pthread_barrier_wait(&block_barrier); }
+// the barrier of the block's threads; a thread that waits at it for a
+// minute (one of the block left before a barrier) ends the process with a
+// message rather than hang the test run
+struct BlockBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, count = 0;
+  long gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lock(m);
+    const long g = gen;
+    if (++count == n) {
+      count = 0;
+      ++gen;
+      cv.notify_all();
+    } else if (!cv.wait_for(lock, std::chrono::seconds(60),
+                            [&] { return gen != g; })) {
+      std::fprintf(stderr, "__syncthreads: %d of %d threads came\n", count,
+                   n);
+      std::abort();
+    }
+  }
+};
+static BlockBarrier block_barrier;
+static inline void __syncthreads() { block_barrier.wait(); }
 // a vote among the threads of a warp sees a warp of one lane
 static inline unsigned __activemask() { return 1u; }
 static inline int __any_sync(unsigned, bool p) { return p; }
@@ -98,15 +127,14 @@ LANE_LOOPS = r"""
 // one block after the other, a host thread i for each of its threads
 #define BLOCKS(roles, lanes, ...)                                    \
   blockDim.x = (roles) * (lanes);                                    \
-  pthread_barrier_init(&block_barrier, nullptr, blockDim.x);         \
+  block_barrier.n = blockDim.x;                                      \
   for (int g = 0; g < (B + (lanes) - 1) / (lanes); ++g) {            \
     blockIdx.x = g;                                                  \
     std::vector<std::thread> threads;                                \
     for (int i = 0; i < blockDim.x; ++i)                             \
       threads.emplace_back([=] { threadIdx.x = i; __VA_ARGS__; });   \
     for (auto& th : threads) th.join();                              \
-  }                                                                  \
-  pthread_barrier_destroy(&block_barrier);
+  }
 using fj::SD;
 extern "C" {
 // kinair, finish_kin, finish_sys (lanes aircraft per block) and dynamics
@@ -211,9 +239,29 @@ void host_megakernel(const double* in, const int* i_in, const double* p,
                      const double* grid, double* out, int* i_out, int B,
                      int n_params, double dt, double t_start, int comp,
                      int lanes) {
-  BLOCKS(fj::N_ROLES, lanes, k_megakernel::megakernel_kernel<SD>(
-      (const SD*)in, i_in, (const SD*)p, (const SD*)grid, (SD*)out, i_out, B,
-      n_params, dt, t_start, comp))
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_MECH, SD>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid, (SD*)out,
+             i_out, B, n_params, dt, t_start, comp, nullptr, 1, 0.0))
+}
+// the fly-by-wire megakernel (role r writing into outs[r]) and ctl_laws
+// (its side r, with `split`, writing into outs[r])
+void host_megakernel_fbw(const double* in, const int* i_in, const double* p,
+                         const double* grid, const double* gains,
+                         double* const* outs, int* i_out, int B,
+                         int n_params, double dt, double t_start, int comp,
+                         int spp, double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW, SD>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
+void host_ctl_laws(const double* in, const double* gains, double* const* outs,
+                   int B, double dt, int split, int lanes) {
+  BLOCKS(split ? 2 : 1, lanes, k_ctl_laws::ctl_laws_kernel<SD>(
+      (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt),
+      split))
 }
 }
 """
@@ -231,8 +279,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs a host C++ compiler")
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
-    parts = ['#include "c172_systems.cuh"']
-    for name in NAMES + VEHICLE_NAMES + ("megakernel",):
+    parts = ['#include "c172_systems.cuh"', '#include "c172x_ctl.cuh"']
+    for name in NAMES + VEHICLE_NAMES + ("megakernel", "ctl_laws"):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh:
             src = fh.read()
         assert LAUNCH_CODE in src, name
@@ -607,3 +655,149 @@ def test_fbw_roles_partition_the_state(host_lib):
             for k in range(host_lib.host_n_slots())]
     owned = sorted(r for r in rows if r >= 0)
     assert owned == list(range(K.rows(K.FBW.x_groups)))
+
+
+# ------------------------------------------------------------ control laws
+
+def _run_ctl_laws(host_lib, args, lanes, split, by_side=False):
+    """ctl_laws' source on the wrapper's arguments, block by block at
+    `lanes` aircraft per block, the lon and lat passes in two sides with
+    `split`; its packed output, or with `by_side` one output per side
+    holding the rows the side wrote and NaN elsewhere."""
+    buf, n_out, scalars, ops = K.PACK["ctl_laws"](*args)
+    batch, n_sides = buf.shape[1], 2 if split else 1
+    outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+            for _ in range(n_sides if by_side else 1)]
+    ptrs = (ctypes.c_void_p * n_sides)(
+        *(outs[r if by_side else 0].data_ptr() for r in range(n_sides)))
+    host_lib.host_ctl_laws(_ptr(buf), _ptr(ops["gains"]), ptrs,
+                           ctypes.c_int(batch), ctypes.c_double(scalars[0]),
+                           ctypes.c_int(int(split)), ctypes.c_int(lanes))
+    return outs if by_side else outs[0]
+
+
+def _ctl_args(batch):
+    from flightjax_torch.testing import ctl_laws_args
+    return ctl_laws_args(batch, 1016, "cpu", torch.float64, (3, 17))
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "thread"])
+@pytest.mark.parametrize("batch,lanes", [(B, 32)] + RAGGED,
+                         ids=[f"B{B}-L32"] + RAGGED_IDS)
+def test_ctl_laws_source_matches_plain(host_lib, batch, lanes, split):
+    """ctl_laws against `ctl_laws_plain` on the mode-rich operands: every
+    lon mode (the altitude mode acquiring and holding) and every lat mode,
+    mode changes, lanes on the ground, altitude errors on both sides of
+    the altitude machine's switch points, saturation flags of both signs,
+    EAS and heights past the gain schedules' grid."""
+    args = _ctl_args(batch)
+    got = K.unpack_out("ctl_laws", _run_ctl_laws(host_lib, args, lanes,
+                                                 split))
+    ref = K.ctl_laws_plain(*args)
+    _assert_trees_close(got, ref)
+    if batch == B:
+        lon = ref[0]["lon"]["mode_prev"]
+        lat = ref[0]["lat"]["mode_prev"]
+        assert set(lon.tolist()) == set(range(9))
+        assert set(lat.tolist()) == set(range(5))
+        s_in = args[3]
+        assert bool((lon != s_in["lon"]["mode_prev"]).any())
+        assert bool((lon == s_in["lon"]["mode_prev"]).any())
+
+
+def test_ctl_laws_sides_partition_the_output(host_lib):
+    """Every output row of ctl_laws is written by exactly one of its two
+    sides (lon, lat), for every aircraft, and by no other side."""
+    outs = _run_ctl_laws(host_lib, _ctl_args(B), 32, True, by_side=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False):
+    """The fly-by-wire megakernel's source on the C172Xv1 cluster state
+    (`testing.xv1_operand_state`: the fly-by-wire cluster operands with the
+    mode-rich avionics; with spp = 2 every other lane's counter fires),
+    block by block; (sim, state, the kernel's new state) or with `by_role`
+    (sim, state, one state buffer per role, NaN where the role wrote
+    nothing)."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import xv1_operand_state
+    sim, _, _ = c172xv1_sim("cpu", torch.float64)
+    if spp != 1:
+        sim = Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                         geoid_every=sim.geoid_every)
+    st = xv1_operand_state(batch, 1016, "cpu", torch.float64, (3, 17), (5,),
+                           (CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(batch, dtype=torch.int32) % spp)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, _, unpack = make_megakernel_step(sim, st)
+    aircraft = sim.system.aircraft
+    params = K.system_params(aircraft.vehicle)
+    n_roles = host_lib.host_n_roles()
+    outs = [torch.full_like(bufs[0], float("nan"))
+            for _ in range(n_roles if by_role else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
+    i_out = torch.full_like(bufs[1], -1)
+    host_lib.host_megakernel_fbw(
+        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
+        _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
+        _ptr(K.ctl_gains(aircraft.avionics)), ptrs, _ptr(i_out),
+        ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
+        ctypes.c_int(int(comp)), ctypes.c_int(sim.steps_per_periodic),
+        ctypes.c_double(sim.periodic_dt), ctypes.c_int(lanes))
+    if by_role:
+        return sim, st, outs
+    return sim, st, unpack((outs[0], i_out))
+
+
+@pytest.mark.parametrize("comp,spp", [(False, 1), (True, 1), (False, 2)],
+                         ids=["uncompensated", "compensated", "every-2nd"])
+@pytest.mark.parametrize("batch,lanes", [(B, 32)] + RAGGED,
+                         ids=[f"B{B}-L32"] + RAGGED_IDS)
+def test_megakernel_fbw_source_matches_plain(host_lib, batch, lanes, comp,
+                                             spp):
+    """The fly-by-wire megakernel against `megakernel_step_plain` on the
+    C172Xv1: the whole step with the servos, then the control laws on the
+    mode-rich avionics where the lane's new counter fires (every lane, or
+    with a periodic interval of two steps every other lane; elsewhere the
+    avionics and the commands stand still)."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_fbw(host_lib, batch, lanes, comp, spp)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    assert not bool(st.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+    assert bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+    fired = ref.s["avionics"]["lon"]["mode_prev"] != st.s["avionics"][
+        "lon"]["mode_prev"]
+    if spp == 2:  # the lanes that do not fire keep their avionics
+        still = (st.i + 1) % 2 != 0
+        assert bool(still.any()) and not bool(fired[still].any())
+        for a, b in zip(_leaves(got.s["avionics"]),
+                        _leaves(st.s["avionics"])):
+            assert torch.equal(a[still], b[still])
+    else:
+        assert bool(fired.any())
+
+
+def _leaves(tree):
+    return [v for _, v in tree_leaves_with_path(tree)]
+
+
+def test_megakernel_fbw_roles_partition_the_output(host_lib):
+    """Every row of the fly-by-wire megakernel's new state buffer, the
+    avionics' and the commands among them, is written by exactly one
+    role, for every aircraft, and by no other role anywhere."""
+    _, _, outs = _run_megakernel_fbw(host_lib, B, 32, True, by_role=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]

@@ -9,9 +9,11 @@ per block, kinair, dynamics and finish_kin also on the ISA-layer operands,
 the stage and finish kernels also on the airborne flight fleet;
 and the two whole-step entry points, a few steps against their plain paths.
 The fly-by-wire instances (systems_fbw, finish_sys_fbw, rk4_stage_fbw,
-rk4_finish_fbw) are held to their plain versions exactly at both block sizes
-and on ragged batches, and the C172Xv1's two paths, with the control laws'
-periodic pass, a few steps against the plain step.
+rk4_finish_fbw, megakernel_fbw) and the control laws' pass (ctl_laws, both
+layouts) are held to their plain versions exactly at both block sizes and on
+ragged batches, on operands that carry every lon and lat mode, and the
+C172Xv1's three paths, with the control laws' periodic pass, a few steps
+(the megakernel 500 in float32) against the plain step.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -351,6 +353,113 @@ def test_xv1_paths_match_plain_on_card(split, dtype, tol):
             if split == "vehicle" else
             {"kinair": 12, "systems_fbw": 12, "dynamics": 12,
              "finish_kin": 3, "finish_sys_fbw": 3, "geoid": 1})
+    want["ctl_laws"] = 3  # the periodic pass after every step
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
     assert _worst((got.t, got.x, got.u, got.s),
                   (ref.t, ref.x, ref.u, ref.s)) <= tol
+
+
+# ------------------------------------------------------------ control laws
+
+def _assert_same(got, ref):
+    """Every leaf equal, the modes, flags and the step counter too."""
+    g, r = tree_leaves_with_path(got), tree_leaves_with_path(ref)
+    assert [p for p, _ in g] == [p for p, _ in r]
+    for (p, a), (_, b) in zip(g, r):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 0], ids=["split", "thread"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_ctl_laws_matches_plain_on_card(split, batch, lanes, dtype):
+    """ctl_laws against `ctl_laws_plain` exactly, in both layouts (lon and
+    lat in two warps, or one thread), on the mode-rich operands (every lon
+    and lat mode, mode changes, lanes on the ground, both sides of the
+    altitude machine's switch points, saturation flags of both signs); the
+    wrapper launches it."""
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.testing import ctl_laws_args
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = ctl_laws_args(batch, 1016, "cuda", dtype, (3, 17))
+    ref = K.ctl_laws_plain(*args)
+    buf, n_out, scalars, ops = K.PACK["ctl_laws"](*args)
+    got = K.unpack_out("ctl_laws", L.launch(
+        "ctl_laws", buf, n_out, (scalars[0], split), block=lanes, **ops))
+    before = K.LAUNCHES["ctl_laws"]
+    via = K.ctl_laws(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ctl_laws"] == before + 1
+    _assert_same(got, ref)
+    _assert_same(via, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp,spp", [(False, 1), (True, 1), (True, 2)],
+                         ids=["uncompensated", "compensated", "every-2nd"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_fbw_matches_plain_on_card(comp, spp, batch, lanes,
+                                              dtype):
+    """One step of the fly-by-wire megakernel against its plain version,
+    exactly, on the C172Xv1 cluster state with the mode-rich avionics
+    (`testing.xv1_operand_state`; the crash lane latches), the pass firing
+    on every lane or, at twice the step, on every other lane."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import xv1_operand_state
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, _, _ = c172xv1_sim("cuda", dtype)
+    if spp != 1:
+        sim = Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                         geoid_every=sim.geoid_every)
+    st = xv1_operand_state(batch, 1016, "cuda", dtype, (3, 17), (5,),
+                           (SMALL_CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(
+        batch, dtype=torch.int32, device="cuda") % spp)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    ref = megakernel_step_plain(sim, st)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "megakernel_fbw": 1}
+    _assert_same(tuple(got), tuple(ref))
+    assert bool(got.s["vehicle"]["systems"]["crashed"][SMALL_CRASH_LANE])
+
+
+@pytest.mark.cuda
+def test_xv1_megakernel_500_steps_on_card():
+    """The C172Xv1 on the turning climb, 500 float32 steps (10 s) through
+    the fly-by-wire megakernel against its plain step: every leaf equal,
+    one launch per step, every lane in the autopilot's modes."""
+    from flightjax_torch.models.c172 import c172x_ctl as CTL
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import xv1_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = xv1_fleet_sim(B, 1016, "cuda", torch.float32)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st)
+    K.reset_launches()
+    ref = st
+    for _ in range(500):
+        bufs = step_packed(bufs)
+        ref = megakernel_step_plain(sim, ref)
+    got = unpack(bufs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["megakernel_fbw"] == 500
+    _assert_same(tuple(got), tuple(ref))
+    assert bool((got.s["avionics"]["lon"]["mode_prev"]
+                 == CTL.LON_EAS_CLM).all())
+    assert bool((got.s["avionics"]["lat"]["mode_prev"]
+                 == CTL.LAT_CHI_BETA).all())

@@ -185,12 +185,15 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
                                               (TERMINATED_LANE,)),
                          fbw_vehicle(device="cpu", dtype=torch.float64),
                          "cpu", torch.float64, adt=ADT, dt=DT)
+    from flightjax_torch.testing import ctl_laws_args
+    ctl = {"ctl_laws": ctl_laws_args(B, SEED, "cpu", torch.float64, (1,))}
     K.reset_launches()
-    # every kernel but the megakernel, whose step has its own wrapper
-    assert set(args) == set(K.LAUNCHES) - {"megakernel", *FBW_KERNELS}
+    # every kernel but the megakernels, whose steps have their own wrapper
+    mega = {"megakernel", "megakernel_fbw"}
+    assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS}
     assert {K.FBW.names.get(k, k) for k in fbw} == (
-        set(K.LAUNCHES) - {"megakernel", *K.FBW.names})
-    for ops in (args, fbw):
+        set(K.LAUNCHES) - {*mega, "ctl_laws", *K.FBW.names})
+    for ops in (args, fbw, ctl):
         for name in ops:
             a = getattr(K, name)(*ops[name])
             b = getattr(K, name + "_plain")(*ops[name])
@@ -198,7 +201,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
                 assert pa == pb and torch.equal(ta, tb), (name, pa)
     assert K.LAUNCHES == {name: 0 for name in (
         "kinair", "dynamics", "finish_kin", "systems", "finish_sys",
-        "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS)}
+        "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
+        "megakernel_fbw", "ctl_laws")}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

@@ -232,3 +232,37 @@ def test_launch_rejects_bad_operands(bad):
         t = torch.zeros((3, 4), dtype=F64).t()
     with pytest.raises(ValueError):
         check_operand(t, **kw)
+
+
+def test_sass_digests_hold_an_instance_to_its_form_before(monkeypatch,
+                                                          tmp_path):
+    """`tools/sass_torch_kernels.py` keys each kernel section by its
+    instance (the ActKind template argument read, not kept in the name),
+    digests only the instructions (not their addresses and encodings), and
+    tells a changed instruction apart."""
+    import importlib.util
+    import subprocess
+    spec = importlib.util.spec_from_file_location("sass_torch_kernels", (
+        os.path.join(os.path.dirname(__file__), os.pardir, "tools",
+                     "sass_torch_kernels.py")))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+
+    def dump(kernel_name, instr):
+        return (f"\tcode for sm_90a\n\t\tFunction : {kernel_name}\n"
+                f"        /*0000*/   {instr} ;   /* 0x000fe4 */\n"
+                f"        /*0010*/   EXIT ;   /* 0x000fe5 */\n")
+
+    before = "_Z17megakernel_kernelIN2fj6StrictIfEEEvPKT_"
+    after = "_Z17megakernel_kernelILi0EN2fj6StrictIfEEEvPKT0_"
+    fbw = "_Z17megakernel_kernelILi1EN2fj6StrictIdEEEvPKT0_"
+    outs = iter([dump(before, "MOV R1, c[0x0][0x28]"),
+                 dump(after, "MOV R1, c[0x0][0x28]")
+                 + dump(fbw, "MOV R2, R3"),
+                 dump(after, "MOV R1, c[0x0][0x30]")])
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: type(
+        "R", (), {"stdout": next(outs)})())
+    a, b, c = (S.digests("lib.so", "/cuda/bin/nvcc") for _ in range(3))
+    assert set(a) == {"megakernel_f32"}
+    assert set(b) == {"megakernel_f32", "megakernel_fbw_f64"}
+    assert a["megakernel_f32"] == b["megakernel_f32"] != c["megakernel_f32"]

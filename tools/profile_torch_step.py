@@ -3,7 +3,8 @@
 time goes, by kernel, and how much of the step the device is idle.
 
     python3 tools/profile_torch_step.py [--paths subsystems,vehicle,megakernel,
-                                         xv1_subsystems,xv1_vehicle]
+                                         xv1_subsystems,xv1_vehicle,
+                                         xv1_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -13,7 +14,8 @@ The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
 C172Xv1 flying the turning climb with its control laws
 (`testing.xv1_fleet_sim`), `xv1_subsystems` and `xv1_vehicle`, the same two
 splits with the fly-by-wire kernel instances and the periodic pass (the
-control laws as PyTorch ops) after every step. For each, a warm window of
+`ctl_laws` kernel) after every step, and `xv1_megakernel`, the fly-by-wire
+megakernel with the pass inside it. For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
 ms per step of the same window run without the profiler, the device time per
@@ -36,7 +38,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
 PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
-         "xv1_vehicle")
+         "xv1_vehicle", "xv1_megakernel")
 
 
 def device_us(evt):
