@@ -29,10 +29,11 @@ The paths, each an entry point a user calls:
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a; the
-   machine code of every kernel instance that was there before the
-   C172Xv1 megakernel and the control laws came, held to its record
-   (`tools/sass_torch_kernels.py`, `tools/sass_record.json`; not compared
-   under another nvcc than the record's);
+   machine code of each kernel instance that `tools/sass_torch_record.json`
+   holds (those that were there before the C172Xv1 megakernel and the
+   control laws came) held to its record (`tools/sass_torch_kernels.py`;
+   not compared under another nvcc than the record's; a change that means
+   to change a recorded instance's machine code records the file anew);
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
    max(1, |plain|); flags and states exactly), the four fly-by-wire
@@ -47,9 +48,8 @@ Phases:
    temperatures: NaN where plain is NaN) at 32 and 64 aircraft (threads for
    dynamics) per block, finish_kin and finish_sys also at 64 per block and
    on the airborne flight fleet, and one megakernel step on the cluster
-   operands' fleet, with and without residuals; `ctl_laws` exactly, in both
-   layouts (lon and lat in two warps, or one thread per aircraft) at 32 and
-   64 aircraft per block, on the mode-rich operands (`testing.
+   operands' fleet, with and without residuals; `ctl_laws` exactly, at 32
+   and 64 aircraft per block, on the mode-rich operands (`testing.
    ctl_laws_args`: every lon and lat mode, mode changes, lanes on the
    ground, both sides of the altitude machine's switch points, saturation
    flags of both signs) and on the pass of the C172Xv1 fleet;
@@ -76,7 +76,9 @@ Phases:
    (`tools/profile_torch_step.py`);
 5. timings: per kernel the warm median of the bare launch, of the wrapper
    and of the plain version, and the bound (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s, the larger). A kernel's time (`ms`) is taken
+   operations over 67 TFLOP/s, the larger; the operations of the plain
+   version, those of the control laws' pass counted as far as the lanes'
+   modes enable them, `pass_op_weights`). A kernel's time (`ms`) is taken
    inside a captured CUDA graph of 20 launches, so it is the card's time
    and not the host's launch rate; the time by CUDA events around 20
    launches from Python stands beside it (`event_ms`). The role kernels
@@ -85,8 +87,7 @@ Phases:
    airborne flight fleet (`airborne_ms`) and on the kernel-check operands
    with lanes on the runway (`runway_ms`), beside an empty kernel launched
    the same way,
-   and the megakernel at B = 16384 and 65536 too; `ctl_laws` in both
-   layouts. Every number of a kernel's row but those is taken on one set
+   and the megakernel at B = 16384 and 65536 too. Every number of a kernel's row but those is taken on one set
    of operands: the flight fleet (the state its path steps) for the
    megakernels and `ctl_laws` (the pass at the C172Xv1 fleet's state), the
    kernel-check operands for the others (the C172Xv1 fleet for the
@@ -177,14 +178,15 @@ FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws") and k not in FBW_NAMES)
 XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
-# the gain tables each lon and lat mode of the control laws reads
-# (`models/c172/c172x_ctl.py`: the sub-controllers each mode enables)
-LON_TABLES = {0: (), 1: ("te2te",), 2: ("q2e", "te2te"),
-              3: ("q2e", "te2te"), 4: ("tv2te",),
-              5: ("v2t", "q2e", "te2te"), 6: ("v2t", "q2e", "te2te"),
-              7: ("v2t", "c2theta", "q2e", "te2te"), 8: ("vh2te",)}
-LAT_TABLES = {0: (), 1: ("ar2ar",), 2: ("p2phi", "phibeta2ar"),
-              3: ("phibeta2ar",), 4: ("chi2phi", "phibeta2ar")}
+# the sub-controllers of the control laws' lon and lat passes, each under
+# the comment `# ---- <name>` that opens it in `ControlLaws.lon_step` /
+# `lat_step` (`models/c172/c172x_ctl.py`), with the modes that enable it;
+# each but theta2q reads the gain table of its name
+CTL_PARTS = {"lon": {"v2t": (5, 6, 7), "c2theta": (7,), "theta2q": (3, 6, 7),
+                     "q2e": (2, 3, 5, 6, 7), "te2te": (1, 2, 3, 5, 6, 7),
+                     "tv2te": (4,), "vh2te": (8,)},
+             "lat": {"p2phi": (2,), "chi2phi": (4,), "ar2ar": (1,),
+                     "phibeta2ar": (2, 3, 4)}}
 # the kernel-check operands' lanes: on the runway, terminated, and crashing
 # during the step (on the runway, sinking past what the gear takes)
 GROUND_LANES, TERMINATED_LANES, CRASH_LANE = (3, 77), (5,), 78
@@ -316,10 +318,11 @@ def graph_ms(fn, reps=7, calls=20):
     return statistics.median(out)
 
 
-def count_ops(fn):
+def count_ops(fn, weight=None):
     """Arithmetic operations of `fn` as PyTorch runs them: the elements of
     the output of every pointwise op and of the input of every reduction
-    (copies, views, concatenations, gathers and fills are not counted)."""
+    (copies, views, concatenations, gathers and fills are not counted),
+    each op's count times `weight(output)` if given."""
     from torch.utils._python_dispatch import TorchDispatchMode
     reductions = {"sum", "amax", "amin", "any", "all", "argmax", "argmin",
                   "prod", "mean", "norm", "linalg_vector_norm"}
@@ -332,17 +335,107 @@ def count_ops(fn):
             name = func.__name__.split(".")[0]
             if name in skip:
                 return out
+            o = out[0] if isinstance(out, (tuple, list)) else out
+            w = 1.0 if weight is None or not isinstance(
+                o, torch.Tensor) else weight(o)
             if name in reductions and isinstance(args[0], torch.Tensor):
-                total["ops"] += args[0].numel()
+                total["ops"] += w * args[0].numel()
             elif torch.Tag.pointwise in func.tags:
-                o = out[0] if isinstance(out, (tuple, list)) else out
                 if isinstance(o, torch.Tensor):
-                    total["ops"] += o.numel()
+                    total["ops"] += w * o.numel()
             return out
 
     with Count():
         fn()
-    return total["ops"]
+    return round(total["ops"])
+
+
+def gain_widths(avionics):
+    """{channel: the gain values of its table} (`FusedSchedule.split`)."""
+    import math
+    width = collections.Counter()
+    for fused in (avionics.lon_gains, avionics.lat_gains):
+        for ch, _, tail in fused.split:
+            width[ch] += math.prod(tail)
+    return width
+
+
+def pass_op_weights(avionics, s_in, s_out, fires=None):
+    """`weight` for `count_ops` of a step with the control laws' pass
+    whose avionics state goes from s_in to s_out: what the kernels do of
+    the plain pass, which works out every sub-controller on every lane and
+    selects. Where the pass fires (`fires`, default every lane), the mode
+    logic counts on each lane, a sub-controller's ops on the lanes whose
+    new mode enables it, its re-seed where that mode is also a change, and
+    a per-value op of the fused gain lookup for the values of the tables
+    the lanes' modes enable; the masked selects of `tree_where` count
+    nothing. Ops outside the pass count in full."""
+    import inspect
+    from flightjax_torch.core.modeling import tree_where
+    from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+    from flightjax_torch.parallel.clusterstep import _periodic
+    width = gain_widths(avionics)
+    like = s_out["lon"]["mode_prev"]
+    fire = (torch.ones_like(like, dtype=torch.bool) if fires is None
+            else fires)
+    fire_frac = fire.double().mean().item()
+    sides = {}
+    for side, parts in CTL_PARTS.items():
+        fn = getattr(ControlLaws, f"{side}_step")
+        lines, first = inspect.getsourcelines(fn)
+        marks, end, gains_line = [], None, None
+        for k, text in enumerate(lines):
+            m = re.match(r"\s*# ---- (\w+)", text)
+            if m:
+                marks.append((first + k, m.group(1)))
+            elif "s_new = {" in text:
+                end = first + k
+            elif "_gains(EAS, h_e)" in text:
+                gains_line = first + k
+        if sorted(n for _, n in marks) != sorted(parts) or None in (
+                end, gains_line):
+            raise AssertionError(f"pass_op_weights: ControlLaws.{side}_step "
+                                 f"has parts {marks}, not {list(parts)}")
+        mode, prev = s_out[side]["mode_prev"], s_in[side]["mode_prev"]
+        on = {n: fire & torch.isin(mode, torch.tensor(modes,
+                                                      device=mode.device))
+              for n, modes in parts.items()}
+        values = sum(on[n].double() * width[n] for n in parts if n in width)
+        sides[fn.__code__] = dict(
+            marks=marks, end=end, gains_line=gains_line,
+            on={n: v.double().mean().item() for n, v in on.items()},
+            reset={n: (v & (mode != prev)).double().mean().item()
+                   for n, v in on.items()},
+            width=sum(width[n] for n in parts if n in width),
+            per_value=(values.mean() / sum(width[n] for n in parts
+                                           if n in width)).item())
+    resets = ("_pid_reset", "_int_reset", "_lqr_reset")
+
+    def weight(out):
+        f, reset = sys._getframe(1), False
+        while f is not None:
+            code = f.f_code
+            if code is tree_where.__code__:
+                return 0.0
+            if code.co_name in resets:
+                reset = True
+            if code in sides:
+                break
+            if code is _periodic.__code__:
+                return fire_frac
+            f = f.f_back
+        else:
+            return 1.0
+        side, line = sides[code], f.f_lineno
+        if line == side["gains_line"]:
+            return (side["per_value"] if out.dim() and out.shape[-1]
+                    == side["width"] else fire_frac)
+        part = [n for at, n in side["marks"] if at <= line < side["end"]]
+        if not part:
+            return fire_frac
+        return (side["reset"] if reset else side["on"])[part[-1]]
+
+    return weight
 
 
 def geoid_cells(geo, q_ew):
@@ -523,18 +616,19 @@ def gain_values(avionics, EAS, h, lon_mode, lat_mode):
     """The gain values one pass reads: the corners of each lane's (EAS, h)
     cell in each table its lon and lat modes enable, a value shared by
     lanes once."""
-    from flightjax_torch.parallel import kernels as K
     lk = avionics.gains["v2t"]["k_p"]  # every table shares this grid
     cells = []
     for x, ax, uni in zip((EAS, h), lk.axes, lk._uni):
         i = torch.floor((x - uni[0]) / uni[1]).long()
         cells.append(i.clamp(0, ax.numel() - 2).tolist())
-    width = {ch: (4 if ch in ("v2t", "c2theta", "q2e", "p2phi", "chi2phi")
-                  else 3 * K.CTL_NX[ch] + 12) for ch in K.CTL_TABLES}
+    width = gain_widths(avionics)
     seen = set()
     for i0, i1, lon, lat in zip(*cells, lon_mode.tolist(), lat_mode.tolist()):
-        for ch in LON_TABLES[lon] + LAT_TABLES[lat]:
-            seen.update((ch, i0 + a, i1 + b) for a in (0, 1) for b in (0, 1))
+        for side, m in (("lon", lon), ("lat", lat)):
+            for ch, modes in CTL_PARTS[side].items():
+                if m in modes and ch in width:
+                    seen.update((ch, i0 + a, i1 + b) for a in (0, 1)
+                                for b in (0, 1))
     return sum(width[ch] for ch, _, _ in seen)
 
 
@@ -766,7 +860,7 @@ def main():
         __file__)), "tools"))
     from sass_torch_kernels import compare, nvcc_version
     record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "tools", "sass_record.json")
+                          "tools", "sass_torch_record.json")
     with open(record) as fh:
         rec_nvcc = json.load(fh)["nvcc"]
     if rec_nvcc == nvcc_version(L._nvcc()):
@@ -892,7 +986,7 @@ def main():
         del fargs, xsim, xst, xflight
 
     # the control laws' pass and the fly-by-wire megakernel exactly, at 32
-    # and 64 aircraft per block; ctl_laws in both layouts
+    # and 64 aircraft per block
     from flightjax_torch.testing import ctl_laws_args
     for dtype in (torch.float64, torch.float32):
         xsim, xst = xv1_fleet(dtype)
@@ -901,20 +995,18 @@ def main():
                  ("C172Xv1 fleet", ctl_flight_args(xsim, xst))]
         for what, a in cases:
             ref = K.ctl_laws_plain(*a)
-            got = K.ctl_laws(*a)  # the wrapper, at its default layout
+            got = K.ctl_laws(*a)  # the wrapper
             torch.cuda.synchronize()
             check("ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
                   f" ({what}, wrapper)")
-            for split in (1, 0):
-                for lanes in (32, 64):
-                    buf, n_out, scal, ops = K.PACK["ctl_laws"](*a)
-                    out = L.launch("ctl_laws", buf, n_out, (scal[0], split),
-                                   block=lanes, **ops)
-                    got = K.unpack_out("ctl_laws", out)
-                    torch.cuda.synchronize()
-                    check("ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
-                          f" ({what}, {'two warps' if split else 'one thread'}"
-                          f" per 32 aircraft, block {lanes})")
+            for lanes in (32, 64):
+                buf, n_out, scal, ops = K.PACK["ctl_laws"](*a)
+                out = L.launch("ctl_laws", buf, n_out, scal, block=lanes,
+                               **ops)
+                got = K.unpack_out("ctl_laws", out)
+                torch.cuda.synchronize()
+                check("ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                      f" ({what}, block {lanes})")
             modes = (sorted(set(ref[0]["lon"]["mode_prev"].tolist())),
                      sorted(set(ref[0]["lat"]["mode_prev"].tolist())))
             log(f"ctl_laws ({what}): lon modes {modes[0]}, lat modes "
@@ -1159,7 +1251,7 @@ def main():
     del fargs, xflight
 
     # ctl_laws: on the pass of the C172Xv1 fleet the paths step (airborne)
-    # and on the mode-rich operands (lanes on the ground), in both layouts
+    # and on the mode-rich operands (lanes on the ground)
     from flightjax_torch.testing import ctl_laws_args
     xavionics = xsim.system.aircraft.avionics
     air_args = ctl_flight_args(xsim, xst0)
@@ -1167,16 +1259,12 @@ def main():
                   "rich": K.PACK["ctl_laws"](*ctl_laws_args(
                       B, SEED, DEVICE, torch.float32, GROUND_LANES))}
 
-    def ctl(which, lanes=None, split=L.CTL_SPLIT):
+    def ctl(which, lanes=None):
         buf, n_out, scal, ops = ctl_packed[which]
-        return L.launch("ctl_laws", buf, n_out, (scal[0], split),
-                        block=lanes, **ops)
+        return L.launch("ctl_laws", buf, n_out, scal, block=lanes, **ops)
 
     extra = role_times("ctl_laws", lambda n=None: ctl("air", n),
-                       lambda n=None: ctl("rich", n), B, L.CTL_SPLIT)
-    layouts = {("two warps" if split else "one thread"): {
-        which: {n: graph_ms(lambda: ctl(which, n, split)) for n in (32, 64)}
-        for which in ("air", "rich")} for split in (1, 0)}
+                       lambda n=None: ctl("rich", n), B, 0)
     ref = K.ctl_laws_plain(*air_args)
     buf, n_out, _, _ = ctl_packed["air"]
     n_elems = buf.numel() + n_out * B + gain_values(
@@ -1190,11 +1278,12 @@ def main():
                      plain_ms=cuda_ms(lambda: K.ctl_laws_plain(*air_args),
                                       reps=5, calls=4),
                      nbytes=4 * n_elems,
-                     ops=count_ops(lambda: K.ctl_laws_plain(*air_args)),
+                     ops=count_ops(lambda: K.ctl_laws_plain(*air_args),
+                                   pass_op_weights(xavionics, air_args[3],
+                                                   ref[0])),
                      library_ms=None, event_ms=cuda_ms(lambda: ctl("air")),
                      wrapper_ms=cuda_ms(lambda: K.ctl_laws(*air_args)),
-                     block_ms=extra["lanes_ms"], layouts_ms=layouts,
-                     **extra))
+                     block_ms=extra["lanes_ms"], **extra))
     del ctl_packed
 
     # megakernel_fbw: on the C172Xv1 fleet the path steps (airborne) and on
@@ -1230,7 +1319,11 @@ def main():
         plain_ms=cuda_ms(lambda: megakernel_step_plain(xsim, xst0), reps=3,
                          calls=2),
         nbytes=4 * n_elems,
-        ops=count_ops(lambda: megakernel_step_plain(xsim, xst0)),
+        ops=count_ops(lambda: megakernel_step_plain(xsim, xst0),
+                      pass_op_weights(xavionics, xst0.s["avionics"],
+                                      new.s["avionics"],
+                                      (xst0.i + 1) % xsim.steps_per_periodic
+                                      == 0)),
         library_ms=None, event_ms=cuda_ms(lambda: mega_fbw(xbufs)),
         wrapper_ms=cuda_ms(lambda: xpaths.step_packed(xbufs)),
         block_ms=extra["lanes_ms"], **extra))
@@ -1261,13 +1354,6 @@ def main():
                 + f"), an empty kernel launched the same way (grid, block, "
                 f"shared bytes {r['launch_shape']}) {r['empty_ms']:.4f} ms "
                 f"({r['empty_event_ms']:.4f} by events) [{card}]")
-        for layout, t in r.get("layouts_ms", {}).items():
-            log(f"time {r['name']} with {layout} per 32 aircraft (graph "
-                f"times): airborne " + ", ".join(
-                    f"{k}: {v:.4f}" for k, v in t["air"].items())
-                + " ms by aircraft per block; mode-rich operands "
-                + ", ".join(f"{k}: {v:.4f}" for k, v in t["rich"].items())
-                + f" ms [{card}]")
         for batch, t in r.get("by_batch_ms", {}).items():
             log(f"time {r['name']} at B = {batch}: airborne "
                 f"{t['airborne_ms']:.4f} ms ({t['airborne_64_ms']:.4f} at 64 "
@@ -1302,8 +1388,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms", "wrapper_ms", "block_ms", "nbytes", "ops",
             "code_bytes", "registers", "airborne_ms", "runway_ms",
-            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms",
-            "layouts_ms")
+            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms")
     log("profiles: " + json.dumps(profiles))
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -20,19 +20,23 @@
 // float32 at B = 4096, 0.7 us of HBM) nor operations (a few hundred per
 // lane), but each lane's chain through its lookups and controllers, and the
 // branches: lanes in different modes take different paths. The lon and lat
-// passes share nothing but their inputs, so with `split` they run in two
-// warps per 32 aircraft (thread = side * lanes + lane; lon_step and
-// lat_step are one function each, each called by one warp); without, one
-// thread runs both, lon first. PERF.md has both times. No barrier.
+// passes share nothing but their inputs, so they run in two warps per 32
+// aircraft (thread = side * lanes + lane; lon_step and lat_step are one
+// function each, each called by one warp). One thread per aircraft running
+// both measured slower (PERF.md; `ctl_laws_thread` of
+// tools/ablate_torch_roles.py). No barrier.
 #include "c172x_ctl.cuh"
 
 using namespace fj;
 
+// the lon and the lat side
+constexpr int CTL_SIDES = 2;
+
 template <typename T>
 __global__ void __launch_bounds__(2 * MAX_LANES)
     ctl_laws_kernel(const T* __restrict__ in, const T* __restrict__ G,
-                    T* __restrict__ out, int B, T dt, int split) {
-  const RoleThread t = role_thread(B, split ? 2 : 1);
+                    T* __restrict__ out, int B, T dt) {
+  const RoleThread t = role_thread(B, CTL_SIDES);
   if (!t.valid) return;
   const Col<T> y{in, B, t.b};
   const Col<T> u_lon{in + (N_CTLY + AV_ULON) * B, B, t.b};
@@ -41,12 +45,12 @@ __global__ void __launch_bounds__(2 * MAX_LANES)
   const Col<T> s_lat{in + (N_CTLY + AV_SLAT) * B, B, t.b};
   const Out<T> o{out, B, t.b};
   constexpr int O_CMD = N_SLON + N_SLAT;
-  if (!split || t.role == 0) {
+  if (t.role == 0) {
     const Cmd2<T> c = lon_step(G, y, u_lon, s_lon, o, dt);
     o.s(O_CMD + CC_THR, c.a);
     o.s(O_CMD + CC_ELV, c.b);
   }
-  if (!split || t.role == 1) {
+  if (t.role == 1) {
     const Cmd2<T> c =
         lat_step(G, y, u_lat, s_lat, Out<T>{out + N_SLON * B, B, t.b}, dt);
     o.s(O_CMD + CC_AIL, c.a);
@@ -56,33 +60,32 @@ __global__ void __launch_bounds__(2 * MAX_LANES)
 
 template <typename T>
 static int launch(const void* in, const void* gains, void* out, int B,
-                  double dt, int split, int lanes, void* stream) {
+                  double dt, int lanes, void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const RoleLaunch l = role_launch(B, lanes, split ? 2 : 1, 0);
+  const RoleLaunch l = role_launch(B, lanes, CTL_SIDES, 0);
   ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (const T*)gains, (T*)out, B, T(dt), split);
+      (const T*)in, (const T*)gains, (T*)out, B, T(dt));
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 int ctl_laws_f32(const void* in, const void* gains, void* out, int B,
-                 double dt, int split, int lanes, void* stream) {
-  return launch<SF>(in, gains, out, B, dt, split, lanes, stream);
+                 double dt, int lanes, void* stream) {
+  return launch<SF>(in, gains, out, B, dt, lanes, stream);
 }
 int ctl_laws_f64(const void* in, const void* gains, void* out, int B,
-                 double dt, int split, int lanes, void* stream) {
-  return launch<SD>(in, gains, out, B, dt, split, lanes, stream);
+                 double dt, int lanes, void* stream) {
+  return launch<SD>(in, gains, out, B, dt, lanes, stream);
 }
 void ctl_laws_layout(int* n_in, int* n_out) {
   *n_in = CTL_N_IN;
   *n_out = CTL_N_OUT;
 }
-// n_params and elem_size are not read: the kernel takes no shared memory;
-// `split` comes as the parameter count (1 or 0)
-void ctl_laws_launch_shape(int B, int lanes, int split, int elem_size,
-                           int* grid, int* block, int* shared) {
-  put_launch(role_launch(B, lanes, split ? 2 : 1, 0), grid, block, shared);
+// n_params and elem_size are not read: the kernel takes no shared memory
+void ctl_laws_launch_shape(int B, int lanes, int, int, int* grid, int* block,
+                           int* shared) {
+  put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
 }
 }

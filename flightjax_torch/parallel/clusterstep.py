@@ -39,7 +39,7 @@ refresh steps by the undulation's change over 128 steps, micrometres).
 
 import torch
 
-from flightjax_torch.core.modeling import tree_map, tree_where
+from flightjax_torch.core.modeling import tree_map
 from flightjax_torch.core.sim import SimState
 from flightjax_torch.models.c172.c172x_ctl import ControlLaws
 from flightjax_torch.parallel import kernels as K
@@ -59,12 +59,11 @@ def _comp_kin(state):
 
 
 def cluster_step(sim, state: SimState, i: int, *, plain=False,
-                 geoid_every=None, fires=None) -> SimState:
+                 geoid_every=None) -> SimState:
     """Advance a batch-leading world SimState whose step counter is `i`
     through the five cluster kernels, or with `plain` through their plain
     versions on any device. The geoid is refreshed when (i + 1) is a
-    multiple of `geoid_every` (default `sim.geoid_every`). `fires`, a
-    per-lane bool, says where the periodic pass fires instead of `i`."""
+    multiple of `geoid_every` (default `sim.geoid_every`)."""
     vehicle = sim.system.aircraft.vehicle
     C = K.PLAIN if plain else K.WRAPPERS
     dt = sim.dt
@@ -88,41 +87,35 @@ def cluster_step(sim, state: SimState, i: int, *, plain=False,
                   else geoid_every) == 0:
         sv2 = vehicle.refresh_geoid(xv2, sv2, plain=plain)
     s2 = dict(s, vehicle=sv2, terminated=term2)
-    if fires is None:
-        fires = (i + 1) % sim.steps_per_periodic == 0
-    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, fires, plain)
+    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i, plain)
     c2 = None if c_kin2 is None else {"vehicle": {"kinematics": c_kin2}}
     return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u2, s=s2,
                     c=c2)
 
 
-def _periodic(sim, xv, u, s, kin_y, sys_y, fires, plain=False):
-    """The world's periodic pass after a step where it `fires` (a bool for
-    the fleet, or one per lane: where the counter the step makes is a
-    multiple of `steps_per_periodic`, `sim.py:327-333`; no ported avionics
-    reads the firing index): the avionics on the VehicleY at the new state
-    xv (from the finish's kin_y and sys_y) write the systems' inputs. The
-    control laws run as `ctl_laws` (its plain version with `plain`).
-    Returns (u, s)."""
+def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False):
+    """The world's periodic pass after step `i` if it fires, when the
+    counter it makes, i + 1, is a multiple of `steps_per_periodic`
+    (`sim.py:327-328`; no ported avionics reads the firing index): the
+    control laws on the VehicleY at the new state xv (from the finish's
+    kin_y and sys_y) write the servo commands, as the `ctl_laws` kernel
+    (its plain version with `plain`). Returns (u, s)."""
     world = sim.system
     avionics = world.aircraft.avionics
-    lanes = isinstance(fires, torch.Tensor)
-    if avionics is None or not (bool(fires.any()) if lanes else fires):
+    if avionics is None or (i + 1) % sim.steps_per_periodic != 0:
         return u, s
+    if not isinstance(avionics, ControlLaws):
+        raise NotImplementedError(
+            "the periodic pass carries the C172X's ControlLaws; the Xv2's "
+            "guidance (c172x_gdc.py) is ROADMAP P9")
     vy = K.vehicle_y(world.aircraft.vehicle, xv, u["vehicle"], kin_y, sys_y)
-    if isinstance(avionics, ControlLaws):
-        fn = K.ctl_laws_plain if plain else K.ctl_laws
-        s_av, cmd = fn(avionics, K.ctl_y(vy), u["avionics"], s["avionics"],
-                       world.periodic_dt)
-        u_sys = u["vehicle"]["systems"]
-        u2 = dict(u, vehicle=dict(u["vehicle"], systems=dict(
-            u_sys, act=dict(u_sys["act"], **cmd))))
-        s2 = dict(s, avionics=s_av)
-    else:
-        u2, s2 = world.f_periodic(u, s, vy)
-    if lanes:
-        return tree_where(fires, u2, u), tree_where(fires, s2, s)
-    return u2, s2
+    fn = K.ctl_laws_plain if plain else K.ctl_laws
+    s_av, cmd = fn(avionics, K.ctl_y(vy), u["avionics"], s["avionics"],
+                   world.periodic_dt)
+    u_sys = u["vehicle"]["systems"]
+    u2 = dict(u, vehicle=dict(u["vehicle"], systems=dict(
+        u_sys, act=dict(u_sys["act"], **cmd))))
+    return u2, dict(s, avionics=s_av)
 
 
 def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
@@ -154,8 +147,7 @@ def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
         q_rows = out[K.rows_of(lay.x_groups, "q_ew")]
         sv2["geoid_N"] = K.geoid_packed(vehicle.geoid, q_rows, block)[0]
     s2 = dict(s, vehicle=sv2, terminated=term2)
-    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y,
-                       (i + 1) % sim.steps_per_periodic == 0)
+    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i)
     return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u2, s=s2,
                     c=state.c)
 

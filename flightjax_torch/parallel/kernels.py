@@ -891,7 +891,7 @@ def pack_ctl_laws(avionics, y, u_av, s_av, dt):
     like = y["EAS"]
     buf = pack(CTL_IN, (y, u_av["lon"], u_av["lat"], s_av["lon"],
                         s_av["lat"]), like.shape[0], like.dtype)
-    return buf, rows(CTL_OUT), (float(dt), int(L.CTL_SPLIT)), {
+    return buf, rows(CTL_OUT), (float(dt),), {
         "gains": ctl_gains(avionics)}
 
 

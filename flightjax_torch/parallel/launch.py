@@ -55,9 +55,6 @@ ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "rk4_stage_fbw", "megakernel_fbw")
-# ctl_laws runs the lon and the lat pass in two warps per 32 aircraft (1),
-# or both in one thread per aircraft (0) (csrc/ctl_laws.cu)
-CTL_SPLIT = 1
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -175,7 +172,7 @@ def library():
                    "megakernel": [P, P, P, P, P, P, I, I, D, D, I, I, P],
                    "megakernel_fbw": [P, P, P, P, P, P, P, I, I, D, D, I, I,
                                       D, I, P],
-                   "ctl_laws": [P, P, P, I, D, I, I, P]}
+                   "ctl_laws": [P, P, P, I, D, I, P]}
             sig.update({k: sig[k[:-len("_fbw")]] for k in FBW_KERNELS})
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):

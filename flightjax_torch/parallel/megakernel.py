@@ -27,6 +27,7 @@ gear gate, as in the rest of the port.
 
 import torch
 
+from flightjax_torch.core.modeling import tree_where
 from flightjax_torch.core.sim import SimState
 from flightjax_torch.models.c172.c172x_ctl import ControlLaws
 from flightjax_torch.parallel import kernels as K
@@ -40,9 +41,16 @@ def megakernel_step_plain(sim, state: SimState) -> SimState:
     """The plain cluster step with the geoid refreshed on every step and
     the periodic pass where each lane's counter fires: the port of
     `jax.vmap(Simulation.step)`, the kernel's plain version."""
-    fires = (state.i + 1) % sim.steps_per_periodic == 0
-    return cluster_step(sim, state, 0, plain=True, geoid_every=1,
-                        fires=fires)
+    spp = sim.steps_per_periodic
+    # a fleet counter at which the pass fires; the lanes whose own counter
+    # does not fire keep their inputs and avionics state
+    new = cluster_step(sim, state, spp - 1, plain=True, geoid_every=1)
+    if sim.system.aircraft.avionics is None:
+        return new
+    fires = (state.i + 1) % spp == 0
+    return new._replace(u=tree_where(fires, new.u, state.u), s=dict(
+        new.s, avionics=tree_where(fires, new.s["avionics"],
+                                   state.s["avionics"])))
 
 
 def make_megakernel_step(sim, state, ctx=(), block=None):

@@ -11,15 +11,18 @@ numpy from a seed and handed to both packages:
 - the VehicleY the avionics read, as `Vehicle.output` gives it and as the
   fleet step assembles it from the finish clusters, against JAX's
   `vehicle.f_ode` at the same state, to 1e-12;
-- 4 turning-climb lanes and one SAS lane stepped 5 times through
-  `Simulation.fleet_step` and `make_cluster_step(split="vehicle")`
-  against `jax.jit(sim.fleet_step)` of the JAX C172Xv1 world, every leaf
-  (the servo states and the avionics' u and s included) to 1e-9.
+- 4 turning-climb lanes, one SAS lane and one lane that changes mode
+  stepped 5 times through `Simulation.fleet_step`,
+  `make_cluster_step(split="vehicle")` and `make_megakernel_step`, with
+  the geoid refreshed every step, against `jax.jit(sim.fleet_step)` of the
+  JAX C172Xv1 world at `geoid_every=1`, every leaf (the servo states and
+  the avionics' u and s included) to 1e-9.
 
 The JAX reference state is the stored trim (`c172xv1_trim.npz`) with the
 port's trim start, whose agreement with JAX's `init_from_trim` is tested
-here; JAX does not trim. Two JAX functions are compiled (the fleet step and
-`vehicle.f_ode`); the control-law steps run eagerly.
+here; JAX does not trim. Two JAX functions are compiled (the fleet step at
+`geoid_every=1` and `vehicle.f_ode`; the `slow` 10 s test compiles the
+fleet step at 128 too); the control-law steps run eagerly.
 """
 
 import os
@@ -70,7 +73,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def jax_world():
     """The JAX C172Xv1 world, its jitted fleet step (geoid every 128
-    steps) and its jitted vmapped `vehicle.f_ode`."""
+    steps, for the 10 s test) and its jitted vmapped `vehicle.f_ode`."""
     aircraft = Jx.build_xv1("wa")
     world = JSimpleWorld(aircraft)
     sim = JSimulation(world, dt=DT, periodic_dt=DT, geoid_every=128)
@@ -518,21 +521,52 @@ def test_init_from_trim_matches_jax(jax_world):
 
 # ------------------------------------------------------------ fleet step
 
+MODE_LANE = 5  # requests the altitude mode 11.5 m below its reference
+
+
+def _mega_fleet():
+    """numpy (t, i, x, u, s) of the fleet-step tests: the 4 turning-climb
+    lanes and the SAS lane of `fleet`, and MODE_LANE, which requests
+    `LON_EAS_ALT` (and `LAT_PHI_BETA`) with the altitude 11.5 m below its
+    reference: it enters the altitude mode holding, its altitude machine
+    turns to acquire past the 11 m switch point, and on the next firing it
+    changes mode to `LON_THR_EAS`."""
+    t, i, x, u, s = perturbed_xv1(B + 1, SEED, sas_lanes=(SAS_LANE,))
+    lon, lat = u["avionics"]["lon"], u["avionics"]["lat"]
+    lon["mode_req"][MODE_LANE] = TCTL.LON_EAS_ALT
+    lon["h_ref"][MODE_LANE] = x["vehicle"]["kinematics"]["h_e"][
+        MODE_LANE] + 11.5
+    lat["mode_req"][MODE_LANE] = TCTL.LAT_PHI_BETA
+    return t, i, x, u, s
+
+
 @pytest.fixture(scope="module")
-def jax_steps(jax_world, fleet):
-    """JAX's fleet state after each of STEPS steps from the fleet."""
-    st = _jax_state(*fleet, jax_world["aircraft"])
+def jax_steps(jax_world):
+    """The JAX fleet step with the geoid refreshed after every step
+    (`fleet_step(geoid_every=1)`: the order of the JAX megakernel, whose
+    pass reads the undulation from before the refresh), STEPS times from
+    the megakernel's fleet; JAX's states after each step. The reference of
+    the megakernel and of both splits."""
+    sim = JSimulation(jax_world["world"], dt=DT, periodic_dt=DT,
+                      geoid_every=1)
+    step = jax.jit(sim.fleet_step)
+    st = _jax_state(*_mega_fleet(), jax_world["aircraft"])
     out = []
     for _ in range(STEPS):
-        st = jax_world["fleet_step"](st)
+        st = step(st)
         out.append(jax.tree.map(np.asarray, st))
     return out
 
 
 @pytest.mark.parametrize("split", ["subsystems", "vehicle"])
-def test_fleet_step_matches_jax(jax_steps, fleet, split):
-    t, i, x, u, s = fleet
-    sim, _, _ = Tx.c172xv1_sim("cpu", F64)
+def test_fleet_step_matches_jax(jax_steps, split):
+    """Both splits of the C172Xv1 with the geoid refreshed every step
+    against the JAX fleet step, every leaf after each of STEPS steps to
+    1e-9, on the megakernel's fleet (MODE_LANE changes mode)."""
+    from flightjax_torch.core.sim import Simulation
+    t, i, x, u, s = _mega_fleet()
+    sim0, _, _ = Tx.c172xv1_sim("cpu", F64)
+    sim = Simulation(sim0.system, dt=DT, periodic_dt=DT, geoid_every=1)
     st = SimState(t=torch.tensor(t), i=torch.tensor(i), x=to_torch(x),
                   u=to_torch(u), s=to_torch(s))
     step = (make_cluster_step(sim, st, split=split) if split == "vehicle"
@@ -548,8 +582,9 @@ def test_fleet_step_matches_jax(jax_steps, fleet, split):
     assert not any(K.LAUNCHES.values())
     lon = st.s["avionics"]["lon"]["mode_prev"].tolist()
     lat = st.s["avionics"]["lat"]["mode_prev"].tolist()
-    assert lon == [TCTL.LON_EAS_CLM] * 4 + [TCTL.LON_SAS]
-    assert lat == [TCTL.LAT_CHI_BETA] * 4 + [TCTL.LAT_SAS]
+    assert lon == [TCTL.LON_EAS_CLM] * 4 + [TCTL.LON_SAS, TCTL.LON_THR_EAS]
+    assert lat == [TCTL.LAT_CHI_BETA] * 4 + [TCTL.LAT_SAS,
+                                             TCTL.LAT_PHI_BETA]
     # the commands moved the servos
     act0, act = x["vehicle"]["systems"]["act"], st.x["vehicle"]["systems"][
         "act"]
@@ -602,6 +637,11 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
                                             Guidance())))
     with pytest.raises(NotImplementedError, match="P9"):
         make_megakernel_step(other, st)
+    # the splits' periodic pass is the ControlLaws' `ctl_laws` kernel
+    with pytest.raises(NotImplementedError, match="P9"):
+        other.fleet_step(st, i=0)
+    with pytest.raises(NotImplementedError, match="P9"):
+        make_cluster_step(other, st, split="vehicle")(st, i=0)
 
     class Nav:
         needs_terrain = True
@@ -615,43 +655,7 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
 
 # ------------------------------------------------------------ megakernel
 
-MODE_LANE = 5  # requests the altitude mode 11.5 m below its reference
-
-
-def _mega_fleet():
-    """numpy (t, i, x, u, s) of the megakernel's tests: the step tests' 4
-    turning-climb lanes and SAS lane, and MODE_LANE, which requests
-    `LON_EAS_ALT` (and `LAT_PHI_BETA`) with the altitude 11.5 m below its
-    reference: it enters the altitude mode holding, its altitude machine
-    turns to acquire past the 11 m switch point, and on the next firing it
-    changes mode to `LON_THR_EAS`."""
-    t, i, x, u, s = perturbed_xv1(B + 1, SEED, sas_lanes=(SAS_LANE,))
-    lon, lat = u["avionics"]["lon"], u["avionics"]["lat"]
-    lon["mode_req"][MODE_LANE] = TCTL.LON_EAS_ALT
-    lon["h_ref"][MODE_LANE] = x["vehicle"]["kinematics"]["h_e"][
-        MODE_LANE] + 11.5
-    lat["mode_req"][MODE_LANE] = TCTL.LAT_PHI_BETA
-    return t, i, x, u, s
-
-
-@pytest.fixture(scope="module")
-def jax_mega_steps(jax_world):
-    """The JAX fleet step with the geoid refreshed after every step
-    (`fleet_step(geoid_every=1)`: the order of the JAX megakernel, whose
-    pass reads the undulation from before the refresh), STEPS times from
-    the megakernel's fleet; JAX's states after each step."""
-    sim = JSimulation(jax_world["world"], dt=DT, periodic_dt=DT,
-                      geoid_every=1)
-    step = jax.jit(sim.fleet_step)
-    st = _jax_state(*_mega_fleet(), jax_world["aircraft"])
-    out = []
-    for _ in range(STEPS):
-        st = step(st)
-        out.append(jax.tree.map(np.asarray, st))
-    return out
-
-
-def test_megakernel_step_matches_jax(jax_mega_steps):
+def test_megakernel_step_matches_jax(jax_steps):
     """`make_megakernel_step` of the C172Xv1 (its plain version on CPU
     tensors) against the JAX fleet step with the geoid refreshed every
     step, every leaf (servos, commands and the avionics' u and s among
@@ -666,7 +670,7 @@ def test_megakernel_step_matches_jax(jax_mega_steps):
     modes = []
     for k in range(STEPS):
         bufs = step(bufs)
-        got, ref = unpack(bufs), jax_mega_steps[k]
+        got, ref = unpack(bufs), jax_steps[k]
         for name in ("t", "i", "x", "u", "s"):
             assert_tree_close({name: getattr(got, name)},
                               {name: getattr(ref, name)}, TOL,

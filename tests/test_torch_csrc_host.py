@@ -20,6 +20,7 @@ are checked here, where there is no card; `tests/test_torch_cuda.py` checks
 the compiled kernels on one. Skips without a host C++ compiler."""
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -245,7 +246,7 @@ void host_megakernel(const double* in, const int* i_in, const double* p,
              i_out, B, n_params, dt, t_start, comp, nullptr, 1, 0.0))
 }
 // the fly-by-wire megakernel (role r writing into outs[r]) and ctl_laws
-// (its side r, with `split`, writing into outs[r])
+// (its side r writing into outs[r])
 void host_megakernel_fbw(const double* in, const int* i_in, const double* p,
                          const double* grid, const double* gains,
                          double* const* outs, int* i_out, int B,
@@ -258,10 +259,9 @@ void host_megakernel_fbw(const double* in, const int* i_in, const double* p,
              (const SD*)gains, spp, pdt))
 }
 void host_ctl_laws(const double* in, const double* gains, double* const* outs,
-                   int B, double dt, int split, int lanes) {
-  BLOCKS(split ? 2 : 1, lanes, k_ctl_laws::ctl_laws_kernel<SD>(
-      (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt),
-      split))
+                   int B, double dt, int lanes) {
+  BLOCKS(2, lanes, k_ctl_laws::ctl_laws_kernel<SD>(
+      (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
 }
 }
 """
@@ -659,20 +659,20 @@ def test_fbw_roles_partition_the_state(host_lib):
 
 # ------------------------------------------------------------ control laws
 
-def _run_ctl_laws(host_lib, args, lanes, split, by_side=False):
+def _run_ctl_laws(host_lib, args, lanes, by_side=False):
     """ctl_laws' source on the wrapper's arguments, block by block at
-    `lanes` aircraft per block, the lon and lat passes in two sides with
-    `split`; its packed output, or with `by_side` one output per side
-    holding the rows the side wrote and NaN elsewhere."""
+    `lanes` aircraft per block, the lon and lat passes in two sides; its
+    packed output, or with `by_side` one output per side holding the rows
+    the side wrote and NaN elsewhere."""
     buf, n_out, scalars, ops = K.PACK["ctl_laws"](*args)
-    batch, n_sides = buf.shape[1], 2 if split else 1
+    batch, n_sides = buf.shape[1], 2
     outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
             for _ in range(n_sides if by_side else 1)]
     ptrs = (ctypes.c_void_p * n_sides)(
         *(outs[r if by_side else 0].data_ptr() for r in range(n_sides)))
     host_lib.host_ctl_laws(_ptr(buf), _ptr(ops["gains"]), ptrs,
                            ctypes.c_int(batch), ctypes.c_double(scalars[0]),
-                           ctypes.c_int(int(split)), ctypes.c_int(lanes))
+                           ctypes.c_int(lanes))
     return outs if by_side else outs[0]
 
 
@@ -681,21 +681,52 @@ def _ctl_args(batch):
     return ctl_laws_args(batch, 1016, "cpu", torch.float64, (3, 17))
 
 
-@pytest.mark.parametrize("split", [True, False], ids=["split", "thread"])
-@pytest.mark.parametrize("batch,lanes", [(B, 32)] + RAGGED,
-                         ids=[f"B{B}-L32"] + RAGGED_IDS)
-def test_ctl_laws_source_matches_plain(host_lib, batch, lanes, split):
+FLEET_LANES = {"sas": 2, "ground": 9}
+
+
+def _ctl_fleet_args(batch):
+    """ctl_laws' arguments on the pass of the C172Xv1 fleet on the turning
+    climb (`testing.xv1_fleet_sim`, with a SAS lane and a lane on the
+    ground), one megakernel step in, so that the servos and the avionics
+    carry what a pass left: the operands `chip_smoke.py` times it on."""
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import xv1_fleet_sim
+    sim, st = xv1_fleet_sim(batch, 1016, "cpu", torch.float64,
+                            sas_lanes=(FLEET_LANES["sas"],),
+                            ground_lanes=(FLEET_LANES["ground"],))
+    bufs, step, unpack = make_megakernel_step(sim, st)
+    st = unpack(step(bufs))
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                 st.s["vehicle"])
+    return (aircraft.avionics, K.ctl_y(vy), st.u["avionics"],
+            st.s["avionics"], sim.periodic_dt)
+
+
+CTL_CASES = ([("rich", B, 32)] + [("rich", b, n) for b, n in RAGGED]
+             + [("fleet", 37, 32), ("fleet", 37, 64)])
+
+
+@pytest.mark.parametrize(
+    "operands,batch,lanes", CTL_CASES,
+    ids=[("" if o == "rich" else o + "-") + f"B{b}-L{n}"
+         for o, b, n in CTL_CASES])
+def test_ctl_laws_source_matches_plain(host_lib, operands, batch, lanes):
     """ctl_laws against `ctl_laws_plain` on the mode-rich operands: every
     lon mode (the altitude mode acquiring and holding) and every lat mode,
     mode changes, lanes on the ground, altitude errors on both sides of
     the altitude machine's switch points, saturation flags of both signs,
-    EAS and heights past the gain schedules' grid."""
-    args = _ctl_args(batch)
-    got = K.unpack_out("ctl_laws", _run_ctl_laws(host_lib, args, lanes,
-                                                 split))
+    EAS and heights past the gain schedules' grid; and on the pass of the
+    C172Xv1 fleet (`_ctl_fleet_args`)."""
+    args = _ctl_args(batch) if operands == "rich" else _ctl_fleet_args(batch)
+    got = K.unpack_out("ctl_laws", _run_ctl_laws(host_lib, args, lanes))
     ref = K.ctl_laws_plain(*args)
     _assert_trees_close(got, ref)
-    if batch == B:
+    if operands == "fleet":  # the autopilot's climb, SAS, ground override
+        lon = ref[0]["lon"]["mode_prev"].tolist()
+        assert lon[FLEET_LANES["sas"]] == 1 and lon[FLEET_LANES["ground"]] == 0
+        assert lon.count(7) == batch - 2
+    elif batch == B:
         lon = ref[0]["lon"]["mode_prev"]
         lat = ref[0]["lat"]["mode_prev"]
         assert set(lon.tolist()) == set(range(9))
@@ -708,30 +739,43 @@ def test_ctl_laws_source_matches_plain(host_lib, batch, lanes, split):
 def test_ctl_laws_sides_partition_the_output(host_lib):
     """Every output row of ctl_laws is written by exactly one of its two
     sides (lon, lat), for every aircraft, and by no other side."""
-    outs = _run_ctl_laws(host_lib, _ctl_args(B), 32, True, by_side=True)
+    outs = _run_ctl_laws(host_lib, _ctl_args(B), 32, by_side=True)
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]
     assert touched.tolist() == [1] * outs[0].shape[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _xv1_sim(spp):
+    """The C172Xv1 Simulation, float64 on the CPU, whose periodic pass
+    fires every `spp` steps (one per module)."""
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    sim, _, _ = c172xv1_sim("cpu", torch.float64)
+    return Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                      geoid_every=sim.geoid_every)
+
+
+@functools.lru_cache(maxsize=None)
+def _xv1_state(batch):
+    """The C172Xv1 cluster state of `batch` lanes with the mode-rich
+    avionics at step 126 (`testing.xv1_operand_state`), made once."""
+    from flightjax_torch.testing import xv1_operand_state
+    return xv1_operand_state(batch, 1016, "cpu", torch.float64, (3, 17),
+                             (5,), (CRASH_LANE,), i0=126)
+
+
 def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False):
     """The fly-by-wire megakernel's source on the C172Xv1 cluster state
-    (`testing.xv1_operand_state`: the fly-by-wire cluster operands with the
-    mode-rich avionics; with spp = 2 every other lane's counter fires),
-    block by block; (sim, state, the kernel's new state) or with `by_role`
-    (sim, state, one state buffer per role, NaN where the role wrote
+    (`_xv1_state`: the fly-by-wire cluster operands with the mode-rich
+    avionics; with spp = 2 every other lane's counter fires), block by
+    block; (sim, state, the kernel's new state) or with `by_role` (sim,
+    state, one state buffer per role, NaN where the role wrote
     nothing)."""
-    from flightjax_torch.core.sim import Simulation, comp_residuals
-    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    from flightjax_torch.core.sim import comp_residuals
     from flightjax_torch.parallel.megakernel import make_megakernel_step
-    from flightjax_torch.testing import xv1_operand_state
-    sim, _, _ = c172xv1_sim("cpu", torch.float64)
-    if spp != 1:
-        sim = Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
-                         geoid_every=sim.geoid_every)
-    st = xv1_operand_state(batch, 1016, "cpu", torch.float64, (3, 17), (5,),
-                           (CRASH_LANE,), i0=126)
+    sim, st = _xv1_sim(spp), _xv1_state(batch)
     st = st._replace(i=st.i + torch.arange(batch, dtype=torch.int32) % spp)
     if comp:
         st = st._replace(c=comp_residuals(st.x, force=True))

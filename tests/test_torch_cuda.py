@@ -370,16 +370,14 @@ def _assert_same(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("split", [1, 0], ids=["split", "thread"])
 @pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-def test_ctl_laws_matches_plain_on_card(split, batch, lanes, dtype):
-    """ctl_laws against `ctl_laws_plain` exactly, in both layouts (lon and
-    lat in two warps, or one thread), on the mode-rich operands (every lon
-    and lat mode, mode changes, lanes on the ground, both sides of the
-    altitude machine's switch points, saturation flags of both signs); the
-    wrapper launches it."""
+def test_ctl_laws_matches_plain_on_card(batch, lanes, dtype):
+    """ctl_laws against `ctl_laws_plain` exactly, on the mode-rich
+    operands (every lon and lat mode, mode changes, lanes on the ground,
+    both sides of the altitude machine's switch points, saturation flags
+    of both signs); the wrapper launches it."""
     from flightjax_torch.parallel import launch as L
     from flightjax_torch.testing import ctl_laws_args
     if not torch.cuda.is_available():
@@ -388,7 +386,7 @@ def test_ctl_laws_matches_plain_on_card(split, batch, lanes, dtype):
     ref = K.ctl_laws_plain(*args)
     buf, n_out, scalars, ops = K.PACK["ctl_laws"](*args)
     got = K.unpack_out("ctl_laws", L.launch(
-        "ctl_laws", buf, n_out, (scalars[0], split), block=lanes, **ops))
+        "ctl_laws", buf, n_out, scalars, block=lanes, **ops))
     before = K.LAUNCHES["ctl_laws"]
     via = K.ctl_laws(*args)
     torch.cuda.synchronize()

@@ -266,3 +266,48 @@ def test_sass_digests_hold_an_instance_to_its_form_before(monkeypatch,
     assert set(a) == {"megakernel_f32"}
     assert set(b) == {"megakernel_f32", "megakernel_fbw_f64"}
     assert a["megakernel_f32"] == b["megakernel_f32"] != c["megakernel_f32"]
+
+
+def test_pass_bound_counts_what_the_modes_enable():
+    """`chip_smoke.py` bounds `ctl_laws` and `megakernel_fbw` by the
+    operations the kernels do of the control laws' pass
+    (`pass_op_weights`), not by the plain pass, which works out every
+    sub-controller on every lane and selects: on the mode-rich operands
+    nothing counts where the pass does not fire, the masked selects count
+    nothing, the lanes' counts sum to the fleet's, lanes of the same modes
+    and mode changes count alike, and a lane in the direct modes counts
+    only the mode logic, the least of all."""
+    import importlib.util
+    from flightjax_torch.core.modeling import tree_where
+    from flightjax_torch.testing import ctl_laws_args
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(__file__), os.pardir, "chip_smoke.py"))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+    batch = 24
+    args = ctl_laws_args(batch, 1016, "cpu", torch.float64, (3, 17))
+    s_out = K.ctl_laws_plain(*args)[0]
+
+    def ops(fires=None):
+        return S.count_ops(lambda: K.ctl_laws_plain(*args),
+                           S.pass_op_weights(args[0], args[3], s_out, fires))
+
+    fleet = ops()
+    assert 0 < fleet < S.count_ops(lambda: K.ctl_laws_plain(*args))
+    assert ops(torch.zeros(batch, dtype=torch.bool)) == 0
+    mask = torch.arange(batch) % 2 == 0
+    assert S.count_ops(lambda: tree_where(mask, s_out, args[3]),
+                       S.pass_op_weights(args[0], args[3], s_out)) == 0
+    lone = [ops(torch.arange(batch) == k) for k in range(batch)]
+    assert abs(sum(lone) - fleet) <= batch
+    # (lon mode, lat mode, lon changed, lat changed) of each lane
+    mode = [s_out[side]["mode_prev"] for side in ("lon", "lat")]
+    changed = [m != args[3][side]["mode_prev"]
+               for m, side in zip(mode, ("lon", "lat"))]
+    key = list(zip(*(t.tolist() for t in mode + changed)))
+    by_key = {}
+    for k in range(batch):
+        by_key.setdefault(key[k], set()).add(lone[k])
+    assert all(max(v) - min(v) <= 1 for v in by_key.values()), by_key
+    direct = [lone[k] for k in range(batch) if key[k][:2] == (0, 0)]
+    assert direct and max(direct) <= min(lone)

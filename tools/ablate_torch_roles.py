@@ -41,13 +41,17 @@ kinds of patch:
   `finish_kin_inline_renorm` inlines finish_kin's renormalisations in
   every role instead of calling one copy, and `finish_kin_norenorm` and
   `finish_kin_nocomp` compile them or its compensated add out (only
-  finish_kin's time is read off such builds).
+  finish_kin's time is read off such builds); `ctl_laws_thread` runs
+  ctl_laws' lon and lat passes one after the other in one thread per
+  aircraft instead of in two warps per 32 aircraft.
 
 Times are warm medians of 20 launches replayed from a captured CUDA graph,
 float32, at 32 and 64 aircraft per block (threads per block for a
 one-thread form): on the perturbed airborne
 flagship fleet (as `chip_smoke.py` times them) and on the kernel-check
-operands with lanes on the runway. The sources of the package are not
+operands with lanes on the runway; ctl_laws on the pass of the airborne
+C172Xv1 fleet on the turning climb and on the mode-rich operands with
+lanes on the ground. The sources of the package are not
 touched. `--variants` names the patches, `+` between patches of one variant
 and `none` for the kernels as they are; the default is each role alone, aero
 and engine, all four, and each layout. A variant may come more than once,
@@ -542,6 +546,11 @@ constexpr int FS_LEG0 = 0, FS_REST = N_LEGS, FS_ENG = FS_REST,
     "finish_kin_nocomp": [
         ("finish_kin.cu", "finish_kin_role(t.role, Col<T>{in, B, t.b}, c6, comp != 0,",
          "finish_kin_role(t.role, Col<T>{in, B, t.b}, c6, false,")],
+    "ctl_laws_thread": [
+        ("ctl_laws.cu", "constexpr int CTL_SIDES = 2;",
+         "constexpr int CTL_SIDES = 1;"),
+        ("ctl_laws.cu", "  if (t.role == 0) {", "  {"),
+        ("ctl_laws.cu", "  if (t.role == 1) {", "  {")],
 }
 KINAIR_ROLES = "KA_KD = 0, KA_ANG = 1, KA_EUL = 0, KA_AIR = 2, KA_ROLES = 3;"
 
@@ -568,9 +577,9 @@ VARIANTS = ((), ("aero",), ("legs",), ("engine",), ("propeller",),
             ("kinair_0112",), ("dynamics_roles",), ("finish_kin_thread",),
             ("finish_sys_thread",), ("finish_kin_kdeul",), ("finish_sys4",),
             ("finish_kin_inline_renorm",), ("finish_kin_norenorm",),
-            ("finish_kin_nocomp",))
+            ("finish_kin_nocomp",), ("ctl_laws_thread",))
 TIMED = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
-         "rk4_stage", "rk4_finish", "megakernel")
+         "rk4_stage", "rk4_finish", "ctl_laws", "megakernel")
 
 
 def patched_sources(csrc, build_dir, patches, n_params):
@@ -617,7 +626,8 @@ def main():
     from flightjax_torch.parallel import kernels as K
     from flightjax_torch.parallel import launch as L
     from flightjax_torch.parallel.megakernel import make_megakernel_step
-    from flightjax_torch.testing import perturbed_fleet_sim
+    from flightjax_torch.testing import (ctl_laws_args, perturbed_fleet_sim,
+                                         xv1_fleet_sim)
 
     card = S.card_line()
     csrc = L.CSRC
@@ -628,7 +638,13 @@ def main():
     # with lanes on the runway (at B = 4096, as chip_smoke.py draws them)
     ops = {"airborne": S.flight_operands(sim, st)}
     check = S.kernel_inputs(torch.float32)
-    ops["runway"] = {n: K.PACK[n](*check[n]) for n in TIMED[:-1]}
+    ops["runway"] = {n: K.PACK[n](*check[n]) for n in TIMED[:-2]}
+    # ctl_laws: the pass of the C172Xv1 fleet, and the mode-rich operands
+    xsim, xst = xv1_fleet_sim(args.batch, S.SEED, S.DEVICE, torch.float32)
+    ops["airborne"]["ctl_laws"] = K.PACK["ctl_laws"](
+        *S.ctl_flight_args(xsim, xst))
+    ops["runway"]["ctl_laws"] = K.PACK["ctl_laws"](*ctl_laws_args(
+        args.batch, S.SEED, S.DEVICE, torch.float32, S.GROUND_LANES))
     msim, mst = S.mega_inputs(torch.float32, True)
     mega = {"airborne": make_megakernel_step(sim, st)[0],
             "runway": make_megakernel_step(msim, mst)[0]}

@@ -14,10 +14,13 @@ differs. A digest covers the instructions of the kernel's `cuobjdump -sass`
 section, without addresses and encodings, and the kernel's name without
 its template arguments, so an instance that was templated on one more
 parameter compares with its form before. An instance that the record does
-not hold (a new one) is not compared. `tools/sass_record.json` holds the
-instances as they were before the C172Xv1 megakernel and the control laws
-came (the sources of the C172S kernels and of the four other fly-by-wire
-instances), recorded on the H100 machine's nvcc. Needs the CUDA toolkit
+not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
+the instances as they were before the C172Xv1 megakernel and the control
+laws came (the sources of the C172S kernels and of the four other
+fly-by-wire instances), recorded with the nvcc of an H100 machine;
+`chip_smoke.py` checks it. A change that means to change the machine code
+of a recorded instance records the file anew from its own build
+(`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
 (`cuobjdump`); the card only to build the default library.
 """
 
