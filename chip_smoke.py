@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build flightjax_torch's CUDA kernels and drive its step paths on one
-NVIDIA card: the C172S flagship's three and the C172Xv1 autopilot's three;
-exit non-zero if any phase fails.
+NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three and
+the C172Xv2 guidance's three; exit non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -24,7 +24,15 @@ The paths, each an entry point a user calls:
   `rk4_stage_fbw`, `rk4_finish_fbw`) with the periodic pass after every
   step (dt = periodic_dt = 0.02 s) as the `ctl_laws` kernel on what the
   finish kernels store, and `megakernel_fbw`, the whole step with the pass
-  inside it.
+  inside it;
+- `xv2_subsystems`, `xv2_vehicle`, `xv2_megakernel`: the same three entry
+  points on the C172Xv2 flying its guidance scenario (`testing.
+  xv2_fleet_sim`: half the lanes on segments due east through the trim
+  point, shifted by up to 400 m, half on a 1500 m circle 2 km north of it,
+  either way round, a few lanes computing their guidance without engaging
+  it), with the `gdc_ctl_laws` kernel as the splits' pass (the guidance,
+  then the control laws on the requests it overrides) and
+  `megakernel_gdc`, the whole step with that pass inside it.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
@@ -56,29 +64,44 @@ Phases:
    `megakernel_fbw` exactly, one step at 32 and 64 aircraft per block, on
    the C172Xv1 cluster state with the mode-rich avionics (with and without
    residuals, and the pass firing on every other lane at twice the step)
-   and on the C172Xv1 fleet;
+   and on the C172Xv1 fleet; `gdc_ctl_laws` and `megakernel_gdc` alike,
+   on the mode-rich guidance over the mode-rich control laws (`testing.
+   gdc_laws_args`, `xv2_operand_state`: every guidance mode, the ground
+   override, every pair of requests, cross-track errors on both sides of
+   the 1000 m gate, far off and exactly on the track, reversed segments)
+   and on the C172Xv2 fleet;
 4. the paths: the trimmed C172S flagship and the trimmed C172Xv1 on the
    turning climb, each at 4096 perturbed aircraft in float32, each path
    from its launch counts set to 0 to their reading just after:
-   `subsystems` and `xv1_subsystems` 100 steps (from step 28, so the
-   refresh at step 128 is among them), `xv1_megakernel` 500 steps (10 s),
-   `vehicle` and `megakernel` 200 steps and `xv1_vehicle` 100 (cut from
-   500 for time: the plain references take most of the run). Every leaf finite, no lane terminated,
+   `subsystems`, `xv1_subsystems` and `xv2_subsystems` 100 steps (from
+   step 28, so the refresh at step 128 is among them), `xv1_megakernel`
+   200 steps (4 s), `xv2_megakernel` 6000 (120 s), `vehicle`,
+   `megakernel`, `xv1_vehicle` and `xv2_vehicle` 100 (cut from 500 for
+   time: the plain references take most of the run). Every leaf finite, no
+   lane terminated,
    no lane's stall flag set at any step, altitude and EAS in a physical
    band (on the C172Xv1 above the stall speed in its 45 deg bank), launch
    counts as the path prescribes; on the C172Xv1 also the servo commands
    within their ranges and every lane's modes `LON_EAS_CLM` /
-   `LAT_CHI_BETA`; the same steps through the plain versions agree within
-   the 10 s float32 envelope of BENCHMARKS.md scaled to the steps flown
-   (n / 500 of it); 20 steps of each path in float64 agree with plain to
-   1e-9; host and device ms per step, launches per step and the device's
-   idle share of the three C172Xv1 paths under torch.profiler
-   (`tools/profile_torch_step.py`);
+   `LAT_CHI_BETA`; on the C172Xv2 the servo commands within their ranges,
+   every lane in `LAT_CHI_BETA` and `LON_EAS_ALT` or `LON_THR_EAS`, and
+   after its 120 s the megakernel's fleet within the JAX tests' bounds on
+   the median lane (`tests/test_c172x2.py:131-138`, `:170-180`: segment
+   lanes' course within 0.05 rad of pi / 2, height within 5 m of the
+   segment's, cross-track error under 500 m; circle lanes' radial error
+   under 150 m, height within 5 m); the same steps through the plain
+   versions agree within the 10 s float32 envelope of BENCHMARKS.md scaled
+   to the steps flown (n / 500 of it; `xv2_megakernel` over its first 200
+   steps, the window of its C172Xv1 twin); 20 steps of each path in
+   float64 agree with plain to 1e-9; host and device ms per step, launches
+   per step and the device's idle share of the six C172X paths under
+   torch.profiler (`tools/profile_torch_step.py`);
 5. timings: per kernel the warm median of the bare launch, of the wrapper
    and of the plain version, and the bound (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s, the larger; the operations of the plain
    version, those of the control laws' pass counted as far as the lanes'
-   modes enable them, `pass_op_weights`). A kernel's time (`ms`) is taken
+   modes enable them, and of the guidance the branch each lane's mode
+   selects, `pass_op_weights`). A kernel's time (`ms`) is taken
    inside a captured CUDA graph of 20 launches, so it is the card's time
    and not the host's launch rate; the time by CUDA events around 20
    launches from Python stands beside it (`event_ms`). The role kernels
@@ -89,11 +112,11 @@ Phases:
    the same way,
    and the megakernel at B = 16384 and 65536 too. Every number of a kernel's row but those is taken on one set
    of operands: the flight fleet (the state its path steps) for the
-   megakernels and `ctl_laws` (the pass at the C172Xv1 fleet's state), the
-   kernel-check operands for the others (the C172Xv1 fleet for the
-   fly-by-wire instances' airborne times). Then vehicle-steps/s of the
-   six paths and the plain one, interleaved windows, median and
-   aggregate.
+   megakernels, `ctl_laws` and `gdc_ctl_laws` (the pass at the C172X
+   fleet's state), the kernel-check operands for the others (the C172Xv1
+   fleet for the fly-by-wire instances' airborne times). Then
+   vehicle-steps/s of the nine paths and the plain one, interleaved
+   windows, median and aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -113,15 +136,19 @@ import torch
 B = 4096
 STEPS = 500
 SUB_STEPS, SUB_I0 = 100, 28
-# the C172S paths but subsystems and the C172Xv1's vehicle split, cut for
-# time (the plain references take most of the run)
-MECH_STEPS, XV1_VEHICLE_STEPS = 200, 100
+# the C172S paths but subsystems, the C172X vehicle splits and the C172X
+# megakernels' window against plain, cut for time (the plain references
+# take most of the run)
+MECH_STEPS, XV_VEHICLE_STEPS, XV_MEGA_STEPS = 100, 100, 200
+# the C172Xv2 megakernel's flight: 120 s, the JAX tests' horizon
+XV2_FLIGHT = 6000
 F64_STEPS = 20
 SEED = 1016
 DEVICE = "cuda"
 # steps per throughput window (the plain path is ~40x slower)
 WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20,
-          "xv1_subsystems": 100, "xv1_vehicle": 100, "xv1_megakernel": 500}
+          "xv1_subsystems": 100, "xv1_vehicle": 100, "xv1_megakernel": 500,
+          "xv2_subsystems": 100, "xv2_vehicle": 100, "xv2_megakernel": 500}
 # the H100 SXM's published peaks: HBM3 bandwidth and dense float32 rate
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
@@ -170,14 +197,24 @@ KERNELS = {
                        "xv1_megakernel"),
     "ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
                  "flightjax/parallel/megakernel.py:43", "xv1_vehicle"),
+    # the megakernel's instance on the C172Xv2, with the guidance and the
+    # control laws' pass inside it, and that pass as a kernel of its own
+    "megakernel_gdc": ("flightjax_torch/csrc/megakernel.cu",
+                       "flightjax/parallel/megakernel.py:43",
+                       "xv2_megakernel"),
+    "gdc_ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
+                     "flightjax/parallel/megakernel.py:43", "xv2_vehicle"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
 # the kernels that run on the cluster operands (the megakernels step a
 # state, ctl_laws runs the control laws), C172S first
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
-    "megakernel", "megakernel_fbw", "ctl_laws") and k not in FBW_NAMES)
+    "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
+    "gdc_ctl_laws") and k not in FBW_NAMES)
 XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
+XV2_PATHS = ("xv2_subsystems", "xv2_vehicle", "xv2_megakernel")
+XV_PATHS = XV1_PATHS + XV2_PATHS
 # the sub-controllers of the control laws' lon and lat passes, each under
 # the comment `# ---- <name>` that opens it in `ControlLaws.lon_step` /
 # `lat_step` (`models/c172/c172x_ctl.py`), with the modes that enable it;
@@ -213,26 +250,30 @@ def code_bytes(nvcc, so):
         return []
     out = subprocess.run([tool, "-elf", so], capture_output=True, text=True,
                          timeout=120).stdout
+    from sass_torch_kernels import kernel_name
     found = re.findall(r"^\s*\w+\s+\w+\s+(\w+)\s.*PROGBITS.*\.text\._Z\d+"
-                       r"(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictIfE", out, re.M)
-    return sorted((name + ("_fbw" if act == "1" else ""), int(size, 16))
-                  for size, name, act in found)
+                       r"(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictIfEE"
+                       r"(?:Li(\d)E)?", out, re.M)
+    return sorted((kernel_name(name, act, av), int(size, 16))
+                  for size, name, act, av in found)
 
 
 def registers(log_path):
     """{kernel: {f32/f64: (registers, spill store bytes, spill load
     bytes)}} from ptxas's report in the build log."""
+    from sass_torch_kernels import KERNEL, kernel_name
     out = collections.defaultdict(dict)
     entry = mangled = props = None
     spill = (0, 0)
     with open(log_path) as fh:
         for line in fh:
-            m = re.search(r"Compiling entry function '(_Z\d+(\w+?)_kernelI"
-                          r"(?:Li(\d)E)?N2fj6StrictI([fd])E\w*)'", line)
-            if m:
+            m = re.search(r"Compiling entry function '(_Z\w+)'", line)
+            k = m and KERNEL.match(m.group(1))
+            if k:
+                name, act, ftype, av = k.groups()
                 mangled, spill = m.group(1), (0, 0)
-                entry = (m.group(2) + ("_fbw" if m.group(3) == "1" else ""),
-                         "f32" if m.group(4) == "f" else "f64")
+                entry = (kernel_name(name, act, av),
+                         "f32" if ftype == "f" else "f64")
                 continue
             m = re.search(r"Function properties for (\w+)", line)
             if m:
@@ -350,9 +391,15 @@ def count_ops(fn, weight=None):
     return round(total["ops"])
 
 
+def control_laws(avionics):
+    """The `ControlLaws` of the C172Xv1's avionics or the C172Xv2's."""
+    return getattr(avionics, "ctl", avionics)
+
+
 def gain_widths(avionics):
     """{channel: the gain values of its table} (`FusedSchedule.split`)."""
     import math
+    avionics = control_laws(avionics)
     width = collections.Counter()
     for fused in (avionics.lon_gains, avionics.lat_gains):
         for ch, _, tail in fused.split:
@@ -360,7 +407,7 @@ def gain_widths(avionics):
     return width
 
 
-def pass_op_weights(avionics, s_in, s_out, fires=None):
+def pass_op_weights(avionics, s_in, s_out, fires=None, gdc_lanes=None):
     """`weight` for `count_ops` of a step with the control laws' pass
     whose avionics state goes from s_in to s_out: what the kernels do of
     the plain pass, which works out every sub-controller on every lane and
@@ -369,12 +416,20 @@ def pass_op_weights(avionics, s_in, s_out, fires=None):
     new mode enables it, its re-seed where that mode is also a change, and
     a per-value op of the fused gain lookup for the values of the tables
     the lanes' modes enable; the masked selects of `tree_where` count
-    nothing. Ops outside the pass count in full."""
+    nothing. Ops outside the pass count in full. On the C172Xv2 the
+    guidance runs first on every lane (the plain version works out both
+    branches): its mode logic and selects count on each firing lane, its
+    segment branch on the `gdc_lanes` (a pair of masks: the lanes that work
+    out the segment, the lanes that work out the circle) that work it out,
+    its circle branch alike; its override of the control laws' requests is
+    masked selects and counts nothing."""
     import inspect
     from flightjax_torch.core.modeling import tree_where
     from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+    from flightjax_torch.models.c172.c172x_gdc import GuidanceLaws
     from flightjax_torch.parallel.clusterstep import _periodic
     width = gain_widths(avionics)
+    s_in, s_out = s_in.get("ctl", s_in), s_out.get("ctl", s_out)
     like = s_out["lon"]["mode_prev"]
     fire = (torch.ones_like(like, dtype=torch.bool) if fires is None
             else fires)
@@ -410,17 +465,32 @@ def pass_op_weights(avionics, s_in, s_out, fires=None):
             per_value=(values.mean() / sum(width[n] for n in parts
                                            if n in width)).item())
     resets = ("_pid_reset", "_int_reset", "_lqr_reset")
+    guide = GuidanceLaws.f_periodic
+    override = GuidanceLaws.override_ctl_u.__code__
+    g_lines, g_first = inspect.getsourcelines(guide)
+    g_marks = [(g_first + k, m.group(1)) for k, text in enumerate(g_lines)
+               for m in [re.match(r"\s*# ---- (\w+)", text)] if m]
+    if [n for _, n in g_marks] != ["mode", "segment", "circle", "select"]:
+        raise AssertionError(f"pass_op_weights: GuidanceLaws.f_periodic has "
+                             f"parts {g_marks}")
+    branch = {"mode": fire_frac, "select": fire_frac}
+    if gdc_lanes is not None:
+        for name, lanes in zip(("segment", "circle"), gdc_lanes):
+            branch[name] = (fire & lanes).double().mean().item()
 
     def weight(out):
         f, reset = sys._getframe(1), False
         while f is not None:
             code = f.f_code
-            if code is tree_where.__code__:
+            if code in (tree_where.__code__, override):
                 return 0.0
             if code.co_name in resets:
                 reset = True
             if code in sides:
                 break
+            if code is guide.__code__:
+                part = [n for at, n in g_marks if at <= f.f_lineno]
+                return branch[part[-1]] if part else fire_frac
             if code is _periodic.__code__:
                 return fire_frac
             f = f.f_back
@@ -612,11 +682,57 @@ def xv1_mega_inputs(dtype, comp, spp=1):
                             else None)
 
 
+def gdc_flight_args(sim, st):
+    """The arguments of `gdc_ctl_laws` at the C172Xv2 fleet `st`: its pass
+    on the VehicleY there (the plain `Vehicle.output`) with its
+    avionics."""
+    from flightjax_torch.parallel import kernels as K
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                 st.s["vehicle"])
+    return (aircraft.avionics, K.gdc_y(vy), st.u["avionics"],
+            st.s["avionics"], sim.periodic_dt)
+
+
+def xv2_mega_inputs(dtype, comp, spp=1):
+    """(sim, SimState) of the C172Xv2 cluster state with the mode-rich
+    guidance and control laws (`testing.xv2_operand_state`, the
+    kernel-check lanes) at step 126, as `xv1_mega_inputs`."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.models.c172.c172x import c172xv2_sim
+    from flightjax_torch.testing import xv2_operand_state
+    sim, _, _ = c172xv2_sim(DEVICE, dtype)
+    if spp != 1:
+        sim = Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                         geoid_every=sim.geoid_every)
+    st = xv2_operand_state(B, SEED, DEVICE, dtype, GROUND_LANES,
+                           TERMINATED_LANES, (CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(B, dtype=torch.int32,
+                                           device=DEVICE) % spp)
+    return sim, st._replace(c=comp_residuals(st.x, force=True) if comp
+                            else None)
+
+
+def gdc_branches(u_gdc, mode):
+    """(segment lanes, circle lanes) of a guidance pass whose mode after
+    the ground override is `mode`: the branch each lane works out. Where
+    `u_gdc` is given (the megakernel, which writes no GdcY), only the lanes
+    whose lateral or vertical guidance is requested in a guided mode."""
+    from flightjax_torch.models.c172.c172x_gdc import (GDC_CIRCULAR,
+                                                       GDC_DIRECT)
+    need = torch.ones_like(mode, dtype=torch.bool)
+    if u_gdc is not None:
+        need = (mode != GDC_DIRECT) & (u_gdc["hor_gdc_req"]
+                                       | u_gdc["vrt_gdc_req"])
+    crc = mode == GDC_CIRCULAR
+    return need & ~crc, need & crc
+
+
 def gain_values(avionics, EAS, h, lon_mode, lat_mode):
     """The gain values one pass reads: the corners of each lane's (EAS, h)
     cell in each table its lon and lat modes enable, a value shared by
     lanes once."""
-    lk = avionics.gains["v2t"]["k_p"]  # every table shares this grid
+    lk = control_laws(avionics).gains["v2t"]["k_p"]  # every table's grid
     cells = []
     for x, ax, uni in zip((EAS, h), lk.axes, lk._uni):
         i = torch.floor((x - uni[0]) / uni[1]).long()
@@ -643,6 +759,13 @@ def xv1_fleet(dtype, seed=SEED):
     """The C172Xv1 on the turning climb, `B` perturbed aircraft."""
     from flightjax_torch.testing import xv1_fleet_sim
     return xv1_fleet_sim(B, seed, DEVICE, dtype)
+
+
+def xv2_fleet(dtype, seed=SEED):
+    """The C172Xv2 on its guidance scenario, `B` perturbed aircraft:
+    (sim, SimState, (segment lanes, circle lanes, idle lanes, h0))."""
+    from flightjax_torch.testing import xv2_fleet_sim
+    return xv2_fleet_sim(B, seed, DEVICE, dtype)
 
 
 def at_step(sim, st, i0):
@@ -706,6 +829,23 @@ class Paths:
                 watch(self.unpack(bufs))
         return self.unpack(bufs)
 
+    def flight(self, n, snap_at):
+        """n megakernel steps from the start state, watching each lane's
+        stall flag in the buffer: (the state after n steps, the state after
+        snap_at steps, each lane's stall flag or-ed over the flight)."""
+        from flightjax_torch.parallel import kernels as K
+        aircraft = self.sim.system.aircraft
+        lay = K.layout_of(aircraft.vehicle, aircraft.avionics)
+        row = 1 + K.rows_of(lay.rkfin_in, ("aero", "stall")).start
+        bufs, snap = self.bufs, None
+        stalled = torch.zeros_like(bufs[0][row], dtype=torch.bool)
+        for k in range(n):
+            bufs = self.step_packed(bufs)
+            stalled.logical_or_(bufs[0][row] > 0.5)
+            if k + 1 == snap_at:
+                snap = self.unpack(bufs)
+        return self.unpack(bufs), snap, stalled
+
     def run_plain(self, label, n):
         label = label[len(self.prefix):]
         st = self.st[label]
@@ -719,7 +859,8 @@ def expected_launches(label, n, i0=0):
     from flightjax_torch.parallel import kernels as K
     want = dict.fromkeys(K.LAUNCHES, 0)
     geoid = sum((i0 + k + 1) % 128 == 0 for k in range(n))
-    fbw = "_fbw" if label.startswith("xv1_") else ""
+    fbw = "_fbw" if label.startswith(("xv1_", "xv2_")) else ""
+    gdc = label.startswith("xv2_")
     label = label[len("xv1_"):] if fbw else label
     if label == "subsystems":
         want.update({"kinair": 4 * n, "systems" + fbw: 4 * n,
@@ -729,9 +870,9 @@ def expected_launches(label, n, i0=0):
         want.update({"rk4_stage" + fbw: 4 * n, "rk4_finish" + fbw: n,
                      "geoid": geoid})
     else:
-        want["megakernel" + fbw] = n
+        want["megakernel_gdc" if gdc else "megakernel" + fbw] = n
     if fbw and label != "megakernel":  # the pass after every step
-        want["ctl_laws"] = n
+        want["gdc_ctl_laws" if gdc else "ctl_laws"] = n
     return want
 
 
@@ -788,6 +929,77 @@ def check_autopilot(label, out):
         raise AssertionError(f"{label}: the fleet's mean EAS is {mean}")
 
 
+def check_guidance(label, out, lanes):
+    """The C172Xv2's servo commands within their ranges, every lane in
+    course hold and in the altitude modes (the engaged lanes by their
+    guidance, the idle lanes by their own requests)."""
+    from flightjax_torch.models.c172 import c172x_ctl as CTL
+    from flightjax_torch.models.c172.c172x import ACT_RANGES
+    act = out.u["vehicle"]["systems"]["act"]
+    for ch in ("throttle", "aileron", "elevator", "rudder"):
+        lo, hi = ACT_RANGES[ch]
+        if not bool(((act[ch] >= lo) & (act[ch] <= hi)).all()):
+            raise AssertionError(f"{label}: {ch} command out of range")
+    ctl = out.s["avionics"]["ctl"]
+    lon, lat = ctl["lon"]["mode_prev"], ctl["lat"]["mode_prev"]
+    alt = (lon == CTL.LON_EAS_ALT) | (lon == CTL.LON_THR_EAS)
+    if not (bool(alt.all()) and bool((lat == CTL.LAT_CHI_BETA).all())):
+        raise AssertionError(f"{label}: a lane left the guided modes")
+    cmd = {ch: (float(act[ch].min()), float(act[ch].max()))
+           for ch in ("throttle", "aileron", "elevator", "rudder")}
+    log(f"{label}: commands {cmd}, every lane in LAT_CHI_BETA and "
+        f"LON_EAS_ALT ({int((lon == CTL.LON_EAS_ALT).sum())}) or "
+        f"LON_THR_EAS ({int((lon == CTL.LON_THR_EAS).sum())}); "
+        f"{len(lanes[2])} lanes not engaged")
+
+
+def check_guided_flight(label, sim, out, lanes):
+    """The C172Xv2 fleet after its flight, on the median lane of each kind,
+    against the bounds of the JAX package's guidance tests
+    (`tests/test_c172x2.py:131-138`, `:170-180`): segment lanes' ground
+    course within 0.05 rad of pi / 2, height within 5 m of the segment's,
+    cross-track error under 500 m; circle lanes' radial error under 150 m,
+    height within 5 m of the circle's. The spread across lanes beside."""
+    import math
+    from flightjax_torch.models.c172.c172x_gdc import (circle_data,
+                                                       segment_data)
+    from flightjax_torch.ops.attitude import wrap_to_pi
+    seg, crc, idle, h0 = lanes
+    seg = torch.as_tensor(sorted(set(seg) - set(idle)), device=DEVICE)
+    crc = torch.as_tensor(sorted(set(crc) - set(idle)), device=DEVICE)
+    vy = sim.system.aircraft.vehicle.output(out.x["vehicle"],
+                                            out.u["vehicle"], out.s["vehicle"])
+    kin, g = vy.kinematics, out.u["avionics"]["gdc"]
+    d = segment_data(g["target"], kin.n_e, kin.h_e)
+    c = circle_data(g["orbit"], kin.n_e, kin.h_e)
+    dh = (kin.h_e - h0).abs()
+    rows = {"segment |chi_gnd - pi/2| (rad)": (wrap_to_pi(
+                kin.chi_gnd - math.pi / 2).abs(), seg, 0.05),
+            "segment |h_e - h0| (m)": (dh, seg, 5.0),
+            "segment |e_sb| (m)": (d.e_sb.abs(), seg, 500.0),
+            "circle |e_cb| (m)": (c.e_cb.abs(), crc, 150.0),
+            "circle |h_e - h0| (m)": (dh, crc, 5.0)}
+    far = (dh > 100.0).nonzero().flatten()
+    ctl = out.s["avionics"]["ctl"]["lon"]
+    log(f"{label}: {far.numel()} lanes more than 100 m from the guidance's "
+        f"altitude: lanes {far[:12].tolist()}, lon modes "
+        f"{ctl['mode_prev'][far[:12]].tolist()}, altitude machine "
+        f"{ctl['h_state'][far[:12]].tolist()}, h_e - h0 "
+        f"{[round(float(v), 1) for v in (kin.h_e - h0)[far[:12]]]}, bank "
+        f"{[round(float(v), 3) for v in kin.e_nb[far[:12], 2]]}")
+    for what, (v, idx, lim) in rows.items():
+        v = v[idx].double()
+        q = torch.quantile(v, torch.tensor([0.05, 0.5, 0.95], device=DEVICE,
+                                           dtype=torch.float64))
+        log(f"{label}: {what}: median {float(q[1]):.4g} (bound {lim}), "
+            f"5-95% {float(q[0]):.4g}..{float(q[2]):.4g}, min "
+            f"{float(v.min()):.4g}, max {float(v.max()):.4g} over "
+            f"{v.numel()} lanes")
+        if not float(q[1]) < lim:
+            raise AssertionError(f"{label}: median {what} {float(q[1])} "
+                                 f">= {lim}")
+
+
 # the EAS band of the C172S paths, trimmed at 50 m/s and flown open loop;
 # the C172Xv1 lanes that turn in a 45 deg bank while climbing at full
 # throttle bleed speed, so their floor is the C172's clean stall speed
@@ -799,10 +1011,10 @@ def stall_of(state):
     return state.s["vehicle"]["systems"]["aero"]["stall"]
 
 
-def check_flight(sim, label, out, stalled):
+def check_flight(sim, label, out, stalled, height_band=True):
     """Every leaf finite, no lane terminated, none stalled at any step
-    (`stalled`: each lane's stall flag or-ed over the run), height and EAS
-    in band."""
+    (`stalled`: each lane's stall flag or-ed over the run), EAS and (with
+    `height_band`, for the flights of a few seconds) height in band."""
     for p, v in leaves({"x": out.x, "s": out.s, "c": out.c, "t": out.t,
                         "u": out.u}):
         if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
@@ -817,9 +1029,10 @@ def check_flight(sim, label, out, stalled):
     log(f"{label}: height above terrain {float(h.min()):.1f}.."
         f"{float(h.max()):.1f} m, EAS {float(e.min()):.2f}.."
         f"{float(e.max()):.2f} m/s, t = {float(out.t[0]):.2f} s")
-    if not (800.0 < float(h.min()) and float(h.max()) < 1300.0):
+    if height_band and not (800.0 < float(h.min())
+                            and float(h.max()) < 1300.0):
         raise AssertionError(f"{label}: height left the 800..1300 m band")
-    lo, hi = EAS_BAND["xv1" if label in XV1_PATHS else "c172s"]
+    lo, hi = EAS_BAND["xv1" if label in XV_PATHS else "c172s"]
     if not (lo < float(e.min()) and float(e.max()) < hi):
         raise AssertionError(f"{label}: EAS left the {lo}..{hi} m/s band")
 
@@ -847,6 +1060,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
     t0 = time.time()
     L.library()
     log(f"build: {time.time() - t0:.1f} s -> {L.BUILD_INFO['so']}")
@@ -856,8 +1071,6 @@ def main():
                 log("  ptxas: " + line.strip())
     sizes = dict(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
     log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tools"))
     from sass_torch_kernels import compare, nvcc_version
     record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tools", "sass_torch_record.json")
@@ -1038,19 +1251,86 @@ def main():
                                      "latch crashed")
         del xsim, xst, cases, mega_cases
 
+    # the C172Xv2's pass and megakernel exactly, at 32 and 64 aircraft per
+    # block
+    from flightjax_torch.testing import gdc_laws_args
+    for dtype in (torch.float64, torch.float32):
+        vsim, vst, _ = xv2_fleet(dtype)
+        cases = [("mode-rich operands", gdc_laws_args(B, SEED, DEVICE, dtype,
+                                                      GROUND_LANES)),
+                 ("C172Xv2 fleet", gdc_flight_args(vsim, vst))]
+        for what, a in cases:
+            ref = K.gdc_ctl_laws_plain(*a)
+            got = K.gdc_ctl_laws(*a)  # the wrapper
+            torch.cuda.synchronize()
+            check("gdc_ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                  f" ({what}, wrapper)")
+            for lanes in (32, 64):
+                buf, n_out, scal, ops = K.PACK["gdc_ctl_laws"](*a)
+                out = L.launch("gdc_ctl_laws", buf, n_out, scal, block=lanes,
+                               **ops)
+                got = K.unpack_out("gdc_ctl_laws", out)
+                torch.cuda.synchronize()
+                check("gdc_ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                      f" ({what}, block {lanes})")
+            g = ref[2]
+            modes = sorted(set(g["mode"].tolist()))
+            log(f"gdc_ctl_laws ({what}): guidance modes {modes}, lateral "
+                f"guidance on {int(g['hor_gdc'].sum())}, vertical on "
+                f"{int(g['vrt_gdc'].sum())} of {B} lanes; lon modes "
+                f"{sorted(set(ref[0]['ctl']['lon']['mode_prev'].tolist()))},"
+                f" lat modes "
+                f"{sorted(set(ref[0]['ctl']['lat']['mode_prev'].tolist()))}")
+            if what.startswith("mode-rich") and modes != [0, 1, 2]:
+                raise AssertionError("gdc_ctl_laws: the operands miss a mode")
+        mega_cases = [("cluster state", *xv2_mega_inputs(dtype, False)),
+                      ("cluster state, compensated",
+                       *xv2_mega_inputs(dtype, True)),
+                      ("cluster state, pass every 2nd step",
+                       *xv2_mega_inputs(dtype, True, spp=2)),
+                      ("C172Xv2 fleet", vsim, vst)]
+        for what, msim, mst in mega_cases:
+            ref = megakernel_step_plain(msim, mst)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    msim, mst, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                check("megakernel_gdc", dtype, 0.0,
+                      leaf_pairs(tuple(got), tuple(ref)),
+                      f" ({what}, block {lanes})")
+            if what.startswith("cluster") and not (
+                    bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+                    and not bool(mst.s["vehicle"]["systems"]["crashed"][
+                        CRASH_LANE])):
+                raise AssertionError("megakernel_gdc: the crash lane did not "
+                                     "latch crashed")
+        del vsim, vst, cases, mega_cases
+
     # 4. the paths in f32: kernels, each from counts 0, against plain
     sim, st0 = fleet(torch.float32)
     paths = Paths(sim, st0)
     xsim, xst0 = xv1_fleet(torch.float32)
     xpaths = Paths(xsim, xst0, "xv1_")
+    vsim, vst0, vlanes = xv2_fleet(torch.float32)
+    vpaths = Paths(vsim, vst0, "xv2_")
+
+    def paths_of(label):
+        return ((xsim, xpaths) if label in XV1_PATHS else
+                (vsim, vpaths) if label in XV2_PATHS else (sim, paths))
+
     launches = {}
     for label, n in (("subsystems", SUB_STEPS), ("vehicle", MECH_STEPS),
                      ("megakernel", MECH_STEPS),
                      ("xv1_subsystems", SUB_STEPS),
-                     ("xv1_vehicle", XV1_VEHICLE_STEPS),
-                     ("xv1_megakernel", STEPS)):
-        psim, paths_ = (xsim, xpaths) if label in XV1_PATHS else (sim, paths)
+                     ("xv1_vehicle", XV_VEHICLE_STEPS),
+                     ("xv1_megakernel", XV_MEGA_STEPS),
+                     ("xv2_subsystems", SUB_STEPS),
+                     ("xv2_vehicle", XV_VEHICLE_STEPS),
+                     ("xv2_megakernel", XV_MEGA_STEPS)):
+        psim, paths_ = paths_of(label)
         i0 = int(paths_.st[label[len(paths_.prefix):]].i[0])
+        flown = XV2_FLIGHT if label == "xv2_megakernel" else n
         torch.cuda.synchronize()
         K.reset_launches()
         stalled = torch.zeros(B, dtype=torch.bool, device=DEVICE)
@@ -1059,28 +1339,40 @@ def main():
             stalled.logical_or_(stall_of(st))
 
         t0 = time.time()
-        out = paths_.run(label, n, watch)
+        if label == "xv2_megakernel":
+            # the 120 s flight, and the state after the window it is held
+            # to plain over
+            end, out, stalled = paths_.flight(XV2_FLIGHT, n)
+        else:
+            out = end = paths_.run(label, n, watch)
         torch.cuda.synchronize()
         dt_run = time.time() - t0
         got = dict(K.LAUNCHES)
-        log(f"{label}: {n} steps x {B} aircraft from step {i0} in "
+        log(f"{label}: {flown} steps x {B} aircraft from step {i0} in "
             f"{dt_run:.2f} s (first run, stall flags read every step); "
             f"launches {got}")
-        want = expected_launches(label, n, i0)
+        want = expected_launches(label, flown, i0)
         if got != want:
             raise AssertionError(f"{label}: launch counts {got} != {want}")
         for name, (_, _, path) in KERNELS.items():
             if path == label:
                 launches[name] = got[name]
-        check_flight(psim, label, out, stalled)
+        if label == "xv2_megakernel":
+            check_guided_flight(label, psim, end, vlanes)
+        # the 120 s guided flight is held to its median lanes' bounds; its
+        # heights are reported
+        check_flight(psim, label, end, stalled, label != "xv2_megakernel")
         if label in XV1_PATHS:
-            check_autopilot(label, out)
+            check_autopilot(label, end)
+        if label in XV2_PATHS:
+            check_guidance(label, end, vlanes)
         K.reset_launches()
         ref = paths_.run_plain(label, n)
         torch.cuda.synchronize()
         if any(K.LAUNCHES.values()):
             raise AssertionError(f"{label}: plain run launched a kernel")
         pos, vel, att, de = compare_runs(out, ref)
+        del end
         # the 10 s envelope scaled to the steps flown
         env = [e * n / STEPS for e in (ENV_POS_M, ENV_VEL, ENV_ATT_RAD,
                                        ENV_EAS)]
@@ -1096,8 +1388,11 @@ def main():
     paths64 = Paths(sim64, st64)
     xsim64, xst64 = xv1_fleet(torch.float64)
     xpaths64 = Paths(xsim64, xst64, "xv1_")
-    for label in ("subsystems", "vehicle", "megakernel") + XV1_PATHS:
-        p64 = xpaths64 if label in XV1_PATHS else paths64
+    vsim64, vst64, _ = xv2_fleet(torch.float64)
+    vpaths64 = Paths(vsim64, vst64, "xv2_")
+    for label in ("subsystems", "vehicle", "megakernel") + XV_PATHS:
+        p64 = (xpaths64 if label in XV1_PATHS else
+               vpaths64 if label in XV2_PATHS else paths64)
         a = p64.run(label, F64_STEPS)
         b = p64.run_plain(label, F64_STEPS)
         torch.cuda.synchronize()
@@ -1107,14 +1402,16 @@ def main():
             f"{worst:.3e} (tol 1e-9)")
         if not worst <= 1e-9:
             raise AssertionError(f"{label}: f64 run disagrees")
-    del sim64, st64, paths64, xsim64, xst64, xpaths64
+    del sim64, st64, paths64, xsim64, xst64, xpaths64, vsim64, vst64
+    del vpaths64
 
     # host and device ms per step, launches per step and idle share of the
-    # C172Xv1 paths
+    # C172X paths
     from profile_torch_step import profile
     profiles = {}
-    for label in XV1_PATHS:
-        r = profile(label, xsim, xst0, 20, 8)
+    for label in XV_PATHS:
+        psim, pst = (xsim, xst0) if label in XV1_PATHS else (vsim, vst0)
+        r = profile(label, psim, pst, 20, 8)
         profiles[label] = r
         log(f"profile {label}: B = {B}, 20 steps, f32: host "
             f"{r['host_ms_per_step']:.4f} ms/step, device "
@@ -1329,6 +1626,90 @@ def main():
         block_ms=extra["lanes_ms"], **extra))
     del rbufs, rst, new
 
+    # gdc_ctl_laws: on the pass of the C172Xv2 fleet the paths step
+    # (airborne) and on the mode-rich operands (lanes on the ground)
+    vavionics = vsim.system.aircraft.avionics
+    air_args = gdc_flight_args(vsim, vst0)
+    gdc_packed = {"air": K.PACK["gdc_ctl_laws"](*air_args),
+                  "rich": K.PACK["gdc_ctl_laws"](*gdc_laws_args(
+                      B, SEED, DEVICE, torch.float32, GROUND_LANES))}
+
+    def gdc(which, lanes=None):
+        buf, n_out, scal, ops = gdc_packed[which]
+        return L.launch("gdc_ctl_laws", buf, n_out, scal, block=lanes, **ops)
+
+    extra = role_times("gdc_ctl_laws", lambda n=None: gdc("air", n),
+                       lambda n=None: gdc("rich", n), B, 0)
+    ref = K.gdc_ctl_laws_plain(*air_args)
+    buf, n_out, _, _ = gdc_packed["air"]
+    n_elems = buf.numel() + n_out * B + gain_values(
+        vavionics, air_args[1]["EAS"], air_args[1]["h_e"],
+        ref[0]["ctl"]["lon"]["mode_prev"], ref[0]["ctl"]["lat"]["mode_prev"])
+    rows.append(dict(name="gdc_ctl_laws", route="cuda",
+                     source=KERNELS["gdc_ctl_laws"][0],
+                     replaces=KERNELS["gdc_ctl_laws"][1],
+                     launches=launches["gdc_ctl_laws"],
+                     max_abs_err=errs["gdc_ctl_laws"],
+                     ms=extra["airborne_ms"],
+                     plain_ms=cuda_ms(lambda: K.gdc_ctl_laws_plain(
+                         *air_args), reps=5, calls=4),
+                     nbytes=4 * n_elems,
+                     ops=count_ops(lambda: K.gdc_ctl_laws_plain(*air_args),
+                                   pass_op_weights(
+                                       vavionics, air_args[3], ref[0],
+                                       gdc_lanes=gdc_branches(
+                                           None, ref[2]["mode"]))),
+                     library_ms=None, event_ms=cuda_ms(lambda: gdc("air")),
+                     wrapper_ms=cuda_ms(lambda: K.gdc_ctl_laws(*air_args)),
+                     block_ms=extra["lanes_ms"], **extra))
+    del gdc_packed
+
+    # megakernel_gdc: on the C172Xv2 fleet the path steps (airborne) and on
+    # the C172Xv2 cluster state with the mode-rich avionics (runway)
+    vparams = K.system_params(vsim.system.aircraft.vehicle)
+    vgrid = K.geoid_grid(vsim.system.aircraft.vehicle.geoid)
+    vgains = K.ctl_gains(vavionics)
+    _, rst = xv2_mega_inputs(torch.float32, True)
+    rbufs, _, _ = make_megakernel_step(vsim, rst)
+    vbufs = vpaths.bufs
+
+    def mega_gdc(b, lanes=None):
+        return L.launch_megakernel(b[0], b[1], vparams, vgrid, vsim.dt,
+                                   vsim.t_start, True, lanes, vgains,
+                                   vsim.steps_per_periodic,
+                                   vsim.periodic_dt, gdc=True)
+
+    extra = role_times("megakernel_gdc", lambda n=None: mega_gdc(vbufs, n),
+                       lambda n=None: mega_gdc(rbufs, n), B, vparams.numel())
+    new = vpaths.unpack(vpaths.step_packed(vbufs))
+    fires = (vst0.i + 1) % vsim.steps_per_periodic == 0
+    g_mode = K.gdc_ctl_laws_plain(*gdc_flight_args(vsim, new))[2]["mode"]
+    n_elems = (2 * (vbufs[0].numel() + vbufs[1].numel()) + vparams.numel()
+               + geoid_cells(vsim.system.aircraft.vehicle.geoid,
+                             new.x["vehicle"]["kinematics"]["q_ew"])
+               + gain_values(vavionics, eas(new),
+                             new.x["vehicle"]["kinematics"]["h_e"],
+                             new.s["avionics"]["ctl"]["lon"]["mode_prev"],
+                             new.s["avionics"]["ctl"]["lat"]["mode_prev"]))
+    rows.append(dict(
+        name="megakernel_gdc", route="cuda",
+        source=KERNELS["megakernel_gdc"][0],
+        replaces=KERNELS["megakernel_gdc"][1],
+        launches=launches["megakernel_gdc"],
+        max_abs_err=errs["megakernel_gdc"], ms=extra["airborne_ms"],
+        plain_ms=cuda_ms(lambda: megakernel_step_plain(vsim, vst0), reps=3,
+                         calls=2),
+        nbytes=4 * n_elems,
+        ops=count_ops(lambda: megakernel_step_plain(vsim, vst0),
+                      pass_op_weights(vavionics, vst0.s["avionics"],
+                                      new.s["avionics"], fires,
+                                      gdc_branches(vst0.u["avionics"]["gdc"],
+                                                   g_mode))),
+        library_ms=None, event_ms=cuda_ms(lambda: mega_gdc(vbufs)),
+        wrapper_ms=cuda_ms(lambda: vpaths.step_packed(vbufs)),
+        block_ms=extra["lanes_ms"], **extra))
+    del rbufs, rst, new
+
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         r["code_bytes"] = sizes.get(r["name"])
@@ -1364,9 +1745,9 @@ def main():
 
     # throughput: interleaved warm windows of WINDOW[label] steps each
     windows = collections.defaultdict(list)
-    labels = ("subsystems", "vehicle", "megakernel") + XV1_PATHS
+    labels = ("subsystems", "vehicle", "megakernel") + XV_PATHS
     for label in (labels + ("plain",)) * 3 + labels * 2:
-        p = xpaths if label in XV1_PATHS else paths
+        p = paths_of(label)[1] if label != "plain" else paths
         run = (lambda n: paths.run_plain("subsystems", n)) \
             if label == "plain" else (lambda n: p.run(label, n))
         run(2)

@@ -106,16 +106,18 @@ class Simulation:
 
     def fleet_step(self, state: SimState, ctx=(), *, i) -> SimState:
         """One step of a batch-leading fleet state, with the avionics'
-        periodic pass after it when it fires. `ctx` is the mission context
-        of the JAX package, () here (`core/mission.py` is not ported:
-        ROADMAP P9). `i` is the fleet's shared step counter as a Python
-        int (the value of every lane of `state.i`); `fleet_rollout` keeps
-        it on the host, so neither the geoid cadence nor the periodic pass
-        costs a device sync: every lane takes the same branch, as the
-        uniform mask of the JAX package's `tree_where` does."""
+        periodic pass after it when it fires. `ctx` is () as in every
+        model of the JAX package (a mission is an avionics wrapper,
+        `core/mission.py`, not ported: ROADMAP Queue 2). `i` is the
+        fleet's shared step counter as a Python int (the value of every
+        lane of `state.i`); `fleet_rollout` keeps it on the host, so
+        neither the geoid cadence nor the periodic pass costs a device
+        sync: every lane takes the same branch, as the uniform mask of the
+        JAX package's `tree_where` does."""
         from flightjax_torch.parallel.clusterstep import cluster_step
         if ctx != ():
             raise NotImplementedError(
-                "mission contexts (core/mission.py) are not ported: "
-                "ROADMAP P9")
+                "the step takes no context: ctx is () in every model, and "
+                "the mission is an avionics wrapper (MissionAvionics, "
+                "core/mission.py), ROADMAP Queue 2")
         return cluster_step(self, state, int(i))

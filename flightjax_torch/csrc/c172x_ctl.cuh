@@ -4,8 +4,9 @@
 // (flightjax_torch/models/c172/c172x_ctl.py, flightjax_torch/physics/
 // control.py), in Strict<F> like the rest of flight_math.cuh, operation by
 // operation and in the same association order as the plain PyTorch port.
-// ctl_laws.cu runs the pass alone over a fleet; the fly-by-wire instance
-// of megakernel.cu runs it inside the whole step, when it fires.
+// ctl_laws.cu runs the pass alone over a fleet; the fly-by-wire instances
+// of megakernel.cu run it inside the whole step, when it fires. The
+// C172Xv2's guidance (c172x_gdc.cuh) overrides some requests first.
 //
 // The pass reads the VehicleY fields of CTL_Y (below), the avionics' inputs
 // u and their discrete state s (modes, the altitude machine's state and
@@ -281,19 +282,35 @@ struct Cmd2 {
   T a, b;
 };
 
+// the guidance's override of one side's requests (c172x_gdc.py::
+// GuidanceLaws.override_ctl_u): where `on`, the side's mode request is its
+// guided mode (lon LON_EAS_ALT, lat LAT_CHI_BETA) and `ref` its reference
+// (lon h_ref, lat chi_ref). The passes read it only in their GDC instances
+// (the C172Xv2's), so those of the C172Xv1 are what they were.
+template <typename T>
+struct Ovr {
+  bool on;
+  T ref;
+};
+
 // ------------------------------------------------------------- lon pass
 // ControlLaws.lon_step (c172x_ctl.py): y the CTL_Y rows, u the lon inputs,
 // s the lon state of the lane; writes the new lon state to so and returns
 // (throttle_cmd, elevator_cmd). One function, not inlined: one warp calls it.
-template <typename T>
+// With GDC the guidance's override `ovr` takes the place of the altitude
+// reference and the mode request where it is on.
+template <typename T, bool GDC = false>
 __device__ __noinline__ Cmd2<T> lon_step(const T* G, Col<T> y, Col<T> u,
-                                         Col<T> s, Out<T> so, T dt) {
+                                         Col<T> s, Out<T> so, T dt,
+                                         Ovr<T> ovr = Ovr<T>{}) {
   const T one = T(1.0), zero = T(0.0), inf = T(INFINITY);
   const T EAS = y(CY_EAS), h_e = y(CY_H_E);
-  const T h_err = u(UL_H_REF) - h_e;
+  const bool guided = GDC && ovr.on;
+  const T h_ref = guided ? ovr.ref : u(UL_H_REF);
+  const T h_err = h_ref - h_e;
   const int mode_prev = int(s(SL_MODE).v);
   const int h_state = int(s(SL_H_STATE).v);
-  const int mode_req = int(u(UL_MODE).v);
+  const int mode_req = guided ? LON_EAS_ALT : int(u(UL_MODE).v);
   T throttle_ref =
       clamp(clamp(u(UL_THR_AXIS), zero, one) + u(UL_THR_OFF), zero, one);
   T elevator_ref =
@@ -393,7 +410,7 @@ __device__ __noinline__ Cmd2<T> lon_step(const T* G, Col<T> y, Col<T> u,
           gains<T, 3 * NX_FULL + 12>(G, GT_VH2TE, EAS, h_e);
       const T x[NX_FULL] = {q_b, theta, EAS, alpha, h_e, alpha_f, n,
                             pos_thr, pos_elv};
-      const T z[2] = {EAS, h_e}, z_ref[2] = {u(UL_EAS_REF), u(UL_H_REF)};
+      const T z[2] = {EAS, h_e}, z_ref[2] = {u(UL_EAS_REF), h_ref};
       lqr_step<T, NX_FULL>(k.v, st, x, z, z_ref, dt, lo, hi, cmd);
     } else {
       const LookupOut<T, 3 * NX_RED + 12> k = gains<T, 3 * NX_RED + 12>(
@@ -419,14 +436,19 @@ __device__ __noinline__ Cmd2<T> lon_step(const T* G, Col<T> y, Col<T> u,
 
 // ------------------------------------------------------------- lat pass
 // ControlLaws.lat_step: as lon_step, for the lat inputs and state; returns
-// (aileron_cmd, rudder_cmd).
-template <typename T>
+// (aileron_cmd, rudder_cmd). With GDC the override takes the place of the
+// course reference and the mode request where it is on.
+template <typename T, bool GDC = false>
 __device__ __noinline__ Cmd2<T> lat_step(const T* G, Col<T> y, Col<T> u,
-                                         Col<T> s, Out<T> so, T dt) {
+                                         Col<T> s, Out<T> so, T dt,
+                                         Ovr<T> ovr = Ovr<T>{}) {
   const T one = T(1.0), zero = T(0.0);
   const T EAS = y(CY_EAS), h_e = y(CY_H_E);
+  const bool guided = GDC && ovr.on;
   const int mode_prev = int(s(SA_MODE).v);
-  const int mode = on_ground(y) ? LAT_DIRECT : int(u(UA_MODE).v);
+  const int mode = on_ground(y)
+                       ? LAT_DIRECT
+                       : (guided ? LAT_CHI_BETA : int(u(UA_MODE).v));
   const bool changed = mode != mode_prev;
   const bool ar2ar_on = mode == LAT_SAS;
   const bool pb2ar_on = mode == LAT_P_BETA || mode == LAT_PHI_BETA ||
@@ -460,8 +482,9 @@ __device__ __noinline__ Cmd2<T> lat_step(const T* G, Col<T> y, Col<T> u,
   if (chi2phi_on) {
     pid_gains(G, GT_CHI2PHI, EAS, h_e, g);
     Pid<T> p = changed ? pid_reset(seed, g[1]) : load_pid(s, SA_CHI2PHI_PID);
-    phi_ref = pid_step(g, p, wrap_to_pi(u(UA_CHI_REF) - y(CY_CHI)), dt,
-                       sat_ail, T(-PI / 4), T(PI / 4));
+    const T chi_ref = guided ? ovr.ref : u(UA_CHI_REF);
+    phi_ref = pid_step(g, p, wrap_to_pi(chi_ref - y(CY_CHI)), dt, sat_ail,
+                       T(-PI / 4), T(PI / 4));
     store_pid(so, SA_CHI2PHI_PID, p);
   } else {
     pass_rows(s, so, SA_CHI2PHI_PID, PD_N);

@@ -25,7 +25,20 @@
 // function each, each called by one warp). One thread per aircraft running
 // both measured slower (PERF.md; `ctl_laws_thread` of
 // tools/ablate_torch_roles.py). No barrier.
-#include "c172x_ctl.cuh"
+//
+// gdc_ctl_laws is the same pass of the C172Xv2, whose avionics run the
+// guidance laws first (c172x_gdc.cuh; c172x_gdc.py::Avionics.f_periodic
+// and `assign`): the instance of the same TPU kernel on the C172Xv2 and the
+// XLA glue of its splits. Plain PyTorch version: flightjax_torch/parallel/
+// kernels.py::gdc_ctl_laws_plain. In: the GDC_Y rows (CTL_Y and the
+// n-vector), the avionics block, the guidance's inputs. Out: ctl_laws'
+// rows, then the GdcY rows of the pass (mode, intercept angle, course and
+// altitude references, the two activity flags). Each warp works out the
+// guidance its side needs, in its own lanes, before its pass (the lat warp
+// the course, the lon warp the altitude and the cross-track gate): the same
+// chain as one warp computing it for both and a barrier, without the
+// barrier or the shared memory.
+#include "c172x_gdc.cuh"
 
 using namespace fj;
 
@@ -59,33 +72,91 @@ __global__ void __launch_bounds__(2 * MAX_LANES)
 }
 
 template <typename T>
+__global__ void __launch_bounds__(2 * MAX_LANES)
+    gdc_ctl_laws_kernel(const T* __restrict__ in, const T* __restrict__ G,
+                        T* __restrict__ out, int B, T dt) {
+  const RoleThread t = role_thread(B, CTL_SIDES);
+  if (!t.valid) return;
+  const Col<T> y{in, B, t.b};
+  const Col<T> u_lon{in + (N_GDCY + AV_ULON) * B, B, t.b};
+  const Col<T> u_lat{in + (N_GDCY + AV_ULAT) * B, B, t.b};
+  const Col<T> s_lon{in + (N_GDCY + AV_SLON) * B, B, t.b};
+  const Col<T> s_lat{in + (N_GDCY + AV_SLAT) * B, B, t.b};
+  const Col<T> u_gdc{in + (N_GDCY + AV_UGDC) * B, B, t.b};
+  const Out<T> o{out, B, t.b};
+  const Out<T> og{out + CTL_N_OUT * B, B, t.b};
+  constexpr int O_CMD = N_SLON + N_SLAT;
+  if (t.role == 0) {
+    const Gdc<T> g = guidance<GDC_ALL>(u_gdc, y);
+    const Cmd2<T> c = lon_step<T, true>(G, y, u_lon, s_lon, o, dt,
+                                        Ovr<T>{g.vrt, g.h_ref});
+    o.s(O_CMD + CC_THR, c.a);
+    o.s(O_CMD + CC_ELV, c.b);
+    og.s(GO_H_REF, g.h_ref);
+    og.s(GO_VRT, T(g.vrt ? 1.0 : 0.0));
+  }
+  if (t.role == 1) {
+    const Gdc<T> g = guidance<GDC_ALL>(u_gdc, y);
+    const Cmd2<T> c =
+        lat_step<T, true>(G, y, u_lat, s_lat, Out<T>{out + N_SLON * B, B, t.b},
+                          dt, Ovr<T>{g.hor, g.chi_ref});
+    o.s(O_CMD + CC_AIL, c.a);
+    o.s(O_CMD + CC_RUD, c.b);
+    og.s(GO_MODE, T(double(g.mode)));
+    og.s(GO_DCHI, g.dchi);
+    og.s(GO_CHI_REF, g.chi_ref);
+    og.s(GO_HOR, T(g.hor ? 1.0 : 0.0));
+  }
+}
+
+template <bool GDC, typename T>
 static int launch(const void* in, const void* gains, void* out, int B,
                   double dt, int lanes, void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const RoleLaunch l = role_launch(B, lanes, CTL_SIDES, 0);
-  ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (const T*)gains, (T*)out, B, T(dt));
+  if (GDC)
+    gdc_ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
+        (const T*)in, (const T*)gains, (T*)out, B, T(dt));
+  else
+    ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
+        (const T*)in, (const T*)gains, (T*)out, B, T(dt));
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 int ctl_laws_f32(const void* in, const void* gains, void* out, int B,
                  double dt, int lanes, void* stream) {
-  return launch<SF>(in, gains, out, B, dt, lanes, stream);
+  return launch<false, SF>(in, gains, out, B, dt, lanes, stream);
 }
 int ctl_laws_f64(const void* in, const void* gains, void* out, int B,
                  double dt, int lanes, void* stream) {
-  return launch<SD>(in, gains, out, B, dt, lanes, stream);
+  return launch<false, SD>(in, gains, out, B, dt, lanes, stream);
+}
+int gdc_ctl_laws_f32(const void* in, const void* gains, void* out, int B,
+                     double dt, int lanes, void* stream) {
+  return launch<true, SF>(in, gains, out, B, dt, lanes, stream);
+}
+int gdc_ctl_laws_f64(const void* in, const void* gains, void* out, int B,
+                     double dt, int lanes, void* stream) {
+  return launch<true, SD>(in, gains, out, B, dt, lanes, stream);
 }
 void ctl_laws_layout(int* n_in, int* n_out) {
   *n_in = CTL_N_IN;
   *n_out = CTL_N_OUT;
 }
-// n_params and elem_size are not read: the kernel takes no shared memory
+void gdc_ctl_laws_layout(int* n_in, int* n_out) {
+  *n_in = GDC_N_IN;
+  *n_out = GDC_N_OUT;
+}
+// n_params and elem_size are not read: the kernels take no shared memory
 void ctl_laws_launch_shape(int B, int lanes, int, int, int* grid, int* block,
                            int* shared) {
+  put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
+}
+void gdc_ctl_laws_launch_shape(int B, int lanes, int, int, int* grid,
+                               int* block, int* shared) {
   put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
 }
 }

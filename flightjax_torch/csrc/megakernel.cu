@@ -54,34 +54,54 @@
 // geoid_deferred. The gains are read through the cache. The C172S instance
 // keeps its rows (MegaL) and its parameters come first, so its machine code
 // is what it was.
-#include "c172x_ctl.cuh"
+//
+// The C172Xv2 instance (megakernel_gdc, ACT_FBW with the avionics AV_GDC)
+// is the same TPU kernel traced over the C172Xv2, whose pass runs the
+// guidance laws (c172x_gdc.cuh) before the control laws, overriding their
+// requests (c172x_gdc.py::Avionics.f_periodic). Its state buffer holds
+// megakernel_fbw's rows, then the guidance's inputs (AV_U_GDC, which pass
+// through). Role KIN also puts the n-vector of the new q_ew into the
+// scratch; after the barrier each pass warp works out the guidance its side
+// needs (role PROP the altitude reference and the cross-track gate, role
+// DRAG the course), and only on the lanes where that side's guidance is
+// requested in a guided mode, since no row of the state holds the rest.
+#include "c172x_gdc.cuh"
 
 using namespace fj;
 
+// the avionics of an instance: none (the C172S), the control laws (the
+// C172Xv1), the guidance and control laws (the C172Xv2)
+constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2;
+
 // the rows of an instance's state buffer and scratch: t, X, CTX, C (and the
-// avionics block, fly-by-wire); the scratch holds the roles' shared rows,
-// then each thread's x and k-sum (and the CTL_Y rows of the pass)
-template <int ACT>
+// avionics block, fly-by-wire; and the guidance's inputs); the scratch
+// holds the roles' shared rows, then each thread's x and k-sum (and the
+// CTL_Y or GDC_Y rows of the pass)
+template <int ACT, int AVK = (ACT == ACT_FBW ? AV_CTL : AV_NONE)>
 struct MegaL {
   enum : int {
     X = 1,
     CTX = X + SysL<ACT>::NXV,
     C = CTX + SysL<ACT>::NCTX,
     AV = C + N_C,
-    ROWS = AV + (ACT == ACT_FBW ? N_AV : 0),
+    GDC = AV + (ACT == ACT_FBW ? N_AV : 0),
+    ROWS = GDC + (AVK == AV_GDC ? N_UGDC : 0),
     SH_X = ACT == ACT_FBW ? SH_N_FBW : SH_N,
     SH_KSUM = SH_X + SysL<ACT>::NXV,
     SH_Y = SH_KSUM + SysL<ACT>::NXV,
-    SH_ROWS = SH_Y + (ACT == ACT_FBW ? N_CTLY : 0)
+    SH_ROWS = SH_Y + (AVK == AV_GDC   ? N_GDCY
+                      : AVK == AV_CTL ? N_CTLY
+                                      : 0)
   };
 };
 
-// the fly-by-wire instance: each role puts the CTL_Y fields it holds after
+// the fly-by-wire instances: each role puts the CTL_Y fields it holds after
 // the finish into the scratch, role KIN the kinematics, air data and new
-// h_e, role AERO the gated airflow angles and the filters, role ENG the
-// speed ratio, role DRAG the commands (clipped, from CTX) and the servo
-// positions, each leg its weight on wheels
-template <typename T>
+// h_e (with GDC also the n-vector of the new q_ew), role AERO the gated
+// airflow angles and the filters, role ENG the speed ratio, role DRAG the
+// commands (clipped, from CTX) and the servo positions, each leg its weight
+// on wheels
+template <bool GDC, typename T>
 __device__ __forceinline__ void share_ctl_y(const T* P, const Out<T>& so,
                                             const Col<T>& c, int r_usys,
                                             const RoleThread& t,
@@ -95,6 +115,8 @@ __device__ __forceinline__ void share_ctl_y(const T* P, const Out<T>& so,
     so.s(CY_CHI, f.chi);
     so.s(CY_EAS, f.EAS);
     so.s(CY_H_E, xn[8]);
+    if constexpr (GDC)
+      so.v3(CY_N_E, nvector_from_qew(Q4<T>{xn[4], xn[5], xn[6], xn[7]}));
   } else if (t.role == ROLE_AERO) {
     so.s(CY_ALPHA, f.alpha);
     so.s(CY_BETA, f.beta);
@@ -121,12 +143,14 @@ constexpr int ROLE_LON = ROLE_PROP, ROLE_LAT = ROLE_DRAG;
 
 // the pass of one side (lon or lat) where it fires: the new state and the
 // side's two commands (in place of those of CTX); elsewhere both pass
-// through. The side's inputs pass through.
-template <typename T>
+// through. The side's inputs pass through. With GDC the side's guidance,
+// from the guidance's inputs at row r_gdc, overrides its requests.
+template <bool GDC, typename T>
 __device__ __forceinline__ void periodic_side(bool lon, bool fires,
                                               const T* G, const Col<T>& y,
                                               const Col<T>& c, const Out<T>& o,
-                                              int r_av, int r_usys, T pdt) {
+                                              int r_av, int r_usys, int r_gdc,
+                                              T pdt) {
   const int r_u = r_av + (lon ? AV_ULON : AV_ULAT);
   const int r_s = r_av + (lon ? AV_SLON : AV_SLAT);
   const int n_u = lon ? N_ULON : N_ULAT, n_s = lon ? N_SLON : N_SLAT;
@@ -142,20 +166,31 @@ __device__ __forceinline__ void periodic_side(bool lon, bool fires,
   const Col<T> u{c.buf + r_u * c.B, c.B, c.b};
   const Col<T> s{c.buf + r_s * c.B, c.B, c.b};
   const Out<T> so{o.buf + r_s * o.B, o.B, o.b};
-  const Cmd2<T> cmd = lon ? lon_step(G, y, u, s, so, pdt)
-                          : lat_step(G, y, u, s, so, pdt);
+  Cmd2<T> cmd;
+  if constexpr (GDC) {
+    const Col<T> ug{c.buf + r_gdc * c.B, c.B, c.b};
+    if (lon) {
+      const Gdc<T> g = guidance<GDC_VRT>(ug, y);
+      cmd = lon_step<T, true>(G, y, u, s, so, pdt, Ovr<T>{g.vrt, g.h_ref});
+    } else {
+      const Gdc<T> g = guidance<GDC_HOR>(ug, y);
+      cmd = lat_step<T, true>(G, y, u, s, so, pdt, Ovr<T>{g.hor, g.chi_ref});
+    }
+  } else {
+    cmd = lon ? lon_step(G, y, u, s, so, pdt) : lat_step(G, y, u, s, so, pdt);
+  }
   o.s(row_a, cmd.a);
   o.s(row_b, cmd.b);
 }
 
-template <int ACT, typename T>
+template <int ACT, typename T, int AVK = (ACT == ACT_FBW ? AV_CTL : AV_NONE)>
 __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     megakernel_kernel(const T* __restrict__ in, const int* __restrict__ i_in,
                       const T* __restrict__ P, const T* __restrict__ G,
                       T* __restrict__ out, int* __restrict__ i_out, int B,
                       int n_params, double dt, double t_start, int comp,
                       const T* __restrict__ gains, int spp, double pdt) {
-  using M = MegaL<ACT>;
+  using M = MegaL<ACT, AVK>;
   using L = SysL<ACT>;
   T* sP = block_shared<T>();
   T* sh = sP + n_params;
@@ -199,10 +234,10 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   load_slots<ACT>(ss, 0, t.role, acc);
   finish_roles<true, ACT>(sP, G, sh, t, x, acc, T(dt / 6.0), comp != 0, c,
                           M::CTX, M::C, xn, f);
-  if constexpr (ACT == ACT_FBW) {
-    // what the control laws read of the new state, into the scratch
-    share_ctl_y(sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, c,
-                M::CTX + CX_USYS, t, xn, f);
+  if constexpr (AVK != AV_NONE) {
+    // what the avionics read of the new state, into the scratch
+    share_ctl_y<AVK == AV_GDC>(sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane},
+                               c, M::CTX + CX_USYS, t, xn, f);
     __syncthreads();
   }
   if (!t.valid) return;  // past the last barrier
@@ -233,20 +268,24 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     o.s(M::C + 4, f.r_h);
     i_out[t.b] = i_new;
   }
-  if constexpr (ACT == ACT_FBW) {
+  if constexpr (AVK != AV_NONE) {
     // the periodic pass where the counter the step makes is a multiple of
     // steps_per_periodic (core/sim.py::Simulation.step): lon in one warp,
     // lat in another
     if (t.role == ROLE_LON || t.role == ROLE_LAT) {
       const bool fires = (i_in[t.b] + 1) % spp == 0;
       const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
-      periodic_side(t.role == ROLE_LON, fires, gains, y, c, o, M::AV,
-                    M::CTX + CX_USYS, T(pdt));
+      periodic_side<AVK == AV_GDC>(t.role == ROLE_LON, fires, gains, y, c, o,
+                                   M::AV, M::CTX + CX_USYS, M::GDC, T(pdt));
     }
+  }
+  if constexpr (AVK == AV_GDC) {
+    // the guidance's inputs pass through
+    if (t.role == ROLE_KIN) pass_rows(c, o, M::GDC, N_UGDC);
   }
 }
 
-template <int ACT, typename T>
+template <int ACT, int AVK, typename T>
 static int launch(const void* in, const void* i_in, const void* params,
                   const void* grid_, const void* gains, void* out,
                   void* i_out, int B, int n_params, double dt,
@@ -256,14 +295,14 @@ static int launch(const void* in, const void* i_in, const void* params,
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0 || spp < 1)
     return (int)cudaErrorInvalidValue;
   const RoleLaunch l = role_launch(B, lanes, n_params, (int)sizeof(T),
-                                   MegaL<ACT>::SH_ROWS);
+                                   MegaL<ACT, AVK>::SH_ROWS);
   // the attribute belongs to the device in use, so every launch sets it
   const cudaError_t err = cudaFuncSetAttribute(
-      megakernel_kernel<ACT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      l.shared);
+      megakernel_kernel<ACT, T, AVK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, l.shared);
   if (err != cudaSuccess) return (int)err;
-  megakernel_kernel<ACT, T><<<l.grid, l.block, l.shared,
-                              (cudaStream_t)stream>>>(
+  megakernel_kernel<ACT, T, AVK><<<l.grid, l.block, l.shared,
+                                   (cudaStream_t)stream>>>(
       (const T*)in, (const int*)i_in, (const T*)params, (const T*)grid_,
       (T*)out, (int*)i_out, B, n_params, dt, t_start, comp, (const T*)gains,
       spp, pdt);
@@ -275,17 +314,17 @@ int megakernel_f32(const void* in, const void* i_in, const void* params,
                    const void* grid, void* out, void* i_out, int B,
                    int n_params, double dt, double t_start, int comp,
                    int lanes, void* stream) {
-  return launch<ACT_MECH, SF>(in, i_in, params, grid, nullptr, out, i_out, B,
-                              n_params, dt, t_start, comp, 1, 0.0, lanes,
-                              stream);
+  return launch<ACT_MECH, AV_NONE, SF>(in, i_in, params, grid, nullptr, out,
+                                       i_out, B, n_params, dt, t_start, comp,
+                                       1, 0.0, lanes, stream);
 }
 int megakernel_f64(const void* in, const void* i_in, const void* params,
                    const void* grid, void* out, void* i_out, int B,
                    int n_params, double dt, double t_start, int comp,
                    int lanes, void* stream) {
-  return launch<ACT_MECH, SD>(in, i_in, params, grid, nullptr, out, i_out, B,
-                              n_params, dt, t_start, comp, 1, 0.0, lanes,
-                              stream);
+  return launch<ACT_MECH, AV_NONE, SD>(in, i_in, params, grid, nullptr, out,
+                                       i_out, B, n_params, dt, t_start, comp,
+                                       1, 0.0, lanes, stream);
 }
 // the fly-by-wire instance also takes the control laws' gains, their
 // steps per periodic pass and their interval
@@ -294,18 +333,37 @@ int megakernel_fbw_f32(const void* in, const void* i_in, const void* params,
                        void* i_out, int B, int n_params, double dt,
                        double t_start, int comp, int spp, double pdt,
                        int lanes, void* stream) {
-  return launch<ACT_FBW, SF>(in, i_in, params, grid, gains, out, i_out, B,
-                             n_params, dt, t_start, comp, spp, pdt, lanes,
-                             stream);
+  return launch<ACT_FBW, AV_CTL, SF>(in, i_in, params, grid, gains, out,
+                                     i_out, B, n_params, dt, t_start, comp,
+                                     spp, pdt, lanes, stream);
 }
 int megakernel_fbw_f64(const void* in, const void* i_in, const void* params,
                        const void* grid, const void* gains, void* out,
                        void* i_out, int B, int n_params, double dt,
                        double t_start, int comp, int spp, double pdt,
                        int lanes, void* stream) {
-  return launch<ACT_FBW, SD>(in, i_in, params, grid, gains, out, i_out, B,
-                             n_params, dt, t_start, comp, spp, pdt, lanes,
-                             stream);
+  return launch<ACT_FBW, AV_CTL, SD>(in, i_in, params, grid, gains, out,
+                                     i_out, B, n_params, dt, t_start, comp,
+                                     spp, pdt, lanes, stream);
+}
+// the C172Xv2 instance, on the fly-by-wire instance's signature
+int megakernel_gdc_f32(const void* in, const void* i_in, const void* params,
+                       const void* grid, const void* gains, void* out,
+                       void* i_out, int B, int n_params, double dt,
+                       double t_start, int comp, int spp, double pdt,
+                       int lanes, void* stream) {
+  return launch<ACT_FBW, AV_GDC, SF>(in, i_in, params, grid, gains, out,
+                                     i_out, B, n_params, dt, t_start, comp,
+                                     spp, pdt, lanes, stream);
+}
+int megakernel_gdc_f64(const void* in, const void* i_in, const void* params,
+                       const void* grid, const void* gains, void* out,
+                       void* i_out, int B, int n_params, double dt,
+                       double t_start, int comp, int spp, double pdt,
+                       int lanes, void* stream) {
+  return launch<ACT_FBW, AV_GDC, SD>(in, i_in, params, grid, gains, out,
+                                     i_out, B, n_params, dt, t_start, comp,
+                                     spp, pdt, lanes, stream);
 }
 void megakernel_layout(int* n_in, int* n_out) {
   *n_in = MEGA_N_ROWS;
@@ -314,6 +372,10 @@ void megakernel_layout(int* n_in, int* n_out) {
 void megakernel_fbw_layout(int* n_in, int* n_out) {
   *n_in = MEGA_N_ROWS_FBW;
   *n_out = MEGA_N_ROWS_FBW;
+}
+void megakernel_gdc_layout(int* n_in, int* n_out) {
+  *n_in = MEGA_N_ROWS_GDC;
+  *n_out = MEGA_N_ROWS_GDC;
 }
 void megakernel_launch_shape(int B, int lanes, int n_params, int elem_size,
                              int* grid, int* block, int* shared) {
@@ -325,6 +387,13 @@ void megakernel_fbw_launch_shape(int B, int lanes, int n_params,
                                  int* shared) {
   put_launch(role_launch(B, lanes, n_params, elem_size,
                          MegaL<ACT_FBW>::SH_ROWS),
+             grid, block, shared);
+}
+void megakernel_gdc_launch_shape(int B, int lanes, int n_params,
+                                 int elem_size, int* grid, int* block,
+                                 int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         MegaL<ACT_FBW, AV_GDC>::SH_ROWS),
              grid, block, shared);
 }
 // the whole-vehicle row groups: X, CTX, C and the megakernel's state buffer,

@@ -1,12 +1,14 @@
-"""Cessna 172X: the fly-by-wire variant and the C172Xv1 world with its
-gain-scheduled control laws (port of `flightjax/models/c172/c172x.py`).
+"""Cessna 172X: the fly-by-wire variant, the C172Xv1 world with its
+gain-scheduled control laws and the C172Xv2 world with its guidance laws
+on top of them (port of `flightjax/models/c172/c172x.py`).
 
 `FlyByWireActuation` carries seven servo states (`x['act']`) with their
 own ODEs; its commands arrive in `u['act']`, written by the control laws
-on every periodic pass. The trimmed C172Xv1 state is read from
-`data/c172xv1_trim.npz`, written by `tools/export_torch_c172x.py` from the
-JAX package's trim solver, and the avionics' bumpless start is worked out
-here by `ControlLaws.init_from_trim`, so this module needs no JAX.
+on every periodic pass. The trimmed vehicle state, the same for both
+worlds, is read from `data/c172xv1_trim.npz`, written by
+`tools/export_torch_c172x.py` from the JAX package's trim solver, and the
+avionics' bumpless start is worked out here by their `init_from_trim`, so
+this module needs no JAX.
 """
 
 import os
@@ -144,6 +146,14 @@ def build_xv1(gains=None, *, device, dtype, **kw) -> Aircraft:
                           device=device, dtype=dtype, **kw)
 
 
+def build_xv2(gains=None, *, device, dtype, **kw) -> Aircraft:
+    """Cessna172Xv2: fly-by-wire actuation and the guidance laws over the
+    control laws, `c172x_gdc.Avionics` (`c172x.py:372-377`)."""
+    from flightjax_torch.models.c172.c172x_gdc import Avionics
+    return build_aircraft(Avionics(gains, device=device, dtype=dtype),
+                          device=device, dtype=dtype, **kw)
+
+
 def load_xv1_state(path=XV1_NPZ):
     """(x, u, s) numpy trees of the trimmed C172Xv1 vehicle at world level
     (without the avionics), the TrimState vector and the trim residual
@@ -154,13 +164,14 @@ def load_xv1_state(path=XV1_NPZ):
             flat["trim_state"], float(flat["trim_rnorm"]))
 
 
-def trimmed_xv1_state(periodic_dt, dtype, device):
+def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1):
     """The world SimState of one trimmed aircraft with its avionics' inputs
     and state from `init_from_trim` (the bumpless start of
-    `c172x.py::trim_world`). The start is worked out on the CPU in `dtype`
-    and then moved to `device`."""
+    `c172x.py::trim_world`); `build` makes the aircraft (`build_xv1` or
+    `build_xv2`, whose vehicles are the same). The start is worked out on
+    the CPU in `dtype` and then moved to `device`."""
     x, u, s, _, _ = load_xv1_state()
-    cpu = build_xv1(device="cpu", dtype=dtype)
+    cpu = build(device="cpu", dtype=dtype)
     # the plain vehicle functions take a fleet: one aircraft
     xv, uv, sv = (tree_from_numpy(tree_map(lambda l: np.asarray(l)[None],
                                            t["vehicle"]), "cpu", dtype)
@@ -188,6 +199,66 @@ def c172xv1_sim(device="cuda", dtype=torch.float32):
     sim = Simulation(world, dt=0.02, periodic_dt=0.02, geoid_every=128)
     state = trimmed_xv1_state(sim.periodic_dt, dtype, device)
     return sim, sim.with_compensation(state), ()
+
+
+def trimmed_xv2_state(periodic_dt, dtype, device):
+    """The trimmed C172Xv2: the C172Xv1's vehicle state with the guidance
+    and control laws started bumpless (`Avionics.init_from_trim`, the
+    guidance direct and not engaged)."""
+    return trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv2)
+
+
+def c172xv2_sim(device="cuda", dtype=torch.float32):
+    """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv2 on WA
+    kinematics, in the form of `c172xv1_sim`: dt = periodic_dt = 0.02 s,
+    geoid refresh every 128 steps, Kahan-compensated position in float32,
+    the avionics started bumpless. `engage_guidance` engages the
+    guidance."""
+    world = SimpleWorld(build_xv2(device=device, dtype=dtype))
+    sim = Simulation(world, dt=0.02, periodic_dt=0.02, geoid_every=128)
+    state = trimmed_xv2_state(sim.periodic_dt, dtype, device)
+    return sim, sim.with_compensation(state), ()
+
+
+def offset_point(lat, lon, h, north, east):
+    """(lat, lon) of the point `north` and `east` metres from (lat, lon, h)
+    along the local level frame there, in float64 (numbers or arrays of
+    one shape): the construction of the loiter test,
+    `tests/test_c172x2.py:150-157`."""
+    from flightjax_torch.ops import geodesy as geo
+    from flightjax_torch.ops.quaternions import qrot
+    f = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))
+    n_e = geo.nvector_from_latlon(f(lat), f(lon))
+    north, east = torch.broadcast_tensors(f(north), f(east))
+    r_n = torch.stack([north, east, torch.zeros_like(north)], dim=-1)
+    r = geo.cartesian_from_geographic(n_e, f(h)) + qrot(geo.ltf(n_e), r_n)
+    lat2, lon2 = geo.latlon_from_nvector(geo.geographic_from_cartesian(r)[0])
+    return lat2.numpy(), lon2.numpy()
+
+
+def engage_guidance(state, mode, target=None, orbit=None, hor=True,
+                    vrt=True):
+    """`state` (a C172Xv2 SimState) with its guidance requesting `mode`
+    (`GDC_SEGMENT` or `GDC_CIRCULAR`, an int or a per-lane array) on
+    `target` (a `Segment`) or `orbit` (a `Circle`), each one for all lanes
+    or one per lane, with the lateral (`hor`) and vertical (`vrt`)
+    guidance requested (bools or per-lane arrays): the scenario of
+    `tests/test_c172x2.py:115-125` and `:159-163`."""
+    av = state.u["avionics"]
+    g = dict(av["gdc"])
+    def like(v, ref):
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+        return v.to(device=ref.device, dtype=ref.dtype).expand_as(
+            ref).clone()
+
+    g["mode_req"] = like(mode, g["mode_req"])
+    g["hor_gdc_req"] = like(hor, g["hor_gdc_req"])
+    g["vrt_gdc_req"] = like(vrt, g["vrt_gdc_req"])
+    for key, geom in (("target", target), ("orbit", orbit)):
+        if geom is not None:
+            g[key] = type(geom)(*(like(v, r) for v, r in zip(geom, g[key])))
+    return state._replace(u=dict(state.u, avionics=dict(av, gdc=g)))
 
 
 def turning_climb(state, EAS_ref=45.0, clm_ref=1.5, chi_ref=np.pi / 2):

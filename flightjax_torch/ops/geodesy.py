@@ -8,7 +8,9 @@ import numpy as np
 import torch
 
 from flightjax_torch.core.modeling import rdiv
+from flightjax_torch.ops.attitude import rot_y, rot_z
 from flightjax_torch.ops.interp import RowLookup
+from flightjax_torch.ops.quaternions import qmul
 
 GM = 3.986005e14
 a = 6378137.0
@@ -24,9 +26,15 @@ g_a = 9.7803253359
 g_b = 9.8321849378
 k_g = b * g_b / (a * g_a) - 1
 
-# the EGM96 15-arcmin grid shipped with the JAX package, read in place
-EGM96_PATH = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
-                          "flightjax", "data", "egm96_ww15mgh.npz")
+# the EGM96 15-arcmin grid, the port's byte copy of the JAX package's
+EGM96_PATH = os.path.join(os.path.dirname(__file__), os.pardir, "data",
+                          "egm96_ww15mgh.npz")
+
+
+def nvector_from_latlon(lat, lon):
+    cl = torch.cos(lat)
+    return torch.stack([cl * torch.cos(lon), cl * torch.sin(lon),
+                        torch.sin(lat)], dim=-1)
 
 
 def latlon_from_nvector(n_e):
@@ -52,6 +60,16 @@ def radii(n_e):
     M = rdiv(a * (1 - e2), den * den * den)
     N = rdiv(a, den)
     return M, N
+
+
+def ltf(n_e, psi_nw=0.0):
+    """ECEF -> local-tangent-frame rotation quaternion at wander azimuth
+    psi_nw: Rz(lon) ∘ Ry(-(lat + pi/2)) ∘ Rz(psi_nw); psi_nw = 0 gives the
+    NED frame (q_en)."""
+    lat, lon = latlon_from_nvector(n_e)
+    psi = torch.full_like(lat, psi_nw) if not isinstance(
+        psi_nw, torch.Tensor) else psi_nw
+    return qmul(rot_z(lon), qmul(rot_y(-(lat + 0.5 * np.pi)), rot_z(psi)))
 
 
 def get_psi_nw_ab(q_ew):

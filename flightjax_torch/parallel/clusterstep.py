@@ -24,14 +24,17 @@ and the k-sum association ((k1 + 2k2) + 2k3) + k4 follow
 `clusterstep.py:124-136` and `sim.py:53-68`, so float64 parity with
 `flightjax` holds to rounding.
 
-A world whose aircraft has avionics (the C172Xv1's `ControlLaws`) runs its
-periodic pass after the step when it fires, `(i + 1) % steps_per_periodic
-== 0` (`clusterstep.py:591-607`): the avionics read the VehicleY at the new
+A world whose aircraft has avionics (the C172Xv1's `ControlLaws`, the
+C172Xv2's guidance and control laws) runs its periodic pass after the step
+when it fires, `(i + 1) % steps_per_periodic == 0`
+(`clusterstep.py:591-607`): the avionics read the VehicleY at the new
 state, which the finish kernels of the fly-by-wire C172 store beside the
 state (finish_kin's KinData and AirData and finish_sys's airflow angles
 and weight on wheels; rk4_finish's KIN_Y and SYS_Y rows), and write the
-servo commands. The control laws run as the `ctl_laws` kernel on the card
-(their plain version on the CPU or with `plain`). The pass reads the state
+servo commands. The pass runs as the `ctl_laws` or `gdc_ctl_laws` kernel
+on the card (their plain versions on the CPU or with `plain`); the
+guidance also reads the n-vector of the new position, which the pass
+works out from the new q_ew, as KinData holds it. The pass reads the state
 before the geoid refresh of the same step, as `Simulation.fleet_step`
 orders them (the JAX cluster kernels refresh first; the two differ on
 refresh steps by the undulation's change over 128 steps, micrometres).
@@ -41,7 +44,7 @@ import torch
 
 from flightjax_torch.core.modeling import tree_map
 from flightjax_torch.core.sim import SimState
-from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+from flightjax_torch.ops.geodesy import nvector_from_qew
 from flightjax_torch.parallel import kernels as K
 
 # (stage offset as a multiple of dt, k-sum weight)
@@ -97,21 +100,24 @@ def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False):
     """The world's periodic pass after step `i` if it fires, when the
     counter it makes, i + 1, is a multiple of `steps_per_periodic`
     (`sim.py:327-328`; no ported avionics reads the firing index): the
-    control laws on the VehicleY at the new state xv (from the finish's
-    kin_y and sys_y) write the servo commands, as the `ctl_laws` kernel
-    (its plain version with `plain`). Returns (u, s)."""
+    avionics on the VehicleY at the new state xv (from the finish's kin_y
+    and sys_y; for the guidance also the n-vector of xv's q_ew) write the
+    servo commands, as the `ctl_laws` kernel (the C172Xv1's control laws)
+    or the `gdc_ctl_laws` kernel (the C172Xv2's guidance and control laws),
+    or their plain versions with `plain`. Returns (u, s)."""
     world = sim.system
     avionics = world.aircraft.avionics
     if avionics is None or (i + 1) % sim.steps_per_periodic != 0:
         return u, s
-    if not isinstance(avionics, ControlLaws):
-        raise NotImplementedError(
-            "the periodic pass carries the C172X's ControlLaws; the Xv2's "
-            "guidance (c172x_gdc.py) is ROADMAP P9")
-    vy = K.vehicle_y(world.aircraft.vehicle, xv, u["vehicle"], kin_y, sys_y)
-    fn = K.ctl_laws_plain if plain else K.ctl_laws
-    s_av, cmd = fn(avionics, K.ctl_y(vy), u["avionics"], s["avionics"],
-                   world.periodic_dt)
+    vehicle = world.aircraft.vehicle
+    name = K.avionics_layout(vehicle, avionics).pass_name
+    if name == "gdc_ctl_laws":
+        kin_y = dict(kin_y, n_e=nvector_from_qew(xv["kinematics"]["q_ew"]))
+    vy = K.vehicle_y(vehicle, xv, u["vehicle"], kin_y, sys_y)
+    y = K.gdc_y(vy) if name == "gdc_ctl_laws" else K.ctl_y(vy)
+    fn = getattr(K, name + "_plain" if plain else name)
+    s_av, cmd, *_ = fn(avionics, y, u["avionics"], s["avionics"],
+                       world.periodic_dt)
     u_sys = u["vehicle"]["systems"]
     u2 = dict(u, vehicle=dict(u["vehicle"], systems=dict(
         u_sys, act=dict(u_sys["act"], **cmd))))
@@ -165,7 +171,9 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
     defaults."""
     if ctx != ():
         raise NotImplementedError(
-            "mission contexts (core/mission.py) are not ported: ROADMAP P9")
+            "the step takes no context: ctx is () in every model, and the "
+            "mission is an avionics wrapper (MissionAvionics, "
+            "core/mission.py), ROADMAP Queue 2")
     vehicle = sim.system.aircraft.vehicle
     if state.t.device.type != "cpu":  # build the kernels' operands once
         K.system_params(vehicle)

@@ -19,8 +19,10 @@ The whole vehicle (the `vehicle` split and the megakernel):
                   paths run outside their kernels
 - `megakernel` <- `megakernel.py::make_megakernel_step` (its wrapper is
                   `launch_megakernel`; the step is `parallel/megakernel.py`),
-                  and `megakernel_fbw`, its instance on the C172Xv1 with
-                  the control laws' periodic pass inside it
+                  `megakernel_fbw`, its instance on the C172Xv1 with the
+                  control laws' periodic pass inside it, and
+                  `megakernel_gdc`, its instance on the C172Xv2 with the
+                  guidance and control laws' pass inside it
 
 The C172X's periodic pass:
 
@@ -28,6 +30,9 @@ The C172X's periodic pass:
                   megakernel runs inside the step on the C172Xv1
                   (`core/sim.py:327-333`) and the TPU cluster paths as XLA
                   glue (`clusterstep.py:591-607`)
+- `gdc_ctl_laws` <- the C172Xv2's `c172x_gdc.Avionics.f_periodic` (the
+                  guidance laws, then the control laws on the requests they
+                  override) and `assign`, the same places on the C172Xv2
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); there is no fallback between the two.
@@ -51,6 +56,8 @@ import torch
 
 from flightjax_torch.core.modeling import bscale, tree_map
 from flightjax_torch.core.sim import comp_add
+from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+from flightjax_torch.models.c172.c172x_gdc import Avionics, Circle, Segment
 from flightjax_torch.models.c172.common import (AERO_CONST, M_FULL, M_RES,
                                                 AeroY, EngineY, LdgY,
                                                 StrutWow, SystemsY, ThrusterY,
@@ -165,6 +172,22 @@ CTL_Y = ((("omega_wb_b", 3), ("omega_eb_b", 3), ("e_nb", 3), ("v_eb_n", 3),
          + tuple((("pos", ch), 1) for ch in CTL_CMD) + (("wow", 3),))
 CTL_IN = (CTL_Y,) + AV_GROUPS
 CTL_OUT = (AV_S_LON, AV_S_LAT, tuple((ch, 1) for ch in CTL_CMD))
+# the C172Xv2's guidance (`models/c172/c172x_gdc.py`; rows of
+# csrc/c172x_gdc.cuh): its inputs, which follow the avionics block; GDC_Y
+# what the guidance and the control laws read (CTL_Y and the n-vector of
+# the new position); GDC_YOUT the GdcY fields gdc_ctl_laws writes after
+# ctl_laws' rows
+AV_U_GDC = (("mode_req", 1), (("target", "n_e1"), 3),
+            (("target", "h_e1"), 1), (("target", "n_e2"), 3),
+            (("target", "h_e2"), 1), (("orbit", "n_e"), 3),
+            (("orbit", "h_e"), 1), (("orbit", "radius"), 1),
+            (("orbit", "turn_dir"), 1), ("hor_gdc_req", 1),
+            ("vrt_gdc_req", 1))
+GDC_Y = CTL_Y + (("n_e", 3),)
+GDC_YOUT = tuple((k, 1) for k in ("mode", "dchi", "chi_ref", "h_ref",
+                                  "hor_gdc", "vrt_gdc"))
+GDC_IN = (GDC_Y,) + AV_GROUPS + (AV_U_GDC,)
+GDC_OUT = CTL_OUT + (GDC_YOUT,)
 TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
 MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
 WR = (("F", 3), ("tau", 3))
@@ -197,7 +220,10 @@ LEAF_DTYPES = {(("pwp", "engine", "mixture_ctl")): torch.int32,
                ("aero", "stall"): torch.bool, "crashed": torch.bool,
                "surface": torch.int32, "terminated": torch.bool,
                "wow": torch.bool, "mode_req": torch.int32,
-               "mode_prev": torch.int32, "h_state": torch.int32}
+               "mode_prev": torch.int32, "h_state": torch.int32,
+               "hor_gdc_req": torch.bool, "vrt_gdc_req": torch.bool,
+               "mode": torch.int32, "hor_gdc": torch.bool,
+               "vrt_gdc": torch.bool}
 LEAF_DTYPES.update({(k, f): torch.int32 for k in AV_PRIMITIVES
                     for f in ("out_sat_0", "sat_out_0")})
 
@@ -208,7 +234,8 @@ class Layout(NamedTuple):
     whole vehicle (state X, context CTX: inputs, discrete state, carried
     undulation, the terminated latch; the position residuals C); `mega` the
     megakernel's state buffer: t, X, CTX, C and, fly-by-wire, the control
-    laws' avionics block."""
+    laws' avionics block (and the guidance's inputs on the C172Xv2);
+    `pass_name` the kernel of the avionics' periodic pass, if any."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -225,9 +252,10 @@ class Layout(NamedTuple):
     mega: tuple
     names: dict
     mega_name: str
+    pass_name: str
 
 
-def _layout(fbw):
+def _layout(fbw, gdc=False):
     x_sys, u_sys = (X_SYS_FBW, U_SYS_FBW) if fbw else (X_SYS, U_SYS)
     x_groups = (X_KIN, X_DYN, x_sys)
     ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),))
@@ -244,13 +272,18 @@ def _layout(fbw):
         rkfin_out=x_groups + (S_SYS, (("terminated", 1),), COMP)
         + ((KIN_Y,) + y if fbw else ()),
         mega=((("t", 1),),) + x_groups + ctx + (COMP,)
-        + (AV_GROUPS if fbw else ()),
+        + (AV_GROUPS if fbw else ()) + ((AV_U_GDC,) if gdc else ()),
         names={k: k + ("_fbw" if fbw else "") for k in (
             "systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name="megakernel_fbw" if fbw else "megakernel")
+        mega_name=("megakernel_gdc" if gdc else "megakernel_fbw" if fbw
+                   else "megakernel"),
+        pass_name="gdc_ctl_laws" if gdc else "ctl_laws" if fbw else None)
 
 
-MECH, FBW = _layout(False), _layout(True)
+# the C172S; the fly-by-wire C172X with its ControlLaws (the C172Xv1) and
+# with its guidance and control laws (the C172Xv2): the same systems
+# kernels, the megakernel and the pass instances of their own
+MECH, FBW, GDC = _layout(False), _layout(True), _layout(True, gdc=True)
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -259,10 +292,11 @@ X_GROUPS, CTX_GROUPS, STAGE_IN, STAGE_OUT, RKFIN_IN, RKFIN_OUT = (
     MECH.rkfin_in, MECH.rkfin_out)
 
 
-def layout_of(vehicle):
+def layout_of(vehicle, avionics=None):
     """The layout of the vehicle's actuation: FBW for the fly-by-wire
-    servos, whose kernel instances carry `Actuator1` on every channel; a
-    second-order servo has no kernel yet."""
+    servos, whose kernel instances carry `Actuator1` on every channel (a
+    second-order servo has no kernel yet), GDC where its `avionics` are the
+    C172Xv2's guidance and control laws."""
     act = vehicle.systems.act
     if not getattr(act, "stateful", False):
         return MECH
@@ -271,7 +305,20 @@ def layout_of(vehicle):
         raise ValueError(
             f"the kernels carry first-order servos only, not {bad}: "
             "ROADMAP Queue 2, 'Actuator2 channels in the kernels'")
-    return FBW
+    return GDC if isinstance(avionics, Avionics) else FBW
+
+
+def avionics_layout(vehicle, avionics):
+    """The layout of an aircraft whose avionics run as kernels: the
+    C172X's `ControlLaws` (FBW) or the C172Xv2's `Avionics` (GDC); other
+    avionics have no kernel and are refused."""
+    if not isinstance(avionics, (ControlLaws, Avionics)):
+        raise NotImplementedError(
+            f"the kernels carry the C172X's ControlLaws and the C172Xv2's "
+            f"guidance and control laws, not {type(avionics).__name__}: "
+            "a MissionAvionics (core/mission.py) is ROADMAP Queue 2, 'the "
+            "mission megakernel'")
+    return layout_of(vehicle, avionics)
 
 
 def rows(groups):
@@ -514,10 +561,12 @@ _GAINS = weakref.WeakKeyDictionary()
 
 def ctl_gains(avionics):
     """The control laws' gain buffer on their device in their dtype (built
-    once): the offsets of the CTL_TABLES, then each channel's schedule as
+    once) of a `ControlLaws` or of the C172Xv2's avionics (their control
+    laws'): the offsets of the CTL_TABLES, then each channel's schedule as
     one table (`encode_table`) whose values are its gains stacked per knot
     (PID_GAINS, or LQR_GAINS flattened), on the schedules' own (EAS, h) grid
     and extrapolation."""
+    avionics = getattr(avionics, "ctl", avionics)
     buf = _GAINS.get(avionics)
     if buf is None:
         body = []
@@ -729,11 +778,18 @@ def ctl_y(vy):
             "wow": sy.ldg.strut.wow}
 
 
+def gdc_y(vy):
+    """The GDC_Y fields of a VehicleY: what the guidance and the control
+    laws read."""
+    return dict(ctl_y(vy), n_e=vy.kinematics.n_e)
+
+
 def ctl_vehicle_y(y):
-    """The VehicleY that holds the CTL_Y fields `y` (the others None)."""
+    """The VehicleY that holds the CTL_Y (or GDC_Y) fields `y` (the others
+    None)."""
     kin = KinData(**dict(dict.fromkeys(KinData._fields), **{
         k: y[k] for k in ("omega_wb_b", "omega_eb_b", "e_nb", "v_eb_n",
-                          "chi_gnd", "h_e")}))
+                          "chi_gnd", "h_e", "n_e") if k in y}))
     air = AirData(**dict(dict.fromkeys(AirData._fields), EAS=y["EAS"]))
     sys_ = SystemsY(act={"cmd": y["cmd"], "pos": y["pos"]},
                     aero=AeroY(y["alpha"], y["beta"], y["alpha_filt"],
@@ -749,10 +805,26 @@ def ctl_laws_plain(avionics, y, u_av, s_av, dt):
     `ControlLaws.f_periodic` and the commands `assign` writes. Returns
     (the new avionics state, {channel: command} of CTL_CMD)."""
     s2, av_y = avionics.f_periodic(s_av, u_av, ctl_vehicle_y(y), dt)
-    return s2, {"aileron": av_y.lat.aileron_cmd,
-                "elevator": av_y.lon.elevator_cmd,
-                "rudder": av_y.lat.rudder_cmd,
-                "throttle": av_y.lon.throttle_cmd}
+    return s2, _commands(av_y)
+
+
+def _commands(ctl_y):
+    return {"aileron": ctl_y.lat.aileron_cmd,
+            "elevator": ctl_y.lon.elevator_cmd,
+            "rudder": ctl_y.lat.rudder_cmd,
+            "throttle": ctl_y.lon.throttle_cmd}
+
+
+def gdc_ctl_laws_plain(avionics, y, u_av, s_av, dt):
+    """The C172Xv2's periodic pass on the GDC_Y fields `y`:
+    `Avionics.f_periodic` (the guidance, then the control laws on the
+    requests it overrides) and the commands `assign` writes. Returns (the
+    new avionics state, {channel: command} of CTL_CMD, the GDC_YOUT fields
+    of the guidance's GdcY)."""
+    s2, av_y = avionics.f_periodic(s_av, u_av, ctl_vehicle_y(y), dt)
+    g = av_y["gdc"]
+    return s2, _commands(av_y["ctl"]), {k: getattr(g, k)
+                                        for k, _ in GDC_YOUT}
 
 
 def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
@@ -895,6 +967,14 @@ def pack_ctl_laws(avionics, y, u_av, s_av, dt):
         "gains": ctl_gains(avionics)}
 
 
+def pack_gdc_ctl_laws(avionics, y, u_av, s_av, dt):
+    like = y["EAS"]
+    ctl_u, ctl_s = u_av["ctl"], s_av["ctl"]
+    buf = pack(GDC_IN, (y, ctl_u["lon"], ctl_u["lat"], ctl_s["lon"],
+                        ctl_s["lat"], u_av["gdc"]), like.shape[0], like.dtype)
+    return buf, rows(GDC_OUT), (float(dt),), {"gains": ctl_gains(avionics)}
+
+
 def pack_geoid(geo, q_ew):
     buf = pack(GEOID_IN, ({"q_ew": q_ew},), q_ew.shape[0])
     return buf, rows(GEOID_OUT), (), {"grid": geoid_grid(geo)}
@@ -904,7 +984,7 @@ PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
         "finish_kin": pack_finish_kin, "systems": pack_systems,
         "finish_sys": pack_finish_sys, "rk4_stage": pack_rk4_stage,
         "rk4_finish": pack_rk4_finish, "geoid": pack_geoid,
-        "ctl_laws": pack_ctl_laws}
+        "ctl_laws": pack_ctl_laws, "gdc_ctl_laws": pack_gdc_ctl_laws}
 # the fly-by-wire instances pack as their mechanical twins (by the
 # vehicle's layout)
 PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
@@ -913,6 +993,7 @@ PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
 # instance name -> (kernel, layout)
 _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
               for k, n in dict(lay.names, megakernel=lay.mega_name).items()}
+_INSTANCES[GDC.mega_name] = ("megakernel", GDC)
 
 
 def _av_tree(d):
@@ -920,6 +1001,41 @@ def _av_tree(d):
     the NamedTuples of `physics/control.py`."""
     return {k: (_AV_STATES[AV_PRIMITIVES[k]][0](**v) if k in AV_PRIMITIVES
                 else v) for k, v in d.items()}
+
+
+def _gdc_tree(d):
+    """An unpacked AV_U_GDC group with its segment and circle as the
+    NamedTuples of `models/c172/c172x_gdc.py`."""
+    return dict(d, target=Segment(**d["target"]), orbit=Circle(**d["orbit"]))
+
+
+def av_groups(lay):
+    """The row groups of the avionics' block of `lay`'s megakernel buffer
+    (after t, X, CTX and C)."""
+    return lay.mega[1 + len(lay.rkfin_in):]
+
+
+def pack_avionics(lay, u_av, s_av, B, dtype):
+    """The avionics' inputs and state as the rows of `av_groups(lay)`: u
+    lon, u lat, s lon, s lat (of the control laws), then on the C172Xv2 the
+    guidance's inputs."""
+    if lay.pass_name == "gdc_ctl_laws":
+        objs = (u_av["ctl"]["lon"], u_av["ctl"]["lat"], s_av["ctl"]["lon"],
+                s_av["ctl"]["lat"], u_av["gdc"])
+    else:
+        objs = (u_av["lon"], u_av["lat"], s_av["lon"], s_av["lat"])
+    return pack(av_groups(lay), objs, B, dtype)
+
+
+def unpack_avionics(lay, buf):
+    """(u_av, s_av) of the rows `pack_avionics` writes, typed again."""
+    u_lon, u_lat, s_lon, s_lat, *gdc = unpack(av_groups(lay), buf,
+                                              typed=True)
+    u_av = {"lon": u_lon, "lat": u_lat}
+    s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
+    if gdc:
+        return {"ctl": u_av, "gdc": _gdc_tree(gdc[0])}, {"ctl": s_av}
+    return u_av, s_av
 
 
 def unpack_out(name, out, comp=False):
@@ -932,15 +1048,16 @@ def unpack_out(name, out, comp=False):
     if base == "ctl_laws":
         s_lon, s_lat, cmd = unpack(CTL_OUT, out, typed=True)
         return {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}, cmd
+    if base == "gdc_ctl_laws":
+        s_lon, s_lat, cmd, g = unpack(GDC_OUT, out, typed=True)
+        return ({"ctl": {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}},
+                cmd, g)
     if base == "megakernel":
         n = 1 + rows(lay.rkfin_in)
         xv, uv, sv, terminated, c_kin = unpack_vehicle(out[1:n], lay)
         u_av = s_av = None
         if lay.fbw:
-            u_lon, u_lat, s_lon, s_lat = unpack(AV_GROUPS, out[n:],
-                                                typed=True)
-            u_av = {"lon": u_lon, "lat": u_lat}
-            s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
+            u_av, s_av = unpack_avionics(lay, out[n:])
         return (out[0], xv, uv, sv, terminated, c_kin if comp else None,
                 u_av, s_av)
     if base == "kinair":
@@ -1122,6 +1239,15 @@ def ctl_laws(avionics, y, u_av, s_av, dt):
     return unpack_out("ctl_laws", _launch("ctl_laws", args))
 
 
+def gdc_ctl_laws(avionics, y, u_av, s_av, dt):
+    """`gdc_ctl_laws_plain` on the CPU, the `gdc_ctl_laws` CUDA kernel on
+    the card."""
+    args = (avionics, y, u_av, s_av, dt)
+    if y["EAS"].device.type == "cpu":
+        return gdc_ctl_laws_plain(*args)
+    return unpack_out("gdc_ctl_laws", _launch("gdc_ctl_laws", args))
+
+
 def geoid_packed(geo, q_rows, block=None):
     """The undulation `[1, B]` under the q_ew rows `[4, B]`: the kernel on
     the card, `geoid_plain` on the CPU."""
@@ -1137,12 +1263,15 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     buffers of `parallel/megakernel.py`; returns the new buffers. `block`
     is the aircraft per block, 32 or 64. With the fly-by-wire vehicle the
     instance `megakernel_fbw`, which also runs the `avionics`' (the control
-    laws') periodic pass every `spp` steps at their `periodic_dt`."""
-    name = layout_of(vehicle).mega_name
+    laws') periodic pass every `spp` steps at their `periodic_dt`, or with
+    the C172Xv2's avionics `megakernel_gdc`, whose pass runs the guidance
+    first."""
+    name = layout_of(vehicle, avionics).mega_name
     out = L.launch_megakernel(
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
-        None if avionics is None else ctl_gains(avionics), spp, periodic_dt)
+        None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
+        gdc=name == GDC.mega_name)
     LAUNCHES[name] += 1
     return out
 

@@ -47,14 +47,17 @@ LANES = 32
 # mechanical twins (csrc/c172_systems.cuh, `ActKind`)
 FBW_KERNELS = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
                "rk4_finish_fbw")
+# the avionics' instances: the whole step with the C172Xv1's control laws
+# and with the C172Xv2's guidance and control laws, and their passes as
+# kernels of their own
+AV_KERNELS = ("megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
-                "rk4_finish", "megakernel", *FBW_KERNELS, "megakernel_fbw",
-                "ctl_laws")
+                "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
-               "rk4_stage_fbw", "megakernel_fbw")
+               "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -64,14 +67,14 @@ N_GAIN_TABLES = 10
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
-           "megakernel_fbw", "ctl_laws")
+           *AV_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid
 WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
                "megakernel", *FBW_KERNELS)
 WITH_GRID = ("geoid", "megakernel")
-WITH_GAINS = ("ctl_laws",)
+WITH_GAINS = ("ctl_laws", "gdc_ctl_laws")
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -174,6 +177,8 @@ def library():
                                       D, I, P],
                    "ctl_laws": [P, P, P, I, D, I, P]}
             sig.update({k: sig[k[:-len("_fbw")]] for k in FBW_KERNELS})
+            sig.update(megakernel_gdc=sig["megakernel_fbw"],
+                       gdc_ctl_laws=sig["ctl_laws"])
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -321,7 +326,8 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     """Run kernel `name` on a packed `[n_in, B]` CUDA tensor, with its
     other operands: `k` (k_prev or the k-sum, `[n_x, B]`) for the two RK4
     kernels, the parameter buffer for the kernels of the C172 systems, the
-    geoid grid for `geoid`, the control laws' gains for `ctl_laws`.
+    geoid grid for `geoid`, the control laws' gains for `ctl_laws` and
+    `gdc_ctl_laws`.
     Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn(name, dtype, device)
@@ -359,19 +365,23 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
 
 
 def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
-                      gains=None, spp=1, periodic_dt=0.0):
+                      gains=None, spp=1, periodic_dt=0.0, gdc=False):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
     new (state, i) in fresh buffers. `block` is the aircraft per block.
     With the control laws' `gains` the fly-by-wire instance
     `megakernel_fbw`, whose periodic pass fires every `spp` steps at
-    `periodic_dt`. Does not synchronise."""
+    `periodic_dt`, or with `gdc` the C172Xv2's `megakernel_gdc`, whose pass
+    runs the guidance first. Does not synchronise."""
     fbw = gains is not None
-    name = "megakernel_fbw" if fbw else "megakernel"
+    if gdc and not fbw:
+        raise ValueError("megakernel_gdc takes the control laws' gains")
+    name = ("megakernel_gdc" if gdc else "megakernel_fbw" if fbw
+            else "megakernel")
     dtype, device = state.dtype, state.device
     fn = _fn(name, dtype, device)
     B = state.shape[1]
-    check_operand(state, vehicle_layout(fbw)["mega"], B, dtype, device)
+    check_operand(state, layout(name)[0], B, dtype, device)
     check_operand(i, 1, B, torch.int32, device)
     check_params(params, dtype, device, fbw)
     check_grid(grid, dtype, device)

@@ -9,7 +9,9 @@ and integers as exact 0/1/2) and the position residuals C, beside an int32
 `[1, B]` step counter. On the C172Xv1 (`megakernel_fbw`) X and CTX carry
 the servos and their commands, and the avionics' inputs and state (the
 control laws' modes, altitude machine and saturation flags as exact small
-integers) follow C (`csrc/c172x_ctl.cuh`). This takes the place of the part
+integers) follow C (`csrc/c172x_ctl.cuh`); on the C172Xv2
+(`megakernel_gdc`) the guidance's inputs follow them
+(`csrc/c172x_gdc.cuh`). This takes the place of the part
 of `flightjax/parallel/packed.py::make_packer` the JAX kernel uses: the
 layout is fixed by the kernel, so `pack` / `unpack` here are plain row
 maps.
@@ -20,8 +22,9 @@ computes it: RK4, the compensated add when residuals are carried
 C172Xv1 the masked periodic pass (`sim.py:327-333`: the control laws where
 a lane's new counter is a multiple of `steps_per_periodic`), and the geoid
 refreshed on every step (`megakernel.py:144-154`, which ignores
-`geoid_every`). The pass reads the undulation from before the refresh, as
-the JAX kernel, stepping under `geoid_deferred`, does. There is no fleet
+`geoid_every`). On the C172Xv2 the pass runs the guidance laws first. The
+pass reads the undulation from before the refresh, as the JAX kernel,
+stepping under `geoid_deferred`, does. There is no fleet
 gear gate, as in the rest of the port.
 """
 
@@ -29,7 +32,6 @@ import torch
 
 from flightjax_torch.core.modeling import tree_where
 from flightjax_torch.core.sim import SimState
-from flightjax_torch.models.c172.c172x_ctl import ControlLaws
 from flightjax_torch.parallel import kernels as K
 from flightjax_torch.parallel.clusterstep import cluster_step
 
@@ -61,18 +63,19 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     aircraft per block, 32 or 64 (default `launch.LANES`): the kernel
     carries each aircraft in several threads, one warp per subsystem, so a
     block has eight times as many threads. The step compensates iff
-    `state.c` is set, as `Simulation.step` does. Carries the C172S, and
-    the fly-by-wire C172Xv1 with its `ControlLaws`."""
+    `state.c` is set, as `Simulation.step` does. Carries the C172S, the
+    fly-by-wire C172Xv1 with its `ControlLaws` and the C172Xv2 with its
+    guidance and control laws (`c172x_gdc.Avionics`)."""
     if ctx != ():
         raise NotImplementedError(
-            "mission contexts (core/mission.py) are not ported: ROADMAP P9")
+            "the step takes no context: ctx is () in every model, and the "
+            "mission is an avionics wrapper (MissionAvionics, "
+            "core/mission.py), ROADMAP Queue 2")
     aircraft = sim.system.aircraft
     vehicle, avionics = aircraft.vehicle, aircraft.avionics
     lay = K.layout_of(vehicle)  # refuses second-order servos
-    if lay.fbw and not isinstance(avionics, ControlLaws):
-        raise NotImplementedError(
-            "the fly-by-wire megakernel carries the C172X's ControlLaws; "
-            "the Xv2's guidance (c172x_gdc.py) is ROADMAP P9")
+    if lay.fbw:  # refuses avionics that have no kernel
+        lay = K.avionics_layout(vehicle, avionics)
     name = lay.mega_name
     comp = state.c is not None
 
@@ -84,10 +87,9 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
         buf = K.pack_vehicle(vehicle, xv, uv, sv, st.s["terminated"], c_kin)
         parts = [st.t.to(buf.dtype)[None], buf]
         if lay.fbw:
-            u_av, s_av = st.u["avionics"], st.s["avionics"]
-            parts.append(K.pack(K.AV_GROUPS, (u_av["lon"], u_av["lat"],
-                                              s_av["lon"], s_av["lat"]),
-                                buf.shape[1], buf.dtype))
+            parts.append(K.pack_avionics(lay, st.u["avionics"],
+                                         st.s["avionics"], buf.shape[1],
+                                         buf.dtype))
         return (torch.cat(parts),
                 st.i.to(torch.int32).reshape(1, -1).contiguous())
 

@@ -91,8 +91,10 @@ class Aircraft:
 
     Avionics protocol: `init_u()` / `init_s()`, `f_periodic(s_av, u_av,
     vehicle_y, dt) -> (s_av, av_y)` and `assign(u_systems, av_y) ->
-    u_systems`. The avionics fly the fly-by-wire actuation, whose finish
-    kernels store what they read. Avionics that need the terrain under the
+    u_systems`; the avionics' trees are theirs (the C172Xv1's `ControlLaws`
+    {lon, lat}, the C172Xv2's `c172x_gdc.Avionics` inputs {ctl: {lon,
+    lat}, gdc: {...}} and state {ctl: {lon, lat}}). The avionics fly the
+    fly-by-wire actuation, whose finish kernels store what they read. Avionics that need the terrain under the
     aircraft (the navigation stack, `needs_terrain`) are not ported
     (ROADMAP P11)."""
 

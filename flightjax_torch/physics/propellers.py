@@ -1,6 +1,7 @@
 """Table-interpolated propeller (port of the runtime `Propeller` of
 `flightjax/physics/propellers.py:209-295`). The blade-element generator of
-the table stays in the JAX package; this module reads its npz in place."""
+the table stays in the JAX package; this module reads the port's byte copy
+of its npz (`data/c172_prop_2blade.npz`)."""
 
 import os
 from typing import NamedTuple
@@ -18,8 +19,7 @@ from flightjax_torch.physics.dynamics import (FrameTransform, Wrench,
 CW, CCW = 1, -1
 
 PROP_TABLE_PATH = os.path.join(os.path.dirname(__file__), os.pardir,
-                               os.pardir, "flightjax", "data",
-                               "c172_prop_2blade.npz")
+                               "data", "c172_prop_2blade.npz")
 
 
 def load_prop_lookup(path=PROP_TABLE_PATH, *, device, dtype) -> Lookup:

@@ -284,10 +284,20 @@ def perturbed_xv1(batch, seed, sas_lanes=(), ground_lanes=()):
     seed as `perturbed_flagship` perturbs the flagship (attitude 1-3 deg,
     body velocity +-3 m/s, wind ~N(0, 3 m/s), h_e +-30 m), the
     `ground_lanes` with their main wheels on the runway."""
-    from flightjax_torch.bridge import tree_to_numpy
     from flightjax_torch.models.c172 import c172x, c172x_ctl as CTL
     st = c172x.turning_climb(c172x.trimmed_xv1_state(0.02, torch.float64,
                                                      "cpu"))
+    t, i, x, u, s = _perturbed_c172x(st, batch, seed, ground_lanes)
+    sas = list(sas_lanes)
+    u["avionics"]["lon"]["mode_req"][sas] = CTL.LON_SAS
+    u["avionics"]["lat"]["mode_req"][sas] = CTL.LAT_SAS
+    return t, i, x, u, s
+
+
+def _perturbed_c172x(st, batch, seed, ground_lanes=()):
+    """numpy (t, i, x, u, s) of `batch` copies of the single C172X SimState
+    `st`, perturbed as `perturbed_flagship` perturbs the flagship."""
+    from flightjax_torch.bridge import tree_to_numpy
     one = tree_to_numpy(st)
     t, i, x, u, s = (tree_map(lambda l: np.broadcast_to(
         l, (batch,) + np.shape(l)).copy(), tree) for tree in one[:5])
@@ -305,9 +315,6 @@ def perturbed_xv1(batch, seed, sas_lanes=(), ground_lanes=()):
     kin["h_e"] = kin["h_e"] + rng.uniform(-30.0, 30.0, batch)
     lanes = list(ground_lanes)
     kin["h_e"][lanes] = s["vehicle"]["geoid_N"][lanes] + 1.85
-    sas = list(sas_lanes)
-    u["avionics"]["lon"]["mode_req"][sas] = CTL.LON_SAS
-    u["avionics"]["lat"]["mode_req"][sas] = CTL.LAT_SAS
     return t, i, x, u, s
 
 
@@ -442,3 +449,204 @@ def xv1_operand_state(batch, seed, device, dtype, ground_lanes=(),
         batch, seed + 5, d["x_kin"]["h_e"]))
     return st._replace(u=dict(st.u, avionics=u_av),
                        s=dict(st.s, avionics=s_av))
+
+
+# ------------------------------------------------------------ the C172Xv2
+
+# the cross-track distances (m) the mode-rich guidance operands put each
+# segment or circle at from its lane: exactly on the segment (its first
+# endpoint at the lane), inside the cross-track gate E_THR = 1000 m, on
+# both sides of it, and far off the track, where the intercept's atan
+# saturates
+GDC_OFFSETS = (0.0, 400.0, -995.0, 1005.0, -1005.0, 995.0, 2.0e5, -2.0e5)
+CIRCLE_RADIUS = 1500.0
+
+
+def _level_points(n_e, h_e, north, east):
+    """(lat, lon) of the points `north`, `east` metres from each lane's
+    position (n_e, h_e) along its local level frame."""
+    from flightjax_torch.models.c172.c172x import offset_point
+    lat = np.arctan2(n_e[:, 2], np.hypot(n_e[:, 0], n_e[:, 1]))
+    lon = np.arctan2(n_e[:, 1], n_e[:, 0])
+    return offset_point(lat, lon, h_e, north, east)
+
+
+def gdc_operands(batch, seed, n_e, h_e):
+    """numpy guidance inputs (`GuidanceLaws.init_u` of `batch` lanes) at
+    the lanes' positions (n_e, h_e): lane k requests guidance mode k % 3,
+    lateral and vertical guidance in each of the four combinations
+    ((k // 3) % 2, (k // 6) % 2), and puts its segment and its circle at
+    the cross-track distance GDC_OFFSETS[k % 8] from itself (24 lanes hold
+    every pair of mode and distance): the segment along a course drawn all
+    round, its slope drawn, on lanes 8-15 of every 16 its endpoints swapped
+    by `reversed_segment` (which turns the sign of the cross-track error);
+    the circle of radius CIRCLE_RADIUS at a bearing drawn all round,
+    turning either way. At offset 0 the segment starts at the lane's own
+    position: exactly on the track. The lanes of `ctl_y_operands`'
+    ground_lanes are on the ground, which forces the direct mode."""
+    rng = np.random.default_rng(seed)
+    lane = np.arange(batch)
+    e = np.array(GDC_OFFSETS)[lane % len(GDC_OFFSETS)]
+    chi = rng.uniform(-np.pi, np.pi, batch)
+    along = rng.uniform(-3000.0, 3000.0, batch)
+    length = rng.uniform(2000.0, 40000.0, batch)
+    dh = rng.uniform(-300.0, 300.0, batch)
+    c, s = np.cos(chi), np.sin(chi)
+    # the first endpoint `along` metres before the lane and e to its left,
+    # so that the lane is e to the right of the segment (e_sb = e)
+    n1, e1 = -along * c + e * s, -along * s - e * c
+    lat1, lon1 = _level_points(n_e, h_e, n1, e1)
+    lat2, lon2 = _level_points(n_e, h_e, n1 + length * c, e1 + length * s)
+    h1 = h_e + rng.uniform(-50.0, 50.0, batch)
+    nv = lambda la, lo: np.stack([np.cos(la) * np.cos(lo),
+                                  np.cos(la) * np.sin(lo), np.sin(la)], -1)
+    n_e1, n_e2 = nv(lat1, lon1), nv(lat2, lon2)
+    on = e == 0.0
+    n_e1[on], h1[on] = n_e[on], h_e[on]
+    h2 = h1 + dh
+    rev = (lane // len(GDC_OFFSETS)) % 2 == 1
+    n_e1[rev], n_e2[rev] = n_e2[rev].copy(), n_e1[rev].copy()
+    h1[rev], h2[rev] = h2[rev].copy(), h1[rev].copy()
+    sigma = rng.uniform(-np.pi, np.pi, batch)
+    d = CIRCLE_RADIUS + e
+    lat_c, lon_c = _level_points(n_e, h_e, -d * np.cos(sigma),
+                                 -d * np.sin(sigma))
+    return {"mode_req": (lane % 3).astype(np.int32),
+            "target": {"n_e1": n_e1, "h_e1": h1, "n_e2": n_e2, "h_e2": h2},
+            "orbit": {"n_e": nv(lat_c, lon_c),
+                      "h_e": h_e + rng.uniform(-50.0, 50.0, batch),
+                      "radius": np.full(batch, CIRCLE_RADIUS),
+                      "turn_dir": rng.choice([-1.0, 1.0], batch)},
+            "hor_gdc_req": (lane // 3) % 2 == 1,
+            "vrt_gdc_req": (lane // 6) % 2 == 1}
+
+
+def gdc_tree(u_gdc, device, dtype):
+    """The numpy guidance inputs of `gdc_operands` as the port's tree (the
+    segment and the circle as their NamedTuples) on `device`."""
+    from flightjax_torch.models.c172.c172x_gdc import Circle, Segment
+    t = tree_from_numpy(u_gdc, device, dtype)
+    return dict(t, target=Segment(**t["target"]), orbit=Circle(**t["orbit"]))
+
+
+def gdc_laws_args(batch, seed, device, dtype, ground_lanes=(), dt=0.02):
+    """The wrapper arguments of `gdc_ctl_laws` (avionics, y, u, s, dt): the
+    mode-rich control-law operands of `ctl_laws_args` with positions drawn
+    over the globe (below +-69 deg latitude) and the mode-rich guidance of
+    `gdc_operands` there, on `device`."""
+    from flightjax_torch.models.c172.c172x_gdc import Avionics
+    y = ctl_y_operands(batch, seed, ground_lanes)
+    rng = np.random.default_rng(seed + 2)
+    lat, lon = rng.uniform(-1.2, 1.2, batch), rng.uniform(-np.pi, np.pi,
+                                                          batch)
+    y["n_e"] = np.stack([np.cos(lat) * np.cos(lon),
+                         np.cos(lat) * np.sin(lon), np.sin(lat)], -1)
+    u, s = ctl_operands(batch, seed + 1, y["h_e"])
+    u_gdc = gdc_operands(batch, seed + 3, y["n_e"], y["h_e"])
+    t = lambda tree: tree_from_numpy(tree, device, dtype)
+    return (Avionics(device=device, dtype=dtype), t(y),
+            {"ctl": t(u), "gdc": gdc_tree(u_gdc, device, dtype)},
+            {"ctl": t(s)}, dt)
+
+
+def xv2_operand_state(batch, seed, device, dtype, ground_lanes=(),
+                      terminated_lanes=(), crash_lanes=(), i0=0):
+    """The C172Xv2 world SimState of `xv1_operand_state` (the fly-by-wire
+    cluster operands with the mode-rich control laws) with the mode-rich
+    guidance of `gdc_operands` at the lanes' positions."""
+    st = xv1_operand_state(batch, seed, device, dtype, ground_lanes,
+                           terminated_lanes, crash_lanes, i0)
+    kin = st.x["vehicle"]["kinematics"]
+    q = kin["q_ew"].double().cpu().numpy()
+    n_e = -np.stack([2 * q[:, 1] * q[:, 3] + 2 * q[:, 0] * q[:, 2],
+                     2 * q[:, 2] * q[:, 3] - 2 * q[:, 0] * q[:, 1],
+                     1 - 2 * (q[:, 1] ** 2 + q[:, 2] ** 2)], axis=-1)
+    u_gdc = gdc_operands(batch, seed + 6, n_e,
+                         kin["h_e"].double().cpu().numpy())
+    return st._replace(
+        u=dict(st.u, avionics={"ctl": st.u["avionics"],
+                               "gdc": gdc_tree(u_gdc, device, dtype)}),
+        s=dict(st.s, avionics={"ctl": st.s["avionics"]}))
+
+
+# the scenario of the C172Xv2 fleet: segments due east through the trim
+# point, 50 km long from 25 km west of it, shifted north by a draw in
+# +-SEGMENT_SHIFT m; circles of CIRCLE_RADIUS, CIRCLE_NORTH north of it
+SEGMENT_SHIFT, CIRCLE_NORTH = 400.0, 2000.0
+# every XV2_IDLE_EVERY-th lane computes its guidance but does not engage it
+XV2_IDLE_EVERY = 64
+# the altitude the engaged lanes' own requests hold, above the segment's
+# and the circle's: where a lane's vertical guidance is off (beyond the
+# 1000 m cross-track gate) its control laws climb it toward this
+XV2_FALLBACK_DH = 100.0
+
+
+def xv2_scenario(batch, seed, idle_lanes=None):
+    """numpy (t, i, x, u, s) of `batch` trimmed C172Xv2, perturbed as
+    `perturbed_xv1` perturbs the C172Xv1 (from the same trim), and
+    (segment lanes, circle lanes, idle lanes, the trim's h_e): the first
+    half flies `GDC_SEGMENT` on a segment due east through the trim point,
+    shifted north by a draw in +-SEGMENT_SHIFT m (`tests/test_c172x2.py:
+    115-121`), the second half `GDC_CIRCULAR` on the circle of
+    CIRCLE_RADIUS CIRCLE_NORTH north of the trim point, turning either way
+    (`:150-160`); lateral and vertical guidance requested but on the
+    `idle_lanes` (default every XV2_IDLE_EVERY-th lane), which hold the
+    trim's altitude and course pi / 2 with the control laws alone
+    (`LON_EAS_ALT`, `LAT_CHI_BETA`). The engaged lanes' own lateral
+    request is the trim start's (direct), their own longitudinal one the
+    altitude mode XV2_FALLBACK_DH above the guidance's altitude, which
+    holds them where their vertical guidance is off, beyond the
+    cross-track gate."""
+    from flightjax_torch.models.c172 import c172x, c172x_ctl as CTL
+    from flightjax_torch.models.c172 import c172x_gdc as GDC
+    from flightjax_torch.ops.geodesy import latlon_from_nvector
+    from flightjax_torch.ops.geodesy import nvector_from_qew
+    st = c172x.trimmed_xv2_state(0.02, torch.float64, "cpu")
+    kin = st.x["vehicle"]["kinematics"]
+    lat0, lon0 = (float(v) for v in latlon_from_nvector(nvector_from_qew(
+        kin["q_ew"])))
+    h0 = float(kin["h_e"])
+    t, i, x, u, s = _perturbed_c172x(st, batch, seed)
+    rng = np.random.default_rng(seed + 7)
+    lane = np.arange(batch)
+    seg_lanes, crc_lanes = lane[:batch // 2], lane[batch // 2:]
+    idle = (lane % XV2_IDLE_EVERY == XV2_IDLE_EVERY - 1
+            if idle_lanes is None else np.isin(lane, idle_lanes))
+    shift = rng.uniform(-SEGMENT_SHIFT, SEGMENT_SHIFT, batch)
+    lat1, lon1 = c172x.offset_point(lat0, lon0, h0, shift, -25000.0)
+    seg = GDC.segment_from_vector(lat1, lon1, np.full(batch, h0),
+                                  np.pi / 2, 50000.0, dh=0.0)
+    lat_c, lon_c = c172x.offset_point(lat0, lon0, h0, CIRCLE_NORTH, 0.0)
+    crc = GDC.circle(np.full(batch, float(lat_c)), np.full(batch,
+                                                           float(lon_c)),
+                     np.full(batch, h0), np.full(batch, CIRCLE_RADIUS),
+                     rng.choice([-1.0, 1.0], batch))
+    g = u["avionics"]["gdc"]
+    g["mode_req"] = np.where(lane < batch // 2, GDC.GDC_SEGMENT,
+                             GDC.GDC_CIRCULAR).astype(np.int32)
+    g["target"] = seg._replace(**{k: v.numpy()
+                                  for k, v in seg._asdict().items()})
+    g["orbit"] = crc._replace(**{k: v.numpy()
+                                 for k, v in crc._asdict().items()})
+    g["hor_gdc_req"] = ~idle
+    g["vrt_gdc_req"] = ~idle
+    lon, lat = u["avionics"]["ctl"]["lon"], u["avionics"]["ctl"]["lat"]
+    lon["mode_req"][:] = CTL.LON_EAS_ALT
+    lon["h_ref"][:] = np.where(idle, h0, h0 + XV2_FALLBACK_DH)
+    lat["mode_req"][idle] = CTL.LAT_CHI_BETA
+    lat["chi_ref"][idle] = np.pi / 2
+    return (t, i, x, u, s), (seg_lanes, crc_lanes, lane[idle], h0)
+
+
+def xv2_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState, lanes) of `xv2_scenario` on `device`, with the
+    position compensation `c172xv2_sim` gives in sub-float64 dtypes."""
+    from flightjax_torch.models.c172.c172x import c172xv2_sim
+    sim, _, _ = c172xv2_sim(device, dtype)
+    (t, i, x, u, s), lanes = xv2_scenario(batch, seed)
+    st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                  i=torch.tensor(i, device=device),
+                  x=tree_from_numpy(x, device, dtype),
+                  u=tree_from_numpy(u, device, dtype),
+                  s=tree_from_numpy(s, device, dtype))
+    return sim, sim.with_compensation(st), lanes

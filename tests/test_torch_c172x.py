@@ -112,18 +112,44 @@ def fleet():
 
 # ------------------------------------------------------------ sources
 
+def _path_strings(src):
+    """The string constants of a Python source that are no docstring."""
+    import ast
+    tree = ast.parse(src)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
 def test_port_sources_import_no_jax():
-    """No module of flightjax_torch imports jax or anything of
-    flightjax."""
+    """No module of flightjax_torch imports jax or anything of flightjax,
+    and none names a path into the flightjax directory (a string that is
+    no docstring and holds `flightjax` as a path component): the port
+    reads its own copies of the JAX package's data."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|flightjax)(\.|\s|$)", re.M)
+    into = re.compile(r"(^|[/\\])flightjax([/\\]|$)")
     found = []
     for d, _, files in os.walk(os.path.join(ROOT, "flightjax_torch")):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(d, f)) as fh:
-                    if bad.search(fh.read()):
-                        found.append(os.path.join(d, f))
+                    src = fh.read()
+                if bad.search(src) or any(into.search(v)
+                                          for v in _path_strings(src)):
+                    found.append(os.path.join(d, f))
     assert not found, found
+    # the scan sees a path built from components and one written out
+    assert any(into.search(v) for v in _path_strings(
+        'p = os.path.join(root, "flightjax", "data")'))
+    assert any(into.search(v) for v in _path_strings(
+        'p = "../flightjax/data/x.npz"'))
+    assert not any(into.search(v) for v in _path_strings(
+        '"""port of `flightjax/ops/geodesy.py`"""'))
 
 
 def test_xv1_paths_never_import_jax():
@@ -162,6 +188,21 @@ def test_gains_npz_is_the_jax_one():
     with open(os.path.join(ROOT, "flightjax", "data",
                            "c172x_gains.npz"), "rb") as a, \
             open(TCTL.GAINS_NPZ, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("name", ["egm96_ww15mgh", "c172_prop_2blade"])
+def test_data_npz_is_the_jax_one(name):
+    """The EGM96 grid and the propeller table the port reads are byte
+    copies of the JAX package's."""
+    from flightjax_torch.ops.geodesy import EGM96_PATH
+    from flightjax_torch.physics.propellers import PROP_TABLE_PATH
+    path = {"egm96_ww15mgh": EGM96_PATH,
+            "c172_prop_2blade": PROP_TABLE_PATH}[name]
+    assert os.path.realpath(path) == os.path.join(
+        ROOT, "flightjax_torch", "data", name + ".npz")
+    with open(os.path.join(ROOT, "flightjax", "data", name + ".npz"),
+              "rb") as a, open(path, "rb") as b:
         assert a.read() == b.read()
 
 
@@ -624,8 +665,8 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
         make_megakernel_step(sim, st, ("mission",))
     with pytest.raises(NotImplementedError, match="core/mission.py"):
         sim.fleet_step(st, ("mission",), i=0)
-    # a second-order servo (ROADMAP Queue 2) and other avionics (the Xv2's
-    # guidance, P9) have no kernel
+    # a second-order servo (ROADMAP Queue 2) and other avionics (a
+    # mission's, Queue 2) have no kernel
     servo2 = Simulation(SimpleWorld(Tx.build_xv1(
         device="cpu", dtype=F64, actuators={"elevator": Tx.Actuator2()})))
     with pytest.raises(ValueError, match="Actuator2"):
@@ -635,12 +676,12 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
         pass
     other = Simulation(SimpleWorld(Aircraft(sim.system.aircraft.vehicle,
                                             Guidance())))
-    with pytest.raises(NotImplementedError, match="P9"):
+    with pytest.raises(NotImplementedError, match="mission megakernel"):
         make_megakernel_step(other, st)
-    # the splits' periodic pass is the ControlLaws' `ctl_laws` kernel
-    with pytest.raises(NotImplementedError, match="P9"):
+    # the splits' periodic pass is the `ctl_laws` or `gdc_ctl_laws` kernel
+    with pytest.raises(NotImplementedError, match="mission megakernel"):
         other.fleet_step(st, i=0)
-    with pytest.raises(NotImplementedError, match="P9"):
+    with pytest.raises(NotImplementedError, match="mission megakernel"):
         make_cluster_step(other, st, split="vehicle")(st, i=0)
 
     class Nav:
@@ -810,7 +851,7 @@ def test_ctl_layouts_match_csrc():
 def test_entry_points_default_to_the_card():
     import inspect
     from flightjax_torch.models.c172.c172s import flagship_sim
-    for fn in (flagship_sim, Tx.c172xv1_sim):
+    for fn in (flagship_sim, Tx.c172xv1_sim, Tx.c172xv2_sim):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

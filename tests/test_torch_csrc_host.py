@@ -263,6 +263,25 @@ void host_ctl_laws(const double* in, const double* gains, double* const* outs,
   BLOCKS(2, lanes, k_ctl_laws::ctl_laws_kernel<SD>(
       (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
 }
+// the C172Xv2's instances: the megakernel with the guidance and control
+// laws' pass, and that pass as gdc_ctl_laws, on the signatures above
+void host_megakernel_gdc(const double* in, const int* i_in, const double* p,
+                         const double* grid, const double* gains,
+                         double* const* outs, int* i_out, int B,
+                         int n_params, double dt, double t_start, int comp,
+                         int spp, double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW, SD,
+                                         k_megakernel::AV_GDC>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
+void host_gdc_ctl_laws(const double* in, const double* gains,
+                       double* const* outs, int B, double dt, int lanes) {
+  BLOCKS(2, lanes, k_ctl_laws::gdc_ctl_laws_kernel<SD>(
+      (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
+}
 }
 """
 
@@ -279,7 +298,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs a host C++ compiler")
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
-    parts = ['#include "c172_systems.cuh"', '#include "c172x_ctl.cuh"']
+    parts = ['#include "c172_systems.cuh"', '#include "c172x_ctl.cuh"',
+             '#include "c172x_gdc.cuh"']
     for name in NAMES + VEHICLE_NAMES + ("megakernel", "ctl_laws"):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh:
             src = fh.read()
@@ -659,20 +679,20 @@ def test_fbw_roles_partition_the_state(host_lib):
 
 # ------------------------------------------------------------ control laws
 
-def _run_ctl_laws(host_lib, args, lanes, by_side=False):
-    """ctl_laws' source on the wrapper's arguments, block by block at
-    `lanes` aircraft per block, the lon and lat passes in two sides; its
-    packed output, or with `by_side` one output per side holding the rows
-    the side wrote and NaN elsewhere."""
-    buf, n_out, scalars, ops = K.PACK["ctl_laws"](*args)
+def _run_ctl_laws(host_lib, args, lanes, by_side=False, name="ctl_laws"):
+    """The source of ctl_laws (or `name` gdc_ctl_laws) on the wrapper's
+    arguments, block by block at `lanes` aircraft per block, the lon and
+    lat passes in two sides; its packed output, or with `by_side` one
+    output per side holding the rows the side wrote and NaN elsewhere."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
     batch, n_sides = buf.shape[1], 2
     outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
             for _ in range(n_sides if by_side else 1)]
     ptrs = (ctypes.c_void_p * n_sides)(
         *(outs[r if by_side else 0].data_ptr() for r in range(n_sides)))
-    host_lib.host_ctl_laws(_ptr(buf), _ptr(ops["gains"]), ptrs,
-                           ctypes.c_int(batch), ctypes.c_double(scalars[0]),
-                           ctypes.c_int(lanes))
+    getattr(host_lib, f"host_{name}")(
+        _ptr(buf), _ptr(ops["gains"]), ptrs, ctypes.c_int(batch),
+        ctypes.c_double(scalars[0]), ctypes.c_int(lanes))
     return outs if by_side else outs[0]
 
 
@@ -766,16 +786,19 @@ def _xv1_state(batch):
                              (5,), (CRASH_LANE,), i0=126)
 
 
-def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False):
+def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False,
+                        gdc=False):
     """The fly-by-wire megakernel's source on the C172Xv1 cluster state
     (`_xv1_state`: the fly-by-wire cluster operands with the mode-rich
     avionics; with spp = 2 every other lane's counter fires), block by
     block; (sim, state, the kernel's new state) or with `by_role` (sim,
-    state, one state buffer per role, NaN where the role wrote
-    nothing)."""
+    state, one state buffer per role, NaN where the role wrote nothing).
+    With `gdc` its C172Xv2 instance on the C172Xv2 cluster state
+    (`_xv2_state`, the mode-rich guidance too)."""
     from flightjax_torch.core.sim import comp_residuals
     from flightjax_torch.parallel.megakernel import make_megakernel_step
-    sim, st = _xv1_sim(spp), _xv1_state(batch)
+    sim, st = ((_xv2_sim(spp), _xv2_state(batch)) if gdc
+               else (_xv1_sim(spp), _xv1_state(batch)))
     st = st._replace(i=st.i + torch.arange(batch, dtype=torch.int32) % spp)
     if comp:
         st = st._replace(c=comp_residuals(st.x, force=True))
@@ -788,7 +811,7 @@ def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False):
     ptrs = (ctypes.c_void_p * n_roles)(
         *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
     i_out = torch.full_like(bufs[1], -1)
-    host_lib.host_megakernel_fbw(
+    getattr(host_lib, "host_megakernel_" + ("gdc" if gdc else "fbw"))(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), ptrs, _ptr(i_out),
@@ -841,6 +864,127 @@ def test_megakernel_fbw_roles_partition_the_output(host_lib):
     avionics' and the commands among them, is written by exactly one
     role, for every aircraft, and by no other role anywhere."""
     _, _, outs = _run_megakernel_fbw(host_lib, B, 32, True, by_role=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+# ------------------------------------------------------------ the C172Xv2
+
+def _gdc_args(batch):
+    from flightjax_torch.testing import gdc_laws_args
+    return gdc_laws_args(batch, 1016, "cpu", torch.float64, (3, 17))
+
+
+def _gdc_fleet_args(batch):
+    """gdc_ctl_laws' arguments on the pass of the C172Xv2 fleet's scenario
+    (`testing.xv2_fleet_sim`: segment and circle lanes), one megakernel
+    step in."""
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import xv2_fleet_sim
+    sim, st, _ = xv2_fleet_sim(batch, 1016, "cpu", torch.float64)
+    bufs, step, unpack = make_megakernel_step(sim, st)
+    st = unpack(step(bufs))
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                 st.s["vehicle"])
+    return (aircraft.avionics, K.gdc_y(vy), st.u["avionics"],
+            st.s["avionics"], sim.periodic_dt)
+
+
+GDC_CASES = ([("rich", B, 32), ("rich", 37, 32), ("rich", 70, 64)]
+             + [("fleet", 37, 32), ("fleet", 37, 64)])
+
+
+@pytest.mark.parametrize(
+    "operands,batch,lanes", GDC_CASES,
+    ids=[("" if o == "rich" else o + "-") + f"B{b}-L{n}"
+         for o, b, n in GDC_CASES])
+def test_gdc_ctl_laws_source_matches_plain(host_lib, operands, batch,
+                                           lanes):
+    """gdc_ctl_laws against `gdc_ctl_laws_plain` (the guidance, then the
+    control laws on the requests it overrides), to 1e-12 (the host's math
+    library rounds atan apart from PyTorch's), modes and flags exactly: on
+    the mode-rich
+    operands (every guidance mode, the ground override, every pair of
+    requests, cross-track errors on both sides of the gate, far off and
+    exactly on the track, reversed segments, over every lon and lat mode)
+    and on the pass of the C172Xv2 fleet."""
+    args = (_gdc_args(batch) if operands == "rich"
+            else _gdc_fleet_args(batch))
+    got = K.unpack_out("gdc_ctl_laws",
+                       _run_ctl_laws(host_lib, args, lanes,
+                                     name="gdc_ctl_laws"))
+    ref = K.gdc_ctl_laws_plain(*args)
+    _assert_trees_close(got, ref)
+    mode = ref[2]["mode"]
+    if operands == "rich":
+        assert set(mode.tolist()) == {0, 1, 2}
+        assert bool(ref[2]["hor_gdc"].any()) and bool(ref[2]["vrt_gdc"].any())
+    else:  # the fleet flies its segments and circles, all engaged
+        assert set(mode.tolist()) == {1, 2}
+        assert bool(ref[2]["hor_gdc"].all())
+
+
+def test_gdc_ctl_laws_sides_partition_the_output(host_lib):
+    """Every output row of gdc_ctl_laws, the GdcY rows among them, is
+    written by exactly one of its two sides, for every aircraft."""
+    outs = _run_ctl_laws(host_lib, _gdc_args(B), 32, by_side=True,
+                         name="gdc_ctl_laws")
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _xv2_sim(spp):
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172.c172x import c172xv2_sim
+    sim, _, _ = c172xv2_sim("cpu", torch.float64)
+    return Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                      geoid_every=sim.geoid_every)
+
+
+@functools.lru_cache(maxsize=None)
+def _xv2_state(batch):
+    from flightjax_torch.testing import xv2_operand_state
+    return xv2_operand_state(batch, 1016, "cpu", torch.float64, (3, 17),
+                             (5,), (CRASH_LANE,), i0=126)
+
+
+@pytest.mark.parametrize(
+    "comp,spp,batch,lanes",
+    [(False, 1, B, 32), (True, 1, B, 32), (False, 2, B, 32),
+     (True, 1, 37, 32), (False, 2, 70, 64)],
+    ids=["uncompensated", "compensated", "every-2nd", "compensated-B37-L32",
+         "every-2nd-B70-L64"])
+def test_megakernel_gdc_source_matches_plain(host_lib, comp, spp, batch,
+                                             lanes):
+    """The C172Xv2 megakernel against `megakernel_step_plain`: the whole
+    step with the servos, then the guidance and control laws on the
+    mode-rich avionics where the lane's new counter fires."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_fbw(host_lib, batch, lanes, comp, spp,
+                                       gdc=True)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    assert bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+    lon = ref.s["avionics"]["ctl"]["lon"]["mode_prev"]
+    fired = (st.i + 1) % spp == 0
+    # the guidance drove some firing lanes into the altitude mode
+    assert bool((fired & (lon == 8)).any())
+
+
+def test_megakernel_gdc_roles_partition_the_output(host_lib):
+    """Every row of the C172Xv2 megakernel's new state buffer, the
+    guidance's inputs among them, is written by exactly one role, for every
+    aircraft."""
+    _, _, outs = _run_megakernel_fbw(host_lib, B, 32, True, by_role=True,
+                                     gdc=True)
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]

@@ -13,7 +13,10 @@ rk4_finish_fbw, megakernel_fbw) and the control laws' pass (ctl_laws, both
 layouts) are held to their plain versions exactly at both block sizes and on
 ragged batches, on operands that carry every lon and lat mode, and the
 C172Xv1's three paths, with the control laws' periodic pass, a few steps
-(the megakernel 500 in float32) against the plain step.
+(the megakernel 500 in float32) against the plain step. The C172Xv2's
+instances (gdc_ctl_laws, megakernel_gdc) are held exactly alike, on
+operands that carry every guidance mode as well, and its two splits a few
+steps.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -461,3 +464,102 @@ def test_xv1_megakernel_500_steps_on_card():
                  == CTL.LON_EAS_CLM).all())
     assert bool((got.s["avionics"]["lat"]["mode_prev"]
                  == CTL.LAT_CHI_BETA).all())
+
+
+# ------------------------------------------------------------ the C172Xv2
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_gdc_ctl_laws_matches_plain_on_card(batch, lanes, dtype):
+    """gdc_ctl_laws against `gdc_ctl_laws_plain` exactly, the GdcY rows
+    too, on the mode-rich guidance over the mode-rich control laws
+    (`testing.gdc_laws_args`); the wrapper launches it."""
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.testing import gdc_laws_args
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = gdc_laws_args(batch, 1016, "cuda", dtype, (3, 17))
+    ref = K.gdc_ctl_laws_plain(*args)
+    buf, n_out, scalars, ops = K.PACK["gdc_ctl_laws"](*args)
+    got = K.unpack_out("gdc_ctl_laws", L.launch(
+        "gdc_ctl_laws", buf, n_out, scalars, block=lanes, **ops))
+    before = K.LAUNCHES["gdc_ctl_laws"]
+    via = K.gdc_ctl_laws(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gdc_ctl_laws"] == before + 1
+    _assert_same(got, ref)
+    _assert_same(via, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp,spp", [(False, 1), (True, 1), (True, 2)],
+                         ids=["uncompensated", "compensated", "every-2nd"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_gdc_matches_plain_on_card(comp, spp, batch, lanes,
+                                              dtype):
+    """One step of the C172Xv2 megakernel against its plain version,
+    exactly, on the C172Xv2 cluster state with the mode-rich guidance and
+    control laws (`testing.xv2_operand_state`), the pass firing on every
+    lane or, at twice the step, on every other lane."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.models.c172.c172x import c172xv2_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import xv2_operand_state
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, _, _ = c172xv2_sim("cuda", dtype)
+    if spp != 1:
+        sim = Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                         geoid_every=sim.geoid_every)
+    st = xv2_operand_state(batch, 1016, "cuda", dtype, (3, 17), (5,),
+                           (SMALL_CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(
+        batch, dtype=torch.int32, device="cuda") % spp)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    ref = megakernel_step_plain(sim, st)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "megakernel_gdc": 1}
+    _assert_same(tuple(got), tuple(ref))
+    assert bool(got.s["vehicle"]["systems"]["crashed"][SMALL_CRASH_LANE])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["subsystems", "vehicle"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_xv2_paths_match_plain_on_card(split, dtype, tol):
+    """The C172Xv2 scenario (segment and circle lanes), 3 steps from step
+    126 through each split against the plain cluster step, with the
+    guidance and control laws' pass after every step; the launch counts."""
+    from flightjax_torch.parallel.clusterstep import (cluster_step,
+                                                      make_cluster_step)
+    from flightjax_torch.testing import xv2_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st, _ = xv2_fleet_sim(B, 1016, "cuda", dtype)
+    if split == "vehicle":
+        st = st._replace(c=None)
+    step = make_cluster_step(sim, st, split=split)
+    K.reset_launches()
+    got = ref = st
+    for i in range(126, 129):
+        got = step(got, i=i)
+        ref = cluster_step(sim, ref, i, plain=True)
+    torch.cuda.synchronize()
+    want = ({"rk4_stage_fbw": 12, "rk4_finish_fbw": 3, "geoid": 1}
+            if split == "vehicle" else
+            {"kinair": 12, "systems_fbw": 12, "dynamics": 12,
+             "finish_kin": 3, "finish_sys_fbw": 3, "geoid": 1})
+    want["gdc_ctl_laws"] = 3
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+    assert _worst((got.t, got.x, got.u, got.s),
+                  (ref.t, ref.x, ref.u, ref.s)) <= tol

@@ -311,3 +311,43 @@ def test_pass_bound_counts_what_the_modes_enable():
     assert all(max(v) - min(v) <= 1 for v in by_key.values()), by_key
     direct = [lone[k] for k in range(batch) if key[k][:2] == (0, 0)]
     assert direct and max(direct) <= min(lone)
+
+
+def test_guidance_bound_counts_the_branch_each_mode_selects():
+    """`chip_smoke.py` bounds `gdc_ctl_laws` and `megakernel_gdc` by the
+    operations the kernels do of the guidance (`pass_op_weights` with
+    `gdc_lanes`): the segment branch on the lanes that work it out, the
+    circle branch on theirs, the mode logic and the selects on every firing
+    lane; the plain guidance works out both everywhere. The counts add up:
+    both branches on every lane and on none count as much as each branch
+    alone on every lane; nothing counts where the pass does not fire."""
+    import importlib.util
+    from flightjax_torch.testing import gdc_laws_args
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(__file__), os.pardir, "chip_smoke.py"))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+    batch = 24
+    args = gdc_laws_args(batch, 1016, "cpu", torch.float64, (3, 17))
+    s_out, _, g = K.gdc_ctl_laws_plain(*args)
+    yes, no = (torch.ones(batch, dtype=torch.bool),
+               torch.zeros(batch, dtype=torch.bool))
+
+    def ops(lanes, fires=None):
+        return S.count_ops(lambda: K.gdc_ctl_laws_plain(*args),
+                           S.pass_op_weights(args[0], args[3], s_out, fires,
+                                             lanes))
+
+    full, none = ops((yes, yes)), ops((no, no))
+    seg, crc = ops((yes, no)), ops((no, yes))
+    assert abs(seg + crc - (full + none)) <= 2
+    assert none < seg < full and none < crc < full
+    fleet = ops(S.gdc_branches(None, g["mode"]))
+    assert none < fleet < full
+    assert fleet < S.count_ops(lambda: K.gdc_ctl_laws_plain(*args))
+    assert ops((yes, yes), no) == 0
+    # the megakernel works out only the lanes whose guidance is requested
+    seg_m, crc_m = S.gdc_branches(args[2]["gdc"], g["mode"])
+    seg_k, crc_k = S.gdc_branches(None, g["mode"])
+    assert bool((seg_m <= seg_k).all() and (crc_m <= crc_k).all())
+    assert int(seg_m.sum() + crc_m.sum()) < batch

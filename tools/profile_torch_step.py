@@ -4,7 +4,8 @@ time goes, by kernel, and how much of the step the device is idle.
 
     python3 tools/profile_torch_step.py [--paths subsystems,vehicle,megakernel,
                                          xv1_subsystems,xv1_vehicle,
-                                         xv1_megakernel]
+                                         xv1_megakernel,xv2_subsystems,
+                                         xv2_vehicle,xv2_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -15,7 +16,10 @@ C172Xv1 flying the turning climb with its control laws
 (`testing.xv1_fleet_sim`), `xv1_subsystems` and `xv1_vehicle`, the same two
 splits with the fly-by-wire kernel instances and the periodic pass (the
 `ctl_laws` kernel) after every step, and `xv1_megakernel`, the fly-by-wire
-megakernel with the pass inside it. For each, a warm window of
+megakernel with the pass inside it; and on the C172Xv2 flying the
+guidance scenario (`testing.xv2_fleet_sim`: segments and circles), the
+same three, `xv2_*`, with the `gdc_ctl_laws` kernel as the splits' pass
+and `megakernel_gdc`. For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
 ms per step of the same window run without the profiler, the device time per
@@ -38,7 +42,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
 PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
-         "xv1_vehicle", "xv1_megakernel")
+         "xv1_vehicle", "xv1_megakernel", "xv2_subsystems", "xv2_vehicle",
+         "xv2_megakernel")
 
 
 def device_us(evt):
@@ -55,7 +60,7 @@ def stepper(path, sim, st):
     from flightjax_torch.parallel.fleet import fleet_rollout
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     box = {"st": st, "i": int(st.i[0])}
-    path = path[len("xv1_"):] if path.startswith("xv1_") else path
+    path = path[len("xv1_"):] if path.startswith(("xv1_", "xv2_")) else path
     if path == "subsystems":
         def run(n):
             box["st"] = fleet_rollout(sim, box["st"], n)
@@ -123,7 +128,8 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
-    from flightjax_torch.testing import perturbed_fleet_sim, xv1_fleet_sim
+    from flightjax_torch.testing import (perturbed_fleet_sim, xv1_fleet_sim,
+                                         xv2_fleet_sim)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -132,10 +138,12 @@ def main():
     fleets = {}
     out = []
     for path in args.paths.split(","):
-        kind = "xv1" if path.startswith("xv1_") else "c172s"
+        kind = path[:3] if path.startswith(("xv1_", "xv2_")) else "c172s"
         if kind not in fleets:
-            make = xv1_fleet_sim if kind == "xv1" else perturbed_fleet_sim
-            fleets[kind] = make(args.batch, args.seed, "cuda", torch.float32)
+            make = {"xv1": xv1_fleet_sim, "xv2": xv2_fleet_sim,
+                    "c172s": perturbed_fleet_sim}[kind]
+            fleets[kind] = make(args.batch, args.seed, "cuda",
+                                torch.float32)[:2]
         r = profile(path, *fleets[kind], args.steps, args.top)
         out.append(r)
         print(f"{path}: B = {args.batch}, {args.steps} steps, f32: host "
