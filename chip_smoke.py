@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build flightjax_torch's CUDA kernels and drive its step paths on one
-NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three and
-the C172Xv2 guidance's three; exit non-zero if any phase fails.
+NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three,
+the C172Xv2 guidance's three and the scripted missions' three; exit
+non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -32,14 +33,24 @@ The paths, each an entry point a user calls:
   either way round, a few lanes computing their guidance without engaging
   it), with the `gdc_ctl_laws` kernel as the splits' pass (the guidance,
   then the control laws on the requests it overrides) and
-  `megakernel_gdc`, the whole step with that pass inside it.
+  `megakernel_gdc`, the whole step with that pass inside it;
+- `msn_subsystems`, `msn_vehicle`, `msn_megakernel`: the same three entry
+  points on the mission fleet (`testing.msn_fleet_sim`): the C172Xv2
+  flying the LOWS traffic pattern's phase machine (`models/c172/
+  missions.py`) over the runway-elevation terrain, half the lanes on the
+  final approach at the final-leg trim under a 3-9 m/s easterly crosswind
+  (the crosswind landing), half cold on the threshold, engine off (the
+  full circuit), with the `msn_ctl_laws` kernel as the splits' pass (the
+  phase machine, then the guidance and the control laws on the inputs the
+  phase overrides, then the phase's flaps, brake and starter inputs) and
+  `megakernel_msn`, the whole step with that pass inside it.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a; the
    machine code of each kernel instance that `tools/sass_torch_record.json`
-   holds (those that were there before the C172Xv1 megakernel and the
-   control laws came) held to its record (`tools/sass_torch_kernels.py`;
+   holds (every one that was there before the mission instances came)
+   held to its record (`tools/sass_torch_kernels.py`;
    not compared under another nvcc than the record's; a change that means
    to change a recorded instance's machine code records the file anew);
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
@@ -69,15 +80,20 @@ Phases:
    gdc_laws_args`, `xv2_operand_state`: every guidance mode, the ground
    override, every pair of requests, cross-track errors on both sides of
    the 1000 m gate, far off and exactly on the track, reversed segments)
-   and on the C172Xv2 fleet;
+   and on the C172Xv2 fleet; `msn_ctl_laws` and `megakernel_msn` alike,
+   on the mode-rich mission operands (`testing.msn_laws_args`,
+   `msn_operand_state`: lanes in every phase, each phase's predicate on
+   both sides of its switch, a phase past the end) and on the mission
+   fleet;
 4. the paths: the trimmed C172S flagship and the trimmed C172Xv1 on the
    turning climb, each at 4096 perturbed aircraft in float32, each path
    from its launch counts set to 0 to their reading just after:
-   `subsystems`, `xv1_subsystems` and `xv2_subsystems` 100 steps (from
-   step 28, so the refresh at step 128 is among them), `xv1_megakernel`
-   200 steps (4 s), `xv2_megakernel` 6000 (120 s), `vehicle`,
-   `megakernel`, `xv1_vehicle` and `xv2_vehicle` 100 (cut from 500 for
-   time: the plain references take most of the run). Every leaf finite, no
+   `subsystems` and `xv2_subsystems` 50 steps and `xv1_subsystems` 100
+   (from step 100, so the refresh at step 128 is among them),
+   `xv1_megakernel` 200 steps (4 s), `xv2_megakernel` 6000 (120 s),
+   `vehicle`, `megakernel` and `xv2_vehicle` 50, `xv1_vehicle` 100 (cut
+   from 500 for time: the plain references take most of the run). Every
+   leaf finite, no
    lane terminated,
    no lane's stall flag set at any step, altitude and EAS in a physical
    band (on the C172Xv1 above the stall speed in its 45 deg bank), launch
@@ -89,19 +105,32 @@ Phases:
    the median lane (`tests/test_c172x2.py:131-138`, `:170-180`: segment
    lanes' course within 0.05 rad of pi / 2, height within 5 m of the
    segment's, cross-track error under 500 m; circle lanes' radial error
-   under 150 m, height within 5 m); the same steps through the plain
+   under 150 m, height within 5 m); `msn_subsystems` (from step 100) and
+   `msn_vehicle` 100 steps, `msn_megakernel` the whole 700 s circuit
+   (35,000 steps), its
+   median lanes held to the JAX mission tests' bounds at their own times
+   (`tests/test_missions.py:56-87`: at 20 s the landing lanes still on the
+   final, 10-60 m lower, under 100 m off its track; at 40 s the pattern
+   lanes past the startup with the engine running), no lane terminated by
+   40 s, no NaN, the commands in range, and at 700 s the lanes per phase,
+   the terminated lanes, the landing lanes' cross-track at touchdown and
+   share stopped and the pattern lanes' highest phase reported (the
+   reference's behaviour, not gated); the same steps through the plain
    versions agree within the 10 s float32 envelope of BENCHMARKS.md scaled
-   to the steps flown (n / 500 of it; `xv2_megakernel` over its first 200
-   steps, the window of its C172Xv1 twin); 20 steps of each path in
-   float64 agree with plain to 1e-9; host and device ms per step, launches
-   per step and the device's idle share of the six C172X paths under
-   torch.profiler (`tools/profile_torch_step.py`);
+   to the steps flown (n / 500 of it; `xv2_megakernel` over its first
+   100 steps, `xv1_megakernel` and `msn_megakernel` over their first
+   200); 20 steps of the
+   mission's paths and 10 of the others in float64 agree with plain to
+   1e-9; host and device ms per step, launches per step and the device's
+   idle share of the nine C172X paths under torch.profiler
+   (`tools/profile_torch_step.py`);
 5. timings: per kernel the warm median of the bare launch, of the wrapper
    and of the plain version, and the bound (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s, the larger; the operations of the plain
    version, those of the control laws' pass counted as far as the lanes'
    modes enable them, and of the guidance the branch each lane's mode
-   selects, `pass_op_weights`). A kernel's time (`ms`) is taken
+   selects, the mission's phases as far as the lanes' phases select them,
+   `pass_op_weights`). A kernel's time (`ms`) is taken
    inside a captured CUDA graph of 20 launches, so it is the card's time
    and not the host's launch rate; the time by CUDA events around 20
    launches from Python stands beside it (`event_ms`). The role kernels
@@ -112,11 +141,12 @@ Phases:
    the same way,
    and the megakernel at B = 16384 and 65536 too. Every number of a kernel's row but those is taken on one set
    of operands: the flight fleet (the state its path steps) for the
-   megakernels, `ctl_laws` and `gdc_ctl_laws` (the pass at the C172X
-   fleet's state), the kernel-check operands for the others (the C172Xv1
-   fleet for the fly-by-wire instances' airborne times). Then
-   vehicle-steps/s of the nine paths and the plain one, interleaved
-   windows, median and aggregate.
+   megakernels and the passes (the pass at the C172X fleet's state), the
+   kernel-check operands for the others (the C172Xv1 fleet for the
+   fly-by-wire instances' airborne times; the mission's "airborne" time is
+   its fleet's, half of it on the runway). Then vehicle-steps/s of the
+   twelve paths and the plain one, interleaved windows, median and
+   aggregate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -135,20 +165,33 @@ import torch
 
 B = 4096
 STEPS = 500
-SUB_STEPS, SUB_I0 = 100, 28
-# the C172S paths but subsystems, the C172X vehicle splits and the C172X
-# megakernels' window against plain, cut for time (the plain references
-# take most of the run)
-MECH_STEPS, XV_VEHICLE_STEPS, XV_MEGA_STEPS = 100, 100, 200
+# the steps each path is held to plain over in phase 4, the subsystems
+# paths from step SUB_I0 (so the refresh at step 128 is among them): the
+# splits 100 and the C172X megakernels' window 200, the C172S's and the
+# C172Xv2's cut to half of that for time (the plain references take most
+# of the run; the C172Xv1's autopilot gate needs its 2 s)
+SUB_I0 = 100
+PATH_STEPS = {"subsystems": 50, "vehicle": 50, "megakernel": 50,
+              "xv1_subsystems": 100, "xv1_vehicle": 100, "xv1_megakernel": 200,
+              "xv2_subsystems": 50, "xv2_vehicle": 50, "xv2_megakernel": 100,
+              "msn_subsystems": 100, "msn_vehicle": 100,
+              "msn_megakernel": 200}
 # the C172Xv2 megakernel's flight: 120 s, the JAX tests' horizon
 XV2_FLIGHT = 6000
-F64_STEPS = 20
+# the mission megakernel's flight: the whole 700 s circuit of the traffic
+# pattern demo; the JAX mission tests' horizons, 20 s (the landing lanes)
+# and 40 s (the pattern lanes); the steps between touchdown checks
+MSN_FLIGHT, MSN_LANDING_CHECK, MSN_PATTERN_CHECK, MSN_EVERY = (
+    35000, 1000, 2000, 25)
+# the float64 steps against plain: the mission's 20, the earlier paths' 10
+F64_STEPS = {"msn": 20, "": 10}
 SEED = 1016
 DEVICE = "cuda"
 # steps per throughput window (the plain path is ~40x slower)
 WINDOW = {"subsystems": 200, "vehicle": 500, "megakernel": 500, "plain": 20,
           "xv1_subsystems": 100, "xv1_vehicle": 100, "xv1_megakernel": 500,
-          "xv2_subsystems": 100, "xv2_vehicle": 100, "xv2_megakernel": 500}
+          "xv2_subsystems": 100, "xv2_vehicle": 100, "xv2_megakernel": 500,
+          "msn_subsystems": 100, "msn_vehicle": 100, "msn_megakernel": 500}
 # the H100 SXM's published peaks: HBM3 bandwidth and dense float32 rate
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
@@ -204,6 +247,15 @@ KERNELS = {
                        "xv2_megakernel"),
     "gdc_ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
                      "flightjax/parallel/megakernel.py:43", "xv2_vehicle"),
+    # the megakernel's instance over a world that flies a scripted mission
+    # (flightjax/core/mission.py:48-102 around the C172Xv2's avionics), and
+    # its pass as a kernel of its own (the splits' XLA glue,
+    # flightjax/parallel/clusterstep.py:591-607)
+    "megakernel_msn": ("flightjax_torch/csrc/megakernel.cu",
+                       "flightjax/parallel/megakernel.py:43",
+                       "msn_megakernel"),
+    "msn_ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
+                     "flightjax/parallel/megakernel.py:43", "msn_vehicle"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
@@ -211,10 +263,11 @@ FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
 # state, ctl_laws runs the control laws), C172S first
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
-    "gdc_ctl_laws") and k not in FBW_NAMES)
+    "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES)
 XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
 XV2_PATHS = ("xv2_subsystems", "xv2_vehicle", "xv2_megakernel")
 XV_PATHS = XV1_PATHS + XV2_PATHS
+MSN_PATHS = ("msn_subsystems", "msn_vehicle", "msn_megakernel")
 # the sub-controllers of the control laws' lon and lat passes, each under
 # the comment `# ---- <name>` that opens it in `ControlLaws.lon_step` /
 # `lat_step` (`models/c172/c172x_ctl.py`), with the modes that enable it;
@@ -392,8 +445,10 @@ def count_ops(fn, weight=None):
 
 
 def control_laws(avionics):
-    """The `ControlLaws` of the C172Xv1's avionics or the C172Xv2's."""
-    return getattr(avionics, "ctl", avionics)
+    """The `ControlLaws` of the C172Xv1's avionics, the C172Xv2's or a
+    mission's over them."""
+    from flightjax_torch.parallel import kernels as K
+    return K.control_laws(avionics)
 
 
 def gain_widths(avionics):
@@ -422,13 +477,38 @@ def pass_op_weights(avionics, s_in, s_out, fires=None, gdc_lanes=None):
     segment branch on the `gdc_lanes` (a pair of masks: the lanes that work
     out the segment, the lanes that work out the circle) that work it out,
     its circle branch alike; its override of the control laws' requests is
-    masked selects and counts nothing."""
+    masked selects and counts nothing. Over a mission (the plain version
+    works out every phase's `apply` and `done` and every phase's `systems`
+    on every lane) a phase function counts on the firing lanes whose phase
+    selects it (the old phase for `apply` and `done`, the new for
+    `systems`), the phase machine's own logic on each firing lane."""
     import inspect
+    from flightjax_torch.core.mission import MissionAvionics
     from flightjax_torch.core.modeling import tree_where
     from flightjax_torch.models.c172.c172x_ctl import ControlLaws
     from flightjax_torch.models.c172.c172x_gdc import GuidanceLaws
+    from flightjax_torch.models.c172.missions import (MissionApply,
+                                                      MissionDone,
+                                                      MissionSystems)
     from flightjax_torch.parallel.clusterstep import _periodic
     width = gain_widths(avionics)
+    msn_frac, msn_own = {}, ()
+    if isinstance(avionics, MissionAvionics):
+        n = len(avionics.phases)
+        fire0 = (torch.ones_like(s_in["phase"], dtype=torch.bool)
+                 if fires is None else fires)
+        old = s_in["phase"].clamp(0, n - 1)
+        new = s_out["phase"].clamp(0, n - 1)
+        for k, p in enumerate(avionics.phases):
+            for fn, ph in ((p.apply, old), (p.done, old), (p.systems, new)):
+                if fn is not None:
+                    msn_frac[id(fn)] = msn_frac.get(id(fn), 0.0) + (
+                        fire0 & (ph == k)).double().mean().item()
+        msn_own = tuple(getattr(MissionAvionics, m).__code__
+                        for m in ("overrides", "advance", "assign"))
+    msn_calls = tuple(c.__call__.__code__ for c in (MissionApply, MissionDone,
+                                                    MissionSystems))
+    s_in, s_out = s_in.get("inner", s_in), s_out.get("inner", s_out)
     s_in, s_out = s_in.get("ctl", s_in), s_out.get("ctl", s_out)
     like = s_out["lon"]["mode_prev"]
     fire = (torch.ones_like(like, dtype=torch.bool) if fires is None
@@ -491,8 +571,10 @@ def pass_op_weights(avionics, s_in, s_out, fires=None, gdc_lanes=None):
             if code is guide.__code__:
                 part = [n for at, n in g_marks if at <= f.f_lineno]
                 return branch[part[-1]] if part else fire_frac
-            if code is _periodic.__code__:
+            if code is _periodic.__code__ or code in msn_own:
                 return fire_frac
+            if code in msn_calls:
+                return msn_frac.get(id(f.f_locals["self"]), 0.0)
             f = f.f_back
         else:
             return 1.0
@@ -713,6 +795,46 @@ def xv2_mega_inputs(dtype, comp, spp=1):
                             else None)
 
 
+def msn_flight_args(sim, st):
+    """The arguments of `msn_ctl_laws` at the mission fleet `st`: its pass
+    on the VehicleY there (the plain `Vehicle.output`) with its avionics
+    and the systems' inputs."""
+    from flightjax_torch.parallel import kernels as K
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                 st.s["vehicle"])
+    return (aircraft.avionics, K.msn_y(vy), st.u["avionics"],
+            st.s["avionics"], sim.periodic_dt, st.u["vehicle"]["systems"])
+
+
+def msn_mega_inputs(dtype, comp, spp=1):
+    """(sim, SimState) of the mission's cluster state (`testing.
+    msn_operand_state`: the C172Xv2 cluster state with the mode-rich
+    guidance and control laws, lanes in every phase and past the end, the
+    kernel-check lanes) at step 126, as `xv1_mega_inputs`."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.testing import msn_operand_state, msn_sim
+    sim = msn_sim(DEVICE, dtype, spp)
+    st = msn_operand_state(B, SEED, DEVICE, dtype, GROUND_LANES,
+                           TERMINATED_LANES, (CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(B, dtype=torch.int32,
+                                           device=DEVICE) % spp)
+    return sim, st._replace(c=comp_residuals(st.x, force=True) if comp
+                            else None)
+
+
+def msn_overrides(sim, st, new):
+    """The guidance's inputs the mission's pass of the step from `st` to
+    `new` reads (the lanes' phases at `st` applied to its stored inputs, at
+    the VehicleY of `new`) and the guidance's mode there."""
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(new.x["vehicle"], new.u["vehicle"],
+                                 new.s["vehicle"])
+    u = aircraft.avionics.overrides(st.s["avionics"], st.u["avionics"], vy)
+    mode = aircraft.avionics.inner.gdc.f_periodic(u["gdc"], vy).mode
+    return u["gdc"], mode
+
+
 def gdc_branches(u_gdc, mode):
     """(segment lanes, circle lanes) of a guidance pass whose mode after
     the ground override is `mode`: the branch each lane works out. Where
@@ -759,6 +881,13 @@ def xv1_fleet(dtype, seed=SEED):
     """The C172Xv1 on the turning climb, `B` perturbed aircraft."""
     from flightjax_torch.testing import xv1_fleet_sim
     return xv1_fleet_sim(B, seed, DEVICE, dtype)
+
+
+def msn_fleet(dtype, seed=SEED):
+    """The mission fleet, `B` aircraft: (sim, SimState, (landing lanes,
+    pattern lanes))."""
+    from flightjax_torch.testing import msn_fleet_sim
+    return msn_fleet_sim(B, seed, DEVICE, dtype)
 
 
 def xv2_fleet(dtype, seed=SEED):
@@ -859,8 +988,8 @@ def expected_launches(label, n, i0=0):
     from flightjax_torch.parallel import kernels as K
     want = dict.fromkeys(K.LAUNCHES, 0)
     geoid = sum((i0 + k + 1) % 128 == 0 for k in range(n))
-    fbw = "_fbw" if label.startswith(("xv1_", "xv2_")) else ""
-    gdc = label.startswith("xv2_")
+    fbw = "_fbw" if label.startswith(("xv1_", "xv2_", "msn_")) else ""
+    av = label[:3] if fbw else None
     label = label[len("xv1_"):] if fbw else label
     if label == "subsystems":
         want.update({"kinair": 4 * n, "systems" + fbw: 4 * n,
@@ -870,9 +999,11 @@ def expected_launches(label, n, i0=0):
         want.update({"rk4_stage" + fbw: 4 * n, "rk4_finish" + fbw: n,
                      "geoid": geoid})
     else:
-        want["megakernel_gdc" if gdc else "megakernel" + fbw] = n
+        want[{"xv2": "megakernel_gdc", "msn": "megakernel_msn"}.get(
+            av, "megakernel" + fbw)] = n
     if fbw and label != "megakernel":  # the pass after every step
-        want["gdc_ctl_laws" if gdc else "ctl_laws"] = n
+        want[{"xv2": "gdc_ctl_laws", "msn": "msn_ctl_laws"}.get(
+            av, "ctl_laws")] = n
     return want
 
 
@@ -1000,6 +1131,140 @@ def check_guided_flight(label, sim, out, lanes):
                                  f">= {lim}")
 
 
+def check_mission(label, out, terminated=False):
+    """The mission fleet: every leaf finite, every servo command within its
+    range (the control laws' and the phases' flaps and brakes), and unless
+    `terminated` no lane terminated. Logs the lanes per phase."""
+    from flightjax_torch.models.c172.c172x import ACT_RANGES
+    for p, v in leaves({"x": out.x, "s": out.s, "c": out.c, "t": out.t,
+                        "u": out.u}):
+        if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: non-finite leaf {p}")
+    act = out.u["vehicle"]["systems"]["act"]
+    for ch, (lo, hi) in ACT_RANGES.items():
+        if not bool(((act[ch] >= lo) & (act[ch] <= hi)).all()):
+            raise AssertionError(f"{label}: {ch} command out of range")
+    term = int(out.s["terminated"].sum())
+    phases = torch.bincount(out.s["avionics"]["phase"].long(),
+                            minlength=10).tolist()
+    log(f"{label}: t = {float(out.t[0]):.2f} s, lanes per phase {phases}, "
+        f"{term} lanes terminated, every command within its range")
+    if term and not terminated:
+        raise AssertionError(f"{label}: {term} lanes terminated")
+
+
+def msn_flight(paths, n, snaps, lanes):
+    """n megakernel steps of the mission fleet from its start: ({k: the
+    state after k steps} for k in `snaps` and n, each landing lane's
+    cross-track error from the final leg where it was first found rolling
+    out, NaN if never), the rollout looked for every MSN_EVERY steps on
+    the buffer's own rows."""
+    from flightjax_torch.models.c172 import c172x_gdc as GDC
+    from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.ops.geodesy import nvector_from_qew
+    from flightjax_torch.parallel import kernels as K
+    aircraft = paths.sim.system.aircraft
+    lay = K.layout_of(aircraft.vehicle, aircraft.avionics)
+    row_ph = K.rows_of(lay.mega, "phase").start
+    q_rows, h_row = (K.rows_of(lay.mega, "q_ew"),
+                     K.rows_of(lay.mega, "h_e").start)
+    bufs = paths.bufs
+    land = torch.as_tensor(lanes[0], device=bufs[0].device)
+    final = GDC.Segment(*(v.to(device=bufs[0].device, dtype=bufs[0].dtype)
+                          for v in M.lows_pattern()["final"]))
+    touch = torch.full(land.shape, float("nan"), dtype=torch.float64,
+                       device=land.device)
+    seen = torch.zeros(land.shape, dtype=torch.bool, device=land.device)
+    out = {}
+    for k in range(1, n + 1):
+        bufs = paths.step_packed(bufs)
+        if k % MSN_EVERY == 0:
+            b = bufs[0][:, land]
+            new = (b[row_ph] > M.GROUND - 0.5) & ~seen
+            e = GDC.segment_data(final, nvector_from_qew(b[q_rows].t()),
+                                 b[h_row]).e_sb.double()
+            touch = torch.where(new, e, touch)
+            seen |= new
+        if k in snaps or k == n:
+            out[k] = paths.unpack(bufs)
+    return out, touch
+
+
+def check_mission_gates(label, sim, st0, at20, at40, lanes):
+    """The JAX mission tests' bounds at their own times, on the median lane
+    (`tests/test_missions.py:56-87`): at 20 s the landing lanes still in
+    the final, 10-60 m lower than at the start and under 100 m off the
+    final leg's track; at 40 s the pattern lanes past the startup (phase 2
+    or later) with the engine running; no lane terminated by 40 s."""
+    from flightjax_torch.models.c172 import c172x_gdc as GDC
+    from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.physics.piston import ENG_RUNNING
+    land = torch.as_tensor(lanes[0], device=DEVICE)
+    pattern = torch.as_tensor(lanes[1], device=DEVICE)
+    vehicle = sim.system.aircraft.vehicle
+    y20 = vehicle.output(at20.x["vehicle"], at20.u["vehicle"],
+                         at20.s["vehicle"])
+    final = GDC.Segment(*(v.to(device=DEVICE, dtype=st0.t.dtype)
+                          for v in M.lows_pattern()["final"]))
+    e = GDC.segment_data(final, y20.kinematics.n_e, y20.kinematics.h_e).e_sb
+    sink = (st0.x["vehicle"]["kinematics"]["h_e"]
+            - at20.x["vehicle"]["kinematics"]["h_e"])
+    med = lambda v: float(torch.quantile(v.double(), 0.5))
+    ph20 = at20.s["avionics"]["phase"][land].double()
+    ph40 = at40.s["avionics"]["phase"][pattern].double()
+    eng40 = at40.s["vehicle"]["systems"]["pwp"]["engine"]["state"][
+        pattern].double()
+    rows = {"landing lanes' phase at 20 s (final is 7)": (ph20, 7, 7),
+            "landing lanes' sink over 20 s (m)": (sink[land], 10.0, 60.0),
+            "landing lanes' |e_sb| from the final leg at 20 s (m)": (
+                e[land].abs(), 0.0, 100.0),
+            "pattern lanes' phase at 40 s (>= 2)": (ph40, 2, 9),
+            "pattern lanes' engine state at 40 s (running is 2)": (
+                eng40, ENG_RUNNING, ENG_RUNNING)}
+    for what, (v, lo, hi) in rows.items():
+        m = med(v)
+        log(f"{label}: {what}: median {m:.4g} (bound {lo}..{hi}), min "
+            f"{float(v.min()):.4g}, max {float(v.max()):.4g} over "
+            f"{v.numel()} lanes")
+        if not lo <= m <= hi:
+            raise AssertionError(f"{label}: median {what} {m} not in "
+                                 f"{lo}..{hi}")
+    term = int(at40.s["terminated"].sum())
+    log(f"{label}: {term} lanes terminated by 40 s")
+    if term:
+        raise AssertionError(f"{label}: {term} lanes terminated by 40 s")
+
+
+def report_mission(label, sim, end, touch, lanes):
+    """The fleet at the end of the circuit, reported and not gated (the
+    reference's behaviour): lanes per phase, terminated lanes, the landing
+    lanes' cross-track error at touchdown and share stopped (ground speed
+    under 2 m/s), the pattern lanes' highest phase."""
+    from flightjax_torch.models.c172 import missions as M
+    land = torch.as_tensor(lanes[0], device=DEVICE)
+    pattern = torch.as_tensor(lanes[1], device=DEVICE)
+    vy = sim.system.aircraft.vehicle.output(end.x["vehicle"],
+                                            end.u["vehicle"],
+                                            end.s["vehicle"])
+    phase = end.s["avionics"]["phase"]
+    down = touch[~touch.isnan()].abs()
+    stopped = float((vy.kinematics.v_gnd[land] < 2.0).double().mean())
+    per = {k: torch.bincount(phase[v].long(), minlength=10).tolist()
+           for k, v in (("landing", land), ("pattern", pattern))}
+    term = {k: int(end.s["terminated"][v].sum())
+            for k, v in (("landing", land), ("pattern", pattern))}
+    td = (f"median {float(down.median()):.3f} m, max "
+          f"{float(down.max()):.3f} m" if down.numel() else "none")
+    top = int(phase[pattern].max())
+    name = M.traffic_pattern_phases()[min(top, M.GROUND)].name
+    log(f"{label} at {float(end.t[0]):.1f} s (reported, not gated): lanes "
+        f"per phase {per}; terminated {term}; landing lanes' |cross-track| "
+        f"at touchdown over {down.numel()} lanes: {td}; landing lanes "
+        f"stopped (v_gnd < 2 m/s): {stopped:.4f}; pattern lanes' highest "
+        f"phase {top} ({name}), {int((phase[pattern] == M.GROUND).sum())} "
+        f"of {pattern.numel()} rolling out")
+
+
 # the EAS band of the C172S paths, trimmed at 50 m/s and flown open loop;
 # the C172Xv1 lanes that turn in a 45 deg bank while climbing at full
 # throttle bleed speed, so their floor is the C172's clean stall speed
@@ -1079,9 +1344,9 @@ def main():
     if rec_nvcc == nvcc_version(L._nvcc()):
         same, changed, missing = compare(L.BUILD_INFO["so"], record,
                                          L._nvcc())
-        log(f"SASS: the {len(same)} kernels recorded before the C172Xv1 "
-            f"megakernel and the control laws came are instruction for "
-            f"instruction as recorded ({', '.join(same)})")
+        log(f"SASS: the {len(same)} kernel instances recorded before the "
+            f"mission instances came are instruction for instruction as "
+            f"recorded ({', '.join(same)})")
         if changed or missing:
             raise AssertionError(f"SASS changed {changed}, missing {missing}")
     else:
@@ -1093,6 +1358,7 @@ def main():
             for dt, (r, ss, sl) in sorted(regs.get(name, {}).items())))
 
     # 3. per-kernel checks (f64 at 1e-12, f32 at 1e-5)
+    log(f"elapsed {time.time() - t_start:.1f} s")
     errs = {}
 
     def check(name, dtype, tol, pairs, what="", equal_nan=False):
@@ -1307,30 +1573,83 @@ def main():
                                      "latch crashed")
         del vsim, vst, cases, mega_cases
 
+    # the mission's pass and megakernel exactly, at 32 and 64 aircraft per
+    # block
+    from flightjax_torch.testing import msn_laws_args
+    for dtype in (torch.float64, torch.float32):
+        nsim, nst0, _ = msn_fleet(dtype)
+        cases = [("mode-rich operands", msn_laws_args(B, SEED, DEVICE, dtype,
+                                                      GROUND_LANES)),
+                 ("mission fleet", msn_flight_args(nsim, nst0))]
+        for what, a in cases:
+            ref = K.msn_ctl_laws_plain(*a)
+            got = K.msn_ctl_laws(*a)  # the wrapper
+            torch.cuda.synchronize()
+            check("msn_ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                  f" ({what}, wrapper)")
+            for lanes in (32, 64):
+                buf, n_out, scal, ops = K.PACK["msn_ctl_laws"](*a)
+                out = L.launch("msn_ctl_laws", buf, n_out, scal, block=lanes,
+                               **ops)
+                got = K.unpack_out("msn_ctl_laws", out)
+                torch.cuda.synchronize()
+                check("msn_ctl_laws", dtype, 0.0, leaf_pairs(got, ref),
+                      f" ({what}, block {lanes})")
+            moved = ref[0]["phase"] != a[3]["phase"]
+            log(f"msn_ctl_laws ({what}): lanes per phase "
+                f"{torch.bincount(a[3]['phase'].long()).tolist()}, "
+                f"{int(moved.sum())} advance; guidance modes "
+                f"{sorted(set(ref[2]['mode'].tolist()))}")
+            if what.startswith("mode-rich") and not (bool(moved.any())
+                                                    and bool((~moved).any())):
+                raise AssertionError("msn_ctl_laws: the operands advance no "
+                                     "lane or every lane")
+        mega_cases = [("cluster state", *msn_mega_inputs(dtype, False)),
+                      ("cluster state, compensated",
+                       *msn_mega_inputs(dtype, True)),
+                      ("cluster state, pass every 2nd step",
+                       *msn_mega_inputs(dtype, True, spp=2)),
+                      ("mission fleet", nsim, nst0)]
+        for what, sim_, st_ in mega_cases:
+            ref = megakernel_step_plain(sim_, st_)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    sim_, st_, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                check("megakernel_msn", dtype, 0.0,
+                      leaf_pairs(tuple(got), tuple(ref)),
+                      f" ({what}, block {lanes})")
+            if what.startswith("cluster") and not (
+                    bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+                    and not bool(st_.s["vehicle"]["systems"]["crashed"][
+                        CRASH_LANE])):
+                raise AssertionError("megakernel_msn: the crash lane did not "
+                                     "latch crashed")
+        del nsim, nst0, cases, mega_cases
+
     # 4. the paths in f32: kernels, each from counts 0, against plain
+    log(f"elapsed {time.time() - t_start:.1f} s")
     sim, st0 = fleet(torch.float32)
     paths = Paths(sim, st0)
     xsim, xst0 = xv1_fleet(torch.float32)
     xpaths = Paths(xsim, xst0, "xv1_")
     vsim, vst0, vlanes = xv2_fleet(torch.float32)
     vpaths = Paths(vsim, vst0, "xv2_")
+    nsim, nst0, nlanes = msn_fleet(torch.float32)
+    npaths = Paths(nsim, nst0, "msn_")
 
     def paths_of(label):
         return ((xsim, xpaths) if label in XV1_PATHS else
-                (vsim, vpaths) if label in XV2_PATHS else (sim, paths))
+                (vsim, vpaths) if label in XV2_PATHS else
+                (nsim, npaths) if label in MSN_PATHS else (sim, paths))
 
     launches = {}
-    for label, n in (("subsystems", SUB_STEPS), ("vehicle", MECH_STEPS),
-                     ("megakernel", MECH_STEPS),
-                     ("xv1_subsystems", SUB_STEPS),
-                     ("xv1_vehicle", XV_VEHICLE_STEPS),
-                     ("xv1_megakernel", XV_MEGA_STEPS),
-                     ("xv2_subsystems", SUB_STEPS),
-                     ("xv2_vehicle", XV_VEHICLE_STEPS),
-                     ("xv2_megakernel", XV_MEGA_STEPS)):
+    for label, n in PATH_STEPS.items():
         psim, paths_ = paths_of(label)
         i0 = int(paths_.st[label[len(paths_.prefix):]].i[0])
-        flown = XV2_FLIGHT if label == "xv2_megakernel" else n
+        flown = {"xv2_megakernel": XV2_FLIGHT,
+                 "msn_megakernel": MSN_FLIGHT}.get(label, n)
         torch.cuda.synchronize()
         K.reset_launches()
         stalled = torch.zeros(B, dtype=torch.bool, device=DEVICE)
@@ -1343,8 +1662,15 @@ def main():
             # the 120 s flight, and the state after the window it is held
             # to plain over
             end, out, stalled = paths_.flight(XV2_FLIGHT, n)
+        elif label == "msn_megakernel":
+            # the 700 s circuit; the states after the window it is held to
+            # plain over and at the JAX tests' horizons
+            snaps, touch = msn_flight(paths_, MSN_FLIGHT, (
+                n, MSN_LANDING_CHECK, MSN_PATTERN_CHECK), nlanes)
+            out, end = snaps[n], snaps[MSN_FLIGHT]
         else:
-            out = end = paths_.run(label, n, watch)
+            out = end = paths_.run(label, n, None if label in MSN_PATHS
+                                   else watch)
         torch.cuda.synchronize()
         dt_run = time.time() - t0
         got = dict(K.LAUNCHES)
@@ -1359,9 +1685,20 @@ def main():
                 launches[name] = got[name]
         if label == "xv2_megakernel":
             check_guided_flight(label, psim, end, vlanes)
-        # the 120 s guided flight is held to its median lanes' bounds; its
-        # heights are reported
-        check_flight(psim, label, end, stalled, label != "xv2_megakernel")
+        if label == "msn_megakernel":
+            check_mission_gates(label, psim, nst0, snaps[MSN_LANDING_CHECK],
+                                snaps[MSN_PATTERN_CHECK], nlanes)
+            check_mission(label, snaps[MSN_PATTERN_CHECK])
+            check_mission(label, end, terminated=True)
+            report_mission(label, psim, end, touch, nlanes)
+            del snaps
+        elif label in MSN_PATHS:
+            check_mission(label, end)
+        else:
+            # the 120 s guided flight is held to its median lanes' bounds;
+            # its heights are reported
+            check_flight(psim, label, end, stalled,
+                         label != "xv2_megakernel")
         if label in XV1_PATHS:
             check_autopilot(label, end)
         if label in XV2_PATHS:
@@ -1383,34 +1720,42 @@ def main():
         if not all(v <= e for v, e in zip((pos, vel, att, de), env)):
             raise AssertionError(f"{label}: kernel and plain runs disagree")
 
-    # 20 steps of each path in f64, kernels against plain, 1e-9
+    # 20 steps of the mission's paths and 10 of the others in f64, kernels
+    # against plain, 1e-9
+    log(f"elapsed {time.time() - t_start:.1f} s")
     sim64, st64 = fleet(torch.float64)
     paths64 = Paths(sim64, st64)
     xsim64, xst64 = xv1_fleet(torch.float64)
     xpaths64 = Paths(xsim64, xst64, "xv1_")
     vsim64, vst64, _ = xv2_fleet(torch.float64)
     vpaths64 = Paths(vsim64, vst64, "xv2_")
-    for label in ("subsystems", "vehicle", "megakernel") + XV_PATHS:
+    nsim64, nst64, _ = msn_fleet(torch.float64)
+    npaths64 = Paths(nsim64, nst64, "msn_")
+    for label in ("subsystems", "vehicle", "megakernel") + XV_PATHS + \
+            MSN_PATHS:
         p64 = (xpaths64 if label in XV1_PATHS else
-               vpaths64 if label in XV2_PATHS else paths64)
-        a = p64.run(label, F64_STEPS)
-        b = p64.run_plain(label, F64_STEPS)
+               vpaths64 if label in XV2_PATHS else
+               npaths64 if label in MSN_PATHS else paths64)
+        n64 = F64_STEPS["msn" if label in MSN_PATHS else ""]
+        a = p64.run(label, n64)
+        b = p64.run_plain(label, n64)
         torch.cuda.synchronize()
         worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
             {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
-        log(f"{label} f64 {F64_STEPS} steps kernels vs plain: max rel err "
+        log(f"{label} f64 {n64} steps kernels vs plain: max rel err "
             f"{worst:.3e} (tol 1e-9)")
         if not worst <= 1e-9:
             raise AssertionError(f"{label}: f64 run disagrees")
     del sim64, st64, paths64, xsim64, xst64, xpaths64, vsim64, vst64
-    del vpaths64
+    del vpaths64, nsim64, nst64, npaths64
 
     # host and device ms per step, launches per step and idle share of the
     # C172X paths
     from profile_torch_step import profile
     profiles = {}
-    for label in XV_PATHS:
-        psim, pst = (xsim, xst0) if label in XV1_PATHS else (vsim, vst0)
+    for label in XV_PATHS + MSN_PATHS:
+        psim, pst = ((xsim, xst0) if label in XV1_PATHS else
+                     (nsim, nst0) if label in MSN_PATHS else (vsim, vst0))
         r = profile(label, psim, pst, 20, 8)
         profiles[label] = r
         log(f"profile {label}: B = {B}, 20 steps, f32: host "
@@ -1423,6 +1768,7 @@ def main():
                 f"/step  {t['name'][:90]}")
 
     # 5. timings and bounds (f32, B = 4096)
+    log(f"elapsed {time.time() - t_start:.1f} s")
     args = kernel_inputs(torch.float32)
     vehicle = sim.system.aircraft.vehicle
     params, grid = K.system_params(vehicle), K.geoid_grid(vehicle.geoid)
@@ -1710,6 +2056,97 @@ def main():
         block_ms=extra["lanes_ms"], **extra))
     del rbufs, rst, new
 
+    # msn_ctl_laws: on the pass of the mission fleet the paths step (half
+    # on the final approach, half on the runway) and on the mode-rich
+    # mission operands
+    navionics = nsim.system.aircraft.avionics
+    air_args = msn_flight_args(nsim, nst0)
+    msn_packed = {"air": K.PACK["msn_ctl_laws"](*air_args),
+                  "rich": K.PACK["msn_ctl_laws"](*msn_laws_args(
+                      B, SEED, DEVICE, torch.float32, GROUND_LANES))}
+
+    def msn(which, lanes=None):
+        buf, n_out, scal, ops = msn_packed[which]
+        return L.launch("msn_ctl_laws", buf, n_out, scal, block=lanes, **ops)
+
+    extra = role_times("msn_ctl_laws", lambda n=None: msn("air", n),
+                       lambda n=None: msn("rich", n), B, 0)
+    ref = K.msn_ctl_laws_plain(*air_args)
+    buf, n_out, _, _ = msn_packed["air"]
+    n_elems = buf.numel() + n_out * B + K.mission_table(navionics).numel() \
+        + gain_values(navionics, air_args[1]["EAS"], air_args[1]["h_e"],
+                      ref[0]["inner"]["ctl"]["lon"]["mode_prev"],
+                      ref[0]["inner"]["ctl"]["lat"]["mode_prev"])
+    rows.append(dict(name="msn_ctl_laws", route="cuda",
+                     source=KERNELS["msn_ctl_laws"][0],
+                     replaces=KERNELS["msn_ctl_laws"][1],
+                     launches=launches["msn_ctl_laws"],
+                     max_abs_err=errs["msn_ctl_laws"],
+                     ms=extra["airborne_ms"],
+                     plain_ms=cuda_ms(lambda: K.msn_ctl_laws_plain(
+                         *air_args), reps=5, calls=4),
+                     nbytes=4 * n_elems,
+                     ops=count_ops(lambda: K.msn_ctl_laws_plain(*air_args),
+                                   pass_op_weights(
+                                       navionics, air_args[3], ref[0],
+                                       gdc_lanes=gdc_branches(
+                                           None, ref[2]["mode"]))),
+                     library_ms=None, event_ms=cuda_ms(lambda: msn("air")),
+                     wrapper_ms=cuda_ms(lambda: K.msn_ctl_laws(*air_args)),
+                     block_ms=extra["lanes_ms"], **extra))
+    del msn_packed
+
+    # megakernel_msn: on the mission fleet the path steps (half on the
+    # runway) and on the mission's cluster state with the mode-rich
+    # avionics and every phase (runway lanes too)
+    nparams = K.system_params(nsim.system.aircraft.vehicle)
+    ngrid = K.geoid_grid(nsim.system.aircraft.vehicle.geoid)
+    ngains = K.ctl_gains(navionics)
+    rsim, rst = msn_mega_inputs(torch.float32, True)
+    rbufs, _, _ = make_megakernel_step(rsim, rst)
+    rgains = K.ctl_gains(rsim.system.aircraft.avionics)
+    nbufs = npaths.bufs
+
+    def mega_msn(b, lanes=None, gains=ngains):
+        return L.launch_megakernel(b[0], b[1], nparams, ngrid, nsim.dt,
+                                   nsim.t_start, True, lanes, gains,
+                                   nsim.steps_per_periodic,
+                                   nsim.periodic_dt, msn=True)
+
+    extra = role_times("megakernel_msn", lambda n=None: mega_msn(nbufs, n),
+                       lambda n=None: mega_msn(rbufs, n, rgains), B,
+                       nparams.numel())
+    new = npaths.unpack(npaths.step_packed(nbufs))
+    fires = (nst0.i + 1) % nsim.steps_per_periodic == 0
+    u_over, g_mode = msn_overrides(nsim, nst0, new)
+    n_elems = (2 * (nbufs[0].numel() + nbufs[1].numel()) + nparams.numel()
+               + K.mission_table(navionics).numel()
+               + geoid_cells(nsim.system.aircraft.vehicle.geoid,
+                             new.x["vehicle"]["kinematics"]["q_ew"])
+               + gain_values(navionics, eas(new),
+                             new.x["vehicle"]["kinematics"]["h_e"],
+                             new.s["avionics"]["inner"]["ctl"]["lon"][
+                                 "mode_prev"],
+                             new.s["avionics"]["inner"]["ctl"]["lat"][
+                                 "mode_prev"]))
+    rows.append(dict(
+        name="megakernel_msn", route="cuda",
+        source=KERNELS["megakernel_msn"][0],
+        replaces=KERNELS["megakernel_msn"][1],
+        launches=launches["megakernel_msn"],
+        max_abs_err=errs["megakernel_msn"], ms=extra["airborne_ms"],
+        plain_ms=cuda_ms(lambda: megakernel_step_plain(nsim, nst0), reps=3,
+                         calls=2),
+        nbytes=4 * n_elems,
+        ops=count_ops(lambda: megakernel_step_plain(nsim, nst0),
+                      pass_op_weights(navionics, nst0.s["avionics"],
+                                      new.s["avionics"], fires,
+                                      gdc_branches(u_over, g_mode))),
+        library_ms=None, event_ms=cuda_ms(lambda: mega_msn(nbufs)),
+        wrapper_ms=cuda_ms(lambda: npaths.step_packed(nbufs)),
+        block_ms=extra["lanes_ms"], **extra))
+    del rbufs, rst, rsim, new
+
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         r["code_bytes"] = sizes.get(r["name"])
@@ -1745,7 +2182,7 @@ def main():
 
     # throughput: interleaved warm windows of WINDOW[label] steps each
     windows = collections.defaultdict(list)
-    labels = ("subsystems", "vehicle", "megakernel") + XV_PATHS
+    labels = ("subsystems", "vehicle", "megakernel") + XV_PATHS + MSN_PATHS
     for label in (labels + ("plain",)) * 3 + labels * 2:
         p = paths_of(label)[1] if label != "plain" else paths
         run = (lambda n: paths.run_plain("subsystems", n)) \

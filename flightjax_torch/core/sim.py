@@ -108,7 +108,7 @@ class Simulation:
         """One step of a batch-leading fleet state, with the avionics'
         periodic pass after it when it fires. `ctx` is () as in every
         model of the JAX package (a mission is an avionics wrapper,
-        `core/mission.py`, not ported: ROADMAP Queue 2). `i` is the
+        `core/mission.py`). `i` is the
         fleet's shared step counter as a Python int (the value of every
         lane of `state.i`); `fleet_rollout` keeps it on the host, so
         neither the geoid cadence nor the periodic pass costs a device
@@ -119,5 +119,5 @@ class Simulation:
             raise NotImplementedError(
                 "the step takes no context: ctx is () in every model, and "
                 "the mission is an avionics wrapper (MissionAvionics, "
-                "core/mission.py), ROADMAP Queue 2")
+                "core/mission.py)")
         return cluster_step(self, state, int(i))

@@ -7,7 +7,8 @@
 // laws' requests (`override_ctl_u`) is the `Ovr` argument of lon_step and
 // lat_step (c172x_ctl.cuh). ctl_laws.cu runs the pass over a fleet as the
 // `gdc_ctl_laws` kernel; the `megakernel_gdc` instance of megakernel.cu runs
-// it inside the whole step, when it fires.
+// it inside the whole step, when it fires; a scripted mission's phases
+// (c172x_msn.cuh) read the same segment geometry of their legs.
 //
 // The plain version works out both the segment and the circle branch on
 // every lane and selects; a lane here works out the one branch its mode
@@ -84,10 +85,20 @@ struct GdcRef {
   T dchi, chi_ref, h_ref, e_lat;
 };
 
-// segment_data and the segment's intercept law (c172x_gdc.py)
+// what the guidance and a mission's phases read of segment_data: the leg
+// length, the along-track distance from the first endpoint, the
+// cross-track error, the segment's height there and its course
 template <typename T>
-__device__ __forceinline__ GdcRef<T> segment_law(const Col<T>& u, Q4<T> q_en,
-                                                 V3<T> r_eb) {
+struct SegData {
+  T s_12, s_1b, e_sb, h_s, chi_12;
+};
+
+// segment_data (c172x_gdc.py) of the segment held in the rows UG_N_E1 ..
+// UG_H_E2 of u (the guidance's inputs, or a leg of a mission's table) at
+// the vehicle's r_eb in its NED frame q_en
+template <typename T>
+__device__ __forceinline__ SegData<T> segment_data(const Col<T>& u,
+                                                   Q4<T> q_en, V3<T> r_eb) {
   const V3<T> r_e1 = cartesian_from_geographic(u.v3(UG_N_E1), u(UG_H_E1));
   const V3<T> r_e2 = cartesian_from_geographic(u.v3(UG_N_E2), u(UG_H_E2));
   T b_x, b_y, d_x, d_y;
@@ -100,8 +111,16 @@ __device__ __forceinline__ GdcRef<T> segment_law(const Col<T>& u, Q4<T> q_en,
   const T h_e1 = u(UG_H_E1);
   const T h_s = h_e1 + (u(UG_H_E2) - h_e1) * s_1b / s_12;
   const T chi_12 = Atan2(u_y, u_x);
-  const T dchi = T(-DCHI_INF / (PI / 2)) * Atan(e_sb / T(E_SF));
-  return {dchi, wrap_to_pi(chi_12 + dchi), h_s, e_sb};
+  return {s_12, s_1b, e_sb, h_s, chi_12};
+}
+
+// the segment's intercept law (c172x_gdc.py)
+template <typename T>
+__device__ __forceinline__ GdcRef<T> segment_law(const Col<T>& u, Q4<T> q_en,
+                                                 V3<T> r_eb) {
+  const SegData<T> d = segment_data(u, q_en, r_eb);
+  const T dchi = T(-DCHI_INF / (PI / 2)) * Atan(d.e_sb / T(E_SF));
+  return {dchi, wrap_to_pi(d.chi_12 + dchi), d.h_s, d.e_sb};
 }
 
 // circle_data and the loiter law: the tangent course turned toward the

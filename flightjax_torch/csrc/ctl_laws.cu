@@ -38,7 +38,24 @@
 // the course, the lon warp the altitude and the cross-track gate): the same
 // chain as one warp computing it for both and a barrier, without the
 // barrier or the shared memory.
-#include "c172x_gdc.cuh"
+//
+// msn_ctl_laws is the same pass over a world whose C172Xv2 flies a scripted
+// mission (core/mission.py::MissionAvionics over c172x_gdc.py::Avionics,
+// the phases of models/c172/missions.py): the instance of the same TPU
+// kernel over that world and the XLA glue of its splits. Plain PyTorch
+// version: flightjax_torch/parallel/kernels.py::msn_ctl_laws_plain. In: the
+// MSN_Y rows (GDC_Y and the engine's state), the avionics block, the
+// guidance's inputs, the phase machine's state (phase, mission clock), the
+// flaps, brake and starter inputs (c172x_msn.cuh). Out: gdc_ctl_laws' rows,
+// the new phase and clock, those four inputs after `assign`. Each warp
+// applies the lane's phase to the inputs its side reads (the guidance's and
+// its own control laws', in local memory) before its guidance and its
+// pass; the lon warp then works out the phase's predicate, the new phase
+// and clock and the new phase's systems overrides. The mission table is
+// read through the cache at the end of the gains (kernels.ctl_gains). What
+// bounds it is what bounds gdc_ctl_laws, with the phase machine's branches
+// and, on the lanes whose phase reads a leg, one more segment geometry.
+#include "c172x_msn.cuh"
 
 using namespace fj;
 
@@ -109,6 +126,58 @@ __global__ void __launch_bounds__(2 * MAX_LANES)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(2 * MAX_LANES)
+    msn_ctl_laws_kernel(const T* __restrict__ in, const T* __restrict__ G,
+                        T* __restrict__ out, int B, T dt) {
+  const RoleThread t = role_thread(B, CTL_SIDES);
+  if (!t.valid) return;
+  const T* M = mission_table(G);
+  const Col<T> y{in, B, t.b};
+  const Col<T> c{in, B, t.b};
+  const Col<T> s_lon{in + (MSN_AV + AV_SLON) * B, B, t.b};
+  const Col<T> s_lat{in + (MSN_AV + AV_SLAT) * B, B, t.b};
+  const Out<T> o{out, B, t.b};
+  const Out<T> og{out + CTL_N_OUT * B, B, t.b};
+  const T phase = c(MSN_SMSN + SM_PHASE);
+  constexpr int O_CMD = N_SLON + N_SLAT;
+  T ug_v[N_UGDC], uc_v[N_ULON];
+  const bool lon = t.role == 0;
+  msn_inputs(M, lon, c, MSN_UGDC, MSN_AV + (lon ? AV_ULON : AV_ULAT), phase,
+             y, ug_v, uc_v);
+  const Col<T> ug{ug_v, 1, 0}, uc{uc_v, 1, 0};
+  const Gdc<T> g = guidance<GDC_ALL>(ug, y);
+  if (lon) {
+    const Cmd2<T> cmd = lon_step<T, true>(G, y, uc, s_lon, o, dt,
+                                          Ovr<T>{g.vrt, g.h_ref});
+    o.s(O_CMD + CC_THR, cmd.a);
+    o.s(O_CMD + CC_ELV, cmd.b);
+    og.s(GO_H_REF, g.h_ref);
+    og.s(GO_VRT, T(g.vrt ? 1.0 : 0.0));
+    // the phase machine and the new phase's systems overrides
+    T us[N_MUSYS];
+#pragma unroll
+    for (int k = 0; k < N_MUSYS; ++k) us[k] = c(MSN_MUSYS + k);
+    const MsnState<T> m =
+        msn_step(M, y, phase, c(MSN_SMSN + SM_T), dt, us);
+    const Out<T> om{out + GDC_N_OUT * B, B, t.b};
+    om.s(SM_PHASE, m.phase);
+    om.s(SM_T, m.t);
+#pragma unroll
+    for (int k = 0; k < N_MUSYS; ++k) om.s(N_SMSN + k, us[k]);
+  } else {
+    const Cmd2<T> cmd =
+        lat_step<T, true>(G, y, uc, s_lat, Out<T>{out + N_SLON * B, B, t.b},
+                          dt, Ovr<T>{g.hor, g.chi_ref});
+    o.s(O_CMD + CC_AIL, cmd.a);
+    o.s(O_CMD + CC_RUD, cmd.b);
+    og.s(GO_MODE, T(double(g.mode)));
+    og.s(GO_DCHI, g.dchi);
+    og.s(GO_CHI_REF, g.chi_ref);
+    og.s(GO_HOR, T(g.hor ? 1.0 : 0.0));
+  }
+}
+
 template <bool GDC, typename T>
 static int launch(const void* in, const void* gains, void* out, int B,
                   double dt, int lanes, void* stream) {
@@ -122,6 +191,19 @@ static int launch(const void* in, const void* gains, void* out, int B,
   else
     ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
         (const T*)in, (const T*)gains, (T*)out, B, T(dt));
+  return (int)cudaGetLastError();
+}
+
+// the mission's pass: its gains hold the mission table
+template <typename T>
+static int launch_msn(const void* in, const void* gains, void* out, int B,
+                      double dt, int lanes, void* stream) {
+  if (B <= 0) return 0;
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, CTL_SIDES, 0);
+  msn_ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
+      (const T*)in, (const T*)gains, (T*)out, B, T(dt));
   return (int)cudaGetLastError();
 }
 
@@ -142,6 +224,14 @@ int gdc_ctl_laws_f64(const void* in, const void* gains, void* out, int B,
                      double dt, int lanes, void* stream) {
   return launch<true, SD>(in, gains, out, B, dt, lanes, stream);
 }
+int msn_ctl_laws_f32(const void* in, const void* gains, void* out, int B,
+                     double dt, int lanes, void* stream) {
+  return launch_msn<SF>(in, gains, out, B, dt, lanes, stream);
+}
+int msn_ctl_laws_f64(const void* in, const void* gains, void* out, int B,
+                     double dt, int lanes, void* stream) {
+  return launch_msn<SD>(in, gains, out, B, dt, lanes, stream);
+}
 void ctl_laws_layout(int* n_in, int* n_out) {
   *n_in = CTL_N_IN;
   *n_out = CTL_N_OUT;
@@ -150,12 +240,20 @@ void gdc_ctl_laws_layout(int* n_in, int* n_out) {
   *n_in = GDC_N_IN;
   *n_out = GDC_N_OUT;
 }
+void msn_ctl_laws_layout(int* n_in, int* n_out) {
+  *n_in = MSN_N_IN;
+  *n_out = MSN_N_OUT;
+}
 // n_params and elem_size are not read: the kernels take no shared memory
 void ctl_laws_launch_shape(int B, int lanes, int, int, int* grid, int* block,
                            int* shared) {
   put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
 }
 void gdc_ctl_laws_launch_shape(int B, int lanes, int, int, int* grid,
+                               int* block, int* shared) {
+  put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
+}
+void msn_ctl_laws_launch_shape(int B, int lanes, int, int, int* grid,
                                int* block, int* shared) {
   put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
 }

@@ -65,18 +65,36 @@
 // needs (role PROP the altitude reference and the cross-track gate, role
 // DRAG the course), and only on the lanes where that side's guidance is
 // requested in a guided mode, since no row of the state holds the rest.
-#include "c172x_gdc.cuh"
+//
+// The mission instance (megakernel_msn, ACT_FBW with the avionics AV_MSN)
+// is the same TPU kernel traced over a world whose C172Xv2 flies a
+// scripted mission (core/mission.py::MissionAvionics, the LOWS phase sets),
+// whose pass runs the phase machine of c172x_msn.cuh around the guidance
+// and control laws. Its state buffer holds megakernel_gdc's rows, then the
+// phase index and the mission clock. Role ENG also puts the engine's new
+// state into the scratch. After the barrier each pass warp applies the
+// lane's (old) phase to the inputs its side reads, the guidance's and its
+// own control laws', in registers and local memory (the stored inputs pass
+// through), then runs its guidance and its side; role KIN, idle after its
+// stores, works out the phase's predicate at the old clock, the new phase
+// and clock and the new phase's systems overrides, which it writes in
+// place of the flaps, brake and starter inputs that the CTX pass-through
+// of this instance skips. The mission table arrives at the end of the
+// gains (kernels.ctl_gains), so the kernel's parameters, and the other
+// instances' machine code, are those of before.
+#include "c172x_msn.cuh"
 
 using namespace fj;
 
 // the avionics of an instance: none (the C172S), the control laws (the
-// C172Xv1), the guidance and control laws (the C172Xv2)
-constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2;
+// C172Xv1), the guidance and control laws (the C172Xv2), a scripted mission
+// over them
+constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3;
 
 // the rows of an instance's state buffer and scratch: t, X, CTX, C (and the
-// avionics block, fly-by-wire; and the guidance's inputs); the scratch
-// holds the roles' shared rows, then each thread's x and k-sum (and the
-// CTL_Y or GDC_Y rows of the pass)
+// avionics block, fly-by-wire; and the guidance's inputs; and the phase
+// machine's state); the scratch holds the roles' shared rows, then each
+// thread's x and k-sum (and the CTL_Y, GDC_Y or MSN_Y rows of the pass)
 template <int ACT, int AVK = (ACT == ACT_FBW ? AV_CTL : AV_NONE)>
 struct MegaL {
   enum : int {
@@ -85,11 +103,13 @@ struct MegaL {
     C = CTX + SysL<ACT>::NCTX,
     AV = C + N_C,
     GDC = AV + (ACT == ACT_FBW ? N_AV : 0),
-    ROWS = GDC + (AVK == AV_GDC ? N_UGDC : 0),
+    MSN = GDC + (AVK >= AV_GDC ? N_UGDC : 0),
+    ROWS = MSN + (AVK == AV_MSN ? N_SMSN : 0),
     SH_X = ACT == ACT_FBW ? SH_N_FBW : SH_N,
     SH_KSUM = SH_X + SysL<ACT>::NXV,
     SH_Y = SH_KSUM + SysL<ACT>::NXV,
-    SH_ROWS = SH_Y + (AVK == AV_GDC   ? N_GDCY
+    SH_ROWS = SH_Y + (AVK == AV_MSN   ? N_MSNY
+                      : AVK == AV_GDC ? N_GDCY
                       : AVK == AV_CTL ? N_CTLY
                                       : 0)
   };
@@ -98,10 +118,10 @@ struct MegaL {
 // the fly-by-wire instances: each role puts the CTL_Y fields it holds after
 // the finish into the scratch, role KIN the kinematics, air data and new
 // h_e (with GDC also the n-vector of the new q_ew), role AERO the gated
-// airflow angles and the filters, role ENG the speed ratio, role DRAG the
-// commands (clipped, from CTX) and the servo positions, each leg its weight
-// on wheels
-template <bool GDC, typename T>
+// airflow angles and the filters, role ENG the speed ratio (with MSN also
+// the engine's new state), role DRAG the commands (clipped, from CTX) and
+// the servo positions, each leg its weight on wheels
+template <bool GDC, typename T, bool MSN = false>
 __device__ __forceinline__ void share_ctl_y(const T* P, const Out<T>& so,
                                             const Col<T>& c, int r_usys,
                                             const RoleThread& t,
@@ -124,6 +144,7 @@ __device__ __forceinline__ void share_ctl_y(const T* P, const Out<T>& so,
     so.s(CY_BETA_F, xn[1]);
   } else if (t.role == ROLE_ENG) {
     so.s(CY_N, xn[PW_OMEGA] / P[P_EN + EN_omega_rated]);
+    if constexpr (MSN) so.s(CY_ENG, T(double(f.s.state)));
   } else if (t.role == ROLE_DRAG) {
     const int ch[N_CMD] = {CH_AIL, CH_ELV, CH_RUD, CH_THR};
 #pragma unroll
@@ -144,13 +165,14 @@ constexpr int ROLE_LON = ROLE_PROP, ROLE_LAT = ROLE_DRAG;
 // the pass of one side (lon or lat) where it fires: the new state and the
 // side's two commands (in place of those of CTX); elsewhere both pass
 // through. The side's inputs pass through. With GDC the side's guidance,
-// from the guidance's inputs at row r_gdc, overrides its requests.
-template <bool GDC, typename T>
+// from the guidance's inputs at row r_gdc, overrides its requests; with MSN
+// the lane's phase (row r_msn) first overrides the inputs the side reads.
+template <bool GDC, typename T, bool MSN = false>
 __device__ __forceinline__ void periodic_side(bool lon, bool fires,
                                               const T* G, const Col<T>& y,
                                               const Col<T>& c, const Out<T>& o,
                                               int r_av, int r_usys, int r_gdc,
-                                              T pdt) {
+                                              T pdt, int r_msn = 0) {
   const int r_u = r_av + (lon ? AV_ULON : AV_ULAT);
   const int r_s = r_av + (lon ? AV_SLON : AV_SLAT);
   const int n_u = lon ? N_ULON : N_ULAT, n_s = lon ? N_SLON : N_SLAT;
@@ -167,7 +189,19 @@ __device__ __forceinline__ void periodic_side(bool lon, bool fires,
   const Col<T> s{c.buf + r_s * c.B, c.B, c.b};
   const Out<T> so{o.buf + r_s * o.B, o.B, o.b};
   Cmd2<T> cmd;
-  if constexpr (GDC) {
+  if constexpr (MSN) {
+    T ug_v[N_UGDC], uc_v[N_ULON];
+    msn_inputs(mission_table(G), lon, c, r_gdc, r_u, c(r_msn + SM_PHASE), y,
+               ug_v, uc_v);
+    const Col<T> ug{ug_v, 1, 0}, uo{uc_v, 1, 0};
+    if (lon) {
+      const Gdc<T> g = guidance<GDC_VRT>(ug, y);
+      cmd = lon_step<T, true>(G, y, uo, s, so, pdt, Ovr<T>{g.vrt, g.h_ref});
+    } else {
+      const Gdc<T> g = guidance<GDC_HOR>(ug, y);
+      cmd = lat_step<T, true>(G, y, uo, s, so, pdt, Ovr<T>{g.hor, g.chi_ref});
+    }
+  } else if constexpr (GDC) {
     const Col<T> ug{c.buf + r_gdc * c.B, c.B, c.b};
     if (lon) {
       const Gdc<T> g = guidance<GDC_VRT>(ug, y);
@@ -236,8 +270,9 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
                           M::CTX, M::C, xn, f);
   if constexpr (AVK != AV_NONE) {
     // what the avionics read of the new state, into the scratch
-    share_ctl_y<AVK == AV_GDC>(sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane},
-                               c, M::CTX + CX_USYS, t, xn, f);
+    share_ctl_y<AVK >= AV_GDC, T, AVK == AV_MSN>(
+        sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, c, M::CTX + CX_USYS, t,
+        xn, f);
     __syncthreads();
   }
   if (!t.valid) return;  // past the last barrier
@@ -250,6 +285,11 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     if constexpr (ACT == ACT_FBW) {
       if (r == fbw_cmd_row(CH_AIL) || r == fbw_cmd_row(CH_ELV) ||
           r == fbw_cmd_row(CH_RUD) || r == fbw_cmd_row(CH_THR))
+        continue;
+    }
+    if constexpr (AVK == AV_MSN) {  // role KIN writes the mission's rows
+      if (r == msn_usys_row(MU_FLAPS) || r == msn_usys_row(MU_BRK_L) ||
+          r == msn_usys_row(MU_BRK_R) || r == msn_usys_row(MU_START))
         continue;
     }
     o.s(M::CTX + r, c(M::CTX + r));
@@ -275,13 +315,37 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     if (t.role == ROLE_LON || t.role == ROLE_LAT) {
       const bool fires = (i_in[t.b] + 1) % spp == 0;
       const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
-      periodic_side<AVK == AV_GDC>(t.role == ROLE_LON, fires, gains, y, c, o,
-                                   M::AV, M::CTX + CX_USYS, M::GDC, T(pdt));
+      periodic_side<AVK >= AV_GDC, T, AVK == AV_MSN>(
+          t.role == ROLE_LON, fires, gains, y, c, o, M::AV, M::CTX + CX_USYS,
+          M::GDC, T(pdt), M::MSN);
     }
   }
-  if constexpr (AVK == AV_GDC) {
+  if constexpr (AVK >= AV_GDC) {
     // the guidance's inputs pass through
     if (t.role == ROLE_KIN) pass_rows(c, o, M::GDC, N_UGDC);
+  }
+  if constexpr (AVK == AV_MSN) {
+    // the phase machine where the pass fires: the new phase and clock and
+    // the new phase's systems overrides; elsewhere the rows pass through
+    if (t.role == ROLE_KIN) {
+      T phase = c(M::MSN + SM_PHASE), clock = c(M::MSN + SM_T);
+      T us[N_MUSYS];
+#pragma unroll
+      for (int k = 0; k < N_MUSYS; ++k)
+        us[k] = c(M::CTX + CX_USYS + msn_usys_row(k));
+      if ((i_in[t.b] + 1) % spp == 0) {
+        const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
+        const MsnState<T> m =
+            msn_step(mission_table(gains), y, phase, clock, T(pdt), us);
+        phase = m.phase;
+        clock = m.t;
+      }
+      o.s(M::MSN + SM_PHASE, phase);
+      o.s(M::MSN + SM_T, clock);
+#pragma unroll
+      for (int k = 0; k < N_MUSYS; ++k)
+        o.s(M::CTX + CX_USYS + msn_usys_row(k), us[k]);
+    }
   }
 }
 
@@ -365,6 +429,26 @@ int megakernel_gdc_f64(const void* in, const void* i_in, const void* params,
                                      i_out, B, n_params, dt, t_start, comp,
                                      spp, pdt, lanes, stream);
 }
+// the mission instance, on the fly-by-wire instance's signature; its gains
+// hold the mission table
+int megakernel_msn_f32(const void* in, const void* i_in, const void* params,
+                       const void* grid, const void* gains, void* out,
+                       void* i_out, int B, int n_params, double dt,
+                       double t_start, int comp, int spp, double pdt,
+                       int lanes, void* stream) {
+  return launch<ACT_FBW, AV_MSN, SF>(in, i_in, params, grid, gains, out,
+                                     i_out, B, n_params, dt, t_start, comp,
+                                     spp, pdt, lanes, stream);
+}
+int megakernel_msn_f64(const void* in, const void* i_in, const void* params,
+                       const void* grid, const void* gains, void* out,
+                       void* i_out, int B, int n_params, double dt,
+                       double t_start, int comp, int spp, double pdt,
+                       int lanes, void* stream) {
+  return launch<ACT_FBW, AV_MSN, SD>(in, i_in, params, grid, gains, out,
+                                     i_out, B, n_params, dt, t_start, comp,
+                                     spp, pdt, lanes, stream);
+}
 void megakernel_layout(int* n_in, int* n_out) {
   *n_in = MEGA_N_ROWS;
   *n_out = MEGA_N_ROWS;
@@ -376,6 +460,10 @@ void megakernel_fbw_layout(int* n_in, int* n_out) {
 void megakernel_gdc_layout(int* n_in, int* n_out) {
   *n_in = MEGA_N_ROWS_GDC;
   *n_out = MEGA_N_ROWS_GDC;
+}
+void megakernel_msn_layout(int* n_in, int* n_out) {
+  *n_in = MEGA_N_ROWS_MSN;
+  *n_out = MEGA_N_ROWS_MSN;
 }
 void megakernel_launch_shape(int B, int lanes, int n_params, int elem_size,
                              int* grid, int* block, int* shared) {
@@ -394,6 +482,13 @@ void megakernel_gdc_launch_shape(int B, int lanes, int n_params,
                                  int* shared) {
   put_launch(role_launch(B, lanes, n_params, elem_size,
                          MegaL<ACT_FBW, AV_GDC>::SH_ROWS),
+             grid, block, shared);
+}
+void megakernel_msn_launch_shape(int B, int lanes, int n_params,
+                                 int elem_size, int* grid, int* block,
+                                 int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         MegaL<ACT_FBW, AV_MSN>::SH_ROWS),
              grid, block, shared);
 }
 // the whole-vehicle row groups: X, CTX, C and the megakernel's state buffer,

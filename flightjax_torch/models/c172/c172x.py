@@ -124,13 +124,15 @@ class FlyByWireActuation:
         return act_y, asg, {"act": x_dot}
 
 
-def build_vehicle(*, device, dtype, actuators=None) -> Vehicle:
+def build_vehicle(*, device, dtype, actuators=None, terrain=None) -> Vehicle:
+    """The fly-by-wire C172X on WA kinematics over `terrain` (default flat
+    at orthometric 0 m; `c172x.py:170-174`)."""
     systems = C172.Systems(power_plant(device=device, dtype=dtype),
                            FlyByWireActuation(actuators), device=device,
                            dtype=dtype)
-    return Vehicle(systems, WA(), HorizontalTerrain(device=device,
-                                                    dtype=dtype),
-                   device=device, dtype=dtype)
+    if terrain is None:
+        terrain = HorizontalTerrain(device=device, dtype=dtype)
+    return Vehicle(systems, WA(), terrain, device=device, dtype=dtype)
 
 
 def build_aircraft(avionics=None, *, device, dtype, **kw) -> Aircraft:
@@ -157,20 +159,22 @@ def build_xv2(gains=None, *, device, dtype, **kw) -> Aircraft:
 def load_xv1_state(path=XV1_NPZ):
     """(x, u, s) numpy trees of the trimmed C172Xv1 vehicle at world level
     (without the avionics), the TrimState vector and the trim residual
-    norm."""
+    norm; `path` another state file of `tools/export_torch_c172x.py`."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return (unflatten(flat, "x"), unflatten(flat, "u"), unflatten(flat, "s"),
             flat["trim_state"], float(flat["trim_rnorm"]))
 
 
-def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1):
+def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1,
+                      path=XV1_NPZ):
     """The world SimState of one trimmed aircraft with its avionics' inputs
     and state from `init_from_trim` (the bumpless start of
     `c172x.py::trim_world`); `build` makes the aircraft (`build_xv1` or
-    `build_xv2`, whose vehicles are the same). The start is worked out on
-    the CPU in `dtype` and then moved to `device`."""
-    x, u, s, _, _ = load_xv1_state()
+    `build_xv2`, whose vehicles are the same; a mission's, over its
+    terrain), `path` the trim point. The start is worked out on the CPU in
+    `dtype` and then moved to `device`."""
+    x, u, s, _, _ = load_xv1_state(path)
     cpu = build(device="cpu", dtype=dtype)
     # the plain vehicle functions take a fleet: one aircraft
     xv, uv, sv = (tree_from_numpy(tree_map(lambda l: np.asarray(l)[None],

@@ -378,6 +378,7 @@ class AeroY(NamedTuple):
 
 class EngineY(NamedTuple):
     n: torch.Tensor  # shaft speed over the rated speed
+    state: torch.Tensor = None  # ENG_OFF / ENG_STARTING / ENG_RUNNING
 
 
 class ThrusterY(NamedTuple):
@@ -402,9 +403,10 @@ class SystemsY(NamedTuple):
     pwp: ThrusterY
 
 
-def systems_y(sys_, x_sys, u_sys, alpha, beta, wow):
+def systems_y(sys_, x_sys, u_sys, alpha, beta, wow, eng_state=None):
     """SystemsY at the state `x_sys` from the airflow angles and weight on
-    wheels (the rest are the state's own functions)."""
+    wheels (the rest are the state's own functions), with the engine's
+    state machine `eng_state` (the discrete state's) where given."""
     act_y, _, _ = sys_.actuate(x_sys.get("act"), u_sys["act"])
     eng = x_sys["pwp"]["engine"]
     return SystemsY(
@@ -414,4 +416,5 @@ def systems_y(sys_, x_sys, u_sys, alpha, beta, wow):
                    beta_filt=x_sys["aero"]["beta_filt"]),
         ldg=LdgY(strut=StrutWow(wow=wow)),
         pwp=ThrusterY(engine=EngineY(
-            n=divc(eng["omega"], sys_.pwp.engine.omega_rated))))
+            n=divc(eng["omega"], sys_.pwp.engine.omega_rated),
+            state=eng_state)))

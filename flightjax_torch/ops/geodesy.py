@@ -128,6 +128,10 @@ def orth_from_ellip(h_ellip, n_e):
     return h_ellip - geoid_height(n_e)
 
 
+def ellip_from_orth(h_orth, n_e):
+    return h_orth + geoid_height(n_e)
+
+
 def cartesian_from_geographic(n_e, h_ellip):
     _, N = radii(n_e)
     return torch.stack([(N + h_ellip) * n_e[..., 0],

@@ -34,7 +34,12 @@ and weight on wheels; rk4_finish's KIN_Y and SYS_Y rows), and write the
 servo commands. The pass runs as the `ctl_laws` or `gdc_ctl_laws` kernel
 on the card (their plain versions on the CPU or with `plain`); the
 guidance also reads the n-vector of the new position, which the pass
-works out from the new q_ew, as KinData holds it. The pass reads the state
+works out from the new q_ew, as KinData holds it. A scripted mission over
+the C172Xv2 (`core/mission.py`) runs as the `msn_ctl_laws` kernel, which
+also reads the engine's state of the new S_SYS and writes the flaps,
+brake and engine-start inputs its phases override; a mission the kernels
+do not carry (arbitrary callables, another inner avionics) runs its own
+plain pass, on the CPU or with `plain` only. The pass reads the state
 before the geoid refresh of the same step, as `Simulation.fleet_step`
 orders them (the JAX cluster kernels refresh first; the two differ on
 refresh steps by the undulation's change over 128 steps, micrometres).
@@ -42,6 +47,7 @@ refresh steps by the undulation's change over 128 steps, micrometres).
 
 import torch
 
+from flightjax_torch.core.mission import MissionAvionics
 from flightjax_torch.core.modeling import tree_map
 from flightjax_torch.core.sim import SimState
 from flightjax_torch.ops.geodesy import nvector_from_qew
@@ -101,26 +107,48 @@ def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False):
     counter it makes, i + 1, is a multiple of `steps_per_periodic`
     (`sim.py:327-328`; no ported avionics reads the firing index): the
     avionics on the VehicleY at the new state xv (from the finish's kin_y
-    and sys_y; for the guidance also the n-vector of xv's q_ew) write the
-    servo commands, as the `ctl_laws` kernel (the C172Xv1's control laws)
-    or the `gdc_ctl_laws` kernel (the C172Xv2's guidance and control laws),
-    or their plain versions with `plain`. Returns (u, s)."""
+    and sys_y; for the guidance also the n-vector of xv's q_ew, for a
+    mission the engine's state of the new S_SYS in `s`) write the servo
+    commands, as the `ctl_laws` kernel (the C172Xv1's control laws), the
+    `gdc_ctl_laws` kernel (the C172Xv2's guidance and control laws) or the
+    `msn_ctl_laws` kernel (a mission over them, which also writes the
+    systems inputs its phases override), or their plain versions with
+    `plain`. Returns (u, s)."""
     world = sim.system
     avionics = world.aircraft.avionics
     if avionics is None or (i + 1) % sim.steps_per_periodic != 0:
         return u, s
     vehicle = world.aircraft.vehicle
+    eng = s["vehicle"]["systems"]["pwp"]["engine"]["state"]
+    q_ew = xv["kinematics"]["q_ew"]
+    if (isinstance(avionics, MissionAvionics)
+            and (plain or q_ew.device.type == "cpu")
+            and K.mission_refusal(avionics) is not None):
+        # a mission the kernels do not carry: its own pass, plain
+        vy = K.vehicle_y(vehicle, xv, u["vehicle"], dict(
+            kin_y, n_e=nvector_from_qew(q_ew)), sys_y, eng)
+        return world.aircraft.f_periodic(u, s, vy)
     name = K.avionics_layout(vehicle, avionics).pass_name
-    if name == "gdc_ctl_laws":
-        kin_y = dict(kin_y, n_e=nvector_from_qew(xv["kinematics"]["q_ew"]))
-    vy = K.vehicle_y(vehicle, xv, u["vehicle"], kin_y, sys_y)
-    y = K.gdc_y(vy) if name == "gdc_ctl_laws" else K.ctl_y(vy)
+    if name != "ctl_laws":
+        kin_y = dict(kin_y, n_e=nvector_from_qew(q_ew))
+    vy = K.vehicle_y(vehicle, xv, u["vehicle"], kin_y, sys_y,
+                     eng if name == "msn_ctl_laws" else None)
+    y = {"ctl_laws": K.ctl_y, "gdc_ctl_laws": K.gdc_y,
+         "msn_ctl_laws": K.msn_y}[name](vy)
     fn = getattr(K, name + "_plain" if plain else name)
-    s_av, cmd, *_ = fn(avionics, y, u["avionics"], s["avionics"],
-                       world.periodic_dt)
     u_sys = u["vehicle"]["systems"]
-    u2 = dict(u, vehicle=dict(u["vehicle"], systems=dict(
-        u_sys, act=dict(u_sys["act"], **cmd))))
+    extra = (u_sys,) if name == "msn_ctl_laws" else ()
+    s_av, cmd, *rest = fn(avionics, y, u["avionics"], s["avionics"],
+                          world.periodic_dt, *extra)
+    act = dict(u_sys["act"], **cmd)
+    u_sys = dict(u_sys, act=act)
+    if name == "msn_ctl_laws":  # the phases' systems overrides
+        over = rest[1]
+        act.update(over["act"])
+        pwp = u_sys["pwp"]
+        u_sys["pwp"] = dict(pwp, engine=dict(pwp["engine"],
+                                             **over["pwp"]["engine"]))
+    u2 = dict(u, vehicle=dict(u["vehicle"], systems=u_sys))
     return u2, dict(s, avionics=s_av)
 
 
@@ -173,11 +201,15 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
             "mission is an avionics wrapper (MissionAvionics, "
-            "core/mission.py), ROADMAP Queue 2")
-    vehicle = sim.system.aircraft.vehicle
+            "core/mission.py)")
+    aircraft = sim.system.aircraft
+    vehicle = aircraft.vehicle
     if state.t.device.type != "cpu":  # build the kernels' operands once
         K.system_params(vehicle)
         K.geoid_grid(vehicle.geoid)
+        if aircraft.avionics is not None:  # refuses what has no kernel
+            K.avionics_layout(vehicle, aircraft.avionics)
+            K.ctl_gains(aircraft.avionics)
     if split == "vehicle":
         return lambda st, *, i: vehicle_step(sim, st, int(i), block)
     if split == "subsystems":

@@ -33,6 +33,12 @@ The C172X's periodic pass:
 - `gdc_ctl_laws` <- the C172Xv2's `c172x_gdc.Avionics.f_periodic` (the
                   guidance laws, then the control laws on the requests they
                   override) and `assign`, the same places on the C172Xv2
+- `msn_ctl_laws` <- a scripted mission's `MissionAvionics.f_periodic` and
+                  `assign` over the C172Xv2's avionics (the phase machine,
+                  then the guidance and the control laws on the inputs the
+                  phase overrides, then the phase's systems overrides), the
+                  same places over a mission world; `megakernel_msn` is the
+                  megakernel's instance there
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); there is no fallback between the two.
@@ -54,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 
+from flightjax_torch.core.mission import MissionAvionics
 from flightjax_torch.core.modeling import bscale, tree_map
 from flightjax_torch.core.sim import comp_add
 from flightjax_torch.models.c172.c172x_ctl import ControlLaws
@@ -188,6 +195,17 @@ GDC_YOUT = tuple((k, 1) for k in ("mode", "dchi", "chi_ref", "h_ref",
                                   "hor_gdc", "vrt_gdc"))
 GDC_IN = (GDC_Y,) + AV_GROUPS + (AV_U_GDC,)
 GDC_OUT = CTL_OUT + (GDC_YOUT,)
+# a scripted mission over the C172Xv2's avionics (`core/mission.py`; rows
+# of csrc/c172x_msn.cuh): the phase machine's state, which follows the
+# guidance's inputs; MSN_Y what the phase machine, the guidance and the
+# control laws read (GDC_Y and the engine's state, which the finish stores
+# in S_SYS); MSN_USYS the systems inputs the phases' `systems` override
+AV_S_MSN = (("phase", 1), ("t", 1))
+MSN_Y = GDC_Y + (("eng_state", 1),)
+MSN_USYS = ((("act", "flaps"), 1), (("act", "brake_left"), 1),
+            (("act", "brake_right"), 1), (("pwp", "engine", "start"), 1))
+MSN_IN = (MSN_Y,) + AV_GROUPS + (AV_U_GDC, AV_S_MSN, MSN_USYS)
+MSN_OUT = GDC_OUT + (AV_S_MSN, MSN_USYS)
 TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
 MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
 WR = (("F", 3), ("tau", 3))
@@ -223,7 +241,8 @@ LEAF_DTYPES = {(("pwp", "engine", "mixture_ctl")): torch.int32,
                "mode_prev": torch.int32, "h_state": torch.int32,
                "hor_gdc_req": torch.bool, "vrt_gdc_req": torch.bool,
                "mode": torch.int32, "hor_gdc": torch.bool,
-               "vrt_gdc": torch.bool}
+               "vrt_gdc": torch.bool, "phase": torch.int32,
+               "eng_state": torch.int32}
 LEAF_DTYPES.update({(k, f): torch.int32 for k in AV_PRIMITIVES
                     for f in ("out_sat_0", "sat_out_0")})
 
@@ -234,7 +253,8 @@ class Layout(NamedTuple):
     whole vehicle (state X, context CTX: inputs, discrete state, carried
     undulation, the terminated latch; the position residuals C); `mega` the
     megakernel's state buffer: t, X, CTX, C and, fly-by-wire, the control
-    laws' avionics block (and the guidance's inputs on the C172Xv2);
+    laws' avionics block (and the guidance's inputs on the C172Xv2, and a
+    mission's phase and clock after them);
     `pass_name` the kernel of the avionics' periodic pass, if any."""
     fbw: bool
     x_sys: tuple
@@ -255,7 +275,7 @@ class Layout(NamedTuple):
     pass_name: str
 
 
-def _layout(fbw, gdc=False):
+def _layout(fbw, gdc=False, msn=False):
     x_sys, u_sys = (X_SYS_FBW, U_SYS_FBW) if fbw else (X_SYS, U_SYS)
     x_groups = (X_KIN, X_DYN, x_sys)
     ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),))
@@ -272,18 +292,22 @@ def _layout(fbw, gdc=False):
         rkfin_out=x_groups + (S_SYS, (("terminated", 1),), COMP)
         + ((KIN_Y,) + y if fbw else ()),
         mega=((("t", 1),),) + x_groups + ctx + (COMP,)
-        + (AV_GROUPS if fbw else ()) + ((AV_U_GDC,) if gdc else ()),
+        + (AV_GROUPS if fbw else ()) + ((AV_U_GDC,) if gdc else ())
+        + ((AV_S_MSN,) if msn else ()),
         names={k: k + ("_fbw" if fbw else "") for k in (
             "systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=("megakernel_gdc" if gdc else "megakernel_fbw" if fbw
-                   else "megakernel"),
-        pass_name="gdc_ctl_laws" if gdc else "ctl_laws" if fbw else None)
+        mega_name=("megakernel_msn" if msn else "megakernel_gdc" if gdc
+                   else "megakernel_fbw" if fbw else "megakernel"),
+        pass_name=("msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
+                   else "ctl_laws" if fbw else None))
 
 
-# the C172S; the fly-by-wire C172X with its ControlLaws (the C172Xv1) and
-# with its guidance and control laws (the C172Xv2): the same systems
-# kernels, the megakernel and the pass instances of their own
+# the C172S; the fly-by-wire C172X with its ControlLaws (the C172Xv1), with
+# its guidance and control laws (the C172Xv2) and with a scripted mission
+# over them: the same systems kernels, the megakernel and the pass
+# instances of their own
 MECH, FBW, GDC = _layout(False), _layout(True), _layout(True, gdc=True)
+MSN = _layout(True, gdc=True, msn=True)
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -296,7 +320,7 @@ def layout_of(vehicle, avionics=None):
     """The layout of the vehicle's actuation: FBW for the fly-by-wire
     servos, whose kernel instances carry `Actuator1` on every channel (a
     second-order servo has no kernel yet), GDC where its `avionics` are the
-    C172Xv2's guidance and control laws."""
+    C172Xv2's guidance and control laws, MSN a mission over them."""
     act = vehicle.systems.act
     if not getattr(act, "stateful", False):
         return MECH
@@ -305,19 +329,50 @@ def layout_of(vehicle, avionics=None):
         raise ValueError(
             f"the kernels carry first-order servos only, not {bad}: "
             "ROADMAP Queue 2, 'Actuator2 channels in the kernels'")
-    return GDC if isinstance(avionics, Avionics) else FBW
+    return (GDC if isinstance(avionics, Avionics) else MSN if isinstance(
+        avionics, MissionAvionics) else FBW)
+
+
+def mission_refusal(avionics):
+    """Why the kernels do not carry the MissionAvionics `avionics`, or None
+    where they do: they carry a mission over the C172Xv2's guidance and
+    control laws whose phases carry the descriptors of `models/c172/
+    missions.py::mission_phase_lib`."""
+    from flightjax_torch.models.c172.missions import (MissionApply,
+                                                      MissionDone,
+                                                      MissionSystems)
+    where = ("; such a mission flies on the plain path "
+             "(Simulation.fleet_step or make_cluster_step on the CPU)")
+    if not isinstance(avionics.inner, Avionics):
+        return (f"the mission kernels carry a MissionAvionics over the "
+                f"C172Xv2's guidance and control laws (c172x_gdc.Avionics), "
+                f"not over {type(avionics.inner).__name__}" + where)
+    for p in avionics.phases:
+        if not (isinstance(p.apply, MissionApply)
+                and isinstance(p.done, MissionDone)
+                and (p.systems is None
+                     or isinstance(p.systems, MissionSystems))):
+            return (f"the mission kernels read the phases' descriptors; "
+                    f"phase {p.name!r} has arbitrary callables, not those "
+                    f"of models/c172/missions.py::mission_phase_lib" + where)
+    return None
 
 
 def avionics_layout(vehicle, avionics):
     """The layout of an aircraft whose avionics run as kernels: the
-    C172X's `ControlLaws` (FBW) or the C172Xv2's `Avionics` (GDC); other
-    avionics have no kernel and are refused."""
-    if not isinstance(avionics, (ControlLaws, Avionics)):
+    C172X's `ControlLaws` (FBW), the C172Xv2's `Avionics` (GDC) or a
+    mission over them whose phases carry descriptors (MSN); other avionics
+    have no kernel and are refused."""
+    if isinstance(avionics, MissionAvionics):
+        why = mission_refusal(avionics)
+        if why is not None:
+            raise NotImplementedError(why)
+    elif not isinstance(avionics, (ControlLaws, Avionics)):
         raise NotImplementedError(
-            f"the kernels carry the C172X's ControlLaws and the C172Xv2's "
-            f"guidance and control laws, not {type(avionics).__name__}: "
-            "a MissionAvionics (core/mission.py) is ROADMAP Queue 2, 'the "
-            "mission megakernel'")
+            f"the kernels carry the C172X's ControlLaws, the C172Xv2's "
+            f"guidance and control laws and a scripted mission over them "
+            f"(core/mission.py), not {type(avionics).__name__}: these "
+            f"avionics have no kernel")
     return layout_of(vehicle, avionics)
 
 
@@ -558,21 +613,89 @@ CTL_NX = {"te2te": 8, "tv2te": 8, "vh2te": 9, "ar2ar": 8, "phibeta2ar": 8}
 
 _GAINS = weakref.WeakKeyDictionary()
 
+# the mission table (csrc/c172x_msn.cuh): the number of phases and the
+# offset of the legs, then one record of PHASE_FIELDS per phase, then the
+# legs (n_e1, h_e1, n_e2, h_e2 each)
+MT_HEAD = ("n_phases", "legs")
+PHASE_FIELDS = ("apply", "leg", "EAS", "throttle_on", "throttle", "vrt",
+                "done", "done_value", "done_leg", "systems", "flaps")
+LEG_N = 8
+
+
+def control_laws(avionics):
+    """The `ControlLaws` of the C172Xv1's avionics, the C172Xv2's or a
+    mission over them."""
+    inner = getattr(avionics, "inner", avionics)
+    return getattr(inner, "ctl", inner)
+
+
+def mission_table_values(avionics):
+    """The mission table of a MissionAvionics the kernels carry
+    (`mission_refusal`), in float64: the phases' descriptors and the legs
+    they read, each leg once."""
+    why = mission_refusal(avionics)
+    if why is not None:
+        raise NotImplementedError(why)
+    legs = []
+
+    def leg(seg):
+        if seg is None:
+            return 0.0
+        for k, other in enumerate(legs):
+            if other is seg:
+                return float(k)
+        legs.append(seg)
+        return float(len(legs) - 1)
+
+    recs = []
+    for p in avionics.phases:
+        a, d, sy = p.apply, p.done, p.systems
+        thr = a.values.get("throttle")
+        rec = dict(apply=a.kind, leg=leg(a.leg), EAS=a.values.get("EAS", 0.0),
+                   throttle_on=float(thr is not None),
+                   throttle=0.0 if thr is None else thr,
+                   vrt=float(a.values.get("vrt", False)), done=d.kind,
+                   done_value=d.values.get("value", 0.0),
+                   done_leg=leg(d.leg), systems=0 if sy is None else sy.kind,
+                   flaps=0.0 if sy is None else sy.values.get("flaps", 0.0))
+        recs += [float(rec[k]) for k in PHASE_FIELDS]
+    head = [float(len(avionics.phases)),
+            float(len(MT_HEAD) + len(recs))]
+    body = [float(v) for seg in legs for v in (
+        *seg.n_e1.double().tolist(), float(seg.h_e1),
+        *seg.n_e2.double().tolist(), float(seg.h_e2))]
+    return head + recs + body
+
+
+def mission_table(avionics):
+    """The mission table on the avionics' device in their dtype, cast once
+    from float64 (`mission_table_values`)."""
+    return torch.tensor(mission_table_values(avionics),
+                        dtype=torch.float64).to(device=avionics.device,
+                                                dtype=avionics.dtype)
+
 
 def ctl_gains(avionics):
     """The control laws' gain buffer on their device in their dtype (built
-    once) of a `ControlLaws` or of the C172Xv2's avionics (their control
-    laws'): the offsets of the CTL_TABLES, then each channel's schedule as
-    one table (`encode_table`) whose values are its gains stacked per knot
-    (PID_GAINS, or LQR_GAINS flattened), on the schedules' own (EAS, h) grid
-    and extrapolation."""
-    avionics = getattr(avionics, "ctl", avionics)
-    buf = _GAINS.get(avionics)
+    once) of a `ControlLaws`, of the C172Xv2's avionics (their control
+    laws') or of a mission over them: the offsets of the CTL_TABLES, then
+    each channel's schedule as one table (`encode_table`) whose values are
+    its gains stacked per knot (PID_GAINS, or LQR_GAINS flattened), on the
+    schedules' own (EAS, h) grid and extrapolation. A mission's buffer
+    holds one more offset after the tables' (that of the mission table)
+    and the mission table at its end: the mission instances read both from
+    it, and the megakernel keeps the other instances' parameters."""
+    mission = isinstance(avionics, MissionAvionics)
+    laws = control_laws(avionics)
+    key = avionics if mission else laws
+    buf = _GAINS.get(key)
     if buf is None:
+        extra = mission_table_values(avionics) if mission else None
+        n_head = len(CTL_TABLES) + mission
         body = []
         offsets = []
         for ch in CTL_TABLES:
-            g = avionics.gains[ch]
+            g = laws.gains[ch]
             keys = PID_GAINS if ch in ("v2t", "c2theta", "q2e", "p2phi",
                                        "chi2phi") else LQR_GAINS
             first = g[keys[0]]
@@ -587,12 +710,15 @@ def ctl_gains(avionics):
             lk = Lookup([a.cpu().double().numpy() for a in first.axes],
                         values.cpu().double().numpy(), first.extrap,
                         device="cpu", dtype=first.values.dtype)
-            offsets.append(float(len(CTL_TABLES) + len(body)))
+            offsets.append(float(n_head + len(body)))
             body += encode_table(lk)
-        like = avionics.gains["v2t"]["k_p"].values
+        if extra is not None:
+            offsets.append(float(n_head + len(body)))
+            body += extra
+        like = laws.gains["v2t"]["k_p"].values
         buf = torch.tensor(offsets + body, dtype=torch.float64).to(
             device=like.device, dtype=like.dtype)
-        _GAINS[avionics] = buf
+        _GAINS[key] = buf
     return buf
 
 
@@ -746,11 +872,13 @@ def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin):
             sys_y)
 
 
-def vehicle_y(vehicle, xv, uv, kin_y, sys_y):
+def vehicle_y(vehicle, xv, uv, kin_y, sys_y, eng_state=None):
     """The VehicleY the avionics read at the new state `xv`, from what the
-    finish kernels store: `kin_y` the KIN_Y fields, `sys_y` the SYS_Y
-    ones. The servo commands and positions, the filters, the engine's
-    speed ratio, omega_eb_b and h_e are the state's and the inputs' own
+    finish kernels store: `kin_y` the KIN_Y fields (and the n-vector where
+    the guidance reads it), `sys_y` the SYS_Y ones, `eng_state` the
+    engine's state machine of the new S_SYS (where a mission reads it).
+    The servo commands and positions, the filters, the engine's speed
+    ratio, omega_eb_b and h_e are the state's and the inputs' own
     (`common.systems_y`); the KinData and AirData fields no avionics reads
     are None."""
     kin = KinData(**dict(dict.fromkeys(KinData._fields),
@@ -759,7 +887,7 @@ def vehicle_y(vehicle, xv, uv, kin_y, sys_y):
                          **{k: v for k, v in kin_y.items() if k != "EAS"}))
     air = AirData(**dict(dict.fromkeys(AirData._fields), EAS=kin_y["EAS"]))
     sys_ = systems_y(vehicle.systems, xv["systems"], uv["systems"],
-                     sys_y["alpha"], sys_y["beta"], sys_y["wow"])
+                     sys_y["alpha"], sys_y["beta"], sys_y["wow"], eng_state)
     return VehicleY(systems=sys_, kinematics=kin, dynamics=None,
                     airflow=air)
 
@@ -784,9 +912,15 @@ def gdc_y(vy):
     return dict(ctl_y(vy), n_e=vy.kinematics.n_e)
 
 
+def msn_y(vy):
+    """The MSN_Y fields of a VehicleY: what a mission's phase machine, the
+    guidance and the control laws read."""
+    return dict(gdc_y(vy), eng_state=vy.systems.pwp.engine.state)
+
+
 def ctl_vehicle_y(y):
-    """The VehicleY that holds the CTL_Y (or GDC_Y) fields `y` (the others
-    None)."""
+    """The VehicleY that holds the CTL_Y (or GDC_Y, MSN_Y) fields `y` (the
+    others None)."""
     kin = KinData(**dict(dict.fromkeys(KinData._fields), **{
         k: y[k] for k in ("omega_wb_b", "omega_eb_b", "e_nb", "v_eb_n",
                           "chi_gnd", "h_e", "n_e") if k in y}))
@@ -795,7 +929,8 @@ def ctl_vehicle_y(y):
                     aero=AeroY(y["alpha"], y["beta"], y["alpha_filt"],
                                y["beta_filt"]),
                     ldg=LdgY(strut=StrutWow(wow=y["wow"])),
-                    pwp=ThrusterY(engine=EngineY(n=y["n"])))
+                    pwp=ThrusterY(engine=EngineY(n=y["n"],
+                                                 state=y.get("eng_state"))))
     return VehicleY(systems=sys_, kinematics=kin, dynamics=None,
                     airflow=air)
 
@@ -825,6 +960,30 @@ def gdc_ctl_laws_plain(avionics, y, u_av, s_av, dt):
     g = av_y["gdc"]
     return s2, _commands(av_y["ctl"]), {k: getattr(g, k)
                                         for k, _ in GDC_YOUT}
+
+
+def msn_usys(u_sys):
+    """The MSN_USYS fields of the systems' inputs (those a mission's phases
+    may override)."""
+    return {"act": {k: u_sys["act"][k] for k in ("flaps", "brake_left",
+                                                 "brake_right")},
+            "pwp": {"engine": {"start": u_sys["pwp"]["engine"]["start"]}}}
+
+
+def msn_ctl_laws_plain(avionics, y, u_av, s_av, dt, u_sys):
+    """A scripted mission's periodic pass on the MSN_Y fields `y` and the
+    systems' inputs `u_sys` (their MSN_USYS fields are read):
+    `MissionAvionics.f_periodic` (the current phase's overrides, its
+    predicate, the guidance and the control laws on the overridden inputs)
+    and `assign` (the commands, then the new phase's systems overrides).
+    Returns (the new avionics state, {channel: command} of CTL_CMD, the
+    GDC_YOUT fields of the guidance's GdcY, the MSN_USYS fields after
+    `assign`)."""
+    s2, av_y = avionics.f_periodic(s_av, u_av, ctl_vehicle_y(y), dt)
+    sys2 = avionics.assign(msn_usys(u_sys), av_y)
+    g = av_y["inner"]["gdc"]
+    return (s2, _commands(av_y["inner"]["ctl"]),
+            {k: getattr(g, k) for k, _ in GDC_YOUT}, msn_usys(sys2))
 
 
 def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
@@ -975,6 +1134,15 @@ def pack_gdc_ctl_laws(avionics, y, u_av, s_av, dt):
     return buf, rows(GDC_OUT), (float(dt),), {"gains": ctl_gains(avionics)}
 
 
+def pack_msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
+    like = y["EAS"]
+    ctl_u, ctl_s = u_av["ctl"], s_av["inner"]["ctl"]
+    buf = pack(MSN_IN, (y, ctl_u["lon"], ctl_u["lat"], ctl_s["lon"],
+                        ctl_s["lat"], u_av["gdc"], s_av, u_sys),
+               like.shape[0], like.dtype)
+    return buf, rows(MSN_OUT), (float(dt),), {"gains": ctl_gains(avionics)}
+
+
 def pack_geoid(geo, q_ew):
     buf = pack(GEOID_IN, ({"q_ew": q_ew},), q_ew.shape[0])
     return buf, rows(GEOID_OUT), (), {"grid": geoid_grid(geo)}
@@ -984,7 +1152,8 @@ PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
         "finish_kin": pack_finish_kin, "systems": pack_systems,
         "finish_sys": pack_finish_sys, "rk4_stage": pack_rk4_stage,
         "rk4_finish": pack_rk4_finish, "geoid": pack_geoid,
-        "ctl_laws": pack_ctl_laws, "gdc_ctl_laws": pack_gdc_ctl_laws}
+        "ctl_laws": pack_ctl_laws, "gdc_ctl_laws": pack_gdc_ctl_laws,
+        "msn_ctl_laws": pack_msn_ctl_laws}
 # the fly-by-wire instances pack as their mechanical twins (by the
 # vehicle's layout)
 PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
@@ -994,6 +1163,7 @@ PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
 _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
               for k, n in dict(lay.names, megakernel=lay.mega_name).items()}
 _INSTANCES[GDC.mega_name] = ("megakernel", GDC)
+_INSTANCES[MSN.mega_name] = ("megakernel", MSN)
 
 
 def _av_tree(d):
@@ -1018,8 +1188,12 @@ def av_groups(lay):
 def pack_avionics(lay, u_av, s_av, B, dtype):
     """The avionics' inputs and state as the rows of `av_groups(lay)`: u
     lon, u lat, s lon, s lat (of the control laws), then on the C172Xv2 the
-    guidance's inputs."""
-    if lay.pass_name == "gdc_ctl_laws":
+    guidance's inputs, then a mission's phase and clock."""
+    if lay.pass_name == "msn_ctl_laws":
+        s_ctl = s_av["inner"]["ctl"]
+        objs = (u_av["ctl"]["lon"], u_av["ctl"]["lat"], s_ctl["lon"],
+                s_ctl["lat"], u_av["gdc"], s_av)
+    elif lay.pass_name == "gdc_ctl_laws":
         objs = (u_av["ctl"]["lon"], u_av["ctl"]["lat"], s_av["ctl"]["lon"],
                 s_av["ctl"]["lat"], u_av["gdc"])
     else:
@@ -1029,13 +1203,16 @@ def pack_avionics(lay, u_av, s_av, B, dtype):
 
 def unpack_avionics(lay, buf):
     """(u_av, s_av) of the rows `pack_avionics` writes, typed again."""
-    u_lon, u_lat, s_lon, s_lat, *gdc = unpack(av_groups(lay), buf,
-                                              typed=True)
+    u_lon, u_lat, s_lon, s_lat, *more = unpack(av_groups(lay), buf,
+                                               typed=True)
     u_av = {"lon": u_lon, "lat": u_lat}
     s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
-    if gdc:
-        return {"ctl": u_av, "gdc": _gdc_tree(gdc[0])}, {"ctl": s_av}
-    return u_av, s_av
+    if not more:
+        return u_av, s_av
+    u_av = {"ctl": u_av, "gdc": _gdc_tree(more[0])}
+    if len(more) > 1:
+        return u_av, {"inner": {"ctl": s_av}, **more[1]}
+    return u_av, {"ctl": s_av}
 
 
 def unpack_out(name, out, comp=False):
@@ -1052,6 +1229,11 @@ def unpack_out(name, out, comp=False):
         s_lon, s_lat, cmd, g = unpack(GDC_OUT, out, typed=True)
         return ({"ctl": {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}},
                 cmd, g)
+    if base == "msn_ctl_laws":
+        s_lon, s_lat, cmd, g, sm, sys_ = unpack(MSN_OUT, out, typed=True)
+        return ({"inner": {"ctl": {"lon": _av_tree(s_lon),
+                                   "lat": _av_tree(s_lat)}}, **sm},
+                cmd, g, sys_)
     if base == "megakernel":
         n = 1 + rows(lay.rkfin_in)
         xv, uv, sv, terminated, c_kin = unpack_vehicle(out[1:n], lay)
@@ -1248,6 +1430,15 @@ def gdc_ctl_laws(avionics, y, u_av, s_av, dt):
     return unpack_out("gdc_ctl_laws", _launch("gdc_ctl_laws", args))
 
 
+def msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
+    """`msn_ctl_laws_plain` on the CPU, the `msn_ctl_laws` CUDA kernel on
+    the card."""
+    args = (avionics, y, u_av, s_av, dt, u_sys)
+    if y["EAS"].device.type == "cpu":
+        return msn_ctl_laws_plain(*args)
+    return unpack_out("msn_ctl_laws", _launch("msn_ctl_laws", args))
+
+
 def geoid_packed(geo, q_rows, block=None):
     """The undulation `[1, B]` under the q_ew rows `[4, B]`: the kernel on
     the card, `geoid_plain` on the CPU."""
@@ -1263,15 +1454,16 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     buffers of `parallel/megakernel.py`; returns the new buffers. `block`
     is the aircraft per block, 32 or 64. With the fly-by-wire vehicle the
     instance `megakernel_fbw`, which also runs the `avionics`' (the control
-    laws') periodic pass every `spp` steps at their `periodic_dt`, or with
-    the C172Xv2's avionics `megakernel_gdc`, whose pass runs the guidance
-    first."""
+    laws') periodic pass every `spp` steps at their `periodic_dt`, with the
+    C172Xv2's avionics `megakernel_gdc`, whose pass runs the guidance
+    first, or with a mission over them `megakernel_msn`, whose pass runs
+    the phase machine first."""
     name = layout_of(vehicle, avionics).mega_name
     out = L.launch_megakernel(
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
         None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
-        gdc=name == GDC.mega_name)
+        gdc=name == GDC.mega_name, msn=name == MSN.mega_name)
     LAUNCHES[name] += 1
     return out
 

@@ -47,17 +47,19 @@ LANES = 32
 # mechanical twins (csrc/c172_systems.cuh, `ActKind`)
 FBW_KERNELS = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
                "rk4_finish_fbw")
-# the avionics' instances: the whole step with the C172Xv1's control laws
-# and with the C172Xv2's guidance and control laws, and their passes as
-# kernels of their own
-AV_KERNELS = ("megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws")
+# the avionics' instances: the whole step with the C172Xv1's control laws,
+# with the C172Xv2's guidance and control laws and with a scripted mission
+# over them, and their passes as kernels of their own
+AV_KERNELS = ("megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
+              "megakernel_msn", "msn_ctl_laws")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
-               "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc")
+               "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc",
+               "megakernel_msn")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -74,7 +76,7 @@ WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
                "megakernel", *FBW_KERNELS)
 WITH_GRID = ("geoid", "megakernel")
-WITH_GAINS = ("ctl_laws", "gdc_ctl_laws")
+WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws")
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -178,7 +180,9 @@ def library():
                    "ctl_laws": [P, P, P, I, D, I, P]}
             sig.update({k: sig[k[:-len("_fbw")]] for k in FBW_KERNELS})
             sig.update(megakernel_gdc=sig["megakernel_fbw"],
-                       gdc_ctl_laws=sig["ctl_laws"])
+                       gdc_ctl_laws=sig["ctl_laws"],
+                       megakernel_msn=sig["megakernel_fbw"],
+                       msn_ctl_laws=sig["ctl_laws"])
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -326,8 +330,9 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     """Run kernel `name` on a packed `[n_in, B]` CUDA tensor, with its
     other operands: `k` (k_prev or the k-sum, `[n_x, B]`) for the two RK4
     kernels, the parameter buffer for the kernels of the C172 systems, the
-    geoid grid for `geoid`, the control laws' gains for `ctl_laws` and
-    `gdc_ctl_laws`.
+    geoid grid for `geoid`, the control laws' gains for `ctl_laws`,
+    `gdc_ctl_laws` and `msn_ctl_laws` (with the mission table for the
+    last, `kernels.ctl_gains`).
     Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn(name, dtype, device)
@@ -365,19 +370,23 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
 
 
 def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
-                      gains=None, spp=1, periodic_dt=0.0, gdc=False):
+                      gains=None, spp=1, periodic_dt=0.0, gdc=False,
+                      msn=False):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
     new (state, i) in fresh buffers. `block` is the aircraft per block.
     With the control laws' `gains` the fly-by-wire instance
     `megakernel_fbw`, whose periodic pass fires every `spp` steps at
-    `periodic_dt`, or with `gdc` the C172Xv2's `megakernel_gdc`, whose pass
-    runs the guidance first. Does not synchronise."""
+    `periodic_dt`, with `gdc` the C172Xv2's `megakernel_gdc`, whose pass
+    runs the guidance first, or with `msn` a mission's `megakernel_msn`,
+    whose pass runs the phase machine first (its gains hold the mission
+    table). Does not synchronise."""
     fbw = gains is not None
-    if gdc and not fbw:
-        raise ValueError("megakernel_gdc takes the control laws' gains")
-    name = ("megakernel_gdc" if gdc else "megakernel_fbw" if fbw
-            else "megakernel")
+    if (gdc or msn) and not fbw:
+        raise ValueError("the avionics' megakernels take the control laws' "
+                         "gains")
+    name = ("megakernel_msn" if msn else "megakernel_gdc" if gdc
+            else "megakernel_fbw" if fbw else "megakernel")
     dtype, device = state.dtype, state.device
     fn = _fn(name, dtype, device)
     B = state.shape[1]

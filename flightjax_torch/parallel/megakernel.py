@@ -11,7 +11,10 @@ the servos and their commands, and the avionics' inputs and state (the
 control laws' modes, altitude machine and saturation flags as exact small
 integers) follow C (`csrc/c172x_ctl.cuh`); on the C172Xv2
 (`megakernel_gdc`) the guidance's inputs follow them
-(`csrc/c172x_gdc.cuh`). This takes the place of the part
+(`csrc/c172x_gdc.cuh`), and over a scripted mission (`megakernel_msn`)
+the phase index and the mission clock follow those (`csrc/c172x_msn.cuh`).
+The rows of the buffer: 69 (the C172S), 141 (the C172Xv1), 158 (the
+C172Xv2), 160 (a mission). This takes the place of the part
 of `flightjax/parallel/packed.py::make_packer` the JAX kernel uses: the
 layout is fixed by the kernel, so `pack` / `unpack` here are plain row
 maps.
@@ -22,7 +25,9 @@ computes it: RK4, the compensated add when residuals are carried
 C172Xv1 the masked periodic pass (`sim.py:327-333`: the control laws where
 a lane's new counter is a multiple of `steps_per_periodic`), and the geoid
 refreshed on every step (`megakernel.py:144-154`, which ignores
-`geoid_every`). On the C172Xv2 the pass runs the guidance laws first. The
+`geoid_every`). On the C172Xv2 the pass runs the guidance laws first;
+over a mission the phase machine runs before them, and the new phase's
+systems overrides (flaps, brakes, engine start) follow them. The
 pass reads the undulation from before the refresh, as the JAX kernel,
 stepping under `geoid_deferred`, does. There is no fleet
 gear gate, as in the rest of the port.
@@ -65,12 +70,14 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     block has eight times as many threads. The step compensates iff
     `state.c` is set, as `Simulation.step` does. Carries the C172S, the
     fly-by-wire C172Xv1 with its `ControlLaws` and the C172Xv2 with its
-    guidance and control laws (`c172x_gdc.Avionics`)."""
+    guidance and control laws (`c172x_gdc.Avionics`), and a scripted
+    mission over those whose phases carry descriptors (`core/mission.py`,
+    `models/c172/missions.py`)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
             "mission is an avionics wrapper (MissionAvionics, "
-            "core/mission.py), ROADMAP Queue 2")
+            "core/mission.py)")
     aircraft = sim.system.aircraft
     vehicle, avionics = aircraft.vehicle, aircraft.avionics
     lay = K.layout_of(vehicle)  # refuses second-order servos

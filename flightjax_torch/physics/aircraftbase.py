@@ -80,8 +80,9 @@ class Vehicle:
         wow = torch.stack([sys_.ldg.strut_y_leg(j, steering[..., j], kin,
                                                 trn).wow
                            for j in range(sys_.ldg.n)], dim=-1)
-        return VehicleY(systems=systems_y(sys_, x["systems"], u["systems"],
-                                          alpha, beta, wow),
+        return VehicleY(systems=systems_y(
+            sys_, x["systems"], u["systems"], alpha, beta, wow,
+            s["systems"]["pwp"]["engine"]["state"]),
                         kinematics=kin, dynamics=None, airflow=air)
 
 

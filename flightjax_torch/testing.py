@@ -650,3 +650,227 @@ def xv2_fleet_sim(batch, seed, device, dtype):
                   u=tree_from_numpy(u, device, dtype),
                   s=tree_from_numpy(s, device, dtype))
     return sim, sim.with_compensation(st), lanes
+
+
+# ------------------------------------------------------------ the missions
+
+# the offsets of a lane from a switch point of a phase's predicate, below
+# and above it: the mission clock (s), the distance to go of a captured
+# leg (m) and the height over the runway's end of the final leg (m)
+CLOCK_SIDES = (4.98, 5.0)
+CAPTURE_SIDES = (-205.0, -195.0)
+FINAL_SIDES = (6.5, 5.5)
+# the legs that end the four captured phases, in their order
+CAPTURED_LEGS = ("departure", "crosswind", "downwind", "base")
+# a phase index past the traffic pattern's ten, which the switch clips
+PAST_END = 12
+
+
+def _leg_point(leg, s_2b):
+    """(n_e, h_e) in float64 of the point on `leg` whose distance to go to
+    its second endpoint is about -s_2b."""
+    from flightjax_torch.ops import geodesy as geo
+    r1 = geo.cartesian_from_geographic(leg.n_e1, leg.h_e1)
+    r2 = geo.cartesian_from_geographic(leg.n_e2, leg.h_e2)
+    d = (r1 - r2) / torch.linalg.norm(r1 - r2)
+    n_e, h = geo.geographic_from_cartesian(r2 + d * (-s_2b))
+    return n_e.numpy(), float(h)
+
+
+def msn_operands(batch, seed, y, legs):
+    """numpy (phase, t, eng_state, u_sys) of a traffic-pattern mission on
+    `batch` lanes, editing the MSN_Y fields `y` (the CTL_Y and n-vector of
+    `gdc_laws_args`) in place: lanes in each of the ten phases and, for
+    each done kind, a lane on each side of its switch: the clock at
+    CLOCK_SIDES of the standby's 5 s; the engine running or starting in
+    the startup; weight on wheels or none in the takeoff (airborne) and
+    the flare (on the ground); the position at CAPTURE_SIDES of each
+    captured leg's -200 m gate; the height FINAL_SIDES over the runway's
+    end in the final; the last phase, which never advances; a phase index
+    past the end (PAST_END). The other lanes cycle through the phases at
+    clocks, engine states and positions drawn from the seed. u_sys holds
+    the flaps, brake and starter inputs the phases may override, drawn."""
+    from flightjax_torch.models.c172 import missions as M
+    rng = np.random.default_rng(seed)
+    lane = np.arange(batch)
+    phase = (lane % 10).astype(np.int32)
+    t = rng.uniform(0.0, 400.0, batch)
+    eng = rng.integers(0, 3, batch).astype(np.int32)
+    wow = y["wow"]
+    special = []
+    for c in CLOCK_SIDES:
+        special.append((M.STANDBY, dict(t=c)))
+    for e in (1, 2):  # starting, running
+        special.append((M.STARTUP, dict(eng=e)))
+    for ph in (M.TAKEOFF, M.FLARE):
+        for on in (False, True):
+            special.append((ph, dict(wow=on)))
+    for k, name in enumerate(CAPTURED_LEGS):
+        for s_2b in CAPTURE_SIDES:
+            special.append((M.DEPARTURE + k, dict(leg=(legs[name], s_2b))))
+    h_end = float(legs["final"].h_e2)
+    for dh in FINAL_SIDES:
+        special.append((M.FINAL, dict(h=h_end + dh)))
+    special += [(M.GROUND, {}), (PAST_END, {})]
+    for j, (ph, what) in enumerate(special[:batch]):
+        phase[j] = ph
+        if "t" in what:
+            t[j] = what["t"]
+        if "eng" in what:
+            eng[j] = what["eng"]
+        if "wow" in what:
+            wow[j] = [False, what["wow"], False]
+        if "leg" in what:
+            y["n_e"][j], y["h_e"][j] = _leg_point(*what["leg"])
+            wow[j] = False
+        if "h" in what:
+            y["h_e"][j] = what["h"]
+    y["eng_state"] = eng
+    u_sys = {"act": {k: rng.uniform(0.0, 1.0, batch)
+                     for k in ("flaps", "brake_left", "brake_right")},
+             "pwp": {"engine": {"start": rng.random(batch) < 0.5}}}
+    return phase, t, eng, u_sys
+
+
+def msn_laws_args(batch, seed, device, dtype, ground_lanes=(), dt=0.02):
+    """The wrapper arguments of `msn_ctl_laws` (avionics, y, u, s, dt,
+    u_sys): the traffic pattern's phase machine over the C172Xv2's
+    avionics, on the mode-rich mission operands of `msn_operands` over the
+    mode-rich guidance and control-law operands of `gdc_laws_args`, on
+    `device`."""
+    from flightjax_torch.models.c172 import missions as M
+    y = ctl_y_operands(batch, seed, ground_lanes)
+    rng = np.random.default_rng(seed + 2)
+    lat, lon = rng.uniform(-1.2, 1.2, batch), rng.uniform(-np.pi, np.pi,
+                                                          batch)
+    y["n_e"] = np.stack([np.cos(lat) * np.cos(lon),
+                         np.cos(lat) * np.sin(lon), np.sin(lat)], -1)
+    u, s = ctl_operands(batch, seed + 1, y["h_e"])
+    u_gdc = gdc_operands(batch, seed + 3, y["n_e"], y["h_e"])
+    legs = M.lows_pattern()
+    phase, t_m, _, u_sys = msn_operands(batch, seed + 4, y, legs)
+    t = lambda tree: tree_from_numpy(tree, device, dtype)
+    avionics = M.mission_avionics(M.traffic_pattern_phases(legs),
+                                  device=device, dtype=dtype)
+    return (avionics, t(y), {"ctl": t(u), "gdc": gdc_tree(u_gdc, device,
+                                                          dtype)},
+            {"inner": {"ctl": t(s)}, "phase": t(phase), "t": t(t_m)}, dt,
+            t(u_sys))
+
+
+def msn_sim(device, dtype, spp=1):
+    """The Simulation of the traffic pattern's phase machine as the operand
+    states fly it: over the C172X's own terrain at 0 m (on which the
+    cluster operands' runway lanes stand), dt 0.02 s, the pass every `spp`
+    steps, the geoid every 128 steps."""
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172 import c172x, missions as M
+    from flightjax_torch.physics.aircraftbase import Aircraft, SimpleWorld
+    aircraft = Aircraft(c172x.build_vehicle(device=device, dtype=dtype),
+                        M.mission_avionics(M.traffic_pattern_phases(),
+                                           device=device, dtype=dtype))
+    return Simulation(SimpleWorld(aircraft), dt=0.02,
+                      periodic_dt=spp * 0.02, geoid_every=128)
+
+
+def msn_operand_state(batch, seed, device, dtype, ground_lanes=(),
+                      terminated_lanes=(), crash_lanes=(), i0=0):
+    """The mission world's SimState over the C172Xv2 cluster state of
+    `xv2_operand_state` (the fly-by-wire cluster operands, the mode-rich
+    control laws and guidance): lane k in phase k % 12 (the last two past
+    the traffic pattern's ten), the clock drawn around the standby's 5 s
+    on the standby lanes and over 400 s elsewhere."""
+    st = xv2_operand_state(batch, seed, device, dtype, ground_lanes,
+                           terminated_lanes, crash_lanes, i0)
+    rng = np.random.default_rng(seed + 8)
+    lane = np.arange(batch)
+    phase = (lane % 12).astype(np.int32)
+    t = np.where(phase == 0, rng.uniform(4.9, 5.1, batch),
+                 rng.uniform(0.0, 400.0, batch))
+    s_av = {"inner": st.s["avionics"],
+            "phase": torch.tensor(phase, device=device),
+            "t": torch.tensor(t, dtype=dtype, device=device)}
+    return st._replace(s=dict(st.s, avionics=s_av))
+
+
+# the mission fleet: half the lanes land (the crosswind landing: the final
+# leg's trim, an easterly crosswind in +-WIND_SPREAD of WIND_E, off the
+# track by up to CROSS_TRACK m and off the trim's height by up to
+# LANDING_DH m, the body velocity by up to 1 m/s), half fly the whole
+# circuit from a cold start on the threshold (wind N(0, PATTERN_WIND) in
+# the horizontal, the heading by up to HEADING_DEG)
+WIND_E, WIND_SPREAD, CROSS_TRACK, LANDING_DH = 6.0, 3.0, 20.0, 5.0
+PATTERN_WIND, HEADING_DEG = 2.0, 1.0
+
+
+def msn_scenario(batch, seed):
+    """numpy (t, i, x, u, s) of `batch` C172Xv2 flying the traffic
+    pattern's phase set over the LOWS terrain, and (landing lanes,
+    pattern lanes): the first half started in the final phase at the
+    final-leg trim (`missions.landing_state`, the crosswind landing), the
+    second half cold on the runway in the standby (`missions.
+    runway_state`), each perturbed from a numpy seed."""
+    from flightjax_torch.bridge import tree_to_numpy
+    from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.models.c172.c172x import offset_point
+    from flightjax_torch.ops import geodesy as geo
+    phases = M.traffic_pattern_phases()
+    lane = np.arange(batch)
+    land, pattern = lane[:batch // 2], lane[batch // 2:]
+    one = [tree_to_numpy(st) for st in (
+        M.landing_state(0.02, torch.float64, "cpu", phases),
+        M.runway_state(torch.float64, "cpu", phases))]
+    pick = np.where(lane < batch // 2, 0, 1)
+    t, i, x, u, s = (tree_map(lambda a, b: np.where(
+        pick.reshape((-1,) + (1,) * np.ndim(a)), np.broadcast_to(
+            b, (batch,) + np.shape(b)), np.broadcast_to(
+            a, (batch,) + np.shape(a))).copy(), ta, tb)
+        for ta, tb in zip(one[0][:5], one[1][:5]))
+    rng = np.random.default_rng(seed)
+    kin, dyn = x["vehicle"]["kinematics"], x["vehicle"]["dynamics"]
+    wind = u["vehicle"]["atm"]["wind"]
+    # the landing lanes: crosswind, cross-track and height offsets
+    n = len(land)
+    wind[land] = np.stack([np.zeros(n), rng.uniform(
+        WIND_E - WIND_SPREAD, WIND_E + WIND_SPREAD, n), np.zeros(n)], -1)
+    q = torch.as_tensor(kin["q_ew"][land])
+    A, B = geo.get_psi_nw_ab(q)
+    n_e = geo.nvector_from_qew(q)
+    lat, lon = geo.latlon_from_nvector(n_e)
+    off = rng.uniform(-CROSS_TRACK, CROSS_TRACK, n)
+    chi = M.PSI_LOWS15 + np.pi / 2
+    lat2, lon2 = offset_point(lat.numpy(), lon.numpy(), kin["h_e"][land],
+                              off * np.cos(chi), off * np.sin(chi))
+    kin["q_ew"][land] = geo.ltf(geo.nvector_from_latlon(
+        torch.as_tensor(lat2), torch.as_tensor(lon2)),
+        torch.atan2(A, B)).numpy()
+    kin["h_e"][land] += rng.uniform(-LANDING_DH, LANDING_DH, n)
+    dyn["v_eb_b"][land] += rng.uniform(-1.0, 1.0, (n, 3))
+    s["avionics"]["phase"][land] = M.FINAL
+    # the pattern lanes: wind and heading
+    m = len(pattern)
+    wind[pattern] = np.concatenate([rng.normal(0.0, PATTERN_WIND, (m, 2)),
+                                    np.zeros((m, 1))], -1)
+    dpsi = np.deg2rad(rng.uniform(-HEADING_DEG, HEADING_DEG, m))
+    dq = np.stack([np.cos(dpsi / 2), np.zeros(m), np.zeros(m),
+                   np.sin(dpsi / 2)], -1)
+    kin["q_wb"][pattern] = qmul_np(dq, kin["q_wb"][pattern])
+    return (t, i, x, u, s), (land, pattern)
+
+
+def msn_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState, (landing lanes, pattern lanes)) of `msn_scenario`
+    on `device`: the traffic pattern's mission world over the LOWS terrain
+    (`missions.mission_sim`: dt = periodic_dt = 0.02 s, the geoid every
+    128 steps), with the position compensation it gives in sub-float64
+    dtypes."""
+    from flightjax_torch.models.c172 import missions as M
+    sim = M.mission_sim(M.traffic_pattern_phases(), device=device,
+                        dtype=dtype)
+    (t, i, x, u, s), lanes = msn_scenario(batch, seed)
+    st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                  i=torch.tensor(i, device=device),
+                  x=tree_from_numpy(x, device, dtype),
+                  u=tree_from_numpy(u, device, dtype),
+                  s=tree_from_numpy(s, device, dtype))
+    return sim, sim.with_compensation(st), lanes

@@ -665,8 +665,8 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
         make_megakernel_step(sim, st, ("mission",))
     with pytest.raises(NotImplementedError, match="core/mission.py"):
         sim.fleet_step(st, ("mission",), i=0)
-    # a second-order servo (ROADMAP Queue 2) and other avionics (a
-    # mission's, Queue 2) have no kernel
+    # a second-order servo (ROADMAP Queue 2) and avionics other than the
+    # C172X's control laws, guidance and missions over them have no kernel
     servo2 = Simulation(SimpleWorld(Tx.build_xv1(
         device="cpu", dtype=F64, actuators={"elevator": Tx.Actuator2()})))
     with pytest.raises(ValueError, match="Actuator2"):
@@ -676,13 +676,23 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
         pass
     other = Simulation(SimpleWorld(Aircraft(sim.system.aircraft.vehicle,
                                             Guidance())))
-    with pytest.raises(NotImplementedError, match="mission megakernel"):
+    with pytest.raises(NotImplementedError, match="have no kernel"):
         make_megakernel_step(other, st)
-    # the splits' periodic pass is the `ctl_laws` or `gdc_ctl_laws` kernel
-    with pytest.raises(NotImplementedError, match="mission megakernel"):
+    # the splits' periodic pass is the `ctl_laws`, `gdc_ctl_laws` or
+    # `msn_ctl_laws` kernel
+    with pytest.raises(NotImplementedError, match="have no kernel"):
         other.fleet_step(st, i=0)
-    with pytest.raises(NotImplementedError, match="mission megakernel"):
+    with pytest.raises(NotImplementedError, match="have no kernel"):
         make_cluster_step(other, st, split="vehicle")(st, i=0)
+    # a mission of arbitrary callables (over the control laws) flies the
+    # plain path only
+    from flightjax_torch.core.mission import MissionAvionics, Phase
+    hold = Phase("hold", lambda u, y, t: u, lambda y, t: torch.tensor(False))
+    mission = Simulation(SimpleWorld(Aircraft(
+        sim.system.aircraft.vehicle,
+        MissionAvionics(sim.system.aircraft.avionics, [hold]))))
+    with pytest.raises(NotImplementedError, match="c172x_gdc.Avionics"):
+        make_megakernel_step(mission, st)
 
     class Nav:
         needs_terrain = True

@@ -433,14 +433,16 @@ def test_gdc_layouts_match_csrc():
     assert [k for k, _ in K.GDC_YOUT] == ["mode", "dchi", "chi_ref",
                                           "h_ref", "hor_gdc", "vrt_gdc"]
     assert {"megakernel_gdc", "gdc_ctl_laws"} <= set(L.ROLE_KERNELS)
-    assert len(L.KERNELS) == 17
+    assert len(L.KERNELS) == 19
     assert K.GDC.mega_name == "megakernel_gdc"
     assert K.GDC.pass_name == "gdc_ctl_laws"
 
 
 def test_xv2_paths_never_import_jax():
     """Building the C172Xv2 and stepping it through both splits and the
-    megakernel with the guidance engaged leaves JAX out of the process."""
+    megakernel with the guidance engaged, and the mission fleet (the LOWS
+    traffic pattern's phase machine over it) alike, leaves JAX out of the
+    process."""
     import subprocess
     import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -451,12 +453,15 @@ def test_xv2_paths_never_import_jax():
         "from flightjax_torch.parallel.clusterstep import make_cluster_step\n"
         "from flightjax_torch.parallel.megakernel import "
         "make_megakernel_step\n"
-        "sim, st, _ = xv2_fleet_sim(4, 1, 'cpu', torch.float32)\n"
-        "a = fleet_rollout(sim, st, 1)\n"
-        "b = make_cluster_step(sim, st, split='vehicle')(st, i=0)\n"
-        "bufs, step, unpack = make_megakernel_step(sim, st)\n"
-        "c = unpack(step(bufs))\n"
-        "for r in (a, b, c):\n"
+        "from flightjax_torch.testing import msn_fleet_sim\n"
+        "out = []\n"
+        "for make in (xv2_fleet_sim, msn_fleet_sim):\n"
+        "    sim, st, _ = make(4, 1, 'cpu', torch.float32)\n"
+        "    out.append(fleet_rollout(sim, st, 1))\n"
+        "    out.append(make_cluster_step(sim, st, split='vehicle')(st, i=0))\n"
+        "    bufs, step, unpack = make_megakernel_step(sim, st)\n"
+        "    out.append(unpack(step(bufs)))\n"
+        "for r in out:\n"
         "    assert bool(torch.isfinite(r.x['vehicle']['kinematics']['h_e'])"
         ".all())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

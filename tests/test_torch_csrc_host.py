@@ -282,6 +282,26 @@ void host_gdc_ctl_laws(const double* in, const double* gains,
   BLOCKS(2, lanes, k_ctl_laws::gdc_ctl_laws_kernel<SD>(
       (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
 }
+// the mission's instances: the megakernel with the phase machine, the
+// guidance and the control laws' pass, and that pass as msn_ctl_laws, on
+// the signatures above (the gains hold the mission table)
+void host_megakernel_msn(const double* in, const int* i_in, const double* p,
+                         const double* grid, const double* gains,
+                         double* const* outs, int* i_out, int B,
+                         int n_params, double dt, double t_start, int comp,
+                         int spp, double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW, SD,
+                                         k_megakernel::AV_MSN>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
+void host_msn_ctl_laws(const double* in, const double* gains,
+                       double* const* outs, int B, double dt, int lanes) {
+  BLOCKS(2, lanes, k_ctl_laws::msn_ctl_laws_kernel<SD>(
+      (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
+}
 }
 """
 
@@ -299,7 +319,7 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
     parts = ['#include "c172_systems.cuh"', '#include "c172x_ctl.cuh"',
-             '#include "c172x_gdc.cuh"']
+             '#include "c172x_gdc.cuh"', '#include "c172x_msn.cuh"']
     for name in NAMES + VEHICLE_NAMES + ("megakernel", "ctl_laws"):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh:
             src = fh.read()
@@ -787,17 +807,20 @@ def _xv1_state(batch):
 
 
 def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False,
-                        gdc=False):
+                        gdc=False, msn=False):
     """The fly-by-wire megakernel's source on the C172Xv1 cluster state
     (`_xv1_state`: the fly-by-wire cluster operands with the mode-rich
     avionics; with spp = 2 every other lane's counter fires), block by
     block; (sim, state, the kernel's new state) or with `by_role` (sim,
     state, one state buffer per role, NaN where the role wrote nothing).
     With `gdc` its C172Xv2 instance on the C172Xv2 cluster state
-    (`_xv2_state`, the mode-rich guidance too)."""
+    (`_xv2_state`, the mode-rich guidance too), with `msn` its mission
+    instance on the mission's cluster state (`_msn_state`, every phase
+    too)."""
     from flightjax_torch.core.sim import comp_residuals
     from flightjax_torch.parallel.megakernel import make_megakernel_step
-    sim, st = ((_xv2_sim(spp), _xv2_state(batch)) if gdc
+    sim, st = ((_msn_sim(spp), _msn_state(batch)) if msn
+               else (_xv2_sim(spp), _xv2_state(batch)) if gdc
                else (_xv1_sim(spp), _xv1_state(batch)))
     st = st._replace(i=st.i + torch.arange(batch, dtype=torch.int32) % spp)
     if comp:
@@ -811,7 +834,8 @@ def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False,
     ptrs = (ctypes.c_void_p * n_roles)(
         *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
     i_out = torch.full_like(bufs[1], -1)
-    getattr(host_lib, "host_megakernel_" + ("gdc" if gdc else "fbw"))(
+    getattr(host_lib, "host_megakernel_" + ("msn" if msn else "gdc" if gdc
+                                            else "fbw"))(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), ptrs, _ptr(i_out),
@@ -985,6 +1009,125 @@ def test_megakernel_gdc_roles_partition_the_output(host_lib):
     aircraft."""
     _, _, outs = _run_megakernel_fbw(host_lib, B, 32, True, by_role=True,
                                      gdc=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+# ------------------------------------------------------------ the missions
+
+def _msn_args(batch):
+    from flightjax_torch.testing import msn_laws_args
+    return msn_laws_args(batch, 1016, "cpu", torch.float64, (21, 22))
+
+
+def _msn_fleet_args(batch):
+    """msn_ctl_laws' arguments on the pass of the mission fleet
+    (`testing.msn_fleet_sim`: landing lanes on the final, pattern lanes
+    cold on the runway), one megakernel step in."""
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import msn_fleet_sim
+    sim, st, _ = msn_fleet_sim(batch, 1016, "cpu", torch.float64)
+    bufs, step, unpack = make_megakernel_step(sim, st)
+    st = unpack(step(bufs))
+    aircraft = sim.system.aircraft
+    vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                 st.s["vehicle"])
+    return (aircraft.avionics, K.msn_y(vy), st.u["avionics"],
+            st.s["avionics"], sim.periodic_dt, st.u["vehicle"]["systems"])
+
+
+MSN_CASES = ([("rich", B, 32), ("rich", 37, 32), ("rich", 70, 64)]
+             + [("fleet", 37, 32), ("fleet", 37, 64)])
+
+
+@pytest.mark.parametrize(
+    "operands,batch,lanes", MSN_CASES,
+    ids=[("" if o == "rich" else o + "-") + f"B{b}-L{n}"
+         for o, b, n in MSN_CASES])
+def test_msn_ctl_laws_source_matches_plain(host_lib, operands, batch,
+                                           lanes):
+    """msn_ctl_laws against `msn_ctl_laws_plain` (the phase machine, the
+    guidance and the control laws on the inputs the phase overrides, the
+    new phase's systems overrides), to 1e-12, phases, modes and flags
+    exactly: on the mode-rich mission operands (every phase, each
+    predicate on both sides of its switch, a phase past the end) and on
+    the pass of the mission fleet."""
+    args = (_msn_args(batch) if operands == "rich"
+            else _msn_fleet_args(batch))
+    got = K.unpack_out("msn_ctl_laws",
+                       _run_ctl_laws(host_lib, args, lanes,
+                                     name="msn_ctl_laws"))
+    ref = K.msn_ctl_laws_plain(*args)
+    _assert_trees_close(got, ref)
+    moved = ref[0]["phase"] != args[3]["phase"]
+    if operands == "rich":
+        assert bool(moved.any()) and bool((~moved).any())
+        assert set(ref[2]["mode"].tolist()) == {0, 1, 2}
+    else:  # the landing lanes fly their final leg, the rest stand by
+        assert not bool(moved.any())
+        assert set(ref[2]["mode"].tolist()) == {0, 1}
+
+
+def test_msn_ctl_laws_sides_partition_the_output(host_lib):
+    """Every output row of msn_ctl_laws, the phase machine's among them,
+    is written by exactly one of its two sides, for every aircraft."""
+    outs = _run_ctl_laws(host_lib, _msn_args(B), 32, by_side=True,
+                         name="msn_ctl_laws")
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _msn_sim(spp):
+    from flightjax_torch.testing import msn_sim
+    return msn_sim("cpu", torch.float64, spp)
+
+
+@functools.lru_cache(maxsize=None)
+def _msn_state(batch):
+    from flightjax_torch.testing import msn_operand_state
+    return msn_operand_state(batch, 1016, "cpu", torch.float64, (3, 17),
+                             (5,), (CRASH_LANE,), i0=126)
+
+
+@pytest.mark.parametrize(
+    "comp,spp,batch,lanes",
+    [(False, 1, B, 32), (True, 1, B, 32), (False, 2, B, 32),
+     (True, 1, 37, 32), (False, 2, 70, 64)],
+    ids=["uncompensated", "compensated", "every-2nd", "compensated-B37-L32",
+         "every-2nd-B70-L64"])
+def test_megakernel_msn_source_matches_plain(host_lib, comp, spp, batch,
+                                             lanes):
+    """The mission megakernel against `megakernel_step_plain`: the whole
+    step with the servos, then the phase machine, the guidance and the
+    control laws on the mode-rich avionics where the lane's new counter
+    fires, and the new phase's systems overrides."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_fbw(host_lib, batch, lanes, comp, spp,
+                                       msn=True)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    assert bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+    fired = (st.i + 1) % spp == 0
+    moved = ref.s["avionics"]["phase"] != st.s["avionics"]["phase"]
+    assert bool(moved.any()) and not bool(moved[~fired].any())
+    act, act0 = ref.u["vehicle"]["systems"]["act"], st.u["vehicle"][
+        "systems"]["act"]
+    assert bool((act["flaps"] != act0["flaps"])[fired].any())
+
+
+def test_megakernel_msn_roles_partition_the_output(host_lib):
+    """Every row of the mission megakernel's new state buffer, the phase
+    machine's and the overridden systems inputs among them, is written by
+    exactly one role, for every aircraft."""
+    _, _, outs = _run_megakernel_fbw(host_lib, B, 32, True, by_role=True,
+                                     msn=True)
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]

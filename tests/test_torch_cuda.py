@@ -16,7 +16,10 @@ C172Xv1's three paths, with the control laws' periodic pass, a few steps
 (the megakernel 500 in float32) against the plain step. The C172Xv2's
 instances (gdc_ctl_laws, megakernel_gdc) are held exactly alike, on
 operands that carry every guidance mode as well, and its two splits a few
-steps.
+steps. The mission's instances (msn_ctl_laws, megakernel_msn) are held
+exactly alike, on operands in every phase of the traffic pattern with each
+phase's predicate on both sides of its switch, and on the mission fleet,
+and its two splits a few steps.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -560,6 +563,136 @@ def test_xv2_paths_match_plain_on_card(split, dtype, tol):
             {"kinair": 12, "systems_fbw": 12, "dynamics": 12,
              "finish_kin": 3, "finish_sys_fbw": 3, "geoid": 1})
     want["gdc_ctl_laws"] = 3
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+    assert _worst((got.t, got.x, got.u, got.s),
+                  (ref.t, ref.x, ref.u, ref.s)) <= tol
+
+
+# ------------------------------------------------------------ the missions
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operands", ["rich", "fleet"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_msn_ctl_laws_matches_plain_on_card(operands, batch, lanes, dtype):
+    """msn_ctl_laws against `msn_ctl_laws_plain` exactly, the phase
+    machine's rows too, on the mode-rich mission operands
+    (`testing.msn_laws_args`: every phase, each predicate on both sides of
+    its switch, a phase past the end) and on the mission fleet's pass
+    (`testing.msn_fleet_sim`); the wrapper launches it."""
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.testing import msn_fleet_sim, msn_laws_args
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if operands == "rich":
+        args = msn_laws_args(batch, 1016, "cuda", dtype, (21, 22))
+    else:
+        sim, st, _ = msn_fleet_sim(batch, 1016, "cuda", dtype)
+        aircraft = sim.system.aircraft
+        vy = aircraft.vehicle.output(st.x["vehicle"], st.u["vehicle"],
+                                     st.s["vehicle"])
+        args = (aircraft.avionics, K.msn_y(vy), st.u["avionics"],
+                st.s["avionics"], sim.periodic_dt,
+                st.u["vehicle"]["systems"])
+    ref = K.msn_ctl_laws_plain(*args)
+    buf, n_out, scalars, ops = K.PACK["msn_ctl_laws"](*args)
+    got = K.unpack_out("msn_ctl_laws", L.launch(
+        "msn_ctl_laws", buf, n_out, scalars, block=lanes, **ops))
+    before = K.LAUNCHES["msn_ctl_laws"]
+    via = K.msn_ctl_laws(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["msn_ctl_laws"] == before + 1
+    _assert_same(got, ref)
+    _assert_same(via, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp,spp", [(False, 1), (True, 1), (True, 2)],
+                         ids=["uncompensated", "compensated", "every-2nd"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_msn_matches_plain_on_card(comp, spp, batch, lanes,
+                                              dtype):
+    """One step of the mission megakernel against its plain version,
+    exactly, on the mission's cluster state (`testing.msn_operand_state`:
+    the C172Xv2 cluster state with the mode-rich guidance and control laws,
+    lanes in every phase and past the end), the pass firing on every lane
+    or, at twice the step, on every other lane."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import msn_operand_state, msn_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim = msn_sim("cuda", dtype, spp)
+    st = msn_operand_state(batch, 1016, "cuda", dtype, (3, 17), (5,),
+                           (SMALL_CRASH_LANE,), i0=126)
+    st = st._replace(i=st.i + torch.arange(
+        batch, dtype=torch.int32, device="cuda") % spp)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    ref = megakernel_step_plain(sim, st)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "megakernel_msn": 1}
+    _assert_same(tuple(got), tuple(ref))
+    assert bool(got.s["vehicle"]["systems"]["crashed"][SMALL_CRASH_LANE])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_msn_on_fleet_on_card(lanes, dtype):
+    """20 steps of the mission megakernel on the mission fleet against its
+    plain version, exactly."""
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import msn_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st, _ = msn_fleet_sim(B, 1016, "cuda", dtype)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    ref = st
+    for _ in range(20):
+        bufs = step_packed(bufs)
+        ref = megakernel_step_plain(sim, ref)
+    torch.cuda.synchronize()
+    _assert_same(tuple(unpack(bufs)), tuple(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["subsystems", "vehicle"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_msn_paths_match_plain_on_card(split, dtype, tol):
+    """The mission fleet, 3 steps from step 126 through each split against
+    the plain cluster step, with the mission's pass after every step; the
+    launch counts."""
+    from flightjax_torch.parallel.clusterstep import (cluster_step,
+                                                      make_cluster_step)
+    from flightjax_torch.testing import msn_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st, _ = msn_fleet_sim(B, 1016, "cuda", dtype)
+    if split == "vehicle":
+        st = st._replace(c=None)
+    step = make_cluster_step(sim, st, split=split)
+    K.reset_launches()
+    got = ref = st
+    for i in range(126, 129):
+        got = step(got, i=i)
+        ref = cluster_step(sim, ref, i, plain=True)
+    torch.cuda.synchronize()
+    want = ({"rk4_stage_fbw": 12, "rk4_finish_fbw": 3, "geoid": 1}
+            if split == "vehicle" else
+            {"kinair": 12, "systems_fbw": 12, "dynamics": 12,
+             "finish_kin": 3, "finish_sys_fbw": 3, "geoid": 1})
+    want["msn_ctl_laws"] = 3
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
     assert _worst((got.t, got.x, got.u, got.s),
                   (ref.t, ref.x, ref.u, ref.s)) <= tol

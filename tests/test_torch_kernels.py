@@ -175,7 +175,7 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
     """On CPU tensors the wrappers are the plain versions and launch
     nothing, on the mechanical C172, on the fly-by-wire one (whose
     instances the same wrappers launch on the card) and on the C172X's
-    two passes."""
+    three passes (the control laws, the guidance, a mission)."""
     from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
     from flightjax_torch.parallel.launch import FBW_KERNELS
     from flightjax_torch.testing import fbw_cluster_operands
@@ -186,13 +186,17 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
                                               (TERMINATED_LANE,)),
                          fbw_vehicle(device="cpu", dtype=torch.float64),
                          "cpu", torch.float64, adt=ADT, dt=DT)
-    from flightjax_torch.testing import ctl_laws_args, gdc_laws_args
+    from flightjax_torch.testing import (ctl_laws_args, gdc_laws_args,
+                                         msn_laws_args)
     ctl = {"ctl_laws": ctl_laws_args(B, SEED, "cpu", torch.float64, (1,)),
            "gdc_ctl_laws": gdc_laws_args(B, SEED, "cpu", torch.float64,
+                                         (1,)),
+           "msn_ctl_laws": msn_laws_args(B, SEED, "cpu", torch.float64,
                                          (1,))}
     K.reset_launches()
     # every kernel but the megakernels, whose steps have their own wrapper
-    mega = {"megakernel", "megakernel_fbw", "megakernel_gdc"}
+    mega = {"megakernel", "megakernel_fbw", "megakernel_gdc",
+            "megakernel_msn"}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS}
     assert {K.FBW.names.get(k, k) for k in fbw} == (
         set(K.LAUNCHES) - {*mega, *ctl, *K.FBW.names})
@@ -205,7 +209,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
     assert K.LAUNCHES == {name: 0 for name in (
         "kinair", "dynamics", "finish_kin", "systems", "finish_sys",
         "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
-        "megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws")}
+        "megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
+        "megakernel_msn", "msn_ctl_laws")}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

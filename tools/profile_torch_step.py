@@ -5,7 +5,9 @@ time goes, by kernel, and how much of the step the device is idle.
     python3 tools/profile_torch_step.py [--paths subsystems,vehicle,megakernel,
                                          xv1_subsystems,xv1_vehicle,
                                          xv1_megakernel,xv2_subsystems,
-                                         xv2_vehicle,xv2_megakernel]
+                                         xv2_vehicle,xv2_megakernel,
+                                         msn_subsystems,msn_vehicle,
+                                         msn_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -19,7 +21,11 @@ splits with the fly-by-wire kernel instances and the periodic pass (the
 megakernel with the pass inside it; and on the C172Xv2 flying the
 guidance scenario (`testing.xv2_fleet_sim`: segments and circles), the
 same three, `xv2_*`, with the `gdc_ctl_laws` kernel as the splits' pass
-and `megakernel_gdc`. For each, a warm window of
+and `megakernel_gdc`; and on the mission fleet (`testing.msn_fleet_sim`:
+the LOWS traffic pattern's phase machine over the C172Xv2, half the lanes
+on the final approach, half cold on the runway) the same three, `msn_*`,
+with the `msn_ctl_laws` kernel as the splits' pass and `megakernel_msn`.
+For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
 ms per step of the same window run without the profiler, the device time per
@@ -43,7 +49,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "xv1_vehicle", "xv1_megakernel", "xv2_subsystems", "xv2_vehicle",
-         "xv2_megakernel")
+         "xv2_megakernel", "msn_subsystems", "msn_vehicle", "msn_megakernel")
+# the fleets of the paths' prefixes
+PREFIXES = ("xv1_", "xv2_", "msn_")
 
 
 def device_us(evt):
@@ -60,7 +68,7 @@ def stepper(path, sim, st):
     from flightjax_torch.parallel.fleet import fleet_rollout
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     box = {"st": st, "i": int(st.i[0])}
-    path = path[len("xv1_"):] if path.startswith(("xv1_", "xv2_")) else path
+    path = path[len("xv1_"):] if path.startswith(PREFIXES) else path
     if path == "subsystems":
         def run(n):
             box["st"] = fleet_rollout(sim, box["st"], n)
@@ -128,8 +136,8 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
-    from flightjax_torch.testing import (perturbed_fleet_sim, xv1_fleet_sim,
-                                         xv2_fleet_sim)
+    from flightjax_torch.testing import (msn_fleet_sim, perturbed_fleet_sim,
+                                         xv1_fleet_sim, xv2_fleet_sim)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -138,10 +146,10 @@ def main():
     fleets = {}
     out = []
     for path in args.paths.split(","):
-        kind = path[:3] if path.startswith(("xv1_", "xv2_")) else "c172s"
+        kind = path[:3] if path.startswith(PREFIXES) else "c172s"
         if kind not in fleets:
             make = {"xv1": xv1_fleet_sim, "xv2": xv2_fleet_sim,
-                    "c172s": perturbed_fleet_sim}[kind]
+                    "msn": msn_fleet_sim, "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]
         r = profile(path, *fleets[kind], args.steps, args.top)

@@ -15,9 +15,9 @@ section, without addresses and encodings, and the kernel's name without
 its template arguments, so an instance that was templated on one more
 parameter compares with its form before. An instance that the record does
 not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
-the instances as they were before the C172Xv1 megakernel and the control
-laws came (and so before the C172Xv2's) (the sources of the C172S kernels and of the four other
-fly-by-wire instances), recorded with the nvcc of an H100 machine;
+every instance as it was before the mission instances came (the C172S
+kernels, the fly-by-wire instances, the C172Xv1's and the C172Xv2's
+megakernels and passes), recorded with the nvcc of an H100 machine;
 `chip_smoke.py` checks it. A change that means to change the machine code
 of a recorded instance records the file anew from its own build
 (`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 # a kernel's mangled name: its name, its ActKind (absent before the
 # templating, 0 for the C172S), its float type, the megakernel's avionics
-# (absent before their templating; 2 the C172Xv2's guidance)
+# (absent before their templating; 2 the C172Xv2's guidance, 3 a mission)
 KERNEL = re.compile(r"_Z\d+(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictI([fd])EE"
                     r"(?:Li(\d)E)?")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
@@ -45,13 +45,15 @@ INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 
 def kernel_name(name, act, av):
     """The launch name of a kernel instance from its mangled name's parts:
-    `name`, `name_fbw` (the fly-by-wire C172Xv1) or `name_gdc` (the
-    C172Xv2)."""
-    return name + ("_gdc" if av == "2" else "_fbw" if act == "1" else "")
+    `name`, `name_fbw` (the fly-by-wire C172Xv1), `name_gdc` (the C172Xv2)
+    or `name_msn` (a mission over it)."""
+    return name + ("_msn" if av == "3" else "_gdc" if av == "2"
+                   else "_fbw" if act == "1" else "")
 
 
 def instance(mangled):
-    """`name[_fbw|_gdc]_f32|f64` of a kernel's mangled name, or None."""
+    """`name[_fbw|_gdc|_msn]_f32|f64` of a kernel's mangled name, or
+    None."""
     m = KERNEL.search(mangled)
     if m is None:
         return None
