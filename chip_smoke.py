@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build flightjax_torch's CUDA kernels and drive its step paths on one
 NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three,
-the C172Xv2 guidance's three and the scripted missions' three; exit
-non-zero if any phase fails.
+the C172Xv2 guidance's three, the scripted missions' three and the
+turbulent Monte Carlo fleet's three; exit non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -43,13 +43,20 @@ The paths, each an entry point a user calls:
   full circuit), with the `msn_ctl_laws` kernel as the splits' pass (the
   phase machine, then the guidance and the control laws on the inputs the
   phase overrides, then the phase's flaps, brake and starter inputs) and
-  `megakernel_msn`, the whole step with that pass inside it.
+  `megakernel_msn`, the whole step with that pass inside it;
+- `turb_fleet`, `turb_vehicle`, `turb_megakernel`: the C172S with Dryden
+  turbulence (`testing.turb_study_sim`: W20 = 10 m/s, the shear on every
+  third lane, a discrete gust on every third lane): `Simulation.fleet_step`
+  through `fleet_rollout`, which on a turbulent vehicle runs
+  `rk4_stage_turb` x 4 + `rk4_finish_turb` (compensated) and `geoid` on
+  every 128th step, the vehicle split on the same instances
+  (uncompensated), and `megakernel_turb`.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
 2. build: the kernels of flightjax_torch/csrc compiled for sm_90a; the
    machine code of each kernel instance that `tools/sass_torch_record.json`
-   holds (every one that was there before the mission instances came)
+   holds (every instance, the turbulent ones too)
    held to its record (`tools/sass_torch_kernels.py`;
    not compared under another nvcc than the record's; a change that means
    to change a recorded instance's machine code records the file anew);
@@ -147,6 +154,36 @@ Phases:
    its fleet's, half of it on the runway). Then vehicle-steps/s of the
    twelve paths and the plain one, interleaved windows, median and
    aggregate.
+
+6. the turbulent C172S: `rk4_stage_turb`, `rk4_finish_turb` (with and
+   without residuals) and `megakernel_turb` (one step, with and without
+   residuals) against their plain versions in float64 (1e-12) and float32
+   (1e-5) at 32 and 64 aircraft per block, on `testing.turb_operands` at
+   B (W20 of 0, 7.7, 15.4 and 23.2; heights below 10 ft, in the low band,
+   in the blend and above 2000 ft; V below V_MIN; the shear on and off, h
+   below z0; before, during and after a discrete gust; seeds above 2^24;
+   terminated and crashing lanes); its three paths at B in float32,
+   TURB_STEPS steps each against the plain path within the scaled 10 s
+   envelope, launch counts from 0, and 10 float64 steps to 1e-9; the
+   gust-load study (`demos/c172_demos.py::turbulent_fleet_loads(batch=B,
+   t_end=60, W20=10)`, held to `tests/test_missions.py:95-99`: every peak
+   finite above 0.7, the exceedance monotone, none terminated; its upper
+   bound of 5 g, set for 8 lanes, as the JAX package's own run of the
+   same study at B holds it: the peaks' median and max within 1% of
+   `tools/jax_turbulent_loads.json`, the exceedance fractions within
+   0.005, lanes at 5 g or more where and only where it has them);
+   BASELINE's Monte Carlo row, B lanes of `monte_carlo_c172` at W20 = 10
+   flown 600 s through `megakernel_turb`: no NaN; none terminated at 60
+   s, and at 600 s the terminated lanes reported, each on the terrain
+   (the Monte Carlo's wind is N(0, 5 m/s) on each NED axis,
+   `parallel/fleet.py`, so a lane that sinks with its air mass reaches
+   the ground within 600 s and crashes there, as the reference's would);
+   at 60 s and 600 s, over the lanes in flight, the across-lane mean of
+   (gust / sigma)^2 per axis within 25% of 1 and the mean within 0.2
+   sigma (`tests/test_turbulence.py:65-103`; the gust from the state by
+   the plain `gust`, beside the path); the three instances' times, bounds, launches
+   per step and share of their path's device time, and the three paths'
+   profiles.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -256,18 +293,46 @@ KERNELS = {
                        "msn_megakernel"),
     "msn_ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
                      "flightjax/parallel/megakernel.py:43", "msn_vehicle"),
+    # the turbulent C172S's instances (DrydenTurbulence on the vehicle):
+    # the whole-vehicle kernels, which `Simulation.fleet_step` runs on it
+    # (compensated) as the vehicle split does, and the megakernel
+    "rk4_stage_turb": ("flightjax_torch/csrc/rk4_stage.cu",
+                       "flightjax/parallel/clusterstep.py:81", "turb_fleet"),
+    "rk4_finish_turb": ("flightjax_torch/csrc/rk4_finish.cu",
+                        "flightjax/parallel/clusterstep.py:97",
+                        "turb_fleet"),
+    "megakernel_turb": ("flightjax_torch/csrc/megakernel.cu",
+                        "flightjax/parallel/megakernel.py:43",
+                        "turb_megakernel"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
 # the kernels that run on the cluster operands (the megakernels step a
 # state, ctl_laws runs the control laws), C172S first
+TURB_NAMES = ("rk4_stage_turb", "rk4_finish_turb", "megakernel_turb")
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
-    "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES)
+    "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES
+    and k not in TURB_NAMES)
 XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
 XV2_PATHS = ("xv2_subsystems", "xv2_vehicle", "xv2_megakernel")
 XV_PATHS = XV1_PATHS + XV2_PATHS
 MSN_PATHS = ("msn_subsystems", "msn_vehicle", "msn_megakernel")
+# the turbulent C172S's paths (`testing.turb_study_sim`: W20 = 10 m/s, the
+# shear on every third lane, a discrete gust on every third lane), held to
+# plain over TURB_STEPS steps; the gust-load study (`demos/c172_demos.py::
+# turbulent_fleet_loads` at its own t_end and W20) and BASELINE's Monte
+# Carlo flight (600 s through megakernel_turb, its gust statistics checked
+# at 60 s and at 600 s)
+TURB_PATHS = ("turb_fleet", "turb_vehicle", "turb_megakernel")
+TURB_STEPS = 50
+LOADS_T_END, LOADS_W20 = 60.0, 10.0
+MC_CHECKS = (3000, 30000)
+# the JAX package's own run of the gust-load study at B (its peaks'
+# median and max held to 1% here, the exceedance fractions to 0.005)
+JAX_LOADS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "jax_turbulent_loads.json")
+LOADS_MATCH = (0.01, 0.005)
 # the sub-controllers of the control laws' lon and lat passes, each under
 # the comment `# ---- <name>` that opens it in `ControlLaws.lon_step` /
 # `lat_step` (`models/c172/c172x_ctl.py`), with the modes that enable it;
@@ -1302,6 +1367,405 @@ def check_flight(sim, label, out, stalled, height_band=True):
         raise AssertionError(f"{label}: EAS left the {lo}..{hi} m/s band")
 
 
+# ------------------------------------------------------------ turbulence
+
+def turb_gusts(sim, st):
+    """Each lane's body-axes gust at the state `st` from its filter states,
+    with the plain `DrydenTurbulence.gust` at the airspeed against the
+    sheared mean wind and the height above the terrain
+    (`Vehicle.apply_disturbances`), and the lanes' (sigma_u, sigma_v,
+    sigma_w) from `scales` there: a check beside the path, not on it."""
+    from flightjax_torch.ops.quaternions import qrot_inv
+    from flightjax_torch.physics.atmosphere import norm3
+    from flightjax_torch.physics.kinematics import WA
+    from flightjax_torch.physics.turbulence import scales, shear_scale
+    vehicle = sim.system.aircraft.vehicle
+    xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
+    _, kin = WA().f_ode(xv["kinematics"], xv["dynamics"], sv["geoid_N"])
+    h_agl = kin.h_o - vehicle.terrain.terrain_data(uv["trn"]).elevation
+    k = shear_scale(uv["turb"], h_agl)
+    wind = uv["atm"]["wind"]
+    v_mean = wind * torch.stack([k, k, torch.ones_like(k)], dim=-1)
+    V = norm3(kin.v_eb_b - qrot_inv(kin.q_nb, v_mean))
+    g = vehicle.turbulence.gust(xv["turb"], uv["turb"], V, h_agl, st.t)
+    _, _, _, s_u, s_v, s_w = scales(h_agl, uv["turb"]["W20"])
+    return g, torch.stack([s_u, s_v, s_w], dim=-1)
+
+
+def turb_phase(card, t_start, check, errs, regs, sizes):
+    """The turbulent C172S: its three kernel instances against their plain
+    versions; its three paths against their plain paths; the gust-load
+    study; BASELINE's Monte Carlo flight; the instances' timings and the
+    paths' profiles. Returns the instances' rows of the kernels line."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.demos.c172_demos import turbulent_fleet_loads
+    from flightjax_torch.models.c172.c172s import (build_vehicle,
+                                                   turbulent_flagship_sim)
+    from flightjax_torch.ops import random as R
+    from flightjax_torch.parallel import fleet as F
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.physics.turbulence import FT, V_MIN, DrydenTurbulence
+    from flightjax_torch.testing import (turb_operand_args,
+                                         turb_operand_state, turb_operands,
+                                         turb_study_sim)
+    from profile_torch_step import profile
+
+    # kernel checks: f64 to 1e-12 and f32 to 1e-5, at 32 and 64 aircraft
+    # per block, on the turbulent operands
+    log(f"elapsed {time.time() - t_start:.1f} s (turbulence: kernel checks)")
+    d = turb_operands(B, SEED, GROUND_LANES, TERMINATED_LANES, (CRASH_LANE,))
+    h_ft = (d["x_kin"]["h_e"] - d["geoid_N"]) / FT
+    u, tau = d["u_turb"], (d["t"] - d["u_turb"]["gust_t0"]) / d[
+        "u_turb"]["gust_T"]
+    v = (d["x_dyn"]["v_eb_b"] ** 2).sum(-1) ** 0.5
+    log(f"turbulent operands: W20 {sorted(set(u['W20'].tolist()))}; lanes "
+        f"below 10 ft {int((h_ft < 10).sum())}, in the low band "
+        f"{int(((h_ft >= 10) & (h_ft < 1000)).sum())}, in the blend "
+        f"{int(((h_ft >= 1000) & (h_ft < 2000)).sum())}, above 2000 ft "
+        f"{int((h_ft >= 2000).sum())}; V below V_MIN "
+        f"{int((v < V_MIN).sum())}; shear on {int((u['shear_z0_ft'] > 0).sum())}"
+        f" (h below z0 {int((h_ft < u['shear_z0_ft']).sum())}); discrete "
+        f"gust before {int((tau < 0).sum())}, during "
+        f"{int(((tau >= 0) & (tau <= 2)).sum())}, after {int((tau > 2).sum())}"
+        f"; seeds above 2^24 {int((u['seed'] > 2 ** 24).sum())}; terminated "
+        f"{list(TERMINATED_LANES)}, crashing {CRASH_LANE}")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        vehicle = build_vehicle(device=DEVICE, dtype=dtype,
+                                turbulence=DrydenTurbulence(0.02))
+        args = turb_operand_args(d, vehicle, DEVICE, dtype)
+        for name, comp in (("rk4_stage_turb", False),
+                           ("rk4_finish_turb", False),
+                           ("rk4_finish_turb", True)):
+            a = args[name[:-len("_turb")]]
+            if name == "rk4_finish_turb" and not comp:
+                a = a[:7] + (None,) + a[8:]
+            ref = getattr(K, name[:-len("_turb")] + "_plain")(*a)
+            for lanes in (32, 64):
+                buf, n_out, scal, ops = K.PACK[name](*a)
+                out = L.launch(name, buf, n_out, scal, block=lanes, **ops)
+                got = K.unpack_out(name, out, comp, ops.get("ints"))
+                torch.cuda.synchronize()
+                check(name, dtype, tol, leaf_pairs(got, ref),
+                      f" (turbulent operands, {'compensated, ' * comp}"
+                      f"block {lanes})")
+            if name == "rk4_finish_turb" and not (
+                    bool(got[1]["crashed"][CRASH_LANE])
+                    and torch.equal(got[-1]["n"], a[4]["turb"]["n"] + 1)):
+                raise AssertionError("rk4_finish_turb: the crash lane or "
+                                     "the drive's counter")
+        sim, _, _ = turbulent_flagship_sim(DEVICE, dtype)
+        st = turb_operand_state(d, DEVICE, dtype)
+        for comp in (False, True):
+            st_ = st._replace(c=comp_residuals(st.x, force=True) if comp
+                              else None)
+            ref = megakernel_step_plain(sim, st_)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    sim, st_, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                if not (torch.equal(got.i, ref.i) and torch.equal(
+                        got.s["vehicle"]["turb"]["n"],
+                        ref.s["vehicle"]["turb"]["n"])
+                        and bool(got.s["terminated"][CRASH_LANE])):
+                    raise AssertionError("megakernel_turb: counters or the "
+                                         "crash latch")
+                check("megakernel_turb", dtype, tol, leaf_pairs(
+                    (got.t, got.x, got.u, got.s, got.c),
+                    (ref.t, ref.x, ref.u, ref.s, ref.c)),
+                    f" (turbulent operands, comp {comp}, block {lanes})")
+        del args, st, sim
+
+    # the paths at B in f32 against their plain paths, launch counts from 0
+    log(f"elapsed {time.time() - t_start:.1f} s (turbulence: paths)")
+    tsim, tst0 = turb_study_sim(B, SEED, DEVICE, torch.float32)
+    i0 = int(tst0.i[0])
+    geoid = sum((i0 + k + 1) % 128 == 0 for k in range(TURB_STEPS))
+    launches = {}
+
+    def run_path(label, sim, st, n, plain=False):
+        if label == "turb_megakernel":
+            if plain:
+                for _ in range(n):
+                    st = megakernel_step_plain(sim, st)
+                return st
+            bufs, step_packed, unpack = make_megakernel_step(sim, st)
+            for _ in range(n):
+                bufs = step_packed(bufs)
+            return unpack(bufs)
+        comp = label == "turb_fleet"
+        st = st if comp else st._replace(c=None)
+        if plain:
+            for k in range(n):
+                st = vehicle_step(sim, st, i0 + k, comp=comp, plain=True)
+            return st
+        if comp:
+            return F.fleet_rollout(sim, st, n)
+        step = make_cluster_step(sim, st, split="vehicle")
+        for k in range(n):
+            st = step(st, i=i0 + k)
+        return st
+
+    for label in TURB_PATHS:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.time()
+        out = run_path(label, tsim, tst0, TURB_STEPS)
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        want = dict.fromkeys(K.LAUNCHES, 0)
+        if label == "turb_megakernel":
+            want["megakernel_turb"] = TURB_STEPS
+        else:
+            want.update(rk4_stage_turb=4 * TURB_STEPS,
+                        rk4_finish_turb=TURB_STEPS, geoid=geoid)
+        log(f"{label}: {TURB_STEPS} steps x {B} aircraft from step {i0} in "
+            f"{time.time() - t0:.2f} s (first run); launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        for name, (_, _, path) in KERNELS.items():
+            if path == label:
+                launches[name] = got[name]
+        for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+            if val.dtype.is_floating_point and not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"{label}: non-finite leaf {p}")
+        if bool(out.s["terminated"].any()):
+            raise AssertionError(f"{label}: a lane terminated")
+        K.reset_launches()
+        ref = run_path(label, tsim, tst0, TURB_STEPS, plain=True)
+        torch.cuda.synchronize()
+        if any(K.LAUNCHES.values()):
+            raise AssertionError(f"{label}: plain run launched a kernel")
+        pos, vel, att, de = compare_runs(out, ref)
+        env = [e * TURB_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL,
+                                               ENV_ATT_RAD, ENV_EAS)]
+        eta_err = rel_err(out.s["vehicle"]["turb"]["eta"],
+                          ref.s["vehicle"]["turb"]["eta"])
+        log(f"{label} kernels vs plain after {TURB_STEPS} steps (f32): "
+            f"position {pos:.3e} m (env {env[0]:.3g}), velocity {vel:.3e} "
+            f"m/s (env {env[1]:.3g}), attitude {att:.3e} rad (env "
+            f"{env[2]:.3g}), EAS {de:.3e} m/s (env {env[3]:.3g}); the drive "
+            f"{eta_err:.3e}")
+        if not all(v_ <= e for v_, e in zip((pos, vel, att, de), env)):
+            raise AssertionError(f"{label}: kernel and plain runs disagree")
+        if not torch.equal(out.s["vehicle"]["turb"]["n"],
+                           ref.s["vehicle"]["turb"]["n"]):
+            raise AssertionError(f"{label}: the drive's counter")
+    del out, ref
+    sim64, st64 = turb_study_sim(B, SEED, DEVICE, torch.float64)
+    for label in TURB_PATHS:
+        a = run_path(label, sim64, st64, F64_STEPS[""])
+        b = run_path(label, sim64, st64, F64_STEPS[""], plain=True)
+        torch.cuda.synchronize()
+        worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
+            {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
+        log(f"{label} f64 {F64_STEPS['']} steps kernels vs plain: max rel "
+            f"err {worst:.3e} (tol 1e-9)")
+        if not worst <= 1e-9:
+            raise AssertionError(f"{label}: f64 run disagrees")
+    del sim64, st64, a, b
+
+    # the gust-load study: the demo's own settings at BASELINE's batch
+    log(f"elapsed {time.time() - t_start:.1f} s (turbulence: gust loads)")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    final, peaks, frac = turbulent_fleet_loads(batch=B, t_end=LOADS_T_END,
+                                               W20=LOADS_W20)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    pk = peaks.double()
+    log(f"gust-load study: B = {B}, {LOADS_T_END:.0f} s at W20 = "
+        f"{LOADS_W20} m/s in {wall:.2f} s wall ({int(final.i[0])} steps, "
+        f"loads every 5): peak n median {float(pk.median()):.4f}, max "
+        f"{float(pk.max()):.4f}, min {float(pk.min()):.4f}; exceedance of "
+        f"(1.5, 2.0, 2.5) {[round(float(f), 6) for f in frac]}; terminated "
+        f"{int(final.s['terminated'].sum())} [{card}]")
+    # the bounds of tests/test_missions.py:95-99, set for 8 lanes: finite
+    # peaks above 0.7, the exceedance monotone, none terminated; the upper
+    # bound 5 is held as the reference holds it at this fleet's size: the
+    # JAX package's own run of the same study (tools/jax_turbulent_loads.py,
+    # float32, the same draws) within LOADS_MATCH
+    with open(JAX_LOADS) as fh:
+        jref = json.load(fh)
+    if (jref["batch"], jref["t_end"], jref["W20"], jref["seed"]) != (
+            B, LOADS_T_END, LOADS_W20, 0):
+        raise AssertionError(f"{JAX_LOADS} is of another study: {jref}")
+    above = int((pk >= 5.0).sum())
+    log(f"gust-load study against the JAX package's own run at B = "
+        f"{jref['batch']} ({JAX_LOADS}, float32 on a CPU): median "
+        f"{jref['median']:.4f}, max {jref['max']:.4f}, min {jref['min']:.4f}"
+        f", exceedance {[round(f, 6) for f in jref['exceedance']]}, peaks "
+        f"at 5 g or more {jref['above_5']} (here {above})")
+    if not (bool(torch.isfinite(pk).all()) and float(pk.min()) > 0.7):
+        raise AssertionError("gust-load study: a peak not finite or below "
+                             "0.7")
+    if not bool((frac[1:] - frac[:-1] <= 1e-12).all()):
+        raise AssertionError("gust-load study: exceedance not monotone")
+    if bool(final.s["terminated"].any()):
+        raise AssertionError("gust-load study: a lane terminated")
+    rel, fr = LOADS_MATCH
+    if not (abs(float(pk.median()) - jref["median"]) <= rel * jref["median"]
+            and abs(float(pk.max()) - jref["max"]) <= rel * jref["max"]
+            and all(abs(float(a) - b) <= fr
+                    for a, b in zip(frac, jref["exceedance"]))
+            and (above == 0) == (jref["above_5"] == 0)):
+        raise AssertionError("gust-load study: peaks and exceedance differ "
+                             "from the JAX package's run")
+    del final, peaks
+
+    # BASELINE's Monte Carlo row: 4096 randomized C172S at W20 = 10 for
+    # 600 s through the turbulent megakernel
+    log(f"elapsed {time.time() - t_start:.1f} s (turbulence: Monte Carlo)")
+    msim, mst, _ = turbulent_flagship_sim(DEVICE, torch.float32)
+    mst = F.monte_carlo_c172(F.broadcast_state(mst, B),
+                             R.PRNGKey(SEED, DEVICE))
+    uv = mst.u["vehicle"]
+    mst = mst._replace(u=dict(mst.u, vehicle=dict(uv, turb=dict(
+        uv["turb"], W20=torch.full((B,), LOADS_W20, device=DEVICE)))))
+    bufs, step_packed, unpack = make_megakernel_step(msim, mst)
+    torch.cuda.synchronize()
+    t0, done = time.time(), 0
+    for at in MC_CHECKS:
+        t1 = time.time()
+        for _ in range(at - done):
+            bufs = step_packed(bufs)
+        torch.cuda.synchronize()
+        log(f"Monte Carlo: steps {done}..{at} in {time.time() - t1:.2f} s "
+            f"({(time.time() - t1) / (at - done) * 1e3:.4f} ms a step)")
+        done = at
+        st = unpack(bufs)
+        for p, val in leaves({"x": st.x, "s": st.s}):
+            if val.dtype.is_floating_point and not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"Monte Carlo: NaN in {p} at step {at}")
+        term = st.s["terminated"]
+        h = msim.system.aircraft.vehicle.h_agl(st.x["vehicle"],
+                                               st.u["vehicle"],
+                                               st.s["vehicle"])
+        down = mst.u["vehicle"]["atm"]["wind"][:, 2]
+        n_down = int((term & (down > 0)).sum())
+        mean_down = float(down[term].mean()) if bool(term.any()) else 0.0
+        log(f"Monte Carlo at {float(st.t[0]):.0f} s: {int(term.sum())} lanes "
+            f"terminated (crashed on the terrain), {n_down} of them under a "
+            f"downdraft (its mean {mean_down:.2f} m/s; the fleet's vertical "
+            f"wind N(0, 5 m/s)); height of the "
+            f"others {float(h[~term].min()):.1f}..{float(h[~term].max()):.1f}"
+            f" m, EAS {float(eas(st)[~term].min()):.2f}.."
+            f"{float(eas(st)[~term].max()):.2f} m/s")
+        # none by 60 s; later a lane that sinks with its air mass reaches
+        # the terrain and crashes there, as the reference's does
+        if at == MC_CHECKS[0] and bool(term.any()):
+            raise AssertionError(f"Monte Carlo: {int(term.sum())} lanes "
+                                 f"terminated by step {at}")
+        if bool(term.any()) and not bool((h[term] < 5.0).all()):
+            raise AssertionError("Monte Carlo: a lane terminated above the "
+                                 "terrain")
+        g, sig = turb_gusts(msim, st)
+        r = (g.double() / sig.double())[~term]
+        ms2, mean = (r * r).mean(0), r.mean(0)
+        log(f"Monte Carlo at {float(st.t[0]):.0f} s, the {int((~term).sum())}"
+            f" lanes in flight: mean (gust/sigma)^2 (u, v, w) "
+            f"{[round(float(v_), 4) for v_ in ms2]}, mean gust/sigma "
+            f"{[round(float(v_), 4) for v_ in mean]}")
+        if not (bool(((ms2 - 1).abs() <= 0.25).all())
+                and bool((mean.abs() <= 0.2).all())):
+            raise AssertionError(f"Monte Carlo: gust statistics at {at}")
+    wall = time.time() - t0
+    log(f"Monte Carlo: {B} lanes x {MC_CHECKS[-1]} steps "
+        f"({MC_CHECKS[-1] * 0.02:.0f} s) through megakernel_turb in "
+        f"{wall:.2f} s wall (two state reads and checks among them): "
+        f"{B * MC_CHECKS[-1] / wall:.0f} vehicle-steps/s [{card}]")
+    del bufs, st, mst
+
+    # timings (f32, B) on the study fleet's state, and the paths' profiles
+    log(f"elapsed {time.time() - t_start:.1f} s (turbulence: timings)")
+    profiles = {}
+    for label in TURB_PATHS:
+        r = profile(label, tsim, tst0, 20, 8)
+        profiles[label] = r
+        log(f"profile {label}: B = {B}, 20 steps, f32: host "
+            f"{r['host_ms_per_step']:.4f} ms/step, device "
+            f"{r['device_ms_per_step']:.4f} ms/step, idle share "
+            f"{r['idle_share']:.4f}, {r['launches_per_step']:.1f} device "
+            f"launches/step [{card}]")
+        for t in r["top"]:
+            log(f"  {t['ms_per_step']:9.4f} ms/step {t['per_step']:6.1f}"
+                f"/step  {t['name'][:90]}")
+    vehicle = tsim.system.aircraft.vehicle
+    params = K.system_params(vehicle)
+    grid = K.geoid_grid(vehicle.geoid)
+    lay = K.TURB
+    xv, uv, sv = (tst0.x["vehicle"], tst0.u["vehicle"], tst0.s["vehicle"])
+    full = K.pack_vehicle(vehicle, xv, uv, sv, tst0.s["terminated"],
+                          tst0.c["vehicle"]["kinematics"], t=tst0.t)
+    ints = K.pack_turb_int(tst0.i, uv, sv)
+    stage_in = full[:K.rows(lay.stage_in)]
+    k1 = K.rk4_stage_packed(vehicle, stage_in, torch.zeros(
+        (K.rows(lay.stage_out), B), device=DEVICE), 0.0)
+    ksum = 6.0 * k1
+    rows = []
+
+    def share(label, name):
+        """The kernel's share of its path's device time a step, both as
+        the profiler reads them."""
+        r = profiles[label]
+        return sum(t["ms_per_step"] for t in r["top"]
+                   if name in t["name"]) / r["device_ms_per_step"]
+
+    cases = {
+        "rk4_stage_turb": (
+            lambda lanes=None: L.launch("rk4_stage_turb", stage_in, K.rows(
+                lay.stage_out), (0.01,), block=lanes, k=k1, params=params),
+            lambda: K.rk4_stage_packed(vehicle, stage_in, k1, 0.01),
+            lambda: K.rk4_stage_packed_plain(vehicle, stage_in, k1, 0.01),
+            stage_in.numel() + 2 * k1.numel() + params.numel(), 4),
+        "rk4_finish_turb": (
+            lambda lanes=None: L.launch(
+                "rk4_finish_turb", full, K.rows(lay.rkfin_out),
+                (0.02 / 6.0, 1, 0.02, 0.0), block=lanes, k=ksum,
+                params=params, ints=ints),
+            lambda: K.rk4_finish_packed(vehicle, full, ksum, 0.02, True,
+                                        None, ints),
+            lambda: K.rk4_finish_packed_plain(vehicle, full, ksum, 0.02,
+                                              True, ints),
+            full.numel() + ksum.numel() + K.rows(lay.rkfin_out) * B
+            + ints.numel() + params.numel(), 1)}
+    mbufs, mstep, munpack = make_megakernel_step(tsim, tst0)
+
+    def mega(lanes=None):
+        return L.launch_megakernel(mbufs[0], mbufs[1], params, grid, 0.02,
+                                   0.0, True, lanes, turb=True)
+    q_new = munpack(mstep(mbufs)).x["vehicle"]["kinematics"]["q_ew"]
+    cases["megakernel_turb"] = (
+        mega, lambda: mstep(mbufs),
+        lambda: megakernel_step_plain(tsim, tst0),
+        2 * (mbufs[0].numel() + mbufs[1].numel()) + params.numel()
+        + geoid_cells(vehicle.geoid, q_new), 1)
+    for name, (bare, wrapper, plain, n_elems, per_step) in cases.items():
+        ms = graph_ms(bare)
+        label = KERNELS[name][2]
+        rows.append(dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1], launches=launches[name],
+            max_abs_err=errs[name], ms=ms,
+            plain_ms=cuda_ms(plain, reps=3, calls=2),
+            nbytes=4 * n_elems, ops=count_ops(plain), library_ms=None,
+            event_ms=cuda_ms(bare), wrapper_ms=cuda_ms(wrapper),
+            block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
+            launches_per_step=per_step,
+            share=share(label, name[:-len("_turb")] + "_"
+                        if name != "megakernel_turb" else "megakernel_")))
+    log("turbulent profiles: " + json.dumps(profiles))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1344,9 +1808,8 @@ def main():
     if rec_nvcc == nvcc_version(L._nvcc()):
         same, changed, missing = compare(L.BUILD_INFO["so"], record,
                                          L._nvcc())
-        log(f"SASS: the {len(same)} kernel instances recorded before the "
-            f"mission instances came are instruction for instruction as "
-            f"recorded ({', '.join(same)})")
+        log(f"SASS: the {len(same)} recorded kernel instances are "
+            f"instruction for instruction as recorded ({', '.join(same)})")
         if changed or missing:
             raise AssertionError(f"SASS changed {changed}, missing {missing}")
     else:
@@ -2147,6 +2610,10 @@ def main():
         block_ms=extra["lanes_ms"], **extra))
     del rbufs, rst, rsim, new
 
+    # the turbulent C172S: kernel checks, paths, the gust-load study, the
+    # Monte Carlo flight, timings
+    rows += turb_phase(card, t_start, check, errs, regs, sizes)
+
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])
         r["code_bytes"] = sizes.get(r["name"])
@@ -2206,7 +2673,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms", "wrapper_ms", "block_ms", "nbytes", "ops",
             "code_bytes", "registers", "airborne_ms", "runway_ms",
-            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms")
+            "lanes_ms", "runway_lanes_ms", "empty_ms", "by_batch_ms",
+            "launches_per_step", "share")
     log("profiles: " + json.dumps(profiles))
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

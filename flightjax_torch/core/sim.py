@@ -75,11 +75,15 @@ class Simulation:
     `geoid_every`: the carried EGM96 undulation is refreshed on every
     `geoid_every`-th step. `compensate`: "auto" attaches Kahan residuals to
     the sub-float64 position states in `with_compensation`, False never.
-    The gear is evaluated on every lane (the JAX package's gear gate is a
-    fleet-scalar skip with a state-exact airborne branch)."""
+    The gear is evaluated on every lane: the JAX package's gear gate
+    (`gear_gate_margin`, kept here as a setting) is a fleet-scalar skip
+    whose airborne branch is state-exact, so the margin changes no state;
+    only JAX's diagnostic of the strut's `delta_h` differs. A Dryden
+    turbulence model on the vehicle must hold its drive over this `dt`
+    (`sim.py:251-259`)."""
 
     def __init__(self, system, dt=0.02, periodic_dt=None, t_start=0.0,
-                 geoid_every=1, compensate="auto"):
+                 geoid_every=1, compensate="auto", gear_gate_margin=None):
         self.system = system
         self.dt = float(dt)
         self.periodic_dt = (float(periodic_dt) if periodic_dt is not None
@@ -98,6 +102,15 @@ class Simulation:
         if compensate not in ("auto", False):
             raise ValueError("compensate must be 'auto' or False")
         self.compensate = compensate
+        self.gear_gate_margin = (None if gear_gate_margin is None
+                                 else float(gear_gate_margin))
+        turb = getattr(getattr(getattr(system, "aircraft", None), "vehicle",
+                               None), "turbulence", None)
+        if turb is not None and abs(turb.dt - self.dt) > 1e-12:
+            raise ValueError(
+                f"DrydenTurbulence(dt={turb.dt}) does not match "
+                f"Simulation dt={self.dt}: the gust variance would be "
+                f"scaled by {turb.dt / self.dt:.3g}")
 
     def with_compensation(self, state: SimState) -> SimState:
         if state.c is not None or self.compensate is False:
@@ -113,11 +126,25 @@ class Simulation:
         lane of `state.i`); `fleet_rollout` keeps it on the host, so
         neither the geoid cadence nor the periodic pass costs a device
         sync: every lane takes the same branch, as the uniform mask of the
-        JAX package's `tree_where` does."""
-        from flightjax_torch.parallel.clusterstep import cluster_step
+        JAX package's `tree_where` does. A turbulent vehicle steps through
+        the whole-vehicle kernels (`rk4_stage_turb`, `rk4_finish_turb`),
+        compensated as the subsystems split is (where `state.c` holds
+        residuals), as that split carries no turbulence."""
+        from flightjax_torch.parallel.clusterstep import (cluster_step,
+                                                          vehicle_step)
         if ctx != ():
             raise NotImplementedError(
                 "the step takes no context: ctx is () in every model, and "
                 "the mission is an avionics wrapper (MissionAvionics, "
                 "core/mission.py)")
+        if self.system.aircraft.vehicle.turbulence is not None:
+            return vehicle_step(self, state, int(i), comp=state.c is not None)
         return cluster_step(self, state, int(i))
+
+    def output(self, state: SimState):
+        """The outputs of the world at `state` as far as the fleet's loads
+        read them (`sim.py:412`): an AircraftY whose vehicle's `dynamics`
+        holds the specific force at the CoM, `f_c_c` (`dynamics.py:
+        266-274`), in plain PyTorch on the state's device."""
+        from flightjax_torch.parallel import kernels as K
+        return K.world_output(self.system, state)

@@ -20,6 +20,7 @@
 #pragma once
 
 #include "flight_math.cuh"
+#include "turbulence.cuh"
 
 namespace fj {
 
@@ -129,8 +130,12 @@ constexpr int FSYS_N_OUT = N_XSYS + N_SSYS;                          // 15
 // first-order servos, their positions the last rows of x_sys, their
 // commands at the head of u_sys). An instance of each kernel that carries
 // the systems is compiled for each; the ACT_MECH ones are the code they
-// were before the C172X came.
-enum ActKind : int { ACT_MECH, ACT_FBW };
+// were before the C172X came. ACT_TURB is the flag beside them: the C172S's
+// linkage on a vehicle that also carries Dryden turbulence
+// (turbulence.cuh): five filter states after X's systems rows, its inputs
+// and held drive after CTX, which role KIN integrates and applies to the air
+// data (the whole-vehicle kernels only).
+enum ActKind : int { ACT_MECH, ACT_FBW, ACT_TURB };
 
 // the fly-by-wire C172: the servo channels (sorted names, the order of
 // their x_sys rows and parameters); x_sys the mechanical rows, then the
@@ -141,6 +146,9 @@ constexpr int CH_AIL = 0, CH_BRK_L = 1, CH_BRK_R = 2, CH_ELV = 3,
 constexpr int XS_ACT = N_XSYS, N_XSYS_FBW = XS_ACT + N_ACT;          // 19
 constexpr int UF_MIX = 5, UF_E_MIX = 8, UF_PLD = 13, N_USYS_FBW = 18;
 constexpr int P_ACT = P_HEAD, P_HEAD_FBW = P_ACT + N_ACT * AC_N;
+// the turbulent C172S's buffer holds the drive's scale sqrt(pi / dt) after
+// the table offsets
+constexpr int P_TURB_K_ETA = P_HEAD, P_HEAD_TURB = P_HEAD + 1;
 // what the finish kernels of the fly-by-wire C172 store for its avionics:
 // SYS_Y the gated airflow angles and each leg's weight on wheels at the new
 // state (finish_sys, rk4_finish), KIN_Y the KinData and AirData fields the
@@ -169,13 +177,18 @@ struct SysL {
     U_E_START = U_E + 2,
     U_E_STOP = U_E + 3,
     U_PLD = U_E + 5,
-    NXV = N_XKIN + N_XDYN + NX,
+    NXV = N_XKIN + N_XDYN + NX + (ACT == ACT_TURB ? N_XTURB : 0),
     CX_UATM = NU,
     CX_TRN = CX_UATM + N_UATM,
     CX_SSYS = CX_TRN + N_TRN,
     CX_GEOID = CX_SSYS + N_SSYS,
     CX_TERM = CX_GEOID + 1,
-    NCTX = CX_TERM + 1
+    // the turbulent vehicle: x_turb after the systems rows of X; u_turb and
+    // the held drive after the latch in CTX
+    X_TURB = N_XKIN + N_XDYN + NX,
+    CX_UTURB = CX_TERM + 1,
+    CX_ETA = CX_UTURB + (ACT == ACT_TURB ? N_UTURB : 0),
+    NCTX = CX_ETA + (ACT == ACT_TURB ? N_ETA : 0)
   };
 };
 
@@ -208,6 +221,20 @@ constexpr int STAGE_N_OUT_FBW = N_X_FBW;                             // 34
 constexpr int RKFIN_N_IN_FBW = N_X_FBW + N_CTX_FBW + N_C;            // 72
 constexpr int RKFIN_N_OUT_FBW =
     N_X_FBW + N_SSYS + 1 + N_C + N_KINY + N_SYSY;                    // 59
+// the turbulent C172S (ACT_TURB): X and CTX with the turbulence's rows; the
+// stage reads the step's start time after CTX, the finish the residuals
+// after it and the int32 rows (i, seed, n), and stores the new drive after
+// its C172S outputs; the megakernel's buffer is t, X, CTX, C beside the
+// int32 [3, B] rows
+enum : int {
+  N_X_TURB = N_X + N_XTURB,                                          // 32
+  N_CTX_TURB = N_CTX + N_UTURB + N_ETA,                              // 46
+  STAGE_N_IN_TURB = N_X_TURB + N_CTX_TURB + 1,                       // 79
+  STAGE_N_OUT_TURB = N_X_TURB,                                       // 32
+  RKFIN_N_IN_TURB = STAGE_N_IN_TURB + N_C,                           // 84
+  RKFIN_N_OUT_TURB = N_X_TURB + N_SSYS + 1 + N_C + N_ETA,            // 44
+  MEGA_N_ROWS_TURB = 1 + N_X_TURB + N_CTX_TURB + N_C                 // 84
+};
 
 // ------------------------------------------------------------- helpers
 
@@ -1296,19 +1323,35 @@ __device__ __forceinline__ void subsystem_roles_shaft(const T* P, T* sh,
         P[P_EN + EN_gear_ratio] * Col<T>{sh, t.L, t.lane}(SH_TAU_PX));
 }
 
+// what role KIN of the turbulent instances integrates besides its slots:
+// the five filter states (in the stage the stage state x and the
+// derivative d; in the finish the start state x, the k-sum k and the new
+// state d) and the time of the air data (the stage time, the new time)
+template <typename T>
+struct TurbLane {
+  T x[N_XTURB], k[N_XTURB], d[N_XTURB];
+  T t;
+};
+
 // stage_lane of flightjax/parallel/clusterstep.py:81-85 by roles: the
 // derivative at the stage state xi, every role its own slots of d, zeroed on
 // a terminated lane. P is the parameter buffer (in shared memory), sh the
 // scratch, c the lane's column of the buffer that holds CTX at row r_ctx.
 // Role KIN works out and shares KinData and AirData, the subsystem roles run
 // beside it, and after the second barrier role KIN sums the wrench and runs
-// the dynamics. All threads of the block must call it.
+// the dynamics. All threads of the block must call it. In the turbulent
+// instances role KIN also applies the gust of the filters' stage state
+// tl->x at the stage time tl->t to the air data it shares (turbulence.cuh::
+// turb_air), and between the barriers, where it waits for the subsystem
+// roles, works out the filters' derivative tl->d from the held drive and
+// its scale in the parameters.
 template <int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
                                             const RoleThread& t,
                                             const T (&xi)[N_SLOTS],
                                             const Col<T>& c, int r_ctx,
-                                            T (&d)[N_SLOTS]) {
+                                            T (&d)[N_SLOTS],
+                                            TurbLane<T>* tl = nullptr) {
   using L = SysL<ACT>;
   const Col<T> si{sh, t.L, t.lane};
   const T alive = T(1.0) - c(r_ctx + L::CX_TERM);
@@ -1317,6 +1360,7 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
   Q4<T> q_eb;
   V3<T> r_eb_e;
   T tau_shaft;  // role ENG keeps it until the propeller's load is known
+  T T_u, T_w;   // role KIN of the turbulent instances: the filters' times
   subsystem_roles_share<ACT>(sh, t, xi);
   if (t.role == ROLE_KIN) {
     const XKin<T> xi_kin = {{xi[0], xi[1], xi[2], xi[3]},
@@ -1325,8 +1369,18 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     XKin<T> kd;
     Kin<T> kin;
     Air<T> air;
-    kinair_lane(xi_kin, xi_dyn, c(r_ctx + L::CX_GEOID),
-                load_atm(c, r_ctx + L::CX_UATM), alive, kd, kin, air);
+    if constexpr (ACT == ACT_TURB) {
+      XKin<T> kd_raw;
+      wa_f_ode(xi_kin.q_wb, xi_kin.q_ew, xi_kin.h_e, xi_dyn.omega_eb_b,
+               xi_dyn.v_eb_b, c(r_ctx + L::CX_GEOID), kd_raw, kin);
+      air = turb_air(kin, load_atm(c, r_ctx + L::CX_UATM),
+                     c(r_ctx + L::CX_TRN + TR_ELEV), tl->x,
+                     load_turb_u(c, r_ctx + L::CX_UTURB), tl->t, T_u, T_w);
+      kd = scale(alive, kd_raw);
+    } else {
+      kinair_lane(xi_kin, xi_dyn, c(r_ctx + L::CX_GEOID),
+                  load_atm(c, r_ctx + L::CX_UATM), alive, kd, kin, air);
+    }
     share_kin_air(Out<T>{sh, t.L, t.lane}, kin, air);
     q_eb = kin.q_eb;
     r_eb_e = kin.r_eb_e;
@@ -1335,10 +1389,16 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     d[8] = kd.h_e;
   }
   __syncthreads();
-  if (t.role != ROLE_KIN)
+  if (t.role != ROLE_KIN) {
     subsystem_roles<ACT>(P, sh, t, xi, c, r_ctx + CX_USYS,
                          r_ctx + L::CX_SSYS, r_ctx + L::CX_TRN, alive,
                          tau_shaft, d);
+  } else if constexpr (ACT == ACT_TURB) {
+    T eta[N_ETA];
+#pragma unroll
+    for (int j = 0; j < N_ETA; ++j) eta[j] = c(r_ctx + L::CX_ETA + j);
+    dryden_dot(tl->x, eta, P[P_TURB_K_ETA], T_u, T_w, alive, tl->d);
+  }
   __syncthreads();
   if (t.role == ROLE_KIN) {
     V3<T> F_b, tau_b;
@@ -1381,7 +1441,10 @@ struct FinishOut {
 // the role's slots, c the lane's column of the buffer holding CTX at r_ctx
 // and the residuals at r_c. In the fly-by-wire instances role DRAG combines
 // the servo states and shares them before the first barrier, for the nose
-// leg's steering. All threads of the block must call it.
+// leg's steering. In the turbulent instances role KIN also combines the
+// filter states (tl->x + c6 tl->k into tl->d) and applies their gust at the
+// new time tl->t to the air data it shares (Vehicle._context). All threads
+// of the block must call it.
 template <bool REFRESH_GEOID, int ACT = ACT_MECH, typename T>
 __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
                                              const RoleThread& t,
@@ -1390,7 +1453,8 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
                                              bool comp, const Col<T>& c,
                                              int r_ctx, int r_c,
                                              T (&xn)[N_SLOTS],
-                                             FinishOut<T>& o) {
+                                             FinishOut<T>& o,
+                                             TurbLane<T>* tl = nullptr) {
   using L = SysL<ACT>;
   const Col<T> si{sh, t.L, t.lane};
   const Out<T> so{sh, t.L, t.lane};
@@ -1414,9 +1478,22 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     XDyn<T> yd;
     Kin<T> kin;
     Air<T> air;
-    finish_kin_lane(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h,
-                    c(r_ctx + L::CX_GEOID), load_atm(c, r_ctx + L::CX_UATM),
-                    yk, yd, kin, air);
+    if constexpr (ACT == ACT_TURB) {
+      finish_kin_combine(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h, yk, yd);
+      XKin<T> unused;
+      wa_f_ode(yk.q_wb, yk.q_ew, yk.h_e, yd.omega_eb_b, yd.v_eb_b,
+               c(r_ctx + L::CX_GEOID), unused, kin);
+#pragma unroll
+      for (int j = 0; j < N_XTURB; ++j) tl->d[j] = tl->x[j] + c6 * tl->k[j];
+      T T_u, T_w;
+      air = turb_air(kin, load_atm(c, r_ctx + L::CX_UATM),
+                     c(r_ctx + L::CX_TRN + TR_ELEV), tl->d,
+                     load_turb_u(c, r_ctx + L::CX_UTURB), tl->t, T_u, T_w);
+    } else {
+      finish_kin_lane(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h,
+                      c(r_ctx + L::CX_GEOID),
+                      load_atm(c, r_ctx + L::CX_UATM), yk, yd, kin, air);
+    }
     share_kin_air<false>(so, kin, air);
     if constexpr (ACT == ACT_FBW) {
       o.om_wb = kin.omega_wb_b;

@@ -685,11 +685,14 @@ struct Air {
   T Tk, p, rho, a, mu, M, Tt, pt, Dp, q, TAS, EAS, CAS;
 };
 
-// SimpleAtmosphere.atmospheric_data + air_data (no gust field); it reads
-// h_o, q_nb and v_eb_b of k. SKIP_ABOVE: that of isa_data
-template <bool SKIP_ABOVE = false, typename T>
+// SimpleAtmosphere.atmospheric_data + air_data; it reads h_o, q_nb and
+// v_eb_b of k. SKIP_ABOVE: that of isa_data. With GIVEN_V_EW_B the
+// body-axes wind is v_ew_b, which the disturbance chain has in hand
+// (turbulence.cuh: the sheared mean wind plus the gust, whose NED form is
+// `wind`); without, `wind` rotated into body axes (no gust field)
+template <bool SKIP_ABOVE = false, bool GIVEN_V_EW_B = false, typename T>
 __device__ __forceinline__ Air<T> atm_air(const Kin<T>& k, T T_sl, T p_sl,
-                                          V3<T> wind) {
+                                          V3<T> wind, V3<T> v_ew_b = {}) {
   Air<T> o;
   T_sl = clamp(T_sl, T(T_SL_MIN), T(T_SL_MAX));
   p_sl = clamp(p_sl, T(P_SL_MIN), T(P_SL_MAX));
@@ -699,7 +702,7 @@ __device__ __forceinline__ Air<T> atm_air(const Kin<T>& k, T T_sl, T p_sl,
   o.a = Sqrt(T(GAMMA * R_GAS) * o.Tk);
   o.mu = (T(BETA_S) * Pow(o.Tk, T(1.5))) / (o.Tk + T(S_SUTH));
   o.v_ew_n = wind;
-  o.v_ew_b = qrot_inv(k.q_nb, wind);
+  o.v_ew_b = GIVEN_V_EW_B ? v_ew_b : qrot_inv(k.q_nb, wind);
   o.v_wb_b = sub(k.v_eb_b, o.v_ew_b);
   o.TAS = norm3(o.v_wb_b);
   o.M = o.TAS / o.a;

@@ -82,7 +82,19 @@
 // of this instance skips. The mission table arrives at the end of the
 // gains (kernels.ctl_gains), so the kernel's parameters, and the other
 // instances' machine code, are those of before.
+//
+// The turbulent instance (megakernel_turb, ACT_TURB) is the same TPU kernel
+// traced over the C172S with DrydenTurbulence. Its state buffer holds the
+// C172S's rows with the five filter states after X's systems rows and the
+// turbulence's inputs and held drive after CTX's latch (84 rows), and its
+// int32 counter is [3, B]: the step counter, the stream's seed and the
+// drive's counter. Role KIN carries the filter states as the other roles
+// carry theirs (x and the k-sum in the scratch, k_prev in registers), works
+// out their derivative and the gust in each stage at the stage time t + c
+// dt, and combines them in the finish with the gust at the new time; role
+// PROP redraws the drive for the new counter during the finish.
 #include "c172x_msn.cuh"
+#include "turbulence.cuh"
 
 using namespace fj;
 
@@ -244,6 +256,19 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
 #pragma unroll
   for (int k = 0; k < N_SLOTS; ++k) kprev[k] = acc[k] = T(0);
   store_slots<ACT>(sso, 0, t.role, acc);
+  // the turbulent instance: role KIN's filter states, like its slots
+  TurbLane<T> tl;
+  T kprev_t[N_XTURB];
+  if constexpr (ACT == ACT_TURB) {
+    if (t.role == ROLE_KIN) {
+#pragma unroll
+      for (int j = 0; j < N_XTURB; ++j) {
+        sxo.s(L::X_TURB + j, c(M::X + L::X_TURB + j));
+        sso.s(L::X_TURB + j, T(0));
+        kprev_t[j] = T(0);
+      }
+    }
+  }
 
   // the four stages; stage offsets and weights as in clusterstep.py:124-125,
   // the k-sum ((((0 + k1) + 2 k2) + 2 k3) + k4) as the plain step forms it
@@ -255,7 +280,24 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     load_slots<ACT>(sx, 0, t.role, x);
 #pragma unroll
     for (int k = 0; k < N_SLOTS; ++k) xi[k] = x[k] + cs * kprev[k];
-    f_ode_roles<ACT>(sP, sh, t, xi, c, M::CTX, kprev);
+    if constexpr (ACT == ACT_TURB) {
+      if (t.role == ROLE_KIN) {
+#pragma unroll
+        for (int j = 0; j < N_XTURB; ++j)
+          tl.x[j] = sx(L::X_TURB + j) + cs * kprev_t[j];
+        tl.t = c(MG_T) + cs;
+      }
+      f_ode_roles<ACT>(sP, sh, t, xi, c, M::CTX, kprev, &tl);
+      if (t.role == ROLE_KIN) {
+#pragma unroll
+        for (int j = 0; j < N_XTURB; ++j) {
+          kprev_t[j] = tl.d[j];
+          sso.s(L::X_TURB + j, ss(L::X_TURB + j) + w * kprev_t[j]);
+        }
+      }
+    } else {
+      f_ode_roles<ACT>(sP, sh, t, xi, c, M::CTX, kprev);
+    }
     load_slots<ACT>(ss, 0, t.role, acc);
 #pragma unroll
     for (int k = 0; k < N_SLOTS; ++k) acc[k] = acc[k] + w * kprev[k];
@@ -266,8 +308,40 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   FinishOut<T> f;
   load_slots<ACT>(sx, 0, t.role, x);
   load_slots<ACT>(ss, 0, t.role, acc);
-  finish_roles<true, ACT>(sP, G, sh, t, x, acc, T(dt / 6.0), comp != 0, c,
-                          M::CTX, M::C, xn, f);
+  if constexpr (ACT == ACT_TURB) {
+    T eta[N_ETA];
+    if (t.role == ROLE_KIN) {
+#pragma unroll
+      for (int j = 0; j < N_XTURB; ++j) {
+        tl.x[j] = sx(L::X_TURB + j);
+        tl.k[j] = ss(L::X_TURB + j);
+      }
+      tl.t = T(t_start) + T(double(i_in[TI_I * B + t.b] + 1)) * T(dt);
+    } else if (t.role == ROLE_PROP) {
+      turb_redraw(uint32_t(i_in[TI_SEED * B + t.b]),
+                  uint32_t(i_in[TI_N * B + t.b] + 1), eta);
+    }
+    finish_roles<true, ACT>(sP, G, sh, t, x, acc, T(dt / 6.0), comp != 0, c,
+                            M::CTX, M::C, xn, f, &tl);
+    if (t.valid) {
+      if (t.role == ROLE_KIN) {
+#pragma unroll
+        for (int j = 0; j < N_XTURB; ++j) o.s(M::X + L::X_TURB + j, tl.d[j]);
+        i_out[TI_SEED * B + t.b] = i_in[TI_SEED * B + t.b];
+        i_out[TI_N * B + t.b] = i_in[TI_N * B + t.b] + 1;
+      } else if (t.role == ROLE_PROP) {
+#pragma unroll
+        for (int j = 0; j < N_ETA; ++j) o.s(M::CTX + L::CX_ETA + j, eta[j]);
+      } else if (t.role == ROLE_DRAG) {  // the turbulence's inputs
+#pragma unroll
+        for (int j = 0; j < N_UTURB; ++j)
+          o.s(M::CTX + L::CX_UTURB + j, c(M::CTX + L::CX_UTURB + j));
+      }
+    }
+  } else {
+    finish_roles<true, ACT>(sP, G, sh, t, x, acc, T(dt / 6.0), comp != 0, c,
+                            M::CTX, M::C, xn, f);
+  }
   if constexpr (AVK != AV_NONE) {
     // what the avionics read of the new state, into the scratch
     share_ctl_y<AVK >= AV_GDC, T, AVK == AV_MSN>(
@@ -449,6 +523,35 @@ int megakernel_msn_f64(const void* in, const void* i_in, const void* params,
                                      i_out, B, n_params, dt, t_start, comp,
                                      spp, pdt, lanes, stream);
 }
+// the turbulent C172S's instance: the C172S's signature, its i the int32
+// [3, B] rows (i, seed, n)
+int megakernel_turb_f32(const void* in, const void* i_in, const void* params,
+                        const void* grid, void* out, void* i_out, int B,
+                        int n_params, double dt, double t_start, int comp,
+                        int lanes, void* stream) {
+  return launch<ACT_TURB, AV_NONE, SF>(in, i_in, params, grid, nullptr, out,
+                                       i_out, B, n_params, dt, t_start, comp,
+                                       1, 0.0, lanes, stream);
+}
+int megakernel_turb_f64(const void* in, const void* i_in, const void* params,
+                        const void* grid, void* out, void* i_out, int B,
+                        int n_params, double dt, double t_start, int comp,
+                        int lanes, void* stream) {
+  return launch<ACT_TURB, AV_NONE, SD>(in, i_in, params, grid, nullptr, out,
+                                       i_out, B, n_params, dt, t_start, comp,
+                                       1, 0.0, lanes, stream);
+}
+void megakernel_turb_layout(int* n_in, int* n_out) {
+  *n_in = MEGA_N_ROWS_TURB;
+  *n_out = MEGA_N_ROWS_TURB;
+}
+void megakernel_turb_launch_shape(int B, int lanes, int n_params,
+                                  int elem_size, int* grid, int* block,
+                                  int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         MegaL<ACT_TURB>::SH_ROWS),
+             grid, block, shared);
+}
 void megakernel_layout(int* n_in, int* n_out) {
   *n_in = MEGA_N_ROWS;
   *n_out = MEGA_N_ROWS;
@@ -498,6 +601,12 @@ void vehicle_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_ctx = N_CTX;
   *n_c = N_C;
   *n_mega = MEGA_N_ROWS;
+}
+void vehicle_turb_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
+  *n_x = N_X_TURB;
+  *n_ctx = N_CTX_TURB;
+  *n_c = N_C;
+  *n_mega = MEGA_N_ROWS_TURB;
 }
 void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_x = N_X_FBW;

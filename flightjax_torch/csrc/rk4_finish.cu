@@ -38,7 +38,20 @@
 // leg's steering) and stores what the C172X's avionics read of the new
 // state: role KIN the KIN_Y rows (the atmosphere is worked out for EAS),
 // role AERO the gated airflow angles, each leg its weight on wheels.
+//
+// The turbulent instance (rk4_finish_turb, a kernel of its own: it also
+// reads the int32 rows i, seed, n and the step's dt and t_start) is the same
+// TPU kernel traced over the C172S with DrydenTurbulence: role KIN also
+// combines the five filter states and applies their gust at the new time
+// t_start + (i + 1) dt to the air data it shares (Vehicle._context), which
+// the stall reads; role PROP, which has no rows of its own to finish,
+// redraws the held drive for the new counter n + 1 from the lane's seed
+// (DrydenTurbulence.f_step: two fold_ins and three normals of the threefry
+// stream, turbulence.cuh) while role KIN combines, on every lane, as
+// World.f_step does. The new drive follows the C172S's outputs; the host
+// advances n.
 #include "c172_systems.cuh"
+#include "turbulence.cuh"
 
 using namespace fj;
 
@@ -51,7 +64,8 @@ struct FinRows {
     RO_TERM = RO_S + N_SSYS,
     RO_C = RO_TERM + 1,
     RO_KY = RO_C + N_C,
-    RO_SY = RO_KY + N_KINY
+    RO_SY = RO_KY + N_KINY,
+    RO_ETA = RO_C + N_C  // the turbulent instance
   };
 };
 
@@ -102,6 +116,60 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(N_ROLES * MAX_LANES)
+    rk4_finish_turb_kernel(const T* __restrict__ in,
+                           const T* __restrict__ ksum,
+                           const T* __restrict__ P,
+                           const int* __restrict__ ints, T* __restrict__ out,
+                           int B, T c6, int comp, double dt, double t_start) {
+  using R = FinRows<ACT_TURB>;
+  using L = SysL<ACT_TURB>;
+  const RoleThread t = role_thread(B);
+  const Col<T> c{in, B, t.b};
+  T x[N_SLOTS], ks[N_SLOTS], xn[N_SLOTS];
+  load_slots<ACT_TURB>(c, 0, t.role, x);
+  load_slots<ACT_TURB>(Col<T>{ksum, B, t.b}, 0, t.role, ks);
+  TurbLane<T> tl;
+  T eta[N_ETA];
+  if (t.role == ROLE_KIN) {
+    const Col<T> kc{ksum, B, t.b};
+#pragma unroll
+    for (int j = 0; j < N_XTURB; ++j) {
+      tl.x[j] = c(L::X_TURB + j);
+      tl.k[j] = kc(L::X_TURB + j);
+    }
+    tl.t = T(t_start) + T(double(ints[TI_I * B + t.b] + 1)) * T(dt);
+  } else if (t.role == ROLE_PROP) {
+    turb_redraw(uint32_t(ints[TI_SEED * B + t.b]),
+                uint32_t(ints[TI_N * B + t.b] + 1), eta);
+  }
+  FinishOut<T> f;
+  finish_roles<false, ACT_TURB>(P, (const T*)nullptr, block_shared<T>(), t, x,
+                                ks, c6, comp != 0, c, L::NXV,
+                                L::NXV + L::NCTX + 1, xn, f, &tl);
+  if (!t.valid) return;  // past the last barrier
+
+  const Out<T> o{out, B, t.b};
+  store_slots<ACT_TURB>(o, R::RO_X, t.role, xn);
+  if (t.role == ROLE_AERO) {
+    o.s(R::RO_S + SS_STALL, T(f.s.stall ? 1.0 : 0.0));
+  } else if (t.role == ROLE_ENG) {
+    o.s(R::RO_S + SS_STATE, T(double(f.s.state)));
+  } else if (t.role == ROLE_PROP) {
+#pragma unroll
+    for (int j = 0; j < N_ETA; ++j) o.s(R::RO_ETA + j, eta[j]);
+  } else if (t.role == ROLE_KIN) {
+    const T z = T(0.0);
+    o.s(R::RO_S + SS_CRASHED, T(f.s.crashed ? 1.0 : 0.0));
+    o.s(R::RO_TERM, f.term);
+    o.q4(R::RO_C, comp ? f.r_q : Q4<T>{z, z, z, z});
+    o.s(R::RO_C + 4, comp ? f.r_h : z);
+#pragma unroll
+    for (int j = 0; j < N_XTURB; ++j) o.s(R::RO_X + L::X_TURB + j, tl.d[j]);
+  }
+}
+
 template <int ACT, typename T>
 static int launch(const void* in, const void* ksum, const void* params,
                   void* out, int B, double c6, int comp, int lanes,
@@ -123,7 +191,50 @@ static int launch(const void* in, const void* ksum, const void* params,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch_turb(const void* in, const void* ksum, const void* params,
+                       const void* ints, void* out, int B, double c6,
+                       int comp, double dt, double t_start, int lanes,
+                       void* stream) {
+  if (B <= 0) return 0;
+  if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const RoleLaunch l = role_launch(B, lanes, 0, (int)sizeof(T), SH_N);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rk4_finish_turb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      l.shared);
+  if (err != cudaSuccess) return (int)err;
+  rk4_finish_turb_kernel<T><<<l.grid, l.block, l.shared,
+                              (cudaStream_t)stream>>>(
+      (const T*)in, (const T*)ksum, (const T*)params, (const int*)ints,
+      (T*)out, B, T(c6), comp, dt, t_start);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
+int rk4_finish_turb_f32(const void* in, const void* ksum, const void* params,
+                        const void* ints, void* out, int B, double c6,
+                        int comp, double dt, double t_start, int lanes,
+                        void* stream) {
+  return launch_turb<SF>(in, ksum, params, ints, out, B, c6, comp, dt,
+                         t_start, lanes, stream);
+}
+int rk4_finish_turb_f64(const void* in, const void* ksum, const void* params,
+                        const void* ints, void* out, int B, double c6,
+                        int comp, double dt, double t_start, int lanes,
+                        void* stream) {
+  return launch_turb<SD>(in, ksum, params, ints, out, B, c6, comp, dt,
+                         t_start, lanes, stream);
+}
+void rk4_finish_turb_layout(int* n_in, int* n_out) {
+  *n_in = RKFIN_N_IN_TURB;
+  *n_out = RKFIN_N_OUT_TURB;
+}
+void rk4_finish_turb_launch_shape(int B, int lanes, int n_params,
+                                  int elem_size, int* grid, int* block,
+                                  int* shared) {
+  put_launch(role_launch(B, lanes, 0, elem_size, SH_N), grid, block, shared);
+}
 int rk4_finish_f32(const void* in, const void* ksum, const void* params,
                    void* out, int B, double c6, int comp, int lanes,
                    void* stream) {

@@ -37,7 +37,19 @@
 // seven servo states in role DRAG's slots: it forms their stage point,
 // shares it before the first barrier for the roles that read a servo's
 // position, and stores their derivatives.
+//
+// The turbulent instance (rk4_stage_turb, ACT_TURB) is the same TPU kernel
+// traced over the C172S with DrydenTurbulence (stage_lane over
+// Vehicle.f_ode with the disturbance chain, aircraftbase.py:167-241). Its X
+// holds the five filter states after the systems rows, its CTX the
+// turbulence's inputs and held drive after the latch, and the step's start
+// time follows CTX, for the discrete gust at the stage time t + adt. Role
+// KIN forms the filters' stage state, works out the height above the
+// terrain, the sheared mean wind, the airspeed relative to it, the Dryden
+// derivative (x alive) and the gust, and shares the disturbed air data
+// (turbulence.cuh::turb_air); the other roles are the C172S's.
 #include "c172_systems.cuh"
+#include "turbulence.cuh"
 
 using namespace fj;
 
@@ -58,7 +70,26 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     xi[s] = x[s] + adt * kp[s];
     d[s] = T(0);
   }
-  f_ode_roles<ACT>(sP, sP + n_params, t, xi, c, SysL<ACT>::NXV, d);
+  using L = SysL<ACT>;
+  if constexpr (ACT == ACT_TURB) {
+    // role KIN's filter states at the stage point and the stage time
+    TurbLane<T> tl;
+    if (t.role == ROLE_KIN) {
+      const Col<T> kc{k, B, t.b};
+#pragma unroll
+      for (int j = 0; j < N_XTURB; ++j)
+        tl.x[j] = c(L::X_TURB + j) + adt * kc(L::X_TURB + j);
+      tl.t = c(L::NXV + L::NCTX) + adt;
+    }
+    f_ode_roles<ACT>(sP, sP + n_params, t, xi, c, L::NXV, d, &tl);
+    if (t.valid && t.role == ROLE_KIN) {
+      const Out<T> o{out, B, t.b};
+#pragma unroll
+      for (int j = 0; j < N_XTURB; ++j) o.s(L::X_TURB + j, tl.d[j]);
+    }
+  } else {
+    f_ode_roles<ACT>(sP, sP + n_params, t, xi, c, L::NXV, d);
+  }
   if (t.valid) store_slots<ACT>(Out<T>{out, B, t.b}, 0, t.role, d);
 }
 
@@ -107,6 +138,34 @@ int rk4_stage_fbw_f64(const void* in, const void* k, const void* params,
                       void* stream) {
   return launch<ACT_FBW, SD>(in, k, params, out, B, n_params, adt, lanes,
                              stream);
+}
+int rk4_stage_turb_f32(const void* in, const void* k, const void* params,
+                       void* out, int B, int n_params, double adt, int lanes,
+                       void* stream) {
+  return launch<ACT_TURB, SF>(in, k, params, out, B, n_params, adt, lanes,
+                              stream);
+}
+int rk4_stage_turb_f64(const void* in, const void* k, const void* params,
+                       void* out, int B, int n_params, double adt, int lanes,
+                       void* stream) {
+  return launch<ACT_TURB, SD>(in, k, params, out, B, n_params, adt, lanes,
+                              stream);
+}
+void rk4_stage_turb_layout(int* n_in, int* n_out) {
+  *n_in = STAGE_N_IN_TURB;
+  *n_out = STAGE_N_OUT_TURB;
+}
+void rk4_stage_turb_launch_shape(int B, int lanes, int n_params,
+                                 int elem_size, int* grid, int* block,
+                                 int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_N), grid, block,
+             shared);
+}
+// the head of the turbulent C172S's parameter buffer: the C172S's, then the
+// drive's scale
+void systems_turb_params_layout(int* n_head, int* n_tables) {
+  *n_head = P_HEAD_TURB;
+  *n_tables = TB_N;
 }
 void rk4_stage_layout(int* n_in, int* n_out) {
   *n_in = STAGE_N_IN;

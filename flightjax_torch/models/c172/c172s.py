@@ -54,16 +54,21 @@ class MechanicalActuation:
         }
 
 
-def build_vehicle(*, device, dtype) -> Vehicle:
+def build_vehicle(*, device, dtype, turbulence=None) -> Vehicle:
+    """The WA C172S; `turbulence` an optional `DrydenTurbulence`
+    (`c172s.py:83-88`)."""
     systems = C172.Systems(power_plant(device=device, dtype=dtype),
                            MechanicalActuation(), device=device, dtype=dtype)
     return Vehicle(systems, WA(), HorizontalTerrain(device=device,
                                                     dtype=dtype),
-                   device=device, dtype=dtype)
+                   device=device, dtype=dtype, turbulence=turbulence)
 
 
-def flagship_world(*, device, dtype) -> SimpleWorld:
-    return SimpleWorld(Aircraft(build_vehicle(device=device, dtype=dtype)))
+def flagship_world(*, device, dtype, turbulence=None) -> SimpleWorld:
+    """`c172s.py:277-283`: `turbulence=DrydenTurbulence(dt)` opts the
+    flagship fleet into gusts."""
+    return SimpleWorld(Aircraft(build_vehicle(device=device, dtype=dtype,
+                                              turbulence=turbulence)))
 
 
 def unflatten(flat, prefix):
@@ -104,3 +109,33 @@ def flagship_sim(device="cuda", dtype=torch.float32):
         u=tree_from_numpy(u, device, dtype),
         s=tree_from_numpy(s, device, dtype))
     return sim, sim.with_compensation(state), ()
+
+
+def with_turbulence(state, turbulence):
+    """A world SimState of the turbulence-free C172S with the turbulence's
+    initial trees added (`init_x`, `init_u`, `init_s`: W20 = 0, the
+    discrete gust and the shear off, seed 0): at W20 = 0 this is the
+    turbulent vehicle's trim, as the gust adds exactly 0 to the wind."""
+    like = state.t
+    xv, uv, sv = state.x["vehicle"], state.u["vehicle"], state.s["vehicle"]
+    return state._replace(
+        x=dict(state.x, vehicle=dict(xv, turb=turbulence.init_x(like))),
+        u=dict(state.u, vehicle=dict(uv, turb=turbulence.init_u(like))),
+        s=dict(state.s, vehicle=dict(sv, turb=turbulence.init_s(like))))
+
+
+def turbulent_flagship_sim(device="cuda", dtype=torch.float32, dt=0.02):
+    """(sim, single-aircraft SimState, ctx) of the turbulent flagship, as
+    `demos/c172_demos.py::turbulent_fleet_loads` builds it: the WA C172S
+    with `DrydenTurbulence(dt)`, geoid every 128 steps, the gear gate's
+    10 m margin, Kahan-compensated position in float32; the start is the
+    trim of `c172s_flagship.npz` with the turbulence's initial trees (the
+    stand-in for `c172s.trim` of the turbulent vehicle, which at W20 = 0 it
+    equals; the trim is not ported yet)."""
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    turb = DrydenTurbulence(dt)
+    world = flagship_world(device=device, dtype=dtype, turbulence=turb)
+    sim = Simulation(world, dt=dt, periodic_dt=dt, geoid_every=128,
+                     gear_gate_margin=10.0)
+    _, state, _ = flagship_sim(device, dtype)
+    return sim, with_turbulence(state, turb), ()

@@ -67,13 +67,24 @@ def _comp_kin(state):
     return state.c["vehicle"]["kinematics"]
 
 
+def _refuse_turbulence(vehicle):
+    if getattr(vehicle, "turbulence", None) is not None:
+        raise NotImplementedError(
+            "the subsystems split carries no turbulence, as the JAX "
+            "package's has no turbulent instance (clusterstep.py:568): a "
+            "turbulent vehicle steps through Simulation.fleet_step or "
+            "make_cluster_step(split='vehicle')")
+
+
 def cluster_step(sim, state: SimState, i: int, *, plain=False,
                  geoid_every=None) -> SimState:
     """Advance a batch-leading world SimState whose step counter is `i`
     through the five cluster kernels, or with `plain` through their plain
     versions on any device. The geoid is refreshed when (i + 1) is a
-    multiple of `geoid_every` (default `sim.geoid_every`)."""
+    multiple of `geoid_every` (default `sim.geoid_every`). A turbulent
+    vehicle is refused (`vehicle_step` carries it)."""
     vehicle = sim.system.aircraft.vehicle
+    _refuse_turbulence(vehicle)
     C = K.PLAIN if plain else K.WRAPPERS
     dt = sim.dt
     t, x, u, s = state.t, state.x, state.u, state.s
@@ -152,38 +163,62 @@ def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False):
     return u2, dict(s, avionics=s_av)
 
 
-def vehicle_step(sim, state: SimState, i: int, block=None) -> SimState:
+def vehicle_step(sim, state: SimState, i: int, block=None, comp=False,
+                 plain=False, geoid_every=None) -> SimState:
     """Advance a batch-leading world SimState whose step counter is `i`
     through `rk4_stage` x 4 and `rk4_finish` (their plain versions on the
-    CPU), uncompensated; `state.c` passes through."""
+    CPU or with `plain`), uncompensated as the JAX path is unless `comp`,
+    when the finish carries the residuals of `state.c` (the turbulent
+    `Simulation.fleet_step`); without it `state.c` passes through. The
+    geoid is refreshed when (i + 1) is a multiple of `geoid_every` (default
+    `sim.geoid_every`). On the turbulent C172S the instances
+    `rk4_stage_turb` and `rk4_finish_turb`, which also read the start time
+    and the int32 rows (i, seed, n)."""
     vehicle = sim.system.aircraft.vehicle
     lay = K.layout_of(vehicle)
     dt = sim.dt
     t, x, u, s = state.t, state.x, state.u, state.s
     xv, uv, sv = x["vehicle"], u["vehicle"], s["vehicle"]
+    c_kin = _comp_kin(state) if comp else None
 
-    buf = K.pack_vehicle(vehicle, xv, uv, sv, s["terminated"])
+    buf = K.pack_vehicle(vehicle, xv, uv, sv, s["terminated"], c_kin,
+                         t=t if lay.turb else None)
+    ints = K.pack_turb_int(state.i, uv, sv) if lay.turb else None
     stage_in = buf[:K.rows(lay.stage_in)]
     k = torch.zeros((K.rows(lay.stage_out), buf.shape[1]), dtype=buf.dtype,
                     device=buf.device)
     acc = k
     for c, w in STAGES:
-        k = K.rk4_stage_packed(vehicle, stage_in, k, c * dt, block)
+        k = (K.rk4_stage_packed_plain(vehicle, stage_in, k, c * dt) if plain
+             else K.rk4_stage_packed(vehicle, stage_in, k, c * dt, block))
         acc = acc + w * k
-    out = K.rk4_finish_packed(vehicle, buf, acc, dt, False, block)
+    if plain:
+        out = K.rk4_finish_packed_plain(vehicle, buf, acc, dt, comp, ints,
+                                        sim.t_start)
+    else:
+        out = K.rk4_finish_packed(vehicle, buf, acc, dt, comp, block, ints,
+                                  sim.t_start)
 
     i_new = state.i + 1
-    t_new = sim.t_start + i_new.to(t.dtype) * dt
-    xv2, s_sys2, term2, _, kin_y, sys_y = K.unpack_out(
-        lay.names["rk4_finish"], out)
+    t_new = K.step_time(sim.t_start, state.i, dt, t)
+    xv2, s_sys2, term2, c_kin2, kin_y, sys_y, *s_turb = K.unpack_out(
+        lay.names["rk4_finish"], out, comp, ints)
     sv2 = dict(sv, systems=s_sys2)
-    if (i + 1) % sim.geoid_every == 0:
+    if s_turb:
+        sv2["turb"] = s_turb[0]
+    if (i + 1) % (sim.geoid_every if geoid_every is None
+                  else geoid_every) == 0:
         q_rows = out[K.rows_of(lay.x_groups, "q_ew")]
-        sv2["geoid_N"] = K.geoid_packed(vehicle.geoid, q_rows, block)[0]
+        sv2["geoid_N"] = (K.geoid_plain(vehicle.geoid, q_rows.t()) if plain
+                          else K.geoid_packed(vehicle.geoid, q_rows,
+                                              block)[0])
     s2 = dict(s, vehicle=sv2, terminated=term2)
     u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i)
+    c2 = state.c
+    if comp and c_kin2 is not None:
+        c2 = {"vehicle": {"kinematics": c_kin2}}
     return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u2, s=s2,
-                    c=state.c)
+                    c=c2)
 
 
 def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
@@ -213,5 +248,6 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
     if split == "vehicle":
         return lambda st, *, i: vehicle_step(sim, st, int(i), block)
     if split == "subsystems":
+        _refuse_turbulence(vehicle)
         return lambda st, *, i: cluster_step(sim, st, int(i))
     raise ValueError(f"split must be 'vehicle' or 'subsystems', not {split!r}")

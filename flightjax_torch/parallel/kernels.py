@@ -206,6 +206,18 @@ MSN_USYS = ((("act", "flaps"), 1), (("act", "brake_left"), 1),
             (("act", "brake_right"), 1), (("pwp", "engine", "start"), 1))
 MSN_IN = (MSN_Y,) + AV_GROUPS + (AV_U_GDC, AV_S_MSN, MSN_USYS)
 MSN_OUT = GDC_OUT + (AV_S_MSN, MSN_USYS)
+# the turbulent C172S (`physics/turbulence.py`; rows of csrc/turbulence.cuh):
+# the five filter states after x_sys, the Dryden and discrete-gust inputs
+# and the held drive after CTX, the step's start time after them (which the
+# stage reads; the megakernel keeps t in its row 0). The stream's seed and
+# the drive's step counter are integers up to 2^31, past what float32 holds
+# exactly, so they ride with the step counter i in an int32 [3, B] operand
+X_TURB = (("ug", 1), ("vg", 2), ("wg", 2))
+U_TURB = (("W20", 1), ("gust_amp", 3), ("gust_t0", 1), ("gust_T", 1),
+          ("shear_z0_ft", 1))
+S_TURB = (("eta", 3),)
+T_ROW = (("t", 1),)
+TURB_INT = ("i", "seed", "n")
 TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
 MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
 WR = (("F", 3), ("tau", 3))
@@ -255,7 +267,10 @@ class Layout(NamedTuple):
     megakernel's state buffer: t, X, CTX, C and, fly-by-wire, the control
     laws' avionics block (and the guidance's inputs on the C172Xv2, and a
     mission's phase and clock after them);
-    `pass_name` the kernel of the avionics' periodic pass, if any."""
+    `pass_name` the kernel of the avionics' periodic pass, if any; `turb`
+    the turbulent C172S, whose X, CTX and finish output also hold the
+    turbulence's rows (X_TURB, U_TURB, S_TURB) and whose whole-vehicle
+    kernels read the start time (T_ROW) and the int32 rows TURB_INT."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -273,12 +288,15 @@ class Layout(NamedTuple):
     names: dict
     mega_name: str
     pass_name: str
+    turb: bool = False
 
 
-def _layout(fbw, gdc=False, msn=False):
+def _layout(fbw, gdc=False, msn=False, turb=False):
     x_sys, u_sys = (X_SYS_FBW, U_SYS_FBW) if fbw else (X_SYS, U_SYS)
-    x_groups = (X_KIN, X_DYN, x_sys)
-    ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),))
+    x_groups = (X_KIN, X_DYN, x_sys) + ((X_TURB,) if turb else ())
+    ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),)
+           ) + ((U_TURB, S_TURB) if turb else ())
+    stage_in = x_groups + ctx + ((T_ROW,) if turb else ())
     y = ((SYS_Y,) if fbw else ())
     return Layout(
         fbw=fbw, x_sys=x_sys, u_sys=u_sys,
@@ -287,19 +305,20 @@ def _layout(fbw, gdc=False, msn=False):
         sys_out=(x_sys, MP, WR, (("hr_b", 3),)),
         fsys_in=(x_sys, x_sys, u_sys, S_SYS, TRN, KIN_DATA, AIR_DATA),
         fsys_out=(x_sys, S_SYS) + y,
-        x_groups=x_groups, ctx_groups=ctx, stage_in=x_groups + ctx,
-        stage_out=x_groups, rkfin_in=x_groups + ctx + (COMP,),
+        x_groups=x_groups, ctx_groups=ctx, stage_in=stage_in,
+        stage_out=x_groups, rkfin_in=stage_in + (COMP,),
         rkfin_out=x_groups + (S_SYS, (("terminated", 1),), COMP)
-        + ((KIN_Y,) + y if fbw else ()),
+        + ((KIN_Y,) + y if fbw else ()) + ((S_TURB,) if turb else ()),
         mega=((("t", 1),),) + x_groups + ctx + (COMP,)
         + (AV_GROUPS if fbw else ()) + ((AV_U_GDC,) if gdc else ())
         + ((AV_S_MSN,) if msn else ()),
-        names={k: k + ("_fbw" if fbw else "") for k in (
-            "systems", "finish_sys", "rk4_stage", "rk4_finish")},
+        names={k: k + ("_fbw" if fbw else "_turb" if turb else "")
+               for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
         mega_name=("megakernel_msn" if msn else "megakernel_gdc" if gdc
-                   else "megakernel_fbw" if fbw else "megakernel"),
+                   else "megakernel_fbw" if fbw else "megakernel_turb" if turb
+                   else "megakernel"),
         pass_name=("msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
-                   else "ctl_laws" if fbw else None))
+                   else "ctl_laws" if fbw else None), turb=turb)
 
 
 # the C172S; the fly-by-wire C172X with its ControlLaws (the C172Xv1), with
@@ -308,6 +327,10 @@ def _layout(fbw, gdc=False, msn=False):
 # instances of their own
 MECH, FBW, GDC = _layout(False), _layout(True), _layout(True, gdc=True)
 MSN = _layout(True, gdc=True, msn=True)
+# the turbulent C172S (DrydenTurbulence): the whole-vehicle kernels and the
+# megakernel only, as the JAX package's subsystems split has no turbulent
+# instance (clusterstep.py:568)
+TURB = _layout(False, turb=True)
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -320,9 +343,18 @@ def layout_of(vehicle, avionics=None):
     """The layout of the vehicle's actuation: FBW for the fly-by-wire
     servos, whose kernel instances carry `Actuator1` on every channel (a
     second-order servo has no kernel yet), GDC where its `avionics` are the
-    C172Xv2's guidance and control laws, MSN a mission over them."""
+    C172Xv2's guidance and control laws, MSN a mission over them; TURB for
+    the C172S with Dryden turbulence."""
     act = vehicle.systems.act
-    if not getattr(act, "stateful", False):
+    stateful = getattr(act, "stateful", False)
+    if getattr(vehicle, "turbulence", None) is not None:
+        if stateful:
+            raise NotImplementedError(
+                "the kernels carry the turbulent C172S, not a turbulent "
+                "fly-by-wire vehicle: ROADMAP Queue 2, 'the turbulent "
+                "fly-by-wire instances'")
+        return TURB
+    if not stateful:
         return MECH
     bad = [ch for ch, a in act.actuators.items() if a.order != 1]
     if bad:
@@ -527,6 +559,13 @@ def param_act(vehicle):
             for v in (acts[ch].tau, *acts[ch].range)]
 
 
+def param_turb(vehicle):
+    """The turbulent C172S's drive scale sqrt(pi / dt) (`turbulence.py:
+    181`), in float64; [] without turbulence."""
+    turb = getattr(vehicle, "turbulence", None)
+    return [] if turb is None else [math.sqrt(math.pi / turb.dt)]
+
+
 def param_tables(vehicle):
     """{name: Lookup} of the tables the systems kernels read."""
     sys_ = vehicle.systems
@@ -557,13 +596,14 @@ _PARAMS = weakref.WeakKeyDictionary()
 def system_params(vehicle):
     """The parameter buffer of the systems kernels for this vehicle, on its
     device and in its dtype (built once): the scalars of `param_scalars`,
-    one offset per table, the servos of `param_act` (fly-by-wire only),
-    then the tables (`encode_table`)."""
+    one offset per table, the servos of `param_act` (fly-by-wire only) or
+    the drive's scale of `param_turb` (turbulent only), then the tables
+    (`encode_table`)."""
     sys_ = vehicle.systems
     buf = _PARAMS.get(sys_)
     if buf is None:
         head = [v for vs in param_scalars(vehicle).values() for v in vs]
-        act = param_act(vehicle)
+        act = param_act(vehicle) + param_turb(vehicle)
         tables = list(param_tables(vehicle).values())
         for name, lk in zip(TABLES, tables):
             if len(lk.axes) != TABLE_RANKS[name]:
@@ -745,6 +785,41 @@ def kinair_plain(x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm, adt, term):
     return _alive_scale(kin_dot, term), kin, air, xi_dyn
 
 
+def kinair_turb_plain(vehicle, x_kin, x_dyn, k_kin, k_dyn, geoid_N, u_atm,
+                      adt, term, x_turb, k_turb, u_turb, s_turb, t, elevation):
+    """`kinair_plain` on the turbulent vehicle: also the filters' stage
+    state x_turb + adt k_turb, and the disturbance chain between the
+    atmosphere and the air data at the stage time `t`
+    (`Vehicle.apply_disturbances`, `aircraftbase.py:207-218`). Returns
+    (kin_dot, kin, air, xi_dyn, turb_dot), the derivatives x alive."""
+    xi_kin = _fma(x_kin, k_kin, adt)
+    xi_dyn = _fma(x_dyn, k_dyn, adt)
+    xi_turb = _fma(x_turb, k_turb, adt)
+    kin_dot, kin = _WA.f_ode(xi_kin, xi_dyn, geoid_N)
+    atm_d = _ATM.atmospheric_data(u_atm, kin.n_e, kin.h_o)
+    atm_d, v_ew_b, turb_dot = vehicle.apply_disturbances(
+        xi_turb, u_turb, s_turb, t, kin, atm_d, elevation, True)
+    air = air_data(atm_d, kin, v_ew_b)
+    return (_alive_scale(kin_dot, term), kin, air, xi_dyn,
+            _alive_scale(turb_dot, term))
+
+
+def finish_kin_turb_plain(vehicle, x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N,
+                          u_atm, dt, c_kin, x_turb, ksum_turb, u_turb, s_turb,
+                          t_new, elevation):
+    """`finish_kin_plain` on the turbulent vehicle: also the filters'
+    combine, and the air data at the new state disturbed by the gust at
+    `t_new` (`Vehicle._context`, `aircraftbase.py:194-205`). Returns
+    (x_kin, x_dyn, kin, air, c_kin, x_turb)."""
+    x_kin2, x_dyn2, kin, _, c_kin = finish_kin_plain(
+        x_kin, x_dyn, ksum_kin, ksum_dyn, geoid_N, u_atm, dt, c_kin)
+    x_turb2 = tree_map(lambda a, b: a + (dt / 6.0) * b, x_turb, ksum_turb)
+    atm_d = _ATM.atmospheric_data(u_atm, kin.n_e, kin.h_o)
+    atm_d, v_ew_b, _ = vehicle.apply_disturbances(
+        x_turb2, u_turb, s_turb, t_new, kin, atm_d, elevation, False)
+    return x_kin2, x_dyn2, kin, air_data(atm_d, kin, v_ew_b), c_kin, x_turb2
+
+
 def dynamics_plain(xi_dyn, mp_b, wr_b, hr_b, q_eb, r_eb_e, term):
     """Newton-Euler at the CoM, x alive (`k3_lane`)."""
     dyn_dot = _DYN.f_ode(xi_dyn, DynamicsU(mp_sum_b=mp_b, wr_sum_b=wr_b,
@@ -833,22 +908,43 @@ def geoid_plain(geo, q_ew):
     return geo.height(nvector_from_qew(q_ew))
 
 
-def stage_clusters(C, vehicle, xv, kv, uv, sv, term, adt):
+def stage_clusters(C, vehicle, xv, kv, uv, sv, term, adt, t=None):
     """World derivative at the RK4 stage state xv + adt kv through the
     cluster functions `C` (`WRAPPERS` or `PLAIN`): kinair -> systems ->
-    dynamics, `stage_lane` of `clusterstep.py:81-85`. `term` is 0/1."""
-    kin_dot, kin, air, xi_dyn = C["kinair"](
-        xv["kinematics"], xv["dynamics"], kv["kinematics"], kv["dynamics"],
-        sv["geoid_N"], uv["atm"], adt, term)
+    dynamics, `stage_lane` of `clusterstep.py:81-85`. `term` is 0/1. A
+    turbulent vehicle (its trees under "turb") takes the kinair part
+    through `kinair_turb_plain` at the stage time t + adt, `t` the step's
+    start time per lane."""
+    turb = None
+    if "turb" in xv:
+        kin_dot, kin, air, xi_dyn, turb = kinair_turb_plain(
+            vehicle, xv["kinematics"], xv["dynamics"], kv["kinematics"],
+            kv["dynamics"], sv["geoid_N"], uv["atm"], adt, term, xv["turb"],
+            kv["turb"], uv["turb"], sv["turb"], t + adt,
+            vehicle.terrain.terrain_data(uv["trn"]).elevation)
+    else:
+        kin_dot, kin, air, xi_dyn = C["kinair"](
+            xv["kinematics"], xv["dynamics"], kv["kinematics"],
+            kv["dynamics"], sv["geoid_N"], uv["atm"], adt, term)
     sys_dot, mp_b, wr_b, hr_b = C["systems"](
         vehicle, xv["systems"], kv["systems"], uv["systems"], sv["systems"],
         uv["trn"], kin, air, adt, term)
     dyn_dot = C["dynamics"](xi_dyn, mp_b, wr_b, hr_b, kin.q_eb, kin.r_eb_e,
                             term)
-    return {"kinematics": kin_dot, "dynamics": dyn_dot, "systems": sys_dot}
+    out = {"kinematics": kin_dot, "dynamics": dyn_dot, "systems": sys_dot}
+    if turb is not None:
+        out["turb"] = turb
+    return out
 
 
-def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin):
+def step_time(t_start, i, dt, like):
+    """t_start + (i + 1) dt in `like`'s dtype, the new time of a step from
+    counter i as `Simulation.step` forms it (`sim.py:322`)."""
+    return t_start + (i + 1).to(like.dtype) * dt
+
+
+def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin,
+                    i=None, t_start=0.0):
     """The RK4 combine x + dt/6 ksum (compensated on q_ew / h_e with the
     residuals `c_kin`, or None) and World.f_step through the cluster
     functions `C`: finish_kin -> finish_sys -> the terminated latch,
@@ -856,10 +952,24 @@ def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin):
     terminated, c_kin, kin_y, sys_y): for the fly-by-wire C172 kin_y and
     sys_y are what its avionics read of the new state (the KIN_Y and SYS_Y
     fields, `vehicle_y` assembles the VehicleY), None for the mechanical
-    one."""
-    x_kin2, x_dyn2, kin2, air2, c_kin2 = C["finish_kin"](
-        xv["kinematics"], xv["dynamics"], ksum["kinematics"],
-        ksum["dynamics"], sv["geoid_N"], uv["atm"], dt, c_kin)
+    one. A turbulent vehicle takes the finish_kin part through
+    `finish_kin_turb_plain` at the new time (`step_time` of the step
+    counter `i`), and its drive is redrawn (`DrydenTurbulence.f_step`, on
+    every lane, terminated or not, as World.f_step does): then a seventh
+    value, the new s["turb"], follows, and xv holds the new filter
+    states."""
+    turb = "turb" in xv
+    if turb:
+        x_kin2, x_dyn2, kin2, air2, c_kin2, x_turb2 = finish_kin_turb_plain(
+            vehicle, xv["kinematics"], xv["dynamics"], ksum["kinematics"],
+            ksum["dynamics"], sv["geoid_N"], uv["atm"], dt, c_kin, xv["turb"],
+            ksum["turb"], uv["turb"], sv["turb"],
+            step_time(t_start, i, dt, xv["kinematics"]["h_e"]),
+            vehicle.terrain.terrain_data(uv["trn"]).elevation)
+    else:
+        x_kin2, x_dyn2, kin2, air2, c_kin2 = C["finish_kin"](
+            xv["kinematics"], xv["dynamics"], ksum["kinematics"],
+            ksum["dynamics"], sv["geoid_N"], uv["atm"], dt, c_kin)
     x_sys2, s_sys2, sys_y = C["finish_sys"](
         vehicle, xv["systems"], ksum["systems"], uv["systems"],
         sv["systems"], uv["trn"], kin2, air2, dt)
@@ -868,8 +978,43 @@ def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin):
     if sys_y is not None:
         kin_y = {k: (air2.EAS if k == "EAS" else getattr(kin2, k))
                  for k, _ in KIN_Y}
-    return (xv2, s_sys2, terminated | s_sys2["crashed"], c_kin2, kin_y,
-            sys_y)
+    out = (xv2, s_sys2, terminated | s_sys2["crashed"], c_kin2, kin_y, sys_y)
+    if not turb:
+        return out
+    xv2["turb"] = x_turb2
+    return out + (vehicle.turbulence.f_step(uv["turb"], sv["turb"]),)
+
+
+def world_output(world, state):
+    """`Simulation.output` on a fleet as far as the loads read it: the
+    world's derivative at `state` (time state.t, the stage state the state
+    itself) through the plain clusters, and the dynamics' specific force at
+    the CoM. Returns an AircraftY whose vehicle holds the KinData, the
+    AirData and DynamicsY(f_c_c)."""
+    from flightjax_torch.physics.aircraftbase import AircraftY
+    vehicle = world.aircraft.vehicle
+    xv, uv, sv = state.x["vehicle"], state.u["vehicle"], state.s["vehicle"]
+    zero = tree_map(torch.zeros_like, xv)
+    term = torch.zeros_like(xv["kinematics"]["h_e"])
+    if vehicle.turbulence is not None:
+        _, kin, air, xi_dyn, _ = kinair_turb_plain(
+            vehicle, xv["kinematics"], xv["dynamics"], zero["kinematics"],
+            zero["dynamics"], sv["geoid_N"], uv["atm"], 0.0, term,
+            xv["turb"], zero["turb"], uv["turb"], sv["turb"], state.t,
+            vehicle.terrain.terrain_data(uv["trn"]).elevation)
+    else:
+        _, kin, air, xi_dyn = kinair_plain(
+            xv["kinematics"], xv["dynamics"], zero["kinematics"],
+            zero["dynamics"], sv["geoid_N"], uv["atm"], 0.0, term)
+    _, mp_b, wr_b, hr_b = systems_plain(
+        vehicle, xv["systems"], zero["systems"], uv["systems"], sv["systems"],
+        uv["trn"], kin, air, 0.0, term)
+    dyn = _DYN.output(xi_dyn, DynamicsU(mp_sum_b=mp_b, wr_sum_b=wr_b,
+                                        ho_sum_b=hr_b, q_eb=kin.q_eb,
+                                        r_eb_e=kin.r_eb_e))
+    return AircraftY(vehicle=VehicleY(systems=None, kinematics=kin,
+                                      dynamics=dyn, airflow=air),
+                     avionics=None)
 
 
 def vehicle_y(vehicle, xv, uv, kin_y, sys_y, eng_state=None):
@@ -986,17 +1131,21 @@ def msn_ctl_laws_plain(avionics, y, u_av, s_av, dt, u_sys):
             {k: getattr(g, k) for k, _ in GDC_YOUT}, msn_usys(sys2))
 
 
-def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt):
-    """The plain clusters composed as `stage_lane`."""
-    return stage_clusters(PLAIN, vehicle, xv, kv, uv, sv, term, adt)
+def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt, t=None):
+    """The plain clusters composed as `stage_lane` (with the disturbance
+    chain at the stage time t + adt on the turbulent vehicle)."""
+    return stage_clusters(PLAIN, vehicle, xv, kv, uv, sv, term, adt, t)
 
 
-def rk4_finish_plain(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+def rk4_finish_plain(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None,
+                     i=None, t_start=0.0):
     """The plain clusters composed as `finish_lane`, with `comp_add` when
     residuals are carried: (xv, s_sys, terminated, c_kin, kin_y, sys_y),
-    kin_y and sys_y None for the mechanical C172."""
+    kin_y and sys_y None for the mechanical C172; on the turbulent vehicle
+    the disturbed air data at the new time of step counter `i` and the
+    redrawn drive, the new s["turb"], as a seventh value."""
     return finish_clusters(PLAIN, vehicle, xv, ksum, uv, sv, terminated, dt,
-                           c_kin)
+                           c_kin, i, t_start)
 
 
 # ------------------------------------------------------------ wrappers
@@ -1065,57 +1214,86 @@ def pack_finish_sys(vehicle, x_sys, ksum_sys, u_sys, s_sys, u_trn, kin, air,
 
 
 def _x(xv):
-    return xv["kinematics"], xv["dynamics"], xv["systems"]
+    return (xv["kinematics"], xv["dynamics"], xv["systems"]) + (
+        (xv["turb"],) if "turb" in xv else ())
 
 
 def _x_tree(views):
-    return {"kinematics": views[0], "dynamics": views[1],
-            "systems": views[2]}
+    x = {"kinematics": views[0], "dynamics": views[1], "systems": views[2]}
+    if len(views) > 3:
+        x["turb"] = views[3]
+    return x
 
 
-def pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin=None):
+def pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin=None, t=None):
     """The whole vehicle as one `[X; CTX; C]` buffer (`rkfin_in` of its
-    layout) in the state's dtype, C zero without residuals. `rk4_stage`
-    reads its first `rows(stage_in)` rows, `rk4_finish` all of them."""
+    layout) in the state's dtype, C zero without residuals; the turbulent
+    vehicle's holds the start time `t` before C. `rk4_stage` reads its
+    first `rows(stage_in)` rows, `rk4_finish` all of them."""
     lay = layout_of(vehicle)
     like = xv["kinematics"]["h_e"]
     if c_kin is None:
         c_kin = {"q_ew": torch.zeros_like(xv["kinematics"]["q_ew"]),
                  "h_e": torch.zeros_like(like)}
     B = like.shape[0]
+    turb = ((uv["turb"], sv["turb"], {"t": t}) if lay.turb else ())
     return pack(lay.rkfin_in, (*_x(xv), uv["systems"], uv["atm"],
                                _trn(vehicle, uv["trn"], B), sv["systems"],
                                {"geoid_N": sv["geoid_N"]},
-                               {"terminated": terminated}, c_kin), B,
+                               {"terminated": terminated}, *turb, c_kin), B,
                 like.dtype)
 
 
-def unpack_vehicle(buf, lay=MECH):
-    """(xv, uv, sv, terminated, c_kin) from a `pack_vehicle` buffer of
+def pack_turb_int(i, uv, sv):
+    """The int32 `[3, B]` rows TURB_INT of the turbulent vehicle: the step
+    counter, the stream's seed and the drive's counter."""
+    return torch.stack([i, uv["turb"]["seed"], sv["turb"]["n"]]).to(
+        torch.int32).contiguous()
+
+
+def unpack_vehicle(buf, lay=MECH, ints=None):
+    """(xv, uv, sv, terminated, c_kin, t) from a `pack_vehicle` buffer of
     layout `lay`, or from its first `rows(stage_in)` rows (c_kin None
-    then); bool and int leaves typed again, terrain constants dropped."""
+    then); bool and int leaves typed again, terrain constants dropped. The
+    turbulent layout's seed and drive counter come from `ints`, its
+    TURB_INT rows; t is None for the others."""
     v = unpack(lay.rkfin_in if buf.shape[0] == rows(lay.rkfin_in)
                else lay.stage_in, buf, typed=True)
-    uv = {"systems": v[3], "atm": v[4], "trn": {"surface": v[5]["surface"]}}
-    sv = {"systems": v[6], "geoid_N": v[7]["geoid_N"]}
-    return (_x_tree(v), uv, sv, v[8]["terminated"],
-            v[9] if len(v) > 9 else None)
+    nx = len(lay.x_groups)
+    x, (u_sys, u_atm, trn, s_sys, geo, term, *more) = v[:nx], v[nx:]
+    uv = {"systems": u_sys, "atm": u_atm, "trn": {"surface": trn["surface"]}}
+    sv = {"systems": s_sys, "geoid_N": geo["geoid_N"]}
+    t = None
+    if lay.turb:
+        u_turb, s_turb, t_row, *more = more
+        uv["turb"] = dict(u_turb, seed=ints[1])
+        sv["turb"] = dict(s_turb, n=ints[2])
+        t = t_row["t"]
+    return (_x_tree(x), uv, sv, term["terminated"],
+            more[0] if more else None, t)
 
 
-def pack_rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
+def pack_rk4_stage(vehicle, xv, kv, uv, sv, term, adt, t=None):
     lay = layout_of(vehicle)
-    buf = pack_vehicle(vehicle, xv, uv, sv, term)[:rows(lay.stage_in)]
+    buf = pack_vehicle(vehicle, xv, uv, sv, term, t=t)[:rows(lay.stage_in)]
     k = pack(lay.x_groups, _x(kv), buf.shape[1], buf.dtype)
     return buf, rows(lay.stage_out), (float(adt),), {
         "k": k, "params": system_params(vehicle)}
 
 
-def pack_rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+def pack_rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None,
+                    i=None, t_start=0.0):
     lay = layout_of(vehicle)
-    buf = pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin)
+    buf = pack_vehicle(vehicle, xv, uv, sv, terminated, c_kin,
+                       t=torch.zeros_like(xv["kinematics"]["h_e"])
+                       if lay.turb else None)
     k = pack(lay.x_groups, _x(ksum), buf.shape[1], buf.dtype)
-    return buf, rows(lay.rkfin_out), (dt / 6.0, int(c_kin is not None)), {
-        "k": k, "params": system_params(vehicle)}
+    ops = {"k": k, "params": system_params(vehicle)}
+    scalars = (dt / 6.0, int(c_kin is not None))
+    if lay.turb:
+        ops["ints"] = pack_turb_int(i, uv, sv)
+        scalars += (float(dt), float(t_start))
+    return buf, rows(lay.rkfin_out), scalars, ops
 
 
 def pack_ctl_laws(avionics, y, u_av, s_av, dt):
@@ -1157,11 +1335,15 @@ PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
 # the fly-by-wire instances pack as their mechanical twins (by the
 # vehicle's layout)
 PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
+PACK.update({TURB.names[k]: PACK[k] for k in ("rk4_stage", "rk4_finish")})
 
 
 # instance name -> (kernel, layout)
 _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
               for k, n in dict(lay.names, megakernel=lay.mega_name).items()}
+_INSTANCES.update({TURB.names[k]: (k, TURB) for k in ("rk4_stage",
+                                                      "rk4_finish")})
+_INSTANCES[TURB.mega_name] = ("megakernel", TURB)
 _INSTANCES[GDC.mega_name] = ("megakernel", GDC)
 _INSTANCES[MSN.mega_name] = ("megakernel", MSN)
 
@@ -1215,12 +1397,28 @@ def unpack_avionics(lay, buf):
     return u_av, {"ctl": s_av}
 
 
-def unpack_out(name, out, comp=False):
+def mega_rows(lay, buf):
+    """A `pack_vehicle` buffer of the turbulent layout ([X; CTX; t; C]) in
+    the order of its megakernel's state buffer ([t; X; CTX; C])."""
+    n = rows(lay.x_groups + lay.ctx_groups)
+    return torch.cat([buf[n:n + 1], buf[:n], buf[n + 1:]])
+
+
+def vehicle_rows(lay, mega):
+    """The inverse of `mega_rows`."""
+    n = rows(lay.x_groups + lay.ctx_groups)
+    return torch.cat([mega[1:n + 1], mega[:1], mega[n + 1:]])
+
+
+def unpack_out(name, out, comp=False, ints=None):
     """The packed output `out` of kernel instance `name` as its wrapper
     returns it (`comp`: finish_kin or rk4_finish carried residuals); bool
     and int leaves typed again. The megakernels' is their state buffer:
     (t, xv, uv, sv, terminated, c_kin, u_av, s_av), c_kin None without
-    `comp`, the avionics' u and s None for the C172S."""
+    `comp`, the avionics' u and s None for the C172S. The turbulent
+    instances read their integers from `ints`: the megakernel's its int32
+    state rows (TURB_INT), rk4_finish_turb's the rows it was given, whose
+    drive counter the new s["turb"] takes one step on."""
     base, lay = _INSTANCES.get(name, (name, MECH))
     if base == "ctl_laws":
         s_lon, s_lat, cmd = unpack(CTL_OUT, out, typed=True)
@@ -1235,8 +1433,13 @@ def unpack_out(name, out, comp=False):
                                    "lat": _av_tree(s_lat)}}, **sm},
                 cmd, g, sys_)
     if base == "megakernel":
+        if lay.turb:
+            xv, uv, sv, terminated, c_kin, t = unpack_vehicle(
+                vehicle_rows(lay, out), lay, ints)
+            return t, xv, uv, sv, terminated, c_kin if comp else None, \
+                None, None
         n = 1 + rows(lay.rkfin_in)
-        xv, uv, sv, terminated, c_kin = unpack_vehicle(out[1:n], lay)
+        xv, uv, sv, terminated, c_kin, _ = unpack_vehicle(out[1:n], lay)
         u_av = s_av = None
         if lay.fbw:
             u_av, s_av = unpack_avionics(lay, out[n:])
@@ -1263,8 +1466,14 @@ def unpack_out(name, out, comp=False):
         return _x_tree(unpack(lay.stage_out, out))
     if base == "rk4_finish":
         v = unpack(lay.rkfin_out, out, typed=True)
-        return (_x_tree(v), v[3], v[4]["terminated"], v[5] if comp else None,
-                *(v[6:8] if lay.fbw else (None, None)))
+        nx = len(lay.x_groups)
+        s_sys, term, c = v[nx:nx + 3]
+        res = (_x_tree(v[:nx]), s_sys, term["terminated"],
+               c if comp else None,
+               *(v[nx + 3:nx + 5] if lay.fbw else (None, None)))
+        if lay.turb:
+            res += (dict(v[-1], n=ints[2] + 1),)
+        return res
     raise ValueError(f"no kernel {name}")
 
 
@@ -1347,69 +1556,98 @@ def geoid(geo, q_ew):
     return unpack_out("geoid", _launch("geoid", (geo, q_ew)))
 
 
-def rk4_stage(vehicle, xv, kv, uv, sv, term, adt):
+def rk4_stage(vehicle, xv, kv, uv, sv, term, adt, t=None):
     """`rk4_stage_plain` on the CPU, the `rk4_stage` CUDA kernel on the
-    card: the derivative of the whole vehicle at xv + adt kv."""
+    card: the derivative of the whole vehicle at xv + adt kv (on the
+    turbulent vehicle at the stage time t + adt, `t` per lane)."""
     like = xv["kinematics"]["h_e"]
-    args = (vehicle, xv, kv, uv, sv, term, adt)
+    args = (vehicle, xv, kv, uv, sv, term, adt, t)
     if like.device.type == "cpu":
-        return rk4_stage_plain(*args[:-2], _term(term, like), adt)
+        return rk4_stage_plain(*args[:-3], _term(term, like), adt, t)
     name = _instance("rk4_stage", vehicle)
     return unpack_out(name, _launch(name, args))
 
 
-def rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None):
+def rk4_finish(vehicle, xv, ksum, uv, sv, terminated, dt, c_kin=None,
+               i=None, t_start=0.0):
     """`rk4_finish_plain` on the CPU, the `rk4_finish` CUDA kernel on the
     card. Returns (xv, s_sys, terminated, c_kin, kin_y, sys_y), kin_y and
-    sys_y None for the mechanical C172."""
+    sys_y None for the mechanical C172; on the turbulent vehicle, whose
+    finish reads the step counter `i` and the simulation's `t_start`, the
+    new s["turb"] follows."""
     _check_comp(c_kin)
-    args = (vehicle, xv, ksum, uv, sv, terminated, dt, c_kin)
+    args = (vehicle, xv, ksum, uv, sv, terminated, dt, c_kin, i, t_start)
     if xv["kinematics"]["h_e"].device.type == "cpu":
         return rk4_finish_plain(*args)
     name = _instance("rk4_finish", vehicle)
-    return unpack_out(name, _launch(name, args), c_kin is not None)
+    packed = PACK[name](*args)
+    return unpack_out(name, launch_kernel(name, *packed), c_kin is not None,
+                      packed[3].get("ints"))
 
 
 def rk4_stage_packed(vehicle, buf, k, adt, block=None):
     """One RK4 stage on packed buffers: `buf` holds X; CTX
-    (`rows(STAGE_IN)` rows), `k` the previous stage's derivative; returns
-    the stage derivative (`rows(STAGE_OUT)` rows). The kernel on the card
-    (`block`: aircraft per block, 32 or 64), the plain stage between unpack
-    and pack on the CPU."""
+    (`rows(STAGE_IN)` rows, the start time last on the turbulent vehicle),
+    `k` the previous stage's derivative; returns the stage derivative
+    (`rows(STAGE_OUT)` rows). The kernel on the card (`block`: aircraft per
+    block, 32 or 64), the plain stage between unpack and pack on the
+    CPU."""
     lay = layout_of(vehicle)
     if buf.device.type != "cpu":
         return launch_kernel(lay.names["rk4_stage"], buf,
                              rows(lay.stage_out), (float(adt),),
                              {"k": k, "params": system_params(vehicle)},
                              block)
-    xv, uv, sv, terminated, _ = unpack_vehicle(buf, lay)
+    return rk4_stage_packed_plain(vehicle, buf, k, adt)
+
+
+def rk4_stage_packed_plain(vehicle, buf, k, adt):
+    """`rk4_stage_packed`'s plain version, on any device."""
+    lay = layout_of(vehicle)
+    xv, uv, sv, terminated, _, t = unpack_vehicle(
+        buf, lay, torch.zeros((3, buf.shape[1]), dtype=torch.int32,
+                              device=buf.device))
     d = rk4_stage_plain(vehicle, xv, _x_tree(unpack(lay.x_groups, k)), uv,
-                        sv, terminated.to(buf.dtype), adt)
+                        sv, terminated.to(buf.dtype), adt, t)
     return pack(lay.stage_out, _x(d), buf.shape[1], buf.dtype)
 
 
-def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None):
+def rk4_finish_packed(vehicle, buf, ksum, dt, comp, block=None, ints=None,
+                      t_start=0.0):
     """The RK4 combine and World.f_step on packed buffers: `buf` from
     `pack_vehicle`, `ksum` the k-sum; returns X; s_sys; terminated; C
-    (`rows(RKFIN_OUT)` rows, C zero unless `comp`). The kernel on the
-    card (`block`: aircraft per block, 32 or 64), the plain finish between
-    unpack and pack on the CPU."""
+    (`rows(RKFIN_OUT)` rows, C zero unless `comp`; the drive eta last on
+    the turbulent vehicle, whose finish also reads the int32 TURB_INT
+    rows `ints` and `t_start`). The kernel on the card (`block`: aircraft
+    per block, 32 or 64), the plain finish between unpack and pack on the
+    CPU."""
     lay = layout_of(vehicle)
     if buf.device.type != "cpu":
+        scalars = (dt / 6.0, int(bool(comp)))
+        ops = {"k": ksum, "params": system_params(vehicle)}
+        if lay.turb:
+            scalars += (float(dt), float(t_start))
+            ops["ints"] = ints
         return launch_kernel(lay.names["rk4_finish"], buf,
-                             rows(lay.rkfin_out),
-                             (dt / 6.0, int(bool(comp))),
-                             {"k": ksum, "params": system_params(vehicle)},
-                             block)
-    xv, uv, sv, terminated, c_kin = unpack_vehicle(buf, lay)
-    xv2, s2, term2, c2, kin_y, sys_y = rk4_finish_plain(
+                             rows(lay.rkfin_out), scalars, ops, block)
+    return rk4_finish_packed_plain(vehicle, buf, ksum, dt, comp, ints,
+                                   t_start)
+
+
+def rk4_finish_packed_plain(vehicle, buf, ksum, dt, comp, ints=None,
+                            t_start=0.0):
+    """`rk4_finish_packed`'s plain version, on any device."""
+    lay = layout_of(vehicle)
+    xv, uv, sv, terminated, c_kin, _ = unpack_vehicle(buf, lay, ints)
+    xv2, s2, term2, c2, kin_y, sys_y, *st = rk4_finish_plain(
         vehicle, xv, _x_tree(unpack(lay.x_groups, ksum)), uv, sv, terminated,
-        dt, c_kin if comp else None)
+        dt, c_kin if comp else None, None if ints is None else ints[0],
+        t_start)
     if c2 is None:
         c2 = tree_map(torch.zeros_like, c_kin)
     y = (kin_y, sys_y) if lay.fbw else ()
     return pack(lay.rkfin_out, (*_x(xv2), s2, {"terminated": term2}, c2,
-                                *y), buf.shape[1], buf.dtype)
+                                *y, *st), buf.shape[1], buf.dtype)
 
 
 def ctl_laws(avionics, y, u_av, s_av, dt):
@@ -1457,13 +1695,15 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     laws') periodic pass every `spp` steps at their `periodic_dt`, with the
     C172Xv2's avionics `megakernel_gdc`, whose pass runs the guidance
     first, or with a mission over them `megakernel_msn`, whose pass runs
-    the phase machine first."""
+    the phase machine first; with the turbulent C172S `megakernel_turb`,
+    whose int32 buffer holds (i, seed, n)."""
     name = layout_of(vehicle, avionics).mega_name
     out = L.launch_megakernel(
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
         None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
-        gdc=name == GDC.mega_name, msn=name == MSN.mega_name)
+        gdc=name == GDC.mega_name, msn=name == MSN.mega_name,
+        turb=name == TURB.mega_name)
     LAUNCHES[name] += 1
     return out
 

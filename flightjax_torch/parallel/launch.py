@@ -52,14 +52,18 @@ FBW_KERNELS = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
 # over them, and their passes as kernels of their own
 AV_KERNELS = ("megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
               "megakernel_msn", "msn_ctl_laws")
+# the instances for the C172S with Dryden turbulence (csrc/turbulence.cuh):
+# the whole-vehicle kernels and the megakernel
+TURB_KERNELS = ("rk4_stage_turb", "rk4_finish_turb", "megakernel_turb")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
-                "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS)
+                "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
+                *TURB_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc",
-               "megakernel_msn")
+               "megakernel_msn", "rk4_stage_turb", "megakernel_turb")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -69,14 +73,19 @@ N_GAIN_TABLES = 10
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
-           *AV_KERNELS)
+           *AV_KERNELS, *TURB_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
-# systems' parameter buffer, the geoid grid
-WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw")
+# systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
+# counter, stream seed, drive counter) of the turbulent vehicle
+WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw",
+          "rk4_stage_turb", "rk4_finish_turb")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
-               "megakernel", *FBW_KERNELS)
-WITH_GRID = ("geoid", "megakernel")
+               "megakernel", *FBW_KERNELS, *TURB_KERNELS)
+WITH_GRID = ("geoid", "megakernel", "megakernel_turb")
 WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws")
+WITH_INTS = ("rk4_finish_turb",)
+# rows of the turbulent vehicle's int32 operand
+N_TURB_INT = 3
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -159,11 +168,13 @@ def library():
             so = build()
             lib = ctypes.CDLL(so)
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            for name in (*KERNELS, "systems_params", "systems_fbw_params"):
+            for name in (*KERNELS, "systems_params", "systems_fbw_params",
+                         "systems_turb_params"):
                 f = getattr(lib, f"{name}_layout")
                 f.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
                 f.restype = None
-            for f in (lib.vehicle_layout, lib.vehicle_fbw_layout):
+            for f in (lib.vehicle_layout, lib.vehicle_fbw_layout,
+                      lib.vehicle_turb_layout):
                 f.argtypes = [ctypes.POINTER(I)] * 4
                 f.restype = None
             sig = {"kinair": [P, P, I, D, I, P],
@@ -182,7 +193,10 @@ def library():
             sig.update(megakernel_gdc=sig["megakernel_fbw"],
                        gdc_ctl_laws=sig["ctl_laws"],
                        megakernel_msn=sig["megakernel_fbw"],
-                       msn_ctl_laws=sig["ctl_laws"])
+                       msn_ctl_laws=sig["ctl_laws"],
+                       rk4_stage_turb=sig["rk4_stage"],
+                       rk4_finish_turb=[P, P, P, P, P, I, D, I, D, D, I, P],
+                       megakernel_turb=sig["megakernel"])
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -213,11 +227,12 @@ def layout(name):
     return _LAYOUTS[name]
 
 
-def vehicle_layout(fbw=False):
+def vehicle_layout(fbw=False, turb=False):
     """{x, ctx, c, mega}: rows of the whole-vehicle groups X, CTX, C and of
     the megakernel's state buffer, as the compiled kernels declare them,
-    for the mechanical C172 or with `fbw` the fly-by-wire one."""
-    key = "vehicle_fbw" if fbw else "vehicle"
+    for the mechanical C172, with `fbw` the fly-by-wire one, with `turb`
+    the turbulent C172S."""
+    key = "vehicle_fbw" if fbw else "vehicle_turb" if turb else "vehicle"
     if key not in _LAYOUTS:
         v = [ctypes.c_int() for _ in range(4)]
         getattr(library(), f"{key}_layout")(*map(ctypes.byref, v))
@@ -239,16 +254,18 @@ def check_operand(t, n_rows, B, dtype, device):
         raise ValueError("kernel operand must be contiguous")
 
 
-def check_params(params, dtype, device, fbw=False):
+def check_params(params, dtype, device, fbw=False, turb=False):
     """The C172 systems' parameter buffer (`kernels.system_params`): a
     contiguous 1-D tensor at least as long as the head the kernels (the
-    fly-by-wire instances with `fbw`) read."""
+    fly-by-wire instances with `fbw`, the turbulent ones with `turb`)
+    read."""
     if not isinstance(params, torch.Tensor):
         raise TypeError("kernel parameters must be a tensor")
     if params.device != device or params.dtype != dtype:
         raise ValueError(f"kernel parameters on {params.device}/"
                          f"{params.dtype}, expected {device}/{dtype}")
-    n_head, _ = layout("systems_fbw_params" if fbw else "systems_params")
+    n_head, _ = layout("systems_fbw_params" if fbw else
+                       "systems_turb_params" if turb else "systems_params")
     if params.dim() != 1 or params.shape[0] < n_head:
         raise ValueError(f"kernel parameters of shape {tuple(params.shape)}"
                          f", the head alone has {n_head}")
@@ -326,13 +343,14 @@ def launch_empty(grid, block, shared):
 
 
 def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
-           grid=None, gains=None):
+           grid=None, gains=None, ints=None):
     """Run kernel `name` on a packed `[n_in, B]` CUDA tensor, with its
     other operands: `k` (k_prev or the k-sum, `[n_x, B]`) for the two RK4
     kernels, the parameter buffer for the kernels of the C172 systems, the
     geoid grid for `geoid`, the control laws' gains for `ctl_laws`,
     `gdc_ctl_laws` and `msn_ctl_laws` (with the mission table for the
-    last, `kernels.ctl_gains`).
+    last, `kernels.ctl_gains`), the int32 `[3, B]` rows (i, seed, n) for
+    `rk4_finish_turb`.
     Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn(name, dtype, device)
@@ -345,17 +363,22 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     for key, val, kernels in (("k", k, WITH_K), ("params", params,
                                                  WITH_PARAMS),
                               ("grid", grid, WITH_GRID),
-                              ("gains", gains, WITH_GAINS)):
+                              ("gains", gains, WITH_GAINS),
+                              ("ints", ints, WITH_INTS)):
         if (name in kernels) != (val is not None):
             raise ValueError(f"{name}: operand {key} "
                              + ("missing" if val is None else "not taken"))
     fbw = name in FBW_KERNELS
     if k is not None:
-        check_operand(k, vehicle_layout(fbw)["x"], B, dtype, device)
+        check_operand(k, vehicle_layout(fbw, name in TURB_KERNELS)["x"], B,
+                      dtype, device)
         ptrs.append(k.data_ptr())
     if params is not None:
-        check_params(params, dtype, device, fbw)
+        check_params(params, dtype, device, fbw, name in TURB_KERNELS)
         ptrs.append(params.data_ptr())
+    if ints is not None:
+        check_operand(ints, N_TURB_INT, B, torch.int32, device)
+        ptrs.append(ints.data_ptr())
     if grid is not None:
         check_grid(grid, dtype, device)
         ptrs.append(grid.data_ptr())
@@ -371,7 +394,7 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
 
 def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
                       gains=None, spp=1, periodic_dt=0.0, gdc=False,
-                      msn=False):
+                      msn=False, turb=False):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
     new (state, i) in fresh buffers. `block` is the aircraft per block.
@@ -380,19 +403,23 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     `periodic_dt`, with `gdc` the C172Xv2's `megakernel_gdc`, whose pass
     runs the guidance first, or with `msn` a mission's `megakernel_msn`,
     whose pass runs the phase machine first (its gains hold the mission
-    table). Does not synchronise."""
+    table), or with `turb` the turbulent C172S's `megakernel_turb`, whose
+    `i` is the int32 `[3, B]` rows (i, seed, n). Does not synchronise."""
     fbw = gains is not None
     if (gdc or msn) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
+    if turb and fbw:
+        raise ValueError("the turbulent megakernel carries the C172S")
     name = ("megakernel_msn" if msn else "megakernel_gdc" if gdc
-            else "megakernel_fbw" if fbw else "megakernel")
+            else "megakernel_fbw" if fbw else "megakernel_turb" if turb
+            else "megakernel")
     dtype, device = state.dtype, state.device
     fn = _fn(name, dtype, device)
     B = state.shape[1]
     check_operand(state, layout(name)[0], B, dtype, device)
-    check_operand(i, 1, B, torch.int32, device)
-    check_params(params, dtype, device, fbw)
+    check_operand(i, N_TURB_INT if turb else 1, B, torch.int32, device)
+    check_params(params, dtype, device, fbw, turb)
     check_grid(grid, dtype, device)
     out, i_out = torch.empty_like(state), torch.empty_like(i)
     ptrs = [state.data_ptr(), i.data_ptr(), params.data_ptr(),

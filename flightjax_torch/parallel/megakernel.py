@@ -14,7 +14,11 @@ integers) follow C (`csrc/c172x_ctl.cuh`); on the C172Xv2
 (`csrc/c172x_gdc.cuh`), and over a scripted mission (`megakernel_msn`)
 the phase index and the mission clock follow those (`csrc/c172x_msn.cuh`).
 The rows of the buffer: 69 (the C172S), 141 (the C172Xv1), 158 (the
-C172Xv2), 160 (a mission). This takes the place of the part
+C172Xv2), 160 (a mission), 84 (the turbulent C172S, `megakernel_turb`:
+the C172S's rows with the five filter states after X and the Dryden and
+discrete-gust inputs and the held drive after CTX). On the turbulent C172S
+the int32 counter is `[3, B]`: the step counter, the stream's seed and the
+drive's counter, integers past what float32 holds exactly. This takes the place of the part
 of `flightjax/parallel/packed.py::make_packer` the JAX kernel uses: the
 layout is fixed by the kernel, so `pack` / `unpack` here are plain row
 maps.
@@ -38,7 +42,7 @@ import torch
 from flightjax_torch.core.modeling import tree_where
 from flightjax_torch.core.sim import SimState
 from flightjax_torch.parallel import kernels as K
-from flightjax_torch.parallel.clusterstep import cluster_step
+from flightjax_torch.parallel.clusterstep import cluster_step, vehicle_step
 
 # the rows of the C172S's resident state buffer: t, then X; CTX; C
 MEGA_GROUPS = K.MECH.mega
@@ -47,7 +51,12 @@ MEGA_GROUPS = K.MECH.mega
 def megakernel_step_plain(sim, state: SimState) -> SimState:
     """The plain cluster step with the geoid refreshed on every step and
     the periodic pass where each lane's counter fires: the port of
-    `jax.vmap(Simulation.step)`, the kernel's plain version."""
+    `jax.vmap(Simulation.step)`, the kernel's plain version (on the
+    turbulent C172S the plain whole-vehicle step, compensated iff
+    `state.c`)."""
+    if sim.system.aircraft.vehicle.turbulence is not None:
+        return vehicle_step(sim, state, 0, comp=state.c is not None,
+                            plain=True, geoid_every=1)
     spp = sim.steps_per_periodic
     # a fleet counter at which the pass fires; the lanes whose own counter
     # does not fire keep their inputs and avionics state
@@ -70,9 +79,10 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     block has eight times as many threads. The step compensates iff
     `state.c` is set, as `Simulation.step` does. Carries the C172S, the
     fly-by-wire C172Xv1 with its `ControlLaws` and the C172Xv2 with its
-    guidance and control laws (`c172x_gdc.Avionics`), and a scripted
-    mission over those whose phases carry descriptors (`core/mission.py`,
-    `models/c172/missions.py`)."""
+    guidance and control laws (`c172x_gdc.Avionics`), a scripted mission
+    over those whose phases carry descriptors (`core/mission.py`,
+    `models/c172/missions.py`), and the turbulent C172S (`megakernel_turb`,
+    whose int32 buffer is `[3, B]`: i, seed, n)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
@@ -91,6 +101,10 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
             raise ValueError("the residuals must be set as in the template")
         xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
         c_kin = None if st.c is None else st.c["vehicle"]["kinematics"]
+        if lay.turb:
+            buf = K.pack_vehicle(vehicle, xv, uv, sv, st.s["terminated"],
+                                 c_kin, t=st.t)
+            return (K.mega_rows(lay, buf), K.pack_turb_int(st.i, uv, sv))
         buf = K.pack_vehicle(vehicle, xv, uv, sv, st.s["terminated"], c_kin)
         parts = [st.t.to(buf.dtype)[None], buf]
         if lay.fbw:
@@ -103,7 +117,7 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     def unpack(bufs):
         buf, i = bufs
         t, xv, uv, sv, terminated, c_kin, u_av, s_av = K.unpack_out(
-            name, buf, comp)
+            name, buf, comp, i)
         u, s = {"vehicle": uv}, {"vehicle": sv, "terminated": terminated}
         if lay.fbw:
             u["avionics"], s["avionics"] = u_av, s_av

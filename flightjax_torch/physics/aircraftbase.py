@@ -17,6 +17,7 @@ systems' inputs.
 from typing import NamedTuple
 
 from flightjax_torch.ops import geodesy as geo
+from flightjax_torch.ops.quaternions import qrot_inv
 from flightjax_torch.physics.atmosphere import SimpleAtmosphere, air_data
 from flightjax_torch.physics.dynamics import VehicleDynamics
 
@@ -31,20 +32,56 @@ class VehicleY(NamedTuple):
     airflow: object
 
 
+class AircraftY(NamedTuple):
+    """Aircraft outputs (`aircraftbase.py:296-298`)."""
+    vehicle: VehicleY
+    avionics: object
+
+
 class Vehicle:
     """Systems + kinematics + dynamics, in an atmosphere over terrain;
     x = {kinematics, dynamics, systems}, u = {systems, atm, trn},
-    s = {systems, geoid_N}."""
+    s = {systems, geoid_N}. With a `turbulence` model (`physics/
+    turbulence.py::DrydenTurbulence`) x, u and s also hold its trees under
+    "turb" (`aircraftbase.py:121-165`)."""
 
     def __init__(self, systems, kinematics, terrain, *, device, dtype,
-                 atmosphere=None):
+                 atmosphere=None, turbulence=None):
         self.systems = systems
         self.kinematics = kinematics
         self.dynamics = VehicleDynamics()
         self.atmosphere = atmosphere if atmosphere is not None \
             else SimpleAtmosphere()
         self.terrain = terrain
+        self.turbulence = turbulence
         self.geoid = geo.geoid(device, dtype)
+
+    def apply_disturbances(self, x_turb, u_turb, s_turb, t, kin, atm_data,
+                           elevation, want_dot):
+        """The atmospheric disturbance chain (`aircraftbase.py:167-192`):
+        the mean wind shaped by the shear profile, then the Dryden and
+        discrete gust superposed; the filters see the airspeed relative to
+        the sheared mean wind and the height above the terrain's
+        `elevation`. Returns (the disturbed AtmosphericData, the body-axes
+        total wind for `air_data`, the filters' derivative or None)."""
+        import torch
+
+        from flightjax_torch.ops.quaternions import qrot
+        from flightjax_torch.physics.atmosphere import norm3
+        from flightjax_torch.physics.turbulence import shear_scale
+        h_agl = kin.h_o - elevation
+        k = shear_scale(u_turb, h_agl)
+        v_mean = atm_data.v * torch.stack([k, k, torch.ones_like(k)], dim=-1)
+        v_ew_b = qrot_inv(kin.q_nb, v_mean)
+        V = norm3(kin.v_eb_b - v_ew_b)
+        turb_dot = None
+        if want_dot:
+            turb_dot, gust_b = self.turbulence.f_ode(x_turb, u_turb, s_turb,
+                                                     t, V, h_agl)
+        else:
+            gust_b = self.turbulence.gust(x_turb, u_turb, V, h_agl, t)
+        atm2 = atm_data._replace(v=v_mean + qrot(kin.q_nb, gust_b))
+        return atm2, v_ew_b + gust_b, turb_dot
 
     def refresh_geoid(self, x, s, plain=False):
         """The carried undulation refreshed under the WA position states:
@@ -59,11 +96,12 @@ class Vehicle:
         trn = self.terrain.terrain_data(u["trn"])
         return x["kinematics"]["h_e"] - (trn.elevation + s["geoid_N"])
 
-    def output(self, x, u, s):
+    def output(self, x, u, s, t=0.0):
         """VehicleY at the state (x, u, s) in plain PyTorch, the outputs of
         `Vehicle.f_ode` (`aircraftbase.py:215-241`) the avionics read: for
         set-up (the avionics' start from a trim) and the tests; the fleet
-        step assembles it from its kernels' outputs."""
+        step assembles it from its kernels' outputs. A turbulent vehicle's
+        air data carries the gust at time `t`."""
         import torch
 
         from flightjax_torch.models.c172.common import (_alpha_gated,
@@ -72,8 +110,13 @@ class Vehicle:
         _, kin = self.kinematics.f_ode(x["kinematics"], x["dynamics"],
                                        s["geoid_N"])
         atm_d = self.atmosphere.atmospheric_data(u["atm"], kin.n_e, kin.h_o)
-        air = air_data(atm_d, kin)
         trn = self.terrain.terrain_data(u["trn"])
+        v_ew_b = None
+        if self.turbulence is not None:
+            atm_d, v_ew_b, _ = self.apply_disturbances(
+                x["turb"], u["turb"], s["turb"], t, kin, atm_d,
+                trn.elevation, False)
+        air = air_data(atm_d, kin, v_ew_b)
         alpha, beta, _ = _alpha_gated(air)
         steering = sys_.fin_act(u["systems"]["act"],
                                 x["systems"].get("act"))["steering"]

@@ -104,10 +104,13 @@ def norm3(v):
                       + v[..., 2] * v[..., 2])
 
 
-def air_data(atm: AtmosphericData, kin) -> AirData:
-    """`atmosphere.py:125-147` without a gust field."""
+def air_data(atm: AtmosphericData, kin, v_ew_b=None) -> AirData:
+    """`atmosphere.py:125-147`. `v_ew_b`: the body-axes wind when the
+    disturbance chain already has it (the sheared mean wind plus the gust,
+    `Vehicle.apply_disturbances`); else atm.v rotated into body axes."""
     v_ew_n = atm.v
-    v_ew_b = qrot_inv(kin.q_nb, v_ew_n)
+    if v_ew_b is None:
+        v_ew_b = qrot_inv(kin.q_nb, v_ew_n)
     v_wb_b = kin.v_eb_b - v_ew_b
     TAS = norm3(v_wb_b)
     M = TAS / atm.a

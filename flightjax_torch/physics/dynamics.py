@@ -116,11 +116,33 @@ class DynamicsU(NamedTuple):
     r_eb_e: torch.Tensor
 
 
+class DynamicsY(NamedTuple):
+    """The dynamics' outputs the port reads: the specific force at the CoM
+    in CoM axes (`dynamics.py:266-274`), the fleet's load factor."""
+    f_c_c: torch.Tensor
+
+
 class VehicleDynamics:
     """Newton-Euler at the CoM (`dynamics.py:202-290`); x = {omega_eb_b,
-    v_eb_b}. Returns only x_dot: the fleet step consumes nothing else."""
+    v_eb_b}. `f_ode` returns only x_dot, the fleet step's; `output` the
+    specific force the loads read."""
 
     def f_ode(self, x, u: DynamicsU):
+        v = self._solve(x, u)
+        return {"omega_eb_b": v["omega_dot"], "v_eb_b": v["v_dot_eb_b"]}
+
+    def output(self, x, u: DynamicsU) -> DynamicsY:
+        """f_c_c = a_ic_c - G_c_c (`dynamics.py:263-274`)."""
+        v = self._solve(x, u)
+        om_ie, om_ec, v_ec = v["omega_ie_c"], v["omega_ec_c"], v["v_ec_c"]
+        r_ec_c = qrot_inv(u.q_eb, v["r_ec_e"])
+        centripetal = cross(om_ie, cross(om_ie, r_ec_c))
+        a_ic_c = (v["v_dot_ec_c"] + cross(om_ec + 2 * om_ie, v_ec)
+                  + centripetal)
+        G_c_c = v["g_c_c"] + centripetal
+        return DynamicsY(f_c_c=a_ic_c - G_c_c)
+
+    def _solve(self, x, u: DynamicsU):
         omega_eb_b = x["omega_eb_b"]
         v_eb_b = x["v_eb_b"]
         mp_sum_b, wr_sum_b, ho_sum_b, q_eb, r_eb_e = u
@@ -157,4 +179,7 @@ class VehicleDynamics:
                       - cross(omega_ec_c + 2 * omega_ie_c, v_ec_c))
 
         v_dot_eb_b = v_dot_ec_c - cross(omega_dot_ec_c, r_bc_b)
-        return {"omega_eb_b": omega_dot_ec_c, "v_eb_b": v_dot_eb_b}
+        return {"omega_dot": omega_dot_ec_c, "v_dot_eb_b": v_dot_eb_b,
+                "v_dot_ec_c": v_dot_ec_c, "omega_ie_c": omega_ie_c,
+                "omega_ec_c": omega_ec_c, "v_ec_c": v_ec_c,
+                "r_ec_e": r_ec_e, "g_c_c": g_c_c}

@@ -874,3 +874,167 @@ def msn_fleet_sim(batch, seed, device, dtype):
                   u=tree_from_numpy(u, device, dtype),
                   s=tree_from_numpy(s, device, dtype))
     return sim, sim.with_compensation(st), lanes
+
+
+# ------------------------------------------------------------ turbulence
+
+# the Dryden severities of the operands: off, light, moderate, severe
+# (20-ft winds, m/s; `physics/turbulence.py`)
+TURB_W20 = (0.0, 7.7, 15.4, 23.2)
+# heights above the runway (m) that put a lane in the low-altitude band
+# (10-1000 ft) and in the 1000-2000 ft blend; the flagship flies above
+# 2000 ft and the runway lanes below 10 ft
+TURB_H_LOW, TURB_H_BLEND = 150.0, 450.0
+# shear roughness lengths (ft): off, Category C, otherwise; the runway
+# lanes take TURB_Z0_HIGH, above their height, so h < z0 there
+TURB_Z0 = (0.0, 0.15, 2.0)
+TURB_Z0_HIGH = 10.0
+
+
+def turb_trees(batch, seed, t, i, W20=None, shear_lanes=None,
+               gust_lanes=None):
+    """numpy x, u and s trees of the Dryden turbulence for `batch` lanes at
+    times `t` and step counters `i`, from a numpy seed: filter states ~N(0,
+    1) m/s, the drive ~N(0, 1), seeds above 2^24 on the odd lanes and drive
+    counters up to 2^30. W20 cycles through TURB_W20 (or the given value on
+    every lane); the shear's z0 through TURB_Z0 (or on `shear_lanes` only
+    2 ft); the discrete gust is off, before, inside and after its window in
+    turn (or inside it on `gust_lanes` only, for the whole of the first
+    five steps after t)."""
+    rng = np.random.default_rng(seed + 7)
+    lanes = np.arange(batch)
+    x = {"ug": rng.normal(0.0, 1.0, batch),
+         "vg": rng.normal(0.0, 1.0, (batch, 2)),
+         "wg": rng.normal(0.0, 1.0, (batch, 2))}
+    seed_ = np.where(lanes % 2 == 1,
+                     rng.integers(2 ** 24, 2 ** 31 - 1, batch),
+                     rng.integers(0, 2 ** 16, batch)).astype(np.int32)
+    if W20 is None:
+        w20 = np.resize(np.array(TURB_W20), batch)
+    else:
+        w20 = np.full(batch, float(W20))
+    amp = rng.normal(0.0, 3.0, (batch, 3))
+    if gust_lanes is None:
+        phase = lanes % 4
+        t0 = np.where(phase == 0, 1e30, np.where(
+            phase == 1, t + 1.0, np.where(phase == 2, t - 0.1, t - 5.0)))
+        T = np.where(phase == 2, 0.5, 1.0)
+        z0 = np.resize(np.array(TURB_Z0), batch)
+    else:
+        on = np.isin(lanes, list(gust_lanes))
+        t0 = np.where(on, t + 0.015, 1e30)
+        T = np.where(on, 0.05, 1.0)
+        z0 = np.where(np.isin(lanes, list(shear_lanes or ())), 2.0, 0.0)
+    u = {"seed": seed_, "W20": w20, "gust_amp": amp, "gust_t0": t0,
+         "gust_T": T, "shear_z0_ft": z0}
+    s = {"eta": rng.normal(0.0, 1.0, (batch, 3)),
+         "n": np.where(lanes % 3 == 0, rng.integers(0, 2 ** 30, batch),
+                       i).astype(np.int32)}
+    return x, u, s
+
+
+def turb_fleet(batch, seed, i0=0, ground_lanes=(), terminated_lanes=(),
+               crash_lanes=(), W20=10.0, shear_lanes=(), gust_lanes=()):
+    """numpy world-level (t, i, x, u, s) of `perturbed_flagship` with the
+    turbulence's trees (`turb_trees` at W20 on every lane, the shear on
+    `shear_lanes`, a discrete gust inside the first five steps on
+    `gust_lanes`)."""
+    t, i, x, u, s = perturbed_flagship(batch, seed, i0, ground_lanes,
+                                       terminated_lanes, crash_lanes)
+    xt, ut, st = turb_trees(batch, seed, t, i, W20, shear_lanes, gust_lanes)
+    x["vehicle"]["turb"], u["vehicle"]["turb"] = xt, ut
+    s["vehicle"]["turb"] = st
+    return t, i, x, u, s
+
+
+def turb_fleet_sim(batch, seed, device, dtype, **kw):
+    """(sim, SimState) of `turb_fleet` on `device` in the turbulent
+    flagship's Simulation (`c172s.turbulent_flagship_sim`), with its
+    position compensation in sub-float64 dtypes."""
+    from flightjax_torch.models.c172.c172s import turbulent_flagship_sim
+    sim, _, _ = turbulent_flagship_sim(device, dtype)
+    t, i, x, u, s = turb_fleet(batch, seed, **kw)
+    st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                  i=torch.tensor(i, device=device),
+                  x=tree_from_numpy(x, device, dtype),
+                  u=tree_from_numpy(u, device, dtype),
+                  s=tree_from_numpy(s, device, dtype))
+    return sim, sim.with_compensation(st)
+
+
+def turb_operands(batch, seed, ground_lanes=(), terminated_lanes=(),
+                  crash_lanes=()):
+    """`cluster_operands` with the turbulence's operands that take every
+    branch of the disturbance chain: the stage and finish times t and the
+    step counters i (t = i dt, i up to 30 000), the filters' derivatives,
+    `turb_trees`' severities, shear and discrete-gust phases; every fifth
+    lane from lane 1 in the low-altitude band, from lane 2 in the blend,
+    the runway lanes below 10 ft with a z0 above their height, and lane 4
+    slower than V_MIN against the air. The lane lists are those of
+    `perturbed_flagship`."""
+    from flightjax_torch.physics.turbulence import FT
+    d = cluster_operands(batch, seed, ground_lanes, terminated_lanes,
+                         crash_lanes)
+    rng = np.random.default_rng(seed + 11)
+    i = rng.integers(0, 30000, batch).astype(np.int32)
+    t = i * 0.02
+    xt, ut, st = turb_trees(batch, seed, t, i)
+    lanes = np.arange(batch)
+    h = d["x_kin"]["h_e"]
+    for r, h_agl in ((1, TURB_H_LOW), (2, TURB_H_BLEND)):
+        sel = (lanes % 5 == r) & ~np.isin(lanes, list(ground_lanes)
+                                           + list(crash_lanes))
+        h[sel] = d["geoid_N"][sel] + h_agl
+    ground = list(ground_lanes) + list(crash_lanes)
+    ut["shear_z0_ft"][ground] = TURB_Z0_HIGH
+    assert TURB_Z0_HIGH * FT > 1.85
+    if batch > 4:
+        d["x_dyn"]["v_eb_b"][4] = [1.0, 0.5, 0.2]
+        d["u_atm"]["wind"][4] = [0.3, 0.0, 0.0]
+    d.update(t=t, i=i, x_turb=xt, u_turb=ut, s_turb=st,
+             k_turb={k: rng.normal(0.0, 0.5, np.shape(v))
+                     for k, v in xt.items()})
+    d["ksum_turb"] = {k: 6.0 * v for k, v in d["k_turb"].items()}
+    return d
+
+
+def turb_operand_state(d, device, dtype):
+    """The turbulent world SimState (uncompensated) of the operand dict `d`
+    of `turb_operands`: `operand_state` with the turbulence's trees, the
+    times t and the step counters i."""
+    st = operand_state(d, device, dtype)
+    x, u, s = st.x, st.u, st.s
+    x["vehicle"]["turb"] = tree_from_numpy(d["x_turb"], device, dtype)
+    u["vehicle"]["turb"] = tree_from_numpy(d["u_turb"], device, dtype)
+    s["vehicle"]["turb"] = tree_from_numpy(d["s_turb"], device, dtype)
+    return st._replace(t=torch.tensor(d["t"], dtype=dtype, device=device),
+                       i=torch.tensor(d["i"], device=device))
+
+
+def turb_operand_args(d, vehicle, device, dtype, adt=0.01, dt=0.02):
+    """Positional arguments of the turbulent instances' wrappers
+    (`rk4_stage`, `rk4_finish`) from `turb_operands`' dict: the stage at
+    t + adt, the finish at step counter i (t_start 0)."""
+    from flightjax_torch.parallel import kernels as K
+    args = K.operand_args(d, vehicle, device, dtype, adt, dt)
+    tt = lambda v: tree_from_numpy(v, device, dtype)
+    (_, xv, k, uv, sv, term, _) = args["rk4_stage"]
+    xv = dict(xv, turb=tt(d["x_turb"]))
+    uv = dict(uv, turb=tt(d["u_turb"]))
+    sv = dict(sv, turb=tt(d["s_turb"]))
+    k = dict(k, turb=tt(d["k_turb"]))
+    ksum = dict(args["rk4_finish"][2], turb=tt(d["ksum_turb"]))
+    t = torch.tensor(d["t"], dtype=dtype, device=device)
+    i = torch.tensor(d["i"], device=device)
+    return {"rk4_stage": (vehicle, xv, k, uv, sv, term, adt, t),
+            "rk4_finish": (vehicle, xv, ksum, uv, sv, term > 0.5, dt,
+                           args["rk4_finish"][7], i, 0.0)}
+
+
+def turb_study_sim(batch, seed, device, dtype):
+    """(sim, SimState) of the card's turbulent fleet: `turb_fleet_sim` at
+    W20 = 10 m/s with the shear on every third lane and a discrete gust
+    inside the first steps on every third lane from lane 1."""
+    return turb_fleet_sim(batch, seed, device, dtype,
+                          shear_lanes=range(0, batch, 3),
+                          gust_lanes=range(1, batch, 3))

@@ -65,6 +65,7 @@ CUDA_RUNTIME_STANDIN = r"""
 #include <condition_variable>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -114,6 +115,33 @@ static inline double __dmul_rn(double a, double b) { return a * b; }
 static inline double __ddiv_rn(double a, double b) { return a / b; }
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 static inline double rsqrt(double x) { return 1.0 / sqrt(x); }
+static inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+static inline double __longlong_as_double(long long u) {
+  double f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+// erfinv, which the C library lacks: a first guess (Winitzki), then
+// Newton's method on erf, on erfc in the tails (where 1 - |x| is exact)
+static inline double erfinv(double x) {
+  if (!(x > -1.0 && x < 1.0)) return x == 1.0 ? INFINITY
+                                     : x == -1.0 ? -INFINITY : NAN;
+  const double a = 0.147, l = log(1.0 - x * x);
+  const double b = 2.0 / (M_PI * a) + 0.5 * l;
+  double y = copysign(sqrt(sqrt(b * b - l / a) - b), x);
+  const double c = 2.0 / sqrt(M_PI), ax = fabs(x);
+  for (int k = 0; k < 8; ++k) {
+    const double d = c * exp(-y * y);
+    if (ax <= 0.5) y -= (erf(y) - x) / d;
+    else y -= (x > 0.0 ? 1.0 : -1.0) * ((1.0 - ax) - erfc(fabs(y))) / d;
+  }
+  return y;
+}
+static inline float erfinvf(float x) { return (float)erfinv((double)x); }
 using std::min;
 using std::max;
 """
@@ -301,6 +329,36 @@ void host_msn_ctl_laws(const double* in, const double* gains,
                        double* const* outs, int B, double dt, int lanes) {
   BLOCKS(2, lanes, k_ctl_laws::msn_ctl_laws_kernel<SD>(
       (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
+}
+// the turbulent C172S's instances (role r writing into outs[r]): the stage
+// on the role kernels' signature, the finish with the int32 rows (i, seed,
+// n), dt and t_start, the megakernel on the C172S's
+void host_rk4_stage_turb(const double* in, const double* k, const double* p,
+                         double* const* outs, int B, int n_params,
+                         double adt, int, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_stage::rk4_stage_kernel<fj::ACT_TURB, SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p,
+             (SD*)outs[i / (lanes)], B, n_params, SD(adt)))
+}
+void host_rk4_finish_turb(const double* in, const double* k, const double* p,
+                          const int* ints, double* const* outs, int B,
+                          double c6, int comp, double dt, double t_start,
+                          int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_finish::rk4_finish_turb_kernel<SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p, ints,
+             (SD*)outs[i / (lanes)], B, SD(c6), comp, dt, t_start))
+}
+void host_megakernel_turb(const double* in, const int* i_in, const double* p,
+                          const double* grid, double* const* outs,
+                          int* i_out, int B, int n_params, double dt,
+                          double t_start, int comp, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_TURB, SD>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             nullptr, 1, 0.0))
 }
 }
 """
@@ -1132,3 +1190,139 @@ def test_megakernel_msn_roles_partition_the_output(host_lib):
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]
     assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+# ------------------------------------------------------------ turbulence
+
+def _turb_args(batch):
+    """The turbulent instances' wrapper arguments on `testing.
+    turb_operands` (lanes 3 and 17 on the runway, lane 5 terminated,
+    CRASH_LANE crashing in the step): every severity, height band, shear
+    and discrete-gust phase, V below V_MIN, seeds above 2^24."""
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import turb_operand_args, turb_operands
+    veh = build_vehicle(device="cpu", dtype=torch.float64,
+                        turbulence=DrydenTurbulence(0.02))
+    d = turb_operands(batch, 1016, (3, 17), (5,), (CRASH_LANE,))
+    return turb_operand_args(d, veh, "cpu", torch.float64)
+
+
+def _run_turb(host_lib, name, args, lanes, split=False):
+    """rk4_stage_turb or rk4_finish_turb on the wrapper's arguments, block
+    by block at `lanes` aircraft per block; its packed output (and the
+    int32 rows it read), or with `split` one output per role."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    batch, params = buf.shape[1], ops["params"]
+    n_roles = host_lib.host_n_roles()
+    outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+            for _ in range(n_roles if split else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if split else 0].data_ptr() for r in range(n_roles)))
+    if name == "rk4_stage_turb":
+        host_lib.host_rk4_stage_turb(
+            _ptr(buf), _ptr(ops["k"]), _ptr(params), ptrs,
+            ctypes.c_int(batch), ctypes.c_int(params.numel()),
+            ctypes.c_double(scalars[0]), ctypes.c_int(0),
+            ctypes.c_int(lanes))
+    else:
+        host_lib.host_rk4_finish_turb(
+            _ptr(buf), _ptr(ops["k"]), _ptr(params), _ptr(ops["ints"]),
+            ptrs, ctypes.c_int(batch), ctypes.c_double(scalars[0]),
+            ctypes.c_int(scalars[1]), ctypes.c_double(scalars[2]),
+            ctypes.c_double(scalars[3]), ctypes.c_int(lanes))
+    return (outs if split else outs[0]), ops.get("ints")
+
+
+TURB_CASES = ([("rk4_stage_turb", False, B, 32),
+               ("rk4_finish_turb", False, B, 32),
+               ("rk4_finish_turb", True, B, 32)]
+              + [(n, c, b, lanes) for n, c in (("rk4_stage_turb", False),
+                                               ("rk4_finish_turb", True))
+                 for b, lanes in RAGGED])
+TURB_IDS = (["rk4_stage_turb", "rk4_finish_turb", "rk4_finish_turb-comp"]
+            + [f"{n}-{i}" for n in ("rk4_stage_turb", "rk4_finish_turb-comp")
+               for i in RAGGED_IDS])
+
+
+@pytest.mark.parametrize("name,comp,batch,lanes", TURB_CASES, ids=TURB_IDS)
+def test_turb_kernel_source_matches_plain(host_lib, name, comp, batch,
+                                          lanes):
+    """rk4_stage_turb and rk4_finish_turb (with and without residuals)
+    against `rk4_stage_plain` / `rk4_finish_plain` of the turbulent
+    vehicle: the filters' stage point, derivative and combine, the
+    disturbed air data at the stage and the new time, the redrawn drive;
+    the crash lane latches."""
+    args = _turb_args(batch)[name[:-len("_turb")]]
+    if name == "rk4_finish_turb" and not comp:
+        args = args[:7] + (None,) + args[8:]
+    out, ints = _run_turb(host_lib, name, args, lanes)
+    got = K.unpack_out(name, out, comp, ints)
+    if name == "rk4_stage_turb":
+        args = args[:5] + (args[5].to(torch.float64),) + args[6:]
+    ref = getattr(K, name[:-len("_turb")] + "_plain")(*args)
+    _assert_trees_close(got, ref)
+    if name == "rk4_finish_turb":
+        assert not bool(args[4]["systems"]["crashed"][CRASH_LANE])
+        assert bool(got[1]["crashed"][CRASH_LANE])
+        # the drive is redrawn on every lane, the terminated one too
+        assert got[-1]["n"].tolist() == (args[4]["turb"]["n"] + 1).tolist()
+
+
+@pytest.mark.parametrize("name", ["rk4_stage_turb", "rk4_finish_turb"])
+def test_turb_roles_partition_the_output(host_lib, name):
+    """Every output row of the turbulent stage and finish, the filters'
+    rows and the drive among them, is written by exactly one role, for
+    every aircraft, and by no other role anywhere."""
+    args = _turb_args(B)[name[:-len("_turb")]]
+    outs, _ = _run_turb(host_lib, name, args, 32, split=True)
+    n_rows = outs[0].shape[0]
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * n_rows
+    assert touched.tolist() == [1] * n_rows
+
+
+def _run_megakernel_turb(host_lib, batch, lanes, comp):
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.models.c172.c172s import turbulent_flagship_sim
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import turb_operand_state, turb_operands
+    sim, _, _ = turbulent_flagship_sim("cpu", torch.float64)
+    st = turb_operand_state(turb_operands(batch, 1016, (3, 17), (5,),
+                                          (CRASH_LANE,)), "cpu",
+                            torch.float64)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, step, unpack = make_megakernel_step(sim, st)
+    vehicle = sim.system.aircraft.vehicle
+    params = K.system_params(vehicle)
+    n_roles = host_lib.host_n_roles()
+    out = torch.full_like(bufs[0], float("nan"))
+    ptrs = (ctypes.c_void_p * n_roles)(*([out.data_ptr()] * n_roles))
+    i_out = torch.full_like(bufs[1], -1)
+    host_lib.host_megakernel_turb(
+        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
+        _ptr(K.geoid_grid(vehicle.geoid)), ptrs, _ptr(i_out),
+        ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
+        ctypes.c_int(int(comp)), ctypes.c_int(lanes))
+    return unpack((out, i_out)), unpack(step(bufs)), st
+
+
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+@pytest.mark.parametrize("batch,lanes", [(B, 32)] + RAGGED,
+                         ids=[f"B{B}-L32"] + RAGGED_IDS)
+def test_megakernel_turb_source_matches_plain(host_lib, batch, lanes, comp):
+    """megakernel_turb against its plain step on the turbulent operands:
+    every leaf of the new state, the seed passing through and the drive
+    counter one on, the crash lane latched."""
+    got, ref, st = _run_megakernel_turb(host_lib, batch, lanes, comp)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    seed = st.u["vehicle"]["turb"]["seed"]
+    assert got.u["vehicle"]["turb"]["seed"].tolist() == seed.tolist()
+    assert (got.s["vehicle"]["turb"]["n"].tolist()
+            == (st.s["vehicle"]["turb"]["n"] + 1).tolist())
+    assert bool(got.s["terminated"][CRASH_LANE])

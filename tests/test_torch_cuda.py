@@ -696,3 +696,122 @@ def test_msn_paths_match_plain_on_card(split, dtype, tol):
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
     assert _worst((got.t, got.x, got.u, got.s),
                   (ref.t, ref.x, ref.u, ref.s)) <= tol
+
+
+# ------------------------------------------------------------ turbulence
+
+TURB_CASES = [("rk4_stage_turb", False), ("rk4_finish_turb", False),
+              ("rk4_finish_turb", True)]
+TURB_CASE_IDS = ["rk4_stage_turb", "rk4_finish_turb", "rk4_finish_turb-comp"]
+
+
+def _turb_args(name, batch, dtype, comp):
+    """The turbulent instance's wrapper arguments on `testing.turb_operands`
+    (lanes 3 and 17 on the runway, lane 5 terminated, SMALL_CRASH_LANE
+    crashing in the step): every severity, height band, shear and
+    discrete-gust phase, V below V_MIN, seeds above 2^24."""
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import turb_operand_args, turb_operands
+    vehicle = build_vehicle(device="cuda", dtype=dtype,
+                            turbulence=DrydenTurbulence(0.02))
+    d = turb_operands(batch, 1016, (3, 17), (5,), (SMALL_CRASH_LANE,))
+    args = turb_operand_args(d, vehicle, "cuda", dtype)[
+        name[:-len("_turb")]]
+    if name == "rk4_finish_turb" and not comp:
+        args = args[:7] + (None,) + args[8:]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,comp", TURB_CASES, ids=TURB_CASE_IDS)
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_turb_instance_matches_plain_on_card(name, comp, batch, lanes, dtype,
+                                             tol):
+    """rk4_stage_turb and rk4_finish_turb against their plain versions at
+    both block sizes and on ragged batches; the crash lane latches and the
+    drive's counter steps on every lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _turb_args(name, batch, dtype, comp)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    out = K.launch_kernel(name, buf, n_out, scalars, ops, block=lanes)
+    got = K.unpack_out(name, out, comp, ops.get("ints"))
+    ref = getattr(K, name[:-len("_turb")] + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert _worst(got, ref) <= tol
+    if name == "rk4_finish_turb":
+        assert bool(got[1]["crashed"][SMALL_CRASH_LANE])
+        assert torch.equal(got[-1]["n"], ref[-1]["n"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_megakernel_turb_matches_plain_on_card(comp, batch, lanes, dtype,
+                                               tol):
+    """megakernel_turb, 3 steps on the turbulent operands against the
+    plain step; the int32 rows (i, seed, n) exactly."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.models.c172.c172s import turbulent_flagship_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import turb_operand_state, turb_operands
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, _, _ = turbulent_flagship_sim("cuda", dtype)
+    st = turb_operand_state(turb_operands(batch, 1016, (3, 17), (5,),
+                                          (SMALL_CRASH_LANE,)), "cuda", dtype)
+    st = st._replace(c=comp_residuals(st.x, force=True) if comp else None)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    before = K.LAUNCHES["megakernel_turb"]
+    ref = st
+    for _ in range(3):
+        bufs = step_packed(bufs)
+        ref = megakernel_step_plain(sim, ref)
+    got = unpack(bufs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["megakernel_turb"] == before + 3
+    assert torch.equal(got.i, ref.i)
+    for k in ("seed",):
+        assert torch.equal(got.u["vehicle"]["turb"][k],
+                           ref.u["vehicle"]["turb"][k].to(torch.int32))
+    assert torch.equal(got.s["vehicle"]["turb"]["n"],
+                       ref.s["vehicle"]["turb"]["n"])
+    assert _worst((got.t, got.x, got.u, got.s, got.c),
+                  (ref.t, ref.x, ref.u, ref.s, ref.c)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fleet", "vehicle"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_turb_paths_match_plain_on_card(path, dtype, tol):
+    """The turbulent fleet (W20 = 10, the shear on some lanes, a discrete
+    gust on others), 3 steps from step 126 through `Simulation.fleet_step`
+    (compensated) and the vehicle split against the plain step; the launch
+    counts."""
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.testing import turb_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = turb_fleet_sim(B, 1016, "cuda", dtype, i0=126,
+                             shear_lanes=range(0, B, 3),
+                             gust_lanes=range(1, B, 3))
+    comp = path == "fleet"
+    if not comp:
+        st = st._replace(c=None)
+    step = (sim.fleet_step if comp
+            else make_cluster_step(sim, st, split="vehicle"))
+    K.reset_launches()
+    got = ref = st
+    for i in range(126, 129):
+        got = step(got, i=i)
+        ref = vehicle_step(sim, ref, i, comp=comp, plain=True)
+    torch.cuda.synchronize()
+    want = {"rk4_stage_turb": 12, "rk4_finish_turb": 3, "geoid": 1}
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+    assert _worst((got.t, got.x, got.u, got.s, got.c),
+                  (ref.t, ref.x, ref.u, ref.s, ref.c)) <= tol

@@ -7,7 +7,8 @@ time goes, by kernel, and how much of the step the device is idle.
                                          xv1_megakernel,xv2_subsystems,
                                          xv2_vehicle,xv2_megakernel,
                                          msn_subsystems,msn_vehicle,
-                                         msn_megakernel]
+                                         msn_megakernel,turb_fleet,
+                                         turb_vehicle,turb_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -24,7 +25,12 @@ same three, `xv2_*`, with the `gdc_ctl_laws` kernel as the splits' pass
 and `megakernel_gdc`; and on the mission fleet (`testing.msn_fleet_sim`:
 the LOWS traffic pattern's phase machine over the C172Xv2, half the lanes
 on the final approach, half cold on the runway) the same three, `msn_*`,
-with the `msn_ctl_laws` kernel as the splits' pass and `megakernel_msn`.
+with the `msn_ctl_laws` kernel as the splits' pass and `megakernel_msn`;
+and on the turbulent C172S fleet (`testing.turb_study_sim`: W20 = 10
+m/s, the shear on every third lane, a discrete gust on every third lane)
+`turb_fleet` (`fleet_rollout`, whose `Simulation.fleet_step` runs
+rk4_stage_turb x 4 + rk4_finish_turb, compensated), `turb_vehicle` and
+`turb_megakernel` (`megakernel_turb`).
 For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
@@ -49,9 +55,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "xv1_vehicle", "xv1_megakernel", "xv2_subsystems", "xv2_vehicle",
-         "xv2_megakernel", "msn_subsystems", "msn_vehicle", "msn_megakernel")
+         "xv2_megakernel", "msn_subsystems", "msn_vehicle", "msn_megakernel",
+         "turb_fleet", "turb_vehicle", "turb_megakernel")
 # the fleets of the paths' prefixes
-PREFIXES = ("xv1_", "xv2_", "msn_")
+PREFIXES = ("xv1_", "xv2_", "msn_", "turb_")
 
 
 def device_us(evt):
@@ -68,8 +75,9 @@ def stepper(path, sim, st):
     from flightjax_torch.parallel.fleet import fleet_rollout
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     box = {"st": st, "i": int(st.i[0])}
-    path = path[len("xv1_"):] if path.startswith(PREFIXES) else path
-    if path == "subsystems":
+    if path.startswith(PREFIXES):
+        path = path[path.index("_") + 1:]
+    if path in ("subsystems", "fleet"):
         def run(n):
             box["st"] = fleet_rollout(sim, box["st"], n)
     elif path == "vehicle":
@@ -137,7 +145,8 @@ def main():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
     from flightjax_torch.testing import (msn_fleet_sim, perturbed_fleet_sim,
-                                         xv1_fleet_sim, xv2_fleet_sim)
+                                         turb_study_sim, xv1_fleet_sim,
+                                         xv2_fleet_sim)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,10 +155,12 @@ def main():
     fleets = {}
     out = []
     for path in args.paths.split(","):
-        kind = path[:3] if path.startswith(PREFIXES) else "c172s"
+        kind = (path[:path.index("_")] if path.startswith(PREFIXES)
+                else "c172s")
         if kind not in fleets:
             make = {"xv1": xv1_fleet_sim, "xv2": xv2_fleet_sim,
-                    "msn": msn_fleet_sim, "c172s": perturbed_fleet_sim}[kind]
+                    "msn": msn_fleet_sim, "turb": turb_study_sim,
+                    "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]
         r = profile(path, *fleets[kind], args.steps, args.top)

@@ -15,9 +15,9 @@ section, without addresses and encodings, and the kernel's name without
 its template arguments, so an instance that was templated on one more
 parameter compares with its form before. An instance that the record does
 not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
-every instance as it was before the mission instances came (the C172S
-kernels, the fly-by-wire instances, the C172Xv1's and the C172Xv2's
-megakernels and passes), recorded with the nvcc of an H100 machine;
+every instance (the C172S kernels, the fly-by-wire instances, the
+C172X megakernels and passes, the mission's and the turbulent C172S's
+instances), recorded with the nvcc of an H100 machine;
 `chip_smoke.py` checks it. A change that means to change the machine code
 of a recorded instance records the file anew from its own build
 (`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
@@ -36,8 +36,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
 # a kernel's mangled name: its name, its ActKind (absent before the
-# templating, 0 for the C172S), its float type, the megakernel's avionics
-# (absent before their templating; 2 the C172Xv2's guidance, 3 a mission)
+# templating, 0 for the C172S, 1 fly-by-wire, 2 turbulent), its float type,
+# the megakernel's avionics (absent before their templating; 2 the C172Xv2's
+# guidance, 3 a mission)
 KERNEL = re.compile(r"_Z\d+(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictI([fd])EE"
                     r"(?:Li(\d)E)?")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
@@ -45,10 +46,12 @@ INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 
 def kernel_name(name, act, av):
     """The launch name of a kernel instance from its mangled name's parts:
-    `name`, `name_fbw` (the fly-by-wire C172Xv1), `name_gdc` (the C172Xv2)
-    or `name_msn` (a mission over it)."""
+    `name`, `name_fbw` (the fly-by-wire C172Xv1), `name_gdc` (the C172Xv2),
+    `name_msn` (a mission over it) or `name_turb` (the turbulent C172S,
+    ActKind 2; rk4_finish_turb is a kernel of its own name)."""
     return name + ("_msn" if av == "3" else "_gdc" if av == "2"
-                   else "_fbw" if act == "1" else "")
+                   else "_fbw" if act == "1" else "_turb" if act == "2"
+                   else "")
 
 
 def instance(mangled):
