@@ -126,16 +126,29 @@ constexpr int FSYS_N_IN =
 constexpr int FSYS_N_OUT = N_XSYS + N_SSYS;                          // 15
 
 // The actuation a kernel instance carries: the mechanical linkage of the
-// C172S (ACT_MECH) or the fly-by-wire servos of the C172X (ACT_FBW: seven
-// first-order servos, their positions the last rows of x_sys, their
+// C172S (ACT_MECH) or the fly-by-wire servos of the C172X (the ACT_FBW bit:
+// seven first-order servos, their positions the last rows of x_sys, their
 // commands at the head of u_sys). An instance of each kernel that carries
 // the systems is compiled for each; the ACT_MECH ones are the code they
-// were before the C172X came. ACT_TURB is the flag beside them: the C172S's
-// linkage on a vehicle that also carries Dryden turbulence
-// (turbulence.cuh): five filter states after X's systems rows, its inputs
-// and held drive after CTX, which role KIN integrates and applies to the air
-// data (the whole-vehicle kernels only).
-enum ActKind : int { ACT_MECH, ACT_FBW, ACT_TURB };
+// were before the C172X came. The ACT_TURB bit, beside the actuation, puts
+// the vehicle in Dryden turbulence (turbulence.cuh): five filter states
+// after X's systems rows, its inputs and held drive after CTX, which role
+// KIN integrates and applies to the air data (the whole-vehicle kernels
+// only). ACT_TURB alone is the turbulent C172S, ACT_FBW_TURB the turbulent
+// fly-by-wire C172X; the values of the first three are those they had
+// before the bits, so their instances keep their machine code.
+enum ActKind : int {
+  ACT_MECH = 0,
+  ACT_FBW = 1,
+  ACT_TURB = 2,
+  ACT_FBW_TURB = ACT_FBW | ACT_TURB
+};
+__host__ __device__ constexpr bool act_fbw(int act) {
+  return (act & ACT_FBW) != 0;
+}
+__host__ __device__ constexpr bool act_turb(int act) {
+  return (act & ACT_TURB) != 0;
+}
 
 // the fly-by-wire C172: the servo channels (sorted names, the order of
 // their x_sys rows and parameters); x_sys the mechanical rows, then the
@@ -146,9 +159,11 @@ constexpr int CH_AIL = 0, CH_BRK_L = 1, CH_BRK_R = 2, CH_ELV = 3,
 constexpr int XS_ACT = N_XSYS, N_XSYS_FBW = XS_ACT + N_ACT;          // 19
 constexpr int UF_MIX = 5, UF_E_MIX = 8, UF_PLD = 13, N_USYS_FBW = 18;
 constexpr int P_ACT = P_HEAD, P_HEAD_FBW = P_ACT + N_ACT * AC_N;
-// the turbulent C172S's buffer holds the drive's scale sqrt(pi / dt) after
-// the table offsets
+// the turbulent vehicle's buffer holds the drive's scale sqrt(pi / dt) after
+// the table offsets (after the servos, fly-by-wire)
 constexpr int P_TURB_K_ETA = P_HEAD, P_HEAD_TURB = P_HEAD + 1;
+constexpr int P_TURB_K_ETA_FBW = P_HEAD_FBW,
+              P_HEAD_FBW_TURB = P_HEAD_FBW + 1;
 // what the finish kernels of the fly-by-wire C172 store for its avionics:
 // SYS_Y the gated airflow angles and each leg's weight on wheels at the new
 // state (finish_sys, rk4_finish), KIN_Y the KinData and AirData fields the
@@ -170,14 +185,14 @@ constexpr int FSYS_N_OUT_FBW = N_XSYS_FBW + N_SSYS + N_SYSY;         // 27
 template <int ACT>
 struct SysL {
   enum : int {
-    NX = ACT == ACT_FBW ? N_XSYS_FBW : N_XSYS,
-    NU = ACT == ACT_FBW ? N_USYS_FBW : N_USYS,
-    U_E = ACT == ACT_FBW ? UF_E_MIX : US_E_MIX,
+    NX = act_fbw(ACT) ? N_XSYS_FBW : N_XSYS,
+    NU = act_fbw(ACT) ? N_USYS_FBW : N_USYS,
+    U_E = act_fbw(ACT) ? UF_E_MIX : US_E_MIX,
     U_E_MIXCTL = U_E + 1,
     U_E_START = U_E + 2,
     U_E_STOP = U_E + 3,
     U_PLD = U_E + 5,
-    NXV = N_XKIN + N_XDYN + NX + (ACT == ACT_TURB ? N_XTURB : 0),
+    NXV = N_XKIN + N_XDYN + NX + (act_turb(ACT) ? N_XTURB : 0),
     CX_UATM = NU,
     CX_TRN = CX_UATM + N_UATM,
     CX_SSYS = CX_TRN + N_TRN,
@@ -187,8 +202,10 @@ struct SysL {
     // the held drive after the latch in CTX
     X_TURB = N_XKIN + N_XDYN + NX,
     CX_UTURB = CX_TERM + 1,
-    CX_ETA = CX_UTURB + (ACT == ACT_TURB ? N_UTURB : 0),
-    NCTX = CX_ETA + (ACT == ACT_TURB ? N_ETA : 0)
+    CX_ETA = CX_UTURB + (act_turb(ACT) ? N_UTURB : 0),
+    NCTX = CX_ETA + (act_turb(ACT) ? N_ETA : 0),
+    // where the parameters hold the drive's scale
+    P_TURB = act_fbw(ACT) ? P_TURB_K_ETA_FBW : P_TURB_K_ETA
   };
 };
 
@@ -234,6 +251,18 @@ enum : int {
   RKFIN_N_IN_TURB = STAGE_N_IN_TURB + N_C,                           // 84
   RKFIN_N_OUT_TURB = N_X_TURB + N_SSYS + 1 + N_C + N_ETA,            // 44
   MEGA_N_ROWS_TURB = 1 + N_X_TURB + N_CTX_TURB + N_C                 // 84
+};
+// the turbulent fly-by-wire C172X (ACT_FBW_TURB): the fly-by-wire X and CTX
+// with the turbulence's rows as above; the finish stores the avionics'
+// KIN_Y and SYS_Y after the residuals, then the new drive
+enum : int {
+  N_X_FBW_TURB = N_X_FBW + N_XTURB,                                  // 39
+  N_CTX_FBW_TURB = N_CTX_FBW + N_UTURB + N_ETA,                      // 43
+  STAGE_N_IN_FBW_TURB = N_X_FBW_TURB + N_CTX_FBW_TURB + 1,           // 83
+  STAGE_N_OUT_FBW_TURB = N_X_FBW_TURB,                               // 39
+  RKFIN_N_IN_FBW_TURB = STAGE_N_IN_FBW_TURB + N_C,                   // 88
+  RKFIN_N_OUT_FBW_TURB =
+      N_X_FBW_TURB + N_SSYS + 1 + N_C + N_KINY + N_SYSY + N_ETA      // 67
 };
 
 // ------------------------------------------------------------- helpers
@@ -879,7 +908,7 @@ __device__ __forceinline__ bool finish_leg(const T* P, int leg,
                                            const Trn<T>& trn, T& frc_x,
                                            T& frc_y, bool& wow) {
   T steering;
-  if constexpr (ACT == ACT_FBW)
+  if constexpr (act_fbw(ACT))
     steering = leg == 2 ? steer_fbw : T(0.0);
   else
     steering = leg == 2 ? actuation(u).steering : T(0.0);
@@ -996,7 +1025,7 @@ constexpr int SH_ACT = SH_N, SH_N_FBW = SH_ACT + N_ACT;              // 96
 // scratch rows of an instance
 template <int ACT>
 __host__ __device__ __forceinline__ int sh_rows() {
-  return ACT == ACT_FBW ? SH_N_FBW : SH_N;
+  return act_fbw(ACT) ? SH_N_FBW : SH_N;
 }
 
 // the block's dynamic shared memory: the parameter buffer (n_params
@@ -1027,7 +1056,7 @@ __device__ __forceinline__ int role_row(int role, int k) {
                         : (k <= PW_OMEGA ? X_SYS + XS_EFRC + k - 1 : -1);
   if (role >= ROLE_LEG0)
     return k < 2 ? X_SYS + XS_FRC + 2 * (role - ROLE_LEG0) + k : -1;
-  if (ACT == ACT_FBW && role == ROLE_DRAG)
+  if (act_fbw(ACT) && role == ROLE_DRAG)
     return k < N_ACT ? X_SYS + XS_ACT + k : -1;
   return -1;  // ROLE_DRAG, ROLE_PROP
 }
@@ -1164,7 +1193,7 @@ __device__ __forceinline__ SysIn<T, ACT> load_sys_in(const Col<T>& c,
 template <int ACT, typename T>
 __device__ __forceinline__ Act<T> role_actuation(const T* P, const Col<T>& si,
                                                  const SysIn<T, ACT>& in) {
-  if constexpr (ACT == ACT_FBW) {
+  if constexpr (act_fbw(ACT)) {
     T x[N_ACT];
 #pragma unroll
     for (int k = 0; k < N_ACT; ++k) x[k] = si(SH_ACT + k);
@@ -1226,7 +1255,7 @@ __device__ __forceinline__ void subsystem_roles_share(T* sh,
     so.s(SH_XFUEL, xi[PW_FUEL]);
     so.s(SH_XOMEGA, xi[PW_OMEGA]);
   }
-  if (ACT == ACT_FBW && t.role == ROLE_DRAG) {
+  if (act_fbw(ACT) && t.role == ROLE_DRAG) {
     const Out<T> so{sh, t.L, t.lane};
 #pragma unroll
     for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xi[k]);
@@ -1265,7 +1294,7 @@ __device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
                                in.trn.elevation, a);
     so.s(SH_AERO, a.f_s.x);
     so.s(SH_AERO + 1, a.f_s.y);
-    if constexpr (ACT == ACT_FBW) {  // the servos
+    if constexpr (act_fbw(ACT)) {  // the servos
 #pragma unroll
       for (int k = 0; k < N_ACT; ++k)
         d[k] = alive * servo_dot(P, k, xi[k], in.u[fbw_cmd_row(k)]);
@@ -1369,7 +1398,7 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     XKin<T> kd;
     Kin<T> kin;
     Air<T> air;
-    if constexpr (ACT == ACT_TURB) {
+    if constexpr (act_turb(ACT)) {
       XKin<T> kd_raw;
       wa_f_ode(xi_kin.q_wb, xi_kin.q_ew, xi_kin.h_e, xi_dyn.omega_eb_b,
                xi_dyn.v_eb_b, c(r_ctx + L::CX_GEOID), kd_raw, kin);
@@ -1393,11 +1422,11 @@ __device__ __forceinline__ void f_ode_roles(const T* P, T* sh,
     subsystem_roles<ACT>(P, sh, t, xi, c, r_ctx + CX_USYS,
                          r_ctx + L::CX_SSYS, r_ctx + L::CX_TRN, alive,
                          tau_shaft, d);
-  } else if constexpr (ACT == ACT_TURB) {
+  } else if constexpr (act_turb(ACT)) {
     T eta[N_ETA];
 #pragma unroll
     for (int j = 0; j < N_ETA; ++j) eta[j] = c(r_ctx + L::CX_ETA + j);
-    dryden_dot(tl->x, eta, P[P_TURB_K_ETA], T_u, T_w, alive, tl->d);
+    dryden_dot(tl->x, eta, P[L::P_TURB], T_u, T_w, alive, tl->d);
   }
   __syncthreads();
   if (t.role == ROLE_KIN) {
@@ -1478,7 +1507,7 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     XDyn<T> yd;
     Kin<T> kin;
     Air<T> air;
-    if constexpr (ACT == ACT_TURB) {
+    if constexpr (act_turb(ACT)) {
       finish_kin_combine(xk, xd, kk, kd, c6, comp, o.r_q, o.r_h, yk, yd);
       XKin<T> unused;
       wa_f_ode(yk.q_wb, yk.q_ew, yk.h_e, yd.omega_eb_b, yd.v_eb_b,
@@ -1495,7 +1524,7 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
                       load_atm(c, r_ctx + L::CX_UATM), yk, yd, kin, air);
     }
     share_kin_air<false>(so, kin, air);
-    if constexpr (ACT == ACT_FBW) {
+    if constexpr (act_fbw(ACT)) {
       o.om_wb = kin.omega_wb_b;
       o.e_nb = kin.e_nb;
       o.v_eb_n = kin.v_eb_n;
@@ -1512,11 +1541,11 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
   } else {
     // the role's own rows: the engine's four at most, DRAG's servos
 #pragma unroll
-    for (int k = 0; k < (ACT == ACT_FBW ? N_ACT : PW_OMEGA + 1); ++k)
+    for (int k = 0; k < (act_fbw(ACT) ? N_ACT : PW_OMEGA + 1); ++k)
       xn[k] = x[k] + c6 * ksum[k];
     in = load_sys_in<ACT>(c, r_ctx + CX_USYS, r_ctx + L::CX_SSYS,
                           r_ctx + L::CX_TRN);
-    if (ACT == ACT_FBW && role == ROLE_DRAG) {
+    if (act_fbw(ACT) && role == ROLE_DRAG) {
 #pragma unroll
       for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xn[k]);
     }
@@ -1531,7 +1560,7 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     shared_kin_air(si, kin, air);
     if (role == ROLE_AERO) {
       o.s.stall = finish_stall(P, air, in.s.stall);
-      if constexpr (ACT == ACT_FBW) {
+      if constexpr (act_fbw(ACT)) {
         V3<T> v_safe;
         alpha_gated(air, o.alpha, o.beta, v_safe);
       }
@@ -1541,7 +1570,7 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
     } else if (role >= ROLE_LEG0) {
       const int leg = role - ROLE_LEG0;
       T steer_fbw = T(0.0);
-      if constexpr (ACT == ACT_FBW)
+      if constexpr (act_fbw(ACT))
         steer_fbw = servo_pos(P, CH_RUD, si(SH_ACT + CH_RUD));
       const bool crash = finish_leg<ACT>(P, leg, in.u, steer_fbw, kin,
                                          in.trn, xn[0], xn[1], o.wow);

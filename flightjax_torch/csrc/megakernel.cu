@@ -93,6 +93,14 @@
 // out their derivative and the gust in each stage at the stage time t + c
 // dt, and combines them in the finish with the gust at the new time; role
 // PROP redraws the drive for the new counter during the finish.
+//
+// The turbulent C172Xv1's instance (megakernel_fbw_turb, ACT_FBW_TURB with
+// the control laws AV_CTL) is the same TPU kernel traced over the C172Xv1
+// on `c172x.build_vehicle(turbulence=)`: megakernel_fbw's rows with the
+// turbulence's rows placed as in megakernel_turb, and its int32 [3, B]
+// rows. Roles KIN and PROP do the turbulence's work as there; a leg's warp
+// passes the turbulence's inputs through, since role DRAG runs the lateral
+// pass after the finish.
 #include "c172x_msn.cuh"
 #include "turbulence.cuh"
 
@@ -107,17 +115,17 @@ constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3;
 // avionics block, fly-by-wire; and the guidance's inputs; and the phase
 // machine's state); the scratch holds the roles' shared rows, then each
 // thread's x and k-sum (and the CTL_Y, GDC_Y or MSN_Y rows of the pass)
-template <int ACT, int AVK = (ACT == ACT_FBW ? AV_CTL : AV_NONE)>
+template <int ACT, int AVK = (act_fbw(ACT) ? AV_CTL : AV_NONE)>
 struct MegaL {
   enum : int {
     X = 1,
     CTX = X + SysL<ACT>::NXV,
     C = CTX + SysL<ACT>::NCTX,
     AV = C + N_C,
-    GDC = AV + (ACT == ACT_FBW ? N_AV : 0),
+    GDC = AV + (act_fbw(ACT) ? N_AV : 0),
     MSN = GDC + (AVK >= AV_GDC ? N_UGDC : 0),
     ROWS = MSN + (AVK == AV_MSN ? N_SMSN : 0),
-    SH_X = ACT == ACT_FBW ? SH_N_FBW : SH_N,
+    SH_X = act_fbw(ACT) ? SH_N_FBW : SH_N,
     SH_KSUM = SH_X + SysL<ACT>::NXV,
     SH_Y = SH_KSUM + SysL<ACT>::NXV,
     SH_ROWS = SH_Y + (AVK == AV_MSN   ? N_MSNY
@@ -229,7 +237,7 @@ __device__ __forceinline__ void periodic_side(bool lon, bool fires,
   o.s(row_b, cmd.b);
 }
 
-template <int ACT, typename T, int AVK = (ACT == ACT_FBW ? AV_CTL : AV_NONE)>
+template <int ACT, typename T, int AVK = (act_fbw(ACT) ? AV_CTL : AV_NONE)>
 __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     megakernel_kernel(const T* __restrict__ in, const int* __restrict__ i_in,
                       const T* __restrict__ P, const T* __restrict__ G,
@@ -259,7 +267,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   // the turbulent instance: role KIN's filter states, like its slots
   TurbLane<T> tl;
   T kprev_t[N_XTURB];
-  if constexpr (ACT == ACT_TURB) {
+  if constexpr (act_turb(ACT)) {
     if (t.role == ROLE_KIN) {
 #pragma unroll
       for (int j = 0; j < N_XTURB; ++j) {
@@ -280,7 +288,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     load_slots<ACT>(sx, 0, t.role, x);
 #pragma unroll
     for (int k = 0; k < N_SLOTS; ++k) xi[k] = x[k] + cs * kprev[k];
-    if constexpr (ACT == ACT_TURB) {
+    if constexpr (act_turb(ACT)) {
       if (t.role == ROLE_KIN) {
 #pragma unroll
         for (int j = 0; j < N_XTURB; ++j)
@@ -308,7 +316,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   FinishOut<T> f;
   load_slots<ACT>(sx, 0, t.role, x);
   load_slots<ACT>(ss, 0, t.role, acc);
-  if constexpr (ACT == ACT_TURB) {
+  if constexpr (act_turb(ACT)) {
     T eta[N_ETA];
     if (t.role == ROLE_KIN) {
 #pragma unroll
@@ -332,7 +340,8 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
       } else if (t.role == ROLE_PROP) {
 #pragma unroll
         for (int j = 0; j < N_ETA; ++j) o.s(M::CTX + L::CX_ETA + j, eta[j]);
-      } else if (t.role == ROLE_DRAG) {  // the turbulence's inputs
+      } else if (t.role == (act_fbw(ACT) ? ROLE_LEG0 : ROLE_DRAG)) {
+        // the turbulence's inputs (a leg's warp where DRAG runs a pass)
 #pragma unroll
         for (int j = 0; j < N_UTURB; ++j)
           o.s(M::CTX + L::CX_UTURB + j, c(M::CTX + L::CX_UTURB + j));
@@ -356,7 +365,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   // instance's four commands come from the pass); the discrete state, the
   // undulation and the latch come from the roles that made them
   for (int r = t.role; r < L::CX_SSYS; r += N_ROLES) {
-    if constexpr (ACT == ACT_FBW) {
+    if constexpr (act_fbw(ACT)) {
       if (r == fbw_cmd_row(CH_AIL) || r == fbw_cmd_row(CH_ELV) ||
           r == fbw_cmd_row(CH_RUD) || r == fbw_cmd_row(CH_THR))
         continue;
@@ -522,6 +531,42 @@ int megakernel_msn_f64(const void* in, const void* i_in, const void* params,
   return launch<ACT_FBW, AV_MSN, SD>(in, i_in, params, grid, gains, out,
                                      i_out, B, n_params, dt, t_start, comp,
                                      spp, pdt, lanes, stream);
+}
+// the turbulent C172Xv1's instance: the fly-by-wire instance's signature,
+// its i the int32 [3, B] rows (i, seed, n)
+int megakernel_fbw_turb_f32(const void* in, const void* i_in,
+                            const void* params, const void* grid,
+                            const void* gains, void* out, void* i_out, int B,
+                            int n_params, double dt, double t_start, int comp,
+                            int spp, double pdt, int lanes, void* stream) {
+  return launch<ACT_FBW_TURB, AV_CTL, SF>(in, i_in, params, grid, gains, out,
+                                          i_out, B, n_params, dt, t_start,
+                                          comp, spp, pdt, lanes, stream);
+}
+int megakernel_fbw_turb_f64(const void* in, const void* i_in,
+                            const void* params, const void* grid,
+                            const void* gains, void* out, void* i_out, int B,
+                            int n_params, double dt, double t_start, int comp,
+                            int spp, double pdt, int lanes, void* stream) {
+  return launch<ACT_FBW_TURB, AV_CTL, SD>(in, i_in, params, grid, gains, out,
+                                          i_out, B, n_params, dt, t_start,
+                                          comp, spp, pdt, lanes, stream);
+}
+void megakernel_fbw_turb_layout(int* n_in, int* n_out) {
+  *n_in = *n_out = MegaL<ACT_FBW_TURB, AV_CTL>::ROWS;
+}
+void megakernel_fbw_turb_launch_shape(int B, int lanes, int n_params,
+                                      int elem_size, int* grid, int* block,
+                                      int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         MegaL<ACT_FBW_TURB, AV_CTL>::SH_ROWS),
+             grid, block, shared);
+}
+void vehicle_fbw_turb_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
+  *n_x = N_X_FBW_TURB;
+  *n_ctx = N_CTX_FBW_TURB;
+  *n_c = N_C;
+  *n_mega = MegaL<ACT_FBW_TURB, AV_CTL>::ROWS;
 }
 // the turbulent C172S's instance: the C172S's signature, its i the int32
 // [3, B] rows (i, seed, n)

@@ -50,6 +50,12 @@
 // stream, turbulence.cuh) while role KIN combines, on every lane, as
 // World.f_step does. The new drive follows the C172S's outputs; the host
 // advances n.
+//
+// The turbulent fly-by-wire instance (rk4_finish_fbw_turb, a kernel of its
+// own beside rk4_finish_turb, from the same body) is that kernel traced over
+// the turbulent C172X: the fly-by-wire instance's servos and the avionics'
+// KIN_Y and SYS_Y (EAS from the disturbed air data) after the residuals,
+// then the new drive.
 #include "c172_systems.cuh"
 #include "turbulence.cuh"
 
@@ -65,7 +71,9 @@ struct FinRows {
     RO_C = RO_TERM + 1,
     RO_KY = RO_C + N_C,
     RO_SY = RO_KY + N_KINY,
-    RO_ETA = RO_C + N_C  // the turbulent instance
+    // the turbulent instances: after the residuals, or after KIN_Y and
+    // SYS_Y (fly-by-wire)
+    RO_ETA = RO_C + N_C + (act_fbw(ACT) ? N_KINY + N_SYSY : 0)
   };
 };
 
@@ -91,7 +99,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   store_slots<ACT>(o, R::RO_X, t.role, xn);
   if (t.role == ROLE_AERO) {
     o.s(R::RO_S + SS_STALL, T(f.s.stall ? 1.0 : 0.0));
-    if constexpr (ACT == ACT_FBW) {
+    if constexpr (act_fbw(ACT)) {
       o.s(R::RO_SY + SY_ALPHA, f.alpha);
       o.s(R::RO_SY + SY_BETA, f.beta);
     }
@@ -104,32 +112,32 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     o.s(R::RO_TERM, f.term);
     o.q4(R::RO_C, comp ? f.r_q : Q4<T>{z, z, z, z});
     o.s(R::RO_C + 4, comp ? f.r_h : z);
-    if constexpr (ACT == ACT_FBW) {
+    if constexpr (act_fbw(ACT)) {
       o.v3(R::RO_KY + KY_OM_WB, f.om_wb);
       o.v3(R::RO_KY + KY_E_NB, f.e_nb);
       o.v3(R::RO_KY + KY_V_EB_N, f.v_eb_n);
       o.s(R::RO_KY + KY_CHI, f.chi);
       o.s(R::RO_KY + KY_EAS, f.EAS);
     }
-  } else if (ACT == ACT_FBW && t.role >= ROLE_LEG0) {
+  } else if (act_fbw(ACT) && t.role >= ROLE_LEG0) {
     o.s(R::RO_SY + SY_WOW + t.role - ROLE_LEG0, T(f.wow ? 1.0 : 0.0));
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(N_ROLES * MAX_LANES)
-    rk4_finish_turb_kernel(const T* __restrict__ in,
-                           const T* __restrict__ ksum,
-                           const T* __restrict__ P,
-                           const int* __restrict__ ints, T* __restrict__ out,
-                           int B, T c6, int comp, double dt, double t_start) {
-  using R = FinRows<ACT_TURB>;
-  using L = SysL<ACT_TURB>;
+// the turbulent instances' body (ACT_TURB, ACT_FBW_TURB); all threads of the
+// block call it
+template <int ACT, typename T>
+__device__ __forceinline__ void rk4_finish_turb_body(
+    const T* __restrict__ in, const T* __restrict__ ksum,
+    const T* __restrict__ P, const int* __restrict__ ints,
+    T* __restrict__ out, int B, T c6, int comp, double dt, double t_start) {
+  using R = FinRows<ACT>;
+  using L = SysL<ACT>;
   const RoleThread t = role_thread(B);
   const Col<T> c{in, B, t.b};
   T x[N_SLOTS], ks[N_SLOTS], xn[N_SLOTS];
-  load_slots<ACT_TURB>(c, 0, t.role, x);
-  load_slots<ACT_TURB>(Col<T>{ksum, B, t.b}, 0, t.role, ks);
+  load_slots<ACT>(c, 0, t.role, x);
+  load_slots<ACT>(Col<T>{ksum, B, t.b}, 0, t.role, ks);
   TurbLane<T> tl;
   T eta[N_ETA];
   if (t.role == ROLE_KIN) {
@@ -145,15 +153,19 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
                 uint32_t(ints[TI_N * B + t.b] + 1), eta);
   }
   FinishOut<T> f;
-  finish_roles<false, ACT_TURB>(P, (const T*)nullptr, block_shared<T>(), t, x,
-                                ks, c6, comp != 0, c, L::NXV,
-                                L::NXV + L::NCTX + 1, xn, f, &tl);
+  finish_roles<false, ACT>(P, (const T*)nullptr, block_shared<T>(), t, x, ks,
+                           c6, comp != 0, c, L::NXV, L::NXV + L::NCTX + 1, xn,
+                           f, &tl);
   if (!t.valid) return;  // past the last barrier
 
   const Out<T> o{out, B, t.b};
-  store_slots<ACT_TURB>(o, R::RO_X, t.role, xn);
+  store_slots<ACT>(o, R::RO_X, t.role, xn);
   if (t.role == ROLE_AERO) {
     o.s(R::RO_S + SS_STALL, T(f.s.stall ? 1.0 : 0.0));
+    if constexpr (act_fbw(ACT)) {
+      o.s(R::RO_SY + SY_ALPHA, f.alpha);
+      o.s(R::RO_SY + SY_BETA, f.beta);
+    }
   } else if (t.role == ROLE_ENG) {
     o.s(R::RO_S + SS_STATE, T(double(f.s.state)));
   } else if (t.role == ROLE_PROP) {
@@ -167,7 +179,39 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     o.s(R::RO_C + 4, comp ? f.r_h : z);
 #pragma unroll
     for (int j = 0; j < N_XTURB; ++j) o.s(R::RO_X + L::X_TURB + j, tl.d[j]);
+    if constexpr (act_fbw(ACT)) {
+      o.v3(R::RO_KY + KY_OM_WB, f.om_wb);
+      o.v3(R::RO_KY + KY_E_NB, f.e_nb);
+      o.v3(R::RO_KY + KY_V_EB_N, f.v_eb_n);
+      o.s(R::RO_KY + KY_CHI, f.chi);
+      o.s(R::RO_KY + KY_EAS, f.EAS);
+    }
+  } else if (act_fbw(ACT) && t.role >= ROLE_LEG0) {
+    o.s(R::RO_SY + SY_WOW + t.role - ROLE_LEG0, T(f.wow ? 1.0 : 0.0));
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(N_ROLES * MAX_LANES)
+    rk4_finish_turb_kernel(const T* __restrict__ in,
+                           const T* __restrict__ ksum,
+                           const T* __restrict__ P,
+                           const int* __restrict__ ints, T* __restrict__ out,
+                           int B, T c6, int comp, double dt, double t_start) {
+  rk4_finish_turb_body<ACT_TURB>(in, ksum, P, ints, out, B, c6, comp, dt,
+                                 t_start);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(N_ROLES * MAX_LANES)
+    rk4_finish_fbw_turb_kernel(const T* __restrict__ in,
+                               const T* __restrict__ ksum,
+                               const T* __restrict__ P,
+                               const int* __restrict__ ints,
+                               T* __restrict__ out, int B, T c6, int comp,
+                               double dt, double t_start) {
+  rk4_finish_turb_body<ACT_FBW_TURB>(in, ksum, P, ints, out, B, c6, comp, dt,
+                                     t_start);
 }
 
 template <int ACT, typename T>
@@ -191,7 +235,7 @@ static int launch(const void* in, const void* ksum, const void* params,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool FBW>
 static int launch_turb(const void* in, const void* ksum, const void* params,
                        const void* ints, void* out, int B, double c6,
                        int comp, double dt, double t_start, int lanes,
@@ -199,13 +243,14 @@ static int launch_turb(const void* in, const void* ksum, const void* params,
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const RoleLaunch l = role_launch(B, lanes, 0, (int)sizeof(T), SH_N);
+  const auto kernel =
+      FBW ? rk4_finish_fbw_turb_kernel<T> : rk4_finish_turb_kernel<T>;
+  const RoleLaunch l =
+      role_launch(B, lanes, 0, (int)sizeof(T), FBW ? SH_N_FBW : SH_N);
   const cudaError_t err = cudaFuncSetAttribute(
-      rk4_finish_turb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      l.shared);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.shared);
   if (err != cudaSuccess) return (int)err;
-  rk4_finish_turb_kernel<T><<<l.grid, l.block, l.shared,
-                              (cudaStream_t)stream>>>(
+  kernel<<<l.grid, l.block, l.shared, (cudaStream_t)stream>>>(
       (const T*)in, (const T*)ksum, (const T*)params, (const int*)ints,
       (T*)out, B, T(c6), comp, dt, t_start);
   return (int)cudaGetLastError();
@@ -216,15 +261,39 @@ int rk4_finish_turb_f32(const void* in, const void* ksum, const void* params,
                         const void* ints, void* out, int B, double c6,
                         int comp, double dt, double t_start, int lanes,
                         void* stream) {
-  return launch_turb<SF>(in, ksum, params, ints, out, B, c6, comp, dt,
-                         t_start, lanes, stream);
+  return launch_turb<SF, false>(in, ksum, params, ints, out, B, c6, comp,
+                                dt, t_start, lanes, stream);
 }
 int rk4_finish_turb_f64(const void* in, const void* ksum, const void* params,
                         const void* ints, void* out, int B, double c6,
                         int comp, double dt, double t_start, int lanes,
                         void* stream) {
-  return launch_turb<SD>(in, ksum, params, ints, out, B, c6, comp, dt,
-                         t_start, lanes, stream);
+  return launch_turb<SD, false>(in, ksum, params, ints, out, B, c6, comp,
+                                dt, t_start, lanes, stream);
+}
+int rk4_finish_fbw_turb_f32(const void* in, const void* ksum,
+                            const void* params, const void* ints, void* out,
+                            int B, double c6, int comp, double dt,
+                            double t_start, int lanes, void* stream) {
+  return launch_turb<SF, true>(in, ksum, params, ints, out, B, c6, comp, dt,
+                               t_start, lanes, stream);
+}
+int rk4_finish_fbw_turb_f64(const void* in, const void* ksum,
+                            const void* params, const void* ints, void* out,
+                            int B, double c6, int comp, double dt,
+                            double t_start, int lanes, void* stream) {
+  return launch_turb<SD, true>(in, ksum, params, ints, out, B, c6, comp, dt,
+                               t_start, lanes, stream);
+}
+void rk4_finish_fbw_turb_layout(int* n_in, int* n_out) {
+  *n_in = RKFIN_N_IN_FBW_TURB;
+  *n_out = RKFIN_N_OUT_FBW_TURB;
+}
+void rk4_finish_fbw_turb_launch_shape(int B, int lanes, int n_params,
+                                      int elem_size, int* grid, int* block,
+                                      int* shared) {
+  put_launch(role_launch(B, lanes, 0, elem_size, SH_N_FBW), grid, block,
+             shared);
 }
 void rk4_finish_turb_layout(int* n_in, int* n_out) {
   *n_in = RKFIN_N_IN_TURB;

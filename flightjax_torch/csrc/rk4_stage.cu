@@ -48,6 +48,13 @@
 // terrain, the sheared mean wind, the airspeed relative to it, the Dryden
 // derivative (x alive) and the gust, and shares the disturbed air data
 // (turbulence.cuh::turb_air); the other roles are the C172S's.
+//
+// The turbulent fly-by-wire instance (rk4_stage_fbw_turb, ACT_FBW_TURB) is
+// the same TPU kernel traced over the turbulent C172X
+// (c172x.build_vehicle(turbulence=)): the fly-by-wire instance's rows and
+// role DRAG's servos, with role KIN's filters and disturbed air data as in
+// the turbulent one. Its drive's scale follows the servos in the
+// parameters; its scratch is the fly-by-wire one.
 #include "c172_systems.cuh"
 #include "turbulence.cuh"
 
@@ -71,7 +78,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     d[s] = T(0);
   }
   using L = SysL<ACT>;
-  if constexpr (ACT == ACT_TURB) {
+  if constexpr (act_turb(ACT)) {
     // role KIN's filter states at the stage point and the stage time
     TurbLane<T> tl;
     if (t.role == ROLE_KIN) {
@@ -150,6 +157,34 @@ int rk4_stage_turb_f64(const void* in, const void* k, const void* params,
                        void* stream) {
   return launch<ACT_TURB, SD>(in, k, params, out, B, n_params, adt, lanes,
                               stream);
+}
+int rk4_stage_fbw_turb_f32(const void* in, const void* k, const void* params,
+                           void* out, int B, int n_params, double adt,
+                           int lanes, void* stream) {
+  return launch<ACT_FBW_TURB, SF>(in, k, params, out, B, n_params, adt,
+                                  lanes, stream);
+}
+int rk4_stage_fbw_turb_f64(const void* in, const void* k, const void* params,
+                           void* out, int B, int n_params, double adt,
+                           int lanes, void* stream) {
+  return launch<ACT_FBW_TURB, SD>(in, k, params, out, B, n_params, adt,
+                                  lanes, stream);
+}
+void rk4_stage_fbw_turb_layout(int* n_in, int* n_out) {
+  *n_in = STAGE_N_IN_FBW_TURB;
+  *n_out = STAGE_N_OUT_FBW_TURB;
+}
+void rk4_stage_fbw_turb_launch_shape(int B, int lanes, int n_params,
+                                     int elem_size, int* grid, int* block,
+                                     int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size, SH_N_FBW), grid,
+             block, shared);
+}
+// the head of the turbulent C172X's parameter buffer: the fly-by-wire
+// C172X's, then the drive's scale
+void systems_fbw_turb_params_layout(int* n_head, int* n_tables) {
+  *n_head = P_HEAD_FBW_TURB;
+  *n_tables = TB_N;
 }
 void rk4_stage_turb_layout(int* n_in, int* n_out) {
   *n_in = STAGE_N_IN_TURB;

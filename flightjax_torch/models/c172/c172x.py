@@ -124,15 +124,18 @@ class FlyByWireActuation:
         return act_y, asg, {"act": x_dot}
 
 
-def build_vehicle(*, device, dtype, actuators=None, terrain=None) -> Vehicle:
+def build_vehicle(*, device, dtype, actuators=None, terrain=None,
+                  turbulence=None) -> Vehicle:
     """The fly-by-wire C172X on WA kinematics over `terrain` (default flat
-    at orthometric 0 m; `c172x.py:170-174`)."""
+    at orthometric 0 m), in Dryden `turbulence` if given (`c172x.py:
+    170-175`)."""
     systems = C172.Systems(power_plant(device=device, dtype=dtype),
                            FlyByWireActuation(actuators), device=device,
                            dtype=dtype)
     if terrain is None:
         terrain = HorizontalTerrain(device=device, dtype=dtype)
-    return Vehicle(systems, WA(), terrain, device=device, dtype=dtype)
+    return Vehicle(systems, WA(), terrain, device=device, dtype=dtype,
+                   turbulence=turbulence)
 
 
 def build_aircraft(avionics=None, *, device, dtype, **kw) -> Aircraft:
@@ -156,6 +159,33 @@ def build_xv2(gains=None, *, device, dtype, **kw) -> Aircraft:
                           device=device, dtype=dtype, **kw)
 
 
+def build_xv1_nav(gains=None, *, device, dtype, periodic_dt=0.02,
+                  use_estimates=True, nav_kw=None, **kw) -> Aircraft:
+    """The C172Xv1 flying on estimated states: fly-by-wire actuation and
+    `NavAvionics(ControlLaws)`, the sensors and the 15-state filter between
+    the truth and the control laws (`c172x.py:379-390`); `periodic_dt` the
+    Simulation's periodic interval, the sensors' and the filter's rate."""
+    from flightjax_torch.models.c172.c172x_ctl import ControlLaws
+    from flightjax_torch.physics.navigation import NavAvionics
+    nav = NavAvionics(ControlLaws(gains, device=device, dtype=dtype),
+                      dt=periodic_dt, use_estimates=use_estimates,
+                      device=device, dtype=dtype, **(nav_kw or {}))
+    return build_aircraft(nav, device=device, dtype=dtype, **kw)
+
+
+def build_xv2_nav(gains=None, *, device, dtype, periodic_dt=0.02,
+                  use_estimates=True, nav_kw=None, **kw) -> Aircraft:
+    """The C172Xv2 flying on estimated states: `NavAvionics` around its
+    guidance and control laws, which read the filter's position and course
+    (`c172x.py:393-406`)."""
+    from flightjax_torch.models.c172.c172x_gdc import Avionics
+    from flightjax_torch.physics.navigation import NavAvionics
+    nav = NavAvionics(Avionics(gains, device=device, dtype=dtype),
+                      dt=periodic_dt, use_estimates=use_estimates,
+                      device=device, dtype=dtype, **(nav_kw or {}))
+    return build_aircraft(nav, device=device, dtype=dtype, **kw)
+
+
 def load_xv1_state(path=XV1_NPZ):
     """(x, u, s) numpy trees of the trimmed C172Xv1 vehicle at world level
     (without the avionics), the TrimState vector and the trim residual
@@ -167,19 +197,28 @@ def load_xv1_state(path=XV1_NPZ):
 
 
 def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1,
-                      path=XV1_NPZ):
+                      path=XV1_NPZ, turbulence=None):
     """The world SimState of one trimmed aircraft with its avionics' inputs
     and state from `init_from_trim` (the bumpless start of
-    `c172x.py::trim_world`); `build` makes the aircraft (`build_xv1` or
-    `build_xv2`, whose vehicles are the same; a mission's, over its
-    terrain), `path` the trim point. The start is worked out on the CPU in
-    `dtype` and then moved to `device`."""
+    `c172x.py::trim_world`); `build` makes the aircraft (`build_xv1`,
+    `build_xv2` or their navigation forms, whose vehicles are the same; a
+    mission's, over its terrain), `path` the trim point. With a Dryden
+    `turbulence` the vehicle flies in it and the state holds its initial
+    trees (W20 = 0, the gusts off: there the trim is the turbulence-free
+    one). The start is worked out on the CPU in `dtype` and then moved to
+    `device`."""
     x, u, s, _, _ = load_xv1_state(path)
-    cpu = build(device="cpu", dtype=dtype)
+    kw = {} if turbulence is None else {"turbulence": turbulence}
+    cpu = build(device="cpu", dtype=dtype, **kw)
     # the plain vehicle functions take a fleet: one aircraft
     xv, uv, sv = (tree_from_numpy(tree_map(lambda l: np.asarray(l)[None],
                                            t["vehicle"]), "cpu", dtype)
                   for t in (x, u, s))
+    if turbulence is not None:
+        like = xv["kinematics"]["h_e"]
+        xv["turb"] = turbulence.init_x(like)
+        uv["turb"] = turbulence.init_u(like)
+        sv["turb"] = turbulence.init_s(like)
     veh_y = cpu.vehicle.output(xv, uv, sv)
     av_u, av_s = cpu.avionics.init_from_trim(veh_y, periodic_dt)
     state = SimState(
@@ -191,17 +230,40 @@ def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1,
     return tree_map(lambda l: l[0].to(device), state)
 
 
-def c172xv1_sim(device="cuda", dtype=torch.float32):
+def c172xv1_sim(device="cuda", dtype=torch.float32, turbulence=None):
     """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv1 on WA
     kinematics: dt = periodic_dt = 0.02 s, geoid refresh every 128 steps,
     Kahan-compensated position in float32, the avionics started bumpless
-    from the trim (the JAX package's `trim_world`). Leaves are unbatched;
+    from the trim (the JAX package's `trim_world`); in Dryden `turbulence`
+    (its dt the step's) if given. Leaves are unbatched;
     `parallel.fleet.broadcast_state` makes a fleet. The modes are those of
     the trim start (`LON_DIRECT`, `LAT_DIRECT`); `turning_climb` engages
     the autopilot."""
-    world = SimpleWorld(build_xv1(device=device, dtype=dtype))
+    kw = {} if turbulence is None else {"turbulence": turbulence}
+    world = SimpleWorld(build_xv1(device=device, dtype=dtype, **kw))
     sim = Simulation(world, dt=0.02, periodic_dt=0.02, geoid_every=128)
-    state = trimmed_xv1_state(sim.periodic_dt, dtype, device)
+    state = trimmed_xv1_state(sim.periodic_dt, dtype, device,
+                              turbulence=turbulence)
+    return sim, sim.with_compensation(state), ()
+
+
+def c172xv1_nav_sim(device="cuda", dtype=torch.float32, turbulence=None,
+                    use_estimates=True):
+    """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv1 on its
+    navigation avionics (`build_xv1_nav`, in shadow mode without
+    `use_estimates`): dt = periodic_dt = 0.02 s, the sensors and filter at
+    50 Hz, in Dryden `turbulence` if given, the geoid refreshed every step
+    (the JAX package's `Simulation` default, as `estimation_demos.
+    nav_fleet_setup` flies it), Kahan-compensated position in float32; the
+    control laws started bumpless and the filter aligned at the trim
+    (`NavAvionics.init_from_trim`). `turning_climb` engages the
+    autopilot."""
+    kw = {} if turbulence is None else {"turbulence": turbulence}
+    build = lambda **k: build_xv1_nav(use_estimates=use_estimates, **k)
+    world = SimpleWorld(build(device=device, dtype=dtype, **kw))
+    sim = Simulation(world, dt=0.02, periodic_dt=0.02)
+    state = trimmed_xv1_state(sim.periodic_dt, dtype, device, build=build,
+                              turbulence=turbulence)
     return sim, sim.with_compensation(state), ()
 
 
@@ -271,10 +333,12 @@ def turning_climb(state, EAS_ref=45.0, clm_ref=1.5, chi_ref=np.pi / 2):
     `LAT_CHI_BETA` onto course pi / 2 (`tools/exp_f32_comp.py:52-70`)."""
     from flightjax_torch.models.c172 import c172x_ctl as CTL
     av = state.u["avionics"]
+    ctl = av.get("inner", av)  # the navigation avionics' inner laws
     set_ = lambda d, **kw: dict(d, **{k: torch.full_like(d[k], v)
                                       for k, v in kw.items()})
-    lon = set_(av["lon"], mode_req=CTL.LON_EAS_CLM, EAS_ref=EAS_ref,
+    lon = set_(ctl["lon"], mode_req=CTL.LON_EAS_CLM, EAS_ref=EAS_ref,
                clm_ref=clm_ref)
-    lat = set_(av["lat"], mode_req=CTL.LAT_CHI_BETA, chi_ref=chi_ref)
-    return state._replace(u=dict(state.u, avionics=dict(av, lon=lon,
-                                                        lat=lat)))
+    lat = set_(ctl["lat"], mode_req=CTL.LAT_CHI_BETA, chi_ref=chi_ref)
+    ctl = dict(ctl, lon=lon, lat=lat)
+    av = dict(av, inner=ctl) if "inner" in av else ctl
+    return state._replace(u=dict(state.u, avionics=av))

@@ -192,6 +192,125 @@ def normal(key, shape=(), dtype=torch.float32):
     return torch.full_like(u, math.sqrt(2)) * torch.erfinv(u)
 
 
+# XLA's float32 erf_inv (the StableHLO decomposition of chlo.erf_inv: Giles'
+# polynomials in w = -log1p(-x^2)), its log1p (Cephes' rational below
+# sqrt(2) - 1, log(1 + x) above) and its log (Cephes' polynomial in Estrin's
+# form, as its CPU backend emits it), with the multiply-adds it contracts
+# rounded once: JAX's float32 normals on the CPU, bit for bit
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+               1.00167406, 2.83297682)
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+          -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+          2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+
+
+def _f32(v, like):
+    return torch.full_like(like, float(np.float32(v)))
+
+
+def _polyf(x, coeffs):
+    p = _f32(coeffs[0], x)
+    for c in coeffs[1:]:
+        p = fma(p, x, _f32(c, x))
+    return p
+
+
+def _logf(x):
+    """XLA's float32 log of positive normal x."""
+    m, e = torch.frexp(x)
+    e = e.to(torch.float32)
+    small = m < _f32(0.707106781186547524, m)
+    one = torch.ones_like(m)
+    m = (m - one) + torch.where(small, m, torch.zeros_like(m))
+    e = e - torch.where(small, one, torch.zeros_like(e))
+    x2 = m * m
+    x3 = x2 * m
+    p = [_f32(c, m) for c in _LOG_P]
+    y = fma(fma(p[0], m, p[1]), m, p[2])
+    y1 = fma(fma(p[3], m, p[4]), m, p[5])
+    y2 = fma(fma(p[6], m, p[7]), m, p[8])
+    y = fma(fma(y, x3, y1), x3, y2)
+    y = fma(y, x3, e * _f32(-2.12194440e-4, e))
+    m = fma(x2, _f32(-0.5, m), m)
+    m = m + y
+    return fma(e, _f32(0.693359375, e), m)
+
+
+def _log1pf(x):
+    """XLA's float32 log1p."""
+    x2 = x * x
+    r = _polyf(x, _LOG1P_NUM) / _polyf(x, _LOG1P_DEN)
+    r = fma(_f32(-0.5, x), x2, (x * x2) * r)
+    small = x + r
+    large = _logf(torch.clamp_min(x + torch.ones_like(x),
+                                  float(np.finfo(np.float32).tiny)))
+    return torch.where(torch.abs(x) < 0.41421356237309504880, small, large)
+
+
+def erfinv_f32(x):
+    """XLA's float32 erf_inv of x in (-1, 1)."""
+    w = -_log1pf(x * -x)
+    lt = w < 5.0
+    c = lambda k: torch.where(lt, _f32(_ERFINV_LT5[k], w),
+                              _f32(_ERFINV_GE5[k], w))
+    # the square root rounded once (PyTorch's float32 one on the CPU is not)
+    w = torch.where(lt, w - _f32(2.5, w),
+                    torch.sqrt(w.double()).float() - _f32(3.0, w))
+    p = c(0)
+    for k in range(1, 9):
+        p = fma(p, w, c(k))
+    return p * x
+
+
+def _normal_of_unit(f):
+    """The float32 normal of `normal_f32` from its floats f in [1, 2)."""
+    lo = normal_lo(torch.float32)
+    f = f - 1.0
+    lo_t = torch.full_like(f, lo)
+    u = torch.maximum(lo_t, fma(f, torch.full_like(f, 1.0 - lo), lo_t))
+    return _f32(math.sqrt(2), u) * erfinv_f32(u)
+
+
+_NORMAL_TABLES = {}
+
+
+def normal_table(device):
+    """The float32 normal of each of the 2^23 mantissas a float32 uniform
+    draws from, on `device` (built once per device, 32 MiB): a draw is a
+    function of its 23 random bits alone."""
+    key = torch.device(device)
+    t = _NORMAL_TABLES.get(key)
+    if t is None:
+        mant = torch.arange(2 ** 23, dtype=torch.int32, device=key)
+        t = _normal_of_unit((mant | 0x3F800000).view(torch.float32))
+        _NORMAL_TABLES[key] = t
+    return t
+
+
+def normal_f32(key, shape=()):
+    """`jax.random.normal(key, shape, float32)` as the JAX package's CPU
+    backend computes it: its uniforms (exact here) through XLA's float32
+    erf_inv (`erfinv_f32`), where `normal` would take PyTorch's, which
+    rounds differently in about half the draws. On the card each draw is
+    read from `normal_table` by its 23 bits (the same values, without the
+    chain's thousand small launches)."""
+    if key.device.type != "cpu":
+        y0, y1 = _counters(key, tuple(shape))
+        return normal_table(key.device)[(y0 ^ y1) >> 9]
+    return _normal_of_unit(_unit(key, shape, torch.float32))
+
+
 def randint(key, shape, minval, maxval, dtype=torch.int32):
     """Uniform integers in [minval, maxval) `[..., *shape]` (`jax.random.
     randint` with integer bounds inside `dtype`'s range): two draws of

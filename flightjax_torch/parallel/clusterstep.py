@@ -39,10 +39,13 @@ the C172Xv2 (`core/mission.py`) runs as the `msn_ctl_laws` kernel, which
 also reads the engine's state of the new S_SYS and writes the flaps,
 brake and engine-start inputs its phases override; a mission the kernels
 do not carry (arbitrary callables, another inner avionics) runs its own
-plain pass, on the CPU or with `plain` only. The pass reads the state
-before the geoid refresh of the same step, as `Simulation.fleet_step`
-orders them (the JAX cluster kernels refresh first; the two differ on
-refresh steps by the undulation's change over 128 steps, micrometres).
+plain pass, on the CPU or with `plain` only. The navigation avionics
+(`physics/navigation.py`) run their sensors and filter as PyTorch on the
+state's device and then the inner avionics' pass kernel on the estimates
+(`_nav_periodic`). The pass runs before the geoid refresh of the same
+step and reads the state before it, as `Simulation.fleet_step` orders
+them (the JAX cluster kernels refresh first; the two differ on refresh
+steps by the undulation's change over 128 steps, micrometres).
 """
 
 import torch
@@ -52,6 +55,7 @@ from flightjax_torch.core.modeling import tree_map
 from flightjax_torch.core.sim import SimState
 from flightjax_torch.ops.geodesy import nvector_from_qew
 from flightjax_torch.parallel import kernels as K
+from flightjax_torch.physics.navigation import NavAvionics
 
 # (stage offset as a multiple of dt, k-sum weight)
 STAGES = ((0.0, 1.0), (0.5, 2.0), (0.5, 2.0), (1.0, 1.0))
@@ -103,17 +107,63 @@ def cluster_step(sim, state: SimState, i: int, *, plain=False,
     xv2, s_sys2, term2, c_kin2, kin_y, sys_y = K.finish_clusters(
         C, vehicle, xv, acc, uv, sv, s["terminated"], dt, _comp_kin(state))
     sv2 = dict(sv, systems=s_sys2)
-    if (i + 1) % (sim.geoid_every if geoid_every is None
-                  else geoid_every) == 0:
-        sv2 = vehicle.refresh_geoid(xv2, sv2, plain=plain)
     s2 = dict(s, vehicle=sv2, terminated=term2)
     u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i, plain)
+    if (i + 1) % (sim.geoid_every if geoid_every is None
+                  else geoid_every) == 0:
+        s2["vehicle"] = vehicle.refresh_geoid(xv2, s2["vehicle"],
+                                              plain=plain)
     c2 = None if c_kin2 is None else {"vehicle": {"kinematics": c_kin2}}
     return SimState(t=t_new, i=i_new, x=dict(x, vehicle=xv2), u=u2, s=s2,
                     c=c2)
 
 
-def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False):
+def _nav_periodic(sim, xv, u, s, kin_y, sys_y, i, plain, t):
+    """The navigation avionics' pass (`NavAvionics.f_periodic` and
+    `assign`) after step `i`: the truth at the new state for the sensors
+    (`kernels.vehicle_truth`, its systems through the `systems` kernel on
+    the card), the sensors, the filter and its monitors as PyTorch tensor
+    code on the state's device (`NavAvionics.nav_pass`), its aiding block
+    gated by `epoch_gate` of the sensor epoch this firing makes, then the
+    inner avionics' pass kernel (`ctl_laws` or `gdc_ctl_laws`, their plain
+    versions on the CPU or with `plain`) on the estimated VehicleY, or in
+    shadow mode on the truth the truth-fed pass reads. The sensor epoch is
+    the firings' count from step 0, where `init_s` and `init_from_trim`
+    start it; the CPU path checks it against the state."""
+    world = sim.system
+    nav = world.aircraft.avionics
+    vehicle = world.aircraft.vehicle
+    uv, sv = u["vehicle"], s["vehicle"]
+    s_av, u_av = s["avionics"], u["avionics"]
+    name = K.avionics_layout(vehicle, nav).pass_name
+    n1 = (i + 1) // sim.steps_per_periodic
+    n = s_av["sens"]["n"]
+    if n.device.type == "cpu" and bool((n != n1 - 1).any()):
+        raise ValueError(
+            f"the sensor epoch {int(n.reshape(-1)[0])} is not the count of "
+            f"firings before step {i + 1} ({n1 - 1}): the navigation fleet "
+            f"starts at step 0 with its sensors' counter at 0")
+    if name != "ctl_laws":
+        kin_y = dict(kin_y, n_e=nvector_from_qew(xv["kinematics"]["q_ew"]))
+    vy = K.vehicle_y(vehicle, xv, uv, kin_y, sys_y)
+    kin, air, dyn = K.vehicle_truth(vehicle, xv, uv, sv, t,
+                                    K.systems_plain if plain else K.systems)
+    truth = vy._replace(kinematics=kin, airflow=air, dynamics=dyn)
+    h_trn = vehicle.terrain.terrain_data(uv["trn"]).elevation
+    s_nav, y_est, _ = nav.nav_pass(s_av, u_av, truth, h_trn,
+                                   nav.epoch_gate(n1))
+    y = {"ctl_laws": K.ctl_y, "gdc_ctl_laws": K.gdc_y}[name](
+        y_est if nav.use_estimates else vy)
+    fn = getattr(K, name + "_plain" if plain else name)
+    s_in, cmd, *_ = fn(nav.inner, y, u_av["inner"], s_av["inner"],
+                       world.periodic_dt)
+    u_sys = u["vehicle"]["systems"]
+    u_sys = dict(u_sys, act=dict(u_sys["act"], **cmd))
+    return (dict(u, vehicle=dict(u["vehicle"], systems=u_sys)),
+            dict(s, avionics=dict(s_nav, inner=s_in)))
+
+
+def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False, t=None):
     """The world's periodic pass after step `i` if it fires, when the
     counter it makes, i + 1, is a multiple of `steps_per_periodic`
     (`sim.py:327-328`; no ported avionics reads the firing index): the
@@ -124,11 +174,14 @@ def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False):
     `gdc_ctl_laws` kernel (the C172Xv2's guidance and control laws) or the
     `msn_ctl_laws` kernel (a mission over them, which also writes the
     systems inputs its phases override), or their plain versions with
-    `plain`. Returns (u, s)."""
+    `plain`; the navigation avionics through `_nav_periodic`, which reads
+    the new time `t` on a turbulent vehicle. Returns (u, s)."""
     world = sim.system
     avionics = world.aircraft.avionics
     if avionics is None or (i + 1) % sim.steps_per_periodic != 0:
         return u, s
+    if isinstance(avionics, NavAvionics):
+        return _nav_periodic(sim, xv, u, s, kin_y, sys_y, i, plain, t)
     vehicle = world.aircraft.vehicle
     eng = s["vehicle"]["systems"]["pwp"]["engine"]["state"]
     q_ew = xv["kinematics"]["q_ew"]
@@ -206,14 +259,15 @@ def vehicle_step(sim, state: SimState, i: int, block=None, comp=False,
     sv2 = dict(sv, systems=s_sys2)
     if s_turb:
         sv2["turb"] = s_turb[0]
+    s2 = dict(s, vehicle=sv2, terminated=term2)
+    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i, plain,
+                       t=t_new if s_turb else None)
     if (i + 1) % (sim.geoid_every if geoid_every is None
                   else geoid_every) == 0:
         q_rows = out[K.rows_of(lay.x_groups, "q_ew")]
-        sv2["geoid_N"] = (K.geoid_plain(vehicle.geoid, q_rows.t()) if plain
-                          else K.geoid_packed(vehicle.geoid, q_rows,
-                                              block)[0])
-    s2 = dict(s, vehicle=sv2, terminated=term2)
-    u2, s2 = _periodic(sim, xv2, u, s2, kin_y, sys_y, i)
+        s2["vehicle"] = dict(s2["vehicle"], geoid_N=(
+            K.geoid_plain(vehicle.geoid, q_rows.t()) if plain
+            else K.geoid_packed(vehicle.geoid, q_rows, block)[0]))
     c2 = state.c
     if comp and c_kin2 is not None:
         c2 = {"vehicle": {"kinematics": c_kin2}}

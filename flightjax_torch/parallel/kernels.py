@@ -270,7 +270,11 @@ class Layout(NamedTuple):
     `pass_name` the kernel of the avionics' periodic pass, if any; `turb`
     the turbulent C172S, whose X, CTX and finish output also hold the
     turbulence's rows (X_TURB, U_TURB, S_TURB) and whose whole-vehicle
-    kernels read the start time (T_ROW) and the int32 rows TURB_INT."""
+    kernels read the start time (T_ROW) and the int32 rows TURB_INT, the
+    turbulent fly-by-wire C172X's too; `nav` avionics that fly the inner
+    avionics' pass on the navigation avionics' estimates, whose megakernel
+    is not ported (`mega_name` None, as for the turbulent C172Xv2 and
+    missions)."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -289,6 +293,7 @@ class Layout(NamedTuple):
     mega_name: str
     pass_name: str
     turb: bool = False
+    nav: bool = False
 
 
 def _layout(fbw, gdc=False, msn=False, turb=False):
@@ -312,9 +317,14 @@ def _layout(fbw, gdc=False, msn=False, turb=False):
         mega=((("t", 1),),) + x_groups + ctx + (COMP,)
         + (AV_GROUPS if fbw else ()) + ((AV_U_GDC,) if gdc else ())
         + ((AV_S_MSN,) if msn else ()),
-        names={k: k + ("_fbw" if fbw else "_turb" if turb else "")
-               for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=("megakernel_msn" if msn else "megakernel_gdc" if gdc
+        # the subsystems split carries no turbulence: its turbulent
+        # fly-by-wire names are the fly-by-wire ones, never launched
+        names={k: k + ("_fbw" if fbw else "") + (
+            "_turb" if turb and k.startswith("rk4") else "")
+            for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
+        mega_name=(None if turb and (gdc or msn) else "megakernel_msn" if msn
+                   else "megakernel_gdc" if gdc
+                   else "megakernel_fbw_turb" if fbw and turb
                    else "megakernel_fbw" if fbw else "megakernel_turb" if turb
                    else "megakernel"),
         pass_name=("msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
@@ -331,6 +341,13 @@ MSN = _layout(True, gdc=True, msn=True)
 # megakernel only, as the JAX package's subsystems split has no turbulent
 # instance (clusterstep.py:568)
 TURB = _layout(False, turb=True)
+# the turbulent fly-by-wire C172X (c172x.build_vehicle(turbulence=), the
+# navigation study's vehicle): its whole-vehicle kernels and, with the
+# control laws, its megakernel; with the C172Xv2's avionics or a mission the
+# whole-vehicle kernels only
+FBW_TURB = _layout(True, turb=True)
+GDC_TURB, MSN_TURB = (_layout(True, gdc=True, turb=True),
+                      _layout(True, gdc=True, msn=True, turb=True))
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -344,25 +361,45 @@ def layout_of(vehicle, avionics=None):
     servos, whose kernel instances carry `Actuator1` on every channel (a
     second-order servo has no kernel yet), GDC where its `avionics` are the
     C172Xv2's guidance and control laws, MSN a mission over them; TURB for
-    the C172S with Dryden turbulence."""
+    the C172S with Dryden turbulence, FBW_TURB (GDC_TURB, MSN_TURB) for the
+    turbulent fly-by-wire C172X. Navigation avionics take their inner
+    avionics' layout, marked `nav`."""
     act = vehicle.systems.act
     stateful = getattr(act, "stateful", False)
-    if getattr(vehicle, "turbulence", None) is not None:
-        if stateful:
-            raise NotImplementedError(
-                "the kernels carry the turbulent C172S, not a turbulent "
-                "fly-by-wire vehicle: ROADMAP Queue 2, 'the turbulent "
-                "fly-by-wire instances'")
-        return TURB
+    turb = getattr(vehicle, "turbulence", None) is not None
     if not stateful:
-        return MECH
+        return TURB if turb else MECH
     bad = [ch for ch, a in act.actuators.items() if a.order != 1]
     if bad:
         raise ValueError(
             f"the kernels carry first-order servos only, not {bad}: "
             "ROADMAP Queue 2, 'Actuator2 channels in the kernels'")
-    return (GDC if isinstance(avionics, Avionics) else MSN if isinstance(
-        avionics, MissionAvionics) else FBW)
+    from flightjax_torch.physics.navigation import NavAvionics
+    nav = isinstance(avionics, NavAvionics)
+    inner = avionics.inner if nav else avionics
+    if isinstance(inner, Avionics):
+        lay = GDC_TURB if turb else GDC
+    elif isinstance(inner, MissionAvionics):
+        lay = MSN_TURB if turb else MSN
+    else:
+        lay = FBW_TURB if turb else FBW
+    return lay._replace(nav=True, mega_name=None) if nav else lay
+
+
+def mega_refusal(lay):
+    """Why the megakernel does not carry an aircraft of layout `lay`, or
+    None where it does."""
+    if lay.nav:
+        return ("the navigation avionics (NavAvionics) have no megakernel "
+                "instance: ROADMAP Queue 2, 'The NavAvionics instances'; "
+                "they fly Simulation.fleet_step and "
+                "make_cluster_step(split='vehicle')")
+    if lay.mega_name is None:
+        which = "mission" if lay.pass_name == "msn_ctl_laws" else "C172Xv2"
+        return (f"the turbulent {which} has no megakernel instance "
+                "(megakernel_gdc_turb, megakernel_msn_turb): ROADMAP Queue "
+                "2, 'The turbulent fly-by-wire megakernels'")
+    return None
 
 
 def mission_refusal(avionics):
@@ -393,17 +430,23 @@ def mission_refusal(avionics):
 def avionics_layout(vehicle, avionics):
     """The layout of an aircraft whose avionics run as kernels: the
     C172X's `ControlLaws` (FBW), the C172Xv2's `Avionics` (GDC) or a
-    mission over them whose phases carry descriptors (MSN); other avionics
-    have no kernel and are refused."""
-    if isinstance(avionics, MissionAvionics):
-        why = mission_refusal(avionics)
+    mission over them whose phases carry descriptors (MSN), each also
+    inside the navigation avionics (their pass the inner avionics' kernel
+    on the estimates); other avionics have no kernel and are refused."""
+    from flightjax_torch.physics.navigation import NavAvionics
+    inner = avionics.inner if isinstance(avionics, NavAvionics) else avionics
+    if isinstance(inner, MissionAvionics):
+        why = mission_refusal(inner)
+        if why is None and inner is not avionics:
+            why = ("the sensor-fed missions (a MissionAvionics inside "
+                   "NavAvionics) are not ported: ROADMAP Queue 1, P11")
         if why is not None:
             raise NotImplementedError(why)
-    elif not isinstance(avionics, (ControlLaws, Avionics)):
+    elif not isinstance(inner, (ControlLaws, Avionics)):
         raise NotImplementedError(
             f"the kernels carry the C172X's ControlLaws, the C172Xv2's "
             f"guidance and control laws and a scripted mission over them "
-            f"(core/mission.py), not {type(avionics).__name__}: these "
+            f"(core/mission.py), not {type(inner).__name__}: these "
             f"avionics have no kernel")
     return layout_of(vehicle, avionics)
 
@@ -985,33 +1028,44 @@ def finish_clusters(C, vehicle, xv, ksum, uv, sv, terminated, dt, c_kin,
     return out + (vehicle.turbulence.f_step(uv["turb"], sv["turb"]),)
 
 
-def world_output(world, state):
-    """`Simulation.output` on a fleet as far as the loads read it: the
-    world's derivative at `state` (time state.t, the stage state the state
-    itself) through the plain clusters, and the dynamics' specific force at
-    the CoM. Returns an AircraftY whose vehicle holds the KinData, the
-    AirData and DynamicsY(f_c_c)."""
-    from flightjax_torch.physics.aircraftbase import AircraftY
-    vehicle = world.aircraft.vehicle
-    xv, uv, sv = state.x["vehicle"], state.u["vehicle"], state.s["vehicle"]
+def vehicle_truth(vehicle, xv, uv, sv, t, systems_fn=None):
+    """(KinData, AirData, DynamicsY) at the state xv itself (the stage
+    state with a zero offset) and time `t`, as `Vehicle.f_ode` forms them
+    (`aircraftbase.py:215-241`): the kinematics, the air data (disturbed
+    by the gust at `t` on a turbulent vehicle), the systems' wrench and
+    mass through `systems_fn` (`systems_plain`, or the `systems` wrapper)
+    and the dynamics' outputs, f_c_c, alpha_ib_b and the summed mass."""
     zero = tree_map(torch.zeros_like, xv)
     term = torch.zeros_like(xv["kinematics"]["h_e"])
     if vehicle.turbulence is not None:
         _, kin, air, xi_dyn, _ = kinair_turb_plain(
             vehicle, xv["kinematics"], xv["dynamics"], zero["kinematics"],
             zero["dynamics"], sv["geoid_N"], uv["atm"], 0.0, term,
-            xv["turb"], zero["turb"], uv["turb"], sv["turb"], state.t,
+            xv["turb"], zero["turb"], uv["turb"], sv["turb"], t,
             vehicle.terrain.terrain_data(uv["trn"]).elevation)
     else:
         _, kin, air, xi_dyn = kinair_plain(
             xv["kinematics"], xv["dynamics"], zero["kinematics"],
             zero["dynamics"], sv["geoid_N"], uv["atm"], 0.0, term)
-    _, mp_b, wr_b, hr_b = systems_plain(
+    _, mp_b, wr_b, hr_b = (systems_fn or systems_plain)(
         vehicle, xv["systems"], zero["systems"], uv["systems"], sv["systems"],
         uv["trn"], kin, air, 0.0, term)
     dyn = _DYN.output(xi_dyn, DynamicsU(mp_sum_b=mp_b, wr_sum_b=wr_b,
                                         ho_sum_b=hr_b, q_eb=kin.q_eb,
                                         r_eb_e=kin.r_eb_e))
+    return kin, air, dyn
+
+
+def world_output(world, state):
+    """`Simulation.output` on a fleet as far as the loads read it: the
+    world's derivative at `state` (time state.t, the stage state the state
+    itself) through the plain clusters, and the dynamics' specific force at
+    the CoM. Returns an AircraftY whose vehicle holds the KinData, the
+    AirData and the DynamicsY."""
+    from flightjax_torch.physics.aircraftbase import AircraftY
+    kin, air, dyn = vehicle_truth(world.aircraft.vehicle, state.x["vehicle"],
+                                  state.u["vehicle"], state.s["vehicle"],
+                                  state.t)
     return AircraftY(vehicle=VehicleY(systems=None, kinematics=kin,
                                       dynamics=dyn, airflow=air),
                      avionics=None)
@@ -1335,15 +1389,17 @@ PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
 # the fly-by-wire instances pack as their mechanical twins (by the
 # vehicle's layout)
 PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
-PACK.update({TURB.names[k]: PACK[k] for k in ("rk4_stage", "rk4_finish")})
+PACK.update({lay.names[k]: PACK[k] for lay in (TURB, FBW_TURB)
+             for k in ("rk4_stage", "rk4_finish")})
 
 
 # instance name -> (kernel, layout)
 _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
               for k, n in dict(lay.names, megakernel=lay.mega_name).items()}
-_INSTANCES.update({TURB.names[k]: (k, TURB) for k in ("rk4_stage",
-                                                      "rk4_finish")})
+_INSTANCES.update({lay.names[k]: (k, lay) for lay in (TURB, FBW_TURB)
+                   for k in ("rk4_stage", "rk4_finish")})
 _INSTANCES[TURB.mega_name] = ("megakernel", TURB)
+_INSTANCES[FBW_TURB.mega_name] = ("megakernel", FBW_TURB)
 _INSTANCES[GDC.mega_name] = ("megakernel", GDC)
 _INSTANCES[MSN.mega_name] = ("megakernel", MSN)
 
@@ -1364,7 +1420,7 @@ def _gdc_tree(d):
 def av_groups(lay):
     """The row groups of the avionics' block of `lay`'s megakernel buffer
     (after t, X, CTX and C)."""
-    return lay.mega[1 + len(lay.rkfin_in):]
+    return lay.mega[2 + len(lay.x_groups) + len(lay.ctx_groups):]
 
 
 def pack_avionics(lay, u_av, s_av, B, dtype):
@@ -1433,18 +1489,20 @@ def unpack_out(name, out, comp=False, ints=None):
                                    "lat": _av_tree(s_lat)}}, **sm},
                 cmd, g, sys_)
     if base == "megakernel":
+        # the vehicle's rows: t, X, CTX, C (the turbulent layouts keep t
+        # among the vehicle's rows, `mega_rows`)
+        n = rows(lay.rkfin_in) + (0 if lay.turb else 1)
         if lay.turb:
             xv, uv, sv, terminated, c_kin, t = unpack_vehicle(
-                vehicle_rows(lay, out), lay, ints)
-            return t, xv, uv, sv, terminated, c_kin if comp else None, \
-                None, None
-        n = 1 + rows(lay.rkfin_in)
-        xv, uv, sv, terminated, c_kin, _ = unpack_vehicle(out[1:n], lay)
+                vehicle_rows(lay, out[:n]), lay, ints)
+        else:
+            t = out[0]
+            xv, uv, sv, terminated, c_kin, _ = unpack_vehicle(out[1:n], lay)
         u_av = s_av = None
         if lay.fbw:
             u_av, s_av = unpack_avionics(lay, out[n:])
-        return (out[0], xv, uv, sv, terminated, c_kin if comp else None,
-                u_av, s_av)
+        return (t, xv, uv, sv, terminated, c_kin if comp else None, u_av,
+                s_av)
     if base == "kinair":
         kin_dot, kin, air, xi_dyn = unpack(KINAIR_OUT, out)
         return kin_dot, KinData(**kin), AirData(**air), xi_dyn
@@ -1696,14 +1754,15 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     C172Xv2's avionics `megakernel_gdc`, whose pass runs the guidance
     first, or with a mission over them `megakernel_msn`, whose pass runs
     the phase machine first; with the turbulent C172S `megakernel_turb`,
-    whose int32 buffer holds (i, seed, n)."""
+    whose int32 buffer holds (i, seed, n), and with the turbulent C172Xv1
+    `megakernel_fbw_turb`, whose int32 buffer holds them too."""
     name = layout_of(vehicle, avionics).mega_name
     out = L.launch_megakernel(
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
         None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
         gdc=name == GDC.mega_name, msn=name == MSN.mega_name,
-        turb=name == TURB.mega_name)
+        turb=name in (TURB.mega_name, FBW_TURB.mega_name))
     LAUNCHES[name] += 1
     return out
 

@@ -55,15 +55,20 @@ AV_KERNELS = ("megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
 # the instances for the C172S with Dryden turbulence (csrc/turbulence.cuh):
 # the whole-vehicle kernels and the megakernel
 TURB_KERNELS = ("rk4_stage_turb", "rk4_finish_turb", "megakernel_turb")
+# and for the turbulent fly-by-wire C172X (the C172Xv1 of the navigation
+# fleet): the whole-vehicle kernels and the megakernel with its control laws
+FBW_TURB_KERNELS = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
+                    "megakernel_fbw_turb")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
-                *TURB_KERNELS)
+                *TURB_KERNELS, *FBW_TURB_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc",
-               "megakernel_msn", "rk4_stage_turb", "megakernel_turb")
+               "megakernel_msn", "rk4_stage_turb", "megakernel_turb",
+               "rk4_stage_fbw_turb", "megakernel_fbw_turb")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -73,17 +78,18 @@ N_GAIN_TABLES = 10
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
-           *AV_KERNELS, *TURB_KERNELS)
+           *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
 # counter, stream seed, drive counter) of the turbulent vehicle
 WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw",
-          "rk4_stage_turb", "rk4_finish_turb")
+          "rk4_stage_turb", "rk4_finish_turb", "rk4_stage_fbw_turb",
+          "rk4_finish_fbw_turb")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
-               "megakernel", *FBW_KERNELS, *TURB_KERNELS)
-WITH_GRID = ("geoid", "megakernel", "megakernel_turb")
+               "megakernel", *FBW_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS)
+WITH_GRID = ("geoid", "megakernel", "megakernel_turb", "megakernel_fbw_turb")
 WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws")
-WITH_INTS = ("rk4_finish_turb",)
+WITH_INTS = ("rk4_finish_turb", "rk4_finish_fbw_turb")
 # rows of the turbulent vehicle's int32 operand
 N_TURB_INT = 3
 
@@ -169,12 +175,12 @@ def library():
             lib = ctypes.CDLL(so)
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             for name in (*KERNELS, "systems_params", "systems_fbw_params",
-                         "systems_turb_params"):
+                         "systems_turb_params", "systems_fbw_turb_params"):
                 f = getattr(lib, f"{name}_layout")
                 f.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
                 f.restype = None
             for f in (lib.vehicle_layout, lib.vehicle_fbw_layout,
-                      lib.vehicle_turb_layout):
+                      lib.vehicle_turb_layout, lib.vehicle_fbw_turb_layout):
                 f.argtypes = [ctypes.POINTER(I)] * 4
                 f.restype = None
             sig = {"kinair": [P, P, I, D, I, P],
@@ -196,7 +202,10 @@ def library():
                        msn_ctl_laws=sig["ctl_laws"],
                        rk4_stage_turb=sig["rk4_stage"],
                        rk4_finish_turb=[P, P, P, P, P, I, D, I, D, D, I, P],
-                       megakernel_turb=sig["megakernel"])
+                       megakernel_turb=sig["megakernel"],
+                       rk4_stage_fbw_turb=sig["rk4_stage"],
+                       megakernel_fbw_turb=sig["megakernel_fbw"])
+            sig["rk4_finish_fbw_turb"] = sig["rk4_finish_turb"]
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -231,8 +240,9 @@ def vehicle_layout(fbw=False, turb=False):
     """{x, ctx, c, mega}: rows of the whole-vehicle groups X, CTX, C and of
     the megakernel's state buffer, as the compiled kernels declare them,
     for the mechanical C172, with `fbw` the fly-by-wire one, with `turb`
-    the turbulent C172S."""
-    key = "vehicle_fbw" if fbw else "vehicle_turb" if turb else "vehicle"
+    the turbulent C172S, with both the turbulent fly-by-wire C172X (its
+    megakernel with the control laws)."""
+    key = "vehicle" + ("_fbw" if fbw else "") + ("_turb" if turb else "")
     if key not in _LAYOUTS:
         v = [ctypes.c_int() for _ in range(4)]
         getattr(library(), f"{key}_layout")(*map(ctypes.byref, v))
@@ -264,8 +274,8 @@ def check_params(params, dtype, device, fbw=False, turb=False):
     if params.device != device or params.dtype != dtype:
         raise ValueError(f"kernel parameters on {params.device}/"
                          f"{params.dtype}, expected {device}/{dtype}")
-    n_head, _ = layout("systems_fbw_params" if fbw else
-                       "systems_turb_params" if turb else "systems_params")
+    n_head, _ = layout("systems" + ("_fbw" if fbw else "")
+                       + ("_turb" if turb else "") + "_params")
     if params.dim() != 1 or params.shape[0] < n_head:
         raise ValueError(f"kernel parameters of shape {tuple(params.shape)}"
                          f", the head alone has {n_head}")
@@ -350,7 +360,7 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     geoid grid for `geoid`, the control laws' gains for `ctl_laws`,
     `gdc_ctl_laws` and `msn_ctl_laws` (with the mission table for the
     last, `kernels.ctl_gains`), the int32 `[3, B]` rows (i, seed, n) for
-    `rk4_finish_turb`.
+    `rk4_finish_turb` and `rk4_finish_fbw_turb`.
     Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn(name, dtype, device)
@@ -368,13 +378,13 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
         if (name in kernels) != (val is not None):
             raise ValueError(f"{name}: operand {key} "
                              + ("missing" if val is None else "not taken"))
-    fbw = name in FBW_KERNELS
+    fbw = name in FBW_KERNELS or name in FBW_TURB_KERNELS
+    turb = name in TURB_KERNELS or name in FBW_TURB_KERNELS
     if k is not None:
-        check_operand(k, vehicle_layout(fbw, name in TURB_KERNELS)["x"], B,
-                      dtype, device)
+        check_operand(k, vehicle_layout(fbw, turb)["x"], B, dtype, device)
         ptrs.append(k.data_ptr())
     if params is not None:
-        check_params(params, dtype, device, fbw, name in TURB_KERNELS)
+        check_params(params, dtype, device, fbw, turb)
         ptrs.append(params.data_ptr())
     if ints is not None:
         check_operand(ints, N_TURB_INT, B, torch.int32, device)
@@ -404,14 +414,18 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     runs the guidance first, or with `msn` a mission's `megakernel_msn`,
     whose pass runs the phase machine first (its gains hold the mission
     table), or with `turb` the turbulent C172S's `megakernel_turb`, whose
-    `i` is the int32 `[3, B]` rows (i, seed, n). Does not synchronise."""
+    `i` is the int32 `[3, B]` rows (i, seed, n), with `turb` and the gains
+    the turbulent C172Xv1's `megakernel_fbw_turb`, whose `i` is those rows
+    too. Does not synchronise."""
     fbw = gains is not None
     if (gdc or msn) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
-    if turb and fbw:
-        raise ValueError("the turbulent megakernel carries the C172S")
+    if turb and (gdc or msn):
+        raise ValueError("the turbulent megakernels carry the C172S and the "
+                         "C172Xv1")
     name = ("megakernel_msn" if msn else "megakernel_gdc" if gdc
+            else "megakernel_fbw_turb" if fbw and turb
             else "megakernel_fbw" if fbw else "megakernel_turb" if turb
             else "megakernel")
     dtype, device = state.dtype, state.device

@@ -54,13 +54,14 @@ def megakernel_step_plain(sim, state: SimState) -> SimState:
     `jax.vmap(Simulation.step)`, the kernel's plain version (on the
     turbulent C172S the plain whole-vehicle step, compensated iff
     `state.c`)."""
-    if sim.system.aircraft.vehicle.turbulence is not None:
-        return vehicle_step(sim, state, 0, comp=state.c is not None,
-                            plain=True, geoid_every=1)
     spp = sim.steps_per_periodic
     # a fleet counter at which the pass fires; the lanes whose own counter
     # does not fire keep their inputs and avionics state
-    new = cluster_step(sim, state, spp - 1, plain=True, geoid_every=1)
+    if sim.system.aircraft.vehicle.turbulence is not None:
+        new = vehicle_step(sim, state, spp - 1, comp=state.c is not None,
+                           plain=True, geoid_every=1)
+    else:
+        new = cluster_step(sim, state, spp - 1, plain=True, geoid_every=1)
     if sim.system.aircraft.avionics is None:
         return new
     fires = (state.i + 1) % spp == 0
@@ -81,8 +82,11 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     fly-by-wire C172Xv1 with its `ControlLaws` and the C172Xv2 with its
     guidance and control laws (`c172x_gdc.Avionics`), a scripted mission
     over those whose phases carry descriptors (`core/mission.py`,
-    `models/c172/missions.py`), and the turbulent C172S (`megakernel_turb`,
-    whose int32 buffer is `[3, B]`: i, seed, n)."""
+    `models/c172/missions.py`), the turbulent C172S (`megakernel_turb`,
+    whose int32 buffer is `[3, B]`: i, seed, n) and the turbulent C172Xv1
+    on its control laws (`megakernel_fbw_turb`, the same int32 rows). The
+    navigation avionics and the turbulent C172Xv2 and missions are refused
+    (`kernels.mega_refusal`)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
@@ -93,6 +97,9 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     lay = K.layout_of(vehicle)  # refuses second-order servos
     if lay.fbw:  # refuses avionics that have no kernel
         lay = K.avionics_layout(vehicle, avionics)
+    why = K.mega_refusal(lay)
+    if why is not None:
+        raise NotImplementedError(why)
     name = lay.mega_name
     comp = state.c is not None
 
@@ -102,17 +109,19 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
         xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
         c_kin = None if st.c is None else st.c["vehicle"]["kinematics"]
         if lay.turb:
+            parts = [K.mega_rows(lay, K.pack_vehicle(
+                vehicle, xv, uv, sv, st.s["terminated"], c_kin, t=st.t))]
+            ints = K.pack_turb_int(st.i, uv, sv)
+        else:
             buf = K.pack_vehicle(vehicle, xv, uv, sv, st.s["terminated"],
-                                 c_kin, t=st.t)
-            return (K.mega_rows(lay, buf), K.pack_turb_int(st.i, uv, sv))
-        buf = K.pack_vehicle(vehicle, xv, uv, sv, st.s["terminated"], c_kin)
-        parts = [st.t.to(buf.dtype)[None], buf]
+                                 c_kin)
+            parts = [st.t.to(buf.dtype)[None], buf]
+            ints = st.i.to(torch.int32).reshape(1, -1).contiguous()
         if lay.fbw:
             parts.append(K.pack_avionics(lay, st.u["avionics"],
-                                         st.s["avionics"], buf.shape[1],
-                                         buf.dtype))
-        return (torch.cat(parts),
-                st.i.to(torch.int32).reshape(1, -1).contiguous())
+                                         st.s["avionics"], parts[-1].shape[1],
+                                         parts[-1].dtype))
+        return torch.cat(parts).contiguous(), ints
 
     def unpack(bufs):
         buf, i = bufs

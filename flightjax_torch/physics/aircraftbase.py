@@ -138,15 +138,13 @@ class Aircraft:
     u_systems`; the avionics' trees are theirs (the C172Xv1's `ControlLaws`
     {lon, lat}, the C172Xv2's `c172x_gdc.Avionics` inputs {ctl: {lon,
     lat}, gdc: {...}} and state {ctl: {lon, lat}}). The avionics fly the
-    fly-by-wire actuation, whose finish kernels store what they read. Avionics that need the terrain under the
-    aircraft (the navigation stack, `needs_terrain`) are not ported
-    (ROADMAP P11)."""
+    fly-by-wire actuation, whose finish kernels store what they read.
+    Avionics that read the terrain under the aircraft (`needs_terrain`, the
+    navigation avionics' radar altimeter) also take its elevation, `h_trn`,
+    and a VehicleY whose `dynamics` holds what the IMU reads
+    (`aircraftbase.py:341-365`)."""
 
     def __init__(self, vehicle: Vehicle, avionics=None):
-        if getattr(avionics, "needs_terrain", False):
-            raise NotImplementedError(
-                "avionics that read the terrain (the navigation stack) are "
-                "not ported: ROADMAP P11")
         if avionics is not None and not getattr(vehicle.systems.act,
                                                 "stateful", False):
             raise NotImplementedError(
@@ -178,8 +176,12 @@ class Aircraft:
         touched."""
         if self.avionics is None:
             return u, s
+        kw = {}
+        if getattr(self.avionics, "needs_terrain", False):
+            kw["h_trn"] = self.vehicle.terrain.terrain_data(
+                u["vehicle"]["trn"]).elevation
         s_av, av_y = self.avionics.f_periodic(s["avionics"], u["avionics"],
-                                              veh_y, self.periodic_dt)
+                                              veh_y, self.periodic_dt, **kw)
         u_sys = self.avionics.assign(u["vehicle"]["systems"], av_y)
         return (dict(u, vehicle=dict(u["vehicle"], systems=u_sys)),
                 dict(s, avionics=s_av))

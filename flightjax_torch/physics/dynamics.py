@@ -117,9 +117,13 @@ class DynamicsU(NamedTuple):
 
 
 class DynamicsY(NamedTuple):
-    """The dynamics' outputs the port reads: the specific force at the CoM
-    in CoM axes (`dynamics.py:266-274`), the fleet's load factor."""
+    """The dynamics' outputs the port reads (`dynamics.py:180-198`): the
+    specific force at the CoM in CoM axes, the fleet's load factor; the
+    angular acceleration wrt inertial space and the summed mass properties
+    at the body origin, which the IMU reads."""
     f_c_c: torch.Tensor
+    alpha_ib_b: torch.Tensor = None
+    mp_sum_b: MassProps = None
 
 
 class VehicleDynamics:
@@ -132,7 +136,7 @@ class VehicleDynamics:
         return {"omega_eb_b": v["omega_dot"], "v_eb_b": v["v_dot_eb_b"]}
 
     def output(self, x, u: DynamicsU) -> DynamicsY:
-        """f_c_c = a_ic_c - G_c_c (`dynamics.py:263-274`)."""
+        """f_c_c = a_ic_c - G_c_c and alpha_ib_b (`dynamics.py:263-276`)."""
         v = self._solve(x, u)
         om_ie, om_ec, v_ec = v["omega_ie_c"], v["omega_ec_c"], v["v_ec_c"]
         r_ec_c = qrot_inv(u.q_eb, v["r_ec_e"])
@@ -140,7 +144,9 @@ class VehicleDynamics:
         a_ic_c = (v["v_dot_ec_c"] + cross(om_ec + 2 * om_ie, v_ec)
                   + centripetal)
         G_c_c = v["g_c_c"] + centripetal
-        return DynamicsY(f_c_c=a_ic_c - G_c_c)
+        alpha_ib_b = v["omega_dot"] - cross(x["omega_eb_b"], om_ie)
+        return DynamicsY(f_c_c=a_ic_c - G_c_c, alpha_ib_b=alpha_ib_b,
+                         mp_sum_b=u.mp_sum_b)
 
     def _solve(self, x, u: DynamicsU):
         omega_eb_b = x["omega_eb_b"]

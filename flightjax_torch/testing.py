@@ -1031,6 +1031,33 @@ def turb_operand_args(d, vehicle, device, dtype, adt=0.01, dt=0.02):
                            args["rk4_finish"][7], i, 0.0)}
 
 
+def fbw_turb_operands(batch, seed, ground_lanes=(), terminated_lanes=(),
+                      crash_lanes=()):
+    """`turb_operands` for the turbulent fly-by-wire C172X: every branch of
+    the disturbance chain, with the servo positions, derivatives and
+    commands of `fbw_cluster_operands` (some past their ranges, so that
+    each channel saturates both ways)."""
+    d = turb_operands(batch, seed, ground_lanes, terminated_lanes,
+                      crash_lanes)
+    f = fbw_cluster_operands(batch, seed, ground_lanes, terminated_lanes,
+                             crash_lanes)
+    for k in ("x_sys", "k_sys", "ksum_sys", "u_sys"):
+        d[k] = f[k]
+    return d
+
+
+def fbw_turb_operand_state(d, device, dtype):
+    """The turbulent C172Xv1 world SimState (uncompensated) of
+    `fbw_turb_operands`' dict `d`, with the mode-rich avionics of
+    `ctl_operands` at the lanes' heights (the pass firing on the lanes
+    whose step counter makes a firing)."""
+    st = turb_operand_state(d, device, dtype)
+    u_av, s_av = (tree_from_numpy(t, device, dtype) for t in ctl_operands(
+        d["geoid_N"].shape[0], 1021, d["x_kin"]["h_e"]))
+    return st._replace(u=dict(st.u, avionics=u_av),
+                       s=dict(st.s, avionics=s_av))
+
+
 def turb_study_sim(batch, seed, device, dtype):
     """(sim, SimState) of the card's turbulent fleet: `turb_fleet_sim` at
     W20 = 10 m/s with the shear on every third lane and a discrete gust
@@ -1038,3 +1065,32 @@ def turb_study_sim(batch, seed, device, dtype):
     return turb_fleet_sim(batch, seed, device, dtype,
                           shear_lanes=range(0, batch, 3),
                           gust_lanes=range(1, batch, 3))
+
+
+# ------------------------------------------------------------ navigation
+
+def nav_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState) of the joint navigation study's fleet
+    (`demos/estimation_demos.py::nav_fleet_setup` from PRNGKey(seed)): the
+    turbulent C172Xv1 on its navigation avionics, each lane's severity,
+    dispersion, sensor grade and stream its own, at step 0."""
+    from flightjax_torch.demos.estimation_demos import nav_fleet_setup
+    from flightjax_torch.ops import random as R
+    return nav_fleet_setup(batch, key=R.PRNGKey(seed), device=device,
+                           dtype=dtype)
+
+
+def xv1_turb_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState) of the navigation fleet's truth-fed twin: the same
+    lanes of the turbulent C172Xv1 (`nav_fleet_sim`) on their control laws
+    alone (`c172x.c172xv1_sim(turbulence=)`), uncompensated as the study
+    flies."""
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    nav_sim, st = nav_fleet_sim(batch, seed, device, dtype)
+    dt = nav_sim.dt
+    sim, _, _ = c172xv1_sim(device, dtype, turbulence=DrydenTurbulence(dt))
+    sim.geoid_every = nav_sim.geoid_every
+    av_u, av_s = st.u["avionics"]["inner"], st.s["avionics"]["inner"]
+    return sim, st._replace(u=dict(st.u, avionics=av_u),
+                            s=dict(st.s, avionics=av_s))

@@ -694,10 +694,12 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
     with pytest.raises(NotImplementedError, match="c172x_gdc.Avionics"):
         make_megakernel_step(mission, st)
 
-    class Nav:
+    class Nav:  # avionics that read the terrain fly on the plain path
         needs_terrain = True
-    with pytest.raises(NotImplementedError, match="P11"):
-        Aircraft(sim.system.aircraft.vehicle, Nav())
+    other = Simulation(SimpleWorld(Aircraft(sim.system.aircraft.vehicle,
+                                            Nav())))
+    with pytest.raises(NotImplementedError, match="have no kernel"):
+        make_cluster_step(other, st, split="vehicle")(st, i=0)
     from flightjax_torch.models.c172.c172s import build_vehicle as c172s
     with pytest.raises(NotImplementedError, match="fly-by-wire"):
         Aircraft(c172s(device="cpu", dtype=F64),

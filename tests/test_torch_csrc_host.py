@@ -20,6 +20,7 @@ are checked here, where there is no card; `tests/test_torch_cuda.py` checks
 the compiled kernels on one. Skips without a host C++ compiler."""
 
 import ctypes
+import math
 import functools
 import os
 import shutil
@@ -349,6 +350,61 @@ void host_rk4_finish_turb(const double* in, const double* k, const double* p,
          k_rk4_finish::rk4_finish_turb_kernel<SD>(
              (const SD*)in, (const SD*)k, (const SD*)p, ints,
              (SD*)outs[i / (lanes)], B, SD(c6), comp, dt, t_start))
+}
+// the turbulent C172Xv1's instances, on the turbulent C172S's signatures
+// (the megakernel on the fly-by-wire one)
+void host_rk4_stage_fbw_turb(const double* in, const double* k,
+                             const double* p, double* const* outs, int B,
+                             int n_params, double adt, int, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_stage::rk4_stage_kernel<fj::ACT_FBW_TURB, SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p,
+             (SD*)outs[i / (lanes)], B, n_params, SD(adt)))
+}
+void host_rk4_finish_fbw_turb(const double* in, const double* k,
+                              const double* p, const int* ints,
+                              double* const* outs, int B, double c6,
+                              int comp, double dt, double t_start,
+                              int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_finish::rk4_finish_fbw_turb_kernel<SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p, ints,
+             (SD*)outs[i / (lanes)], B, SD(c6), comp, dt, t_start))
+}
+void host_megakernel_fbw_turb(const double* in, const int* i_in,
+                              const double* p, const double* grid,
+                              const double* gains, double* const* outs,
+                              int* i_out, int B, int n_params, double dt,
+                              double t_start, int comp, int spp, double pdt,
+                              int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW_TURB, SD,
+                                         k_megakernel::AV_CTL>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
+// the ActKind bits: what each instance's row map, scratch and parameter
+// head hold (field f of SysL<act>, the scratch rows, the role rows)
+int host_act_fbw(int act) { return fj::act_fbw(act); }
+int host_act_turb(int act) { return fj::act_turb(act); }
+#define SYSL_ROW(A)                                                      \
+  {fj::SysL<A>::NX, fj::SysL<A>::NU, fj::SysL<A>::U_E, fj::SysL<A>::NXV, \
+   fj::SysL<A>::CX_UATM, fj::SysL<A>::CX_TERM, fj::SysL<A>::X_TURB,      \
+   fj::SysL<A>::CX_UTURB, fj::SysL<A>::CX_ETA, fj::SysL<A>::NCTX,        \
+   fj::SysL<A>::P_TURB, fj::sh_rows<A>()}
+int host_sysl(int act, int f) {
+  const int v[4][12] = {SYSL_ROW(fj::ACT_MECH), SYSL_ROW(fj::ACT_FBW),
+                        SYSL_ROW(fj::ACT_TURB), SYSL_ROW(fj::ACT_FBW_TURB)};
+  return v[act][f];
+}
+int host_role_row_act(int act, int role, int k) {
+  switch (act) {
+    case fj::ACT_MECH: return fj::role_row<fj::ACT_MECH>(role, k);
+    case fj::ACT_FBW: return fj::role_row<fj::ACT_FBW>(role, k);
+    case fj::ACT_TURB: return fj::role_row<fj::ACT_TURB>(role, k);
+    default: return fj::role_row<fj::ACT_FBW_TURB>(role, k);
+  }
 }
 void host_megakernel_turb(const double* in, const int* i_in, const double* p,
                           const double* grid, double* const* outs,
@@ -1326,3 +1382,223 @@ def test_megakernel_turb_source_matches_plain(host_lib, batch, lanes, comp):
     assert (got.s["vehicle"]["turb"]["n"].tolist()
             == (st.s["vehicle"]["turb"]["n"] + 1).tolist())
     assert bool(got.s["terminated"][CRASH_LANE])
+
+
+# ------------------------------------------------------------ the C172Xv1 in gusts
+
+SYSL_FIELDS = ("NX", "NU", "U_E", "NXV", "CX_UATM", "CX_TERM", "X_TURB",
+               "CX_UTURB", "CX_ETA", "NCTX", "P_TURB", "SH_ROWS")
+# the row maps of the three earlier instances as they were before the
+# turbulence became a bit beside the actuation (`csrc/c172_systems.cuh`
+# before the turbulent fly-by-wire instances, compiled on the host): the
+# C172S, the fly-by-wire C172X, the turbulent C172S; the drive's scale at
+# P_HEAD = 165 (read by the turbulent instance alone), the fly-by-wire
+# head 186
+SYSL_BEFORE = {
+    0: (12, 21, 11, 27, 21, 35, 27, 36, 36, 36, None, 89),
+    1: (19, 18, 8, 34, 18, 32, 34, 33, 33, 33, None, 96),
+    2: (12, 21, 11, 32, 21, 35, 27, 36, 43, 46, 165, 89),
+}
+
+
+def test_act_kinds_split_actuation_and_turbulence(host_lib):
+    """ActKind as two bits: ACT_MECH, ACT_FBW and ACT_TURB keep their
+    values, and so their instances' row maps, scratch, parameter offsets
+    and role rows are those of before (the record of their machine code,
+    `tools/sass_torch_record.json`, holds them on the card); ACT_FBW_TURB
+    is both, with the fly-by-wire rows, the turbulence's rows after them
+    and the drive's scale after the servos' parameters, as the Python
+    layout FBW_TURB packs them."""
+    acts = {"ACT_MECH": 0, "ACT_FBW": 1, "ACT_TURB": 2, "ACT_FBW_TURB": 3}
+    for name, a in acts.items():
+        assert host_lib.host_act_fbw(a) == int("FBW" in name)
+        assert host_lib.host_act_turb(a) == int("TURB" in name)
+    got = {a: tuple(host_lib.host_sysl(a, f) for f in range(len(
+        SYSL_FIELDS))) for a in range(4)}
+    for a, before in SYSL_BEFORE.items():
+        now = tuple(v if b is not None else None
+                    for v, b in zip(got[a], before))
+        assert now == before, (a, dict(zip(SYSL_FIELDS, got[a])))
+    for role in range(host_lib.host_n_roles()):
+        for k in range(15):
+            assert (host_lib.host_role_row_act(1, role, k)
+                    == host_lib.host_role_row_fbw(role, k))
+            assert (host_lib.host_role_row_act(2, role, k)
+                    == host_lib.host_role_row_act(0, role, k))
+            assert (host_lib.host_role_row_act(3, role, k)
+                    == host_lib.host_role_row_act(1, role, k))
+    f = dict(zip(SYSL_FIELDS, got[3]))
+    lay = K.FBW_TURB
+    assert f["NXV"] == K.rows(lay.x_groups)
+    assert f["NCTX"] == K.rows(lay.ctx_groups)
+    assert f["CX_ETA"] == K.rows(lay.ctx_groups[:-1])
+    assert f["X_TURB"] == K.rows(lay.x_groups[:-1])
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_veh
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    veh = fbw_veh(device="cpu", dtype=torch.float64,
+                  turbulence=DrydenTurbulence(0.02))
+    buf = K.system_params(veh)
+    assert float(buf[f["P_TURB"]]) == (math.pi / 0.02) ** 0.5
+    assert f["P_TURB"] == 186 and f["SH_ROWS"] == SYSL_BEFORE[1][11]
+
+
+def _fbw_turb_args(batch):
+    """The turbulent C172Xv1's stage and finish wrapper arguments on
+    `testing.fbw_turb_operands` (the turbulent operands with the servos,
+    past their ranges on both sides)."""
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_veh
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import fbw_turb_operands, turb_operand_args
+    veh = fbw_veh(device="cpu", dtype=torch.float64,
+                  turbulence=DrydenTurbulence(0.02))
+    d = fbw_turb_operands(batch, 1016, (3, 17), (5,), (CRASH_LANE,))
+    return turb_operand_args(d, veh, "cpu", torch.float64)
+
+
+def _run_fbw_turb(host_lib, name, args, lanes, split=False):
+    """rk4_stage_fbw_turb or rk4_finish_fbw_turb, as `_run_turb`."""
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    batch, params = buf.shape[1], ops["params"]
+    n_roles = host_lib.host_n_roles()
+    outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+            for _ in range(n_roles if split else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if split else 0].data_ptr() for r in range(n_roles)))
+    if name == "rk4_stage_fbw_turb":
+        host_lib.host_rk4_stage_fbw_turb(
+            _ptr(buf), _ptr(ops["k"]), _ptr(params), ptrs,
+            ctypes.c_int(batch), ctypes.c_int(params.numel()),
+            ctypes.c_double(scalars[0]), ctypes.c_int(0),
+            ctypes.c_int(lanes))
+    else:
+        host_lib.host_rk4_finish_fbw_turb(
+            _ptr(buf), _ptr(ops["k"]), _ptr(params), _ptr(ops["ints"]),
+            ptrs, ctypes.c_int(batch), ctypes.c_double(scalars[0]),
+            ctypes.c_int(scalars[1]), ctypes.c_double(scalars[2]),
+            ctypes.c_double(scalars[3]), ctypes.c_int(lanes))
+    return (outs if split else outs[0]), ops.get("ints")
+
+
+FBW_TURB_CASES = [(n.replace("_turb", "_fbw_turb"), c, b, lanes)
+                  for n, c, b, lanes in TURB_CASES]
+FBW_TURB_IDS = [i.replace("_turb", "_fbw_turb") for i in TURB_IDS]
+
+
+@pytest.mark.parametrize("name,comp,batch,lanes", FBW_TURB_CASES,
+                         ids=FBW_TURB_IDS)
+def test_fbw_turb_kernel_source_matches_plain(host_lib, name, comp, batch,
+                                              lanes):
+    """rk4_stage_fbw_turb and rk4_finish_fbw_turb (with and without
+    residuals) against the plain stage and finish of the turbulent
+    fly-by-wire vehicle: the servos (saturated both ways) beside the
+    filters and the disturbed air data, the avionics' KIN_Y and SYS_Y at
+    the new time, the redrawn drive; the crash lane latches."""
+    base = name[:-len("_fbw_turb")]
+    args = _fbw_turb_args(batch)[base]
+    if base == "rk4_finish" and not comp:
+        args = args[:7] + (None,) + args[8:]
+    out, ints = _run_fbw_turb(host_lib, name, args, lanes)
+    got = K.unpack_out(name, out, comp, ints)
+    if base == "rk4_stage":
+        args = args[:5] + (args[5].to(torch.float64),) + args[6:]
+    ref = getattr(K, base + "_plain")(*args)
+    _assert_trees_close(got, ref)
+    if base == "rk4_finish":
+        assert not bool(args[4]["systems"]["crashed"][CRASH_LANE])
+        assert bool(got[1]["crashed"][CRASH_LANE])
+        assert got[4] is not None and got[5] is not None
+        assert got[-1]["n"].tolist() == (args[4]["turb"]["n"] + 1).tolist()
+
+
+@pytest.mark.parametrize("name", ["rk4_stage_fbw_turb",
+                                  "rk4_finish_fbw_turb"])
+def test_fbw_turb_roles_partition_the_output(host_lib, name):
+    """Every output row of the turbulent C172Xv1's stage and finish (the
+    servos, the filters, KIN_Y, SYS_Y and the drive among them) is written
+    by exactly one role, for every aircraft, and by no other role."""
+    args = _fbw_turb_args(B)[name[:-len("_fbw_turb")]]
+    outs, _ = _run_fbw_turb(host_lib, name, args, 32, split=True)
+    n_rows = outs[0].shape[0]
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * n_rows
+    assert touched.tolist() == [1] * n_rows
+
+
+def _run_megakernel_fbw_turb(host_lib, batch, lanes, comp, spp,
+                             by_role=False):
+    """megakernel_fbw_turb's source on the turbulent C172Xv1 operands with
+    the mode-rich avionics (`testing.fbw_turb_operand_state`), at a
+    periodic interval of `spp` steps; as `_run_megakernel_fbw`."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import (fbw_turb_operand_state,
+                                         fbw_turb_operands)
+    sim0, _, _ = __import__(
+        "flightjax_torch.models.c172.c172x", fromlist=["c172xv1_sim"]
+    ).c172xv1_sim("cpu", torch.float64, turbulence=DrydenTurbulence(0.02))
+    sim = Simulation(sim0.system, dt=0.02, periodic_dt=0.02 * spp)
+    st = fbw_turb_operand_state(fbw_turb_operands(
+        batch, 1016, (3, 17), (5,), (CRASH_LANE,)), "cpu", torch.float64)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, _, unpack = make_megakernel_step(sim, st)
+    aircraft = sim.system.aircraft
+    params = K.system_params(aircraft.vehicle)
+    n_roles = host_lib.host_n_roles()
+    outs = [torch.full_like(bufs[0], float("nan"))
+            for _ in range(n_roles if by_role else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
+    i_out = torch.full_like(bufs[1], -1)
+    host_lib.host_megakernel_fbw_turb(
+        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
+        _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
+        _ptr(K.ctl_gains(aircraft.avionics)), ptrs, _ptr(i_out),
+        ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
+        ctypes.c_int(int(comp)), ctypes.c_int(sim.steps_per_periodic),
+        ctypes.c_double(sim.periodic_dt), ctypes.c_int(lanes))
+    if by_role:
+        return sim, st, outs
+    return sim, st, unpack((outs[0], i_out))
+
+
+@pytest.mark.parametrize("spp", [1, 2], ids=["pass", "pass-every-2"])
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+@pytest.mark.parametrize("batch,lanes", [(B, 32)] + RAGGED,
+                         ids=[f"B{B}-L32"] + RAGGED_IDS)
+def test_megakernel_fbw_turb_source_matches_plain(host_lib, batch, lanes,
+                                                  comp, spp):
+    """megakernel_fbw_turb against `megakernel_step_plain` on the
+    turbulent C172Xv1: the step with the servos and the turbulence, then
+    the control laws on the mode-rich avionics where the lane's counter
+    fires; the seed passes through, the drive's counter steps on, the
+    crash lane latches."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_fbw_turb(host_lib, batch, lanes, comp,
+                                            spp)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    assert bool(got.s["terminated"][CRASH_LANE])
+    assert (got.s["vehicle"]["turb"]["n"].tolist()
+            == (st.s["vehicle"]["turb"]["n"] + 1).tolist())
+    fired = ref.s["avionics"]["lon"]["mode_prev"] != st.s["avionics"][
+        "lon"]["mode_prev"]
+    assert bool(fired.any())
+
+
+def test_megakernel_fbw_turb_roles_partition_the_output(host_lib):
+    """Every row of megakernel_fbw_turb's new state buffer (the filters,
+    the turbulence's inputs and drive, the avionics and the commands among
+    them) is written by exactly one role, for every aircraft."""
+    _, _, outs = _run_megakernel_fbw_turb(host_lib, B, 32, True, 1,
+                                          by_role=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]

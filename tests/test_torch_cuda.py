@@ -815,3 +815,140 @@ def test_turb_paths_match_plain_on_card(path, dtype, tol):
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
     assert _worst((got.t, got.x, got.u, got.s, got.c),
                   (ref.t, ref.x, ref.u, ref.s, ref.c)) <= tol
+
+
+# ------------------------------------------------------------ navigation
+
+FBW_TURB_CASES = [("rk4_stage_fbw_turb", False),
+                  ("rk4_finish_fbw_turb", False),
+                  ("rk4_finish_fbw_turb", True)]
+FBW_TURB_CASE_IDS = ["rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
+                     "rk4_finish_fbw_turb-comp"]
+
+
+def _fbw_turb_args(name, batch, dtype, comp):
+    """The turbulent C172Xv1 instance's wrapper arguments on `testing.
+    fbw_turb_operands` (the turbulent operands with the servos, saturating
+    both ways)."""
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_veh
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import fbw_turb_operands, turb_operand_args
+    vehicle = fbw_veh(device="cuda", dtype=dtype,
+                      turbulence=DrydenTurbulence(0.02))
+    d = fbw_turb_operands(batch, 1016, (3, 17), (5,), (SMALL_CRASH_LANE,))
+    args = turb_operand_args(d, vehicle, "cuda", dtype)[
+        name[:-len("_fbw_turb")]]
+    if name == "rk4_finish_fbw_turb" and not comp:
+        args = args[:7] + (None,) + args[8:]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,comp", FBW_TURB_CASES, ids=FBW_TURB_CASE_IDS)
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_fbw_turb_instance_matches_plain_on_card(name, comp, batch, lanes,
+                                                 dtype, tol):
+    """rk4_stage_fbw_turb and rk4_finish_fbw_turb against their plain
+    versions at both block sizes and on ragged batches; the crash lane
+    latches, the drive's counter steps on every lane, and the finish
+    stores what the avionics read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _fbw_turb_args(name, batch, dtype, comp)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    out = K.launch_kernel(name, buf, n_out, scalars, ops, block=lanes)
+    got = K.unpack_out(name, out, comp, ops.get("ints"))
+    ref = getattr(K, name[:-len("_fbw_turb")] + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert _worst(got, ref) <= tol
+    if name == "rk4_finish_fbw_turb":
+        assert bool(got[1]["crashed"][SMALL_CRASH_LANE])
+        assert torch.equal(got[-1]["n"], ref[-1]["n"])
+        assert torch.equal(got[5]["wow"], ref[5]["wow"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 2], ids=["pass", "pass-every-2"])
+@pytest.mark.parametrize("comp", [False, True],
+                         ids=["uncompensated", "compensated"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_megakernel_fbw_turb_matches_plain_on_card(spp, comp, batch, lanes,
+                                                   dtype, tol):
+    """megakernel_fbw_turb, 3 steps on the turbulent C172Xv1 operands with
+    the mode-rich control laws (the pass every step, or every other step
+    on alternate lanes) against the plain step; the int32 rows exactly."""
+    from flightjax_torch.core.sim import Simulation, comp_residuals
+    from flightjax_torch.models.c172.c172x import c172xv1_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import (fbw_turb_operand_state,
+                                         fbw_turb_operands)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim0, _, _ = c172xv1_sim("cuda", dtype, turbulence=DrydenTurbulence(0.02))
+    sim = Simulation(sim0.system, dt=0.02, periodic_dt=0.02 * spp)
+    st = fbw_turb_operand_state(fbw_turb_operands(
+        batch, 1016, (3, 17), (5,), (SMALL_CRASH_LANE,)), "cuda", dtype)
+    st = st._replace(c=comp_residuals(st.x, force=True) if comp else None)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    before = K.LAUNCHES["megakernel_fbw_turb"]
+    ref = st
+    for _ in range(3):
+        bufs = step_packed(bufs)
+        ref = megakernel_step_plain(sim, ref)
+    got = unpack(bufs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["megakernel_fbw_turb"] == before + 3
+    assert torch.equal(got.i, ref.i)
+    assert torch.equal(got.s["vehicle"]["turb"]["n"],
+                       ref.s["vehicle"]["turb"]["n"])
+    assert _worst((got.t, got.x, got.u, got.s, got.c),
+                  (ref.t, ref.x, ref.u, ref.s, ref.c)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fleet", "vehicle"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_nav_paths_match_plain_on_card(path, dtype, tol):
+    """The joint navigation study's fleet, 12 steps (a GPS, baro and mag
+    epoch among them) through `Simulation.fleet_step` and the vehicle
+    split against the plain step: the vehicle, the filter and its
+    monitors; the launch counts (the truth's systems and the control laws
+    once a step)."""
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.testing import nav_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = nav_fleet_sim(B, 1016, "cuda", dtype)
+    step = (sim.fleet_step if path == "fleet"
+            else make_cluster_step(sim, st, split="vehicle"))
+    K.reset_launches()
+    got = ref = st
+    for i in range(12):
+        got = step(got, i=i)
+        ref = vehicle_step(sim, ref, i, plain=True)
+    torch.cuda.synchronize()
+    want = {"rk4_stage_fbw_turb": 48, "rk4_finish_fbw_turb": 12,
+            "systems_fbw": 12, "ctl_laws": 12, "geoid": 12}
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+    assert _worst((got.t, got.x, got.u, got.s), (ref.t, ref.x, ref.u,
+                                                 ref.s)) <= tol
+    assert bool((got.s["avionics"]["nis"]["gps"] > 0).all())
+
+
+@pytest.mark.cuda
+def test_normal_f32_table_equals_the_chain_on_card():
+    """The sensors' float32 normals on the card, read from the table of
+    the 2^23 mantissas, equal the chain `normal_f32` runs on the CPU (JAX's
+    float32 normals), for keys per lane."""
+    from flightjax_torch.ops import random as R
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seed = torch.arange(4096, dtype=torch.int64) * 524287
+    key = R.fold_in(R.PRNGKey(0x5E45), seed)
+    got = R.normal_f32(key.cuda(), (20,))
+    assert torch.equal(got.cpu(), R.normal_f32(key, (20,)))

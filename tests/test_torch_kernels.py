@@ -174,13 +174,16 @@ def test_finish_kin_plain_matches_k4_lane(case, comp):
 def test_wrappers_run_plain_on_cpu_without_launching(case):
     """On CPU tensors the wrappers are the plain versions and launch
     nothing, on the mechanical C172, on the fly-by-wire one and the
-    turbulent C172S (whose instances the same wrappers launch on the card)
-    and on the C172X's three passes (the control laws, the guidance, a
-    mission)."""
+    turbulent C172S and C172X (whose instances the same wrappers launch on
+    the card) and on the C172X's three passes (the control laws, the
+    guidance, a mission)."""
     from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
-    from flightjax_torch.parallel.launch import FBW_KERNELS, TURB_KERNELS
+    from flightjax_torch.parallel.launch import (FBW_KERNELS,
+                                                 FBW_TURB_KERNELS,
+                                                 TURB_KERNELS)
     from flightjax_torch.physics.turbulence import DrydenTurbulence
     from flightjax_torch.testing import (fbw_cluster_operands,
+                                         fbw_turb_operands,
                                          turb_operand_args, turb_operands)
     d, _ = case
     args = K.operand_args(d, build_vehicle(device="cpu", dtype=torch.float64),
@@ -201,17 +204,24 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         build_vehicle(device="cpu", dtype=torch.float64,
                       turbulence=DrydenTurbulence(DT)), "cpu",
         torch.float64, adt=ADT, dt=DT).items()}
+    fbw_turb = {K.FBW_TURB.names[k]: a for k, a in turb_operand_args(
+        fbw_turb_operands(B, SEED, CONTACT_LANES, (TERMINATED_LANE,)),
+        fbw_vehicle(device="cpu", dtype=torch.float64,
+                    turbulence=DrydenTurbulence(DT)), "cpu",
+        torch.float64, adt=ADT, dt=DT).items()}
     K.reset_launches()
     # every kernel but the megakernels, whose steps have their own wrapper
     mega = {"megakernel", "megakernel_fbw", "megakernel_gdc",
-            "megakernel_msn", "megakernel_turb"}
+            "megakernel_msn", "megakernel_turb", "megakernel_fbw_turb"}
+    turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS,
-                                                      *TURB_KERNELS}
+                                                      *turbs}
     assert {K.FBW.names.get(k, k) for k in fbw} == (
-        set(K.LAUNCHES) - {*mega, *ctl, *K.FBW.names, *TURB_KERNELS})
+        set(K.LAUNCHES) - {*mega, *ctl, *K.FBW.names, *turbs})
     assert set(turb) == set(TURB_KERNELS) - mega
-    for name, a in turb.items():
-        base = name[:-len("_turb")]
+    assert set(fbw_turb) == set(FBW_TURB_KERNELS) - mega
+    for name, a in (*turb.items(), *fbw_turb.items()):
+        base = name[:name.index("_", len("rk4_s"))]
         got = getattr(K, base)(*a)
         ref = getattr(K, base + "_plain")(*a)
         for (pa, ta), (pb, tb) in zip(_leaves(got), _leaves(ref)):
@@ -226,7 +236,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         "kinair", "dynamics", "finish_kin", "systems", "finish_sys",
         "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
         "megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
-        "megakernel_msn", "msn_ctl_laws", *TURB_KERNELS)}
+        "megakernel_msn", "msn_ctl_laws", *TURB_KERNELS,
+        *FBW_TURB_KERNELS)}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

@@ -415,17 +415,22 @@ def test_gust_load_demo_small():
 
 def test_refusals():
     """The subsystems split carries no turbulence (as JAX's has no
-    turbulent instance), the kernels no turbulent fly-by-wire vehicle, and
-    a turbulence whose hold interval is not the step's is refused."""
+    turbulent instance); the kernels carry the turbulent fly-by-wire
+    vehicle (its own layout) but not the turbulent C172Xv2's megakernel;
+    and a turbulence whose hold interval is not the step's is refused."""
     from flightjax_torch.models.c172 import c172x as Tx
+    from flightjax_torch.physics.aircraftbase import SimpleWorld
     sim = _port_sim()
     st = _torch_state(*_fleet_np())
     with pytest.raises(NotImplementedError, match="subsystems split"):
         make_cluster_step(sim, st, split="subsystems")
     fbw = Tx.build_vehicle(device="cpu", dtype=F64)
     fbw.turbulence = TT.DrydenTurbulence(DT)
+    assert K.layout_of(fbw) is K.FBW_TURB
+    xv2 = Simulation(SimpleWorld(Tx.build_xv2(
+        device="cpu", dtype=F64, turbulence=TT.DrydenTurbulence(DT))))
     with pytest.raises(NotImplementedError, match="turbulent fly-by-wire"):
-        K.layout_of(fbw)
+        make_megakernel_step(xv2, st)
     with pytest.raises(ValueError, match="does not match"):
         Simulation(sim.system, dt=0.01)
 

@@ -8,7 +8,9 @@ time goes, by kernel, and how much of the step the device is idle.
                                          xv2_vehicle,xv2_megakernel,
                                          msn_subsystems,msn_vehicle,
                                          msn_megakernel,turb_fleet,
-                                         turb_vehicle,turb_megakernel]
+                                         turb_vehicle,turb_megakernel,
+                                         nav_fleet,nav_vehicle,
+                                         xv1_turb_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -30,7 +32,14 @@ and on the turbulent C172S fleet (`testing.turb_study_sim`: W20 = 10
 m/s, the shear on every third lane, a discrete gust on every third lane)
 `turb_fleet` (`fleet_rollout`, whose `Simulation.fleet_step` runs
 rk4_stage_turb x 4 + rk4_finish_turb, compensated), `turb_vehicle` and
-`turb_megakernel` (`megakernel_turb`).
+`turb_megakernel` (`megakernel_turb`); and on the joint navigation
+study's fleet (`testing.nav_fleet_sim`: the turbulent C172Xv1 on its
+navigation avionics, per-lane severity, dispersion and sensor grade)
+`nav_fleet` (`fleet_rollout`: rk4_stage_fbw_turb x 4, rk4_finish_fbw_turb,
+the navigation pass with its `systems_fbw` truth and the `ctl_laws` kernel,
+`geoid` every step), `nav_vehicle` (the vehicle split on the same) and, on
+its truth-fed twin (`testing.xv1_turb_fleet_sim`), `xv1_turb_megakernel`
+(`megakernel_fbw_turb`).
 For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
@@ -56,9 +65,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "xv1_vehicle", "xv1_megakernel", "xv2_subsystems", "xv2_vehicle",
          "xv2_megakernel", "msn_subsystems", "msn_vehicle", "msn_megakernel",
-         "turb_fleet", "turb_vehicle", "turb_megakernel")
+         "turb_fleet", "turb_vehicle", "turb_megakernel", "nav_fleet",
+         "nav_vehicle", "xv1_turb_megakernel")
 # the fleets of the paths' prefixes
-PREFIXES = ("xv1_", "xv2_", "msn_", "turb_")
+PREFIXES = ("xv1_turb_", "xv1_", "xv2_", "msn_", "turb_", "nav_")
 
 
 def device_us(evt):
@@ -75,8 +85,10 @@ def stepper(path, sim, st):
     from flightjax_torch.parallel.fleet import fleet_rollout
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     box = {"st": st, "i": int(st.i[0])}
-    if path.startswith(PREFIXES):
-        path = path[path.index("_") + 1:]
+    for pre in PREFIXES:
+        if path.startswith(pre):
+            path = path[len(pre):]
+            break
     if path in ("subsystems", "fleet"):
         def run(n):
             box["st"] = fleet_rollout(sim, box["st"], n)
@@ -144,8 +156,9 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
-    from flightjax_torch.testing import (msn_fleet_sim, perturbed_fleet_sim,
-                                         turb_study_sim, xv1_fleet_sim,
+    from flightjax_torch.testing import (msn_fleet_sim, nav_fleet_sim,
+                                         perturbed_fleet_sim, turb_study_sim,
+                                         xv1_fleet_sim, xv1_turb_fleet_sim,
                                          xv2_fleet_sim)
 
     card = subprocess.run(
@@ -155,11 +168,12 @@ def main():
     fleets = {}
     out = []
     for path in args.paths.split(","):
-        kind = (path[:path.index("_")] if path.startswith(PREFIXES)
-                else "c172s")
+        kind = next((pre[:-1] for pre in PREFIXES if path.startswith(pre)),
+                    "c172s")
         if kind not in fleets:
             make = {"xv1": xv1_fleet_sim, "xv2": xv2_fleet_sim,
                     "msn": msn_fleet_sim, "turb": turb_study_sim,
+                    "nav": nav_fleet_sim, "xv1_turb": xv1_turb_fleet_sim,
                     "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]
