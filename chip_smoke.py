@@ -2,8 +2,9 @@
 """Build flightjax_torch's CUDA kernels and drive its step paths on one
 NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three,
 the C172Xv2 guidance's three, the scripted missions' three, the
-turbulent Monte Carlo fleet's three and the sensor-fed navigation fleet's
-three; exit non-zero if any phase fails.
+turbulent Monte Carlo fleet's three, the sensor-fed navigation fleet's
+four and the sensor-fed autopilot fleet's megakernel; exit non-zero if
+any phase fails.
 
     python3 chip_smoke.py
 
@@ -58,9 +59,16 @@ The paths, each an entry point a user calls:
   sensor grade and stream its own) through `Simulation.fleet_step` and
   the vehicle split: `rk4_stage_fbw_turb` x 4, `rk4_finish_fbw_turb`, the
   navigation pass (the truth's systems through `systems_fbw`, the sensors,
-  the filter and its monitors as PyTorch on the card, the inner laws as
-  the `ctl_laws` kernel on the estimates), `geoid` every step; and its
-  truth-fed twin on the control laws through `megakernel_fbw_turb`.
+  the filter and its monitors as the `nav_pass` kernel, the inner laws as
+  the `ctl_laws` kernel on the estimates), `geoid` every step;
+  `nav_megakernel`, the same fleet through `megakernel_nav_turb` (the
+  step, the truth at the new state, the pass and the control laws in one
+  launch); and its truth-fed twin on the control laws through
+  `megakernel_fbw_turb`;
+- `sensor_fed_megakernel`: the sensor-fed autopilot fleet of the JAX
+  package's benchmark report (`testing.sensor_fed_fleet_sim`: the calm
+  C172Xv1 on its navigation avionics, the turning climb) through
+  `megakernel_nav`.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
@@ -202,16 +210,29 @@ Phases:
    32 and 64 aircraft per block, on `testing.fbw_turb_operands` at B (the
    turbulent operands with every servo command past its range on both
    sides); `ctl_laws` and `gdc_ctl_laws` on the navigation fleet's
-   estimated VehicleY; its three paths at B in float32, NAV_STEPS steps
-   each against the plain path within the scaled 10 s envelope, launch
-   counts from 0, and 10 float64 steps to 1e-9; the joint navigation study
-   at B for its 30 s (`demos/estimation_demos.py::joint_navigation_study`)
-   against the JAX package's own run (`tools/jax_nav_study.json`, the
-   same key and lanes): the p50 and p95 of the peak attitude and position
-   errors within 2%, each exceedance fraction within 0.01, every alarm
-   fraction 0 (`tests/test_nav_study.py`); the paths' profiles, the
-   navigation stage's share of the step, and the instances' times, bounds
-   and launches.
+   estimated VehicleY; `nav_pass`, `megakernel_nav` and
+   `megakernel_nav_turb` at B in float64 and float32, 32 and 64 aircraft
+   per block, on the mode-rich navigation operands (the study's setting,
+   the radar setting, shadow mode, the synthetic airflow angles, the
+   covariance stepped every firing) and on the study's fleet at its first
+   GPS epoch, as `testing.nav_hold` holds them; its four paths at B in
+   float32, NAV_STEPS steps each, launch counts from 0: the navigation
+   fleet's three on its estimates against the plain step in float64
+   (`testing.nav_twin`), within the float32 plain run's own distance from
+   it, the truth-fed twin's megakernel against its plain path within the
+   scaled 10 s envelope; and 10 float64 steps to 1e-9; the joint
+   navigation study at B for its 30 s
+   (`demos/estimation_demos.py::joint_navigation_study`) through
+   `Simulation.fleet_step` and through `megakernel_nav_turb`, launches
+   counted (the kernels line's counts of `nav_pass` and
+   `megakernel_nav_turb`), against the JAX package's own run
+   (`tools/jax_nav_study.json`,
+   the same key and lanes): the p50 and p95 of the peak attitude and
+   position errors within 2%, each exceedance fraction within 0.01, the
+   alarm fractions within 0.001 of its; the sensor-fed autopilot fleet's
+   600 s through `megakernel_nav` within the benchmark report's gates; the
+   paths' profiles, the navigation stage's share of the step, and the
+   instances' times (on and off an aiding epoch), bounds and launches.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -345,6 +366,20 @@ KERNELS = {
     "megakernel_fbw_turb": ("flightjax_torch/csrc/megakernel.cu",
                             "flightjax/parallel/megakernel.py:43",
                             "xv1_turb_megakernel"),
+    # the sensor-fed C172Xv1's instances (NavAvionics around its control
+    # laws): the navigation pass as a kernel of its own, which both splits
+    # of the navigation fleet launch (the JAX package's splits run it as
+    # XLA glue, flightjax/parallel/clusterstep.py:591-607), and the
+    # megakernel with the pass inside it, in turbulence (the joint study's
+    # fleet) and calm (the sensor-fed autopilot fleet)
+    "nav_pass": ("flightjax_torch/csrc/nav_pass.cu",
+                 "flightjax/parallel/megakernel.py:43", "nav_vehicle"),
+    "megakernel_nav_turb": ("flightjax_torch/csrc/megakernel.cu",
+                            "flightjax/parallel/megakernel.py:43",
+                            "nav_megakernel"),
+    "megakernel_nav": ("flightjax_torch/csrc/megakernel.cu",
+                       "flightjax/parallel/megakernel.py:43",
+                       "sensor_fed_megakernel"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
@@ -352,7 +387,8 @@ FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
 # state, ctl_laws runs the control laws), C172S first
 TURB_NAMES = ("rk4_stage_turb", "rk4_finish_turb", "megakernel_turb")
 NAV_NAMES = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
-             "megakernel_fbw_turb")
+             "megakernel_fbw_turb", "nav_pass", "megakernel_nav_turb",
+             "megakernel_nav")
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
     "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES
@@ -383,7 +419,16 @@ LOADS_MATCH = (0.01, 0.005)
 # (`demos/estimation_demos.py::joint_navigation_study` at B for its 30 s)
 # against the JAX package's own run (tools/jax_nav_study.py): the peaks'
 # p50 and p95 within 2%, each exceedance fraction within 0.01
-NAV_PATHS = ("nav_fleet", "nav_vehicle", "xv1_turb_megakernel")
+NAV_PATHS = ("nav_fleet", "nav_vehicle", "nav_megakernel",
+             "xv1_turb_megakernel")
+# the sensor-fed autopilot fleet of the JAX package's benchmark report
+# (tools/bench_report.py:215-290, `testing.sensor_fed_fleet_sim`): B lanes
+# of the calm C172Xv1 on its navigation avionics, the turning climb, lane
+# k's sensor stream seeded k, flown 600 s through megakernel_nav and held
+# to the report's gates (mean EAS within 1.0 of 45 m/s, mean climb within
+# 0.3 of 1.5 m/s, every leaf finite), no lane terminated
+SENSOR_FED_T_END = 600.0
+SENSOR_FED_EAS, SENSOR_FED_CLIMB = (45.0, 1.0), (1.5, 0.3)
 NAV_STEPS = 10  # its tenth step makes the first GPS epoch
 # the steps each profile of a navigation path runs (its launches a step
 # are thousands: the profiler's trace of more takes minutes to read)
@@ -557,11 +602,13 @@ def graph_profile(label, name, step_packed, bufs, bare, steps=200):
             "top": [{"name": name, "ms_per_step": dev, "per_step": 1.0}]}
 
 
-def count_ops(fn, weight=None):
+def count_ops(fn, weight=None, matmul=False):
     """Arithmetic operations of `fn` as PyTorch runs them: the elements of
     the output of every pointwise op and of the input of every reduction
     (copies, views, concatenations, gathers and fills are not counted),
-    each op's count times `weight(output)` if given."""
+    each op's count times `weight(output)` if given; with `matmul` also
+    2 m n k for each matrix product of m x k by k x n (the navigation
+    filter's algebra)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     reductions = {"sum", "amax", "amin", "any", "all", "argmax", "argmin",
                   "prod", "mean", "norm", "linalg_vector_norm"}
@@ -577,7 +624,10 @@ def count_ops(fn, weight=None):
             o = out[0] if isinstance(out, (tuple, list)) else out
             w = 1.0 if weight is None or not isinstance(
                 o, torch.Tensor) else weight(o)
-            if name in reductions and isinstance(args[0], torch.Tensor):
+            if matmul and name in ("mm", "bmm", "addmm", "baddbmm"):
+                a, b = args[-2], args[-1]
+                total["ops"] += 2 * a.numel() * b.shape[-1]
+            elif name in reductions and isinstance(args[0], torch.Tensor):
                 total["ops"] += w * args[0].numel()
             elif torch.Tag.pointwise in func.tags:
                 if isinstance(o, torch.Tensor):
@@ -1850,6 +1900,11 @@ def turb_phase(card, t_start, check, errs, regs, sizes):
 
 # ------------------------------------------------------------ navigation
 
+# the navigation megakernel of each of its paths
+KERNELS_OF_PATH = {"nav_megakernel": "megakernel_nav_turb",
+                   "sensor_fed_megakernel": "megakernel_nav"}
+
+
 def nav_summary(peak_att, peak_pos, att_exc, pos_exc, alarm):
     """The numbers of one navigation study run, as `tools/jax_nav_study.py`
     records the JAX package's: the peaks' p50, p95 and max, the
@@ -1868,30 +1923,397 @@ def nav_summary(peak_att, peak_pos, att_exc, pos_exc, alarm):
             "alarm_fraction": dict(alarm)}
 
 
+def nav_held(name, dtype, got, ref, ref_cpu, s_got, s_ref, nav, what,
+             errs):
+    """Hold a navigation kernel's output `got` to the card's plain run
+    `ref` and the reference `ref_cpu` of `testing.nav_reference`
+    (`testing.nav_hold`), log it and keep the float32 error against `ref`
+    for the kernels line."""
+    from flightjax_torch.testing import nav_hold
+    p_err, n_bad, n_far, worst = nav_hold(dtype, got, ref, ref_cpu, s_got,
+                                          s_ref, nav, f"{name}{what}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"check {name}{what} {str(dtype)[6:]}: P per lane {p_err:.3e}; "
+        f"integers and flags differ on {n_bad} lanes, {n_bad - n_far} of "
+        f"them with an NIS near its gate; the worst leaves (error, limit) "
+        + ", ".join(f"{k} {e:.2e} ({lim:.1e})" for k, (e, lim) in top))
+    if dtype == torch.float32:
+        keep = ~(s_got["sens"]["n"] != s_ref["sens"]["n"])
+        for k in ("gps", "vel", "baro", "mag", "radar"):
+            for f in ("bits", "alarm"):
+                keep = keep & (s_got["mon_" + k][f].long()
+                               == s_ref["mon_" + k][f].long())
+        errs[name] = max(errs.get(name, 0.0), *(
+            float((a.double() - b.double())[keep].abs().max())
+            for _, a, b in leaf_pairs(got, ref) if a.dim()))
+
+
+def nav_kernel_checks(t_start, errs):
+    """nav_pass, megakernel_nav and megakernel_nav_turb at B, float64 and
+    float32, 32 and 64 aircraft per block, on the mode-rich navigation
+    operands (`testing.nav_operand_state`: the study's setting, the radar
+    setting, shadow mode, the synthetic airflow angles, the covariance
+    stepped every firing) and on the study's fleet at its first GPS epoch,
+    against their plain versions (`testing.nav_hold`)."""
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (nav_fleet_sim, nav_operand_state,
+                                         nav_pass_args, nav_reference)
+    log(f"elapsed {time.time() - t_start:.1f} s (navigation: the "
+        f"navigation kernels)")
+
+    def study(dtype, turbulence=True):  # the study's first GPS epoch
+        sim, st = nav_fleet_sim(B, SEED, DEVICE, dtype)
+        av = st.s["avionics"]
+        sens = dict(av["sens"], n=torch.full_like(av["sens"]["n"], 9))
+        return sim, st._replace(
+            i=torch.full_like(st.i, 9), t=torch.full_like(st.t, 0.18),
+            s=dict(st.s, avionics=dict(av, sens=sens)))
+
+    for dtype in (torch.float64, torch.float32):
+        cases = [("mode-rich", lambda d, turbulence=True: nav_operand_state(
+                      B, SEED, DEVICE, d, turbulence=turbulence), (True,
+                                                                   False)),
+                 ("mode-rich, radar", lambda d, turbulence=True:
+                  nav_operand_state(B, SEED, DEVICE, d, setting="radar"),
+                  ()),
+                 ("mode-rich, shadow", lambda d, turbulence=True:
+                  nav_operand_state(B, SEED, DEVICE, d, setting="shadow"),
+                  (True,)),
+                 ("mode-rich, synthetic", lambda d, turbulence=True:
+                  nav_operand_state(B, SEED, DEVICE, d, setting="synthetic"),
+                  (True,)),
+                 ("mode-rich, immediate", lambda d, turbulence=False:
+                  nav_operand_state(B, SEED, DEVICE, d, turbulence=turbulence,
+                                    setting="immediate"), (False,)),
+                 ("the study's fleet", study, (True,))]
+        for what, make, megas in cases:
+            sim, st = make(dtype)
+            args = nav_pass_args(sim, st)
+            ref = K.nav_pass_plain(*args)
+            ref_c = nav_reference(sim, dtype, lambda s_, a: K.nav_pass_plain(
+                s_.system.aircraft.avionics, *a), args[1:])
+            for lanes in (32, 64):
+                got = K.nav_pass(*args, block=lanes)
+                torch.cuda.synchronize()
+                nav_held("nav_pass", dtype, got, ref, ref_c, got[0], ref[0],
+                         args[0], f" ({what}, block {lanes})", errs)
+            # the megakernel's instances on the same state, turbulent (the
+            # study's fleet) and calm
+            for turb in megas:
+                if not turb:
+                    sim, st = make(dtype, turbulence=False)
+                name = "megakernel_nav_turb" if turb else "megakernel_nav"
+                ref = megakernel_step_plain(sim, st)
+                ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+                tr = lambda x: (x.t, x.x, x.u, x.s)
+                for lanes in (32, 64):
+                    bufs, step_packed, unpack = make_megakernel_step(
+                        sim, st, block=lanes)
+                    got = unpack(step_packed(bufs))
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.i, ref.i):
+                        raise AssertionError(f"{name}: step counter")
+                    nav_held(name, dtype, tr(got), tr(ref), tr(ref_c),
+                             got.s["avionics"], ref.s["avionics"],
+                             sim.system.aircraft.avionics,
+                             f" ({what}, block {lanes})", errs)
+            del sim, st, args, ref, ref_c
+
+
+def nav_study(card, t_start, mega, launches):
+    """The joint navigation study at B for NAV_T_END (through
+    `make_megakernel_step` with `mega`), its launches counted from 0 (the
+    navigation kernels' counts of the kernels line, into `launches`), held
+    to the JAX package's run of it (`tools/jax_nav_study.json`): the
+    peaks' p50 and p95 within 2%, the exceedance fractions within 0.01,
+    the alarm fractions within 0.001 of its (none where it has none).
+    Returns the wall seconds."""
+    from flightjax_torch.demos.estimation_demos import joint_navigation_study
+    from flightjax_torch.parallel import kernels as K
+    how = "megakernel_nav_turb" if mega else "fleet_step"
+    log(f"elapsed {time.time() - t_start:.1f} s (navigation: the study "
+        f"through {how})")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.time()
+    r = joint_navigation_study(B, t_end=NAV_T_END, megakernel=mega)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = int(round(NAV_T_END / 0.02))
+    want = ({"megakernel_nav_turb": n} if mega else
+            {"rk4_stage_fbw_turb": 4 * n, "rk4_finish_fbw_turb": n,
+             "systems_fbw": n, "nav_pass": n, "ctl_laws": n, "geoid": n})
+    got_l = {k: v for k, v in K.LAUNCHES.items() if v}
+    if got_l != want:
+        raise AssertionError(f"navigation study through {how}: launches "
+                             f"{got_l} != {want}")
+    name = "megakernel_nav_turb" if mega else "nav_pass"
+    launches[name] = got_l[name]
+    got = nav_summary(r["peak_att_deg"], r["peak_pos_m"],
+                      r["att_exceedance"].tolist(),
+                      r["pos_exceedance"].tolist(), r["alarm_fraction"])
+    with open(JAX_NAV) as fh:
+        jref = json.load(fh)
+    log(f"navigation study through {how}: B = {B}, {NAV_T_END:.0f} s in "
+        f"{wall:.2f} s wall ({int(r['final'].i[0])} steps, errors every "
+        f"10; launches {got_l}): {got} [{card}]")
+    log(f"navigation study, the JAX package's run ({JAX_NAV}, "
+        f"{jref['dtype']} on a CPU, {jref['wall_s']:.0f} s): "
+        f"{ {k: jref[k] for k in got} }")
+    if (jref["lanes"], jref["t_end"], jref["key"]) != (B, NAV_T_END, 0x17A):
+        raise AssertionError(f"{JAX_NAV} is of another study: {jref}")
+    rel, fr = NAV_MATCH
+    far = {k: (got[k], jref[k]) for k in ("att_p50", "att_p95", "pos_p50",
+                                          "pos_p95")
+           if abs(got[k] - jref[k]) > rel * abs(jref[k])}
+    far.update({k: (got[k], jref[k]) for k in ("att_exceedance",
+                                              "pos_exceedance")
+                if any(abs(a - b) > fr for a, b in zip(got[k], jref[k]))})
+    # no false alarm (tests/test_nav_study.py, 8 lanes); where the JAX
+    # package's own run at B latches some, the port is held to its count
+    # within one lane in a thousand
+    alarms = {k: (v, jref["alarm_fraction"][k])
+              for k, v in got["alarm_fraction"].items()
+              if v != 0.0 and abs(v - jref["alarm_fraction"][k]) > 1e-3}
+    log(f"navigation study alarms through {how}: {got['alarm_fraction']} "
+        f"(the JAX run's {jref['alarm_fraction']}; zero bound "
+        f"{'held' if not any(got['alarm_fraction'].values()) else 'missed'})")
+    if far or alarms:
+        raise AssertionError(f"navigation study through {how}: outside the "
+                             f"JAX run's bounds {far}, alarms {alarms}")
+    if not (bool(torch.isfinite(r["peak_att_deg"]).all())
+            and bool(torch.isfinite(r["peak_pos_m"]).all())):
+        raise AssertionError("navigation study: a peak not finite")
+    return wall
+
+
+def sensor_fed_flight(card, t_start, launches):
+    """The sensor-fed autopilot fleet (`testing.sensor_fed_fleet_sim`) at
+    B for SENSOR_FED_T_END through `megakernel_nav`, its launches counted
+    from 0, held to `tools/bench_report.py:280-285`: every leaf finite, no
+    lane terminated, the mean EAS and climb at their references."""
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.physics.kinematics import WA
+    from flightjax_torch.testing import sensor_fed_fleet_sim
+    log(f"elapsed {time.time() - t_start:.1f} s (navigation: the sensor-fed "
+        f"autopilot fleet)")
+    sim, st = sensor_fed_fleet_sim(B, DEVICE, torch.float32)
+    n = int(round(SENSOR_FED_T_END / sim.dt))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.time()
+    for _ in range(n):
+        bufs = step_packed(bufs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    if got != {"megakernel_nav": n}:
+        raise AssertionError(f"sensor-fed fleet: launches {got}")
+    launches["megakernel_nav"] = n
+    out = unpack(bufs)
+    for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+        if val.dtype.is_floating_point and not bool(
+                torch.isfinite(val).all()):
+            raise AssertionError(f"sensor-fed fleet: non-finite leaf {p}")
+    xv, sv = out.x["vehicle"], out.s["vehicle"]
+    _, kin = WA().f_ode(xv["kinematics"], xv["dynamics"], sv["geoid_N"])
+    mean_eas = float(eas(out).double().mean())
+    climb = float((-kin.v_eb_n[:, 2]).double().mean())
+    term = int(out.s["terminated"].sum())
+    alarms = {k: int(out.s["avionics"]["mon_" + k]["alarm"].sum())
+              for k in K.MONITORS}
+    log(f"sensor-fed autopilot fleet: B = {B}, {SENSOR_FED_T_END:.0f} s "
+        f"({n} steps) through megakernel_nav in {wall:.2f} s wall, "
+        f"{B * n / wall:.0f} vehicle-steps/s; mean EAS {mean_eas:.4f} m/s, "
+        f"mean climb {climb:.4f} m/s, {term} lanes terminated, alarms "
+        f"{alarms} [{card}]")
+    if (term or abs(mean_eas - SENSOR_FED_EAS[0]) >= SENSOR_FED_EAS[1]
+            or abs(climb - SENSOR_FED_CLIMB[0]) >= SENSOR_FED_CLIMB[1]):
+        raise AssertionError("sensor-fed autopilot fleet: outside the "
+                             "benchmark report's gates")
+
+
+def nav_paths(t_start):
+    """The navigation fleet's three entry points and the truth-fed twin's
+    megakernel at B, NAV_STEPS steps in float32, launch counts from 0.
+    The navigation fleet flies on its estimates and is held to the plain
+    step in float64 on the same state and filter constants
+    (`testing.nav_twin`): two faithful float32 runs of the filter's update
+    part by its conditioning (`testing.nav_hold`), and the control laws on
+    the estimates carry that into the vehicles, so the kernels' run is
+    held within NAV_SPREAD times the float32 plain run's own distance from
+    the twin: every leaf as `testing.nav_hold` holds it, and position,
+    velocity, attitude and EAS within that or the scaled 10 s envelope.
+    The truth-fed twin's megakernel is held to its plain path within the
+    envelope. Then 10 float64 steps of each to 1e-9. Returns the paths'
+    launch counts of the kernels they launch and the float32 fleets."""
+    from flightjax_torch.parallel import fleet as F
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import nav_fleet_sim, xv1_turb_fleet_sim
+    from flightjax_torch.testing import NAV_SPREAD, nav_hold, nav_reference
+    log(f"elapsed {time.time() - t_start:.1f} s (navigation: paths)")
+    fleets = {"nav": nav_fleet_sim(B, SEED, DEVICE, torch.float32),
+              "twin": xv1_turb_fleet_sim(B, SEED, DEVICE, torch.float32)}
+
+    def plain_steps(mega, sim, st, n):
+        i0 = int(st.i[0])
+        for k in range(n):
+            st = (megakernel_step_plain(sim, st) if mega else vehicle_step(
+                sim, st, i0 + k, comp=st.c is not None, plain=True))
+        return st
+
+    def run_path(label, fl, n, plain=False):
+        sim, st = fl["twin" if label == "xv1_turb_megakernel" else "nav"]
+        if plain:
+            return plain_steps(label.endswith("megakernel"), sim, st, n)
+        if label.endswith("megakernel"):
+            bufs, step_packed, unpack = make_megakernel_step(sim, st)
+            for _ in range(n):
+                bufs = step_packed(bufs)
+            return unpack(bufs)
+        if label == "nav_fleet":
+            return F.fleet_rollout(sim, st, n)
+        i0 = int(st.i[0])
+        step = make_cluster_step(sim, st, split="vehicle")
+        for k in range(n):
+            st = step(st, i=i0 + k)
+        return st
+
+    # the plain runs, one for both splits (the same plain step)
+    kind = lambda label: ("xv1" if label == "xv1_turb_megakernel" else
+                          "mega" if label.endswith("megakernel") else "split")
+    refs, twins = {}, {}
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    env = [e * NAV_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL, ENV_ATT_RAD,
+                                          ENV_EAS)]
+    launches = {}
+    for label in NAV_PATHS:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.time()
+        out = run_path(label, fleets, NAV_STEPS)
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        want = dict.fromkeys(K.LAUNCHES, 0)
+        if label == "xv1_turb_megakernel":
+            want["megakernel_fbw_turb"] = NAV_STEPS
+        elif label == "nav_megakernel":
+            want["megakernel_nav_turb"] = NAV_STEPS
+        else:  # the truth's systems in the pass, the geoid every step
+            want.update(rk4_stage_fbw_turb=4 * NAV_STEPS,
+                        rk4_finish_fbw_turb=NAV_STEPS, ctl_laws=NAV_STEPS,
+                        systems_fbw=NAV_STEPS, geoid=NAV_STEPS,
+                        nav_pass=NAV_STEPS)
+        log(f"{label}: {NAV_STEPS} steps x {B} aircraft in "
+            f"{time.time() - t0:.2f} s (first run); launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        for name, (_, _, path) in KERNELS.items():
+            if path == label:
+                launches[name] = got[name]
+        for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+            if val.dtype.is_floating_point and not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"{label}: non-finite leaf {p}")
+        if bool(out.s["terminated"].any()):
+            raise AssertionError(f"{label}: a lane terminated")
+        k = kind(label)
+        if k not in refs:
+            K.reset_launches()
+            refs[k] = run_path(label, fleets, NAV_STEPS, plain=True)
+            torch.cuda.synchronize()
+            if any(K.LAUNCHES.values()):
+                raise AssertionError(f"{label}: plain run launched a kernel")
+        ref = refs[k]
+        if k == "xv1":
+            dist = compare_runs(out, ref)
+            log(f"{label} kernels vs plain after {NAV_STEPS} steps (f32): "
+                f"position {dist[0]:.3e} m (env {env[0]:.3g}), velocity "
+                f"{dist[1]:.3e} m/s (env {env[1]:.3g}), attitude "
+                f"{dist[2]:.3e} rad (env {env[2]:.3g}), EAS {dist[3]:.3e} "
+                f"m/s (env {env[3]:.3g})")
+            if not all(v_ <= e for v_, e in zip(dist, env)):
+                raise AssertionError(f"{label}: kernel and plain runs "
+                                     f"disagree")
+            continue
+        sim, st = fleets["nav"]
+        if k not in twins:
+            twins[k] = nav_reference(sim, torch.float32, lambda s_, x: (
+                plain_steps(k == "mega", s_, x, NAV_STEPS)), st)
+        twin = twins[k]
+        p_err, n_bad, n_far, worst = nav_hold(
+            torch.float32, tr(out), tr(ref), tr(twin), out.s["avionics"],
+            ref.s["avionics"], sim.system.aircraft.avionics, label)
+        d_k, d_p = compare_runs(out, twin), compare_runs(ref, twin)
+        lim = [max(NAV_SPREAD * p_, e) for p_, e in zip(d_p, env)]
+        top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+        log(f"{label} after {NAV_STEPS} steps on the estimates (f32), "
+            f"kernels / plain vs the float64 plain step: position "
+            f"{d_k[0]:.3e} / {d_p[0]:.3e} m (limit {lim[0]:.3g}), velocity "
+            f"{d_k[1]:.3e} / {d_p[1]:.3e} m/s (limit {lim[1]:.3g}), "
+            f"attitude {d_k[2]:.3e} / {d_p[2]:.3e} rad (limit "
+            f"{lim[2]:.3g}), EAS {d_k[3]:.3e} / {d_p[3]:.3e} m/s (limit "
+            f"{lim[3]:.3g}); P per lane {p_err:.3e}; flags differ on "
+            f"{n_bad} lanes ({n_bad - n_far} near a gate); the worst leaves "
+            f"(error, limit) "
+            + ", ".join(f"{k_} {e:.2e} ({l_:.1e})" for k_, (e, l_) in top))
+        if not all(v_ <= l_ for v_, l_ in zip(d_k, lim)):
+            raise AssertionError(f"{label}: the kernels' run is further "
+                                 f"from the float64 step than the plain "
+                                 f"run's limit")
+    del out, refs, twins
+    f64 = {"nav": nav_fleet_sim(B, SEED, DEVICE, torch.float64),
+           "twin": xv1_turb_fleet_sim(B, SEED, DEVICE, torch.float64)}
+    refs = {}
+    for label in NAV_PATHS:
+        a = run_path(label, f64, F64_STEPS[""])
+        if kind(label) not in refs:
+            refs[kind(label)] = run_path(label, f64, F64_STEPS[""],
+                                         plain=True)
+        b = refs[kind(label)]
+        torch.cuda.synchronize()
+        worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
+            {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
+        log(f"{label} f64 {F64_STEPS['']} steps kernels vs plain: max rel "
+            f"err {worst:.3e} (tol 1e-9)")
+        if not worst <= 1e-9:
+            raise AssertionError(f"{label}: f64 run disagrees")
+    del f64, a, b, refs
+    return launches, fleets
+
+
 def nav_phase(card, t_start, check, errs, regs, sizes):
     """The sensor-fed navigation fleet: the turbulent C172Xv1's three
     kernel instances against their plain versions, and the inner laws'
-    passes on an estimated VehicleY; the navigation fleet's two entry
-    points and the twin's megakernel against their plain paths; the joint
-    navigation study against the JAX package's run; the instances'
-    timings and the paths' profiles. Returns the instances' rows of the
-    kernels line."""
+    passes on an estimated VehicleY; the navigation kernels (nav_pass,
+    megakernel_nav, megakernel_nav_turb) against theirs; the navigation
+    fleet's three entry points and the twin's megakernel against their
+    plain paths; the joint navigation study through fleet_step and through
+    megakernel_nav_turb against the JAX package's run; the sensor-fed
+    autopilot fleet's 600 s through megakernel_nav; the instances' timings
+    and the paths' profiles. Returns the instances' rows of the kernels
+    line."""
     from flightjax_torch.core.sim import Simulation, comp_residuals
-    from flightjax_torch.demos.estimation_demos import joint_navigation_study
     from flightjax_torch.models.c172.c172x import (build_vehicle as
                                                    fbw_vehicle, c172xv1_sim)
-    from flightjax_torch.parallel import fleet as F
+    from flightjax_torch.ops.random import normal_table
     from flightjax_torch.parallel import kernels as K
     from flightjax_torch.parallel import launch as L
-    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
-                                                      vehicle_step)
     from flightjax_torch.parallel.megakernel import (make_megakernel_step,
                                                      megakernel_step_plain)
     from flightjax_torch.physics.turbulence import DrydenTurbulence
     from flightjax_torch.testing import (fbw_turb_operand_state,
                                          fbw_turb_operands, gdc_laws_args,
-                                         nav_fleet_sim, turb_operand_args,
-                                         xv1_turb_fleet_sim)
+                                         nav_fleet_sim, turb_operand_args)
     from profile_torch_step import profile
 
     # kernel checks: f64 to 1e-12 and f32 to 1e-5, at 32 and 64 aircraft
@@ -1984,143 +2406,20 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
                       f" (the navigation fleet's estimated VehicleY, block "
                       f"{lanes})")
         del args, st, sim, sim0, nsim, nst, y_est, vy
+    nav_kernel_checks(t_start, errs)
 
-    # the paths at B in f32 against their plain paths, launch counts from 0
-    log(f"elapsed {time.time() - t_start:.1f} s (navigation: paths)")
-    fleets = {"nav": nav_fleet_sim(B, SEED, DEVICE, torch.float32),
-              "twin": xv1_turb_fleet_sim(B, SEED, DEVICE, torch.float32)}
-
-    def run_path(label, fl, n, plain=False):
-        sim, st = fl["twin" if label == "xv1_turb_megakernel" else "nav"]
-        i0 = int(st.i[0])
-        if label == "xv1_turb_megakernel":
-            if plain:
-                for _ in range(n):
-                    st = megakernel_step_plain(sim, st)
-                return st
-            bufs, step_packed, unpack = make_megakernel_step(sim, st)
-            for _ in range(n):
-                bufs = step_packed(bufs)
-            return unpack(bufs)
-        if plain:
-            for k in range(n):
-                st = vehicle_step(sim, st, i0 + k, comp=st.c is not None,
-                                  plain=True)
-            return st
-        if label == "nav_fleet":
-            return F.fleet_rollout(sim, st, n)
-        step = make_cluster_step(sim, st, split="vehicle")
-        for k in range(n):
-            st = step(st, i=i0 + k)
-        return st
-
-    launches = {}
-    for label in NAV_PATHS:
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.time()
-        out = run_path(label, fleets, NAV_STEPS)
-        torch.cuda.synchronize()
-        got = dict(K.LAUNCHES)
-        want = dict.fromkeys(K.LAUNCHES, 0)
-        if label == "xv1_turb_megakernel":
-            want["megakernel_fbw_turb"] = NAV_STEPS
-        else:  # the truth's systems in the pass, the geoid every step
-            want.update(rk4_stage_fbw_turb=4 * NAV_STEPS,
-                        rk4_finish_fbw_turb=NAV_STEPS, ctl_laws=NAV_STEPS,
-                        systems_fbw=NAV_STEPS, geoid=NAV_STEPS)
-        log(f"{label}: {NAV_STEPS} steps x {B} aircraft in "
-            f"{time.time() - t0:.2f} s (first run); launches "
-            f"{ {k: v for k, v in got.items() if v} }")
-        if got != want:
-            raise AssertionError(f"{label}: launch counts {got} != {want}")
-        for name, (_, _, path) in KERNELS.items():
-            if path == label:
-                launches[name] = got[name]
-        for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
-            if val.dtype.is_floating_point and not bool(
-                    torch.isfinite(val).all()):
-                raise AssertionError(f"{label}: non-finite leaf {p}")
-        if bool(out.s["terminated"].any()):
-            raise AssertionError(f"{label}: a lane terminated")
-        K.reset_launches()
-        ref = run_path(label, fleets, NAV_STEPS, plain=True)
-        torch.cuda.synchronize()
-        if any(K.LAUNCHES.values()):
-            raise AssertionError(f"{label}: plain run launched a kernel")
-        pos, vel, att, de = compare_runs(out, ref)
-        env = [e * NAV_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL,
-                                              ENV_ATT_RAD, ENV_EAS)]
-        nav_err = 0.0
-        if label != "xv1_turb_megakernel":
-            nav_err = max(rel_err(a, b) for _, a, b in leaf_pairs(
-                out.s["avionics"]["nav"], ref.s["avionics"]["nav"]))
-        log(f"{label} kernels vs plain after {NAV_STEPS} steps (f32): "
-            f"position {pos:.3e} m (env {env[0]:.3g}), velocity {vel:.3e} "
-            f"m/s (env {env[1]:.3g}), attitude {att:.3e} rad (env "
-            f"{env[2]:.3g}), EAS {de:.3e} m/s (env {env[3]:.3g}); the "
-            f"filter's state {nav_err:.3e}")
-        if not all(v_ <= e for v_, e in zip((pos, vel, att, de), env)):
-            raise AssertionError(f"{label}: kernel and plain runs disagree")
-    del out, ref
-    f64 = {"nav": nav_fleet_sim(B, SEED, DEVICE, torch.float64),
-           "twin": xv1_turb_fleet_sim(B, SEED, DEVICE, torch.float64)}
-    for label in NAV_PATHS:
-        a = run_path(label, f64, F64_STEPS[""])
-        b = run_path(label, f64, F64_STEPS[""], plain=True)
-        torch.cuda.synchronize()
-        worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
-            {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
-        log(f"{label} f64 {F64_STEPS['']} steps kernels vs plain: max rel "
-            f"err {worst:.3e} (tol 1e-9)")
-        if not worst <= 1e-9:
-            raise AssertionError(f"{label}: f64 run disagrees")
-    del f64, a, b
+    launches, fleets = nav_paths(t_start)
 
     # the joint navigation study at B for its 30 s, against the JAX
-    # package's own run of the same study (tools/jax_nav_study.py)
-    log(f"elapsed {time.time() - t_start:.1f} s (navigation: the study)")
-    torch.cuda.synchronize()
-    t0 = time.time()
-    r = joint_navigation_study(B, t_end=NAV_T_END)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    got = nav_summary(r["peak_att_deg"], r["peak_pos_m"],
-                      r["att_exceedance"].tolist(),
-                      r["pos_exceedance"].tolist(), r["alarm_fraction"])
-    with open(JAX_NAV) as fh:
-        jref = json.load(fh)
-    log(f"navigation study: B = {B}, {NAV_T_END:.0f} s in {wall:.2f} s wall "
-        f"({int(r['final'].i[0])} steps, errors every 10): {got} "
-        f"[{card}]")
-    log(f"navigation study, the JAX package's run ({JAX_NAV}, "
-        f"{jref['dtype']} on a CPU, {jref['wall_s']:.0f} s): "
-        f"{ {k: jref[k] for k in got} }")
-    if (jref["lanes"], jref["t_end"], jref["key"]) != (B, NAV_T_END, 0x17A):
-        raise AssertionError(f"{JAX_NAV} is of another study: {jref}")
-    rel, fr = NAV_MATCH
-    far = {k: (got[k], jref[k]) for k in ("att_p50", "att_p95", "pos_p50",
-                                          "pos_p95")
-           if abs(got[k] - jref[k]) > rel * abs(jref[k])}
-    far.update({k: (got[k], jref[k]) for k in ("att_exceedance",
-                                              "pos_exceedance")
-                if any(abs(a - b) > fr for a, b in zip(got[k], jref[k]))})
-    # no false alarm (tests/test_nav_study.py, 8 lanes); where the JAX
-    # package's own run at B latches some, the port is held to its count
-    # within one lane in a thousand
-    alarms = {k: (v, jref["alarm_fraction"][k])
-              for k, v in got["alarm_fraction"].items()
-              if v != 0.0 and abs(v - jref["alarm_fraction"][k]) > 1e-3}
-    log(f"navigation study alarms: {got['alarm_fraction']} (the JAX run's "
-        f"{jref['alarm_fraction']}; zero bound "
-        f"{'held' if not any(got['alarm_fraction'].values()) else 'missed'})")
-    if far or alarms:
-        raise AssertionError(f"navigation study: outside the JAX run's "
-                             f"bounds {far}, alarms {alarms}")
-    if not (bool(torch.isfinite(r["peak_att_deg"]).all())
-            and bool(torch.isfinite(r["peak_pos_m"]).all())):
-        raise AssertionError("navigation study: a peak not finite")
-    del r
+    # package's own run of the same study (tools/jax_nav_study.py): through
+    # Simulation.fleet_step (the vehicle split with nav_pass), then through
+    # megakernel_nav_turb
+    studies = {}
+    for mega in (False, True):
+        studies[mega] = nav_study(card, t_start, mega, launches)
+    log(f"navigation study wall time: fleet_step {studies[False]:.2f} s, "
+        f"megakernel {studies[True]:.2f} s [{card}]")
+    sensor_fed_flight(card, t_start, launches)
 
     # the paths' profiles (B, f32) and the navigation stage's share of the
     # vehicle split's step (against the twin's vehicle split, whose step
@@ -2139,11 +2438,47 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
                                    tsim.dt, tsim.t_start, False, lanes,
                                    tgains, tsim.steps_per_periodic,
                                    tsim.periodic_dt, turb=True)
+    # the navigation megakernels on the study's fleet and on the sensor-fed
+    # autopilot fleet, each at its first GPS epoch (every lane aids)
+    from flightjax_torch.testing import nav_pass_args, sensor_fed_fleet_sim
+
+    def at_epoch(st, n=9):
+        av = st.s["avionics"]
+        sens = dict(av["sens"], n=torch.full_like(av["sens"]["n"], n))
+        return st._replace(i=torch.full_like(st.i, n),
+                           t=torch.full_like(st.t, n * 0.02),
+                           s=dict(st.s, avionics=dict(av, sens=sens)))
+    nav_mega = {}
+    for label, (sim, st) in (
+            ("nav_megakernel", (nsim, at_epoch(nst0))),
+            ("sensor_fed_megakernel", (lambda f: (f[0], at_epoch(f[1])))(
+                sensor_fed_fleet_sim(B, DEVICE, torch.float32)))):
+        av = sim.system.aircraft.avionics
+        veh = sim.system.aircraft.vehicle
+        b_, step_, unpack_ = make_megakernel_step(sim, st)
+        p_, g_, gn_ = (K.system_params(veh), K.geoid_grid(veh.geoid),
+                       K.ctl_gains(av))
+        tab = normal_table(DEVICE)
+
+        def bare(lanes=None, b_=b_, sim=sim, p_=p_, g_=g_, gn_=gn_,
+                 turb=veh.turbulence is not None):
+            return L.launch_megakernel(b_[0], b_[1], p_, g_, sim.dt,
+                                       sim.t_start, False, lanes, gn_,
+                                       sim.steps_per_periodic,
+                                       sim.periodic_dt, turb=turb,
+                                       table=tab)
+        nav_mega[label] = dict(sim=sim, st=st, bufs=b_, step=step_,
+                               unpack=unpack_, bare=bare, params=p_,
+                               gains=gn_)
     profiles = {}
-    for label in NAV_PATHS + ("xv1_turb_vehicle",):
+    for label in NAV_PATHS + ("xv1_turb_vehicle", "sensor_fed_megakernel"):
         if label == "xv1_turb_megakernel":
             pr = graph_profile(label, "megakernel_fbw_turb", mstep, mbufs,
                                mega)
+        elif label in nav_mega:
+            m = nav_mega[label]
+            pr = graph_profile(label, KERNELS_OF_PATH[label], m["step"],
+                               m["bufs"], m["bare"])
         else:
             sim, st = fleets["twin" if label.startswith("xv1_turb")
                              else "nav"]
@@ -2218,19 +2553,68 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
                       new.s["avionics"]["lat"]["mode_prev"]), 1)
     weights = {"megakernel_fbw_turb": pass_op_weights(
         tavionics, tst0.s["avionics"], new.s["avionics"], fires)}
+    # nav_pass on the study's fleet at its first GPS epoch (every lane
+    # aids: the plain version's ungated work is the kernel's)
+    nargs = nav_pass_args(nsim, at_epoch(nst0))
+    nbuf, n_out, _, nops = K.pack_nav_pass(*nargs)
+    tab = normal_table(DEVICE)
+    n_draws = 29 * B  # the table entries the epoch's draws read
+    n_navp = len(K.nav_param_values(nargs[0]))
+    cases["nav_pass"] = (
+        lambda lanes=None: L.launch_nav_pass(nbuf, n_out, nops["ints"],
+                                             nops["gains"], tab, lanes),
+        lambda: K.nav_pass(*nargs), lambda: K.nav_pass_plain(*nargs),
+        nbuf.numel() + 2 * nops["ints"].numel() + n_out * B + n_draws
+        + n_navp, 1)
+    for label, m in nav_mega.items():
+        name = KERNELS_OF_PATH[label]
+        msim, mst, mav = m["sim"], m["st"], m["sim"].system.aircraft.avionics
+        mveh = msim.system.aircraft.vehicle
+        mnew = m["unpack"](m["step"](m["bufs"]))
+        cases[name] = (
+            m["bare"], (lambda m=m: m["step"](m["bufs"])),
+            (lambda msim=msim, mst=mst: megakernel_step_plain(msim, mst)),
+            2 * (m["bufs"][0].numel() + m["bufs"][1].numel())
+            + m["params"].numel() + n_draws + n_navp
+            + geoid_cells(mveh.geoid, mnew.x["vehicle"]["kinematics"]["q_ew"])
+            + gain_values(mav, eas(mnew),
+                          mnew.x["vehicle"]["kinematics"]["h_e"],
+                          mnew.s["avionics"]["inner"]["lon"]["mode_prev"],
+                          mnew.s["avionics"]["inner"]["lat"]["mode_prev"]), 1)
     for name, (bare, wrapper, plain, n_elems, per_step) in cases.items():
         label = KERNELS[name][2]
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1], launches=launches[name],
             max_abs_err=errs[name], ms=graph_ms(bare),
-            plain_ms=cuda_ms(plain, reps=3, calls=2),
-            nbytes=4 * n_elems, ops=count_ops(plain, weights.get(name)),
+            plain_ms=(cuda_ms(plain, reps=1, calls=1) if name in (
+                "nav_pass", "megakernel_nav", "megakernel_nav_turb")
+                else cuda_ms(plain, reps=3, calls=2)),
+            nbytes=4 * n_elems,
+            ops=count_ops(plain, weights.get(name),
+                          matmul=name in ("nav_pass", "megakernel_nav",
+                                          "megakernel_nav_turb")),
             library_ms=None, event_ms=cuda_ms(bare),
             wrapper_ms=cuda_ms(wrapper),
             block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
             launches_per_step=per_step,
-            share=share(label, name[:-len("_fbw_turb")] + "_")))
+            share=(1.0 if label in nav_mega else share(
+                label, "nav_pass_kernel" if name == "nav_pass"
+                else name[:-len("_fbw_turb")] + "_"))))
+    # the navigation megakernels off an aiding epoch (no lane aids: the
+    # four firings in five that run no aiding block)
+    for label, m in nav_mega.items():
+        off = make_megakernel_step(m["sim"], at_epoch(m["st"], 10))[0]
+        sim = m["sim"]
+        veh = sim.system.aircraft.vehicle
+        row = next(r for r in rows if r["name"] == KERNELS_OF_PATH[label])
+        row["off_epoch_ms"] = graph_ms(lambda: L.launch_megakernel(
+            off[0], off[1], m["params"], K.geoid_grid(veh.geoid), sim.dt,
+            sim.t_start, False, None, m["gains"], sim.steps_per_periodic,
+            sim.periodic_dt, turb=veh.turbulence is not None,
+            table=normal_table(DEVICE)))
+        log(f"time {row['name']}: {row['off_epoch_ms']:.4f} ms off an "
+            f"aiding epoch, {row['ms']:.4f} ms on one [{card}]")
     log("navigation profiles: " + json.dumps(profiles))
     return rows
 
@@ -2267,6 +2651,8 @@ def main():
         for line in fh:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas: " + line.strip())
+            elif line.startswith("nvcc "):
+                log("  " + line.strip())
     sizes = dict(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
     log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
     from sass_torch_kernels import compare, nvcc_version

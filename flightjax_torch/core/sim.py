@@ -130,13 +130,14 @@ class Simulation:
         the whole-vehicle kernels (`rk4_stage_turb`, `rk4_finish_turb`),
         compensated as the subsystems split is (where `state.c` holds
         residuals), as that split carries no turbulence."""
-        from flightjax_torch.parallel.clusterstep import (cluster_step,
-                                                          vehicle_step)
+        from flightjax_torch.parallel.clusterstep import (
+            check_sensor_epoch, cluster_step, vehicle_step)
         if ctx != ():
             raise NotImplementedError(
                 "the step takes no context: ctx is () in every model, and "
                 "the mission is an avionics wrapper (MissionAvionics, "
                 "core/mission.py)")
+        check_sensor_epoch(self, state, int(i))
         if self.system.aircraft.vehicle.turbulence is not None:
             return vehicle_step(self, state, int(i), comp=state.c is not None)
         return cluster_step(self, state, int(i))

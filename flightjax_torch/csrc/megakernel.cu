@@ -101,20 +101,48 @@
 // rows. Roles KIN and PROP do the turbulence's work as there; a leg's warp
 // passes the turbulence's inputs through, since role DRAG runs the lateral
 // pass after the finish.
+//
+// The sensor-fed C172Xv1's instances (megakernel_nav, ACT_FBW with the
+// avionics AV_NAV: the calm `c172x.build_xv1_nav`; megakernel_nav_turb,
+// ACT_FBW_TURB: the joint navigation study's aircraft in Dryden
+// turbulence) are the same TPU kernel traced over a world whose avionics
+// are NavAvionics(ControlLaws) (physics/navigation.py): its pass runs the
+// sensors and the 15-state filter before the control laws, which read the
+// estimates. Their state buffer holds megakernel_fbw's (or
+// megakernel_fbw_turb's) rows, then the navigation avionics' inputs and
+// floating state (NAV_U, NAV_S of nav.cuh: the sensor catalog per lane, the
+// origin, the fault's size; the error processes, the filter with its P as
+// 225 rows, the accumulator, the hold registers, the NIS values, the
+// alarms); their int32 operand the step counter (and the turbulence's seed
+// and counter), then NAV_INT (the sensors' seed and epoch, the fault's
+// integers, the monitors' bits). After the finish and the roles' CTL_Y
+// fields, every role evaluates the derivative once more at the new state
+// (nav.cuh::truth_roles: the IMU reads the dynamics there, at the
+// undulation of the step's start, the one the reference's megakernel reads
+// before its refresh), then the lane's eight threads run the navigation
+// pass (nav.cuh::nav_pass_roles; its matrices in the `work` operand), which
+// puts the estimated CTL_Y fields into the scratch; one more barrier, then
+// role PROP runs lon and role DRAG lat as in megakernel_fbw. The filter's
+// constants arrive at the end of the gains (kernels.nav_params), the normal
+// table of the sensors' draws as an operand of its own.
 #include "c172x_msn.cuh"
+#include "nav.cuh"
 #include "turbulence.cuh"
 
 using namespace fj;
 
 // the avionics of an instance: none (the C172S), the control laws (the
 // C172Xv1), the guidance and control laws (the C172Xv2), a scripted mission
-// over them
-constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3;
+// over them, the navigation avionics around the control laws (the
+// sensor-fed C172Xv1)
+constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3, AV_NAV = 4;
 
 // the rows of an instance's state buffer and scratch: t, X, CTX, C (and the
 // avionics block, fly-by-wire; and the guidance's inputs; and the phase
-// machine's state); the scratch holds the roles' shared rows, then each
-// thread's x and k-sum (and the CTL_Y, GDC_Y or MSN_Y rows of the pass)
+// machine's state; or the navigation avionics' inputs and floating state,
+// NAV_U and NAV_S of nav.cuh); the scratch holds the roles' shared rows,
+// then each thread's x and k-sum (and the CTL_Y, GDC_Y or MSN_Y rows of the
+// pass)
 template <int ACT, int AVK = (act_fbw(ACT) ? AV_CTL : AV_NONE)>
 struct MegaL {
   enum : int {
@@ -123,15 +151,16 @@ struct MegaL {
     C = CTX + SysL<ACT>::NCTX,
     AV = C + N_C,
     GDC = AV + (act_fbw(ACT) ? N_AV : 0),
-    MSN = GDC + (AVK >= AV_GDC ? N_UGDC : 0),
-    ROWS = MSN + (AVK == AV_MSN ? N_SMSN : 0),
+    MSN = GDC + (AVK == AV_GDC || AVK == AV_MSN ? N_UGDC : 0),
+    NAV = MSN + (AVK == AV_MSN ? N_SMSN : 0),
+    ROWS = NAV + (AVK == AV_NAV ? N_NAVU + N_NAVS : 0),
     SH_X = act_fbw(ACT) ? SH_N_FBW : SH_N,
     SH_KSUM = SH_X + SysL<ACT>::NXV,
     SH_Y = SH_KSUM + SysL<ACT>::NXV,
     SH_ROWS = SH_Y + (AVK == AV_MSN   ? N_MSNY
                       : AVK == AV_GDC ? N_GDCY
-                      : AVK == AV_CTL ? N_CTLY
-                                      : 0)
+                      : AVK == AV_CTL || AVK == AV_NAV ? N_CTLY
+                                                       : 0)
   };
 };
 
@@ -243,7 +272,9 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
                       const T* __restrict__ P, const T* __restrict__ G,
                       T* __restrict__ out, int* __restrict__ i_out, int B,
                       int n_params, double dt, double t_start, int comp,
-                      const T* __restrict__ gains, int spp, double pdt) {
+                      const T* __restrict__ gains, int spp, double pdt,
+                      const float* __restrict__ table = nullptr,
+                      T* __restrict__ work = nullptr) {
   using M = MegaL<ACT, AVK>;
   using L = SysL<ACT>;
   T* sP = block_shared<T>();
@@ -353,9 +384,29 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   }
   if constexpr (AVK != AV_NONE) {
     // what the avionics read of the new state, into the scratch
-    share_ctl_y<AVK >= AV_GDC, T, AVK == AV_MSN>(
+    share_ctl_y<(AVK == AV_GDC || AVK == AV_MSN), T, AVK == AV_MSN>(
         sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, c, M::CTX + CX_USYS, t,
         xn, f);
+    __syncthreads();
+  }
+  // rows of the navigation instances' int32 operand: i (, seed, n), then
+  // NAV_INT
+  constexpr int NI0 = act_turb(ACT) ? N_TURB_INT : 1;
+  if constexpr (AVK == AV_NAV) {
+    // the truth at the new state for the sensors (a fifth evaluation), then
+    // the navigation pass where the lane fires, which puts the estimated
+    // CTL_Y fields into the scratch in place of the truth's (in shadow mode
+    // the truth's stay); one more barrier before the pass warps read them
+    NavTruth<T> tr;
+    truth_roles<ACT>(sP, sh, t, xn, c, M::CTX, f.s, &tl, tr);
+    nav_pass_roles<T>(
+        t.role, t.valid, (i_in[t.b] + 1) % spp == 0, nav_params(gains),
+        table, tr, c(M::CTX + L::CX_TRN + TR_ELEV),
+        Col<T>{in + M::NAV * B, B, t.b},
+        Col<T>{in + (M::NAV + N_NAVU) * B, B, t.b},
+        Out<T>{out + (M::NAV + N_NAVU) * B, B, t.b}, i_in + NI0 * B + t.b,
+        i_out + NI0 * B + t.b, work + t.b, B,
+        Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, false);
     __syncthreads();
   }
   if (!t.valid) return;  // past the last barrier
@@ -398,12 +449,17 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     if (t.role == ROLE_LON || t.role == ROLE_LAT) {
       const bool fires = (i_in[t.b] + 1) % spp == 0;
       const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
-      periodic_side<AVK >= AV_GDC, T, AVK == AV_MSN>(
+      periodic_side<(AVK == AV_GDC || AVK == AV_MSN), T, AVK == AV_MSN>(
           t.role == ROLE_LON, fires, gains, y, c, o, M::AV, M::CTX + CX_USYS,
           M::GDC, T(pdt), M::MSN);
     }
   }
-  if constexpr (AVK >= AV_GDC) {
+  if constexpr (AVK == AV_NAV) {
+    // the navigation avionics' inputs pass through
+    for (int r = t.role; r < N_NAVU; r += N_ROLES)
+      o.s(M::NAV + r, c(M::NAV + r));
+  }
+  if constexpr (AVK == AV_GDC || AVK == AV_MSN) {
     // the guidance's inputs pass through
     if (t.role == ROLE_KIN) pass_rows(c, o, M::GDC, N_UGDC);
   }
@@ -437,7 +493,8 @@ static int launch(const void* in, const void* i_in, const void* params,
                   const void* grid_, const void* gains, void* out,
                   void* i_out, int B, int n_params, double dt,
                   double t_start, int comp, int spp, double pdt, int lanes,
-                  void* stream) {
+                  void* stream, const void* table = nullptr,
+                  void* work = nullptr) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0 || spp < 1)
     return (int)cudaErrorInvalidValue;
@@ -452,10 +509,11 @@ static int launch(const void* in, const void* i_in, const void* params,
                                    (cudaStream_t)stream>>>(
       (const T*)in, (const int*)i_in, (const T*)params, (const T*)grid_,
       (T*)out, (int*)i_out, B, n_params, dt, t_start, comp, (const T*)gains,
-      spp, pdt);
+      spp, pdt, (const float*)table, (T*)work);
   return (int)cudaGetLastError();
 }
 
+#ifndef FJ_NAV_ACT
 extern "C" {
 int megakernel_f32(const void* in, const void* i_in, const void* params,
                    const void* grid, void* out, void* i_out, int B,
@@ -660,3 +718,40 @@ void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_mega = MEGA_N_ROWS_FBW;
 }
 }
+#else
+// the sensor-fed C172Xv1's instances, each in a translation unit of its own
+// (megakernel_nav.cu, megakernel_nav_turb.cu define FJ_NAV_ACT, the
+// ActKind, and FJ_NAV_NAME, the instance's name, and include this file),
+// so that nvcc builds them beside this one: the fly-by-wire signature with
+// the normal table and the work buffer of nav.cuh; i the int32 rows (i,
+// then NAV_INT; turbulent: i, seed, n, then NAV_INT), the gains with the
+// filter's parameter block
+#define FJ_CAT2(a, b) a##b
+#define FJ_CAT(a, b) FJ_CAT2(a, b)
+#define NAV_INSTANCE(NAME, T)                                               \
+  int NAME(const void* in, const void* i_in, const void* params,           \
+           const void* grid, const void* gains, const void* table,         \
+           void* work, void* out, void* i_out, int B, int n_params,        \
+           double dt, double t_start, int comp, int spp, double pdt,       \
+           int lanes, void* stream) {                                      \
+    return launch<FJ_NAV_ACT, AV_NAV, T>(in, i_in, params, grid, gains,    \
+                                         out, i_out, B, n_params, dt,      \
+                                         t_start, comp, spp, pdt, lanes,   \
+                                         stream, table, work);             \
+  }
+extern "C" {
+NAV_INSTANCE(FJ_CAT(FJ_NAV_NAME, _f32), SF)
+NAV_INSTANCE(FJ_CAT(FJ_NAV_NAME, _f64), SD)
+void FJ_CAT(FJ_NAV_NAME, _layout)(int* n_in, int* n_out) {
+  *n_in = *n_out = MegaL<FJ_NAV_ACT, AV_NAV>::ROWS;
+}
+void FJ_CAT(FJ_NAV_NAME, _launch_shape)(int B, int lanes, int n_params,
+                                        int elem_size, int* grid,
+                                        int* block, int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         MegaL<FJ_NAV_ACT, AV_NAV>::SH_ROWS),
+             grid, block, shared);
+}
+}
+#undef NAV_INSTANCE
+#endif

@@ -8,6 +8,7 @@ healthy).
 
     sim, st = nav_fleet_setup(4096)           # on the card
     r = joint_navigation_study(4096)          # 30 s, closed loop
+    r = joint_navigation_study(4096, megakernel=True)   # one launch a step
 
 `navigation_demo`, `fleet_navigation_study` (the `Ahrs` cascade) and
 `fdi_mission_demo` are not ported (ROADMAP Queue 1, P11).
@@ -92,21 +93,32 @@ def nav_errors(state):
     return att, pos
 
 
-def fleet_rollout_nav_errors(sim, state, n_steps, sample_every=10):
+def fleet_rollout_nav_errors(sim, state, n_steps, sample_every=10,
+                             megakernel=False):
     """Roll a navigation fleet `n_steps` through `Simulation.fleet_step`
+    (with `megakernel`, through `make_megakernel_step`: the whole step and
+    the navigation pass in one launch, the state unpacked at the samples)
     while tracking each lane's peak attitude and horizontal position
     errors, sampled every `sample_every` steps and at the start
     (`estimation_demos.py:201-232`). Returns (final state, peak_att_deg,
     peak_pos_m)."""
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
     n_outer, rem = divmod(int(n_steps), int(sample_every))
     if rem:
         raise ValueError("n_steps must be a multiple of sample_every")
     i = fleet._shared_counter(state)
     peak_att, peak_pos = nav_errors(state)
+    if megakernel:
+        bufs, step_packed, unpack = make_megakernel_step(sim, state)
     for _ in range(n_outer):
         for _ in range(int(sample_every)):
-            state = sim.fleet_step(state, i=i)
-            i += 1
+            if megakernel:
+                bufs = step_packed(bufs)
+            else:
+                state = sim.fleet_step(state, i=i)
+                i += 1
+        if megakernel:
+            state = unpack(bufs)
         att, pos = nav_errors(state)
         peak_att = torch.maximum(peak_att, att)
         peak_pos = torch.maximum(peak_pos, pos)
@@ -116,16 +128,19 @@ def fleet_rollout_nav_errors(sim, state, n_steps, sample_every=10):
 def joint_navigation_study(n_lanes=32, t_end=30.0, dt=0.02,
                            att_thresholds=(0.5, 1.0, 2.0, 5.0),
                            pos_thresholds=(2.0, 5.0, 10.0, 25.0), key=None,
-                           device="cuda", dtype=torch.float32):
+                           device="cuda", dtype=torch.float32,
+                           megakernel=False):
     """The joint Monte Carlo of turbulence severity, manoeuvre dispersion
     and sensor grade, each lane flying closed loop on its own estimates
     (`estimation_demos.py:235-269`): the peaks, their exceedance over the
     thresholds, their 95th percentiles, and per monitor the fraction of
-    lanes whose alarm latched."""
+    lanes whose alarm latched. With `megakernel` the fleet flies
+    `make_megakernel_step` (`megakernel_nav_turb` on the card)."""
     sim, st = nav_fleet_setup(n_lanes, dt, key=key, device=device,
                               dtype=dtype)
     final, peak_att, peak_pos = fleet_rollout_nav_errors(
-        sim, st, int(round(t_end / dt)), sample_every=10)
+        sim, st, int(round(t_end / dt)), sample_every=10,
+        megakernel=megakernel)
     s_av = final.s["avionics"]
     alarm = {name: float(torch.mean(s_av[mon]["alarm"].to(torch.float32)))
              for name, mon in (("gps", "mon_gps"), ("gps_vel", "mon_vel"),

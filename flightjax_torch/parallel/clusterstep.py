@@ -40,12 +40,13 @@ also reads the engine's state of the new S_SYS and writes the flaps,
 brake and engine-start inputs its phases override; a mission the kernels
 do not carry (arbitrary callables, another inner avionics) runs its own
 plain pass, on the CPU or with `plain` only. The navigation avionics
-(`physics/navigation.py`) run their sensors and filter as PyTorch on the
-state's device and then the inner avionics' pass kernel on the estimates
-(`_nav_periodic`). The pass runs before the geoid refresh of the same
-step and reads the state before it, as `Simulation.fleet_step` orders
-them (the JAX cluster kernels refresh first; the two differ on refresh
-steps by the undulation's change over 128 steps, micrometres).
+(`physics/navigation.py`) run their sensors and filter as the `nav_pass`
+kernel on the card (its plain version on the CPU or with `plain`) and then
+the inner avionics' pass kernel on the estimates (`_nav_periodic`). The
+pass runs before the geoid refresh of the same step and reads the state
+before it, as `Simulation.fleet_step` orders them (the JAX cluster kernels
+refresh first; the two differ on refresh steps by the undulation's change
+over 128 steps, micrometres).
 """
 
 import torch
@@ -118,42 +119,52 @@ def cluster_step(sim, state: SimState, i: int, *, plain=False,
                     c=c2)
 
 
+def check_sensor_epoch(sim, state, i):
+    """On the CPU, that a navigation fleet's sensor epoch on every lane
+    counts the periodic firings before step `i` (the fleet starts at step
+    0 with its sensors' counter at 0, where `init_s` and `init_from_trim`
+    start it): the entry points that take the host's step counter check
+    it. The pass itself reads each lane's own counter."""
+    from flightjax_torch.physics.navigation import NavAvionics
+    if not isinstance(sim.system.aircraft.avionics, NavAvionics):
+        return
+    n = state.s["avionics"]["sens"]["n"]
+    n0 = i // sim.steps_per_periodic
+    if n.device.type == "cpu" and bool((n != n0).any()):
+        raise ValueError(
+            f"the sensor epoch {int(n.reshape(-1)[0])} is not the count of "
+            f"firings before step {i} ({n0}): the navigation fleet starts "
+            f"at step 0 with its sensors' counter at 0")
+
+
 def _nav_periodic(sim, xv, u, s, kin_y, sys_y, i, plain, t):
     """The navigation avionics' pass (`NavAvionics.f_periodic` and
     `assign`) after step `i`: the truth at the new state for the sensors
     (`kernels.vehicle_truth`, its systems through the `systems` kernel on
-    the card), the sensors, the filter and its monitors as PyTorch tensor
-    code on the state's device (`NavAvionics.nav_pass`), its aiding block
-    gated by `epoch_gate` of the sensor epoch this firing makes, then the
-    inner avionics' pass kernel (`ctl_laws` or `gdc_ctl_laws`, their plain
-    versions on the CPU or with `plain`) on the estimated VehicleY, or in
-    shadow mode on the truth the truth-fed pass reads. The sensor epoch is
-    the firings' count from step 0, where `init_s` and `init_from_trim`
-    start it; the CPU path checks it against the state."""
+    the card), then on the card the `nav_pass` kernel (the sensors, the
+    filter and its monitors, the estimated VehicleY; the aiding block where
+    each lane's own epoch aids), on the CPU or with `plain` its plain
+    version (`kernels.nav_pass_plain`, the aiding block skipped where no
+    lane's own epoch aids), then the inner avionics' pass kernel
+    (`ctl_laws` or `gdc_ctl_laws`, their plain versions on the CPU or with
+    `plain`) on the estimated VehicleY, or in shadow mode on the truth the
+    truth-fed pass reads."""
     world = sim.system
     nav = world.aircraft.avionics
     vehicle = world.aircraft.vehicle
     uv, sv = u["vehicle"], s["vehicle"]
     s_av, u_av = s["avionics"], u["avionics"]
     name = K.avionics_layout(vehicle, nav).pass_name
-    n1 = (i + 1) // sim.steps_per_periodic
-    n = s_av["sens"]["n"]
-    if n.device.type == "cpu" and bool((n != n1 - 1).any()):
-        raise ValueError(
-            f"the sensor epoch {int(n.reshape(-1)[0])} is not the count of "
-            f"firings before step {i + 1} ({n1 - 1}): the navigation fleet "
-            f"starts at step 0 with its sensors' counter at 0")
-    if name != "ctl_laws":
-        kin_y = dict(kin_y, n_e=nvector_from_qew(xv["kinematics"]["q_ew"]))
     vy = K.vehicle_y(vehicle, xv, uv, kin_y, sys_y)
     kin, air, dyn = K.vehicle_truth(vehicle, xv, uv, sv, t,
                                     K.systems_plain if plain else K.systems)
     truth = vy._replace(kinematics=kin, airflow=air, dynamics=dyn)
+    vy = vy._replace(kinematics=vy.kinematics._replace(n_e=kin.n_e))
     h_trn = vehicle.terrain.terrain_data(uv["trn"]).elevation
-    s_nav, y_est, _ = nav.nav_pass(s_av, u_av, truth, h_trn,
-                                   nav.epoch_gate(n1))
-    y = {"ctl_laws": K.ctl_y, "gdc_ctl_laws": K.gdc_y}[name](
-        y_est if nav.use_estimates else vy)
+    if plain or h_trn.device.type == "cpu":
+        s_nav, y = K.nav_pass_plain(nav, vy, truth, h_trn, u_av, s_av)
+    else:
+        s_nav, y = K.nav_pass(nav, vy, truth, h_trn, u_av, s_av)
     fn = getattr(K, name + "_plain" if plain else name)
     s_in, cmd, *_ = fn(nav.inner, y, u_av["inner"], s_av["inner"],
                        world.periodic_dt)
@@ -297,11 +308,20 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
         K.system_params(vehicle)
         K.geoid_grid(vehicle.geoid)
         if aircraft.avionics is not None:  # refuses what has no kernel
-            K.avionics_layout(vehicle, aircraft.avionics)
+            if K.avionics_layout(vehicle, aircraft.avionics).nav:
+                K.ctl_gains(K.control_laws(aircraft.avionics))
+                K.normal_table(state.t.device)
             K.ctl_gains(aircraft.avionics)
     if split == "vehicle":
-        return lambda st, *, i: vehicle_step(sim, st, int(i), block)
-    if split == "subsystems":
+        fn = lambda st, i: vehicle_step(sim, st, i, block)
+    elif split == "subsystems":
         _refuse_turbulence(vehicle)
-        return lambda st, *, i: cluster_step(sim, st, int(i))
-    raise ValueError(f"split must be 'vehicle' or 'subsystems', not {split!r}")
+        fn = lambda st, i: cluster_step(sim, st, i)
+    else:
+        raise ValueError(
+            f"split must be 'vehicle' or 'subsystems', not {split!r}")
+
+    def step(st, *, i):
+        check_sensor_epoch(sim, st, int(i))
+        return fn(st, int(i))
+    return step

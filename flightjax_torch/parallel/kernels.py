@@ -39,6 +39,12 @@ The C172X's periodic pass:
                   phase overrides, then the phase's systems overrides), the
                   same places over a mission world; `megakernel_msn` is the
                   megakernel's instance there
+- `nav_pass`   <- the navigation avionics' pass before the inner laws
+                  (`NavAvionics.nav_pass`: sensors, faults, filter,
+                  monitors, estimated VehicleY), which the TPU megakernel
+                  runs inside the step over `build_xv1_nav` and the TPU
+                  cluster paths as XLA glue; `megakernel_nav` and
+                  `megakernel_nav_turb` are the megakernel's instances there
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); there is no fallback between the two.
@@ -70,6 +76,7 @@ from flightjax_torch.models.c172.common import (AERO_CONST, M_FULL, M_RES,
                                                 StrutWow, SystemsY, ThrusterY,
                                                 _alpha_gated, systems_y)
 from flightjax_torch.ops.geodesy import nvector_from_qew
+from flightjax_torch.ops.random import normal_table
 from flightjax_torch.ops.interp import Lookup
 from flightjax_torch.parallel import launch as L
 from flightjax_torch.physics import control as CTL
@@ -218,6 +225,48 @@ U_TURB = (("W20", 1), ("gust_amp", 3), ("gust_t0", 1), ("gust_T", 1),
 S_TURB = (("eta", 3),)
 T_ROW = (("t", 1),)
 TURB_INT = ("i", "seed", "n")
+N_TI = len(TURB_INT)
+# the navigation avionics (`physics/navigation.py`; rows of csrc/nav.cuh)
+# around the C172Xv1's control laws: NAV_U their inputs (the sensor catalog
+# per lane in the order of `sensors.suite_params`, the filter's origin, the
+# fault's size), NAV_S their floating state (the sensors' error processes,
+# the filter with P as 225 rows, the accumulator A, the fault hold
+# registers, the channels' last NIS, the monitors' alarms), both after the
+# control laws' avionics block; the integers past float32's exact range
+# (the stream's seed up to 2^31, the sensor epoch, the fault's channel,
+# mode, k0 and k1, each monitor's bit register) ride in an int32 operand,
+# NAV_INT; NAV_T the truth the sensors read (nav_pass's input)
+_P = ("sens", "params")
+NAV_U = (tuple(((*_P, "imu", k), 3 if k == "r_imu_b" else 1) for k in (
+    "sigma_gyro", "sigma_accel", "rw_gyro", "rw_accel", "bias0_gyro",
+    "bias0_accel", "scale_gyro", "scale_accel", "r_imu_b"))
+    + tuple(((*_P, "airdata", k), 1) for k in (
+        "sigma_p", "sigma_pt", "bias_p", "bias_pt", "sigma_T"))
+    + tuple(((*_P, "gps", k), 1) for k in (
+        "sigma_pos", "sigma_vel", "gm_sigma", "gm_tau"))
+    + (((*_P, "mag", "B_n"), 3), ((*_P, "mag", "sigma"), 1),
+       ((*_P, "mag", "hard_iron"), 3), ((*_P, "baro", "sigma"), 1),
+       ((*_P, "baro", "qnh"), 1), ((*_P, "radar", "sigma"), 1),
+       ((*_P, "radar", "h_max"), 1))
+    + tuple((("origin", k), 1) for k in ("lat0", "lon0", "h0", "baro_datum",
+                                         "N_geo")) + ((("origin", "B_n"), 3),
+                                                      (("fault", "delta"), 1)))
+MONITORS = ("gps", "vel", "baro", "mag", "radar")
+NAV_S = ((("sens", "b_g"), 3), (("sens", "b_a"), 3), (("sens", "gm_gps"), 3),
+         (("nav", "q_nb"), 4), (("nav", "v_n"), 3), (("nav", "p_n"), 3),
+         (("nav", "b_g"), 3), (("nav", "b_a"), 3), (("nav", "P"), (15, 15)),
+         (("A", "w"), (3, 3)), (("A", "cf"), (3, 3)), (("A", "c"), (3, 3)),
+         (("hold", "gps_p"), 3), (("hold", "gps_v"), 3),
+         (("hold", "h_baro"), 1), (("hold", "mag"), 3)) + tuple(
+    (("nis", k), 1) for k in ("baro", "gps", "gps_vel", "mag", "radar")) + \
+    tuple((("mon_" + k, "alarm"), 1) for k in MONITORS)
+NAV_INT = ((("sens", "seed"), "u"), (("sens", "n"), "s"),
+           *((("fault", k), "u") for k in ("channel", "mode", "k0", "k1")),
+           *((("mon_" + k, "bits"), "s") for k in MONITORS))
+NAV_T = (("omega_eb_b", 3), ("q_eb", 4), ("q_nb", 4), ("lat", 1), ("lon", 1),
+         ("n_e", 3), ("h_e", 1), ("h_o", 1), ("v_eb_n", 3), ("p", 1),
+         ("pt", 1), ("T", 1), ("f_c_c", 3), ("alpha_ib_b", 3), ("r_OG", 3),
+         ("h_trn", 1))
 TRN = (("elevation", 1), ("normal", 3), ("surface", 1))
 MP = (("m", 1), ("J", (3, 3)), ("r_OG", 3))
 WR = (("F", 3), ("tau", 3))
@@ -257,6 +306,13 @@ LEAF_DTYPES = {(("pwp", "engine", "mixture_ctl")): torch.int32,
                "eng_state": torch.int32}
 LEAF_DTYPES.update({(k, f): torch.int32 for k in AV_PRIMITIVES
                     for f in ("out_sat_0", "sat_out_0")})
+LEAF_DTYPES.update({("mon_" + k, "alarm"): torch.bool for k in MONITORS})
+# nav_pass (csrc/nav_pass.cu): in the truth's GDC_Y, the truth the sensors
+# read, the navigation avionics' inputs and floating state; out the GDC_Y
+# fields the inner laws read (the estimates in place of the truth's, the
+# truth's in shadow mode) and the new floating state
+NAV_IN = (GDC_Y, NAV_T, NAV_U, NAV_S)
+NAV_OUT = (GDC_Y, NAV_S)
 
 
 class Layout(NamedTuple):
@@ -272,9 +328,12 @@ class Layout(NamedTuple):
     turbulence's rows (X_TURB, U_TURB, S_TURB) and whose whole-vehicle
     kernels read the start time (T_ROW) and the int32 rows TURB_INT, the
     turbulent fly-by-wire C172X's too; `nav` avionics that fly the inner
-    avionics' pass on the navigation avionics' estimates, whose megakernel
-    is not ported (`mega_name` None, as for the turbulent C172Xv2 and
-    missions)."""
+    avionics' pass on the navigation avionics' estimates: around the
+    C172Xv1's control laws the megakernel's instances `megakernel_nav` and
+    `megakernel_nav_turb` (their buffer also holds NAV_U and NAV_S, their
+    int32 operand NAV_INT after the step counter's rows), around the
+    C172Xv2's no megakernel yet (`mega_name` None, as for the turbulent
+    C172Xv2 and missions)."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -296,7 +355,7 @@ class Layout(NamedTuple):
     nav: bool = False
 
 
-def _layout(fbw, gdc=False, msn=False, turb=False):
+def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
     x_sys, u_sys = (X_SYS_FBW, U_SYS_FBW) if fbw else (X_SYS, U_SYS)
     x_groups = (X_KIN, X_DYN, x_sys) + ((X_TURB,) if turb else ())
     ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),)
@@ -316,19 +375,21 @@ def _layout(fbw, gdc=False, msn=False, turb=False):
         + ((KIN_Y,) + y if fbw else ()) + ((S_TURB,) if turb else ()),
         mega=((("t", 1),),) + x_groups + ctx + (COMP,)
         + (AV_GROUPS if fbw else ()) + ((AV_U_GDC,) if gdc else ())
-        + ((AV_S_MSN,) if msn else ()),
+        + ((AV_S_MSN,) if msn else ()) + ((NAV_U, NAV_S) if nav else ()),
         # the subsystems split carries no turbulence: its turbulent
         # fly-by-wire names are the fly-by-wire ones, never launched
         names={k: k + ("_fbw" if fbw else "") + (
             "_turb" if turb and k.startswith("rk4") else "")
             for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=(None if turb and (gdc or msn) else "megakernel_msn" if msn
+        mega_name=(None if (turb or nav) and (gdc or msn)
+                   else ("megakernel_nav_turb" if turb else "megakernel_nav")
+                   if nav else "megakernel_msn" if msn
                    else "megakernel_gdc" if gdc
                    else "megakernel_fbw_turb" if fbw and turb
                    else "megakernel_fbw" if fbw else "megakernel_turb" if turb
                    else "megakernel"),
         pass_name=("msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
-                   else "ctl_laws" if fbw else None), turb=turb)
+                   else "ctl_laws" if fbw else None), turb=turb, nav=nav)
 
 
 # the C172S; the fly-by-wire C172X with its ControlLaws (the C172Xv1), with
@@ -348,6 +409,11 @@ TURB = _layout(False, turb=True)
 FBW_TURB = _layout(True, turb=True)
 GDC_TURB, MSN_TURB = (_layout(True, gdc=True, turb=True),
                       _layout(True, gdc=True, msn=True, turb=True))
+# the sensor-fed C172Xv1 (NavAvionics around its ControlLaws; c172x.
+# build_xv1_nav), calm and in Dryden turbulence: the fly-by-wire layouts
+# with the navigation avionics' rows in the megakernel's buffer
+FBW_NAV, FBW_TURB_NAV = _layout(True, nav=True), _layout(True, turb=True,
+                                                         nav=True)
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -363,7 +429,8 @@ def layout_of(vehicle, avionics=None):
     C172Xv2's guidance and control laws, MSN a mission over them; TURB for
     the C172S with Dryden turbulence, FBW_TURB (GDC_TURB, MSN_TURB) for the
     turbulent fly-by-wire C172X. Navigation avionics take their inner
-    avionics' layout, marked `nav`."""
+    avionics' layout, marked `nav`: around the control laws FBW_NAV
+    (FBW_TURB_NAV), whose megakernels carry them."""
     act = vehicle.systems.act
     stateful = getattr(act, "stateful", False)
     turb = getattr(vehicle, "turbulence", None) is not None
@@ -381,6 +448,8 @@ def layout_of(vehicle, avionics=None):
         lay = GDC_TURB if turb else GDC
     elif isinstance(inner, MissionAvionics):
         lay = MSN_TURB if turb else MSN
+    elif nav:
+        return FBW_TURB_NAV if turb else FBW_NAV
     else:
         lay = FBW_TURB if turb else FBW
     return lay._replace(nav=True, mega_name=None) if nav else lay
@@ -389,10 +458,11 @@ def layout_of(vehicle, avionics=None):
 def mega_refusal(lay):
     """Why the megakernel does not carry an aircraft of layout `lay`, or
     None where it does."""
-    if lay.nav:
-        return ("the navigation avionics (NavAvionics) have no megakernel "
-                "instance: ROADMAP Queue 2, 'The NavAvionics instances'; "
-                "they fly Simulation.fleet_step and "
+    if lay.nav and lay.mega_name is None:
+        return ("the navigation avionics around the C172Xv2's guidance and "
+                "control laws (build_xv2_nav) have no megakernel instance "
+                "(megakernel_gdc_nav): ROADMAP Queue 2, 'The NavAvionics "
+                "instances'; they fly Simulation.fleet_step and "
                 "make_cluster_step(split='vehicle')")
     if lay.mega_name is None:
         which = "mission" if lay.pass_name == "msn_ctl_laws" else "C172Xv2"
@@ -750,6 +820,49 @@ def mission_table_values(avionics):
     return head + recs + body
 
 
+def nav_param_values(nav):
+    """The filter's constants the navigation kernels read (csrc/nav.cuh,
+    NP_*), in float64: dt, sqrt(dt), dt^2, p_every dt, -0.5 dt, Q p_every,
+    the stacked rows' variances (the GPS position's for the avionics'
+    dtype), the gates, the monitors' window and hits, the cadences,
+    use_radar, radar_max_agl, use_estimates, then each ISA layer of the
+    baro altimeter's pressure altitude (zero lapse, base height, factor,
+    exponent, base pressure), then the airflow angles' policy (0 the
+    truth's, 1 "synthetic", 2 ("perturb", da, db)) with da and db, and
+    defer_cov. Without defer_cov the covariance steps every firing
+    (`InsGps.predict`): p_every is 1 and Q unscaled."""
+    from flightjax_torch.physics.atmosphere import G_STD, ISA_LAYERS, R_GAS
+    from flightjax_torch.physics.sensors import _ISA_BASES
+    f, dt = nav.filter, nav.dt
+    k = nav.p_every if nav.defer_cov else 1
+    r = ([f.r_pos_eff(nav.dtype)] * 3 + [f.r_vel] * 3 + [f.r_baro]
+         + [f.r_mag_dir] * 3 + [f.sigma_radar ** 2])
+    out = [dt, math.sqrt(dt), dt ** 2, float(k) * dt, -0.5 * dt]
+    out += (float(k) * f.Q_diag).tolist() + r
+    out += [nav.gps_gate, nav.vel_gate, nav.baro_gate, nav.mag_gate,
+            nav.radar_gate, float(nav.monitor_window),
+            float(nav.monitor_min_hits), float(nav.suite.gps_every),
+            float(nav.baro_every), float(nav.mag_every),
+            float(nav.radar_every), float(k), float(nav.use_radar),
+            nav.radar_max_agl, float(nav.use_estimates)]
+    for (beta, _), (h_b, T_b, p_b) in zip(ISA_LAYERS, _ISA_BASES):
+        if beta == 0.0:
+            out += [1.0, h_b, R_GAS * T_b / G_STD, 0.0, p_b]
+        else:
+            out += [0.0, h_b, T_b / beta, -beta * R_GAS / G_STD, p_b]
+    ab = nav.alpha_beta
+    if ab == "truth":
+        out += [0.0, 0.0, 0.0]
+    elif ab == "synthetic":
+        out += [1.0, 0.0, 0.0]
+    else:
+        tag, da, db = ab
+        assert tag == "perturb", ab
+        out += [2.0, float(da), float(db)]
+    out.append(float(nav.defer_cov))
+    return [float(v) for v in out]
+
+
 def mission_table(avionics):
     """The mission table on the avionics' device in their dtype, cast once
     from float64 (`mission_table_values`)."""
@@ -767,14 +880,20 @@ def ctl_gains(avionics):
     schedules' own (EAS, h) grid and extrapolation. A mission's buffer
     holds one more offset after the tables' (that of the mission table)
     and the mission table at its end: the mission instances read both from
-    it, and the megakernel keeps the other instances' parameters."""
+    it, and the megakernel keeps the other instances' parameters. The
+    navigation avionics' buffer holds the filter's constants there in the
+    same way (`nav_param_values`), which nav_pass and the megakernel's
+    navigation instances read."""
+    from flightjax_torch.physics.navigation import NavAvionics
     mission = isinstance(avionics, MissionAvionics)
+    nav = isinstance(avionics, NavAvionics)
     laws = control_laws(avionics)
-    key = avionics if mission else laws
+    key = avionics if mission or nav else laws
     buf = _GAINS.get(key)
     if buf is None:
-        extra = mission_table_values(avionics) if mission else None
-        n_head = len(CTL_TABLES) + mission
+        extra = (mission_table_values(avionics) if mission
+                 else nav_param_values(avionics) if nav else None)
+        n_head = len(CTL_TABLES) + (extra is not None)
         body = []
         offsets = []
         for ch in CTL_TABLES:
@@ -1402,6 +1521,8 @@ _INSTANCES[TURB.mega_name] = ("megakernel", TURB)
 _INSTANCES[FBW_TURB.mega_name] = ("megakernel", FBW_TURB)
 _INSTANCES[GDC.mega_name] = ("megakernel", GDC)
 _INSTANCES[MSN.mega_name] = ("megakernel", MSN)
+_INSTANCES[FBW_NAV.mega_name] = ("megakernel", FBW_NAV)
+_INSTANCES[FBW_TURB_NAV.mega_name] = ("megakernel", FBW_TURB_NAV)
 
 
 def _av_tree(d):
@@ -1426,8 +1547,13 @@ def av_groups(lay):
 def pack_avionics(lay, u_av, s_av, B, dtype):
     """The avionics' inputs and state as the rows of `av_groups(lay)`: u
     lon, u lat, s lon, s lat (of the control laws), then on the C172Xv2 the
-    guidance's inputs, then a mission's phase and clock."""
-    if lay.pass_name == "msn_ctl_laws":
+    guidance's inputs, then a mission's phase and clock; around the
+    navigation avionics their NAV_U and NAV_S rows (their integers in
+    `pack_nav_int`)."""
+    if lay.nav:
+        objs = (u_av["inner"]["lon"], u_av["inner"]["lat"],
+                s_av["inner"]["lon"], s_av["inner"]["lat"], u_av, s_av)
+    elif lay.pass_name == "msn_ctl_laws":
         s_ctl = s_av["inner"]["ctl"]
         objs = (u_av["ctl"]["lon"], u_av["ctl"]["lat"], s_ctl["lon"],
                 s_ctl["lat"], u_av["gdc"], s_av)
@@ -1439,12 +1565,40 @@ def pack_avionics(lay, u_av, s_av, B, dtype):
     return pack(av_groups(lay), objs, B, dtype)
 
 
-def unpack_avionics(lay, buf):
-    """(u_av, s_av) of the rows `pack_avionics` writes, typed again."""
+def pack_nav_int(u_av, s_av):
+    """The NAV_INT rows of the navigation avionics, an int32 `[11, B]`
+    tensor: the sensors' seed and epoch, the fault's channel, mode, k0 and
+    k1, each monitor's bit register (its uint32 in int32)."""
+    rows_ = []
+    for key, side in NAV_INT:
+        v = _get(u_av if side == "u" else s_av, key).to(torch.int64)
+        rows_.append(torch.where(v >= 2 ** 31, v - 2 ** 32, v))
+    return torch.stack(rows_).to(torch.int32).contiguous()
+
+
+def _nav_trees(u_nav, s_nav, ints):
+    """The navigation avionics' u and s (but their "inner") from the
+    unpacked NAV_U and NAV_S groups and the NAV_INT rows `ints`."""
+    from flightjax_torch.utils.estimation import InsGpsState
+    u_nav, s_nav = dict(u_nav), dict(s_nav)
+    for (key, side), v in zip(NAV_INT, ints):
+        v = v.to(torch.int64) & 0xFFFFFFFF if key[1] == "bits" else v
+        node = u_nav if side == "u" else s_nav
+        node[key[0]] = dict(node.get(key[0], {}), **{key[1]: v})
+    s_nav["nav"] = InsGpsState(**s_nav["nav"])
+    return u_nav, s_nav
+
+
+def unpack_avionics(lay, buf, ints=None):
+    """(u_av, s_av) of the rows `pack_avionics` writes, typed again; the
+    navigation avionics' integers from their NAV_INT rows `ints`."""
     u_lon, u_lat, s_lon, s_lat, *more = unpack(av_groups(lay), buf,
                                                typed=True)
     u_av = {"lon": u_lon, "lat": u_lat}
     s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
+    if lay.nav:
+        u_nav, s_nav = _nav_trees(*more, ints)
+        return dict(u_nav, inner=u_av), dict(s_nav, inner=s_av)
     if not more:
         return u_av, s_av
     u_av = {"ctl": u_av, "gdc": _gdc_tree(more[0])}
@@ -1476,6 +1630,9 @@ def unpack_out(name, out, comp=False, ints=None):
     state rows (TURB_INT), rk4_finish_turb's the rows it was given, whose
     drive counter the new s["turb"] takes one step on."""
     base, lay = _INSTANCES.get(name, (name, MECH))
+    if base == "nav_pass":
+        y, s_nav = unpack(NAV_OUT, out, typed=True)
+        return _nav_trees({}, s_nav, ints)[1], y
     if base == "ctl_laws":
         s_lon, s_lat, cmd = unpack(CTL_OUT, out, typed=True)
         return {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}, cmd
@@ -1500,7 +1657,9 @@ def unpack_out(name, out, comp=False, ints=None):
             xv, uv, sv, terminated, c_kin, _ = unpack_vehicle(out[1:n], lay)
         u_av = s_av = None
         if lay.fbw:
-            u_av, s_av = unpack_avionics(lay, out[n:])
+            u_av, s_av = unpack_avionics(
+                lay, out[n:], ints[(N_TI if lay.turb else 1):]
+                if lay.nav else None)
         return (t, xv, uv, sv, terminated, c_kin if comp else None, u_av,
                 s_av)
     if base == "kinair":
@@ -1735,6 +1894,53 @@ def msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
     return unpack_out("msn_ctl_laws", _launch("msn_ctl_laws", args))
 
 
+def nav_truth(truth, h_trn):
+    """The NAV_T fields of a VehicleY holding the truth's KinData, AirData
+    and DynamicsY (`vehicle_truth`) and the terrain's elevation."""
+    k, a, d = truth.kinematics, truth.airflow, truth.dynamics
+    out = {f: getattr(k, f) for f in ("omega_eb_b", "q_eb", "q_nb", "lat",
+                                      "lon", "n_e", "h_e", "h_o", "v_eb_n")}
+    out.update(p=a.p, pt=a.pt, T=a.T, f_c_c=d.f_c_c, alpha_ib_b=d.alpha_ib_b,
+               r_OG=d.mp_sum_b.r_OG, h_trn=h_trn.expand_as(a.p))
+    return out
+
+
+def nav_pass_plain(nav, vy, truth, h_trn, u_av, s_av):
+    """The navigation avionics' pass before the inner laws,
+    `NavAvionics.nav_pass`, its aiding block skipped where no lane's own
+    sensor epoch aids (`epoch_gate`; a lane without an epoch leaves it
+    unchanged but for a rounding, as the kernel skips it lane by lane):
+    `vy` the VehicleY the truth-fed inner laws read (with the n-vector),
+    `truth` the one holding the truth the sensors read (`vehicle_truth`),
+    `h_trn` the terrain's elevation. Returns (the new state but its
+    "inner", the GDC_Y fields the inner laws read: the estimates, or in
+    shadow mode the truth's)."""
+    s_nav, y_est, _ = nav.nav_pass(s_av, u_av, truth, h_trn,
+                                   nav.epoch_gate(s_av["sens"]["n"] + 1))
+    return s_nav, gdc_y(y_est if nav.use_estimates else vy)
+
+
+def pack_nav_pass(nav, vy, truth, h_trn, u_av, s_av):
+    like = truth.airflow.p
+    buf = pack(NAV_IN, (gdc_y(vy), nav_truth(truth, h_trn), u_av, s_av),
+               like.shape[0], like.dtype)
+    return buf, rows(NAV_OUT), (), {"gains": ctl_gains(nav),
+                                    "ints": pack_nav_int(u_av, s_av)}
+
+
+def nav_pass(nav, vy, truth, h_trn, u_av, s_av, block=None):
+    """`nav_pass_plain` on the CPU, the `nav_pass` CUDA kernel on the card
+    (the aiding block where each lane's own epoch aids)."""
+    args = (nav, vy, truth, h_trn, u_av, s_av)
+    if h_trn.device.type == "cpu":
+        return nav_pass_plain(*args)
+    buf, n_out, _, ops = pack_nav_pass(*args)
+    out, ints = L.launch_nav_pass(buf, n_out, ops["ints"], ops["gains"],
+                                  normal_table(buf.device), block)
+    LAUNCHES["nav_pass"] += 1
+    return unpack_out("nav_pass", out, ints=ints)
+
+
 def geoid_packed(geo, q_rows, block=None):
     """The undulation `[1, B]` under the q_ew rows `[4, B]`: the kernel on
     the card, `geoid_plain` on the CPU."""
@@ -1755,14 +1961,20 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     first, or with a mission over them `megakernel_msn`, whose pass runs
     the phase machine first; with the turbulent C172S `megakernel_turb`,
     whose int32 buffer holds (i, seed, n), and with the turbulent C172Xv1
-    `megakernel_fbw_turb`, whose int32 buffer holds them too."""
-    name = layout_of(vehicle, avionics).mega_name
+    `megakernel_fbw_turb`, whose int32 buffer holds them too; with the
+    navigation avionics around the C172Xv1's control laws
+    `megakernel_nav` (`megakernel_nav_turb` in turbulence), whose int32
+    buffer holds the NAV_INT rows after those and which reads the sensors'
+    normal table (`ops/random.normal_table`)."""
+    lay = layout_of(vehicle, avionics)
+    name = lay.mega_name
     out = L.launch_megakernel(
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
         None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
         gdc=name == GDC.mega_name, msn=name == MSN.mega_name,
-        turb=name in (TURB.mega_name, FBW_TURB.mega_name))
+        turb=lay.turb,
+        table=normal_table(bufs[0].device) if lay.nav else None)
     LAUNCHES[name] += 1
     return out
 

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -59,16 +60,21 @@ TURB_KERNELS = ("rk4_stage_turb", "rk4_finish_turb", "megakernel_turb")
 # fleet): the whole-vehicle kernels and the megakernel with its control laws
 FBW_TURB_KERNELS = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
                     "megakernel_fbw_turb")
+# and for the sensor-fed C172Xv1 (the navigation avionics around its control
+# laws, csrc/nav.cuh): their pass as a kernel of its own, which the splits
+# launch, and the megakernel's instances, calm and turbulent
+NAV_KERNELS = ("nav_pass", "megakernel_nav", "megakernel_nav_turb")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
-                *TURB_KERNELS, *FBW_TURB_KERNELS)
+                *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
 COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc",
                "megakernel_msn", "rk4_stage_turb", "megakernel_turb",
-               "rk4_stage_fbw_turb", "megakernel_fbw_turb")
+               "rk4_stage_fbw_turb", "megakernel_fbw_turb", "megakernel_nav",
+               "megakernel_nav_turb")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -78,7 +84,7 @@ N_GAIN_TABLES = 10
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
-           *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS)
+           *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
 # counter, stream seed, drive counter) of the turbulent vehicle
@@ -92,6 +98,9 @@ WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws")
 WITH_INTS = ("rk4_finish_turb", "rk4_finish_fbw_turb")
 # rows of the turbulent vehicle's int32 operand
 N_TURB_INT = 3
+# rows of the navigation avionics' int32 operand (NAV_INT of csrc/nav.cuh),
+# and of the work buffer of their 15 x 15 algebra
+N_NAV_INT, N_NAV_WORK = 11, 1556
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -141,9 +150,12 @@ def build():
         BUILD_DIR, f"{os.path.basename(p)[:-3]}_{tag}.o"))
         for p in srcs if p.endswith(".cu")]
     log, failed = [], []
+    t0 = time.time()
     for cmd, proc in jobs:
         out = proc.communicate()[0]
         log.append(" ".join(cmd) + "\n" + out)
+        log.append(f"nvcc {os.path.basename(cmd[-1])}: done by "
+                   f"{time.time() - t0:.1f} s")
         if proc.returncode != 0:
             failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
     objs = [cmd[-2] for cmd, _ in jobs]
@@ -206,6 +218,9 @@ def library():
                        rk4_stage_fbw_turb=sig["rk4_stage"],
                        megakernel_fbw_turb=sig["megakernel_fbw"])
             sig["rk4_finish_fbw_turb"] = sig["rk4_finish_turb"]
+            sig["nav_pass"] = [P] * 7 + [I, I, P]
+            sig["megakernel_nav"] = sig["megakernel_nav_turb"] = (
+                [P] * 9 + [I, I, D, D, I, I, D, I, P])
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -215,6 +230,8 @@ def library():
                 f = getattr(lib, f"{name}_launch_shape")
                 f.argtypes = [I] * 4 + [ctypes.POINTER(I)] * 3
                 f.restype = None
+            lib.nav_rows.argtypes = [ctypes.POINTER(I)] * 6
+            lib.nav_rows.restype = None
             lib.empty_launch.argtypes = [I, I, I, P]
             lib.empty_launch.restype = I
             BUILD_INFO["so"] = so
@@ -402,9 +419,68 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     return out
 
 
+def nav_rows():
+    """{u, s, i, t, work, params}: the rows of the navigation blocks NAV_U,
+    NAV_S, NAV_INT, NAV_T, of the work buffer and the length of the filter's
+    parameter block, as the compiled kernels declare them."""
+    if "nav" not in _LAYOUTS:
+        v = [ctypes.c_int() for _ in range(6)]
+        library().nav_rows(*map(ctypes.byref, v))
+        _LAYOUTS["nav"] = dict(zip(("u", "s", "i", "t", "work", "params"),
+                                   (x.value for x in v)))
+    return _LAYOUTS["nav"]
+
+
+def check_table(table, device):
+    """The sensors' normal table (`ops/random.normal_table`): 2^23 float32
+    values on the device."""
+    if not isinstance(table, torch.Tensor):
+        raise TypeError("the normal table must be a tensor")
+    if (table.device != device or table.dtype != torch.float32
+            or tuple(table.shape) != (2 ** 23,) or not table.is_contiguous()):
+        raise ValueError(f"normal table {tuple(table.shape)} "
+                         f"{table.dtype} on {table.device}, expected "
+                         f"(2^23,) float32 on {device}")
+
+
+def _nav_work(B, dtype, device):
+    if nav_rows()["work"] != N_NAV_WORK:
+        raise ValueError(f"the kernels' work buffer has {nav_rows()['work']}"
+                         f" rows, the harness {N_NAV_WORK}")
+    return torch.empty((N_NAV_WORK, B), dtype=dtype, device=device)
+
+
+def launch_nav_pass(packed_in, n_out, ints, gains, table, block=None):
+    """The navigation pass `nav_pass` on a packed `[n_in, B]` CUDA tensor
+    (csrc/nav_pass.cu), with the NAV_INT rows `ints` (int32 `[11, B]`), the
+    gains holding the filter's constants and the normal table; a work
+    buffer for the filter's matrices is allocated here. Returns the packed
+    `[n_out, B]` output and the new int32 rows. `block` is the aircraft
+    per block (32 or 64). Does not synchronise."""
+    dtype, device = packed_in.dtype, packed_in.device
+    fn = _fn("nav_pass", dtype, device)
+    n_in, n_out_k = layout("nav_pass")
+    B = packed_in.shape[1]
+    check_operand(packed_in, n_in, B, dtype, device)
+    if n_out != n_out_k:
+        raise ValueError(f"nav_pass: {n_out} output rows, kernel has "
+                         f"{n_out_k}")
+    check_operand(ints, N_NAV_INT, B, torch.int32, device)
+    check_gains(gains, dtype, device)
+    check_table(table, device)
+    work = _nav_work(B, dtype, device)
+    out = torch.empty((n_out, B), dtype=dtype, device=device)
+    i_out = torch.empty_like(ints)
+    _run("nav_pass", fn, (packed_in.data_ptr(), ints.data_ptr(),
+                          gains.data_ptr(), table.data_ptr(),
+                          work.data_ptr(), out.data_ptr(), i_out.data_ptr(),
+                          B), block)
+    return out, i_out
+
+
 def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
                       gains=None, spp=1, periodic_dt=0.0, gdc=False,
-                      msn=False, turb=False):
+                      msn=False, turb=False, table=None):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
     new (state, i) in fresh buffers. `block` is the aircraft per block.
@@ -416,15 +492,22 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     table), or with `turb` the turbulent C172S's `megakernel_turb`, whose
     `i` is the int32 `[3, B]` rows (i, seed, n), with `turb` and the gains
     the turbulent C172Xv1's `megakernel_fbw_turb`, whose `i` is those rows
-    too. Does not synchronise."""
+    too. With the sensors' normal `table` (and the gains of the navigation
+    avionics, `kernels.ctl_gains`) the sensor-fed C172Xv1's
+    `megakernel_nav`, with `turb` its `megakernel_nav_turb`, whose `i` also
+    holds the NAV_INT rows (`[1 + 11, B]`, `[3 + 11, B]`); their work
+    buffer is allocated here. Does not synchronise."""
     fbw = gains is not None
-    if (gdc or msn) and not fbw:
+    nav = table is not None
+    if (gdc or msn or nav) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
-    if turb and (gdc or msn):
-        raise ValueError("the turbulent megakernels carry the C172S and the "
-                         "C172Xv1")
+    if (turb or nav) and (gdc or msn):
+        raise ValueError("the turbulent and the navigation megakernels "
+                         "carry the C172S and the C172Xv1")
     name = ("megakernel_msn" if msn else "megakernel_gdc" if gdc
+            else "megakernel_nav_turb" if nav and turb
+            else "megakernel_nav" if nav
             else "megakernel_fbw_turb" if fbw and turb
             else "megakernel_fbw" if fbw else "megakernel_turb" if turb
             else "megakernel")
@@ -432,7 +515,8 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     fn = _fn(name, dtype, device)
     B = state.shape[1]
     check_operand(state, layout(name)[0], B, dtype, device)
-    check_operand(i, N_TURB_INT if turb else 1, B, torch.int32, device)
+    check_operand(i, (N_TURB_INT if turb else 1) + (N_NAV_INT if nav else 0),
+                  B, torch.int32, device)
     check_params(params, dtype, device, fbw, turb)
     check_grid(grid, dtype, device)
     out, i_out = torch.empty_like(state), torch.empty_like(i)
@@ -445,6 +529,9 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
             raise ValueError(f"steps per periodic pass {spp} < 1")
         ptrs.append(gains.data_ptr())
         tail = (int(spp), float(periodic_dt))
+    if nav:
+        check_table(table, device)
+        ptrs += [table.data_ptr(), _nav_work(B, dtype, device).data_ptr()]
     _run(name, fn, (*ptrs, out.data_ptr(), i_out.data_ptr(), B,
                     params.numel(), float(dt), float(t_start),
                     int(bool(comp)), *tail), block)

@@ -53,7 +53,8 @@ def megakernel_step_plain(sim, state: SimState) -> SimState:
     the periodic pass where each lane's counter fires: the port of
     `jax.vmap(Simulation.step)`, the kernel's plain version (on the
     turbulent C172S the plain whole-vehicle step, compensated iff
-    `state.c`)."""
+    `state.c`). The navigation avionics' pass reads each lane's own sensor
+    epoch, as `Simulation.step` does."""
     spp = sim.steps_per_periodic
     # a fleet counter at which the pass fires; the lanes whose own counter
     # does not fire keep their inputs and avionics state
@@ -84,9 +85,12 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     over those whose phases carry descriptors (`core/mission.py`,
     `models/c172/missions.py`), the turbulent C172S (`megakernel_turb`,
     whose int32 buffer is `[3, B]`: i, seed, n) and the turbulent C172Xv1
-    on its control laws (`megakernel_fbw_turb`, the same int32 rows). The
-    navigation avionics and the turbulent C172Xv2 and missions are refused
-    (`kernels.mega_refusal`)."""
+    on its control laws (`megakernel_fbw_turb`, the same int32 rows), and
+    the sensor-fed C172Xv1 (`NavAvionics(ControlLaws)`, `c172x.
+    build_xv1_nav`: `megakernel_nav`, in turbulence `megakernel_nav_turb`,
+    whose int32 buffer holds the navigation avionics' NAV_INT rows after
+    the step counter's). The navigation avionics around the C172Xv2, the
+    turbulent C172Xv2 and missions are refused (`kernels.mega_refusal`)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
@@ -121,6 +125,9 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
             parts.append(K.pack_avionics(lay, st.u["avionics"],
                                          st.s["avionics"], parts[-1].shape[1],
                                          parts[-1].dtype))
+        if lay.nav:
+            ints = torch.cat([ints, K.pack_nav_int(st.u["avionics"],
+                                                   st.s["avionics"])])
         return torch.cat(parts).contiguous(), ints
 
     def unpack(bufs):
@@ -146,4 +153,6 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
         K.geoid_grid(vehicle.geoid)
         if lay.fbw:
             K.ctl_gains(avionics)
+        if lay.nav:
+            K.normal_table(state.t.device)
     return pack(state), step_packed, unpack

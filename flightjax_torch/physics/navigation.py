@@ -18,9 +18,10 @@ The aiding-epoch gate. The reference hoists the stacked monitored block
 behind a fleet-level scalar `lax.cond` whose predicate it reads from the
 sensors' epoch counter (`epoch_preds`, `core/sim.py:375-389`); where no
 lane has an aiding epoch the block is skipped, exactly. Here the caller
-passes that predicate (`aid`) from the host's step counter
-(`epoch_gate`), so the gate costs no device sync: True runs the block,
-False skips it, None runs it ungated (the reference's `Simulation.step`).
+passes that predicate (`aid`), `epoch_gate` of the lanes' own epoch
+counters (`kernels.nav_pass_plain`) or of a host counter: True runs the
+block, False skips it, None runs it ungated (the reference's
+`Simulation.step`).
 
 Four findings of the reference's review (ADVICE.md) are carried as the
 reference has them, and the port matches it on each (ROADMAP Queue 3):
@@ -157,6 +158,8 @@ class NavAvionics:
         self.baro_gate = float(baro_gate)
         self.mag_gate = float(mag_gate)
         self.radar_gate = float(radar_gate)
+        self.monitor_window = int(monitor_window)
+        self.monitor_min_hits = int(monitor_min_hits)
         mk = dict(window=monitor_window, min_hits=monitor_min_hits)
         self.monitors = {name: innovation_monitor(gate, **mk) for name, gate
                          in (("gps", gps_gate), ("vel", vel_gate),
@@ -266,12 +269,14 @@ class NavAvionics:
 
     def epoch_gate(self, n1):
         """The host form of `epoch_preds` (`navigation.py:668-685`): does
-        the firing that makes sensor epoch `n1` (an int, every lane's) aid
-        on any channel? None where a channel aids every firing (the gate
-        would never skip)."""
+        the firing that makes sensor epoch `n1` (an int, or each lane's as
+        a tensor) aid on any channel on any lane? None where a channel aids
+        every firing (the gate would never skip)."""
         everys = self.everys()
         if min(everys) <= 1:
             return None
+        if isinstance(n1, torch.Tensor):
+            return any(bool((n1 % e == 0).any()) for e in everys)
         return any(int(n1) % e == 0 for e in everys)
 
     def nav_pass(self, s, u, veh_y, h_trn=0.0, aid=None):

@@ -1094,3 +1094,404 @@ def xv1_turb_fleet_sim(batch, seed, device, dtype):
     av_u, av_s = st.u["avionics"]["inner"], st.s["avionics"]["inner"]
     return sim, st._replace(u=dict(st.u, avionics=av_u),
                             s=dict(st.s, avionics=av_s))
+
+
+# ------------------------------------------------------------ navigation
+# settings of the navigation avionics for the mode-rich operands: the
+# study's; with the radar aiding and the cadences (GPS 2, baro and radar 3,
+# mag 5) under which the firings run through every combination of epochs;
+# shadow mode
+NAV_SETTINGS = {"default": {},
+                "radar": {"use_radar": True, "gps_every": 2,
+                          "baro_every": 3, "mag_every": 5},
+                "shadow": {"use_estimates": False},
+                "synthetic": {"alpha_beta": "synthetic"},
+                "perturb": {"alpha_beta": ("perturb", 0.01, -0.02)},
+                "immediate": {"defer_cov": False}}
+# lanes of the operands whose sensor catalog is `exact_suite_params` (zero
+# sigmas and biases)
+NAV_EXACT_LANES = (5, 23)
+# the radar's height above the terrain on the lanes past the fault lanes:
+# low, either side of radar_max_agl (150 m) and past h_max (762 m)
+NAV_AGL = (40.0, 149.0, 151.0, 500.0, 770.0)
+
+
+def nav_sim(device, dtype, turbulence=True, setting="default", spp=1):
+    """(sim, trimmed single-aircraft SimState) of the sensor-fed C172Xv1
+    (`c172x.build_xv1_nav` with the NAV_SETTINGS `setting`), in Dryden
+    turbulence or calm, its pass every `spp` steps, the autopilot engaged
+    on the turning climb, uncompensated."""
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172.c172x import (build_xv1_nav,
+                                                   trimmed_xv1_state,
+                                                   turning_climb)
+    from flightjax_torch.physics.aircraftbase import SimpleWorld
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    kw = dict(NAV_SETTINGS[setting])
+    use_est = kw.pop("use_estimates", True)
+    pdt = 0.02 * spp
+    turb = DrydenTurbulence(0.02) if turbulence else None
+    tkw = {} if turb is None else {"turbulence": turb}
+
+    def build(**k):
+        return build_xv1_nav(periodic_dt=pdt, use_estimates=use_est,
+                             nav_kw=kw, **k)
+    sim = Simulation(SimpleWorld(build(device=device, dtype=dtype, **tkw)),
+                     dt=0.02, periodic_dt=pdt)
+    st = trimmed_xv1_state(pdt, dtype, device, build=build, turbulence=turb)
+    return sim, turning_climb(st)
+
+
+def nav_operand_state(batch, seed, device, dtype, turbulence=True,
+                      setting="default", spp=1):
+    """(sim, SimState) of `batch` sensor-fed C172Xv1 lanes (`nav_sim`)
+    whose navigation avionics are in every mode the pass takes, drawn from
+    a numpy seed: each lane at its own sensor epoch (10 consecutive epochs
+    on every 10 lanes, so the firings cover GPS, baro and mag epochs
+    together, baro and mag alone and none; under the "radar" setting every
+    combination), its stream's seed (above 2^24 on half the lanes); each
+    fault channel in each mode before, inside and after its window (lanes
+    0..47); the filter off the truth by position, velocity and attitude
+    errors spread over three decades, so that each channel's NIS falls on
+    both sides of its gate; a full P, the accumulator A and the hold
+    registers random; each monitor one hit from latching on one lane and
+    latched on another (lanes 12..21); the lanes past the faults at heights
+    NAV_AGL over the terrain (the radar valid and not, either side of
+    radar_max_agl); the
+    NAV_EXACT_LANES with zero sigmas. Wind N(0, 3 m/s), height N(0, 30 m)
+    and on the turbulent vehicle W20 ~ U(0, 8) with the discrete gust on
+    some lanes."""
+    from flightjax_torch.core.sim import SimState
+    from flightjax_torch.parallel import fleet
+    from flightjax_torch.physics import navigation as N
+    from flightjax_torch.physics.sensors import (exact_suite_params,
+                                                 pressure_altitude)
+    rng = np.random.default_rng(seed)
+    sim, st1 = nav_sim("cpu", torch.float64, turbulence, setting, spp)
+    st = fleet.broadcast_state(st1, batch)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+    i64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64))
+    x, u, s = st.x, st.u, st.s
+    kin = dict(x["vehicle"]["kinematics"])
+    kin["h_e"] = kin["h_e"] + f64(rng.normal(0.0, 30.0, batch))
+    uv = dict(u["vehicle"])
+    uv["atm"] = dict(uv["atm"], wind=f64(rng.normal(0.0, 3.0, (batch, 3))))
+    if turbulence:
+        tu = dict(uv["turb"])
+        tu["W20"] = f64(rng.uniform(0.0, 8.0, batch))
+        gust = rng.random(batch) < 0.3
+        tu["gust_amp"] = f64(np.where(gust[:, None],
+                                      rng.normal(0.0, 2.0, (batch, 3)), 0.0))
+        tu["gust_t0"] = f64(np.where(gust, 0.0, 1e9))
+        tu["gust_T"] = f64(np.full(batch, 0.5))
+        tu["seed"] = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, batch),
+                                     dtype=uv["turb"]["seed"].dtype)
+        uv["turb"] = tu
+    # the lanes past the faults at the radar's heights over the terrain
+    # (flat, at orthometric 0)
+    for k in range(48, batch):
+        kin["h_e"][k] = (s["vehicle"]["geoid_N"][k]
+                         + NAV_AGL[k % len(NAV_AGL)])
+    nav = sim.system.aircraft.avionics
+    av_u, av_s = dict(u["avionics"]), dict(s["avionics"])
+    n = np.array([(k % 10) + 10 * (1 + (k // 10) % 5) + 2 for k in
+                  range(batch)])
+    sens_u = dict(av_u["sens"])
+    sens_u["seed"] = torch.as_tensor(np.where(
+        np.arange(batch) % 2 == 0, rng.integers(2 ** 24, 2 ** 31 - 1, batch),
+        rng.integers(0, 2 ** 24, batch)), dtype=torch.int32)
+    params = {g: dict(v) for g, v in sens_u["params"].items()}
+    exact = exact_suite_params()
+    for lane in NAV_EXACT_LANES:
+        if lane < batch:
+            for g, d in exact.items():
+                for k, v in d.items():
+                    params[g][k] = params[g][k].clone()
+                    params[g][k][lane] = f64(v)
+    sens_u["params"] = params
+    av_u["sens"] = sens_u
+    # the filter's origin and baro datum at each lane's own fix
+    veh = sim.system.aircraft.vehicle
+    xv = dict(x["vehicle"], kinematics=kin)
+    y = veh.output(xv, uv, s["vehicle"], st.t)
+    qnh = params["baro"]["qnh"]
+    av_u["origin"] = dict(av_u["origin"], lat0=y.kinematics.lat,
+                          lon0=y.kinematics.lon, h0=y.kinematics.h_e,
+                          baro_datum=pressure_altitude(y.airflow.p)
+                          - pressure_altitude(qnh) - y.kinematics.h_e)
+    # the faults on lanes 0..47: channel, mode, window before, around,
+    # after the record index k = n
+    ch = np.zeros(batch, np.int64)
+    mode = np.zeros(batch, np.int64)
+    k0 = np.full(batch, N.NEVER, np.int64)
+    k1 = np.full(batch, N.NEVER, np.int64)
+    for k in range(min(48, batch)):
+        ch[k], mode[k], when = 1 + k % 4, (k // 4) % 4, k // 16
+        k0[k] = n[k] + (3, -2, -6)[when]
+        k1[k] = n[k] + (10, 5, -1)[when]
+    av_u["fault"] = {"channel": i64(ch).to(torch.int32),
+                     "mode": i64(mode).to(torch.int32),
+                     "k0": i64(k0).to(torch.int32),
+                     "k1": i64(k1).to(torch.int32),
+                     "delta": f64(rng.choice([-4.0, 3.0], batch))}
+    # the filter off the truth, a full P, A, the hold registers
+    scale = 10.0 ** rng.uniform(-1.0, 2.0, batch)
+    filt = av_s["nav"]
+    q = qmul_np(filt.q_nb.numpy(), np.concatenate(
+        [np.ones((batch, 1)), rng.normal(0.0, 0.02, (batch, 3))
+         * scale[:, None] / 10.0], axis=-1))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    # P = D^1/2 (I + R R^T) D^1/2 about the filter's initial variances D
+    sd = np.sqrt(np.concatenate([[0.05 ** 2] * 3, [0.2 ** 2] * 3,
+                                 [3.0 ** 2] * 3, [5e-3 ** 2] * 3,
+                                 [0.05 ** 2] * 3]))
+    R_ = rng.normal(0.0, 0.2, (batch, 15, 15))
+    P = sd[None, :, None] * (np.eye(15)[None] + R_ @ np.swapaxes(
+        R_, -1, -2)) * sd[None, None, :]
+    P = 0.5 * (P + np.swapaxes(P, -1, -2))
+    av_s["nav"] = filt._replace(
+        q_nb=f64(q),
+        v_n=filt.v_n + f64(rng.normal(0.0, 0.3, (batch, 3)) * scale[:, None]
+                           / 3.0),
+        p_n=filt.p_n + f64(rng.normal(0.0, 1.0, (batch, 3)) * scale[:, None]),
+        b_g=f64(rng.normal(0.0, 1e-3, (batch, 3))),
+        b_a=f64(rng.normal(0.0, 1e-2, (batch, 3))), P=f64(P))
+    av_s["A"] = {k: f64(rng.normal(0.0, 0.02, (batch, 3, 3)))
+                 for k in ("w", "cf", "c")}
+    av_s["hold"] = {"gps_p": f64(rng.normal(0.0, 20.0, (batch, 3))),
+                    "gps_v": f64(rng.normal(0.0, 2.0, (batch, 3))),
+                    "h_baro": f64(rng.normal(300.0, 20.0, batch)),
+                    "mag": f64(rng.normal(0.0, 3e-5, (batch, 3)))}
+    av_s["nis"] = {k: f64(rng.uniform(0.0, 5.0, batch))
+                   for k in ("baro", "gps", "gps_vel", "mag", "radar")}
+    hits = nav.monitor_min_hits
+    for j, k in enumerate(("gps", "vel", "baro", "mag", "radar")):
+        # lanes 2j + 12: one hit from latching; 2j + 13: latched
+        bits = np.zeros(batch, np.int64)
+        alarm = np.zeros(batch, bool)
+        for lane, b_, a_ in ((2 * j + 12, (1 << (hits - 1)) - 1, False),
+                             (2 * j + 13, (1 << hits) - 1, True)):
+            if lane < batch:
+                bits[lane], alarm[lane] = b_, a_
+        av_s["mon_" + k] = {"bits": i64(bits),
+                            "alarm": torch.as_tensor(alarm)}
+    sens_s = dict(av_s["sens"], n=i64(n).to(torch.int32))
+    sens_s.update(b_g=f64(rng.normal(0.0, 1e-3, (batch, 3))),
+                  b_a=f64(rng.normal(0.0, 1e-2, (batch, 3))),
+                  gm_gps=f64(rng.normal(0.0, 1.5, (batch, 3))))
+    av_s["sens"] = sens_s
+    i = i64((n + 1) * spp - 1).to(st.i.dtype)
+    t = (i.to(torch.float64) * sim.dt)
+    state = SimState(t=t, i=i, x=dict(x, vehicle=dict(
+        x["vehicle"], kinematics=kin)), u=dict(u, vehicle=uv, avionics=av_u),
+        s=dict(s, avionics=av_s), c=None)
+    sim_d, _ = nav_sim(device, dtype, turbulence, setting, spp)
+    return sim_d, tree_map(lambda l: l.to(device=device, dtype=dtype)
+                           if l.dtype == torch.float64 else l.to(device),
+                           state)
+
+
+def nav_pass_args(sim, st):
+    """The `kernels.nav_pass` arguments at the state `st` of a sensor-fed
+    fleet: (avionics, the truth-fed VehicleY, the truth the sensors read,
+    the terrain's elevation, u, s), the truth at the state itself through
+    the plain vehicle functions (`kernels.vehicle_truth`)."""
+    from flightjax_torch.parallel import kernels as K
+    veh = sim.system.aircraft.vehicle
+    xv, uv, sv = st.x["vehicle"], st.u["vehicle"], st.s["vehicle"]
+    _, _, dyn = K.vehicle_truth(veh, xv, uv, sv, st.t)
+    vy = veh.output(xv, uv, sv, st.t)._replace(dynamics=dyn)
+    h_trn = veh.terrain.terrain_data(uv["trn"]).elevation
+    return (sim.system.aircraft.avionics, vy, vy, h_trn, st.u["avionics"],
+            st.s["avionics"])
+
+
+def sensor_fed_fleet_sim(batch, device, dtype):
+    """(sim, SimState) of the sensor-fed autopilot fleet of the JAX
+    package's benchmark report (`tools/bench_report.py:215-251`): the calm
+    C172Xv1 on `NavAvionics(ControlLaws)` (`c172x.c172xv1_nav_sim`),
+    engaged on the turning climb (EAS 45 m/s, 1.5 m/s climb, course pi /
+    2), broadcast to `batch` lanes, lane k's sensor stream seeded k."""
+    from flightjax_torch.models.c172.c172x import (c172xv1_nav_sim,
+                                                   turning_climb)
+    from flightjax_torch.parallel import fleet
+    sim, st, _ = c172xv1_nav_sim(device, dtype)
+    st = fleet.broadcast_state(turning_climb(st), batch)
+    av_u = dict(st.u["avionics"])
+    av_u["sens"] = dict(av_u["sens"], seed=torch.arange(
+        batch, dtype=torch.int32, device=st.t.device))
+    return sim, st._replace(u=dict(st.u, avionics=av_u))
+
+
+def normal_table_for(seeds, ns):
+    """A float32 table of 2^23 entries holding `ops/random.normal_table`'s
+    values where the sensors' draws of `seeds` at epochs `ns` (int32
+    tensors of one shape) read it, NaN elsewhere: what those draws need of
+    the table, on the CPU, without its 2^23 erf_inv chains."""
+    from flightjax_torch.ops import random as R
+    from flightjax_torch.physics.sensors import KEY_BASE
+    key = R.fold_in(R.fold_in(R.PRNGKey(KEY_BASE), seeds.reshape(-1)),
+                    ns.reshape(-1))
+    k = R.fold_in(key[:, None, :], torch.tensor([0, 1]))
+    y0, y1 = R._counters(k, (20,))
+    idx = torch.unique(((y0 ^ y1) >> 9).reshape(-1))
+    table = torch.full((2 ** 23,), float("nan"), dtype=torch.float32)
+    mant = (idx | 0x3F800000).to(torch.int32).view(torch.float32)
+    table[idx] = R._normal_of_unit(mant)
+    return table
+
+
+# The navigation kernels against their plain versions on the same card
+# tensors: P per lane within NAV_P_TOL of its own largest entry, and every
+# other floating leaf within max(floor, NAV_SPREAD times the plain run's
+# own distance from a reference) of that reference: in float64 the floor
+# is 1e-12 of max(1, |reference|) and the reference the plain function
+# run on the CPU (the first NAV_CPU_LANES lanes); in float32 the floor is
+# 1e-5 and the reference the plain function in float64 on the same
+# inputs and gusts (`nav_twin`). Two faithful runs of the pass differ by
+# more than the floor where the arithmetic is ill-conditioned: the GPS
+# fix's NED position is a
+# difference of latitudes times the Earth's radius (an ulp of the latitude
+# is 7e-10 m in float64, 0.38 m in float32), and the stacked solve weighs
+# the GPS position's variance (400 m^2 in float32) against the velocity's
+# (0.004 m^2/s^2); a truth an ulp apart (the card's libm against the
+# CPU's) moves the fix by an ulp of latitude, 4.7e-12 of a 150 m estimate
+# (2.7e-12 of `nav_pass`'s f64 p_n on the study's fleet against the CPU,
+# the card's plain run as far; 1.8e-13 on the mode-rich operands). The
+# integers and flags (the sensor epoch, the monitors'
+# bits and alarms) exactly, but on float32 lanes where an NIS lies within
+# NAV_NEAR_GATE of its gate (none in float64).
+NAV_P_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+NAV_FLOOR = NAV_P_TOL
+NAV_SPREAD, NAV_CPU_LANES, NAV_NEAR_GATE = 4.0, 1024, 0.01
+
+
+def nav_lanes(tree, device, dtype, n=None):
+    """`tree` on `device`, its floating leaves in `dtype`, the
+    batch-leading leaves cut to their first `n` lanes (a 0-dim leaf, a
+    scalar of the model, as it is)."""
+    def cut(v):
+        v = v.to(device=device)
+        if v.dtype.is_floating_point:
+            v = v.to(dtype)
+        return v[:n] if n is not None and v.dim() else v
+    return tree_map(lambda v: cut(v) if isinstance(v, torch.Tensor) else v,
+                    tree)
+
+
+def _drive_in(turb, dtype):
+    """A copy of the DrydenTurbulence `turb` whose redraw draws the drive
+    in `dtype` and casts it to the state's: a float64 twin of a float32
+    run flies the float32 run's gusts."""
+    import copy
+    twin = copy.copy(turb)
+    f_step = type(turb).f_step
+
+    def f_step_in(u, s):
+        out = f_step(twin, u, dict(s, eta=s["eta"].to(dtype)))
+        return dict(out, eta=out["eta"].to(s["eta"].dtype))
+    twin.f_step = f_step_in
+    return twin
+
+
+def nav_twin(sim, device, dtype):
+    """The sensor-fed C172Xv1 Simulation `sim` rebuilt on `device` in
+    `dtype` with its navigation settings and turbulence; its filter takes
+    the GPS position variance of `sim`'s dtype and its turbulence draws
+    the drive in `sim`'s dtype, so that a float64 twin runs a float32
+    filter's arithmetic in float64 through the float32 run's gusts."""
+    import copy
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172.c172x import build_xv1_nav
+    from flightjax_torch.physics.aircraftbase import SimpleWorld
+    nav = sim.system.aircraft.avionics
+    veh = sim.system.aircraft.vehicle
+    kw = dict(periodic_dt=sim.periodic_dt, use_estimates=nav.use_estimates,
+              nav_kw=dict(gps_every=nav.suite.gps_every,
+                          baro_every=nav.baro_every,
+                          mag_every=nav.mag_every, use_radar=nav.use_radar,
+                          alpha_beta=nav.alpha_beta,
+                          defer_cov=nav.defer_cov))
+    if veh.turbulence is not None:
+        kw["turbulence"] = _drive_in(veh.turbulence, nav.dtype)
+    air = build_xv1_nav(device=device, dtype=dtype, **kw)
+    f = copy.copy(air.avionics.filter)
+    f.r_pos = nav.filter.r_pos_eff(nav.dtype)
+    air.avionics.filter = f
+    return Simulation(SimpleWorld(air), dt=sim.dt,
+                      periodic_dt=sim.periodic_dt,
+                      geoid_every=sim.geoid_every)
+
+
+def nav_reference(sim, dtype, run, inputs):
+    """The reference `nav_hold` reads: in float64 the plain function `run`
+    (a function of a Simulation and inputs) on the CPU over the first
+    NAV_CPU_LANES lanes, in float32 the plain function in float64 on the
+    card over every lane (`nav_twin`)."""
+    from flightjax_torch.core.modeling import tree_leaves_with_path
+    device = next(v.device for _, v in tree_leaves_with_path(inputs)
+                  if isinstance(v, torch.Tensor))
+    if dtype == torch.float64:
+        return run(nav_twin(sim, "cpu", torch.float64),
+                   nav_lanes(inputs, "cpu", torch.float64, NAV_CPU_LANES))
+    return run(nav_twin(sim, device, torch.float64),
+               nav_lanes(inputs, device, torch.float64))
+
+
+def nav_hold(dtype, got, ref, ref_x, s_got, s_ref, nav, what=""):
+    """Hold a navigation kernel's output tree `got` to the plain run `ref`
+    on the same card tensors, `ref_x` the reference of `nav_reference`,
+    as the comment above says; `s_got`, `s_ref` the navigation avionics'
+    states in `got` and `ref`, `nav` the avionics. Raises AssertionError
+    where it fails; returns (P's error, the lanes whose integers differ,
+    those of them away from a gate, {leaf group: (error, limit)})."""
+    from flightjax_torch.core.modeling import tree_leaves_with_path
+    from flightjax_torch.parallel import kernels as K
+    gates = {"gps": nav.gps_gate, "gps_vel": nav.vel_gate,
+             "baro": nav.baro_gate, "mag": nav.mag_gate,
+             "radar": nav.radar_gate}
+    bad = s_got["sens"]["n"] != s_ref["sens"]["n"]
+    for k in K.MONITORS:
+        for f in ("bits", "alarm"):
+            bad = bad | (s_got["mon_" + k][f].long()
+                         != s_ref["mon_" + k][f].long())
+    near = torch.zeros_like(bad)
+    if dtype == torch.float32:
+        for ch, g in gates.items():
+            near = near | ((s_ref["nis"][ch] - g).abs() <= NAV_NEAR_GATE * g)
+    n_bad, n_far = int(bad.sum()), int((bad & ~near).sum())
+    if n_far or (dtype == torch.float64 and n_bad):
+        raise AssertionError(f"{what} {dtype}: integers or flags differ on "
+                             f"{n_far} lanes away from a gate ({n_bad} in "
+                             f"all)")
+    keep = (~bad).cpu()
+
+    def rel(a, b):
+        if a.numel() == 0:
+            return 0.0
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+    worst = {}
+    for (p, a), (_, b), (_, c) in zip(tree_leaves_with_path(got),
+                                      tree_leaves_with_path(ref),
+                                      tree_leaves_with_path(ref_x)):
+        if not a.dtype.is_floating_point or a.dim() == 0:
+            continue
+        a, b, c = a.cpu(), b.cpu(), c.cpu()
+        n = c.shape[0]
+        kn = keep[:n]
+        e = rel(a[:n][kn], c[kn])
+        lim = max(NAV_FLOOR[dtype], NAV_SPREAD * rel(b[:n][kn], c[kn]))
+        if not e <= lim:
+            raise AssertionError(f"{what} {dtype} {p}: {e} > {lim}")
+        key = "/".join(map(str, p[:3]))
+        if key not in worst or e > worst[key][0]:
+            worst[key] = (e, lim)
+    P_got = s_got["nav"].P.cpu()[keep].double()
+    P_ref = s_ref["nav"].P.cpu()[keep].double()
+    p_err = float(((P_got - P_ref).abs().amax(dim=(-2, -1))
+                   / P_ref.abs().amax(dim=(-2, -1))).max())
+    if not p_err <= NAV_P_TOL[dtype]:
+        raise AssertionError(f"{what} {dtype}: P {p_err} > "
+                             f"{NAV_P_TOL[dtype]}")
+    return p_err, n_bad, n_far, worst

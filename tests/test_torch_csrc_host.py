@@ -143,6 +143,7 @@ static inline double erfinv(double x) {
   return y;
 }
 static inline float erfinvf(float x) { return (float)erfinv((double)x); }
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
 using std::min;
 using std::max;
 """
@@ -406,6 +407,44 @@ int host_role_row_act(int act, int role, int k) {
     default: return fj::role_row<fj::ACT_FBW_TURB>(role, k);
   }
 }
+// the sensor-fed C172Xv1's instances (role r writing into outs[r]): the
+// megakernel with the navigation pass on the fly-by-wire signature with
+// the normal table and the work buffer (turb: megakernel_nav_turb), and
+// the pass as nav_pass
+void host_megakernel_nav(const double* in, const int* i_in, const double* p,
+                         const double* grid, const double* gains,
+                         const float* table, double* work,
+                         double* const* outs, int* i_out, int B,
+                         int n_params, double dt, double t_start, int comp,
+                         int spp, double pdt, int turb, int lanes) {
+  if (turb) {
+    BLOCKS(fj::N_ROLES, lanes,
+           k_megakernel::megakernel_kernel<fj::ACT_FBW_TURB, SD,
+                                           k_megakernel::AV_NAV>(
+               (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+               (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+               (const SD*)gains, spp, pdt, table, (SD*)work))
+  } else {
+    BLOCKS(fj::N_ROLES, lanes,
+           k_megakernel::megakernel_kernel<fj::ACT_FBW, SD,
+                                           k_megakernel::AV_NAV>(
+               (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+               (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+               (const SD*)gains, spp, pdt, table, (SD*)work))
+  }
+}
+void host_nav_pass(const double* in, const int* i_in, const double* gains,
+                   const float* table, double* work, double* const* outs,
+                   int* i_out, int B, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes, k_nav_pass::nav_pass_kernel<SD>(
+      (const SD*)in, i_in, (const SD*)gains, table, (SD*)work,
+      (SD*)outs[i / (lanes)], i_out, B))
+}
+int host_nav_rows(int k) {
+  const int v[6] = {fj::N_NAVU, fj::N_NAVS, fj::N_NAVI, fj::N_NAVT,
+                    fj::N_WORK, fj::N_NAVP};
+  return v[k];
+}
 void host_megakernel_turb(const double* in, const int* i_in, const double* p,
                           const double* grid, double* const* outs,
                           int* i_out, int B, int n_params, double dt,
@@ -433,8 +472,10 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
     parts = ['#include "c172_systems.cuh"', '#include "c172x_ctl.cuh"',
-             '#include "c172x_gdc.cuh"', '#include "c172x_msn.cuh"']
-    for name in NAMES + VEHICLE_NAMES + ("megakernel", "ctl_laws"):
+             '#include "c172x_gdc.cuh"', '#include "c172x_msn.cuh"',
+             '#include "nav.cuh"']
+    for name in NAMES + VEHICLE_NAMES + ("megakernel", "ctl_laws",
+                                         "nav_pass"):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh:
             src = fh.read()
         assert LAUNCH_CODE in src, name
@@ -1602,3 +1643,183 @@ def test_megakernel_fbw_turb_roles_partition_the_output(host_lib):
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]
     assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+# ------------------------------------------------------------ navigation
+
+def _assert_p_close(got, ref):
+    """The filter's P lane by lane within TOL of its own largest entry."""
+    err = ((got - ref).abs().amax(dim=(-2, -1))
+           / ref.abs().amax(dim=(-2, -1)))
+    assert float(err.max()) <= TOL, float(err.max())
+
+
+def _nav_table(u_av, s_av):
+    from flightjax_torch.testing import normal_table_for
+    return normal_table_for(u_av["sens"]["seed"], s_av["sens"]["n"] + 1)
+
+
+def _run_nav_pass(host_lib, args, lanes, split=False):
+    """nav_pass's source on the wrapper's arguments, block by block at
+    `lanes` aircraft per block: its packed output (one per role with
+    `split`, NaN where the role wrote nothing) and int32 rows."""
+    buf, n_out, _, ops = K.pack_nav_pass(*args)
+    batch = buf.shape[1]
+    n_roles = host_lib.host_n_roles()
+    outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
+            for _ in range(n_roles if split else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if split else 0].data_ptr() for r in range(n_roles)))
+    work = torch.full((host_lib.host_nav_rows(4), batch), float("nan"),
+                      dtype=torch.float64)
+    i_out = torch.full_like(ops["ints"], -1)
+    table = _nav_table(*args[4:])
+    host_lib.host_nav_pass(_ptr(buf), _ptr(ops["ints"]), _ptr(ops["gains"]),
+                           _ptr(table), _ptr(work), ptrs,
+                           _ptr(i_out), ctypes.c_int(batch),
+                           ctypes.c_int(lanes))
+    return (outs if split else outs[0]), i_out
+
+
+NAV_CASES = [("default", B, 32), ("radar", B, 32), ("shadow", B, 32),
+             ("synthetic", B, 32), ("perturb", B, 32), ("immediate", B, 32),
+             ("default", 37, 32), ("radar", 70, 64)]
+NAV_IDS = [f"{s}-B{b}-L{n}" for s, b, n in NAV_CASES]
+
+
+@pytest.mark.parametrize("setting,batch,lanes", NAV_CASES, ids=NAV_IDS)
+def test_nav_pass_source_matches_plain(host_lib, setting, batch, lanes):
+    """nav_pass against `kernels.nav_pass_plain` on the mode-rich
+    navigation operands (`testing.nav_operand_state`: every combination of
+    epochs, each fault channel in each mode around its window, monitors
+    one hit from latching and latched, NIS values either side of the
+    gates, zero-sigma lanes, the radar either side of its limits): the new
+    state, the monitors' bits and the sensor epoch exactly as integers,
+    the GDC_Y fields the inner laws read, P per lane against its largest
+    entry."""
+    from flightjax_torch.testing import nav_operand_state, nav_pass_args
+    sim, st = nav_operand_state(batch, 1016, "cpu", torch.float64,
+                                setting=setting)
+    args = nav_pass_args(sim, st)
+    out, ints = _run_nav_pass(host_lib, args, lanes)
+    got = K.unpack_out("nav_pass", out, ints=ints)
+    ref = K.nav_pass_plain(*args)
+    _assert_trees_close(got, ref)
+    _assert_p_close(got[0]["nav"].P, ref[0]["nav"].P)
+    # the integers exactly: the seed and the fault pass through, the epoch
+    # steps on, the monitors' bits
+    assert torch.equal(ints, K.pack_nav_int(args[4], ref[0]))
+    aided = (st.s["avionics"]["sens"]["n"] + 1) % 5 == 0
+    if setting != "radar":
+        assert bool((got[0]["nis"]["baro"] != args[5]["nis"]["baro"])[
+            aided].all())
+    if setting == "shadow":
+        _assert_trees_close(got[1], K.gdc_y(args[1]))
+
+
+def test_nav_pass_roles_partition_the_output(host_lib):
+    """Every output row of nav_pass (P's 225 among them) is written by
+    exactly one role, for every aircraft, and by no other role."""
+    from flightjax_torch.testing import nav_operand_state, nav_pass_args
+    sim, st = nav_operand_state(B, 1016, "cpu", torch.float64)
+    outs, _ = _run_nav_pass(host_lib, nav_pass_args(sim, st), 32, split=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
+                        by_role=False):
+    """megakernel_nav (megakernel_nav_turb with `turb`) on the mode-rich
+    navigation operands with their pass every `spp` steps; as
+    `_run_megakernel_fbw`."""
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import nav_operand_state
+    sim, st = nav_operand_state(batch, 1016, "cpu", torch.float64,
+                                turbulence=turb, setting=setting, spp=spp)
+    bufs, _, unpack = make_megakernel_step(sim, st)
+    aircraft = sim.system.aircraft
+    params = K.system_params(aircraft.vehicle)
+    n_roles = host_lib.host_n_roles()
+    outs = [torch.full_like(bufs[0], float("nan"))
+            for _ in range(n_roles if by_role else 1)]
+    ptrs = (ctypes.c_void_p * n_roles)(
+        *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
+    i_out = torch.full_like(bufs[1], -1)
+    work = torch.full((host_lib.host_nav_rows(4), batch), float("nan"),
+                      dtype=torch.float64)
+    table = _nav_table(st.u["avionics"], st.s["avionics"])
+    host_lib.host_megakernel_nav(
+        _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
+        _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
+        _ptr(K.ctl_gains(aircraft.avionics)), _ptr(table), _ptr(work),
+        ptrs, _ptr(i_out), ctypes.c_int(batch), ctypes.c_int(params.numel()),
+        ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
+        ctypes.c_int(0), ctypes.c_int(sim.steps_per_periodic),
+        ctypes.c_double(sim.periodic_dt), ctypes.c_int(int(turb)),
+        ctypes.c_int(lanes))
+    if by_role:
+        return sim, st, outs
+    return sim, st, unpack((outs[0], i_out))
+
+
+MEGA_NAV_CASES = [(True, 1, "default", B, 32), (False, 1, "default", B, 32),
+                  (True, 2, "default", B, 32), (False, 1, "radar", B, 32),
+                  (True, 1, "shadow", B, 32), (True, 1, "synthetic", B, 32),
+                  (False, 1, "perturb", B, 32), (True, 2, "immediate", B, 32),
+                  (True, 1, "default", 37, 32), (False, 1, "default", 70, 64)]
+MEGA_NAV_IDS = [f"{'turb' if t else 'calm'}-spp{p}-{s}-B{b}-L{n}"
+                for t, p, s, b, n in MEGA_NAV_CASES]
+
+
+@pytest.mark.parametrize("turb,spp,setting,batch,lanes", MEGA_NAV_CASES,
+                         ids=MEGA_NAV_IDS)
+def test_megakernel_nav_source_matches_plain(host_lib, turb, spp, setting,
+                                             batch, lanes):
+    """megakernel_nav and megakernel_nav_turb against
+    `megakernel_step_plain` (each lane's pass on its own sensor epoch) on the
+    mode-rich navigation operands: the step, the truth at the new state,
+    the navigation pass and the control laws on the estimates (on the
+    truth in shadow mode), every leaf within TOL, P per lane against its
+    largest entry, the integers exactly; with the pass every other step
+    the lanes that do not fire keep their avionics."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_nav(host_lib, batch, lanes, turb, spp,
+                                       setting)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    _assert_p_close(got.s["avionics"]["nav"].P, ref.s["avionics"]["nav"].P)
+    assert torch.equal(got.s["avionics"]["sens"]["n"],
+                       ref.s["avionics"]["sens"]["n"])
+    fired = (st.i + 1) % spp == 0
+    assert bool(fired.any())
+    n0 = st.s["avionics"]["sens"]["n"]
+    assert torch.equal(got.s["avionics"]["sens"]["n"],
+                       torch.where(fired, n0 + 1, n0))
+
+
+def test_megakernel_nav_roles_partition_the_output(host_lib):
+    """Every row of megakernel_nav_turb's new state buffer (the navigation
+    avionics' inputs and state, P's 225 rows among them) is written by
+    exactly one role, for every aircraft."""
+    _, _, outs = _run_megakernel_nav(host_lib, B, 32, True, by_role=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+def test_nav_rows_match_the_kernels(host_lib):
+    """The row maps of the navigation blocks (kernels.NAV_U, NAV_S,
+    NAV_INT, NAV_T), the work buffer and the parameter block agree with
+    csrc/nav.cuh."""
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.testing import nav_sim
+    sim, _ = nav_sim("cpu", torch.float64)
+    want = (K.rows((K.NAV_U,)), K.rows((K.NAV_S,)), len(K.NAV_INT),
+            K.rows((K.NAV_T,)), L.N_NAV_WORK,
+            len(K.nav_param_values(sim.system.aircraft.avionics)))
+    assert tuple(host_lib.host_nav_rows(k) for k in range(6)) == want

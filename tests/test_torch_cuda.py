@@ -19,7 +19,10 @@ operands that carry every guidance mode as well, and its two splits a few
 steps. The mission's instances (msn_ctl_laws, megakernel_msn) are held
 exactly alike, on operands in every phase of the traffic pattern with each
 phase's predicate on both sides of its switch, and on the mission fleet,
-and its two splits a few steps.
+and its two splits a few steps. The navigation kernels (nav_pass,
+megakernel_nav, megakernel_nav_turb) are held to their plain versions as
+`testing.nav_hold` says, on the mode-rich navigation operands, and the
+navigation fleet's three paths a few steps.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -910,34 +913,129 @@ def test_megakernel_fbw_turb_matches_plain_on_card(spp, comp, batch, lanes,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["fleet", "vehicle"])
+@pytest.mark.parametrize("path", ["fleet", "vehicle", "megakernel"])
 @pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
 def test_nav_paths_match_plain_on_card(path, dtype, tol):
     """The joint navigation study's fleet, 12 steps (a GPS, baro and mag
-    epoch among them) through `Simulation.fleet_step` and the vehicle
-    split against the plain step: the vehicle, the filter and its
-    monitors; the launch counts (the truth's systems and the control laws
-    once a step)."""
+    epoch among them) through `Simulation.fleet_step`, the vehicle split
+    (the navigation pass the `nav_pass` kernel) and `make_megakernel_step`
+    (`megakernel_nav_turb`) against the plain step, the whole state and
+    inputs (t, x, u, s) as `testing.nav_hold` holds them: in float64
+    within `tol` of the plain step run on the CPU over the first lanes, or
+    within four times the card's plain run's own distance from that where
+    it is the larger (the truth's ulps move the GPS fix by ulps of
+    latitude), and every lane within 1e-9 of the card's plain run (the
+    paths' tolerance); in float32 against the plain step in float64,
+    within the float32 plain run's own distance from it; the launch
+    counts (the
+    truth's systems, the pass and the control laws once a step; the
+    megakernel once a step)."""
     from flightjax_torch.parallel.clusterstep import (make_cluster_step,
                                                       vehicle_step)
-    from flightjax_torch.testing import nav_fleet_sim
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (NAV_FLOOR, nav_fleet_sim,
+                                         nav_hold, nav_reference)
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sim, st = nav_fleet_sim(B, 1016, "cuda", dtype)
-    step = (sim.fleet_step if path == "fleet"
-            else make_cluster_step(sim, st, split="vehicle"))
     K.reset_launches()
-    got = ref = st
-    for i in range(12):
-        got = step(got, i=i)
-        ref = vehicle_step(sim, ref, i, plain=True)
+    if path == "megakernel":
+        bufs, step_packed, unpack = make_megakernel_step(sim, st)
+        for _ in range(12):
+            bufs = step_packed(bufs)
+        got = unpack(bufs)
+    else:
+        step = (sim.fleet_step if path == "fleet"
+                else make_cluster_step(sim, st, split="vehicle"))
+        got = st
+        for i in range(12):
+            got = step(got, i=i)
     torch.cuda.synchronize()
-    want = {"rk4_stage_fbw_turb": 48, "rk4_finish_fbw_turb": 12,
-            "systems_fbw": 12, "ctl_laws": 12, "geoid": 12}
+    want = ({"megakernel_nav_turb": 12} if path == "megakernel" else
+            {"rk4_stage_fbw_turb": 48, "rk4_finish_fbw_turb": 12,
+             "systems_fbw": 12, "ctl_laws": 12, "geoid": 12,
+             "nav_pass": 12})
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
-    assert _worst((got.t, got.x, got.u, got.s), (ref.t, ref.x, ref.u,
-                                                 ref.s)) <= tol
+
+    def plain(sim, st):
+        for i in range(12):
+            st = (megakernel_step_plain(sim, st) if path == "megakernel"
+                  else vehicle_step(sim, st, i, plain=True))
+        return st
+    ref = plain(sim, st)
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    if dtype == torch.float64:
+        assert _worst(tr(got), tr(ref)) <= 1e-9
+    ref_c = nav_reference(sim, dtype, plain, st)
+    assert NAV_FLOOR[dtype] == tol
+    nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
+             ref.s["avionics"], sim.system.aircraft.avionics, path)
     assert bool((got.s["avionics"]["nis"]["gps"] > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("setting", ["default", "radar", "shadow",
+                                     "synthetic", "perturb", "immediate"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_nav_pass_matches_plain_on_card(setting, lanes, dtype):
+    """nav_pass against `kernels.nav_pass_plain` on the mode-rich
+    navigation operands at B (`testing.nav_operand_state`) under each
+    setting of `testing.NAV_SETTINGS`, held as `testing.nav_hold` says: P
+    per lane against its largest entry, every other leaf within 1e-12 of
+    the CPU's plain run in float64 (or four times the card's plain run's
+    distance from it) and within the float32 plain run's own distance
+    from the float64 one in float32, the integers and flags exactly but
+    near a gate in float32."""
+    from flightjax_torch.testing import (nav_hold, nav_operand_state,
+                                         nav_pass_args, nav_reference)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = nav_operand_state(B, 1016, "cuda", dtype, setting=setting)
+    args = nav_pass_args(sim, st)
+    ref = K.nav_pass_plain(*args)
+    ref_c = nav_reference(sim, dtype, lambda s_, a: K.nav_pass_plain(
+        s_.system.aircraft.avionics, *a), args[1:])
+    before = K.LAUNCHES["nav_pass"]
+    got = K.nav_pass(*args, block=lanes)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["nav_pass"] == before + 1
+    nav_hold(dtype, got, ref, ref_c, got[0], ref[0], args[0], setting)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("turb", [True, False], ids=["turb", "calm"])
+@pytest.mark.parametrize("setting", ["default", "synthetic", "immediate"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_nav_matches_plain_on_card(turb, setting, lanes, dtype):
+    """megakernel_nav_turb and megakernel_nav, one step on the mode-rich
+    navigation operands at B (the default, synthetic airflow angles, the
+    covariance stepped every firing), against `megakernel_step_plain` (the
+    pass each lane on its own sensor epoch), held as `testing.nav_hold`
+    says."""
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (nav_hold, nav_operand_state,
+                                         nav_reference)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = nav_operand_state(B, 1016, "cuda", dtype, turbulence=turb,
+                                setting=setting)
+    name = "megakernel_nav_turb" if turb else "megakernel_nav"
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    before = K.LAUNCHES[name]
+    got = unpack(step_packed(bufs))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    ref = megakernel_step_plain(sim, st)
+    ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
+             ref.s["avionics"], sim.system.aircraft.avionics, name)
 
 
 @pytest.mark.cuda

@@ -175,8 +175,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
     """On CPU tensors the wrappers are the plain versions and launch
     nothing, on the mechanical C172, on the fly-by-wire one and the
     turbulent C172S and C172X (whose instances the same wrappers launch on
-    the card) and on the C172X's three passes (the control laws, the
-    guidance, a mission)."""
+    the card), on the C172X's three passes (the control laws, the
+    guidance, a mission) and on the navigation pass."""
     from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
     from flightjax_torch.parallel.launch import (FBW_KERNELS,
                                                  FBW_TURB_KERNELS,
@@ -212,12 +212,13 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
     K.reset_launches()
     # every kernel but the megakernels, whose steps have their own wrapper
     mega = {"megakernel", "megakernel_fbw", "megakernel_gdc",
-            "megakernel_msn", "megakernel_turb", "megakernel_fbw_turb"}
+            "megakernel_msn", "megakernel_turb", "megakernel_fbw_turb",
+            "megakernel_nav", "megakernel_nav_turb"}
     turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS,
-                                                      *turbs}
+                                                      *turbs, "nav_pass"}
     assert {K.FBW.names.get(k, k) for k in fbw} == (
-        set(K.LAUNCHES) - {*mega, *ctl, *K.FBW.names, *turbs})
+        set(K.LAUNCHES) - {*mega, *ctl, *K.FBW.names, *turbs, "nav_pass"})
     assert set(turb) == set(TURB_KERNELS) - mega
     assert set(fbw_turb) == set(FBW_TURB_KERNELS) - mega
     for name, a in (*turb.items(), *fbw_turb.items()):
@@ -226,7 +227,10 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         ref = getattr(K, base + "_plain")(*a)
         for (pa, ta), (pb, tb) in zip(_leaves(got), _leaves(ref)):
             assert pa == pb and torch.equal(ta, tb), (name, pa)
-    for ops in (args, fbw, ctl):
+    from flightjax_torch.testing import nav_operand_state, nav_pass_args
+    nav = {"nav_pass": nav_pass_args(*nav_operand_state(
+        B, SEED, "cpu", torch.float64))}
+    for ops in (args, fbw, ctl, nav):
         for name in ops:
             a = getattr(K, name)(*ops[name])
             b = getattr(K, name + "_plain")(*ops[name])
@@ -237,7 +241,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
         "megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
         "megakernel_msn", "msn_ctl_laws", *TURB_KERNELS,
-        *FBW_TURB_KERNELS)}
+        *FBW_TURB_KERNELS, "nav_pass", "megakernel_nav",
+        "megakernel_nav_turb")}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

@@ -713,14 +713,17 @@ def jax_nav_steps(nav_fleet, jax_nav):
     return out
 
 
-@pytest.mark.parametrize("path", ["fleet", "vehicle"])
+@pytest.mark.parametrize("path", ["fleet", "vehicle", "megakernel"])
 def test_nav_fleet_matches_jax(nav_fleet, jax_nav_steps, path):
-    """The navigation fleet through `Simulation.fleet_step` and
-    `make_cluster_step(split="vehicle")` against the JAX fleet step (its
-    aiding gate from `epoch_preds`), every leaf after each of STEPS steps
-    to 1e-9: the filter, its accumulator, the monitors and the sensors'
-    error states among them; the GPS, baro and mag aid at the third
-    step."""
+    """The navigation fleet through `Simulation.fleet_step`,
+    `make_cluster_step(split="vehicle")` and `make_megakernel_step` (the
+    plain version of `megakernel_nav_turb`, each lane's pass on its own
+    sensor epoch as `Simulation.step` runs it) against the JAX fleet step (its aiding gate
+    from `epoch_preds`; the geoid refreshed every step, so its step is the
+    megakernel's `vmap(Simulation.step)`), every leaf after each of STEPS
+    steps to 1e-9: the filter, its accumulator, the monitors and the
+    sensors' error states among them; the GPS, baro and mag aid at the
+    third step."""
     sim, np_state = nav_fleet
     st = _port_state(np_state)
     step = _stepper(sim, st, path)
@@ -758,26 +761,35 @@ def test_shadow_mode_flies_as_the_truth_fed_xv1(nav_fleet):
 
 
 def test_refusals_and_layouts(nav_fleet):
-    """The kernels carry the turbulent fly-by-wire vehicle (FBW_TURB) and
-    the navigation avionics' splits (their pass the inner laws' kernel);
-    they refuse the navigation megakernel, the turbulent C172Xv2's and a
-    mission's megakernels, an `Actuator2` channel and a sensor-fed
-    mission, each naming its ROADMAP item; the sensors' epoch must count
-    the firings from step 0."""
+    """The kernels carry the turbulent fly-by-wire vehicle (FBW_TURB), the
+    navigation avionics' splits (their pass `nav_pass`, then the inner
+    laws' kernel) and their megakernel around the C172Xv1's control laws
+    (`megakernel_nav_turb`, calm `megakernel_nav`); they refuse the
+    navigation megakernel around the C172Xv2 (`build_xv2_nav`), the
+    turbulent C172Xv2's and a mission's megakernels, an `Actuator2`
+    channel and a sensor-fed mission, each naming its ROADMAP item; the
+    sensors' epoch must count the firings from step 0."""
     sim, np_state = nav_fleet
     st = _port_state(np_state)
     veh = sim.system.aircraft.vehicle
     nav = sim.system.aircraft.avionics
     assert K.layout_of(veh) is K.FBW_TURB
     lay = K.avionics_layout(veh, nav)
-    assert lay.nav and lay.pass_name == "ctl_laws" and lay.mega_name is None
+    assert lay is K.FBW_TURB_NAV and lay.pass_name == "ctl_laws"
+    assert lay.mega_name == "megakernel_nav_turb"
+    assert K.mega_refusal(lay) is None
+    assert K.FBW_NAV.mega_name == "megakernel_nav"
     assert K.FBW_TURB.names == {
         "systems": "systems_fbw", "finish_sys": "finish_sys_fbw",
         "rk4_stage": "rk4_stage_fbw_turb",
         "rk4_finish": "rk4_finish_fbw_turb"}
     assert K.FBW_TURB.mega_name == "megakernel_fbw_turb"
+    xv2_nav = Tx.build_xv2_nav(device="cpu", dtype=F64,
+                               turbulence=DrydenTurbulence(DT))
+    from flightjax_torch.core.sim import Simulation as TSim
+    from flightjax_torch.physics.aircraftbase import SimpleWorld as TWorld
     with pytest.raises(NotImplementedError, match="NavAvionics instances"):
-        make_megakernel_step(sim, st)
+        make_megakernel_step(TSim(TWorld(xv2_nav)), st)
     xv2 = Tx.build_xv2(device="cpu", dtype=F64,
                        turbulence=DrydenTurbulence(DT))
     from flightjax_torch.core.sim import Simulation

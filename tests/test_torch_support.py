@@ -351,3 +351,50 @@ def test_guidance_bound_counts_the_branch_each_mode_selects():
     seg_k, crc_k = S.gdc_branches(None, g["mode"])
     assert bool((seg_m <= seg_k).all() and (crc_m <= crc_k).all())
     assert int(seg_m.sum() + crc_m.sum()) < batch
+
+
+def test_count_ops_counts_matrix_products_when_asked():
+    """`chip_smoke.py`'s operation count takes 2 m n k for each matrix
+    product of m x k by k x n where it is asked to (the navigation
+    filter's algebra), and nothing for it otherwise."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(__file__), os.pardir, "chip_smoke.py"))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+    a, b = torch.ones(4, 3, 5), torch.ones(4, 5, 2)
+    assert S.count_ops(lambda: a @ b) == 0
+    assert S.count_ops(lambda: a @ b, matmul=True) == 2 * 4 * 3 * 5 * 2
+    assert S.count_ops(lambda: a[0] @ b[0] + 1.0, matmul=True) == (
+        2 * 3 * 5 * 2 + 3 * 2)
+
+
+def test_nav_hold_takes_rounding_and_refuses_faults():
+    """`testing.nav_hold`, the navigation kernels' check: a run equal to
+    the plain one passes; a latched alarm that the plain run has not, on a
+    lane whose NIS lies far from its gate, fails in float32 as in float64,
+    and so does a filter state off by more than 1e-12 of the reference in
+    float64, or a P off by more than its tolerance."""
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.testing import (nav_hold, nav_operand_state,
+                                         nav_pass_args)
+    sim, st = nav_operand_state(8, 1016, "cpu", torch.float64)
+    args = nav_pass_args(sim, st)
+    ref = K.nav_pass_plain(*args)
+    nav = args[0]
+    for dtype in (torch.float64, torch.float32):
+        nav_hold(dtype, ref, ref, ref, ref[0], ref[0], nav)
+    bad = K.nav_pass_plain(*args)
+    bad[0]["mon_baro"]["alarm"][6] = ~bad[0]["mon_baro"]["alarm"][6]
+    bad[0]["nis"]["baro"][6] = 3.0 * nav.baro_gate
+    for dtype in (torch.float64, torch.float32):
+        with pytest.raises(AssertionError, match="integers or flags"):
+            nav_hold(dtype, bad, ref, ref, bad[0], ref[0], nav)
+    off = K.nav_pass_plain(*args)
+    off[0]["nav"].v_n[2] += 1e-3
+    with pytest.raises(AssertionError, match="v_n"):
+        nav_hold(torch.float64, off, ref, ref, off[0], ref[0], nav)
+    p_off = K.nav_pass_plain(*args)
+    p_off[0]["nav"].P[3, 4, 4] *= 1.0 + 1e-9
+    with pytest.raises(AssertionError, match="P"):
+        nav_hold(torch.float64, p_off, ref, ref, p_off[0], ref[0], nav)

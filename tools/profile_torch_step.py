@@ -10,7 +10,9 @@ time goes, by kernel, and how much of the step the device is idle.
                                          msn_megakernel,turb_fleet,
                                          turb_vehicle,turb_megakernel,
                                          nav_fleet,nav_vehicle,
-                                         xv1_turb_megakernel]
+                                         nav_megakernel,
+                                         xv1_turb_megakernel,
+                                         sensor_fed_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -37,9 +39,14 @@ study's fleet (`testing.nav_fleet_sim`: the turbulent C172Xv1 on its
 navigation avionics, per-lane severity, dispersion and sensor grade)
 `nav_fleet` (`fleet_rollout`: rk4_stage_fbw_turb x 4, rk4_finish_fbw_turb,
 the navigation pass with its `systems_fbw` truth and the `ctl_laws` kernel,
-`geoid` every step), `nav_vehicle` (the vehicle split on the same) and, on
-its truth-fed twin (`testing.xv1_turb_fleet_sim`), `xv1_turb_megakernel`
-(`megakernel_fbw_turb`).
+`geoid` every step; the pass is the `nav_pass` kernel), `nav_vehicle` (the
+vehicle split on the same), `nav_megakernel` (`megakernel_nav_turb`, the
+navigation pass inside the step) and, on its truth-fed twin
+(`testing.xv1_turb_fleet_sim`), `xv1_turb_megakernel`
+(`megakernel_fbw_turb`); and on the sensor-fed autopilot fleet
+(`testing.sensor_fed_fleet_sim`: the calm C172Xv1 on its navigation
+avionics, the turning climb, lane k's sensor stream seeded k)
+`sensor_fed_megakernel` (`megakernel_nav`).
 For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
@@ -66,9 +73,11 @@ PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "xv1_vehicle", "xv1_megakernel", "xv2_subsystems", "xv2_vehicle",
          "xv2_megakernel", "msn_subsystems", "msn_vehicle", "msn_megakernel",
          "turb_fleet", "turb_vehicle", "turb_megakernel", "nav_fleet",
-         "nav_vehicle", "xv1_turb_megakernel")
+         "nav_vehicle", "nav_megakernel", "xv1_turb_megakernel",
+         "sensor_fed_megakernel")
 # the fleets of the paths' prefixes
-PREFIXES = ("xv1_turb_", "xv1_", "xv2_", "msn_", "turb_", "nav_")
+PREFIXES = ("xv1_turb_", "xv1_", "xv2_", "msn_", "turb_", "nav_",
+            "sensor_fed_")
 
 
 def device_us(evt):
@@ -157,7 +166,8 @@ def main():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
     from flightjax_torch.testing import (msn_fleet_sim, nav_fleet_sim,
-                                         perturbed_fleet_sim, turb_study_sim,
+                                         perturbed_fleet_sim,
+                                         sensor_fed_fleet_sim, turb_study_sim,
                                          xv1_fleet_sim, xv1_turb_fleet_sim,
                                          xv2_fleet_sim)
 
@@ -174,6 +184,8 @@ def main():
             make = {"xv1": xv1_fleet_sim, "xv2": xv2_fleet_sim,
                     "msn": msn_fleet_sim, "turb": turb_study_sim,
                     "nav": nav_fleet_sim, "xv1_turb": xv1_turb_fleet_sim,
+                    "sensor_fed": lambda b, _, d, t: sensor_fed_fleet_sim(
+                        b, d, t),
                     "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]
