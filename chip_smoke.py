@@ -3,8 +3,9 @@
 NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three,
 the C172Xv2 guidance's three, the scripted missions' three, the
 turbulent Monte Carlo fleet's three, the sensor-fed navigation fleet's
-four and the sensor-fed autopilot fleet's megakernel; exit non-zero if
-any phase fails.
+four, the sensor-fed autopilot fleet's megakernel and the C172Xv2's last
+three megakernels (in turbulence, a mission on it, the loiter on
+estimates); exit non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -68,7 +69,17 @@ The paths, each an entry point a user calls:
 - `sensor_fed_megakernel`: the sensor-fed autopilot fleet of the JAX
   package's benchmark report (`testing.sensor_fed_fleet_sim`: the calm
   C172Xv1 on its navigation avionics, the turning climb) through
-  `megakernel_nav`.
+  `megakernel_nav`;
+- `xv2_turb_megakernel`, `msn_turb_megakernel`: the C172Xv2's guidance
+  scenario and the mission fleet in the turbulent fleet's Dryden
+  turbulence (`testing.xv2_turb_fleet_sim`, `msn_turb_fleet_sim`: W20 =
+  10 m/s, the shear on every third lane, a discrete gust on every third
+  lane) through `megakernel_gdc_turb` and `megakernel_msn_turb`;
+- `xv2_nav_megakernel`: the loiter on estimates of the JAX package's
+  `tests/test_navigation.py:276-327` on a fleet (`testing.
+  loiter_fleet_sim`: the calm C172Xv2 on `NavAvionics` around its
+  guidance and control laws, a 1500 m circle 2 km north, EAS_ref 40 m/s,
+  lane k's sensors seeded k) through `megakernel_gdc_nav`.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
@@ -77,7 +88,9 @@ Phases:
    holds (every instance, the turbulent ones too)
    held to its record (`tools/sass_torch_kernels.py`;
    not compared under another nvcc than the record's; a change that means
-   to change a recorded instance's machine code records the file anew);
+   to change a recorded instance's machine code records the file anew),
+   read by cuobjdump in a thread of its own beside phases 3-8 and held
+   before the kernels line;
 3. per kernel at B = 4096, on the same card tensors as its plain PyTorch
    version, float64 to 1e-12 and float32 to 1e-5 (relative to
    max(1, |plain|); flags and states exactly), the four fly-by-wire
@@ -141,7 +154,9 @@ Phases:
    the terminated lanes, the landing lanes' cross-track at touchdown and
    share stopped and the pattern lanes' highest phase reported (the
    reference's behaviour, not gated); the same steps through the plain
-   versions agree within the 10 s float32 envelope of BENCHMARKS.md scaled
+   versions (run in PLAIN_WORKERS worker processes on the card beside
+   phases 3-4, on the same fleets made from the same seed) agree within
+   the 10 s float32 envelope of BENCHMARKS.md scaled
    to the steps flown (n / 500 of it; `xv2_megakernel` over its first
    100 steps, `xv1_megakernel` and `msn_megakernel` over their first
    200); 20 steps of the
@@ -234,17 +249,40 @@ Phases:
    paths' profiles, the navigation stage's share of the step, and the
    instances' times (on and off an aiding epoch), bounds and launches.
 
+8. the C172Xv2's last instances: `megakernel_gdc_turb` and
+   `megakernel_msn_turb` (one step, with and without residuals, the pass
+   every step and every other step) against their plain versions in
+   float64 (1e-12) and float32 (exactly) at 32 and 64
+   aircraft per block, on `testing.xv2_turb_operand_state` and
+   `msn_turb_operand_state` at B (the turbulent operands with the
+   mode-rich guidance and every phase) and on their fleets;
+   `megakernel_gdc_nav` on the sensor-fed C172Xv2's mode-rich operands
+   (`testing.nav_operand_state(gdc=True)`) in each of the six navigation
+   settings (XV2_NAV_SETTINGS) and on the loiter fleet at its start and at
+   its first GPS epoch, as `testing.nav_hold` holds it; the two turbulent
+   paths XV2_TURB_STEPS steps against plain within the scaled 10 s
+   envelope; the loiter on estimates at B for its 60 s through
+   `megakernel_gdc_nav`, every lane held to the JAX test's assertions (not
+   terminated, altitude within 10 m, the final radial error under 0.7 of
+   the start's, no GPS or baro alarm at a save), its first LOITER_WINDOW
+   steps held to the float64 plain step as the navigation fleet's; the
+   instances' times (the loiter's on and off an aiding epoch), bounds,
+   launches and the paths' graphed profiles.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
 """
 
+import atexit
 import collections
 import json
+import multiprocessing
 import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -284,6 +322,10 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # the 10 s float32 envelope (BENCHMARKS.md:34): position, velocity,
 # attitude, EAS
 ENV_POS_M, ENV_VEL, ENV_ATT_RAD, ENV_EAS = 0.73, 5e-5, 7e-7, 5e-5
+# phase 4's plain references (each plain step is ~29,000 host-bound
+# PyTorch ops on one core) run in this many worker processes of their own
+# on the same card, beside phases 3-4
+PLAIN_WORKERS = 5
 
 # kernel: (source, the TPU kernel it replaces, the path that launches it)
 KERNELS = {
@@ -380,6 +422,17 @@ KERNELS = {
     "megakernel_nav": ("flightjax_torch/csrc/megakernel.cu",
                        "flightjax/parallel/megakernel.py:43",
                        "sensor_fed_megakernel"),
+    # the C172Xv2's last instances: in Dryden turbulence, a mission flown
+    # on it, and on its navigation avionics (the loiter on estimates)
+    "megakernel_gdc_turb": ("flightjax_torch/csrc/megakernel_gdc_turb.cu",
+                            "flightjax/parallel/megakernel.py:43",
+                            "xv2_turb_megakernel"),
+    "megakernel_msn_turb": ("flightjax_torch/csrc/megakernel_msn_turb.cu",
+                            "flightjax/parallel/megakernel.py:43",
+                            "msn_turb_megakernel"),
+    "megakernel_gdc_nav": ("flightjax_torch/csrc/megakernel_gdc_nav.cu",
+                           "flightjax/parallel/megakernel.py:43",
+                           "xv2_nav_megakernel"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
@@ -389,10 +442,13 @@ TURB_NAMES = ("rk4_stage_turb", "rk4_finish_turb", "megakernel_turb")
 NAV_NAMES = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
              "megakernel_fbw_turb", "nav_pass", "megakernel_nav_turb",
              "megakernel_nav")
+XV2_LAST_NAMES = ("megakernel_gdc_turb", "megakernel_msn_turb",
+                  "megakernel_gdc_nav")
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
     "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES
-    and k not in TURB_NAMES and k not in NAV_NAMES)
+    and k not in TURB_NAMES and k not in NAV_NAMES
+    and k not in XV2_LAST_NAMES)
 XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
 XV2_PATHS = ("xv2_subsystems", "xv2_vehicle", "xv2_megakernel")
 XV_PATHS = XV1_PATHS + XV2_PATHS
@@ -437,6 +493,26 @@ NAV_T_END = 30.0
 JAX_NAV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "tools", "jax_nav_study.json")
 NAV_MATCH = (0.02, 0.01)
+# the C172Xv2's last instances' megakernel paths: the turbulent C172Xv2's
+# guidance scenario and the turbulent mission fleet (`testing.
+# xv2_turb_fleet_sim`, `msn_turb_fleet_sim`: the turbulent fleet's W20,
+# shear and gusts), held to plain over XV2_TURB_STEPS steps; the loiter on
+# estimates (`testing.loiter_fleet_sim`) through megakernel_gdc_nav, held
+# to plain over LOITER_WINDOW steps as the navigation fleet is, then flown its
+# LOITER_STEPS and held to the JAX test's assertions on every lane
+# (`tests/test_navigation.py:276-327`; the alarms read every
+# LOITER_SAVE_EVERY steps, as that test's log saves them)
+XV2_TURB_PATHS = ("xv2_turb_megakernel", "msn_turb_megakernel")
+XV2_NAV_PATH = "xv2_nav_megakernel"
+XV2_TURB_STEPS = 10
+LOITER_SAVE_EVERY = 100
+# megakernel_gdc_nav's mode-rich checks: every navigation setting once, the
+# default in both dtypes; the loiter's window against plain (each plain
+# step of a navigation world takes half a second of the run's 1200)
+XV2_NAV_SETTINGS = {torch.float64: ("default", "radar", "synthetic",
+                                    "immediate"),
+                    torch.float32: ("default", "shadow", "perturb")}
+LOITER_WINDOW = 5
 # the sub-controllers of the control laws' lon and lat passes, each under
 # the comment `# ---- <name>` that opens it in `ControlLaws.lon_step` /
 # `lat_step` (`models/c172/c172x_ctl.py`), with the modes that enable it;
@@ -537,10 +613,10 @@ def leaf_pairs(got, ref):
             for (p, a), (_, b) in zip(leaves(got), leaves(ref))]
 
 
-def cuda_ms(fn, reps=7, calls=20):
+def cuda_ms(fn, reps=7, calls=20, warm=3):
     """Warm median milliseconds per call, CUDA events around `calls`
-    back-to-back calls."""
-    for _ in range(3):
+    back-to-back calls, after `warm` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -1106,6 +1182,53 @@ def plain_rollout(sim, st, n, geoid_every=None):
     for k in range(n):
         st = cluster_step(sim, st, i + k, plain=True, geoid_every=geoid_every)
     return st
+
+
+def plain_reference(label, n, dtype_name):
+    """A worker's task: the plain reference of phase 4's path `label` over
+    `n` steps, on its fleet made anew in `dtype_name` (the same lanes from
+    the same seed), returned on the CPU."""
+    from flightjax_torch.core.modeling import tree_map
+    from flightjax_torch.parallel import kernels as K
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prefix = next((p for p in ("xv1_", "xv2_", "msn_")
+                   if label.startswith(p)), "")
+    f = {"": fleet, "xv1_": xv1_fleet, "xv2_": xv2_fleet,
+         "msn_": msn_fleet}[prefix](getattr(torch, dtype_name))
+    K.reset_launches()
+    ref = Paths(f[0], f[1], prefix).run_plain(label, n)
+    torch.cuda.synchronize()
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"{label}: plain run launched a kernel")
+    return tree_map(lambda v: v.cpu(), ref)
+
+
+def plain_references():
+    """Phase 4's plain references, float32 over PATH_STEPS and float64 over
+    F64_STEPS, started in PLAIN_WORKERS worker processes (the longest
+    first): (the pool, closed, and terminated at exit if still running;
+    {(label, dtype name): AsyncResult})."""
+    pool = multiprocessing.get_context("spawn").Pool(PLAIN_WORKERS)
+    atexit.register(pool.terminate)
+    tasks = sorted(PATH_STEPS.items(), key=lambda kv: -kv[1])
+    pending = {(label, "float32"): pool.apply_async(
+        plain_reference, (label, n, "float32")) for label, n in tasks}
+    for label in ("subsystems", "vehicle", "megakernel") + XV_PATHS + \
+            MSN_PATHS:
+        n = F64_STEPS["msn" if label in MSN_PATHS else ""]
+        pending[label, "float64"] = pool.apply_async(
+            plain_reference, (label, n, "float64"))
+    pool.close()
+    return pool, pending
+
+
+def plain_result(pending, label, dtype_name):
+    """A worker's plain reference, back on the card."""
+    from flightjax_torch.core.modeling import tree_map
+    return tree_map(lambda v: v.to(DEVICE),
+                    pending.pop((label, dtype_name)).get())
 
 
 class Paths:
@@ -1887,7 +2010,7 @@ def turb_phase(card, t_start, check, errs, regs, sizes):
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1], launches=launches[name],
             max_abs_err=errs[name], ms=ms,
-            plain_ms=cuda_ms(plain, reps=3, calls=2),
+            plain_ms=cuda_ms(plain, reps=3, calls=1, warm=1),
             nbytes=4 * n_elems, ops=count_ops(plain), library_ms=None,
             event_ms=cuda_ms(bare), wrapper_ms=cuda_ms(wrapper),
             block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
@@ -1899,6 +2022,17 @@ def turb_phase(card, t_start, check, errs, regs, sizes):
 
 
 # ------------------------------------------------------------ navigation
+
+def nav_at_epoch(st, n=9):
+    """A sensor-fed fleet state `st` moved to step and sensor epoch `n`
+    (at 9 its next firing makes the first GPS epoch, where every lane
+    aids)."""
+    av = st.s["avionics"]
+    sens = dict(av["sens"], n=torch.full_like(av["sens"]["n"], n))
+    return st._replace(i=torch.full_like(st.i, n),
+                       t=torch.full_like(st.t, n * 0.02),
+                       s=dict(st.s, avionics=dict(av, sens=sens)))
+
 
 # the navigation megakernel of each of its paths
 KERNELS_OF_PATH = {"nav_megakernel": "megakernel_nav_turb",
@@ -2442,16 +2576,10 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
     # autopilot fleet, each at its first GPS epoch (every lane aids)
     from flightjax_torch.testing import nav_pass_args, sensor_fed_fleet_sim
 
-    def at_epoch(st, n=9):
-        av = st.s["avionics"]
-        sens = dict(av["sens"], n=torch.full_like(av["sens"]["n"], n))
-        return st._replace(i=torch.full_like(st.i, n),
-                           t=torch.full_like(st.t, n * 0.02),
-                           s=dict(st.s, avionics=dict(av, sens=sens)))
     nav_mega = {}
     for label, (sim, st) in (
-            ("nav_megakernel", (nsim, at_epoch(nst0))),
-            ("sensor_fed_megakernel", (lambda f: (f[0], at_epoch(f[1])))(
+            ("nav_megakernel", (nsim, nav_at_epoch(nst0))),
+            ("sensor_fed_megakernel", (lambda f: (f[0], nav_at_epoch(f[1])))(
                 sensor_fed_fleet_sim(B, DEVICE, torch.float32)))):
         av = sim.system.aircraft.avionics
         veh = sim.system.aircraft.vehicle
@@ -2555,7 +2683,7 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
         tavionics, tst0.s["avionics"], new.s["avionics"], fires)}
     # nav_pass on the study's fleet at its first GPS epoch (every lane
     # aids: the plain version's ungated work is the kernel's)
-    nargs = nav_pass_args(nsim, at_epoch(nst0))
+    nargs = nav_pass_args(nsim, nav_at_epoch(nst0))
     nbuf, n_out, _, nops = K.pack_nav_pass(*nargs)
     tab = normal_table(DEVICE)
     n_draws = 29 * B  # the table entries the epoch's draws read
@@ -2587,9 +2715,9 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1], launches=launches[name],
             max_abs_err=errs[name], ms=graph_ms(bare),
-            plain_ms=(cuda_ms(plain, reps=1, calls=1) if name in (
+            plain_ms=(cuda_ms(plain, reps=1, calls=1, warm=1) if name in (
                 "nav_pass", "megakernel_nav", "megakernel_nav_turb")
-                else cuda_ms(plain, reps=3, calls=2)),
+                else cuda_ms(plain, reps=3, calls=1, warm=1)),
             nbytes=4 * n_elems,
             ops=count_ops(plain, weights.get(name),
                           matmul=name in ("nav_pass", "megakernel_nav",
@@ -2604,7 +2732,7 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
     # the navigation megakernels off an aiding epoch (no lane aids: the
     # four firings in five that run no aiding block)
     for label, m in nav_mega.items():
-        off = make_megakernel_step(m["sim"], at_epoch(m["st"], 10))[0]
+        off = make_megakernel_step(m["sim"], nav_at_epoch(m["st"], 10))[0]
         sim = m["sim"]
         veh = sim.system.aircraft.vehicle
         row = next(r for r in rows if r["name"] == KERNELS_OF_PATH[label])
@@ -2616,6 +2744,341 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
         log(f"time {row['name']}: {row['off_epoch_ms']:.4f} ms off an "
             f"aiding epoch, {row['ms']:.4f} ms on one [{card}]")
     log("navigation profiles: " + json.dumps(profiles))
+    return rows
+
+
+def loiter_flight(card, sim, st0, orbit, launches):
+    """The loiter on estimates at B through megakernel_gdc_nav in float32
+    for LOITER_STEPS steps, its launches counted from 0 (the kernels
+    line's count), held on every lane to the JAX test's assertions
+    (`tests/test_navigation.py:276-327`): not terminated, altitude within
+    10 m of the start's, the final radial error under 0.7 of the start's,
+    no GPS or baro alarm at any of the saves (every LOITER_SAVE_EVERY
+    steps). Returns the state after LOITER_WINDOW steps, for the window
+    against plain."""
+    from flightjax_torch.models.c172.c172x_gdc import Circle, circle_data
+    from flightjax_torch.ops.geodesy import nvector_from_qew
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import LOITER_STEPS
+    crc = Circle(*(v.expand(B, *v.shape).contiguous() for v in orbit))
+
+    def e_cb(st):
+        kin = st.x["vehicle"]["kinematics"]
+        return circle_data(crc, nvector_from_qew(kin["q_ew"]),
+                           kin["h_e"]).e_cb.double()
+    h0 = st0.x["vehicle"]["kinematics"]["h_e"].double()
+    d0 = e_cb(st0)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+    alarm = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.time()
+    window = None
+    for k in range(1, LOITER_STEPS + 1):
+        bufs = step_packed(bufs)
+        if k == LOITER_WINDOW:
+            window = unpack(bufs)
+        if k % LOITER_SAVE_EVERY == 0:
+            s_av = unpack(bufs).s["avionics"]
+            alarm |= s_av["mon_gps"]["alarm"] | s_av["mon_baro"]["alarm"]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    if got != {"megakernel_gdc_nav": LOITER_STEPS}:
+        raise AssertionError(f"{XV2_NAV_PATH}: launches {got}")
+    launches["megakernel_gdc_nav"] = LOITER_STEPS
+    out = unpack(bufs)
+    for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+        if val.dtype.is_floating_point and not bool(
+                torch.isfinite(val).all()):
+            raise AssertionError(f"{XV2_NAV_PATH}: non-finite leaf {p}")
+    dh = (out.x["vehicle"]["kinematics"]["h_e"].double() - h0).abs()
+    d1 = e_cb(out)
+    fails = {"terminated": out.s["terminated"].bool(),
+             "|h_e - h0| >= 10 m": dh >= 10.0,
+             "|e_cb| >= 0.7 |e_cb(0)|": d1.abs() >= 0.7 * d0.abs(),
+             "a GPS or baro alarm": alarm}
+    q = lambda v: [round(float(x), 3) for x in torch.quantile(
+        v, torch.tensor([0.0, 0.5, 0.95, 1.0], device=DEVICE,
+                        dtype=torch.float64))]
+    log(f"{XV2_NAV_PATH}: the loiter on estimates, B = {B}, "
+        f"{LOITER_STEPS} steps (60 s) through megakernel_gdc_nav in "
+        f"{wall:.2f} s wall, {B * LOITER_STEPS / wall:.0f} vehicle-steps/s;"
+        f" e_cb at the start {q(d0)} m, at the end (min, median, p95, max "
+        f"of |e_cb|) {q(d1.abs())} m, |h_e - h0| {q(dh)} m; lanes failing "
+        f"the JAX test's assertions: "
+        + ", ".join(f"{k} {int(v.sum())}" for k, v in fails.items())
+        + f" [{card}]")
+    bad = torch.stack(list(fails.values())).any(dim=0)
+    if bool(bad.any()):
+        raise AssertionError(f"{XV2_NAV_PATH}: {int(bad.sum())} of {B} lanes "
+                             f"fail the JAX test's assertions (lanes "
+                             f"{bad.nonzero().flatten()[:16].tolist()})")
+    return window
+
+
+def xv2_last_phase(card, t_start, check, errs, regs, sizes):
+    """The C172Xv2's last instances: megakernel_gdc_turb and
+    megakernel_msn_turb against their plain versions in float64 (1e-12)
+    and float32 (exactly) at 32 and 64 aircraft per block, on the turbulent
+    mode-rich operands (`testing.xv2_turb_operand_state`,
+    `msn_turb_operand_state`: every branch of the turbulence, every
+    guidance mode, every phase; with and without residuals, the pass every
+    step and every other step) and on their fleets; megakernel_gdc_nav on
+    the sensor-fed C172Xv2's mode-rich operands in each navigation setting
+    (XV2_NAV_SETTINGS) and on the loiter fleet, at its start and at its
+    first GPS epoch, as `testing.nav_hold` holds it; the three megakernel
+    paths at B in float32 from their launch counts set to 0: the turbulent
+    two XV2_TURB_STEPS steps against plain within the scaled 10 s
+    envelope, the loiter on estimates its 60 s on every lane within the
+    JAX test's assertions, its first LOITER_WINDOW steps held to the
+    float64 plain step as the navigation fleet's are; the instances'
+    timings and the paths' profiles.
+    Returns the instances' rows of the kernels line."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.ops.random import normal_table
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import (NAV_SPREAD, fbw_turb_operands,
+                                         loiter_fleet_sim, msn_sim,
+                                         msn_turb_fleet_sim,
+                                         msn_turb_operand_state, nav_hold,
+                                         nav_operand_state, nav_reference,
+                                         xv2_turb_fleet_sim,
+                                         xv2_turb_operand_state, xv2_turb_sim)
+    log(f"elapsed {time.time() - t_start:.1f} s (the C172Xv2's last "
+        f"instances: kernel checks)")
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    turb_fleets = {"gdc": xv2_turb_fleet_sim, "msn": msn_turb_fleet_sim}
+    d = fbw_turb_operands(B, SEED, GROUND_LANES, TERMINATED_LANES,
+                          (CRASH_LANE,))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for avk in ("gdc", "msn"):
+            name = f"megakernel_{avk}_turb"
+            cases = []
+            for comp, spp in ((False, 1), (True, 2)):
+                if avk == "gdc":
+                    sim = xv2_turb_sim(DEVICE, dtype, spp)
+                    st = xv2_turb_operand_state(d, DEVICE, dtype)
+                else:
+                    sim = msn_sim(DEVICE, dtype, spp,
+                                  turbulence=DrydenTurbulence(0.02))
+                    st = msn_turb_operand_state(d, DEVICE, dtype)
+                st = st._replace(c=comp_residuals(st.x, force=True) if comp
+                                 else None)
+                cases.append((f"mode-rich operands, pass every {spp}, comp "
+                              f"{comp}", sim, st))
+            cases.append(("fleet", *turb_fleets[avk](B, SEED, DEVICE,
+                                                     dtype)[:2]))
+            for what, sim, st in cases:
+                ref = megakernel_step_plain(sim, st)
+                for lanes in (32, 64):
+                    bufs, step_packed, unpack = make_megakernel_step(
+                        sim, st, block=lanes)
+                    got = unpack(step_packed(bufs))
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got.i, ref.i) and torch.equal(
+                            got.s["vehicle"]["turb"]["n"],
+                            ref.s["vehicle"]["turb"]["n"])):
+                        raise AssertionError(f"{name}: counters")
+                    # exact in float32, as the turbulent and the guided
+                    # instances they compose are
+                    check(name, dtype, tol if dtype == torch.float64
+                          else 0.0, leaf_pairs(
+                              (got.t, got.x, got.u, got.s, got.c),
+                              (ref.t, ref.x, ref.u, ref.s, ref.c)),
+                          f" ({what}, block {lanes})")
+                if what.startswith("mode-rich") and not bool(
+                        got.s["terminated"][CRASH_LANE]):
+                    raise AssertionError(f"{name}: the crash lane did not "
+                                         f"latch")
+            del cases, sim, st, ref, got
+        # megakernel_gdc_nav: the mode-rich operands in every setting, the
+        # loiter fleet at its start and at its first GPS epoch
+        lsim, lst, _ = loiter_fleet_sim(B, DEVICE, dtype)
+        nav_cases = [(f"mode-rich, {s_}", *nav_operand_state(
+            B, SEED, DEVICE, dtype, turbulence=False, setting=s_, gdc=True))
+            for s_ in XV2_NAV_SETTINGS[dtype]]
+        nav_cases += [("loiter fleet", lsim, lst),
+                      ("loiter fleet, first GPS epoch", lsim,
+                       nav_at_epoch(lst))]
+        for what, sim, st in nav_cases:
+            ref = megakernel_step_plain(sim, st)
+            ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    sim, st, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                if not torch.equal(got.i, ref.i):
+                    raise AssertionError("megakernel_gdc_nav: step counter")
+                nav_held("megakernel_gdc_nav", dtype, tr(got), tr(ref),
+                         tr(ref_c), got.s["avionics"], ref.s["avionics"],
+                         sim.system.aircraft.avionics,
+                         f" ({what}, block {lanes})", errs)
+        del nav_cases, lsim, lst, ref, ref_c, got
+
+    # the paths, from their launch counts set to 0
+    log(f"elapsed {time.time() - t_start:.1f} s (the C172Xv2's last "
+        f"instances: paths)")
+    launches = {}
+    env = [e * XV2_TURB_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL,
+                                                ENV_ATT_RAD, ENV_EAS)]
+    fleets = {f"{avk}_turb": turb_fleets[avk](B, SEED, DEVICE,
+                                              torch.float32)[:2]
+              for avk in ("gdc", "msn")}
+    for label, key in zip(XV2_TURB_PATHS, ("gdc_turb", "msn_turb")):
+        name = "megakernel_" + key
+        sim, st = fleets[key]
+        bufs, step_packed, unpack = make_megakernel_step(sim, st)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.time()
+        for _ in range(XV2_TURB_STEPS):
+            bufs = step_packed(bufs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        if got != {name: XV2_TURB_STEPS}:
+            raise AssertionError(f"{label}: launches {got}")
+        launches[name] = got[name]
+        out = unpack(bufs)
+        for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+            if val.dtype.is_floating_point and not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"{label}: non-finite leaf {p}")
+        if bool(out.s["terminated"].any()):
+            raise AssertionError(f"{label}: a lane terminated")
+        ref = st
+        for _ in range(XV2_TURB_STEPS):
+            ref = megakernel_step_plain(sim, ref)
+        dist = compare_runs(out, ref)
+        log(f"{label}: {XV2_TURB_STEPS} steps x {B} aircraft in {wall:.3f} s "
+            f"(first run; launches {got}); kernels vs plain (f32): position "
+            f"{dist[0]:.3e} m (env {env[0]:.3g}), velocity {dist[1]:.3e} m/s "
+            f"(env {env[1]:.3g}), attitude {dist[2]:.3e} rad (env "
+            f"{env[2]:.3g}), EAS {dist[3]:.3e} m/s (env {env[3]:.3g})")
+        if not all(v_ <= e for v_, e in zip(dist, env)):
+            raise AssertionError(f"{label}: kernel and plain runs disagree")
+    # the loiter on estimates: its 60 s on every lane, its first NAV_STEPS
+    # against the float64 plain step as the navigation fleet's
+    lsim, lst0, orbit = loiter_fleet_sim(B, DEVICE, torch.float32)
+    fleets["gdc_nav"] = (lsim, lst0)
+    log(f"elapsed {time.time() - t_start:.1f} s (the C172Xv2's last "
+        f"instances: the loiter on estimates)")
+    window = loiter_flight(card, lsim, lst0, orbit, launches)
+
+    def plain_steps(sim, st, n=LOITER_WINDOW):
+        for _ in range(n):
+            st = megakernel_step_plain(sim, st)
+        return st
+    ref = plain_steps(lsim, lst0)
+    twin = nav_reference(lsim, torch.float32, plain_steps, lst0)
+    p_err, n_bad, n_far, worst = nav_hold(
+        torch.float32, tr(window), tr(ref), tr(twin), window.s["avionics"],
+        ref.s["avionics"], lsim.system.aircraft.avionics, XV2_NAV_PATH)
+    env_w = [e * LOITER_WINDOW / STEPS for e in (ENV_POS_M, ENV_VEL,
+                                                 ENV_ATT_RAD, ENV_EAS)]
+    d_k, d_p = compare_runs(window, twin), compare_runs(ref, twin)
+    lim = [max(NAV_SPREAD * p_, e) for p_, e in zip(d_p, env_w)]
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+    log(f"{XV2_NAV_PATH} after {LOITER_WINDOW} steps on the estimates (f32), "
+        f"kernels / plain vs the float64 plain step: position "
+        f"{d_k[0]:.3e} / {d_p[0]:.3e} m (limit {lim[0]:.3g}), velocity "
+        f"{d_k[1]:.3e} / {d_p[1]:.3e} m/s (limit {lim[1]:.3g}), attitude "
+        f"{d_k[2]:.3e} / {d_p[2]:.3e} rad (limit {lim[2]:.3g}), EAS "
+        f"{d_k[3]:.3e} / {d_p[3]:.3e} m/s (limit {lim[3]:.3g}); P per lane "
+        f"{p_err:.3e}; flags differ on {n_bad} lanes ({n_bad - n_far} near "
+        f"a gate); the worst leaves (error, limit) "
+        + ", ".join(f"{k_} {e:.2e} ({l_:.1e})" for k_, (e, l_) in top))
+    if not all(v_ <= l_ for v_, l_ in zip(d_k, lim)):
+        raise AssertionError(f"{XV2_NAV_PATH}: the kernels' run is further "
+                             f"from the float64 step than the plain run's "
+                             f"limit")
+    del window, ref, twin
+
+    # timings and profiles, on the paths' fleets (the loiter at its first
+    # GPS epoch, every lane aiding, and off an aiding epoch)
+    log(f"elapsed {time.time() - t_start:.1f} s (the C172Xv2's last "
+        f"instances: timings)")
+    rows, profiles = [], {}
+    for key, label in (("gdc_turb", "xv2_turb_megakernel"),
+                       ("msn_turb", "msn_turb_megakernel"),
+                       ("gdc_nav", XV2_NAV_PATH)):
+        name = "megakernel_" + key
+        sim, st = fleets[key]
+        nav = key == "gdc_nav"
+        if nav:
+            st = nav_at_epoch(st)
+        av = sim.system.aircraft.avionics
+        veh = sim.system.aircraft.vehicle
+        bufs, step_packed, unpack = make_megakernel_step(sim, st)
+        params, grid, gains = (K.system_params(veh), K.geoid_grid(veh.geoid),
+                               K.ctl_gains(av))
+        table = normal_table(DEVICE) if nav else None
+
+        def bare(lanes=None, b_=bufs, sim=sim, params=params, grid=grid,
+                 gains=gains, comp=st.c is not None, nav=nav, table=table,
+                 msn=key == "msn_turb"):
+            return L.launch_megakernel(
+                b_[0], b_[1], params, grid, sim.dt, sim.t_start, comp, lanes,
+                gains, sim.steps_per_periodic, sim.periodic_dt, gdc=not msn,
+                msn=msn, turb=not nav, table=table)
+        new = unpack(step_packed(bufs))
+        plain = lambda sim=sim, st=st: megakernel_step_plain(sim, st)
+        inner = new.s["avionics"].get("inner", new.s["avionics"])
+        ctl = inner.get("ctl", inner)
+        n_elems = (2 * (bufs[0].numel() + bufs[1].numel()) + params.numel()
+                   + geoid_cells(veh.geoid,
+                                 new.x["vehicle"]["kinematics"]["q_ew"])
+                   + gain_values(av, eas(new),
+                                 new.x["vehicle"]["kinematics"]["h_e"],
+                                 ctl["lon"]["mode_prev"],
+                                 ctl["lat"]["mode_prev"]))
+        if nav:
+            n_elems += 29 * B + len(K.nav_param_values(av))
+            ops = count_ops(plain, matmul=True)
+        else:
+            fires = (st.i + 1) % sim.steps_per_periodic == 0
+            if key == "msn_turb":
+                n_elems += K.mission_table(av).numel()
+                u_gdc, g_mode = msn_overrides(sim, st, new)
+            else:
+                u_gdc = st.u["avionics"]["gdc"]
+                g_mode = K.gdc_ctl_laws_plain(*gdc_flight_args(
+                    sim, new))[2]["mode"]
+            ops = count_ops(plain, pass_op_weights(
+                av, st.s["avionics"], new.s["avionics"], fires,
+                gdc_branches(u_gdc, g_mode)))
+        row = dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1], launches=launches[name],
+            max_abs_err=errs[name], ms=graph_ms(bare),
+            plain_ms=cuda_ms(plain, reps=1, calls=1, warm=1),
+            nbytes=4 * n_elems, ops=ops, library_ms=None,
+            event_ms=cuda_ms(bare),
+            wrapper_ms=cuda_ms(lambda: step_packed(bufs)),
+            block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
+            launches_per_step=1, share=1.0)
+        if nav:
+            off = make_megakernel_step(sim, nav_at_epoch(fleets[key][1],
+                                                         10))[0]
+            row["off_epoch_ms"] = graph_ms(lambda: bare(b_=off))
+            log(f"time {name}: {row['off_epoch_ms']:.4f} ms off an aiding "
+                f"epoch, {row['ms']:.4f} ms on one [{card}]")
+        rows.append(row)
+        pr = graph_profile(label, name, step_packed, bufs, bare)
+        profiles[label] = pr
+        log(f"profile {label}: B = {B}, f32: host "
+            f"{pr['host_ms_per_step']:.4f} ms/step, device "
+            f"{pr['device_ms_per_step']:.4f} ms/step, idle share "
+            f"{pr['idle_share']:.4f}, {B / pr['host_ms_per_step'] * 1e3:.0f} "
+            f"vehicle-steps/s [{card}]")
+    log("the C172Xv2's last instances' profiles: " + json.dumps(profiles))
     return rows
 
 
@@ -2653,27 +3116,32 @@ def main():
                 log("  ptxas: " + line.strip())
             elif line.startswith("nvcc "):
                 log("  " + line.strip())
-    sizes = dict(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
-    log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
+    # the machine code's sizes and its digests against the record, read by
+    # cuobjdump's processes in a thread of their own beside phases 3-8 (a
+    # minute of the run); held and logged before the kernels line
     from sass_torch_kernels import compare, nvcc_version
     record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tools", "sass_torch_record.json")
     with open(record) as fh:
         rec_nvcc = json.load(fh)["nvcc"]
-    if rec_nvcc == nvcc_version(L._nvcc()):
-        same, changed, missing = compare(L.BUILD_INFO["so"], record,
-                                         L._nvcc())
-        log(f"SASS: the {len(same)} recorded kernel instances are "
-            f"instruction for instruction as recorded ({', '.join(same)})")
-        if changed or missing:
-            raise AssertionError(f"SASS changed {changed}, missing {missing}")
-    else:
-        log(f"SASS: not compared, the record is of {rec_nvcc}")
+    sizes, sass = {}, {}
+
+    def machine_code():
+        try:
+            sizes.update(code_bytes(L._nvcc(), L.BUILD_INFO["so"]))
+            if rec_nvcc == nvcc_version(L._nvcc()):
+                sass["cmp"] = compare(L.BUILD_INFO["so"], record, L._nvcc())
+        except BaseException as e:  # raised in the main thread
+            sass["error"] = e
+    reader = threading.Thread(target=machine_code)
+    reader.start()
     regs = registers(L.BUILD_INFO["log"])
     for name in KERNELS:
         log(f"  registers {name}: " + ", ".join(
             f"{dt} {r} (spill stores {ss} B, loads {sl} B)"
             for dt, (r, ss, sl) in sorted(regs.get(name, {}).items())))
+
+    pool, pending = plain_references()
 
     # 3. per-kernel checks (f64 at 1e-12, f32 at 1e-5)
     log(f"elapsed {time.time() - t_start:.1f} s")
@@ -3021,11 +3489,7 @@ def main():
             check_autopilot(label, end)
         if label in XV2_PATHS:
             check_guidance(label, end, vlanes)
-        K.reset_launches()
-        ref = paths_.run_plain(label, n)
-        torch.cuda.synchronize()
-        if any(K.LAUNCHES.values()):
-            raise AssertionError(f"{label}: plain run launched a kernel")
+        ref = plain_result(pending, label, "float32")
         pos, vel, att, de = compare_runs(out, ref)
         del end
         # the 10 s envelope scaled to the steps flown
@@ -3056,7 +3520,7 @@ def main():
                npaths64 if label in MSN_PATHS else paths64)
         n64 = F64_STEPS["msn" if label in MSN_PATHS else ""]
         a = p64.run(label, n64)
-        b = p64.run_plain(label, n64)
+        b = plain_result(pending, label, "float64")
         torch.cuda.synchronize()
         worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
             {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
@@ -3066,6 +3530,7 @@ def main():
             raise AssertionError(f"{label}: f64 run disagrees")
     del sim64, st64, paths64, xsim64, xst64, xpaths64, vsim64, vst64
     del vpaths64, nsim64, nst64, npaths64
+    pool.join()  # every reference taken: the workers leave the card
 
     # host and device ms per step, launches per step and idle share of the
     # C172X paths
@@ -3114,7 +3579,7 @@ def main():
         ms, event_ms = graph_ms(bare), cuda_ms(bare)
         kern, plain = getattr(K, name), getattr(K, name + "_plain")
         wrapper_ms = cuda_ms(lambda: kern(*args[name]))
-        plain_ms = cuda_ms(lambda: plain(*args[name]), reps=5, calls=4)
+        plain_ms = cuda_ms(lambda: plain(*args[name]), reps=3, calls=2, warm=1)
         extra = {}
         if name in L.ROLE_KERNELS:
             fbuf, _, fscal, fops = flight[name]
@@ -3161,7 +3626,7 @@ def main():
         del big, rbig
     wrapper_ms = cuda_ms(lambda: step_packed(bufs))
     plain_ms = cuda_ms(lambda: megakernel_step_plain(sim, st0), reps=3,
-                       calls=2)
+                       calls=1, warm=1)
     q_new = unpack(step_packed(bufs)).x["vehicle"]["kinematics"]["q_ew"]
     n_elems = 2 * (bufs[0].numel() + bufs[1].numel()) + params.numel() \
         + geoid_cells(vehicle.geoid, q_new)
@@ -3194,7 +3659,8 @@ def main():
                                         **ops)
         ms, event_ms = graph_ms(bare), cuda_ms(bare)
         wrapper_ms = cuda_ms(lambda: fbw_wrapper(name)(*a))
-        plain_ms = cuda_ms(lambda: fbw_plain(name)(*a), reps=5, calls=4)
+        plain_ms = cuda_ms(lambda: fbw_plain(name)(*a), reps=3, calls=2,
+                           warm=1)
         fbuf, _, fscal, fops = xflight[name]
         air = lambda bs=None: L.launch(name, fbuf, n_out, fscal, block=bs,
                                        **fops)
@@ -3237,7 +3703,7 @@ def main():
                      launches=launches["ctl_laws"],
                      max_abs_err=errs["ctl_laws"], ms=extra["airborne_ms"],
                      plain_ms=cuda_ms(lambda: K.ctl_laws_plain(*air_args),
-                                      reps=5, calls=4),
+                                      reps=3, calls=2, warm=1),
                      nbytes=4 * n_elems,
                      ops=count_ops(lambda: K.ctl_laws_plain(*air_args),
                                    pass_op_weights(xavionics, air_args[3],
@@ -3278,7 +3744,7 @@ def main():
         launches=launches["megakernel_fbw"],
         max_abs_err=errs["megakernel_fbw"], ms=extra["airborne_ms"],
         plain_ms=cuda_ms(lambda: megakernel_step_plain(xsim, xst0), reps=3,
-                         calls=2),
+                         calls=1, warm=1),
         nbytes=4 * n_elems,
         ops=count_ops(lambda: megakernel_step_plain(xsim, xst0),
                       pass_op_weights(xavionics, xst0.s["avionics"],
@@ -3316,7 +3782,7 @@ def main():
                      max_abs_err=errs["gdc_ctl_laws"],
                      ms=extra["airborne_ms"],
                      plain_ms=cuda_ms(lambda: K.gdc_ctl_laws_plain(
-                         *air_args), reps=5, calls=4),
+                         *air_args), reps=3, calls=2, warm=1),
                      nbytes=4 * n_elems,
                      ops=count_ops(lambda: K.gdc_ctl_laws_plain(*air_args),
                                    pass_op_weights(
@@ -3362,7 +3828,7 @@ def main():
         launches=launches["megakernel_gdc"],
         max_abs_err=errs["megakernel_gdc"], ms=extra["airborne_ms"],
         plain_ms=cuda_ms(lambda: megakernel_step_plain(vsim, vst0), reps=3,
-                         calls=2),
+                         calls=1, warm=1),
         nbytes=4 * n_elems,
         ops=count_ops(lambda: megakernel_step_plain(vsim, vst0),
                       pass_op_weights(vavionics, vst0.s["avionics"],
@@ -3402,7 +3868,7 @@ def main():
                      max_abs_err=errs["msn_ctl_laws"],
                      ms=extra["airborne_ms"],
                      plain_ms=cuda_ms(lambda: K.msn_ctl_laws_plain(
-                         *air_args), reps=5, calls=4),
+                         *air_args), reps=3, calls=2, warm=1),
                      nbytes=4 * n_elems,
                      ops=count_ops(lambda: K.msn_ctl_laws_plain(*air_args),
                                    pass_op_weights(
@@ -3454,7 +3920,7 @@ def main():
         launches=launches["megakernel_msn"],
         max_abs_err=errs["megakernel_msn"], ms=extra["airborne_ms"],
         plain_ms=cuda_ms(lambda: megakernel_step_plain(nsim, nst0), reps=3,
-                         calls=2),
+                         calls=1, warm=1),
         nbytes=4 * n_elems,
         ops=count_ops(lambda: megakernel_step_plain(nsim, nst0),
                       pass_op_weights(navionics, nst0.s["avionics"],
@@ -3471,6 +3937,22 @@ def main():
     # the sensor-fed navigation fleet: kernel checks, paths, the study,
     # timings
     rows += nav_phase(card, t_start, check, errs, regs, sizes)
+    # the C172Xv2's last instances: the turbulent C172Xv2 and mission, the
+    # sensor-fed C172Xv2 (the loiter on estimates)
+    rows += xv2_last_phase(card, t_start, check, errs, regs, sizes)
+
+    reader.join()
+    if "error" in sass:
+        raise sass["error"]
+    log(f"  code bytes (f32 kernels): {sizes or 'not measured'}")
+    if "cmp" in sass:
+        same, changed, missing = sass["cmp"]
+        log(f"SASS: the {len(same)} recorded kernel instances are "
+            f"instruction for instruction as recorded ({', '.join(same)})")
+        if changed or missing:
+            raise AssertionError(f"SASS changed {changed}, missing {missing}")
+    else:
+        log(f"SASS: not compared, the record is of {rec_nvcc}")
 
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["ops"])

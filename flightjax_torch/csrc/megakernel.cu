@@ -125,6 +125,18 @@
 // role PROP runs lon and role DRAG lat as in megakernel_fbw. The filter's
 // constants arrive at the end of the gains (kernels.nav_params), the normal
 // table of the sensors' draws as an operand of its own.
+//
+// The turbulent C172Xv2's instances (megakernel_gdc_turb and
+// megakernel_msn_turb, ACT_FBW_TURB with AV_GDC or AV_MSN) compose
+// megakernel_fbw_turb's rows and turbulence with megakernel_gdc's guidance
+// or megakernel_msn's phase machine: the guidance's inputs (and the phase
+// and clock) follow the control laws' block as there. The sensor-fed
+// C172Xv2's instance (megakernel_gdc_nav, ACT_FBW with AV_GDC_NAV) holds
+// megakernel_gdc's rows and then megakernel_nav's navigation rows; its
+// scratch holds GDC_Y, and its navigation pass writes the n-vector of the
+// estimated position beside the estimated CTL_Y fields, so that the
+// guidance, as the control laws, reads the estimates wherever
+// use_estimates is on. Each is built in a translation unit of its own.
 #include "c172x_msn.cuh"
 #include "nav.cuh"
 #include "turbulence.cuh"
@@ -134,8 +146,19 @@ using namespace fj;
 // the avionics of an instance: none (the C172S), the control laws (the
 // C172Xv1), the guidance and control laws (the C172Xv2), a scripted mission
 // over them, the navigation avionics around the control laws (the
-// sensor-fed C172Xv1)
-constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3, AV_NAV = 4;
+// sensor-fed C172Xv1) and around the guidance and control laws (the
+// sensor-fed C172Xv2)
+constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3, AV_NAV = 4,
+              AV_GDC_NAV = 5;
+// the kinds whose pass runs the guidance (their buffer holds its inputs,
+// their scratch the GDC_Y rows at least), and the kinds whose pass the
+// navigation avionics run
+__host__ __device__ constexpr bool av_gdc(int avk) {
+  return avk == AV_GDC || avk == AV_MSN || avk == AV_GDC_NAV;
+}
+__host__ __device__ constexpr bool av_nav(int avk) {
+  return avk == AV_NAV || avk == AV_GDC_NAV;
+}
 
 // the rows of an instance's state buffer and scratch: t, X, CTX, C (and the
 // avionics block, fly-by-wire; and the guidance's inputs; and the phase
@@ -151,14 +174,14 @@ struct MegaL {
     C = CTX + SysL<ACT>::NCTX,
     AV = C + N_C,
     GDC = AV + (act_fbw(ACT) ? N_AV : 0),
-    MSN = GDC + (AVK == AV_GDC || AVK == AV_MSN ? N_UGDC : 0),
+    MSN = GDC + (av_gdc(AVK) ? N_UGDC : 0),
     NAV = MSN + (AVK == AV_MSN ? N_SMSN : 0),
-    ROWS = NAV + (AVK == AV_NAV ? N_NAVU + N_NAVS : 0),
+    ROWS = NAV + (av_nav(AVK) ? N_NAVU + N_NAVS : 0),
     SH_X = act_fbw(ACT) ? SH_N_FBW : SH_N,
     SH_KSUM = SH_X + SysL<ACT>::NXV,
     SH_Y = SH_KSUM + SysL<ACT>::NXV,
-    SH_ROWS = SH_Y + (AVK == AV_MSN   ? N_MSNY
-                      : AVK == AV_GDC ? N_GDCY
+    SH_ROWS = SH_Y + (AVK == AV_MSN    ? N_MSNY
+                      : av_gdc(AVK) ? N_GDCY
                       : AVK == AV_CTL || AVK == AV_NAV ? N_CTLY
                                                        : 0)
   };
@@ -384,7 +407,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   }
   if constexpr (AVK != AV_NONE) {
     // what the avionics read of the new state, into the scratch
-    share_ctl_y<(AVK == AV_GDC || AVK == AV_MSN), T, AVK == AV_MSN>(
+    share_ctl_y<av_gdc(AVK), T, AVK == AV_MSN>(
         sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, c, M::CTX + CX_USYS, t,
         xn, f);
     __syncthreads();
@@ -392,11 +415,13 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   // rows of the navigation instances' int32 operand: i (, seed, n), then
   // NAV_INT
   constexpr int NI0 = act_turb(ACT) ? N_TURB_INT : 1;
-  if constexpr (AVK == AV_NAV) {
+  if constexpr (av_nav(AVK)) {
     // the truth at the new state for the sensors (a fifth evaluation), then
     // the navigation pass where the lane fires, which puts the estimated
-    // CTL_Y fields into the scratch in place of the truth's (in shadow mode
-    // the truth's stay); one more barrier before the pass warps read them
+    // CTL_Y fields into the scratch in place of the truth's (around the
+    // guidance also the n-vector of the estimated position, so that every
+    // GDC_Y field the guidance reads is the estimate's; in shadow mode the
+    // truth's stay); one more barrier before the pass warps read them
     NavTruth<T> tr;
     truth_roles<ACT>(sP, sh, t, xn, c, M::CTX, f.s, &tl, tr);
     nav_pass_roles<T>(
@@ -406,7 +431,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
         Col<T>{in + (M::NAV + N_NAVU) * B, B, t.b},
         Out<T>{out + (M::NAV + N_NAVU) * B, B, t.b}, i_in + NI0 * B + t.b,
         i_out + NI0 * B + t.b, work + t.b, B,
-        Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, false);
+        Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, AVK == AV_GDC_NAV);
     __syncthreads();
   }
   if (!t.valid) return;  // past the last barrier
@@ -449,17 +474,17 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     if (t.role == ROLE_LON || t.role == ROLE_LAT) {
       const bool fires = (i_in[t.b] + 1) % spp == 0;
       const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
-      periodic_side<(AVK == AV_GDC || AVK == AV_MSN), T, AVK == AV_MSN>(
+      periodic_side<av_gdc(AVK), T, AVK == AV_MSN>(
           t.role == ROLE_LON, fires, gains, y, c, o, M::AV, M::CTX + CX_USYS,
           M::GDC, T(pdt), M::MSN);
     }
   }
-  if constexpr (AVK == AV_NAV) {
+  if constexpr (av_nav(AVK)) {
     // the navigation avionics' inputs pass through
     for (int r = t.role; r < N_NAVU; r += N_ROLES)
       o.s(M::NAV + r, c(M::NAV + r));
   }
-  if constexpr (AVK == AV_GDC || AVK == AV_MSN) {
+  if constexpr (av_gdc(AVK)) {
     // the guidance's inputs pass through
     if (t.role == ROLE_KIN) pass_rows(c, o, M::GDC, N_UGDC);
   }
@@ -513,7 +538,7 @@ static int launch(const void* in, const void* i_in, const void* params,
   return (int)cudaGetLastError();
 }
 
-#ifndef FJ_NAV_ACT
+#if !defined(FJ_NAV_ACT) && !defined(FJ_FBW_ACT)
 extern "C" {
 int megakernel_f32(const void* in, const void* i_in, const void* params,
                    const void* grid, void* out, void* i_out, int B,
@@ -718,14 +743,18 @@ void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
   *n_mega = MEGA_N_ROWS_FBW;
 }
 }
-#else
-// the sensor-fed C172Xv1's instances, each in a translation unit of its own
-// (megakernel_nav.cu, megakernel_nav_turb.cu define FJ_NAV_ACT, the
-// ActKind, and FJ_NAV_NAME, the instance's name, and include this file),
-// so that nvcc builds them beside this one: the fly-by-wire signature with
-// the normal table and the work buffer of nav.cuh; i the int32 rows (i,
-// then NAV_INT; turbulent: i, seed, n, then NAV_INT), the gains with the
-// filter's parameter block
+#elif defined(FJ_NAV_ACT)
+// the sensor-fed instances, each in a translation unit of its own
+// (megakernel_nav.cu, megakernel_nav_turb.cu, megakernel_gdc_nav.cu define
+// FJ_NAV_ACT, the ActKind, FJ_NAV_NAME, the instance's name, and, around
+// the guidance, FJ_NAV_AVK AV_GDC_NAV (default AV_NAV), and include this
+// file), so that nvcc builds them beside this one: the fly-by-wire
+// signature with the normal table and the work buffer of nav.cuh; i the
+// int32 rows (i, then NAV_INT; turbulent: i, seed, n, then NAV_INT), the
+// gains with the filter's parameter block
+#ifndef FJ_NAV_AVK
+#define FJ_NAV_AVK AV_NAV
+#endif
 #define FJ_CAT2(a, b) a##b
 #define FJ_CAT(a, b) FJ_CAT2(a, b)
 #define NAV_INSTANCE(NAME, T)                                               \
@@ -734,24 +763,58 @@ void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
            void* work, void* out, void* i_out, int B, int n_params,        \
            double dt, double t_start, int comp, int spp, double pdt,       \
            int lanes, void* stream) {                                      \
-    return launch<FJ_NAV_ACT, AV_NAV, T>(in, i_in, params, grid, gains,    \
-                                         out, i_out, B, n_params, dt,      \
-                                         t_start, comp, spp, pdt, lanes,   \
-                                         stream, table, work);             \
+    return launch<FJ_NAV_ACT, FJ_NAV_AVK, T>(in, i_in, params, grid,       \
+                                             gains, out, i_out, B,         \
+                                             n_params, dt, t_start, comp,  \
+                                             spp, pdt, lanes, stream,      \
+                                             table, work);                 \
   }
 extern "C" {
 NAV_INSTANCE(FJ_CAT(FJ_NAV_NAME, _f32), SF)
 NAV_INSTANCE(FJ_CAT(FJ_NAV_NAME, _f64), SD)
 void FJ_CAT(FJ_NAV_NAME, _layout)(int* n_in, int* n_out) {
-  *n_in = *n_out = MegaL<FJ_NAV_ACT, AV_NAV>::ROWS;
+  *n_in = *n_out = MegaL<FJ_NAV_ACT, FJ_NAV_AVK>::ROWS;
 }
 void FJ_CAT(FJ_NAV_NAME, _launch_shape)(int B, int lanes, int n_params,
                                         int elem_size, int* grid,
                                         int* block, int* shared) {
   put_launch(role_launch(B, lanes, n_params, elem_size,
-                         MegaL<FJ_NAV_ACT, AV_NAV>::SH_ROWS),
+                         MegaL<FJ_NAV_ACT, FJ_NAV_AVK>::SH_ROWS),
              grid, block, shared);
 }
 }
 #undef NAV_INSTANCE
+#else
+// the turbulent C172Xv2's instances, each in a translation unit of its own
+// (megakernel_gdc_turb.cu, megakernel_msn_turb.cu define FJ_FBW_ACT, the
+// ActKind, FJ_FBW_AVK, the avionics, and FJ_FBW_NAME, the instance's name,
+// and include this file), so that nvcc builds them beside this one: the
+// fly-by-wire signature; i the int32 rows (i, seed, n)
+#define FJ_CAT2(a, b) a##b
+#define FJ_CAT(a, b) FJ_CAT2(a, b)
+#define FBW_INSTANCE(NAME, T)                                               \
+  int NAME(const void* in, const void* i_in, const void* params,           \
+           const void* grid, const void* gains, void* out, void* i_out,    \
+           int B, int n_params, double dt, double t_start, int comp,       \
+           int spp, double pdt, int lanes, void* stream) {                 \
+    return launch<FJ_FBW_ACT, FJ_FBW_AVK, T>(in, i_in, params, grid,       \
+                                             gains, out, i_out, B,         \
+                                             n_params, dt, t_start, comp,  \
+                                             spp, pdt, lanes, stream);     \
+  }
+extern "C" {
+FBW_INSTANCE(FJ_CAT(FJ_FBW_NAME, _f32), SF)
+FBW_INSTANCE(FJ_CAT(FJ_FBW_NAME, _f64), SD)
+void FJ_CAT(FJ_FBW_NAME, _layout)(int* n_in, int* n_out) {
+  *n_in = *n_out = MegaL<FJ_FBW_ACT, FJ_FBW_AVK>::ROWS;
+}
+void FJ_CAT(FJ_FBW_NAME, _launch_shape)(int B, int lanes, int n_params,
+                                        int elem_size, int* grid,
+                                        int* block, int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         MegaL<FJ_FBW_ACT, FJ_FBW_AVK>::SH_ROWS),
+             grid, block, shared);
+}
+}
+#undef FBW_INSTANCE
 #endif

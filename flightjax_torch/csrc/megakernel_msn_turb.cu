@@ -1,0 +1,13 @@
+// megakernel_msn_turb: the megakernel's instance over a scripted mission
+// (core/mission.py::MissionAvionics, the LOWS phase sets) flown on the
+// C172Xv2 in Dryden turbulence (`missions.mission_world(turbulence=)`),
+// built in a translation unit of its own so that nvcc compiles it beside
+// megakernel.cu. The kernel, its design and the TPU kernel it replaces
+// (flightjax/parallel/megakernel.py::make_megakernel_step, :43,
+// pallas_call :120) are megakernel.cu's: megakernel_fbw_turb's rows and
+// turbulence, megakernel_msn's phase machine. Plain PyTorch version:
+// flightjax_torch/parallel/megakernel.py::megakernel_step_plain.
+#define FJ_FBW_ACT fj::ACT_FBW_TURB
+#define FJ_FBW_AVK AV_MSN
+#define FJ_FBW_NAME megakernel_msn_turb
+#include "megakernel.cu"

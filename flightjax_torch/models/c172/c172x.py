@@ -267,22 +267,43 @@ def c172xv1_nav_sim(device="cuda", dtype=torch.float32, turbulence=None,
     return sim, sim.with_compensation(state), ()
 
 
-def trimmed_xv2_state(periodic_dt, dtype, device):
+def trimmed_xv2_state(periodic_dt, dtype, device, build=build_xv2,
+                      turbulence=None):
     """The trimmed C172Xv2: the C172Xv1's vehicle state with the guidance
     and control laws started bumpless (`Avionics.init_from_trim`, the
-    guidance direct and not engaged)."""
-    return trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv2)
+    guidance direct and not engaged); `build` makes the aircraft
+    (`build_xv2`, or `build_xv2_nav`, whose filter is aligned at the trim
+    too); in Dryden `turbulence` as `trimmed_xv1_state` puts it."""
+    return trimmed_xv1_state(periodic_dt, dtype, device, build=build,
+                             turbulence=turbulence)
 
 
-def c172xv2_sim(device="cuda", dtype=torch.float32):
+def c172xv2_sim(device="cuda", dtype=torch.float32, turbulence=None):
     """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv2 on WA
     kinematics, in the form of `c172xv1_sim`: dt = periodic_dt = 0.02 s,
     geoid refresh every 128 steps, Kahan-compensated position in float32,
-    the avionics started bumpless. `engage_guidance` engages the
-    guidance."""
-    world = SimpleWorld(build_xv2(device=device, dtype=dtype))
+    the avionics started bumpless; in Dryden `turbulence` (its dt the
+    step's) if given. `engage_guidance` engages the guidance."""
+    kw = {} if turbulence is None else {"turbulence": turbulence}
+    world = SimpleWorld(build_xv2(device=device, dtype=dtype, **kw))
     sim = Simulation(world, dt=0.02, periodic_dt=0.02, geoid_every=128)
-    state = trimmed_xv2_state(sim.periodic_dt, dtype, device)
+    state = trimmed_xv2_state(sim.periodic_dt, dtype, device,
+                              turbulence=turbulence)
+    return sim, sim.with_compensation(state), ()
+
+
+def c172xv2_nav_sim(device="cuda", dtype=torch.float32):
+    """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv2 on its
+    navigation avionics (`build_xv2_nav`: the guidance and control laws on
+    the filter's estimates), in the form of `c172xv1_nav_sim`: dt =
+    periodic_dt = 0.02 s, the sensors and filter at 50 Hz, the geoid
+    refreshed every step, Kahan-compensated position in float32; the start
+    `trimmed_xv2_state` (the laws bumpless, the filter aligned at the trim,
+    the guidance not engaged). `engage_guidance` engages the guidance."""
+    world = SimpleWorld(build_xv2_nav(device=device, dtype=dtype))
+    sim = Simulation(world, dt=0.02, periodic_dt=0.02)
+    state = trimmed_xv2_state(sim.periodic_dt, dtype, device,
+                              build=build_xv2_nav)
     return sim, sim.with_compensation(state), ()
 
 
@@ -309,9 +330,11 @@ def engage_guidance(state, mode, target=None, orbit=None, hor=True,
     `target` (a `Segment`) or `orbit` (a `Circle`), each one for all lanes
     or one per lane, with the lateral (`hor`) and vertical (`vrt`)
     guidance requested (bools or per-lane arrays): the scenario of
-    `tests/test_c172x2.py:115-125` and `:159-163`."""
+    `tests/test_c172x2.py:115-125` and `:159-163`; on the sensor-fed
+    C172Xv2 its navigation avionics' inner guidance."""
     av = state.u["avionics"]
-    g = dict(av["gdc"])
+    inner = av.get("inner", av)
+    g = dict(inner["gdc"])
     def like(v, ref):
         v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
             np.asarray(v))
@@ -324,7 +347,9 @@ def engage_guidance(state, mode, target=None, orbit=None, hor=True,
     for key, geom in (("target", target), ("orbit", orbit)):
         if geom is not None:
             g[key] = type(geom)(*(like(v, r) for v, r in zip(geom, g[key])))
-    return state._replace(u=dict(state.u, avionics=dict(av, gdc=g)))
+    inner = dict(inner, gdc=g)
+    av = dict(av, inner=inner) if "inner" in av else inner
+    return state._replace(u=dict(state.u, avionics=av))
 
 
 def turning_climb(state, EAS_ref=45.0, clm_ref=1.5, chi_ref=np.pi / 2):

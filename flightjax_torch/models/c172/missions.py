@@ -287,29 +287,34 @@ def mission_avionics(phases, gains=None, *, device, dtype):
                            phases)
 
 
-def mission_aircraft(phases, gains=None, *, device, dtype):
+def mission_aircraft(phases, gains=None, *, device, dtype, turbulence=None):
     """The C172Xv2 flying `phases` over flat terrain at LOWS's elevation
-    (`c172_demos.py:362-371`)."""
+    (`c172_demos.py:362-371`), in Dryden `turbulence` if given (passed on
+    to `c172x.build_vehicle`, as the JAX package's `build_vehicle(**kw)`
+    takes it)."""
     vehicle = c172x.build_vehicle(device=device, dtype=dtype,
                                   terrain=HorizontalTerrain(
-                                      H_LOWS15, device=device, dtype=dtype))
+                                      H_LOWS15, device=device, dtype=dtype),
+                                  turbulence=turbulence)
     return Aircraft(vehicle, avionics=mission_avionics(
         phases, gains, device=device, dtype=dtype))
 
 
-def mission_world(phases, gains=None, *, device, dtype):
+def mission_world(phases, gains=None, *, device, dtype, turbulence=None):
     return SimpleWorld(mission_aircraft(phases, gains, device=device,
-                                        dtype=dtype))
+                                        dtype=dtype, turbulence=turbulence))
 
 
-def mission_sim(phases, gains=None, *, device="cuda", dtype=torch.float32):
+def mission_sim(phases, gains=None, *, device="cuda", dtype=torch.float32,
+                turbulence=None):
     """The Simulation of the mission world as the demos fly it: dt =
     periodic_dt = 0.02 s, the geoid refreshed every 128 steps, the
-    position Kahan-compensated in sub-float64 dtypes (`with_compensation`).
-    The entry points default to the card, as the C172X's do."""
+    position Kahan-compensated in sub-float64 dtypes (`with_compensation`),
+    in Dryden `turbulence` if given. The entry points default to the card,
+    as the C172X's do."""
     return Simulation(mission_world(phases, gains, device=device,
-                                    dtype=dtype), dt=0.02, periodic_dt=0.02,
-                      geoid_every=128)
+                                    dtype=dtype, turbulence=turbulence),
+                      dt=0.02, periodic_dt=0.02, geoid_every=128)
 
 
 def landing_state(periodic_dt, dtype, device, phases=None):

@@ -330,10 +330,11 @@ class Layout(NamedTuple):
     turbulent fly-by-wire C172X's too; `nav` avionics that fly the inner
     avionics' pass on the navigation avionics' estimates: around the
     C172Xv1's control laws the megakernel's instances `megakernel_nav` and
-    `megakernel_nav_turb` (their buffer also holds NAV_U and NAV_S, their
-    int32 operand NAV_INT after the step counter's rows), around the
-    C172Xv2's no megakernel yet (`mega_name` None, as for the turbulent
-    C172Xv2 and missions)."""
+    `megakernel_nav_turb`, around the calm C172Xv2's guidance and control
+    laws `megakernel_gdc_nav` (their buffer also holds NAV_U and NAV_S,
+    their int32 operand NAV_INT after the step counter's rows); around the
+    turbulent C172Xv2's and around a mission no megakernel yet
+    (`mega_name` None)."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -381,10 +382,11 @@ def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
         names={k: k + ("_fbw" if fbw else "") + (
             "_turb" if turb and k.startswith("rk4") else "")
             for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=(None if (turb or nav) and (gdc or msn)
+        mega_name=(None if nav and (msn or (gdc and turb))
+                   else "megakernel_gdc_nav" if nav and gdc
                    else ("megakernel_nav_turb" if turb else "megakernel_nav")
-                   if nav else "megakernel_msn" if msn
-                   else "megakernel_gdc" if gdc
+                   if nav else "megakernel_msn" + "_turb" * turb if msn
+                   else "megakernel_gdc" + "_turb" * turb if gdc
                    else "megakernel_fbw_turb" if fbw and turb
                    else "megakernel_fbw" if fbw else "megakernel_turb" if turb
                    else "megakernel"),
@@ -403,17 +405,20 @@ MSN = _layout(True, gdc=True, msn=True)
 # instance (clusterstep.py:568)
 TURB = _layout(False, turb=True)
 # the turbulent fly-by-wire C172X (c172x.build_vehicle(turbulence=), the
-# navigation study's vehicle): its whole-vehicle kernels and, with the
-# control laws, its megakernel; with the C172Xv2's avionics or a mission the
-# whole-vehicle kernels only
+# navigation study's vehicle): its whole-vehicle kernels and its megakernels
+# with the control laws, with the C172Xv2's avionics and with a mission
 FBW_TURB = _layout(True, turb=True)
 GDC_TURB, MSN_TURB = (_layout(True, gdc=True, turb=True),
                       _layout(True, gdc=True, msn=True, turb=True))
 # the sensor-fed C172Xv1 (NavAvionics around its ControlLaws; c172x.
-# build_xv1_nav), calm and in Dryden turbulence: the fly-by-wire layouts
-# with the navigation avionics' rows in the megakernel's buffer
+# build_xv1_nav), calm and in Dryden turbulence, and the sensor-fed C172Xv2
+# (around its guidance and control laws; c172x.build_xv2_nav), calm and, its
+# megakernel refused, in turbulence: the fly-by-wire layouts with the
+# navigation avionics' rows in the megakernel's buffer
 FBW_NAV, FBW_TURB_NAV = _layout(True, nav=True), _layout(True, turb=True,
                                                          nav=True)
+GDC_NAV, GDC_TURB_NAV = (_layout(True, gdc=True, nav=True),
+                         _layout(True, gdc=True, turb=True, nav=True))
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -430,7 +435,8 @@ def layout_of(vehicle, avionics=None):
     the C172S with Dryden turbulence, FBW_TURB (GDC_TURB, MSN_TURB) for the
     turbulent fly-by-wire C172X. Navigation avionics take their inner
     avionics' layout, marked `nav`: around the control laws FBW_NAV
-    (FBW_TURB_NAV), whose megakernels carry them."""
+    (FBW_TURB_NAV), around the guidance and control laws GDC_NAV
+    (GDC_TURB_NAV), around a mission MSN's without a megakernel."""
     act = vehicle.systems.act
     stateful = getattr(act, "stateful", False)
     turb = getattr(vehicle, "turbulence", None) is not None
@@ -445,6 +451,8 @@ def layout_of(vehicle, avionics=None):
     nav = isinstance(avionics, NavAvionics)
     inner = avionics.inner if nav else avionics
     if isinstance(inner, Avionics):
+        if nav:
+            return GDC_TURB_NAV if turb else GDC_NAV
         lay = GDC_TURB if turb else GDC
     elif isinstance(inner, MissionAvionics):
         lay = MSN_TURB if turb else MSN
@@ -458,18 +466,16 @@ def layout_of(vehicle, avionics=None):
 def mega_refusal(lay):
     """Why the megakernel does not carry an aircraft of layout `lay`, or
     None where it does."""
-    if lay.nav and lay.mega_name is None:
-        return ("the navigation avionics around the C172Xv2's guidance and "
-                "control laws (build_xv2_nav) have no megakernel instance "
-                "(megakernel_gdc_nav): ROADMAP Queue 2, 'The NavAvionics "
-                "instances'; they fly Simulation.fleet_step and "
-                "make_cluster_step(split='vehicle')")
-    if lay.mega_name is None:
-        which = "mission" if lay.pass_name == "msn_ctl_laws" else "C172Xv2"
-        return (f"the turbulent {which} has no megakernel instance "
-                "(megakernel_gdc_turb, megakernel_msn_turb): ROADMAP Queue "
-                "2, 'The turbulent fly-by-wire megakernels'")
-    return None
+    if lay.mega_name is not None:
+        return None
+    which = ("the sensor-fed missions (megakernel_msn_nav)"
+             if lay.pass_name == "msn_ctl_laws" else
+             "the navigation avionics around the turbulent C172Xv2's "
+             "guidance and control laws (build_xv2_nav(turbulence=), "
+             "megakernel_gdc_nav_turb)")
+    return (f"{which} have no megakernel instance: ROADMAP Queue 2, 'The "
+            f"NavAvionics instances'; they fly Simulation.fleet_step and "
+            f"make_cluster_step(split='vehicle')")
 
 
 def mission_refusal(avionics):
@@ -1517,12 +1523,9 @@ _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
               for k, n in dict(lay.names, megakernel=lay.mega_name).items()}
 _INSTANCES.update({lay.names[k]: (k, lay) for lay in (TURB, FBW_TURB)
                    for k in ("rk4_stage", "rk4_finish")})
-_INSTANCES[TURB.mega_name] = ("megakernel", TURB)
-_INSTANCES[FBW_TURB.mega_name] = ("megakernel", FBW_TURB)
-_INSTANCES[GDC.mega_name] = ("megakernel", GDC)
-_INSTANCES[MSN.mega_name] = ("megakernel", MSN)
-_INSTANCES[FBW_NAV.mega_name] = ("megakernel", FBW_NAV)
-_INSTANCES[FBW_TURB_NAV.mega_name] = ("megakernel", FBW_TURB_NAV)
+for _lay in (TURB, FBW_TURB, GDC, MSN, GDC_TURB, MSN_TURB, FBW_NAV,
+             FBW_TURB_NAV, GDC_NAV):
+    _INSTANCES[_lay.mega_name] = ("megakernel", _lay)
 
 
 def _av_tree(d):
@@ -1548,9 +1551,13 @@ def pack_avionics(lay, u_av, s_av, B, dtype):
     """The avionics' inputs and state as the rows of `av_groups(lay)`: u
     lon, u lat, s lon, s lat (of the control laws), then on the C172Xv2 the
     guidance's inputs, then a mission's phase and clock; around the
-    navigation avionics their NAV_U and NAV_S rows (their integers in
-    `pack_nav_int`)."""
-    if lay.nav:
+    navigation avionics (their inner avionics' rows first) their NAV_U and
+    NAV_S rows (their integers in `pack_nav_int`)."""
+    if lay.nav and lay.pass_name == "gdc_ctl_laws":
+        u_in, s_ctl = u_av["inner"], s_av["inner"]["ctl"]
+        objs = (u_in["ctl"]["lon"], u_in["ctl"]["lat"], s_ctl["lon"],
+                s_ctl["lat"], u_in["gdc"], u_av, s_av)
+    elif lay.nav:
         objs = (u_av["inner"]["lon"], u_av["inner"]["lat"],
                 s_av["inner"]["lon"], s_av["inner"]["lat"], u_av, s_av)
     elif lay.pass_name == "msn_ctl_laws":
@@ -1597,6 +1604,10 @@ def unpack_avionics(lay, buf, ints=None):
     u_av = {"lon": u_lon, "lat": u_lat}
     s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
     if lay.nav:
+        if lay.pass_name == "gdc_ctl_laws":
+            u_gdc, *more = more
+            u_av, s_av = {"ctl": u_av, "gdc": _gdc_tree(u_gdc)}, {
+                "ctl": s_av}
         u_nav, s_nav = _nav_trees(*more, ints)
         return dict(u_nav, inner=u_av), dict(s_nav, inner=s_av)
     if not more:
@@ -1961,9 +1972,11 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     first, or with a mission over them `megakernel_msn`, whose pass runs
     the phase machine first; with the turbulent C172S `megakernel_turb`,
     whose int32 buffer holds (i, seed, n), and with the turbulent C172Xv1
-    `megakernel_fbw_turb`, whose int32 buffer holds them too; with the
-    navigation avionics around the C172Xv1's control laws
-    `megakernel_nav` (`megakernel_nav_turb` in turbulence), whose int32
+    `megakernel_fbw_turb`, the turbulent C172Xv2 `megakernel_gdc_turb` or
+    a mission on it `megakernel_msn_turb`, whose int32 buffers hold them
+    too; with the navigation avionics around the C172Xv1's control laws
+    `megakernel_nav` (`megakernel_nav_turb` in turbulence), around the
+    C172Xv2's guidance and control laws `megakernel_gdc_nav`, whose int32
     buffer holds the NAV_INT rows after those and which reads the sensors'
     normal table (`ops/random.normal_table`)."""
     lay = layout_of(vehicle, avionics)
@@ -1972,8 +1985,8 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
         None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
-        gdc=name == GDC.mega_name, msn=name == MSN.mega_name,
-        turb=lay.turb,
+        gdc=lay.pass_name == "gdc_ctl_laws",
+        msn=lay.pass_name == "msn_ctl_laws", turb=lay.turb,
         table=normal_table(bufs[0].device) if lay.nav else None)
     LAUNCHES[name] += 1
     return out

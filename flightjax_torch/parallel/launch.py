@@ -62,11 +62,18 @@ FBW_TURB_KERNELS = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
                     "megakernel_fbw_turb")
 # and for the sensor-fed C172Xv1 (the navigation avionics around its control
 # laws, csrc/nav.cuh): their pass as a kernel of its own, which the splits
-# launch, and the megakernel's instances, calm and turbulent
-NAV_KERNELS = ("nav_pass", "megakernel_nav", "megakernel_nav_turb")
+# launch, and the megakernel's instances, calm and turbulent; and the calm
+# sensor-fed C172Xv2's megakernel (the navigation avionics around its
+# guidance and control laws)
+NAV_KERNELS = ("nav_pass", "megakernel_nav", "megakernel_nav_turb",
+               "megakernel_gdc_nav")
+# the megakernel's instances over the turbulent C172Xv2 and a mission flown
+# on it (their splits run the FBW_TURB_KERNELS)
+GDC_TURB_KERNELS = ("megakernel_gdc_turb", "megakernel_msn_turb")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
-                *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS)
+                *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
+                *GDC_TURB_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
@@ -74,7 +81,8 @@ COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "rk4_stage_fbw", "megakernel_fbw", "megakernel_gdc",
                "megakernel_msn", "rk4_stage_turb", "megakernel_turb",
                "rk4_stage_fbw_turb", "megakernel_fbw_turb", "megakernel_nav",
-               "megakernel_nav_turb")
+               "megakernel_nav_turb", "megakernel_gdc_nav",
+               *GDC_TURB_KERNELS)
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -84,7 +92,8 @@ N_GAIN_TABLES = 10
 
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
-           *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS)
+           *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
+           *GDC_TURB_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
 # counter, stream seed, drive counter) of the turbulent vehicle
@@ -216,10 +225,13 @@ def library():
                        rk4_finish_turb=[P, P, P, P, P, I, D, I, D, D, I, P],
                        megakernel_turb=sig["megakernel"],
                        rk4_stage_fbw_turb=sig["rk4_stage"],
-                       megakernel_fbw_turb=sig["megakernel_fbw"])
+                       megakernel_fbw_turb=sig["megakernel_fbw"],
+                       megakernel_gdc_turb=sig["megakernel_fbw"],
+                       megakernel_msn_turb=sig["megakernel_fbw"])
             sig["rk4_finish_fbw_turb"] = sig["rk4_finish_turb"]
             sig["nav_pass"] = [P] * 7 + [I, I, P]
             sig["megakernel_nav"] = sig["megakernel_nav_turb"] = (
+                sig["megakernel_gdc_nav"]) = (
                 [P] * 9 + [I, I, D, D, I, I, D, I, P])
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
@@ -492,20 +504,25 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     table), or with `turb` the turbulent C172S's `megakernel_turb`, whose
     `i` is the int32 `[3, B]` rows (i, seed, n), with `turb` and the gains
     the turbulent C172Xv1's `megakernel_fbw_turb`, whose `i` is those rows
-    too. With the sensors' normal `table` (and the gains of the navigation
-    avionics, `kernels.ctl_gains`) the sensor-fed C172Xv1's
-    `megakernel_nav`, with `turb` its `megakernel_nav_turb`, whose `i` also
-    holds the NAV_INT rows (`[1 + 11, B]`, `[3 + 11, B]`); their work
-    buffer is allocated here. Does not synchronise."""
+    too, and with `gdc` or `msn` the turbulent C172Xv2's
+    `megakernel_gdc_turb` or `megakernel_msn_turb`. With the sensors'
+    normal `table` (and the gains of the navigation avionics,
+    `kernels.ctl_gains`) the sensor-fed C172Xv1's `megakernel_nav`, with
+    `turb` its `megakernel_nav_turb`, with `gdc` the calm sensor-fed
+    C172Xv2's `megakernel_gdc_nav`, whose `i` also holds the NAV_INT rows
+    (`[1 + 11, B]`, `[3 + 11, B]`); their work buffer is allocated here.
+    Does not synchronise."""
     fbw = gains is not None
     nav = table is not None
     if (gdc or msn or nav) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
-    if (turb or nav) and (gdc or msn):
-        raise ValueError("the turbulent and the navigation megakernels "
-                         "carry the C172S and the C172Xv1")
-    name = ("megakernel_msn" if msn else "megakernel_gdc" if gdc
+    if nav and (msn or (gdc and turb)):
+        raise ValueError("the navigation megakernels carry the C172Xv1, "
+                         "calm or turbulent, and the calm C172Xv2")
+    name = ("megakernel_msn" + "_turb" * turb if msn
+            else "megakernel_gdc_nav" if gdc and nav
+            else "megakernel_gdc" + "_turb" * turb if gdc
             else "megakernel_nav_turb" if nav and turb
             else "megakernel_nav" if nav
             else "megakernel_fbw_turb" if fbw and turb

@@ -18,7 +18,13 @@ C172Xv2), 160 (a mission), 84 (the turbulent C172S, `megakernel_turb`:
 the C172S's rows with the five filter states after X and the Dryden and
 discrete-gust inputs and the held drive after CTX). On the turbulent C172S
 the int32 counter is `[3, B]`: the step counter, the stream's seed and the
-drive's counter, integers past what float32 holds exactly. This takes the place of the part
+drive's counter, integers past what float32 holds exactly; the turbulent
+C172Xv1, C172Xv2 and mission (`megakernel_fbw_turb`, `megakernel_gdc_turb`,
+`megakernel_msn_turb`) hold their calm twins' rows with the turbulence's
+placed as on the C172S, and that int32 `[3, B]`; the sensor-fed C172Xv1
+and C172Xv2 (`megakernel_nav(_turb)`, `megakernel_gdc_nav`) their
+truth-fed twins' rows, then the navigation avionics' NAV_U and NAV_S, and
+their int32 rows also NAV_INT. This takes the place of the part
 of `flightjax/parallel/packed.py::make_packer` the JAX kernel uses: the
 layout is fixed by the kernel, so `pack` / `unpack` here are plain row
 maps.
@@ -89,8 +95,12 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     the sensor-fed C172Xv1 (`NavAvionics(ControlLaws)`, `c172x.
     build_xv1_nav`: `megakernel_nav`, in turbulence `megakernel_nav_turb`,
     whose int32 buffer holds the navigation avionics' NAV_INT rows after
-    the step counter's). The navigation avionics around the C172Xv2, the
-    turbulent C172Xv2 and missions are refused (`kernels.mega_refusal`)."""
+    the step counter's), the turbulent C172Xv2 and a mission on it
+    (`megakernel_gdc_turb`, `megakernel_msn_turb`, int32 rows i, seed, n)
+    and the calm sensor-fed C172Xv2 (`c172x.build_xv2_nav`:
+    `megakernel_gdc_nav`, its guidance and control laws on the estimates).
+    The sensor-fed C172Xv2 in turbulence and the sensor-fed missions are
+    refused (`kernels.mega_refusal`, `kernels.avionics_layout`)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "

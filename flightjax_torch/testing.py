@@ -556,12 +556,19 @@ def xv2_operand_state(batch, seed, device, dtype, ground_lanes=(),
     guidance of `gdc_operands` at the lanes' positions."""
     st = xv1_operand_state(batch, seed, device, dtype, ground_lanes,
                            terminated_lanes, crash_lanes, i0)
+    return with_guidance(st, seed + 6, device, dtype)
+
+
+def with_guidance(st, seed, device, dtype):
+    """The C172Xv1 world SimState `st` (its avionics the control laws')
+    as the C172Xv2's, with the mode-rich guidance of `gdc_operands` at the
+    lanes' positions drawn from `seed`."""
     kin = st.x["vehicle"]["kinematics"]
     q = kin["q_ew"].double().cpu().numpy()
     n_e = -np.stack([2 * q[:, 1] * q[:, 3] + 2 * q[:, 0] * q[:, 2],
                      2 * q[:, 2] * q[:, 3] - 2 * q[:, 0] * q[:, 1],
                      1 - 2 * (q[:, 1] ** 2 + q[:, 2] ** 2)], axis=-1)
-    u_gdc = gdc_operands(batch, seed + 6, n_e,
+    u_gdc = gdc_operands(q.shape[0], seed, n_e,
                          kin["h_e"].double().cpu().numpy())
     return st._replace(
         u=dict(st.u, avionics={"ctl": st.u["avionics"],
@@ -758,15 +765,17 @@ def msn_laws_args(batch, seed, device, dtype, ground_lanes=(), dt=0.02):
             t(u_sys))
 
 
-def msn_sim(device, dtype, spp=1):
+def msn_sim(device, dtype, spp=1, turbulence=None):
     """The Simulation of the traffic pattern's phase machine as the operand
     states fly it: over the C172X's own terrain at 0 m (on which the
-    cluster operands' runway lanes stand), dt 0.02 s, the pass every `spp`
-    steps, the geoid every 128 steps."""
+    cluster operands' runway lanes stand), in Dryden `turbulence` if
+    given, dt 0.02 s, the pass every `spp` steps, the geoid every 128
+    steps."""
     from flightjax_torch.core.sim import Simulation
     from flightjax_torch.models.c172 import c172x, missions as M
     from flightjax_torch.physics.aircraftbase import Aircraft, SimpleWorld
-    aircraft = Aircraft(c172x.build_vehicle(device=device, dtype=dtype),
+    aircraft = Aircraft(c172x.build_vehicle(device=device, dtype=dtype,
+                                            turbulence=turbulence),
                         M.mission_avionics(M.traffic_pattern_phases(),
                                            device=device, dtype=dtype))
     return Simulation(SimpleWorld(aircraft), dt=0.02,
@@ -782,7 +791,16 @@ def msn_operand_state(batch, seed, device, dtype, ground_lanes=(),
     on the standby lanes and over 400 s elsewhere."""
     st = xv2_operand_state(batch, seed, device, dtype, ground_lanes,
                            terminated_lanes, crash_lanes, i0)
-    rng = np.random.default_rng(seed + 8)
+    return with_phases(st, seed + 8, device, dtype)
+
+
+def with_phases(st, seed, device, dtype):
+    """The C172Xv2 world SimState `st` as a mission's over it: lane k in
+    phase k % 12 (the last two past the traffic pattern's ten), the clock
+    drawn from `seed` around the standby's 5 s on the standby lanes and
+    over 400 s elsewhere."""
+    batch = st.x["vehicle"]["kinematics"]["h_e"].shape[0]
+    rng = np.random.default_rng(seed)
     lane = np.arange(batch)
     phase = (lane % 12).astype(np.int32)
     t = np.where(phase == 0, rng.uniform(4.9, 5.1, batch),
@@ -1058,6 +1076,84 @@ def fbw_turb_operand_state(d, device, dtype):
                        s=dict(st.s, avionics=s_av))
 
 
+def xv2_turb_operand_state(d, device, dtype):
+    """The turbulent C172Xv2 world SimState (uncompensated) of
+    `fbw_turb_operands`' dict `d`: `fbw_turb_operand_state` with the
+    mode-rich guidance of `gdc_operands` at the lanes' positions."""
+    return with_guidance(fbw_turb_operand_state(d, device, dtype), 1022,
+                         device, dtype)
+
+
+def msn_turb_operand_state(d, device, dtype):
+    """The world SimState of a mission flown on the turbulent C172Xv2 from
+    `fbw_turb_operands`' dict `d`: `xv2_turb_operand_state` with every
+    phase and clock of `with_phases`."""
+    return with_phases(xv2_turb_operand_state(d, device, dtype), 1023,
+                       device, dtype)
+
+
+def xv2_turb_sim(device, dtype, spp=1):
+    """The Simulation of the turbulent C172Xv2 (`c172x.build_xv2` in
+    `DrydenTurbulence(0.02)`) as the operand states fly it: dt 0.02 s, the
+    pass every `spp` steps, the geoid every 128 steps."""
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172.c172x import build_xv2
+    from flightjax_torch.physics.aircraftbase import SimpleWorld
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    return Simulation(SimpleWorld(build_xv2(
+        device=device, dtype=dtype, turbulence=DrydenTurbulence(0.02))),
+        dt=0.02, periodic_dt=0.02 * spp, geoid_every=128)
+
+
+def with_study_turb(tree, batch, seed):
+    """numpy world-level (t, i, x, u, s) with the turbulence's trees of
+    `turb_trees` at W20 = 10 m/s, the shear on every third lane and a
+    discrete gust inside the first steps on every third lane from lane 1
+    (the card's turbulent fleets, `turb_study_sim`)."""
+    t, i, x, u, s = tree
+    x["vehicle"]["turb"], u["vehicle"]["turb"], s["vehicle"]["turb"] = (
+        turb_trees(batch, seed, t, i, 10.0, range(0, batch, 3),
+                   range(1, batch, 3)))
+    return t, i, x, u, s
+
+
+def _fleet_state(sim, tree, device, dtype):
+    t, i, x, u, s = tree
+    st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                  i=torch.tensor(i, device=device),
+                  x=tree_from_numpy(x, device, dtype),
+                  u=tree_from_numpy(u, device, dtype),
+                  s=tree_from_numpy(s, device, dtype))
+    return sim.with_compensation(st)
+
+
+def xv2_turb_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState, lanes) of `xv2_scenario` in Dryden turbulence
+    (`c172x.c172xv2_sim(turbulence=)`, `with_study_turb`), with the
+    position compensation it gives in sub-float64 dtypes."""
+    from flightjax_torch.models.c172.c172x import c172xv2_sim
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    sim, _, _ = c172xv2_sim(device, dtype,
+                            turbulence=DrydenTurbulence(0.02))
+    tree, lanes = xv2_scenario(batch, seed)
+    return (sim, _fleet_state(sim, with_study_turb(tree, batch, seed),
+                              device, dtype), lanes)
+
+
+def msn_turb_fleet_sim(batch, seed, device, dtype):
+    """(sim, SimState, (landing lanes, pattern lanes)) of `msn_scenario`
+    in Dryden turbulence (`missions.mission_sim(turbulence=)`,
+    `with_study_turb`), with the position compensation it gives in
+    sub-float64 dtypes."""
+    from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    sim = M.mission_sim(M.traffic_pattern_phases(), device=device,
+                        dtype=dtype, turbulence=DrydenTurbulence(0.02))
+    tree, lanes = msn_scenario(batch, seed)
+    return (sim, _fleet_state(sim, with_study_turb(tree, batch, seed),
+                              device, dtype), lanes)
+
+
 def turb_study_sim(batch, seed, device, dtype):
     """(sim, SimState) of the card's turbulent fleet: `turb_fleet_sim` at
     W20 = 10 m/s with the shear on every third lane and a discrete gust
@@ -1116,13 +1212,16 @@ NAV_EXACT_LANES = (5, 23)
 NAV_AGL = (40.0, 149.0, 151.0, 500.0, 770.0)
 
 
-def nav_sim(device, dtype, turbulence=True, setting="default", spp=1):
+def nav_sim(device, dtype, turbulence=True, setting="default", spp=1,
+            gdc=False):
     """(sim, trimmed single-aircraft SimState) of the sensor-fed C172Xv1
     (`c172x.build_xv1_nav` with the NAV_SETTINGS `setting`), in Dryden
     turbulence or calm, its pass every `spp` steps, the autopilot engaged
-    on the turning climb, uncompensated."""
+    on the turning climb, uncompensated; with `gdc` the sensor-fed C172Xv2
+    (`c172x.build_xv2_nav`), its guidance not engaged."""
     from flightjax_torch.core.sim import Simulation
     from flightjax_torch.models.c172.c172x import (build_xv1_nav,
+                                                   build_xv2_nav,
                                                    trimmed_xv1_state,
                                                    turning_climb)
     from flightjax_torch.physics.aircraftbase import SimpleWorld
@@ -1134,16 +1233,16 @@ def nav_sim(device, dtype, turbulence=True, setting="default", spp=1):
     tkw = {} if turb is None else {"turbulence": turb}
 
     def build(**k):
-        return build_xv1_nav(periodic_dt=pdt, use_estimates=use_est,
-                             nav_kw=kw, **k)
+        return (build_xv2_nav if gdc else build_xv1_nav)(
+            periodic_dt=pdt, use_estimates=use_est, nav_kw=kw, **k)
     sim = Simulation(SimpleWorld(build(device=device, dtype=dtype, **tkw)),
                      dt=0.02, periodic_dt=pdt)
     st = trimmed_xv1_state(pdt, dtype, device, build=build, turbulence=turb)
-    return sim, turning_climb(st)
+    return sim, (st if gdc else turning_climb(st))
 
 
 def nav_operand_state(batch, seed, device, dtype, turbulence=True,
-                      setting="default", spp=1):
+                      setting="default", spp=1, gdc=False):
     """(sim, SimState) of `batch` sensor-fed C172Xv1 lanes (`nav_sim`)
     whose navigation avionics are in every mode the pass takes, drawn from
     a numpy seed: each lane at its own sensor epoch (10 consecutive epochs
@@ -1160,14 +1259,16 @@ def nav_operand_state(batch, seed, device, dtype, turbulence=True,
     radar_max_agl); the
     NAV_EXACT_LANES with zero sigmas. Wind N(0, 3 m/s), height N(0, 30 m)
     and on the turbulent vehicle W20 ~ U(0, 8) with the discrete gust on
-    some lanes."""
+    some lanes. With `gdc` the sensor-fed C172Xv2 (`nav_sim(gdc=True)`)
+    flying the mode-rich control laws of `ctl_operands` and the mode-rich
+    guidance of `gdc_operands` at the lanes' positions."""
     from flightjax_torch.core.sim import SimState
     from flightjax_torch.parallel import fleet
     from flightjax_torch.physics import navigation as N
     from flightjax_torch.physics.sensors import (exact_suite_params,
                                                  pressure_altitude)
     rng = np.random.default_rng(seed)
-    sim, st1 = nav_sim("cpu", torch.float64, turbulence, setting, spp)
+    sim, st1 = nav_sim("cpu", torch.float64, turbulence, setting, spp, gdc)
     st = fleet.broadcast_state(st1, batch)
     f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
     i64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64))
@@ -1219,6 +1320,14 @@ def nav_operand_state(batch, seed, device, dtype, turbulence=True,
                           lon0=y.kinematics.lon, h0=y.kinematics.h_e,
                           baro_datum=pressure_altitude(y.airflow.p)
                           - pressure_altitude(qnh) - y.kinematics.h_e)
+    if gdc:  # the mode-rich control laws and guidance
+        h_np = y.kinematics.h_e.numpy()
+        u_ctl, s_ctl = (tree_from_numpy(t, "cpu", torch.float64)
+                        for t in ctl_operands(batch, seed + 5, h_np))
+        av_u["inner"] = {"ctl": u_ctl, "gdc": gdc_tree(gdc_operands(
+            batch, seed + 6, y.kinematics.n_e.numpy(), h_np), "cpu",
+            torch.float64)}
+        av_s["inner"] = {"ctl": s_ctl}
     # the faults on lanes 0..47: channel, mode, window before, around,
     # after the record index k = n
     ch = np.zeros(batch, np.int64)
@@ -1285,7 +1394,7 @@ def nav_operand_state(batch, seed, device, dtype, turbulence=True,
     state = SimState(t=t, i=i, x=dict(x, vehicle=dict(
         x["vehicle"], kinematics=kin)), u=dict(u, vehicle=uv, avionics=av_u),
         s=dict(s, avionics=av_s), c=None)
-    sim_d, _ = nav_sim(device, dtype, turbulence, setting, spp)
+    sim_d, _ = nav_sim(device, dtype, turbulence, setting, spp, gdc)
     return sim_d, tree_map(lambda l: l.to(device=device, dtype=dtype)
                            if l.dtype == torch.float64 else l.to(device),
                            state)
@@ -1321,6 +1430,46 @@ def sensor_fed_fleet_sim(batch, device, dtype):
     av_u["sens"] = dict(av_u["sens"], seed=torch.arange(
         batch, dtype=torch.int32, device=st.t.device))
     return sim, st._replace(u=dict(st.u, avionics=av_u))
+
+
+# the loiter on estimates of `tests/test_navigation.py:276-327`: a circle of
+# LOITER_RADIUS m centred LOITER_NORTH m north of the start at its height,
+# flown at EAS_ref LOITER_EAS m/s for LOITER_STEPS steps (60 s)
+LOITER_NORTH, LOITER_RADIUS, LOITER_EAS, LOITER_STEPS = (2000.0, 1500.0,
+                                                         40.0, 3000)
+
+
+def loiter_fleet_sim(batch, device, dtype):
+    """(sim, SimState, orbit) of the loiter on estimates on `batch` lanes:
+    the trimmed sensor-fed C172Xv2 (`c172x.c172xv2_nav_sim`: the geoid
+    every step, Kahan position in sub-float64 dtypes) on circular guidance,
+    lateral and vertical, over the filter's solution, the circle `orbit`
+    (a `Circle` of one lane's leaves) LOITER_NORTH m north of the start,
+    EAS_ref LOITER_EAS, lane k's sensor stream seeded k (lane 0 the JAX
+    test's single aircraft)."""
+    from flightjax_torch.models.c172 import c172x
+    from flightjax_torch.models.c172 import c172x_gdc as GDC
+    from flightjax_torch.ops import geodesy as geo
+    from flightjax_torch.parallel import fleet
+    sim, st, _ = c172x.c172xv2_nav_sim(device, dtype)
+    kin = st.x["vehicle"]["kinematics"]
+    n_e = geo.nvector_from_qew(kin["q_ew"].double().cpu())
+    h0 = float(kin["h_e"])
+    lat, lon = (float(v) for v in geo.latlon_from_nvector(n_e))
+    lat_c, lon_c = c172x.offset_point(lat, lon, h0, LOITER_NORTH, 0.0)
+    orbit = GDC.circle(float(lat_c), float(lon_c), h0,
+                       radius=LOITER_RADIUS, device=device, dtype=dtype)
+    st = c172x.engage_guidance(st, GDC.GDC_CIRCULAR, orbit=orbit)
+    av = st.u["avionics"]
+    ctl = av["inner"]["ctl"]
+    ctl = dict(ctl, lon=dict(ctl["lon"], EAS_ref=torch.full_like(
+        ctl["lon"]["EAS_ref"], LOITER_EAS)))
+    st = fleet.broadcast_state(st._replace(u=dict(st.u, avionics=dict(
+        av, inner=dict(av["inner"], ctl=ctl)))), batch)
+    av_u = dict(st.u["avionics"])
+    av_u["sens"] = dict(av_u["sens"], seed=torch.arange(
+        batch, dtype=torch.int32, device=st.t.device))
+    return sim, st._replace(u=dict(st.u, avionics=av_u)), orbit
 
 
 def normal_table_for(seeds, ns):
@@ -1395,14 +1544,17 @@ def _drive_in(turb, dtype):
 
 
 def nav_twin(sim, device, dtype):
-    """The sensor-fed C172Xv1 Simulation `sim` rebuilt on `device` in
-    `dtype` with its navigation settings and turbulence; its filter takes
-    the GPS position variance of `sim`'s dtype and its turbulence draws
-    the drive in `sim`'s dtype, so that a float64 twin runs a float32
-    filter's arithmetic in float64 through the float32 run's gusts."""
+    """The sensor-fed C172Xv1 (or C172Xv2) Simulation `sim` rebuilt on
+    `device` in `dtype` with its navigation settings and turbulence; its
+    filter takes the GPS position variance of `sim`'s dtype and its
+    turbulence draws the drive in `sim`'s dtype, so that a float64 twin
+    runs a float32 filter's arithmetic in float64 through the float32
+    run's gusts."""
     import copy
     from flightjax_torch.core.sim import Simulation
-    from flightjax_torch.models.c172.c172x import build_xv1_nav
+    from flightjax_torch.models.c172.c172x import (build_xv1_nav,
+                                                   build_xv2_nav)
+    from flightjax_torch.models.c172.c172x_gdc import Avionics
     from flightjax_torch.physics.aircraftbase import SimpleWorld
     nav = sim.system.aircraft.avionics
     veh = sim.system.aircraft.vehicle
@@ -1414,7 +1566,9 @@ def nav_twin(sim, device, dtype):
                           defer_cov=nav.defer_cov))
     if veh.turbulence is not None:
         kw["turbulence"] = _drive_in(veh.turbulence, nav.dtype)
-    air = build_xv1_nav(device=device, dtype=dtype, **kw)
+    build = (build_xv2_nav if isinstance(nav.inner, Avionics)
+             else build_xv1_nav)
+    air = build(device=device, dtype=dtype, **kw)
     f = copy.copy(air.avionics.filter)
     f.r_pos = nav.filter.r_pos_eff(nav.dtype)
     air.avionics.filter = f

@@ -385,6 +385,34 @@ void host_megakernel_fbw_turb(const double* in, const int* i_in,
              (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
              (const SD*)gains, spp, pdt))
 }
+// the turbulent C172Xv2's instances, with the guidance and with a mission's
+// phase machine, on megakernel_fbw_turb's signature
+void host_megakernel_gdc_turb(const double* in, const int* i_in,
+                              const double* p, const double* grid,
+                              const double* gains, double* const* outs,
+                              int* i_out, int B, int n_params, double dt,
+                              double t_start, int comp, int spp, double pdt,
+                              int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW_TURB, SD,
+                                         k_megakernel::AV_GDC>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
+void host_megakernel_msn_turb(const double* in, const int* i_in,
+                              const double* p, const double* grid,
+                              const double* gains, double* const* outs,
+                              int* i_out, int B, int n_params, double dt,
+                              double t_start, int comp, int spp, double pdt,
+                              int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW_TURB, SD,
+                                         k_megakernel::AV_MSN>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
 // the ActKind bits: what each instance's row map, scratch and parameter
 // head hold (field f of SysL<act>, the scratch rows, the role rows)
 int host_act_fbw(int act) { return fj::act_fbw(act); }
@@ -432,6 +460,21 @@ void host_megakernel_nav(const double* in, const int* i_in, const double* p,
                (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
                (const SD*)gains, spp, pdt, table, (SD*)work))
   }
+}
+// the calm sensor-fed C172Xv2's instance: megakernel_nav's signature but
+// the turbulence flag
+void host_megakernel_gdc_nav(const double* in, const int* i_in,
+                             const double* p, const double* grid,
+                             const double* gains, const float* table,
+                             double* work, double* const* outs, int* i_out,
+                             int B, int n_params, double dt, double t_start,
+                             int comp, int spp, double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW, SD,
+                                         k_megakernel::AV_GDC_NAV>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt, table, (SD*)work))
 }
 void host_nav_pass(const double* in, const int* i_in, const double* gains,
                    const float* table, double* work, double* const* outs,
@@ -1567,21 +1610,37 @@ def test_fbw_turb_roles_partition_the_output(host_lib, name):
 
 
 def _run_megakernel_fbw_turb(host_lib, batch, lanes, comp, spp,
-                             by_role=False):
+                             by_role=False, avk="fbw"):
     """megakernel_fbw_turb's source on the turbulent C172Xv1 operands with
     the mode-rich avionics (`testing.fbw_turb_operand_state`), at a
-    periodic interval of `spp` steps; as `_run_megakernel_fbw`."""
+    periodic interval of `spp` steps; as `_run_megakernel_fbw`. With `avk`
+    "gdc" megakernel_gdc_turb's on the turbulent C172Xv2 operands (the
+    mode-rich guidance too, `testing.xv2_turb_operand_state`), with "msn"
+    megakernel_msn_turb's on a mission's over them (every phase,
+    `testing.msn_turb_operand_state`)."""
     from flightjax_torch.core.sim import Simulation, comp_residuals
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     from flightjax_torch.physics.turbulence import DrydenTurbulence
     from flightjax_torch.testing import (fbw_turb_operand_state,
-                                         fbw_turb_operands)
-    sim0, _, _ = __import__(
-        "flightjax_torch.models.c172.c172x", fromlist=["c172xv1_sim"]
-    ).c172xv1_sim("cpu", torch.float64, turbulence=DrydenTurbulence(0.02))
-    sim = Simulation(sim0.system, dt=0.02, periodic_dt=0.02 * spp)
-    st = fbw_turb_operand_state(fbw_turb_operands(
-        batch, 1016, (3, 17), (5,), (CRASH_LANE,)), "cpu", torch.float64)
+                                         fbw_turb_operands, msn_sim,
+                                         msn_turb_operand_state,
+                                         xv2_turb_operand_state,
+                                         xv2_turb_sim)
+    d = fbw_turb_operands(batch, 1016, (3, 17), (5,), (CRASH_LANE,))
+    if avk == "gdc":
+        sim = xv2_turb_sim("cpu", torch.float64, spp)
+        st = xv2_turb_operand_state(d, "cpu", torch.float64)
+    elif avk == "msn":
+        sim = msn_sim("cpu", torch.float64, spp,
+                      turbulence=DrydenTurbulence(0.02))
+        st = msn_turb_operand_state(d, "cpu", torch.float64)
+    else:
+        sim0, _, _ = __import__(
+            "flightjax_torch.models.c172.c172x", fromlist=["c172xv1_sim"]
+        ).c172xv1_sim("cpu", torch.float64,
+                      turbulence=DrydenTurbulence(0.02))
+        sim = Simulation(sim0.system, dt=0.02, periodic_dt=0.02 * spp)
+        st = fbw_turb_operand_state(d, "cpu", torch.float64)
     if comp:
         st = st._replace(c=comp_residuals(st.x, force=True))
     bufs, _, unpack = make_megakernel_step(sim, st)
@@ -1593,7 +1652,7 @@ def _run_megakernel_fbw_turb(host_lib, batch, lanes, comp, spp,
     ptrs = (ctypes.c_void_p * n_roles)(
         *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
     i_out = torch.full_like(bufs[1], -1)
-    host_lib.host_megakernel_fbw_turb(
+    getattr(host_lib, f"host_megakernel_{avk}_turb")(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), ptrs, _ptr(i_out),
@@ -1639,6 +1698,77 @@ def test_megakernel_fbw_turb_roles_partition_the_output(host_lib):
     them) is written by exactly one role, for every aircraft."""
     _, _, outs = _run_megakernel_fbw_turb(host_lib, B, 32, True, 1,
                                           by_role=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+# the turbulent C172Xv2's instances: (comp, spp, batch, lanes)
+XV2_TURB_CASES = [(False, 1, B, 32), (True, 1, B, 32), (False, 2, 37, 32),
+                  (True, 2, 70, 64)]
+XV2_TURB_IDS = [f"{'compensated' if c else 'uncompensated'}-spp{p}-B{b}-"
+                f"L{n}" for c, p, b, n in XV2_TURB_CASES]
+
+
+def _check_xv2_turb(host_lib, avk, comp, spp, batch, lanes):
+    """The instance's step against `megakernel_step_plain`: every leaf
+    within TOL, the seed passing through, the drive's counter stepping on,
+    the crash lane latching; returns (state, the plain step's new
+    state)."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_fbw_turb(host_lib, batch, lanes, comp,
+                                            spp, avk=avk)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    assert bool(got.s["terminated"][CRASH_LANE])
+    assert torch.equal(got.u["vehicle"]["turb"]["seed"],
+                       st.u["vehicle"]["turb"]["seed"])
+    assert (got.s["vehicle"]["turb"]["n"].tolist()
+            == (st.s["vehicle"]["turb"]["n"] + 1).tolist())
+    return st, ref
+
+
+@pytest.mark.parametrize("comp,spp,batch,lanes", XV2_TURB_CASES,
+                         ids=XV2_TURB_IDS)
+def test_megakernel_gdc_turb_source_matches_plain(host_lib, comp, spp, batch,
+                                                  lanes):
+    """megakernel_gdc_turb against `megakernel_step_plain` on the turbulent
+    C172Xv2 operands: the step with the servos and every branch of the
+    turbulence, then the guidance and control laws on the mode-rich
+    avionics where the lane's counter fires."""
+    st, ref = _check_xv2_turb(host_lib, "gdc", comp, spp, batch, lanes)
+    fired = (st.i + 1) % spp == 0
+    lon = ref.s["avionics"]["ctl"]["lon"]["mode_prev"]
+    # the guidance drove some firing lanes into the altitude mode
+    assert bool((fired & (lon == 8)).any())
+
+
+@pytest.mark.parametrize("comp,spp,batch,lanes", XV2_TURB_CASES,
+                         ids=XV2_TURB_IDS)
+def test_megakernel_msn_turb_source_matches_plain(host_lib, comp, spp, batch,
+                                                  lanes):
+    """megakernel_msn_turb against `megakernel_step_plain` on a mission's
+    turbulent operands: the step with the turbulence, then the phase
+    machine, the guidance and the control laws where the lane's counter
+    fires, and the new phase's systems overrides."""
+    st, ref = _check_xv2_turb(host_lib, "msn", comp, spp, batch, lanes)
+    fired = (st.i + 1) % spp == 0
+    moved = ref.s["avionics"]["phase"] != st.s["avionics"]["phase"]
+    assert bool(moved.any()) and not bool(moved[~fired].any())
+
+
+@pytest.mark.parametrize("avk", ["gdc", "msn"])
+def test_megakernel_xv2_turb_roles_partition_the_output(host_lib, avk):
+    """Every row of megakernel_gdc_turb's and megakernel_msn_turb's new
+    state buffer (the filters, the turbulence's inputs and drive, the
+    guidance's inputs, the phase machine's rows and the overridden systems
+    inputs among them) is written by exactly one role, for every
+    aircraft."""
+    _, _, outs = _run_megakernel_fbw_turb(host_lib, B, 32, True, 1,
+                                          by_role=True, avk=avk)
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]
@@ -1730,14 +1860,17 @@ def test_nav_pass_roles_partition_the_output(host_lib):
 
 
 def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
-                        by_role=False):
+                        by_role=False, gdc=False):
     """megakernel_nav (megakernel_nav_turb with `turb`) on the mode-rich
     navigation operands with their pass every `spp` steps; as
-    `_run_megakernel_fbw`."""
+    `_run_megakernel_fbw`. With `gdc` megakernel_gdc_nav on the calm
+    sensor-fed C172Xv2's (the mode-rich control laws and guidance
+    too)."""
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     from flightjax_torch.testing import nav_operand_state
     sim, st = nav_operand_state(batch, 1016, "cpu", torch.float64,
-                                turbulence=turb, setting=setting, spp=spp)
+                                turbulence=turb, setting=setting, spp=spp,
+                                gdc=gdc)
     bufs, _, unpack = make_megakernel_step(sim, st)
     aircraft = sim.system.aircraft
     params = K.system_params(aircraft.vehicle)
@@ -1750,15 +1883,15 @@ def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
     work = torch.full((host_lib.host_nav_rows(4), batch), float("nan"),
                       dtype=torch.float64)
     table = _nav_table(st.u["avionics"], st.s["avionics"])
-    host_lib.host_megakernel_nav(
+    turb_arg = () if gdc else (ctypes.c_int(int(turb)),)
+    getattr(host_lib, "host_megakernel_" + ("gdc_nav" if gdc else "nav"))(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), _ptr(table), _ptr(work),
         ptrs, _ptr(i_out), ctypes.c_int(batch), ctypes.c_int(params.numel()),
         ctypes.c_double(sim.dt), ctypes.c_double(sim.t_start),
         ctypes.c_int(0), ctypes.c_int(sim.steps_per_periodic),
-        ctypes.c_double(sim.periodic_dt), ctypes.c_int(int(turb)),
-        ctypes.c_int(lanes))
+        ctypes.c_double(sim.periodic_dt), *turb_arg, ctypes.c_int(lanes))
     if by_role:
         return sim, st, outs
     return sim, st, unpack((outs[0], i_out))
@@ -1806,6 +1939,56 @@ def test_megakernel_nav_roles_partition_the_output(host_lib):
     avionics' inputs and state, P's 225 rows among them) is written by
     exactly one role, for every aircraft."""
     _, _, outs = _run_megakernel_nav(host_lib, B, 32, True, by_role=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+GDC_NAV_CASES = [(1, "default", B, 32), (2, "default", B, 32),
+                 (1, "radar", B, 32), (1, "shadow", B, 32),
+                 (1, "synthetic", B, 32), (1, "perturb", B, 32),
+                 (2, "immediate", B, 32), (1, "default", 37, 32),
+                 (1, "default", 70, 64)]
+GDC_NAV_IDS = [f"spp{p}-{s}-B{b}-L{n}" for p, s, b, n in GDC_NAV_CASES]
+
+
+@pytest.mark.parametrize("spp,setting,batch,lanes", GDC_NAV_CASES,
+                         ids=GDC_NAV_IDS)
+def test_megakernel_gdc_nav_source_matches_plain(host_lib, spp, setting,
+                                                 batch, lanes):
+    """megakernel_gdc_nav against `megakernel_step_plain` on the calm
+    sensor-fed C172Xv2's mode-rich operands (the navigation operands of
+    megakernel_nav with the mode-rich control laws and guidance) in every
+    setting: the step, the truth at the new state, the navigation pass,
+    then the guidance and the control laws on the estimates (on the truth
+    in shadow mode), every leaf within TOL, P per lane against its largest
+    entry, the integers exactly. The operands' filters lie off the truth
+    by up to hundreds of metres, so a guidance reading the truth's
+    position would not match."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_nav(host_lib, batch, lanes, False, spp,
+                                       setting, gdc=True)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    _assert_p_close(got.s["avionics"]["nav"].P, ref.s["avionics"]["nav"].P)
+    fired = (st.i + 1) % spp == 0
+    n0 = st.s["avionics"]["sens"]["n"]
+    assert torch.equal(got.s["avionics"]["sens"]["n"],
+                       torch.where(fired, n0 + 1, n0))
+    lon = ref.s["avionics"]["inner"]["ctl"]["lon"]["mode_prev"]
+    # the guidance drove some firing lanes into the altitude mode
+    assert bool((fired & (lon == 8)).any())
+
+
+def test_megakernel_gdc_nav_roles_partition_the_output(host_lib):
+    """Every row of megakernel_gdc_nav's new state buffer (the guidance's
+    inputs, the navigation avionics' inputs and state among them) is
+    written by exactly one role, for every aircraft."""
+    _, _, outs = _run_megakernel_nav(host_lib, B, 32, False, by_role=True,
+                                     gdc=True)
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]

@@ -22,7 +22,11 @@ phase's predicate on both sides of its switch, and on the mission fleet,
 and its two splits a few steps. The navigation kernels (nav_pass,
 megakernel_nav, megakernel_nav_turb) are held to their plain versions as
 `testing.nav_hold` says, on the mode-rich navigation operands, and the
-navigation fleet's three paths a few steps.
+navigation fleet's three paths a few steps. The C172Xv2's last instances:
+megakernel_gdc_turb and megakernel_msn_turb a few steps on the turbulent
+operands with the mode-rich guidance (and every phase), megakernel_gdc_nav
+one step on the sensor-fed C172Xv2's mode-rich operands in every
+navigation setting, as `testing.nav_hold` says.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1036,6 +1040,93 @@ def test_megakernel_nav_matches_plain_on_card(turb, setting, lanes, dtype):
     tr = lambda x: (x.t, x.x, x.u, x.s)
     nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
              ref.s["avionics"], sim.system.aircraft.avionics, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("avk", ["gdc", "msn"])
+@pytest.mark.parametrize("comp,spp", [(False, 1), (True, 2)],
+                         ids=["uncompensated", "compensated-every-2nd"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_megakernel_xv2_turb_matches_plain_on_card(avk, comp, spp, batch,
+                                                   lanes, dtype, tol):
+    """megakernel_gdc_turb and megakernel_msn_turb, 3 steps on the
+    turbulent C172Xv2 operands with the mode-rich control laws and
+    guidance (a mission's in every phase too; the pass every step, or
+    every other step), against the plain step: (t, x, u, s, c) within
+    `tol`, in float32 every leaf exactly; the int32 rows and the crash
+    latch exactly."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    from flightjax_torch.testing import (fbw_turb_operands, msn_sim,
+                                         msn_turb_operand_state,
+                                         xv2_turb_operand_state,
+                                         xv2_turb_sim)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = fbw_turb_operands(batch, 1016, (3, 17), (5,), (SMALL_CRASH_LANE,))
+    if avk == "gdc":
+        sim = xv2_turb_sim("cuda", dtype, spp)
+        st = xv2_turb_operand_state(d, "cuda", dtype)
+    else:
+        sim = msn_sim("cuda", dtype, spp, turbulence=DrydenTurbulence(0.02))
+        st = msn_turb_operand_state(d, "cuda", dtype)
+    st = st._replace(c=comp_residuals(st.x, force=True) if comp else None)
+    name = f"megakernel_{avk}_turb"
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    ref = st
+    for _ in range(3):
+        bufs = step_packed(bufs)
+        ref = megakernel_step_plain(sim, ref)
+    got = unpack(bufs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {name: 3}
+    assert torch.equal(got.i, ref.i)
+    assert torch.equal(got.s["vehicle"]["turb"]["n"],
+                       ref.s["vehicle"]["turb"]["n"])
+    assert bool(got.s["terminated"][SMALL_CRASH_LANE])
+    if dtype == torch.float32:
+        _assert_same(tuple(got), tuple(ref))
+    assert _worst((got.t, got.x, got.u, got.s, got.c),
+                  (ref.t, ref.x, ref.u, ref.s, ref.c)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("setting", ["default", "radar", "shadow",
+                                     "synthetic", "perturb", "immediate"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_gdc_nav_matches_plain_on_card(setting, lanes, dtype):
+    """megakernel_gdc_nav, one step on the calm sensor-fed C172Xv2's
+    mode-rich operands at B (`testing.nav_operand_state(gdc=True)`: the
+    navigation operands with the mode-rich control laws and guidance)
+    under each setting, against `megakernel_step_plain` (the pass each
+    lane on its own sensor epoch, then the guidance and the control laws
+    on the estimates), (t, x, u, s) held as `testing.nav_hold` says."""
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (nav_hold, nav_operand_state,
+                                         nav_reference)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = nav_operand_state(B, 1016, "cuda", dtype, turbulence=False,
+                                setting=setting, gdc=True)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "megakernel_gdc_nav": 1}
+    ref = megakernel_step_plain(sim, st)
+    ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
+             ref.s["avionics"], sim.system.aircraft.avionics,
+             "megakernel_gdc_nav")
 
 
 @pytest.mark.cuda

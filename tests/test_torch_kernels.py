@@ -213,7 +213,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
     # every kernel but the megakernels, whose steps have their own wrapper
     mega = {"megakernel", "megakernel_fbw", "megakernel_gdc",
             "megakernel_msn", "megakernel_turb", "megakernel_fbw_turb",
-            "megakernel_nav", "megakernel_nav_turb"}
+            "megakernel_nav", "megakernel_nav_turb", "megakernel_gdc_turb",
+            "megakernel_msn_turb", "megakernel_gdc_nav"}
     turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS,
                                                       *turbs, "nav_pass"}
@@ -242,7 +243,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         "megakernel_fbw", "ctl_laws", "megakernel_gdc", "gdc_ctl_laws",
         "megakernel_msn", "msn_ctl_laws", *TURB_KERNELS,
         *FBW_TURB_KERNELS, "nav_pass", "megakernel_nav",
-        "megakernel_nav_turb")}
+        "megakernel_nav_turb", "megakernel_gdc_nav", "megakernel_gdc_turb",
+        "megakernel_msn_turb")}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

@@ -764,9 +764,11 @@ def test_refusals_and_layouts(nav_fleet):
     """The kernels carry the turbulent fly-by-wire vehicle (FBW_TURB), the
     navigation avionics' splits (their pass `nav_pass`, then the inner
     laws' kernel) and their megakernel around the C172Xv1's control laws
-    (`megakernel_nav_turb`, calm `megakernel_nav`); they refuse the
-    navigation megakernel around the C172Xv2 (`build_xv2_nav`), the
-    turbulent C172Xv2's and a mission's megakernels, an `Actuator2`
+    (`megakernel_nav_turb`, calm `megakernel_nav`), around the calm
+    C172Xv2's guidance and control laws (`megakernel_gdc_nav`), and the
+    turbulent C172Xv2's and a mission's megakernels (`megakernel_gdc_turb`,
+    `megakernel_msn_turb`); they refuse the navigation megakernel around
+    the turbulent C172Xv2 (`build_xv2_nav(turbulence=)`), an `Actuator2`
     channel and a sensor-fed mission, each naming its ROADMAP item; the
     sensors' epoch must count the firings from step 0."""
     sim, np_state = nav_fleet
@@ -788,14 +790,22 @@ def test_refusals_and_layouts(nav_fleet):
                                turbulence=DrydenTurbulence(DT))
     from flightjax_torch.core.sim import Simulation as TSim
     from flightjax_torch.physics.aircraftbase import SimpleWorld as TWorld
-    with pytest.raises(NotImplementedError, match="NavAvionics instances"):
+    with pytest.raises(NotImplementedError,
+                       match="megakernel_gdc_nav_turb"):
         make_megakernel_step(TSim(TWorld(xv2_nav)), st)
+    assert "megakernel_gdc_nav_turb" in K.mega_refusal(
+        K.avionics_layout(xv2_nav.vehicle, xv2_nav.avionics))
+    calm = Tx.build_xv2_nav(device="cpu", dtype=F64)
+    lay = K.avionics_layout(calm.vehicle, calm.avionics)
+    assert lay is K.GDC_NAV and lay.mega_name == "megakernel_gdc_nav"
+    assert lay.pass_name == "gdc_ctl_laws" and K.mega_refusal(lay) is None
     xv2 = Tx.build_xv2(device="cpu", dtype=F64,
                        turbulence=DrydenTurbulence(DT))
-    from flightjax_torch.core.sim import Simulation
-    from flightjax_torch.physics.aircraftbase import SimpleWorld
-    with pytest.raises(NotImplementedError, match="megakernel_gdc_turb"):
-        make_megakernel_step(Simulation(SimpleWorld(xv2)), st)
+    lay = K.avionics_layout(xv2.vehicle, xv2.avionics)
+    assert lay is K.GDC_TURB and lay.mega_name == "megakernel_gdc_turb"
+    assert K.mega_refusal(lay) is None
+    assert K.MSN_TURB.mega_name == "megakernel_msn_turb"
+    assert K.mega_refusal(K.MSN_TURB) is None
     servo2 = Tx.build_xv1_nav(device="cpu", dtype=F64,
                               actuators={"elevator": Tx.Actuator2()},
                               turbulence=DrydenTurbulence(DT))

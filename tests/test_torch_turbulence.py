@@ -416,8 +416,9 @@ def test_gust_load_demo_small():
 def test_refusals():
     """The subsystems split carries no turbulence (as JAX's has no
     turbulent instance); the kernels carry the turbulent fly-by-wire
-    vehicle (its own layout) but not the turbulent C172Xv2's megakernel;
-    and a turbulence whose hold interval is not the step's is refused."""
+    vehicle (its own layout) and the turbulent C172Xv2's megakernel
+    (`megakernel_gdc_turb`); and a turbulence whose hold interval is not
+    the step's is refused."""
     from flightjax_torch.models.c172 import c172x as Tx
     from flightjax_torch.physics.aircraftbase import SimpleWorld
     sim = _port_sim()
@@ -429,8 +430,10 @@ def test_refusals():
     assert K.layout_of(fbw) is K.FBW_TURB
     xv2 = Simulation(SimpleWorld(Tx.build_xv2(
         device="cpu", dtype=F64, turbulence=TT.DrydenTurbulence(DT))))
-    with pytest.raises(NotImplementedError, match="turbulent fly-by-wire"):
-        make_megakernel_step(xv2, st)
+    lay = K.avionics_layout(xv2.system.aircraft.vehicle,
+                            xv2.system.aircraft.avionics)
+    assert lay is K.GDC_TURB and lay.mega_name == "megakernel_gdc_turb"
+    assert K.mega_refusal(lay) is None
     with pytest.raises(ValueError, match="does not match"):
         Simulation(sim.system, dt=0.01)
 

@@ -12,7 +12,12 @@ time goes, by kernel, and how much of the step the device is idle.
                                          nav_fleet,nav_vehicle,
                                          nav_megakernel,
                                          xv1_turb_megakernel,
-                                         sensor_fed_megakernel]
+                                         sensor_fed_megakernel,
+                                         xv2_turb_fleet,xv2_turb_vehicle,
+                                         xv2_turb_megakernel,msn_turb_fleet,
+                                         msn_turb_vehicle,
+                                         msn_turb_megakernel,xv2_nav_fleet,
+                                         xv2_nav_vehicle,xv2_nav_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -46,7 +51,17 @@ navigation pass inside the step) and, on its truth-fed twin
 (`megakernel_fbw_turb`); and on the sensor-fed autopilot fleet
 (`testing.sensor_fed_fleet_sim`: the calm C172Xv1 on its navigation
 avionics, the turning climb, lane k's sensor stream seeded k)
-`sensor_fed_megakernel` (`megakernel_nav`).
+`sensor_fed_megakernel` (`megakernel_nav`); and the turbulent C172Xv2
+(`testing.xv2_turb_fleet_sim`: the guidance scenario in the turbulent
+fleet's turbulence) and a mission on it (`testing.msn_turb_fleet_sim`),
+`xv2_turb_*` and `msn_turb_*` (`fleet_rollout` and the vehicle split on
+rk4_stage_fbw_turb x 4, rk4_finish_fbw_turb and the pass kernel;
+`megakernel_gdc_turb`, `megakernel_msn_turb`); and the loiter on estimates
+(`testing.loiter_fleet_sim`: the calm sensor-fed C172Xv2 on circular
+guidance over the filter's solution) `xv2_nav_fleet`, `xv2_nav_vehicle`
+(rk4_stage_fbw x 4, rk4_finish_fbw, the `systems_fbw` truth, `nav_pass`,
+`gdc_ctl_laws`, `geoid` every step) and `xv2_nav_megakernel`
+(`megakernel_gdc_nav`).
 For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
@@ -74,10 +89,13 @@ PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "xv2_megakernel", "msn_subsystems", "msn_vehicle", "msn_megakernel",
          "turb_fleet", "turb_vehicle", "turb_megakernel", "nav_fleet",
          "nav_vehicle", "nav_megakernel", "xv1_turb_megakernel",
-         "sensor_fed_megakernel")
-# the fleets of the paths' prefixes
-PREFIXES = ("xv1_turb_", "xv1_", "xv2_", "msn_", "turb_", "nav_",
-            "sensor_fed_")
+         "sensor_fed_megakernel", "xv2_turb_fleet", "xv2_turb_vehicle",
+         "xv2_turb_megakernel", "msn_turb_fleet", "msn_turb_vehicle",
+         "msn_turb_megakernel", "xv2_nav_fleet", "xv2_nav_vehicle",
+         "xv2_nav_megakernel")
+# the fleets of the paths' prefixes, the longer first
+PREFIXES = ("xv1_turb_", "xv2_turb_", "msn_turb_", "xv2_nav_", "xv1_",
+            "xv2_", "msn_", "turb_", "nav_", "sensor_fed_")
 
 
 def device_us(evt):
@@ -165,11 +183,12 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
-    from flightjax_torch.testing import (msn_fleet_sim, nav_fleet_sim,
+    from flightjax_torch.testing import (loiter_fleet_sim, msn_fleet_sim,
+                                         msn_turb_fleet_sim, nav_fleet_sim,
                                          perturbed_fleet_sim,
                                          sensor_fed_fleet_sim, turb_study_sim,
                                          xv1_fleet_sim, xv1_turb_fleet_sim,
-                                         xv2_fleet_sim)
+                                         xv2_fleet_sim, xv2_turb_fleet_sim)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -186,6 +205,9 @@ def main():
                     "nav": nav_fleet_sim, "xv1_turb": xv1_turb_fleet_sim,
                     "sensor_fed": lambda b, _, d, t: sensor_fed_fleet_sim(
                         b, d, t),
+                    "xv2_turb": xv2_turb_fleet_sim,
+                    "msn_turb": msn_turb_fleet_sim,
+                    "xv2_nav": lambda b, _, d, t: loiter_fleet_sim(b, d, t),
                     "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]

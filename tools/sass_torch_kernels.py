@@ -17,7 +17,8 @@ parameter compares with its form before. An instance that the record does
 not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
 every instance (the C172S kernels, the fly-by-wire instances, the
 C172X megakernels and passes, the mission's, the turbulent C172S's, the
-turbulent C172Xv1's and the sensor-fed C172Xv1's instances), recorded
+turbulent C172Xv1's and the sensor-fed C172Xv1's instances; the turbulent
+and sensor-fed C172Xv2's since they were ported), recorded
 with the nvcc of an H100 machine; `chip_smoke.py` checks it. A change that means to change the machine code
 of a recorded instance records the file anew from its own build
 (`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
@@ -39,7 +40,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # templating, 0 for the C172S, 1 fly-by-wire, 2 turbulent, 3 turbulent
 # fly-by-wire), its float type,
 # the megakernel's avionics (absent before their templating; 2 the C172Xv2's
-# guidance, 3 a mission, 4 the navigation avionics, AV_NAV)
+# guidance, 3 a mission, 4 the navigation avionics, AV_NAV, 5 the
+# navigation avionics around the guidance, AV_GDC_NAV)
 KERNEL = re.compile(r"_Z\d+(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictI([fd])EE"
                     r"(?:Li(\d)E)?")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
@@ -51,10 +53,16 @@ def kernel_name(name, act, av):
     `name_msn` (a mission over it), `name_turb` (the turbulent C172S,
     ActKind 2), `name_fbw_turb` (the turbulent C172Xv1, ActKind 3;
     rk4_finish_turb and rk4_finish_fbw_turb are kernels of their own
-    names), `name_nav` and `name_nav_turb` (the sensor-fed C172Xv1, calm
-    and turbulent, avionics 4)."""
+    names), `name_gdc_turb` and `name_msn_turb` (the turbulent C172Xv2 and
+    a mission on it), `name_nav` and `name_nav_turb` (the sensor-fed
+    C172Xv1, calm and turbulent, avionics 4), `name_gdc_nav` (the calm
+    sensor-fed C172Xv2, avionics 5)."""
+    if av == "5":
+        return name + "_gdc_nav"
     if av == "4":
         return name + ("_nav_turb" if act == "3" else "_nav")
+    if av in ("2", "3") and act == "3":
+        return name + ("_msn" if av == "3" else "_gdc") + "_turb"
     return name + ("_msn" if av == "3" else "_gdc" if av == "2"
                    else "_fbw_turb" if act == "3"
                    else "_fbw" if act == "1" else "_turb" if act == "2"
