@@ -3,9 +3,10 @@
 NVIDIA card: the C172S flagship's three, the C172Xv1 autopilot's three,
 the C172Xv2 guidance's three, the scripted missions' three, the
 turbulent Monte Carlo fleet's three, the sensor-fed navigation fleet's
-four, the sensor-fed autopilot fleet's megakernel and the C172Xv2's last
+four, the sensor-fed autopilot fleet's megakernel, the C172Xv2's last
 three megakernels (in turbulence, a mission on it, the loiter on
-estimates); exit non-zero if any phase fails.
+estimates) and the sensor-fed missions' three; exit non-zero if any phase
+fails.
 
     python3 chip_smoke.py
 
@@ -79,7 +80,16 @@ The paths, each an entry point a user calls:
   `tests/test_navigation.py:276-327` on a fleet (`testing.
   loiter_fleet_sim`: the calm C172Xv2 on `NavAvionics` around its
   guidance and control laws, a 1500 m circle 2 km north, EAS_ref 40 m/s,
-  lane k's sensors seeded k) through `megakernel_gdc_nav`.
+  lane k's sensors seeded k) through `megakernel_gdc_nav`;
+- `msn_nav_fleet`, `msn_nav_vehicle`, `msn_nav_megakernel`: the sensor-fed
+  LOWS missions (`testing.msn_nav_fleet_sim`: `NavAvionics(
+  MissionAvionics(...), use_radar=True)` over the calm C172Xv2, half the
+  lanes on the radar-gated crosswind landing, half on the cold-start
+  takeoff) through `Simulation.fleet_step` and the vehicle split (the
+  navigation pass's mission instance of `nav_pass`, then
+  `msn_nav_ctl_laws`, the phase machine, guidance and control laws on the
+  estimates) and through `megakernel_msn_nav`; and the two missions each
+  on B lanes through `megakernel_msn_nav` to their JAX tests' ends.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
@@ -269,6 +279,37 @@ Phases:
    instances' times (the loiter's on and off an aiding epoch), bounds,
    launches and the paths' graphed profiles.
 
+9. the sensor-fed missions: `msn_nav_ctl_laws` against its plain version
+   in float64 (1e-12) and float32 (exactly) at 32 and 64 aircraft per
+   block, on the mode-rich mission operands whose final leg ends at the
+   radar gate (`testing.msn_nav_laws_args`) and on the estimates of the
+   two-mission fleet; `nav_pass`'s mission instance and
+   `megakernel_msn_nav` on the sensor-fed mission operands
+   (`testing.msn_nav_operand_state`: each phase of both missions, lanes
+   either side of the radar gate, the radar out of range, a latched radar
+   monitor, a radar NIS past its gate) in each navigation setting
+   (MSN_NAV_SETTINGS) and on the fleet at its first GPS epoch, at 32 and
+   64 aircraft per block, as `testing.nav_hold` holds them (the phases
+   exactly in float64; in float32 exactly but on lanes at the radar gate,
+   `testing.msn_gate_lanes`); the fleet's three paths MSN_NAV_STEPS steps
+   in float32 from their launch counts set to 0, held to the float64 plain
+   step as the navigation fleet's; the sensor-fed landing (`testing.
+   landing_nav_fleet_sim`, seeds 100 + k) LANDING_NAV_STEPS steps (100 s)
+   through `megakernel_msn_nav`, every lane held to
+   `tests/test_missions.py:178-187` (phase 2, not terminated, under 2 m/s,
+   no monitor alarm), the touchdown cross-track and wheels-stop
+   along-track quantiles reported; the sensor-fed takeoff (`testing.
+   takeoff_nav_fleet_sim`, seeds k) TAKEOFF_NAV_STEPS steps (80 s), every
+   lane held to `tests/test_missions.py:268-300` (phase 3 or later, more
+   than 100 m above the field at the end, altitude error under 3 m
+   sampled every TAKEOFF_NAV_EVERY steps, under 1 m on the runway phases,
+   no alarm, not terminated), its attitude bound of 2 deg on lane 0, the
+   JAX test's seed (the JAX package's own run exceeds it on other seeds),
+   and the lanes' peak attitude errors to the JAX package's own run of
+   the same lanes (`tools/jax_takeoff_nav.json`); the two instances'
+   times (the megakernel's on and off an aiding epoch), bounds, launches
+   and the megakernel path's graphed profile.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
 """
@@ -433,6 +474,16 @@ KERNELS = {
     "megakernel_gdc_nav": ("flightjax_torch/csrc/megakernel_gdc_nav.cu",
                            "flightjax/parallel/megakernel.py:43",
                            "xv2_nav_megakernel"),
+    # the sensor-fed missions: the megakernel's instance with the
+    # navigation pass and the phase machine on the estimates, and the
+    # mission's pass on the estimates as a kernel of its own, which both
+    # splits launch after nav_pass's mission instance
+    "megakernel_msn_nav": ("flightjax_torch/csrc/megakernel_msn_nav.cu",
+                           "flightjax/parallel/megakernel.py:43",
+                           "msn_nav_megakernel"),
+    "msn_nav_ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
+                         "flightjax/parallel/megakernel.py:43",
+                         "msn_nav_vehicle"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
@@ -443,7 +494,8 @@ NAV_NAMES = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
              "megakernel_fbw_turb", "nav_pass", "megakernel_nav_turb",
              "megakernel_nav")
 XV2_LAST_NAMES = ("megakernel_gdc_turb", "megakernel_msn_turb",
-                  "megakernel_gdc_nav")
+                  "megakernel_gdc_nav", "megakernel_msn_nav",
+                  "msn_nav_ctl_laws")
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
     "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES
@@ -513,6 +565,24 @@ XV2_NAV_SETTINGS = {torch.float64: ("default", "radar", "synthetic",
                                     "immediate"),
                     torch.float32: ("default", "shadow", "perturb")}
 LOITER_WINDOW = 5
+# the sensor-fed missions: the paths' window against plain, the navigation
+# settings of the mode-rich checks (each once, the default in both
+# dtypes), the landing's 100 s and the takeoff's 80 s (their JAX tests'
+# horizons) and the takeoff's samples (that test's log, save_every 10)
+MSN_NAV_PATHS = ("msn_nav_fleet", "msn_nav_vehicle", "msn_nav_megakernel")
+MSN_NAV_STEPS = 10
+MSN_NAV_SETTINGS = {torch.float64: ("default", "radar", "immediate"),
+                    torch.float32: ("default", "shadow", "synthetic",
+                                    "perturb")}
+LANDING_NAV_STEPS, TAKEOFF_NAV_STEPS, TAKEOFF_NAV_EVERY = 5000, 4000, 10
+# the landing's touchdown looked for every this many steps
+LANDING_NAV_EVERY = 5
+# the JAX package's own run of the takeoff at B (tools/jax_takeoff_nav.py):
+# the peak attitude errors' p50 and p95 held within 2%, the exceedance
+# fractions within 0.01, as the navigation study's are
+JAX_TAKEOFF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "jax_takeoff_nav.json")
+TAKEOFF_MATCH = (0.02, 0.01)
 # the sub-controllers of the control laws' lon and lat passes, each under
 # the comment `# ---- <name>` that opens it in `ControlLaws.lon_step` /
 # `lat_step` (`models/c172/c172x_ctl.py`), with the modes that enable it;
@@ -2058,14 +2128,14 @@ def nav_summary(peak_att, peak_pos, att_exc, pos_exc, alarm):
 
 
 def nav_held(name, dtype, got, ref, ref_cpu, s_got, s_ref, nav, what,
-             errs):
+             errs, gate=None):
     """Hold a navigation kernel's output `got` to the card's plain run
     `ref` and the reference `ref_cpu` of `testing.nav_reference`
-    (`testing.nav_hold`), log it and keep the float32 error against `ref`
-    for the kernels line."""
+    (`testing.nav_hold`; `gate` a mission's lanes at its radar gate), log
+    it and keep the float32 error against `ref` for the kernels line."""
     from flightjax_torch.testing import nav_hold
     p_err, n_bad, n_far, worst = nav_hold(dtype, got, ref, ref_cpu, s_got,
-                                          s_ref, nav, f"{name}{what}")
+                                          s_ref, nav, f"{name}{what}", gate)
     top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:6]
     log(f"check {name}{what} {str(dtype)[6:]}: P per lane {p_err:.3e}; "
         f"integers and flags differ on {n_bad} lanes, {n_bad - n_far} of "
@@ -2073,6 +2143,9 @@ def nav_held(name, dtype, got, ref, ref_cpu, s_got, s_ref, nav, what,
         + ", ".join(f"{k} {e:.2e} ({lim:.1e})" for k, (e, lim) in top))
     if dtype == torch.float32:
         keep = ~(s_got["sens"]["n"] != s_ref["sens"]["n"])
+        inner = s_got.get("inner")
+        if isinstance(inner, dict) and "phase" in inner:
+            keep = keep & (inner["phase"] == s_ref["inner"]["phase"])
         for k in ("gps", "vel", "baro", "mag", "radar"):
             for f in ("bits", "alarm"):
                 keep = keep & (s_got["mon_" + k][f].long()
@@ -3082,6 +3155,484 @@ def xv2_last_phase(card, t_start, check, errs, regs, sizes):
     return rows
 
 
+def landing_nav_flight(card, launches):
+    """The sensor-fed crosswind landing at B through megakernel_msn_nav in
+    float32 for LANDING_NAV_STEPS steps (100 s), its launches counted from
+    0 (the kernels line's count), every lane held to `tests/
+    test_missions.py:178-187`: on the ground phase, not terminated, under
+    2 m/s, no monitor alarm; the cross-track error from the final leg where
+    each lane first rolls out (the phase read from the buffer's own row)
+    and the along-track distance to go at wheels-stop
+    reported by quantiles (the rollout looked for every LANDING_NAV_EVERY
+    steps). Returns (the Simulation, the state at the start)."""
+    from flightjax_torch.models.c172 import c172x_gdc as GDC
+    from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.ops.geodesy import nvector_from_qew
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import landing_nav_fleet_sim
+    sim, st0 = landing_nav_fleet_sim(B, DEVICE, torch.float32)
+    lay = K.layout_of(sim.system.aircraft.vehicle, sim.system.aircraft.avionics)
+    row_ph = K.rows_of(lay.mega, "phase").start
+    q_rows, h_row = (K.rows_of(lay.mega, "q_ew"),
+                     K.rows_of(lay.mega, "h_e").start)
+    final = GDC.Segment(*(v.to(device=DEVICE, dtype=torch.float32)
+                          for v in M.lows_pattern()["final"]))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+    td = torch.full((B,), float("nan"), dtype=torch.float64, device=DEVICE)
+    seen = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.time()
+    for k in range(1, LANDING_NAV_STEPS + 1):
+        bufs = step_packed(bufs)
+        if k % LANDING_NAV_EVERY == 0:  # no synchronisation
+            b = bufs[0]
+            new = (b[row_ph] > 1.5) & ~seen
+            e = GDC.segment_data(final, nvector_from_qew(b[q_rows].t()),
+                                 b[h_row]).e_sb.double()
+            td = torch.where(new, e, td)
+            seen |= new
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    if got != {"megakernel_msn_nav": LANDING_NAV_STEPS}:
+        raise AssertionError(f"the sensor-fed landing: launches {got}")
+    launches["megakernel_msn_nav"] = LANDING_NAV_STEPS
+    out = unpack(bufs)
+    for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+        if val.dtype.is_floating_point and not bool(
+                torch.isfinite(val).all()):
+            raise AssertionError(f"the sensor-fed landing: non-finite leaf "
+                                 f"{p}")
+    s_av = out.s["avionics"]
+    v = torch.linalg.vector_norm(out.x["vehicle"]["dynamics"]["v_eb_b"],
+                                 dim=-1)
+    alarm = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    for mon in ("gps", "vel", "baro", "mag", "radar"):
+        alarm |= s_av["mon_" + mon]["alarm"]
+    fails = {"phase != 2": s_av["inner"]["phase"] != 2,
+             "terminated": out.s["terminated"].bool(),
+             "|v| >= 2 m/s": v >= 2.0, "a monitor alarm": alarm}
+    kin = out.x["vehicle"]["kinematics"]
+    stop = GDC.segment_data(final, nvector_from_qew(kin["q_ew"]),
+                            kin["h_e"])
+    qs = torch.tensor([0.0, 0.05, 0.5, 0.95, 1.0], device=DEVICE,
+                      dtype=torch.float64)
+    q = lambda x: [round(float(y), 2) for y in torch.quantile(
+        x[~x.isnan()], qs)] if bool((~x.isnan()).any()) else "none"
+    log(f"the sensor-fed landing: B = {B}, {LANDING_NAV_STEPS} steps (100 s)"
+        f" through megakernel_msn_nav in {wall:.2f} s wall, "
+        f"{B * LANDING_NAV_STEPS / wall:.0f} vehicle-steps/s; touchdown "
+        f"cross-track (min, p5, median, p95, max) {q(td)} m on "
+        f"{int(seen.sum())} lanes; wheels-stop cross-track "
+        f"{q(stop.e_sb.double())} m, along-track distance to go "
+        f"{q(stop.s_2b.double())} m; speed at the end {q(v.double())} m/s; "
+        f"lanes failing `tests/test_missions.py:178-187`: "
+        + ", ".join(f"{k} {int(x.sum())}" for k, x in fails.items())
+        + f" [{card}]")
+    bad = torch.stack(list(fails.values())).any(dim=0)
+    if bool(bad.any()):
+        raise AssertionError(f"the sensor-fed landing: {int(bad.sum())} of "
+                             f"{B} lanes fail the JAX test's assertions "
+                             f"(lanes {bad.nonzero().flatten()[:16].tolist()}"
+                             f")")
+    return sim, st0
+
+
+def takeoff_nav_flight(card):
+    """The sensor-fed takeoff at B through megakernel_msn_nav in float32
+    for TAKEOFF_NAV_STEPS steps (80 s), on samples every TAKEOFF_NAV_EVERY
+    steps (the log of `tests/test_missions.py:254-300`): every lane held to
+    that test's assertions that the JAX package's own run of the same
+    lanes meets on every lane (`tools/jax_takeoff_nav.json`): phase 3 or
+    later and more than 100 m above the field at the end, not terminated,
+    the estimated altitude within 3 m of the truth throughout and within
+    1 m on the runway phases (standby, startup), no alarm at a sample. The
+    test's attitude bound, 2 deg throughout, holds in the JAX package for
+    its one aircraft (seed 0) and not for every seed (seeds 5, 8 and 12
+    peak at 4.2, 2.0 and 3.1 deg in its own run): lane 0 is held to it,
+    and the lanes' peak attitude errors to the JAX run's, their p50 and
+    p95 within TAKEOFF_MATCH[0] and each exceedance fraction within
+    TAKEOFF_MATCH[1]."""
+    from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel.megakernel import make_megakernel_step
+    from flightjax_torch.testing import takeoff_nav_fleet_sim
+    with open(JAX_TAKEOFF) as fh:
+        jref = json.load(fh)
+    if jref["lanes"] != B or jref["t_end"] != TAKEOFF_NAV_STEPS * 0.02:
+        raise AssertionError(f"{JAX_TAKEOFF} holds {jref['lanes']} lanes, "
+                             f"{jref['t_end']} s")
+    sim, st0 = takeoff_nav_fleet_sim(B, DEVICE, torch.float32)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+    h_err = torch.zeros(B, dtype=torch.float64, device=DEVICE)
+    h_rwy = torch.zeros_like(h_err)
+    att = torch.zeros_like(h_err)
+    alarm = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    on_rwy = torch.zeros_like(alarm)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for k in range(1, TAKEOFF_NAV_STEPS + 1):
+        bufs = step_packed(bufs)
+        if k % TAKEOFF_NAV_EVERY:
+            continue
+        st = unpack(bufs)
+        xv, s_av = st.x["vehicle"], st.s["avionics"]
+        kin = K._WA.f_ode(xv["kinematics"], xv["dynamics"],
+                          st.s["vehicle"]["geoid_N"])[1]
+        h_est = st.u["avionics"]["origin"]["h0"] - s_av["nav"].p_n[:, 2]
+        e = (h_est.double() - kin.h_e.double()).abs()
+        h_err = torch.maximum(h_err, e)
+        rwy = s_av["inner"]["phase"] <= 1
+        on_rwy |= rwy
+        h_rwy = torch.maximum(h_rwy, torch.where(rwy, e, 0.0))
+        dot = (kin.q_nb.double() * s_av["nav"].q_nb.double()).sum(-1)
+        att = torch.maximum(att, torch.rad2deg(2 * torch.arccos(
+            dot.abs().clamp(0.0, 1.0))))
+        for mon in ("gps", "vel", "baro", "mag", "radar"):
+            alarm |= s_av["mon_" + mon]["alarm"]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out = unpack(bufs)
+    xv = out.x["vehicle"]
+    agl = (xv["kinematics"]["h_e"] - out.s["vehicle"]["geoid_N"]).double() \
+        - M.H_LOWS15
+    fails = {"phase < 3": out.s["avionics"]["inner"]["phase"] < 3,
+             "terminated": out.s["terminated"].bool(),
+             "AGL <= 100 m": agl <= 100.0, "|h error| >= 3 m": h_err >= 3.0,
+             "|h error| >= 1 m on the runway": h_rwy >= 1.0,
+             "never on the runway phases": ~on_rwy, "an alarm": alarm}
+    # the JAX run's own lanes meet the same (its worst lane's numbers)
+    jfails = {"phase < 3": jref["phase_end_min"] < 3,
+              "terminated": jref["terminated_lanes"] > 0,
+              "AGL <= 100 m": jref["agl_end_min"] <= 100.0,
+              "|h error| >= 3 m": jref["h_err_max"] >= 3.0,
+              "|h error| >= 1 m on the runway":
+                  jref["h_err_runway_max"] >= 1.0,
+              "an alarm": jref["alarm_lanes"] > 0}
+    if any(jfails.values()):
+        raise AssertionError(f"the JAX run {JAX_TAKEOFF} fails {jfails}")
+    # the attitude: lane 0 (the JAX test's seed) within 2 deg; the peaks'
+    # distribution against the JAX run's
+    import numpy as np
+    a = att.cpu().numpy()
+    ja = np.asarray(jref["peak_att_deg"])
+    got = {"att_p50": float(np.percentile(a, 50.0)),
+           "att_p95": float(np.percentile(a, 95.0)),
+           "att_exceedance": [float((a >= t).mean())
+                              for t in jref["att_thresholds"]]}
+    att_ok = (float(a[0]) < 2.0
+              and all(abs(got[k] / jref[k] - 1.0) <= TAKEOFF_MATCH[0]
+                      for k in ("att_p50", "att_p95"))
+              and all(abs(g - r) <= TAKEOFF_MATCH[1] for g, r in zip(
+                  got["att_exceedance"], jref["att_exceedance"])))
+    agree = float(((a >= 2.0) == (ja >= 2.0)).mean())
+    near = float((np.abs(a - ja) <= 0.1).mean())
+    qs = torch.tensor([0.0, 0.5, 0.95, 1.0], device=DEVICE,
+                      dtype=torch.float64)
+    q = lambda x: [round(float(y), 3) for y in torch.quantile(x, qs)]
+    log(f"the sensor-fed takeoff: B = {B}, {TAKEOFF_NAV_STEPS} steps (80 s) "
+        f"through megakernel_msn_nav in {wall:.2f} s wall with a sample "
+        f"every {TAKEOFF_NAV_EVERY} steps; AGL at the end (min, median, p95,"
+        f" max) {q(agl)} m, peak |h error| {q(h_err)} m (runway phases "
+        f"{q(h_rwy)} m), peak attitude error {q(att)} deg, phases at the end "
+        f"{torch.bincount(out.s['avionics']['inner']['phase'].long(), minlength=4).tolist()}"
+        f"; lanes failing `tests/test_missions.py:268-300` but its attitude "
+        f"bound: "
+        + ", ".join(f"{k} {int(x.sum())}" for k, x in fails.items())
+        + f" [{card}]")
+    log(f"the sensor-fed takeoff's peak attitude errors against the JAX "
+        f"package's own run of the same lanes ({JAX_TAKEOFF}): lane 0 (the "
+        f"JAX test's seed) {float(a[0]):.3f} deg (JAX {ja[0]:.3f}; bound "
+        f"2); p50 {got['att_p50']:.4f} / {jref['att_p50']:.4f}, p95 "
+        f"{got['att_p95']:.4f} / {jref['att_p95']:.4f} deg (within "
+        f"{TAKEOFF_MATCH[0]:.0%}); exceedance of {jref['att_thresholds']} "
+        f"deg {[round(g, 4) for g in got['att_exceedance']]} / "
+        f"{[round(r, 4) for r in jref['att_exceedance']]} (within "
+        f"{TAKEOFF_MATCH[1]}); max {float(a.max()):.3f} / "
+        f"{jref['att_max']:.3f}; the lanes on the same side of 2 deg as "
+        f"JAX's {agree:.4f}, within 0.1 deg of JAX's {near:.4f} [{card}]")
+    if not att_ok:
+        raise AssertionError("the sensor-fed takeoff's peak attitude errors "
+                             "disagree with the JAX run's")
+    bad = torch.stack(list(fails.values())).any(dim=0)
+    if bool(bad.any()):
+        raise AssertionError(f"the sensor-fed takeoff: {int(bad.sum())} of "
+                             f"{B} lanes fail the JAX test's assertions "
+                             f"(lanes {bad.nonzero().flatten()[:16].tolist()}"
+                             f")")
+
+
+def msn_nav_phase(card, t_start, check, errs, regs, sizes):
+    """The sensor-fed missions: msn_nav_ctl_laws, nav_pass's mission
+    instance and megakernel_msn_nav against their plain versions; the
+    two-mission fleet's three paths MSN_NAV_STEPS steps against the
+    float64 plain step; the landing's 100 s and the takeoff's 80 s at B on
+    every lane within their JAX tests' assertions; the instances' times,
+    bounds and launches and the megakernel path's profile. Returns the two
+    instances' rows of the kernels line."""
+    from flightjax_torch.ops.random import normal_table
+    from flightjax_torch.parallel import fleet as F
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (NAV_SPREAD, msn_gate_lanes,
+                                         msn_nav_fleet_sim, msn_nav_laws_args,
+                                         msn_nav_operand_state,
+                                         msn_nav_pass_args, nav_hold,
+                                         nav_pass_args, nav_reference)
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed missions: "
+        f"kernel checks)")
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        fsim, fst = msn_nav_fleet_sim(B, DEVICE, dtype)
+        # the mission's pass on the estimates: exact in float32, as the
+        # truth-fed pass it instantiates
+        for what, args in (
+                ("mode-rich operands", msn_nav_laws_args(
+                    B, SEED, DEVICE, dtype, GROUND_LANES)),
+                ("the fleet's estimates", msn_nav_pass_args(fsim, fst))):
+            ref = K.msn_nav_ctl_laws_plain(*args)
+            for lanes in (32, 64):
+                buf, n_out, scal, ops = K.PACK["msn_nav_ctl_laws"](*args)
+                got = K.unpack_out("msn_nav_ctl_laws", L.launch(
+                    "msn_nav_ctl_laws", buf, n_out, scal, block=lanes, **ops))
+                torch.cuda.synchronize()
+                check("msn_nav_ctl_laws", dtype, tol if dtype == torch.float64
+                      else 0.0, leaf_pairs(got, ref),
+                      f" ({what}, block {lanes})")
+        # the navigation pass's mission instance and the megakernel on the
+        # mode-rich operands in each setting and on the fleet at its first
+        # GPS epoch
+        cases = [(f"mode-rich, {s_}", *msn_nav_operand_state(
+            B, SEED, DEVICE, dtype, setting=s_))
+            for s_ in MSN_NAV_SETTINGS[dtype]]
+        cases.append(("fleet, first GPS epoch", fsim, nav_at_epoch(fst)))
+        for what, sim, st in cases:
+            nav = sim.system.aircraft.avionics
+            args = nav_pass_args(sim, st)
+            ref = K.nav_pass_plain(*args)
+            ref_c = nav_reference(sim, dtype, lambda s_, a: K.nav_pass_plain(
+                s_.system.aircraft.avionics, *a), args[1:])
+            for lanes in (32, 64):
+                got = K.nav_pass(*args, block=lanes)
+                torch.cuda.synchronize()
+                nav_held("nav_pass", dtype, got, ref, ref_c, got[0], ref[0],
+                         nav, f" (mission instance, {what}, block {lanes})",
+                         errs)
+            ref = megakernel_step_plain(sim, st)
+            ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+            gate = msn_gate_lanes(sim, ref)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    sim, st, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                if not torch.equal(got.i, ref.i):
+                    raise AssertionError("megakernel_msn_nav: step counter")
+                nav_held("megakernel_msn_nav", dtype, tr(got), tr(ref),
+                         tr(ref_c), got.s["avionics"], ref.s["avionics"],
+                         nav, f" ({what}, block {lanes})", errs,
+                         gate | msn_gate_lanes(sim, got))
+        del cases, fsim, fst, ref, ref_c, got
+
+    # the two-mission fleet's paths, from their launch counts set to 0,
+    # against the float64 plain step (one plain run for fleet_step and the
+    # megakernel, which compensate, one for the vehicle split)
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed missions: "
+        f"paths)")
+    sim, st0 = msn_nav_fleet_sim(B, DEVICE, torch.float32)
+    nav = sim.system.aircraft.avionics
+
+    def plain_steps(mega, sim_, st, n=MSN_NAV_STEPS):
+        for k in range(n):
+            st = (megakernel_step_plain(sim_, st) if mega else vehicle_step(
+                sim_, st, k, plain=True))
+        return st
+
+    launches, refs, twins = {}, {}, {}
+    env = [e * MSN_NAV_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL,
+                                              ENV_ATT_RAD, ENV_EAS)]
+    per_step = {"msn_nav_fleet": dict(kinair=4, systems_fbw=5, dynamics=4,
+                                      finish_kin=1, finish_sys_fbw=1,
+                                      geoid=1, nav_pass=1,
+                                      msn_nav_ctl_laws=1),
+                "msn_nav_vehicle": dict(rk4_stage_fbw=4, rk4_finish_fbw=1,
+                                        systems_fbw=1, geoid=1, nav_pass=1,
+                                        msn_nav_ctl_laws=1),
+                "msn_nav_megakernel": dict(megakernel_msn_nav=1)}
+    for label in MSN_NAV_PATHS:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.time()
+        if label == "msn_nav_megakernel":
+            bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+            for _ in range(MSN_NAV_STEPS):
+                bufs = step_packed(bufs)
+            out = unpack(bufs)
+        elif label == "msn_nav_fleet":
+            out = F.fleet_rollout(sim, st0, MSN_NAV_STEPS)
+        else:
+            step = make_cluster_step(sim, st0, split="vehicle")
+            out = st0
+            for k in range(MSN_NAV_STEPS):
+                out = step(out, i=k)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        want = {k: v * MSN_NAV_STEPS for k, v in per_step[label].items()}
+        log(f"{label}: {MSN_NAV_STEPS} steps x {B} aircraft in "
+            f"{time.time() - t0:.2f} s (first run); launches {got}")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        if label == "msn_nav_vehicle":
+            launches["msn_nav_ctl_laws"] = got["msn_nav_ctl_laws"]
+        for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+            if val.dtype.is_floating_point and not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"{label}: non-finite leaf {p}")
+        if bool(out.s["terminated"].any()):
+            raise AssertionError(f"{label}: a lane terminated")
+        mega = label != "msn_nav_vehicle"
+        if mega not in refs:
+            K.reset_launches()
+            refs[mega] = plain_steps(mega, sim, st0)
+            torch.cuda.synchronize()
+            if any(K.LAUNCHES.values()):
+                raise AssertionError(f"{label}: plain run launched a kernel")
+            twins[mega] = nav_reference(sim, torch.float32, lambda s_, x: (
+                plain_steps(mega, s_, x)), st0)
+        ref, twin = refs[mega], twins[mega]
+        p_err, n_bad, n_far, worst = nav_hold(
+            torch.float32, tr(out), tr(ref), tr(twin), out.s["avionics"],
+            ref.s["avionics"], nav, label,
+            msn_gate_lanes(sim, ref) | msn_gate_lanes(sim, out))
+        d_k, d_p = compare_runs(out, twin), compare_runs(ref, twin)
+        lim = [max(NAV_SPREAD * p_, e) for p_, e in zip(d_p, env)]
+        top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+        log(f"{label} after {MSN_NAV_STEPS} steps on the estimates (f32), "
+            f"kernels / plain vs the float64 plain step: position "
+            f"{d_k[0]:.3e} / {d_p[0]:.3e} m (limit {lim[0]:.3g}), velocity "
+            f"{d_k[1]:.3e} / {d_p[1]:.3e} m/s (limit {lim[1]:.3g}), "
+            f"attitude {d_k[2]:.3e} / {d_p[2]:.3e} rad (limit "
+            f"{lim[2]:.3g}), EAS {d_k[3]:.3e} / {d_p[3]:.3e} m/s (limit "
+            f"{lim[3]:.3g}); P per lane {p_err:.3e}; integers, flags and "
+            f"phases differ on {n_bad} lanes ({n_bad - n_far} at a gate); "
+            f"the worst leaves (error, limit) "
+            + ", ".join(f"{k_} {e:.2e} ({l_:.1e})" for k_, (e, l_) in top))
+        if not all(v_ <= l_ for v_, l_ in zip(d_k, lim)):
+            raise AssertionError(f"{label}: the kernels' run is further from "
+                                 f"the float64 step than the plain run's "
+                                 f"limit")
+    del refs, twins, out, ref, twin
+
+    # the two missions at B to their JAX tests' ends
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed missions: "
+        f"the landing and the takeoff)")
+    lsim, lst0 = landing_nav_flight(card, launches)
+    takeoff_nav_flight(card)
+
+    # timings: the megakernel on the landing fleet at its first GPS epoch
+    # (every lane aiding) and off an aiding epoch, the pass on the fleet's
+    # estimates; the megakernel path's profile
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed missions: "
+        f"timings)")
+    rows = []
+    st = nav_at_epoch(lst0)
+    lnav = lsim.system.aircraft.avionics
+    veh = lsim.system.aircraft.vehicle
+    bufs, step_packed, unpack = make_megakernel_step(lsim, st)
+    params, grid, gains = (K.system_params(veh), K.geoid_grid(veh.geoid),
+                           K.ctl_gains(lnav))
+    table = normal_table(DEVICE)
+
+    def bare(lanes=None, b_=bufs):
+        return L.launch_megakernel(
+            b_[0], b_[1], params, grid, lsim.dt, lsim.t_start,
+            st.c is not None, lanes, gains, lsim.steps_per_periodic,
+            lsim.periodic_dt, msn=True, table=table)
+    new = unpack(step_packed(bufs))
+    plain = lambda: megakernel_step_plain(lsim, st)
+    ctl = new.s["avionics"]["inner"]["inner"]["ctl"]
+    n_elems = (2 * (bufs[0].numel() + bufs[1].numel()) + params.numel()
+               + geoid_cells(veh.geoid, new.x["vehicle"]["kinematics"]["q_ew"])
+               + gain_values(lnav, eas(new),
+                             new.x["vehicle"]["kinematics"]["h_e"],
+                             ctl["lon"]["mode_prev"], ctl["lat"]["mode_prev"])
+               + 29 * B + len(K.nav_param_values(lnav))
+               + len(K.mission_table_values(lnav.inner)))
+    row = dict(name="megakernel_msn_nav", route="cuda",
+               source=KERNELS["megakernel_msn_nav"][0],
+               replaces=KERNELS["megakernel_msn_nav"][1],
+               launches=launches["megakernel_msn_nav"],
+               max_abs_err=errs["megakernel_msn_nav"], ms=graph_ms(bare),
+               plain_ms=cuda_ms(plain, reps=1, calls=1, warm=1),
+               nbytes=4 * n_elems, ops=count_ops(plain, matmul=True),
+               library_ms=None, event_ms=cuda_ms(bare),
+               wrapper_ms=cuda_ms(lambda: step_packed(bufs)),
+               block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
+               launches_per_step=1, share=1.0)
+    off = make_megakernel_step(lsim, nav_at_epoch(lst0, 10))[0]
+    row["off_epoch_ms"] = graph_ms(lambda: bare(b_=off))
+    log(f"time megakernel_msn_nav: {row['off_epoch_ms']:.4f} ms off an "
+        f"aiding epoch, {row['ms']:.4f} ms on one [{card}]")
+    # nav_pass's mission instance (launched under nav_pass's name and
+    # counted in its row) on the same fleet at the same epoch
+    pbuf, pn_out, _, pops = K.pack_nav_pass(*nav_pass_args(lsim, st))
+    log(f"time nav_pass (its mission instance, the h_o row): "
+        f"{graph_ms(lambda: L.launch_nav_pass(pbuf, pn_out, pops['ints'], pops['gains'], table, ho=True)):.4f} "
+        f"ms on an aiding epoch, {graph_ms(lambda: L.launch_nav_pass(pbuf, pn_out - 1, pops['ints'], pops['gains'], table)):.4f} "
+        f"ms for the other instance on the same operands [{card}]")
+    del pbuf, pops
+    rows.append(row)
+    pr = graph_profile("msn_nav_megakernel", "megakernel_msn_nav",
+                       step_packed, bufs, bare)
+    log(f"profile msn_nav_megakernel: B = {B}, f32: host "
+        f"{pr['host_ms_per_step']:.4f} ms/step, device "
+        f"{pr['device_ms_per_step']:.4f} ms/step, idle share "
+        f"{pr['idle_share']:.4f}, {B / pr['host_ms_per_step'] * 1e3:.0f} "
+        f"vehicle-steps/s [{card}]")
+    del bufs, off, new
+    # msn_nav_ctl_laws on the two-mission fleet's estimates at its start
+    # (half on the final approach, half parked)
+    args = msn_nav_pass_args(sim, st0)
+    packed = K.PACK["msn_nav_ctl_laws"](*args)
+
+    def bare_pass(lanes=None):
+        buf, n_out, scal, ops = packed
+        return L.launch("msn_nav_ctl_laws", buf, n_out, scal, block=lanes,
+                        **ops)
+    ref = K.msn_nav_ctl_laws_plain(*args)
+    buf, n_out, _, _ = packed
+    inner = args[0]
+    n_elems = buf.numel() + n_out * B + K.mission_table(inner).numel() \
+        + gain_values(inner, args[1]["EAS"], args[1]["h_e"],
+                      ref[0]["inner"]["ctl"]["lon"]["mode_prev"],
+                      ref[0]["inner"]["ctl"]["lat"]["mode_prev"])
+    blocks = {n: graph_ms(lambda: bare_pass(n)) for n in (32, 64)}
+    rows.append(dict(
+        name="msn_nav_ctl_laws", route="cuda",
+        source=KERNELS["msn_nav_ctl_laws"][0],
+        replaces=KERNELS["msn_nav_ctl_laws"][1],
+        launches=launches["msn_nav_ctl_laws"],
+        max_abs_err=errs["msn_nav_ctl_laws"], ms=blocks[L.LANES],
+        plain_ms=cuda_ms(lambda: K.msn_nav_ctl_laws_plain(*args), reps=3,
+                         calls=2, warm=1),
+        nbytes=4 * n_elems,
+        ops=count_ops(lambda: K.msn_nav_ctl_laws_plain(*args),
+                      pass_op_weights(inner, args[3], ref[0],
+                                      gdc_lanes=gdc_branches(
+                                          None, ref[2]["mode"]))),
+        library_ms=None, event_ms=cuda_ms(bare_pass),
+        wrapper_ms=cuda_ms(lambda: K.msn_nav_ctl_laws(*args)),
+        block_ms=blocks, launches_per_step=1))
+    log("the sensor-fed missions' profile: " + json.dumps(pr))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3940,6 +4491,9 @@ def main():
     # the C172Xv2's last instances: the turbulent C172Xv2 and mission, the
     # sensor-fed C172Xv2 (the loiter on estimates)
     rows += xv2_last_phase(card, t_start, check, errs, regs, sizes)
+    # the sensor-fed missions: the radar-gated landing and the cold-start
+    # takeoff on the navigation avionics' estimates
+    rows += msn_nav_phase(card, t_start, check, errs, regs, sizes)
 
     reader.join()
     if "error" in sass:

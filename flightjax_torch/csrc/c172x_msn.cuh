@@ -22,6 +22,14 @@
 // the flaps, brake and engine-start inputs. ctl_laws.cu runs the pass over
 // a fleet as the `msn_ctl_laws` kernel; the `megakernel_msn` instance of
 // megakernel.cu runs it inside the whole step, when it fires.
+//
+// The sensor-fed missions (NavAvionics around the MissionAvionics) run the
+// same phase machine on the navigation avionics' estimates, which also
+// hold the estimated orthometric height h_o: the radar altimeter's flare
+// gate (MD_AGL) reads it. Their rows (MSN_Y and h_o) and that done kind are
+// compiled in only where the NAV template parameter is set, so that the
+// truth-fed instances keep their code: `msn_nav_ctl_laws` of ctl_laws.cu
+// and the `megakernel_msn_nav` instance of megakernel.cu.
 #pragma once
 
 #include "c172x_gdc.cuh"
@@ -34,6 +42,13 @@ namespace fj {
 // GDC_Y, then the engine's state machine (ENG_OFF, ENG_STARTING,
 // ENG_RUNNING), which the finish stores in S_SYS
 constexpr int CY_ENG = N_GDCY, N_MSNY = CY_ENG + 1;                   // 35
+// under the navigation avionics MSN_Y is followed by the orthometric height
+// (the estimate, or the truth's in shadow mode)
+constexpr int CY_H_O = N_MSNY, N_MSNNAVY = CY_H_O + 1;                 // 36
+// the avionics kind of the sensor-fed missions (megakernel.cu's AV_MSN_NAV):
+// the template argument of their instances, so that their machine code has
+// a name of its own (tools/sass_torch_kernels.py)
+constexpr int MSN_NAV_KIND = 6;
 constexpr int ENG_RUNNING = 2;
 // the phase machine's state: the phase index and the mission clock
 constexpr int SM_PHASE = 0, SM_T = 1, N_SMSN = 2;
@@ -48,6 +63,19 @@ constexpr int MSN_AV = N_MSNY, MSN_UGDC = MSN_AV + N_AV,
               MSN_SMSN = MSN_UGDC + N_UGDC, MSN_MUSYS = MSN_SMSN + N_SMSN,
               MSN_N_IN = MSN_MUSYS + N_MUSYS;                        // 126
 constexpr int MSN_N_OUT = GDC_N_OUT + N_SMSN + N_MUSYS;               // 65
+// the input rows of a mission's pass, truth-fed (NAV false: the MSN_* rows
+// above) or on the estimates (msn_nav_ctl_laws: MSN_Y and h_o first)
+template <bool NAV>
+struct MsnIn {
+  enum : int {
+    Y = NAV ? N_MSNNAVY : N_MSNY,
+    AV = Y,
+    UGDC = AV + N_AV,
+    SMSN = UGDC + N_UGDC,
+    MUSYS = SMSN + N_SMSN,
+    N = MUSYS + N_MUSYS  // 126, 127
+  };
+};
 // the megakernel_msn state buffer: megakernel_gdc's, then the phase
 // machine's state
 constexpr int MEGA_N_ROWS_MSN = MEGA_N_ROWS_GDC + N_SMSN;             // 160
@@ -62,10 +90,11 @@ constexpr int PH_APPLY = 0, PH_LEG = 1, PH_EAS = 2, PH_THR_ON = 3,
 constexpr int LEG_N = 8;
 // the kinds: apply (hold, fly a leg, flare, ground roll), done (never,
 // mission clock, engine running, airborne, on the ground, leg captured,
-// final done), systems (none, flaps, ground, engine start)
+// final done, the height over the terrain under a gate: the sensor-fed
+// missions' radar gate), systems (none, flaps, ground, engine start)
 constexpr int MA_HOLD = 0, MA_LEG = 1, MA_FLARE = 2, MA_GROUND = 3;
 constexpr int MD_NEVER = 0, MD_CLOCK = 1, MD_ENGINE = 2, MD_AIRBORNE = 3,
-              MD_ON_GND = 4, MD_CAPTURED = 5, MD_FINAL = 6;
+              MD_ON_GND = 4, MD_CAPTURED = 5, MD_FINAL = 6, MD_AGL = 7;
 constexpr int MS_NONE = 0, MS_FLAPS = 1, MS_GROUND = 2, MS_START = 3;
 // the along-track gate of a captured leg and the height over the runway's
 // end that ends the final leg (m); the flare's climb-rate reference; the
@@ -83,10 +112,12 @@ __device__ __forceinline__ int msn_usys_row(int k) {
 
 // ------------------------------------------------------------- the table
 
-// the mission table at the end of a mission's gain buffer
+// the mission table at the end of a mission's gain buffer: its offset in
+// the head's slot after the gain tables (`slot` 1 in the navigation
+// avionics' buffer, whose slot 0 points at the filter's constants)
 template <typename T>
-__device__ __forceinline__ const T* mission_table(const T* G) {
-  return G + int(G[N_GAIN_TABLES].v);
+__device__ __forceinline__ const T* mission_table(const T* G, int slot = 0) {
+  return G + int(G[N_GAIN_TABLES + slot].v);
 }
 
 // the phase index clipped to the phases, as the switch takes it
@@ -168,8 +199,9 @@ __device__ __forceinline__ void msn_apply(const T* M, int p, bool lon,
   }
 }
 
-// phase p's `done` at the mission clock t
-template <typename T>
+// phase p's `done` at the mission clock t; with NAV the y rows are
+// MSN_NAV_Y and the radar gate MD_AGL reads their h_o
+template <typename T, bool NAV = false>
 __device__ __forceinline__ bool msn_done(const T* M, int p, const Col<T>& y,
                                          T t) {
   const T* ph = phase_rec(M, p);
@@ -189,6 +221,10 @@ __device__ __forceinline__ bool msn_done(const T* M, int p, const Col<T>& y,
     case MD_FINAL:
       return y(CY_H_E) - ph[PH_DONE_VAL] < T(FINAL_DH);
     default:
+      if constexpr (NAV) {
+        if (int(ph[PH_DONE].v) == MD_AGL)
+          return y(CY_H_O) - ph[PH_DONE_VAL] < T(FINAL_DH);
+      }
       return false;
   }
 }
@@ -224,12 +260,12 @@ struct MsnState {
   T phase, t;
 };
 
-template <typename T>
+template <typename T, bool NAV = false>
 __device__ __forceinline__ MsnState<T> msn_step(const T* M, const Col<T>& y,
                                                 T phase, T t, T dt,
                                                 T (&us)[N_MUSYS]) {
   const int n = int(M[MT_N_PHASES].v), ph = int(phase.v);
-  const bool done = msn_done(M, phase_index(M, phase), y, t);
+  const bool done = msn_done<T, NAV>(M, phase_index(M, phase), y, t);
   const int ph_new = done && ph < n - 1 ? ph + 1 : ph;
   const T phase_new = T(double(ph_new));
   msn_systems(M, phase_index(M, phase_new), us);

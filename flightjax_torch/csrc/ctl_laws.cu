@@ -55,6 +55,17 @@
 // read through the cache at the end of the gains (kernels.ctl_gains). What
 // bounds it is what bounds gdc_ctl_laws, with the phase machine's branches
 // and, on the lanes whose phase reads a leg, one more segment geometry.
+//
+// msn_nav_ctl_laws is the same mission pass over a world whose mission
+// flies on the navigation avionics' estimates (physics/navigation.py::
+// NavAvionics around the MissionAvionics; the sensor-fed landing and
+// takeoff of flightjax/demos/c172_demos.py:413-532): the pass the splits
+// launch after nav_pass, on its estimates. Plain PyTorch version:
+// flightjax_torch/parallel/kernels.py::msn_nav_ctl_laws_plain. Its input
+// rows are msn_ctl_laws' with the orthometric height after MSN_Y (MSN_NAV_Y:
+// the estimate, which the radar altimeter's flare gate MD_AGL reads), its
+// output msn_ctl_laws'. One template: the truth-fed instance has no h_o row
+// and no radar gate, and keeps its code.
 #include "c172x_msn.cuh"
 
 using namespace fj;
@@ -126,24 +137,28 @@ __global__ void __launch_bounds__(2 * MAX_LANES)
   }
 }
 
-template <typename T>
+// NAV: MSN_NAV_KIND for the sensor-fed missions' instance, 0 for the
+// truth-fed msn_ctl_laws (an int, so that the recorded machine code of the
+// other keeps its name)
+template <typename T, int NAV = 0>
 __global__ void __launch_bounds__(2 * MAX_LANES)
     msn_ctl_laws_kernel(const T* __restrict__ in, const T* __restrict__ G,
                         T* __restrict__ out, int B, T dt) {
+  using R = MsnIn<NAV != 0>;
   const RoleThread t = role_thread(B, CTL_SIDES);
   if (!t.valid) return;
   const T* M = mission_table(G);
   const Col<T> y{in, B, t.b};
   const Col<T> c{in, B, t.b};
-  const Col<T> s_lon{in + (MSN_AV + AV_SLON) * B, B, t.b};
-  const Col<T> s_lat{in + (MSN_AV + AV_SLAT) * B, B, t.b};
+  const Col<T> s_lon{in + (R::AV + AV_SLON) * B, B, t.b};
+  const Col<T> s_lat{in + (R::AV + AV_SLAT) * B, B, t.b};
   const Out<T> o{out, B, t.b};
   const Out<T> og{out + CTL_N_OUT * B, B, t.b};
-  const T phase = c(MSN_SMSN + SM_PHASE);
+  const T phase = c(R::SMSN + SM_PHASE);
   constexpr int O_CMD = N_SLON + N_SLAT;
   T ug_v[N_UGDC], uc_v[N_ULON];
   const bool lon = t.role == 0;
-  msn_inputs(M, lon, c, MSN_UGDC, MSN_AV + (lon ? AV_ULON : AV_ULAT), phase,
+  msn_inputs(M, lon, c, R::UGDC, R::AV + (lon ? AV_ULON : AV_ULAT), phase,
              y, ug_v, uc_v);
   const Col<T> ug{ug_v, 1, 0}, uc{uc_v, 1, 0};
   const Gdc<T> g = guidance<GDC_ALL>(ug, y);
@@ -157,9 +172,9 @@ __global__ void __launch_bounds__(2 * MAX_LANES)
     // the phase machine and the new phase's systems overrides
     T us[N_MUSYS];
 #pragma unroll
-    for (int k = 0; k < N_MUSYS; ++k) us[k] = c(MSN_MUSYS + k);
+    for (int k = 0; k < N_MUSYS; ++k) us[k] = c(R::MUSYS + k);
     const MsnState<T> m =
-        msn_step(M, y, phase, c(MSN_SMSN + SM_T), dt, us);
+        msn_step<T, NAV != 0>(M, y, phase, c(R::SMSN + SM_T), dt, us);
     const Out<T> om{out + GDC_N_OUT * B, B, t.b};
     om.s(SM_PHASE, m.phase);
     om.s(SM_T, m.t);
@@ -194,15 +209,16 @@ static int launch(const void* in, const void* gains, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-// the mission's pass: its gains hold the mission table
-template <typename T>
+// the mission's pass: its gains hold the mission table; NAV MSN_NAV_KIND
+// the sensor-fed missions' instance
+template <typename T, int NAV = 0>
 static int launch_msn(const void* in, const void* gains, void* out, int B,
                       double dt, int lanes, void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const RoleLaunch l = role_launch(B, lanes, CTL_SIDES, 0);
-  msn_ctl_laws_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
+  msn_ctl_laws_kernel<T, NAV><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
       (const T*)in, (const T*)gains, (T*)out, B, T(dt));
   return (int)cudaGetLastError();
 }
@@ -232,6 +248,14 @@ int msn_ctl_laws_f64(const void* in, const void* gains, void* out, int B,
                      double dt, int lanes, void* stream) {
   return launch_msn<SD>(in, gains, out, B, dt, lanes, stream);
 }
+int msn_nav_ctl_laws_f32(const void* in, const void* gains, void* out,
+                         int B, double dt, int lanes, void* stream) {
+  return launch_msn<SF, MSN_NAV_KIND>(in, gains, out, B, dt, lanes, stream);
+}
+int msn_nav_ctl_laws_f64(const void* in, const void* gains, void* out,
+                         int B, double dt, int lanes, void* stream) {
+  return launch_msn<SD, MSN_NAV_KIND>(in, gains, out, B, dt, lanes, stream);
+}
 void ctl_laws_layout(int* n_in, int* n_out) {
   *n_in = CTL_N_IN;
   *n_out = CTL_N_OUT;
@@ -242,6 +266,10 @@ void gdc_ctl_laws_layout(int* n_in, int* n_out) {
 }
 void msn_ctl_laws_layout(int* n_in, int* n_out) {
   *n_in = MSN_N_IN;
+  *n_out = MSN_N_OUT;
+}
+void msn_nav_ctl_laws_layout(int* n_in, int* n_out) {
+  *n_in = MsnIn<true>::N;
   *n_out = MSN_N_OUT;
 }
 // n_params and elem_size are not read: the kernels take no shared memory
@@ -255,6 +283,10 @@ void gdc_ctl_laws_launch_shape(int B, int lanes, int, int, int* grid,
 }
 void msn_ctl_laws_launch_shape(int B, int lanes, int, int, int* grid,
                                int* block, int* shared) {
+  put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
+}
+void msn_nav_ctl_laws_launch_shape(int B, int lanes, int, int, int* grid,
+                                   int* block, int* shared) {
   put_launch(role_launch(B, lanes, CTL_SIDES, 0), grid, block, shared);
 }
 }

@@ -137,6 +137,20 @@
 // estimated position beside the estimated CTL_Y fields, so that the
 // guidance, as the control laws, reads the estimates wherever
 // use_estimates is on. Each is built in a translation unit of its own.
+//
+// The sensor-fed missions' instance (megakernel_msn_nav, ACT_FBW with
+// AV_MSN_NAV: NavAvionics(MissionAvionics(...), use_radar=True), the
+// radar-gated landing and the cold-start takeoff of flightjax/demos/
+// c172_demos.py:413-532) holds megakernel_msn's rows and then the
+// navigation rows; its scratch holds MSN_Y and the orthometric height
+// (N_MSNNAVY rows), and its navigation pass writes the estimated h_o there
+// beside the estimated GDC_Y fields (the truth's in shadow mode), while the
+// engine's state and the weight on wheels stay the truth's. The phase
+// machine, the guidance and the control laws run after the pass's barrier,
+// on the estimates, as the reference's f_periodic runs the inner avionics
+// on y_est; its radar gate (MD_AGL) reads the estimated h_o. Its gains hold
+// the filter's constants (slot 0 after the gain tables) and the mission
+// table (slot 1).
 #include "c172x_msn.cuh"
 #include "nav.cuh"
 #include "turbulence.cuh"
@@ -146,26 +160,33 @@ using namespace fj;
 // the avionics of an instance: none (the C172S), the control laws (the
 // C172Xv1), the guidance and control laws (the C172Xv2), a scripted mission
 // over them, the navigation avionics around the control laws (the
-// sensor-fed C172Xv1) and around the guidance and control laws (the
-// sensor-fed C172Xv2)
+// sensor-fed C172Xv1), around the guidance and control laws (the sensor-fed
+// C172Xv2) and around a mission over them (the sensor-fed missions)
 constexpr int AV_NONE = 0, AV_CTL = 1, AV_GDC = 2, AV_MSN = 3, AV_NAV = 4,
-              AV_GDC_NAV = 5;
+              AV_GDC_NAV = 5, AV_MSN_NAV = MSN_NAV_KIND;
+static_assert(AV_MSN_NAV == 6, "the SASS record names the kind 6");
 // the kinds whose pass runs the guidance (their buffer holds its inputs,
-// their scratch the GDC_Y rows at least), and the kinds whose pass the
-// navigation avionics run
+// their scratch the GDC_Y rows at least), the kinds whose pass the
+// navigation avionics run, and the kinds whose pass runs a mission's phase
+// machine (their buffer holds its state, their scratch MSN_Y)
 __host__ __device__ constexpr bool av_gdc(int avk) {
-  return avk == AV_GDC || avk == AV_MSN || avk == AV_GDC_NAV;
+  return avk == AV_GDC || avk == AV_MSN || avk == AV_GDC_NAV ||
+         avk == AV_MSN_NAV;
 }
 __host__ __device__ constexpr bool av_nav(int avk) {
-  return avk == AV_NAV || avk == AV_GDC_NAV;
+  return avk == AV_NAV || avk == AV_GDC_NAV || avk == AV_MSN_NAV;
+}
+__host__ __device__ constexpr bool av_msn(int avk) {
+  return avk == AV_MSN || avk == AV_MSN_NAV;
 }
 
 // the rows of an instance's state buffer and scratch: t, X, CTX, C (and the
 // avionics block, fly-by-wire; and the guidance's inputs; and the phase
-// machine's state; or the navigation avionics' inputs and floating state,
+// machine's state; and the navigation avionics' inputs and floating state,
 // NAV_U and NAV_S of nav.cuh); the scratch holds the roles' shared rows,
 // then each thread's x and k-sum (and the CTL_Y, GDC_Y or MSN_Y rows of the
-// pass)
+// pass, with the orthometric height after MSN_Y around the navigation
+// avionics)
 template <int ACT, int AVK = (act_fbw(ACT) ? AV_CTL : AV_NONE)>
 struct MegaL {
   enum : int {
@@ -175,13 +196,14 @@ struct MegaL {
     AV = C + N_C,
     GDC = AV + (act_fbw(ACT) ? N_AV : 0),
     MSN = GDC + (av_gdc(AVK) ? N_UGDC : 0),
-    NAV = MSN + (AVK == AV_MSN ? N_SMSN : 0),
+    NAV = MSN + (av_msn(AVK) ? N_SMSN : 0),
     ROWS = NAV + (av_nav(AVK) ? N_NAVU + N_NAVS : 0),
     SH_X = act_fbw(ACT) ? SH_N_FBW : SH_N,
     SH_KSUM = SH_X + SysL<ACT>::NXV,
     SH_Y = SH_KSUM + SysL<ACT>::NXV,
-    SH_ROWS = SH_Y + (AVK == AV_MSN    ? N_MSNY
-                      : av_gdc(AVK) ? N_GDCY
+    SH_ROWS = SH_Y + (AVK == AV_MSN_NAV ? N_MSNNAVY
+                      : AVK == AV_MSN  ? N_MSNY
+                      : av_gdc(AVK)    ? N_GDCY
                       : AVK == AV_CTL || AVK == AV_NAV ? N_CTLY
                                                        : 0)
   };
@@ -238,8 +260,9 @@ constexpr int ROLE_LON = ROLE_PROP, ROLE_LAT = ROLE_DRAG;
 // side's two commands (in place of those of CTX); elsewhere both pass
 // through. The side's inputs pass through. With GDC the side's guidance,
 // from the guidance's inputs at row r_gdc, overrides its requests; with MSN
-// the lane's phase (row r_msn) first overrides the inputs the side reads.
-template <bool GDC, typename T, bool MSN = false>
+// the lane's phase (row r_msn) first overrides the inputs the side reads
+// (the mission table in the gains' slot SLOT).
+template <bool GDC, typename T, bool MSN = false, int SLOT = 0>
 __device__ __forceinline__ void periodic_side(bool lon, bool fires,
                                               const T* G, const Col<T>& y,
                                               const Col<T>& c, const Out<T>& o,
@@ -263,8 +286,8 @@ __device__ __forceinline__ void periodic_side(bool lon, bool fires,
   Cmd2<T> cmd;
   if constexpr (MSN) {
     T ug_v[N_UGDC], uc_v[N_ULON];
-    msn_inputs(mission_table(G), lon, c, r_gdc, r_u, c(r_msn + SM_PHASE), y,
-               ug_v, uc_v);
+    msn_inputs(mission_table(G, SLOT), lon, c, r_gdc, r_u,
+               c(r_msn + SM_PHASE), y, ug_v, uc_v);
     const Col<T> ug{ug_v, 1, 0}, uo{uc_v, 1, 0};
     if (lon) {
       const Gdc<T> g = guidance<GDC_VRT>(ug, y);
@@ -407,7 +430,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   }
   if constexpr (AVK != AV_NONE) {
     // what the avionics read of the new state, into the scratch
-    share_ctl_y<av_gdc(AVK), T, AVK == AV_MSN>(
+    share_ctl_y<av_gdc(AVK), T, av_msn(AVK)>(
         sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, c, M::CTX + CX_USYS, t,
         xn, f);
     __syncthreads();
@@ -421,17 +444,19 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     // CTL_Y fields into the scratch in place of the truth's (around the
     // guidance also the n-vector of the estimated position, so that every
     // GDC_Y field the guidance reads is the estimate's; in shadow mode the
-    // truth's stay); one more barrier before the pass warps read them
+    // truth's stay; around a mission also the orthometric height, the
+    // estimate's or the truth's); one more barrier before the pass warps
+    // and the phase machine read them
     NavTruth<T> tr;
     truth_roles<ACT>(sP, sh, t, xn, c, M::CTX, f.s, &tl, tr);
-    nav_pass_roles<T>(
+    nav_pass_roles<T, AVK == AV_MSN_NAV ? CY_H_O : 0>(
         t.role, t.valid, (i_in[t.b] + 1) % spp == 0, nav_params(gains),
         table, tr, c(M::CTX + L::CX_TRN + TR_ELEV),
         Col<T>{in + M::NAV * B, B, t.b},
         Col<T>{in + (M::NAV + N_NAVU) * B, B, t.b},
         Out<T>{out + (M::NAV + N_NAVU) * B, B, t.b}, i_in + NI0 * B + t.b,
         i_out + NI0 * B + t.b, work + t.b, B,
-        Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, AVK == AV_GDC_NAV);
+        Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, av_gdc(AVK));
     __syncthreads();
   }
   if (!t.valid) return;  // past the last barrier
@@ -446,7 +471,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
           r == fbw_cmd_row(CH_RUD) || r == fbw_cmd_row(CH_THR))
         continue;
     }
-    if constexpr (AVK == AV_MSN) {  // role KIN writes the mission's rows
+    if constexpr (av_msn(AVK)) {  // role KIN writes the mission's rows
       if (r == msn_usys_row(MU_FLAPS) || r == msn_usys_row(MU_BRK_L) ||
           r == msn_usys_row(MU_BRK_R) || r == msn_usys_row(MU_START))
         continue;
@@ -474,7 +499,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     if (t.role == ROLE_LON || t.role == ROLE_LAT) {
       const bool fires = (i_in[t.b] + 1) % spp == 0;
       const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
-      periodic_side<av_gdc(AVK), T, AVK == AV_MSN>(
+      periodic_side<av_gdc(AVK), T, av_msn(AVK), av_nav(AVK) ? 1 : 0>(
           t.role == ROLE_LON, fires, gains, y, c, o, M::AV, M::CTX + CX_USYS,
           M::GDC, T(pdt), M::MSN);
     }
@@ -488,9 +513,11 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     // the guidance's inputs pass through
     if (t.role == ROLE_KIN) pass_rows(c, o, M::GDC, N_UGDC);
   }
-  if constexpr (AVK == AV_MSN) {
+  if constexpr (av_msn(AVK)) {
     // the phase machine where the pass fires: the new phase and clock and
     // the new phase's systems overrides; elsewhere the rows pass through
+    // (around the navigation avionics on the estimates, the radar gate on
+    // the estimated h_o)
     if (t.role == ROLE_KIN) {
       T phase = c(M::MSN + SM_PHASE), clock = c(M::MSN + SM_T);
       T us[N_MUSYS];
@@ -499,8 +526,9 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
         us[k] = c(M::CTX + CX_USYS + msn_usys_row(k));
       if ((i_in[t.b] + 1) % spp == 0) {
         const Col<T> y{sh + M::SH_Y * t.L, t.L, t.lane};
-        const MsnState<T> m =
-            msn_step(mission_table(gains), y, phase, clock, T(pdt), us);
+        const MsnState<T> m = msn_step<T, av_nav(AVK)>(
+            mission_table(gains, av_nav(AVK) ? 1 : 0), y, phase, clock,
+            T(pdt), us);
         phase = m.phase;
         clock = m.t;
       }
@@ -745,9 +773,10 @@ void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
 }
 #elif defined(FJ_NAV_ACT)
 // the sensor-fed instances, each in a translation unit of its own
-// (megakernel_nav.cu, megakernel_nav_turb.cu, megakernel_gdc_nav.cu define
-// FJ_NAV_ACT, the ActKind, FJ_NAV_NAME, the instance's name, and, around
-// the guidance, FJ_NAV_AVK AV_GDC_NAV (default AV_NAV), and include this
+// (megakernel_nav.cu, megakernel_nav_turb.cu, megakernel_gdc_nav.cu,
+// megakernel_msn_nav.cu define FJ_NAV_ACT, the ActKind, FJ_NAV_NAME, the
+// instance's name, and, around the guidance, FJ_NAV_AVK AV_GDC_NAV or
+// around a mission AV_MSN_NAV (default AV_NAV), and include this
 // file), so that nvcc builds them beside this one: the fly-by-wire
 // signature with the normal table and the work buffer of nav.cuh; i the
 // int32 rows (i, then NAV_INT; turbulent: i, seed, n, then NAV_INT), the

@@ -4,8 +4,9 @@
 // carried by the N_ROLES threads of the role layout (c172_systems.cuh). One
 // entry point, nav_pass_roles, which nav_pass.cu (the splits' pass) and the
 // megakernel's navigation instances (megakernel_nav, megakernel_nav_turb)
-// call; and truth_roles, the fifth evaluation of the vehicle's derivative
-// at the new state that the megakernel makes for the sensors.
+// call (and megakernel_gdc_nav, megakernel_msn_nav); and truth_roles, the
+// fifth evaluation of the vehicle's derivative at the new state that the
+// megakernel makes for the sensors.
 //
 // The port of flightjax_torch/physics/navigation.py::NavAvionics.nav_pass,
 // aid_block and systems_est (each alpha_beta policy), utils/estimation.py's
@@ -544,12 +545,16 @@ struct WMat {
 // the aiding block on an epoch, the new state into `so` (the NAV_S rows,
 // floats) and `no` (the NAV_INT rows), and the estimated CTL_Y fields into
 // yo (with `gdc` the n-vector of the estimated position too; in shadow mode
-// nothing is written to yo); elsewhere the state passes through. u and s
+// nothing is written to yo); elsewhere the state passes through. Around a
+// mission (R_HO a row of yo, 0 for none) the orthometric height its radar
+// gate reads goes to yo's row R_HO: terrain plus the radar return where
+// the radar is valid, else the filter's altitude less the captured
+// undulation (the truth's in shadow mode). u and s
 // are the lane's NAV_U and NAV_S rows, ni the lane's NAV_INT rows (stride
 // B), W its work column (stride B), NP the parameter block. Stores only
 // where `store` (a ragged block's extra threads recompute the last lane).
 // All threads of the block must call it.
-template <typename T>
+template <typename T, int R_HO = 0>
 __device__ __noinline__ void nav_pass_roles(
     int role, bool store, bool fires, const T* NP, const float* table,
     const NavTruth<T>& tr, T h_trn, const Col<T>& u, const Col<T>& s,
@@ -1009,6 +1014,13 @@ __device__ __noinline__ void nav_pass_roles(
   }
   for (int k = 0; k < NI_BITS; ++k) no[k * B] = ni[k * B];
   no[NI_N * B] = n_new;
+  if constexpr (R_HO != 0) {
+    // the mission's h_o (NavAvionics.nav_pass's h_o_est; the truth's in
+    // shadow mode); the wow and engine rows stay the truth's
+    yo.s(R_HO, NP[NP_USE_EST].v == 0 ? tr.h_o
+               : radar_valid          ? h_trn + h_radar
+                             : (u(NU_H0) - p.z) - u(NU_NGEO));
+  }
   // ---- the estimated VehicleY (estimate_airspeed, the kinematics)
   if (NP[NP_USE_EST].v == 0) return;
   const T Dp = clamp_min(p_t - p_s, T(0.0));

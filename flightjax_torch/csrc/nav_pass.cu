@@ -35,6 +35,13 @@
 // block; nav.cuh::nav_pass_roles): the lead thread of each lane does the
 // elementwise parts, the 15 x 15 products split by rows between barriers,
 // the matrices in the work buffer (L2).
+//
+// Around a mission (the sensor-fed landing and takeoff) its instance for
+// the avionics kind MSN_NAV_KIND also writes the orthometric height the
+// mission's radar gate reads, one row after NAV_S (kernels.NAV_OUT_MSN);
+// the splits then launch msn_nav_ctl_laws on its output. The other
+// instance keeps its code.
+#include "c172x_msn.cuh"
 #include "nav.cuh"
 
 using namespace fj;
@@ -45,7 +52,9 @@ constexpr int NAV_IN_T = N_GDCY, NAV_IN_U = NAV_IN_T + N_NAVT,
               NAV_N_IN = NAV_IN_S + N_NAVS,                          // 405
               NAV_OUT_S = N_GDCY, NAV_N_OUT = NAV_OUT_S + N_NAVS;     // 331
 
-template <typename T>
+// AVK: MSN_NAV_KIND for the mission's instance (its h_o in row NAV_N_OUT),
+// 0 for the other
+template <typename T, int AVK = 0>
 __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     nav_pass_kernel(const T* __restrict__ in, const int* __restrict__ i_in,
                     const T* __restrict__ G, const float* __restrict__ table,
@@ -61,38 +70,46 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
     if (t.valid)
       for (int k = 0; k < N_GDCY; ++k) o.s(k, c(k));
   }
-  nav_pass_roles<T>(t.role, t.valid, true, nav_params(G), table, tr,
+  nav_pass_roles<T, AVK == MSN_NAV_KIND ? NAV_N_OUT : 0>(
+                    t.role, t.valid, true, nav_params(G), table, tr,
                     c(NAV_IN_T + NT_H_TRN), Col<T>{in + NAV_IN_U * B, B, t.b},
                     Col<T>{in + NAV_IN_S * B, B, t.b},
                     Out<T>{out + NAV_OUT_S * B, B, t.b}, i_in + t.b,
                     i_out + t.b, work + t.b, B, o, true);
 }
 
+// ho: the mission's instance, whose output has one more row
 template <typename T>
 static int launch(const void* in, const void* i_in, const void* gains,
                   const void* table, void* work, void* out, void* i_out,
-                  int B, int lanes, void* stream) {
+                  int B, int ho, int lanes, void* stream) {
   if (B <= 0) return 0;
   if (lanes <= 0 || lanes > MAX_LANES || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const RoleLaunch l = role_launch(B, lanes, N_ROLES, 0);
-  nav_pass_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (const int*)i_in, (const T*)gains, (const float*)table,
-      (T*)work, (T*)out, (int*)i_out, B);
+  if (ho)
+    nav_pass_kernel<T, MSN_NAV_KIND>
+        <<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
+            (const T*)in, (const int*)i_in, (const T*)gains,
+            (const float*)table, (T*)work, (T*)out, (int*)i_out, B);
+  else
+    nav_pass_kernel<T><<<l.grid, l.block, 0, (cudaStream_t)stream>>>(
+        (const T*)in, (const int*)i_in, (const T*)gains, (const float*)table,
+        (T*)work, (T*)out, (int*)i_out, B);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 int nav_pass_f32(const void* in, const void* i_in, const void* gains,
                  const void* table, void* work, void* out, void* i_out, int B,
-                 int lanes, void* stream) {
-  return launch<SF>(in, i_in, gains, table, work, out, i_out, B, lanes,
+                 int ho, int lanes, void* stream) {
+  return launch<SF>(in, i_in, gains, table, work, out, i_out, B, ho, lanes,
                     stream);
 }
 int nav_pass_f64(const void* in, const void* i_in, const void* gains,
                  const void* table, void* work, void* out, void* i_out, int B,
-                 int lanes, void* stream) {
-  return launch<SD>(in, i_in, gains, table, work, out, i_out, B, lanes,
+                 int ho, int lanes, void* stream) {
+  return launch<SD>(in, i_in, gains, table, work, out, i_out, B, ho, lanes,
                     stream);
 }
 void nav_pass_layout(int* n_in, int* n_out) {

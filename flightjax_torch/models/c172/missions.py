@@ -2,13 +2,15 @@
 around Salzburg runway 15, the phase library and the two phase sets
 (port of the scripted-mission part of `flightjax/demos/c172_demos.py`,
 `:229-371`, `:387-394`, `:548-570`; the demos' `Simulation.run` is not
-ported).
+ported), and the sensor-fed missions flown on the navigation avionics'
+estimates (`:413-532`): the radar-gated crosswind landing and the
+cold-start takeoff, `NavAvionics(MissionAvionics(...), use_radar=True)`.
 
 Every phase the library makes carries a descriptor beside its Python
 callable: its apply kind (hold, fly a leg, flare, ground roll) with the
 leg, EAS, throttle and vertical request; its done kind (never, clock,
-engine running, airborne, on the ground, leg captured, final done) with
-its value or leg; its systems kind (none, flaps, ground, engine start).
+engine running, airborne, on the ground, leg captured, final done, the
+estimated height over the terrain under a gate) with its value or leg; its systems kind (none, flaps, ground, engine start).
 `parallel/kernels.py::mission_table` lays the descriptors and the legs out
 in one table that the kernels read (`csrc/c172x_msn.cuh`), so that the
 phase sets are data and not one kernel per demo. The callables do the
@@ -49,13 +51,16 @@ FINAL_DH, FLARE_CLM, FLARE_EAS, GROUND_RUDDER = 6.0, -0.3, 30.0, -0.04
 _DATA = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir, "data")
 LANDING_NPZ = os.path.join(_DATA, "c172x_lows_final_trim.npz")
 RUNWAY_NPZ = os.path.join(_DATA, "c172x_lows_runway.npz")
+# the trim of the sensor-fed landing, LANDING_NAV_S_TOGO m up the final
+LANDING_NAV_NPZ = os.path.join(_DATA, "c172x_lows_final_nav_trim.npz")
+LANDING_NAV_S_TOGO = 1500.0
 # the legs of `lows_pattern`, from the runway's end back to the runway
 LEG_NAMES = ("final", "base", "downwind", "crosswind", "departure")
 
 # the descriptor kinds (csrc/c172x_msn.cuh): apply, done, systems
 MA_HOLD, MA_LEG, MA_FLARE, MA_GROUND = range(4)
 (MD_NEVER, MD_CLOCK, MD_ENGINE, MD_AIRBORNE, MD_ON_GND, MD_CAPTURED,
- MD_FINAL) = range(7)
+ MD_FINAL, MD_AGL) = range(8)
 MS_NONE, MS_FLAPS, MS_GROUND, MS_START = range(4)
 
 
@@ -169,8 +174,12 @@ class MissionDone(_Step):
             data = GDC.segment_data(self.leg_as(y.kinematics.h_e),
                                     y.kinematics.n_e, y.kinematics.h_e)
             return data.s_2b > CAPTURE_THRESHOLD
-        if k == MD_FINAL:
-            h = y.kinematics.h_e
+        if k in (MD_FINAL, MD_AGL):
+            # the final leg's height over the runway's end; the radar
+            # altimeter's flare gate on the orthometric height, which the
+            # navigation avionics estimate from the radar return near the
+            # ground (`c172_demos.py:450-453`)
+            h = y.kinematics.h_e if k == MD_FINAL else y.kinematics.h_o
             return (h - torch.tensor(self.values["value"], dtype=h.dtype,
                                      device=h.device)) < FINAL_DH
         return torch.tensor(False)
@@ -203,7 +212,8 @@ def mission_phase_lib(legs):
     """The shared phase bodies of the landing and pattern missions
     (`c172_demos.py:272-359`), each a callable with its descriptor, plus
     `hold`, `never` and `clock(c)` (`t >= c`), which the demos write as
-    lambdas."""
+    lambdas, and `final_done_agl`, the sensor-fed landing's radar gate
+    (`c172_demos.py:450-453`)."""
     final_leg = legs["final"]
     h_rwy_end = float(final_leg.h_e2)
 
@@ -216,6 +226,7 @@ def mission_phase_lib(legs):
         fly_leg=fly_leg,
         captured=lambda leg: MissionDone(MD_CAPTURED, leg),
         final_done=MissionDone(MD_FINAL, value=h_rwy_end),
+        final_done_agl=MissionDone(MD_AGL, value=H_LOWS15),
         flare_apply=MissionApply(MA_FLARE, final_leg, EAS=FLARE_EAS),
         ground_apply=MissionApply(MA_GROUND),
         flaps=lambda setting: MissionSystems(MS_FLAPS, flaps=float(setting)),
@@ -271,6 +282,40 @@ def traffic_pattern_phases(legs=None):
               systems=lib["flaps"](1.0)),
         Phase("ground", lib["ground_apply"], lib["never"],
               systems=lib["ground_systems"]),
+    ]
+
+
+def crosswind_landing_nav_phases(legs=None):
+    """The sensor-fed landing (`c172_demos.py:455-464`): the final leg
+    until the estimated height over the runway falls under the radar gate,
+    the flare, the braked rollout."""
+    legs = lows_pattern() if legs is None else legs
+    lib = mission_phase_lib(legs)
+    return [
+        Phase("final", lib["fly_leg"](legs["final"], 30.0),
+              lib["final_done_agl"], systems=lib["flaps"](1.0)),
+        Phase("flare", lib["flare_apply"], lib["on_gnd"],
+              systems=lib["flaps"](1.0)),
+        Phase("ground", lib["ground_apply"], lib["never"],
+              systems=lib["ground_systems"]),
+    ]
+
+
+def takeoff_nav_phases(legs=None):
+    """The sensor-fed takeoff from a cold start (`c172_demos.py:508-518`):
+    standby 5 s, engine start, full-throttle takeoff and departure on the
+    departure leg."""
+    legs = lows_pattern() if legs is None else legs
+    lib = mission_phase_lib(legs)
+    fly = lib["fly_leg"]
+    return [
+        Phase("standby", lib["hold"], lib["clock"](5.0)),
+        Phase("startup", lib["hold"], lib["engine_running"],
+              systems=lib["engine_start"]),
+        Phase("takeoff", fly(legs["departure"], 35.0, throttle=1.0),
+              lib["airborne"]),
+        Phase("departure", fly(legs["departure"], 35.0, throttle=1.0),
+              lib["captured"](legs["departure"])),
     ]
 
 
@@ -348,3 +393,111 @@ def runway_state(dtype, device, phases=None):
         s={"vehicle": one(s["vehicle"]), "avionics": avionics.init_s(),
            "terminated": torch.tensor(bool(s["terminated"]))})
     return tree_map(lambda l: l.to(device), state)
+
+
+# ------------------------------------------------------------ on estimates
+
+def mission_nav_avionics(phases, gains=None, *, dt=0.02, nav_kw=None,
+                         device, dtype):
+    """The navigation avionics around the mission's phase machine over the
+    C172Xv2's guidance and control laws, the radar altimeter aiding
+    (`c172_demos.py:413-429`): the phases, the guidance and the control
+    laws read the filter's estimates; the weight on wheels and the engine's
+    state stay the truth's. `nav_kw` more settings of `NavAvionics`."""
+    from flightjax_torch.physics.navigation import NavAvionics
+    kw = {"use_radar": True, **(nav_kw or {})}
+    return NavAvionics(mission_avionics(phases, gains, device=device,
+                                        dtype=dtype),
+                       dt=dt, device=device, dtype=dtype, **kw)
+
+
+def mission_nav_aircraft(phases, gains=None, *, dt=0.02, nav_kw=None,
+                         device, dtype):
+    vehicle = c172x.build_vehicle(device=device, dtype=dtype,
+                                  terrain=HorizontalTerrain(
+                                      H_LOWS15, device=device, dtype=dtype))
+    return Aircraft(vehicle, avionics=mission_nav_avionics(
+        phases, gains, dt=dt, nav_kw=nav_kw, device=device, dtype=dtype))
+
+
+def mission_nav_world(phases, gains=None, *, dt=0.02, nav_kw=None, device,
+                      dtype):
+    """`_mission_world_nav` (`c172_demos.py:413-429`)."""
+    return SimpleWorld(mission_nav_aircraft(phases, gains, dt=dt,
+                                            nav_kw=nav_kw, device=device,
+                                            dtype=dtype))
+
+
+def mission_nav_sim(phases, gains=None, *, dt=0.02, nav_kw=None,
+                    device="cuda", dtype=torch.float32):
+    """The Simulation of the sensor-fed mission world as the demos fly it:
+    dt = periodic_dt (the sensors' and the filter's rate), the geoid
+    refreshed every step (the Simulation's default), the position
+    Kahan-compensated in sub-float64 dtypes (`with_compensation`). The
+    entry points default to the card."""
+    return Simulation(mission_nav_world(phases, gains, dt=dt, nav_kw=nav_kw,
+                                        device=device, dtype=dtype),
+                      dt=dt, periodic_dt=dt)
+
+
+def _with_seed(state, seed):
+    av = state.u["avionics"]
+    sens = dict(av["sens"], seed=torch.as_tensor(
+        seed, dtype=torch.int32, device=av["sens"]["seed"].device).expand_as(
+            av["sens"]["seed"]).clone())
+    return state._replace(u=dict(state.u, avionics=dict(av, sens=sens)))
+
+
+def landing_nav_state(dtype, device, phases=None, *, s_togo=1500.0,
+                      wind_E=6.0, seed=0, nav_kw=None, dt=0.02):
+    """One aircraft of the sensor-fed landing (`c172_demos.py:467-482`):
+    the trim `s_togo` m up the final leg (EAS 30 m/s, -3 deg, full flaps,
+    half fuel; the state `tools/export_torch_c172x.py landing_nav` writes,
+    at LANDING_NAV_S_TOGO), the avionics started by `NavAvionics.
+    init_from_trim` (the phase machine in its first phase at clock 0, the
+    filter aligned at the trim), an easterly wind of `wind_E` m/s, the
+    sensors' stream seeded `seed`; `phases` default
+    `crosswind_landing_nav_phases()`."""
+    if abs(float(s_togo) - LANDING_NAV_S_TOGO) > 1e-9:
+        raise ValueError(f"the sensor-fed landing's trim is stored at "
+                         f"s_togo = {LANDING_NAV_S_TOGO} m, not {s_togo}")
+    phases = crosswind_landing_nav_phases() if phases is None else phases
+    st = c172x.trimmed_xv1_state(
+        dt, dtype, device, path=LANDING_NAV_NPZ,
+        build=lambda **kw: mission_nav_aircraft(phases, dt=dt, nav_kw=nav_kw,
+                                                **kw))
+    uv = st.u["vehicle"]
+    atm = dict(uv["atm"], wind=torch.tensor([0.0, float(wind_E), 0.0],
+                                            dtype=dtype, device=device))
+    st = st._replace(u=dict(st.u, vehicle=dict(uv, atm=atm)))
+    return _with_seed(st, seed)
+
+
+def runway_nav_state(dtype, device, phases=None, *, seed=0, nav_kw=None,
+                     dt=0.02):
+    """One aircraft of the sensor-fed takeoff (`c172_demos.py:520-527`):
+    cold on the runway 15 threshold (`runway_state`'s vehicle), the
+    navigation avionics as built (the phase machine in its first phase at
+    clock 0) and aligned on the parked truth (`NavAvionics.align_cold`),
+    the sensors' stream seeded `seed`; `phases` default
+    `takeoff_nav_phases()`. A fleet of such aircraft shares the parked
+    truth, so one alignment serves every lane and `seed` may be a per-lane
+    array after `fleet.broadcast_state` (the seed is the only input of the
+    alignment that differs)."""
+    phases = takeoff_nav_phases() if phases is None else phases
+    x, u, s, _, _ = c172x.load_xv1_state(RUNWAY_NPZ)
+    air = mission_nav_aircraft(phases, dt=dt, nav_kw=nav_kw, device="cpu",
+                               dtype=dtype)
+    one = lambda tree: tree_from_numpy(
+        tree_map(lambda l: np.asarray(l)[None], tree), "cpu", dtype)
+    xv, uv, sv = (one(t["vehicle"]) for t in (x, u, s))
+    nav = air.avionics
+    av_u, av_s = nav.align_cold(nav.init_u((1,)), nav.init_s((1,)),
+                                air.vehicle.output(xv, uv, sv), seed=seed)
+    state = SimState(
+        t=torch.tensor([0.0], dtype=dtype),
+        i=torch.tensor([0], dtype=torch.int32),
+        x={"vehicle": xv}, u={"vehicle": uv, "avionics": av_u},
+        s={"vehicle": sv, "avionics": av_s,
+           "terminated": torch.tensor([bool(s["terminated"])])})
+    return tree_map(lambda l: l[0].to(device), state)

@@ -42,7 +42,9 @@ do not carry (arbitrary callables, another inner avionics) runs its own
 plain pass, on the CPU or with `plain` only. The navigation avionics
 (`physics/navigation.py`) run their sensors and filter as the `nav_pass`
 kernel on the card (its plain version on the CPU or with `plain`) and then
-the inner avionics' pass kernel on the estimates (`_nav_periodic`). The
+the inner avionics' pass kernel on the estimates (`_nav_periodic`): around
+a mission `msn_nav_ctl_laws`, whose phases also read the estimated
+orthometric height and write their systems inputs back. The
 pass runs before the geoid refresh of the same step and reads the state
 before it, as `Simulation.fleet_step` orders them (the JAX cluster kernels
 refresh first; the two differ on refresh steps by the undulation's change
@@ -146,32 +148,56 @@ def _nav_periodic(sim, xv, u, s, kin_y, sys_y, i, plain, t):
     each lane's own epoch aids), on the CPU or with `plain` its plain
     version (`kernels.nav_pass_plain`, the aiding block skipped where no
     lane's own epoch aids), then the inner avionics' pass kernel
-    (`ctl_laws` or `gdc_ctl_laws`, their plain versions on the CPU or with
-    `plain`) on the estimated VehicleY, or in shadow mode on the truth the
-    truth-fed pass reads."""
+    (`ctl_laws`, `gdc_ctl_laws` or around a mission `msn_nav_ctl_laws`,
+    their plain versions on the CPU or with `plain`) on the estimated
+    VehicleY, or in shadow mode on the truth the truth-fed pass reads. A
+    mission's phases read the estimated orthometric height and the truth's
+    weight on wheels and engine state, and write back the systems inputs
+    they override, as `_periodic` does for the truth-fed mission."""
     world = sim.system
     nav = world.aircraft.avionics
     vehicle = world.aircraft.vehicle
     uv, sv = u["vehicle"], s["vehicle"]
     s_av, u_av = s["avionics"], u["avionics"]
     name = K.avionics_layout(vehicle, nav).pass_name
-    vy = K.vehicle_y(vehicle, xv, uv, kin_y, sys_y)
+    msn = name == "msn_nav_ctl_laws"
+    eng = s["vehicle"]["systems"]["pwp"]["engine"]["state"] if msn else None
+    vy = K.vehicle_y(vehicle, xv, uv, kin_y, sys_y, eng)
     kin, air, dyn = K.vehicle_truth(vehicle, xv, uv, sv, t,
                                     K.systems_plain if plain else K.systems)
     truth = vy._replace(kinematics=kin, airflow=air, dynamics=dyn)
-    vy = vy._replace(kinematics=vy.kinematics._replace(n_e=kin.n_e))
+    vy = vy._replace(kinematics=vy.kinematics._replace(n_e=kin.n_e,
+                                                       h_o=kin.h_o))
     h_trn = vehicle.terrain.terrain_data(uv["trn"]).elevation
     if plain or h_trn.device.type == "cpu":
         s_nav, y = K.nav_pass_plain(nav, vy, truth, h_trn, u_av, s_av)
     else:
         s_nav, y = K.nav_pass(nav, vy, truth, h_trn, u_av, s_av)
     fn = getattr(K, name + "_plain" if plain else name)
-    s_in, cmd, *_ = fn(nav.inner, y, u_av["inner"], s_av["inner"],
-                       world.periodic_dt)
     u_sys = u["vehicle"]["systems"]
-    u_sys = dict(u_sys, act=dict(u_sys["act"], **cmd))
+    extra = ()
+    if msn:
+        y = dict(y, eng_state=eng)
+        extra = (u_sys,)
+    s_in, cmd, *rest = fn(nav.inner, y, u_av["inner"], s_av["inner"],
+                          world.periodic_dt, *extra)
+    u_sys = _with_commands(u_sys, cmd, rest[1] if msn else None)
     return (dict(u, vehicle=dict(u["vehicle"], systems=u_sys)),
             dict(s, avionics=dict(s_nav, inner=s_in)))
+
+
+def _with_commands(u_sys, cmd, over=None):
+    """The systems inputs `u_sys` with the pass's servo commands `cmd` and,
+    from a mission, the phases' systems overrides `over` (the MSN_USYS
+    fields)."""
+    act = dict(u_sys["act"], **cmd)
+    u_sys = dict(u_sys, act=act)
+    if over is not None:
+        act.update(over["act"])
+        pwp = u_sys["pwp"]
+        u_sys["pwp"] = dict(pwp, engine=dict(pwp["engine"],
+                                             **over["pwp"]["engine"]))
+    return u_sys
 
 
 def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False, t=None):
@@ -212,17 +238,12 @@ def _periodic(sim, xv, u, s, kin_y, sys_y, i, plain=False, t=None):
          "msn_ctl_laws": K.msn_y}[name](vy)
     fn = getattr(K, name + "_plain" if plain else name)
     u_sys = u["vehicle"]["systems"]
-    extra = (u_sys,) if name == "msn_ctl_laws" else ()
+    msn = name == "msn_ctl_laws"
+    extra = (u_sys,) if msn else ()
     s_av, cmd, *rest = fn(avionics, y, u["avionics"], s["avionics"],
                           world.periodic_dt, *extra)
-    act = dict(u_sys["act"], **cmd)
-    u_sys = dict(u_sys, act=act)
-    if name == "msn_ctl_laws":  # the phases' systems overrides
-        over = rest[1]
-        act.update(over["act"])
-        pwp = u_sys["pwp"]
-        u_sys["pwp"] = dict(pwp, engine=dict(pwp["engine"],
-                                             **over["pwp"]["engine"]))
+    # the phases' systems overrides, from a mission
+    u_sys = _with_commands(u_sys, cmd, rest[1] if msn else None)
     u2 = dict(u, vehicle=dict(u["vehicle"], systems=u_sys))
     return u2, dict(s, avionics=s_av)
 
@@ -309,7 +330,7 @@ def make_cluster_step(sim, state, ctx=(), block=None, split="vehicle"):
         K.geoid_grid(vehicle.geoid)
         if aircraft.avionics is not None:  # refuses what has no kernel
             if K.avionics_layout(vehicle, aircraft.avionics).nav:
-                K.ctl_gains(K.control_laws(aircraft.avionics))
+                K.ctl_gains(aircraft.avionics.inner)
                 K.normal_table(state.t.device)
             K.ctl_gains(aircraft.avionics)
     if split == "vehicle":

@@ -45,6 +45,11 @@ The C172X's periodic pass:
                   runs inside the step over `build_xv1_nav` and the TPU
                   cluster paths as XLA glue; `megakernel_nav` and
                   `megakernel_nav_turb` are the megakernel's instances there
+- `msn_nav_ctl_laws` <- a sensor-fed mission's `MissionAvionics.f_periodic`
+                  and `assign` on the navigation avionics' estimates, which
+                  also read the estimated orthometric height (the radar
+                  altimeter's flare gate); `megakernel_msn_nav` is the
+                  megakernel's instance there
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); there is no fallback between the two.
@@ -213,6 +218,12 @@ MSN_USYS = ((("act", "flaps"), 1), (("act", "brake_left"), 1),
             (("act", "brake_right"), 1), (("pwp", "engine", "start"), 1))
 MSN_IN = (MSN_Y,) + AV_GROUPS + (AV_U_GDC, AV_S_MSN, MSN_USYS)
 MSN_OUT = GDC_OUT + (AV_S_MSN, MSN_USYS)
+# a mission on the navigation avionics' estimates (msn_nav_ctl_laws): MSN_Y
+# and the estimated orthometric height the radar gate reads (the truth's in
+# shadow mode)
+HO_ROW = (("h_o", 1),)
+MSN_NAV_Y = MSN_Y + HO_ROW
+MSN_NAV_IN = (MSN_NAV_Y,) + MSN_IN[1:]
 # the turbulent C172S (`physics/turbulence.py`; rows of csrc/turbulence.cuh):
 # the five filter states after x_sys, the Dryden and discrete-gust inputs
 # and the held drive after CTX, the step's start time after them (which the
@@ -313,6 +324,8 @@ LEAF_DTYPES.update({("mon_" + k, "alarm"): torch.bool for k in MONITORS})
 # truth's in shadow mode) and the new floating state
 NAV_IN = (GDC_Y, NAV_T, NAV_U, NAV_S)
 NAV_OUT = (GDC_Y, NAV_S)
+# around a mission the pass also writes the h_o row after NAV_S
+NAV_OUT_MSN = NAV_OUT + (HO_ROW,)
 
 
 class Layout(NamedTuple):
@@ -331,10 +344,11 @@ class Layout(NamedTuple):
     avionics' pass on the navigation avionics' estimates: around the
     C172Xv1's control laws the megakernel's instances `megakernel_nav` and
     `megakernel_nav_turb`, around the calm C172Xv2's guidance and control
-    laws `megakernel_gdc_nav` (their buffer also holds NAV_U and NAV_S,
-    their int32 operand NAV_INT after the step counter's rows); around the
-    turbulent C172Xv2's and around a mission no megakernel yet
-    (`mega_name` None)."""
+    laws `megakernel_gdc_nav`, around a mission over them
+    `megakernel_msn_nav` (their buffer also holds NAV_U and NAV_S, their
+    int32 operand NAV_INT after the step counter's rows; the mission's pass
+    in the splits is `msn_nav_ctl_laws`); around the turbulent C172Xv2's
+    (or a mission on it) no megakernel yet (`mega_name` None)."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -382,7 +396,8 @@ def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
         names={k: k + ("_fbw" if fbw else "") + (
             "_turb" if turb and k.startswith("rk4") else "")
             for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=(None if nav and (msn or (gdc and turb))
+        mega_name=(None if nav and gdc and turb
+                   else "megakernel_msn_nav" if nav and msn
                    else "megakernel_gdc_nav" if nav and gdc
                    else ("megakernel_nav_turb" if turb else "megakernel_nav")
                    if nav else "megakernel_msn" + "_turb" * turb if msn
@@ -390,7 +405,8 @@ def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
                    else "megakernel_fbw_turb" if fbw and turb
                    else "megakernel_fbw" if fbw else "megakernel_turb" if turb
                    else "megakernel"),
-        pass_name=("msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
+        pass_name=("msn_nav_ctl_laws" if msn and nav
+                   else "msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
                    else "ctl_laws" if fbw else None), turb=turb, nav=nav)
 
 
@@ -419,6 +435,12 @@ FBW_NAV, FBW_TURB_NAV = _layout(True, nav=True), _layout(True, turb=True,
                                                          nav=True)
 GDC_NAV, GDC_TURB_NAV = (_layout(True, gdc=True, nav=True),
                          _layout(True, gdc=True, turb=True, nav=True))
+# the sensor-fed missions (NavAvionics around a MissionAvionics over the
+# C172Xv2's guidance and control laws; missions.mission_nav_sim), calm and,
+# their megakernel refused, in turbulence
+MSN_NAV, MSN_TURB_NAV = (_layout(True, gdc=True, msn=True, nav=True),
+                         _layout(True, gdc=True, msn=True, turb=True,
+                                 nav=True))
 # the mechanical C172's groups (the C172S and its megakernel)
 SYS_IN, SYS_OUT, FSYS_IN, FSYS_OUT = (MECH.sys_in, MECH.sys_out,
                                       MECH.fsys_in, MECH.fsys_out)
@@ -436,7 +458,7 @@ def layout_of(vehicle, avionics=None):
     turbulent fly-by-wire C172X. Navigation avionics take their inner
     avionics' layout, marked `nav`: around the control laws FBW_NAV
     (FBW_TURB_NAV), around the guidance and control laws GDC_NAV
-    (GDC_TURB_NAV), around a mission MSN's without a megakernel."""
+    (GDC_TURB_NAV), around a mission MSN_NAV (MSN_TURB_NAV)."""
     act = vehicle.systems.act
     stateful = getattr(act, "stateful", False)
     turb = getattr(vehicle, "turbulence", None) is not None
@@ -455,12 +477,14 @@ def layout_of(vehicle, avionics=None):
             return GDC_TURB_NAV if turb else GDC_NAV
         lay = GDC_TURB if turb else GDC
     elif isinstance(inner, MissionAvionics):
+        if nav:
+            return MSN_TURB_NAV if turb else MSN_NAV
         lay = MSN_TURB if turb else MSN
     elif nav:
         return FBW_TURB_NAV if turb else FBW_NAV
     else:
         lay = FBW_TURB if turb else FBW
-    return lay._replace(nav=True, mega_name=None) if nav else lay
+    return lay
 
 
 def mega_refusal(lay):
@@ -468,14 +492,11 @@ def mega_refusal(lay):
     None where it does."""
     if lay.mega_name is not None:
         return None
-    which = ("the sensor-fed missions (megakernel_msn_nav)"
-             if lay.pass_name == "msn_ctl_laws" else
-             "the navigation avionics around the turbulent C172Xv2's "
-             "guidance and control laws (build_xv2_nav(turbulence=), "
-             "megakernel_gdc_nav_turb)")
-    return (f"{which} have no megakernel instance: ROADMAP Queue 2, 'The "
-            f"NavAvionics instances'; they fly Simulation.fleet_step and "
-            f"make_cluster_step(split='vehicle')")
+    return ("the navigation avionics around the turbulent C172Xv2's "
+            "guidance and control laws (build_xv2_nav(turbulence=), or a "
+            "mission on them) have no megakernel instance "
+            "(megakernel_gdc_nav_turb): ROADMAP Queue 2 item 1; they fly "
+            "Simulation.fleet_step and make_cluster_step(split='vehicle')")
 
 
 def mission_refusal(avionics):
@@ -508,14 +529,12 @@ def avionics_layout(vehicle, avionics):
     C172X's `ControlLaws` (FBW), the C172Xv2's `Avionics` (GDC) or a
     mission over them whose phases carry descriptors (MSN), each also
     inside the navigation avionics (their pass the inner avionics' kernel
-    on the estimates); other avionics have no kernel and are refused."""
+    on the estimates; MSN_NAV the sensor-fed missions); other avionics have
+    no kernel and are refused."""
     from flightjax_torch.physics.navigation import NavAvionics
     inner = avionics.inner if isinstance(avionics, NavAvionics) else avionics
     if isinstance(inner, MissionAvionics):
         why = mission_refusal(inner)
-        if why is None and inner is not avionics:
-            why = ("the sensor-fed missions (a MissionAvionics inside "
-                   "NavAvionics) are not ported: ROADMAP Queue 1, P11")
         if why is not None:
             raise NotImplementedError(why)
     elif not isinstance(inner, (ControlLaws, Avionics)):
@@ -782,10 +801,11 @@ LEG_N = 8
 
 
 def control_laws(avionics):
-    """The `ControlLaws` of the C172Xv1's avionics, the C172Xv2's or a
-    mission over them."""
-    inner = getattr(avionics, "inner", avionics)
-    return getattr(inner, "ctl", inner)
+    """The `ControlLaws` of the C172Xv1's avionics, the C172Xv2's, a
+    mission over them or the navigation avionics around any of those."""
+    while hasattr(avionics, "inner"):
+        avionics = avionics.inner
+    return getattr(avionics, "ctl", avionics)
 
 
 def mission_table_values(avionics):
@@ -889,7 +909,9 @@ def ctl_gains(avionics):
     it, and the megakernel keeps the other instances' parameters. The
     navigation avionics' buffer holds the filter's constants there in the
     same way (`nav_param_values`), which nav_pass and the megakernel's
-    navigation instances read."""
+    navigation instances read; around a mission (`megakernel_msn_nav`) a
+    second offset after it points at the mission table, which follows the
+    filter's constants."""
     from flightjax_torch.physics.navigation import NavAvionics
     mission = isinstance(avionics, MissionAvionics)
     nav = isinstance(avionics, NavAvionics)
@@ -897,9 +919,11 @@ def ctl_gains(avionics):
     key = avionics if mission or nav else laws
     buf = _GAINS.get(key)
     if buf is None:
-        extra = (mission_table_values(avionics) if mission
-                 else nav_param_values(avionics) if nav else None)
-        n_head = len(CTL_TABLES) + (extra is not None)
+        extras = ([mission_table_values(avionics)] if mission
+                  else [nav_param_values(avionics)] if nav else [])
+        if nav and isinstance(avionics.inner, MissionAvionics):
+            extras.append(mission_table_values(avionics.inner))
+        n_head = len(CTL_TABLES) + len(extras)
         body = []
         offsets = []
         for ch in CTL_TABLES:
@@ -920,7 +944,7 @@ def ctl_gains(avionics):
                         device="cpu", dtype=first.values.dtype)
             offsets.append(float(n_head + len(body)))
             body += encode_table(lk)
-        if extra is not None:
+        for extra in extras:
             offsets.append(float(n_head + len(body)))
             body += extra
         like = laws.gains["v2t"]["k_p"].values
@@ -1242,12 +1266,18 @@ def msn_y(vy):
     return dict(gdc_y(vy), eng_state=vy.systems.pwp.engine.state)
 
 
+def msn_nav_y(vy):
+    """The MSN_NAV_Y fields of a VehicleY: MSN_Y and the orthometric height
+    the radar gate reads."""
+    return dict(msn_y(vy), h_o=vy.kinematics.h_o)
+
+
 def ctl_vehicle_y(y):
-    """The VehicleY that holds the CTL_Y (or GDC_Y, MSN_Y) fields `y` (the
-    others None)."""
+    """The VehicleY that holds the CTL_Y (or GDC_Y, MSN_Y, MSN_NAV_Y)
+    fields `y` (the others None)."""
     kin = KinData(**dict(dict.fromkeys(KinData._fields), **{
         k: y[k] for k in ("omega_wb_b", "omega_eb_b", "e_nb", "v_eb_n",
-                          "chi_gnd", "h_e", "n_e") if k in y}))
+                          "chi_gnd", "h_e", "n_e", "h_o") if k in y}))
     air = AirData(**dict(dict.fromkeys(AirData._fields), EAS=y["EAS"]))
     sys_ = SystemsY(act={"cmd": y["cmd"], "pos": y["pos"]},
                     aero=AeroY(y["alpha"], y["beta"], y["alpha_filt"],
@@ -1308,6 +1338,11 @@ def msn_ctl_laws_plain(avionics, y, u_av, s_av, dt, u_sys):
     g = av_y["inner"]["gdc"]
     return (s2, _commands(av_y["inner"]["ctl"]),
             {k: getattr(g, k) for k, _ in GDC_YOUT}, msn_usys(sys2))
+
+
+# the sensor-fed mission's pass is the same function on the MSN_NAV_Y
+# fields, whose estimated h_o the radar gate reads
+msn_nav_ctl_laws_plain = msn_ctl_laws_plain
 
 
 def rk4_stage_plain(vehicle, xv, kv, uv, sv, term, adt, t=None):
@@ -1491,13 +1526,17 @@ def pack_gdc_ctl_laws(avionics, y, u_av, s_av, dt):
     return buf, rows(GDC_OUT), (float(dt),), {"gains": ctl_gains(avionics)}
 
 
-def pack_msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
+def pack_msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys, groups=MSN_IN):
     like = y["EAS"]
     ctl_u, ctl_s = u_av["ctl"], s_av["inner"]["ctl"]
-    buf = pack(MSN_IN, (y, ctl_u["lon"], ctl_u["lat"], ctl_s["lon"],
+    buf = pack(groups, (y, ctl_u["lon"], ctl_u["lat"], ctl_s["lon"],
                         ctl_s["lat"], u_av["gdc"], s_av, u_sys),
                like.shape[0], like.dtype)
     return buf, rows(MSN_OUT), (float(dt),), {"gains": ctl_gains(avionics)}
+
+
+def pack_msn_nav_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
+    return pack_msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys, MSN_NAV_IN)
 
 
 def pack_geoid(geo, q_ew):
@@ -1510,7 +1549,8 @@ PACK = {"kinair": pack_kinair, "dynamics": pack_dynamics,
         "finish_sys": pack_finish_sys, "rk4_stage": pack_rk4_stage,
         "rk4_finish": pack_rk4_finish, "geoid": pack_geoid,
         "ctl_laws": pack_ctl_laws, "gdc_ctl_laws": pack_gdc_ctl_laws,
-        "msn_ctl_laws": pack_msn_ctl_laws}
+        "msn_ctl_laws": pack_msn_ctl_laws,
+        "msn_nav_ctl_laws": pack_msn_nav_ctl_laws}
 # the fly-by-wire instances pack as their mechanical twins (by the
 # vehicle's layout)
 PACK.update({FBW.names[k]: PACK[k] for k in FBW.names})
@@ -1524,7 +1564,7 @@ _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
 _INSTANCES.update({lay.names[k]: (k, lay) for lay in (TURB, FBW_TURB)
                    for k in ("rk4_stage", "rk4_finish")})
 for _lay in (TURB, FBW_TURB, GDC, MSN, GDC_TURB, MSN_TURB, FBW_NAV,
-             FBW_TURB_NAV, GDC_NAV):
+             FBW_TURB_NAV, GDC_NAV, MSN_NAV):
     _INSTANCES[_lay.mega_name] = ("megakernel", _lay)
 
 
@@ -1553,7 +1593,12 @@ def pack_avionics(lay, u_av, s_av, B, dtype):
     guidance's inputs, then a mission's phase and clock; around the
     navigation avionics (their inner avionics' rows first) their NAV_U and
     NAV_S rows (their integers in `pack_nav_int`)."""
-    if lay.nav and lay.pass_name == "gdc_ctl_laws":
+    if lay.nav and lay.pass_name == "msn_nav_ctl_laws":
+        u_in, s_msn = u_av["inner"], s_av["inner"]
+        s_ctl = s_msn["inner"]["ctl"]
+        objs = (u_in["ctl"]["lon"], u_in["ctl"]["lat"], s_ctl["lon"],
+                s_ctl["lat"], u_in["gdc"], s_msn, u_av, s_av)
+    elif lay.nav and lay.pass_name == "gdc_ctl_laws":
         u_in, s_ctl = u_av["inner"], s_av["inner"]["ctl"]
         objs = (u_in["ctl"]["lon"], u_in["ctl"]["lat"], s_ctl["lon"],
                 s_ctl["lat"], u_in["gdc"], u_av, s_av)
@@ -1604,7 +1649,11 @@ def unpack_avionics(lay, buf, ints=None):
     u_av = {"lon": u_lon, "lat": u_lat}
     s_av = {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}
     if lay.nav:
-        if lay.pass_name == "gdc_ctl_laws":
+        if lay.pass_name == "msn_nav_ctl_laws":
+            u_gdc, s_msn, *more = more
+            u_av, s_av = {"ctl": u_av, "gdc": _gdc_tree(u_gdc)}, {
+                "inner": {"ctl": s_av}, **s_msn}
+        elif lay.pass_name == "gdc_ctl_laws":
             u_gdc, *more = more
             u_av, s_av = {"ctl": u_av, "gdc": _gdc_tree(u_gdc)}, {
                 "ctl": s_av}
@@ -1642,8 +1691,10 @@ def unpack_out(name, out, comp=False, ints=None):
     drive counter the new s["turb"] takes one step on."""
     base, lay = _INSTANCES.get(name, (name, MECH))
     if base == "nav_pass":
-        y, s_nav = unpack(NAV_OUT, out, typed=True)
-        return _nav_trees({}, s_nav, ints)[1], y
+        y, s_nav, *ho = unpack(NAV_OUT_MSN if out.shape[0] == rows(
+            NAV_OUT_MSN) else NAV_OUT, out, typed=True)
+        return _nav_trees({}, s_nav, ints)[1], dict(y, **(ho[0] if ho
+                                                         else {}))
     if base == "ctl_laws":
         s_lon, s_lat, cmd = unpack(CTL_OUT, out, typed=True)
         return {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}, cmd
@@ -1651,7 +1702,7 @@ def unpack_out(name, out, comp=False, ints=None):
         s_lon, s_lat, cmd, g = unpack(GDC_OUT, out, typed=True)
         return ({"ctl": {"lon": _av_tree(s_lon), "lat": _av_tree(s_lat)}},
                 cmd, g)
-    if base == "msn_ctl_laws":
+    if base in ("msn_ctl_laws", "msn_nav_ctl_laws"):
         s_lon, s_lat, cmd, g, sm, sys_ = unpack(MSN_OUT, out, typed=True)
         return ({"inner": {"ctl": {"lon": _av_tree(s_lon),
                                    "lat": _av_tree(s_lat)}}, **sm},
@@ -1905,6 +1956,15 @@ def msn_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
     return unpack_out("msn_ctl_laws", _launch("msn_ctl_laws", args))
 
 
+def msn_nav_ctl_laws(avionics, y, u_av, s_av, dt, u_sys):
+    """`msn_nav_ctl_laws_plain` on the CPU, the `msn_nav_ctl_laws` CUDA
+    kernel on the card: the mission's pass on the MSN_NAV_Y fields `y`."""
+    args = (avionics, y, u_av, s_av, dt, u_sys)
+    if y["EAS"].device.type == "cpu":
+        return msn_nav_ctl_laws_plain(*args)
+    return unpack_out("msn_nav_ctl_laws", _launch("msn_nav_ctl_laws", args))
+
+
 def nav_truth(truth, h_trn):
     """The NAV_T fields of a VehicleY holding the truth's KinData, AirData
     and DynamicsY (`vehicle_truth`) and the terrain's elevation."""
@@ -1925,29 +1985,37 @@ def nav_pass_plain(nav, vy, truth, h_trn, u_av, s_av):
     `truth` the one holding the truth the sensors read (`vehicle_truth`),
     `h_trn` the terrain's elevation. Returns (the new state but its
     "inner", the GDC_Y fields the inner laws read: the estimates, or in
-    shadow mode the truth's)."""
+    shadow mode the truth's; around a mission also the orthometric height
+    h_o its radar gate reads, the estimate's or `vy`'s)."""
     s_nav, y_est, _ = nav.nav_pass(s_av, u_av, truth, h_trn,
                                    nav.epoch_gate(s_av["sens"]["n"] + 1))
-    return s_nav, gdc_y(y_est if nav.use_estimates else vy)
+    y = y_est if nav.use_estimates else vy
+    out = gdc_y(y)
+    if isinstance(nav.inner, MissionAvionics):
+        out["h_o"] = y.kinematics.h_o
+    return s_nav, out
 
 
 def pack_nav_pass(nav, vy, truth, h_trn, u_av, s_av):
     like = truth.airflow.p
     buf = pack(NAV_IN, (gdc_y(vy), nav_truth(truth, h_trn), u_av, s_av),
                like.shape[0], like.dtype)
-    return buf, rows(NAV_OUT), (), {"gains": ctl_gains(nav),
-                                    "ints": pack_nav_int(u_av, s_av)}
+    msn = isinstance(nav.inner, MissionAvionics)
+    return buf, rows(NAV_OUT_MSN if msn else NAV_OUT), (), {
+        "gains": ctl_gains(nav), "ints": pack_nav_int(u_av, s_av)}
 
 
 def nav_pass(nav, vy, truth, h_trn, u_av, s_av, block=None):
     """`nav_pass_plain` on the CPU, the `nav_pass` CUDA kernel on the card
-    (the aiding block where each lane's own epoch aids)."""
+    (the aiding block where each lane's own epoch aids; around a mission
+    its instance that also writes the h_o row)."""
     args = (nav, vy, truth, h_trn, u_av, s_av)
     if h_trn.device.type == "cpu":
         return nav_pass_plain(*args)
     buf, n_out, _, ops = pack_nav_pass(*args)
     out, ints = L.launch_nav_pass(buf, n_out, ops["ints"], ops["gains"],
-                                  normal_table(buf.device), block)
+                                  normal_table(buf.device), block,
+                                  ho=n_out == rows(NAV_OUT_MSN))
     LAUNCHES["nav_pass"] += 1
     return unpack_out("nav_pass", out, ints=ints)
 
@@ -1976,9 +2044,10 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     a mission on it `megakernel_msn_turb`, whose int32 buffers hold them
     too; with the navigation avionics around the C172Xv1's control laws
     `megakernel_nav` (`megakernel_nav_turb` in turbulence), around the
-    C172Xv2's guidance and control laws `megakernel_gdc_nav`, whose int32
-    buffer holds the NAV_INT rows after those and which reads the sensors'
-    normal table (`ops/random.normal_table`)."""
+    C172Xv2's guidance and control laws `megakernel_gdc_nav`, around a
+    mission over them `megakernel_msn_nav`, whose int32 buffer holds the
+    NAV_INT rows after those and which reads the sensors' normal table
+    (`ops/random.normal_table`)."""
     lay = layout_of(vehicle, avionics)
     name = lay.mega_name
     out = L.launch_megakernel(
@@ -1986,7 +2055,8 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
         dt, t_start, comp, block,
         None if avionics is None else ctl_gains(avionics), spp, periodic_dt,
         gdc=lay.pass_name == "gdc_ctl_laws",
-        msn=lay.pass_name == "msn_ctl_laws", turb=lay.turb,
+        msn=lay.pass_name in ("msn_ctl_laws", "msn_nav_ctl_laws"),
+        turb=lay.turb,
         table=normal_table(bufs[0].device) if lay.nav else None)
     LAUNCHES[name] += 1
     return out

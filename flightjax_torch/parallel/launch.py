@@ -70,10 +70,13 @@ NAV_KERNELS = ("nav_pass", "megakernel_nav", "megakernel_nav_turb",
 # the megakernel's instances over the turbulent C172Xv2 and a mission flown
 # on it (their splits run the FBW_TURB_KERNELS)
 GDC_TURB_KERNELS = ("megakernel_gdc_turb", "megakernel_msn_turb")
+# the sensor-fed missions: the megakernel's instance and the mission's pass
+# on the estimates, which the splits launch after `nav_pass`
+MSN_NAV_KERNELS = ("megakernel_msn_nav", "msn_nav_ctl_laws")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
                 *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
-                *GDC_TURB_KERNELS)
+                *GDC_TURB_KERNELS, *MSN_NAV_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
@@ -82,7 +85,7 @@ COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "megakernel_msn", "rk4_stage_turb", "megakernel_turb",
                "rk4_stage_fbw_turb", "megakernel_fbw_turb", "megakernel_nav",
                "megakernel_nav_turb", "megakernel_gdc_nav",
-               *GDC_TURB_KERNELS)
+               *GDC_TURB_KERNELS, "megakernel_msn_nav")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -93,7 +96,7 @@ N_GAIN_TABLES = 10
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
            *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
-           *GDC_TURB_KERNELS)
+           *GDC_TURB_KERNELS, *MSN_NAV_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
 # counter, stream seed, drive counter) of the turbulent vehicle
@@ -103,7 +106,7 @@ WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw",
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
                "megakernel", *FBW_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS)
 WITH_GRID = ("geoid", "megakernel", "megakernel_turb", "megakernel_fbw_turb")
-WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws")
+WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws", "msn_nav_ctl_laws")
 WITH_INTS = ("rk4_finish_turb", "rk4_finish_fbw_turb")
 # rows of the turbulent vehicle's int32 operand
 N_TURB_INT = 3
@@ -221,6 +224,7 @@ def library():
                        gdc_ctl_laws=sig["ctl_laws"],
                        megakernel_msn=sig["megakernel_fbw"],
                        msn_ctl_laws=sig["ctl_laws"],
+                       msn_nav_ctl_laws=sig["ctl_laws"],
                        rk4_stage_turb=sig["rk4_stage"],
                        rk4_finish_turb=[P, P, P, P, P, I, D, I, D, D, I, P],
                        megakernel_turb=sig["megakernel"],
@@ -229,9 +233,9 @@ def library():
                        megakernel_gdc_turb=sig["megakernel_fbw"],
                        megakernel_msn_turb=sig["megakernel_fbw"])
             sig["rk4_finish_fbw_turb"] = sig["rk4_finish_turb"]
-            sig["nav_pass"] = [P] * 7 + [I, I, P]
+            sig["nav_pass"] = [P] * 7 + [I, I, I, P]
             sig["megakernel_nav"] = sig["megakernel_nav_turb"] = (
-                sig["megakernel_gdc_nav"]) = (
+                sig["megakernel_gdc_nav"]) = sig["megakernel_msn_nav"] = (
                 [P] * 9 + [I, I, D, D, I, I, D, I, P])
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
@@ -387,8 +391,8 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     other operands: `k` (k_prev or the k-sum, `[n_x, B]`) for the two RK4
     kernels, the parameter buffer for the kernels of the C172 systems, the
     geoid grid for `geoid`, the control laws' gains for `ctl_laws`,
-    `gdc_ctl_laws` and `msn_ctl_laws` (with the mission table for the
-    last, `kernels.ctl_gains`), the int32 `[3, B]` rows (i, seed, n) for
+    `gdc_ctl_laws`, `msn_ctl_laws` and `msn_nav_ctl_laws` (with the
+    mission table for the last two, `kernels.ctl_gains`), the int32 `[3, B]` rows (i, seed, n) for
     `rk4_finish_turb` and `rk4_finish_fbw_turb`.
     Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
@@ -462,16 +466,20 @@ def _nav_work(B, dtype, device):
     return torch.empty((N_NAV_WORK, B), dtype=dtype, device=device)
 
 
-def launch_nav_pass(packed_in, n_out, ints, gains, table, block=None):
+def launch_nav_pass(packed_in, n_out, ints, gains, table, block=None,
+                    ho=False):
     """The navigation pass `nav_pass` on a packed `[n_in, B]` CUDA tensor
     (csrc/nav_pass.cu), with the NAV_INT rows `ints` (int32 `[11, B]`), the
     gains holding the filter's constants and the normal table; a work
-    buffer for the filter's matrices is allocated here. Returns the packed
-    `[n_out, B]` output and the new int32 rows. `block` is the aircraft
-    per block (32 or 64). Does not synchronise."""
+    buffer for the filter's matrices is allocated here. With `ho` (around a
+    mission) its instance that also writes the orthometric height the
+    mission's radar gate reads, one row after the others. Returns the
+    packed `[n_out, B]` output and the new int32 rows. `block` is the
+    aircraft per block (32 or 64). Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn("nav_pass", dtype, device)
     n_in, n_out_k = layout("nav_pass")
+    n_out_k += int(bool(ho))
     B = packed_in.shape[1]
     check_operand(packed_in, n_in, B, dtype, device)
     if n_out != n_out_k:
@@ -486,7 +494,7 @@ def launch_nav_pass(packed_in, n_out, ints, gains, table, block=None):
     _run("nav_pass", fn, (packed_in.data_ptr(), ints.data_ptr(),
                           gains.data_ptr(), table.data_ptr(),
                           work.data_ptr(), out.data_ptr(), i_out.data_ptr(),
-                          B), block)
+                          B, int(bool(ho))), block)
     return out, i_out
 
 
@@ -509,7 +517,9 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     normal `table` (and the gains of the navigation avionics,
     `kernels.ctl_gains`) the sensor-fed C172Xv1's `megakernel_nav`, with
     `turb` its `megakernel_nav_turb`, with `gdc` the calm sensor-fed
-    C172Xv2's `megakernel_gdc_nav`, whose `i` also holds the NAV_INT rows
+    C172Xv2's `megakernel_gdc_nav`, with `msn` the calm sensor-fed
+    missions' `megakernel_msn_nav` (its gains hold the filter's constants,
+    then the mission table), whose `i` also holds the NAV_INT rows
     (`[1 + 11, B]`, `[3 + 11, B]`); their work buffer is allocated here.
     Does not synchronise."""
     fbw = gains is not None
@@ -517,10 +527,12 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     if (gdc or msn or nav) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
-    if nav and (msn or (gdc and turb)):
+    if nav and turb and (gdc or msn):
         raise ValueError("the navigation megakernels carry the C172Xv1, "
-                         "calm or turbulent, and the calm C172Xv2")
-    name = ("megakernel_msn" + "_turb" * turb if msn
+                         "calm or turbulent, and the calm C172Xv2 and "
+                         "missions")
+    name = ("megakernel_msn_nav" if msn and nav
+            else "megakernel_msn" + "_turb" * turb if msn
             else "megakernel_gdc_nav" if gdc and nav
             else "megakernel_gdc" + "_turb" * turb if gdc
             else "megakernel_nav_turb" if nav and turb

@@ -22,9 +22,10 @@ drive's counter, integers past what float32 holds exactly; the turbulent
 C172Xv1, C172Xv2 and mission (`megakernel_fbw_turb`, `megakernel_gdc_turb`,
 `megakernel_msn_turb`) hold their calm twins' rows with the turbulence's
 placed as on the C172S, and that int32 `[3, B]`; the sensor-fed C172Xv1
-and C172Xv2 (`megakernel_nav(_turb)`, `megakernel_gdc_nav`) their
-truth-fed twins' rows, then the navigation avionics' NAV_U and NAV_S, and
-their int32 rows also NAV_INT. This takes the place of the part
+and C172Xv2 (`megakernel_nav(_turb)`, `megakernel_gdc_nav`) and the
+sensor-fed missions (`megakernel_msn_nav`) their truth-fed twins' rows,
+then the navigation avionics' NAV_U and NAV_S, and their int32 rows also
+NAV_INT. This takes the place of the part
 of `flightjax/parallel/packed.py::make_packer` the JAX kernel uses: the
 layout is fixed by the kernel, so `pack` / `unpack` here are plain row
 maps.
@@ -37,7 +38,10 @@ a lane's new counter is a multiple of `steps_per_periodic`), and the geoid
 refreshed on every step (`megakernel.py:144-154`, which ignores
 `geoid_every`). On the C172Xv2 the pass runs the guidance laws first;
 over a mission the phase machine runs before them, and the new phase's
-systems overrides (flaps, brakes, engine start) follow them. The
+systems overrides (flaps, brakes, engine start) follow them; around the
+navigation avionics the sensors and the filter run first, and the phase
+machine, the guidance and the control laws read the estimates (the
+estimated orthometric height too, which the radar gate reads). The
 pass reads the undulation from before the refresh, as the JAX kernel,
 stepping under `geoid_deferred`, does. There is no fleet
 gear gate, as in the rest of the port.
@@ -98,9 +102,10 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     the step counter's), the turbulent C172Xv2 and a mission on it
     (`megakernel_gdc_turb`, `megakernel_msn_turb`, int32 rows i, seed, n)
     and the calm sensor-fed C172Xv2 (`c172x.build_xv2_nav`:
-    `megakernel_gdc_nav`, its guidance and control laws on the estimates).
-    The sensor-fed C172Xv2 in turbulence and the sensor-fed missions are
-    refused (`kernels.mega_refusal`, `kernels.avionics_layout`)."""
+    `megakernel_gdc_nav`, its guidance and control laws on the estimates)
+    and missions (`missions.mission_nav_sim`: `megakernel_msn_nav`, the
+    phase machine on the estimates too). The sensor-fed C172Xv2 in
+    turbulence (and a mission on it) is refused (`kernels.mega_refusal`)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "

@@ -821,6 +821,16 @@ WIND_E, WIND_SPREAD, CROSS_TRACK, LANDING_DH = 6.0, 3.0, 20.0, 5.0
 PATTERN_WIND, HEADING_DEG = 2.0, 1.0
 
 
+def pick_lanes(a, b, pick):
+    """numpy (t, i, x, u, s) of a fleet whose lane k is the single-aircraft
+    state `b` where `pick[k]`, else `a` (each a numpy SimState)."""
+    return tuple(tree_map(lambda u, v: np.where(
+        pick.reshape((-1,) + (1,) * np.ndim(u)), np.broadcast_to(
+            v, (len(pick),) + np.shape(v)), np.broadcast_to(
+            u, (len(pick),) + np.shape(u))).copy(), ta, tb)
+        for ta, tb in zip(a[:5], b[:5]))
+
+
 def msn_scenario(batch, seed):
     """numpy (t, i, x, u, s) of `batch` C172Xv2 flying the traffic
     pattern's phase set over the LOWS terrain, and (landing lanes,
@@ -838,12 +848,7 @@ def msn_scenario(batch, seed):
     one = [tree_to_numpy(st) for st in (
         M.landing_state(0.02, torch.float64, "cpu", phases),
         M.runway_state(torch.float64, "cpu", phases))]
-    pick = np.where(lane < batch // 2, 0, 1)
-    t, i, x, u, s = (tree_map(lambda a, b: np.where(
-        pick.reshape((-1,) + (1,) * np.ndim(a)), np.broadcast_to(
-            b, (batch,) + np.shape(b)), np.broadcast_to(
-            a, (batch,) + np.shape(a))).copy(), ta, tb)
-        for ta, tb in zip(one[0][:5], one[1][:5]))
+    t, i, x, u, s = pick_lanes(*one, lane >= batch // 2)
     rng = np.random.default_rng(seed)
     kin, dyn = x["vehicle"]["kinematics"], x["vehicle"]["dynamics"]
     wind = u["vehicle"]["atm"]["wind"]
@@ -1508,11 +1513,16 @@ def normal_table_for(seeds, ns):
 # (2.7e-12 of `nav_pass`'s f64 p_n on the study's fleet against the CPU,
 # the card's plain run as far; 1.8e-13 on the mode-rich operands). The
 # integers and flags (the sensor epoch, the monitors'
-# bits and alarms) exactly, but on float32 lanes where an NIS lies within
-# NAV_NEAR_GATE of its gate (none in float64).
+# bits and alarms, a mission's phase) exactly, but on float32 lanes where
+# an NIS lies within NAV_NEAR_GATE of its gate, or a sensor-fed mission's
+# lane stands at its radar gate (`msn_gate_lanes`: its true height over
+# the runway within NAV_NEAR_AGL m of the 6 m gate, in the phase the gate
+# ends or the one after it), where two faithful float32 runs may switch
+# one firing apart (none in float64).
 NAV_P_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 NAV_FLOOR = NAV_P_TOL
 NAV_SPREAD, NAV_CPU_LANES, NAV_NEAR_GATE = 4.0, 1024, 0.01
+NAV_NEAR_AGL = 1.0
 
 
 def nav_lanes(tree, device, dtype, n=None):
@@ -1544,14 +1554,17 @@ def _drive_in(turb, dtype):
 
 
 def nav_twin(sim, device, dtype):
-    """The sensor-fed C172Xv1 (or C172Xv2) Simulation `sim` rebuilt on
-    `device` in `dtype` with its navigation settings and turbulence; its
+    """The sensor-fed C172Xv1 (or C172Xv2, or mission) Simulation `sim`
+    rebuilt on `device` in `dtype` with its navigation settings and
+    turbulence (a mission with its phases, over its terrain); its
     filter takes the GPS position variance of `sim`'s dtype and its
     turbulence draws the drive in `sim`'s dtype, so that a float64 twin
     runs a float32 filter's arithmetic in float64 through the float32
     run's gusts."""
     import copy
+    from flightjax_torch.core.mission import MissionAvionics
     from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172 import missions as M
     from flightjax_torch.models.c172.c172x import (build_xv1_nav,
                                                    build_xv2_nav)
     from flightjax_torch.models.c172.c172x_gdc import Avionics
@@ -1566,9 +1579,15 @@ def nav_twin(sim, device, dtype):
                           defer_cov=nav.defer_cov))
     if veh.turbulence is not None:
         kw["turbulence"] = _drive_in(veh.turbulence, nav.dtype)
-    build = (build_xv2_nav if isinstance(nav.inner, Avionics)
-             else build_xv1_nav)
-    air = build(device=device, dtype=dtype, **kw)
+    if isinstance(nav.inner, MissionAvionics):
+        nav_kw = dict(kw["nav_kw"], use_estimates=nav.use_estimates)
+        air = M.mission_nav_aircraft(nav.inner.phases, dt=sim.periodic_dt,
+                                     nav_kw=nav_kw, device=device,
+                                     dtype=dtype)
+    else:
+        build = (build_xv2_nav if isinstance(nav.inner, Avionics)
+                 else build_xv1_nav)
+        air = build(device=device, dtype=dtype, **kw)
     f = copy.copy(air.avionics.filter)
     f.r_pos = nav.filter.r_pos_eff(nav.dtype)
     air.avionics.filter = f
@@ -1592,11 +1611,12 @@ def nav_reference(sim, dtype, run, inputs):
                nav_lanes(inputs, device, torch.float64))
 
 
-def nav_hold(dtype, got, ref, ref_x, s_got, s_ref, nav, what=""):
+def nav_hold(dtype, got, ref, ref_x, s_got, s_ref, nav, what="", gate=None):
     """Hold a navigation kernel's output tree `got` to the plain run `ref`
     on the same card tensors, `ref_x` the reference of `nav_reference`,
     as the comment above says; `s_got`, `s_ref` the navigation avionics'
-    states in `got` and `ref`, `nav` the avionics. Raises AssertionError
+    states in `got` and `ref`, `nav` the avionics, `gate` the lanes at a
+    mission's radar gate (`msn_gate_lanes`). Raises AssertionError
     where it fails; returns (P's error, the lanes whose integers differ,
     those of them away from a gate, {leaf group: (error, limit)})."""
     from flightjax_torch.core.modeling import tree_leaves_with_path
@@ -1609,10 +1629,15 @@ def nav_hold(dtype, got, ref, ref_x, s_got, s_ref, nav, what=""):
         for f in ("bits", "alarm"):
             bad = bad | (s_got["mon_" + k][f].long()
                          != s_ref["mon_" + k][f].long())
+    inner = s_got.get("inner")
+    if isinstance(inner, dict) and "phase" in inner:  # a mission's phase
+        bad = bad | (inner["phase"] != s_ref["inner"]["phase"])
     near = torch.zeros_like(bad)
     if dtype == torch.float32:
         for ch, g in gates.items():
             near = near | ((s_ref["nis"][ch] - g).abs() <= NAV_NEAR_GATE * g)
+        if gate is not None:
+            near = near | gate.to(near.device)
     n_bad, n_far = int(bad.sum()), int((bad & ~near).sum())
     if n_far or (dtype == torch.float64 and n_bad):
         raise AssertionError(f"{what} {dtype}: integers or flags differ on "
@@ -1649,3 +1674,271 @@ def nav_hold(dtype, got, ref, ref_x, s_got, s_ref, nav, what=""):
         raise AssertionError(f"{what} {dtype}: P {p_err} > "
                              f"{NAV_P_TOL[dtype]}")
     return p_err, n_bad, n_far, worst
+
+
+# ------------------------------------------------------------ sensor-fed
+# missions
+
+def msn_nav_phases(legs=None):
+    """Both sensor-fed missions in one phase list, for fleets that fly
+    both: the landing's (final on the radar gate, flare, ground: indices
+    0..2), then the takeoff's (standby, startup, takeoff, departure:
+    TAKEOFF_NAV0..); a lane starts in its mission's first phase. The
+    landing's ground phase never ends, so neither mission runs into the
+    other's."""
+    from flightjax_torch.models.c172 import missions as M
+    legs = M.lows_pattern() if legs is None else legs
+    return (M.crosswind_landing_nav_phases(legs)
+            + M.takeoff_nav_phases(legs))
+
+
+# the first takeoff phase in `msn_nav_phases`, and each phase's index
+(NAV_FINAL, NAV_FLARE, NAV_GROUND, NAV_STANDBY, NAV_STARTUP, NAV_TAKEOFF,
+ NAV_DEPARTURE) = range(7)
+TAKEOFF_NAV0 = NAV_STANDBY
+# the lanes of the sensor-fed mission operands, cycled over the batch: the
+# start (the landing's trim on the final or the takeoff's parked aircraft),
+# the phase and what is set: "agl" the height of the CoM over the runway
+# (m), "clock" the mission clock (s), "eng" the engine's state, "h_max" the
+# radar's range (m) with "dh" the filter's altitude that far below the
+# truth (m), "latched" the radar monitor latched. The first eight are the
+# CPU parity test's: one lane crosses the 6 m radar gate inside five steps
+# (0), one stands above it on the truth but under it on its estimate, the
+# radar out of range (1), one's standby clock reaches 5 s in the window
+# (5). Then each gate's two sides, the radar valid and not, a latched radar
+# monitor and a filter whose radar NIS passes its gate
+MSN_NAV_LANES = (
+    ("land", NAV_FINAL, {"agl": 6.25}),
+    ("land", NAV_FINAL, {"agl": 6.5, "h_max": 3.0, "dh": 2.5}),
+    ("land", NAV_FINAL, {}),
+    ("land", NAV_FLARE, {"agl": 3.0}),
+    ("rwy", NAV_FLARE, {}),
+    ("rwy", NAV_STANDBY, {"clock": 4.96}),
+    ("rwy", NAV_STARTUP, {"eng": 1}),
+    ("land", NAV_TAKEOFF, {}),
+    ("land", NAV_FINAL, {"agl": 5.5}),
+    ("land", NAV_FINAL, {"agl": 151.0}),
+    ("land", NAV_FINAL, {"agl": 770.0}),
+    ("rwy", NAV_STANDBY, {"clock": 4.98}),
+    ("rwy", NAV_STANDBY, {"clock": 5.0}),
+    ("rwy", NAV_TAKEOFF, {}),
+    ("land", NAV_FINAL, {"agl": 6.5, "latched": True}),
+    ("land", NAV_FINAL, {"agl": 40.0, "dh": 8.0}),
+    ("rwy", NAV_GROUND, {}),
+    ("land", NAV_DEPARTURE, {}),
+    ("rwy", NAV_STARTUP, {"eng": 2}),
+)
+
+
+def msn_nav_sim(device, dtype, setting="default", spp=1):
+    """The Simulation of `msn_nav_phases` on the navigation avionics with
+    the NAV_SETTINGS `setting` (the radar aiding always on), dt 0.02 s, the
+    pass every `spp` steps, the geoid every step."""
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172 import missions as M
+    pdt = 0.02 * spp
+    return Simulation(M.mission_nav_world(
+        msn_nav_phases(), dt=pdt, nav_kw=NAV_SETTINGS[setting],
+        device=device, dtype=dtype), dt=0.02, periodic_dt=pdt)
+
+
+def msn_nav_operand_state(batch, seed, device, dtype, setting="default",
+                          spp=1, i0=None):
+    """(sim, SimState) of `batch` sensor-fed mission lanes (`msn_nav_sim`)
+    whose phase machines and navigation avionics are in the modes of
+    MSN_NAV_LANES (cycled), drawn from a numpy seed: the landing lanes from
+    the trim on the final (`missions.landing_nav_state`, their CoM moved to
+    the lane's height, the filter's altitude with it), the takeoff lanes
+    parked on the threshold (`missions.runway_nav_state`); each lane's
+    sensor stream its own (above 2^24 on half the lanes). With `i0` every
+    lane at step and sensor epoch i0; else each at its own epoch (10
+    consecutive on every 10 lanes: GPS, baro, mag and radar epochs together,
+    alone and none), the step counter the one that makes it."""
+    from flightjax_torch.bridge import tree_to_numpy
+    from flightjax_torch.models.c172 import missions as M
+    rng = np.random.default_rng(seed)
+    F = torch.float64
+    phases = msn_nav_phases()
+    kw = dict(dt=0.02 * spp, nav_kw=NAV_SETTINGS[setting])
+    one = [tree_to_numpy(st) for st in (
+        M.landing_nav_state(F, "cpu", phases, **kw),
+        M.runway_nav_state(F, "cpu", phases, **kw))]
+    lanes = [MSN_NAV_LANES[k % len(MSN_NAV_LANES)] for k in range(batch)]
+    t, i, x, u, s = pick_lanes(
+        *one, np.array([base == "rwy" for base, _, _ in lanes]))
+    kin = x["vehicle"]["kinematics"]
+    av_u, av_s = u["avionics"], s["avionics"]
+    p_n = av_s["nav"].p_n
+    geoid_N = s["vehicle"]["geoid_N"]
+    eng = s["vehicle"]["systems"]["pwp"]["engine"]["state"]
+    radar = av_u["sens"]["params"]["radar"]
+    hits = M.mission_nav_avionics([], device="cpu", dtype=F).monitor_min_hits
+    clock = rng.uniform(0.0, 60.0, batch)
+    phase = np.zeros(batch, np.int32)
+    for k, (_, ph, what) in enumerate(lanes):
+        phase[k] = ph
+        if "agl" in what:
+            h = geoid_N[k] + M.H_LOWS15 + what["agl"]
+            p_n[k, 2] -= h - kin["h_e"][k]
+            kin["h_e"][k] = h
+        p_n[k, 2] += what.get("dh", 0.0)
+        if "clock" in what:
+            clock[k] = what["clock"]
+        if "eng" in what:
+            eng[k] = what["eng"]
+        if "h_max" in what:
+            radar["h_max"][k] = what["h_max"]
+        if what.get("latched"):
+            av_s["mon_radar"]["bits"][k] = (1 << hits) - 1
+            av_s["mon_radar"]["alarm"][k] = True
+    av_s["inner"]["phase"] = phase
+    av_s["inner"]["t"] = clock
+    av_u["sens"]["seed"] = np.where(
+        np.arange(batch) % 2 == 0, rng.integers(2 ** 24, 2 ** 31 - 1, batch),
+        rng.integers(0, 2 ** 24, batch)).astype(np.int32)
+    if i0 is None:
+        n = np.array([(k % 10) + 10 * (1 + (k // 10) % 5) + 2
+                      for k in range(batch)])
+        i = (n + 1) * spp - 1
+    else:
+        n = np.full(batch, int(i0))
+        i = n.copy()
+    av_s["sens"]["n"] = n.astype(np.int32)
+    t = i * 0.02
+    sim = msn_nav_sim(device, dtype, setting, spp)
+    state = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                     i=torch.tensor(i, dtype=torch.int32, device=device),
+                     x=tree_from_numpy(x, device, dtype),
+                     u=tree_from_numpy(u, device, dtype),
+                     s=tree_from_numpy(s, device, dtype))
+    return sim, state
+
+
+def msn_nav_pass_args(sim, st):
+    """The arguments of `msn_nav_ctl_laws` at a sensor-fed mission state
+    `st`: the estimates its plain navigation pass makes there
+    (`kernels.nav_pass_plain` on the plain truth, `nav_pass_args`; the
+    MSN_NAV_Y fields with the truth's engine state), the mission's
+    avionics, inputs and state and the systems' inputs."""
+    from flightjax_torch.parallel import kernels as K
+    _, y = K.nav_pass_plain(*nav_pass_args(sim, st))
+    eng = st.s["vehicle"]["systems"]["pwp"]["engine"]["state"]
+    return (sim.system.aircraft.avionics.inner, dict(y, eng_state=eng),
+            st.u["avionics"]["inner"], st.s["avionics"]["inner"],
+            sim.periodic_dt, st.u["vehicle"]["systems"])
+
+
+def msn_nav_laws_args(batch, seed, device, dtype, ground_lanes=(),
+                      dt=0.02):
+    """The wrapper arguments of `msn_nav_ctl_laws` (avionics, y, u, s, dt,
+    u_sys): `msn_laws_args`'s mode-rich traffic pattern with its final leg
+    ended by the radar gate on h_o (`final_done_agl`) in place of the
+    height over the runway's end, and the MSN_NAV_Y rows: h_o drawn, and on
+    the lanes around the final's switch on the other side of the radar gate
+    than h_e is of the old gate, so that a pass reading h_e fails."""
+    from flightjax_torch.core.mission import Phase
+    from flightjax_torch.models.c172 import missions as M
+    avionics, y, u, s_av, dt, u_sys = msn_laws_args(
+        batch, seed, device, dtype, ground_lanes, dt)
+    legs = M.lows_pattern()
+    lib = M.mission_phase_lib(legs)
+    phases = list(avionics.phases)
+    final = phases[M.FINAL]
+    phases[M.FINAL] = Phase(final.name, final.apply, lib["final_done_agl"],
+                            final.systems)
+    avionics = M.mission_avionics(phases, device=device, dtype=dtype)
+    rng = np.random.default_rng(seed + 9)
+    h_o = rng.uniform(M.H_LOWS15 - 2.0, M.H_LOWS15 + 300.0, batch)
+    h_end = float(legs["final"].h_e2)
+    h_e = y["h_e"].cpu().double().numpy()
+    for k in range(batch):
+        if int(s_av["phase"][k]) == M.FINAL:
+            above = h_e[k] - h_end >= M.FINAL_DH
+            h_o[k] = M.H_LOWS15 + (FINAL_SIDES[1] if above
+                                   else FINAL_SIDES[0])
+    y = dict(y, h_o=torch.tensor(h_o, dtype=dtype, device=device))
+    return avionics, y, u, s_av, dt, u_sys
+
+
+def _nav_fleet(sim, st, batch, seeds):
+    from flightjax_torch.parallel import fleet
+    st = fleet.broadcast_state(st, batch)
+    av_u = dict(st.u["avionics"])
+    av_u["sens"] = dict(av_u["sens"], seed=torch.as_tensor(
+        seeds, dtype=torch.int32).to(st.t.device))
+    return sim, sim.with_compensation(st._replace(u=dict(st.u,
+                                                         avionics=av_u)))
+
+
+def landing_nav_fleet_sim(batch, device, dtype):
+    """(sim, SimState) of the sensor-fed crosswind landing on `batch` lanes
+    (`tests/test_missions.py:157-205` on a fleet): the trim 1500 m up the
+    final under the 6 m/s crosswind (`missions.landing_nav_state`), lane k's
+    sensor stream seeded 100 + k as JAX's fleet test seeds its lanes;
+    `missions.mission_nav_sim`, the position compensated in sub-float64
+    dtypes."""
+    from flightjax_torch.models.c172 import missions as M
+    sim = M.mission_nav_sim(M.crosswind_landing_nav_phases(), device=device,
+                            dtype=dtype)
+    return _nav_fleet(sim, M.landing_nav_state(dtype, device), batch,
+                      100 + np.arange(batch))
+
+
+def takeoff_nav_fleet_sim(batch, device, dtype):
+    """(sim, SimState) of the sensor-fed takeoff on `batch` lanes
+    (`tests/test_missions.py:254-300`, `c172_demos.py:485-532`): parked on
+    the threshold, aligned cold once on the parked truth that every lane
+    shares (`missions.runway_nav_state`), lane k's sensor stream seeded
+    k."""
+    from flightjax_torch.models.c172 import missions as M
+    sim = M.mission_nav_sim(M.takeoff_nav_phases(), device=device,
+                            dtype=dtype)
+    return _nav_fleet(sim, M.runway_nav_state(dtype, device), batch,
+                      np.arange(batch))
+
+
+def msn_nav_fleet_sim(batch, device, dtype):
+    """(sim, SimState) of both sensor-fed missions in one fleet
+    (`msn_nav_phases`): the first half of the lanes the crosswind landing
+    (`landing_nav_fleet_sim`'s start, seeds 100 + k), the second half the
+    takeoff (`takeoff_nav_fleet_sim`'s, seeds k, in the standby phase), at
+    step 0; the position compensated in sub-float64 dtypes."""
+    from flightjax_torch.bridge import tree_to_numpy
+    from flightjax_torch.models.c172 import missions as M
+    F = torch.float64
+    phases = msn_nav_phases()
+    one = [tree_to_numpy(st) for st in (
+        M.landing_nav_state(F, "cpu", phases),
+        M.runway_nav_state(F, "cpu", phases))]
+    lane = np.arange(batch)
+    pick = lane >= batch // 2
+    t, i, x, u, s = pick_lanes(*one, pick)
+    s["avionics"]["inner"]["phase"][pick] = TAKEOFF_NAV0
+    u["avionics"]["sens"]["seed"] = np.where(
+        pick, lane - batch // 2, lane + 100).astype(np.int32)
+    sim = M.mission_nav_sim(phases, device=device, dtype=dtype)
+    state = SimState(t=torch.tensor(t, dtype=dtype, device=device),
+                     i=torch.tensor(i, dtype=torch.int32, device=device),
+                     x=tree_from_numpy(x, device, dtype),
+                     u=tree_from_numpy(u, device, dtype),
+                     s=tree_from_numpy(s, device, dtype))
+    return sim, sim.with_compensation(state)
+
+
+def msn_gate_lanes(sim, st):
+    """The lanes of a sensor-fed mission's state `st` that stand at its
+    radar gate (`nav_hold`): in a phase the gate ends (MD_AGL) or the one
+    after it, their true height over the runway within NAV_NEAR_AGL of the
+    gate."""
+    from flightjax_torch.models.c172 import missions as M
+    phases = sim.system.aircraft.avionics.inner.phases
+    ph = st.s["avionics"]["inner"]["phase"].long()
+    h_o = (st.x["vehicle"]["kinematics"]["h_e"]
+           - st.s["vehicle"]["geoid_N"]).double()
+    out = torch.zeros_like(ph, dtype=torch.bool)
+    for k, p in enumerate(phases):
+        if getattr(p.done, "kind", None) == M.MD_AGL:
+            near = ((h_o - p.done.values["value"] - M.FINAL_DH).abs()
+                    <= NAV_NEAR_AGL)
+            out = out | (((ph == k) | (ph == k + 1)) & near)
+    return out

@@ -483,6 +483,36 @@ void host_nav_pass(const double* in, const int* i_in, const double* gains,
       (const SD*)in, i_in, (const SD*)gains, table, (SD*)work,
       (SD*)outs[i / (lanes)], i_out, B))
 }
+// the sensor-fed missions' instances: the megakernel on megakernel_gdc_nav's
+// signature, the mission's pass on the estimates as msn_nav_ctl_laws, and
+// nav_pass's instance that also writes the estimated h_o
+void host_megakernel_msn_nav(const double* in, const int* i_in,
+                             const double* p, const double* grid,
+                             const double* gains, const float* table,
+                             double* work, double* const* outs, int* i_out,
+                             int B, int n_params, double dt, double t_start,
+                             int comp, int spp, double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW, SD,
+                                         k_megakernel::AV_MSN_NAV>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt, table, (SD*)work))
+}
+void host_msn_nav_ctl_laws(const double* in, const double* gains,
+                           double* const* outs, int B, double dt, int lanes) {
+  BLOCKS(2, lanes, k_ctl_laws::msn_ctl_laws_kernel<SD, fj::MSN_NAV_KIND>(
+      (const SD*)in, (const SD*)gains, (SD*)outs[i / (lanes)], B, SD(dt)))
+}
+void host_nav_pass_msn_nav(const double* in, const int* i_in,
+                           const double* gains, const float* table,
+                           double* work, double* const* outs, int* i_out,
+                           int B, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_nav_pass::nav_pass_kernel<SD, fj::MSN_NAV_KIND>(
+             (const SD*)in, i_in, (const SD*)gains, table, (SD*)work,
+             (SD*)outs[i / (lanes)], i_out, B))
+}
 int host_nav_rows(int k) {
   const int v[6] = {fj::N_NAVU, fj::N_NAVS, fj::N_NAVI, fj::N_NAVT,
                     fj::N_WORK, fj::N_NAVP};
@@ -1792,8 +1822,10 @@ def _nav_table(u_av, s_av):
 def _run_nav_pass(host_lib, args, lanes, split=False):
     """nav_pass's source on the wrapper's arguments, block by block at
     `lanes` aircraft per block: its packed output (one per role with
-    `split`, NaN where the role wrote nothing) and int32 rows."""
+    `split`, NaN where the role wrote nothing) and int32 rows; around a
+    mission its instance that also writes the h_o row."""
     buf, n_out, _, ops = K.pack_nav_pass(*args)
+    msn = n_out == K.rows(K.NAV_OUT_MSN)
     batch = buf.shape[1]
     n_roles = host_lib.host_n_roles()
     outs = [torch.full((n_out, batch), float("nan"), dtype=torch.float64)
@@ -1804,10 +1836,10 @@ def _run_nav_pass(host_lib, args, lanes, split=False):
                       dtype=torch.float64)
     i_out = torch.full_like(ops["ints"], -1)
     table = _nav_table(*args[4:])
-    host_lib.host_nav_pass(_ptr(buf), _ptr(ops["ints"]), _ptr(ops["gains"]),
-                           _ptr(table), _ptr(work), ptrs,
-                           _ptr(i_out), ctypes.c_int(batch),
-                           ctypes.c_int(lanes))
+    fn = host_lib.host_nav_pass_msn_nav if msn else host_lib.host_nav_pass
+    fn(_ptr(buf), _ptr(ops["ints"]), _ptr(ops["gains"]), _ptr(table),
+       _ptr(work), ptrs, _ptr(i_out), ctypes.c_int(batch),
+       ctypes.c_int(lanes))
     return (outs if split else outs[0]), i_out
 
 
@@ -1860,17 +1892,23 @@ def test_nav_pass_roles_partition_the_output(host_lib):
 
 
 def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
-                        by_role=False, gdc=False):
+                        by_role=False, gdc=False, msn=False):
     """megakernel_nav (megakernel_nav_turb with `turb`) on the mode-rich
     navigation operands with their pass every `spp` steps; as
     `_run_megakernel_fbw`. With `gdc` megakernel_gdc_nav on the calm
     sensor-fed C172Xv2's (the mode-rich control laws and guidance
-    too)."""
+    too), with `msn` megakernel_msn_nav on the sensor-fed missions'
+    (`testing.msn_nav_operand_state`)."""
     from flightjax_torch.parallel.megakernel import make_megakernel_step
-    from flightjax_torch.testing import nav_operand_state
-    sim, st = nav_operand_state(batch, 1016, "cpu", torch.float64,
-                                turbulence=turb, setting=setting, spp=spp,
-                                gdc=gdc)
+    from flightjax_torch.testing import (msn_nav_operand_state,
+                                         nav_operand_state)
+    if msn:
+        sim, st = msn_nav_operand_state(batch, 1016, "cpu", torch.float64,
+                                        setting=setting, spp=spp)
+    else:
+        sim, st = nav_operand_state(batch, 1016, "cpu", torch.float64,
+                                    turbulence=turb, setting=setting,
+                                    spp=spp, gdc=gdc)
     bufs, _, unpack = make_megakernel_step(sim, st)
     aircraft = sim.system.aircraft
     params = K.system_params(aircraft.vehicle)
@@ -1883,8 +1921,9 @@ def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
     work = torch.full((host_lib.host_nav_rows(4), batch), float("nan"),
                       dtype=torch.float64)
     table = _nav_table(st.u["avionics"], st.s["avionics"])
-    turb_arg = () if gdc else (ctypes.c_int(int(turb)),)
-    getattr(host_lib, "host_megakernel_" + ("gdc_nav" if gdc else "nav"))(
+    turb_arg = () if gdc or msn else (ctypes.c_int(int(turb)),)
+    getattr(host_lib, "host_megakernel_" + (
+        "msn_nav" if msn else "gdc_nav" if gdc else "nav"))(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), _ptr(table), _ptr(work),
@@ -2006,3 +2045,132 @@ def test_nav_rows_match_the_kernels(host_lib):
             K.rows((K.NAV_T,)), L.N_NAV_WORK,
             len(K.nav_param_values(sim.system.aircraft.avionics)))
     assert tuple(host_lib.host_nav_rows(k) for k in range(6)) == want
+
+
+# ------------------------------------------------------------ the sensor-fed
+# missions
+
+def _msn_nav_fleet_args(batch):
+    """msn_nav_ctl_laws' arguments on the estimates of the sensor-fed
+    mission operands (`testing.msn_nav_operand_state`, `msn_nav_pass_args`:
+    their plain navigation pass's GDC_Y fields and h_o, the truth's engine
+    state)."""
+    from flightjax_torch.testing import (msn_nav_operand_state,
+                                         msn_nav_pass_args)
+    return msn_nav_pass_args(*msn_nav_operand_state(batch, 1016, "cpu",
+                                                    torch.float64))
+
+
+MSN_NAV_CASES = [("rich", B, 32), ("rich", 37, 32), ("rich", 70, 64),
+                 ("fleet", B, 32), ("fleet", 37, 64)]
+
+
+@pytest.mark.parametrize(
+    "operands,batch,lanes", MSN_NAV_CASES,
+    ids=[f"{o}-B{b}-L{n}" for o, b, n in MSN_NAV_CASES])
+def test_msn_nav_ctl_laws_source_matches_plain(host_lib, batch, lanes,
+                                               operands):
+    """msn_nav_ctl_laws against `msn_nav_ctl_laws_plain` to 1e-12, phases,
+    modes and flags exactly: on the mode-rich mission operands with the
+    final leg ended by the radar gate on h_o (`testing.msn_nav_laws_args`:
+    h_o either side of the gate, on the other side from h_e's of the old
+    gate) and on the estimates of the sensor-fed mission operands."""
+    from flightjax_torch.testing import msn_nav_laws_args
+    args = (msn_nav_laws_args(batch, 1016, "cpu", torch.float64, (21, 22))
+            if operands == "rich" else _msn_nav_fleet_args(batch))
+    got = K.unpack_out("msn_nav_ctl_laws",
+                       _run_ctl_laws(host_lib, args, lanes,
+                                     name="msn_nav_ctl_laws"))
+    ref = K.msn_nav_ctl_laws_plain(*args)
+    _assert_trees_close(got, ref)
+    moved = ref[0]["phase"] != args[3]["phase"]
+    assert bool(moved.any()) and bool((~moved).any())
+
+
+def test_msn_nav_ctl_laws_sides_partition_the_output(host_lib):
+    """Every output row of msn_nav_ctl_laws is written by exactly one of
+    its two sides, for every aircraft."""
+    from flightjax_torch.testing import msn_nav_laws_args
+    outs = _run_ctl_laws(host_lib, msn_nav_laws_args(
+        B, 1016, "cpu", torch.float64, (21, 22)), 32, by_side=True,
+        name="msn_nav_ctl_laws")
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+@pytest.mark.parametrize("setting", ["default", "shadow"])
+def test_nav_pass_msn_nav_source_matches_plain(host_lib, setting):
+    """nav_pass's mission instance against `nav_pass_plain` on the
+    sensor-fed mission operands: the GDC_Y fields, the new state and the
+    orthometric height the radar gate reads (the estimate: terrain plus the
+    radar return where it is valid, the filter's altitude less the
+    undulation where not; the truth's in shadow mode)."""
+    from flightjax_torch.testing import msn_nav_operand_state, nav_pass_args
+    sim, st = msn_nav_operand_state(B, 1016, "cpu", torch.float64,
+                                    setting=setting)
+    args = nav_pass_args(sim, st)
+    out, ints = _run_nav_pass(host_lib, args, 32)
+    assert out.shape[0] == K.rows(K.NAV_OUT_MSN)
+    got = K.unpack_out("nav_pass", out, ints=ints)
+    ref = K.nav_pass_plain(*args)
+    _assert_trees_close(got, ref)
+    _assert_p_close(got[0]["nav"].P, ref[0]["nav"].P)
+    truth = args[1].kinematics.h_o
+    off = (got[1]["h_o"] - truth).abs()
+    if setting == "shadow":
+        assert float(off.max()) == 0.0
+    else:  # the out-of-range lanes read the filter, 2.5 m off the truth
+        assert float(off.max()) > 2.0
+
+
+MSN_NAV_MEGA_CASES = [(1, "default", B, 32), (2, "default", B, 32),
+                      (1, "shadow", B, 32), (1, "immediate", B, 32),
+                      (1, "default", 37, 32), (1, "default", 70, 64)]
+
+
+@pytest.mark.parametrize(
+    "spp,setting,batch,lanes", MSN_NAV_MEGA_CASES,
+    ids=[f"spp{p}-{s}-B{b}-L{n}" for p, s, b, n in MSN_NAV_MEGA_CASES])
+def test_megakernel_msn_nav_source_matches_plain(host_lib, spp, setting,
+                                                 batch, lanes):
+    """megakernel_msn_nav against `megakernel_step_plain` on the sensor-fed
+    mission operands: the step, the truth at the new state, the navigation
+    pass, then the phase machine (its radar gate on the estimated h_o), the
+    guidance and the control laws on the estimates (on the truth in shadow
+    mode) and the phases' systems inputs; every leaf within TOL, P per
+    lane against its largest entry, the integers and the phases exactly.
+    The out-of-range lane flares on its filter's altitude, 2.5 m under a
+    truth above the gate: a phase machine reading the truth's h_o would
+    not match."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    from flightjax_torch.testing import NAV_FINAL
+    sim, st, got = _run_megakernel_nav(host_lib, batch, lanes, False, spp,
+                                       setting, msn=True)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    _assert_p_close(got.s["avionics"]["nav"].P, ref.s["avionics"]["nav"].P)
+    fired = (st.i + 1) % spp == 0
+    n0 = st.s["avionics"]["sens"]["n"]
+    assert torch.equal(got.s["avionics"]["sens"]["n"],
+                       torch.where(fired, n0 + 1, n0))
+    ph0 = st.s["avionics"]["inner"]["phase"]
+    moved = ref.s["avionics"]["inner"]["phase"] != ph0
+    assert bool((moved & (ph0 == NAV_FINAL)).any())
+    assert not bool(moved[~fired].any())
+
+
+def test_megakernel_msn_nav_roles_partition_the_output(host_lib):
+    """Every row of megakernel_msn_nav's new state buffer (the phase
+    machine's, the overridden systems inputs, the navigation avionics'
+    inputs and state among them) is written by exactly one role, for every
+    aircraft."""
+    _, _, outs = _run_megakernel_nav(host_lib, B, 32, False, by_role=True,
+                                     msn=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]

@@ -26,7 +26,11 @@ navigation fleet's three paths a few steps. The C172Xv2's last instances:
 megakernel_gdc_turb and megakernel_msn_turb a few steps on the turbulent
 operands with the mode-rich guidance (and every phase), megakernel_gdc_nav
 one step on the sensor-fed C172Xv2's mode-rich operands in every
-navigation setting, as `testing.nav_hold` says.
+navigation setting, as `testing.nav_hold` says. The sensor-fed missions:
+msn_nav_ctl_laws exactly on the mode-rich mission operands and the fleet's
+estimates, megakernel_msn_nav and nav_pass's mission instance one step on
+the sensor-fed mission operands in every setting, as `testing.nav_hold`
+says.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1127,6 +1131,83 @@ def test_megakernel_gdc_nav_matches_plain_on_card(setting, lanes, dtype):
     nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
              ref.s["avionics"], sim.system.aircraft.avionics,
              "megakernel_gdc_nav")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("operands", ["mode-rich", "fleet"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_msn_nav_ctl_laws_matches_plain_on_card(operands, lanes, dtype, tol):
+    """msn_nav_ctl_laws against `msn_nav_ctl_laws_plain` at B, float64 to
+    1e-12 and float32 exactly, phases and modes exactly: on the mode-rich
+    mission operands whose final leg ends at the radar gate
+    (`testing.msn_nav_laws_args`) and on the estimates of the two-mission
+    fleet (`testing.msn_nav_fleet_sim`, its plain navigation pass)."""
+    from flightjax_torch.testing import (msn_nav_fleet_sim,
+                                         msn_nav_laws_args,
+                                         msn_nav_pass_args)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if operands == "mode-rich":
+        args = msn_nav_laws_args(B, 1016, "cuda", dtype, (3, 77))
+    else:
+        args = msn_nav_pass_args(*msn_nav_fleet_sim(B, "cuda", dtype))
+    from flightjax_torch.parallel import launch as L
+    buf, n_out, scal, ops = K.PACK["msn_nav_ctl_laws"](*args)
+    got = K.unpack_out("msn_nav_ctl_laws", L.launch(
+        "msn_nav_ctl_laws", buf, n_out, scal, block=lanes, **ops))
+    ref = K.msn_nav_ctl_laws_plain(*args)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        _assert_same(got, ref)
+    else:
+        assert _worst(got, ref) <= tol
+        for (p, a), (_, b) in zip(tree_leaves_with_path(got),
+                                  tree_leaves_with_path(ref)):
+            assert a.dtype.is_floating_point or torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("setting", ["default", "radar", "shadow",
+                                     "synthetic", "perturb", "immediate"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_msn_nav_matches_plain_on_card(setting, lanes, dtype):
+    """megakernel_msn_nav and nav_pass's mission instance, one step on the
+    sensor-fed mission operands at B (`testing.msn_nav_operand_state`:
+    each phase of both missions, lanes either side of the radar gate, the
+    radar out of range, a latched radar monitor) under each setting,
+    against their plain versions, held as `testing.nav_hold` says (the
+    phases exactly but, in float32, on lanes at the radar gate)."""
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (msn_gate_lanes,
+                                         msn_nav_operand_state, nav_hold,
+                                         nav_pass_args, nav_reference)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = msn_nav_operand_state(B, 1016, "cuda", dtype, setting=setting)
+    nav = sim.system.aircraft.avionics
+    args = nav_pass_args(sim, st)
+    ref = K.nav_pass_plain(*args)
+    ref_c = nav_reference(sim, dtype, lambda s_, a: K.nav_pass_plain(
+        s_.system.aircraft.avionics, *a), args[1:])
+    got = K.nav_pass(*args, block=lanes)
+    torch.cuda.synchronize()
+    nav_hold(dtype, got, ref, ref_c, got[0], ref[0], nav, "nav_pass")
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "megakernel_msn_nav": 1}
+    ref = megakernel_step_plain(sim, st)
+    ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
+             ref.s["avionics"], nav, "megakernel_msn_nav",
+             msn_gate_lanes(sim, ref) | msn_gate_lanes(sim, got))
 
 
 @pytest.mark.cuda

@@ -193,12 +193,14 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
                          fbw_vehicle(device="cpu", dtype=torch.float64),
                          "cpu", torch.float64, adt=ADT, dt=DT)
     from flightjax_torch.testing import (ctl_laws_args, gdc_laws_args,
-                                         msn_laws_args)
+                                         msn_laws_args, msn_nav_laws_args)
     ctl = {"ctl_laws": ctl_laws_args(B, SEED, "cpu", torch.float64, (1,)),
            "gdc_ctl_laws": gdc_laws_args(B, SEED, "cpu", torch.float64,
                                          (1,)),
            "msn_ctl_laws": msn_laws_args(B, SEED, "cpu", torch.float64,
-                                         (1,))}
+                                         (1,)),
+           "msn_nav_ctl_laws": msn_nav_laws_args(B, SEED, "cpu",
+                                                 torch.float64, (1,))}
     turb = {K.TURB.names[k]: a for k, a in turb_operand_args(
         turb_operands(B, SEED, CONTACT_LANES, (TERMINATED_LANE,)),
         build_vehicle(device="cpu", dtype=torch.float64,
@@ -214,7 +216,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
     mega = {"megakernel", "megakernel_fbw", "megakernel_gdc",
             "megakernel_msn", "megakernel_turb", "megakernel_fbw_turb",
             "megakernel_nav", "megakernel_nav_turb", "megakernel_gdc_turb",
-            "megakernel_msn_turb", "megakernel_gdc_nav"}
+            "megakernel_msn_turb", "megakernel_gdc_nav",
+            "megakernel_msn_nav"}
     turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS,
                                                       *turbs, "nav_pass"}
@@ -244,7 +247,7 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         "megakernel_msn", "msn_ctl_laws", *TURB_KERNELS,
         *FBW_TURB_KERNELS, "nav_pass", "megakernel_nav",
         "megakernel_nav_turb", "megakernel_gdc_nav", "megakernel_gdc_turb",
-        "megakernel_msn_turb")}
+        "megakernel_msn_turb", "megakernel_msn_nav", "msn_nav_ctl_laws")}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

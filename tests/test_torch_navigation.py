@@ -765,12 +765,14 @@ def test_refusals_and_layouts(nav_fleet):
     navigation avionics' splits (their pass `nav_pass`, then the inner
     laws' kernel) and their megakernel around the C172Xv1's control laws
     (`megakernel_nav_turb`, calm `megakernel_nav`), around the calm
-    C172Xv2's guidance and control laws (`megakernel_gdc_nav`), and the
-    turbulent C172Xv2's and a mission's megakernels (`megakernel_gdc_turb`,
-    `megakernel_msn_turb`); they refuse the navigation megakernel around
-    the turbulent C172Xv2 (`build_xv2_nav(turbulence=)`), an `Actuator2`
-    channel and a sensor-fed mission, each naming its ROADMAP item; the
-    sensors' epoch must count the firings from step 0."""
+    C172Xv2's guidance and control laws (`megakernel_gdc_nav`), around a
+    mission over them (`megakernel_msn_nav`, its splits' pass
+    `msn_nav_ctl_laws`), and the turbulent C172Xv2's and a mission's
+    megakernels (`megakernel_gdc_turb`, `megakernel_msn_turb`); they refuse
+    the navigation megakernel around the turbulent C172Xv2
+    (`build_xv2_nav(turbulence=)`) and an `Actuator2` channel, each naming
+    its ROADMAP item; the sensors' epoch must count the firings from step
+    0."""
     sim, np_state = nav_fleet
     st = _port_state(np_state)
     veh = sim.system.aircraft.vehicle
@@ -817,8 +819,10 @@ def test_refusals_and_layouts(nav_fleet):
     msn = MissionAvionics(Avionics(device="cpu", dtype=F64),
                           traffic_pattern_phases())
     sensor_fed = TN.NavAvionics(msn, dt=DT, device="cpu", dtype=F64)
-    with pytest.raises(NotImplementedError, match="sensor-fed missions"):
-        K.avionics_layout(veh, sensor_fed)
+    calm_veh = calm.vehicle
+    lay = K.avionics_layout(calm_veh, sensor_fed)
+    assert lay is K.MSN_NAV and K.MSN_NAV.mega_name == "megakernel_msn_nav"
+    assert lay.pass_name == "msn_nav_ctl_laws" and K.mega_refusal(lay) is None
     shifted = st._replace(i=st.i + 1)
     with pytest.raises(ValueError, match="sensor epoch"):
         sim.fleet_step(shifted, i=I0 + 1)

@@ -20,12 +20,15 @@ the flat terrain at LOWS elevation (`flightjax/demos/c172_demos.py`), which
   landing (EAS 30 m/s, -3 deg, full flaps, half fuel; `:396-401`);
 - `c172x_lows_runway.npz`: the cold aircraft on the runway 15 threshold of
   the traffic pattern (`kin_init` + `world.init(fuel=0.5)`, `:572-579`),
-  which no trim made (`trim_state` empty, `trim_rnorm` NaN).
+  which no trim made (`trim_state` empty, `trim_rnorm` NaN);
+- `c172x_lows_final_nav_trim.npz`: the trim of the sensor-fed landing,
+  1500 m up the final leg (`_landing_nav_rig` of
+  `tests/test_missions.py:238-251`, `c172_demos.py:467-478`).
 
 Run from the repository root, with the names of the files to write (all
-three by default):
+four by default):
 
-    python tools/export_torch_c172x.py [xv1] [landing] [runway]
+    python tools/export_torch_c172x.py [xv1] [landing] [runway] [landing_nav]
 """
 
 import os
@@ -49,7 +52,8 @@ DATA = os.path.join(ROOT, "flightjax_torch", "data")
 OUT = os.path.join(DATA, "c172xv1_trim.npz")
 FILES = {"xv1": OUT,
          "landing": os.path.join(DATA, "c172x_lows_final_trim.npz"),
-         "runway": os.path.join(DATA, "c172x_lows_runway.npz")}
+         "runway": os.path.join(DATA, "c172x_lows_runway.npz"),
+         "landing_nav": os.path.join(DATA, "c172x_lows_final_nav_trim.npz")}
 
 
 def save(path, x, u, s, ts, rnorm):
@@ -86,6 +90,23 @@ def landing():
     return c172x.trim(lows_vehicle(), tp)
 
 
+def landing_nav(s_togo=1500.0):
+    """The trim of `c172_demos.crosswind_landing_nav`: `s_togo` m up the
+    final leg, on its heading and slope."""
+    from flightjax.demos import c172_demos as D
+    from flightjax.models.c172 import c172x_gdc as GDC
+    legs = D._lows_pattern()
+    seg_up = GDC.segment_from_vector(D.LAT_LOWS15, D.LON_LOWS15,
+                                     float(legs["final"].h_e2),
+                                     D.PSI_LOWS15 + np.pi, float(s_togo),
+                                     gamma=np.deg2rad(3))
+    lat1, lon1 = (float(v) for v in GDC.segment_latlon(seg_up.n_e2))
+    tp = C172.trim_parameters(lat=lat1, lon=lon1, h=float(seg_up.h_e2),
+                              psi_nb=D.PSI_LOWS15, EAS=30.0,
+                              gamma=-np.deg2rad(3), flaps=1.0, fuel_load=0.5)
+    return c172x.trim(lows_vehicle(), tp)
+
+
 def runway():
     """The cold start of `c172_demos.traffic_pattern` (no trim)."""
     from flightjax.demos import c172_demos as D
@@ -106,7 +127,8 @@ def main(names):
             vehicle = c172x.build_xv1("wa").vehicle
             out = c172x.trim(vehicle, C172.trim_parameters())
         else:
-            out = {"landing": landing, "runway": runway}[name]()
+            out = {"landing": landing, "runway": runway,
+                   "landing_nav": landing_nav}[name]()
         save(FILES[name], *out)
 
 

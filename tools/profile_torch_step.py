@@ -17,7 +17,9 @@ time goes, by kernel, and how much of the step the device is idle.
                                          xv2_turb_megakernel,msn_turb_fleet,
                                          msn_turb_vehicle,
                                          msn_turb_megakernel,xv2_nav_fleet,
-                                         xv2_nav_vehicle,xv2_nav_megakernel]
+                                         xv2_nav_vehicle,xv2_nav_megakernel,
+                                         msn_nav_fleet,msn_nav_vehicle,
+                                         msn_nav_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -61,7 +63,11 @@ rk4_stage_fbw_turb x 4, rk4_finish_fbw_turb and the pass kernel;
 guidance over the filter's solution) `xv2_nav_fleet`, `xv2_nav_vehicle`
 (rk4_stage_fbw x 4, rk4_finish_fbw, the `systems_fbw` truth, `nav_pass`,
 `gdc_ctl_laws`, `geoid` every step) and `xv2_nav_megakernel`
-(`megakernel_gdc_nav`).
+(`megakernel_gdc_nav`); and the sensor-fed missions
+(`testing.msn_nav_fleet_sim`: half the lanes on the radar-gated landing,
+half on the cold-start takeoff) `msn_nav_fleet`, `msn_nav_vehicle`
+(`nav_pass`'s mission instance, then `msn_nav_ctl_laws`) and
+`msn_nav_megakernel` (`megakernel_msn_nav`).
 For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
@@ -92,10 +98,11 @@ PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "sensor_fed_megakernel", "xv2_turb_fleet", "xv2_turb_vehicle",
          "xv2_turb_megakernel", "msn_turb_fleet", "msn_turb_vehicle",
          "msn_turb_megakernel", "xv2_nav_fleet", "xv2_nav_vehicle",
-         "xv2_nav_megakernel")
+         "xv2_nav_megakernel", "msn_nav_fleet", "msn_nav_vehicle",
+         "msn_nav_megakernel")
 # the fleets of the paths' prefixes, the longer first
-PREFIXES = ("xv1_turb_", "xv2_turb_", "msn_turb_", "xv2_nav_", "xv1_",
-            "xv2_", "msn_", "turb_", "nav_", "sensor_fed_")
+PREFIXES = ("xv1_turb_", "xv2_turb_", "msn_turb_", "xv2_nav_", "msn_nav_",
+            "xv1_", "xv2_", "msn_", "turb_", "nav_", "sensor_fed_")
 
 
 def device_us(evt):
@@ -184,6 +191,7 @@ def main():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
     from flightjax_torch.testing import (loiter_fleet_sim, msn_fleet_sim,
+                                         msn_nav_fleet_sim,
                                          msn_turb_fleet_sim, nav_fleet_sim,
                                          perturbed_fleet_sim,
                                          sensor_fed_fleet_sim, turb_study_sim,
@@ -208,6 +216,7 @@ def main():
                     "xv2_turb": xv2_turb_fleet_sim,
                     "msn_turb": msn_turb_fleet_sim,
                     "xv2_nav": lambda b, _, d, t: loiter_fleet_sim(b, d, t),
+                    "msn_nav": lambda b, _, d, t: msn_nav_fleet_sim(b, d, t),
                     "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]

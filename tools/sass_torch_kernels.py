@@ -18,7 +18,8 @@ not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
 every instance (the C172S kernels, the fly-by-wire instances, the
 C172X megakernels and passes, the mission's, the turbulent C172S's, the
 turbulent C172Xv1's and the sensor-fed C172Xv1's instances; the turbulent
-and sensor-fed C172Xv2's since they were ported), recorded
+and sensor-fed C172Xv2's and the sensor-fed missions' since they were
+ported), recorded
 with the nvcc of an H100 machine; `chip_smoke.py` checks it. A change that means to change the machine code
 of a recorded instance records the file anew from its own build
 (`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
@@ -41,7 +42,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # fly-by-wire), its float type,
 # the megakernel's avionics (absent before their templating; 2 the C172Xv2's
 # guidance, 3 a mission, 4 the navigation avionics, AV_NAV, 5 the
-# navigation avionics around the guidance, AV_GDC_NAV)
+# navigation avionics around the guidance, AV_GDC_NAV, 6 around a mission,
+# AV_MSN_NAV; the sensor-fed missions' msn_ctl_laws and nav_pass instances
+# carry the 6 too)
 KERNEL = re.compile(r"_Z\d+(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictI([fd])EE"
                     r"(?:Li(\d)E)?")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
@@ -56,7 +59,12 @@ def kernel_name(name, act, av):
     names), `name_gdc_turb` and `name_msn_turb` (the turbulent C172Xv2 and
     a mission on it), `name_nav` and `name_nav_turb` (the sensor-fed
     C172Xv1, calm and turbulent, avionics 4), `name_gdc_nav` (the calm
-    sensor-fed C172Xv2, avionics 5)."""
+    sensor-fed C172Xv2, avionics 5), `megakernel_msn_nav`,
+    `msn_nav_ctl_laws` and `nav_pass_msn_nav` (the sensor-fed missions,
+    avionics 6)."""
+    if av == "6":
+        return ("msn_nav_ctl_laws" if name == "msn_ctl_laws"
+                else name + "_msn_nav")
     if av == "5":
         return name + "_gdc_nav"
     if av == "4":
