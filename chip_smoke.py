@@ -5,8 +5,8 @@ the C172Xv2 guidance's three, the scripted missions' three, the
 turbulent Monte Carlo fleet's three, the sensor-fed navigation fleet's
 four, the sensor-fed autopilot fleet's megakernel, the C172Xv2's last
 three megakernels (in turbulence, a mission on it, the loiter on
-estimates) and the sensor-fed missions' three; exit non-zero if any phase
-fails.
+estimates), the sensor-fed missions' three and the sensor-fed C172Xv2's
+and missions' six in turbulence; exit non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -89,7 +89,18 @@ The paths, each an entry point a user calls:
   navigation pass's mission instance of `nav_pass`, then
   `msn_nav_ctl_laws`, the phase machine, guidance and control laws on the
   estimates) and through `megakernel_msn_nav`; and the two missions each
-  on B lanes through `megakernel_msn_nav` to their JAX tests' ends.
+  on B lanes through `megakernel_msn_nav` to their JAX tests' ends;
+- `xv2_nav_turb_fleet`, `xv2_nav_turb_vehicle`, `xv2_nav_turb_megakernel`:
+  the loiter on estimates in Dryden turbulence (`testing.
+  turb_loiter_fleet_sim`: W20 = 10 m/s on every lane, lane k's sensor and
+  turbulence streams seeded k) through `Simulation.fleet_step` and the
+  vehicle split (`rk4_stage_fbw_turb` x 4, `rk4_finish_fbw_turb`, the
+  `systems_fbw` truth, `nav_pass`, `gdc_ctl_laws`, `geoid` every step) and
+  through `megakernel_gdc_nav_turb`; `msn_nav_turb_fleet`,
+  `msn_nav_turb_vehicle`, `msn_nav_turb_megakernel`: the two sensor-fed
+  missions in turbulence (`testing.msn_nav_fleet_sim(turbulence=True)`)
+  alike, `msn_nav_ctl_laws` the splits' pass, through
+  `megakernel_msn_nav_turb`.
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
@@ -274,8 +285,9 @@ Phases:
    envelope; the loiter on estimates at B for its 60 s through
    `megakernel_gdc_nav`, every lane held to the JAX test's assertions (not
    terminated, altitude within 10 m, the final radial error under 0.7 of
-   the start's, no GPS or baro alarm at a save), its first LOITER_WINDOW
-   steps held to the float64 plain step as the navigation fleet's; the
+   the start's, no GPS or baro alarm at a save) and the fleet to the JAX
+   package's own float32 run of the same lanes (`tools/jax_loiter.json`,
+   LOITER_MATCH), its first LOITER_WINDOW steps held to the float64 plain step as the navigation fleet's; the
    instances' times (the loiter's on and off an aiding epoch), bounds,
    launches and the paths' graphed profiles.
 
@@ -309,6 +321,24 @@ Phases:
    the same lanes (`tools/jax_takeoff_nav.json`); the two instances'
    times (the megakernel's on and off an aiding epoch), bounds, launches
    and the megakernel path's graphed profile.
+
+10. the sensor-fed C172Xv2 and missions in turbulence:
+   `megakernel_gdc_nav_turb` and `megakernel_msn_nav_turb` against their
+   plain versions in float64 and float32 at 32 and 64 aircraft per block,
+   on the turbulent mode-rich operands (`testing.nav_operand_state(
+   turbulence=True, gdc=True)`, `msn_nav_operand_state(turbulence=True)`)
+   in each navigation setting once (NAV_TURB_CASES, the pass every step
+   and every other step) and on their fleets at the first GPS epoch, as
+   `testing.nav_hold` holds them (around the missions with
+   `testing.msn_gate_lanes`), the turbulence's counters exactly; the six
+   paths NAV_TURB_STEPS steps in float32 from their launch counts set to
+   0, held to the float64 plain step as phase 9's; the turbulent loiter
+   on estimates at B for its 60 s through `megakernel_gdc_nav_turb`, held
+   to the JAX package's own float32 run of the same lanes
+   (`tools/jax_loiter_turb.json`, LOITER_MATCH), as phase 8's calm loiter
+   is held to `tools/jax_loiter.json`; the instances' times on and off an
+   aiding epoch, bounds, launches and the megakernel paths' graphed
+   profiles.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
@@ -484,6 +514,14 @@ KERNELS = {
     "msn_nav_ctl_laws": ("flightjax_torch/csrc/ctl_laws.cu",
                          "flightjax/parallel/megakernel.py:43",
                          "msn_nav_vehicle"),
+    # the sensor-fed C172Xv2 and missions in Dryden turbulence: the
+    # megakernel's instances with the turbulence and the navigation pass
+    "megakernel_gdc_nav_turb": (
+        "flightjax_torch/csrc/megakernel_gdc_nav_turb.cu",
+        "flightjax/parallel/megakernel.py:43", "xv2_nav_turb_megakernel"),
+    "megakernel_msn_nav_turb": (
+        "flightjax_torch/csrc/megakernel_msn_nav_turb.cu",
+        "flightjax/parallel/megakernel.py:43", "msn_nav_turb_megakernel"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
@@ -495,7 +533,8 @@ NAV_NAMES = ("rk4_stage_fbw_turb", "rk4_finish_fbw_turb",
              "megakernel_nav")
 XV2_LAST_NAMES = ("megakernel_gdc_turb", "megakernel_msn_turb",
                   "megakernel_gdc_nav", "megakernel_msn_nav",
-                  "msn_nav_ctl_laws")
+                  "msn_nav_ctl_laws", "megakernel_gdc_nav_turb",
+                  "megakernel_msn_nav_turb")
 LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
     "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES
@@ -565,6 +604,18 @@ XV2_NAV_SETTINGS = {torch.float64: ("default", "radar", "synthetic",
                                     "immediate"),
                     torch.float32: ("default", "shadow", "perturb")}
 LOITER_WINDOW = 5
+# the JAX package's own float32 runs of the loiter on estimates at B, calm
+# and in turbulence at W20 = 10 m/s (tools/jax_loiter.py; the same lanes,
+# seeds and start): the p50 and p95 of the final |e_cb|, of the largest
+# |h_e - h0| and of the final-to-start ratio held within LOITER_MATCH[0]
+# relative or LOITER_MATCH[1] m, the lanes failing an assertion of the JAX
+# test within LOITER_MATCH[2] lanes of the JAX run's count (exactly none
+# where it has none)
+JAX_LOITER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tools", "jax_loiter.json")
+JAX_LOITER_TURB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tools", "jax_loiter_turb.json")
+LOITER_MATCH = (0.02, 0.5, 4)
 # the sensor-fed missions: the paths' window against plain, the navigation
 # settings of the mode-rich checks (each once, the default in both
 # dtypes), the landing's 100 s and the takeoff's 80 s (their JAX tests'
@@ -575,6 +626,20 @@ MSN_NAV_SETTINGS = {torch.float64: ("default", "radar", "immediate"),
                     torch.float32: ("default", "shadow", "synthetic",
                                     "perturb")}
 LANDING_NAV_STEPS, TAKEOFF_NAV_STEPS, TAKEOFF_NAV_EVERY = 5000, 4000, 10
+# the sensor-fed C172Xv2 and missions in Dryden turbulence: the paths of
+# the turbulent loiter on estimates (`testing.turb_loiter_fleet_sim`) and
+# of the two missions in turbulence (`testing.msn_nav_fleet_sim(
+# turbulence=True)`), held to the float64 plain step over NAV_TURB_STEPS
+# steps; the mode-rich checks' (setting, steps per pass) in each dtype,
+# each navigation setting once
+NAV_TURB_PATHS = ("xv2_nav_turb_fleet", "xv2_nav_turb_vehicle",
+                  "xv2_nav_turb_megakernel", "msn_nav_turb_fleet",
+                  "msn_nav_turb_vehicle", "msn_nav_turb_megakernel")
+NAV_TURB_STEPS = 10
+NAV_TURB_CASES = {torch.float64: (("default", 1), ("radar", 2),
+                                  ("immediate", 1)),
+                  torch.float32: (("default", 1), ("shadow", 2),
+                                  ("synthetic", 1), ("perturb", 1))}
 # the landing's touchdown looked for every this many steps
 LANDING_NAV_EVERY = 5
 # the JAX package's own run of the takeoff at B (tools/jax_takeoff_nav.py):
@@ -2820,20 +2885,34 @@ def nav_phase(card, t_start, check, errs, regs, sizes):
     return rows
 
 
-def loiter_flight(card, sim, st0, orbit, launches):
-    """The loiter on estimates at B through megakernel_gdc_nav in float32
-    for LOITER_STEPS steps, its launches counted from 0 (the kernels
-    line's count), held on every lane to the JAX test's assertions
-    (`tests/test_navigation.py:276-327`): not terminated, altitude within
-    10 m of the start's, the final radial error under 0.7 of the start's,
-    no GPS or baro alarm at any of the saves (every LOITER_SAVE_EVERY
-    steps). Returns the state after LOITER_WINDOW steps, for the window
-    against plain."""
+def loiter_flight(card, sim, st0, orbit, launches, name="megakernel_gdc_nav",
+                  label=XV2_NAV_PATH, jax_path=JAX_LOITER):
+    """The loiter on estimates at B through `name` in float32 for
+    LOITER_STEPS steps, its launches counted from 0 (the kernels line's
+    count), held to the JAX package's own float32 run of the same fleet
+    (`tools/jax_loiter.py`, its JSON `jax_path`): every lane to each of the
+    JAX test's assertions (`tests/test_navigation.py:276-327`: not
+    terminated, altitude within 10 m of the start's at the end, the final
+    radial error under 0.7 of the start's, no GPS alarm, of the position
+    or the velocity monitor, and no baro alarm at any of the saves, every
+    LOITER_SAVE_EVERY steps) that the JAX run meets on every lane, and
+    where it does not, the lanes failing it within LOITER_MATCH[2] of the
+    JAX run's count; the p50 and p95 of the final |e_cb|, of the largest
+    |h_e - h0| at the saves and of the ratio of the final |e_cb| to the
+    start's within LOITER_MATCH[0] of the JAX run's, relative, or
+    LOITER_MATCH[1] m (the ratio: that over the start's |e_cb|). Returns
+    the state after LOITER_WINDOW steps, for the window against plain."""
+    import numpy as np
     from flightjax_torch.models.c172.c172x_gdc import Circle, circle_data
     from flightjax_torch.ops.geodesy import nvector_from_qew
     from flightjax_torch.parallel import kernels as K
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     from flightjax_torch.testing import LOITER_STEPS
+    with open(jax_path) as fh:
+        jref = json.load(fh)
+    if jref["lanes"] != B or jref["t_end"] != LOITER_STEPS * 0.02:
+        raise AssertionError(f"{jax_path} holds {jref['lanes']} lanes, "
+                             f"{jref['t_end']} s")
     crc = Circle(*(v.expand(B, *v.shape).contiguous() for v in orbit))
 
     def e_cb(st):
@@ -2843,7 +2922,9 @@ def loiter_flight(card, sim, st0, orbit, launches):
     h0 = st0.x["vehicle"]["kinematics"]["h_e"].double()
     d0 = e_cb(st0)
     bufs, step_packed, unpack = make_megakernel_step(sim, st0)
-    alarm = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    alarm = {k: torch.zeros(B, dtype=torch.bool, device=DEVICE)
+             for k in ("gps", "baro")}
+    dh = torch.zeros(B, dtype=torch.float64, device=DEVICE)
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.time()
@@ -2853,41 +2934,81 @@ def loiter_flight(card, sim, st0, orbit, launches):
         if k == LOITER_WINDOW:
             window = unpack(bufs)
         if k % LOITER_SAVE_EVERY == 0:
-            s_av = unpack(bufs).s["avionics"]
-            alarm |= s_av["mon_gps"]["alarm"] | s_av["mon_baro"]["alarm"]
+            st = unpack(bufs)
+            s_av = st.s["avionics"]
+            alarm["gps"] |= s_av["mon_gps"]["alarm"] | s_av["mon_vel"][
+                "alarm"]
+            alarm["baro"] |= s_av["mon_baro"]["alarm"]
+            dh = torch.maximum(dh, (st.x["vehicle"]["kinematics"][
+                "h_e"].double() - h0).abs())
     torch.cuda.synchronize()
     wall = time.time() - t0
     got = {k: v for k, v in K.LAUNCHES.items() if v}
-    if got != {"megakernel_gdc_nav": LOITER_STEPS}:
-        raise AssertionError(f"{XV2_NAV_PATH}: launches {got}")
-    launches["megakernel_gdc_nav"] = LOITER_STEPS
+    if got != {name: LOITER_STEPS}:
+        raise AssertionError(f"{label}: launches {got}")
+    launches[name] = LOITER_STEPS
     out = unpack(bufs)
     for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
         if val.dtype.is_floating_point and not bool(
                 torch.isfinite(val).all()):
-            raise AssertionError(f"{XV2_NAV_PATH}: non-finite leaf {p}")
-    dh = (out.x["vehicle"]["kinematics"]["h_e"].double() - h0).abs()
+            raise AssertionError(f"{label}: non-finite leaf {p}")
+    dh_end = (out.x["vehicle"]["kinematics"]["h_e"].double() - h0).abs()
     d1 = e_cb(out)
     fails = {"terminated": out.s["terminated"].bool(),
-             "|h_e - h0| >= 10 m": dh >= 10.0,
+             "|h_e - h0| >= 10 m": dh_end >= 10.0,
              "|e_cb| >= 0.7 |e_cb(0)|": d1.abs() >= 0.7 * d0.abs(),
-             "a GPS or baro alarm": alarm}
+             "a GPS or baro alarm": alarm["gps"] | alarm["baro"]}
     q = lambda v: [round(float(x), 3) for x in torch.quantile(
         v, torch.tensor([0.0, 0.5, 0.95, 1.0], device=DEVICE,
                         dtype=torch.float64))]
-    log(f"{XV2_NAV_PATH}: the loiter on estimates, B = {B}, "
-        f"{LOITER_STEPS} steps (60 s) through megakernel_gdc_nav in "
-        f"{wall:.2f} s wall, {B * LOITER_STEPS / wall:.0f} vehicle-steps/s;"
-        f" e_cb at the start {q(d0)} m, at the end (min, median, p95, max "
-        f"of |e_cb|) {q(d1.abs())} m, |h_e - h0| {q(dh)} m; lanes failing "
-        f"the JAX test's assertions: "
+    log(f"{label}: the loiter on estimates (W20 = {jref['W20']} m/s), B = "
+        f"{B}, {LOITER_STEPS} steps (60 s) through {name} in {wall:.2f} s "
+        f"wall, {B * LOITER_STEPS / wall:.0f} vehicle-steps/s; e_cb at the "
+        f"start {q(d0)} m, at the end (min, median, p95, max of |e_cb|) "
+        f"{q(d1.abs())} m, largest |h_e - h0| at the saves {q(dh)} m; lanes "
+        f"failing the JAX test's assertions: "
         + ", ".join(f"{k} {int(v.sum())}" for k, v in fails.items())
-        + f" [{card}]")
-    bad = torch.stack(list(fails.values())).any(dim=0)
-    if bool(bad.any()):
-        raise AssertionError(f"{XV2_NAV_PATH}: {int(bad.sum())} of {B} lanes "
-                             f"fail the JAX test's assertions (lanes "
-                             f"{bad.nonzero().flatten()[:16].tolist()})")
+        + f" (the JAX run's {jref['test_fails']}) [{card}]")
+    # against the JAX package's own run of the same lanes
+    e1 = d1.abs().cpu().numpy()
+    d = {"e_cb_end": e1, "dh_max": dh.cpu().numpy(),
+         "e_cb_ratio": e1 / d0.abs().cpu().numpy()}
+    rel, abs_m, n_lanes = LOITER_MATCH
+    far = {}
+    for key, v in d.items():
+        tol_abs = abs_m / (jref["e_cb_start"]["p50"]
+                           if key == "e_cb_ratio" else 1.0)
+        for qk, pct in (("p50", 50.0), ("p95", 95.0)):
+            g, r = float(np.percentile(v, pct)), jref[key][qk]
+            if abs(g - r) > max(rel * abs(r), tol_abs):
+                far[f"{key} {qk}"] = (g, r)
+    ja = {k: np.asarray(jref[k + "_m"]) for k in ("e_cb_end", "dh_max")}
+    near = {k: float((np.abs(d[k] - ja[k]) <= abs_m).mean()) for k in ja}
+    counts = {k: (int(v.sum()), jref["test_fails"][k])
+              for k, v in fails.items()}
+    log(f"{label} against the JAX package's own run of the same lanes "
+        f"({os.path.basename(jax_path)}): final |e_cb| p50 "
+        f"{np.percentile(e1, 50.0):.4f} / {jref['e_cb_end']['p50']:.4f}, p95 "
+        f"{np.percentile(e1, 95.0):.4f} / {jref['e_cb_end']['p95']:.4f} m; "
+        f"largest |h_e - h0| p50 {np.percentile(d['dh_max'], 50.0):.4f} / "
+        f"{jref['dh_max']['p50']:.4f}, p95 "
+        f"{np.percentile(d['dh_max'], 95.0):.4f} / "
+        f"{jref['dh_max']['p95']:.4f} m; ratio p50 "
+        f"{np.percentile(d['e_cb_ratio'], 50.0):.6f} / "
+        f"{jref['e_cb_ratio']['p50']:.6f}, p95 "
+        f"{np.percentile(d['e_cb_ratio'], 95.0):.6f} / "
+        f"{jref['e_cb_ratio']['p95']:.6f} (within {rel:.0%} or {abs_m} m); "
+        f"lane 0 final |e_cb| {e1[0]:.3f} / {jref['lane0']['e_cb_end']:.3f} "
+        f"m; lanes within {abs_m} m of the JAX run's: final |e_cb| "
+        f"{near['e_cb_end']:.4f}, largest |h_e - h0| {near['dh_max']:.4f}; "
+        f"lanes failing each assertion (port, JAX) {counts}; GPS alarms "
+        f"{int(alarm['gps'].sum())} / {jref['gps_alarm_lanes']}, baro "
+        f"{int(alarm['baro'].sum())} / {jref['baro_alarm_lanes']} [{card}]")
+    bad = {k: c for k, c in counts.items()
+           if (c[0] if c[1] == 0 else abs(c[0] - c[1]) > n_lanes)}
+    if far or bad:
+        raise AssertionError(f"{label}: outside the JAX run's bounds {far},"
+                             f" assertion counts {bad}")
     return window
 
 
@@ -3630,6 +3751,252 @@ def msn_nav_phase(card, t_start, check, errs, regs, sizes):
         wrapper_ms=cuda_ms(lambda: K.msn_nav_ctl_laws(*args)),
         block_ms=blocks, launches_per_step=1))
     log("the sensor-fed missions' profile: " + json.dumps(pr))
+    return rows
+
+
+def nav_turb_phase(card, t_start, check, errs, regs, sizes):
+    """The sensor-fed C172Xv2 and missions in Dryden turbulence:
+    megakernel_gdc_nav_turb and megakernel_msn_nav_turb against their plain
+    versions in float64 and float32 at 32 and 64 aircraft per block, on
+    their mode-rich operands in each navigation setting once
+    (NAV_TURB_CASES, the pass every step and every other step) and on
+    their fleets at the first GPS epoch, as `testing.nav_hold` holds them
+    (around the missions with `testing.msn_gate_lanes`); the six paths
+    NAV_TURB_STEPS steps in float32 from their launch counts set to 0,
+    held to the float64 plain step as the sensor-fed missions' are; the
+    turbulent loiter on estimates at B for its 60 s through
+    megakernel_gdc_nav_turb, held to the JAX package's own run
+    (`tools/jax_loiter_turb.json`); the instances' times on and off an
+    aiding epoch, bounds and launches and the megakernel paths' profiles.
+    Returns the two instances' rows of the kernels line."""
+    from flightjax_torch.ops.random import normal_table
+    from flightjax_torch.parallel import fleet as F
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (NAV_SPREAD, msn_gate_lanes,
+                                         msn_nav_fleet_sim,
+                                         msn_nav_operand_state, nav_hold,
+                                         nav_operand_state, nav_reference,
+                                         turb_loiter_fleet_sim)
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed C172Xv2 and "
+        f"missions in turbulence: kernel checks)")
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+
+    def fleet_of(avk, dtype):
+        if avk == "gdc":
+            return turb_loiter_fleet_sim(B, DEVICE, dtype)[:2]
+        return msn_nav_fleet_sim(B, DEVICE, dtype, turbulence=True)
+
+    def gates(avk, sim, *states):
+        if avk != "msn":
+            return None
+        out = msn_gate_lanes(sim, states[0])
+        for st in states[1:]:
+            out = out | msn_gate_lanes(sim, st)
+        return out
+
+    for dtype in (torch.float64, torch.float32):
+        for avk in ("gdc", "msn"):
+            name = f"megakernel_{avk}_nav_turb"
+            cases = []
+            for setting, spp in NAV_TURB_CASES[dtype]:
+                if avk == "gdc":
+                    sim, st = nav_operand_state(
+                        B, SEED, DEVICE, dtype, turbulence=True,
+                        setting=setting, spp=spp, gdc=True)
+                else:
+                    sim, st = msn_nav_operand_state(
+                        B, SEED, DEVICE, dtype, setting=setting, spp=spp,
+                        turbulence=True)
+                cases.append((f"mode-rich, {setting}, pass every {spp}",
+                              sim, st))
+            fsim, fst = fleet_of(avk, dtype)
+            cases.append(("fleet, first GPS epoch", fsim, nav_at_epoch(fst)))
+            for what, sim, st in cases:
+                ref = megakernel_step_plain(sim, st)
+                ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+                for lanes in (32, 64):
+                    bufs, step_packed, unpack = make_megakernel_step(
+                        sim, st, block=lanes)
+                    got = unpack(step_packed(bufs))
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got.i, ref.i) and torch.equal(
+                            got.s["vehicle"]["turb"]["n"],
+                            ref.s["vehicle"]["turb"]["n"])):
+                        raise AssertionError(f"{name}: counters")
+                    nav_held(name, dtype, tr(got), tr(ref), tr(ref_c),
+                             got.s["avionics"], ref.s["avionics"],
+                             sim.system.aircraft.avionics,
+                             f" ({what}, block {lanes})", errs,
+                             gates(avk, sim, ref, got))
+            del cases, fsim, fst, ref, ref_c, got
+
+    # the six paths, from their launch counts set to 0, against the
+    # float64 plain step (one plain run for fleet_step and the megakernel,
+    # which compensate, one for the vehicle split)
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed C172Xv2 and "
+        f"missions in turbulence: paths)")
+    launches = {}
+    env = [e * NAV_TURB_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL,
+                                               ENV_ATT_RAD, ENV_EAS)]
+
+    def plain_steps(mega, sim_, st, n=NAV_TURB_STEPS):
+        for k in range(n):
+            st = (megakernel_step_plain(sim_, st) if mega else vehicle_step(
+                sim_, st, k, plain=True))
+        return st
+    fleets = {}
+    for avk, pre in (("gdc", "xv2_nav_turb"), ("msn", "msn_nav_turb")):
+        sim, st0 = fleets[avk] = fleet_of(avk, torch.float32)
+        laws = "gdc_ctl_laws" if avk == "gdc" else "msn_nav_ctl_laws"
+        split = dict(rk4_stage_fbw_turb=4, rk4_finish_fbw_turb=1,
+                     systems_fbw=1, geoid=1, nav_pass=1, **{laws: 1})
+        refs, twins = {}, {}
+        for label in (pre + "_fleet", pre + "_vehicle", pre + "_megakernel"):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.time()
+            mega = not label.endswith("_vehicle")
+            if label.endswith("_megakernel"):
+                bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+                for _ in range(NAV_TURB_STEPS):
+                    bufs = step_packed(bufs)
+                out = unpack(bufs)
+                want = {f"megakernel_{avk}_nav_turb": NAV_TURB_STEPS}
+            else:
+                if label.endswith("_fleet"):
+                    out = F.fleet_rollout(sim, st0, NAV_TURB_STEPS)
+                else:
+                    step = make_cluster_step(sim, st0, split="vehicle")
+                    out = st0
+                    for k in range(NAV_TURB_STEPS):
+                        out = step(out, i=k)
+                want = {k: v * NAV_TURB_STEPS for k, v in split.items()}
+            torch.cuda.synchronize()
+            got = {k: v for k, v in K.LAUNCHES.items() if v}
+            log(f"{label}: {NAV_TURB_STEPS} steps x {B} aircraft in "
+                f"{time.time() - t0:.2f} s (first run); launches {got}")
+            if got != want:
+                raise AssertionError(f"{label}: launch counts {got} != "
+                                     f"{want}")
+            if label.endswith("_megakernel"):
+                launches.update(got)
+            for p, val in leaves({"x": out.x, "s": out.s, "u": out.u}):
+                if val.dtype.is_floating_point and not bool(
+                        torch.isfinite(val).all()):
+                    raise AssertionError(f"{label}: non-finite leaf {p}")
+            if bool(out.s["terminated"].any()):
+                raise AssertionError(f"{label}: a lane terminated")
+            if mega not in refs:
+                K.reset_launches()
+                refs[mega] = plain_steps(mega, sim, st0)
+                torch.cuda.synchronize()
+                if any(K.LAUNCHES.values()):
+                    raise AssertionError(f"{label}: plain run launched a "
+                                         f"kernel")
+                twins[mega] = nav_reference(sim, torch.float32, lambda s_, x: (
+                    plain_steps(mega, s_, x)), st0)
+            ref, twin = refs[mega], twins[mega]
+            p_err, n_bad, n_far, worst = nav_hold(
+                torch.float32, tr(out), tr(ref), tr(twin), out.s["avionics"],
+                ref.s["avionics"], sim.system.aircraft.avionics, label,
+                gates(avk, sim, ref, out))
+            d_k, d_p = compare_runs(out, twin), compare_runs(ref, twin)
+            lim = [max(NAV_SPREAD * p_, e) for p_, e in zip(d_p, env)]
+            top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+            log(f"{label} after {NAV_TURB_STEPS} steps on the estimates "
+                f"(f32), kernels / plain vs the float64 plain step: position "
+                f"{d_k[0]:.3e} / {d_p[0]:.3e} m (limit {lim[0]:.3g}), "
+                f"velocity {d_k[1]:.3e} / {d_p[1]:.3e} m/s (limit "
+                f"{lim[1]:.3g}), attitude {d_k[2]:.3e} / {d_p[2]:.3e} rad "
+                f"(limit {lim[2]:.3g}), EAS {d_k[3]:.3e} / {d_p[3]:.3e} m/s "
+                f"(limit {lim[3]:.3g}); P per lane {p_err:.3e}; integers, "
+                f"flags and phases differ on {n_bad} lanes ({n_bad - n_far} "
+                f"at a gate); the worst leaves (error, limit) "
+                + ", ".join(f"{k_} {e:.2e} ({l_:.1e})"
+                            for k_, (e, l_) in top))
+            if not all(v_ <= l_ for v_, l_ in zip(d_k, lim)):
+                raise AssertionError(f"{label}: the kernels' run is further "
+                                     f"from the float64 step than the plain "
+                                     f"run's limit")
+        del refs, twins, out, ref, twin
+
+    # the turbulent loiter on estimates: its 60 s on every lane, against
+    # the JAX package's own run of the same fleet
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed C172Xv2 and "
+        f"missions in turbulence: the turbulent loiter on estimates)")
+    lsim, lst0, orbit = turb_loiter_fleet_sim(B, DEVICE, torch.float32)
+    loiter_flight(card, lsim, lst0, orbit, launches,
+                  name="megakernel_gdc_nav_turb",
+                  label="xv2_nav_turb_megakernel", jax_path=JAX_LOITER_TURB)
+    del lsim, lst0
+
+    # timings: each instance on its fleet at the first GPS epoch (every
+    # lane aiding) and off an aiding epoch; the megakernel paths' profiles
+    log(f"elapsed {time.time() - t_start:.1f} s (the sensor-fed C172Xv2 and "
+        f"missions in turbulence: timings)")
+    rows, profiles = [], {}
+    table = normal_table(DEVICE)
+    for avk, label in (("gdc", "xv2_nav_turb_megakernel"),
+                       ("msn", "msn_nav_turb_megakernel")):
+        name = f"megakernel_{avk}_nav_turb"
+        sim, st0 = fleets[avk]
+        st = nav_at_epoch(st0)
+        av = sim.system.aircraft.avionics
+        veh = sim.system.aircraft.vehicle
+        bufs, step_packed, unpack = make_megakernel_step(sim, st)
+        params, grid, gains = (K.system_params(veh), K.geoid_grid(veh.geoid),
+                               K.ctl_gains(av))
+
+        def bare(lanes=None, b_=bufs, sim=sim, params=params, grid=grid,
+                 gains=gains, comp=st.c is not None, msn=avk == "msn"):
+            return L.launch_megakernel(
+                b_[0], b_[1], params, grid, sim.dt, sim.t_start, comp, lanes,
+                gains, sim.steps_per_periodic, sim.periodic_dt, gdc=not msn,
+                msn=msn, turb=True, table=table)
+        new = unpack(step_packed(bufs))
+        plain = lambda sim=sim, st=st: megakernel_step_plain(sim, st)
+        inner = new.s["avionics"]["inner"]
+        ctl = inner["inner"]["ctl"] if avk == "msn" else inner["ctl"]
+        n_elems = (2 * (bufs[0].numel() + bufs[1].numel()) + params.numel()
+                   + geoid_cells(veh.geoid,
+                                 new.x["vehicle"]["kinematics"]["q_ew"])
+                   + gain_values(av, eas(new),
+                                 new.x["vehicle"]["kinematics"]["h_e"],
+                                 ctl["lon"]["mode_prev"],
+                                 ctl["lat"]["mode_prev"])
+                   + 29 * B + len(K.nav_param_values(av)))
+        if avk == "msn":
+            n_elems += len(K.mission_table_values(av.inner))
+        row = dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1], launches=launches[name],
+            max_abs_err=errs[name], ms=graph_ms(bare),
+            plain_ms=cuda_ms(plain, reps=1, calls=1, warm=1),
+            nbytes=4 * n_elems, ops=count_ops(plain, matmul=True),
+            library_ms=None, event_ms=cuda_ms(bare),
+            wrapper_ms=cuda_ms(lambda: step_packed(bufs)),
+            block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
+            launches_per_step=1, share=1.0)
+        off = make_megakernel_step(sim, nav_at_epoch(st0, 10))[0]
+        row["off_epoch_ms"] = graph_ms(lambda: bare(b_=off))
+        log(f"time {name}: {row['off_epoch_ms']:.4f} ms off an aiding "
+            f"epoch, {row['ms']:.4f} ms on one [{card}]")
+        rows.append(row)
+        pr = graph_profile(label, name, step_packed, bufs, bare)
+        profiles[label] = pr
+        log(f"profile {label}: B = {B}, f32: host "
+            f"{pr['host_ms_per_step']:.4f} ms/step, device "
+            f"{pr['device_ms_per_step']:.4f} ms/step, idle share "
+            f"{pr['idle_share']:.4f}, {B / pr['host_ms_per_step'] * 1e3:.0f} "
+            f"vehicle-steps/s [{card}]")
+        del bufs, off, new
+    log("the sensor-fed C172Xv2's and missions' turbulent profiles: "
+        + json.dumps(profiles))
     return rows
 
 
@@ -4494,6 +4861,9 @@ def main():
     # the sensor-fed missions: the radar-gated landing and the cold-start
     # takeoff on the navigation avionics' estimates
     rows += msn_nav_phase(card, t_start, check, errs, regs, sizes)
+    # the sensor-fed C172Xv2 and missions in turbulence: the turbulent
+    # loiter on estimates and the two missions in gusts
+    rows += nav_turb_phase(card, t_start, check, errs, regs, sizes)
 
     reader.join()
     if "error" in sass:

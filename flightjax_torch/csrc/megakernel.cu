@@ -151,6 +151,16 @@
 // on y_est; its radar gate (MD_AGL) reads the estimated h_o. Its gains hold
 // the filter's constants (slot 0 after the gain tables) and the mission
 // table (slot 1).
+//
+// The sensor-fed C172Xv2's and missions' turbulent instances
+// (megakernel_gdc_nav_turb, megakernel_msn_nav_turb: ACT_FBW_TURB with
+// AV_GDC_NAV or AV_MSN_NAV, the C172Xv2 of build_xv2_nav(turbulence=) and
+// a mission flown on it) compose megakernel_gdc_turb's (megakernel_msn_turb's)
+// rows and turbulence with the navigation rows and pass of
+// megakernel_gdc_nav (megakernel_msn_nav), as megakernel_nav_turb composes
+// them on the C172Xv1: the IMU's derivative at the new state reads the gust
+// at the new time, and the int32 operand holds the turbulence's three rows
+// before NAV_INT. Each is built in a translation unit of its own.
 #include "c172x_msn.cuh"
 #include "nav.cuh"
 #include "turbulence.cuh"
@@ -777,13 +787,23 @@ void vehicle_fbw_layout(int* n_x, int* n_ctx, int* n_c, int* n_mega) {
 // megakernel_msn_nav.cu define FJ_NAV_ACT, the ActKind, FJ_NAV_NAME, the
 // instance's name, and, around the guidance, FJ_NAV_AVK AV_GDC_NAV or
 // around a mission AV_MSN_NAV (default AV_NAV), and include this
-// file), so that nvcc builds them beside this one: the fly-by-wire
-// signature with the normal table and the work buffer of nav.cuh; i the
-// int32 rows (i, then NAV_INT; turbulent: i, seed, n, then NAV_INT), the
-// gains with the filter's parameter block
+// file; megakernel_gdc_nav_turb.cu and megakernel_msn_nav_turb.cu the same
+// kinds on ACT_FBW_TURB), so that nvcc builds them beside this one: the
+// fly-by-wire signature with the normal table and the work buffer of
+// nav.cuh; i the int32 rows (i, then NAV_INT; turbulent: i, seed, n, then
+// NAV_INT), the gains with the filter's parameter block
 #ifndef FJ_NAV_AVK
 #define FJ_NAV_AVK AV_NAV
 #endif
+// the scratch at the most aircraft per block in float64, beside a copy of
+// the parameters (3605 values for the turbulent fly-by-wire C172X,
+// kernels.system_params; PARAMS_ROOM leaves room to grow), fits the
+// H100's 227 KiB of shared memory a block may take
+constexpr int PARAMS_ROOM = 4096, SHARED_PER_BLOCK = 227 * 1024;
+static_assert((MegaL<FJ_NAV_ACT, FJ_NAV_AVK>::SH_ROWS * MAX_LANES +
+               PARAMS_ROOM) * (int)sizeof(double) <= SHARED_PER_BLOCK,
+              "the navigation instance's scratch outgrows a block's shared "
+              "memory at MAX_LANES aircraft");
 #define FJ_CAT2(a, b) a##b
 #define FJ_CAT(a, b) FJ_CAT2(a, b)
 #define NAV_INSTANCE(NAME, T)                                               \

@@ -292,18 +292,21 @@ def c172xv2_sim(device="cuda", dtype=torch.float32, turbulence=None):
     return sim, sim.with_compensation(state), ()
 
 
-def c172xv2_nav_sim(device="cuda", dtype=torch.float32):
+def c172xv2_nav_sim(device="cuda", dtype=torch.float32, turbulence=None):
     """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv2 on its
     navigation avionics (`build_xv2_nav`: the guidance and control laws on
     the filter's estimates), in the form of `c172xv1_nav_sim`: dt =
-    periodic_dt = 0.02 s, the sensors and filter at 50 Hz, the geoid
-    refreshed every step, Kahan-compensated position in float32; the start
-    `trimmed_xv2_state` (the laws bumpless, the filter aligned at the trim,
-    the guidance not engaged). `engage_guidance` engages the guidance."""
-    world = SimpleWorld(build_xv2_nav(device=device, dtype=dtype))
+    periodic_dt = 0.02 s, the sensors and filter at 50 Hz, in Dryden
+    `turbulence` if given (trimmed without the gusts, the state holding the
+    turbulence's initial trees), the geoid refreshed every step,
+    Kahan-compensated position in float32; the start `trimmed_xv2_state`
+    (the laws bumpless, the filter aligned at the trim, the guidance not
+    engaged). `engage_guidance` engages the guidance."""
+    kw = {} if turbulence is None else {"turbulence": turbulence}
+    world = SimpleWorld(build_xv2_nav(device=device, dtype=dtype, **kw))
     sim = Simulation(world, dt=0.02, periodic_dt=0.02)
     state = trimmed_xv2_state(sim.periodic_dt, dtype, device,
-                              build=build_xv2_nav)
+                              build=build_xv2_nav, turbulence=turbulence)
     return sim, sim.with_compensation(state), ()
 
 

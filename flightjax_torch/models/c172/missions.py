@@ -412,31 +412,37 @@ def mission_nav_avionics(phases, gains=None, *, dt=0.02, nav_kw=None,
 
 
 def mission_nav_aircraft(phases, gains=None, *, dt=0.02, nav_kw=None,
-                         device, dtype):
+                         device, dtype, turbulence=None):
+    """The sensor-fed mission's aircraft over the runway-elevation terrain,
+    in Dryden `turbulence` if given (as `mission_aircraft` takes it)."""
     vehicle = c172x.build_vehicle(device=device, dtype=dtype,
                                   terrain=HorizontalTerrain(
-                                      H_LOWS15, device=device, dtype=dtype))
+                                      H_LOWS15, device=device, dtype=dtype),
+                                  turbulence=turbulence)
     return Aircraft(vehicle, avionics=mission_nav_avionics(
         phases, gains, dt=dt, nav_kw=nav_kw, device=device, dtype=dtype))
 
 
 def mission_nav_world(phases, gains=None, *, dt=0.02, nav_kw=None, device,
-                      dtype):
-    """`_mission_world_nav` (`c172_demos.py:413-429`)."""
+                      dtype, turbulence=None):
+    """`_mission_world_nav` (`c172_demos.py:413-429`), on
+    `build_vehicle(turbulence=)` if `turbulence` is given."""
     return SimpleWorld(mission_nav_aircraft(phases, gains, dt=dt,
                                             nav_kw=nav_kw, device=device,
-                                            dtype=dtype))
+                                            dtype=dtype,
+                                            turbulence=turbulence))
 
 
 def mission_nav_sim(phases, gains=None, *, dt=0.02, nav_kw=None,
-                    device="cuda", dtype=torch.float32):
+                    device="cuda", dtype=torch.float32, turbulence=None):
     """The Simulation of the sensor-fed mission world as the demos fly it:
     dt = periodic_dt (the sensors' and the filter's rate), the geoid
     refreshed every step (the Simulation's default), the position
-    Kahan-compensated in sub-float64 dtypes (`with_compensation`). The
-    entry points default to the card."""
+    Kahan-compensated in sub-float64 dtypes (`with_compensation`), in
+    Dryden `turbulence` if given. The entry points default to the card."""
     return Simulation(mission_nav_world(phases, gains, dt=dt, nav_kw=nav_kw,
-                                        device=device, dtype=dtype),
+                                        device=device, dtype=dtype,
+                                        turbulence=turbulence),
                       dt=dt, periodic_dt=dt)
 
 
@@ -449,7 +455,8 @@ def _with_seed(state, seed):
 
 
 def landing_nav_state(dtype, device, phases=None, *, s_togo=1500.0,
-                      wind_E=6.0, seed=0, nav_kw=None, dt=0.02):
+                      wind_E=6.0, seed=0, nav_kw=None, dt=0.02,
+                      turbulence=None):
     """One aircraft of the sensor-fed landing (`c172_demos.py:467-482`):
     the trim `s_togo` m up the final leg (EAS 30 m/s, -3 deg, full flaps,
     half fuel; the state `tools/export_torch_c172x.py landing_nav` writes,
@@ -457,7 +464,8 @@ def landing_nav_state(dtype, device, phases=None, *, s_togo=1500.0,
     init_from_trim` (the phase machine in its first phase at clock 0, the
     filter aligned at the trim), an easterly wind of `wind_E` m/s, the
     sensors' stream seeded `seed`; `phases` default
-    `crosswind_landing_nav_phases()`."""
+    `crosswind_landing_nav_phases()`; in Dryden `turbulence` if given (the
+    trim without the gusts, the turbulence's initial trees)."""
     if abs(float(s_togo) - LANDING_NAV_S_TOGO) > 1e-9:
         raise ValueError(f"the sensor-fed landing's trim is stored at "
                          f"s_togo = {LANDING_NAV_S_TOGO} m, not {s_togo}")
@@ -465,7 +473,8 @@ def landing_nav_state(dtype, device, phases=None, *, s_togo=1500.0,
     st = c172x.trimmed_xv1_state(
         dt, dtype, device, path=LANDING_NAV_NPZ,
         build=lambda **kw: mission_nav_aircraft(phases, dt=dt, nav_kw=nav_kw,
-                                                **kw))
+                                                **kw),
+        turbulence=turbulence)
     uv = st.u["vehicle"]
     atm = dict(uv["atm"], wind=torch.tensor([0.0, float(wind_E), 0.0],
                                             dtype=dtype, device=device))
@@ -474,7 +483,7 @@ def landing_nav_state(dtype, device, phases=None, *, s_togo=1500.0,
 
 
 def runway_nav_state(dtype, device, phases=None, *, seed=0, nav_kw=None,
-                     dt=0.02):
+                     dt=0.02, turbulence=None):
     """One aircraft of the sensor-fed takeoff (`c172_demos.py:520-527`):
     cold on the runway 15 threshold (`runway_state`'s vehicle), the
     navigation avionics as built (the phase machine in its first phase at
@@ -483,14 +492,20 @@ def runway_nav_state(dtype, device, phases=None, *, seed=0, nav_kw=None,
     `takeoff_nav_phases()`. A fleet of such aircraft shares the parked
     truth, so one alignment serves every lane and `seed` may be a per-lane
     array after `fleet.broadcast_state` (the seed is the only input of the
-    alignment that differs)."""
+    alignment that differs). In Dryden `turbulence` if given, the state
+    holding its initial trees."""
     phases = takeoff_nav_phases() if phases is None else phases
     x, u, s, _, _ = c172x.load_xv1_state(RUNWAY_NPZ)
     air = mission_nav_aircraft(phases, dt=dt, nav_kw=nav_kw, device="cpu",
-                               dtype=dtype)
+                               dtype=dtype, turbulence=turbulence)
     one = lambda tree: tree_from_numpy(
         tree_map(lambda l: np.asarray(l)[None], tree), "cpu", dtype)
     xv, uv, sv = (one(t["vehicle"]) for t in (x, u, s))
+    if turbulence is not None:
+        like = xv["kinematics"]["h_e"]
+        xv["turb"] = turbulence.init_x(like)
+        uv["turb"] = turbulence.init_u(like)
+        sv["turb"] = turbulence.init_s(like)
     nav = air.avionics
     av_u, av_s = nav.align_cold(nav.init_u((1,)), nav.init_s((1,)),
                                 air.vehicle.output(xv, uv, sv), seed=seed)

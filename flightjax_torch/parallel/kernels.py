@@ -343,12 +343,13 @@ class Layout(NamedTuple):
     turbulent fly-by-wire C172X's too; `nav` avionics that fly the inner
     avionics' pass on the navigation avionics' estimates: around the
     C172Xv1's control laws the megakernel's instances `megakernel_nav` and
-    `megakernel_nav_turb`, around the calm C172Xv2's guidance and control
-    laws `megakernel_gdc_nav`, around a mission over them
-    `megakernel_msn_nav` (their buffer also holds NAV_U and NAV_S, their
-    int32 operand NAV_INT after the step counter's rows; the mission's pass
-    in the splits is `msn_nav_ctl_laws`); around the turbulent C172Xv2's
-    (or a mission on it) no megakernel yet (`mega_name` None)."""
+    `megakernel_nav_turb`, around the C172Xv2's guidance and control laws
+    `megakernel_gdc_nav` and in turbulence `megakernel_gdc_nav_turb`,
+    around a mission over them `megakernel_msn_nav` and
+    `megakernel_msn_nav_turb` (their buffer also holds NAV_U and NAV_S,
+    their int32 operand NAV_INT after the step counter's rows, the
+    turbulent ones after (i, seed, n); the mission's pass in the splits is
+    `msn_nav_ctl_laws`)."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -396,9 +397,8 @@ def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
         names={k: k + ("_fbw" if fbw else "") + (
             "_turb" if turb and k.startswith("rk4") else "")
             for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=(None if nav and gdc and turb
-                   else "megakernel_msn_nav" if nav and msn
-                   else "megakernel_gdc_nav" if nav and gdc
+        mega_name=("megakernel_msn_nav" + "_turb" * turb if nav and msn
+                   else "megakernel_gdc_nav" + "_turb" * turb if nav and gdc
                    else ("megakernel_nav_turb" if turb else "megakernel_nav")
                    if nav else "megakernel_msn" + "_turb" * turb if msn
                    else "megakernel_gdc" + "_turb" * turb if gdc
@@ -427,17 +427,17 @@ FBW_TURB = _layout(True, turb=True)
 GDC_TURB, MSN_TURB = (_layout(True, gdc=True, turb=True),
                       _layout(True, gdc=True, msn=True, turb=True))
 # the sensor-fed C172Xv1 (NavAvionics around its ControlLaws; c172x.
-# build_xv1_nav), calm and in Dryden turbulence, and the sensor-fed C172Xv2
-# (around its guidance and control laws; c172x.build_xv2_nav), calm and, its
-# megakernel refused, in turbulence: the fly-by-wire layouts with the
-# navigation avionics' rows in the megakernel's buffer
+# build_xv1_nav) and the sensor-fed C172Xv2 (around its guidance and control
+# laws; c172x.build_xv2_nav), each calm and in Dryden turbulence: the
+# fly-by-wire layouts with the navigation avionics' rows in the megakernel's
+# buffer
 FBW_NAV, FBW_TURB_NAV = _layout(True, nav=True), _layout(True, turb=True,
                                                          nav=True)
 GDC_NAV, GDC_TURB_NAV = (_layout(True, gdc=True, nav=True),
                          _layout(True, gdc=True, turb=True, nav=True))
 # the sensor-fed missions (NavAvionics around a MissionAvionics over the
-# C172Xv2's guidance and control laws; missions.mission_nav_sim), calm and,
-# their megakernel refused, in turbulence
+# C172Xv2's guidance and control laws; missions.mission_nav_sim), calm and
+# in turbulence
 MSN_NAV, MSN_TURB_NAV = (_layout(True, gdc=True, msn=True, nav=True),
                          _layout(True, gdc=True, msn=True, turb=True,
                                  nav=True))
@@ -485,18 +485,6 @@ def layout_of(vehicle, avionics=None):
     else:
         lay = FBW_TURB if turb else FBW
     return lay
-
-
-def mega_refusal(lay):
-    """Why the megakernel does not carry an aircraft of layout `lay`, or
-    None where it does."""
-    if lay.mega_name is not None:
-        return None
-    return ("the navigation avionics around the turbulent C172Xv2's "
-            "guidance and control laws (build_xv2_nav(turbulence=), or a "
-            "mission on them) have no megakernel instance "
-            "(megakernel_gdc_nav_turb): ROADMAP Queue 2 item 1; they fly "
-            "Simulation.fleet_step and make_cluster_step(split='vehicle')")
 
 
 def mission_refusal(avionics):
@@ -1564,7 +1552,7 @@ _INSTANCES = {n: (k, lay) for lay in (MECH, FBW)
 _INSTANCES.update({lay.names[k]: (k, lay) for lay in (TURB, FBW_TURB)
                    for k in ("rk4_stage", "rk4_finish")})
 for _lay in (TURB, FBW_TURB, GDC, MSN, GDC_TURB, MSN_TURB, FBW_NAV,
-             FBW_TURB_NAV, GDC_NAV, MSN_NAV):
+             FBW_TURB_NAV, GDC_NAV, MSN_NAV, GDC_TURB_NAV, MSN_TURB_NAV):
     _INSTANCES[_lay.mega_name] = ("megakernel", _lay)
 
 
@@ -2044,10 +2032,11 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     a mission on it `megakernel_msn_turb`, whose int32 buffers hold them
     too; with the navigation avionics around the C172Xv1's control laws
     `megakernel_nav` (`megakernel_nav_turb` in turbulence), around the
-    C172Xv2's guidance and control laws `megakernel_gdc_nav`, around a
-    mission over them `megakernel_msn_nav`, whose int32 buffer holds the
-    NAV_INT rows after those and which reads the sensors' normal table
-    (`ops/random.normal_table`)."""
+    C172Xv2's guidance and control laws `megakernel_gdc_nav`
+    (`megakernel_gdc_nav_turb`), around a mission over them
+    `megakernel_msn_nav` (`megakernel_msn_nav_turb`), whose int32 buffer
+    holds the NAV_INT rows after those and which reads the sensors' normal
+    table (`ops/random.normal_table`)."""
     lay = layout_of(vehicle, avionics)
     name = lay.mega_name
     out = L.launch_megakernel(

@@ -73,10 +73,14 @@ GDC_TURB_KERNELS = ("megakernel_gdc_turb", "megakernel_msn_turb")
 # the sensor-fed missions: the megakernel's instance and the mission's pass
 # on the estimates, which the splits launch after `nav_pass`
 MSN_NAV_KERNELS = ("megakernel_msn_nav", "msn_nav_ctl_laws")
+# the megakernel's instances over the sensor-fed C172Xv2 in turbulence and a
+# mission flown on it (their splits run the FBW_TURB_KERNELS, `nav_pass`
+# and the passes on the estimates)
+NAV_TURB_KERNELS = ("megakernel_gdc_nav_turb", "megakernel_msn_nav_turb")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
                 *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
-                *GDC_TURB_KERNELS, *MSN_NAV_KERNELS)
+                *GDC_TURB_KERNELS, *MSN_NAV_KERNELS, *NAV_TURB_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
@@ -85,7 +89,7 @@ COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "megakernel_msn", "rk4_stage_turb", "megakernel_turb",
                "rk4_stage_fbw_turb", "megakernel_fbw_turb", "megakernel_nav",
                "megakernel_nav_turb", "megakernel_gdc_nav",
-               *GDC_TURB_KERNELS, "megakernel_msn_nav")
+               *GDC_TURB_KERNELS, "megakernel_msn_nav", *NAV_TURB_KERNELS)
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -96,7 +100,7 @@ N_GAIN_TABLES = 10
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
            *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
-           *GDC_TURB_KERNELS, *MSN_NAV_KERNELS)
+           *GDC_TURB_KERNELS, *MSN_NAV_KERNELS, *NAV_TURB_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
 # counter, stream seed, drive counter) of the turbulent vehicle
@@ -234,9 +238,10 @@ def library():
                        megakernel_msn_turb=sig["megakernel_fbw"])
             sig["rk4_finish_fbw_turb"] = sig["rk4_finish_turb"]
             sig["nav_pass"] = [P] * 7 + [I, I, I, P]
-            sig["megakernel_nav"] = sig["megakernel_nav_turb"] = (
-                sig["megakernel_gdc_nav"]) = sig["megakernel_msn_nav"] = (
-                [P] * 9 + [I, I, D, D, I, I, D, I, P])
+            for name in ("megakernel_nav", "megakernel_nav_turb",
+                         "megakernel_gdc_nav", "megakernel_msn_nav",
+                         *NAV_TURB_KERNELS):
+                sig[name] = [P] * 9 + [I, I, D, D, I, I, D, I, P]
             for name, argtypes in sig.items():
                 for suffix in ("f32", "f64"):
                     f = getattr(lib, f"{name}_{suffix}")
@@ -519,21 +524,19 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     `turb` its `megakernel_nav_turb`, with `gdc` the calm sensor-fed
     C172Xv2's `megakernel_gdc_nav`, with `msn` the calm sensor-fed
     missions' `megakernel_msn_nav` (its gains hold the filter's constants,
-    then the mission table), whose `i` also holds the NAV_INT rows
-    (`[1 + 11, B]`, `[3 + 11, B]`); their work buffer is allocated here.
-    Does not synchronise."""
+    then the mission table), and with `turb` too the turbulent C172Xv2's
+    and missions' `megakernel_gdc_nav_turb` and `megakernel_msn_nav_turb`,
+    whose `i` also holds the NAV_INT rows (`[1 + 11, B]`; turbulent
+    `[3 + 11, B]`: i, seed, n, then NAV_INT); their work buffer is
+    allocated here. Does not synchronise."""
     fbw = gains is not None
     nav = table is not None
     if (gdc or msn or nav) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
-    if nav and turb and (gdc or msn):
-        raise ValueError("the navigation megakernels carry the C172Xv1, "
-                         "calm or turbulent, and the calm C172Xv2 and "
-                         "missions")
-    name = ("megakernel_msn_nav" if msn and nav
+    name = ("megakernel_msn_nav" + "_turb" * turb if msn and nav
             else "megakernel_msn" + "_turb" * turb if msn
-            else "megakernel_gdc_nav" if gdc and nav
+            else "megakernel_gdc_nav" + "_turb" * turb if gdc and nav
             else "megakernel_gdc" + "_turb" * turb if gdc
             else "megakernel_nav_turb" if nav and turb
             else "megakernel_nav" if nav

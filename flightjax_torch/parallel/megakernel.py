@@ -22,10 +22,11 @@ drive's counter, integers past what float32 holds exactly; the turbulent
 C172Xv1, C172Xv2 and mission (`megakernel_fbw_turb`, `megakernel_gdc_turb`,
 `megakernel_msn_turb`) hold their calm twins' rows with the turbulence's
 placed as on the C172S, and that int32 `[3, B]`; the sensor-fed C172Xv1
-and C172Xv2 (`megakernel_nav(_turb)`, `megakernel_gdc_nav`) and the
-sensor-fed missions (`megakernel_msn_nav`) their truth-fed twins' rows,
-then the navigation avionics' NAV_U and NAV_S, and their int32 rows also
-NAV_INT. This takes the place of the part
+and C172Xv2 (`megakernel_nav(_turb)`, `megakernel_gdc_nav(_turb)`) and
+the sensor-fed missions (`megakernel_msn_nav(_turb)`) their truth-fed
+twins' rows, then the navigation avionics' NAV_U and NAV_S, and their
+int32 rows also NAV_INT (after the step counter, or after the turbulent
+twin's three rows). This takes the place of the part
 of `flightjax/parallel/packed.py::make_packer` the JAX kernel uses: the
 layout is fixed by the kernel, so `pack` / `unpack` here are plain row
 maps.
@@ -101,11 +102,12 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     whose int32 buffer holds the navigation avionics' NAV_INT rows after
     the step counter's), the turbulent C172Xv2 and a mission on it
     (`megakernel_gdc_turb`, `megakernel_msn_turb`, int32 rows i, seed, n)
-    and the calm sensor-fed C172Xv2 (`c172x.build_xv2_nav`:
+    and the sensor-fed C172Xv2 (`c172x.build_xv2_nav`:
     `megakernel_gdc_nav`, its guidance and control laws on the estimates)
     and missions (`missions.mission_nav_sim`: `megakernel_msn_nav`, the
-    phase machine on the estimates too). The sensor-fed C172Xv2 in
-    turbulence (and a mission on it) is refused (`kernels.mega_refusal`)."""
+    phase machine on the estimates too), calm and in turbulence
+    (`megakernel_gdc_nav_turb`, `megakernel_msn_nav_turb`: int32 rows i,
+    seed, n, then NAV_INT)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
@@ -116,9 +118,6 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     lay = K.layout_of(vehicle)  # refuses second-order servos
     if lay.fbw:  # refuses avionics that have no kernel
         lay = K.avionics_layout(vehicle, avionics)
-    why = K.mega_refusal(lay)
-    if why is not None:
-        raise NotImplementedError(why)
     name = lay.mega_name
     comp = state.c is not None
 

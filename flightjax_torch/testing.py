@@ -1266,7 +1266,9 @@ def nav_operand_state(batch, seed, device, dtype, turbulence=True,
     and on the turbulent vehicle W20 ~ U(0, 8) with the discrete gust on
     some lanes. With `gdc` the sensor-fed C172Xv2 (`nav_sim(gdc=True)`)
     flying the mode-rich control laws of `ctl_operands` and the mode-rich
-    guidance of `gdc_operands` at the lanes' positions."""
+    guidance of `gdc_operands` at the lanes' positions; with `turbulence`
+    too the turbulent sensor-fed C172Xv2's operands
+    (`megakernel_gdc_nav_turb`)."""
     from flightjax_torch.core.sim import SimState
     from flightjax_torch.parallel import fleet
     from flightjax_torch.physics import navigation as N
@@ -1444,19 +1446,24 @@ LOITER_NORTH, LOITER_RADIUS, LOITER_EAS, LOITER_STEPS = (2000.0, 1500.0,
                                                          40.0, 3000)
 
 
-def loiter_fleet_sim(batch, device, dtype):
+def loiter_fleet_sim(batch, device, dtype, W20=None):
     """(sim, SimState, orbit) of the loiter on estimates on `batch` lanes:
     the trimmed sensor-fed C172Xv2 (`c172x.c172xv2_nav_sim`: the geoid
     every step, Kahan position in sub-float64 dtypes) on circular guidance,
     lateral and vertical, over the filter's solution, the circle `orbit`
     (a `Circle` of one lane's leaves) LOITER_NORTH m north of the start,
     EAS_ref LOITER_EAS, lane k's sensor stream seeded k (lane 0 the JAX
-    test's single aircraft)."""
+    test's single aircraft). With `W20` the vehicle flies in
+    `DrydenTurbulence(0.02)` at that 20-ft wind on every lane, lane k's
+    turbulence stream seeded k too, with no shear and no discrete gust
+    (the turbulence's defaults), as `tools/jax_loiter.py` flies it."""
     from flightjax_torch.models.c172 import c172x
     from flightjax_torch.models.c172 import c172x_gdc as GDC
     from flightjax_torch.ops import geodesy as geo
     from flightjax_torch.parallel import fleet
-    sim, st, _ = c172x.c172xv2_nav_sim(device, dtype)
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
+    turb = None if W20 is None else DrydenTurbulence(0.02)
+    sim, st, _ = c172x.c172xv2_nav_sim(device, dtype, turbulence=turb)
     kin = st.x["vehicle"]["kinematics"]
     n_e = geo.nvector_from_qew(kin["q_ew"].double().cpu())
     h0 = float(kin["h_e"])
@@ -1471,10 +1478,28 @@ def loiter_fleet_sim(batch, device, dtype):
         ctl["lon"]["EAS_ref"], LOITER_EAS)))
     st = fleet.broadcast_state(st._replace(u=dict(st.u, avionics=dict(
         av, inner=dict(av["inner"], ctl=ctl)))), batch)
+    seeds = torch.arange(batch, dtype=torch.int32, device=st.t.device)
     av_u = dict(st.u["avionics"])
-    av_u["sens"] = dict(av_u["sens"], seed=torch.arange(
-        batch, dtype=torch.int32, device=st.t.device))
-    return sim, st._replace(u=dict(st.u, avionics=av_u)), orbit
+    av_u["sens"] = dict(av_u["sens"], seed=seeds)
+    uv = dict(st.u["vehicle"])
+    if turb is not None:
+        uv["turb"] = dict(uv["turb"], seed=seeds, W20=torch.full_like(
+            uv["turb"]["W20"], float(W20)))
+    return sim, st._replace(u=dict(st.u, vehicle=uv, avionics=av_u)), orbit
+
+
+# the turbulent loiter's 20-ft wind (m/s), the severity of the JAX
+# package's turbulent demos (`flightjax/demos/c172_demos.py:165`)
+LOITER_W20 = 10.0
+
+
+def turb_loiter_fleet_sim(batch, device, dtype):
+    """(sim, SimState, orbit) of the loiter on estimates in Dryden
+    turbulence: `loiter_fleet_sim` at W20 = LOITER_W20 on every lane, lane
+    k's sensor and turbulence streams seeded k, no shear, no discrete
+    gust (`tools/jax_loiter.py --W20 10` flies the same fleet in the JAX
+    package)."""
+    return loiter_fleet_sim(batch, device, dtype, W20=LOITER_W20)
 
 
 def normal_table_for(seeds, ns):
@@ -1583,7 +1608,8 @@ def nav_twin(sim, device, dtype):
         nav_kw = dict(kw["nav_kw"], use_estimates=nav.use_estimates)
         air = M.mission_nav_aircraft(nav.inner.phases, dt=sim.periodic_dt,
                                      nav_kw=nav_kw, device=device,
-                                     dtype=dtype)
+                                     dtype=dtype,
+                                     turbulence=kw.get("turbulence"))
     else:
         build = (build_xv2_nav if isinstance(nav.inner, Avionics)
                  else build_xv1_nav)
@@ -1730,20 +1756,24 @@ MSN_NAV_LANES = (
 )
 
 
-def msn_nav_sim(device, dtype, setting="default", spp=1):
+def msn_nav_sim(device, dtype, setting="default", spp=1, turbulence=False):
     """The Simulation of `msn_nav_phases` on the navigation avionics with
     the NAV_SETTINGS `setting` (the radar aiding always on), dt 0.02 s, the
-    pass every `spp` steps, the geoid every step."""
+    pass every `spp` steps, the geoid every step; with `turbulence` on the
+    vehicle in `DrydenTurbulence(0.02)`."""
     from flightjax_torch.core.sim import Simulation
     from flightjax_torch.models.c172 import missions as M
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
     pdt = 0.02 * spp
     return Simulation(M.mission_nav_world(
         msn_nav_phases(), dt=pdt, nav_kw=NAV_SETTINGS[setting],
-        device=device, dtype=dtype), dt=0.02, periodic_dt=pdt)
+        device=device, dtype=dtype,
+        turbulence=DrydenTurbulence(0.02) if turbulence else None),
+        dt=0.02, periodic_dt=pdt)
 
 
 def msn_nav_operand_state(batch, seed, device, dtype, setting="default",
-                          spp=1, i0=None):
+                          spp=1, i0=None, turbulence=False):
     """(sim, SimState) of `batch` sensor-fed mission lanes (`msn_nav_sim`)
     whose phase machines and navigation avionics are in the modes of
     MSN_NAV_LANES (cycled), drawn from a numpy seed: the landing lanes from
@@ -1753,7 +1783,11 @@ def msn_nav_operand_state(batch, seed, device, dtype, setting="default",
     sensor stream its own (above 2^24 on half the lanes). With `i0` every
     lane at step and sensor epoch i0; else each at its own epoch (10
     consecutive on every 10 lanes: GPS, baro, mag and radar epochs together,
-    alone and none), the step counter the one that makes it."""
+    alone and none), the step counter the one that makes it. With
+    `turbulence` the missions fly the turbulent C172Xv2
+    (`msn_nav_sim(turbulence=True)`) in the turbulence of `with_study_turb`
+    (W20 = 10 m/s, the shear on every third lane, a discrete gust on every
+    third lane from lane 1, the filters and the drive drawn)."""
     from flightjax_torch.bridge import tree_to_numpy
     from flightjax_torch.models.c172 import missions as M
     rng = np.random.default_rng(seed)
@@ -1805,7 +1839,9 @@ def msn_nav_operand_state(batch, seed, device, dtype, setting="default",
         i = n.copy()
     av_s["sens"]["n"] = n.astype(np.int32)
     t = i * 0.02
-    sim = msn_nav_sim(device, dtype, setting, spp)
+    if turbulence:
+        t, i, x, u, s = with_study_turb((t, i, x, u, s), batch, seed)
+    sim = msn_nav_sim(device, dtype, setting, spp, turbulence)
     state = SimState(t=torch.tensor(t, dtype=dtype, device=device),
                      i=torch.tensor(i, dtype=torch.int32, device=device),
                      x=tree_from_numpy(x, device, dtype),
@@ -1897,12 +1933,20 @@ def takeoff_nav_fleet_sim(batch, device, dtype):
                       np.arange(batch))
 
 
-def msn_nav_fleet_sim(batch, device, dtype):
+# the numpy seed of the turbulent two-mission fleet's turbulence
+MSN_NAV_TURB_SEED = 1017
+
+
+def msn_nav_fleet_sim(batch, device, dtype, turbulence=False):
     """(sim, SimState) of both sensor-fed missions in one fleet
     (`msn_nav_phases`): the first half of the lanes the crosswind landing
     (`landing_nav_fleet_sim`'s start, seeds 100 + k), the second half the
     takeoff (`takeoff_nav_fleet_sim`'s, seeds k, in the standby phase), at
-    step 0; the position compensated in sub-float64 dtypes."""
+    step 0; the position compensated in sub-float64 dtypes. With
+    `turbulence` on the turbulent C172Xv2 in the turbulence of
+    `with_study_turb` (W20 = 10 m/s, the shear on every third lane, a
+    discrete gust on every third lane from lane 1; numpy seed
+    MSN_NAV_TURB_SEED)."""
     from flightjax_torch.bridge import tree_to_numpy
     from flightjax_torch.models.c172 import missions as M
     F = torch.float64
@@ -1916,7 +1960,14 @@ def msn_nav_fleet_sim(batch, device, dtype):
     s["avionics"]["inner"]["phase"][pick] = TAKEOFF_NAV0
     u["avionics"]["sens"]["seed"] = np.where(
         pick, lane - batch // 2, lane + 100).astype(np.int32)
-    sim = M.mission_nav_sim(phases, device=device, dtype=dtype)
+    turb = None
+    if turbulence:
+        from flightjax_torch.physics.turbulence import DrydenTurbulence
+        turb = DrydenTurbulence(0.02)
+        t, i, x, u, s = with_study_turb((t, i, x, u, s), batch,
+                                        MSN_NAV_TURB_SEED)
+    sim = M.mission_nav_sim(phases, device=device, dtype=dtype,
+                            turbulence=turb)
     state = SimState(t=torch.tensor(t, dtype=dtype, device=device),
                      i=torch.tensor(i, dtype=torch.int32, device=device),
                      x=tree_from_numpy(x, device, dtype),

@@ -499,6 +499,36 @@ void host_megakernel_msn_nav(const double* in, const int* i_in,
              (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
              (const SD*)gains, spp, pdt, table, (SD*)work))
 }
+// the sensor-fed C172Xv2's and missions' turbulent instances, on
+// megakernel_gdc_nav's signature (their i the rows i, seed, n, NAV_INT)
+void host_megakernel_gdc_nav_turb(const double* in, const int* i_in,
+                                  const double* p, const double* grid,
+                                  const double* gains, const float* table,
+                                  double* work, double* const* outs,
+                                  int* i_out, int B, int n_params, double dt,
+                                  double t_start, int comp, int spp,
+                                  double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW_TURB, SD,
+                                         k_megakernel::AV_GDC_NAV>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt, table, (SD*)work))
+}
+void host_megakernel_msn_nav_turb(const double* in, const int* i_in,
+                                  const double* p, const double* grid,
+                                  const double* gains, const float* table,
+                                  double* work, double* const* outs,
+                                  int* i_out, int B, int n_params, double dt,
+                                  double t_start, int comp, int spp,
+                                  double pdt, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW_TURB, SD,
+                                         k_megakernel::AV_MSN_NAV>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt, table, (SD*)work))
+}
 void host_msn_nav_ctl_laws(const double* in, const double* gains,
                            double* const* outs, int B, double dt, int lanes) {
   BLOCKS(2, lanes, k_ctl_laws::msn_ctl_laws_kernel<SD, fj::MSN_NAV_KIND>(
@@ -1898,13 +1928,15 @@ def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
     `_run_megakernel_fbw`. With `gdc` megakernel_gdc_nav on the calm
     sensor-fed C172Xv2's (the mode-rich control laws and guidance
     too), with `msn` megakernel_msn_nav on the sensor-fed missions'
-    (`testing.msn_nav_operand_state`)."""
+    (`testing.msn_nav_operand_state`); with `turb` too their turbulent
+    instances megakernel_gdc_nav_turb and megakernel_msn_nav_turb."""
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     from flightjax_torch.testing import (msn_nav_operand_state,
                                          nav_operand_state)
     if msn:
         sim, st = msn_nav_operand_state(batch, 1016, "cpu", torch.float64,
-                                        setting=setting, spp=spp)
+                                        setting=setting, spp=spp,
+                                        turbulence=turb)
     else:
         sim, st = nav_operand_state(batch, 1016, "cpu", torch.float64,
                                     turbulence=turb, setting=setting,
@@ -1923,7 +1955,8 @@ def _run_megakernel_nav(host_lib, batch, lanes, turb, spp=1, setting="default",
     table = _nav_table(st.u["avionics"], st.s["avionics"])
     turb_arg = () if gdc or msn else (ctypes.c_int(int(turb)),)
     getattr(host_lib, "host_megakernel_" + (
-        "msn_nav" if msn else "gdc_nav" if gdc else "nav"))(
+        "msn_nav" if msn else "gdc_nav" if gdc else "nav")
+        + ("_turb" if turb and (gdc or msn) else ""))(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), _ptr(table), _ptr(work),
@@ -2170,6 +2203,97 @@ def test_megakernel_msn_nav_roles_partition_the_output(host_lib):
     aircraft."""
     _, _, outs = _run_megakernel_nav(host_lib, B, 32, False, by_role=True,
                                      msn=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+
+
+# ------------------------------------------------------------ the sensor-fed
+# C172Xv2 and missions in turbulence
+
+NAV_TURB_CASES = [(1, "default", B, 32), (2, "default", B, 32),
+                  (1, "radar", B, 32), (1, "shadow", B, 32),
+                  (1, "default", 37, 32), (1, "default", 70, 64)]
+NAV_TURB_IDS = [f"spp{p}-{s}-B{b}-L{n}" for p, s, b, n in NAV_TURB_CASES]
+
+
+@pytest.mark.parametrize("spp,setting,batch,lanes", NAV_TURB_CASES,
+                         ids=NAV_TURB_IDS)
+def test_megakernel_gdc_nav_turb_source_matches_plain(host_lib, spp, setting,
+                                                      batch, lanes):
+    """megakernel_gdc_nav_turb against `megakernel_step_plain` on the
+    turbulent sensor-fed C172Xv2's mode-rich operands
+    (`testing.nav_operand_state(turbulence=True, gdc=True)`: the
+    navigation operands with the mode-rich control laws and guidance, W20
+    up to 8 m/s and discrete gusts on some lanes): the turbulent step, the
+    truth at the new state with the gust at the new time, the navigation
+    pass, then the guidance and the control laws on the estimates, every
+    leaf within TOL, P per lane against its largest entry, the integers
+    (the turbulence's counters among them) exactly."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_nav(host_lib, batch, lanes, True, spp,
+                                       setting, gdc=True)
+    assert K.avionics_layout(sim.system.aircraft.vehicle,
+                             sim.system.aircraft.avionics) is K.GDC_TURB_NAV
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    _assert_p_close(got.s["avionics"]["nav"].P, ref.s["avionics"]["nav"].P)
+    fired = (st.i + 1) % spp == 0
+    n0 = st.s["avionics"]["sens"]["n"]
+    assert torch.equal(got.s["avionics"]["sens"]["n"],
+                       torch.where(fired, n0 + 1, n0))
+    assert torch.equal(got.s["vehicle"]["turb"]["n"],
+                       st.s["vehicle"]["turb"]["n"] + 1)
+    lon = ref.s["avionics"]["inner"]["ctl"]["lon"]["mode_prev"]
+    assert bool((fired & (lon == 8)).any())
+
+
+@pytest.mark.parametrize("spp,setting,batch,lanes", NAV_TURB_CASES,
+                         ids=NAV_TURB_IDS)
+def test_megakernel_msn_nav_turb_source_matches_plain(host_lib, spp, setting,
+                                                      batch, lanes):
+    """megakernel_msn_nav_turb against `megakernel_step_plain` on the
+    sensor-fed mission operands in turbulence (`testing.
+    msn_nav_operand_state(turbulence=True)`: each phase of both missions,
+    lanes either side of the radar gate, W20 = 10 m/s, the shear on every
+    third lane, a discrete gust on every third lane from lane 1): the
+    turbulent step, the truth at the new state, the navigation pass, then
+    the phase machine on the estimated h_o, the guidance and the control
+    laws and the phases' systems inputs; every leaf within TOL, P per lane
+    against its largest entry, the integers and the phases exactly."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_nav(host_lib, batch, lanes, True, spp,
+                                       setting, msn=True)
+    assert K.avionics_layout(sim.system.aircraft.vehicle,
+                             sim.system.aircraft.avionics) is K.MSN_TURB_NAV
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    _assert_p_close(got.s["avionics"]["nav"].P, ref.s["avionics"]["nav"].P)
+    fired = (st.i + 1) % spp == 0
+    n0 = st.s["avionics"]["sens"]["n"]
+    assert torch.equal(got.s["avionics"]["sens"]["n"],
+                       torch.where(fired, n0 + 1, n0))
+    assert torch.equal(got.s["vehicle"]["turb"]["n"],
+                       st.s["vehicle"]["turb"]["n"] + 1)
+    moved = ref.s["avionics"]["inner"]["phase"] != st.s["avionics"][
+        "inner"]["phase"]
+    assert bool(moved.any()) and not bool(moved[~fired].any())
+
+
+@pytest.mark.parametrize("avk", ["gdc", "msn"])
+def test_megakernel_nav_turb_xv2_roles_partition_the_output(host_lib, avk):
+    """Every row of megakernel_gdc_nav_turb's and megakernel_msn_nav_turb's
+    new state buffers (the turbulence's filter states, inputs and drive,
+    the navigation avionics' inputs and state, around the mission the
+    phase machine's and the overridden systems inputs) is written by
+    exactly one role, for every aircraft."""
+    _, _, outs = _run_megakernel_nav(host_lib, B, 32, True, by_role=True,
+                                     gdc=avk == "gdc", msn=avk == "msn")
     full = sum((~o.isnan()).all(dim=1).int() for o in outs)
     touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
     assert full.tolist() == [1] * outs[0].shape[0]

@@ -30,7 +30,10 @@ navigation setting, as `testing.nav_hold` says. The sensor-fed missions:
 msn_nav_ctl_laws exactly on the mode-rich mission operands and the fleet's
 estimates, megakernel_msn_nav and nav_pass's mission instance one step on
 the sensor-fed mission operands in every setting, as `testing.nav_hold`
-says.
+says. The sensor-fed C172Xv2 and missions in turbulence:
+megakernel_gdc_nav_turb and megakernel_msn_nav_turb one step on their
+mode-rich operands in four settings, as `testing.nav_hold` says, and their
+three paths each 12 float64 steps against the plain step.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1208,6 +1211,112 @@ def test_megakernel_msn_nav_matches_plain_on_card(setting, lanes, dtype):
     nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
              ref.s["avionics"], nav, "megakernel_msn_nav",
              msn_gate_lanes(sim, ref) | msn_gate_lanes(sim, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64])
+@pytest.mark.parametrize("setting", ["default", "radar", "shadow",
+                                     "immediate"])
+@pytest.mark.parametrize("avk", ["gdc", "msn"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_nav_turb_xv2_matches_plain_on_card(avk, setting, lanes,
+                                                      dtype):
+    """megakernel_gdc_nav_turb and megakernel_msn_nav_turb, one step on
+    the turbulent sensor-fed C172Xv2's mode-rich operands at B
+    (`testing.nav_operand_state(turbulence=True, gdc=True)`) and on the
+    sensor-fed mission operands in turbulence (`testing.
+    msn_nav_operand_state(turbulence=True)`) under each setting, against
+    `megakernel_step_plain`, held as `testing.nav_hold` says (around the
+    mission the phases exactly but, in float32, on lanes at the radar
+    gate); the turbulence's counters exactly."""
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (msn_gate_lanes,
+                                         msn_nav_operand_state, nav_hold,
+                                         nav_operand_state, nav_reference)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if avk == "gdc":
+        sim, st = nav_operand_state(B, 1016, "cuda", dtype, turbulence=True,
+                                    setting=setting, gdc=True)
+    else:
+        sim, st = msn_nav_operand_state(B, 1016, "cuda", dtype,
+                                        setting=setting, turbulence=True)
+    name = f"megakernel_{avk}_nav_turb"
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {name: 1}
+    ref = megakernel_step_plain(sim, st)
+    assert torch.equal(got.s["vehicle"]["turb"]["n"],
+                       ref.s["vehicle"]["turb"]["n"])
+    ref_c = nav_reference(sim, dtype, megakernel_step_plain, st)
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    gate = (msn_gate_lanes(sim, ref) | msn_gate_lanes(sim, got)
+            if avk == "msn" else None)
+    nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
+             ref.s["avionics"], sim.system.aircraft.avionics, name, gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fleet", "vehicle", "megakernel"])
+@pytest.mark.parametrize("avk", ["gdc", "msn"])
+def test_nav_turb_xv2_paths_match_plain_on_card(avk, path):
+    """The turbulent loiter on estimates (`testing.turb_loiter_fleet_sim`)
+    and the two sensor-fed missions in turbulence (`testing.
+    msn_nav_fleet_sim(turbulence=True)`), 12 float64 steps (a GPS epoch
+    among them) through `Simulation.fleet_step`, the vehicle split and
+    `make_megakernel_step` (`megakernel_gdc_nav_turb`,
+    `megakernel_msn_nav_turb`) against the card's plain step within 1e-9,
+    held as `testing.nav_hold` holds them; the launch counts."""
+    from flightjax_torch.parallel.clusterstep import (make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (msn_gate_lanes, msn_nav_fleet_sim,
+                                         nav_hold, nav_reference,
+                                         turb_loiter_fleet_sim)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype = torch.float64
+    if avk == "gdc":
+        sim, st, _ = turb_loiter_fleet_sim(B, "cuda", dtype)
+    else:
+        sim, st = msn_nav_fleet_sim(B, "cuda", dtype, turbulence=True)
+    K.reset_launches()
+    if path == "megakernel":
+        bufs, step_packed, unpack = make_megakernel_step(sim, st)
+        for _ in range(12):
+            bufs = step_packed(bufs)
+        got = unpack(bufs)
+    else:
+        step = (sim.fleet_step if path == "fleet"
+                else make_cluster_step(sim, st, split="vehicle"))
+        got = st
+        for i in range(12):
+            got = step(got, i=i)
+    torch.cuda.synchronize()
+    laws = "gdc_ctl_laws" if avk == "gdc" else "msn_nav_ctl_laws"
+    want = ({f"megakernel_{avk}_nav_turb": 12} if path == "megakernel" else
+            {"rk4_stage_fbw_turb": 48, "rk4_finish_fbw_turb": 12,
+             "systems_fbw": 12, laws: 12, "geoid": 12, "nav_pass": 12})
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+
+    def plain(sim, st):
+        for i in range(12):
+            st = (megakernel_step_plain(sim, st) if path == "megakernel"
+                  else vehicle_step(sim, st, i, plain=True))
+        return st
+    ref = plain(sim, st)
+    tr = lambda x: (x.t, x.x, x.u, x.s)
+    assert _worst(tr(got), tr(ref)) <= 1e-9
+    ref_c = nav_reference(sim, dtype, plain, st)
+    gate = (msn_gate_lanes(sim, ref) | msn_gate_lanes(sim, got)
+            if avk == "msn" else None)
+    nav_hold(dtype, tr(got), tr(ref), tr(ref_c), got.s["avionics"],
+             ref.s["avionics"], sim.system.aircraft.avionics, path, gate)
 
 
 @pytest.mark.cuda

@@ -217,7 +217,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
             "megakernel_msn", "megakernel_turb", "megakernel_fbw_turb",
             "megakernel_nav", "megakernel_nav_turb", "megakernel_gdc_turb",
             "megakernel_msn_turb", "megakernel_gdc_nav",
-            "megakernel_msn_nav"}
+            "megakernel_msn_nav", "megakernel_gdc_nav_turb",
+            "megakernel_msn_nav_turb"}
     turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS,
                                                       *turbs, "nav_pass"}
@@ -247,7 +248,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         "megakernel_msn", "msn_ctl_laws", *TURB_KERNELS,
         *FBW_TURB_KERNELS, "nav_pass", "megakernel_nav",
         "megakernel_nav_turb", "megakernel_gdc_nav", "megakernel_gdc_turb",
-        "megakernel_msn_turb", "megakernel_msn_nav", "msn_nav_ctl_laws")}
+        "megakernel_msn_turb", "megakernel_msn_nav", "msn_nav_ctl_laws",
+        "megakernel_gdc_nav_turb", "megakernel_msn_nav_turb")}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

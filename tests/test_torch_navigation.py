@@ -767,11 +767,12 @@ def test_refusals_and_layouts(nav_fleet):
     (`megakernel_nav_turb`, calm `megakernel_nav`), around the calm
     C172Xv2's guidance and control laws (`megakernel_gdc_nav`), around a
     mission over them (`megakernel_msn_nav`, its splits' pass
-    `msn_nav_ctl_laws`), and the turbulent C172Xv2's and a mission's
-    megakernels (`megakernel_gdc_turb`, `megakernel_msn_turb`); they refuse
-    the navigation megakernel around the turbulent C172Xv2
-    (`build_xv2_nav(turbulence=)`) and an `Actuator2` channel, each naming
-    its ROADMAP item; the sensors' epoch must count the firings from step
+    `msn_nav_ctl_laws`), around the turbulent C172Xv2's and a mission on
+    it (`megakernel_gdc_nav_turb`, `megakernel_msn_nav_turb`: their
+    truth-fed twins' rows and the navigation rows), and the turbulent
+    C172Xv2's and a mission's megakernels (`megakernel_gdc_turb`,
+    `megakernel_msn_turb`); they refuse an `Actuator2` channel, naming its
+    ROADMAP item; the sensors' epoch must count the firings from step
     0."""
     sim, np_state = nav_fleet
     st = _port_state(np_state)
@@ -781,7 +782,6 @@ def test_refusals_and_layouts(nav_fleet):
     lay = K.avionics_layout(veh, nav)
     assert lay is K.FBW_TURB_NAV and lay.pass_name == "ctl_laws"
     assert lay.mega_name == "megakernel_nav_turb"
-    assert K.mega_refusal(lay) is None
     assert K.FBW_NAV.mega_name == "megakernel_nav"
     assert K.FBW_TURB.names == {
         "systems": "systems_fbw", "finish_sys": "finish_sys_fbw",
@@ -790,24 +790,23 @@ def test_refusals_and_layouts(nav_fleet):
     assert K.FBW_TURB.mega_name == "megakernel_fbw_turb"
     xv2_nav = Tx.build_xv2_nav(device="cpu", dtype=F64,
                                turbulence=DrydenTurbulence(DT))
-    from flightjax_torch.core.sim import Simulation as TSim
-    from flightjax_torch.physics.aircraftbase import SimpleWorld as TWorld
-    with pytest.raises(NotImplementedError,
-                       match="megakernel_gdc_nav_turb"):
-        make_megakernel_step(TSim(TWorld(xv2_nav)), st)
-    assert "megakernel_gdc_nav_turb" in K.mega_refusal(
-        K.avionics_layout(xv2_nav.vehicle, xv2_nav.avionics))
+    lay = K.avionics_layout(xv2_nav.vehicle, xv2_nav.avionics)
+    assert lay is K.GDC_TURB_NAV
+    assert lay.mega_name == "megakernel_gdc_nav_turb"
+    assert lay.pass_name == "gdc_ctl_laws" and lay.turb and lay.nav
+    nav_rows = K.rows((K.NAV_U, K.NAV_S))
+    assert K.rows(lay.mega) == K.rows(K.GDC_TURB.mega) + nav_rows
+    assert K.MSN_TURB_NAV.mega_name == "megakernel_msn_nav_turb"
+    assert K.rows(K.MSN_TURB_NAV.mega) == K.rows(K.MSN_TURB.mega) + nav_rows
     calm = Tx.build_xv2_nav(device="cpu", dtype=F64)
     lay = K.avionics_layout(calm.vehicle, calm.avionics)
     assert lay is K.GDC_NAV and lay.mega_name == "megakernel_gdc_nav"
-    assert lay.pass_name == "gdc_ctl_laws" and K.mega_refusal(lay) is None
+    assert lay.pass_name == "gdc_ctl_laws"
     xv2 = Tx.build_xv2(device="cpu", dtype=F64,
                        turbulence=DrydenTurbulence(DT))
     lay = K.avionics_layout(xv2.vehicle, xv2.avionics)
     assert lay is K.GDC_TURB and lay.mega_name == "megakernel_gdc_turb"
-    assert K.mega_refusal(lay) is None
     assert K.MSN_TURB.mega_name == "megakernel_msn_turb"
-    assert K.mega_refusal(K.MSN_TURB) is None
     servo2 = Tx.build_xv1_nav(device="cpu", dtype=F64,
                               actuators={"elevator": Tx.Actuator2()},
                               turbulence=DrydenTurbulence(DT))
@@ -822,7 +821,7 @@ def test_refusals_and_layouts(nav_fleet):
     calm_veh = calm.vehicle
     lay = K.avionics_layout(calm_veh, sensor_fed)
     assert lay is K.MSN_NAV and K.MSN_NAV.mega_name == "megakernel_msn_nav"
-    assert lay.pass_name == "msn_nav_ctl_laws" and K.mega_refusal(lay) is None
+    assert lay.pass_name == "msn_nav_ctl_laws"
     shifted = st._replace(i=st.i + 1)
     with pytest.raises(ValueError, match="sensor epoch"):
         sim.fleet_step(shifted, i=I0 + 1)

@@ -176,8 +176,8 @@ def test_sensor_fed_xv2_matches_jax(jax_steps, path):
 def test_megakernel_buffers_roundtrip_xv2_nav():
     """The sensor-fed C172Xv2's resident buffers (megakernel_gdc's rows,
     then NAV_U and NAV_S; the step counter and NAV_INT) round-trip through
-    pack / unpack exactly, with their types; the layout's refusals leave
-    only the turbulent sensor-fed C172Xv2 to the splits."""
+    pack / unpack exactly, with their types; the turbulent sensor-fed
+    C172Xv2 has its instance, megakernel_gdc_nav_turb."""
     from flightjax_torch.core.modeling import tree_leaves_with_path
     from flightjax_torch.physics.turbulence import DrydenTurbulence
     sim = _sim()
@@ -193,8 +193,10 @@ def test_megakernel_buffers_roundtrip_xv2_nav():
     turb = Tx.build_xv2_nav(device="cpu", dtype=F64,
                             turbulence=DrydenTurbulence(DT))
     lay = K.avionics_layout(turb.vehicle, turb.avionics)
-    assert lay is K.GDC_TURB_NAV and lay.mega_name is None
-    assert "megakernel_gdc_nav_turb" in K.mega_refusal(lay)
+    assert lay is K.GDC_TURB_NAV
+    assert lay.mega_name == "megakernel_gdc_nav_turb"
+    assert K.rows(lay.mega) == K.rows(K.GDC_NAV.mega) + K.rows(
+        K.GDC_TURB.mega) - K.rows(K.GDC.mega)
 
 
 @pytest.mark.slow

@@ -19,7 +19,13 @@ time goes, by kernel, and how much of the step the device is idle.
                                          msn_turb_megakernel,xv2_nav_fleet,
                                          xv2_nav_vehicle,xv2_nav_megakernel,
                                          msn_nav_fleet,msn_nav_vehicle,
-                                         msn_nav_megakernel]
+                                         msn_nav_megakernel,
+                                         xv2_nav_turb_fleet,
+                                         xv2_nav_turb_vehicle,
+                                         xv2_nav_turb_megakernel,
+                                         msn_nav_turb_fleet,
+                                         msn_nav_turb_vehicle,
+                                         msn_nav_turb_megakernel]
                                         [--batch 4096] [--steps 50]
 
 The paths are, on the C172S flagship, `subsystems` (`fleet_rollout` over
@@ -67,7 +73,12 @@ guidance over the filter's solution) `xv2_nav_fleet`, `xv2_nav_vehicle`
 (`testing.msn_nav_fleet_sim`: half the lanes on the radar-gated landing,
 half on the cold-start takeoff) `msn_nav_fleet`, `msn_nav_vehicle`
 (`nav_pass`'s mission instance, then `msn_nav_ctl_laws`) and
-`msn_nav_megakernel` (`megakernel_msn_nav`).
+`msn_nav_megakernel` (`megakernel_msn_nav`); and the same two in Dryden
+turbulence (`testing.turb_loiter_fleet_sim`: the loiter at W20 = 10 m/s,
+lane k's streams seeded k; `testing.msn_nav_fleet_sim(turbulence=True)`)
+`xv2_nav_turb_*` and `msn_nav_turb_*` (the splits on rk4_stage_fbw_turb
+x 4, rk4_finish_fbw_turb and the same passes; `megakernel_gdc_nav_turb`,
+`megakernel_msn_nav_turb`).
 For each, a warm window of
 `--steps` steps runs under
 `torch.profiler` (CPU and CUDA activities). Printed per path: the host-clock
@@ -99,10 +110,13 @@ PATHS = ("subsystems", "vehicle", "megakernel", "xv1_subsystems",
          "xv2_turb_megakernel", "msn_turb_fleet", "msn_turb_vehicle",
          "msn_turb_megakernel", "xv2_nav_fleet", "xv2_nav_vehicle",
          "xv2_nav_megakernel", "msn_nav_fleet", "msn_nav_vehicle",
-         "msn_nav_megakernel")
+         "msn_nav_megakernel", "xv2_nav_turb_fleet", "xv2_nav_turb_vehicle",
+         "xv2_nav_turb_megakernel", "msn_nav_turb_fleet",
+         "msn_nav_turb_vehicle", "msn_nav_turb_megakernel")
 # the fleets of the paths' prefixes, the longer first
-PREFIXES = ("xv1_turb_", "xv2_turb_", "msn_turb_", "xv2_nav_", "msn_nav_",
-            "xv1_", "xv2_", "msn_", "turb_", "nav_", "sensor_fed_")
+PREFIXES = ("xv2_nav_turb_", "msn_nav_turb_", "xv1_turb_", "xv2_turb_",
+            "msn_turb_", "xv2_nav_", "msn_nav_", "xv1_", "xv2_", "msn_",
+            "turb_", "nav_", "sensor_fed_")
 
 
 def device_us(evt):
@@ -195,6 +209,7 @@ def main():
                                          msn_turb_fleet_sim, nav_fleet_sim,
                                          perturbed_fleet_sim,
                                          sensor_fed_fleet_sim, turb_study_sim,
+                                         turb_loiter_fleet_sim,
                                          xv1_fleet_sim, xv1_turb_fleet_sim,
                                          xv2_fleet_sim, xv2_turb_fleet_sim)
 
@@ -217,6 +232,10 @@ def main():
                     "msn_turb": msn_turb_fleet_sim,
                     "xv2_nav": lambda b, _, d, t: loiter_fleet_sim(b, d, t),
                     "msn_nav": lambda b, _, d, t: msn_nav_fleet_sim(b, d, t),
+                    "xv2_nav_turb": lambda b, _, d, t: turb_loiter_fleet_sim(
+                        b, d, t),
+                    "msn_nav_turb": lambda b, _, d, t: msn_nav_fleet_sim(
+                        b, d, t, turbulence=True),
                     "c172s": perturbed_fleet_sim}[kind]
             fleets[kind] = make(args.batch, args.seed, "cuda",
                                 torch.float32)[:2]

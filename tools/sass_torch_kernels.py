@@ -18,8 +18,8 @@ not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
 every instance (the C172S kernels, the fly-by-wire instances, the
 C172X megakernels and passes, the mission's, the turbulent C172S's, the
 turbulent C172Xv1's and the sensor-fed C172Xv1's instances; the turbulent
-and sensor-fed C172Xv2's and the sensor-fed missions' since they were
-ported), recorded
+and sensor-fed C172Xv2's, the sensor-fed missions' and the turbulent
+sensor-fed C172Xv2's and missions' since they were ported), recorded
 with the nvcc of an H100 machine; `chip_smoke.py` checks it. A change that means to change the machine code
 of a recorded instance records the file anew from its own build
 (`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
@@ -58,15 +58,17 @@ def kernel_name(name, act, av):
     rk4_finish_turb and rk4_finish_fbw_turb are kernels of their own
     names), `name_gdc_turb` and `name_msn_turb` (the turbulent C172Xv2 and
     a mission on it), `name_nav` and `name_nav_turb` (the sensor-fed
-    C172Xv1, calm and turbulent, avionics 4), `name_gdc_nav` (the calm
-    sensor-fed C172Xv2, avionics 5), `megakernel_msn_nav`,
+    C172Xv1, calm and turbulent, avionics 4), `name_gdc_nav` and
+    `name_gdc_nav_turb` (the sensor-fed C172Xv2, calm and turbulent,
+    avionics 5), `megakernel_msn_nav`, `megakernel_msn_nav_turb`,
     `msn_nav_ctl_laws` and `nav_pass_msn_nav` (the sensor-fed missions,
     avionics 6)."""
+    turb = "_turb" if act == "3" else ""
     if av == "6":
         return ("msn_nav_ctl_laws" if name == "msn_ctl_laws"
-                else name + "_msn_nav")
+                else name + "_msn_nav" + turb)
     if av == "5":
-        return name + "_gdc_nav"
+        return name + "_gdc_nav" + turb
     if av == "4":
         return name + ("_nav_turb" if act == "3" else "_nav")
     if av in ("2", "3") and act == "3":
