@@ -5,8 +5,9 @@ the C172Xv2 guidance's three, the scripted missions' three, the
 turbulent Monte Carlo fleet's three, the sensor-fed navigation fleet's
 four, the sensor-fed autopilot fleet's megakernel, the C172Xv2's last
 three megakernels (in turbulence, a mission on it, the loiter on
-estimates), the sensor-fed missions' three and the sensor-fed C172Xv2's
-and missions' six in turbulence; exit non-zero if any phase fails.
+estimates), the sensor-fed missions' three, the sensor-fed C172Xv2's
+and missions' six in turbulence and the C172Xv1 with a second-order
+elevator's two; exit non-zero if any phase fails.
 
     python3 chip_smoke.py
 
@@ -100,7 +101,13 @@ The paths, each an entry point a user calls:
   `msn_nav_turb_vehicle`, `msn_nav_turb_megakernel`: the two sensor-fed
   missions in turbulence (`testing.msn_nav_fleet_sim(turbulence=True)`)
   alike, `msn_nav_ctl_laws` the splits' pass, through
-  `megakernel_msn_nav_turb`.
+  `megakernel_msn_nav_turb`;
+- `a2_vehicle`, `a2_megakernel`: the C172Xv1 on the turning climb with an
+  `Actuator2` elevator (`testing.xv1_fleet_sim(a2=("elevator",))`, each
+  lane's elevator rate drawn) through the vehicle split
+  (`rk4_stage_fbw_a2` x 4, `rk4_finish_fbw_a2`, `ctl_laws`) and through
+  `megakernel_fbw_a2`; `Simulation.fleet_step` refuses it on the card by
+  name (its subsystems instances are still to port).
 
 Phases:
 1. device and toolchain: the card's name and power limit, nvcc's version;
@@ -340,6 +347,21 @@ Phases:
    aiding epoch, bounds, launches and the megakernel paths' graphed
    profiles.
 
+11. the C172Xv1 with a second-order elevator: `rk4_stage_fbw_a2`,
+   `rk4_finish_fbw_a2` (with and without residuals) and
+   `megakernel_fbw_a2` (with and without residuals, the pass every step
+   and every other step) against their plain versions exactly in float64
+   and float32 at 32 and 64 aircraft per block, on the runway operands
+   and the airborne fleet; its two paths A2_STEPS float32 steps from their
+   launch counts set to 0 with phase 4's checks of `xv1_vehicle` and
+   `xv1_megakernel`, and F64_A2_STEPS float64 steps to 1e-9; the 60 s
+   turning climb through `megakernel_fbw_a2` held to its first-order twin
+   and, lane by lane in its stalls, to the JAX package's own run of the
+   same lanes (`tools/jax_turning_climb.json`);
+   `Simulation.fleet_step`'s named refusal; the instances' times, bounds,
+   launches, code and registers, and the paths' vehicle-steps/s beside
+   `xv1_vehicle` and `xv1_megakernel`.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts, errors, times and bounds.
 """
@@ -522,6 +544,17 @@ KERNELS = {
     "megakernel_msn_nav_turb": (
         "flightjax_torch/csrc/megakernel_msn_nav_turb.cu",
         "flightjax/parallel/megakernel.py:43", "msn_nav_turb_megakernel"),
+    # the C172Xv1 with a second-order elevator: the whole-vehicle kernels
+    # and the megakernel with its control laws
+    "rk4_stage_fbw_a2": ("flightjax_torch/csrc/rk4_stage.cu",
+                         "flightjax/parallel/clusterstep.py:81",
+                         "a2_vehicle"),
+    "rk4_finish_fbw_a2": ("flightjax_torch/csrc/rk4_finish.cu",
+                          "flightjax/parallel/clusterstep.py:97",
+                          "a2_vehicle"),
+    "megakernel_fbw_a2": ("flightjax_torch/csrc/megakernel_fbw_a2.cu",
+                          "flightjax/parallel/megakernel.py:43",
+                          "a2_megakernel"),
 }
 FBW_NAMES = ("systems_fbw", "finish_sys_fbw", "rk4_stage_fbw",
              "rk4_finish_fbw")
@@ -539,7 +572,7 @@ LANE_KERNELS = tuple(k for k in KERNELS if k not in (
     "megakernel", "megakernel_fbw", "ctl_laws", "megakernel_gdc",
     "gdc_ctl_laws", "megakernel_msn", "msn_ctl_laws") and k not in FBW_NAMES
     and k not in TURB_NAMES and k not in NAV_NAMES
-    and k not in XV2_LAST_NAMES)
+    and k not in XV2_LAST_NAMES and not k.endswith("_a2"))
 XV1_PATHS = ("xv1_subsystems", "xv1_vehicle", "xv1_megakernel")
 XV2_PATHS = ("xv2_subsystems", "xv2_vehicle", "xv2_megakernel")
 XV_PATHS = XV1_PATHS + XV2_PATHS
@@ -660,6 +693,18 @@ CTL_PARTS = {"lon": {"v2t": (5, 6, 7), "c2theta": (7,), "theta2q": (3, 6, 7),
 # the kernel-check operands' lanes: on the runway, terminated, and crashing
 # during the step (on the runway, sinking past what the gear takes)
 GROUND_LANES, TERMINATED_LANES, CRASH_LANE = (3, 77), (5,), 78
+# the C172Xv1 with a second-order elevator (phase 11): its two paths, held
+# to plain over A2_STEPS float32 and F64_A2_STEPS float64 steps (the plain
+# steps take most of the phase), and the megakernel's turning climb of
+# A2_FLIGHT steps (60 s)
+A2_PATHS = ("a2_vehicle", "a2_megakernel")
+A2_STEPS, F64_A2_STEPS, A2_FLIGHT = 20, 5, 3000
+# the JAX package's own float32 run of that climb on the same lanes
+# (tools/jax_turning_climb.py): its stalled lanes, within B // 100 lanes of
+# the card's set, and its mean EAS at 60 s, within A2_EAS_MATCH m/s
+JAX_CLIMB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "jax_turning_climb.json")
+A2_EAS_MATCH = 0.1
 
 
 def log(msg):
@@ -685,7 +730,7 @@ def code_bytes(nvcc, so):
                          timeout=120).stdout
     from sass_torch_kernels import kernel_name
     found = re.findall(r"^\s*\w+\s+\w+\s+(\w+)\s.*PROGBITS.*\.text\._Z\d+"
-                       r"(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictIfEE"
+                       r"(\w+?)_kernelI(?:Li(\d+)E)?N2fj6StrictIfEE"
                        r"(?:Li(\d)E)?", out, re.M)
     return sorted((kernel_name(name, act, av), int(size, 16))
                   for size, name, act, av in found)
@@ -1490,8 +1535,9 @@ def compare_runs(a, b):
 
 def check_autopilot(label, out):
     """The C172Xv1's servo commands within their ranges, every lane in the
-    turning climb's modes, and the fleet's mean EAS within 3 m/s of the
-    45 m/s it is flown to."""
+    turning climb's modes, and, once every lane's clock has passed a
+    second (the fleet starts from 50 m/s), the fleet's mean EAS within
+    3 m/s of the 45 m/s it is flown to."""
     from flightjax_torch.models.c172 import c172x_ctl as CTL
     from flightjax_torch.models.c172.c172x import ACT_RANGES
     act = out.u["vehicle"]["systems"]["act"]
@@ -1509,7 +1555,7 @@ def check_autopilot(label, out):
     mean = float(eas(out).double().mean())
     log(f"{label}: commands {cmd}, every lane in LON_EAS_CLM / "
         f"LAT_CHI_BETA, mean EAS {mean:.2f} m/s (flown to 45)")
-    if not abs(mean - 45.0) < 3.0:
+    if float(out.t.min()) >= 1.0 and not abs(mean - 45.0) < 3.0:
         raise AssertionError(f"{label}: the fleet's mean EAS is {mean}")
 
 
@@ -1750,7 +1796,7 @@ def check_flight(sim, label, out, stalled, height_band=True):
     if height_band and not (800.0 < float(h.min())
                             and float(h.max()) < 1300.0):
         raise AssertionError(f"{label}: height left the 800..1300 m band")
-    lo, hi = EAS_BAND["xv1" if label in XV_PATHS else "c172s"]
+    lo, hi = EAS_BAND["xv1" if label in XV_PATHS + A2_PATHS else "c172s"]
     if not (lo < float(e.min()) and float(e.max()) < hi):
         raise AssertionError(f"{label}: EAS left the {lo}..{hi} m/s band")
 
@@ -4000,6 +4046,395 @@ def nav_turb_phase(card, t_start, check, errs, regs, sizes):
     return rows
 
 
+# ------------------------------------------------------------ Actuator2
+
+def servo2_phase(card, t_start, check, errs, regs, sizes):
+    """The C172Xv1 with a second-order elevator (`Actuator2`, the vehicle
+    of the JAX package's `tests/test_actuators.py:95`): rk4_stage_fbw_a2,
+    rk4_finish_fbw_a2 (with and without residuals) and megakernel_fbw_a2
+    (with and without residuals, the pass every step and every other step)
+    against their plain versions in float64 and float32 exactly at 32 and
+    64 aircraft per block, on the runway operands (`testing.
+    fbw_cluster_operands(a2=)`, `xv1_operand_state(a2=)`: servo positions
+    and the elevator's position past their ranges, its rate and derivative
+    drawn, lanes on the runway, a terminated and a crashing lane) and on
+    the airborne turning-climb fleet (`testing.xv1_fleet_sim(a2=)`, each
+    lane's elevator rate drawn); the vehicle and megakernel paths at B in float32 from their
+    launch counts set to 0, A2_STEPS steps against the plain path within
+    the scaled 10 s envelope, with the checks of phase 4's `xv1_vehicle`
+    and `xv1_megakernel`, and F64_A2_STEPS float64 steps to 1e-9; the
+    megakernel's turning climb for A2_FLIGHT steps (60 s), held to its
+    twin on first-order servos (`megakernel_fbw` on the same lanes): the
+    lanes that stall at some step the same but for 1% of B, the mean EAS
+    within 1 m/s and the mean height within 10 m; the refusal of
+    `Simulation.fleet_step` on the card, whose subsystems instances are
+    still to port; the instances' times, bounds and launches, and the
+    paths' vehicle-steps/s beside `xv1_vehicle` and `xv1_megakernel`.
+    Returns the three instances' rows of the kernels line."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.parallel import kernels as K
+    from flightjax_torch.parallel import launch as L
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import (fbw_cluster_operands,
+                                         flight_operand_args, xv1_fleet_sim,
+                                         xv1_operand_state)
+    t_phase = time.time()
+    log(f"elapsed {t_phase - t_start:.1f} s (the second-order elevator: "
+        f"kernel checks)")
+    a2 = K.A2_CARD
+    lay = K.FBW_A2
+    names = {k: lay.names[k] for k in ("rk4_stage", "rk4_finish")}
+
+    def a2_fleet(dtype):
+        return xv1_fleet_sim(B, SEED, DEVICE, dtype, a2=a2)
+
+    def a2_sim(dtype, spp):
+        # a system of its own: a Simulation sets its system's periodic_dt
+        from flightjax_torch.core.sim import Simulation
+        from flightjax_torch.models.c172.c172x import Actuator2, c172xv1_sim
+        sim, _, _ = c172xv1_sim(DEVICE, dtype,
+                                actuators={"elevator": Actuator2()})
+        return Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                          geoid_every=sim.geoid_every)
+
+    def runway_args(dtype):
+        from flightjax_torch.models.c172.c172x import Actuator2
+        from flightjax_torch.models.c172.c172x import build_vehicle as fbw
+        d = fbw_cluster_operands(B, SEED, GROUND_LANES, TERMINATED_LANES,
+                                 (CRASH_LANE,), a2=a2)
+        args = K.operand_args(d, fbw(device=DEVICE, dtype=dtype, actuators={
+            "elevator": Actuator2()}), DEVICE, dtype, adt=0.01, dt=0.02)
+        return {names[k]: args[k] for k in names}
+
+    for dtype in (torch.float64, torch.float32):
+        fsim, fst = a2_fleet(dtype)
+        flight = flight_operand_args(fsim, fst)
+        cases = {"runway operands": runway_args(dtype),
+                 "turning-climb fleet": {names[k]: flight[k]
+                                         for k in names}}
+        for what, args in cases.items():
+            for name, a in args.items():
+                base = name[:-len("_fbw_a2")]
+                comps = (False, True) if (
+                    base == "rk4_finish" and len(a) == 8) else (False,)
+                for comp in comps:
+                    a_ = a if comp or len(a) == 7 else a[:-1] + (None,)
+                    ref = getattr(K, base + "_plain")(*a_)
+                    before = K.LAUNCHES[name]
+                    got = getattr(K, base)(*a_)  # the wrapper
+                    torch.cuda.synchronize()
+                    if K.LAUNCHES[name] != before + 1:
+                        raise AssertionError(f"{name}: the wrapper did not "
+                                             f"launch it")
+                    tag = f" ({what}{', comp' * comp}"
+                    check(name, dtype, 0.0, leaf_pairs(got, ref),
+                          tag + ", wrapper)")
+                    for lanes in (32, 64):
+                        buf, n_out, scal, ops = K.PACK[name](*a_)
+                        got = K.unpack_out(name, L.launch(
+                            name, buf, n_out, scal, block=lanes, **ops),
+                            comp)
+                        torch.cuda.synchronize()
+                        check(name, dtype, 0.0, leaf_pairs(got, ref),
+                              tag + f", block {lanes})")
+                    if base == "rk4_finish" and what.startswith("runway") \
+                            and not bool(got[1]["crashed"][CRASH_LANE]):
+                        raise AssertionError(f"{name}: the crash lane did "
+                                             f"not latch crashed")
+        # megakernel_fbw_a2 on the runway state and the fleet
+        mega_cases = []
+        for comp, spp in ((False, 1), (True, 2)):
+            st = xv1_operand_state(B, SEED, DEVICE, dtype, GROUND_LANES,
+                                   TERMINATED_LANES, (CRASH_LANE,), i0=126,
+                                   a2=a2)
+            st = st._replace(i=st.i + torch.arange(
+                B, dtype=torch.int32, device=DEVICE) % spp)
+            mega_cases.append((f"runway state, comp {comp}, pass every "
+                               f"{spp}", a2_sim(dtype, spp), st._replace(
+                                   c=comp_residuals(st.x, force=True)
+                                   if comp else None)))
+        mega_cases.append(("turning-climb fleet", fsim, fst))
+        for what, msim, mst in mega_cases:
+            ref = megakernel_step_plain(msim, mst)
+            for lanes in (32, 64):
+                bufs, step_packed, unpack = make_megakernel_step(
+                    msim, mst, block=lanes)
+                got = unpack(step_packed(bufs))
+                torch.cuda.synchronize()
+                check("megakernel_fbw_a2", dtype, 0.0,
+                      leaf_pairs(tuple(got), tuple(ref)),
+                      f" ({what}, block {lanes})")
+            if what.startswith("runway") and not bool(
+                    got.s["vehicle"]["systems"]["crashed"][CRASH_LANE]):
+                raise AssertionError("megakernel_fbw_a2: the crash lane did "
+                                     "not latch crashed")
+        elv = fst.x["vehicle"]["systems"]["act"]["elevator"]
+        log(f"the second-order elevator ({str(dtype)[6:]}): the fleet's "
+            f"rates {float(elv['v'].min()):.3f}..{float(elv['v'].max()):.3f}"
+            f", buffer rows {bufs[0].shape[0]} (megakernel_fbw's + 1)")
+        del flight, cases, mega_cases, ref, got
+
+    # the paths, from their launch counts set to 0
+    log(f"elapsed {time.time() - t_start:.1f} s (the second-order elevator: "
+        f"paths)")
+    from flightjax_torch.parallel.clusterstep import make_cluster_step
+    sim, st0 = a2_fleet(torch.float32)
+    vst0 = st0._replace(c=None)
+    vstep = make_cluster_step(sim, vst0, split="vehicle")
+    env = [e * A2_STEPS / STEPS for e in (ENV_POS_M, ENV_VEL, ENV_ATT_RAD,
+                                          ENV_EAS)]
+    launches = {}
+    for label in A2_PATHS:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        stalled = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+        t0 = time.time()
+        if label == "a2_vehicle":
+            out = vst0
+            for k in range(A2_STEPS):
+                out = vstep(out, i=k)
+                stalled.logical_or_(stall_of(out))
+            want = {names["rk4_stage"]: 4 * A2_STEPS,
+                    names["rk4_finish"]: A2_STEPS, "ctl_laws": A2_STEPS}
+        else:
+            bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+            for _ in range(A2_STEPS):
+                bufs = step_packed(bufs)
+                stalled.logical_or_(stall_of(unpack(bufs)))
+            out = unpack(bufs)
+            want = {"megakernel_fbw_a2": A2_STEPS}
+        torch.cuda.synchronize()
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        log(f"{label}: {A2_STEPS} steps x {B} aircraft in "
+            f"{time.time() - t0:.2f} s (first run); launches {got}")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        launches.update(got)
+        check_flight(sim, label, out, stalled)
+        check_autopilot(label, out)
+        ref = plain_rollout(sim, vst0 if label == "a2_vehicle" else st0,
+                            A2_STEPS, None if label == "a2_vehicle" else 1)
+        dist = compare_runs(out, ref)
+        log(f"{label} kernels vs plain after {A2_STEPS} steps (f32): "
+            f"position {dist[0]:.3e} m (env {env[0]:.3g}), velocity "
+            f"{dist[1]:.3e} m/s (env {env[1]:.3g}), attitude {dist[2]:.3e} "
+            f"rad (env {env[2]:.3g}), EAS {dist[3]:.3e} m/s (env "
+            f"{env[3]:.3g})")
+        if not all(v_ <= e for v_, e in zip(dist, env)):
+            raise AssertionError(f"{label}: kernel and plain runs disagree")
+    # float64, kernels against plain
+    sim64, st64 = a2_fleet(torch.float64)
+    for label in A2_PATHS:
+        if label == "a2_vehicle":
+            a = st64._replace(c=None)
+            step = make_cluster_step(sim64, a, split="vehicle")
+            for k in range(F64_A2_STEPS):
+                a = step(a, i=k)
+            b = plain_rollout(sim64, st64._replace(c=None), F64_A2_STEPS)
+        else:
+            bufs, step_packed, unpack = make_megakernel_step(sim64, st64)
+            for _ in range(F64_A2_STEPS):
+                bufs = step_packed(bufs)
+            a = unpack(bufs)
+            b = plain_rollout(sim64, st64, F64_A2_STEPS, 1)
+        torch.cuda.synchronize()
+        worst = max(rel_err(va, vb) for _, va, vb in leaf_pairs(
+            {"x": a.x, "s": a.s, "u": a.u}, {"x": b.x, "s": b.s, "u": b.u}))
+        log(f"{label} f64 {F64_A2_STEPS} steps kernels vs plain: max rel "
+            f"err {worst:.3e} (tol 1e-9)")
+        if not worst <= 1e-9:
+            raise AssertionError(f"{label}: f64 run disagrees")
+    del sim64, st64, a, b
+    # the turning climb's 60 s through the megakernel, beside its twin on
+    # first-order servos (the same lanes through megakernel_fbw): the fleet
+    # loses ~4.6% of its lanes to a stall on either servo from ~15 s on (a
+    # 45 deg bank at EAS 45 from the perturbed starts), as the JAX
+    # package's fleet does, so the flight is held to its twin's outcome and
+    # to the JAX run's lane by lane
+    def climb(s_, st_):
+        aircraft = s_.system.aircraft
+        lay_ = K.avionics_layout(aircraft.vehicle, aircraft.avionics)
+        row = K.rows_of(lay_.rkfin_in, ("aero", "stall")).start + 1
+        b_, step_, unpack_ = make_megakernel_step(s_, st_)
+        stalled_ = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+        K.reset_launches()
+        t0_ = time.time()
+        for _ in range(A2_FLIGHT):
+            b_ = step_(b_)
+            stalled_.logical_or_(b_[0][row] > 0.5)
+        out_ = unpack_(b_)
+        torch.cuda.synchronize()
+        return (out_, stalled_, time.time() - t0_,
+                {k: v for k, v in K.LAUNCHES.items() if v})
+    end, stalled, wall, got = climb(sim, st0)
+    xsim, xst = xv1_fleet(torch.float32)
+    twin, t_stalled, _, t_got = climb(xsim, xst)
+    log(f"a2_megakernel: the turning climb for {A2_FLIGHT} steps (60 s) x "
+        f"{B} aircraft in {wall:.2f} s; launches {got}, the twin's {t_got}")
+    if got != {"megakernel_fbw_a2": A2_FLIGHT}:
+        raise AssertionError(f"a2_megakernel: launch counts {got}")
+    for p, v in leaves({"x": end.x, "s": end.s, "u": end.u}):
+        if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"a2_megakernel: non-finite leaf {p}")
+    if bool(end.s["terminated"].any()):
+        raise AssertionError("a2_megakernel: a lane terminated")
+    check_autopilot("a2_megakernel", end)
+    h_of = lambda s_, o: s_.system.aircraft.vehicle.h_agl(
+        o.x["vehicle"], o.u["vehicle"], o.s["vehicle"])
+    e_a, e_t = float(eas(end).double().mean()), float(eas(twin).double(
+    ).mean())
+    h_a, h_t = (float(h_of(sim, end).double().mean()),
+                float(h_of(xsim, twin).double().mean()))
+    apart = int((stalled != t_stalled).sum())
+    elv = end.x["vehicle"]["systems"]["act"]["elevator"]
+    log(f"a2_megakernel at 60 s: {int(stalled.sum())} lanes stalled at some "
+        f"step (the twin {int(t_stalled.sum())}, {apart} lanes apart), mean "
+        f"EAS {e_a:.3f} m/s (the twin {e_t:.3f}), mean height above terrain "
+        f"{h_a:.2f} m (the twin {h_t:.2f}); elevator position "
+        f"{float(elv['p'].min()):.4f}..{float(elv['p'].max()):.4f}, rate "
+        f"{float(elv['v'].min()):.4f}..{float(elv['v'].max()):.4f}")
+    if not (apart <= B // 100 and abs(e_a - e_t) < 1.0
+            and abs(h_a - h_t) < 10.0):
+        raise AssertionError("a2_megakernel: the flight parted from its "
+                             "twin on first-order servos")
+    with open(JAX_CLIMB) as fh:
+        jax_climb = json.load(fh)
+    j_stalled = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    j_stalled[jax_climb["stalled"]] = True
+    j_apart = int((stalled != j_stalled).sum())
+    log(f"a2_megakernel against the JAX package's f32 run of the same lanes "
+        f"(tools/jax_turning_climb.json): {jax_climb['stalled_lanes']} lanes "
+        f"stalled there, {j_apart} lanes apart; mean EAS "
+        f"{jax_climb['eas_mean']:.4f} m/s there, {e_a:.4f} here")
+    if not (jax_climb["lanes"] == B and jax_climb["steps"] == A2_FLIGHT
+            and j_apart <= B // 100
+            and abs(e_a - jax_climb["eas_mean"]) < A2_EAS_MATCH):
+        raise AssertionError("a2_megakernel: the flight parted from the "
+                             "JAX package's")
+    del end, twin, xsim, xst
+    # the subsystems split's instances are still to port: a named refusal
+    try:
+        sim.fleet_step(st0, i=0)
+    except NotImplementedError as e:
+        log(f"Simulation.fleet_step on the card refuses the second-order "
+            f"elevator: {e}")
+        if "systems_fbw_a2" not in str(e):
+            raise AssertionError("the refusal does not name its instance")
+    else:
+        raise AssertionError("Simulation.fleet_step ran the second-order "
+                             "elevator on the card")
+
+    # timings, on the runway operands and on the fleet the paths step
+    log(f"elapsed {time.time() - t_start:.1f} s (the second-order elevator: "
+        f"timings)")
+    rows = []
+    runway = runway_args(torch.float32)
+    flight = flight_operand_args(sim, st0)
+    params = K.system_params(sim.system.aircraft.vehicle)
+    for key, name in names.items():
+        a = flight[key]
+        buf, n_out, scal, ops = K.PACK[name](*a)
+        rbuf, _, rscal, rops = K.PACK[name](*(
+            runway[name][:7] + (None,) if key == "rk4_finish"
+            else runway[name]))
+        bare = lambda bs=None, b_=buf, sc=scal, o=ops, n=name: L.launch(
+            n, b_, n_out, sc, block=bs, **o)
+        rbare = lambda bs=None, b_=rbuf, sc=rscal, o=rops, n=name: L.launch(
+            n, b_, n_out, sc, block=bs, **o)
+        wrap, plain = getattr(K, key), getattr(K, key + "_plain")
+        n_elems = buf.numel() + n_out * B + sum(v.numel()
+                                                for v in ops.values())
+        rows.append(dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1], launches=launches[name],
+            max_abs_err=errs[name], ms=graph_ms(bare),
+            plain_ms=cuda_ms(lambda: plain(*a), reps=3, calls=2, warm=1),
+            nbytes=4 * n_elems, ops=count_ops(lambda: plain(*a)),
+            library_ms=None, event_ms=cuda_ms(bare),
+            wrapper_ms=cuda_ms(lambda: wrap(*a)),
+            block_ms={n: graph_ms(lambda: bare(n)) for n in (32, 64)},
+            runway_ms=graph_ms(rbare),
+            launches_per_step=4 if key == "rk4_stage" else 1))
+    avionics = sim.system.aircraft.avionics
+    veh = sim.system.aircraft.vehicle
+    grid, gains = K.geoid_grid(veh.geoid), K.ctl_gains(avionics)
+    bufs, step_packed, unpack = make_megakernel_step(sim, st0)
+    rst = xv1_operand_state(B, SEED, DEVICE, torch.float32, GROUND_LANES,
+                            TERMINATED_LANES, (CRASH_LANE,), i0=126, a2=a2)
+    rbufs, _, _ = make_megakernel_step(sim, rst._replace(
+        c=comp_residuals(rst.x, force=True)))
+
+    def mega(b=bufs, lanes=None):
+        return L.launch_megakernel(b[0], b[1], params, grid, sim.dt,
+                                   sim.t_start, True, lanes, gains,
+                                   sim.steps_per_periodic, sim.periodic_dt,
+                                   a2=True)
+    new = unpack(step_packed(bufs))
+    n_elems = (2 * (bufs[0].numel() + bufs[1].numel()) + params.numel()
+               + geoid_cells(veh.geoid,
+                             new.x["vehicle"]["kinematics"]["q_ew"])
+               + gain_values(avionics, eas(new),
+                             new.x["vehicle"]["kinematics"]["h_e"],
+                             new.s["avionics"]["lon"]["mode_prev"],
+                             new.s["avionics"]["lat"]["mode_prev"]))
+    plain = lambda: megakernel_step_plain(sim, st0)
+    rows.append(dict(
+        name="megakernel_fbw_a2", route="cuda",
+        source=KERNELS["megakernel_fbw_a2"][0],
+        replaces=KERNELS["megakernel_fbw_a2"][1],
+        launches=launches["megakernel_fbw_a2"],
+        max_abs_err=errs["megakernel_fbw_a2"], ms=graph_ms(mega),
+        plain_ms=cuda_ms(plain, reps=3, calls=1, warm=1),
+        nbytes=4 * n_elems,
+        ops=count_ops(plain, pass_op_weights(
+            avionics, st0.s["avionics"], new.s["avionics"],
+            (st0.i + 1) % sim.steps_per_periodic == 0)),
+        library_ms=None, event_ms=cuda_ms(mega),
+        wrapper_ms=cuda_ms(lambda: step_packed(bufs)),
+        block_ms={n: graph_ms(lambda: mega(lanes=n)) for n in (32, 64)},
+        runway_ms=graph_ms(lambda: mega(rbufs)), launches_per_step=1))
+    for r in rows:
+        log(f"time {r['name']}: graph {r['ms']:.4f} ms (airborne fleet; "
+            f"runway operands {r['runway_ms']:.4f} ms), events "
+            f"{r['event_ms']:.4f} ms, {r['launches_per_step']} launches per "
+            f"step, registers {regs.get(r['name'])} [{card}]")
+    del runway, flight, new, rbufs
+
+    # vehicle-steps/s beside the C172Xv1's paths on the same card,
+    # interleaved warm windows
+    xsim, xst = xv1_fleet(torch.float32)
+    xv = xst._replace(c=None)
+    mk = lambda s_, st_: make_megakernel_step(s_, st_)[1::-1]
+    runs = {"xv1_vehicle": (make_cluster_step(xsim, xv, split="vehicle"),
+                            xv),
+            "a2_vehicle": (vstep, vst0),
+            "xv1_megakernel": mk(xsim, xst), "a2_megakernel": mk(sim, st0)}
+    windows = collections.defaultdict(list)
+    for label in tuple(runs) * 3:
+        step, state = runs[label]
+        n = WINDOW[label.replace("a2_", "xv1_")]
+
+        def go(k, state=state):
+            for j in range(k):
+                state = (step(state, i=j) if label.endswith("vehicle")
+                         else step(state))
+            return state
+        go(2)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        go(n)
+        torch.cuda.synchronize()
+        windows[label].append(B * n / (time.time() - t0))
+    for label, rates in windows.items():
+        log(f"fleet step {label}: median {statistics.median(rates):.0f} "
+            f"vehicle-steps/s over {len(rates)} windows of "
+            f"{WINDOW[label.replace('a2_', 'xv1_')]} steps (runs "
+            f"{[round(r) for r in rates]}, B = {B}, f32) [{card}]")
+    log(f"the second-order elevator's phase: {time.time() - t_phase:.1f} s")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4864,6 +5299,9 @@ def main():
     # the sensor-fed C172Xv2 and missions in turbulence: the turbulent
     # loiter on estimates and the two missions in gusts
     rows += nav_turb_phase(card, t_start, check, errs, regs, sizes)
+    # the C172Xv1 with a second-order elevator: its whole-vehicle instances
+    # and megakernel
+    rows += servo2_phase(card, t_start, check, errs, regs, sizes)
 
     reader.join()
     if "error" in sass:

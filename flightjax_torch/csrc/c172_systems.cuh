@@ -136,7 +136,9 @@ constexpr int FSYS_N_OUT = N_XSYS + N_SSYS;                          // 15
 // KIN integrates and applies to the air data (the whole-vehicle kernels
 // only). ACT_TURB alone is the turbulent C172S, ACT_FBW_TURB the turbulent
 // fly-by-wire C172X; the values of the first three are those they had
-// before the bits, so their instances keep their machine code.
+// before the bits, so their instances keep their machine code. Above
+// ACT_TURB, one bit per servo channel puts a second-order servo on it
+// (ACT_A2_SHIFT, below).
 enum ActKind : int {
   ACT_MECH = 0,
   ACT_FBW = 1,
@@ -156,9 +158,41 @@ __host__ __device__ constexpr bool act_turb(int act) {
 // names), then the engine and payload rows as in the mechanical layout
 constexpr int CH_AIL = 0, CH_BRK_L = 1, CH_BRK_R = 2, CH_ELV = 3,
               CH_FLAPS = 4, CH_RUD = 5, CH_THR = 6, N_ACT = 7;
+// a second-order servo (models/c172/c172x.py::Actuator2) on channel ch: the
+// ActKind bit ACT_A2_SHIFT + ch. Its two states, the position p and the
+// rate v, take the channel's row of x_sys and the next (every later row of
+// X, CTX, C and the megakernel's buffer moves by one), and two of role
+// DRAG's slots alike (act_slot); the scratch's SH_ACT + ch holds the
+// position, which is all the other roles read. The instances of ACT_FBW and
+// ACT_FBW_TURB carry no such bit: each `if constexpr` on the bits, and
+// act_slot, which is the channel itself for them, compile to their code of
+// before. The card carries the elevator set, ACT_FBW_A2
+// (the vehicle of the JAX package's tests/test_actuators.py:95).
+constexpr int ACT_A2_SHIFT = 2;
+enum : int { ACT_FBW_A2 = ACT_FBW | (1 << (ACT_A2_SHIFT + CH_ELV)) };
+__host__ __device__ constexpr bool act_a2(int act, int ch) {
+  return ((act >> (ACT_A2_SHIFT + ch)) & 1) != 0;
+}
+// the second-order channels below channel ch (all of them by default)
+__host__ __device__ constexpr int n_a2(int act, int ch = N_ACT) {
+  int n = 0;
+  for (int k = 0; k < ch; ++k) n += act_a2(act, k) ? 1 : 0;
+  return n;
+}
+// role DRAG's slot of channel ch's first state (its row after XS_ACT): ch
+// itself where the kind has no second-order channel
+__host__ __device__ constexpr int act_slot(int act, int ch) {
+  return (act >> ACT_A2_SHIFT) == 0 ? ch : ch + n_a2(act, ch);
+}
+// a second-order servo's coefficients omega_n^2 and 2 zeta omega_n, formed
+// in float64 on the host (kernels.py::param_act); the instances that carry
+// such servos read them after the servos' ActP, a pair per second-order
+// channel in channel order
+enum A2P : int { A2_W2, A2_ZW2, A2_N };
 constexpr int XS_ACT = N_XSYS, N_XSYS_FBW = XS_ACT + N_ACT;          // 19
 constexpr int UF_MIX = 5, UF_E_MIX = 8, UF_PLD = 13, N_USYS_FBW = 18;
 constexpr int P_ACT = P_HEAD, P_HEAD_FBW = P_ACT + N_ACT * AC_N;
+constexpr int P_A2 = P_HEAD_FBW;
 // the turbulent vehicle's buffer holds the drive's scale sqrt(pi / dt) after
 // the table offsets (after the servos, fly-by-wire)
 constexpr int P_TURB_K_ETA = P_HEAD, P_HEAD_TURB = P_HEAD + 1;
@@ -185,7 +219,9 @@ constexpr int FSYS_N_OUT_FBW = N_XSYS_FBW + N_SSYS + N_SYSY;         // 27
 template <int ACT>
 struct SysL {
   enum : int {
-    NX = act_fbw(ACT) ? N_XSYS_FBW : N_XSYS,
+    NX = act_fbw(ACT) ? N_XSYS_FBW + n_a2(ACT) : N_XSYS,
+    // the servos' states (role DRAG's slots)
+    NACT = act_fbw(ACT) ? N_ACT + n_a2(ACT) : 0,
     NU = act_fbw(ACT) ? N_USYS_FBW : N_USYS,
     U_E = act_fbw(ACT) ? UF_E_MIX : US_E_MIX,
     U_E_MIXCTL = U_E + 1,
@@ -337,6 +373,18 @@ template <typename T>
 __device__ __forceinline__ T servo_dot(const T* P, int ch, T x, T cmd) {
   const T* A = P + P_ACT + ch * AC_N;
   return (clamp(cmd, A[AC_lo], A[AC_hi]) - x) / A[AC_tau];
+}
+
+// Actuator2 on channel ch, the j-th second-order channel: the derivatives
+// p' = v and v' = omega_n^2 (clip(cmd) - p) - 2 zeta omega_n v of its
+// position p and rate v, in the association order of the Python
+template <typename T>
+__device__ __forceinline__ void servo2_dot(const T* P, int ch, int j, T p,
+                                           T v, T cmd, T& p_dot, T& v_dot) {
+  const T* A = P + P_ACT + ch * AC_N;
+  const T* W = P + P_A2 + j * A2_N;
+  p_dot = v;
+  v_dot = W[A2_W2] * (clamp(cmd, A[AC_lo], A[AC_hi]) - p) - W[A2_ZW2] * v;
 }
 
 // the u_sys row of channel ch's command (the mixture sits among them)
@@ -1046,9 +1094,11 @@ inline RoleLaunch role_launch(int B, int lanes, int n_params, int elem_size,
 }
 
 // row of X in slot k of a role, -1 past its rows; in the fly-by-wire
-// instances role DRAG integrates the servo states
+// instances role DRAG integrates the servo states (two of a second-order
+// servo)
 template <int ACT = ACT_MECH>
 __device__ __forceinline__ int role_row(int role, int k) {
+  static_assert(SysL<ACT>::NACT <= N_SLOTS, "role DRAG's servo states");
   if (role == ROLE_KIN) return k;
   if (role == ROLE_AERO) return k < 2 ? X_SYS + XS_ALPHA + k : -1;
   if (role == ROLE_ENG)
@@ -1057,7 +1107,7 @@ __device__ __forceinline__ int role_row(int role, int k) {
   if (role >= ROLE_LEG0)
     return k < 2 ? X_SYS + XS_FRC + 2 * (role - ROLE_LEG0) + k : -1;
   if (act_fbw(ACT) && role == ROLE_DRAG)
-    return k < N_ACT ? X_SYS + XS_ACT + k : -1;
+    return k < SysL<ACT>::NACT ? X_SYS + XS_ACT + k : -1;
   return -1;  // ROLE_DRAG, ROLE_PROP
 }
 
@@ -1257,8 +1307,8 @@ __device__ __forceinline__ void subsystem_roles_share(T* sh,
   }
   if (act_fbw(ACT) && t.role == ROLE_DRAG) {
     const Out<T> so{sh, t.L, t.lane};
-#pragma unroll
-    for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xi[k]);
+#pragma unroll  // the positions
+    for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xi[act_slot(ACT, k)]);
   }
 }
 
@@ -1294,10 +1344,21 @@ __device__ __forceinline__ void subsystem_roles(const T* P, T* sh,
                                in.trn.elevation, a);
     so.s(SH_AERO, a.f_s.x);
     so.s(SH_AERO + 1, a.f_s.y);
-    if constexpr (act_fbw(ACT)) {  // the servos
+    if constexpr (act_fbw(ACT)) {  // the servos, second-order ones too
 #pragma unroll
-      for (int k = 0; k < N_ACT; ++k)
-        d[k] = alive * servo_dot(P, k, xi[k], in.u[fbw_cmd_row(k)]);
+      for (int k = 0; k < N_ACT; ++k) {
+        const int j = act_slot(ACT, k);
+        const T cmd = in.u[fbw_cmd_row(k)];
+        if (act_a2(ACT, k)) {
+          T p_dot, v_dot;
+          servo2_dot(P, k, n_a2(ACT, k), xi[j], xi[j + 1], cmd, p_dot,
+                     v_dot);
+          d[j] = alive * p_dot;
+          d[j + 1] = alive * v_dot;
+        } else {
+          d[j] = alive * servo_dot(P, k, xi[j], cmd);
+        }
+      }
     }
   } else if (role == ROLE_ENG) {
     T mdot;
@@ -1541,13 +1602,13 @@ __device__ __forceinline__ void finish_roles(const T* P, const T* G, T* sh,
   } else {
     // the role's own rows: the engine's four at most, DRAG's servos
 #pragma unroll
-    for (int k = 0; k < (act_fbw(ACT) ? N_ACT : PW_OMEGA + 1); ++k)
+    for (int k = 0; k < (act_fbw(ACT) ? L::NACT : PW_OMEGA + 1); ++k)
       xn[k] = x[k] + c6 * ksum[k];
     in = load_sys_in<ACT>(c, r_ctx + CX_USYS, r_ctx + L::CX_SSYS,
                           r_ctx + L::CX_TRN);
     if (act_fbw(ACT) && role == ROLE_DRAG) {
-#pragma unroll
-      for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xn[k]);
+#pragma unroll  // the positions
+      for (int k = 0; k < N_ACT; ++k) so.s(SH_ACT + k, xn[act_slot(ACT, k)]);
     }
   }
   __syncthreads();

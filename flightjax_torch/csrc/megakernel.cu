@@ -224,8 +224,9 @@ struct MegaL {
 // h_e (with GDC also the n-vector of the new q_ew), role AERO the gated
 // airflow angles and the filters, role ENG the speed ratio (with MSN also
 // the engine's new state), role DRAG the commands (clipped, from CTX) and
-// the servo positions, each leg its weight on wheels
-template <bool GDC, typename T, bool MSN = false>
+// the servo positions (from the slots of ActKind ACT), each leg its weight
+// on wheels
+template <bool GDC, typename T, bool MSN = false, int ACT = ACT_FBW>
 __device__ __forceinline__ void share_ctl_y(const T* P, const Out<T>& so,
                                             const Col<T>& c, int r_usys,
                                             const RoleThread& t,
@@ -256,7 +257,7 @@ __device__ __forceinline__ void share_ctl_y(const T* P, const Out<T>& so,
       const T* A = P + P_ACT + ch[k] * AC_N;
       so.s(CY_CMD + k, clamp(c(r_usys + fbw_cmd_row(ch[k])), A[AC_lo],
                              A[AC_hi]));
-      so.s(CY_POS + k, servo_pos(P, ch[k], xn[ch[k]]));
+      so.s(CY_POS + k, servo_pos(P, ch[k], xn[act_slot(ACT, ch[k])]));
     }
   } else if (t.role >= ROLE_LEG0) {
     so.s(CY_WOW + t.role - ROLE_LEG0, T(f.wow ? 1.0 : 0.0));
@@ -440,7 +441,7 @@ __global__ void __launch_bounds__(N_ROLES * MAX_LANES)
   }
   if constexpr (AVK != AV_NONE) {
     // what the avionics read of the new state, into the scratch
-    share_ctl_y<av_gdc(AVK), T, av_msn(AVK)>(
+    share_ctl_y<av_gdc(AVK), T, av_msn(AVK), ACT>(
         sP, Out<T>{sh + M::SH_Y * t.L, t.L, t.lane}, c, M::CTX + CX_USYS, t,
         xn, f);
     __syncthreads();
@@ -834,11 +835,13 @@ void FJ_CAT(FJ_NAV_NAME, _launch_shape)(int B, int lanes, int n_params,
 }
 #undef NAV_INSTANCE
 #else
-// the turbulent C172Xv2's instances, each in a translation unit of its own
-// (megakernel_gdc_turb.cu, megakernel_msn_turb.cu define FJ_FBW_ACT, the
+// the turbulent C172Xv2's instances and the second-order elevator's, each in
+// a translation unit of its own (megakernel_gdc_turb.cu,
+// megakernel_msn_turb.cu, megakernel_fbw_a2.cu define FJ_FBW_ACT, the
 // ActKind, FJ_FBW_AVK, the avionics, and FJ_FBW_NAME, the instance's name,
 // and include this file), so that nvcc builds them beside this one: the
-// fly-by-wire signature; i the int32 rows (i, seed, n)
+// fly-by-wire signature; i the int32 rows (i, seed, n) of the turbulent
+// ones, the step counter of the calm one
 #define FJ_CAT2(a, b) a##b
 #define FJ_CAT(a, b) FJ_CAT2(a, b)
 #define FBW_INSTANCE(NAME, T)                                               \

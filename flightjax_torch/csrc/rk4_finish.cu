@@ -56,6 +56,12 @@
 // the turbulent C172X: the fly-by-wire instance's servos and the avionics'
 // KIN_Y and SYS_Y (EAS from the disturbed air data) after the residuals,
 // then the new drive.
+//
+// The second-order elevator's instance (rk4_finish_fbw_a2, ACT_FBW_A2) is
+// the same TPU kernel traced over the C172Xv1 whose elevator is an
+// Actuator2: role DRAG combines the elevator's position and rate as every
+// servo state, x + c6 k, and shares the positions; its rows move by one
+// after the elevator's, and its outputs are the fly-by-wire instance's.
 #include "c172_systems.cuh"
 #include "turbulence.cuh"
 
@@ -303,6 +309,29 @@ void rk4_finish_turb_launch_shape(int B, int lanes, int n_params,
                                   int elem_size, int* grid, int* block,
                                   int* shared) {
   put_launch(role_launch(B, lanes, 0, elem_size, SH_N), grid, block, shared);
+}
+int rk4_finish_fbw_a2_f32(const void* in, const void* ksum,
+                          const void* params, void* out, int B, double c6,
+                          int comp, int lanes, void* stream) {
+  return launch<ACT_FBW_A2, SF>(in, ksum, params, out, B, c6, comp, lanes,
+                                stream);
+}
+int rk4_finish_fbw_a2_f64(const void* in, const void* ksum,
+                          const void* params, void* out, int B, double c6,
+                          int comp, int lanes, void* stream) {
+  return launch<ACT_FBW_A2, SD>(in, ksum, params, out, B, c6, comp, lanes,
+                                stream);
+}
+void rk4_finish_fbw_a2_layout(int* n_in, int* n_out) {
+  using L = SysL<ACT_FBW_A2>;
+  *n_in = L::NXV + L::NCTX + N_C;
+  *n_out = FinRows<ACT_FBW_A2>::RO_SY + N_SYSY;
+}
+void rk4_finish_fbw_a2_launch_shape(int B, int lanes, int n_params,
+                                    int elem_size, int* grid, int* block,
+                                    int* shared) {
+  put_launch(role_launch(B, lanes, 0, elem_size, sh_rows<ACT_FBW_A2>()),
+             grid, block, shared);
 }
 int rk4_finish_f32(const void* in, const void* ksum, const void* params,
                    void* out, int B, double c6, int comp, int lanes,

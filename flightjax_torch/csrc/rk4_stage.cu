@@ -55,6 +55,16 @@
 // role DRAG's servos, with role KIN's filters and disturbed air data as in
 // the turbulent one. Its drive's scale follows the servos in the
 // parameters; its scratch is the fly-by-wire one.
+//
+// The second-order elevator's instance (rk4_stage_fbw_a2, ACT_FBW_A2) is
+// the same TPU kernel traced over the C172Xv1 whose elevator is an
+// Actuator2 (c172x.build_xv1(actuators={"elevator": Actuator2()})): the
+// elevator's position and rate take two rows of X and two of role DRAG's
+// slots, whose derivatives p' = v, v' = omega_n^2 (clip(cmd) - p) -
+// 2 zeta omega_n v read the pair of coefficients after the servos in the
+// parameters (c172_systems.cuh::servo2_dot); role DRAG shares the
+// position, as of every servo, so the other roles and the scratch are the
+// fly-by-wire instance's.
 #include "c172_systems.cuh"
 #include "turbulence.cuh"
 
@@ -169,6 +179,35 @@ int rk4_stage_fbw_turb_f64(const void* in, const void* k, const void* params,
                            int lanes, void* stream) {
   return launch<ACT_FBW_TURB, SD>(in, k, params, out, B, n_params, adt,
                                   lanes, stream);
+}
+int rk4_stage_fbw_a2_f32(const void* in, const void* k, const void* params,
+                         void* out, int B, int n_params, double adt,
+                         int lanes, void* stream) {
+  return launch<ACT_FBW_A2, SF>(in, k, params, out, B, n_params, adt, lanes,
+                                stream);
+}
+int rk4_stage_fbw_a2_f64(const void* in, const void* k, const void* params,
+                         void* out, int B, int n_params, double adt,
+                         int lanes, void* stream) {
+  return launch<ACT_FBW_A2, SD>(in, k, params, out, B, n_params, adt, lanes,
+                                stream);
+}
+void rk4_stage_fbw_a2_layout(int* n_in, int* n_out) {
+  *n_in = SysL<ACT_FBW_A2>::NXV + SysL<ACT_FBW_A2>::NCTX;
+  *n_out = SysL<ACT_FBW_A2>::NXV;
+}
+void rk4_stage_fbw_a2_launch_shape(int B, int lanes, int n_params,
+                                   int elem_size, int* grid, int* block,
+                                   int* shared) {
+  put_launch(role_launch(B, lanes, n_params, elem_size,
+                         sh_rows<ACT_FBW_A2>()),
+             grid, block, shared);
+}
+// the head of the second-order elevator's parameter buffer: the fly-by-wire
+// C172X's, then the second-order servos' coefficients
+void systems_fbw_a2_params_layout(int* n_head, int* n_tables) {
+  *n_head = P_A2 + A2_N * n_a2(ACT_FBW_A2);
+  *n_tables = TB_N;
 }
 void rk4_stage_fbw_turb_layout(int* n_in, int* n_out) {
   *n_in = STAGE_N_IN_FBW_TURB;

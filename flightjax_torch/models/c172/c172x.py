@@ -65,8 +65,7 @@ class Actuator1:
 class Actuator2:
     """Second-order servo (`c172x.py:78-106`), underdamped by default; the
     state is {p, v}, the output position clipped, saturation flagged on the
-    command. The plain path carries it; the kernels carry `Actuator1` only
-    (ROADMAP Queue 2)."""
+    command."""
 
     order = 2
 
@@ -197,7 +196,7 @@ def load_xv1_state(path=XV1_NPZ):
 
 
 def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1,
-                      path=XV1_NPZ, turbulence=None):
+                      path=XV1_NPZ, turbulence=None, actuators=None):
     """The world SimState of one trimmed aircraft with its avionics' inputs
     and state from `init_from_trim` (the bumpless start of
     `c172x.py::trim_world`); `build` makes the aircraft (`build_xv1`,
@@ -205,15 +204,23 @@ def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1,
     mission's, over its terrain), `path` the trim point. With a Dryden
     `turbulence` the vehicle flies in it and the state holds its initial
     trees (W20 = 0, the gusts off: there the trim is the turbulence-free
-    one). The start is worked out on the CPU in `dtype` and then moved to
-    `device`."""
+    one). With `actuators` ({channel: servo}, as `FlyByWireActuation`
+    takes them) a second-order servo starts at rest at the trim position,
+    {p: position, v: 0} (`Actuator2.trim_x`). The start is worked out on
+    the CPU in `dtype` and then moved to `device`."""
     x, u, s, _, _ = load_xv1_state(path)
     kw = {} if turbulence is None else {"turbulence": turbulence}
+    if actuators is not None:
+        kw["actuators"] = actuators
     cpu = build(device="cpu", dtype=dtype, **kw)
     # the plain vehicle functions take a fleet: one aircraft
     xv, uv, sv = (tree_from_numpy(tree_map(lambda l: np.asarray(l)[None],
                                            t["vehicle"]), "cpu", dtype)
                   for t in (x, u, s))
+    x_act = xv["systems"]["act"]
+    for ch, servo in cpu.vehicle.systems.act.actuators.items():
+        if servo.order == 2:
+            x_act[ch] = {"p": x_act[ch], "v": torch.zeros_like(x_act[ch])}
     if turbulence is not None:
         like = xv["kinematics"]["h_e"]
         xv["turb"] = turbulence.init_x(like)
@@ -230,20 +237,25 @@ def trimmed_xv1_state(periodic_dt, dtype, device, build=build_xv1,
     return tree_map(lambda l: l[0].to(device), state)
 
 
-def c172xv1_sim(device="cuda", dtype=torch.float32, turbulence=None):
+def c172xv1_sim(device="cuda", dtype=torch.float32, turbulence=None,
+                actuators=None):
     """(sim, trimmed single-aircraft SimState, ctx) of the C172Xv1 on WA
     kinematics: dt = periodic_dt = 0.02 s, geoid refresh every 128 steps,
     Kahan-compensated position in float32, the avionics started bumpless
     from the trim (the JAX package's `trim_world`); in Dryden `turbulence`
-    (its dt the step's) if given. Leaves are unbatched;
-    `parallel.fleet.broadcast_state` makes a fleet. The modes are those of
-    the trim start (`LON_DIRECT`, `LAT_DIRECT`); `turning_climb` engages
-    the autopilot."""
+    (its dt the step's) if given; with `actuators` ({channel: servo}, e.g.
+    {"elevator": Actuator2()}) those channels' servos in place of
+    `Actuator1`, a second-order one starting at rest at the trim position.
+    Leaves are unbatched; `parallel.fleet.broadcast_state` makes a fleet.
+    The modes are those of the trim start (`LON_DIRECT`, `LAT_DIRECT`);
+    `turning_climb` engages the autopilot."""
     kw = {} if turbulence is None else {"turbulence": turbulence}
+    if actuators is not None:
+        kw["actuators"] = actuators
     world = SimpleWorld(build_xv1(device=device, dtype=dtype, **kw))
     sim = Simulation(world, dt=0.02, periodic_dt=0.02, geoid_every=128)
     state = trimmed_xv1_state(sim.periodic_dt, dtype, device,
-                              turbulence=turbulence)
+                              turbulence=turbulence, actuators=actuators)
     return sim, sim.with_compensation(state), ()
 
 

@@ -89,7 +89,9 @@ def cluster_step(sim, state: SimState, i: int, *, plain=False,
     through the five cluster kernels, or with `plain` through their plain
     versions on any device. The geoid is refreshed when (i + 1) is a
     multiple of `geoid_every` (default `sim.geoid_every`). A turbulent
-    vehicle is refused (`vehicle_step` carries it)."""
+    vehicle is refused (`vehicle_step` carries it), and so on the card is
+    a second-order servo, whose `systems` and `finish_sys` instances are
+    still to port (`kernels.a2_refusal`, at their launch)."""
     vehicle = sim.system.aircraft.vehicle
     _refuse_turbulence(vehicle)
     C = K.PLAIN if plain else K.WRAPPERS
@@ -258,7 +260,8 @@ def vehicle_step(sim, state: SimState, i: int, block=None, comp=False,
     geoid is refreshed when (i + 1) is a multiple of `geoid_every` (default
     `sim.geoid_every`). On the turbulent C172S the instances
     `rk4_stage_turb` and `rk4_finish_turb`, which also read the start time
-    and the int32 rows (i, seed, n)."""
+    and the int32 rows (i, seed, n); with a second-order servo on the
+    elevator `rk4_stage_fbw_a2` and `rk4_finish_fbw_a2`."""
     vehicle = sim.system.aircraft.vehicle
     lay = K.layout_of(vehicle)
     dt = sim.dt

@@ -24,6 +24,13 @@ The whole vehicle (the `vehicle` split and the megakernel):
                   `megakernel_gdc`, its instance on the C172Xv2 with the
                   guidance and control laws' pass inside it
 
+The C172Xv1 whose elevator is a second-order servo (`Actuator2`; layout
+FBW_A2) has instances of its own of the whole-vehicle kernels and the
+megakernel, `rk4_stage_fbw_a2`, `rk4_finish_fbw_a2` and
+`megakernel_fbw_a2`; another set of second-order channels flies the plain
+path only, and the card refuses it, and the subsystems split over any,
+by name (`a2_refusal`).
+
 The C172X's periodic pass:
 
 - `ctl_laws`   <- `ControlLaws.f_periodic` and `assign`, which the TPU
@@ -132,7 +139,19 @@ FBW_CHANNELS = ("aileron", "brake_left", "brake_right", "elevator", "flaps",
                 "rudder", "throttle")
 FBW_CMD_KEYS = ("aileron", "brake_left", "brake_right", "elevator", "flaps",
                 "mixture", "rudder", "throttle")
-X_SYS_FBW = X_SYS + tuple((("act", ch), 1) for ch in FBW_CHANNELS)
+
+
+def x_sys_fbw(a2=()):
+    """x_sys of the fly-by-wire C172: the mechanical rows, then each
+    servo's state in channel order, its position, or on a second-order
+    channel (of `a2`) its position p and rate v, in the order JAX flattens
+    {"p", "v"}."""
+    return X_SYS + tuple(r for ch in FBW_CHANNELS for r in (
+        ((("act", ch, "p"), 1), (("act", ch, "v"), 1)) if ch in a2
+        else ((("act", ch), 1),)))
+
+
+X_SYS_FBW = x_sys_fbw()
 U_SYS_FBW = (tuple((("act", k), 1) for k in FBW_CMD_KEYS) + U_SYS[
     len(ACT_KEYS):])
 # what the finish kernels of the fly-by-wire C172 store for its avionics:
@@ -349,7 +368,13 @@ class Layout(NamedTuple):
     `megakernel_msn_nav_turb` (their buffer also holds NAV_U and NAV_S,
     their int32 operand NAV_INT after the step counter's rows, the
     turbulent ones after (i, seed, n); the mission's pass in the splits is
-    `msn_nav_ctl_laws`)."""
+    `msn_nav_ctl_laws`); `a2` the channels of the calm C172Xv1 that carry
+    a second-order servo (`Actuator2`), two rows each in x_sys
+    (`x_sys_fbw`): on the elevator (A2_CARD) the instances
+    `rk4_stage_fbw_a2`, `rk4_finish_fbw_a2`, `megakernel_fbw_a2` (and
+    `systems_fbw_a2`, `finish_sys_fbw_a2`, which the card has not yet),
+    on another set names of the plain path only, tagged with its
+    channels."""
     fbw: bool
     x_sys: tuple
     u_sys: tuple
@@ -369,10 +394,22 @@ class Layout(NamedTuple):
     pass_name: str
     turb: bool = False
     nav: bool = False
+    a2: tuple = ()
 
 
-def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
-    x_sys, u_sys = (X_SYS_FBW, U_SYS_FBW) if fbw else (X_SYS, U_SYS)
+# the channel set with second-order servos whose instances the card
+# carries: the elevator, the vehicle of the JAX package's
+# tests/test_actuators.py:95
+A2_CARD = ("elevator",)
+
+
+def _a2_suffix(a2):
+    return "" if not a2 else "_fbw_a2" + (
+        "" if a2 == A2_CARD else "_" + "_".join(a2))
+
+
+def _layout(fbw, gdc=False, msn=False, turb=False, nav=False, a2=()):
+    x_sys, u_sys = (x_sys_fbw(a2), U_SYS_FBW) if fbw else (X_SYS, U_SYS)
     x_groups = (X_KIN, X_DYN, x_sys) + ((X_TURB,) if turb else ())
     ctx = (u_sys, U_ATM, TRN, S_SYS, (("geoid_N", 1),), (("terminated", 1),)
            ) + ((U_TURB, S_TURB) if turb else ())
@@ -394,10 +431,11 @@ def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
         + ((AV_S_MSN,) if msn else ()) + ((NAV_U, NAV_S) if nav else ()),
         # the subsystems split carries no turbulence: its turbulent
         # fly-by-wire names are the fly-by-wire ones, never launched
-        names={k: k + ("_fbw" if fbw else "") + (
+        names={k: k + (_a2_suffix(a2) if a2 else "_fbw" if fbw else "") + (
             "_turb" if turb and k.startswith("rk4") else "")
             for k in ("systems", "finish_sys", "rk4_stage", "rk4_finish")},
-        mega_name=("megakernel_msn_nav" + "_turb" * turb if nav and msn
+        mega_name=("megakernel" + _a2_suffix(a2) if a2
+                   else "megakernel_msn_nav" + "_turb" * turb if nav and msn
                    else "megakernel_gdc_nav" + "_turb" * turb if nav and gdc
                    else ("megakernel_nav_turb" if turb else "megakernel_nav")
                    if nav else "megakernel_msn" + "_turb" * turb if msn
@@ -407,7 +445,8 @@ def _layout(fbw, gdc=False, msn=False, turb=False, nav=False):
                    else "megakernel"),
         pass_name=("msn_nav_ctl_laws" if msn and nav
                    else "msn_ctl_laws" if msn else "gdc_ctl_laws" if gdc
-                   else "ctl_laws" if fbw else None), turb=turb, nav=nav)
+                   else "ctl_laws" if fbw else None), turb=turb, nav=nav,
+        a2=tuple(a2))
 
 
 # the C172S; the fly-by-wire C172X with its ControlLaws (the C172Xv1), with
@@ -451,27 +490,38 @@ X_GROUPS, CTX_GROUPS, STAGE_IN, STAGE_OUT, RKFIN_IN, RKFIN_OUT = (
 
 def layout_of(vehicle, avionics=None):
     """The layout of the vehicle's actuation: FBW for the fly-by-wire
-    servos, whose kernel instances carry `Actuator1` on every channel (a
-    second-order servo has no kernel yet), GDC where its `avionics` are the
+    servos, `Actuator1` on every channel, GDC where its `avionics` are the
     C172Xv2's guidance and control laws, MSN a mission over them; TURB for
     the C172S with Dryden turbulence, FBW_TURB (GDC_TURB, MSN_TURB) for the
     turbulent fly-by-wire C172X. Navigation avionics take their inner
     avionics' layout, marked `nav`: around the control laws FBW_NAV
     (FBW_TURB_NAV), around the guidance and control laws GDC_NAV
-    (GDC_TURB_NAV), around a mission MSN_NAV (MSN_TURB_NAV)."""
+    (GDC_TURB_NAV), around a mission MSN_NAV (MSN_TURB_NAV). A calm
+    C172Xv1 with second-order servos (`Actuator2`) on some channels takes
+    the layout of that set, `a2_layout` (FBW_A2 on the elevator); those
+    servos with turbulence, the C172Xv2's guidance, a mission or the
+    navigation avionics are refused (ROADMAP Queue 2)."""
     act = vehicle.systems.act
     stateful = getattr(act, "stateful", False)
     turb = getattr(vehicle, "turbulence", None) is not None
     if not stateful:
         return TURB if turb else MECH
-    bad = [ch for ch, a in act.actuators.items() if a.order != 1]
-    if bad:
-        raise ValueError(
-            f"the kernels carry first-order servos only, not {bad}: "
-            "ROADMAP Queue 2, 'Actuator2 channels in the kernels'")
     from flightjax_torch.physics.navigation import NavAvionics
     nav = isinstance(avionics, NavAvionics)
     inner = avionics.inner if nav else avionics
+    a2 = tuple(ch for ch in FBW_CHANNELS if act.actuators[ch].order == 2)
+    if a2:
+        what = ("Dryden turbulence" if turb else "the navigation avionics"
+                if nav else "the C172Xv2's guidance laws"
+                if isinstance(inner, Avionics) else "a scripted mission"
+                if isinstance(inner, MissionAvionics) else None)
+        if what is not None:
+            raise ValueError(
+                f"the kernels carry second-order servos (Actuator2 on "
+                f"{list(a2)}) on the calm C172Xv1 with its control laws, "
+                f"not with {what}: ROADMAP Queue 2, 'Actuator2 channels in "
+                f"the kernels'")
+        return a2_layout(a2)
     if isinstance(inner, Avionics):
         if nav:
             return GDC_TURB_NAV if turb else GDC_NAV
@@ -677,12 +727,19 @@ def param_scalars(vehicle):
 
 def param_act(vehicle):
     """The servos' time constants and ranges, in float64, in the order of
-    FBW_CHANNELS and ACT_P; [] for a stateless actuation."""
-    if not layout_of(vehicle).fbw:
+    FBW_CHANNELS and ACT_P (NaN for the time constant of a second-order
+    servo, which has none); then, with second-order servos, each one's
+    omega_n^2 and 2 zeta omega_n in channel order (csrc/c172_systems.cuh,
+    A2_*), formed in float64 as `Actuator2.f_ode` forms them; [] for a
+    stateless actuation."""
+    lay = layout_of(vehicle)
+    if not lay.fbw:
         return []
     acts = vehicle.systems.act.actuators
-    return [v for ch in FBW_CHANNELS
-            for v in (acts[ch].tau, *acts[ch].range)]
+    out = [v for ch in FBW_CHANNELS for v in (
+        acts[ch].tau if acts[ch].order == 1 else math.nan, *acts[ch].range)]
+    return out + [v for ch in lay.a2 for v in (
+        acts[ch].omega_n ** 2, 2.0 * acts[ch].zeta * acts[ch].omega_n)]
 
 
 def param_turb(vehicle):
@@ -1554,6 +1611,62 @@ _INSTANCES.update({lay.names[k]: (k, lay) for lay in (TURB, FBW_TURB)
 for _lay in (TURB, FBW_TURB, GDC, MSN, GDC_TURB, MSN_TURB, FBW_NAV,
              FBW_TURB_NAV, GDC_NAV, MSN_NAV, GDC_TURB_NAV, MSN_TURB_NAV):
     _INSTANCES[_lay.mega_name] = ("megakernel", _lay)
+_A2_LAYOUTS = {}
+
+
+def a2_layout(a2):
+    """The layout of the calm C172Xv1 whose channels `a2` (in FBW_CHANNELS
+    order) carry second-order servos, made and registered once: its
+    instances pack and unpack as the fly-by-wire ones."""
+    lay = _A2_LAYOUTS.get(a2)
+    if lay is None:
+        lay = _A2_LAYOUTS[a2] = _layout(True, a2=a2)
+        for k, n in dict(lay.names, megakernel=lay.mega_name).items():
+            _INSTANCES[n] = (k, lay)
+            if k in PACK:
+                PACK[n] = PACK[k]
+    return lay
+
+
+# the C172Xv1 with a second-order servo on the elevator
+FBW_A2 = a2_layout(A2_CARD)
+
+
+def a2_refusal(lay, kernels):
+    """Why the card has no instance of each of `kernels` (the kernels'
+    names, "megakernel" among them) for the layout `lay`, as the exception
+    to raise, or None: the card carries second-order servos on the
+    elevator alone (A2_CARD), in the whole-vehicle kernels and the
+    megakernel; the subsystems split's instances over them and every other
+    channel set fly the plain path only (ROADMAP Queue 2)."""
+    if not lay.a2:
+        return None
+    if lay.a2 != A2_CARD:
+        return ValueError(
+            f"the kernels on the card carry a second-order servo on the "
+            f"elevator alone, not on {list(lay.a2)}: such a vehicle flies "
+            f"the plain path (the CPU); ROADMAP Queue 2, 'Actuator2 "
+            f"channels in the kernels'")
+    names = dict(lay.names, megakernel=lay.mega_name)
+    missing = [names[k] for k in kernels if names[k] not in L.KERNELS]
+    if missing:
+        return NotImplementedError(
+            f"the card has no {' and no '.join(missing)} yet (ROADMAP Queue "
+            f"2, 'Actuator2 channels in the kernels'): the C172Xv1 with a "
+            f"second-order elevator flies make_cluster_step(split="
+            f"'vehicle') and make_megakernel_step on the card, "
+            f"Simulation.fleet_step on the CPU")
+    return None
+
+
+def _card_kernel(name):
+    """Raise where the card has no kernel instance `name`: over second-order
+    servos, `a2_refusal` naming every instance of its layout the card
+    lacks (the subsystems split's two)."""
+    if name not in L.KERNELS:
+        _, lay = _INSTANCES.get(name, (name, MECH))
+        raise (a2_refusal(lay, (*lay.names, "megakernel"))
+               or ValueError(f"no kernel {name}"))
 
 
 def _av_tree(d):
@@ -1746,7 +1859,9 @@ def unpack_out(name, out, comp=False, ints=None):
 
 def launch_kernel(name, buf, n_out, scalars, operands, block=None):
     """Launch kernel `name` on packed operands (the form `PACK[name]`
-    returns) and count the launch."""
+    returns) and count the launch; raises where the card has no instance
+    `name` (`a2_refusal`)."""
+    _card_kernel(name)
     out = L.launch(name, buf, n_out, scalars, block=block, **operands)
     LAUNCHES[name] += 1
     return out
@@ -2036,9 +2151,12 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
     (`megakernel_gdc_nav_turb`), around a mission over them
     `megakernel_msn_nav` (`megakernel_msn_nav_turb`), whose int32 buffer
     holds the NAV_INT rows after those and which reads the sensors' normal
-    table (`ops/random.normal_table`)."""
+    table (`ops/random.normal_table`); with a second-order servo on the
+    elevator `megakernel_fbw_a2` (the control laws' pass as in
+    `megakernel_fbw`; another channel set is refused, `a2_refusal`)."""
     lay = layout_of(vehicle, avionics)
     name = lay.mega_name
+    _card_kernel(name)
     out = L.launch_megakernel(
         bufs[0], bufs[1], system_params(vehicle), geoid_grid(vehicle.geoid),
         dt, t_start, comp, block,
@@ -2046,7 +2164,8 @@ def launch_megakernel(vehicle, bufs, dt, t_start, comp, block=None,
         gdc=lay.pass_name == "gdc_ctl_laws",
         msn=lay.pass_name in ("msn_ctl_laws", "msn_nav_ctl_laws"),
         turb=lay.turb,
-        table=normal_table(bufs[0].device) if lay.nav else None)
+        table=normal_table(bufs[0].device) if lay.nav else None,
+        a2=bool(lay.a2))
     LAUNCHES[name] += 1
     return out
 

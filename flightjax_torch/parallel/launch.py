@@ -77,10 +77,15 @@ MSN_NAV_KERNELS = ("megakernel_msn_nav", "msn_nav_ctl_laws")
 # mission flown on it (their splits run the FBW_TURB_KERNELS, `nav_pass`
 # and the passes on the estimates)
 NAV_TURB_KERNELS = ("megakernel_gdc_nav_turb", "megakernel_msn_nav_turb")
+# the C172Xv1 with a second-order servo (Actuator2) on the elevator: the
+# whole-vehicle kernels and the megakernel with its control laws (ActKind
+# ACT_FBW_A2 of csrc/c172_systems.cuh)
+A2_KERNELS = ("rk4_stage_fbw_a2", "rk4_finish_fbw_a2", "megakernel_fbw_a2")
 ROLE_KERNELS = ("kinair", "finish_kin", "systems", "finish_sys", "rk4_stage",
                 "rk4_finish", "megakernel", *FBW_KERNELS, *AV_KERNELS,
                 *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
-                *GDC_TURB_KERNELS, *MSN_NAV_KERNELS, *NAV_TURB_KERNELS)
+                *GDC_TURB_KERNELS, *MSN_NAV_KERNELS, *NAV_TURB_KERNELS,
+                *A2_KERNELS)
 # the role kernels that copy the parameter buffer into shared memory and so
 # take its length; finish_sys and rk4_finish read their few scalars through
 # the read-only cache (csrc/finish_sys.cu, csrc/rk4_finish.cu)
@@ -89,7 +94,8 @@ COPY_PARAMS = ("systems", "rk4_stage", "megakernel", "systems_fbw",
                "megakernel_msn", "rk4_stage_turb", "megakernel_turb",
                "rk4_stage_fbw_turb", "megakernel_fbw_turb", "megakernel_nav",
                "megakernel_nav_turb", "megakernel_gdc_nav",
-               *GDC_TURB_KERNELS, "megakernel_msn_nav", *NAV_TURB_KERNELS)
+               *GDC_TURB_KERNELS, "megakernel_msn_nav", *NAV_TURB_KERNELS,
+               "rk4_stage_fbw_a2", "megakernel_fbw_a2")
 
 # values at the head of the geoid grid buffer (csrc/flight_math.cuh)
 GEO_HEAD = 6
@@ -100,15 +106,17 @@ N_GAIN_TABLES = 10
 KERNELS = ("kinair", "dynamics", "finish_kin", "systems", "finish_sys",
            "rk4_stage", "rk4_finish", "geoid", "megakernel", *FBW_KERNELS,
            *AV_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS, *NAV_KERNELS,
-           *GDC_TURB_KERNELS, *MSN_NAV_KERNELS, *NAV_TURB_KERNELS)
+           *GDC_TURB_KERNELS, *MSN_NAV_KERNELS, *NAV_TURB_KERNELS,
+           *A2_KERNELS)
 # kernels that take a second [n_x, B] operand (k_prev or the k-sum), the
 # systems' parameter buffer, the geoid grid, the int32 [3, B] rows (step
 # counter, stream seed, drive counter) of the turbulent vehicle
 WITH_K = ("rk4_stage", "rk4_finish", "rk4_stage_fbw", "rk4_finish_fbw",
           "rk4_stage_turb", "rk4_finish_turb", "rk4_stage_fbw_turb",
-          "rk4_finish_fbw_turb")
+          "rk4_finish_fbw_turb", "rk4_stage_fbw_a2", "rk4_finish_fbw_a2")
 WITH_PARAMS = ("systems", "finish_sys", "rk4_stage", "rk4_finish",
-               "megakernel", *FBW_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS)
+               "megakernel", *FBW_KERNELS, *TURB_KERNELS, *FBW_TURB_KERNELS,
+               *A2_KERNELS)
 WITH_GRID = ("geoid", "megakernel", "megakernel_turb", "megakernel_fbw_turb")
 WITH_GAINS = ("ctl_laws", "gdc_ctl_laws", "msn_ctl_laws", "msn_nav_ctl_laws")
 WITH_INTS = ("rk4_finish_turb", "rk4_finish_fbw_turb")
@@ -203,12 +211,14 @@ def library():
             lib = ctypes.CDLL(so)
             P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             for name in (*KERNELS, "systems_params", "systems_fbw_params",
-                         "systems_turb_params", "systems_fbw_turb_params"):
+                         "systems_turb_params", "systems_fbw_turb_params",
+                         "systems_fbw_a2_params"):
                 f = getattr(lib, f"{name}_layout")
                 f.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
                 f.restype = None
             for f in (lib.vehicle_layout, lib.vehicle_fbw_layout,
-                      lib.vehicle_turb_layout, lib.vehicle_fbw_turb_layout):
+                      lib.vehicle_turb_layout, lib.vehicle_fbw_turb_layout,
+                      lib.vehicle_fbw_a2_layout):
                 f.argtypes = [ctypes.POINTER(I)] * 4
                 f.restype = None
             sig = {"kinair": [P, P, I, D, I, P],
@@ -237,6 +247,9 @@ def library():
                        megakernel_gdc_turb=sig["megakernel_fbw"],
                        megakernel_msn_turb=sig["megakernel_fbw"])
             sig["rk4_finish_fbw_turb"] = sig["rk4_finish_turb"]
+            sig.update(rk4_stage_fbw_a2=sig["rk4_stage"],
+                       rk4_finish_fbw_a2=sig["rk4_finish"],
+                       megakernel_fbw_a2=sig["megakernel_fbw"])
             sig["nav_pass"] = [P] * 7 + [I, I, I, P]
             for name in ("megakernel_nav", "megakernel_nav_turb",
                          "megakernel_gdc_nav", "megakernel_msn_nav",
@@ -274,13 +287,15 @@ def layout(name):
     return _LAYOUTS[name]
 
 
-def vehicle_layout(fbw=False, turb=False):
+def vehicle_layout(fbw=False, turb=False, a2=False):
     """{x, ctx, c, mega}: rows of the whole-vehicle groups X, CTX, C and of
     the megakernel's state buffer, as the compiled kernels declare them,
     for the mechanical C172, with `fbw` the fly-by-wire one, with `turb`
     the turbulent C172S, with both the turbulent fly-by-wire C172X (its
-    megakernel with the control laws)."""
-    key = "vehicle" + ("_fbw" if fbw else "") + ("_turb" if turb else "")
+    megakernel with the control laws), with `fbw` and `a2` the C172Xv1
+    with a second-order elevator."""
+    key = "vehicle" + ("_fbw" if fbw else "") + ("_turb" if turb else "") \
+        + ("_a2" if a2 else "")
     if key not in _LAYOUTS:
         v = [ctypes.c_int() for _ in range(4)]
         getattr(library(), f"{key}_layout")(*map(ctypes.byref, v))
@@ -302,18 +317,19 @@ def check_operand(t, n_rows, B, dtype, device):
         raise ValueError("kernel operand must be contiguous")
 
 
-def check_params(params, dtype, device, fbw=False, turb=False):
+def check_params(params, dtype, device, fbw=False, turb=False, a2=False):
     """The C172 systems' parameter buffer (`kernels.system_params`): a
     contiguous 1-D tensor at least as long as the head the kernels (the
-    fly-by-wire instances with `fbw`, the turbulent ones with `turb`)
-    read."""
+    fly-by-wire instances with `fbw`, the turbulent ones with `turb`, the
+    second-order elevator's with `a2`) read."""
     if not isinstance(params, torch.Tensor):
         raise TypeError("kernel parameters must be a tensor")
     if params.device != device or params.dtype != dtype:
         raise ValueError(f"kernel parameters on {params.device}/"
                          f"{params.dtype}, expected {device}/{dtype}")
     n_head, _ = layout("systems" + ("_fbw" if fbw else "")
-                       + ("_turb" if turb else "") + "_params")
+                       + ("_turb" if turb else "") + ("_a2" if a2 else "")
+                       + "_params")
     if params.dim() != 1 or params.shape[0] < n_head:
         raise ValueError(f"kernel parameters of shape {tuple(params.shape)}"
                          f", the head alone has {n_head}")
@@ -397,8 +413,9 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
     kernels, the parameter buffer for the kernels of the C172 systems, the
     geoid grid for `geoid`, the control laws' gains for `ctl_laws`,
     `gdc_ctl_laws`, `msn_ctl_laws` and `msn_nav_ctl_laws` (with the
-    mission table for the last two, `kernels.ctl_gains`), the int32 `[3, B]` rows (i, seed, n) for
-    `rk4_finish_turb` and `rk4_finish_fbw_turb`.
+    mission table for the last two, `kernels.ctl_gains`), the int32
+    `[3, B]` rows (i, seed, n) for `rk4_finish_turb` and
+    `rk4_finish_fbw_turb`.
     Returns the packed `[n_out, B]` output. Does not synchronise."""
     dtype, device = packed_in.dtype, packed_in.device
     fn = _fn(name, dtype, device)
@@ -416,13 +433,15 @@ def launch(name, packed_in, n_out, scalars, block=None, params=None, k=None,
         if (name in kernels) != (val is not None):
             raise ValueError(f"{name}: operand {key} "
                              + ("missing" if val is None else "not taken"))
-    fbw = name in FBW_KERNELS or name in FBW_TURB_KERNELS
+    a2 = name in A2_KERNELS
+    fbw = name in FBW_KERNELS or name in FBW_TURB_KERNELS or a2
     turb = name in TURB_KERNELS or name in FBW_TURB_KERNELS
     if k is not None:
-        check_operand(k, vehicle_layout(fbw, turb)["x"], B, dtype, device)
+        check_operand(k, vehicle_layout(fbw, turb, a2)["x"], B, dtype,
+                      device)
         ptrs.append(k.data_ptr())
     if params is not None:
-        check_params(params, dtype, device, fbw, turb)
+        check_params(params, dtype, device, fbw, turb, a2)
         ptrs.append(params.data_ptr())
     if ints is not None:
         check_operand(ints, N_TURB_INT, B, torch.int32, device)
@@ -505,7 +524,7 @@ def launch_nav_pass(packed_in, n_out, ints, gains, table, block=None,
 
 def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
                       gains=None, spp=1, periodic_dt=0.0, gdc=False,
-                      msn=False, turb=False, table=None):
+                      msn=False, turb=False, table=None, a2=False):
     """One whole step on the megakernel's resident state: `state` is the
     `[mega, B]` buffer, `i` the int32 `[1, B]` step counter. Returns the
     new (state, i) in fresh buffers. `block` is the aircraft per block.
@@ -528,13 +547,15 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     and missions' `megakernel_gdc_nav_turb` and `megakernel_msn_nav_turb`,
     whose `i` also holds the NAV_INT rows (`[1 + 11, B]`; turbulent
     `[3 + 11, B]`: i, seed, n, then NAV_INT); their work buffer is
-    allocated here. Does not synchronise."""
+    allocated here. With `a2` and the gains, the C172Xv1 with a
+    second-order elevator's `megakernel_fbw_a2`. Does not synchronise."""
     fbw = gains is not None
     nav = table is not None
-    if (gdc or msn or nav) and not fbw:
+    if (gdc or msn or nav or a2) and not fbw:
         raise ValueError("the avionics' megakernels take the control laws' "
                          "gains")
-    name = ("megakernel_msn_nav" + "_turb" * turb if msn and nav
+    name = ("megakernel_fbw_a2" if a2
+            else "megakernel_msn_nav" + "_turb" * turb if msn and nav
             else "megakernel_msn" + "_turb" * turb if msn
             else "megakernel_gdc_nav" + "_turb" * turb if gdc and nav
             else "megakernel_gdc" + "_turb" * turb if gdc
@@ -549,7 +570,7 @@ def launch_megakernel(state, i, params, grid, dt, t_start, comp, block=None,
     check_operand(state, layout(name)[0], B, dtype, device)
     check_operand(i, (N_TURB_INT if turb else 1) + (N_NAV_INT if nav else 0),
                   B, torch.int32, device)
-    check_params(params, dtype, device, fbw, turb)
+    check_params(params, dtype, device, fbw, turb, a2)
     check_grid(grid, dtype, device)
     out, i_out = torch.empty_like(state), torch.empty_like(i)
     ptrs = [state.data_ptr(), i.data_ptr(), params.data_ptr(),

@@ -13,8 +13,10 @@ integers) follow C (`csrc/c172x_ctl.cuh`); on the C172Xv2
 (`megakernel_gdc`) the guidance's inputs follow them
 (`csrc/c172x_gdc.cuh`), and over a scripted mission (`megakernel_msn`)
 the phase index and the mission clock follow those (`csrc/c172x_msn.cuh`).
-The rows of the buffer: 69 (the C172S), 141 (the C172Xv1), 158 (the
-C172Xv2), 160 (a mission), 84 (the turbulent C172S, `megakernel_turb`:
+The rows of the buffer: 69 (the C172S), 141 (the C172Xv1; 142 with a
+second-order elevator, `megakernel_fbw_a2`, whose rate follows its
+position), 158 (the C172Xv2), 160 (a mission), 84 (the turbulent C172S,
+`megakernel_turb`:
 the C172S's rows with the five filter states after X and the Dryden and
 discrete-gust inputs and the held drive after CTX). On the turbulent C172S
 the int32 counter is `[3, B]`: the step counter, the stream's seed and the
@@ -107,7 +109,10 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
     and missions (`missions.mission_nav_sim`: `megakernel_msn_nav`, the
     phase machine on the estimates too), calm and in turbulence
     (`megakernel_gdc_nav_turb`, `megakernel_msn_nav_turb`: int32 rows i,
-    seed, n, then NAV_INT)."""
+    seed, n, then NAV_INT), and the C172Xv1 with a second-order elevator
+    (`c172x.c172xv1_sim(actuators={"elevator": Actuator2()})`:
+    `megakernel_fbw_a2`; on the CPU any set of second-order channels,
+    which the card refuses by name, `kernels.a2_refusal`)."""
     if ctx != ():
         raise NotImplementedError(
             "the step takes no context: ctx is () in every model, and the "
@@ -115,9 +120,13 @@ def make_megakernel_step(sim, state, ctx=(), block=None):
             "core/mission.py)")
     aircraft = sim.system.aircraft
     vehicle, avionics = aircraft.vehicle, aircraft.avionics
-    lay = K.layout_of(vehicle)  # refuses second-order servos
+    lay = K.layout_of(vehicle)
     if lay.fbw:  # refuses avionics that have no kernel
         lay = K.avionics_layout(vehicle, avionics)
+    if state.t.device.type != "cpu":  # a second-order servo the card lacks
+        why = K.a2_refusal(lay, ("megakernel",))
+        if why is not None:
+            raise why
     name = lay.mega_name
     comp = state.c is not None
 

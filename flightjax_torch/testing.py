@@ -248,13 +248,29 @@ def operand_state(d, device, dtype, i0=0):
 
 # ------------------------------------------------------------ the C172Xv1
 
+def with_a2(x_act, a2, rng, k_act=None):
+    """The servo states `x_act` (numpy, by channel) with the channels `a2`
+    second-order: {p: the position, v: a rate drawn from N(0, 3)}; with
+    `k_act` also derivatives {p, v: drawn from N(0, 50)}, returned as
+    (x_act, k_act)."""
+    x_act = dict(x_act)
+    k_act = None if k_act is None else dict(k_act)
+    for ch in a2:
+        n = np.shape(x_act[ch])[0]
+        x_act[ch] = {"p": x_act[ch], "v": rng.normal(0.0, 3.0, n)}
+        if k_act is not None:
+            k_act[ch] = {"p": k_act[ch], "v": rng.normal(0.0, 50.0, n)}
+    return x_act if k_act is None else (x_act, k_act)
+
+
 def fbw_cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=(),
-                         crash_lanes=()):
+                         crash_lanes=(), a2=()):
     """`cluster_operands` for the fly-by-wire C172: the same lanes, with
     servo positions, their derivatives and the eight commands drawn from a
     numpy seed, some past their channel's range (the clamps of both the
     positions and the commands are taken), and the nose-wheel steering of
-    the runway lanes near full deflection."""
+    the runway lanes near full deflection; with second-order servos on
+    the channels `a2` (`with_a2`)."""
     from flightjax_torch.parallel.kernels import FBW_CHANNELS
     from flightjax_torch.models.c172.c172x import ACT_RANGES
     d = cluster_operands(batch, seed, ground_lanes, terminated_lanes,
@@ -269,9 +285,12 @@ def fbw_cluster_operands(batch, seed, ground_lanes=(), terminated_lanes=(),
         u_act[ch] = rng.uniform(lo - 0.2 * span, hi + 0.2 * span, batch)
     x_act["rudder"][list(ground_lanes)] = 0.9
     u_act["mixture"] = rng.uniform(-0.1, 1.1, batch)
+    if a2:
+        x_act, k_act = with_a2(x_act, a2, np.random.default_rng(seed + 7),
+                               k_act)
     d["x_sys"]["act"] = x_act
     d["k_sys"]["act"] = k_act
-    d["ksum_sys"]["act"] = {k: 6.0 * v for k, v in k_act.items()}
+    d["ksum_sys"]["act"] = tree_map(lambda v: 6.0 * v, k_act)
     d["u_sys"]["act"] = u_act
     return d
 
@@ -318,12 +337,19 @@ def _perturbed_c172x(st, batch, seed, ground_lanes=()):
     return t, i, x, u, s
 
 
-def xv1_fleet_sim(batch, seed, device, dtype, sas_lanes=(), ground_lanes=()):
+def xv1_fleet_sim(batch, seed, device, dtype, sas_lanes=(), ground_lanes=(),
+                  a2=()):
     """(sim, SimState) of `perturbed_xv1` on `device`, with the position
-    compensation `c172xv1_sim` gives in sub-float64 dtypes."""
-    from flightjax_torch.models.c172.c172x import c172xv1_sim
-    sim, _, _ = c172xv1_sim(device, dtype)
+    compensation `c172xv1_sim` gives in sub-float64 dtypes; with
+    second-order servos (`Actuator2`) on the channels `a2`, each lane's
+    rate drawn (`with_a2`)."""
+    from flightjax_torch.models.c172.c172x import Actuator2, c172xv1_sim
+    sim, _, _ = c172xv1_sim(device, dtype, actuators={
+        ch: Actuator2() for ch in a2} if a2 else None)
     t, i, x, u, s = perturbed_xv1(batch, seed, sas_lanes, ground_lanes)
+    x_sys = x["vehicle"]["systems"]
+    x_sys["act"] = with_a2(x_sys["act"], a2,
+                           np.random.default_rng(seed + 7))
     st = SimState(t=torch.tensor(t, dtype=dtype, device=device),
                   i=torch.tensor(i, device=device),
                   x=tree_from_numpy(x, device, dtype),
@@ -438,12 +464,13 @@ def ctl_laws_args(batch, seed, device, dtype, ground_lanes=(), dt=0.02):
 
 
 def xv1_operand_state(batch, seed, device, dtype, ground_lanes=(),
-                      terminated_lanes=(), crash_lanes=(), i0=0):
+                      terminated_lanes=(), crash_lanes=(), i0=0, a2=()):
     """The C172Xv1 world SimState (uncompensated) of the fly-by-wire cluster
-    operands (`fbw_cluster_operands`) with the mode-rich avionics of
-    `ctl_operands` at their heights, at step counter i0."""
+    operands (`fbw_cluster_operands`, second-order servos on the channels
+    `a2`) with the mode-rich avionics of `ctl_operands` at their heights,
+    at step counter i0."""
     d = fbw_cluster_operands(batch, seed, ground_lanes, terminated_lanes,
-                             crash_lanes)
+                             crash_lanes, a2)
     st = operand_state(d, device, dtype, i0)
     u_av, s_av = (tree_from_numpy(t, device, dtype) for t in ctl_operands(
         batch, seed + 5, d["x_kin"]["h_e"]))

@@ -245,10 +245,29 @@ def test_fly_by_wire_f_ode(override):
 
 
 def test_kernel_paths_refuse_second_order_servos():
+    """A second-order rudder has a plain layout of its own (two rows, its
+    instances' names tagged with the set), which the card refuses by its
+    ROADMAP item: the card carries the elevator set alone; in turbulence
+    the layout itself is refused."""
+    from flightjax_torch.physics.turbulence import DrydenTurbulence
     vehicle = Tx.build_vehicle(device="cpu", dtype=F64,
                                actuators={"rudder": Tx.Actuator2()})
+    lay = K.layout_of(vehicle)
+    assert lay.a2 == ("rudder",) and lay is not K.FBW_A2
+    assert K.rows(lay.x_groups) == K.rows(K.FBW.x_groups) + 1
+    assert K.rows_of((lay.x_sys,), ("act", "rudder", "v")).start == \
+        K.rows_of((K.X_SYS_FBW,), ("act", "rudder")).start + 1
+    assert lay.mega_name == "megakernel_fbw_a2_rudder"
+    for kernels in (("rk4_stage",), ("megakernel",), ("systems",)):
+        why = K.a2_refusal(lay, kernels)
+        assert isinstance(why, ValueError) and "ROADMAP" in str(why)
     with pytest.raises(ValueError, match="ROADMAP"):
-        K.layout_of(vehicle)
+        K.launch_kernel(lay.names["rk4_stage"], None, 0, (), {})
+    turbulent = Tx.build_vehicle(device="cpu", dtype=F64,
+                                 actuators={"rudder": Tx.Actuator2()},
+                                 turbulence=DrydenTurbulence(DT))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        K.layout_of(turbulent)
 
 
 # ------------------------------------------------------------ primitives
@@ -665,12 +684,20 @@ def test_entry_points_refuse_what_is_not_ported(fleet):
         make_megakernel_step(sim, st, ("mission",))
     with pytest.raises(NotImplementedError, match="core/mission.py"):
         sim.fleet_step(st, ("mission",), i=0)
-    # a second-order servo (ROADMAP Queue 2) and avionics other than the
-    # C172X's control laws, guidance and missions over them have no kernel
-    servo2 = Simulation(SimpleWorld(Tx.build_xv1(
+    # a second-order servo under the C172Xv2's guidance (ROADMAP Queue 2),
+    # the subsystems split's instances over the elevator servo on the card,
+    # and avionics other than the C172X's control laws, guidance and
+    # missions over them have no kernel
+    servo2 = Simulation(SimpleWorld(Tx.build_xv2(
         device="cpu", dtype=F64, actuators={"elevator": Tx.Actuator2()})))
     with pytest.raises(ValueError, match="Actuator2"):
         make_megakernel_step(servo2, st)
+    why = K.a2_refusal(K.FBW_A2, ("systems", "finish_sys"))
+    assert isinstance(why, NotImplementedError)
+    assert all(n in str(why) for n in ("systems_fbw_a2", "finish_sys_fbw_a2",
+                                       "ROADMAP Queue 2"))
+    assert K.a2_refusal(K.FBW_A2, ("rk4_stage", "rk4_finish",
+                                   "megakernel")) is None
 
     class Guidance:
         pass

@@ -433,7 +433,7 @@ def test_gdc_layouts_match_csrc():
     assert [k for k, _ in K.GDC_YOUT] == ["mode", "dchi", "chi_ref",
                                           "h_ref", "hor_gdc", "vrt_gdc"]
     assert {"megakernel_gdc", "gdc_ctl_laws"} <= set(L.ROLE_KERNELS)
-    assert len(L.KERNELS) == 35
+    assert len(L.KERNELS) == 38
     assert K.GDC.mega_name == "megakernel_gdc"
     assert K.GDC.pass_name == "gdc_ctl_laws"
 

@@ -548,6 +548,52 @@ int host_nav_rows(int k) {
                     fj::N_WORK, fj::N_NAVP};
   return v[k];
 }
+// the second-order elevator's instances (ACT_FBW_A2) on the fly-by-wire
+// signatures (role r writing into outs[r]), its role rows and row counts
+void host_rk4_stage_fbw_a2(const double* in, const double* k,
+                           const double* p, double* const* outs, int B,
+                           int n_params, double adt, int, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_stage::rk4_stage_kernel<fj::ACT_FBW_A2, SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p,
+             (SD*)outs[i / (lanes)], B, n_params, SD(adt)))
+}
+void host_rk4_finish_fbw_a2(const double* in, const double* k,
+                            const double* p, double* const* outs, int B, int,
+                            double c6, int comp, int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_rk4_finish::rk4_finish_kernel<fj::ACT_FBW_A2, SD>(
+             (const SD*)in, (const SD*)k, (const SD*)p,
+             (SD*)outs[i / (lanes)], B, SD(c6), comp))
+}
+int host_roles_rk4_stage_fbw_a2() { return fj::N_ROLES; }
+int host_roles_rk4_finish_fbw_a2() { return fj::N_ROLES; }
+void host_megakernel_fbw_a2(const double* in, const int* i_in,
+                            const double* p, const double* grid,
+                            const double* gains, double* const* outs,
+                            int* i_out, int B, int n_params, double dt,
+                            double t_start, int comp, int spp, double pdt,
+                            int lanes) {
+  BLOCKS(fj::N_ROLES, lanes,
+         k_megakernel::megakernel_kernel<fj::ACT_FBW_A2, SD,
+                                         k_megakernel::AV_CTL>(
+             (const SD*)in, i_in, (const SD*)p, (const SD*)grid,
+             (SD*)outs[i / (lanes)], i_out, B, n_params, dt, t_start, comp,
+             (const SD*)gains, spp, pdt))
+}
+int host_role_row_a2(int role, int k) {
+  return fj::role_row<fj::ACT_FBW_A2>(role, k);
+}
+int host_a2_rows(int f) {
+  using L = fj::SysL<fj::ACT_FBW_A2>;
+  const int v[10] = {fj::ACT_FBW_A2, L::NX, L::NXV, L::NCTX, L::NACT,
+                     k_megakernel::MegaL<fj::ACT_FBW_A2>::ROWS,
+                     fj::sh_rows<fj::ACT_FBW_A2>(),
+                     fj::P_A2 + fj::A2_N * fj::n_a2(fj::ACT_FBW_A2),
+                     fj::act_slot(fj::ACT_FBW_A2, fj::CH_ELV),
+                     fj::act_slot(fj::ACT_FBW_A2, fj::CH_FLAPS)};
+  return v[f];
+}
 void host_megakernel_turb(const double* in, const int* i_in, const double* p,
                           const double* grid, double* const* outs,
                           int* i_out, int B, int n_params, double dt,
@@ -955,6 +1001,67 @@ def test_fbw_roles_partition_the_state(host_lib):
     assert owned == list(range(K.rows(K.FBW.x_groups)))
 
 
+# ------------------------------------------------------------ Actuator2
+
+A2_NAMES = ("rk4_stage_fbw_a2", "rk4_finish_fbw_a2")
+A2_ROWS = ("ACT", "NX", "NXV", "NCTX", "NACT", "MEGA", "SH_ROWS", "P_HEAD",
+           "SLOT_ELV", "SLOT_FLAPS")
+
+
+def _a2_args(operands, batch=B):
+    """The wrapper arguments of the second-order elevator's whole-vehicle
+    instances: on the runway operands (`testing.fbw_cluster_operands` with
+    the elevator second-order: lanes 3 and 17 on the runway, lane 5
+    terminated, CRASH_LANE crashing, servo positions past their ranges,
+    the elevator's rate and its derivative drawn), or airborne on the
+    turning-climb fleet (`testing.xv1_fleet_sim`, `flight_operand_args`)."""
+    from flightjax_torch.models.c172.c172x import Actuator2
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
+    from flightjax_torch.testing import (fbw_cluster_operands,
+                                         flight_operand_args, xv1_fleet_sim)
+    if operands == "airborne":
+        sim, st = xv1_fleet_sim(batch, 1016, "cpu", torch.float64,
+                                a2=K.A2_CARD)
+        args = flight_operand_args(sim, st)
+    else:
+        veh = fbw_vehicle(device="cpu", dtype=torch.float64,
+                          actuators={"elevator": Actuator2()})
+        d = fbw_cluster_operands(batch, 1016, (3, 17), (5,), (CRASH_LANE,),
+                                 a2=K.A2_CARD)
+        args = K.operand_args(d, veh, "cpu", torch.float64)
+    return {K.FBW_A2.names[k]: args[k] for k in ("rk4_stage", "rk4_finish")}
+
+
+A2_CASES = [(n, o, False) for o in ("runway", "airborne")
+            for n in A2_NAMES] + [("rk4_finish_fbw_a2", "runway", True)]
+
+
+@pytest.mark.parametrize("name,operands,comp", A2_CASES,
+                         ids=[f"{n}-{o}" + "-comp" * c
+                              for n, o, c in A2_CASES])
+def test_a2_kernel_source_matches_plain(host_lib, name, operands, comp):
+    """rk4_stage_fbw_a2 and rk4_finish_fbw_a2 against their plain versions
+    on the runway and the airborne operands: the elevator's position and
+    rate (stage point, derivative, combine), its position clipped where it
+    is past the range, the commands clipped, the nose leg steered by the
+    rudder servo, what the finish stores for the avionics."""
+    args = _a2_args(operands)[name]
+    if name == "rk4_stage_fbw_a2":
+        args = args[:-2] + (args[-2].to(torch.float64), args[-1])
+        kargs = args[:-2] + (args[-2] > 0.5, args[-1])
+    else:
+        args = args if comp else args[:7] + (None,)
+        kargs = args
+    got = K.unpack_out(name, _run_fbw(host_lib, name, kargs, 32), comp)
+    ref = (K.rk4_stage_plain if name == "rk4_stage_fbw_a2"
+           else K.rk4_finish_plain)(*args)
+    _assert_trees_close(got, ref)
+    elv = args[1]["systems"]["act"]["elevator"]
+    assert set(elv) == {"p", "v"} and bool((elv["v"] != 0).all())
+    if operands == "runway":
+        assert bool((elv["p"].abs() > 1.0).any())
+
+
 # ------------------------------------------------------------ control laws
 
 def _run_ctl_laws(host_lib, args, lanes, by_side=False, name="ctl_laws"):
@@ -1045,12 +1152,14 @@ def test_ctl_laws_sides_partition_the_output(host_lib):
 
 
 @functools.lru_cache(maxsize=None)
-def _xv1_sim(spp):
+def _xv1_sim(spp, a2=()):
     """The C172Xv1 Simulation, float64 on the CPU, whose periodic pass
-    fires every `spp` steps (one per module)."""
+    fires every `spp` steps (one per module), with second-order servos on
+    the channels `a2`."""
     from flightjax_torch.core.sim import Simulation
-    from flightjax_torch.models.c172.c172x import c172xv1_sim
-    sim, _, _ = c172xv1_sim("cpu", torch.float64)
+    from flightjax_torch.models.c172.c172x import Actuator2, c172xv1_sim
+    sim, _, _ = c172xv1_sim("cpu", torch.float64, actuators={
+        ch: Actuator2() for ch in a2} if a2 else None)
     return Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
                       geoid_every=sim.geoid_every)
 
@@ -1065,7 +1174,7 @@ def _xv1_state(batch):
 
 
 def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False,
-                        gdc=False, msn=False):
+                        gdc=False, msn=False, a2=None):
     """The fly-by-wire megakernel's source on the C172Xv1 cluster state
     (`_xv1_state`: the fly-by-wire cluster operands with the mode-rich
     avionics; with spp = 2 every other lane's counter fires), block by
@@ -1074,11 +1183,14 @@ def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False,
     With `gdc` its C172Xv2 instance on the C172Xv2 cluster state
     (`_xv2_state`, the mode-rich guidance too), with `msn` its mission
     instance on the mission's cluster state (`_msn_state`, every phase
-    too)."""
+    too); with `a2` "runway" or "airborne" its second-order elevator's
+    instance on that cluster state or on the turning-climb fleet
+    (`_a2_state`)."""
     from flightjax_torch.core.sim import comp_residuals
     from flightjax_torch.parallel.megakernel import make_megakernel_step
     sim, st = ((_msn_sim(spp), _msn_state(batch)) if msn
                else (_xv2_sim(spp), _xv2_state(batch)) if gdc
+               else (_xv1_sim(spp, K.A2_CARD), _a2_state(batch, a2)) if a2
                else (_xv1_sim(spp), _xv1_state(batch)))
     st = st._replace(i=st.i + torch.arange(batch, dtype=torch.int32) % spp)
     if comp:
@@ -1093,7 +1205,7 @@ def _run_megakernel_fbw(host_lib, batch, lanes, comp, spp=1, by_role=False,
         *(outs[r if by_role else 0].data_ptr() for r in range(n_roles)))
     i_out = torch.full_like(bufs[1], -1)
     getattr(host_lib, "host_megakernel_" + ("msn" if msn else "gdc" if gdc
-                                            else "fbw"))(
+                                            else "fbw_a2" if a2 else "fbw"))(
         _ptr(bufs[0]), _ptr(bufs[1]), _ptr(params),
         _ptr(K.geoid_grid(aircraft.vehicle.geoid)),
         _ptr(K.ctl_gains(aircraft.avionics)), ptrs, _ptr(i_out),
@@ -1139,6 +1251,108 @@ def test_megakernel_fbw_source_matches_plain(host_lib, batch, lanes, comp,
 
 def _leaves(tree):
     return [v for _, v in tree_leaves_with_path(tree)]
+
+
+@functools.lru_cache(maxsize=None)
+def _a2_state(batch, operands):
+    """The second-order elevator's megakernel state: on the "runway" the
+    C172Xv1 cluster state with the mode-rich avionics at step 126
+    (`testing.xv1_operand_state`, the elevator second-order), "airborne"
+    the turning-climb fleet (`testing.xv1_fleet_sim`, a SAS lane), both
+    with the elevator's rate drawn per lane."""
+    from flightjax_torch.testing import xv1_fleet_sim, xv1_operand_state
+    if operands == "airborne":
+        return xv1_fleet_sim(batch, 1016, "cpu", torch.float64,
+                             sas_lanes=(2,), a2=K.A2_CARD)[1]
+    return xv1_operand_state(batch, 1016, "cpu", torch.float64, (3, 17),
+                             (5,), (CRASH_LANE,), i0=126, a2=K.A2_CARD)
+
+
+A2_MEGA_CASES = [("runway", False, 1, B, 32), ("runway", True, 2, B, 32),
+                 ("runway", True, 1, 37, 64), ("airborne", False, 1, B, 32)]
+
+
+@pytest.mark.parametrize(
+    "operands,comp,spp,batch,lanes", A2_MEGA_CASES,
+    ids=[f"{o}-" + ("compensated" if c else "uncompensated")
+         + f"-every-{n}-B{b}-L{l_}" for o, c, n, b, l_ in A2_MEGA_CASES])
+def test_megakernel_fbw_a2_source_matches_plain(host_lib, operands, comp,
+                                                spp, batch, lanes):
+    """megakernel_fbw_a2 against `megakernel_step_plain` on the C172Xv1
+    whose elevator is second-order: the whole step with the elevator's
+    position and rate, then the control laws where the lane's new counter
+    fires, on the runway operands (the crash lane latching, positions past
+    their ranges) and the airborne fleet."""
+    from flightjax_torch.parallel.megakernel import megakernel_step_plain
+    sim, st, got = _run_megakernel_fbw(host_lib, batch, lanes, comp, spp,
+                                       a2=operands)
+    ref = megakernel_step_plain(sim, st)
+    for name in ("t", "i", "x", "u", "s", "c"):
+        _assert_trees_close({name: getattr(got, name)},
+                            {name: getattr(ref, name)})
+    moved = got.x["vehicle"]["systems"]["act"]["elevator"]["v"] != st.x[
+        "vehicle"]["systems"]["act"]["elevator"]["v"]
+    assert bool(moved[~st.s["terminated"]].all())  # the rate on live lanes
+    if operands == "runway":
+        assert bool(got.s["vehicle"]["systems"]["crashed"][CRASH_LANE])
+
+
+@pytest.mark.parametrize("name", A2_NAMES + ("megakernel_fbw_a2",))
+def test_a2_roles_partition_the_output(host_lib, name):
+    """Every output row of the second-order elevator's instances, its two
+    state rows among them, is written by exactly one role, for every
+    aircraft, and by no other role anywhere; role DRAG integrates the
+    servos' eight states (`role_row<ACT_FBW_A2>`)."""
+    if name == "megakernel_fbw_a2":
+        _, _, outs = _run_megakernel_fbw(host_lib, B, 32, True,
+                                         by_role=True, a2="runway")
+    else:
+        outs = _run_fbw(host_lib, name, _a2_args("runway")[name], 32,
+                        split=True)
+    full = sum((~o.isnan()).all(dim=1).int() for o in outs)
+    touched = sum((~o.isnan()).any(dim=1).int() for o in outs)
+    assert full.tolist() == [1] * outs[0].shape[0]
+    assert touched.tolist() == [1] * outs[0].shape[0]
+    rows = [host_lib.host_role_row_a2(role, k)
+            for role in range(host_lib.host_n_roles())
+            for k in range(host_lib.host_n_slots())]
+    assert sorted(r for r in rows if r >= 0) == list(range(K.rows(
+        K.FBW_A2.x_groups)))
+
+
+def test_a2_rows_match_the_kernels(host_lib):
+    """ACT_FBW_A2's rows, scratch, parameter head and slots as the compiled
+    sources declare them, against the Python layout FBW_A2 and the
+    parameter buffer: one row more than the fly-by-wire C172X's from the
+    elevator's rate on, the fly-by-wire scratch, the coefficients' pair
+    after the servos."""
+    from flightjax_torch.models.c172.c172x import Actuator2
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw_veh
+    got = dict(zip(A2_ROWS, (host_lib.host_a2_rows(f)
+                             for f in range(len(A2_ROWS)))))
+    lay = K.FBW_A2
+    assert got["ACT"] == 1 | (1 << (2 + K.FBW_CHANNELS.index("elevator")))
+    assert got["NX"] == K.rows((lay.x_sys,)) == K.rows((K.X_SYS_FBW,)) + 1
+    assert got["NXV"] == K.rows(lay.x_groups)
+    assert got["NCTX"] == K.rows(lay.ctx_groups)
+    assert got["MEGA"] == K.rows(lay.mega) == K.rows(K.FBW.mega) + 1
+    assert got["NACT"] == 8
+    assert got["SH_ROWS"] == SYSL_BEFORE[1][11]
+    x_act = K.rows_of((lay.x_sys,), ("act", "aileron")).start
+    assert got["SLOT_ELV"] == K.rows_of(
+        (lay.x_sys,), ("act", "elevator", "p")).start - x_act
+    assert got["SLOT_FLAPS"] == K.rows_of(
+        (lay.x_sys,), ("act", "flaps")).start - x_act
+    veh = fbw_veh(device="cpu", dtype=torch.float64,
+                  actuators={"elevator": Actuator2(omega_n=20.0, zeta=0.7)})
+    buf = K.system_params(veh)
+    head = got["P_HEAD"]
+    assert buf[head - 2:head].tolist() == [400.0, 2.0 * 0.7 * 20.0]
+    act = K.param_act(veh)  # the elevator's time constant is NaN
+    assert math.isnan(act[3 * K.FBW_CHANNELS.index("elevator")])
+    torch.testing.assert_close(buf[head - len(act):head],
+                               torch.tensor(act, dtype=torch.float64),
+                               rtol=0.0, atol=0.0, equal_nan=True)
 
 
 def test_megakernel_fbw_roles_partition_the_output(host_lib):

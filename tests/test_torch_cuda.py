@@ -33,7 +33,12 @@ the sensor-fed mission operands in every setting, as `testing.nav_hold`
 says. The sensor-fed C172Xv2 and missions in turbulence:
 megakernel_gdc_nav_turb and megakernel_msn_nav_turb one step on their
 mode-rich operands in four settings, as `testing.nav_hold` says, and their
-three paths each 12 float64 steps against the plain step.
+three paths each 12 float64 steps against the plain step. The C172Xv1
+with a second-order elevator: rk4_stage_fbw_a2, rk4_finish_fbw_a2 and
+megakernel_fbw_a2 exactly, at both block sizes and on ragged batches, on
+the runway operands and the airborne fleet; its vehicle split and
+megakernel 3 steps against their plain steps, and the card's refusals of
+the subsystems split and of another channel set.
 Needs a CUDA device and nvcc; skips without a device. This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1331,3 +1336,178 @@ def test_normal_f32_table_equals_the_chain_on_card():
     key = R.fold_in(R.PRNGKey(0x5E45), seed)
     got = R.normal_f32(key.cuda(), (20,))
     assert torch.equal(got.cpu(), R.normal_f32(key, (20,)))
+
+
+# ------------------------------------------------------------ Actuator2
+
+A2_CASES = [("rk4_stage_fbw_a2", False), ("rk4_finish_fbw_a2", False),
+            ("rk4_finish_fbw_a2", True)]
+A2_CASE_IDS = ["rk4_stage_fbw_a2", "rk4_finish_fbw_a2",
+               "rk4_finish_fbw_a2-comp"]
+
+
+def _a2_args(name, operands, batch, dtype, comp):
+    """The wrapper arguments of a second-order elevator's instance, on the
+    card: on the runway operands (`testing.fbw_cluster_operands` with the
+    elevator second-order: lanes 3 and 17 on the runway, lane 5
+    terminated, SMALL_CRASH_LANE crashing) or on the airborne
+    turning-climb fleet (`testing.xv1_fleet_sim`, uncompensated)."""
+    from flightjax_torch.models.c172.c172x import Actuator2
+    from flightjax_torch.models.c172.c172x import build_vehicle as fbw
+    from flightjax_torch.testing import (fbw_cluster_operands,
+                                         xv1_fleet_sim)
+    base = name[:-len("_fbw_a2")]
+    if operands == "airborne":
+        sim, st = xv1_fleet_sim(batch, 1016, "cuda", dtype, a2=K.A2_CARD)
+        return base, flight_operand_args(sim, st)[base]
+    d = fbw_cluster_operands(batch, 1016, (3, 17), (5,), (SMALL_CRASH_LANE,),
+                             a2=K.A2_CARD)
+    veh = fbw(device="cuda", dtype=dtype,
+              actuators={"elevator": Actuator2()})
+    return base, _with_comp(base, K.operand_args(d, veh, "cuda", dtype)[base],
+                            comp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,comp", A2_CASES, ids=A2_CASE_IDS)
+@pytest.mark.parametrize("operands,batch,lanes",
+                         [("runway", b, n) for b, n in ROLE_SHAPES]
+                         + [("airborne", B, 32)],
+                         ids=[f"runway-{i}" for i in ROLE_IDS]
+                         + ["airborne"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_a2_instance_matches_plain_on_card(name, comp, operands, batch,
+                                           lanes, dtype):
+    """rk4_stage_fbw_a2 and rk4_finish_fbw_a2 against their plain versions,
+    exactly, at both block sizes, on ragged batches and on the airborne
+    fleet; the wrapper launches the instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if operands == "airborne" and comp:
+        comp = False  # the vehicle path's finish is uncompensated
+    base, args = _a2_args(name, operands, batch, dtype, comp)
+    ref = getattr(K, base + "_plain")(*args)
+    buf, n_out, scalars, ops = K.PACK[name](*args)
+    got = K.unpack_out(name, K.launch_kernel(name, buf, n_out, scalars, ops,
+                                             block=lanes), comp)
+    before = K.LAUNCHES[name]
+    via = getattr(K, base)(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    assert _worst(got, ref) == 0.0
+    assert _worst(via, ref) == 0.0
+    if base == "rk4_finish" and operands == "runway":
+        assert bool(got[1]["crashed"][SMALL_CRASH_LANE])
+
+
+def _a2_sim(dtype, spp=1):
+    from flightjax_torch.core.sim import Simulation
+    from flightjax_torch.models.c172.c172x import Actuator2, c172xv1_sim
+    sim, _, _ = c172xv1_sim("cuda", dtype,
+                            actuators={"elevator": Actuator2()})
+    return Simulation(sim.system, dt=sim.dt, periodic_dt=spp * sim.dt,
+                      geoid_every=sim.geoid_every)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp,spp", [(False, 1), (True, 2)],
+                         ids=["uncompensated", "compensated-every-2nd"])
+@pytest.mark.parametrize("batch,lanes", ROLE_SHAPES, ids=ROLE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_megakernel_fbw_a2_matches_plain_on_card(comp, spp, batch, lanes,
+                                                 dtype):
+    """One step of megakernel_fbw_a2 against its plain version, exactly, on
+    the C172Xv1 cluster state with the mode-rich avionics and the elevator
+    second-order (`testing.xv1_operand_state`; the crash lane latches), the
+    pass firing on every lane or, at twice the step, on every other
+    lane."""
+    from flightjax_torch.core.sim import comp_residuals
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import xv1_operand_state
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim = _a2_sim(dtype, spp)
+    st = xv1_operand_state(batch, 1016, "cuda", dtype, (3, 17), (5,),
+                           (SMALL_CRASH_LANE,), i0=126, a2=K.A2_CARD)
+    st = st._replace(i=st.i + torch.arange(
+        batch, dtype=torch.int32, device="cuda") % spp)
+    if comp:
+        st = st._replace(c=comp_residuals(st.x, force=True))
+    bufs, step_packed, unpack = make_megakernel_step(sim, st, block=lanes)
+    assert bufs[0].shape[0] == K.rows(K.FBW_A2.mega) == 142
+    K.reset_launches()
+    got = unpack(step_packed(bufs))
+    ref = megakernel_step_plain(sim, st)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "megakernel_fbw_a2": 1}
+    _assert_same(tuple(got), tuple(ref))
+    assert bool(got.s["vehicle"]["systems"]["crashed"][SMALL_CRASH_LANE])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["vehicle", "megakernel"])
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f64", "f32"])
+def test_a2_paths_match_plain_on_card(path, dtype, tol):
+    """The C172Xv1 with a second-order elevator on the turning climb, 3
+    steps from step 126 through the vehicle split against its plain step
+    (the geoid kernel's refresh fires, so within tol) and the megakernel
+    against its plain step exactly, with the launch counts of the path;
+    `Simulation.fleet_step` and the subsystems
+    split's step on the card refuse it by name (their instances are still
+    to port), and the card refuses another channel set."""
+    from flightjax_torch.parallel.clusterstep import (cluster_step,
+                                                      make_cluster_step,
+                                                      vehicle_step)
+    from flightjax_torch.parallel.megakernel import (make_megakernel_step,
+                                                     megakernel_step_plain)
+    from flightjax_torch.testing import xv1_fleet_sim
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim, st = xv1_fleet_sim(B, 1016, "cuda", dtype, sas_lanes=(2,),
+                            a2=K.A2_CARD)
+    st = st._replace(i=torch.full_like(st.i, 126))
+    K.reset_launches()
+    if path == "vehicle":
+        st = st._replace(c=None)
+        step = make_cluster_step(sim, st, split="vehicle")
+        got = ref = st
+        for i in range(126, 129):
+            got = step(got, i=i)
+            ref = vehicle_step(sim, ref, i, plain=True)
+        want = {"rk4_stage_fbw_a2": 12, "rk4_finish_fbw_a2": 3, "geoid": 1,
+                "ctl_laws": 3}
+    else:
+        bufs, step_packed, unpack = make_megakernel_step(sim, st)
+        ref = st
+        for _ in range(3):
+            bufs = step_packed(bufs)
+            ref = megakernel_step_plain(sim, ref)
+        got = unpack(bufs)
+        want = {"megakernel_fbw_a2": 3}
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | want
+    if path == "vehicle":
+        assert _worst((got.t, got.x, got.u, got.s),
+                      (ref.t, ref.x, ref.u, ref.s)) <= tol
+        assert torch.equal(got.s["avionics"]["lon"]["mode_prev"],
+                           ref.s["avionics"]["lon"]["mode_prev"])
+    else:
+        _assert_same((got.t, got.x, got.u, got.s),
+                     (ref.t, ref.x, ref.u, ref.s))
+    with pytest.raises(NotImplementedError, match="systems_fbw_a2"):
+        sim.fleet_step(st, i=126)
+    with pytest.raises(NotImplementedError, match="finish_sys_fbw_a2"):
+        make_cluster_step(sim, st, split="subsystems")(st, i=126)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        cluster_step(sim, st, 126)
+    two = ("elevator", "rudder")
+    other, ost = xv1_fleet_sim(B, 1016, "cuda", dtype, a2=two)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
+        make_megakernel_step(other, ost)
+    ost = ost._replace(c=None)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
+        make_cluster_step(other, ost, split="vehicle")(ost, i=126)

@@ -174,11 +174,13 @@ def test_finish_kin_plain_matches_k4_lane(case, comp):
 def test_wrappers_run_plain_on_cpu_without_launching(case):
     """On CPU tensors the wrappers are the plain versions and launch
     nothing, on the mechanical C172, on the fly-by-wire one and the
-    turbulent C172S and C172X (whose instances the same wrappers launch on
-    the card), on the C172X's three passes (the control laws, the
-    guidance, a mission) and on the navigation pass."""
+    turbulent C172S and C172X and the C172X with a second-order elevator
+    (whose instances the same wrappers launch on the card), on the C172X's
+    three passes (the control laws, the guidance, a mission) and on the
+    navigation pass."""
+    from flightjax_torch.models.c172.c172x import Actuator2
     from flightjax_torch.models.c172.c172x import build_vehicle as fbw_vehicle
-    from flightjax_torch.parallel.launch import (FBW_KERNELS,
+    from flightjax_torch.parallel.launch import (A2_KERNELS, FBW_KERNELS,
                                                  FBW_TURB_KERNELS,
                                                  TURB_KERNELS)
     from flightjax_torch.physics.turbulence import DrydenTurbulence
@@ -211,6 +213,13 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         fbw_vehicle(device="cpu", dtype=torch.float64,
                     turbulence=DrydenTurbulence(DT)), "cpu",
         torch.float64, adt=ADT, dt=DT).items()}
+    a2 = K.operand_args(fbw_cluster_operands(B, SEED, CONTACT_LANES,
+                                             (TERMINATED_LANE,),
+                                             a2=K.A2_CARD),
+                        fbw_vehicle(device="cpu", dtype=torch.float64,
+                                    actuators={"elevator": Actuator2()}),
+                        "cpu", torch.float64, adt=ADT, dt=DT)
+    a2 = {K.FBW_A2.names[k]: a2[k] for k in ("rk4_stage", "rk4_finish")}
     K.reset_launches()
     # every kernel but the megakernels, whose steps have their own wrapper
     mega = {"megakernel", "megakernel_fbw", "megakernel_gdc",
@@ -218,15 +227,16 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
             "megakernel_nav", "megakernel_nav_turb", "megakernel_gdc_turb",
             "megakernel_msn_turb", "megakernel_gdc_nav",
             "megakernel_msn_nav", "megakernel_gdc_nav_turb",
-            "megakernel_msn_nav_turb"}
-    turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS}
+            "megakernel_msn_nav_turb", "megakernel_fbw_a2"}
+    turbs = {*TURB_KERNELS, *FBW_TURB_KERNELS, *A2_KERNELS}
     assert set(args) | set(ctl) == set(K.LAUNCHES) - {*mega, *FBW_KERNELS,
                                                       *turbs, "nav_pass"}
     assert {K.FBW.names.get(k, k) for k in fbw} == (
         set(K.LAUNCHES) - {*mega, *ctl, *K.FBW.names, *turbs, "nav_pass"})
     assert set(turb) == set(TURB_KERNELS) - mega
     assert set(fbw_turb) == set(FBW_TURB_KERNELS) - mega
-    for name, a in (*turb.items(), *fbw_turb.items()):
+    assert set(a2) == set(A2_KERNELS) - mega
+    for name, a in (*turb.items(), *fbw_turb.items(), *a2.items()):
         base = name[:name.index("_", len("rk4_s"))]
         got = getattr(K, base)(*a)
         ref = getattr(K, base + "_plain")(*a)
@@ -249,7 +259,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(case):
         *FBW_TURB_KERNELS, "nav_pass", "megakernel_nav",
         "megakernel_nav_turb", "megakernel_gdc_nav", "megakernel_gdc_turb",
         "megakernel_msn_turb", "megakernel_msn_nav", "msn_nav_ctl_laws",
-        "megakernel_gdc_nav_turb", "megakernel_msn_nav_turb")}
+        "megakernel_gdc_nav_turb", "megakernel_msn_nav_turb",
+        *A2_KERNELS)}
 
 
 def test_finish_kin_rejects_other_residual_sets(case):

@@ -92,7 +92,9 @@ def _csrc(name):
 
 
 def _constexprs(src, env):
-    for decl in re.findall(r"constexpr int ([^;]+);", src):
+    """{name: value} of the `constexpr int NAME = expr, ...;` declarations
+    of a source (not its constexpr functions), evaluated in order."""
+    for decl in re.findall(r"constexpr int (\w+ *=[^;]+);", src):
         for item in decl.split(","):
             name, expr = item.split("=")
             env[name.strip()] = eval(expr.strip(), {}, dict(env))

@@ -18,8 +18,9 @@ not hold (a new one) is not compared. `tools/sass_torch_record.json` holds
 every instance (the C172S kernels, the fly-by-wire instances, the
 C172X megakernels and passes, the mission's, the turbulent C172S's, the
 turbulent C172Xv1's and the sensor-fed C172Xv1's instances; the turbulent
-and sensor-fed C172Xv2's, the sensor-fed missions' and the turbulent
-sensor-fed C172Xv2's and missions' since they were ported), recorded
+and sensor-fed C172Xv2's, the sensor-fed missions', the turbulent
+sensor-fed C172Xv2's and missions' and the second-order elevator's since
+they were ported), recorded
 with the nvcc of an H100 machine; `chip_smoke.py` checks it. A change that means to change the machine code
 of a recorded instance records the file anew from its own build
 (`--record tools/sass_torch_record.json`). Needs the CUDA toolkit
@@ -39,13 +40,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 # a kernel's mangled name: its name, its ActKind (absent before the
 # templating, 0 for the C172S, 1 fly-by-wire, 2 turbulent, 3 turbulent
-# fly-by-wire), its float type,
+# fly-by-wire, 33 fly-by-wire with a second-order elevator), its float type,
 # the megakernel's avionics (absent before their templating; 2 the C172Xv2's
 # guidance, 3 a mission, 4 the navigation avionics, AV_NAV, 5 the
 # navigation avionics around the guidance, AV_GDC_NAV, 6 around a mission,
 # AV_MSN_NAV; the sensor-fed missions' msn_ctl_laws and nav_pass instances
 # carry the 6 too)
-KERNEL = re.compile(r"_Z\d+(\w+?)_kernelI(?:Li(\d)E)?N2fj6StrictI([fd])EE"
+KERNEL = re.compile(r"_Z\d+(\w+?)_kernelI(?:Li(\d+)E)?N2fj6StrictI([fd])EE"
                     r"(?:Li(\d)E)?")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 
@@ -62,7 +63,10 @@ def kernel_name(name, act, av):
     `name_gdc_nav_turb` (the sensor-fed C172Xv2, calm and turbulent,
     avionics 5), `megakernel_msn_nav`, `megakernel_msn_nav_turb`,
     `msn_nav_ctl_laws` and `nav_pass_msn_nav` (the sensor-fed missions,
-    avionics 6)."""
+    avionics 6), `name_fbw_a2` (the C172Xv1 with a second-order elevator,
+    ActKind 33)."""
+    if act == "33":
+        return name + "_fbw_a2"
     turb = "_turb" if act == "3" else ""
     if av == "6":
         return ("msn_nav_ctl_laws" if name == "msn_ctl_laws"
